@@ -1,0 +1,261 @@
+"""Dynamic-convolution caption decoder (Transform-and-Tell style).
+
+Counterpart of `news_image_caption_tpu/models/decoder_flattened.py` for
+the flagship structure (dynamic conv, GLU, post-LayerNorm, image and
+article contexts, tied adaptive softmax): `SumEmbedder`,
+`DynamicConvDecoderLayer` (full-sequence forward and the ring-major
+decode step) and `DynamicConvDecoder` (`precompute_kv`, `hidden`,
+`log_prob`, `init_cache`, `step_topk`).
+
+Parameter names follow the flax tree (`layers.0.image_attn.k_proj.kernel`
+for `layers_0/image_attn/k_proj/kernel`), so `models/from_jax.py` maps
+the reference's weights by renaming alone.
+
+The decode step runs the port's kernels: `decode_conv_block`,
+`decode_cross_attention` (inside `attend_flat_beam`), `decode_ffn_block`
+and `band_topk_lse` (inside `topk_log_prob`). Their weights, with the
+weight norm folded and cast to the working dtype, come from
+`DynamicConvDecoder.decode_weights()`, computed once per model load
+rather than once per step.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from news_image_caption_tpu_torch.ops.adaptive import (AdaptiveEmbedding,
+                                                       AdaptiveSoftmax)
+from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
+                                                        MultiHeadAttention)
+from news_image_caption_tpu_torch.ops.conv import DynamicConv
+from news_image_caption_tpu_torch.ops.decode_blocks import (
+    decode_conv_block, decode_ffn_block)
+from news_image_caption_tpu_torch.ops.linear import GehringLinear, LayerNorm
+from news_image_caption_tpu_torch.ops.positional import \
+    SinusoidalPositionalEmbedding
+
+LayerKV = Dict[str, AttentionKV]
+
+
+class LayerDecodeWeights(NamedTuple):
+    """One layer's fused decode weights (weight norm folded)."""
+
+    conv_w1: torch.Tensor      # [D, 2C]
+    conv_b1: torch.Tensor
+    conv_wl: torch.Tensor      # [C, H*K], head-major tap predictor
+    conv_w2: torch.Tensor      # [C, D]
+    conv_b2: torch.Tensor
+    context_w: torch.Tensor    # [n_contexts * D, D]
+    context_b: torch.Tensor
+    ffn_w1: torch.Tensor       # [D, F]
+    ffn_b1: torch.Tensor
+    ffn_w2: torch.Tensor       # [F, D]
+    ffn_b2: torch.Tensor
+
+
+class DecodeWeights(NamedTuple):
+    layers: List[LayerDecodeWeights]
+    head_table: torch.Tensor   # [cutoff0 + n_tails, D]
+
+
+class SumEmbedder(nn.Module):
+    """Adaptive word embedding + sinusoidal positions, summed."""
+
+    def __init__(self, vocab_size: int, embed_dim: int,
+                 cutoff: Sequence[int], *, device, dtype, generator=None,
+                 padding_idx: int = 0, pos_padding_idx: int = 1,
+                 max_positions: int = 512):
+        super().__init__()
+        assert cutoff[-1] == vocab_size
+        self.adaptive = AdaptiveEmbedding(
+            cutoff, embed_dim, embed_dim, padding_idx=padding_idx,
+            scale_embeds=True, device=device, dtype=dtype,
+            generator=generator)
+        self.position = SinusoidalPositionalEmbedding(
+            embed_dim, padding_idx=pos_padding_idx, init_size=max_positions,
+            device=device, dtype=dtype)
+        self.n_bands = len(cutoff)
+
+    def forward(self, token_ids: torch.Tensor,
+                start_pos: int = 0) -> torch.Tensor:
+        return self.adaptive(token_ids) + self.position(token_ids, start_pos)
+
+    def embed_tables(self):
+        return [self.adaptive.weights_for_band(i)
+                for i in range(self.n_bands)]
+
+
+class DynamicConvDecoderLayer(nn.Module):
+    """Conv block, then one attention per context fused by `context_fc`,
+    then the FFN; LayerNorm after each block."""
+
+    def __init__(self, embed_dim: int, kernel_size: int, num_heads: int,
+                 ffn_dim: int, context_specs: Sequence[Tuple[str, int]], *,
+                 device, dtype, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        D = embed_dim
+        self.num_heads = num_heads
+        self.kernel_size = kernel_size
+        self.context_names = [name for name, _ in context_specs]
+        self.linear1 = GehringLinear(D, 2 * D, **kw)
+        self.conv = DynamicConv(D, kernel_size, num_heads, **kw)
+        self.linear2 = GehringLinear(D, D, **kw)
+        self.conv_layer_norm = LayerNorm(D, device=device, dtype=dtype)
+        for name, kdim in context_specs:
+            setattr(self, f"{name}_attn",
+                    MultiHeadAttention(D, num_heads, kdim, **kw))
+            setattr(self, f"{name}_attn_ln",
+                    LayerNorm(D, device=device, dtype=dtype))
+        self.context_fc = GehringLinear(len(context_specs) * D, D, **kw)
+        self.fc1 = GehringLinear(D, ffn_dim, **kw)
+        self.fc2 = GehringLinear(ffn_dim, D, **kw)
+        self.final_layer_norm = LayerNorm(D, device=device, dtype=dtype)
+
+    def _attn(self, name: str) -> MultiHeadAttention:
+        return getattr(self, f"{name}_attn")
+
+    def _attn_ln(self, name: str) -> LayerNorm:
+        return getattr(self, f"{name}_attn_ln")
+
+    def precompute_kv(self, contexts: Dict[str, torch.Tensor]) -> LayerKV:
+        return {name: self._attn(name).precompute_kv(
+                    contexts[name], contexts[name],
+                    contexts.get(f"{name}_mask"))
+                for name in self.context_names}
+
+    def forward(self, x: torch.Tensor, kv: LayerKV) -> torch.Tensor:
+        """Full-sequence forward, x [B, T, D]."""
+        a, g = self.linear1(x).chunk(2, dim=-1)
+        h = self.conv(a * torch.sigmoid(g))
+        x = self.conv_layer_norm(x + self.linear2(h))
+        parts = [self._attn_ln(name)(x + self._attn(name).attend(x, kv[name]))
+                 for name in self.context_names]
+        x = self.context_fc(torch.cat(parts, dim=-1))
+        y = self.fc2(torch.relu(self.fc1(x)))
+        return self.final_layer_norm(x + y)
+
+    def decode_weights(self, dtype: torch.dtype) -> LayerDecodeWeights:
+        w1, b1 = self.linear1.folded(dtype)
+        w2, b2 = self.linear2.folded(dtype)
+        cw, cb = self.context_fc.folded(dtype)
+        f1, fb1 = self.fc1.folded(dtype)
+        f2, fb2 = self.fc2.folded(dtype)
+        wl = self.conv.weight_linear.kernel.to(dtype).contiguous()
+        return LayerDecodeWeights(w1, b1, wl, w2, b2, cw, cb, f1, fb1, f2,
+                                  fb2)
+
+    def step(self, x_t: torch.Tensor, kv: LayerKV, cache: torch.Tensor,
+             t: int, w: LayerDecodeWeights, beam: int = 1) -> torch.Tensor:
+        """One decode step, x_t [B*beam, D]. cache [K-1, B*beam, C] is
+        the ring-major conv history; the GLU row of step t is written
+        into slot t mod (K-1) in place."""
+        y, h = decode_conv_block(x_t, cache, t, w.conv_w1, w.conv_b1,
+                                 w.conv_wl, w.conv_w2, w.conv_b2,
+                                 self.num_heads)
+        cache[t % (self.kernel_size - 1)] = h
+        x = self.conv_layer_norm(y)
+        parts = [self._attn_ln(name)(
+                     x + self._attn(name).attend_flat_beam(x, kv[name], beam))
+                 for name in self.context_names]
+        x = torch.cat(parts, dim=-1) @ w.context_w + w.context_b
+        y = decode_ffn_block(x, w.ffn_w1, w.ffn_b1, w.ffn_w2, w.ffn_b2)
+        return self.final_layer_norm(y)
+
+
+class DynamicConvDecoder(nn.Module):
+    """Decoder stack + tied adaptive softmax.
+
+    contexts (batch first): image [B, P, image_dim], image_mask [B, P]
+    and article [B, S, article_dim], article_mask [B, S], masks True at
+    padding.
+    """
+
+    def __init__(self, *, device, dtype, generator=None,
+                 vocab_size: int = 50265, embed_dim: int = 1024,
+                 ffn_dim: int = 4096, num_heads: int = 16,
+                 num_layers: int = 4,
+                 kernel_sizes: Sequence[int] = (3, 7, 15, 31),
+                 cutoff: Sequence[int] = (5000, 20000, 50265),
+                 image_dim: int = 2048, article_dim: int = 1024,
+                 padding_idx: int = 0, target_padding_idx: int = 1,
+                 max_positions: int = 512):
+        super().__init__()
+        assert len(kernel_sizes) == num_layers
+        assert min(kernel_sizes) > 1, "the ring decode needs K > 1"
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.dtype = dtype
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.max_positions = max_positions
+        self.embedder = SumEmbedder(
+            vocab_size, embed_dim, cutoff, padding_idx=padding_idx,
+            pos_padding_idx=target_padding_idx, max_positions=max_positions,
+            **kw)
+        specs = (("image", image_dim), ("article", article_dim))
+        self.layers = nn.ModuleList(
+            DynamicConvDecoderLayer(embed_dim, k, num_heads, ffn_dim, specs,
+                                    **kw)
+            for k in kernel_sizes)
+        self.adaptive_softmax = AdaptiveSoftmax(embed_dim, cutoff, **kw)
+
+    def precompute_kv(self, contexts: Dict[str, Optional[torch.Tensor]]
+                      ) -> List[LayerKV]:
+        contexts = {k: (v.to(self.dtype)
+                        if v is not None and v.is_floating_point() else v)
+                    for k, v in contexts.items()}
+        return [layer.precompute_kv(contexts) for layer in self.layers]
+
+    def hidden(self, token_ids: torch.Tensor,
+               contexts: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Teacher-forced hidden states [B, T, D]."""
+        kvs = self.precompute_kv(contexts)
+        x = self.embedder(token_ids)
+        for layer, kv in zip(self.layers, kvs):
+            x = layer(x, kv)
+        return x
+
+    def log_prob(self, token_ids: torch.Tensor,
+                 contexts: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Full-vocab log-probs [B, T, V] (teacher forced)."""
+        x = self.hidden(token_ids, contexts)
+        B, T, D = x.shape
+        lp = self.adaptive_softmax.log_prob(x.reshape(B * T, D),
+                                            self.embedder.embed_tables())
+        return lp.view(B, T, self.vocab_size)
+
+    def init_cache(self, batch_size: int, device) -> List[torch.Tensor]:
+        """Zero ring-major conv histories [K-1, B, C], one per layer."""
+        return [torch.zeros(k - 1, batch_size, self.embed_dim,
+                            device=device, dtype=self.dtype)
+                for k in self.kernel_sizes]
+
+    def decode_weights(self) -> DecodeWeights:
+        """The step's fused weights; compute once per model load."""
+        with torch.no_grad():
+            tables = self.embedder.embed_tables()
+            return DecodeWeights(
+                layers=[layer.decode_weights(self.dtype)
+                        for layer in self.layers],
+                head_table=self.adaptive_softmax.head_table(tables,
+                                                            self.dtype))
+
+    def step_topk(self, token_t: torch.Tensor, step_idx: int,
+                  kvs: List[LayerKV], caches: List[torch.Tensor], k: int,
+                  weights: DecodeWeights, beam: int = 1):
+        """One decode step returning the exact top-k candidates.
+
+        token_t [B*beam]; step_idx = tokens already consumed. The conv
+        caches advance in place. Returns (cand_log_probs [B*beam, k]
+        fp32, cand_ids [B*beam, k] int64).
+        """
+        x = self.embedder(token_t[:, None], start_pos=step_idx)[:, 0, :]
+        for layer, kv, cache, w in zip(self.layers, kvs, caches,
+                                       weights.layers):
+            x = layer.step(x, kv, cache, step_idx, w, beam)
+        return self.adaptive_softmax.topk_log_prob(
+            x, k, self.embedder.embed_tables(), weights.head_table)

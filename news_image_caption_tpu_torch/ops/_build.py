@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels.
+
+`function(name, argtypes)` returns a C entry point of the kernel
+library. On first use in a process, every `csrc/*.cu` is compiled with
+`nvcc` for `sm_90a` into one shared library under
+`news_image_caption_tpu_torch/_build/`, named by a hash of the sources
+and flags, so a checkout builds its own kernels once and an edited
+source builds anew. The library has a plain C interface and is bound
+with `ctypes`: pointers pass as `c_void_p`, sizes as `c_int`, and every
+entry point returns a `cudaError_t` that `check` turns into an
+exception.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on machines with no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH);"
+                       " the port's kernels are built from csrc/ with it")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the library for this source hash, unless
+    it exists already; returns its path."""
+    out = BUILD_DIR / f"libnic_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stderr[-8000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            handle.nic_error_string.argtypes = [I]
+            handle.nic_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def function(name: str, argtypes: Sequence):
+    fn = getattr(lib(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = I
+    return fn
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = lib().nic_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, what: str) -> None:
+    """Raise ValueError for an input the kernel does not take."""
+    if not cond:
+        raise ValueError(what)

@@ -1,0 +1,162 @@
+"""Adaptive input embeddings and the tied adaptive softmax.
+
+Counterpart of `news_image_caption_tpu/ops/adaptive.py`: the embedder,
+the head/tail logits, full-vocab `log_prob`, and the decode-time exact
+top-k `topk_log_prob` in the form of the reference's band-streaming
+kernel path (`_topk_log_prob_pallas`), which this port takes on every
+device: the head band is [table0; class_projᵀ] with only the word rows
+selectable, each tail band goes through `band_topk_lse`, and the class
+priors are cls_logit - lse_head. The training loss comes with the train
+step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
+                                                        stable_topk)
+from news_image_caption_tpu_torch.ops.linear import initializes, new_param
+
+
+def band_ranges(cutoff: Sequence[int]) -> List[Tuple[int, int]]:
+    """[(lo, hi)] for each band; cutoff ends with the vocab size."""
+    out, prev = [], 0
+    for c in cutoff:
+        out.append((prev, c))
+        prev = c
+    return out
+
+
+def _xavier_uniform_(p: torch.Tensor, generator) -> None:
+    bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+    p.uniform_(-bound, bound, generator=generator)
+
+
+class AdaptiveEmbedding(nn.Module):
+    """Per-band tables `embed_i` [band_v, dim] and projections `proj_i`
+    [dim, output_dim], summed over the bands; times sqrt(output_dim)
+    with scale_embeds."""
+
+    def __init__(self, cutoff: Sequence[int], dim: int, output_dim: int, *,
+                 device, dtype, generator=None, padding_idx: int = 0,
+                 scale_embeds: bool = False):
+        super().__init__()
+        self.bands = band_ranges(cutoff)
+        self.output_dim = output_dim
+        self.scale_embeds = scale_embeds
+        for i, (lo, hi) in enumerate(self.bands):
+            table = new_param((hi - lo, dim), device, dtype)
+            proj = new_param((dim, output_dim), device, dtype)
+            if initializes(device):
+                with torch.no_grad():
+                    table.normal_(0.0, math.sqrt(1.0 / dim),
+                                  generator=generator)
+                    table[padding_idx] = 0.0
+                    _xavier_uniform_(proj, generator)
+            setattr(self, f"embed_{i}", table)
+            setattr(self, f"proj_{i}", proj)
+
+    def weights_for_band(self, i: int):
+        return getattr(self, f"embed_{i}"), getattr(self, f"proj_{i}")
+
+    def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
+        dtype = self.proj_0.dtype
+        out = torch.zeros(token_ids.shape + (self.output_dim,),
+                          device=token_ids.device, dtype=dtype)
+        for i, (lo, hi) in enumerate(self.bands):
+            table, proj = self.weights_for_band(i)
+            in_band = (token_ids >= lo) & (token_ids < hi)
+            idx = torch.clamp(token_ids - lo, 0, hi - lo - 1)
+            e = table[idx].to(dtype) @ proj.to(dtype)
+            out = out + torch.where(in_band[..., None], e,
+                                    torch.zeros((), dtype=dtype,
+                                                device=e.device))
+        if self.scale_embeds:
+            out = out * math.sqrt(self.output_dim)
+        return out
+
+
+class AdaptiveSoftmax(nn.Module):
+    """Tied adaptive softmax: the word logits reuse the embedder's band
+    tables (passed as `embed_tables`, a list of (table, proj)); owns the
+    class head `class_proj` [D, n_tails] and the tail projections
+    `tail_proj_i` [D, D]."""
+
+    def __init__(self, input_dim: int, cutoff: Sequence[int], *, device,
+                 dtype, generator=None):
+        super().__init__()
+        self.cutoff = tuple(cutoff)
+        self.n_tails = len(cutoff) - 1
+        self.class_proj = new_param((input_dim, self.n_tails), device, dtype)
+        for i in range(1, len(cutoff)):
+            setattr(self, f"tail_proj_{i}",
+                    new_param((input_dim, input_dim), device, dtype))
+        if initializes(device):
+            with torch.no_grad():
+                _xavier_uniform_(self.class_proj, generator)
+                for i in range(1, len(cutoff)):
+                    _xavier_uniform_(getattr(self, f"tail_proj_{i}"),
+                                     generator)
+
+    def head_logits(self, x, embed_tables) -> torch.Tensor:
+        """x [N, D] -> [N, cutoff0 + n_tails]."""
+        table0 = embed_tables[0][0]
+        word = x @ table0.to(x.dtype).T
+        cls = x @ self.class_proj.to(x.dtype)
+        return torch.cat([word, cls], dim=-1)
+
+    def tail_hidden(self, x, i: int) -> torch.Tensor:
+        """Projection of x for tail band i (1-based)."""
+        return x @ getattr(self, f"tail_proj_{i}").to(x.dtype)
+
+    def tail_logits(self, x, i: int, embed_tables) -> torch.Tensor:
+        h = self.tail_hidden(x, i)
+        return h @ embed_tables[i][0].to(h.dtype).T
+
+    def log_prob(self, x, embed_tables) -> torch.Tensor:
+        """Full-vocab log-probs [N, V]; softmax in fp32, result in x's
+        dtype."""
+        c0 = self.cutoff[0]
+        hlog = torch.log_softmax(self.head_logits(x, embed_tables).float(),
+                                 dim=-1).to(x.dtype)
+        parts = [hlog[:, :c0]]
+        for i in range(1, len(self.cutoff)):
+            prior = hlog[:, c0 + i - 1:c0 + i]
+            tlog = torch.log_softmax(
+                self.tail_logits(x, i, embed_tables).float(),
+                dim=-1).to(x.dtype)
+            parts.append(tlog + prior)
+        return torch.cat(parts, dim=-1)
+
+    def head_table(self, embed_tables, dtype) -> torch.Tensor:
+        """[table0; class_projᵀ]: the head band of `topk_log_prob`
+        (word rows, then one class row per tail)."""
+        return torch.cat([embed_tables[0][0].to(dtype),
+                          self.class_proj.to(dtype).T], dim=0).contiguous()
+
+    def topk_log_prob(self, x, k: int, embed_tables, head_table=None):
+        """Exact top-k full-vocab log-probs without the [N, V] matrix:
+        per band the kernel's top-k and logsumexp, tails shifted by
+        their class prior, then a (bands * k)-wide merge. Returns
+        (log_probs [N, k] fp32, token_ids [N, k] int64), best first."""
+        c0 = self.cutoff[0]
+        if head_table is None:
+            head_table = self.head_table(embed_tables, x.dtype)
+        hv, hi, lse_h = band_topk_lse(x, head_table, k, sel_limit=c0)
+        # Class-slot logits at the kernel's rounding point (x's dtype).
+        cls = (x @ self.class_proj.to(x.dtype)).float()
+        vals, ids = [hv - lse_h], [hi]
+        for i in range(1, len(self.cutoff)):
+            h = self.tail_hidden(x, i)
+            tv, ti, lse_t = band_topk_lse(h, embed_tables[i][0].to(h.dtype),
+                                          k)
+            prior = cls[:, i - 1:i] - lse_h
+            vals.append(tv - lse_t + prior)
+            ids.append(ti + self.cutoff[i - 1])
+        v, j = stable_topk(torch.cat(vals, dim=-1), k)
+        return v, torch.gather(torch.cat(ids, dim=-1).long(), -1, j)

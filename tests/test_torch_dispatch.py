@@ -1,0 +1,100 @@
+"""Kernel dispatch of the port, and the CUDA kernels on the card.
+
+A CPU tensor takes a kernel module's plain twin (no launch counted); a
+tensor on any other non-CUDA device raises instead of falling back.
+The tests marked `cuda` launch each CUDA kernel on the card and hold
+it against its plain twin; they skip where torch.cuda.is_available()
+is false. This file imports no jax, so the card tests run where jax is
+absent: `python -m pytest --noconftest tests/test_torch_dispatch.py -m
+cuda` (tests/conftest.py configures jax).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from news_image_caption_tpu_torch.ops.band_topk import (  # noqa: E402
+    band_topk_lse, band_topk_lse_plain)
+from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
+    decode_cross_attention, decode_cross_attention_plain)
+from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
+    decode_conv_block, decode_conv_block_plain, decode_ffn_block,
+    decode_ffn_block_plain)
+
+KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
+           "decode_ffn_block"]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is "
+                    "false")
+    return torch.device("cuda")
+
+
+def _kernel_calls(device, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dtype).to(device)
+
+    N, C, H, K, F, V, S = 5, 64, 4, 7, 128, 300, 51
+    x = rn(N, C)
+    return {
+        "band_topk_lse": (band_topk_lse, band_topk_lse_plain,
+                          (x, rn(V, C, scale=0.2), 5, 250)),
+        "decode_cross_attention": (
+            decode_cross_attention, decode_cross_attention_plain,
+            (rn(2, 3, C, scale=0.3), rn(2, S, C), rn(2, S, C),
+             torch.zeros(2, S, device=device), H)),
+        "decode_conv_block": (
+            decode_conv_block, decode_conv_block_plain,
+            (x, rn(K - 1, N, C), 9, rn(C, 2 * C, scale=0.05),
+             rn(2 * C, scale=0.05), rn(C, H * K, scale=0.05),
+             rn(C, C, scale=0.05), rn(C, scale=0.05), H)),
+        "decode_ffn_block": (
+            decode_ffn_block, decode_ffn_block_plain,
+            (x, rn(C, F, scale=0.05), rn(F, scale=0.05),
+             rn(F, C, scale=0.05), rn(C, scale=0.05))),
+    }
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_cpu_tensors_take_the_plain_version(name):
+    wrapper, plain, args = _kernel_calls("cpu")[name]
+    before = wrapper.launches
+    got, want = wrapper(*args), plain(*args)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    assert wrapper.launches == before   # no kernel launched
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_other_devices_raise_instead_of_falling_back(name):
+    wrapper, _, args = _kernel_calls("cpu")[name]
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        wrapper(*meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_matches_plain_on_card(cuda_device, name):
+    """The CUDA kernel against its plain twin on the same card inputs,
+    in bf16: values within one bf16 rounding (0.02 / 0.05)."""
+    wrapper, plain, args = _kernel_calls(cuda_device)[name]
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    assert wrapper.launches == before + 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if g.dtype == torch.int32:
+            assert (g == w).float().mean().item() >= 0.9
+        else:
+            torch.testing.assert_close(g.float(), w.float(), atol=0.05,
+                                       rtol=0.05)
