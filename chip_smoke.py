@@ -6,12 +6,22 @@ Phases, each fatal on failure (exit code 1, no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from news_image_caption_tpu_torch/csrc/;
   3. hold every kernel against its plain PyTorch version on the card at
-     the flagship's decode shapes (bf16), and time both with CUDA events;
+     the flagship's shapes (bf16; decode shapes for the decode kernels,
+     train-step shapes for flash attention), and time both with CUDA
+     events;
   4. serve requests through `flagship_model_builder` at full flagship
      width in bf16 with seeded random weights: three single requests,
      then one of 16 rows. Check the tokens, that every kernel's launch
      count rose by its count per decode step, and the kernel path
-     against the plain path (the same weights on the CPU).
+     against the plain path (the same weights on the CPU);
+  5. train through `flagship_trainer_builder` at full flagship width,
+     bf16_o2 with the YAML's dropouts and random weights: 20 steps on
+     one synthetic batch of 16. Check that every loss is finite and the
+     last is below the first, that no step was skipped, that the flash
+     forward and backward ran 8 times a step (4 layers x 2 contexts),
+     and the kernel path's deterministic loss against the plain path's
+     (the same weights on the CPU); print ms/step, samples/s, peak
+     device memory and the flash kernels' share of device time.
 The line before the last is a JSON summary of the kernels; the last is
 {"ok": true, "device": {...}}.
 
@@ -211,6 +221,92 @@ def kernel_phase(torch, ops):
     return results
 
 
+def flash_phase(torch, flash):
+    """Phase 3, flash attention at the flagship train step's shapes:
+    q [16, 63, 1024] (pre-scaled), k/v [16, S', 1024] with S' = 514
+    (article) and 51 (image), half the items padded, p = 0.1 and one
+    seed, so kernel and plain version draw the same mask. Returns
+    {kernel: dict(max_abs_err, ms, plain_ms)}, the times summed over
+    one train step's calls (4 layers x 2 contexts)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(bf16)
+
+    # The mask itself: one head and v = I make the output the dropped
+    # probability matrix, so its zeros are the dropped slots.
+    B, T, S = 2, 8, 64
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    eye = torch.eye(S, device=dev, dtype=bf16).expand(B, S, S).contiguous()
+    out, _ = flash.flash_attention_fwd(rn(B, T, S, scale=0.3), rn(B, S, S),
+                                       eye, torch.zeros(B, S, device=dev),
+                                       seed, 1, 0.25)
+    keep = flash.dropout_keep(seed, B, 1, T, S, 0.25)[:, 0]
+    same = bool(((out.float() > 0) == keep).all())
+    print(f"  flash dropout mask, kernel vs plain generator: identical {same},"
+          f" kept {keep.float().mean().item():.4f} (p = 0.25)", flush=True)
+    check(same, "the flash kernel's dropout mask differs from the plain one")
+
+    B, T, E, H, p = 16, 63, 1024, 16, 0.1
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    res = {"flash_attention_fwd": dict(errs=[], ms=0.0, plain_ms=0.0),
+           "flash_attention_bwd": dict(errs=[], ms=0.0, plain_ms=0.0)}
+    for S in (514, 51):
+        # q as the layer gives it: unit-scale projections times 64^-0.5.
+        q, k, v = rn(B, T, E, scale=0.125), rn(B, S, E), rn(B, S, E)
+        g = rn(B, T, E, scale=0.1)
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:S - 2] = -1e9
+        fargs = (q, k, v, bias, seed, H, p)
+        out, lse = flash.flash_attention_fwd(*fargs)
+        dq, dk, dv = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g,
+                                               H, p)
+        torch.cuda.synchronize()
+        pout, plse = flash.flash_attention_fwd_plain(*fargs)
+        pgrads = flash.flash_attention_bwd_plain(q, k, v, bias, seed, plse,
+                                                 g, H, p)
+        # out: one bf16 rounding of a probability or of the output (0.02
+        # abs + rel); lse fp32 (1e-3 + 1e-5 rel); gradients: a bf16
+        # rounding of ds summed over up to 514 terms, 2% of the largest
+        # entry plus 2% relative.
+        e_o, ok_o = within(out, pout, 0.02, 0.02)
+        e_l, ok_l = within(lse, plse, 1e-3, 1e-5)
+        errs = [e_o, e_l]
+        oks = [ok_o, ok_l]
+        for got, want in zip((dq, dk, dv), pgrads):
+            e, ok = within(got, want, 0.02 * want.float().abs().max().item(),
+                           0.02)
+            errs.append(e)
+            oks.append(ok)
+        print(f"  flash attention B={B} T={T} S'={S} p={p}: out {e_o:.3g},"
+              f" lse {e_l:.3g}, dq {errs[2]:.3g}, dk {errs[3]:.3g},"
+              f" dv {errs[4]:.3g} (tol 0.02+0.02|ref| / 1e-3+1e-5|ref| /"
+              f" 0.02 max|ref|+0.02|ref|)", flush=True)
+        check(all(oks), f"flash attention S'={S} disagrees with its plain twin")
+        res["flash_attention_fwd"]["errs"] += errs[:2]
+        res["flash_attention_bwd"]["errs"] += errs[2:]
+        times = {
+            "flash_attention_fwd": (
+                lambda: flash.flash_attention_fwd(*fargs),
+                lambda: flash.flash_attention_fwd_plain(*fargs)),
+            "flash_attention_bwd": (
+                lambda: flash.flash_attention_bwd(q, k, v, bias, seed, lse,
+                                                  g, H, p),
+                lambda: flash.flash_attention_bwd_plain(q, k, v, bias, seed,
+                                                        plse, g, H, p))}
+        for name, (kern, plain) in times.items():
+            t_k, t_p = time_ms(kern), time_ms(plain)
+            print(f"    time {name} S'={S}: kernel {t_k:.4f} ms,"
+                  f" plain {t_p:.4f} ms")
+            res[name]["ms"] += 4 * t_k       # one call per layer
+            res[name]["plain_ms"] += 4 * t_p
+    return {name: dict(max_abs_err=max(r["errs"]), ms=r["ms"],
+                       plain_ms=r["plain_ms"]) for name, r in res.items()}
+
+
 def make_job(rng, B: int, article_lens):
     from news_image_caption_tpu_torch.config import (FLAGSHIP,
                                                      FLAGSHIP_ARTICLE_LEN,
@@ -327,13 +423,128 @@ def serving_phase(torch, counted):
     return launches
 
 
+def train_phase(torch, flash):
+    """Phase 5. Returns the main-path launch count of each flash kernel
+    over the 20 train steps."""
+    from news_image_caption_tpu_torch.config import (FLAGSHIP,
+                                                     FLAGSHIP_ARTICLE_LEN,
+                                                     FLAGSHIP_BATCH_SIZE,
+                                                     FLAGSHIP_CAPTION_LEN,
+                                                     FLAGSHIP_IMAGE_LEN)
+    from news_image_caption_tpu_torch.data.synthetic import (
+        SyntheticNewsDataset, to_device)
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    from news_image_caption_tpu_torch.training.builder import \
+        flagship_trainer_builder
+    from news_image_caption_tpu_torch.training.train_step import \
+        make_eval_step
+
+    B, steps = FLAGSHIP_BATCH_SIZE, 20
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, state, train_step, eval_step = flagship_trainer_builder(
+        "cuda", seed=0, t_total=100)
+    n_params = sum(p.numel() for p in state.params.values())
+    ds = SyntheticNewsDataset(
+        size=B, vocab_size=FLAGSHIP["vocab_size"],
+        caption_len=FLAGSHIP_CAPTION_LEN, article_len=FLAGSHIP_ARTICLE_LEN,
+        n_patches=FLAGSHIP_IMAGE_LEN, image_dim=FLAGSHIP["image_dim"],
+        article_dim=FLAGSHIP["article_dim"], seed=0)
+    batch_np = next(ds.batches(B, shuffle=False))
+    batch = to_device(batch_np, "cuda")
+    torch.cuda.synchronize()
+    print(f"  trainer built in {time.perf_counter() - t0:.1f} s: {n_params}"
+          f" parameters, bf16 stored, fp32 master; batch {B}, caption"
+          f" {FLAGSHIP_CAPTION_LEN} (T = {FLAGSHIP_CAPTION_LEN - 1}),"
+          f" article {FLAGSHIP_ARTICLE_LEN}, image {FLAGSHIP_IMAGE_LEN}",
+          flush=True)
+
+    counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+               "flash_attention_bwd": flash.flash_attention_bwd}
+    for fn in counted.values():
+        fn.launches = 0
+    losses, skipped, wall = [], [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, m = train_step(state, batch, 0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+        losses.append(m["loss"].item())
+        skipped.append(m["skipped"])
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("  losses (bits/token): " + " ".join(f"{x:.4f}" for x in losses))
+    ms = sorted(wall[1:])[len(wall[1:]) // 2] * 1e3
+    print(f"  step time (host clock, synchronised), median of steps 2-{steps}:"
+          f" {ms:.2f} ms, {B / ms * 1e3:.1f} samples/s (first step"
+          f" {wall[0] * 1e3:.1f} ms); peak device memory {peak:.2f} GiB",
+          flush=True)
+    check(all(np.isfinite(losses)), "a train loss is not finite")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(sum(skipped) == 0, f"{sum(skipped)} steps were skipped")
+    per_step = 2 * FLAGSHIP["num_layers"]
+    for name, n in launches.items():
+        print(f"  {name}: {n} launches over {steps} steps (expected"
+              f" {per_step} per step)")
+        check(n == per_step * steps,
+              f"{name} launched {n} times, expected {per_step * steps}")
+
+    # Where the device time of a step goes (3 profiled steps).
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(3):
+            state, _ = train_step(state, batch, 0)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t) * 1e3
+    # Device operations only: the train step's record_function spans
+    # also appear as device-side annotation rows, which would count twice.
+    dev_events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and not e.key.startswith("train_step.")]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+    by_name = sorted(dev_events, key=lambda e: -e.self_device_time_total)
+    fwd = sum(e.self_device_time_total for e in dev_events
+              if "flash_fwd_kernel" in e.key) / 1e3
+    bwd = sum(e.self_device_time_total for e in dev_events
+              if "flash_bwd_kernel" in e.key) / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    print(f"  profiled 3 steps: wall {prof_wall:.1f} ms, device busy"
+          f" {busy:.1f} ms ({100 * busy / prof_wall:.1f}%), flash forward"
+          f" {fwd:.2f} ms ({100 * fwd / busy:.1f}% of busy), flash backward"
+          f" {bwd:.2f} ms ({100 * bwd / busy:.1f}%)")
+    for e in by_name[:8]:
+        print(f"    {e.self_device_time_total / 3e3:8.3f} ms/step"
+              f" x{e.count // 3:<4d} {e.key[:90]}")
+
+    # Kernel path vs plain path: the deterministic loss of the trained
+    # weights on 4 rows, on the card and on the CPU (plain versions).
+    rows = {k: v[:4] for k, v in batch_np.items()}
+    got = eval_step(to_device(rows, "cuda"))["loss"].item()
+    cpu_model = TransformerFlattened(
+        decoder=copy.deepcopy(model.decoder).to("cpu"))
+    t = time.perf_counter()
+    want = make_eval_step(cpu_model.loss_fn)(to_device(rows, "cpu"))["loss"]
+    want = want.item()
+    print(f"  deterministic loss on 4 rows: kernel path {got:.5f}, plain path"
+          f" on the CPU {want:.5f} bits/token ({time.perf_counter() - t:.1f} s);"
+          f" |diff| {abs(got - want):.4g} (tol 0.01 |plain|)", flush=True)
+    check(abs(got - want) <= 0.01 * abs(want),
+          "the kernel and plain paths' losses differ")
+    return launches, ms
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
     from news_image_caption_tpu_torch.ops import (_build, band_topk,
                                                   decode_attention,
-                                                  decode_blocks)
+                                                  decode_blocks,
+                                                  flash_attention)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -347,6 +558,7 @@ def main() -> None:
     print("phase 3: kernels vs plain versions (bf16, flagship shapes)",
           flush=True)
     timing = kernel_phase(torch, (band_topk, decode_attention, decode_blocks))
+    timing.update(flash_phase(torch, flash_attention))
 
     print("phase 4: flagship serving (bf16, random weights)", flush=True)
     counted = {"band_topk_lse": band_topk.band_topk_lse,
@@ -355,13 +567,22 @@ def main() -> None:
                "decode_ffn_block": decode_blocks.decode_ffn_block}
     launches = serving_phase(torch, counted)
 
+    print("phase 5: flagship train step (bf16_o2, random weights)",
+          flush=True)
+    train_launches, step_ms = train_phase(torch, flash_attention)
+    launches.update(train_launches)
+
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",
                                           "pallas_kernels.py:146"),
                "decode_conv_block": ("decode_blocks.cu",
                                      "pallas_decode.py:177"),
                "decode_ffn_block": ("decode_blocks.cu",
-                                    "pallas_decode.py:133")}
+                                    "pallas_decode.py:133"),
+               "flash_attention_fwd": ("flash_attention.cu",
+                                       "pallas_flash.py:243"),
+               "flash_attention_bwd": ("flash_attention.cu",
+                                       "pallas_flash.py:266")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"news_image_caption_tpu_torch/csrc/{src}",
                 "replaces": f"news_image_caption_tpu/ops/{tpu}",
@@ -370,8 +591,10 @@ def main() -> None:
                 "ms": timing[name]["ms"],
                 "plain_ms": timing[name]["plain_ms"]}
                for name, (src, tpu) in sources.items()]
-    print("(ms / plain_ms: device time of one decode step at batch 16,"
-          " all layers, CUDA events)")
+    print("(ms / plain_ms: device time, CUDA events, of one decode step at"
+          " batch 16 for the decode kernels and of one train step at batch"
+          f" 16 for the flash kernels, all layers; train step {step_ms:.2f}"
+          " ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 """Flagship captioning model: contexts -> dynamic-conv decoder -> caption.
 
 Counterpart of `news_image_caption_tpu/models/captioner.py::
-TransformerFlattened` for greedy decoding (`_contexts`,
-`_check_max_len`, `generate`). The decoder's weights live in the
-module; `generate` takes the fused decode weights of
-`DynamicConvDecoder.decode_weights()` so a server computes them once.
+TransformerFlattened` for training (`shift_caption`, `loss_fn`) and
+greedy decoding (`_contexts`, `_check_max_len`, `generate`). The
+decoder's weights live in the module; `generate` takes the fused decode
+weights of `DynamicConvDecoder.decode_weights()` so a server computes
+them once.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,6 +19,15 @@ from news_image_caption_tpu_torch.generation.generator import (
     GenerationConfig, generate_candidates)
 from news_image_caption_tpu_torch.models.decoder_flattened import (
     DecodeWeights, DynamicConvDecoder)
+
+LN2 = math.log(2.0)
+
+
+def shift_caption(caption_ids: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(input_ids, target_ids), both [B, L-1]: the input drops the last
+    token, the target is the caption shifted left by one."""
+    return caption_ids[:, :-1], caption_ids[:, 1:]
 
 
 class TransformerFlattened:
@@ -34,6 +45,18 @@ class TransformerFlattened:
             "article": batch["article"],
             "article_mask": batch.get("article_mask"),
         }
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """Per-token loss in bits, (mean_loss, {"loss_sum": summed loss
+        in bits, "sample_size": ntokens}); training dropout with a
+        generator on the model's device, deterministic without one."""
+        inp, tgt = shift_caption(batch["caption_ids"].long())
+        loss_sum, ntokens = self.decoder.loss(inp, self._contexts(batch), tgt,
+                                              generator)
+        loss_bits = loss_sum / LN2
+        mean_loss = loss_bits / torch.clamp(ntokens, min=1)
+        return mean_loss, {"loss_sum": loss_bits, "sample_size": ntokens}
 
     def _check_max_len(self, config: GenerationConfig) -> None:
         """Positions past the sinusoidal table would index out of it."""

@@ -3,9 +3,19 @@
 Counterpart of `news_image_caption_tpu/models/decoder_flattened.py` for
 the flagship structure (dynamic conv, GLU, post-LayerNorm, image and
 article contexts, tied adaptive softmax): `SumEmbedder`,
-`DynamicConvDecoderLayer` (full-sequence forward and the ring-major
-decode step) and `DynamicConvDecoder` (`precompute_kv`, `hidden`,
-`log_prob`, `init_cache`, `step_topk`).
+`DynamicConvDecoderLayer` (full-sequence forward, with the training
+dropouts, and the ring-major decode step) and `DynamicConvDecoder`
+(`precompute_kv`, `hidden`, `loss`, `log_prob`, `init_cache`,
+`step_topk`).
+
+A training forward takes a `torch.Generator` on the model's device and
+drops as the reference does: the embeddings (`dropout`), the conv
+block's input (`input_dropout`) and taps (`weight_dropout`), its output
+(`dropout`), the attention probabilities (`attention_dropout`), each
+context attention's output (`dropout`), the FFN's hidden ReLU
+(`relu_dropout`) and output (`dropout`). `use_flash_train` sends the
+context attentions through `flash_cross_attention`; it adds no
+parameters. generator=None is evaluation.
 
 Parameter names follow the flax tree (`layers.0.image_attn.k_proj.kernel`
 for `layers_0/image_attn/k_proj/kernel`), so `models/from_jax.py` maps
@@ -33,6 +43,7 @@ from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
 from news_image_caption_tpu_torch.ops.conv import DynamicConv
 from news_image_caption_tpu_torch.ops.decode_blocks import (
     decode_conv_block, decode_ffn_block)
+from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import GehringLinear, LayerNorm
 from news_image_caption_tpu_torch.ops.positional import \
     SinusoidalPositionalEmbedding
@@ -94,20 +105,29 @@ class DynamicConvDecoderLayer(nn.Module):
 
     def __init__(self, embed_dim: int, kernel_size: int, num_heads: int,
                  ffn_dim: int, context_specs: Sequence[Tuple[str, int]], *,
-                 device, dtype, generator=None):
+                 device, dtype, generator=None, dropout: float = 0.1,
+                 weight_dropout: float = 0.1, relu_dropout: float = 0.0,
+                 input_dropout: float = 0.1, attention_dropout: float = 0.1,
+                 use_flash_train: bool = False):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         D = embed_dim
+        self.dropout = dropout
+        self.relu_dropout = relu_dropout
+        self.input_dropout = input_dropout
         self.num_heads = num_heads
         self.kernel_size = kernel_size
         self.context_names = [name for name, _ in context_specs]
         self.linear1 = GehringLinear(D, 2 * D, **kw)
-        self.conv = DynamicConv(D, kernel_size, num_heads, **kw)
+        self.conv = DynamicConv(D, kernel_size, num_heads,
+                                weight_dropout=weight_dropout, **kw)
         self.linear2 = GehringLinear(D, D, **kw)
         self.conv_layer_norm = LayerNorm(D, device=device, dtype=dtype)
         for name, kdim in context_specs:
             setattr(self, f"{name}_attn",
-                    MultiHeadAttention(D, num_heads, kdim, **kw))
+                    MultiHeadAttention(D, num_heads, kdim,
+                                       dropout=attention_dropout,
+                                       use_flash=use_flash_train, **kw))
             setattr(self, f"{name}_attn_ln",
                     LayerNorm(D, device=device, dtype=dtype))
         self.context_fc = GehringLinear(len(context_specs) * D, D, **kw)
@@ -127,15 +147,23 @@ class DynamicConvDecoderLayer(nn.Module):
                     contexts.get(f"{name}_mask"))
                 for name in self.context_names}
 
-    def forward(self, x: torch.Tensor, kv: LayerKV) -> torch.Tensor:
-        """Full-sequence forward, x [B, T, D]."""
-        a, g = self.linear1(x).chunk(2, dim=-1)
-        h = self.conv(a * torch.sigmoid(g))
-        x = self.conv_layer_norm(x + self.linear2(h))
-        parts = [self._attn_ln(name)(x + self._attn(name).attend(x, kv[name]))
-                 for name in self.context_names]
+    def forward(self, x: torch.Tensor, kv: LayerKV,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Full-sequence forward, x [B, T, D]; training with a
+        generator."""
+        def drop(t, rate):
+            return dropout(t, rate, generator)
+
+        a, g = self.linear1(drop(x, self.input_dropout)).chunk(2, dim=-1)
+        h = self.conv(a * torch.sigmoid(g), generator)
+        x = self.conv_layer_norm(x + drop(self.linear2(h), self.dropout))
+        parts = []
+        for name in self.context_names:
+            y = self._attn(name).attend(x, kv[name], generator)
+            parts.append(self._attn_ln(name)(x + drop(y, self.dropout)))
         x = self.context_fc(torch.cat(parts, dim=-1))
-        y = self.fc2(torch.relu(self.fc1(x)))
+        y = drop(torch.relu(self.fc1(x)), self.relu_dropout)
+        y = drop(self.fc2(y), self.dropout)
         return self.final_layer_norm(x + y)
 
     def decode_weights(self, dtype: torch.dtype) -> LayerDecodeWeights:
@@ -182,7 +210,10 @@ class DynamicConvDecoder(nn.Module):
                  cutoff: Sequence[int] = (5000, 20000, 50265),
                  image_dim: int = 2048, article_dim: int = 1024,
                  padding_idx: int = 0, target_padding_idx: int = 1,
-                 max_positions: int = 512):
+                 max_positions: int = 512, dropout: float = 0.1,
+                 weight_dropout: float = 0.1, relu_dropout: float = 0.0,
+                 input_dropout: float = 0.1, attention_dropout: float = 0.1,
+                 use_flash_train: bool = False):
         super().__init__()
         assert len(kernel_sizes) == num_layers
         assert min(kernel_sizes) > 1, "the ring decode needs K > 1"
@@ -192,14 +223,20 @@ class DynamicConvDecoder(nn.Module):
         self.embed_dim = embed_dim
         self.kernel_sizes = tuple(kernel_sizes)
         self.max_positions = max_positions
+        self.dropout = dropout
+        self.target_padding_idx = target_padding_idx
         self.embedder = SumEmbedder(
             vocab_size, embed_dim, cutoff, padding_idx=padding_idx,
             pos_padding_idx=target_padding_idx, max_positions=max_positions,
             **kw)
         specs = (("image", image_dim), ("article", article_dim))
         self.layers = nn.ModuleList(
-            DynamicConvDecoderLayer(embed_dim, k, num_heads, ffn_dim, specs,
-                                    **kw)
+            DynamicConvDecoderLayer(
+                embed_dim, k, num_heads, ffn_dim, specs, dropout=dropout,
+                weight_dropout=weight_dropout, relu_dropout=relu_dropout,
+                input_dropout=input_dropout,
+                attention_dropout=attention_dropout,
+                use_flash_train=use_flash_train, **kw)
             for k in kernel_sizes)
         self.adaptive_softmax = AdaptiveSoftmax(embed_dim, cutoff, **kw)
 
@@ -211,13 +248,25 @@ class DynamicConvDecoder(nn.Module):
         return [layer.precompute_kv(contexts) for layer in self.layers]
 
     def hidden(self, token_ids: torch.Tensor,
-               contexts: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Teacher-forced hidden states [B, T, D]."""
+               contexts: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced hidden states [B, T, D]; training with a
+        generator."""
         kvs = self.precompute_kv(contexts)
-        x = self.embedder(token_ids)
+        x = dropout(self.embedder(token_ids), self.dropout, generator)
         for layer, kv in zip(self.layers, kvs):
-            x = layer(x, kv)
+            x = layer(x, kv, generator)
         return x
+
+    def loss(self, token_ids: torch.Tensor, contexts: Dict[str, torch.Tensor],
+             target_ids: torch.Tensor,
+             generator: Optional[torch.Generator] = None):
+        """(summed adaptive CE fp32, ntokens) of the targets, padding
+        `target_padding_idx` ignored."""
+        x = self.hidden(token_ids, contexts, generator)
+        return self.adaptive_softmax.loss_sum(
+            x.reshape(-1, x.shape[-1]), target_ids.reshape(-1),
+            self.target_padding_idx, self.embedder.embed_tables())
 
     def log_prob(self, token_ids: torch.Tensor,
                  contexts: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -6,8 +6,7 @@ top-k `topk_log_prob` in the form of the reference's band-streaming
 kernel path (`_topk_log_prob_pallas`), which this port takes on every
 device: the head band is [table0; class_projᵀ] with only the word rows
 selectable, each tail band goes through `band_topk_lse`, and the class
-priors are cls_logit - lse_head. The training loss comes with the train
-step.
+priors are cls_logit - lse_head; and the training loss `loss_sum`.
 """
 
 from __future__ import annotations
@@ -132,6 +131,38 @@ class AdaptiveSoftmax(nn.Module):
                 dim=-1).to(x.dtype)
             parts.append(tlog + prior)
         return torch.cat(parts, dim=-1)
+
+    def loss_sum(self, x, target, padding_idx: int, embed_tables):
+        """Summed adaptive cross-entropy and the token count.
+
+        x [N, D]; target [N] ids. The head CE takes tail targets
+        remapped to their class slot c0 + i; each tail adds its in-band
+        CE. Targets equal to padding_idx are ignored, and in a tail so
+        is a target whose in-band index equals padding_idx (the
+        reference's ignore_index quirk). NLL = logsumexp - picked logit,
+        in fp32. Returns (loss fp32 scalar, ntokens int64 scalar).
+        """
+        c0 = self.cutoff[0]
+        bands = band_ranges(self.cutoff)
+
+        def band_nll(logits, tgt):
+            logits = logits.float()
+            picked = torch.gather(logits, 1, tgt[:, None])[:, 0]
+            return torch.logsumexp(logits, dim=-1) - picked
+
+        head_target = target
+        for i, (lo, hi) in enumerate(bands[1:]):
+            in_band = (target >= lo) & (target < hi)
+            head_target = torch.where(in_band, c0 + i, head_target)
+        nll = band_nll(self.head_logits(x, embed_tables), head_target)
+        loss = torch.where(head_target != padding_idx, nll, 0.0).sum()
+        for i, (lo, hi) in enumerate(bands[1:], start=1):
+            in_band = (target >= lo) & (target < hi)
+            tgt_in = torch.clamp(target - lo, 0, hi - lo - 1)
+            nll = band_nll(self.tail_logits(x, i, embed_tables), tgt_in)
+            valid = in_band & (tgt_in != padding_idx)
+            loss = loss + torch.where(valid, nll, 0.0).sum()
+        return loss, (target != padding_idx).sum()
 
     def head_table(self, embed_tables, dtype) -> torch.Tensor:
         """[table0; class_projᵀ]: the head band of `topk_log_prob`

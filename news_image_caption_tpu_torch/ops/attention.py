@@ -2,8 +2,8 @@
 
 Counterpart of `news_image_caption_tpu/ops/attention.py`
 (MultiHeadAttention: `precompute_kv`, the plain full-sequence
-`attend`, and `attend_flat_beam`). Context K/V are projected once per
-request and kept flat, [B, S', E] with S' = S + 2 (the learned bias_k /
+`attend` with its flash route, and `attend_flat_beam`). Context K/V are
+projected once per request and kept flat, [B, S', E] with S' = S + 2 (the learned bias_k /
 bias_v slot and the zero slot), beside an additive fp32 key bias
 [B, S'] (0 attendable, -1e9 padded): the input layout of
 `decode_cross_attention`.
@@ -19,6 +19,9 @@ from torch import nn
 
 from news_image_caption_tpu_torch.ops.decode_attention import \
     decode_cross_attention
+from news_image_caption_tpu_torch.ops.dropout import dropout
+from news_image_caption_tpu_torch.ops.flash_attention import \
+    flash_cross_attention
 from news_image_caption_tpu_torch.ops.linear import (XavierLinear,
                                                      initializes, new_param)
 
@@ -36,12 +39,17 @@ class AttentionKV(NamedTuple):
 
 class MultiHeadAttention(nn.Module):
     """fairseq-style attention with separate key/value input width,
-    a learned bias_k/bias_v slot and a zero slot."""
+    a learned bias_k/bias_v slot and a zero slot. `dropout` is the
+    attention-probability dropout of training; `use_flash` sends the
+    full-sequence path through `flash_cross_attention`."""
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: int, *,
-                 device, dtype, generator=None):
+                 device, dtype, generator=None, dropout: float = 0.0,
+                 use_flash: bool = False):
         super().__init__()
         assert embed_dim % num_heads == 0
+        self.dropout = dropout
+        self.use_flash = use_flash
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -76,16 +84,36 @@ class MultiHeadAttention(nn.Module):
             bias[:, :S].masked_fill_(key_padding_mask.to(torch.bool), NEG_INF)
         return AttentionKV(k=k.contiguous(), v=v.contiguous(), bias=bias)
 
-    def attend(self, query: torch.Tensor, kv: AttentionKV) -> torch.Tensor:
-        """Full-sequence attention of query [B, T, E] over kv; scores in
-        the compute dtype, softmax in fp32 (the reference's XLA path)."""
+    def attend(self, query: torch.Tensor, kv: AttentionKV,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Full-sequence attention of query [B, T, E] over kv. With a
+        generator (training) the probabilities are dropped at rate
+        `dropout`; generator=None is evaluation.
+
+        With `use_flash` and T > 1 the kernel route runs: fp32 scores
+        and softmax, probabilities rounded to the value dtype, the
+        dropout seed drawn from the generator (the reference's Pallas
+        path). Otherwise the reference's XLA path: scores in the compute
+        dtype, softmax in fp32, dropout on the rounded probabilities."""
         B, T, _ = query.shape
         H, hd = self.num_heads, self.head_dim
         S = kv.k.shape[1]
-        q = self.q_proj(query).view(B, T, H, hd) * (hd ** -0.5)
-        scores = torch.einsum("bthd,bshd->bhts", q, kv.k.view(B, S, H, hd))
+        q = self.q_proj(query) * (hd ** -0.5)
+        if self.use_flash and T > 1:
+            p = self.dropout if generator is not None else 0.0
+            if p > 0.0:
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=q.device, dtype=torch.int32)
+            else:
+                seed = torch.zeros(1, device=q.device, dtype=torch.int32)
+            out = flash_cross_attention(q.contiguous(), kv.k, kv.v, kv.bias,
+                                        seed, H, p)
+            return self.out_proj(out)
+        scores = torch.einsum("bthd,bshd->bhts", q.view(B, T, H, hd),
+                              kv.k.view(B, S, H, hd))
         scores = scores.float() + kv.bias[:, None, None, :]
         probs = torch.softmax(scores, dim=-1).to(kv.v.dtype)
+        probs = dropout(probs, self.dropout, generator)
         out = torch.einsum("bhts,bshd->bthd", probs, kv.v.view(B, S, H, hd))
         return self.out_proj(out.reshape(B, T, self.embed_dim))
 

@@ -1,8 +1,9 @@
 """Dynamic depthwise convolution (Wu et al. 2019), plain PyTorch.
 
 Counterpart of `news_image_caption_tpu/ops/conv.py::DynamicConv`: the
-full-sequence causal shift-accumulate (teacher forcing) and the ring
-decode step `step_ring`, kept as the reference math. The decoder's
+full-sequence causal shift-accumulate (teacher forcing and training,
+with dropout on the softmaxed taps) and the ring decode step
+`step_ring`, kept as the reference math. The decoder's
 decode path runs the fused `decode_conv_block` instead, over a
 ring-major cache.
 """
@@ -13,34 +14,41 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import XavierLinear
 
 
 class DynamicConv(nn.Module):
     """Depthwise conv whose K taps are predicted per (position, head)
-    by `weight_linear` and softmaxed over the taps."""
+    by `weight_linear`, softmaxed over the taps and, in training,
+    dropped at rate `weight_dropout`."""
 
     def __init__(self, input_size: int, kernel_size: int, num_heads: int,
-                 *, device, dtype, generator=None):
+                 *, device, dtype, generator=None,
+                 weight_dropout: float = 0.0):
         super().__init__()
         assert input_size % num_heads == 0
+        self.weight_dropout = weight_dropout
         self.num_heads = num_heads
         self.kernel_size = kernel_size
         self.weight_linear = XavierLinear(
             input_size, num_heads * kernel_size, use_bias=False,
             device=device, dtype=dtype, generator=generator)
 
-    def _weights(self, x: torch.Tensor) -> torch.Tensor:
+    def _weights(self, x: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         w = self.weight_linear(x)
         w = w.view(x.shape[:-1] + (self.num_heads, self.kernel_size))
-        return torch.softmax(w.float(), dim=-1).to(w.dtype)
+        w = torch.softmax(w.float(), dim=-1).to(w.dtype)
+        return dropout(w, self.weight_dropout, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """Causal forward, x [B, T, C]:
         out[b,t,c] = sum_k w[b,t,h(c),k] * x[b, t-K+1+k, c]."""
         B, T, C = x.shape
         H, K = self.num_heads, self.kernel_size
-        w = self._weights(x)                                # [B, T, H, K]
+        w = self._weights(x, generator)                     # [B, T, H, K]
         xh = F.pad(x.view(B, T, H, C // H), (0, 0, 0, 0, K - 1, 0))
         out = torch.zeros(B, T, H, C // H, device=x.device, dtype=x.dtype)
         for k in range(K):

@@ -1,0 +1,270 @@
+"""Full-sequence cross-attention with in-kernel dropout, for training.
+
+Kernels: `csrc/flash_attention.cu` (`nic_flash_fwd`, `nic_flash_bwd`),
+replacing the TPU kernels `news_image_caption_tpu/ops/pallas_flash.py::
+_flash_fwd` and `::_flash_bwd`. `flash_cross_attention` is their
+`torch.autograd.Function`: the forward saves the per-row logsumexp, the
+backward recomputes the probabilities from it and regenerates the same
+dropout mask, so no [B, H, T, S] tensor is stored between the passes.
+
+Dropout bits come from a stateless hash of (seed, b, head, t, s) (see
+the source's note), which `dropout_keep` computes with the same integer
+steps in torch, so kernel and plain version drop the same slots. The
+TPU's own bits cannot be reproduced; the plain versions therefore also
+take an explicit `keep` mask (the CPU tests feed JAX's).
+
+Numerics of the plain versions follow the TPU kernel: fp32 scores,
+softmax and dropout, probabilities rounded to the value dtype before
+the value product, ds rounded to it before the dq / dk products.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from news_image_caption_tpu_torch.ops import _build
+
+_FWD_ARGTYPES = [_build.P] * 7 + [_build.I] * 5 + [ctypes.c_uint,
+                                                   ctypes.c_float, _build.P]
+_BWD_ARGTYPES = [_build.P] * 10 + [_build.I] * 5 + [ctypes.c_uint,
+                                                    ctypes.c_float, _build.P]
+_TILE_FLOATS = 32 * 65 * 2       # FlashTile::SMEM_FLOATS
+_SMEM_LIMIT = 232448             # bytes of shared memory a block may use
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 a in [0, 2^32): c is split into 16-bit
+    halves so that no product leaves int64."""
+    lo = a * (c & 0xFFFF)
+    hi = (a * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_threshold(p: float) -> int:
+    """A slot is kept where its 32 bits are >= this (0: keep all)."""
+    return min(int(p * 2 ** 32), 2 ** 32 - 1)
+
+
+def dropout_keep(seed: torch.Tensor, B: int, H: int, T: int, S: int,
+                 p: float) -> torch.Tensor:
+    """The kernels' keep mask, bool [B, H, T, S], on seed's device.
+
+    key = seed * 2654435761 + (b * H + h) (mod 2^32);
+    row = fmix32(key ^ fmix32(t + 0x9e3779b9)); bits = fmix32(row + s).
+    """
+    dev = seed.device
+    bh = torch.arange(B * H, device=dev, dtype=torch.int64).view(B, H, 1, 1)
+    key = (_mul32(seed.reshape(()).long() & _MASK32, 2654435761) + bh) & _MASK32
+    t = torch.arange(T, device=dev, dtype=torch.int64).view(1, 1, T, 1)
+    row = _fmix32(key ^ _fmix32((t + 0x9E3779B9) & _MASK32))
+    s = torch.arange(S, device=dev, dtype=torch.int64)
+    return _fmix32((row + s) & _MASK32) >= dropout_threshold(p)
+
+
+def _scale_mask(seed, B, H, T, S, p, keep):
+    """keep / (1 - p) as fp32 [B, H, T, S], or None without dropout."""
+    if p == 0.0:
+        _build.require(keep is None, "flash attention: keep given with p = 0")
+        return None
+    if keep is None:
+        keep = dropout_keep(seed, B, H, T, S, p)
+    return keep.to(torch.float32) * (1.0 / (1.0 - p))
+
+
+def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
+    B, L, E = x.shape
+    return x.float().view(B, L, H, E // H)
+
+
+def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
+                              dropout_p: float = 0.0,
+                              keep: Optional[torch.Tensor] = None):
+    """(out [B, T, E] in q's dtype, lse [B, H, T] fp32) in plain
+    PyTorch, differentiable in q, k and v.
+
+    q [B, T, E] pre-scaled by head_dim**-0.5; k, v [B, S, E]; bias
+    [B, S] fp32 (0 attendable, -1e9 padded); seed int32 [1]; keep an
+    optional bool [B, H, T, S] mask in place of the generated one.
+    """
+    B, T, E = q.shape
+    S, H = k.shape[1], num_heads
+    s = torch.einsum("bthd,bshd->bhts", _heads(q, H), _heads(k, H))
+    s = s + bias.float()[:, None, None, :]
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - mx)
+    denom = e.sum(dim=-1, keepdim=True)
+    lse = (mx + torch.log(denom))[..., 0]
+    probs = e / denom
+    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep)
+    if scale is not None:
+        probs = probs * scale
+    probs = probs.to(v.dtype).float()
+    out = torch.einsum("bhts,bshd->bthd", probs, _heads(v, H))
+    return out.to(q.dtype).reshape(B, T, E), lse
+
+
+def flash_attention_bwd_plain(q, k, v, bias, seed, lse, g, num_heads: int,
+                              dropout_p: float = 0.0,
+                              keep: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of `flash_attention_fwd_plain` for the output
+    gradient g [B, T, E], from the saved lse, as the TPU kernel forms
+    them (see the module note)."""
+    B, T, E = q.shape
+    S, H = k.shape[1], num_heads
+    qh, kh, vh, gh = (_heads(x, H) for x in (q, k, v, g))
+    s = torch.einsum("bthd,bshd->bhts", qh, kh) + bias.float()[:, None, None, :]
+    probs = torch.exp(s - lse[..., None])
+    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep)
+    dropped = probs if scale is None else probs * scale
+    dv = torch.einsum("bhts,bthd->bshd", dropped.to(v.dtype).float(), gh)
+    dp = torch.einsum("bthd,bshd->bhts", gh, vh)
+    if scale is not None:
+        dp = dp * scale
+    delta = (dp * probs).sum(dim=-1, keepdim=True)
+    ds = (probs * (dp - delta)).to(v.dtype).float()
+    dq = torch.einsum("bhts,bshd->bthd", ds, kh)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qh)
+    return (dq.to(q.dtype).reshape(B, T, E), dk.to(k.dtype).reshape(B, S, E),
+            dv.to(v.dtype).reshape(B, S, E))
+
+
+def flash_cross_attention_plain(q, k, v, bias, seed, num_heads: int,
+                                dropout_p: float = 0.0,
+                                keep: Optional[torch.Tensor] = None):
+    """out of `flash_attention_fwd_plain`; autograd through it is the
+    reference gradient of `flash_cross_attention`."""
+    return flash_attention_fwd_plain(q, k, v, bias, seed, num_heads,
+                                     dropout_p, keep)[0]
+
+
+def _dispatch(name: str, q: torch.Tensor, keep) -> bool:
+    """True for the plain version (CPU tensors); raise where no kernel
+    runs."""
+    if q.device.type == "cpu":
+        return True
+    _build.require(q.device.type == "cuda",
+                   f"{name}: no kernel for device {q.device}")
+    _build.require(keep is None, f"{name}: the kernel draws its own mask;"
+                   " an explicit keep mask is for the plain version")
+    return False
+
+
+def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
+                        dropout_p: float = 0.0,
+                        keep: Optional[torch.Tensor] = None):
+    """(out, lse); see `flash_attention_fwd_plain`. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
+    if _dispatch("flash_attention_fwd", q, keep):
+        return flash_attention_fwd_plain(q, k, v, bias, seed, num_heads,
+                                         dropout_p, keep)
+    B, T, E = q.shape
+    S = k.shape[1]
+    _check(q, k, v, bias, seed, num_heads, "flash_attention_fwd",
+           _TILE_FLOATS + T * S)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, num_heads, T, device=q.device, dtype=torch.float32)
+    fn = _build.function("nic_flash_fwd", _FWD_ARGTYPES)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    seed.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, S,
+                    E, num_heads, dropout_threshold(dropout_p),
+                    1.0 / (1.0 - dropout_p), _build.stream_of(q)),
+                 "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
+                        dropout_p: float = 0.0,
+                        keep: Optional[torch.Tensor] = None):
+    """(dq, dk, dv); see `flash_attention_bwd_plain`. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
+    if _dispatch("flash_attention_bwd", q, keep):
+        return flash_attention_bwd_plain(q, k, v, bias, seed, lse, g,
+                                         num_heads, dropout_p, keep)
+    B, T, E = q.shape
+    S = k.shape[1]
+    _check(q, k, v, bias, seed, num_heads, "flash_attention_bwd",
+           2 * _TILE_FLOATS + T * S + 3 * T)
+    _build.require(g.shape == q.shape and g.dtype == q.dtype
+                   and g.is_contiguous() and g.device == q.device
+                   and lse.shape == (B, num_heads, T)
+                   and lse.dtype == torch.float32 and lse.is_contiguous()
+                   and lse.device == q.device,
+                   "flash_attention_bwd: g must be like q and lse fp32"
+                   " [B, H, T], contiguous, on q's device")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function("nic_flash_bwd", _BWD_ARGTYPES)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    seed.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, S, E,
+                    num_heads, dropout_threshold(dropout_p),
+                    1.0 / (1.0 - dropout_p), _build.stream_of(q)),
+                 "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+def _check(q, k, v, bias, seed, num_heads, name, smem_floats):
+    B, T, E = q.shape
+    S = k.shape[1]
+    _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v))
+                   and bias.dtype == torch.float32
+                   and seed.dtype == torch.int32 and seed.numel() == 1,
+                   f"{name} kernel takes bf16 q/k/v, an fp32 bias and an"
+                   " int32 seed of one element")
+    _build.require(k.shape == (B, S, E) and v.shape == (B, S, E)
+                   and bias.shape == (B, S),
+                   f"{name}: k, v must be [B, S, E] and bias [B, S]")
+    _build.require(all(t.is_contiguous() and t.device == q.device
+                       for t in (q, k, v, bias, seed)),
+                   f"{name}: inputs must be contiguous, on one device")
+    _build.require(E % num_heads == 0, f"{name}: E % num_heads != 0")
+    _build.require(4 * smem_floats <= _SMEM_LIMIT,
+                   f"{name}: T * S = {T * S} score slots do not fit in one"
+                   " block's shared memory")
+
+
+class _FlashCrossAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep):
+        out, lse = flash_attention_fwd(q, k, v, bias, seed, num_heads,
+                                       dropout_p, keep)
+        ctx.save_for_backward(q, k, v, bias, seed, lse, keep)
+        ctx.num_heads, ctx.dropout_p = num_heads, dropout_p
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, seed, lse, keep = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, seed, lse,
+                                         g.contiguous(), ctx.num_heads,
+                                         ctx.dropout_p, keep)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_cross_attention(q, k, v, bias, seed, num_heads: int,
+                          dropout_p: float = 0.0,
+                          keep: Optional[torch.Tensor] = None):
+    """out [B, T, E] = dropout(softmax(q kᵀ + bias)) v per head, with
+    kernel forward and backward on CUDA tensors; differentiable in q, k
+    and v (bias and seed get no gradient). Arguments as in
+    `flash_attention_fwd_plain`."""
+    return _FlashCrossAttention.apply(q, k, v, bias, seed, num_heads,
+                                      dropout_p, keep)

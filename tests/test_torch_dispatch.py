@@ -20,9 +20,12 @@ from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
 from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
     decode_conv_block, decode_conv_block_plain, decode_ffn_block,
     decode_ffn_block_plain)
+from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
 
 KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
-           "decode_ffn_block"]
+           "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd"]
 
 
 @pytest.fixture
@@ -41,7 +44,19 @@ def _kernel_calls(device, dtype=torch.bfloat16):
 
     N, C, H, K, F, V, S = 5, 64, 4, 7, 128, 300, 51
     x = rn(N, C)
+    # Flash attention: T = 9 queries over S = 51 keys (two padded), p = 0.1.
+    q, kf, vf = rn(2, 9, C, scale=0.3), rn(2, S, C), rn(2, S, C)
+    bias = torch.zeros(2, S, device=device)
+    bias[1, -2:] = -1e9
+    seed = torch.tensor([7], dtype=torch.int32, device=device)
+    flash = (q, kf, vf, bias, seed, H, 0.1)
+    lse = flash_attention_fwd_plain(*flash)[1]
     return {
+        "flash_attention_fwd": (flash_attention_fwd,
+                                flash_attention_fwd_plain, flash),
+        "flash_attention_bwd": (
+            flash_attention_bwd, flash_attention_bwd_plain,
+            (q, kf, vf, bias, seed, lse, rn(2, 9, C, scale=0.1), H, 0.1)),
         "band_topk_lse": (band_topk_lse, band_topk_lse_plain,
                           (x, rn(V, C, scale=0.2), 5, 250)),
         "decode_cross_attention": (
