@@ -21,7 +21,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      forward and backward ran 8 times a step (4 layers x 2 contexts),
      and the kernel path's deterministic loss against the plain path's
      (the same weights on the CPU); print ms/step, samples/s, peak
-     device memory and the flash kernels' share of device time.
+     device memory and the flash kernels' share of device time;
+  6. the dynamic conv kernel at B=16, T=512, C=1024, H=16 and each of
+     the flagship's layer widths K = 3/7/15/31 against its plain
+     version, timed beside the plain version, the module's shift and
+     band routes and the kernel's byte floor; then
+     `DynamicConv(method="pallas")` at full flagship width with seeded
+     weights: one launch per forward at T=512 (the output against the
+     same module on the CPU), none at T=63 (the output equal to the
+     shift route's), and a backward that raises.
 The line before the last is a JSON summary of the kernels; the last is
 {"ok": true, "device": {...}}.
 
@@ -537,13 +545,112 @@ def train_phase(torch, flash):
     return launches, ms
 
 
+def dynamic_conv_bytes(B: int, T: int, C: int, H: int, K: int) -> int:
+    """Bytes the dynamic conv must move in bf16: x and w read once, the
+    output written once."""
+    return 2 * (2 * B * T * C + B * T * H * K)
+
+
+def dynamic_conv_phase(torch, dc):
+    """Phase 6. Returns ({"dynamic_conv": dict(max_abs_err, ms,
+    plain_ms)}, the main-path launch count), the times summed over the
+    four layer widths: one forward of each flagship layer's conv."""
+    from news_image_caption_tpu_torch.ops import conv
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16 = torch.bfloat16
+    B, T, C, H = 16, 512, 1024, 16
+    widths = (3, 7, 15, 31)
+    x = torch.randn(B, T, C, generator=gen, device=dev).to(bf16)
+    xh = x.view(B, T, H, C // H)
+    errs, ms, plain_ms = [], 0.0, 0.0
+    for K in widths:
+        w = torch.softmax(torch.randn(B, T, H, K, generator=gen, device=dev),
+                          -1).to(bf16)
+        got = dc.dynamic_conv(x, w, H)
+        want = dc.dynamic_conv_plain(x, w, H)
+        torch.cuda.synchronize()
+        # One bf16 ulp of the plain value (2^-7 of its binade) bounds a
+        # last-bit difference of the fp32 sum before the one rounding.
+        d = (got.float() - want.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp_min(2.0 ** -126))) - 7)
+        e, ok = d.max().item(), bool((d <= ulp).all())
+        exact = bool(torch.equal(got, want))
+        t_k = time_ms(lambda: dc.dynamic_conv(x, w, H))
+        t_p = time_ms(lambda: dc.dynamic_conv_plain(x, w, H))
+        t_s = time_ms(lambda: conv._shift_accumulate(xh, w, K))
+        floor_us = dynamic_conv_bytes(B, T, C, H, K) / 3.35e12 * 1e6
+        print(f"  dynamic_conv B={B} T={T} C={C} H={H} K={K}: max |diff| {e:.3g}"
+              f" (tol one bf16 ulp of the plain value), bit-equal {exact};"
+              f" kernel {t_k:.4f} ms ({floor_us:.1f} us floor at 3.35 TB/s,"
+              f" {100 * floor_us / (t_k * 1e3):.1f}% of it), plain"
+              f" {t_p:.4f} ms, shift route {t_s:.4f} ms", flush=True)
+        check(ok, f"dynamic_conv K={K} disagrees with its plain version")
+        if K == widths[-1]:
+            t_b = time_ms(lambda: conv._band_matmul(xh, w, K))
+            print(f"    band route K={K}: {t_b:.4f} ms", flush=True)
+        errs.append(e)
+        ms += t_k
+        plain_ms += t_p
+
+    # The module: one launch per forward at T % 128 == 0, none otherwise.
+    dc.dynamic_conv.launches = 0
+    x63 = x[:, :63].contiguous()
+    for K in widths:
+        mod = conv.DynamicConv(
+            C, K, H, device=dev, dtype=bf16, method="pallas",
+            generator=torch.Generator(device=dev).manual_seed(K))
+        before = dc.dynamic_conv.launches
+        out = mod(x)        # under grad mode: the backward is checked below
+        check(dc.dynamic_conv.launches == before + 1,
+              f"DynamicConv(K={K}) at T={T} launched"
+              f" {dc.dynamic_conv.launches - before} kernels, expected 1")
+        check(tuple(out.shape) == (B, T, C) and out.dtype == bf16
+              and bool(torch.isfinite(out).all()),
+              f"DynamicConv(K={K}) output {tuple(out.shape)} {out.dtype}")
+        cpu = copy.deepcopy(mod).to("cpu")
+        with torch.no_grad():
+            want = cpu(x.cpu())
+        # The taps come from a bf16 matmul on each device: one bf16
+        # rounding of a logit (2^-7 at |logit| < 2) moves a tap by under
+        # 1%, and the sum by under 1% of max |x| (about 5).
+        e, ok = within(out.detach().cpu(), want, 0.05, 0.02)
+        print(f"  DynamicConv(1024, {K}, 16, method='pallas') T={T}: one"
+              f" launch; vs the same module on the CPU {e:.3g}"
+              f" (tol 0.05 + 0.02|ref|)", flush=True)
+        check(ok, f"DynamicConv(K={K}) on the card and on the CPU differ")
+        raised = False
+        try:
+            out.float().sum().backward()
+        except NotImplementedError:
+            raised = True
+        check(raised, f"DynamicConv(K={K}): backward through the kernel"
+              " did not raise")
+        before = dc.dynamic_conv.launches
+        shift = copy.deepcopy(mod)
+        shift.method = "shift"
+        with torch.no_grad():
+            same = bool(torch.equal(mod(x63), shift(x63)))
+        check(dc.dynamic_conv.launches == before,
+              f"DynamicConv(K={K}) at T=63 launched the kernel")
+        check(same, f"DynamicConv(K={K}) at T=63 is not the shift route")
+    launches = dc.dynamic_conv.launches
+    print(f"  DynamicConv at T=63: no launch, equal to the shift route;"
+          f" backward raises; {launches} launches over {len(widths)}"
+          f" forwards at T={T} (expected {len(widths)})", flush=True)
+    check(launches == len(widths), f"dynamic_conv launched {launches} times")
+    return {"dynamic_conv": dict(max_abs_err=max(errs), ms=ms,
+                                 plain_ms=plain_ms)}, launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
     from news_image_caption_tpu_torch.ops import (_build, band_topk,
                                                   decode_attention,
-                                                  decode_blocks,
+                                                  decode_blocks, dynamic_conv,
                                                   flash_attention)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -572,6 +679,11 @@ def main() -> None:
     train_launches, step_ms = train_phase(torch, flash_attention)
     launches.update(train_launches)
 
+    print("phase 6: dynamic conv at full flagship width (bf16)", flush=True)
+    conv_timing, launches["dynamic_conv"] = dynamic_conv_phase(torch,
+                                                               dynamic_conv)
+    timing.update(conv_timing)
+
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",
                                           "pallas_kernels.py:146"),
@@ -582,7 +694,8 @@ def main() -> None:
                "flash_attention_fwd": ("flash_attention.cu",
                                        "pallas_flash.py:243"),
                "flash_attention_bwd": ("flash_attention.cu",
-                                       "pallas_flash.py:266")}
+                                       "pallas_flash.py:266"),
+               "dynamic_conv": ("dynamic_conv.cu", "pallas_kernels.py:72")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"news_image_caption_tpu_torch/csrc/{src}",
                 "replaces": f"news_image_caption_tpu/ops/{tpu}",
@@ -593,8 +706,9 @@ def main() -> None:
                for name, (src, tpu) in sources.items()]
     print("(ms / plain_ms: device time, CUDA events, of one decode step at"
           " batch 16 for the decode kernels and of one train step at batch"
-          f" 16 for the flash kernels, all layers; train step {step_ms:.2f}"
-          " ms)")
+          " 16 for the flash kernels, all layers; for dynamic_conv, one"
+          " forward at B=16, T=512 of each flagship layer width, K ="
+          f" 3/7/15/31, summed; train step {step_ms:.2f} ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,5 @@
-"""Layers and the decode kernels of the port."""
+"""Layers and the kernels of the port."""
+
+from news_image_caption_tpu_torch.ops.conv import DynamicConv
+
+__all__ = ["DynamicConv"]

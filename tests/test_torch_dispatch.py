@@ -20,12 +20,15 @@ from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
 from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
     decode_conv_block, decode_conv_block_plain, decode_ffn_block,
     decode_ffn_block_plain)
+from news_image_caption_tpu_torch.ops.dynamic_conv import (  # noqa: E402
+    dynamic_conv, dynamic_conv_plain)
 from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
 
 KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
-           "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd"]
+           "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd",
+           "dynamic_conv"]
 
 
 @pytest.fixture
@@ -51,7 +54,10 @@ def _kernel_calls(device, dtype=torch.bfloat16):
     seed = torch.tensor([7], dtype=torch.int32, device=device)
     flash = (q, kf, vf, bias, seed, H, 0.1)
     lse = flash_attention_fwd_plain(*flash)[1]
+    taps = torch.softmax(torch.randn(2, 9, H, K, generator=g), -1)
     return {
+        "dynamic_conv": (dynamic_conv, dynamic_conv_plain,
+                         (rn(2, 9, C), taps.to(dtype).to(device), H)),
         "flash_attention_fwd": (flash_attention_fwd,
                                 flash_attention_fwd_plain, flash),
         "flash_attention_bwd": (
@@ -113,3 +119,40 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
         else:
             torch.testing.assert_close(g.float(), w.float(), atol=0.05,
                                        rtol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,H,K,dtype", [
+    (1, 1, 64, 4, 1, torch.bfloat16),        # one row, one tap
+    (2, 63, 96, 3, 31, torch.bfloat16),      # T below the halo, C < chunk
+    (2, 130, 6, 2, 5, torch.bfloat16),       # odd R: a pair spans two heads
+    (1, 77, 1024, 512, 7, torch.bfloat16),   # R = 2: 64 heads a chunk
+    (2, 200, 1024, 16, 31, torch.float32),   # fp32: smaller time tiles
+    (3, 512, 1024, 16, 15, torch.bfloat16),  # flagship width
+])
+def test_dynamic_conv_matches_plain_on_card(cuda_device, B, T, C, H, K,
+                                           dtype):
+    """The kernel keeps the plain version's products and sums apart
+    (no fused multiply-add), in tap order: equal bit for bit."""
+    g = torch.Generator().manual_seed(T)
+    x = torch.randn(B, T, C, generator=g).to(dtype).to(cuda_device)
+    w = torch.softmax(torch.randn(B, T, H, K, generator=g), -1)
+    w = w.to(dtype).to(cuda_device)
+    got = dynamic_conv(x, w, H)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dynamic_conv_plain(x, w, H))
+
+
+@pytest.mark.cuda
+def test_dynamic_conv_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.randn(1, 8, 64, device=cuda_device)
+    w = torch.randn(1, 8, 4, 3, device=cuda_device)
+    for args, match in [((x.half(), w.half(), 4), "bf16 or both fp32"),
+                        ((x, w.bfloat16(), 4), "bf16 or both fp32"),
+                        ((x, w, 8), "expected"),
+                        ((x.transpose(1, 2).contiguous().transpose(1, 2), w,
+                          4), "contiguous"),
+                        ((x, torch.randn(1, 8, 4, 32, device=cuda_device),
+                          4), "1 <= K <= 31")]:
+        with pytest.raises(ValueError, match=match):
+            dynamic_conv(*args)
