@@ -34,6 +34,11 @@ The line before the last is a JSON summary of the kernels; the last is
 {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
+
+`python3 chip_smoke.py --serving-latency N` instead measures the
+flagship server's request latency over N requests at B=1 and B=16 and
+profiles one request of each (see `latency_mode`); it prints no result
+line.
 """
 
 from __future__ import annotations
@@ -100,10 +105,73 @@ def within(got, want, atol: float, rtol: float):
     return d.max().item(), bool((d <= atol + rtol * want.float().abs()).all())
 
 
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+PEAK_OPS_PER_S = {"bf16": 989e12,  # dense tensor-core rate, bf16 inputs
+                  "fp32": 67e12}   # fp32 outside the tensor cores
+
+
+class Tally:
+    """One kernel's entry of the `kernels` line, summed over the calls
+    of one step: the largest error, the kernel's, the plain version's
+    and the library call's device times, and the bound (the larger of
+    the bytes every input and output holds over the card's memory rate
+    and the operations over the card's peak rate for their type)."""
+
+    def __init__(self, rate: str = "bf16"):
+        self.rate = rate
+        self.errs = []
+        self.ms = self.plain_ms = self.bytes_ms = self.ops_ms = 0.0
+        self.library_ms = None
+
+    def add(self, tensors, ops: float, ms: float, plain_ms: float,
+            library_ms=None, calls: int = 1) -> str:
+        """Count `calls` calls that move `tensors` once each and do
+        `ops` operations; returns a line for the log."""
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / PEAK_OPS_PER_S[self.rate] * 1e3
+        self.ms += calls * ms
+        self.plain_ms += calls * plain_ms
+        self.bytes_ms += calls * b_ms
+        self.ops_ms += calls * o_ms
+        line = (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
+                f" {max(b_ms, o_ms):.4f} ms ({nbytes / 1e6:.2f} MB,"
+                f" {ops / 1e6:.0f} MFLOP)")
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + calls * library_ms
+            line += f", library {library_ms:.4f} ms"
+        return line
+
+    def result(self) -> dict:
+        return dict(max_abs_err=max(self.errs), ms=self.ms,
+                    plain_ms=self.plain_ms,
+                    bound_ms=max(self.bytes_ms, self.ops_ms),
+                    bound_by=("bytes" if self.bytes_ms >= self.ops_ms
+                              else "operations"),
+                    library_ms=self.library_ms)
+
+
+def sdpa(torch, q, k, v, bias, H: int, dropout_p: float = 0.0):
+    """The library yardstick of the attention kernels: PyTorch's
+    scaled_dot_product_attention on [B, H, Q, dh] views, the key bias
+    as an additive mask, scale 1 (q is pre-scaled), the heads gathered
+    into [B, Q, E] as the kernels write them. Timed here only; the port
+    never calls it."""
+    B, Q, E = q.shape
+    S = k.shape[1]
+    heads = lambda t, n: t.view(B, n, H, E // H).transpose(1, 2)
+    return torch.nn.functional.scaled_dot_product_attention(
+        heads(q, Q), heads(k, S), heads(v, S),
+        attn_mask=bias.to(q.dtype)[:, None, None, :], dropout_p=dropout_p,
+        scale=1.0).transpose(1, 2).reshape(B, Q, E)
+
+
 def kernel_phase(torch, ops):
-    """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms)}, the
-    times summed over one decode step at batch 16 (all layers)."""
+    """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms)}, the times summed over one decode
+    step at batch 16 (all layers)."""
     band, xattn, blocks = ops
+    F_ = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -119,7 +187,9 @@ def kernel_phase(torch, ops):
     # selectable below 5000) and the two tails. Tolerance: one bf16
     # rounding of a logit of magnitude < 8 (2^-5 = 0.03125), for the
     # values and for the plain logit at each id the kernel chose.
-    errs, ms, plain_ms = [], 0.0, 0.0
+    # Library yardstick, a chain of three calls: the bf16 product,
+    # logsumexp, topk.
+    tally = results["band_topk_lse"] = Tally()
     x = rn(N, D)
     for V, sel in ((5002, 5000), (15000, 15000), (30265, 30265)):
         table = rn(V, D, scale=D ** -0.5)
@@ -140,51 +210,77 @@ def kernel_phase(torch, ops):
                   f" {agree:.3f}", flush=True)
             check(ok_v and ok_l and ok_i and ok_sel,
                   f"band_topk_lse V={V} k={k} disagrees with its plain twin")
-            errs += [e_v, e_l]
+            tally.errs += [e_v, e_l]
             if k == 1:
-                t_k = time_ms(lambda: band.band_topk_lse(x, table, 1, sel))
-                t_p = time_ms(lambda: band.band_topk_lse_plain(x, table, 1,
-                                                               sel))
-                print(f"    time k=1: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-                ms += t_k
-                plain_ms += t_p
-    results["band_topk_lse"] = dict(max_abs_err=max(errs), ms=ms,
-                                    plain_ms=plain_ms)
+                def library():
+                    lg = x @ table.T
+                    return (torch.logsumexp(lg.float(), -1),
+                            torch.topk(lg[:, :sel], 1))
+                line = tally.add(
+                    (x, table, kv, ki, kl), 2.0 * N * V * D,
+                    time_ms(lambda: band.band_topk_lse(x, table, 1, sel)),
+                    time_ms(lambda: band.band_topk_lse_plain(x, table, 1,
+                                                             sel)),
+                    time_ms(library))
+                print(f"    time k=1: {line}")
 
     # decode_cross_attention: article (S' = 514) and image (S' = 51)
     # contexts, padded keys masked with -1e9. Tolerance 0.02 abs + 0.02
-    # rel: one bf16 rounding of a probability or the output.
-    errs, ms, plain_ms = [], 0.0, 0.0
+    # rel: one bf16 rounding of a probability or the output. The timed
+    # calls are a greedy step's (Q = 1, B = 16), one per layer and
+    # context. Library yardstick: scaled_dot_product_attention.
+    tally = results["decode_cross_attention"] = Tally()
+
+    def attention_case(B, Q, S, timed=False, one_key=False):
+        k_, v_ = rn(B, S, D), rn(B, S, D)
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:S - 2] = -1e9      # padded context slots
+        if one_key:                             # item 0 sees one key only
+            bias[0] = -1e9
+            bias[0, S // 3] = 0.0
+        q = rn(B, Q, D, scale=0.125)
+        got = xattn.decode_cross_attention(q, k_, v_, bias, H)
+        again = xattn.decode_cross_attention(q, k_, v_, bias, H)
+        want = xattn.decode_cross_attention_plain(q, k_, v_, bias, H)
+        torch.cuda.synchronize()
+        e, ok = within(got, want, 0.02, 0.02)
+        same = bool(torch.equal(got, again))
+        print(f"  decode_cross_attention B={B} Q={Q} S'={S}"
+              f"{' (item 0: one key unmasked)' if one_key else ''}: {e:.3g}"
+              f" (tol 0.02 + 0.02|ref|), repeated call bit-equal {same}",
+              flush=True)
+        check(ok, f"decode_cross_attention B={B} Q={Q} S'={S} disagrees")
+        check(same, f"decode_cross_attention B={B} Q={Q} S'={S}: two calls"
+              " on the same inputs differ")
+        tally.errs.append(e)
+        if timed:
+            line = tally.add(
+                (q, k_, v_, bias, got), 4.0 * B * Q * S * D,
+                time_ms(lambda: xattn.decode_cross_attention(q, k_, v_, bias,
+                                                             H)),
+                time_ms(lambda: xattn.decode_cross_attention_plain(
+                    q, k_, v_, bias, H)),
+                time_ms(lambda: sdpa(torch, q, k_, v_, bias, H)),
+                calls=4 if B == N else 0)
+            print(f"    time B={B} Q={Q}: {line}")
+
     for S in (514, 51):
-        k_ = rn(N, S, D)
-        v_ = rn(N, S, D)
-        bias = torch.zeros(N, S, device=dev)
-        bias[N // 2:, S // 2:S - 2] = -1e9      # padded context slots
-        for Q in (1, 5):
-            q = rn(N, Q, D, scale=0.125)
-            got = xattn.decode_cross_attention(q, k_, v_, bias, H)
-            want = xattn.decode_cross_attention_plain(q, k_, v_, bias, H)
-            torch.cuda.synchronize()
-            e, ok = within(got, want, 0.02, 0.02)
-            print(f"  decode_cross_attention B={N} Q={Q} S'={S}: {e:.3g}"
-                  f" (tol 0.02 + 0.02|ref|)", flush=True)
-            check(ok, f"decode_cross_attention Q={Q} S'={S} disagrees")
-            errs.append(e)
-            if Q == 1:
-                t_k = time_ms(lambda: xattn.decode_cross_attention(
-                    q, k_, v_, bias, H))
-                t_p = time_ms(lambda: xattn.decode_cross_attention_plain(
-                    q, k_, v_, bias, H))
-                print(f"    time Q=1: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-                ms += 4 * t_k        # one call per layer and context
-                plain_ms += 4 * t_p
-    results["decode_cross_attention"] = dict(max_abs_err=max(errs), ms=ms,
-                                             plain_ms=plain_ms)
+        attention_case(N, 1, S, timed=True)
+        attention_case(N, 5, S)
+        attention_case(N, 16, S)
+        attention_case(1, 1, S, timed=True)
+        attention_case(1, 5, S)
+        attention_case(1, 16, S)
+    for S in (1, 63, 65):
+        attention_case(N, 1, S)
+        attention_case(1, 16, S)
+    attention_case(N, 5, 514, one_key=True)
+    attention_case(1, 1, 51, one_key=True)
 
     # decode_conv_block: K = 3/7/15/31 at t before, at and past the ring
     # filling. Tolerance 0.02 (h) and 0.05 (y) abs + rel, the reference
-    # tests' bf16 tolerances.
-    errs, ms, plain_ms = [], 0.0, 0.0
+    # tests' bf16 tolerances. No library call computes it.
+    tally = results["decode_conv_block"] = Tally()
     x = rn(N, D)
     w1, b1 = rn(D, 2 * D, scale=D ** -0.5), rn(2 * D, scale=0.05)
     w2, b2 = rn(D, D, scale=D ** -0.5), rn(D, scale=0.05)
@@ -201,32 +297,45 @@ def kernel_phase(torch, ops):
             print(f"  decode_conv_block N={N} K={K} t={t}: h {e_h:.3g},"
                   f" y {e_y:.3g} (tol 0.02 / 0.05, abs + rel)", flush=True)
             check(ok_h and ok_y, f"decode_conv_block K={K} t={t} disagrees")
-            errs += [e_h, e_y]
-        t_k = time_ms(lambda: blocks.decode_conv_block(*args))
-        t_p = time_ms(lambda: blocks.decode_conv_block_plain(*args))
-        print(f"    time K={K}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-        ms += t_k
-        plain_ms += t_p
-    results["decode_conv_block"] = dict(max_abs_err=max(errs), ms=ms,
-                                        plain_ms=plain_ms)
+            tally.errs += [e_h, e_y]
+        line = tally.add(
+            (x, cache, w1, b1, wl, w2, b2, y, h),
+            2.0 * N * D * (2 * D + H * K + D) + 2.0 * N * D * K,
+            time_ms(lambda: blocks.decode_conv_block(*args)),
+            time_ms(lambda: blocks.decode_conv_block_plain(*args)))
+        print(f"    time K={K}: {line}")
 
-    # decode_ffn_block. Tolerance 0.02 abs + rel.
+    # decode_ffn_block at N = 16, 5 and 1 rows. Tolerance 0.02 abs + rel.
+    # The timed call is N = 16, one per layer. Library yardstick, a chain
+    # of four calls in bf16: linear, relu, linear, add.
+    tally = results["decode_ffn_block"] = Tally()
     f1, fb1 = rn(D, F, scale=D ** -0.5), rn(F, scale=0.05)
     f2, fb2 = rn(F, D, scale=F ** -0.5), rn(D, scale=0.05)
-    args = (x, f1, fb1, f2, fb2)
-    y = blocks.decode_ffn_block(*args)
-    py = blocks.decode_ffn_block_plain(*args)
-    torch.cuda.synchronize()
-    e, ok = within(y, py, 0.02, 0.02)
-    print(f"  decode_ffn_block N={N} C={D} F={F}: {e:.3g} (tol 0.02 + 0.02|ref|)",
-          flush=True)
-    check(ok, "decode_ffn_block disagrees with its plain twin")
-    t_k = time_ms(lambda: blocks.decode_ffn_block(*args))
-    t_p = time_ms(lambda: blocks.decode_ffn_block_plain(*args))
-    print(f"    time: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    results["decode_ffn_block"] = dict(max_abs_err=e, ms=4 * t_k,
-                                       plain_ms=4 * t_p)
-    return results
+    for n in (N, 5, 1):
+        args = (x[:n].contiguous(), f1, fb1, f2, fb2)
+        y = blocks.decode_ffn_block(*args)
+        again = blocks.decode_ffn_block(*args)
+        py = blocks.decode_ffn_block_plain(*args)
+        torch.cuda.synchronize()
+        e, ok = within(y, py, 0.02, 0.02)
+        same = bool(torch.equal(y, again))
+        print(f"  decode_ffn_block N={n} C={D} F={F}: {e:.3g} (tol 0.02 +"
+              f" 0.02|ref|), repeated call bit-equal {same}", flush=True)
+        check(ok, f"decode_ffn_block N={n} disagrees with its plain twin")
+        check(same, f"decode_ffn_block N={n}: two calls on the same inputs"
+              " differ")
+        tally.errs.append(e)
+        if n in (N, 1):
+            xs = args[0]
+            line = tally.add(
+                (*args, y), 4.0 * n * D * F,
+                time_ms(lambda: blocks.decode_ffn_block(*args)),
+                time_ms(lambda: blocks.decode_ffn_block_plain(*args)),
+                time_ms(lambda: F_.linear(torch.relu(
+                    F_.linear(xs, f1.T, fb1)), f2.T, fb2) + xs),
+                calls=4 if n == N else 0)
+            print(f"    time N={n}: {line}")
+    return {name: t.result() for name, t in results.items()}
 
 
 def flash_phase(torch, flash):
@@ -234,8 +343,10 @@ def flash_phase(torch, flash):
     q [16, 63, 1024] (pre-scaled), k/v [16, S', 1024] with S' = 514
     (article) and 51 (image), half the items padded, p = 0.1 and one
     seed, so kernel and plain version draw the same mask. Returns
-    {kernel: dict(max_abs_err, ms, plain_ms)}, the times summed over
-    one train step's calls (4 layers x 2 contexts)."""
+    {kernel: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)}, the times summed over one train step's calls (4 layers
+    x 2 contexts). Library yardstick: scaled_dot_product_attention with
+    dropout_p = 0.1, and its backward through autograd."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16 = torch.bfloat16
@@ -260,8 +371,7 @@ def flash_phase(torch, flash):
 
     B, T, E, H, p = 16, 63, 1024, 16, 0.1
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
-    res = {"flash_attention_fwd": dict(errs=[], ms=0.0, plain_ms=0.0),
-           "flash_attention_bwd": dict(errs=[], ms=0.0, plain_ms=0.0)}
+    res = {"flash_attention_fwd": Tally(), "flash_attention_bwd": Tally()}
     for S in (514, 51):
         # q as the layer gives it: unit-scale projections times 64^-0.5.
         q, k, v = rn(B, T, E, scale=0.125), rn(B, S, E), rn(B, S, E)
@@ -294,25 +404,29 @@ def flash_phase(torch, flash):
               f" dv {errs[4]:.3g} (tol 0.02+0.02|ref| / 1e-3+1e-5|ref| /"
               f" 0.02 max|ref|+0.02|ref|)", flush=True)
         check(all(oks), f"flash attention S'={S} disagrees with its plain twin")
-        res["flash_attention_fwd"]["errs"] += errs[:2]
-        res["flash_attention_bwd"]["errs"] += errs[2:]
-        times = {
-            "flash_attention_fwd": (
-                lambda: flash.flash_attention_fwd(*fargs),
-                lambda: flash.flash_attention_fwd_plain(*fargs)),
-            "flash_attention_bwd": (
-                lambda: flash.flash_attention_bwd(q, k, v, bias, seed, lse,
-                                                  g, H, p),
-                lambda: flash.flash_attention_bwd_plain(q, k, v, bias, seed,
-                                                        plse, g, H, p))}
-        for name, (kern, plain) in times.items():
-            t_k, t_p = time_ms(kern), time_ms(plain)
-            print(f"    time {name} S'={S}: kernel {t_k:.4f} ms,"
-                  f" plain {t_p:.4f} ms")
-            res[name]["ms"] += 4 * t_k       # one call per layer
-            res[name]["plain_ms"] += 4 * t_p
-    return {name: dict(max_abs_err=max(r["errs"]), ms=r["ms"],
-                       plain_ms=r["plain_ms"]) for name, r in res.items()}
+        res["flash_attention_fwd"].errs += errs[:2]
+        res["flash_attention_bwd"].errs += errs[2:]
+        # The library's forward and, over one retained graph, its backward.
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        lout = sdpa(torch, lq, lk, lv, bias, H, p)
+        flops = 4.0 * B * T * S * E
+        line = res["flash_attention_fwd"].add(
+            (q, k, v, bias, seed, out, lse), flops,
+            time_ms(lambda: flash.flash_attention_fwd(*fargs)),
+            time_ms(lambda: flash.flash_attention_fwd_plain(*fargs)),
+            time_ms(lambda: sdpa(torch, q, k, v, bias, H, p)), calls=4)
+        print(f"    time flash_attention_fwd S'={S}: {line}")
+        # Backward: the scores again, dp, dv, dq and dk: five products.
+        line = res["flash_attention_bwd"].add(
+            (q, k, v, bias, seed, lse, g, dq, dk, dv), 2.5 * flops,
+            time_ms(lambda: flash.flash_attention_bwd(q, k, v, bias, seed,
+                                                      lse, g, H, p)),
+            time_ms(lambda: flash.flash_attention_bwd_plain(
+                q, k, v, bias, seed, plse, g, H, p)),
+            time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), g,
+                                                retain_graph=True)), calls=4)
+        print(f"    time flash_attention_bwd S'={S}: {line}")
+    return {name: t.result() for name, t in res.items()}
 
 
 def make_job(rng, B: int, article_lens):
@@ -553,8 +667,9 @@ def dynamic_conv_bytes(B: int, T: int, C: int, H: int, K: int) -> int:
 
 def dynamic_conv_phase(torch, dc):
     """Phase 6. Returns ({"dynamic_conv": dict(max_abs_err, ms,
-    plain_ms)}, the main-path launch count), the times summed over the
-    four layer widths: one forward of each flagship layer's conv."""
+    plain_ms, bound_ms, bound_by, library_ms)}, the main-path launch
+    count), the times summed over the four layer widths: one forward of
+    each flagship layer's conv. No library call computes it."""
     from news_image_caption_tpu_torch.ops import conv
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -563,7 +678,7 @@ def dynamic_conv_phase(torch, dc):
     widths = (3, 7, 15, 31)
     x = torch.randn(B, T, C, generator=gen, device=dev).to(bf16)
     xh = x.view(B, T, H, C // H)
-    errs, ms, plain_ms = [], 0.0, 0.0
+    tally = Tally("fp32")
     for K in widths:
         w = torch.softmax(torch.randn(B, T, H, K, generator=gen, device=dev),
                           -1).to(bf16)
@@ -580,7 +695,7 @@ def dynamic_conv_phase(torch, dc):
         t_k = time_ms(lambda: dc.dynamic_conv(x, w, H))
         t_p = time_ms(lambda: dc.dynamic_conv_plain(x, w, H))
         t_s = time_ms(lambda: conv._shift_accumulate(xh, w, K))
-        floor_us = dynamic_conv_bytes(B, T, C, H, K) / 3.35e12 * 1e6
+        floor_us = dynamic_conv_bytes(B, T, C, H, K) / HBM_BYTES_PER_S * 1e6
         print(f"  dynamic_conv B={B} T={T} C={C} H={H} K={K}: max |diff| {e:.3g}"
               f" (tol one bf16 ulp of the plain value), bit-equal {exact};"
               f" kernel {t_k:.4f} ms ({floor_us:.1f} us floor at 3.35 TB/s,"
@@ -590,9 +705,10 @@ def dynamic_conv_phase(torch, dc):
         if K == widths[-1]:
             t_b = time_ms(lambda: conv._band_matmul(xh, w, K))
             print(f"    band route K={K}: {t_b:.4f} ms", flush=True)
-        errs.append(e)
-        ms += t_k
-        plain_ms += t_p
+        tally.errs.append(e)
+        # x and w read, the output written; one fp32 multiply and add a
+        # tap and channel, outside the tensor cores.
+        tally.add((x, w, got), 2.0 * B * T * C * K, t_k, t_p)
 
     # The module: one launch per forward at T % 128 == 0, none otherwise.
     dc.dynamic_conv.launches = 0
@@ -640,8 +756,58 @@ def dynamic_conv_phase(torch, dc):
           f" backward raises; {launches} launches over {len(widths)}"
           f" forwards at T={T} (expected {len(widths)})", flush=True)
     check(launches == len(widths), f"dynamic_conv launched {launches} times")
-    return {"dynamic_conv": dict(max_abs_err=max(errs), ms=ms,
-                                 plain_ms=plain_ms)}, launches
+    return {"dynamic_conv": tally.result()}, launches
+
+
+def latency_mode(torch, n_requests: int) -> None:
+    """`--serving-latency N`: request latency of the flagship greedy
+    server over N requests at B=1 and at B=16 (host clock, request in to
+    tokens on the host; articles of 20-512 tokens, max_len 32), and one
+    profiled request of each size: device busy share of the wall time,
+    device ms a decode step and the kernels' device time by name.
+    Prints one JSON object a batch size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from news_image_caption_tpu_torch.serving.worker import \
+        flagship_model_builder
+    predict = flagship_model_builder("cuda", batch_size=1, max_len=32,
+                                     early_exit=True, seed=0)
+    cfg = predict.config
+    rng = np.random.RandomState(0)
+    for B in (1, 16):
+        jobs = [make_job(rng, B, rng.randint(20, 513, size=B))
+                for _ in range(n_requests)]
+        for job in jobs[:3]:
+            predict(job)
+        lat, steps = [], 0
+        for job in jobs:
+            t = time.perf_counter()
+            tokens = predict(job)["tokens"]
+            lat.append((time.perf_counter() - t) * 1e3)
+            steps += decode_steps(tokens, cfg.eos_id, cfg.max_len)
+        lat.sort()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            tokens = predict(jobs[0])["tokens"]
+            wall = (time.perf_counter() - t) * 1e3
+        n = decode_steps(tokens, cfg.eos_id, cfg.max_len)
+        dev_events = [e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+        check(busy > 0, "the profiler saw no device time")
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
+        print(json.dumps({
+            "B": B, "requests": n_requests,
+            "p50_ms": lat[len(lat) // 2], "p90_ms": lat[(9 * len(lat)) // 10],
+            "captions_per_s": B * 1e3 / lat[len(lat) // 2],
+            "steps_per_request": steps / n_requests,
+            "profiled_wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "device_ms_per_step": busy / n,
+            "top_device_ms_per_step": {
+                e.key[:60]: [e.self_device_time_total / 1e3 / n, e.count / n]
+                for e in top}}), flush=True)
 
 
 def main() -> None:
@@ -661,6 +827,12 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if len(sys.argv) > 1:
+        check(len(sys.argv) == 3 and sys.argv[1] == "--serving-latency",
+              "usage: chip_smoke.py [--serving-latency N_REQUESTS]")
+        latency_mode(torch, int(sys.argv[2]))
+        return
 
     print("phase 3: kernels vs plain versions (bf16, flagship shapes)",
           flush=True)
@@ -689,7 +861,7 @@ def main() -> None:
                                           "pallas_kernels.py:146"),
                "decode_conv_block": ("decode_blocks.cu",
                                      "pallas_decode.py:177"),
-               "decode_ffn_block": ("decode_blocks.cu",
+               "decode_ffn_block": ("decode_ffn.cu",
                                     "pallas_decode.py:133"),
                "flash_attention_fwd": ("flash_attention.cu",
                                        "pallas_flash.py:243"),
@@ -702,9 +874,14 @@ def main() -> None:
                 "launches": launches[name],
                 "max_abs_err": timing[name]["max_abs_err"],
                 "ms": timing[name]["ms"],
-                "plain_ms": timing[name]["plain_ms"]}
+                "plain_ms": timing[name]["plain_ms"],
+                "bound_ms": timing[name]["bound_ms"],
+                "bound_by": timing[name]["bound_by"],
+                "library_ms": timing[name]["library_ms"]}
                for name, (src, tpu) in sources.items()]
-    print("(ms / plain_ms: device time, CUDA events, of one decode step at"
+    print("(ms / plain_ms / library_ms / bound_ms: device time, CUDA events,"
+          " and the card's least time at 3.35 TB/s and 989 TFLOP/s bf16 or"
+          " 67 TFLOP/s fp32, of one decode step at"
           " batch 16 for the decode kernels and of one train step at batch"
           " 16 for the flash kernels, all layers; for dynamic_conv, one"
           " forward at B=16, T=512 of each flagship layer width, K ="

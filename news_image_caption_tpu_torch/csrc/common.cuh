@@ -1,12 +1,24 @@
-// Device helpers shared by the port's decode kernels.
+// Device helpers shared by the port's kernels.
 //
-// Every kernel here does its products through `block_matmul`: a block
-// of (BM / TM) * (BN / TN) threads stages BK-deep slices of both
-// operands in shared memory (as fp32) and accumulates a BM x BN tile
-// in fp32 registers with plain FMA. Decode runs at a few rows (N = the
-// request batch), where the card is bound by reading the weights once,
-// not by arithmetic; tensor-core products (wgmma) and TMA staging are
-// left for the PRs that make these kernels fast.
+// Two families. `block_matmul` is the simple product of the first
+// ports (decode_conv_block, band_topk_lse, the flash kernels): a block
+// stages BK-deep slices of both operands in shared memory as fp32,
+// through registers, and accumulates a BM x BN tile with scalar FMA.
+// It keeps about 4 KB of loads in flight a block, so those kernels are
+// bound by memory latency, far under the card's 3.35 TB/s.
+//
+// The decode kernels redesigned for the H100 (decode_ffn.cu,
+// decode_attention.cu) use the helpers at the end instead: `cp_async16`
+// copies 16 bytes from device memory straight into shared memory with
+// no register in between, so a block issues every load of its operands
+// at entry (100-130 KB in flight a block, the whole working set of the
+// call across the card); `bulk_copy` hands a contiguous run to the copy
+// engine, which counts its bytes on an `mbarrier_*` barrier while the
+// threads go on; `ldmatrix_*` reads 8 x 8 bf16 tiles from
+// shared memory in the tensor cores' fragment layout, transposed where
+// the operand lies k-major; `mma_bf16` is mma.sync.m16n8k16, bf16
+// inputs and fp32 accumulation, with the decode step's N <= 16 rows as
+// the 16-row operand.
 
 #pragma once
 
@@ -21,6 +33,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int BIG_ID = 1 << 30;  // id of an empty top-k slot
+// Shared memory one block can use on the H100 (227 KB), static and
+// dynamic together.
+constexpr int MAX_SMEM_BYTES = 232448;
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -197,7 +212,180 @@ __device__ __forceinline__ void block_argmax(float& v, int& id, float* sv,
   __syncthreads();
 }
 
+// ---- Building blocks of the kernels redesigned for Hopper ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Asynchronous 16-byte copy from device memory into shared memory,
+// past L1 and the registers. Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// The same for 4 bytes, both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most PENDING of this thread's committed groups are
+// still in flight. A __syncthreads() after it makes the data of every
+// thread's copies visible to the block.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// A barrier in shared memory (8 bytes, 8-byte aligned) that counts
+// the bytes of bulk copies. One thread initialises it for one arrival
+// and, with the same call, arrives and says how many bytes the copies
+// will bring; a __syncthreads() must follow before a copy names it.
+__device__ __forceinline__ void mbarrier_init_expect(void* bar, uint32_t bytes) {
+  const uint32_t addr = smem_u32(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(addr) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(addr),
+               "r"(bytes)
+               : "memory");
+}
+
+// Asynchronous copy of `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from device memory into shared memory by
+// the copy engine: one instruction, no register and no waiting thread.
+// Its bytes count on `bar` as they land.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          uint32_t bytes, void* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until every expected byte of the barrier's first phase landed;
+// the copied data is visible to the waiting thread after it.
+__device__ __forceinline__ void mbarrier_wait(void* bar) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void zero16(void* smem) {
+  *reinterpret_cast<uint4*>(smem) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Two 8 x 8 bf16 tiles as the B operand of one mma_bf16 where shared
+// memory holds B as [n][k], k contiguous (K of attention): lanes 0-7
+// give the row addresses (16 bytes each) of the k 0-7 tile, lanes 8-15
+// of the k 8-15 tile.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t& b0, uint32_t& b1,
+                                            const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// Four 8 x 8 bf16 tiles, transposed on the way, as the B operands of
+// two mma_bf16 where shared memory holds B as [k][n], n contiguous (a
+// weight matrix, V of attention): lanes 0-7 give the rows k 0-7 and
+// lanes 8-15 the rows k 8-15 of the first n tile (b0, b1), lanes 16-31
+// the same of the second n tile (b2, b3).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& b0, uint32_t& b1,
+                                                  uint32_t& b2, uint32_t& b3,
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+      : "r"(smem_u32(row))
+      : "memory");
+}
+
+// c[16 x 8] += a[16 x 16] * b[16 x 8] on the tensor cores, bf16 in,
+// fp32 out. With g = lane / 4 and t = lane % 4, a lane holds
+//   a[0] = A(g, 2t..2t+1)      a[1] = A(g + 8, 2t..2t+1)
+//   a[2] = A(g, 2t+8..2t+9)    a[3] = A(g + 8, 2t+8..2t+9)
+//   b0 = B(2t..2t+1, g)        b1 = B(2t+8..2t+9, g)
+//   c[0..1] = C(g, 2t..2t+1)   c[2..3] = C(g + 8, 2t..2t+1)
+// each pair packed into 32 bits, the lower index in the lower half.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A operand of mma_bf16 from a row-major bf16 matrix in shared
+// memory: `at` points at element (g, k0 + 2t) of this lane, `stride`
+// is the row stride in bytes.
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4],
+                                            const unsigned char* at,
+                                            int stride) {
+  a[0] = *reinterpret_cast<const uint32_t*>(at);
+  a[1] = *reinterpret_cast<const uint32_t*>(at + 8 * stride);
+  a[2] = *reinterpret_cast<const uint32_t*>(at + 16);
+  a[3] = *reinterpret_cast<const uint32_t*>(at + 8 * stride + 16);
+}
+
 }  // namespace nic
+
+// Phase timers, for ops/_phase_timers.py. NIC_PHASE(i) marks the end of
+// phase i of a kernel and compiles to nothing, unless the sources are
+// built with -DNIC_PHASE_TIMERS: then thread 0 of every block stores
+// its multiprocessor's cycle counter and the card's nanosecond timer
+// there, and NIC_DEFINE_PHASE_READER(name) defines the C function that
+// copies the stamps of this source's kernels to the host, or zeroes
+// them when called with a null pointer.
+#ifdef NIC_PHASE_TIMERS
+namespace nic {
+constexpr int PHASE_SLOTS = 16, PHASE_BLOCKS = 2048;
+static __device__ long long phase_stamps[2][PHASE_BLOCKS][PHASE_SLOTS];
+__device__ __forceinline__ void phase_stamp(int i) {
+  const unsigned block =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  if (threadIdx.x != 0 || block >= PHASE_BLOCKS) return;
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  phase_stamps[0][block][i] = clock64();
+  phase_stamps[1][block][i] = (long long)ns;
+}
+}  // namespace nic
+#define NIC_PHASE(i) nic::phase_stamp(i)
+#define NIC_DEFINE_PHASE_READER(name)                                   \
+  extern "C" int name(void* host) {                                     \
+    if (host != nullptr)                                                \
+      return (int)cudaMemcpyFromSymbol(host, nic::phase_stamps,         \
+                                       sizeof(nic::phase_stamps));      \
+    void* stamps;                                                       \
+    cudaError_t err = cudaGetSymbolAddress(&stamps, nic::phase_stamps); \
+    if (err != cudaSuccess) return (int)err;                            \
+    return (int)cudaMemset(stamps, 0, sizeof(nic::phase_stamps));       \
+  }
+#else
+#define NIC_PHASE(i)
+#define NIC_DEFINE_PHASE_READER(name)
+#endif
 
 // Return the launch error, if any, from a C entry point.
 #define NIC_RETURN_IF_LAUNCH_FAILED()          \

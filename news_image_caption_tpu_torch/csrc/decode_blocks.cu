@@ -1,34 +1,28 @@
-// Decode-step blocks of the dynamic-conv decoder layer, for one new
-// token per row: the conv block (linear1 -> GLU -> tap softmax -> ring
-// combine -> linear2 + residual) and the FFN block
-// (relu(x w1 + b1) w2 + b2 + x).
+// The conv block of a decode step of the dynamic-conv decoder layer,
+// for one new token per row: linear1 -> GLU -> tap softmax -> ring
+// combine -> linear2 + residual. (The layer's FFN block has its own
+// source, decode_ffn.cu.)
 //
 // Replaces: news_image_caption_tpu/ops/pallas_decode.py
-// decode_conv_block (_conv_block_kernel) and decode_ffn_block
-// (_ffn_kernel).
+// decode_conv_block (_conv_block_kernel).
 //
 // What bounds it on the card: at decode batch N = 1..16 every weight
 // is read once per step and used N times, so the block is bound by
-// reading w1, w2 (and the tap predictor) from device memory: about
-// 6.5 MB (conv) and 16 MB (FFN) of bf16 per layer at d = 1024,
-// ffn = 4096.
+// reading w1, w2 and the tap predictor from device memory: about
+// 6.5 MB of bf16 per layer at d = 1024.
 //
-// Design: the TPU kernels carry state across a sequential grid (the
-// FFN's fp32 accumulator over ffn-dim chunks); Hopper blocks run in no
-// order, so each row product is a split-K launch (mm_split_kernel: at
-// N = 16 the output has only 16-64 tiles of 16 x 64, so K is cut into
-// chunks to put about two blocks per SM on the card, every weight
-// element still read once) writing fp32 partials, and an elementwise
-// epilogue sums the partials in a fixed order and applies the bias,
-// the activation and the residual:
-//   conv: linear1 split -> glu_epilogue -> conv_taps (per head: tap
-//         logits, softmax, ring combine) -> linear2 split ->
-//         bias_residual_epilogue;
-//   FFN:  fc1 split -> bias_relu_epilogue (h rounded to bf16 into
-//         scratch, the reference's rounding point) -> fc2 split ->
-//         bias_residual_epilogue (fp32 sum rounded once).
-// The bf16 rounding points are those of the reference kernels
-// (pallas_decode.py:47-101, :111-129).
+// Design: Hopper blocks run in no order, so each row product is a
+// split-K launch (mm_split_kernel: at N = 16 the output has only 16-32
+// tiles of 16 x 64, so K is cut into chunks to put about two blocks
+// per SM on the card, every weight element still read once) writing
+// fp32 partials, and an elementwise epilogue sums the partials in a
+// fixed order and applies the bias, the activation and the residual:
+//   linear1 split -> glu_epilogue -> conv_taps (per head: tap logits,
+//   softmax, ring combine) -> linear2 split -> bias_residual_epilogue.
+// The bf16 rounding points are those of the reference kernel
+// (pallas_decode.py:47-101). The products go through `block_matmul`
+// (common.cuh), which keeps little in flight: the kernel is bound by
+// memory latency, far from the bound above.
 
 #include "common.cuh"
 
@@ -81,17 +75,6 @@ __device__ __forceinline__ float split_sum(const float* __restrict__ part,
   float s = 0.f;
   for (int z = 0; z < splits; ++z) s += part[((size_t)z * N + m) * ncols + n];
   return s;
-}
-
-// out = relu(rbf(rbf(prod) + b)), out [N, F]. One thread per element.
-__global__ void bias_relu_epilogue(const float* __restrict__ part, int splits,
-                                   const bf16* __restrict__ b,
-                                   bf16* __restrict__ out, int N, int F) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * F) return;
-  const int m = i / F, n = i % F;
-  const float v = rbf(rbf(split_sum(part, splits, N, F, m, n)) + to_f(b[n]));
-  out[i] = to_bf(fmaxf(v, 0.f));
 }
 
 // y = rbf(rbf(rbf(prod) + b) + res), y/res [N, C].
@@ -225,34 +208,6 @@ extern "C" int nic_decode_conv_block(const void* x, const void* cache,
                              N, C, C, splits2, s);
   if (err != cudaSuccess) return (int)err;
   nic::bias_residual_epilogue<<<ew, nic::EPILOGUE_THREADS, 0, s>>>(
-      (const float*)part, splits2, (const bf16*)b2, (const bf16*)x, (bf16*)y,
-      N, C);
-  NIC_RETURN_IF_LAUNCH_FAILED();
-  return 0;
-}
-
-// y = FFN block step. x [N, C]; w1 [C, F], b1 [F]; w2 [F, C], b2 [C]
-// (weight norm folded); h [N, F] and part [max(splits1 * F,
-// splits2 * C) * N] fp32 scratch. Returns a cudaError_t.
-extern "C" int nic_decode_ffn_block(const void* x, const void* w1,
-                                    const void* b1, const void* w2,
-                                    const void* b2, void* h, void* y,
-                                    void* part, int N, int C, int F,
-                                    int splits1, int splits2, void* stream) {
-  if (splits1 < 1 || splits2 < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = nic::launch_mm_split((const bf16*)x, (const bf16*)w1,
-                                         (float*)part, N, C, F, splits1, s);
-  if (err != cudaSuccess) return (int)err;
-  nic::bias_relu_epilogue<<<cdiv(N * F, nic::EPILOGUE_THREADS),
-                            nic::EPILOGUE_THREADS, 0, s>>>(
-      (const float*)part, splits1, (const bf16*)b1, (bf16*)h, N, F);
-  NIC_RETURN_IF_LAUNCH_FAILED();
-  err = nic::launch_mm_split((const bf16*)h, (const bf16*)w2, (float*)part, N,
-                             F, C, splits2, s);
-  if (err != cudaSuccess) return (int)err;
-  nic::bias_residual_epilogue<<<cdiv(N * C, nic::EPILOGUE_THREADS),
-                                nic::EPILOGUE_THREADS, 0, s>>>(
       (const float*)part, splits2, (const bf16*)b2, (const bf16*)x, (bf16*)y,
       N, C);
   NIC_RETURN_IF_LAUNCH_FAILED();

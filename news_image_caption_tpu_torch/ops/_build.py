@@ -36,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+# Shared memory one block of the card can use (csrc/common.cuh).
+MAX_SMEM_BYTES = 232448
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -45,8 +47,8 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags: Sequence[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -62,10 +64,12 @@ def _nvcc() -> str:
                        " the port's kernels are built from csrc/ with it")
 
 
-def build() -> Path:
+def build(extra_flags: Sequence[str] = ()) -> Path:
     """Compile csrc/*.cu into the library for this source hash, unless
-    it exists already; returns its path."""
-    out = BUILD_DIR / f"libnic_kernels_{_digest()}.so"
+    it exists already; returns its path. extra_flags (a -D of a
+    development build) give a library of their own."""
+    flags = (*NVCC_FLAGS, *extra_flags)
+    out = BUILD_DIR / f"libnic_kernels_{_digest(flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +80,7 @@ def build() -> Path:
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         objs.append(obj)
         procs.append((src.name, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *flags, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []
     for name, proc in procs:
@@ -85,7 +89,7 @@ def build() -> Path:
             errors.append(f"{name} ({proc.returncode}):\n{err[-8000:]}")
     tmp = out.with_name(f"{tag}.so.tmp")
     if not errors:
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+        res = subprocess.run([nvcc, *flags, "-shared", "-o", str(tmp),
                               *map(str, objs)], capture_output=True, text=True)
         if res.returncode != 0:
             errors.append(f"link ({res.returncode}):\n{res.stderr[-8000:]}")
@@ -97,11 +101,13 @@ def build() -> Path:
     return out
 
 
-def lib() -> ctypes.CDLL:
+def lib(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The process's kernel library, built on first use. extra_flags
+    count only on that first use."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            handle = ctypes.CDLL(str(build(extra_flags)))
             handle.nic_error_string.argtypes = [I]
             handle.nic_error_string.restype = ctypes.c_char_p
             _lib = handle
@@ -125,7 +131,24 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def ptxas_info() -> str:
+    """What `nvcc -Xptxas -v` says of every kernel (registers, spills,
+    static shared memory), the lines of the compiler as they come."""
+    nvcc = _nvcc()
+    out = []
+    for src in sorted(CSRC.glob("*.cu")):
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
+             str(src)], capture_output=True, text=True)
+        out.append(f"== {src.name} (nvcc exit {res.returncode})\n{res.stderr}")
+    return "\n".join(out)
+
+
 def require(cond: bool, what: str) -> None:
     """Raise ValueError for an input the kernel does not take."""
     if not cond:
         raise ValueError(what)
+
+
+if __name__ == "__main__":     # python3 -m news_image_caption_tpu_torch.ops._build
+    print(ptxas_info())

@@ -1,0 +1,120 @@
+"""Where the time of one launch of a decode kernel goes, phase by phase.
+
+It needs only the card, no profiler. It
+builds the kernels with `-DNIC_PHASE_TIMERS`, which turns every
+`NIC_PHASE(i)` marker of `csrc/decode_ffn.cu` and
+`csrc/decode_attention.cu` into a stamp of the multiprocessor's cycle
+counter and the card's nanosecond timer by thread 0 of every block
+(`csrc/common.cuh`). It launches each kernel once at the flagship's
+decode shapes with the L2 cache flushed, reads the stamps back and
+prints, for every phase, the mean and the largest time a block spent in
+it, when the blocks started and ended relative to the first, and the
+launch's span. The stamps cost a few hundred cycles a block, so the
+span reads a little above the kernel's time in `chip_smoke.py`.
+
+Run on the card, from the repository root:
+    python3 -m news_image_caption_tpu_torch.ops._phase_timers
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from news_image_caption_tpu_torch.ops import (_build, decode_attention,
+                                              decode_blocks)
+
+SLOTS, BLOCKS = 16, 2048        # PHASE_SLOTS, PHASE_BLOCKS of common.cuh
+FFN_PHASES = ["issue loads", "wait x, w1", "fc1", "h, group barrier",
+              "read h, wait w2", "fc2", "slice barrier",
+              "add groups, write y"]
+ATTENTION_PHASES = ["issue loads", "wait K", "scores", "row max, sum",
+                    "cluster barrier", "p", "wait V", "p V",
+                    "cluster barrier", "add partials, write out"]
+
+
+def read_stamps(reader: str) -> np.ndarray:
+    """[2 (cycles, ns), BLOCKS, SLOTS] int64 of the last launch."""
+    host = np.zeros((2, BLOCKS, SLOTS), np.int64)
+    fn = _build.function(reader, [_build.P])
+    torch.cuda.synchronize()
+    _build.check(fn(host.ctypes.data_as(ctypes.c_void_p)), reader)
+    return host
+
+
+def report(title: str, stamps: np.ndarray, blocks: int, phases) -> None:
+    blocks = min(blocks, BLOCKS)
+    n = len(phases)
+    cycles, ns = stamps[0, :blocks, :n], stamps[1, :blocks, :n]
+    ran_last = cycles[:, n - 1] != 0     # blocks that stamped the last phase
+    t0 = ns[:, 0].min()
+    end = np.where(ran_last, ns[:, n - 1], ns[:, n - 2])
+    life = np.where(ran_last, cycles[:, n - 1], cycles[:, n - 2]) - cycles[:, 0]
+    ghz = float(np.median(life / np.maximum(end - ns[:, 0], 1)))
+    print(f"{title}: {blocks} blocks, span of the launch"
+          f" {(end.max() - t0) / 1e3:.2f} us (first stamp to last), a block"
+          f" lives {np.mean(end - ns[:, 0]) / 1e3:.2f} us on average,"
+          f" {ghz:.2f} cycles a ns")
+    print(f"  blocks start {np.mean(ns[:, 0] - t0) / 1e3:.2f} us after the"
+          f" first on average, the last {(ns[:, 0].max() - t0) / 1e3:.2f} us"
+          f" after; they end {np.mean(end - t0) / 1e3:.2f} us after it on"
+          " average")
+    for i in range(1, n):
+        d = (cycles[:, i] - cycles[:, i - 1]) / ghz / 1e3
+        if i == n - 1:
+            d = d[ran_last]
+        print(f"  {phases[i]:36s} mean {d.mean():6.2f} us, max {d.max():6.2f}"
+              f" us ({d.size} blocks)")
+
+
+def main() -> None:
+    assert torch.cuda.is_available(), "the phase timers need the card"
+    _build.lib(("-DNIC_PHASE_TIMERS",))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).bfloat16()
+
+    def cold(fn, reader):
+        """One launch with zeroed stamps and a flushed L2, after three
+        to warm up."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        _build.check(_build.function(reader, [_build.P])(None), reader)
+        flush.zero_()
+        torch.cuda.synchronize()
+        fn()
+
+    D, H, F = 1024, 16, 4096
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w1, b1 = rn(D, F, scale=D ** -0.5), rn(F, scale=0.05)
+    w2, b2 = rn(F, D, scale=F ** -0.5), rn(D, scale=0.05)
+    for N in (16, 1):
+        x = rn(N, D)
+        cold(lambda: decode_blocks.decode_ffn_block(x, w1, b1, w2, b2),
+             "nic_decode_ffn_phases")
+        plan = decode_blocks.ffn_plan(N, D, F, sms)
+        report(f"decode_ffn_block N={N} C={D} F={F}",
+               read_stamps("nic_decode_ffn_phases"), plan.blocks,
+               FFN_PHASES)
+    for B, S in ((16, 514), (16, 51), (1, 514), (1, 51)):
+        q, k, v = rn(B, 1, D, scale=0.125), rn(B, S, D), rn(B, S, D)
+        bias = torch.zeros(B, S, device=dev)
+        cold(lambda: decode_attention.decode_cross_attention(q, k, v, bias,
+                                                             H),
+             "nic_decode_attention_phases")
+        plan = decode_attention.attention_plan(B, 1, S, H, D // H, sms)
+        report(f"decode_cross_attention B={B} Q=1 S'={S} ({plan.splits}"
+               f" splits of {plan.per} keys)",
+               read_stamps("nic_decode_attention_phases"),
+               H * B * plan.splits, ATTENTION_PHASES)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,13 @@
 Kernel: `csrc/decode_attention.cu`, replacing the TPU kernel
 `news_image_caption_tpu/ops/pallas_kernels.py::decode_cross_attention`.
 It is bound by reading the context K and V once per step (33.7 MB per
-layer for the article at batch 16): one block per (head, item) reads
-its K/V slices once and keeps the scores in shared memory.
+layer for the article at batch 16). The kernel is designed for the
+H100: the keys of one (head, item) are shared by a cluster of up to 8
+blocks, each of which requests all its K and V rows at once, multiplies
+on the tensor cores and keeps the scores in shared memory; the cluster
+exchanges row maxima and sums and adds its partial outputs through
+distributed shared memory in a fixed order (see the source).
+`attention_plan` is its host-side plan.
 
 The port follows the TPU kernel's numerics, fp32 scores and softmax
 with probabilities rounded to the value dtype; the reference's XLA
@@ -14,12 +19,67 @@ instead materializes the scores in the compute dtype.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from news_image_caption_tpu_torch.ops import _build
 
 MAX_Q = 16
-_ARGTYPES = [_build.P] * 5 + [_build.I] * 5 + [_build.P]
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_SPLITS = 8              # blocks a cluster
+KEY_STEP = 16               # keys a block come in whole mma steps
+BLOCKS_PER_SM = 3           # blocks the plan aims to give a multiprocessor
+MIN_KEYS = 64               # keys a block before the plan splits further
+_ARGTYPES = [_build.P] * 5 + [_build.I] * 8 + [_build.P]
+
+
+class AttentionPlan(NamedTuple):
+    """How `decode_cross_attention`'s kernel cuts its work: the keys of
+    each (head, item) go to `splits` blocks of one cluster, block z
+    taking keys [z * per, min(S, (z + 1) * per))."""
+
+    splits: int
+    per: int
+    smem_bytes: int
+
+
+def attention_smem_bytes(Q: int, per: int, head_dim: int) -> int:
+    """Dynamic shared memory of a block (csrc/decode_attention.cu::
+    attn_smem_bytes): K rows (then V's), fp32 scores and bf16 probabilities
+    for Q query rows, the key bias, the row maxima and sums (the warps',
+    every block's of the cluster, the context's), the parts of the
+    output this block adds."""
+    return (per * head_dim * 2 + Q * (per + 8) * (4 + 2) + per * 4
+            + (2 * 4 + 2 * MAX_SPLITS + 2) * MAX_Q * 4
+            + (Q * head_dim // 2 + MAX_SPLITS) * 8)
+
+
+def attention_plan(B: int, Q: int, S: int, num_heads: int, head_dim: int,
+                   sms: int) -> AttentionPlan:
+    """The kernel's plan for B items of Q queries over S keys on a card
+    of `sms` multiprocessors: enough splits to give every
+    multiprocessor BLOCKS_PER_SM blocks (so batch 1 spreads over the
+    card, and at batch 16 several blocks' loads are in flight on each),
+    but at least MIN_KEYS keys a block (a short context is not worth a
+    cluster) and no more than 8 splits, none empty; more where one
+    block's keys would not fit in shared memory. ValueError where S
+    needs more than 8 splits."""
+    _build.require(B >= 1 and S >= 1 and 1 <= Q <= MAX_Q and num_heads >= 1
+                   and sms >= 1,
+                   f"decode_cross_attention: need B, S >= 1 and 1 <= Q <="
+                   f" {MAX_Q}, got B={B}, Q={Q}, S={S}")
+    want = max(1, min(MAX_SPLITS, S // MIN_KEYS,
+                      -(-BLOCKS_PER_SM * sms // (B * num_heads))))
+    while True:
+        per = -(-(-(-S // want)) // KEY_STEP) * KEY_STEP
+        smem = attention_smem_bytes(Q, per, head_dim)
+        if smem <= _build.MAX_SMEM_BYTES:
+            return AttentionPlan(-(-S // per), per, smem)
+        want += 1
+        _build.require(want <= MAX_SPLITS,
+                       f"decode_cross_attention: S={S} keys do not fit in"
+                       f" the shared memory of {MAX_SPLITS} blocks")
 
 
 def decode_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -71,13 +131,20 @@ def _launch(q, k, v, bias, num_heads):
                        for t in (q, k, v, bias)),
                    "decode_cross_attention: inputs must be contiguous, on"
                    " one device")
-    _build.require(1 <= Q <= MAX_Q and E % num_heads == 0,
-                   f"decode_cross_attention: need 1 <= Q <= {MAX_Q} and"
-                   " E % num_heads == 0")
+    _build.require(1 <= Q <= MAX_Q and E % num_heads == 0
+                   and E // num_heads in HEAD_DIMS,
+                   f"decode_cross_attention: need 1 <= Q <= {MAX_Q} and a"
+                   f" head size E / num_heads in {HEAD_DIMS}")
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                   "decode_cross_attention: q, k and v must be 16-byte"
+                   " aligned")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = attention_plan(B, Q, S, num_heads, E // num_heads, sms)
     fn = _build.function("nic_decode_attention", _ARGTYPES)
     out = torch.empty_like(q)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     bias.data_ptr(), out.data_ptr(), B, Q, S, E, num_heads,
+                    plan.splits, plan.per, plan.smem_bytes,
                     _build.stream_of(q)),
                  "decode_cross_attention")
     decode_cross_attention.launches += 1

@@ -156,3 +156,130 @@ def test_dynamic_conv_refuses_what_the_kernel_does_not_take(cuda_device):
                           4), "1 <= K <= 31")]:
         with pytest.raises(ValueError, match=match):
             dynamic_conv(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,S", [
+    (16, 1, 514), (1, 1, 514),     # a greedy step over the article
+    (16, 16, 51), (1, 5, 51),      # the image context, beams as queries
+    (16, 1, 1), (1, 16, 1),        # one key
+    (16, 5, 63), (1, 1, 63),       # one short of a 64-key boundary
+    (16, 16, 65), (1, 5, 65),      # one past it
+])
+def test_decode_attention_edge_shapes_on_card(cuda_device, B, Q, S):
+    """The cluster-split kernel at flagship width (16 heads of 64) where
+    the key runs are ragged: within one bf16 rounding of the plain
+    version, and bit-equal on a second call (fixed summation order)."""
+    g = torch.Generator().manual_seed(S + Q)
+    q = (torch.randn(B, Q, 1024, generator=g) * 0.125).bfloat16()
+    k = torch.randn(B, S, 1024, generator=g).bfloat16()
+    v = torch.randn(B, S, 1024, generator=g).bfloat16()
+    bias = torch.zeros(B, S)
+    bias[B // 2:, S // 2:max(S - 2, S // 2)] = -1e9
+    args = [t.to(cuda_device) for t in (q, k, v, bias)] + [16]
+    got = decode_cross_attention(*args)
+    again = decode_cross_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), decode_cross_attention_plain(*args).float(), atol=0.02,
+        rtol=0.02)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,S", [(16, 5, 514), (1, 1, 51)])
+def test_decode_attention_one_key_unmasked_on_card(cuda_device, B, Q, S):
+    """An item whose keys are all masked but one returns that key's
+    value row; blocks of its cluster that hold only masked keys add
+    exactly nothing."""
+    g = torch.Generator().manual_seed(S)
+    q = (torch.randn(B, Q, 1024, generator=g) * 0.125).bfloat16()
+    k = torch.randn(B, S, 1024, generator=g).bfloat16()
+    v = torch.randn(B, S, 1024, generator=g).bfloat16()
+    bias = torch.zeros(B, S)
+    bias[0] = -1e9
+    bias[0, S // 3] = 0.0
+    args = [t.to(cuda_device) for t in (q, k, v, bias)] + [16]
+    got = decode_cross_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], args[2][0, S // 3].expand(Q, 1024))
+    torch.testing.assert_close(
+        got.float(), decode_cross_attention_plain(*args).float(), atol=0.02,
+        rtol=0.02)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_what_the_kernel_does_not_take(cuda_device):
+    def inputs(B=2, Q=3, S=51, E=256):
+        return [torch.randn(B, Q, E, device=cuda_device).bfloat16(),
+                torch.randn(B, S, E, device=cuda_device).bfloat16(),
+                torch.randn(B, S, E, device=cuda_device).bfloat16(),
+                torch.zeros(B, S, device=cuda_device), 4]
+
+    before = decode_cross_attention.launches
+    q, k, v, bias, H = inputs(Q=17)
+    with pytest.raises(ValueError, match="1 <= Q <= 16"):
+        decode_cross_attention(q, k, v, bias, H)
+    q, k, v, bias, H = inputs(S=0)
+    with pytest.raises(ValueError, match="S >= 1"):
+        decode_cross_attention(q, k, v, bias, H)
+    q, k, v, bias, H = inputs()
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_cross_attention(
+            q, k.transpose(0, 1).contiguous().transpose(0, 1), v, bias, H)
+    with pytest.raises(ValueError, match="bf16"):
+        decode_cross_attention(q.float(), k, v, bias, H)
+    with pytest.raises(ValueError, match="head size"):
+        decode_cross_attention(q, k, v, bias, 32)       # heads of 8
+    assert decode_cross_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,F", [(16, 1024, 4096), (5, 1024, 4096),
+                                   (1, 1024, 4096), (40, 1024, 4096),
+                                   (3, 192, 96), (16, 64, 32)])
+def test_decode_ffn_shapes_on_card(cuda_device, N, C, F):
+    """The FFN kernel at the flagship's width for 16, 5, 1 and (three
+    launches of 16 rows) 40 rows, and at small widths whose groups are
+    smaller than 8: within one bf16 rounding of the plain version, and
+    bit-equal on a second call."""
+    g = torch.Generator().manual_seed(N + F)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).bfloat16().to(
+            cuda_device)
+
+    args = (rn(N, C), rn(C, F, scale=C ** -0.5), rn(F, scale=0.05),
+            rn(F, C, scale=F ** -0.5), rn(C, scale=0.05))
+    before = decode_ffn_block.launches
+    got = decode_ffn_block(*args)
+    assert decode_ffn_block.launches == before + -(-N // 16)
+    again = decode_ffn_block(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               decode_ffn_block_plain(*args).float(),
+                               atol=0.02, rtol=0.02)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_decode_ffn_refuses_what_the_kernel_does_not_take(cuda_device):
+    def rn(*shape):
+        return torch.randn(*shape, device=cuda_device).bfloat16()
+
+    before = decode_ffn_block.launches
+    x, w1, b1, w2, b2 = rn(4, 64), rn(64, 128), rn(128), rn(128, 64), rn(64)
+    with pytest.raises(ValueError, match="C % 64 == 0"):
+        decode_ffn_block(rn(4, 96), rn(96, 128), b1, rn(128, 96), rn(96))
+    with pytest.raises(ValueError, match="F % 32 == 0"):
+        decode_ffn_block(x, rn(64, 100), rn(100), rn(100, 64), b2)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_ffn_block(rn(4, 2048), rn(2048, 64), rn(64), rn(64, 2048),
+                         rn(2048))
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_ffn_block(x, rn(128, 64).T, b1, w2, b2)
+    with pytest.raises(ValueError, match="bf16"):
+        decode_ffn_block(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="expected"):
+        decode_ffn_block(x, w1, b1, w2, rn(65))
+    assert decode_ffn_block.launches == before

@@ -176,4 +176,5 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         _build.build()
     assert {p.name for p in _build.sources()} == {
         "common.cuh", "band_topk.cu", "decode_attention.cu",
-        "decode_blocks.cu", "dynamic_conv.cu", "flash_attention.cu"}
+        "decode_blocks.cu", "decode_ffn.cu", "dynamic_conv.cu",
+        "flash_attention.cu"}
