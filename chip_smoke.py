@@ -7,8 +7,9 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build the CUDA kernels from news_image_caption_tpu_torch/csrc/;
   3. hold every kernel against its plain PyTorch version on the card at
      the flagship's shapes (bf16; decode shapes for the decode kernels,
-     train-step shapes for flash attention), and time both with CUDA
-     events;
+     train-step shapes for flash attention, then its ragged tiles, T =
+     128 over S' = 514 and an item with every key padded), and time both
+     with CUDA events;
   4. serve requests through `flagship_model_builder` at full flagship
      width in bf16 with seeded random weights: three single requests,
      then one of 16 rows. Check the tokens, that every kernel's launch
@@ -339,14 +340,19 @@ def kernel_phase(torch, ops):
 
 
 def flash_phase(torch, flash):
-    """Phase 3, flash attention at the flagship train step's shapes:
-    q [16, 63, 1024] (pre-scaled), k/v [16, S', 1024] with S' = 514
+    """Phase 3, flash attention. The dropout mask against the plain
+    generator; then the flagship train step's shapes, timed: q
+    [16, 63, 1024] (pre-scaled), k/v [16, S', 1024] with S' = 514
     (article) and 51 (image), half the items padded, p = 0.1 and one
-    seed, so kernel and plain version draw the same mask. Returns
-    {kernel: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms)}, the times summed over one train step's calls (4 layers
-    x 2 contexts). Library yardstick: scaled_dot_product_attention with
-    dropout_p = 0.1, and its backward through autograd."""
+    seed, so kernel and plain version draw the same mask; then ragged
+    query and key tiles, T = 128 over S' = 514 included, with an item
+    whose keys are all padded. Every case is held against the plain
+    versions and repeated bit for bit. Returns {kernel: dict(max_abs_err,
+    ms, plain_ms, bound_ms, bound_by, library_ms)}: the largest error at
+    the train step's shapes and the times summed over one train step's
+    calls (4 layers x 2 contexts). Library yardstick:
+    scaled_dot_product_attention with dropout_p = 0.1, and its backward
+    through autograd."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16 = torch.bfloat16
@@ -355,55 +361,74 @@ def flash_phase(torch, flash):
         return (torch.randn(*shape, generator=gen, device=dev)
                 * scale).to(bf16)
 
-    # The mask itself: one head and v = I make the output the dropped
-    # probability matrix, so its zeros are the dropped slots.
-    B, T, S = 2, 8, 64
+    # The mask itself: v = I in every head makes the output the dropped
+    # probability matrix, so its zeros are the dropped slots. One tile,
+    # then three T tiles and two key tiles in two heads.
     seed = torch.tensor([5], dtype=torch.int32, device=dev)
-    eye = torch.eye(S, device=dev, dtype=bf16).expand(B, S, S).contiguous()
-    out, _ = flash.flash_attention_fwd(rn(B, T, S, scale=0.3), rn(B, S, S),
-                                       eye, torch.zeros(B, S, device=dev),
-                                       seed, 1, 0.25)
-    keep = flash.dropout_keep(seed, B, 1, T, S, 0.25)[:, 0]
-    same = bool(((out.float() > 0) == keep).all())
-    print(f"  flash dropout mask, kernel vs plain generator: identical {same},"
-          f" kept {keep.float().mean().item():.4f} (p = 0.25)", flush=True)
-    check(same, "the flash kernel's dropout mask differs from the plain one")
+    for B, T, S, H in ((2, 8, 64, 1), (2, 130, 128, 2)):
+        eye = torch.eye(S, device=dev, dtype=bf16).repeat(B, 1, H)
+        out, _ = flash.flash_attention_fwd(
+            rn(B, T, H * S, scale=0.3), rn(B, S, H * S), eye,
+            torch.zeros(B, S, device=dev), seed, H, 0.25)
+        keep = flash.dropout_keep(seed, B, H, T, S, 0.25)
+        kept = (out.float() > 0).view(B, T, H, S).transpose(1, 2)
+        same = bool(torch.equal(kept, keep))
+        print(f"  flash dropout mask T={T} S'={S} H={H}, kernel vs plain"
+              f" generator: identical {same}, kept"
+              f" {keep.float().mean().item():.4f} (p = 0.25)", flush=True)
+        check(same, "the flash kernel's dropout mask differs from the plain"
+              " one")
 
-    B, T, E, H, p = 16, 63, 1024, 16, 0.1
+    E, H, p = 1024, 16, 0.1
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
     res = {"flash_attention_fwd": Tally(), "flash_attention_bwd": Tally()}
-    for S in (514, 51):
+
+    def flash_case(B, T, S, timed=False):
         # q as the layer gives it: unit-scale projections times 64^-0.5.
         q, k, v = rn(B, T, E, scale=0.125), rn(B, S, E), rn(B, S, E)
         g = rn(B, T, E, scale=0.1)
         bias = torch.zeros(B, S, device=dev)
-        bias[B // 2:, S // 2:S - 2] = -1e9
+        bias[B // 2:, S // 2:max(S - 2, S // 2)] = -1e9
+        if not timed:
+            bias[0] = -1e9                  # an item with every key padded
         fargs = (q, k, v, bias, seed, H, p)
         out, lse = flash.flash_attention_fwd(*fargs)
-        dq, dk, dv = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g,
-                                               H, p)
+        grads = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
+        out2, lse2 = flash.flash_attention_fwd(*fargs)
+        grads2 = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
         torch.cuda.synchronize()
         pout, plse = flash.flash_attention_fwd_plain(*fargs)
         pgrads = flash.flash_attention_bwd_plain(q, k, v, bias, seed, plse,
                                                  g, H, p)
         # out: one bf16 rounding of a probability or of the output (0.02
         # abs + rel); lse fp32 (1e-3 + 1e-5 rel); gradients: a bf16
-        # rounding of ds summed over up to 514 terms, 2% of the largest
-        # entry plus 2% relative.
+        # rounding of ds summed over up to 514 terms, 2% of the item's
+        # largest entry plus 2% relative. (Of an item whose keys are all
+        # padded the saved lse is -1e9, which swallows log S: its probs
+        # are 1 in the backward, here as in the reference, and its
+        # gradients S times larger than its neighbours'.)
         e_o, ok_o = within(out, pout, 0.02, 0.02)
         e_l, ok_l = within(lse, plse, 1e-3, 1e-5)
         errs = [e_o, e_l]
         oks = [ok_o, ok_l]
-        for got, want in zip((dq, dk, dv), pgrads):
-            e, ok = within(got, want, 0.02 * want.float().abs().max().item(),
-                           0.02)
+        for got, want in zip(grads, pgrads):
+            e, ok = within(got, want,
+                           0.02 * want.float().abs().amax((1, 2), True), 0.02)
             errs.append(e)
             oks.append(ok)
+        same = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
         print(f"  flash attention B={B} T={T} S'={S} p={p}: out {e_o:.3g},"
               f" lse {e_l:.3g}, dq {errs[2]:.3g}, dk {errs[3]:.3g},"
               f" dv {errs[4]:.3g} (tol 0.02+0.02|ref| / 1e-3+1e-5|ref| /"
-              f" 0.02 max|ref|+0.02|ref|)", flush=True)
-        check(all(oks), f"flash attention S'={S} disagrees with its plain twin")
+              f" 0.02 max|ref|+0.02|ref|), repeated call bit-equal {same}",
+              flush=True)
+        check(all(oks), f"flash attention T={T} S'={S} disagrees with its"
+              " plain twin")
+        check(same, f"flash attention T={T} S'={S}: two calls on the same"
+              " inputs differ")
+        if not timed:
+            return
         res["flash_attention_fwd"].errs += errs[:2]
         res["flash_attention_bwd"].errs += errs[2:]
         # The library's forward and, over one retained graph, its backward.
@@ -418,7 +443,7 @@ def flash_phase(torch, flash):
         print(f"    time flash_attention_fwd S'={S}: {line}")
         # Backward: the scores again, dp, dv, dq and dk: five products.
         line = res["flash_attention_bwd"].add(
-            (q, k, v, bias, seed, lse, g, dq, dk, dv), 2.5 * flops,
+            (q, k, v, bias, seed, lse, g, *grads), 2.5 * flops,
             time_ms(lambda: flash.flash_attention_bwd(q, k, v, bias, seed,
                                                       lse, g, H, p)),
             time_ms(lambda: flash.flash_attention_bwd_plain(
@@ -426,6 +451,12 @@ def flash_phase(torch, flash):
             time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), g,
                                                 retain_graph=True)), calls=4)
         print(f"    time flash_attention_bwd S'={S}: {line}")
+
+    for S in (514, 51):
+        flash_case(16, 63, S, timed=True)
+    for T in (2, 63, 64, 65, 128):
+        for S in (1, 63, 65, 514):
+            flash_case(2, T, S)
     return {name: t.result() for name, t in res.items()}
 
 

@@ -1,24 +1,25 @@
 // Device helpers shared by the port's kernels.
 //
 // Two families. `block_matmul` is the simple product of the first
-// ports (decode_conv_block, band_topk_lse, the flash kernels): a block
-// stages BK-deep slices of both operands in shared memory as fp32,
-// through registers, and accumulates a BM x BN tile with scalar FMA.
-// It keeps about 4 KB of loads in flight a block, so those kernels are
-// bound by memory latency, far under the card's 3.35 TB/s.
+// ports (decode_conv_block, band_topk_lse): a block stages BK-deep
+// slices of both operands in shared memory as fp32, through registers,
+// and accumulates a BM x BN tile with scalar FMA. It keeps about 4 KB
+// of loads in flight a block, so those kernels are bound by memory
+// latency, far under the card's 3.35 TB/s.
 //
-// The decode kernels redesigned for the H100 (decode_ffn.cu,
-// decode_attention.cu) use the helpers at the end instead: `cp_async16`
-// copies 16 bytes from device memory straight into shared memory with
-// no register in between, so a block issues every load of its operands
-// at entry (100-130 KB in flight a block, the whole working set of the
-// call across the card); `bulk_copy` hands a contiguous run to the copy
-// engine, which counts its bytes on an `mbarrier_*` barrier while the
-// threads go on; `ldmatrix_*` reads 8 x 8 bf16 tiles from
-// shared memory in the tensor cores' fragment layout, transposed where
-// the operand lies k-major; `mma_bf16` is mma.sync.m16n8k16, bf16
-// inputs and fp32 accumulation, with the decode step's N <= 16 rows as
-// the 16-row operand.
+// The kernels redesigned for the H100 (decode_ffn.cu,
+// decode_attention.cu, flash_attention.cu) use the helpers at the end
+// instead: `cp_async16` copies 16 bytes from device memory straight
+// into shared memory with no register in between, so a block issues
+// the loads of its operands at entry or keeps a ring of tiles in
+// flight (`cp_async_wait_upto`) while it multiplies; `bulk_copy` hands
+// a contiguous run to the copy engine, which counts its bytes on an
+// `mbarrier_*` barrier while the threads go on; `ldmatrix_*` reads
+// 8 x 8 bf16 tiles from shared memory in the tensor cores' fragment
+// layout, transposed where the operand lies k-major; `mma_bf16` is
+// mma.sync.m16n8k16, bf16 inputs and fp32 accumulation, with the
+// decode step's N <= 16 rows, or 16 query rows a warp of the train
+// step's attention, as the 16-row operand.
 
 #pragma once
 
@@ -289,6 +290,13 @@ __device__ __forceinline__ void mbarrier_wait(void* bar) {
   }
 }
 
+// The same where the count is known only at run time (at most 2).
+__device__ __forceinline__ void cp_async_wait_upto(int pending) {
+  if (pending <= 0) cp_async_wait<0>();
+  else if (pending == 1) cp_async_wait<1>();
+  else cp_async_wait<2>();
+}
+
 __device__ __forceinline__ void zero16(void* smem) {
   *reinterpret_cast<uint4*>(smem) = make_uint4(0u, 0u, 0u, 0u);
 }
@@ -301,6 +309,17 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t& b0, uint32_t& b1,
                                             const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(b0), "=r"(b1)
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// Four 8 x 8 bf16 tiles as the A operand of one mma_bf16 where shared
+// memory holds A as [m][k], k contiguous (q of attention): lanes 0-7
+// give the row addresses of rows 0-7 and lanes 8-15 of rows 8-15 at
+// k 0-7 (a[0], a[1]), lanes 16-31 the same at k 8-15 (a[2], a[3]).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(smem_u32(row))
                : "memory");
 }

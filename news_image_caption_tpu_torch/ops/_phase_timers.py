@@ -1,15 +1,17 @@
-"""Where the time of one launch of a decode kernel goes, phase by phase.
+"""Where the time of one launch of a redesigned kernel goes, phase by
+phase.
 
 It needs only the card, no profiler. It
 builds the kernels with `-DNIC_PHASE_TIMERS`, which turns every
-`NIC_PHASE(i)` marker of `csrc/decode_ffn.cu` and
-`csrc/decode_attention.cu` into a stamp of the multiprocessor's cycle
-counter and the card's nanosecond timer by thread 0 of every block
-(`csrc/common.cuh`). It launches each kernel once at the flagship's
-decode shapes with the L2 cache flushed, reads the stamps back and
-prints, for every phase, the mean and the largest time a block spent in
-it, when the blocks started and ended relative to the first, and the
-launch's span. The stamps cost a few hundred cycles a block, so the
+`NIC_PHASE(i)` marker of `csrc/decode_ffn.cu`,
+`csrc/decode_attention.cu` and `csrc/flash_attention.cu` into a stamp
+of the multiprocessor's cycle counter and the card's nanosecond timer
+by thread 0 of every block (`csrc/common.cuh`). It launches each kernel
+once at the flagship's shapes (a decode step's for the decode kernels,
+a train step's for the flash kernels) with the L2 cache flushed, reads
+the stamps back and prints, for every phase, the mean and the largest
+time a block spent in it, when the blocks started and ended relative to
+the first, and the launch's span. The stamps cost a few hundred cycles a block, so the
 span reads a little above the kernel's time in `chip_smoke.py`.
 
 Run on the card, from the repository root:
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from news_image_caption_tpu_torch.ops import (_build, decode_attention,
-                                              decode_blocks)
+                                              decode_blocks, flash_attention)
 
 SLOTS, BLOCKS = 16, 2048        # PHASE_SLOTS, PHASE_BLOCKS of common.cuh
 FFN_PHASES = ["issue loads", "wait x, w1", "fc1", "h, group barrier",
@@ -33,6 +35,11 @@ FFN_PHASES = ["issue loads", "wait x, w1", "fc1", "h, group barrier",
 ATTENTION_PHASES = ["issue loads", "wait K", "scores", "row max, sum",
                     "cluster barrier", "p", "wait V", "p V",
                     "cluster barrier", "add partials, write out"]
+FLASH_FWD_PHASES = ["issue loads", "wait first tile",
+                    "walk 1: row max, sum", "walk 2: p, p v", "write out"]
+FLASH_BWD_PHASES = ["issue loads", "wait first tile",
+                    "walk 1: probs, dp, delta, dv", "walk 2: ds, dq, dk",
+                    "write dq"]
 
 
 def read_stamps(reader: str) -> np.ndarray:
@@ -114,6 +121,26 @@ def main() -> None:
                f" splits of {plan.per} keys)",
                read_stamps("nic_decode_attention_phases"),
                H * B * plan.splits, ATTENTION_PHASES)
+    B, T, p = 16, 63, 0.1
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    for S in (514, 51):
+        q, k, v = rn(B, T, D, scale=0.125), rn(B, S, D), rn(B, S, D)
+        g, bias = rn(B, T, D, scale=0.1), torch.zeros(B, S, device=dev)
+        lse = flash_attention.flash_attention_fwd(q, k, v, bias, seed, H,
+                                                  p)[1]
+        plan = flash_attention.flash_plan(B, T, S, H, D // H, sms)
+        cold(lambda: flash_attention.flash_attention_fwd(q, k, v, bias, seed,
+                                                         H, p),
+             "nic_flash_phases")
+        report(f"flash_attention_fwd B={B} T={T} S'={S} ({plan.key_tiles}"
+               f" key tiles, {plan.fwd.stages} slots)",
+               read_stamps("nic_flash_phases"), plan.blocks, FLASH_FWD_PHASES)
+        cold(lambda: flash_attention.flash_attention_bwd(q, k, v, bias, seed,
+                                                         lse, g, H, p),
+             "nic_flash_phases")
+        report(f"flash_attention_bwd B={B} T={T} S'={S} ({plan.key_tiles}"
+               f" key tiles, {plan.bwd.stages} slots)",
+               read_stamps("nic_flash_phases"), plan.blocks, FLASH_BWD_PHASES)
 
 
 if __name__ == "__main__":

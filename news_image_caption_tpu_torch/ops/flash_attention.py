@@ -7,6 +7,19 @@ _flash_fwd` and `::_flash_bwd`. `flash_cross_attention` is their
 backward recomputes the probabilities from it and regenerates the same
 dropout mask, so no [B, H, T, S] tensor is stored between the passes.
 
+By the count of bytes and operations, bytes bound both on the card (K
+and V of the article are 33.7 MB a call at the flagship); what they
+spend their time on is the work a thread does for every (t, s) slot
+(an exponential, the dropout hash, the rounding). The kernels are
+designed for the H100: a block of four warps owns 64 query rows of one
+(head, item) and walks the keys twice in tiles of 64 that arrive
+through a ring of `cp.async` copies; every product runs on the tensor
+cores (`mma.sync`), scores and probabilities stay in registers, and
+only the two transposed products of the backward pass a bf16 tile
+through shared memory (see the source). They take any T and any S:
+T > 64 becomes several blocks, whose parts of dk and dv a second kernel
+adds in a fixed order. `flash_plan` is the host-side plan.
+
 Dropout bits come from a stateless hash of (seed, b, head, t, s) (see
 the source's note), which `dropout_keep` computes with the same integer
 steps in torch, so kernel and plain version drop the same slots. The
@@ -21,18 +34,23 @@ the value product, ds rounded to it before the dq / dk products.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from news_image_caption_tpu_torch.ops import _build
 
-_FWD_ARGTYPES = [_build.P] * 7 + [_build.I] * 5 + [ctypes.c_uint,
-                                                   ctypes.c_float, _build.P]
-_BWD_ARGTYPES = [_build.P] * 10 + [_build.I] * 5 + [ctypes.c_uint,
-                                                    ctypes.c_float, _build.P]
-_TILE_FLOATS = 32 * 65 * 2       # FlashTile::SMEM_FLOATS
-_SMEM_LIMIT = 232448             # bytes of shared memory a block may use
+_TAIL_ARGTYPES = [_build.I] * 5 + [ctypes.c_uint, ctypes.c_float, _build.I,
+                                   _build.I, _build.P]
+_FWD_ARGTYPES = [_build.P] * 7 + _TAIL_ARGTYPES
+_BWD_ARGTYPES = [_build.P] * 11 + _TAIL_ARGTYPES
+ROWS = 64                   # query rows a block (16 a warp)
+KEYS = 64                   # keys a tile
+MAX_STAGES = 3              # slots of the K / V ring
+HEAD_DIMS = (16, 32, 64, 128)
+SM_SMEM_BYTES = 233472      # shared memory of a multiprocessor (228 KB),
+BLOCK_RESERVED_BYTES = 1024   # of which the card keeps this much a block
+MAX_GRID_YZ = 65535         # blocks along B and along the T tiles
 _MASK32 = 0xFFFFFFFF
 
 
@@ -86,6 +104,88 @@ def _scale_mask(seed, B, H, T, S, p, keep):
 def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
     B, L, E = x.shape
     return x.float().view(B, L, H, E // H)
+
+
+class FlashPass(NamedTuple):
+    """How one of the two kernels holds K and V: `stages` slots of one
+    64-key tile each (K, V and the key bias); `resident` where every
+    tile has its own slot, so both walks read the tiles in place, else
+    a ring that the second walk fills again."""
+
+    stages: int
+    resident: bool
+    smem_bytes: int
+    blocks_per_sm: int      # as far as shared memory decides
+
+
+class FlashPlan(NamedTuple):
+    """How the flash kernels cut a call: grid (num_heads, B, t_tiles),
+    block (h, b, i) owning query rows [i * rows, min(T, (i + 1) * rows))
+    and walking key tiles j = 0 .. key_tiles - 1 of keys
+    [j * keys, min(S, (j + 1) * keys)), twice."""
+
+    rows: int
+    keys: int
+    t_tiles: int
+    key_tiles: int
+    blocks: int
+    fwd: FlashPass
+    bwd: FlashPass
+    parts_floats: int       # fp32 scratch of the backward where t_tiles > 1
+
+
+def flash_smem_bytes(backward: bool, stages: int, head_dim: int) -> int:
+    """Dynamic shared memory of a block (csrc/flash_attention.cu::
+    flash_smem_bytes): the q tile, in the backward the g tile, the
+    transposed products' [64][64] bf16 tile and the staging tile of dk
+    and dv, then the slots."""
+    tile = ROWS * head_dim * 2
+    return ((3 * tile + ROWS * KEYS * 2 if backward else tile)
+            + stages * (2 * KEYS * head_dim * 2 + KEYS * 4))
+
+
+def _flash_pass(backward: bool, key_tiles: int, head_dim: int,
+                want: int) -> FlashPass:
+    def per_sm(stages):
+        smem = flash_smem_bytes(backward, stages, head_dim)
+        return SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES)
+
+    stages = min(key_tiles, MAX_STAGES)
+    while stages > min(2, key_tiles) and per_sm(stages) < want:
+        stages -= 1
+    smem = flash_smem_bytes(backward, stages, head_dim)
+    _build.require(smem <= _build.MAX_SMEM_BYTES,
+                   f"flash attention: a block's {smem} bytes of shared"
+                   f" memory exceed the card's {_build.MAX_SMEM_BYTES}")
+    return FlashPass(stages, stages == key_tiles, smem, per_sm(stages))
+
+
+def flash_plan(B: int, T: int, S: int, num_heads: int, head_dim: int,
+               sms: int) -> FlashPlan:
+    """The kernels' plan for B items of T queries over S keys on a card
+    of `sms` multiprocessors: up to MAX_STAGES slots, fewer where that
+    lets two blocks share a multiprocessor and the call has more blocks
+    than the card has multiprocessors (so that the flagship's 256 blocks
+    are all on the card at once). ValueError for what the kernels do not
+    take."""
+    _build.require(B >= 1 and T >= 1 and S >= 1 and num_heads >= 1
+                   and sms >= 1,
+                   f"flash attention: need B, T, S >= 1, got B={B}, T={T},"
+                   f" S={S}")
+    _build.require(head_dim in HEAD_DIMS,
+                   f"flash attention: the kernels take a head size E /"
+                   f" num_heads in {HEAD_DIMS}, got {head_dim}")
+    t_tiles, key_tiles = -(-T // ROWS), -(-S // KEYS)
+    _build.require(B <= MAX_GRID_YZ and t_tiles <= MAX_GRID_YZ,
+                   f"flash attention: B and T / {ROWS} may be at most"
+                   f" {MAX_GRID_YZ}")
+    blocks = num_heads * B * t_tiles
+    want = min(2, -(-blocks // sms))
+    return FlashPlan(
+        ROWS, KEYS, t_tiles, key_tiles, blocks,
+        _flash_pass(False, key_tiles, head_dim, want),
+        _flash_pass(True, key_tiles, head_dim, want),
+        2 * t_tiles * B * S * num_heads * head_dim if t_tiles > 1 else 0)
 
 
 def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
@@ -171,15 +271,15 @@ def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
                                          dropout_p, keep)
     B, T, E = q.shape
     S = k.shape[1]
-    _check(q, k, v, bias, seed, num_heads, "flash_attention_fwd",
-           _TILE_FLOATS + T * S)
+    plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_fwd")
     out = torch.empty_like(q)
     lse = torch.empty(B, num_heads, T, device=q.device, dtype=torch.float32)
     fn = _build.function("nic_flash_fwd", _FWD_ARGTYPES)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                     seed.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, S,
                     E, num_heads, dropout_threshold(dropout_p),
-                    1.0 / (1.0 - dropout_p), _build.stream_of(q)),
+                    1.0 / (1.0 - dropout_p), plan.fwd.stages,
+                    plan.fwd.smem_bytes, _build.stream_of(q)),
                  "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -195,22 +295,28 @@ def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
                                          num_heads, dropout_p, keep)
     B, T, E = q.shape
     S = k.shape[1]
-    _check(q, k, v, bias, seed, num_heads, "flash_attention_bwd",
-           2 * _TILE_FLOATS + T * S + 3 * T)
+    plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_bwd")
     _build.require(g.shape == q.shape and g.dtype == q.dtype
                    and g.is_contiguous() and g.device == q.device
+                   and g.data_ptr() % 16 == 0
                    and lse.shape == (B, num_heads, T)
                    and lse.dtype == torch.float32 and lse.is_contiguous()
                    and lse.device == q.device,
                    "flash_attention_bwd: g must be like q and lse fp32"
                    " [B, H, T], contiguous, on q's device")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # Several T tiles: their fp32 parts of dk and dv, added by the
+    # launch's second kernel.
+    parts = (torch.empty(plan.parts_floats, device=q.device,
+                         dtype=torch.float32) if plan.t_tiles > 1 else None)
     fn = _build.function("nic_flash_bwd", _BWD_ARGTYPES)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                     seed.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, S, E,
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    None if parts is None else parts.data_ptr(), B, T, S, E,
                     num_heads, dropout_threshold(dropout_p),
-                    1.0 / (1.0 - dropout_p), _build.stream_of(q)),
+                    1.0 / (1.0 - dropout_p), plan.bwd.stages,
+                    plan.bwd.smem_bytes, _build.stream_of(q)),
                  "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -220,7 +326,8 @@ flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
 
 
-def _check(q, k, v, bias, seed, num_heads, name, smem_floats):
+def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
+    """Raise for what the kernels do not take; else the call's plan."""
     B, T, E = q.shape
     S = k.shape[1]
     _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v))
@@ -235,9 +342,10 @@ def _check(q, k, v, bias, seed, num_heads, name, smem_floats):
                        for t in (q, k, v, bias, seed)),
                    f"{name}: inputs must be contiguous, on one device")
     _build.require(E % num_heads == 0, f"{name}: E % num_heads != 0")
-    _build.require(4 * smem_floats <= _SMEM_LIMIT,
-                   f"{name}: T * S = {T * S} score slots do not fit in one"
-                   " block's shared memory")
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                   f"{name}: q, k and v must be 16-byte aligned")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return flash_plan(B, T, S, num_heads, E // num_heads, sms)
 
 
 class _FlashCrossAttention(torch.autograd.Function):

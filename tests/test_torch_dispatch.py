@@ -23,8 +23,8 @@ from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
 from news_image_caption_tpu_torch.ops.dynamic_conv import (  # noqa: E402
     dynamic_conv, dynamic_conv_plain)
 from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_fwd_plain)
+    dropout_keep, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_fwd_plain)
 
 KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
            "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd",
@@ -283,3 +283,100 @@ def test_decode_ffn_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="expected"):
         decode_ffn_block(x, w1, b1, w2, rn(65))
     assert decode_ffn_block.launches == before
+
+
+def _flash_case(device, B, T, S, E, seed):
+    """q (pre-scaled as the layer gives it), k, v, g, and a key bias
+    whose item 0 has every key padded and whose last item half of
+    them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).bfloat16().to(device)
+
+    bias = torch.zeros(B, S)
+    bias[0] = -1e9
+    bias[B - 1, S // 2:max(S - 2, S // 2)] = -1e9
+    return (rn(B, T, E, scale=0.125), rn(B, S, E), rn(B, S, E),
+            bias.to(device), rn(B, T, E, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("S", [1, 63, 65, 514])
+@pytest.mark.parametrize("T", [2, 63, 64, 65, 128])
+def test_flash_attention_edge_shapes_on_card(cuda_device, T, S, p):
+    """Both flash kernels at flagship width (16 heads of 64) where the
+    query and key tiles are ragged, T = 128 over S = 514 included (no
+    bound on T * S), with a fully padded and a half-padded item: out
+    within one bf16 rounding of a probability or of the output, lse
+    within fp32 summation order, the gradients within a bf16 rounding
+    of ds summed over the keys (2% of the item's largest entry plus
+    2%), and both bit-equal on a second call."""
+    H = 16
+    q, k, v, bias, g = _flash_case(cuda_device, 3, T, S, 1024, 100 * T + S)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda_device)
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    out, lse = flash_attention_fwd(q, k, v, bias, seed, H, p)
+    grads = flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
+    out2, lse2 = flash_attention_fwd(q, k, v, bias, seed, H, p)
+    grads2 = flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    pout, plse = flash_attention_fwd_plain(q, k, v, bias, seed, H, p)
+    pgrads = flash_attention_bwd_plain(q, k, v, bias, seed, plse, g, H, p)
+    torch.testing.assert_close(out.float(), pout.float(), atol=0.02,
+                               rtol=0.02)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-5)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, pgrads):
+        got, want = got.float(), want.float()
+        tol = 0.02 * want.abs().amax((1, 2), True) + 0.02 * want.abs()
+        assert bool(((got - want).abs() <= tol).all()), name
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,H", [(8, 64, 1), (130, 128, 2), (63, 16, 3)])
+def test_flash_dropout_mask_on_card(cuda_device, T, S, H):
+    """With v = I in every head the output is the dropped probability
+    matrix, so its zeros are the dropped slots: they are `dropout_keep`'s
+    in every head, T tile and key tile."""
+    B, p = 2, 0.25
+    g = torch.Generator().manual_seed(S)
+    q = (torch.randn(B, T, H * S, generator=g) * 0.3).bfloat16()
+    k = torch.randn(B, S, H * S, generator=g).bfloat16()
+    v = torch.eye(S).repeat(B, 1, H).bfloat16()
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    out, _ = flash_attention_fwd(q.to(cuda_device), k.to(cuda_device),
+                                 v.to(cuda_device),
+                                 torch.zeros(B, S, device=cuda_device), seed,
+                                 H, p)
+    keep = dropout_keep(seed, B, H, T, S, p)
+    kept = (out.float() > 0).view(B, T, H, S).transpose(1, 2)
+    assert torch.equal(kept, keep)
+    assert 0.7 < keep.float().mean().item() < 0.8
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, bias, g = _flash_case(cuda_device, 2, 9, 51, 256, 0)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda_device)
+    lse = flash_attention_fwd_plain(q, k, v, bias, seed, 4)[1]
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    strided = k.transpose(0, 1).contiguous().transpose(0, 1)
+    for H, args, match in [
+            (4, (q.float(), k.float(), v.float()), "bf16"),
+            (4, (q, strided, v), "contiguous"),
+            (4, (q[..., :48].contiguous(), k[..., :48].contiguous(),
+                 v[..., :48].contiguous()), "head size")]:      # heads of 12
+        with pytest.raises(ValueError, match=match):
+            flash_attention_fwd(*args, bias, seed, H)
+        with pytest.raises(ValueError, match=match):
+            flash_attention_bwd(*args, bias, seed, lse,
+                                g[..., :args[0].shape[-1]].contiguous(), H)
+    with pytest.raises(ValueError, match="g must be like q"):
+        flash_attention_bwd(q, k, v, bias, seed, lse, g.float(), 4)
+    assert (flash_attention_fwd.launches,
+            flash_attention_bwd.launches) == before
