@@ -7,12 +7,14 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build the CUDA kernels from news_image_caption_tpu_torch/csrc/;
   3. hold every kernel against its plain PyTorch version on the card at
      the flagship's shapes (bf16; decode shapes for the decode kernels,
-     train-step shapes for flash attention, then its ragged tiles, T =
-     128 over S' = 514 and an item with every key padded), and time both
-     with CUDA events;
+     1 to 80 rows, every tap count and tied logits for the head and the
+     conv block; train-step shapes for flash attention, then its ragged
+     tiles, T = 128 over S' = 514 and an item with every key padded), and
+     time both, the library's call and an empty launch with CUDA events;
   4. serve requests through `flagship_model_builder` at full flagship
      width in bf16 with seeded random weights: three single requests,
-     then one of 16 rows. Check the tokens, that every kernel's launch
+     then one of 16 rows. Check that every op's route is its kernel, the
+     tokens, that every kernel's launch
      count rose by its count per decode step, and the kernel path
      against the plain path (the same weights on the CPU);
   5. train through `flagship_trainer_builder` at full flagship width,
@@ -171,7 +173,7 @@ def kernel_phase(torch, ops):
     """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms)}, the times summed over one decode
     step at batch 16 (all layers)."""
-    band, xattn, blocks = ops
+    band, xattn, blocks, _build = ops
     F_ = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -184,46 +186,93 @@ def kernel_phase(torch, ops):
     N, D, H, F = 16, 1024, 16, 4096
     results = {}
 
+    # An empty kernel's launch under the same method: the fixed cost in
+    # every time below.
+    empty = _build.function("nic_empty_launch", [_build.P])
+    stream = torch.cuda.current_stream().cuda_stream
+    print(f"  empty kernel launch: {time_ms(lambda: empty(stream)):.4f} ms"
+          " (CUDA events, after the L2 flush and the spin)", flush=True)
+
     # band_topk_lse: the head band [table0; class_projᵀ] (5002 rows,
-    # selectable below 5000) and the two tails. Tolerance: one bf16
+    # selectable below 5000), the two tails and two ragged single tiles,
+    # at 1, 16 and 80 (a beam step's) rows. Tolerance: one bf16
     # rounding of a logit of magnitude < 8 (2^-5 = 0.03125), for the
     # values and for the plain logit at each id the kernel chose.
     # Library yardstick, a chain of three calls: the bf16 product,
-    # logsumexp, topk.
+    # logsumexp, topk. The tally's times are N = 16, k = 1.
     tally = results["band_topk_lse"] = Tally()
-    x = rn(N, D)
-    for V, sel in ((5002, 5000), (15000, 15000), (30265, 30265)):
+    for V, sel in ((5002, 5000), (15000, 15000), (30265, 30265), (63, 63),
+                   (65, 60)):
         table = rn(V, D, scale=D ** -0.5)
-        logits = (x.float() @ table.float().T).to(bf16).float()
-        for k in (1, 5):
-            kv, ki, kl = band.band_topk_lse(x, table, k, sel)
-            pv, pi, pl = band.band_topk_lse_plain(x, table, k, sel)
-            torch.cuda.synchronize()
-            e_v, ok_v = within(kv, pv, 0.03125, 0.0)
-            e_l, ok_l = within(kl, pl, 1e-3, 1e-4)
-            at_ids = torch.gather(logits, 1, ki.long())
-            e_i, ok_i = within(at_ids, pv, 0.03125, 0.0)
-            agree = (ki == pi).float().mean().item()
-            ok_sel = bool((ki < sel).all()) and bool((ki >= 0).all())
-            print(f"  band_topk_lse V={V} sel={sel} k={k}: values {e_v:.3g},"
-                  f" lse {e_l:.3g}, plain logit at chosen ids {e_i:.3g}"
-                  f" (tol 0.03125 / 1e-3+1e-4|lse| / 0.03125), ids equal"
-                  f" {agree:.3f}", flush=True)
-            check(ok_v and ok_l and ok_i and ok_sel,
-                  f"band_topk_lse V={V} k={k} disagrees with its plain twin")
-            tally.errs += [e_v, e_l]
-            if k == 1:
-                def library():
-                    lg = x @ table.T
-                    return (torch.logsumexp(lg.float(), -1),
-                            torch.topk(lg[:, :sel], 1))
+        for n in (1, N, 80):
+            x = rn(n, D)
+            logits = (x.float() @ table.float().T).to(bf16).float()
+            worst = [0.0, 0.0, 0.0, 1.0]
+            for k in (1, 5, 16):
+                kv, ki, kl = band.band_topk_lse(x, table, k, sel)
+                again = band.band_topk_lse(x, table, k, sel)
+                pv, pi, pl = band.band_topk_lse_plain(x, table, k, sel)
+                torch.cuda.synchronize()
+                e_v, ok_v = within(kv, pv, 0.03125, 0.0)
+                e_l, ok_l = within(kl, pl, 1e-3, 1e-4)
+                at_ids = torch.gather(logits, 1, ki.long())
+                e_i, ok_i = within(at_ids, pv, 0.03125, 0.0)
+                agree = (ki == pi).float().mean().item()
+                ok_sel = bool((ki < sel).all()) and bool((ki >= 0).all())
+                same = all(torch.equal(a, b)
+                           for a, b in zip((kv, ki, kl), again))
+                check(ok_v and ok_l and ok_i and ok_sel,
+                      f"band_topk_lse V={V} N={n} k={k} disagrees with its"
+                      " plain twin")
+                check(same, f"band_topk_lse V={V} N={n} k={k}: two calls on"
+                      " the same inputs differ")
+                worst = [max(worst[0], e_v), max(worst[1], e_l),
+                         max(worst[2], e_i), min(worst[3], agree)]
+                if n == N:
+                    tally.errs += [e_v, e_l]
+            print(f"  band_topk_lse V={V} sel={sel} N={n} k=1/5/16: values"
+                  f" {worst[0]:.3g}, lse {worst[1]:.3g}, plain logit at chosen"
+                  f" ids {worst[2]:.3g} (tol 0.03125 / 1e-3+1e-4|lse| /"
+                  f" 0.03125), ids equal {worst[3]:.3f}, repeated calls"
+                  " bit-equal", flush=True)
+
+            def library(k=1, x=x):
+                lg = x @ table.T
+                return (torch.logsumexp(lg.float(), -1),
+                        torch.topk(lg[:, :sel], k))
+            if n == N and V > 1000:
                 line = tally.add(
-                    (x, table, kv, ki, kl), 2.0 * N * V * D,
+                    (x, table, kv[:, :1], ki[:, :1], kl), 2.0 * N * V * D,
                     time_ms(lambda: band.band_topk_lse(x, table, 1, sel)),
                     time_ms(lambda: band.band_topk_lse_plain(x, table, 1,
                                                              sel)),
                     time_ms(library))
-                print(f"    time k=1: {line}")
+                print(f"    time N={N} k=1: {line}")
+                t5 = time_ms(lambda: band.band_topk_lse(x, table, 5, sel))
+                print(f"    time N={N} k=5: kernel {t5:.4f} ms, library"
+                      f" {time_ms(lambda: library(5)):.4f} ms")
+            if n == 80 and V > 1000:
+                t80 = time_ms(lambda: band.band_topk_lse(x, table, 5, sel))
+                print(f"    time N=80 k=5 (a beam-5 step at B=16; not in the"
+                      f" kernels line): kernel {t80:.4f} ms, library"
+                      f" {time_ms(lambda: library(5)):.4f} ms")
+    # Ties: copies of one row in one tile, in two tiles of one block and
+    # in other blocks; x is that row, so the copies are the largest
+    # logits. The ids must be the plain version's exactly, lowest first.
+    V, src, copies = 30265, 20000, [7, 70, 64 * 132 + 5, 64 * 133 + 9, 19999,
+                                    30264]
+    table = rn(V, D, scale=D ** -0.5)
+    table[copies] = table[src].clone()
+    x = (table[src] * 8).expand(N, D).contiguous()
+    kv, ki, _ = band.band_topk_lse(x, table, 7)
+    pv, pi, _ = band.band_topk_lse_plain(x, table, 7)
+    torch.cuda.synchronize()
+    check(ki.tolist() == [sorted(copies + [src])] * N
+          and bool(torch.equal(ki, pi)),
+          f"band_topk_lse: tied logits did not go to the lowest ids:"
+          f" {ki[0].tolist()} against {pi[0].tolist()}")
+    print(f"  band_topk_lse ties (7 equal rows over tiles and blocks): ids"
+          f" {ki[0].tolist()} equal to the plain version's", flush=True)
 
     # decode_cross_attention: article (S' = 514) and image (S' = 51)
     # contexts, padded keys masked with -1e9. Tolerance 0.02 abs + 0.02
@@ -278,33 +327,63 @@ def kernel_phase(torch, ops):
     attention_case(N, 5, 514, one_key=True)
     attention_case(1, 1, 51, one_key=True)
 
-    # decode_conv_block: K = 3/7/15/31 at t before, at and past the ring
-    # filling. Tolerance 0.02 (h) and 0.05 (y) abs + rel, the reference
-    # tests' bf16 tolerances. No library call computes it.
+    # decode_conv_block: K = 2/3/7/15/31 at 1, 5, 16 and 80 rows, at t
+    # before, at and past the ring filling. Tolerance 0.02 (h) and 0.05
+    # (y) abs + rel, the reference tests' bf16 tolerances. The tally's
+    # times are N = 16 at the flagship's K = 3/7/15/31, the taps packed
+    # once as the model does. Library yardstick, a chain in bf16: linear,
+    # glu, linear, softmax, gather + einsum, linear, add.
     tally = results["decode_conv_block"] = Tally()
-    x = rn(N, D)
     w1, b1 = rn(D, 2 * D, scale=D ** -0.5), rn(2 * D, scale=0.05)
     w2, b2 = rn(D, D, scale=D ** -0.5), rn(D, scale=0.05)
-    for K in (3, 7, 15, 31):
+    for K in (2, 3, 7, 15, 31):
         wl = rn(D, H * K, scale=0.05)
-        cache = rn(K - 1, N, D, scale=0.5)
-        for t in (0, K - 2, 2 * K + 3):
-            args = (x, cache, t, w1, b1, wl, w2, b2, H)
-            y, h = blocks.decode_conv_block(*args)
-            py, ph = blocks.decode_conv_block_plain(*args)
-            torch.cuda.synchronize()
-            e_h, ok_h = within(h, ph, 0.02, 0.02)
-            e_y, ok_y = within(y, py, 0.05, 0.05)
-            print(f"  decode_conv_block N={N} K={K} t={t}: h {e_h:.3g},"
-                  f" y {e_y:.3g} (tol 0.02 / 0.05, abs + rel)", flush=True)
-            check(ok_h and ok_y, f"decode_conv_block K={K} t={t} disagrees")
-            tally.errs += [e_h, e_y]
-        line = tally.add(
-            (x, cache, w1, b1, wl, w2, b2, y, h),
-            2.0 * N * D * (2 * D + H * K + D) + 2.0 * N * D * K,
-            time_ms(lambda: blocks.decode_conv_block(*args)),
-            time_ms(lambda: blocks.decode_conv_block_plain(*args)))
-        print(f"    time K={K}: {line}")
+        taps = blocks.pack_taps(wl, H)
+        for n in (1, 5, N, 80):
+            x = rn(n, D)
+            cache = rn(K - 1, n, D, scale=0.5)
+            worst = [0.0, 0.0]
+            for t in (0, K - 2, 2 * K + 3):
+                args = (x, cache, t, w1, b1, wl, w2, b2, H)
+                y, h = blocks.decode_conv_block(*args, taps=taps)
+                y2, h2 = blocks.decode_conv_block(*args, taps=taps)
+                py, ph = blocks.decode_conv_block_plain(*args)
+                torch.cuda.synchronize()
+                e_h, ok_h = within(h, ph, 0.02, 0.02)
+                e_y, ok_y = within(y, py, 0.05, 0.05)
+                check(ok_h and ok_y,
+                      f"decode_conv_block N={n} K={K} t={t} disagrees")
+                check(bool(torch.equal(y, y2)) and bool(torch.equal(h, h2)),
+                      f"decode_conv_block N={n} K={K} t={t}: two calls on"
+                      " the same inputs differ")
+                worst = [max(worst[0], e_h), max(worst[1], e_y)]
+                if n == N:
+                    tally.errs += [e_h, e_y]
+            print(f"  decode_conv_block N={n} K={K} t=0/{K - 2}/{2 * K + 3}:"
+                  f" h {worst[0]:.3g}, y {worst[1]:.3g} (tol 0.02 / 0.05, abs"
+                  " + rel), repeated calls bit-equal", flush=True)
+            if n not in (N, 80) or K == 2:
+                continue
+            slots = (t + torch.arange(K - 1, device=dev)) % (K - 1)
+
+            def library():
+                hh = F_.glu(F_.linear(x, w1.T, b1), dim=-1)
+                p = torch.softmax(F_.linear(hh, wl.T).view(n, H, K), dim=-1)
+                hist = torch.cat([cache[slots], hh[None]]).view(K, n, H, D // H)
+                conv = torch.einsum("nhk,knhr->nhr", p, hist).reshape(n, D)
+                return F_.linear(conv, w2.T, b2) + x, hh
+            t_k = time_ms(lambda: blocks.decode_conv_block(*args, taps=taps))
+            t_l = time_ms(library)
+            if n == 80:
+                print(f"    time N=80 K={K} (a beam-5 step at B=16, five row"
+                      f" tiles in the launch; not in the kernels line): kernel"
+                      f" {t_k:.4f} ms, library {t_l:.4f} ms")
+                continue
+            line = tally.add(
+                (x, cache, w1, b1, wl, w2, b2, y, h),
+                2.0 * N * D * (2 * D + H * K + D) + 2.0 * N * D * K, t_k,
+                time_ms(lambda: blocks.decode_conv_block_plain(*args)), t_l)
+            print(f"    time N={N} K={K}: {line}")
 
     # decode_ffn_block at N = 16, 5 and 1 rows. Tolerance 0.02 abs + rel.
     # The timed call is N = 16, one per layer. Library yardstick, a chain
@@ -312,6 +391,7 @@ def kernel_phase(torch, ops):
     tally = results["decode_ffn_block"] = Tally()
     f1, fb1 = rn(D, F, scale=D ** -0.5), rn(F, scale=0.05)
     f2, fb2 = rn(F, D, scale=F ** -0.5), rn(D, scale=0.05)
+    x = rn(N, D)
     for n in (N, 5, 1):
         args = (x[:n].contiguous(), f1, fb1, f2, fb2)
         y = blocks.decode_ffn_block(*args)
@@ -511,6 +591,14 @@ def serving_phase(torch, counted):
                                      early_exit=True, seed=0)
     predict.warmup()
     cfg = predict.config
+    # The flagship is what the kernels were written for: every op of its
+    # step must have taken the kernel route.
+    plain = {op: r.reason for op, r in predict.weights.routes.items()
+             if r.route != "kernel"}
+    check(not plain and len(predict.weights.routes) == 3 * 4 + 1,
+          f"the flagship's decode routes are not all kernels: {plain}")
+    print(f"  decode routes: all {len(predict.weights.routes)} ops take their"
+          " kernel", flush=True)
     print(f"  model built and warmed up in {time.perf_counter() - t0:.1f} s,"
           f" peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
@@ -598,6 +686,9 @@ def train_phase(torch, flash):
     torch.cuda.reset_peak_memory_stats()
     model, state, train_step, eval_step = flagship_trainer_builder(
         "cuda", seed=0, t_total=100)
+    check(model.decoder.flash_route is not None
+          and model.decoder.flash_route.route == "kernel",
+          f"the flagship's flash route is {model.decoder.flash_route}")
     n_params = sum(p.numel() for p in state.params.values())
     ds = SyntheticNewsDataset(
         size=B, vocab_size=FLAGSHIP["vocab_size"],
@@ -867,7 +958,8 @@ def main() -> None:
 
     print("phase 3: kernels vs plain versions (bf16, flagship shapes)",
           flush=True)
-    timing = kernel_phase(torch, (band_topk, decode_attention, decode_blocks))
+    timing = kernel_phase(torch, (band_topk, decode_attention, decode_blocks,
+                                  _build))
     timing.update(flash_phase(torch, flash_attention))
 
     print("phase 4: flagship serving (bf16, random weights)", flush=True)

@@ -1,25 +1,18 @@
 // Device helpers shared by the port's kernels.
 //
-// Two families. `block_matmul` is the simple product of the first
-// ports (decode_conv_block, band_topk_lse): a block stages BK-deep
-// slices of both operands in shared memory as fp32, through registers,
-// and accumulates a BM x BN tile with scalar FMA. It keeps about 4 KB
-// of loads in flight a block, so those kernels are bound by memory
-// latency, far under the card's 3.35 TB/s.
-//
-// The kernels redesigned for the H100 (decode_ffn.cu,
-// decode_attention.cu, flash_attention.cu) use the helpers at the end
-// instead: `cp_async16` copies 16 bytes from device memory straight
-// into shared memory with no register in between, so a block issues
-// the loads of its operands at entry or keeps a ring of tiles in
-// flight (`cp_async_wait_upto`) while it multiplies; `bulk_copy` hands
-// a contiguous run to the copy engine, which counts its bytes on an
-// `mbarrier_*` barrier while the threads go on; `ldmatrix_*` reads
-// 8 x 8 bf16 tiles from shared memory in the tensor cores' fragment
-// layout, transposed where the operand lies k-major; `mma_bf16` is
-// mma.sync.m16n8k16, bf16 inputs and fp32 accumulation, with the
-// decode step's N <= 16 rows, or 16 query rows a warp of the train
-// step's attention, as the 16-row operand.
+// Every kernel of the port is built from them: `cp_async16` copies 16
+// bytes from device memory straight into shared memory with no register
+// in between, so a block issues the loads of its operands at entry or
+// keeps a ring of tiles in flight (`cp_async_wait_upto`) while it
+// multiplies; `bulk_copy` hands a contiguous run to the copy engine,
+// which counts its bytes on an `mbarrier_*` barrier while the threads go
+// on; `ldmatrix_*` reads 8 x 8 bf16 tiles from shared memory in the
+// tensor cores' fragment layout, transposed where the operand lies
+// k-major; `mma_bf16` is mma.sync.m16n8k16, bf16 inputs and fp32
+// accumulation, with the decode step's N <= 16 rows, or 16 query rows a
+// warp of the train step's attention, as the 16-row operand;
+// `blocks_barrier` and the `barrier_set_*` pair let the blocks of one
+// cooperative launch wait for one another on counters in device memory.
 
 #pragma once
 
@@ -49,101 +42,6 @@ __device__ __forceinline__ float rbf(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Shape of one block_matmul tile. Thread t owns rows
-// ty + i * TY (i < TM) and columns tx + j * TX (j < TN) of the tile,
-// with tx = t % TX and ty = t / TX.
-template <int BM_, int BN_, int BK_, int TM_, int TN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_;
-  static constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
-  // A slice [BK][BM + 1] and B slice [BK][BN + 1]; the +1 keeps both
-  // the k-fast stores and the row reads free of bank conflicts.
-  static constexpr int SMEM_FLOATS = BK * (BM + 1) + BK * (BN + 1);
-  static_assert(BM % TM == 0 && BN % TN == 0, "tile must divide evenly");
-  static_assert(THREADS % 32 == 0, "tile must be whole warps");
-};
-
-template <class T>
-__device__ __forceinline__ int tile_row(int i) {
-  return (int)threadIdx.x / T::TX + i * T::TY;
-}
-
-template <class T>
-__device__ __forceinline__ int tile_col(int j) {
-  return (int)threadIdx.x % T::TX + j * T::TX;
-}
-
-// acc[i][j] += sum over k < K of A(tile_row(i), k) * B(k, tile_col(j)).
-// load_a(m, k) and load_b(k, n) return one operand element as fp32, and
-// 0 outside the matrix. KN_B says how B lies in memory: true for [K, N]
-// row-major (n contiguous), false for [N, K] row-major (k contiguous);
-// the staging walks the contiguous index fastest so that global reads
-// coalesce. Each thread issues all its loads of a BK slice into
-// registers before storing them, and fetches the next slice while the
-// block multiplies the current one, so a slice costs about one memory
-// latency instead of one per element. Every thread of the block
-// (exactly T::THREADS, 1-D) must call it. smem holds T::SMEM_FLOATS
-// floats.
-template <class T, bool KN_B, class LoadA, class LoadB>
-__device__ __forceinline__ void block_matmul(float (&acc)[T::TM][T::TN],
-                                             int K, LoadA load_a,
-                                             LoadB load_b, float* smem) {
-  constexpr int A_ITEMS = T::BM * T::BK / T::THREADS;
-  constexpr int B_ITEMS = T::BK * T::BN / T::THREADS;
-  static_assert(A_ITEMS * T::THREADS == T::BM * T::BK &&
-                    B_ITEMS * T::THREADS == T::BK * T::BN,
-                "tile slices must divide evenly among the threads");
-  float* As = smem;
-  float* Bs = smem + T::BK * (T::BM + 1);
-  const int tid = threadIdx.x;
-  const int tx = tid % T::TX, ty = tid / T::TX;
-  float ra[A_ITEMS], rb[B_ITEMS];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < A_ITEMS; ++r) {
-      const int i = tid + r * T::THREADS;
-      ra[r] = load_a(i / T::BK, k0 + i % T::BK);
-    }
-#pragma unroll
-    for (int r = 0; r < B_ITEMS; ++r) {
-      const int i = tid + r * T::THREADS;
-      rb[r] = KN_B ? load_b(k0 + i / T::BN, i % T::BN)
-                   : load_b(k0 + i % T::BK, i / T::BK);
-    }
-  };
-  if (K > 0) fetch(0);
-  for (int k0 = 0; k0 < K; k0 += T::BK) {
-#pragma unroll
-    for (int r = 0; r < A_ITEMS; ++r) {
-      const int i = tid + r * T::THREADS;
-      As[(i % T::BK) * (T::BM + 1) + i / T::BK] = ra[r];
-    }
-#pragma unroll
-    for (int r = 0; r < B_ITEMS; ++r) {
-      const int i = tid + r * T::THREADS;
-      const int k = KN_B ? i / T::BN : i % T::BK;
-      const int n = KN_B ? i % T::BN : i / T::BK;
-      Bs[k * (T::BN + 1) + n] = rb[r];
-    }
-    __syncthreads();
-    if (k0 + T::BK < K) fetch(k0 + T::BK);
-#pragma unroll 4
-    for (int k = 0; k < T::BK; ++k) {
-      float a[T::TM], b[T::TN];
-#pragma unroll
-      for (int i = 0; i < T::TM; ++i) a[i] = As[k * (T::BM + 1) + ty + i * T::TY];
-#pragma unroll
-      for (int j = 0; j < T::TN; ++j) b[j] = Bs[k * (T::BN + 1) + tx + j * T::TX];
-#pragma unroll
-      for (int i = 0; i < T::TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
@@ -169,51 +67,6 @@ __device__ __forceinline__ void warp_argmax(float& v, int& id) {
     }
   }
 }
-
-// Block-wide reductions over blockDim.x threads (a multiple of 32, at
-// most 1024). scratch holds 32 floats / ints; every thread gets the
-// result.
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-  v = warp_max(v);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < nwarps ? scratch[lane] : -INFINITY;
-  v = warp_max(v);
-  __syncthreads();
-  return v;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-  v = warp_sum(v);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < nwarps ? scratch[lane] : 0.f;
-  v = warp_sum(v);
-  __syncthreads();
-  return v;
-}
-
-__device__ __forceinline__ void block_argmax(float& v, int& id, float* sv,
-                                             int* si) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-  warp_argmax(v, id);
-  if (lane == 0) {
-    sv[warp] = v;
-    si[warp] = id;
-  }
-  __syncthreads();
-  v = lane < nwarps ? sv[lane] : -INFINITY;
-  id = lane < nwarps ? si[lane] : BIG_ID;
-  warp_argmax(v, id);
-  __syncthreads();
-}
-
-// ---- Building blocks of the kernels redesigned for Hopper ----
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -365,6 +218,68 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4],
   a[1] = *reinterpret_cast<const uint32_t*>(at + 8 * stride);
   a[2] = *reinterpret_cast<const uint32_t*>(at + 16);
   a[3] = *reinterpret_cast<const uint32_t*>(at + 8 * stride + 16);
+}
+
+// Two 8 x 8 bf16 tiles, transposed on the way, as the B operand of one
+// mma_bf16 where shared memory holds B as [k][n], n contiguous: lanes
+// 0-7 give the rows k 0-7 and lanes 8-15 the rows k 8-15 of the n tile.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
+                                                  const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// All `expected` blocks that call it with the same counter, zero before
+// the launch, wait here for one another; what they wrote to device
+// memory before is visible to all of them after, to reads that go to L2
+// (__ldcg, cp.async.cg). Every thread of the block calls it; thread 0
+// adds one with release and polls with acquire, so nothing waits for an
+// atomic's return. The blocks must all be on the card (a cooperative
+// launch).
+__device__ __forceinline__ void blocks_barrier(unsigned* counter,
+                                               unsigned expected) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(counter),
+                 "r"(1u)
+                 : "memory");
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(counter)
+                   : "memory");
+    } while (seen < expected);
+  }
+  __syncthreads();
+}
+
+// The counters of a kernel's blocks_barrier calls: counters
+// [1 + 2 * slots], zero before the first launch, hold a count of
+// launches and two sets of `slots` barrier counters. A launch uses the
+// set of its parity and zeroes the other for the next launch, so no
+// block resets a counter while another may still poll it. One thread of
+// every block calls barrier_set_begin before its first barrier (`resets`
+// in one block only) and gets the launch's set; one thread of one block
+// calls barrier_set_end after that block's last barrier, which must be
+// one that every block has reached after its begin. Launches that share
+// the counters must follow one another.
+__device__ __forceinline__ unsigned* barrier_set_begin(unsigned* counters,
+                                                       int slots, bool resets,
+                                                       unsigned& launch) {
+  launch = *reinterpret_cast<volatile unsigned*>(counters);
+  if (resets) {
+    unsigned* other = counters + 1 + (~launch & 1u) * slots;
+    for (int i = 0; i < slots; ++i) other[i] = 0u;
+  }
+  return counters + 1 + (launch & 1u) * slots;
+}
+
+__device__ __forceinline__ void barrier_set_end(unsigned* counters,
+                                                unsigned launch) {
+  counters[0] = launch + 1u;
 }
 
 }  // namespace nic

@@ -1,215 +1,368 @@
 // The conv block of a decode step of the dynamic-conv decoder layer,
 // for one new token per row: linear1 -> GLU -> tap softmax -> ring
-// combine -> linear2 + residual. (The layer's FFN block has its own
-// source, decode_ffn.cu.)
+// combine -> linear2 + residual. One launch for up to 128 rows, 16 at a
+// time. (The layer's FFN block has its own source, decode_ffn.cu.)
 //
 // Replaces: news_image_caption_tpu/ops/pallas_decode.py
 // decode_conv_block (_conv_block_kernel).
 //
-// What bounds it on the card: at decode batch N = 1..16 every weight
-// is read once per step and used N times, so the block is bound by
-// reading w1, w2 and the tap predictor from device memory: about
-// 6.5 MB of bf16 per layer at d = 1024.
+// What bounds it on the card: bytes. At decode batch N = 1..16 every
+// weight is read once per step and used N times: w1 [C, 2C], w2 [C, C]
+// and the tap predictor, about 6.5 MB of bf16 per layer at C = 1024
+// (2 us at 3.35 TB/s), under the fixed cost of one launch. So the design
+// is about one launch, every load requested at once, and as few waits
+// between blocks as the data flow allows (two).
 //
-// Design: Hopper blocks run in no order, so each row product is a
-// split-K launch (mm_split_kernel: at N = 16 the output has only 16-32
-// tiles of 16 x 64, so K is cut into chunks to put about two blocks
-// per SM on the card, every weight element still read once) writing
-// fp32 partials, and an elementwise epilogue sums the partials in a
-// fixed order and applies the bias, the activation and the residual:
-//   linear1 split -> glu_epilogue -> conv_taps (per head: tap logits,
-//   softmax, ring combine) -> linear2 split -> bias_residual_epilogue.
-// The bf16 rounding points are those of the reference kernel
-// (pallas_decode.py:47-101). The products go through `block_matmul`
-// (common.cuh), which keeps little in flight: the kernel is bound by
-// memory latency, far from the bound above.
+// Design. C / 16 blocks (64 at C = 1024), all on the card at once (a
+// cooperative launch), block s owning output channels 16 s .. 16 s + 15
+// of every stage, which all lie in one head.
+//   - At entry a block requests everything it will read: x; of w1 the 16
+//     `a` columns and the 16 `g` columns of its channels (so the GLU is
+//     local), of w2 its 16 columns, its rows of the ring cache (16-byte
+//     cp.async copies, 32-byte runs of a weight row: whole sectors); and
+//     its head's taps, which the caller packs once a model load as
+//     [H][taps padded to 8, 16 or 32][C], so a head's taps are contiguous
+//     2 C-byte rows that the copy engine brings onto an mbarrier (in the
+//     head-major [C, H * K] layout a head's columns start at byte
+//     2 * head * K, which for odd K no 16-byte copy can fetch). The loads
+//     of w2, the cache and the taps pass under linear1 and the first wait.
+//   - Every product is whole-K on the tensor cores (mma.sync m16n8k16,
+//     the N <= 16 rows zero-padded to the 16-row operand): the 8 warps
+//     split the block's 8-column tiles and K between them (linear1: 4
+//     tiles x 2 halves of K; taps: 1, 2 or 4 tiles; linear2: 2 tiles x 4
+//     quarters), and the parts are added in a fixed order in shared
+//     memory. No partial sum leaves the block.
+//   - h must be whole before the tap logits, and the conv output before
+//     linear2: the blocks write their 16 channels of h (the output
+//     tensor) and of the conv output (1 KB each, bf16: the reference's
+//     rounding points) to device memory, wait for one another
+//     (blocks_barrier, common.cuh) and read the 32 KB back from L2. The
+//     four blocks of a head each compute that head's tap logits and
+//     softmax; the ring combine is elementwise in the block that owns
+//     the channels, history summed in fp32 in tap order, rounded once.
+//   - More than 16 rows (a beam step) stay in the launch: the weights
+//     and taps stay in shared memory and the blocks go through the rows 16
+//     at a time, the same two waits a tile (the barrier counters count
+//     on), so only the first tile pays the launch and the 6.5 MB.
+// Every sum has a fixed order: the result is the same on every run.
+// Shared memory holds w1 and w2 as they lie in device memory ([k][n], n
+// contiguous), the 16-byte chunks of a row XOR-swizzled by row so the
+// transposing ldmatrix reads hit distinct banks; the taps lie [tap][k],
+// rows padded by 16 bytes.
 
 #include "common.cuh"
 
 namespace nic {
 
-using RowTile = Tile<16, 64, 32, 4, 4>;  // 64 threads: 16 rows x 64 columns
-using TapTile = Tile<16, 32, 32, 2, 2>;  // 128 threads: 16 rows x 32 taps
-constexpr int MAX_TAPS = TapTile::BN;
-constexpr int EPILOGUE_THREADS = 256;
+constexpr int CB_THREADS = 256;
+constexpr int CB_WARPS = CB_THREADS / 32;
+constexpr int CB_ROWS = 16;    // rows of x a tile (the mma's M)
+constexpr int CB_MAX_ROWS = 128;   // rows of x a launch
+constexpr int CB_STRIP = 16;   // channels a block
+constexpr int CB_MAX_TAPS = 32;
+constexpr int CB_PART_BYTES = CB_WARPS * CB_ROWS * 8 * 4;   // a tile a warp
 
-// Split-K row product: part[z, m, n] = sum over the z-th K chunk of
-// a[m, k] * w[k, n]; a [N, Kd], w [Kd, ncols], part [splits, N, ncols]
-// fp32. grid = (cdiv(ncols, BN), cdiv(N, BM), splits). At decode batch
-// sizes the output has few tiles (16 rows x 64 columns each), so K is
-// split across blockIdx.z to put enough blocks on the card.
-__global__ void __launch_bounds__(RowTile::THREADS)
-mm_split_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                float* __restrict__ part, int N, int Kd, int ncols,
-                int chunk) {
-  using T = RowTile;
-  __shared__ float smem[T::SMEM_FLOATS];
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  const int k0 = blockIdx.z * chunk;
-  const int klen = max(0, min(chunk, Kd - k0));
-  float acc[T::TM][T::TN] = {};
-  block_matmul<T, true>(
-      acc, klen,
-      [&](int m, int k) {
-        return (m0 + m < N && k < klen) ? to_f(a[(size_t)(m0 + m) * Kd + k0 + k]) : 0.f;
-      },
-      [&](int k, int n) {
-        return (k < klen && n0 + n < ncols) ? to_f(w[(size_t)(k0 + k) * ncols + n0 + n]) : 0.f;
-      },
-      smem);
-  float* out = part + (size_t)blockIdx.z * N * ncols;
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < T::TN; ++j) {
-      const int m = m0 + tile_row<T>(i), n = n0 + tile_col<T>(j);
-      if (m < N && n < ncols) out[(size_t)m * ncols + n] = acc[i][j];
-    }
+// Dynamic shared memory of decode_conv_kernel, in order: the w1 strip
+// [C][32] bf16; the w2 strip [C][16] bf16; the activations [16][C + 8]
+// bf16 (x, then h, then the conv output); the head's taps [kp][C + 8]
+// bf16; the warps' parts of a product, fp32; the block's ring rows
+// [kp][16][16] bf16 in tap order; the tap logits, then weights,
+// [16][32] fp32; the barrier of the taps' copies.
+__host__ __device__ constexpr int conv_block_smem_bytes(int C, int kp) {
+  return C * 2 * CB_STRIP * 2 + C * CB_STRIP * 2 + CB_ROWS * (C + 8) * 2 +
+         kp * (C + 8) * 2 + CB_PART_BYTES + kp * CB_ROWS * CB_STRIP * 2 +
+         CB_ROWS * CB_MAX_TAPS * 4 + 16;
+}
+
+// acc += A [16, 16 * ksteps] * B over the k steps kpart, kpart + kparts,
+// ...: A row-major bf16 in shared memory (rows `a_stride` bytes apart),
+// b_row(k0) the address this lane gives the B fragment's ldmatrix for the
+// step at k0. TRANS: B lies [k][n] (a weight strip), else [n][k] (taps).
+template <bool TRANS, class BRow>
+__device__ __forceinline__ void strip_product(float (&acc)[4],
+                                              const unsigned char* as,
+                                              int a_stride, int ksteps,
+                                              int kpart, int kparts,
+                                              BRow b_row) {
+  const int lane = threadIdx.x % 32;
+  const unsigned char* a_at = as + (lane & 15) * a_stride + (lane >> 4) * 16;
+#pragma unroll 4
+  for (int ks = kpart; ks < ksteps; ks += kparts) {
+    uint32_t a[4], b0, b1;
+    ldmatrix_x4(a, a_at + ks * 32);
+    if (TRANS)
+      ldmatrix_x2_trans(b0, b1, b_row(ks * 16));
+    else
+      ldmatrix_x2(b0, b1, b_row(ks * 16));
+    mma_bf16(acc, a, b0, b1);
   }
 }
 
-// The fp32 product at (m, n): the split partials summed in split order.
-__device__ __forceinline__ float split_sum(const float* __restrict__ part,
-                                          int splits, int N, int ncols,
-                                          int m, int n) {
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[((size_t)z * N + m) * ncols + n];
-  return s;
+// The warp's [16, 8] tile of a product into part [kpart][16][ncols] at
+// columns nt * 8 ..
+__device__ __forceinline__ void store_part(float* part, const float (&acc)[4],
+                                           int kpart, int nt, int ncols) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float* at = part + (kpart * CB_ROWS + g) * ncols + nt * 8 + 2 * t;
+  *reinterpret_cast<float2*>(at) = make_float2(acc[0], acc[1]);
+  *reinterpret_cast<float2*>(at + 8 * ncols) = make_float2(acc[2], acc[3]);
 }
 
-// y = rbf(rbf(rbf(prod) + b) + res), y/res [N, C].
-__global__ void bias_residual_epilogue(const float* __restrict__ part,
-                                       int splits, const bf16* __restrict__ b,
-                                       const bf16* __restrict__ res,
-                                       bf16* __restrict__ y, int N, int C) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * C) return;
-  const int m = i / C, n = i % C;
-  const float v = rbf(rbf(split_sum(part, splits, N, C, m, n)) + to_f(b[n]));
-  y[i] = to_bf(v + to_f(res[i]));
-}
+// grid = C / 16 blocks, launched cooperatively. taps [H][kp][C] bf16 is
+// the packed tap predictor (taps >= K zero); cache [K - 1][n_total][C]
+// with this launch's rows first; hconv [16][C] bf16 is scratch; counters [1 + 2 * 2] are the barriers'
+// (barrier_set_begin, common.cuh), which count on from tile to tile.
+__global__ void __launch_bounds__(CB_THREADS, 1)
+decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
+                   const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+                   const bf16* __restrict__ taps, const bf16* __restrict__ w2,
+                   const bf16* __restrict__ b2, bf16* h_out, bf16* hconv,
+                   bf16* __restrict__ y, unsigned* counters, int N,
+                   int n_total, int C, int H, int K, int kp, int t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int strip = blockIdx.x, ch0 = strip * CB_STRIP;
+  const int head = ch0 / (C / H), Km1 = K - 1;
+  const int a_stride = (C + 8) * 2;     // bytes
+  const int cpr = C / 8;                // 16-byte pieces of a row
 
-// GLU of linear1 from the [N, 2C] product: h = rbf(a * rbf(sigmoid(g)))
-// with a = rbf(rbf(prod[:, c]) + b1[c]), g from column C + c. h [N, C].
-__global__ void glu_epilogue(const float* __restrict__ part, int splits,
-                             const bf16* __restrict__ b1, bf16* __restrict__ h,
-                             int N, int C) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * C) return;
-  const int m = i / C, c = i % C;
-  const float a = rbf(rbf(split_sum(part, splits, N, 2 * C, m, c)) + to_f(b1[c]));
-  const float g = rbf(rbf(split_sum(part, splits, N, 2 * C, m, C + c)) + to_f(b1[C + c]));
-  const float s = rbf(1.f / (1.f + expf(-g)));
-  h[i] = to_bf(a * s);
-}
+  unsigned char* w1s = smem;
+  unsigned char* w2s = w1s + C * 64;
+  unsigned char* as = w2s + C * 32;
+  unsigned char* taps_s = as + CB_ROWS * a_stride;
+  float* part = reinterpret_cast<float*>(taps_s + kp * a_stride);
+  bf16* cache_s = reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(part) + CB_PART_BYTES);
+  float* probs = reinterpret_cast<float*>(cache_s + kp * CB_ROWS * CB_STRIP);
+  unsigned char* taps_bar =
+      reinterpret_cast<unsigned char*>(probs + CB_ROWS * CB_MAX_TAPS);
 
-// Launch mm_split_kernel over `splits` K chunks (a multiple of BK each).
-static cudaError_t launch_mm_split(const bf16* a, const bf16* w, float* part,
-                                   int N, int Kd, int ncols, int splits,
-                                   cudaStream_t s) {
-  const int chunk = cdiv(cdiv(Kd, splits), RowTile::BK) * RowTile::BK;
-  mm_split_kernel<<<dim3(cdiv(ncols, RowTile::BN), cdiv(N, RowTile::BM), splits),
-                    RowTile::THREADS, 0, s>>>(a, w, part, N, Kd, ncols, chunk);
-  return cudaGetLastError();
-}
-
-// One head of the dynamic conv for BM rows. grid = (H, cdiv(N, BM)).
-// Tap logits rbf(h @ wl[:, head*K : head*K + K]) (wl [C, H*K], head
-// major), softmax over the K taps in fp32 rounded to bf16, then for
-// each channel c of the head:
-//   out = rbf(rbf(sum_{k<K-1} p_k * cache[(t+k) mod (K-1)]) + rbf(p_{K-1} * h))
-// cache is ring-major [K-1, N, C]; slots not yet written hold zeros.
-__global__ void __launch_bounds__(TapTile::THREADS)
-conv_taps_kernel(const bf16* __restrict__ h, const bf16* __restrict__ cache,
-                 const bf16* __restrict__ wl, bf16* __restrict__ out, int N,
-                 int C, int H, int K, int t) {
-  using T = TapTile;
-  __shared__ float smem[T::SMEM_FLOATS];
-  __shared__ float probs[T::BM][T::BN + 1];
-  const int head = blockIdx.x, m0 = blockIdx.y * T::BM;
-  const int HK = H * K;
-  float acc[T::TM][T::TN] = {};
-  block_matmul<T, true>(
-      acc, C,
-      [&](int m, int k) {
-        return (m0 + m < N && k < C) ? to_f(h[(size_t)(m0 + m) * C + k]) : 0.f;
-      },
-      [&](int k, int n) {
-        return (k < C && n < K) ? to_f(wl[(size_t)k * HK + head * K + n]) : 0.f;
-      },
-      smem);
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < T::TN; ++j) probs[tile_row<T>(i)][tile_col<T>(j)] = rbf(acc[i][j]);
+  // Thread 0 alone touches the counters (see barrier_set_begin).
+  unsigned launch = 0;
+  unsigned* mine = nullptr;
+  if (tid == 0) {
+    mbarrier_init_expect(taps_bar, kp * C * 2);
+    mine = barrier_set_begin(counters, 2, strip == 0, launch);
   }
   __syncthreads();
-  if (threadIdx.x < T::BM) {
-    float* p = probs[threadIdx.x];
-    float mx = -INFINITY;
-    for (int k = 0; k < K; ++k) mx = fmaxf(mx, p[k]);
-    float s = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float e = expf(p[k] - mx);
-      p[k] = e;
-      s += e;
+
+  // The element this thread owns in every elementwise stage: row r of
+  // the tile, channel ch0 + j; its biases.
+  const int r = tid >> 4, j = tid & 15;
+  const float b1a = to_f(b1[ch0 + j]), b1g = to_f(b1[C + ch0 + j]);
+  const float b2v = to_f(b2[ch0 + j]);
+
+  // Rows [row0, row0 + rows) of a [N, C] matrix into the activations.
+  auto load_rows = [&](const bf16* src, int row0, int rows) {
+    for (int i = tid; i < rows * cpr; i += CB_THREADS) {
+      const int rr = i / cpr, c = i % cpr;
+      cp_async16(as + rr * a_stride + c * 16,
+                 src + (size_t)(row0 + rr) * C + c * 8);
     }
-    for (int k = 0; k < K; ++k) p[k] = rbf(p[k] / s);
+  };
+  // A tile's x (rows past the last as zeros) and the block's channels of
+  // its ring rows, tap k's row (slot (t + k) mod (K - 1)) at index k.
+  auto load_tile = [&](int row0, int rows) {
+    for (int i = tid; i < (CB_ROWS - rows) * cpr; i += CB_THREADS)
+      zero16(as + (rows + i / cpr) * a_stride + (i % cpr) * 16);
+    load_rows(x, row0, rows);
+    for (int i = tid; i < Km1 * CB_ROWS * 2; i += CB_THREADS) {
+      const int k = i >> 5, rr = (i >> 1) & 15, half = i & 1;
+      bf16* dst = cache_s + (k * CB_ROWS + rr) * CB_STRIP + half * 8;
+      if (rr < rows)
+        cp_async16(dst, cache + ((size_t)((t + k) % Km1) * n_total + row0 + rr) * C +
+                            ch0 + half * 8);
+      else
+        zero16(dst);
+    }
+  };
+
+  // Every load, at once. Group 0: the first tile's x and ring rows and
+  // the w1 strip, row k at k * 64 bytes: chunks 0, 1 the `a` columns, 2,
+  // 3 the `g` columns, chunk c at c ^ ((k / 2) % 4).
+  load_tile(0, min(N, CB_ROWS));
+  for (int i = tid; i < C * 4; i += CB_THREADS) {
+    const int k = i >> 2, c = i & 3;
+    const int col = (c < 2 ? 0 : C - 2 * 8) + ch0 + c * 8;
+    cp_async16(w1s + k * 64 + ((c ^ ((k >> 1) & 3)) << 4),
+               w1 + (size_t)k * 2 * C + col);
   }
-  __syncthreads();
-  const int R = C / H, Km1 = K - 1;
-  for (int i = threadIdx.x; i < T::BM * R; i += T::THREADS) {
-    const int m = i / R, n = m0 + m;
-    if (n >= N) continue;
-    const int c = head * R + i % R;
-    float hist = 0.f;
-    for (int k = 0; k < Km1; ++k) {
-      const int slot = (t + k) % Km1;
-      hist = fmaf(probs[m][k], to_f(cache[((size_t)slot * N + n) * C + c]), hist);
+  cp_async_commit();
+  // The head's taps, a row of C a thread, through the copy engine.
+  if (tid < kp)
+    bulk_copy(taps_s + tid * a_stride, taps + ((size_t)head * kp + tid) * C,
+              C * 2, taps_bar);
+  // Group 1: the w2 strip, row k at k * 32 bytes, chunk c at
+  // c ^ ((k / 4) % 2).
+  for (int i = tid; i < C * 2; i += CB_THREADS) {
+    const int k = i >> 1, c = i & 1;
+    cp_async16(w2s + k * 32 + ((c ^ ((k >> 2) & 1)) << 4),
+               w2 + (size_t)k * C + ch0 + c * 8);
+  }
+  cp_async_commit();
+  NIC_PHASE(0);   // loads issued
+
+  const int tiles = cdiv(N, CB_ROWS);
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int row0 = tile * CB_ROWS, rows = min(CB_ROWS, N - row0);
+    const unsigned arrived = gridDim.x * (unsigned)(tile + 1);
+    if (tile == 0) {
+      cp_async_wait<1>();        // w2 may still be on its way
+    } else {
+      __syncthreads();           // the last tile's reads are done
+      load_tile(row0, rows);
+      cp_async_commit();
+      cp_async_wait<0>();
     }
-    const float cur = rbf(probs[m][Km1] * to_f(h[(size_t)n * C + c]));
-    out[(size_t)n * C + c] = to_bf(rbf(hist) + cur);
+    __syncthreads();
+    NIC_PHASE(1);   // x and w1 landed
+
+    // linear1: 4 column tiles (a, a, g, g) x 2 halves of K.
+    {
+      float acc[4] = {};
+      const int nt = warp & 3, kpart = warp >> 2;
+      strip_product<true>(acc, as, a_stride, C / 16, kpart, 2, [&](int k0) {
+        const int k = k0 + (lane & 15);
+        return w1s + k * 64 + ((nt ^ ((k >> 1) & 3)) << 4);
+      });
+      store_part(part, acc, kpart, nt, 32);
+    }
+    __syncthreads();
+    const float xres =
+        to_f(*reinterpret_cast<const bf16*>(as + r * a_stride + (ch0 + j) * 2));
+    float hval;
+    {
+      const float* p0 = part + r * 32, * p1 = part + (CB_ROWS + r) * 32;
+      const float a = rbf(rbf(p0[j] + p1[j]) + b1a);
+      const float gate = rbf(rbf(p0[16 + j] + p1[16 + j]) + b1g);
+      hval = rbf(a * rbf(1.f / (1.f + expf(-gate))));
+      if (r < rows) h_out[(size_t)(row0 + r) * C + ch0 + j] = to_bf(hval);
+    }
+    NIC_PHASE(2);   // linear1, GLU
+    blocks_barrier(mine, arrived);
+    NIC_PHASE(3);   // every block's h is in device memory
+    load_rows(h_out, row0, rows);
+    cp_async_commit();
+    cp_async_wait<0>();          // h, and long since w2 and the ring rows
+    mbarrier_wait(taps_bar);
+    __syncthreads();
+    NIC_PHASE(4);   // h and the taps landed
+
+    // The head's tap logits: kp / 8 tiles, K split among the other warps.
+    {
+      const int ntiles = kp / 8, kparts = CB_WARPS / ntiles;
+      float acc[4] = {};
+      const int nt = warp % ntiles, kpart = warp / ntiles;
+      strip_product<false>(acc, as, a_stride, C / 16, kpart, kparts, [&](int k0) {
+        return taps_s + (nt * 8 + (lane & 7)) * a_stride +
+               (k0 + ((lane >> 3) & 1) * 8) * 2;
+      });
+      store_part(part, acc, kpart, nt, kp);
+      __syncthreads();
+      for (int e = tid; e < CB_ROWS * kp; e += CB_THREADS) {
+        float sum = 0.f;
+        for (int p = 0; p < kparts; ++p) sum += part[p * CB_ROWS * kp + e];
+        probs[(e / kp) * CB_MAX_TAPS + e % kp] = rbf(sum);
+      }
+    }
+    __syncthreads();
+    // Softmax over the K taps, rounded: a warp two rows, a lane a tap.
+    for (int row = warp; row < CB_ROWS; row += CB_WARPS) {
+      float* p = probs + row * CB_MAX_TAPS;
+      const float logit = lane < K ? p[lane] : -INFINITY;
+      const float e = expf(logit - warp_max(logit));
+      p[lane] = rbf(e / warp_sum(e));
+    }
+    __syncthreads();
+    NIC_PHASE(5);   // tap weights
+    {
+      const float* p = probs + r * CB_MAX_TAPS;
+      float hist = 0.f;
+      for (int k = 0; k < Km1; ++k)
+        hist = fmaf(p[k], to_f(cache_s[(k * CB_ROWS + r) * CB_STRIP + j]), hist);
+      const float cur = rbf(p[Km1] * hval);
+      if (r < rows) hconv[(size_t)r * C + ch0 + j] = to_bf(rbf(hist) + cur);
+    }
+    NIC_PHASE(6);   // ring combine
+    blocks_barrier(mine + 1, arrived);
+    if (tid == 0 && strip == 0 && tile == tiles - 1)
+      barrier_set_end(counters, launch);
+    NIC_PHASE(7);   // every block's conv output is in device memory
+    load_rows(hconv, 0, rows);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    NIC_PHASE(8);   // the conv output landed
+
+    // linear2: 2 column tiles x 4 quarters of K.
+    {
+      float acc[4] = {};
+      const int nt = warp & 1, kpart = warp >> 1;
+      strip_product<true>(acc, as, a_stride, C / 16, kpart, 4, [&](int k0) {
+        const int k = k0 + (lane & 15);
+        return w2s + k * 32 + ((nt ^ ((k >> 2) & 1)) << 4);
+      });
+      store_part(part, acc, kpart, nt, 16);
+    }
+    __syncthreads();
+    if (r < rows) {
+      float sum = 0.f;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) sum += part[(p * CB_ROWS + r) * 16 + j];
+      y[(size_t)(row0 + r) * C + ch0 + j] = to_bf(rbf(rbf(sum) + b2v) + xres);
+    }
+    NIC_PHASE(9);   // y written
   }
 }
 
 }  // namespace nic
 
-using nic::bf16;
-using nic::cdiv;
+NIC_DEFINE_PHASE_READER(nic_decode_conv_phases)
 
-// y, h_glu = conv block step. x [N, C]; cache [K-1, N, C] ring-major;
-// w1 [C, 2C], b1 [2C] (weight norm folded); wl [C, H*K] head-major;
-// w2 [C, C], b2 [C]; hconv [N, C] and part [max(splits1 * 2C,
-// splits2 * C) * N] fp32 scratch. Returns a cudaError_t.
+// y, h = conv block step for N <= 128 rows. x [N, C]; cache
+// [K - 1, n_total, C] ring-major, its first N rows of every slot this
+// launch's; w1 [C, 2C], b1 [2C] (weight norm folded); taps [H, kp, C] the
+// packed tap predictor, kp = 8, 16 or 32 >= K; w2 [C, C], b2 [C]; all
+// bf16, 16-byte aligned. C % 16 == 0 and (C / H) % 16 == 0; `smem` is the
+// kernel's dynamic shared memory as the caller planned it, which must
+// equal conv_block_smem_bytes(C, kp). The C / 16 blocks must fit on the
+// card together, or the launch fails. Scratch: hconv [16, C] bf16;
+// counters [5] unsigned ints, zeroed once and then left to the kernel's
+// launches, which must follow one another. Returns a cudaError_t.
 extern "C" int nic_decode_conv_block(const void* x, const void* cache,
                                      const void* w1, const void* b1,
-                                     const void* wl, const void* w2,
-                                     const void* b2, void* h_glu,
-                                     void* hconv, void* y, void* part,
-                                     int N, int C, int H, int K, int t,
-                                     int splits1, int splits2, void* stream) {
-  using nic::TapTile;
-  if (K < 2 || K > nic::MAX_TAPS || C % H != 0 || t < 0 || splits1 < 1 ||
-      splits2 < 1)
+                                     const void* taps, const void* w2,
+                                     const void* b2, void* h, void* hconv,
+                                     void* y, void* counters, int N,
+                                     int n_total, int C, int H, int K, int kp,
+                                     int t, int smem, void* stream) {
+  using nic::bf16;
+  if (N < 1 || N > nic::CB_MAX_ROWS || n_total < N || K < 2 ||
+      K > nic::CB_MAX_TAPS || (kp != 8 && kp != 16 && kp != 32) || kp < K ||
+      H < 1 || C < 16 || C % 16 != 0 || C % H != 0 || (C / H) % 16 != 0 ||
+      t < 0 || smem != nic::conv_block_smem_bytes(C, kp) ||
+      smem > nic::MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int ew = cdiv(N * C, nic::EPILOGUE_THREADS);
-  cudaError_t err = nic::launch_mm_split((const bf16*)x, (const bf16*)w1,
-                                         (float*)part, N, C, 2 * C, splits1, s);
+  cudaError_t err = cudaFuncSetAttribute(
+      nic::decode_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  nic::glu_epilogue<<<ew, nic::EPILOGUE_THREADS, 0, s>>>(
-      (const float*)part, splits1, (const bf16*)b1, (bf16*)h_glu, N, C);
-  NIC_RETURN_IF_LAUNCH_FAILED();
-  nic::conv_taps_kernel<<<dim3(H, cdiv(N, TapTile::BM)), TapTile::THREADS, 0, s>>>(
-      (const bf16*)h_glu, (const bf16*)cache, (const bf16*)wl, (bf16*)hconv,
-      N, C, H, K, t);
-  NIC_RETURN_IF_LAUNCH_FAILED();
-  err = nic::launch_mm_split((const bf16*)hconv, (const bf16*)w2, (float*)part,
-                             N, C, C, splits2, s);
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C / nic::CB_STRIP);
+  cfg.blockDim = dim3(nic::CB_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, nic::decode_conv_kernel, (const bf16*)x,
+                           (const bf16*)cache, (const bf16*)w1, (const bf16*)b1,
+                           (const bf16*)taps, (const bf16*)w2, (const bf16*)b2,
+                           (bf16*)h, (bf16*)hconv, (bf16*)y,
+                           (unsigned*)counters, N, n_total, C, H, K, kp, t);
   if (err != cudaSuccess) return (int)err;
-  nic::bias_residual_epilogue<<<ew, nic::EPILOGUE_THREADS, 0, s>>>(
-      (const float*)part, splits2, (const bf16*)b2, (const bf16*)x, (bf16*)y,
-      N, C);
   NIC_RETURN_IF_LAUNCH_FAILED();
   return 0;
 }

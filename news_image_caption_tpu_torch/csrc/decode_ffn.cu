@@ -75,37 +75,10 @@ __host__ __device__ constexpr int ffn_smem_bytes(int C, int group) {
          FFN_ROWS * (group * FFN_STRIP + 8) * 2 + 16;
 }
 
-// All `expected` blocks that call it with the same counter, zero before
-// the launch, wait here for one another; what they wrote to device
-// memory before is visible to all of them after, to reads that go to L2
-// (__ldcg, cp.async.cg). Every thread of the block calls it; thread 0
-// adds one with release and polls with acquire, so nothing waits for an
-// atomic's return. The blocks must all be on the card (a cooperative
-// launch).
-__device__ __forceinline__ void blocks_barrier(unsigned* counter,
-                                               unsigned expected) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(counter),
-                 "r"(1u)
-                 : "memory");
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen)
-                   : "l"(counter)
-                   : "memory");
-    } while (seen < expected);
-  }
-  __syncthreads();
-}
-
 // grid = F / 32 blocks, launched cooperatively. hbuf [16][F] bf16 and
 // ws [F / 32 / group][16][C] fp32 are scratch. counters [1 + 2 * slots],
-// slots >= F / 32 / group + group, zero before the first launch: a count
-// of launches and two sets of barrier counters. A launch uses the set
-// of its parity and zeroes the other for the next launch, so no block
-// resets a counter while another may still poll it.
+// slots >= F / 32 / group + group, zero before the first launch, are the
+// barriers' (barrier_set_begin in common.cuh).
 __global__ void __launch_bounds__(FFN_THREADS, 1)
 decode_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                   const bf16* __restrict__ b1, const bf16* __restrict__ w2,
@@ -139,12 +112,7 @@ decode_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   unsigned* mine = nullptr;
   if (tid == 0) {
     mbarrier_init_expect(w2_bar, kdim * slice * 2);
-    launch = *reinterpret_cast<volatile unsigned*>(counters);
-    mine = counters + 1 + (launch & 1u) * slots;
-    if (strip == 0) {
-      unsigned* other = counters + 1 + (~launch & 1u) * slots;
-      for (int i = 0; i < slots; ++i) other[i] = 0u;
-    }
+    mine = barrier_set_begin(counters, slots, strip == 0, launch);
   }
   __syncthreads();
 
@@ -277,7 +245,7 @@ decode_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int quads = slice / 4;
   const int share = (N * quads + ngroups - 1) / ngroups;   // quads a block
   blocks_barrier(mine + ngroups + rank, ngroups);
-  if (tid == 0 && strip == 0) counters[0] = launch + 1u;
+  if (tid == 0 && strip == 0) barrier_set_end(counters, launch);
   NIC_PHASE(6);   // every group's partial of this slice is in device memory
   for (int j = tid; j < share; j += FFN_THREADS) {
     const int i = gid * share + j;

@@ -3,8 +3,9 @@ phase.
 
 It needs only the card, no profiler. It
 builds the kernels with `-DNIC_PHASE_TIMERS`, which turns every
-`NIC_PHASE(i)` marker of `csrc/decode_ffn.cu`,
-`csrc/decode_attention.cu` and `csrc/flash_attention.cu` into a stamp
+`NIC_PHASE(i)` marker of `csrc/decode_ffn.cu`, `csrc/decode_blocks.cu`,
+`csrc/band_topk.cu`, `csrc/decode_attention.cu` and
+`csrc/flash_attention.cu` into a stamp
 of the multiprocessor's cycle counter and the card's nanosecond timer
 by thread 0 of every block (`csrc/common.cuh`). It launches each kernel
 once at the flagship's shapes (a decode step's for the decode kernels,
@@ -25,13 +26,20 @@ import ctypes
 import numpy as np
 import torch
 
-from news_image_caption_tpu_torch.ops import (_build, decode_attention,
+from news_image_caption_tpu_torch.ops import (_build, band_topk,
+                                              decode_attention,
                                               decode_blocks, flash_attention)
 
 SLOTS, BLOCKS = 16, 2048        # PHASE_SLOTS, PHASE_BLOCKS of common.cuh
 FFN_PHASES = ["issue loads", "wait x, w1", "fc1", "h, group barrier",
               "read h, wait w2", "fc2", "slice barrier",
               "add groups, write y"]
+CONV_PHASES = ["issue loads", "wait x, w1", "linear1, GLU",
+               "barrier: every block's h", "read h, wait taps",
+               "tap logits, softmax", "ring combine",
+               "barrier: every block's conv output", "read conv output",
+               "linear2, write y"]
+BAND_PHASES = ["issue loads", "walk the tiles", "write partials"]
 ATTENTION_PHASES = ["issue loads", "wait K", "scores", "row max, sum",
                     "cluster barrier", "p", "wait V", "p V",
                     "cluster barrier", "add partials, write out"]
@@ -110,6 +118,29 @@ def main() -> None:
         report(f"decode_ffn_block N={N} C={D} F={F}",
                read_stamps("nic_decode_ffn_phases"), plan.blocks,
                FFN_PHASES)
+    cw1, cb1 = rn(D, 2 * D, scale=D ** -0.5), rn(2 * D, scale=0.05)
+    cw2, cb2 = rn(D, D, scale=D ** -0.5), rn(D, scale=0.05)
+    for N, K in ((16, 31), (16, 3), (1, 31)):
+        x, cache = rn(N, D), rn(K - 1, N, D, scale=0.5)
+        wl = rn(D, H * K, scale=0.05)
+        taps = decode_blocks.pack_taps(wl, H)
+        cold(lambda: decode_blocks.decode_conv_block(
+            x, cache, K + 2, cw1, cb1, wl, cw2, cb2, H, taps=taps),
+             "nic_decode_conv_phases")
+        plan = decode_blocks.conv_block_plan(N, D, H, K, sms)
+        report(f"decode_conv_block N={N} C={D} K={K}",
+               read_stamps("nic_decode_conv_phases"), plan.blocks,
+               CONV_PHASES)
+    for N, V, k in ((16, 5002, 1), (16, 30265, 1), (16, 30265, 5),
+                    (80, 30265, 5)):
+        x, table = rn(N, D), rn(V, D, scale=D ** -0.5)
+        cold(lambda: band_topk.band_topk_lse(x, table, k),
+             "nic_band_topk_phases")
+        plan = band_topk.band_plan(N, D, V, k, sms)
+        report(f"band_topk_lse N={N} V={V} k={k} ({plan.tiles_per_block}"
+               f" tiles a block at most, {plan.stages} slots of {plan.kc}"
+               " columns)", read_stamps("nic_band_topk_phases"), plan.blocks,
+               BAND_PHASES)
     for B, S in ((16, 514), (16, 51), (1, 514), (1, 51)):
         q, k, v = rn(B, 1, D, scale=0.125), rn(B, S, D), rn(B, S, D)
         bias = torch.zeros(B, S, device=dev)

@@ -4,8 +4,13 @@ Kernel: `csrc/band_topk.cu`, replacing the TPU kernel
 `news_image_caption_tpu/ops/pallas_topk.py::band_topk_lse`. The kernel
 never writes the [N, V] logits to device memory: it is bound by one
 read of the band's table (10 / 31 / 62 MB of bf16 for the flagship's
-5002 / 15000 / 30265-row bands), and splits the TPU's sequential
-vocab walk into per-tile partials and a merge pass (see the source).
+5002 / 15000 / 30265-row bands). It is designed for the H100: about one
+block a multiprocessor walks its share of the 64-id vocab tiles in
+ascending order, the table streaming through a ring of `cp.async`
+slots into tensor-core products, and carries (max, sumexp, top-k) a
+row as the TPU kernel does; a second small kernel merges the blocks'
+states in block order (see the source). `band_plan` is the host-side plan, `admits`
+what the kernel takes.
 
 `band_topk_lse_plain` is the same function in plain PyTorch: the CPU
 path, and the oracle the kernel is held against on the card.
@@ -13,12 +18,92 @@ path, and the oracle the kernel is held against on the card.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from news_image_caption_tpu_torch.ops import _build
 
 MAX_K = 16
-_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P]
+TILE = 64                   # vocab ids a tile
+MAX_ROWS = 128              # rows of x a launch
+RESIDENT_ROWS = 32          # rows of x that may stay in shared memory
+MAX_BLOCKS = 256            # lists the merge's tournament takes
+LOGIT_STRIDE = TILE + 8     # bf16 elements a row of the logits tile
+_ARGTYPES = [_build.P] * 9 + [_build.I] * 10 + [_build.P]
+# The blocks' partials, per (device, rows, blocks, k). Calls on one
+# device share them, so they must follow one another (one stream).
+_scratch: dict = {}
+
+
+class BandPlan(NamedTuple):
+    """How `band_topk_lse`'s kernel cuts a call: block b of `blocks`
+    walks vocab tiles b, b + blocks, ... (`tile` ids each, at most
+    `tiles_per_block`); `rows` is N padded to the kernel variant's 16,
+    32 or 128 rows; a ring slot holds `kc` columns of a tile's table
+    rows (and of x where it is not resident); N above 128 rows goes
+    through `launches` launches (each the walk and its merge kernel)."""
+
+    tile: int
+    n_tiles: int
+    blocks: int
+    tiles_per_block: int
+    rows: int
+    kc: int
+    stages: int
+    x_resident: bool
+    smem_bytes: int
+    launches: int
+    scratch_floats: int
+
+
+def band_smem_bytes(rows: int, D: int, kc: int, stages: int,
+                    x_resident: bool) -> int:
+    """Dynamic shared memory of a block (csrc/band_topk.cu::
+    band_smem_bytes): resident x, the ring's slots, the logits tile, the
+    rows' top-k lists."""
+    return ((rows * (D + 8) * 2 if x_resident else 0)
+            + stages * (TILE + (0 if x_resident else rows)) * (kc + 8) * 2
+            + rows * LOGIT_STRIDE * 2 + rows * MAX_K * 8)
+
+
+def admits(dtype, N: int, D: int, V: int, k: int,
+           sel_limit: int) -> Tuple[bool, str]:
+    """Whether the kernel takes x [N, D] and table [V, D] of `dtype`
+    with this k and sel_limit, and if not, why."""
+    if dtype != torch.bfloat16:
+        return False, "band_topk_lse kernel takes bf16 x and table"
+    if not (N >= 1 and V >= 1 and D >= 64 and D % 64 == 0):
+        return False, (f"band_topk_lse: need N, V >= 1 and D % 64 == 0,"
+                       f" got N={N}, V={V}, D={D}")
+    if not (1 <= k <= min(MAX_K, sel_limit) and sel_limit <= V):
+        return False, (f"band_topk_lse: need 1 <= k <= min({MAX_K},"
+                       " sel_limit) and sel_limit <= V")
+    return True, ""
+
+
+def band_plan(N: int, D: int, V: int, k: int, sms: int) -> BandPlan:
+    """The kernel's plan for x [N, D] over a table of V rows on a card
+    of `sms` multiprocessors, or ValueError for a shape it does not
+    take. One block a multiprocessor, none without a tile; x resident
+    where at most 32 rows and four slots fit beside it; else the deepest
+    ring that fits."""
+    ok, why = admits(torch.bfloat16, N, D, V, k, V)
+    _build.require(ok and sms >= 1, why or "band_topk_lse: sms < 1")
+    n = min(N, MAX_ROWS)
+    rows = 16 if n <= 16 else 32 if n <= 32 else MAX_ROWS
+    n_tiles = -(-V // TILE)
+    blocks = min(n_tiles, sms, MAX_BLOCKS)
+    kc = next(c for c in (256, 128, 64) if D % c == 0)
+    choices = [(kc, 4, True)] if rows <= RESIDENT_ROWS else []
+    choices += [(min(kc, 128), s, False) for s in (4, 3, 2)]
+    for kc_, stages, resident in choices:     # the last always fits
+        smem = band_smem_bytes(rows, D, kc_, stages, resident)
+        if smem <= _build.MAX_SMEM_BYTES:
+            break
+    return BandPlan(TILE, n_tiles, blocks, -(-n_tiles // blocks), rows, kc_,
+                    stages, resident, smem, -(-N // MAX_ROWS),
+                    2 * rows * blocks * (1 + k))
 
 
 def stable_topk(vals: torch.Tensor, k: int):
@@ -65,31 +150,43 @@ def band_topk_lse(x: torch.Tensor, table: torch.Tensor, k: int,
 def _launch(x, table, k, sel_limit):
     N, D = x.shape
     V = table.shape[0]
-    _build.require(x.dtype == torch.bfloat16 and table.dtype == torch.bfloat16,
-                   "band_topk_lse kernel takes bf16 x and table")
-    _build.require(table.shape[1] == D and table.device == x.device,
-                   "band_topk_lse: table must be [V, D] on x's device")
-    _build.require(x.is_contiguous() and table.is_contiguous(),
-                   "band_topk_lse: inputs must be contiguous")
-    _build.require(1 <= k <= min(MAX_K, sel_limit) and sel_limit <= V,
-                   f"band_topk_lse: need 1 <= k <= min({MAX_K}, sel_limit)"
-                   " and sel_limit <= V")
+    ok, why = admits(x.dtype, N, D, V, k, sel_limit)
+    _build.require(ok, why)
+    _build.require(table.dtype == x.dtype and table.shape[1] == D
+                   and table.device == x.device,
+                   "band_topk_lse: table must be [V, D] of x's dtype on x's"
+                   " device")
+    _build.require(x.is_contiguous() and table.is_contiguous()
+                   and x.data_ptr() % 16 == 0 and table.data_ptr() % 16 == 0,
+                   "band_topk_lse: inputs must be contiguous and 16-byte"
+                   " aligned")
+    dev = x.device
+    sms = _build.sms_of(dev)
     fn = _build.function("nic_band_topk_lse", _ARGTYPES)
-    n_tiles = -(-V // _build.lib().nic_band_topk_tile_cols())
-    f32 = dict(device=x.device, dtype=torch.float32)
-    pmax = torch.empty(N, n_tiles, **f32)
-    psum = torch.empty(N, n_tiles, **f32)
-    pval = torch.empty(N, n_tiles, k, **f32)
-    pid = torch.empty(N, n_tiles, k, device=x.device, dtype=torch.int32)
-    vals = torch.empty(N, k, **f32)
-    ids = torch.empty(N, k, device=x.device, dtype=torch.int32)
-    lse = torch.empty(N, 1, **f32)
-    _build.check(fn(x.data_ptr(), table.data_ptr(), pmax.data_ptr(),
-                    psum.data_ptr(), pval.data_ptr(), pid.data_ptr(),
-                    vals.data_ptr(), ids.data_ptr(), lse.data_ptr(),
-                    N, D, V, sel_limit, k, n_tiles, _build.stream_of(x)),
-                 "band_topk_lse")
-    band_topk_lse.launches += 1
+    vals = torch.empty(N, k, device=dev, dtype=torch.float32)
+    ids = torch.empty(N, k, device=dev, dtype=torch.int32)
+    lse = torch.empty(N, 1, device=dev, dtype=torch.float32)
+    for r0 in range(0, N, MAX_ROWS):
+        n = min(MAX_ROWS, N - r0)
+        plan = band_plan(n, D, V, k, sms)
+        key = (dev, plan.rows, plan.blocks, k)
+        scratch = _scratch.get(key)
+        if scratch is None:
+            scratch = _scratch[key] = torch.empty(
+                plan.scratch_floats, device=dev, dtype=torch.float32)
+        cells = plan.rows * plan.blocks
+        pmax, psum = scratch[:cells], scratch[cells:2 * cells]
+        pval = scratch[2 * cells:(2 + k) * cells]
+        pid = scratch[(2 + k) * cells:]
+        _build.check(fn(x[r0:].data_ptr(), table.data_ptr(), pmax.data_ptr(),
+                        psum.data_ptr(), pval.data_ptr(), pid.data_ptr(),
+                        vals[r0:].data_ptr(), ids[r0:].data_ptr(),
+                        lse[r0:].data_ptr(), n, D, V, sel_limit, k,
+                        plan.blocks, plan.kc, plan.stages,
+                        int(plan.x_resident), plan.smem_bytes,
+                        _build.stream_of(x)),
+                     "band_topk_lse")
+        band_topk_lse.launches += 1
     return vals, ids, lse
 
 

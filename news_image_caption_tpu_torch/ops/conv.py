@@ -123,11 +123,18 @@ class DynamicConv(nn.Module):
     def step_ring(self, x_t: torch.Tensor, cache: torch.Tensor, t: int):
         """Ring decode step. x_t [B, C]; cache [B, K-1, C] where slot
         s mod (K-1) holds input x_s (zeros before the sequence start).
-        Returns (out [B, C], cache with x_t written at slot t mod K-1)."""
+        Returns (out [B, C], cache with x_t written at slot t mod K-1).
+        A pointwise conv (K = 1) has no history: w * x_t, cache as it
+        came."""
         B, C = x_t.shape
         H, K = self.num_heads, self.kernel_size
         R, Km1 = C // H, K - 1
         w = self._weights(x_t)                              # [B, H, K]
+        if K == 1:
+            out = w.expand(B, H, R).reshape(B, C) * x_t
+            if self.conv_bias is not None:
+                out = out + self.conv_bias.to(out.dtype)
+            return out, cache
         k_for_slot = (torch.arange(Km1, device=x_t.device) - t) % Km1
         w_hist = w[:, :, k_for_slot]                        # [B, H, K-1]
         hist = cache.view(B, Km1, H, R)

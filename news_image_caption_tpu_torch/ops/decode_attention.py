@@ -19,7 +19,7 @@ instead materializes the scores in the compute dtype.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -42,6 +42,20 @@ class AttentionPlan(NamedTuple):
     splits: int
     per: int
     smem_bytes: int
+
+
+def admits(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
+    """Whether the kernel takes q/k/v of `dtype` with Q queries an item
+    and this head size, and if not, why. (How many keys it takes depends
+    on the call: `attention_plan`.)"""
+    if dtype != torch.bfloat16:
+        return False, ("decode_cross_attention kernel takes bf16 q/k/v and"
+                       " an fp32 bias")
+    if not (1 <= Q <= MAX_Q and head_dim in HEAD_DIMS):
+        return False, (f"decode_cross_attention: need 1 <= Q <= {MAX_Q} and"
+                       f" a head size E / num_heads in {HEAD_DIMS}, got"
+                       f" Q={Q}, head size {head_dim}")
+    return True, ""
 
 
 def attention_smem_bytes(Q: int, per: int, head_dim: int) -> int:
@@ -119,7 +133,11 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor,
 def _launch(q, k, v, bias, num_heads):
     B, Q, E = q.shape
     S = k.shape[1]
-    _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v))
+    _build.require(E % num_heads == 0,
+                   "decode_cross_attention: E % num_heads != 0")
+    ok, why = admits(q.dtype, Q, E // num_heads)
+    _build.require(ok, why)
+    _build.require(k.dtype == q.dtype and v.dtype == q.dtype
                    and bias.dtype == torch.float32,
                    "decode_cross_attention kernel takes bf16 q/k/v and an"
                    " fp32 bias")
@@ -131,15 +149,11 @@ def _launch(q, k, v, bias, num_heads):
                        for t in (q, k, v, bias)),
                    "decode_cross_attention: inputs must be contiguous, on"
                    " one device")
-    _build.require(1 <= Q <= MAX_Q and E % num_heads == 0
-                   and E // num_heads in HEAD_DIMS,
-                   f"decode_cross_attention: need 1 <= Q <= {MAX_Q} and a"
-                   f" head size E / num_heads in {HEAD_DIMS}")
     _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                    "decode_cross_attention: q, k and v must be 16-byte"
                    " aligned")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = attention_plan(B, Q, S, num_heads, E // num_heads, sms)
+    plan = attention_plan(B, Q, S, num_heads, E // num_heads,
+                          _build.sms_of(q.device))
     fn = _build.function("nic_decode_attention", _ARGTYPES)
     out = torch.empty_like(q)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -4,14 +4,19 @@ Kernels: `csrc/decode_blocks.cu` and `csrc/decode_ffn.cu`, replacing
 the TPU kernels `news_image_caption_tpu/ops/pallas_decode.py::
 decode_conv_block` and `::decode_ffn_block`. At decode batch sizes both
 are bound by one read of their weights per step (6.5 MB for the conv
-block, 16.8 MB for the FFN, bf16, per flagship layer). The conv block
-is split-K row products over independent tiles plus elementwise
-epilogues. The FFN block is one launch (for up to 16 rows) designed for
-the H100: every block owns 32 columns of w1 and a piece of w2, requests
-all of them at once and multiplies on the tensor cores; groups of 8
-blocks share their strips of h, and the groups' partial outputs are
-added in a fixed order (see the source); `ffn_plan` is its host-side
-plan.
+block, 16.8 MB for the FFN, bf16, per flagship layer). Both are one
+cooperative launch (the conv block for up to 128 rows, which it takes 16
+at a time; the FFN for up to 16) designed for the H100: every
+block requests all its weights at entry and multiplies on the tensor
+cores. The conv block's C / 16 blocks own 16 channels each through
+linear1, the GLU, the ring combine and linear2, compute their head's tap
+weights, and wait for one another twice (h, then the conv output, pass
+through device memory); `conv_block_plan` is its host-side plan and
+`pack_taps` the layout its tap predictor wants. The FFN's blocks own 32
+columns of w1 and a piece of w2; groups of 8 blocks share their strips
+of h, and the groups' partial outputs are added in a fixed order (see
+the sources); `ffn_plan` is its plan. `admits_conv` and `admits_ffn`
+say what the kernels take.
 
 The plain versions keep the reference kernels' bf16 rounding points
 (pallas_decode.py:47-101 and :111-129): every product accumulates in
@@ -21,26 +26,36 @@ In fp32 the roundings are no-ops.
 
 from __future__ import annotations
 
-import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from news_image_caption_tpu_torch.ops import _build
 
 MAX_TAPS = 32
-_CONV_ARGTYPES = [_build.P] * 11 + [_build.I] * 7 + [_build.P]
+_CONV_ARGTYPES = [_build.P] * 11 + [_build.I] * 8 + [_build.P]
 _FFN_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P]
-# Output tile and K step of the conv block's row products (RowTile).
-_TILE_ROWS, _TILE_COLS, _TILE_K = 16, 64, 32
+# The conv block kernel: channels a block, rows of x a tile (the tensor
+# cores' 16-row operand), rows a launch.
+CONV_STRIP, CONV_ROWS, CONV_MAX_ROWS = 16, 16, 128
 # The FFN kernel: columns of w1 a block, rows of x a launch, the largest
 # group of blocks that share h.
 FFN_STRIP, FFN_ROWS, MAX_GROUP = 32, 16, 8
-# Counters of the FFN kernel's barriers between blocks, one tensor a
-# device: a count of launches and two sets of `slots` counters, zeroed
-# here once and then kept by the kernel. Calls on one device share them,
-# so they must follow one another (one stream).
+# Counters of the kernels' barriers between blocks, one tensor a kernel
+# and device: a count of launches and two sets of `slots` counters,
+# zeroed here once and then kept by the kernel. Calls on one device share
+# them, so they must follow one another (one stream). The conv block's
+# scratch (its conv output, [16, C]) is kept per (device, C) beside them.
 _ffn_counters: dict = {}
+_conv_counters: dict = {}
+_conv_scratch: dict = {}
+# Shared memory of a multiprocessor (228 KB), of which the card keeps
+# 1 KB a block: how many blocks of a cooperative launch fit on the card.
+_SM_SMEM_BYTES, _BLOCK_RESERVED_BYTES = 228 * 1024, 1024
+
+
+def _resident_blocks(smem: int, sms: int) -> int:
+    return sms * min(8, _SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES))
 
 
 def _rounder(dtype):
@@ -69,9 +84,13 @@ def decode_conv_block_plain(x, cache, t: int, w1, b1, wl, w2, b2,
     h = r(a * r(torch.sigmoid(g)))
     taps = r(h @ wl.float()).view(N, H, K)
     p = r(torch.softmax(taps, dim=-1))
-    slots = (t + torch.arange(Km1, device=x.device)) % Km1
-    hist = cache.float()[slots].view(Km1, N, H, C // H)
-    acc = torch.einsum("nhk,knhr->nhr", p[:, :, :Km1], hist).reshape(N, C)
+    if Km1 > 0:
+        slots = (t + torch.arange(Km1, device=x.device)) % Km1
+        hist = cache.float()[slots].view(Km1, N, H, C // H)
+        acc = torch.einsum("nhk,knhr->nhr", p[:, :, :Km1],
+                           hist).reshape(N, C)
+    else:
+        acc = torch.zeros_like(h)
     cur = r(p[:, :, Km1:].expand(N, H, C // H).reshape(N, C) * h)
     hconv = r(r(acc) + cur)
     y = r(r(r(hconv @ w2.float()) + b2.float()) + xf)
@@ -89,16 +108,36 @@ def decode_ffn_block_plain(x, w1, b1, w2, b2):
     return y.to(x.dtype)
 
 
+def pack_taps(wl: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The tap predictor wl [C, H*K] (head-major) as the kernel reads
+    it: [H, kp, C] with the K taps of a head padded with zeros to kp = 8,
+    16 or 32, so a head's taps are contiguous, 16-byte aligned rows.
+    Computed once a model load."""
+    C = wl.shape[0]
+    K = wl.shape[1] // num_heads
+    kp = _padded_taps(K)
+    out = torch.zeros(num_heads, kp, C, device=wl.device, dtype=wl.dtype)
+    out[:, :K] = wl.view(C, num_heads, K).permute(1, 2, 0)
+    return out
+
+
+def _padded_taps(K: int) -> int:
+    return 8 if K <= 8 else 16 if K <= 16 else 32
+
+
 def decode_conv_block(x, cache, t: int, w1, b1, wl, w2, b2,
-                      num_heads: int):
+                      num_heads: int, taps: Optional[torch.Tensor] = None):
     """See `decode_conv_block_plain`. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel or raises. `taps` is
+    `pack_taps(wl, num_heads)` where the caller has it (the model packs
+    it once a load); without it the kernel path packs wl every call."""
     if x.device.type == "cpu":
         return decode_conv_block_plain(x, cache, t, w1, b1, wl, w2, b2,
                                        num_heads)
     _build.require(x.device.type == "cuda",
                    f"decode_conv_block: no kernel for device {x.device}")
-    return _launch_conv(x, cache, int(t), w1, b1, wl, w2, b2, num_heads)
+    return _launch_conv(x, cache, int(t), w1, b1, wl, w2, b2, num_heads,
+                        taps)
 
 
 def decode_ffn_block(x, w1, b1, w2, b2):
@@ -111,18 +150,11 @@ def decode_ffn_block(x, w1, b1, w2, b2):
     return _launch_ffn(x, w1, b1, w2, b2)
 
 
-def _splits(device, N: int, cols: int, K: int) -> int:
-    """K chunks of a row product: about two blocks per SM of the card,
-    at most one BK slice per chunk."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-cols // _TILE_COLS) * -(-N // _TILE_ROWS)
-    return max(1, min(-(-K // _TILE_K), -(-2 * sms // tiles)))
-
-
 def _check_inputs(name, tensors, shapes):
     x = tensors[0]
-    _build.require(all(t.dtype == torch.bfloat16 for t in tensors),
-                   f"{name} kernel takes bf16 inputs")
+    _build.require(all(t.dtype == x.dtype for t in tensors),
+                   f"{name}: inputs of one dtype, got"
+                   f" {[t.dtype for t in tensors]}")
     _build.require(all(tuple(t.shape) == s for t, s in zip(tensors, shapes)),
                    f"{name}: shapes {[tuple(t.shape) for t in tensors]},"
                    f" expected {shapes}")
@@ -131,30 +163,113 @@ def _check_inputs(name, tensors, shapes):
                    f"{name}: inputs must be contiguous, on one device")
 
 
-def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads):
+class ConvBlockPlan(NamedTuple):
+    """How `decode_conv_block`'s kernel cuts its work: block s of
+    `blocks` owns channels [s * strip, (s + 1) * strip) of linear1 (its
+    `a` and `g` columns), of the ring combine and of linear2, all in one
+    head, whose `taps` (K padded to 8, 16 or 32) it computes with the
+    other `blocks_per_head - 1` blocks of that head. All blocks are on
+    the card at once; a launch takes up to 128 rows in `row_tiles`
+    tiles of 16 (the weights stay in shared memory), more rows go through
+    `launches` launches."""
+
+    strip: int
+    blocks: int
+    launches: int
+    row_tiles: int
+    taps: int
+    blocks_per_head: int
+    smem_bytes: int
+
+
+def conv_block_smem_bytes(C: int, taps: int) -> int:
+    """Dynamic shared memory of a block (csrc/decode_blocks.cu::
+    conv_block_smem_bytes): the w1 strip (a and g columns), the w2
+    strip, the activations (rows padded by 8 elements), the head's taps,
+    the warps' parts of a product, the block's ring rows, the tap
+    weights, the barrier of the taps' copies."""
+    return (C * 2 * CONV_STRIP * 2 + C * CONV_STRIP * 2
+            + CONV_ROWS * (C + 8) * 2 + taps * (C + 8) * 2
+            + 8 * CONV_ROWS * 8 * 4 + taps * CONV_ROWS * CONV_STRIP * 2
+            + CONV_ROWS * MAX_TAPS * 4 + 16)
+
+
+def admits_conv(dtype, N: int, C: int, H: int, K: int,
+                sms: int = _build.H100_SMS) -> Tuple[bool, str]:
+    """Whether `decode_conv_block`'s kernel takes x [N, C] of `dtype`
+    with H heads and K taps on a card of `sms` multiprocessors, and if
+    not, why."""
+    if dtype != torch.bfloat16:
+        return False, "decode_conv_block kernel takes bf16 inputs"
+    if not (N >= 1 and 2 <= K <= MAX_TAPS and H >= 1 and C >= CONV_STRIP
+            and C % CONV_STRIP == 0 and C % H == 0
+            and (C // H) % CONV_STRIP == 0):
+        return False, (f"decode_conv_block: need N >= 1, 2 <= K <= {MAX_TAPS},"
+                       f" C % {CONV_STRIP} == 0 and a head size C / H that is"
+                       f" a multiple of {CONV_STRIP}, got N={N}, C={C}, H={H},"
+                       f" K={K}")
+    smem = conv_block_smem_bytes(C, _padded_taps(K))
+    if smem > _build.MAX_SMEM_BYTES:
+        return False, (f"decode_conv_block: C={C} needs {smem} bytes of shared"
+                       f" memory a block, the card has {_build.MAX_SMEM_BYTES}")
+    resident = _resident_blocks(smem, sms)
+    if C // CONV_STRIP > resident:
+        return False, (f"decode_conv_block: C={C} needs {C // CONV_STRIP}"
+                       f" blocks on the card at once, it holds {resident}")
+    return True, ""
+
+
+def conv_block_plan(N: int, C: int, H: int, K: int, sms: int
+                    ) -> ConvBlockPlan:
+    """The kernel's plan for x [N, C], H heads and K taps on a card of
+    `sms` multiprocessors, or ValueError for a shape it does not take."""
+    ok, why = admits_conv(torch.bfloat16, N, C, H, K, sms)
+    _build.require(ok, why)
+    taps = _padded_taps(K)
+    return ConvBlockPlan(CONV_STRIP, C // CONV_STRIP, -(-N // CONV_MAX_ROWS),
+                         -(-min(N, CONV_MAX_ROWS) // CONV_ROWS), taps,
+                         C // H // CONV_STRIP,
+                         conv_block_smem_bytes(C, taps))
+
+
+def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
     N, C = x.shape
     H = num_heads
     K = wl.shape[1] // H
-    _build.require(2 <= K <= MAX_TAPS and C % H == 0 and t >= 0,
-                   f"decode_conv_block: need 2 <= K <= {MAX_TAPS},"
-                   " C % H == 0 and t >= 0")
-    _check_inputs("decode_conv_block", (x, cache, w1, b1, wl, w2, b2),
+    sms = _build.sms_of(x.device)
+    ok, why = admits_conv(x.dtype, N, C, H, K, sms)
+    _build.require(ok and t >= 0, why or "decode_conv_block: need t >= 0")
+    plan = conv_block_plan(N, C, H, K, sms)
+    if taps is None:
+        taps = pack_taps(wl, H)
+    _check_inputs("decode_conv_block", (x, cache, w1, b1, wl, w2, b2, taps),
                   [(N, C), (K - 1, N, C), (C, 2 * C), (2 * C,), (C, H * K),
-                   (C, C), (C,)])
+                   (C, C), (C,), (H, plan.taps, C)])
+    _build.require(all(a.data_ptr() % 16 == 0
+                       for a in (x, cache, w1, w2, taps)),
+                   "decode_conv_block: x, cache, w1, w2 and taps must be"
+                   " 16-byte aligned")
     fn = _build.function("nic_decode_conv_block", _CONV_ARGTYPES)
-    s1, s2 = _splits(x.device, N, 2 * C, C), _splits(x.device, N, C, C)
+    counters = _conv_counters.get(x.device)
+    if counters is None:
+        counters = _conv_counters[x.device] = torch.zeros(
+            5, device=x.device, dtype=torch.int32)
+    hconv = _conv_scratch.get((x.device, C))
+    if hconv is None:
+        hconv = _conv_scratch[(x.device, C)] = torch.empty(
+            CONV_ROWS, C, device=x.device, dtype=x.dtype)
     h = torch.empty_like(x)
-    hconv = torch.empty_like(x)
     y = torch.empty_like(x)
-    part = torch.empty(max(s1 * 2 * C, s2 * C) * N, device=x.device,
-                       dtype=torch.float32)
-    _build.check(fn(x.data_ptr(), cache.data_ptr(), w1.data_ptr(),
-                    b1.data_ptr(), wl.data_ptr(), w2.data_ptr(),
-                    b2.data_ptr(), h.data_ptr(), hconv.data_ptr(),
-                    y.data_ptr(), part.data_ptr(), N, C, H, K, t, s1, s2,
-                    _build.stream_of(x)),
-                 "decode_conv_block")
-    decode_conv_block.launches += 1
+    for r0 in range(0, N, CONV_MAX_ROWS):
+        rows = min(CONV_MAX_ROWS, N - r0)
+        _build.check(fn(x[r0:].data_ptr(), cache[:, r0:].data_ptr(),
+                        w1.data_ptr(), b1.data_ptr(), taps.data_ptr(),
+                        w2.data_ptr(), b2.data_ptr(), h[r0:].data_ptr(),
+                        hconv.data_ptr(), y[r0:].data_ptr(),
+                        counters.data_ptr(), rows, N, C, H, K, plan.taps, t,
+                        plan.smem_bytes, _build.stream_of(x)),
+                     "decode_conv_block")
+        decode_conv_block.launches += 1
     return y, h
 
 
@@ -186,42 +301,58 @@ def ffn_smem_bytes(C: int, group: int) -> int:
             + FFN_ROWS * (group * FFN_STRIP + 8) * 2 + 16)
 
 
+def _ffn_group(C: int, F: int) -> int:
+    """The largest group whose slice of the output is whole 16-column
+    steps of the kernel's second product."""
+    blocks = F // FFN_STRIP
+    return next(g for g in (8, 4, 2, 1)
+                if g <= MAX_GROUP and blocks % g == 0 and (C // g) % 16 == 0)
+
+
+def admits_ffn(dtype, N: int, C: int, F: int,
+               sms: int = _build.H100_SMS) -> Tuple[bool, str]:
+    """Whether `decode_ffn_block`'s kernel takes x [N, C] of `dtype` and
+    an FFN width F on a card of `sms` multiprocessors, and if not, why."""
+    if dtype != torch.bfloat16:
+        return False, "decode_ffn_block kernel takes bf16 inputs"
+    if not (N >= 1 and C >= 64 and C % 64 == 0 and F >= FFN_STRIP
+            and F % FFN_STRIP == 0):
+        return False, (f"decode_ffn_block: need N >= 1, C % 64 == 0 and"
+                       f" F % {FFN_STRIP} == 0, got N={N}, C={C}, F={F}")
+    smem = ffn_smem_bytes(C, _ffn_group(C, F))
+    if smem > _build.MAX_SMEM_BYTES:
+        return False, (f"decode_ffn_block: C={C} needs {smem} bytes of shared"
+                       f" memory a block, the card has {_build.MAX_SMEM_BYTES}")
+    # Its blocks wait for one another, so all must be on the card.
+    resident = _resident_blocks(smem, sms)
+    if F // FFN_STRIP > resident:
+        return False, (f"decode_ffn_block: F={F} needs {F // FFN_STRIP} blocks"
+                       f" on the card at once, it holds {resident}")
+    return True, ""
+
+
 def ffn_plan(N: int, C: int, F: int, sms: int) -> FfnPlan:
     """The kernel's plan for x [N, C] and an FFN width F on a card of
     `sms` multiprocessors, or ValueError for a shape it does not take."""
-    _build.require(N >= 1 and C >= 64 and C % 64 == 0
-                   and F >= FFN_STRIP and F % FFN_STRIP == 0,
-                   f"decode_ffn_block: need N >= 1, C % 64 == 0 and"
-                   f" F % {FFN_STRIP} == 0, got N={N}, C={C}, F={F}")
+    ok, why = admits_ffn(torch.bfloat16, N, C, F, sms)
+    _build.require(ok, why)
     blocks = F // FFN_STRIP
-    # The largest group whose slice of the output is whole 16-column
-    # steps of the kernel's second product.
-    group = next(g for g in (8, 4, 2, 1)
-                 if g <= MAX_GROUP and blocks % g == 0 and (C // g) % 16 == 0)
-    smem = ffn_smem_bytes(C, group)
-    _build.require(smem <= _build.MAX_SMEM_BYTES,
-                   f"decode_ffn_block: C={C} needs {smem} bytes of shared"
-                   f" memory a block, the card has {_build.MAX_SMEM_BYTES}")
-    # Its blocks wait for one another, so all must be on the card: a
-    # multiprocessor holds as many as fit in its 228 KB of shared memory
-    # (1 KB of it a block is the system's).
-    resident = sms * min(8, (228 * 1024) // (smem + 1024))
-    _build.require(blocks <= resident,
-                   f"decode_ffn_block: F={F} needs {blocks} blocks on the"
-                   f" card at once, it holds {resident}")
+    group = _ffn_group(C, F)
     return FfnPlan(FFN_STRIP, blocks, -(-N // FFN_ROWS), group,
-                   blocks // group, C // group, smem)
+                   blocks // group, C // group, ffn_smem_bytes(C, group))
 
 
 def _launch_ffn(x, w1, b1, w2, b2):
     N, C = x.shape
     F = w1.shape[1]
+    sms = _build.sms_of(x.device)
+    ok, why = admits_ffn(x.dtype, N, C, F, sms)
+    _build.require(ok, why)
     _check_inputs("decode_ffn_block", (x, w1, b1, w2, b2),
                   [(N, C), (C, F), (F,), (F, C), (C,)])
     _build.require(all(t.data_ptr() % 16 == 0 for t in (x, w1, w2, b2)),
                    "decode_ffn_block: x, w1, w2 and b2 must be 16-byte"
                    " aligned")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = ffn_plan(N, C, F, sms)
     fn = _build.function("nic_decode_ffn_block", _FFN_ARGTYPES)
     counters = _ffn_counters.get(x.device)

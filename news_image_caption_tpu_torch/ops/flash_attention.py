@@ -34,7 +34,7 @@ the value product, ds rounded to it before the dq / dk products.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -134,6 +134,18 @@ class FlashPlan(NamedTuple):
     parts_floats: int       # fp32 scratch of the backward where t_tiles > 1
 
 
+def admits(dtype, head_dim: int) -> Tuple[bool, str]:
+    """Whether the flash kernels take q/k/v of `dtype` with this head
+    size, and if not, why. (They take any T and S.)"""
+    if dtype != torch.bfloat16:
+        return False, ("flash attention kernels take bf16 q/k/v, an fp32"
+                       " bias and an int32 seed of one element")
+    if head_dim not in HEAD_DIMS:
+        return False, (f"flash attention: the kernels take a head size E /"
+                       f" num_heads in {HEAD_DIMS}, got {head_dim}")
+    return True, ""
+
+
 def flash_smem_bytes(backward: bool, stages: int, head_dim: int) -> int:
     """Dynamic shared memory of a block (csrc/flash_attention.cu::
     flash_smem_bytes): the q tile, in the backward the g tile, the
@@ -172,9 +184,7 @@ def flash_plan(B: int, T: int, S: int, num_heads: int, head_dim: int,
                    and sms >= 1,
                    f"flash attention: need B, T, S >= 1, got B={B}, T={T},"
                    f" S={S}")
-    _build.require(head_dim in HEAD_DIMS,
-                   f"flash attention: the kernels take a head size E /"
-                   f" num_heads in {HEAD_DIMS}, got {head_dim}")
+    _build.require(*admits(torch.bfloat16, head_dim))
     t_tiles, key_tiles = -(-T // ROWS), -(-S // KEYS)
     _build.require(B <= MAX_GRID_YZ and t_tiles <= MAX_GRID_YZ,
                    f"flash attention: B and T / {ROWS} may be at most"
@@ -330,7 +340,10 @@ def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
     """Raise for what the kernels do not take; else the call's plan."""
     B, T, E = q.shape
     S = k.shape[1]
-    _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v))
+    _build.require(E % num_heads == 0, f"{name}: E % num_heads != 0")
+    ok, why = admits(q.dtype, E // num_heads)
+    _build.require(ok, f"{name}: {why}")
+    _build.require(k.dtype == q.dtype and v.dtype == q.dtype
                    and bias.dtype == torch.float32
                    and seed.dtype == torch.int32 and seed.numel() == 1,
                    f"{name} kernel takes bf16 q/k/v, an fp32 bias and an"
@@ -341,38 +354,41 @@ def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
     _build.require(all(t.is_contiguous() and t.device == q.device
                        for t in (q, k, v, bias, seed)),
                    f"{name}: inputs must be contiguous, on one device")
-    _build.require(E % num_heads == 0, f"{name}: E % num_heads != 0")
     _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                    f"{name}: q, k and v must be 16-byte aligned")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return flash_plan(B, T, S, num_heads, E // num_heads, sms)
+    return flash_plan(B, T, S, num_heads, E // num_heads,
+                      _build.sms_of(q.device))
 
 
 class _FlashCrossAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep):
-        out, lse = flash_attention_fwd(q, k, v, bias, seed, num_heads,
-                                       dropout_p, keep)
+    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep,
+                plain):
+        fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
+        out, lse = fwd(q, k, v, bias, seed, num_heads, dropout_p, keep)
         ctx.save_for_backward(q, k, v, bias, seed, lse, keep)
-        ctx.num_heads, ctx.dropout_p = num_heads, dropout_p
+        ctx.num_heads, ctx.dropout_p, ctx.plain = num_heads, dropout_p, plain
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, seed, lse, keep = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, bias, seed, lse,
-                                         g.contiguous(), ctx.num_heads,
-                                         ctx.dropout_p, keep)
-        return dq, dk, dv, None, None, None, None, None
+        bwd = flash_attention_bwd_plain if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, bias, seed, lse, g.contiguous(),
+                         ctx.num_heads, ctx.dropout_p, keep)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_cross_attention(q, k, v, bias, seed, num_heads: int,
                           dropout_p: float = 0.0,
-                          keep: Optional[torch.Tensor] = None):
+                          keep: Optional[torch.Tensor] = None,
+                          plain: bool = False):
     """out [B, T, E] = dropout(softmax(q kᵀ + bias)) v per head, with
     kernel forward and backward on CUDA tensors; differentiable in q, k
     and v (bias and seed get no gradient). Arguments as in
-    `flash_attention_fwd_plain`."""
+    `flash_attention_fwd_plain`. `plain` takes the plain forward and
+    backward on any device: the route of a model the kernels do not
+    admit."""
     return _FlashCrossAttention.apply(q, k, v, bias, seed, num_heads,
-                                      dropout_p, keep)
+                                      dropout_p, keep, plain)

@@ -19,7 +19,7 @@ from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_cross_attention, decode_cross_attention_plain)
 from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
     decode_conv_block, decode_conv_block_plain, decode_ffn_block,
-    decode_ffn_block_plain)
+    decode_ffn_block_plain, pack_taps)
 from news_image_caption_tpu_torch.ops.dynamic_conv import (  # noqa: E402
     dynamic_conv, dynamic_conv_plain)
 from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -283,6 +283,243 @@ def test_decode_ffn_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="expected"):
         decode_ffn_block(x, w1, b1, w2, rn(65))
     assert decode_ffn_block.launches == before
+
+
+def _band_case(device, N, V, D=1024, seed=0, dup=()):
+    """x and a table whose rows `dup` (pairs (dst, src)) are copies, so
+    their logits tie exactly."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(N, D, generator=g).bfloat16()
+    table = (torch.randn(V, D, generator=g) * D ** -0.5).bfloat16()
+    for dst, src in dup:
+        table[dst] = table[src]
+    return x.to(device), table.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("N,V,sel", [
+    (16, 5002, 5000), (1, 15000, 15000), (16, 30265, 30265),   # the bands
+    (80, 5002, 5000), (128, 15000, 15000), (130, 700, 700),    # beam rows
+    (5, 63, 63), (16, 64, 64), (17, 65, 60), (32, 16, 16), (33, 200, 17)])
+def test_band_topk_shapes_on_card(cuda_device, N, V, sel, k):
+    """The walking kernel at the flagship's width: the three bands, beam
+    row counts (x resident up to 32 rows, streamed above, two launches
+    above 128), ragged and single tiles, sel_limit < V. Values within
+    one bf16 rounding of a logit, the plain logit at every chosen id
+    equal to the plain value there, lse within fp32 summation order,
+    and a second call bit-equal."""
+    k = min(k, sel)
+    x, table = _band_case(cuda_device, N, V, seed=N + V)
+    before = band_topk_lse.launches
+    vals, ids, lse = band_topk_lse(x, table, k, sel)
+    assert band_topk_lse.launches == before + -(-N // 128)
+    again = band_topk_lse(x, table, k, sel)
+    torch.cuda.synchronize()
+    pv, pi, pl = band_topk_lse_plain(x, table, k, sel)
+    logits = (x.float() @ table.float().T).bfloat16().float()
+    assert bool((ids >= 0).all()) and bool((ids < sel).all())
+    torch.testing.assert_close(vals, pv, atol=0.03125, rtol=0)
+    torch.testing.assert_close(torch.gather(logits, 1, ids.long()), pv,
+                               atol=0.03125, rtol=0)
+    torch.testing.assert_close(lse, pl, atol=1e-3, rtol=1e-4)
+    assert (ids == pi).float().mean().item() >= 0.9
+    for a, b in zip((vals, ids, lse), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [3, 40])
+def test_band_topk_ties_go_to_the_lowest_id_on_card(cuda_device, N):
+    """Copies of one table row in the same tile, in another tile of the
+    same block and in other blocks tie exactly; with x = that row they
+    are the largest logits, and the ids come back lowest first. A table
+    of equal rows returns ids 0 .. k - 1."""
+    V, k = 30265, 8
+    src = 20000
+    copies = [7, 70, 64 * 132 + 5, 64 * 133 + 9, 19999, 30264]
+    x, table = _band_case(cuda_device, N, V, seed=1,
+                          dup=[(c, src) for c in copies])
+    x[:] = table[src] * 8
+    vals, ids, _ = band_topk_lse(x, table, k)
+    pv, pi, _ = band_topk_lse_plain(x, table, k)
+    torch.cuda.synchronize()
+    want = sorted(copies + [src])
+    assert ids[:, :7].tolist() == [want] * N == pi[:, :7].tolist()
+    torch.testing.assert_close(vals, pv, atol=0.0625, rtol=0)
+    flat = table[:1].expand(V, -1).contiguous()
+    vals, ids, lse = band_topk_lse(x, flat, k, 9000)
+    assert ids.tolist() == [list(range(k))] * N
+    pv, pi, pl = band_topk_lse_plain(x, flat, k, 9000)
+    torch.testing.assert_close(vals, pv, atol=0.0625, rtol=0)
+    torch.testing.assert_close(lse, pl, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_band_topk_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, table = _band_case(cuda_device, 4, 300, D=128)
+    before = band_topk_lse.launches
+    for args, match in [((x.float(), table.float(), 1), "bf16"),
+                        ((x, table, 17), "1 <= k"),
+                        ((x, table, 5, 4), "1 <= k"),
+                        ((x, table, 1, 301), "sel_limit <= V"),
+                        ((x[:, :96].contiguous(), table[:, :96].contiguous(),
+                          1), "D % 64 == 0"),
+                        ((x, table.T.contiguous().T, 1), "contiguous"),
+                        ((x, table.float(), 1), "x's dtype")]:
+        with pytest.raises(ValueError, match=match):
+            band_topk_lse(*args)
+    assert band_topk_lse.launches == before
+
+
+def _conv_case(device, N, C, H, K, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).bfloat16().to(device)
+
+    return (rn(N, C), rn(K - 1, N, C, scale=0.5), rn(C, 2 * C, scale=C ** -0.5),
+            rn(2 * C, scale=0.05), rn(C, H * K, scale=0.05),
+            rn(C, C, scale=C ** -0.5), rn(C, scale=0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 3, 7, 15, 31, 32])
+@pytest.mark.parametrize("N", [1, 5, 16, 17, 80, 128, 150])
+def test_decode_conv_block_shapes_on_card(cuda_device, N, K):
+    """The one-launch kernel at the flagship's width for every tap count
+    class (8, 16, 32 padded taps), 1 to 16 rows, row tiles inside the
+    launch (17, 80, 128 rows) and a second launch (150),
+    at t before, at and past the ring's filling, with the packed taps
+    and without: within the reference tests' bf16 tolerances of the
+    plain version, and bit-equal on a second call."""
+    H = 16
+    x, cache, w1, b1, wl, w2, b2 = _conv_case(cuda_device, N, 1024, H, K,
+                                              seed=N + K)
+    taps = pack_taps(wl, H)
+    for t in (0, K - 2, 2 * K + 3):
+        args = (x, cache, t, w1, b1, wl, w2, b2, H)
+        before = decode_conv_block.launches
+        y, h = decode_conv_block(*args, taps=taps)
+        assert decode_conv_block.launches == before + -(-N // 128)
+        y2, h2 = decode_conv_block(*args)
+        torch.cuda.synchronize()
+        py, ph = decode_conv_block_plain(*args)
+        torch.testing.assert_close(h.float(), ph.float(), atol=0.02, rtol=0.02)
+        torch.testing.assert_close(y.float(), py.float(), atol=0.05, rtol=0.05)
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,H,K", [(5, 64, 4, 7), (16, 256, 2, 5),
+                                     (3, 512, 32, 31), (16, 128, 1, 16)])
+def test_decode_conv_block_small_widths_on_card(cuda_device, N, C, H, K):
+    x, cache, w1, b1, wl, w2, b2 = _conv_case(cuda_device, N, C, H, K, seed=C)
+    args = (x, cache, 4, w1, b1, wl, w2, b2, H)
+    y, h = decode_conv_block(*args)
+    torch.cuda.synchronize()
+    py, ph = decode_conv_block_plain(*args)
+    torch.testing.assert_close(h.float(), ph.float(), atol=0.02, rtol=0.02)
+    torch.testing.assert_close(y.float(), py.float(), atol=0.05, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_decode_conv_block_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, cache, w1, b1, wl, w2, b2 = _conv_case(cuda_device, 4, 64, 4, 7)
+    before = decode_conv_block.launches
+    ok = (x, cache, 0, w1, b1, wl, w2, b2, 4)
+    f32 = tuple(a.float() if isinstance(a, torch.Tensor) else a for a in ok)
+    for args, match in [
+            (f32, "bf16"),
+            ((x, cache, -1, w1, b1, wl, w2, b2, 4), "t >= 0"),
+            ((x, cache, 0, w1, b1, wl[:, :4].contiguous(), w2, b2, 4),
+             "2 <= K <= 32"),
+            ((x, cache, 0, w1, b1, wl, w2, b2, 7), "head size"),
+            ((x, cache[:, :3].contiguous(), 0, w1, b1, wl, w2, b2, 4),
+             "expected"),
+            ((x, cache, 0, w1.T.contiguous().T, b1, wl, w2, b2, 4),
+             "expected|contiguous")]:
+        with pytest.raises(ValueError, match=match):
+            decode_conv_block(*args)
+    big = _conv_case(cuda_device, 2, 2048, 16, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_conv_block(big[0], big[1], 0, *big[2:], 16)
+    assert decode_conv_block.launches == before
+
+
+@pytest.mark.cuda
+def test_fp32_tiny_model_decodes_on_card_through_plain_routes(cuda_device):
+    """A model no kernel admits (fp32, embed 16, 4 heads, ffn 32, a
+    pointwise layer) decodes on the card: every route is "plain", no
+    kernel launches, and the tokens equal the CPU's."""
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+
+    cfg = dict(vocab_size=64, embed_dim=16, ffn_dim=32, num_heads=4,
+               num_layers=2, kernel_sizes=(1, 3), cutoff=(16, 32, 64),
+               image_dim=16, article_dim=12, max_positions=64)
+    cpu = TransformerFlattened(device="cpu", dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(0),
+                               **cfg)
+    gpu = TransformerFlattened(device=cuda_device, dtype=torch.float32, **cfg)
+    gpu.decoder.load_state_dict(cpu.decoder.state_dict())
+    weights = gpu.decoder.decode_weights()
+    assert {r.route for r in weights.routes.values()} == {"plain"}
+    g = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randn(3, 4, 16, generator=g),
+             "article": torch.randn(3, 16, 12, generator=g),
+             "image_mask": torch.zeros(3, 4, dtype=torch.bool),
+             "article_mask": torch.zeros(3, 16, dtype=torch.bool)}
+    counted = (band_topk_lse, decode_cross_attention, decode_conv_block,
+               decode_ffn_block)
+    before = [fn.launches for fn in counted]
+    gen = GenerationConfig(max_len=8)
+    got, got_lp = gpu.generate({k: v.to(cuda_device) for k, v in batch.items()},
+                               gen, weights)
+    want, want_lp = cpu.generate(batch, gen)
+    assert [fn.launches for fn in counted] == before
+    assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(got_lp.cpu(), want_lp, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiny_model_trains_on_card_through_the_plain_flash_route(cuda_device,
+                                                                 dtype):
+    """The widths of configs/tiny_test.yaml with use_flash_train, in fp32
+    and in bf16 (heads of 4: no flash kernel takes them): the attention's
+    route is "plain", three train steps on the card give finite losses,
+    none is skipped and no flash kernel launches."""
+    from news_image_caption_tpu_torch.data.synthetic import (
+        SyntheticNewsDataset, to_device)
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    from news_image_caption_tpu_torch.training.optim import make_bert_adam
+    from news_image_caption_tpu_torch.training.train_step import (
+        create_o2_train_state, make_train_step)
+
+    model = TransformerFlattened(
+        device=cuda_device, dtype=dtype, use_flash_train=True,
+        generator=torch.Generator(device=cuda_device).manual_seed(0),
+        vocab_size=64, embed_dim=16, ffn_dim=32, num_heads=4, num_layers=2,
+        kernel_sizes=(3, 5), cutoff=(16, 32, 64), image_dim=16,
+        article_dim=12, max_positions=64)
+    assert model.decoder.flash_route.route == "plain"
+    ds = SyntheticNewsDataset(size=4, seed=0, vocab_size=64, caption_len=12,
+                              article_len=16, n_patches=4, image_dim=16,
+                              article_dim=12)
+    batch = to_device(next(ds.batches(4, shuffle=False)), cuda_device)
+    tx = make_bert_adam(1e-3, 10)
+    state = create_o2_train_state(model.decoder, tx)
+    step = make_train_step(model.loss_fn, tx, compute_dtype=dtype)
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    for _ in range(3):
+        state, m = step(state, batch, 0)
+        assert bool(torch.isfinite(m["loss"])) and m["skipped"] == 0
+    assert (flash_attention_fwd.launches,
+            flash_attention_bwd.launches) == before
 
 
 def _flash_case(device, B, T, S, E, seed):
