@@ -1,7 +1,7 @@
 // The conv block of a decode step of the dynamic-conv decoder layer,
 // for one new token per row: linear1 -> GLU -> tap softmax -> ring
-// combine -> linear2 + residual. One launch for up to 128 rows, 16 at a
-// time. (The layer's FFN block has its own source, decode_ffn.cu.)
+// combine -> linear2 + residual. One launch for up to 128 rows, in tiles
+// of 16. (The layer's FFN block has its own source, decode_ffn.cu.)
 //
 // Replaces: news_image_caption_tpu/ops/pallas_decode.py
 // decode_conv_block (_conv_block_kernel).
@@ -40,10 +40,11 @@
 //     four blocks of a head each compute that head's tap logits and
 //     softmax; the ring combine is elementwise in the block that owns
 //     the channels, history summed in fp32 in tap order, rounded once.
-//   - More than 16 rows (a beam step) stay in the launch: the weights
-//     and taps stay in shared memory and the blocks go through the rows 16
-//     at a time, the same two waits a tile (the barrier counters count
-//     on), so only the first tile pays the launch and the 6.5 MB.
+//   - More than 16 rows (a beam step) stay in the launch, with the same
+//     two waits: every stage walks the row tiles, 16 rows at a time, over
+//     the weights and taps in shared memory. Where the card holds them,
+//     `groups` sets of C / 16 blocks share the tiles (group g takes tiles
+//     g, g + groups, ...), each set with the weights of its own.
 // Every sum has a fixed order: the result is the same on every run.
 // Shared memory holds w1 and w2 as they lie in device memory ([k][n], n
 // contiguous), the 16-byte chunks of a row XOR-swizzled by row so the
@@ -108,10 +109,12 @@ __device__ __forceinline__ void store_part(float* part, const float (&acc)[4],
   *reinterpret_cast<float2*>(at + 8 * ncols) = make_float2(acc[2], acc[3]);
 }
 
-// grid = C / 16 blocks, launched cooperatively. taps [H][kp][C] bf16 is
-// the packed tap predictor (taps >= K zero); cache [K - 1][n_total][C]
-// with this launch's rows first; hconv [16][C] bf16 is scratch; counters [1 + 2 * 2] are the barriers'
-// (barrier_set_begin, common.cuh), which count on from tile to tile.
+// grid = groups * C / 16 blocks, launched cooperatively; block b owns the
+// channel strip b % (C / 16) for the row tiles of group b / (C / 16).
+// taps [H][kp][C] bf16 is the packed tap predictor (taps >= K zero);
+// cache [K - 1][n_total][C] with this launch's rows first; hconv [N][C]
+// bf16 is scratch; counters [1 + 2 * 2] are the barriers'
+// (barrier_set_begin, common.cuh).
 __global__ void __launch_bounds__(CB_THREADS, 1)
 decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
                    const bf16* __restrict__ w1, const bf16* __restrict__ b1,
@@ -121,10 +124,13 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
                    int n_total, int C, int H, int K, int kp, int t) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int strip = blockIdx.x, ch0 = strip * CB_STRIP;
+  const int strips = C / CB_STRIP, strip = blockIdx.x % strips;
+  const int group = blockIdx.x / strips, groups = gridDim.x / strips;
+  const int ch0 = strip * CB_STRIP;
   const int head = ch0 / (C / H), Km1 = K - 1;
   const int a_stride = (C + 8) * 2;     // bytes
   const int cpr = C / 8;                // 16-byte pieces of a row
+  const int tiles = cdiv(N, CB_ROWS);
 
   unsigned char* w1s = smem;
   unsigned char* w2s = w1s + C * 64;
@@ -142,7 +148,7 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
   unsigned* mine = nullptr;
   if (tid == 0) {
     mbarrier_init_expect(taps_bar, kp * C * 2);
-    mine = barrier_set_begin(counters, 2, strip == 0, launch);
+    mine = barrier_set_begin(counters, 2, blockIdx.x == 0, launch);
   }
   __syncthreads();
 
@@ -160,12 +166,15 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
                  src + (size_t)(row0 + rr) * C + c * 8);
     }
   };
-  // A tile's x (rows past the last as zeros) and the block's channels of
-  // its ring rows, tap k's row (slot (t + k) mod (K - 1)) at index k.
-  auto load_tile = [&](int row0, int rows) {
+  // A tile's x, rows past the last as zeros.
+  auto load_x = [&](int row0, int rows) {
     for (int i = tid; i < (CB_ROWS - rows) * cpr; i += CB_THREADS)
       zero16(as + (rows + i / cpr) * a_stride + (i % cpr) * 16);
     load_rows(x, row0, rows);
+  };
+  // The block's channels of a tile's ring rows, tap k's row (slot (t + k)
+  // mod (K - 1)) at index k.
+  auto load_ring = [&](int row0, int rows) {
     for (int i = tid; i < Km1 * CB_ROWS * 2; i += CB_THREADS) {
       const int k = i >> 5, rr = (i >> 1) & 15, half = i & 1;
       bf16* dst = cache_s + (k * CB_ROWS + rr) * CB_STRIP + half * 8;
@@ -177,10 +186,14 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
     }
   };
 
-  // Every load, at once. Group 0: the first tile's x and ring rows and
-  // the w1 strip, row k at k * 64 bytes: chunks 0, 1 the `a` columns, 2,
-  // 3 the `g` columns, chunk c at c ^ ((k / 2) % 4).
-  load_tile(0, min(N, CB_ROWS));
+  // Every load, at once. Group 0 of the copies: the first tile's x and
+  // ring rows and the w1 strip, row k at k * 64 bytes: chunks 0, 1 the `a`
+  // columns, 2, 3 the `g` columns, chunk c at c ^ ((k / 2) % 4).
+  {
+    const int row0 = group * CB_ROWS;
+    load_x(row0, min(CB_ROWS, N - row0));
+    load_ring(row0, min(CB_ROWS, N - row0));
+  }
   for (int i = tid; i < C * 4; i += CB_THREADS) {
     const int k = i >> 2, c = i & 3;
     const int col = (c < 2 ? 0 : C - 2 * 8) + ch0 + c * 8;
@@ -202,22 +215,21 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
   cp_async_commit();
   NIC_PHASE(0);   // loads issued
 
-  const int tiles = cdiv(N, CB_ROWS);
-  for (int tile = 0; tile < tiles; ++tile) {
+  // The stamps inside a stage's walk are those of the block's last tile.
+  // Stage 1, linear1 and the GLU: 4 column tiles (a, a, g, g) x 2 halves
+  // of K.
+  for (int tile = group; tile < tiles; tile += groups) {
     const int row0 = tile * CB_ROWS, rows = min(CB_ROWS, N - row0);
-    const unsigned arrived = gridDim.x * (unsigned)(tile + 1);
-    if (tile == 0) {
+    if (tile == group) {
       cp_async_wait<1>();        // w2 may still be on its way
     } else {
       __syncthreads();           // the last tile's reads are done
-      load_tile(row0, rows);
+      load_x(row0, rows);
       cp_async_commit();
       cp_async_wait<0>();
     }
     __syncthreads();
     NIC_PHASE(1);   // x and w1 landed
-
-    // linear1: 4 column tiles (a, a, g, g) x 2 halves of K.
     {
       float acc[4] = {};
       const int nt = warp & 3, kpart = warp >> 2;
@@ -228,27 +240,29 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
       store_part(part, acc, kpart, nt, 32);
     }
     __syncthreads();
-    const float xres =
-        to_f(*reinterpret_cast<const bf16*>(as + r * a_stride + (ch0 + j) * 2));
-    float hval;
-    {
-      const float* p0 = part + r * 32, * p1 = part + (CB_ROWS + r) * 32;
-      const float a = rbf(rbf(p0[j] + p1[j]) + b1a);
-      const float gate = rbf(rbf(p0[16 + j] + p1[16 + j]) + b1g);
-      hval = rbf(a * rbf(1.f / (1.f + expf(-gate))));
-      if (r < rows) h_out[(size_t)(row0 + r) * C + ch0 + j] = to_bf(hval);
-    }
+    const float* p0 = part + r * 32, * p1 = part + (CB_ROWS + r) * 32;
+    const float a = rbf(rbf(p0[j] + p1[j]) + b1a);
+    const float gate = rbf(rbf(p0[16 + j] + p1[16 + j]) + b1g);
+    if (r < rows)
+      h_out[(size_t)(row0 + r) * C + ch0 + j] =
+          to_bf(a * rbf(1.f / (1.f + expf(-gate))));
     NIC_PHASE(2);   // linear1, GLU
-    blocks_barrier(mine, arrived);
-    NIC_PHASE(3);   // every block's h is in device memory
+  }
+  blocks_barrier(mine, gridDim.x);
+  NIC_PHASE(3);   // every block's h is in device memory
+
+  // Stage 2, the head's tap weights and the ring combine.
+  for (int tile = group; tile < tiles; tile += groups) {
+    const int row0 = tile * CB_ROWS, rows = min(CB_ROWS, N - row0);
+    __syncthreads();
     load_rows(h_out, row0, rows);
+    if (tile != group) load_ring(row0, rows);
     cp_async_commit();
     cp_async_wait<0>();          // h, and long since w2 and the ring rows
     mbarrier_wait(taps_bar);
     __syncthreads();
     NIC_PHASE(4);   // h and the taps landed
-
-    // The head's tap logits: kp / 8 tiles, K split among the other warps.
+    // The tap logits: kp / 8 tiles, K split among the other warps.
     {
       const int ntiles = kp / 8, kparts = CB_WARPS / ntiles;
       float acc[4] = {};
@@ -280,21 +294,27 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
       float hist = 0.f;
       for (int k = 0; k < Km1; ++k)
         hist = fmaf(p[k], to_f(cache_s[(k * CB_ROWS + r) * CB_STRIP + j]), hist);
-      const float cur = rbf(p[Km1] * hval);
-      if (r < rows) hconv[(size_t)r * C + ch0 + j] = to_bf(rbf(hist) + cur);
+      const float hval =
+          to_f(*reinterpret_cast<const bf16*>(as + r * a_stride + (ch0 + j) * 2));
+      if (r < rows)
+        hconv[(size_t)(row0 + r) * C + ch0 + j] =
+            to_bf(rbf(hist) + rbf(p[Km1] * hval));
     }
     NIC_PHASE(6);   // ring combine
-    blocks_barrier(mine + 1, arrived);
-    if (tid == 0 && strip == 0 && tile == tiles - 1)
-      barrier_set_end(counters, launch);
-    NIC_PHASE(7);   // every block's conv output is in device memory
-    load_rows(hconv, 0, rows);
+  }
+  blocks_barrier(mine + 1, gridDim.x);
+  if (tid == 0 && blockIdx.x == 0) barrier_set_end(counters, launch);
+  NIC_PHASE(7);   // every block's conv output is in device memory
+
+  // Stage 3, linear2 and the residual: 2 column tiles x 4 quarters of K.
+  for (int tile = group; tile < tiles; tile += groups) {
+    const int row0 = tile * CB_ROWS, rows = min(CB_ROWS, N - row0);
+    __syncthreads();
+    load_rows(hconv, row0, rows);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     NIC_PHASE(8);   // the conv output landed
-
-    // linear2: 2 column tiles x 4 quarters of K.
     {
       float acc[4] = {};
       const int nt = warp & 1, kpart = warp >> 1;
@@ -309,7 +329,8 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
       float sum = 0.f;
 #pragma unroll
       for (int p = 0; p < 4; ++p) sum += part[(p * CB_ROWS + r) * 16 + j];
-      y[(size_t)(row0 + r) * C + ch0 + j] = to_bf(rbf(rbf(sum) + b2v) + xres);
+      const size_t at = (size_t)(row0 + r) * C + ch0 + j;
+      y[at] = to_bf(rbf(rbf(sum) + b2v) + to_f(x[at]));
     }
     NIC_PHASE(9);   // y written
   }
@@ -326,21 +347,24 @@ NIC_DEFINE_PHASE_READER(nic_decode_conv_phases)
 // bf16, 16-byte aligned. C % 16 == 0 and (C / H) % 16 == 0; `smem` is the
 // kernel's dynamic shared memory as the caller planned it, which must
 // equal conv_block_smem_bytes(C, kp). The C / 16 blocks must fit on the
-// card together, or the launch fails. Scratch: hconv [16, C] bf16;
-// counters [5] unsigned ints, zeroed once and then left to the kernel's
-// launches, which must follow one another. Returns a cudaError_t.
+// card together, `groups` (at most the row tiles) times, or the launch
+// fails. Scratch: hconv [N, C] bf16; counters [5] unsigned ints, zeroed
+// once and then left to the kernel's launches, which must follow one
+// another. Returns a cudaError_t.
 extern "C" int nic_decode_conv_block(const void* x, const void* cache,
                                      const void* w1, const void* b1,
                                      const void* taps, const void* w2,
                                      const void* b2, void* h, void* hconv,
                                      void* y, void* counters, int N,
                                      int n_total, int C, int H, int K, int kp,
-                                     int t, int smem, void* stream) {
+                                     int t, int groups, int smem,
+                                     void* stream) {
   using nic::bf16;
   if (N < 1 || N > nic::CB_MAX_ROWS || n_total < N || K < 2 ||
       K > nic::CB_MAX_TAPS || (kp != 8 && kp != 16 && kp != 32) || kp < K ||
       H < 1 || C < 16 || C % 16 != 0 || C % H != 0 || (C / H) % 16 != 0 ||
-      t < 0 || smem != nic::conv_block_smem_bytes(C, kp) ||
+      t < 0 || groups < 1 || groups > nic::cdiv(N, nic::CB_ROWS) ||
+      smem != nic::conv_block_smem_bytes(C, kp) ||
       smem > nic::MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -348,7 +372,7 @@ extern "C" int nic_decode_conv_block(const void* x, const void* cache,
   if (err != cudaSuccess) return (int)err;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C / nic::CB_STRIP);
+  cfg.gridDim = dim3(groups * (C / nic::CB_STRIP));
   cfg.blockDim = dim3(nic::CB_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;

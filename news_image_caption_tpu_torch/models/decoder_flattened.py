@@ -26,41 +26,32 @@ The decode step runs the port's kernels: `decode_conv_block`,
 and `band_topk_lse` (inside `topk_log_prob`). Their weights, with the
 weight norm folded and cast to the working dtype, come from
 `DynamicConvDecoder.decode_weights()`, computed once per model load
-rather than once per step. It also asks each kernel once whether it
-admits the model's dtype and widths (`admits*` of the ops modules) and
-records the answer as the op's route: "kernel", or "plain" with the
-reason, for which the step takes the op's plain PyTorch version on any
-device (an fp32 model, narrow widths, a pointwise conv layer). The route
-depends on the dtype and the shapes only; a kernel that fails to build
-or launch raises.
+rather than once per step. Each wrapper takes its plain PyTorch version
+on CPU tensors; on the card it launches its kernel or raises, so a model
+the kernels do not admit (fp32, narrow widths, a pointwise conv layer:
+`admits*` of the ops modules say why) decodes on the CPU only.
 """
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from news_image_caption_tpu_torch.ops import (_build, band_topk,
-                                              decode_attention)
 from news_image_caption_tpu_torch.ops.adaptive import (AdaptiveEmbedding,
                                                        AdaptiveSoftmax)
 from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
                                                         MultiHeadAttention)
 from news_image_caption_tpu_torch.ops.conv import DynamicConv
 from news_image_caption_tpu_torch.ops.decode_blocks import (
-    admits_conv, admits_ffn, decode_conv_block, decode_conv_block_plain,
-    decode_ffn_block, decode_ffn_block_plain, pack_taps)
+    decode_conv_block, decode_ffn_block, pack_taps)
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import GehringLinear, LayerNorm
 from news_image_caption_tpu_torch.ops.positional import \
     SinusoidalPositionalEmbedding
 
 LayerKV = Dict[str, AttentionKV]
-Routes = Dict[str, _build.Route]
-logger = logging.getLogger(__name__)
 
 
 class LayerDecodeWeights(NamedTuple):
@@ -69,7 +60,7 @@ class LayerDecodeWeights(NamedTuple):
     conv_w1: torch.Tensor      # [D, 2C]
     conv_b1: torch.Tensor
     conv_wl: torch.Tensor      # [C, H*K], head-major tap predictor
-    conv_taps: Optional[torch.Tensor]   # pack_taps(conv_wl) for the kernel
+    conv_taps: torch.Tensor    # pack_taps(conv_wl), as the kernel reads it
     conv_w2: torch.Tensor      # [C, D]
     conv_b2: torch.Tensor
     context_w: torch.Tensor    # [n_contexts * D, D]
@@ -78,15 +69,11 @@ class LayerDecodeWeights(NamedTuple):
     ffn_b1: torch.Tensor
     ffn_w2: torch.Tensor       # [F, D]
     ffn_b2: torch.Tensor
-    # Route of decode_conv_block, decode_cross_attention, decode_ffn_block.
-    routes: Routes
 
 
 class DecodeWeights(NamedTuple):
     layers: List[LayerDecodeWeights]
     head_table: torch.Tensor   # [cutoff0 + n_tails, D]
-    # Route of every op of the step: "layers.<i>.<op>" and "band_topk_lse".
-    routes: Routes
 
 
 class SumEmbedder(nn.Module):
@@ -184,56 +171,32 @@ class DynamicConvDecoderLayer(nn.Module):
         return self.final_layer_norm(x + y)
 
     def decode_weights(self, dtype: torch.dtype) -> LayerDecodeWeights:
-        """The layer's fused weights and the routes of its three ops,
-        each kernel asked once (at one row; the answer does not depend
-        on the batch)."""
         w1, b1 = self.linear1.folded(dtype)
         w2, b2 = self.linear2.folded(dtype)
         cw, cb = self.context_fc.folded(dtype)
         f1, fb1 = self.fc1.folded(dtype)
         f2, fb2 = self.fc2.folded(dtype)
         wl = self.conv.weight_linear.kernel.to(dtype).contiguous()
-        D, H, K = w1.shape[0], self.num_heads, self.kernel_size
-        sms = _build.sms_of(w1.device)
-        routes = {
-            "decode_conv_block": (
-                _build.Route("plain", "pointwise") if K == 1 else
-                _build.route_of(admits_conv(dtype, 1, D, H, K, sms))),
-            "decode_cross_attention": _build.route_of(
-                decode_attention.admits(dtype, 1, D // H)),
-            "decode_ffn_block": _build.route_of(
-                admits_ffn(dtype, 1, D, f1.shape[1], sms)),
-        }
-        taps = (pack_taps(wl, H)
-                if routes["decode_conv_block"].route == "kernel" else None)
-        return LayerDecodeWeights(w1, b1, wl, taps, w2, b2, cw, cb, f1, fb1,
-                                  f2, fb2, routes)
+        return LayerDecodeWeights(w1, b1, wl, pack_taps(wl, self.num_heads),
+                                  w2, b2, cw, cb, f1, fb1, f2, fb2)
 
     def step(self, x_t: torch.Tensor, kv: LayerKV, cache: torch.Tensor,
              t: int, w: LayerDecodeWeights, beam: int = 1) -> torch.Tensor:
         """One decode step, x_t [B*beam, D]. cache [K-1, B*beam, C] is
         the ring-major conv history; the GLU row of step t is written
         into slot t mod (K-1) in place (a pointwise layer, K = 1, has an
-        empty one). Each op follows its route in `w.routes`."""
-        conv_args = (x_t, cache, t, w.conv_w1, w.conv_b1, w.conv_wl,
-                     w.conv_w2, w.conv_b2, self.num_heads)
-        if w.routes["decode_conv_block"].route == "plain":
-            y, h = decode_conv_block_plain(*conv_args)
-        else:
-            y, h = decode_conv_block(*conv_args, taps=w.conv_taps)
+        empty one)."""
+        y, h = decode_conv_block(x_t, cache, t, w.conv_w1, w.conv_b1,
+                                 w.conv_wl, w.conv_w2, w.conv_b2,
+                                 self.num_heads, taps=w.conv_taps)
         if self.kernel_size > 1:
             cache[t % (self.kernel_size - 1)] = h
         x = self.conv_layer_norm(y)
-        attn_route = w.routes["decode_cross_attention"].route
         parts = [self._attn_ln(name)(
-                     x + self._attn(name).attend_flat_beam(x, kv[name], beam,
-                                                           attn_route))
+                     x + self._attn(name).attend_flat_beam(x, kv[name], beam))
                  for name in self.context_names]
         x = torch.cat(parts, dim=-1) @ w.context_w + w.context_b
-        ffn = (decode_ffn_block_plain
-               if w.routes["decode_ffn_block"].route == "plain"
-               else decode_ffn_block)
-        y = ffn(x, w.ffn_w1, w.ffn_b1, w.ffn_w2, w.ffn_b2)
+        y = decode_ffn_block(x, w.ffn_w1, w.ffn_b1, w.ffn_w2, w.ffn_b2)
         return self.final_layer_norm(y)
 
 
@@ -281,13 +244,6 @@ class DynamicConvDecoder(nn.Module):
                 use_flash_train=use_flash_train, **kw)
             for k in kernel_sizes)
         self.adaptive_softmax = AdaptiveSoftmax(embed_dim, cutoff, **kw)
-        # Every context attention has the same dtype and head size.
-        self.flash_route = (self.layers[0]._attn("image").flash_route
-                            if use_flash_train and num_layers else None)
-        if self.flash_route is not None:
-            logger.info("flash attention route: %s%s", self.flash_route.route,
-                        f" ({self.flash_route.reason})"
-                        if self.flash_route.reason else "")
 
     def precompute_kv(self, contexts: Dict[str, Optional[torch.Tensor]]
                       ) -> List[LayerKV]:
@@ -334,30 +290,14 @@ class DynamicConvDecoder(nn.Module):
                 for k in self.kernel_sizes]
 
     def decode_weights(self) -> DecodeWeights:
-        """The step's fused weights and the route of each of its ops
-        (logged in one line); compute once per model load."""
+        """The step's fused weights; compute once per model load."""
         with torch.no_grad():
             tables = self.embedder.embed_tables()
-            layers = [layer.decode_weights(self.dtype)
-                      for layer in self.layers]
-            head_table = self.adaptive_softmax.head_table(tables, self.dtype)
-        routes = {f"layers.{i}.{op}": route
-                  for i, w in enumerate(layers)
-                  for op, route in w.routes.items()}
-        # One answer for the head: the kernel takes every band or none.
-        bands = [(head_table.shape[0], self.adaptive_softmax.cutoff[0])]
-        bands += [(t.shape[0], t.shape[0]) for t, _ in tables[1:]]
-        refusals = [why for ok, why in (
-            band_topk.admits(self.dtype, 1, self.embed_dim, V, 1, sel)
-            for V, sel in bands) if not ok]
-        routes["band_topk_lse"] = _build.route_of((not refusals,
-                                                   "; ".join(refusals[:1])))
-        plain = {op: r.reason for op, r in routes.items()
-                 if r.route == "plain"}
-        logger.info("decode routes: %d kernel, %d plain%s",
-                    len(routes) - len(plain), len(plain),
-                    "".join(f"; {op}: {why}" for op, why in plain.items()))
-        return DecodeWeights(layers, head_table, routes)
+            return DecodeWeights(
+                layers=[layer.decode_weights(self.dtype)
+                        for layer in self.layers],
+                head_table=self.adaptive_softmax.head_table(tables,
+                                                            self.dtype))
 
     def step_topk(self, token_t: torch.Tensor, step_idx: int,
                   kvs: List[LayerKV], caches: List[torch.Tensor], k: int,
@@ -373,5 +313,4 @@ class DynamicConvDecoder(nn.Module):
                                        weights.layers):
             x = layer.step(x, kv, cache, step_idx, w, beam)
         return self.adaptive_softmax.topk_log_prob(
-            x, k, self.embedder.embed_tables(), weights.head_table,
-            weights.routes["band_topk_lse"].route)
+            x, k, self.embedder.embed_tables(), weights.head_table)

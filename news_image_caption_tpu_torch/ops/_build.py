@@ -26,8 +26,6 @@ import threading
 from pathlib import Path
 from typing import Sequence
 
-from typing import NamedTuple, Tuple
-
 import torch
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -40,8 +38,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 # Shared memory one block of the card can use (csrc/common.cuh).
 MAX_SMEM_BYTES = 232448
-# Multiprocessors of an H100: what a plan is asked for where no card is
-# at hand (a model on the CPU).
+# Multiprocessors of an H100: the card the kernels' `admits` predicates
+# answer for where the caller names none.
 H100_SMS = 132
 
 _lock = threading.Lock()
@@ -149,26 +147,8 @@ def ptxas_info() -> str:
     return "\n".join(out)
 
 
-class Route(NamedTuple):
-    """Which version of an op a model takes: "kernel" (the wrapper: the
-    CUDA kernel on the card) or "plain" (the plain PyTorch version, on
-    any device), and why where it is "plain"."""
-
-    route: str
-    reason: str
-
-
-def route_of(admitted: Tuple[bool, str]) -> Route:
-    """The route that a kernel's `admits(...)` answer gives an op."""
-    ok, reason = admitted
-    return Route("kernel", "") if ok else Route("plain", reason)
-
-
 def sms_of(device) -> int:
-    """Multiprocessors of a CUDA device; an H100's for any other."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return H100_SMS
+    """Multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

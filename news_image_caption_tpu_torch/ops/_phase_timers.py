@@ -120,7 +120,9 @@ def main() -> None:
                FFN_PHASES)
     cw1, cb1 = rn(D, 2 * D, scale=D ** -0.5), rn(2 * D, scale=0.05)
     cw2, cb2 = rn(D, D, scale=D ** -0.5), rn(D, scale=0.05)
-    for N, K in ((16, 31), (16, 3), (1, 31)):
+    # Past 16 rows a stage walks several row tiles and its stamps are the
+    # last tile's: the first phase of a stage then holds the tiles before.
+    for N, K in ((16, 31), (16, 3), (1, 31), (80, 31), (80, 3)):
         x, cache = rn(N, D), rn(K - 1, N, D, scale=0.5)
         wl = rn(D, H * K, scale=0.05)
         taps = decode_blocks.pack_taps(wl, H)
@@ -128,9 +130,10 @@ def main() -> None:
             x, cache, K + 2, cw1, cb1, wl, cw2, cb2, H, taps=taps),
              "nic_decode_conv_phases")
         plan = decode_blocks.conv_block_plan(N, D, H, K, sms)
-        report(f"decode_conv_block N={N} C={D} K={K}",
-               read_stamps("nic_decode_conv_phases"), plan.blocks,
-               CONV_PHASES)
+        report(f"decode_conv_block N={N} C={D} K={K} ({plan.groups} groups"
+               f" share {plan.row_tiles} row tiles)",
+               read_stamps("nic_decode_conv_phases"),
+               plan.blocks * plan.groups, CONV_PHASES)
     for N, V, k in ((16, 5002, 1), (16, 30265, 1), (16, 30265, 5),
                     (80, 30265, 5)):
         x, table = rn(N, D), rn(V, D, scale=D ** -0.5)

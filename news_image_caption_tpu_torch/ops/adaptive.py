@@ -18,7 +18,6 @@ import torch
 from torch import nn
 
 from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
-                                                        band_topk_lse_plain,
                                                         stable_topk)
 from news_image_caption_tpu_torch.ops.linear import initializes, new_param
 
@@ -171,25 +170,22 @@ class AdaptiveSoftmax(nn.Module):
         return torch.cat([embed_tables[0][0].to(dtype),
                           self.class_proj.to(dtype).T], dim=0).contiguous()
 
-    def topk_log_prob(self, x, k: int, embed_tables, head_table=None,
-                      route: str = "kernel"):
+    def topk_log_prob(self, x, k: int, embed_tables, head_table=None):
         """Exact top-k full-vocab log-probs without the [N, V] matrix:
         per band the kernel's top-k and logsumexp, tails shifted by
         their class prior, then a (bands * k)-wide merge. Returns
-        (log_probs [N, k] fp32, token_ids [N, k] int64), best first.
-        `route` is the model's recorded route of `band_topk_lse`
-        ("plain": its plain version on any device)."""
+        (log_probs [N, k] fp32, token_ids [N, k] int64), best first."""
         c0 = self.cutoff[0]
-        band = band_topk_lse_plain if route == "plain" else band_topk_lse
         if head_table is None:
             head_table = self.head_table(embed_tables, x.dtype)
-        hv, hi, lse_h = band(x, head_table, k, sel_limit=c0)
+        hv, hi, lse_h = band_topk_lse(x, head_table, k, sel_limit=c0)
         # Class-slot logits at the kernel's rounding point (x's dtype).
         cls = (x @ self.class_proj.to(x.dtype)).float()
         vals, ids = [hv - lse_h], [hi]
         for i in range(1, len(self.cutoff)):
             h = self.tail_hidden(x, i)
-            tv, ti, lse_t = band(h, embed_tables[i][0].to(h.dtype), k)
+            tv, ti, lse_t = band_topk_lse(h, embed_tables[i][0].to(h.dtype),
+                                          k)
             prior = cls[:, i - 1:i] - lse_h
             vals.append(tv - lse_t + prior)
             ids.append(ti + self.cutoff[i - 1])

@@ -17,9 +17,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from news_image_caption_tpu_torch.ops import _build, flash_attention
-from news_image_caption_tpu_torch.ops.decode_attention import (
-    decode_cross_attention, decode_cross_attention_plain)
+from news_image_caption_tpu_torch.ops.decode_attention import \
+    decode_cross_attention
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.flash_attention import \
     flash_cross_attention
@@ -42,9 +41,7 @@ class MultiHeadAttention(nn.Module):
     """fairseq-style attention with separate key/value input width,
     a learned bias_k/bias_v slot and a zero slot. `dropout` is the
     attention-probability dropout of training; `use_flash` sends the
-    full-sequence path through `flash_cross_attention`: its kernels
-    where they admit the module's dtype and head size, else its plain
-    version, as `flash_route` (asked once, here) says."""
+    full-sequence path through `flash_cross_attention`."""
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: int, *,
                  device, dtype, generator=None, dropout: float = 0.0,
@@ -56,8 +53,6 @@ class MultiHeadAttention(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
-        self.flash_route = _build.route_of(
-            flash_attention.admits(dtype, self.head_dim))
         lin = dict(device=device, dtype=dtype, generator=generator)
         self.q_proj = XavierLinear(embed_dim, embed_dim, **lin)
         self.k_proj = XavierLinear(kdim, embed_dim, **lin)
@@ -111,9 +106,8 @@ class MultiHeadAttention(nn.Module):
                                      device=q.device, dtype=torch.int32)
             else:
                 seed = torch.zeros(1, device=q.device, dtype=torch.int32)
-            out = flash_cross_attention(
-                q.contiguous(), kv.k, kv.v, kv.bias, seed, H, p,
-                plain=self.flash_route.route == "plain")
+            out = flash_cross_attention(q.contiguous(), kv.k, kv.v, kv.bias,
+                                        seed, H, p)
             return self.out_proj(out)
         scores = torch.einsum("bthd,bshd->bhts", q.view(B, T, H, hd),
                               kv.k.view(B, S, H, hd))
@@ -124,16 +118,12 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(B, T, self.embed_dim))
 
     def attend_flat_beam(self, query: torch.Tensor, kv: AttentionKV,
-                         beam: int, route: str = "kernel") -> torch.Tensor:
+                         beam: int) -> torch.Tensor:
         """Single-step attention of query [B*beam, E] (beam-major within
         an item) over kv of the untiled batch B: the beams of one item
-        share its K/V. Returns [B*beam, E]. `route` is the model's
-        recorded route of `decode_cross_attention` ("plain": its plain
-        version on any device)."""
+        share its K/V. Returns [B*beam, E]."""
         BK, E = query.shape
         q = self.q_proj(query) * (self.head_dim ** -0.5)
-        attend = (decode_cross_attention_plain if route == "plain"
-                  else decode_cross_attention)
-        out = attend(q.view(BK // beam, beam, E).contiguous(), kv.k, kv.v,
-                     kv.bias, self.num_heads)
+        out = decode_cross_attention(q.view(BK // beam, beam, E).contiguous(),
+                                     kv.k, kv.v, kv.bias, self.num_heads)
         return self.out_proj(out.view(BK, E))

@@ -5,13 +5,14 @@ the TPU kernels `news_image_caption_tpu/ops/pallas_decode.py::
 decode_conv_block` and `::decode_ffn_block`. At decode batch sizes both
 are bound by one read of their weights per step (6.5 MB for the conv
 block, 16.8 MB for the FFN, bf16, per flagship layer). Both are one
-cooperative launch (the conv block for up to 128 rows, which it takes 16
-at a time; the FFN for up to 16) designed for the H100: every
+cooperative launch (the conv block for up to 128 rows, which every stage
+walks in tiles of 16; the FFN for up to 16) designed for the H100: every
 block requests all its weights at entry and multiplies on the tensor
 cores. The conv block's C / 16 blocks own 16 channels each through
 linear1, the GLU, the ring combine and linear2, compute their head's tap
 weights, and wait for one another twice (h, then the conv output, pass
-through device memory); `conv_block_plan` is its host-side plan and
+through device memory); where the card holds them, several such sets of
+blocks share the row tiles; `conv_block_plan` is its host-side plan and
 `pack_taps` the layout its tap predictor wants. The FFN's blocks own 32
 columns of w1 and a piece of w2; groups of 8 blocks share their strips
 of h, and the groups' partial outputs are added in a fixed order (see
@@ -33,7 +34,7 @@ import torch
 from news_image_caption_tpu_torch.ops import _build
 
 MAX_TAPS = 32
-_CONV_ARGTYPES = [_build.P] * 11 + [_build.I] * 8 + [_build.P]
+_CONV_ARGTYPES = [_build.P] * 11 + [_build.I] * 9 + [_build.P]
 _FFN_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P]
 # The conv block kernel: channels a block, rows of x a tile (the tensor
 # cores' 16-row operand), rows a launch.
@@ -45,7 +46,7 @@ FFN_STRIP, FFN_ROWS, MAX_GROUP = 32, 16, 8
 # and device: a count of launches and two sets of `slots` counters,
 # zeroed here once and then kept by the kernel. Calls on one device share
 # them, so they must follow one another (one stream). The conv block's
-# scratch (its conv output, [16, C]) is kept per (device, C) beside them.
+# scratch (its conv output, [128, C]) is kept per (device, C) beside them.
 _ffn_counters: dict = {}
 _conv_counters: dict = {}
 _conv_scratch: dict = {}
@@ -168,15 +169,17 @@ class ConvBlockPlan(NamedTuple):
     `blocks` owns channels [s * strip, (s + 1) * strip) of linear1 (its
     `a` and `g` columns), of the ring combine and of linear2, all in one
     head, whose `taps` (K padded to 8, 16 or 32) it computes with the
-    other `blocks_per_head - 1` blocks of that head. All blocks are on
-    the card at once; a launch takes up to 128 rows in `row_tiles`
-    tiles of 16 (the weights stay in shared memory), more rows go through
-    `launches` launches."""
+    other `blocks_per_head - 1` blocks of that head. A launch takes up to
+    128 rows in `row_tiles` tiles of 16, which every stage walks over the
+    weights in shared memory; `groups` such sets of blocks, as many as the
+    card holds at once, share the tiles (group g takes tiles g, g +
+    groups, ...). More rows go through `launches` launches."""
 
     strip: int
     blocks: int
     launches: int
     row_tiles: int
+    groups: int
     taps: int
     blocks_per_head: int
     smem_bytes: int
@@ -226,10 +229,13 @@ def conv_block_plan(N: int, C: int, H: int, K: int, sms: int
     ok, why = admits_conv(torch.bfloat16, N, C, H, K, sms)
     _build.require(ok, why)
     taps = _padded_taps(K)
-    return ConvBlockPlan(CONV_STRIP, C // CONV_STRIP, -(-N // CONV_MAX_ROWS),
-                         -(-min(N, CONV_MAX_ROWS) // CONV_ROWS), taps,
-                         C // H // CONV_STRIP,
-                         conv_block_smem_bytes(C, taps))
+    smem = conv_block_smem_bytes(C, taps)
+    blocks = C // CONV_STRIP
+    row_tiles = -(-min(N, CONV_MAX_ROWS) // CONV_ROWS)
+    return ConvBlockPlan(CONV_STRIP, blocks, -(-N // CONV_MAX_ROWS),
+                         row_tiles,
+                         min(row_tiles, _resident_blocks(smem, sms) // blocks),
+                         taps, C // H // CONV_STRIP, smem)
 
 
 def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
@@ -257,17 +263,18 @@ def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
     hconv = _conv_scratch.get((x.device, C))
     if hconv is None:
         hconv = _conv_scratch[(x.device, C)] = torch.empty(
-            CONV_ROWS, C, device=x.device, dtype=x.dtype)
+            CONV_MAX_ROWS, C, device=x.device, dtype=x.dtype)
     h = torch.empty_like(x)
     y = torch.empty_like(x)
     for r0 in range(0, N, CONV_MAX_ROWS):
         rows = min(CONV_MAX_ROWS, N - r0)
+        groups = min(plan.groups, -(-rows // CONV_ROWS))
         _build.check(fn(x[r0:].data_ptr(), cache[:, r0:].data_ptr(),
                         w1.data_ptr(), b1.data_ptr(), taps.data_ptr(),
                         w2.data_ptr(), b2.data_ptr(), h[r0:].data_ptr(),
                         hconv.data_ptr(), y[r0:].data_ptr(),
                         counters.data_ptr(), rows, N, C, H, K, plan.taps, t,
-                        plan.smem_bytes, _build.stream_of(x)),
+                        groups, plan.smem_bytes, _build.stream_of(x)),
                      "decode_conv_block")
         decode_conv_block.launches += 1
     return y, h

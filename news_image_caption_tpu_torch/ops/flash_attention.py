@@ -363,32 +363,28 @@ def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
 class _FlashCrossAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep,
-                plain):
-        fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
-        out, lse = fwd(q, k, v, bias, seed, num_heads, dropout_p, keep)
+    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep):
+        out, lse = flash_attention_fwd(q, k, v, bias, seed, num_heads,
+                                       dropout_p, keep)
         ctx.save_for_backward(q, k, v, bias, seed, lse, keep)
-        ctx.num_heads, ctx.dropout_p, ctx.plain = num_heads, dropout_p, plain
+        ctx.num_heads, ctx.dropout_p = num_heads, dropout_p
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, seed, lse, keep = ctx.saved_tensors
-        bwd = flash_attention_bwd_plain if ctx.plain else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, bias, seed, lse, g.contiguous(),
-                         ctx.num_heads, ctx.dropout_p, keep)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, seed, lse,
+                                         g.contiguous(), ctx.num_heads,
+                                         ctx.dropout_p, keep)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_cross_attention(q, k, v, bias, seed, num_heads: int,
                           dropout_p: float = 0.0,
-                          keep: Optional[torch.Tensor] = None,
-                          plain: bool = False):
+                          keep: Optional[torch.Tensor] = None):
     """out [B, T, E] = dropout(softmax(q kᵀ + bias)) v per head, with
     kernel forward and backward on CUDA tensors; differentiable in q, k
     and v (bias and seed get no gradient). Arguments as in
-    `flash_attention_fwd_plain`. `plain` takes the plain forward and
-    backward on any device: the route of a model the kernels do not
-    admit."""
+    `flash_attention_fwd_plain`."""
     return _FlashCrossAttention.apply(q, k, v, bias, seed, num_heads,
-                                      dropout_p, keep, plain)
+                                      dropout_p, keep)

@@ -121,13 +121,22 @@ def test_conv_block_plan_covers_every_channel_and_tap_once(N, K, sms):
         assert s[0] // R == s[-1] // R
     assert plan.blocks_per_head * H == plan.blocks
     assert plan.taps in (8, 16, 32) and K <= plan.taps < max(2 * K, 9)
-    # Up to 128 rows are one launch, in tiles of 16 rows.
+    # Up to 128 rows are one launch, in tiles of 16 rows, which the
+    # groups of blocks share: group g takes tiles g, g + groups, ...
     assert plan.launches == 1
     assert (plan.row_tiles - 1) * CONV_ROWS < N <= plan.row_tiles * CONV_ROWS
     assert conv_block_plan(300, C, H, K, sms).launches == 3
+    assert 1 <= plan.groups <= plan.row_tiles
+    assert sorted(tile for g in range(plan.groups) for tile in
+                  range(g, plan.row_tiles, plan.groups)) == list(
+                      range(plan.row_tiles))
     assert plan.smem_bytes == conv_block_smem_bytes(C, plan.taps) <= SMEM_LIMIT
-    # Its blocks wait for one another: all must be on the card at once.
-    assert plan.blocks <= sms * (SM_SMEM // (plan.smem_bytes + 1024))
+    # Its blocks wait for one another: all must be on the card at once,
+    # and a further group would not be.
+    resident = sms * (SM_SMEM // (plan.smem_bytes + 1024))
+    assert plan.blocks * plan.groups <= resident
+    assert plan.groups == plan.row_tiles or (
+        plan.blocks * (plan.groups + 1) > resident)
     # The blocks' strips of w1 (a and g columns) and w2 are the matrices
     # once; the packed taps hold every (head, tap, channel) once.
     assert plan.blocks * 3 * plan.strip * C == 3 * C * C
@@ -150,8 +159,10 @@ def test_conv_block_smem_is_the_layout_written_out():
     assert conv_block_smem_bytes(C, taps) == (
         w1 + w2 + acts + tap_rows + parts + ring + weights + 16)
     plan = conv_block_plan(16, C, 16, 31, 132)
-    assert (plan.blocks, plan.blocks_per_head, plan.taps,
-            plan.row_tiles) == (64, 4, 32, 1)
+    assert (plan.blocks, plan.blocks_per_head, plan.taps, plan.row_tiles,
+            plan.groups) == (64, 4, 32, 1, 1)
+    assert conv_block_plan(80, C, 16, 31, 132)[3:5] == (5, 2)
+    assert conv_block_plan(80, C, 16, 31, 108)[3:5] == (5, 1)
     assert 2 * plan.smem_bytes > SMEM_LIMIT           # one block a multiprocessor
 
 

@@ -1,20 +1,17 @@
-"""Which version of each op a model takes: the kernels' `admits`
-predicates, the routes a model records from them, and the models no
-kernel admits (fp32, narrow widths, a pointwise conv layer), on the CPU.
+"""What each kernel admits, and the models no kernel admits (fp32, narrow
+widths, a pointwise conv layer), on the CPU.
 
 Each kernel wrapper has one predicate, `admits(dtype, shapes...) ->
 (bool, reason)`, and its `_launch*` check calls the same predicate: here
 the launch is driven on CPU tensors with the C entry point replaced by a
 stub, over a grid of dtypes and shapes, and must accept exactly what the
-predicate admits, with the predicate's reason where it refuses. A model
-asks each predicate once (`DynamicConvDecoder.decode_weights()`, and the
-attention's `flash_route` at build) and follows the recorded route; a
-decoder with `kernel_sizes=(1, 3)` is held against the JAX decoder
-(weights through `params_from_jax`, fp32: greedy tokens equal, log-probs
-within 2e-4).
+predicate admits, with the predicate's reason where it refuses. Nothing
+gives way to a plain version on the card: a wrapper takes it on CPU
+tensors only, so a model the kernels refuse decodes and trains on the
+CPU, and a decoder with `kernel_sizes=(1, 3)` is held against the JAX
+decoder there (weights through `params_from_jax`, fp32: greedy tokens
+equal, log-probs within 2e-4).
 """
-
-import logging
 
 import numpy as np
 import pytest
@@ -57,6 +54,7 @@ def stub_library(monkeypatch):
     monkeypatch.setattr(_build, "function", lambda name, argtypes:
                         lambda *args: 0)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "sms_of", lambda device: _build.H100_SMS)
 
 
 def launch_outcome(launch, *args):
@@ -149,95 +147,77 @@ def test_attention_admits_is_what_the_launches_accept(stub_library, dtype, Q,
     assert ok == (dtype == torch.bfloat16 and E // H in (16, 32, 64, 128))
 
 
-def test_flagship_routes_are_all_kernels(caplog):
-    """The flagship at bf16 (built without storage): every op of the
-    step and the train step's attention take their kernels, and one line
-    says so."""
-    with caplog.at_level(logging.INFO):
-        dec = DynamicConvDecoder(device="meta", dtype=torch.bfloat16,
-                                 use_flash_train=True, **FLAGSHIP)
-        weights = dec.decode_weights()
-    assert set(weights.routes) == {
-        f"layers.{i}.{op}" for i in range(4)
-        for op in ("decode_conv_block", "decode_cross_attention",
-                   "decode_ffn_block")} | {"band_topk_lse"}
-    assert set(weights.routes.values()) == {_build.Route("kernel", "")}
-    assert dec.flash_route == _build.Route("kernel", "")
+def _model_answers(dtype, cfg, N):
+    """Each decode kernel's and the flash kernels' answer for a model of
+    `cfg` at `dtype` and N rows."""
+    D, H, F = cfg["embed_dim"], cfg["num_heads"], cfg["ffn_dim"]
+    cut = cfg["cutoff"]
+    bands = [(cut[0] + len(cut) - 1, cut[0])] + [
+        (hi - lo, hi - lo) for lo, hi in zip(cut, cut[1:])]
+    return {
+        "decode_conv_block": [decode_blocks.admits_conv(dtype, N, D, H, K)
+                              for K in cfg["kernel_sizes"]],
+        "decode_cross_attention": [decode_attention.admits(dtype, 1, D // H)],
+        "decode_ffn_block": [decode_blocks.admits_ffn(dtype, N, D, F)],
+        "band_topk_lse": [band_topk.admits(dtype, N, D, V, 1, sel)
+                          for V, sel in bands],
+        "flash_attention": [flash_attention.admits(dtype, D // H)]}
+
+
+@pytest.mark.parametrize("N", [1, 16, 80])
+def test_every_kernel_admits_the_flagship(N):
+    """The flagship at bf16, 1 to 80 rows (a beam-5 step of 16): every
+    kernel of the step and of the train step takes it, and its decode
+    weights (built without storage) carry the taps as the kernel reads
+    them."""
+    answers = _model_answers(torch.bfloat16, FLAGSHIP, N)
+    assert all(a == (True, "") for op in answers.values() for a in op)
+    dec = DynamicConvDecoder(device="meta", dtype=torch.bfloat16, **FLAGSHIP)
+    weights = dec.decode_weights()
     assert all(w.conv_taps.shape == (16, taps, 1024)
                for w, taps in zip(weights.layers, (8, 8, 16, 32)))
-    lines = [r.getMessage() for r in caplog.records]
-    assert "decode routes: 13 kernel, 0 plain" in lines
-    assert "flash attention route: kernel" in lines
 
 
 @pytest.mark.parametrize("dtype,cfg,reasons", [
-    (torch.float32, FLAGSHIP, ["bf16"] * 4),
+    (torch.float32, FLAGSHIP, ["bf16"] * 5),
     (torch.bfloat16, TINY, ["head size", "head size", "C % 64 == 0",
-                            "D % 64 == 0"]),
-    (torch.float32, TINY, ["bf16"] * 4)])
-def test_models_no_kernel_admits_report_plain_routes(caplog, dtype, cfg,
-                                                     reasons):
+                            "D % 64 == 0", "head size"]),
+    (torch.float32, TINY, ["bf16"] * 5)])
+def test_models_no_kernel_admits_are_refused_with_the_reason(dtype, cfg,
+                                                             reasons):
     """An fp32 model and the widths of configs/tiny_test.yaml (embed 16,
-    4 heads, ffn 32): every route is "plain", with the kernel's reason."""
-    with caplog.at_level(logging.INFO):
-        dec = DynamicConvDecoder(device="meta", dtype=dtype,
-                                 use_flash_train=True, **cfg)
-        weights = dec.decode_weights()
-    assert {r.route for r in weights.routes.values()} == {"plain"}
-    layer = weights.layers[0]
-    assert layer.conv_taps is None
-    for op, text in zip(("decode_conv_block", "decode_cross_attention",
-                         "decode_ffn_block"), reasons):
-        assert text in layer.routes[op].reason
-    assert reasons[3] in weights.routes["band_topk_lse"].reason
-    assert dec.flash_route.route == "plain"
-    assert reasons[1] in dec.flash_route.reason
-    line = next(r.getMessage() for r in caplog.records
-                if r.getMessage().startswith("decode routes"))
-    assert f"decode routes: 0 kernel, {len(weights.routes)} plain" in line
-    assert weights.routes["band_topk_lse"].reason in line
+    4 heads, ffn 32): every kernel refuses, and says why."""
+    answers = _model_answers(dtype, cfg, 1)
+    for (op, got), text in zip(answers.items(), reasons):
+        assert all(not ok and text in why for ok, why in got), op
 
 
-def test_plain_routes_give_what_the_wrappers_give_on_the_cpu():
-    """On CPU tensors a wrapper takes its plain version, so a model
-    decodes and takes a loss and gradients to the same bits whatever
-    its routes say."""
+def test_tiny_model_decodes_and_trains_on_the_cpu():
+    """On CPU tensors every wrapper takes its plain version, so a model
+    no kernel admits decodes and takes a loss and gradients there, flash
+    attention on, with no launch counted."""
     gen = torch.Generator().manual_seed(0)
     model = TransformerFlattened(device="cpu", dtype=torch.float32,
                                  generator=gen, use_flash_train=True, **TINY)
-    dec = model.decoder
-    weights = dec.decode_weights()
-    kernel = _build.Route("kernel", "")
-    as_kernels = weights._replace(
-        layers=[w._replace(routes={op: kernel for op in w.routes})
-                for w in weights.layers],
-        routes={op: kernel for op in weights.routes})
     g = torch.Generator().manual_seed(1)
     batch = {"image": torch.randn(3, 4, 16, generator=g),
              "article": torch.randn(3, 16, 12, generator=g),
              "image_mask": torch.zeros(3, 4, dtype=torch.bool),
              "article_mask": torch.zeros(3, 16, dtype=torch.bool),
              "caption_ids": torch.randint(2, 64, (3, 12), generator=g)}
-    cfg = GenerationConfig(max_len=8)
-    tok_p, lp_p = model.generate(batch, cfg, weights)
-    tok_k, lp_k = model.generate(batch, cfg, as_kernels)
-    assert torch.equal(tok_p, tok_k) and torch.equal(lp_p, lp_k)
-
-    def loss_and_grads():
-        dec.zero_grad()
-        loss, _ = model.loss_fn(batch, torch.Generator().manual_seed(2))
-        loss.backward()
-        return loss.detach(), [p.grad.clone() for p in dec.parameters()
-                               if p.grad is not None]
-
-    assert dec.flash_route.route == "plain"
-    loss_p, grads_p = loss_and_grads()
-    for layer in dec.layers:
-        for name in layer.context_names:
-            layer._attn(name).flash_route = kernel
-    loss_k, grads_k = loss_and_grads()
-    assert torch.equal(loss_p, loss_k)
-    assert all(torch.equal(a, b) for a, b in zip(grads_p, grads_k))
+    counted = (band_topk.band_topk_lse,
+               decode_attention.decode_cross_attention,
+               decode_blocks.decode_conv_block, decode_blocks.decode_ffn_block,
+               flash_attention.flash_attention_fwd,
+               flash_attention.flash_attention_bwd)
+    before = [fn.launches for fn in counted]
+    tokens, log_probs = model.generate(batch, GenerationConfig(max_len=8))
+    assert tokens.shape == (3, 9) and bool(torch.isfinite(log_probs).all())
+    loss, _ = model.loss_fn(batch, torch.Generator().manual_seed(2))
+    loss.backward()
+    grads = [p.grad for p in model.decoder.parameters() if p.grad is not None]
+    assert grads and all(bool(torch.isfinite(g).all()) for g in grads)
+    assert [fn.launches for fn in counted] == before
 
 
 # -- kernel size 1 -----------------------------------------------------------
@@ -253,9 +233,8 @@ def _np_tree(tree):
 
 @pytest.mark.parametrize("early_exit", [False, True])
 def test_pointwise_layer_decodes_as_jax_does(early_exit):
-    """kernel_sizes = (1, 3): the K = 1 layer has an empty cache and the
-    route "plain" (pointwise); greedy tokens equal JAX's, log-probs
-    within 2e-4."""
+    """kernel_sizes = (1, 3): the K = 1 layer has an empty cache; greedy
+    tokens equal JAX's, log-probs within 2e-4."""
     B, T, P, S = 3, 10, 5, 7
     rng = np.random.RandomState(0)
     caption = rng.randint(2, 120, size=(B, T)).astype(np.int32)
@@ -275,9 +254,6 @@ def test_pointwise_layer_decodes_as_jax_does(early_exit):
     model.decoder.load_state_dict(
         params_from_jax(_np_tree(params), model.decoder))
     weights = model.decoder.decode_weights()
-    assert weights.routes["layers.0.decode_conv_block"] == _build.Route(
-        "plain", "pointwise")
-    assert weights.routes["layers.1.decode_conv_block"].reason != "pointwise"
     caches = model.decoder.init_cache(B, "cpu")
     assert [tuple(c.shape) for c in caches] == [(0, B, 32), (2, B, 32)]
     tbatch = {"image": torch.from_numpy(image),
