@@ -4,12 +4,13 @@ phase.
 It needs only the card, no profiler. It
 builds the kernels with `-DNIC_PHASE_TIMERS`, which turns every
 `NIC_PHASE(i)` marker of `csrc/decode_ffn.cu`, `csrc/decode_blocks.cu`,
-`csrc/band_topk.cu`, `csrc/decode_attention.cu` and
-`csrc/flash_attention.cu` into a stamp
+`csrc/band_topk.cu`, `csrc/decode_attention.cu`,
+`csrc/flash_attention.cu` and `csrc/dynamic_conv.cu` into a stamp
 of the multiprocessor's cycle counter and the card's nanosecond timer
 by thread 0 of every block (`csrc/common.cuh`). It launches each kernel
 once at the flagship's shapes (a decode step's for the decode kernels,
-a train step's for the flash kernels) with the L2 cache flushed, reads
+a train step's for the flash kernels, B=16, T=512 for the dynamic
+conv) with the L2 cache flushed, reads
 the stamps back and prints, for every phase, the mean and the largest
 time a block spent in it, when the blocks started and ended relative to
 the first, and the launch's span. The stamps cost a few hundred cycles a block, so the
@@ -28,7 +29,8 @@ import torch
 
 from news_image_caption_tpu_torch.ops import (_build, band_topk,
                                               decode_attention,
-                                              decode_blocks, flash_attention)
+                                              decode_blocks, dynamic_conv,
+                                              flash_attention)
 
 SLOTS, BLOCKS = 16, 2048        # PHASE_SLOTS, PHASE_BLOCKS of common.cuh
 FFN_PHASES = ["issue loads", "wait x, w1", "fc1", "h, group barrier",
@@ -45,6 +47,9 @@ ATTENTION_PHASES = ["issue loads", "wait K", "scores", "row max, sum",
                     "cluster barrier", "add partials, write out"]
 FLASH_FWD_PHASES = ["issue loads", "wait first tile",
                     "walk 1: row max, sum", "walk 2: p, p v", "write out"]
+DYNAMIC_CONV_PHASES = ["start", "issue every copy",
+                       "wait for the first tile",
+                       "every tile's taps, sums, writes (warp 0)"]
 FLASH_BWD_PHASES = ["issue loads", "wait first tile",
                     "walk 1: probs, dp, delta, dv", "walk 2: ds, dq, dk",
                     "write dq"]
@@ -175,6 +180,17 @@ def main() -> None:
         report(f"flash_attention_bwd B={B} T={T} S'={S} ({plan.key_tiles}"
                f" key tiles, {plan.bwd.stages} slots)",
                read_stamps("nic_flash_phases"), plan.blocks, FLASH_BWD_PHASES)
+    x = rn(16, 512, D)
+    for K in (3, 31):
+        w = torch.softmax(rn(16, 512, H, K).float(), -1).bfloat16()
+        cold(lambda: dynamic_conv.dynamic_conv(x, w, H),
+             "nic_dynamic_conv_phases")
+        plan = dynamic_conv.dynamic_conv_plan(16, 512, D, H, K, torch.bfloat16)
+        report(f"dynamic_conv B=16 T=512 C={D} H={H} K={K} ({plan.tiles}"
+               f" tiles of {plan.tile_rows} rows, {plan.channels} channels a"
+               " block)",
+               read_stamps("nic_dynamic_conv_phases"),
+               plan.grid[0] * plan.grid[1] * plan.grid[2], DYNAMIC_CONV_PHASES)
 
 
 if __name__ == "__main__":

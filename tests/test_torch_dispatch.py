@@ -21,7 +21,7 @@ from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
     decode_conv_block, decode_conv_block_plain, decode_ffn_block,
     decode_ffn_block_plain, pack_taps)
 from news_image_caption_tpu_torch.ops.dynamic_conv import (  # noqa: E402
-    dynamic_conv, dynamic_conv_plain)
+    dynamic_conv, dynamic_conv_plain, dynamic_conv_tolerance)
 from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
     dropout_keep, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
@@ -127,20 +127,65 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     (2, 63, 96, 3, 31, torch.bfloat16),      # T below the halo, C < chunk
     (2, 130, 6, 2, 5, torch.bfloat16),       # odd R: a pair spans two heads
     (1, 77, 1024, 512, 7, torch.bfloat16),   # R = 2: 64 heads a chunk
-    (2, 200, 1024, 16, 31, torch.float32),   # fp32: smaller time tiles
+    (2, 200, 1024, 16, 31, torch.float32),   # fp32
     (3, 512, 1024, 16, 15, torch.bfloat16),  # flagship width
+    (16, 512, 1024, 16, 3, torch.bfloat16),  # the flagship, K templated
+    (16, 512, 1024, 16, 7, torch.bfloat16),
+    (16, 512, 1024, 16, 15, torch.bfloat16),
+    (16, 512, 1024, 16, 31, torch.bfloat16),
+    (4, 512, 1024, 16, 5, torch.bfloat16),   # K of the generic kernel
+    (1, 512, 1024, 16, 31, torch.bfloat16),  # B = 1: the grid not full
+    (2, 130, 96, 3, 7, torch.float32),       # fp32, R = 32, a ragged tile
+    (16, 500, 1024, 16, 3, torch.bfloat16),  # two tiles a segment, ragged
+    (8, 700, 1024, 16, 5, torch.bfloat16),   # generic, a tile past T
 ])
 def test_dynamic_conv_matches_plain_on_card(cuda_device, B, T, C, H, K,
                                            dtype):
-    """The kernel keeps the plain version's products and sums apart
-    (no fused multiply-add), in tap order: equal bit for bit."""
+    """The kernel fuses each tap's product and sum (fmaf), in tap order:
+    within `dynamic_conv_tolerance` of the plain version (its fp32 sums'
+    bound plus one unit in the last place of x's dtype); fp32 also
+    within 1e-5 + 1e-5 |plain|, and bf16 bit-equal (a product of two bf16
+    values is exact in fp32, so fused and separate sums agree); a second
+    call is bit-equal to the first."""
     g = torch.Generator().manual_seed(T)
     x = torch.randn(B, T, C, generator=g).to(dtype).to(cuda_device)
     w = torch.softmax(torch.randn(B, T, H, K, generator=g), -1)
     w = w.to(dtype).to(cuda_device)
     got = dynamic_conv(x, w, H)
+    again = dynamic_conv(x, w, H)
     torch.cuda.synchronize()
-    assert torch.equal(got, dynamic_conv_plain(x, w, H))
+    want = dynamic_conv_plain(x, w, H)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= dynamic_conv_tolerance(x, w, H)).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 2),
+                                          (torch.float32, 2)])
+def test_dynamic_conv_takes_x_off_16_bytes_on_card(cuda_device, dtype,
+                                                    offset):
+    """x `offset` elements into its storage, not 16-byte aligned: its
+    rows move as channel pairs, and the output is the plain version's
+    (within 1e-5 + 1e-5 |plain| for fp32)."""
+    B, T, C, H, K = 2, 130, 1024, 16, 7
+    g = torch.Generator().manual_seed(offset)
+    buf = torch.randn(B * T * C + offset, generator=g).to(dtype)
+    x = buf.to(cuda_device)[offset:].view(B, T, C)
+    assert x.data_ptr() % 16 != 0
+    w = torch.softmax(torch.randn(B, T, H, K, generator=g), -1)
+    w = w.to(dtype).to(cuda_device)
+    got = dynamic_conv(x, w, H)
+    torch.cuda.synchronize()
+    want = dynamic_conv_plain(x, w, H)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
