@@ -7,15 +7,34 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build the CUDA kernels from news_image_caption_tpu_torch/csrc/;
   3. hold every kernel against its plain PyTorch version on the card at
      the flagship's shapes (bf16; decode shapes for the decode kernels,
-     1 to 80 rows, every tap count and tied logits for the head and the
-     conv block; train-step shapes for flash attention, then its ragged
+     1 to 640 rows (a beam-5 step at B=128) and up to 128 items of five
+     queries, every tap count and tied logits for the head and the conv
+     block; train-step shapes for flash attention, then its ragged
      tiles, T = 128 over S' = 514 and an item with every key padded), and
      time both, the library's call and an empty launch with CUDA events;
+     the four decode kernels twice over: a greedy step's shapes and a
+     beam-5 step's at B=16 (80 rows, five queries an item), the latter
+     printed as the `beam5_step_b16` JSON line;
   4. serve requests through `flagship_model_builder` at full flagship
      width in bf16 with seeded random weights: three single requests,
      then one of 16 rows. Check the tokens, that every kernel's launch
      count rose by its count per decode step, and the kernel path
      against the plain path (the same weights on the CPU);
+  4b. beam-5 search through `TransformerFlattened.generate_beam` with
+     the same model and weights, max_len 32 and early exit, at B=16
+     (80 rows) and B=128 (640 rows). Check the tokens ([B, 5, 33], bos
+     first, ids in the vocab, pad after eos) and the scores (finite,
+     best first), that every decode kernel's launches equal its plan's
+     count a step times the steps run, each beam's score times
+     len^alpha against its tokens re-scored by teacher forcing on the
+     card, step 0's candidates against the plain path on the CPU and,
+     at B=16, the beams' first tokens of 8-step searches too. Then two
+     B=16 searches, early exit and harvest, on a copy of the model
+     whose eos row is raised so that its beams finish: the early-exit
+     loop stops before max_len, every returned beam ends in eos and the
+     beams end at different steps, launches and teacher forcing as
+     above. Print request ms, captions/s and device ms a step
+     (the `beam5_requests` JSON line, a smoke reading);
   5. train through `flagship_trainer_builder` at full flagship width,
      bf16_o2 with the YAML's dropouts and random weights: 20 steps on
      one synthetic batch of 16. Check that every loss is finite and the
@@ -35,20 +54,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      weights: one launch per forward at T=512 (the output against the
      same module on the CPU), none at T=63 (the output equal to the
      shift route's), and a backward that raises.
-The line before the last is a JSON summary of the kernels; the last is
+The line before the last is a JSON summary of the kernels (`launches`
+over the main paths, `launches_by_path` split by path); the last is
 {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 
 `python3 chip_smoke.py --serving-latency N` instead measures the
-flagship server's request latency over N requests at B=1 and B=16 and
-profiles one request of each (see `latency_mode`); it prints no result
-line.
+flagship's request latency over N requests, greedy at B=1 and B=16 and
+beam-5 at B=16 and B=128, and profiles one request of each (see
+`latency_mode`); it prints no result line.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -172,9 +193,10 @@ def sdpa(torch, q, k, v, bias, H: int, dropout_p: float = 0.0):
 
 
 def kernel_phase(torch, ops):
-    """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms,
+    """Phase 3. Returns two {kernel: dict(max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms)}, the times summed over one decode
-    step at batch 16 (all layers)."""
+    step at batch 16 (all layers): a greedy step (16 rows, one query an
+    item) and a beam-5 step (80 rows, five queries an item)."""
     band, xattn, blocks, _build = ops
     F_ = torch.nn.functional
     dev = torch.device("cuda")
@@ -186,7 +208,13 @@ def kernel_phase(torch, ops):
                 * scale).to(bf16)
 
     N, D, H, F = 16, 1024, 16, 4096
+    NB = 5 * N                   # the rows of a beam-5 step at B=16
+    NB128 = 5 * 128              # and at B=128, held but not timed
     results = {}
+    beam = {name: Tally() for name in ("band_topk_lse",
+                                       "decode_cross_attention",
+                                       "decode_conv_block",
+                                       "decode_ffn_block")}
 
     # An empty kernel's launch under the same method: the fixed cost in
     # every time below.
@@ -197,16 +225,17 @@ def kernel_phase(torch, ops):
 
     # band_topk_lse: the head band [table0; class_projᵀ] (5002 rows,
     # selectable below 5000), the two tails and two ragged single tiles,
-    # at 1, 16 and 80 (a beam step's) rows. Tolerance: one bf16
+    # at 1, 16, 80 and 640 (beam-5 steps at B=16 and B=128) rows. Tolerance: one bf16
     # rounding of a logit of magnitude < 8 (2^-5 = 0.03125), for the
     # values and for the plain logit at each id the kernel chose.
     # Library yardstick, a chain of three calls: the bf16 product,
-    # logsumexp, topk. The tally's times are N = 16, k = 1.
+    # logsumexp, topk. The greedy tally's times are N = 16, k = 1; the
+    # beam tally's N = 80, k = 5.
     tally = results["band_topk_lse"] = Tally()
     for V, sel in ((5002, 5000), (15000, 15000), (30265, 30265), (63, 63),
                    (65, 60)):
         table = rn(V, D, scale=D ** -0.5)
-        for n in (1, N, 80):
+        for n in (1, N, NB, NB128):
             x = rn(n, D)
             logits = (x.float() @ table.float().T).to(bf16).float()
             worst = [0.0, 0.0, 0.0, 1.0]
@@ -232,6 +261,9 @@ def kernel_phase(torch, ops):
                          max(worst[2], e_i), min(worst[3], agree)]
                 if n == N:
                     tally.errs += [e_v, e_l]
+                if n == NB and k == 5:
+                    beam["band_topk_lse"].errs += [e_v, e_l]
+                    out5 = (kv, ki, kl)
             print(f"  band_topk_lse V={V} sel={sel} N={n} k=1/5/16: values"
                   f" {worst[0]:.3g}, lse {worst[1]:.3g}, plain logit at chosen"
                   f" ids {worst[2]:.3g} (tol 0.03125 / 1e-3+1e-4|lse| /"
@@ -253,11 +285,14 @@ def kernel_phase(torch, ops):
                 t5 = time_ms(lambda: band.band_topk_lse(x, table, 5, sel))
                 print(f"    time N={N} k=5: kernel {t5:.4f} ms, library"
                       f" {time_ms(lambda: library(5)):.4f} ms")
-            if n == 80 and V > 1000:
-                t80 = time_ms(lambda: band.band_topk_lse(x, table, 5, sel))
-                print(f"    time N=80 k=5 (a beam-5 step at B=16; not in the"
-                      f" kernels line): kernel {t80:.4f} ms, library"
-                      f" {time_ms(lambda: library(5)):.4f} ms")
+            if n == NB and V > 1000:
+                line = beam["band_topk_lse"].add(
+                    (x, table, *out5), 2.0 * NB * V * D,
+                    time_ms(lambda: band.band_topk_lse(x, table, 5, sel)),
+                    time_ms(lambda: band.band_topk_lse_plain(x, table, 5,
+                                                             sel)),
+                    time_ms(lambda: library(5)))
+                print(f"    time N={NB} k=5 (a beam-5 step at B=16): {line}")
     # Ties: copies of one row in one tile, in two tiles of one block and
     # in other blocks; x is that row, so the copies are the largest
     # logits. The ids must be the plain version's exactly, lowest first.
@@ -279,11 +314,13 @@ def kernel_phase(torch, ops):
     # decode_cross_attention: article (S' = 514) and image (S' = 51)
     # contexts, padded keys masked with -1e9. Tolerance 0.02 abs + 0.02
     # rel: one bf16 rounding of a probability or the output. The timed
-    # calls are a greedy step's (Q = 1, B = 16), one per layer and
-    # context. Library yardstick: scaled_dot_product_attention.
+    # calls are a greedy step's (Q = 1, B = 16) and a beam-5 step's
+    # (Q = 5, B = 16), one per layer and context, and B = 1 for the log;
+    # a beam-5 step at B = 128 (Q = 5) is held, not timed. Library
+    # yardstick: scaled_dot_product_attention.
     tally = results["decode_cross_attention"] = Tally()
 
-    def attention_case(B, Q, S, timed=False, one_key=False):
+    def attention_case(B, Q, S, timed=None, one_key=False):
         k_, v_ = rn(B, S, D), rn(B, S, D)
         bias = torch.zeros(B, S, device=dev)
         bias[B // 2:, S // 2:S - 2] = -1e9      # padded context slots
@@ -305,8 +342,9 @@ def kernel_phase(torch, ops):
         check(same, f"decode_cross_attention B={B} Q={Q} S'={S}: two calls"
               " on the same inputs differ")
         tally.errs.append(e)
-        if timed:
-            line = tally.add(
+        if timed is not None:
+            timed.errs.append(e)
+            line = timed.add(
                 (q, k_, v_, bias, got), 4.0 * B * Q * S * D,
                 time_ms(lambda: xattn.decode_cross_attention(q, k_, v_, bias,
                                                              H)),
@@ -317,10 +355,11 @@ def kernel_phase(torch, ops):
             print(f"    time B={B} Q={Q}: {line}")
 
     for S in (514, 51):
-        attention_case(N, 1, S, timed=True)
-        attention_case(N, 5, S)
+        attention_case(N, 1, S, timed=tally)
+        attention_case(N, 5, S, timed=beam["decode_cross_attention"])
+        attention_case(128, 5, S)
         attention_case(N, 16, S)
-        attention_case(1, 1, S, timed=True)
+        attention_case(1, 1, S, timed=tally)
         attention_case(1, 5, S)
         attention_case(1, 16, S)
     for S in (1, 63, 65):
@@ -329,19 +368,20 @@ def kernel_phase(torch, ops):
     attention_case(N, 5, 514, one_key=True)
     attention_case(1, 1, 51, one_key=True)
 
-    # decode_conv_block: K = 2/3/7/15/31 at 1, 5, 16 and 80 rows, at t
+    # decode_conv_block: K = 2/3/7/15/31 at 1, 5, 16, 80 and 640 rows, at t
     # before, at and past the ring filling. Tolerance 0.02 (h) and 0.05
-    # (y) abs + rel, the reference tests' bf16 tolerances. The tally's
-    # times are N = 16 at the flagship's K = 3/7/15/31, the taps packed
-    # once as the model does. Library yardstick, a chain in bf16: linear,
-    # glu, linear, softmax, gather + einsum, linear, add.
+    # (y) abs + rel, the reference tests' bf16 tolerances. The tallies'
+    # times are N = 16 (greedy) and N = 80 (beam) at the flagship's K =
+    # 3/7/15/31, the taps packed once as the model does. Library
+    # yardstick, a chain in bf16: linear, glu, linear, softmax, gather +
+    # einsum, linear, add.
     tally = results["decode_conv_block"] = Tally()
     w1, b1 = rn(D, 2 * D, scale=D ** -0.5), rn(2 * D, scale=0.05)
     w2, b2 = rn(D, D, scale=D ** -0.5), rn(D, scale=0.05)
     for K in (2, 3, 7, 15, 31):
         wl = rn(D, H * K, scale=0.05)
         taps = blocks.pack_taps(wl, H)
-        for n in (1, 5, N, 80):
+        for n in (1, 5, N, NB, NB128):
             x = rn(n, D)
             cache = rn(K - 1, n, D, scale=0.5)
             worst = [0.0, 0.0]
@@ -359,12 +399,13 @@ def kernel_phase(torch, ops):
                       f"decode_conv_block N={n} K={K} t={t}: two calls on"
                       " the same inputs differ")
                 worst = [max(worst[0], e_h), max(worst[1], e_y)]
-                if n == N:
-                    tally.errs += [e_h, e_y]
+                if n in (N, NB):
+                    (tally if n == N else beam["decode_conv_block"]).errs += [
+                        e_h, e_y]
             print(f"  decode_conv_block N={n} K={K} t=0/{K - 2}/{2 * K + 3}:"
                   f" h {worst[0]:.3g}, y {worst[1]:.3g} (tol 0.02 / 0.05, abs"
                   " + rel), repeated calls bit-equal", flush=True)
-            if n not in (N, 80) or K == 2:
+            if n not in (N, NB) or K == 2:
                 continue
             slots = (t + torch.arange(K - 1, device=dev)) % (K - 1)
 
@@ -374,27 +415,24 @@ def kernel_phase(torch, ops):
                 hist = torch.cat([cache[slots], hh[None]]).view(K, n, H, D // H)
                 conv = torch.einsum("nhk,knhr->nhr", p, hist).reshape(n, D)
                 return F_.linear(conv, w2.T, b2) + x, hh
-            t_k = time_ms(lambda: blocks.decode_conv_block(*args, taps=taps))
-            t_l = time_ms(library)
-            if n == 80:
-                print(f"    time N=80 K={K} (a beam-5 step at B=16, five row"
-                      f" tiles in the launch; not in the kernels line): kernel"
-                      f" {t_k:.4f} ms, library {t_l:.4f} ms")
-                continue
-            line = tally.add(
+            line = (tally if n == N else beam["decode_conv_block"]).add(
                 (x, cache, w1, b1, wl, w2, b2, y, h),
-                2.0 * N * D * (2 * D + H * K + D) + 2.0 * N * D * K, t_k,
-                time_ms(lambda: blocks.decode_conv_block_plain(*args)), t_l)
-            print(f"    time N={N} K={K}: {line}")
+                2.0 * n * D * (2 * D + H * K + D) + 2.0 * n * D * K,
+                time_ms(lambda: blocks.decode_conv_block(*args, taps=taps)),
+                time_ms(lambda: blocks.decode_conv_block_plain(*args)),
+                time_ms(library))
+            print(f"    time N={n} K={K}: {line}")
 
-    # decode_ffn_block at N = 16, 5 and 1 rows. Tolerance 0.02 abs + rel.
-    # The timed call is N = 16, one per layer. Library yardstick, a chain
-    # of four calls in bf16: linear, relu, linear, add.
+    # decode_ffn_block at N = 640, 80, 16, 5 and 1 rows. Tolerance 0.02
+    # abs + rel. The timed calls are N = 16 (greedy) and N = 80 (beam,
+    # five launches of 16 rows in the call), one per layer; N = 640 (40
+    # launches) is held, not timed. Library yardstick,
+    # a chain of four calls in bf16: linear, relu, linear, add.
     tally = results["decode_ffn_block"] = Tally()
     f1, fb1 = rn(D, F, scale=D ** -0.5), rn(F, scale=0.05)
     f2, fb2 = rn(F, D, scale=F ** -0.5), rn(D, scale=0.05)
-    x = rn(N, D)
-    for n in (N, 5, 1):
+    x = rn(NB128, D)
+    for n in (NB128, NB, N, 5, 1):
         args = (x[:n].contiguous(), f1, fb1, f2, fb2)
         y = blocks.decode_ffn_block(*args)
         again = blocks.decode_ffn_block(*args)
@@ -407,18 +445,22 @@ def kernel_phase(torch, ops):
         check(ok, f"decode_ffn_block N={n} disagrees with its plain twin")
         check(same, f"decode_ffn_block N={n}: two calls on the same inputs"
               " differ")
-        tally.errs.append(e)
-        if n in (N, 1):
+        if n == NB128:
+            continue
+        into = beam["decode_ffn_block"] if n == NB else tally
+        into.errs.append(e)
+        if n in (NB, N, 1):
             xs = args[0]
-            line = tally.add(
+            line = into.add(
                 (*args, y), 4.0 * n * D * F,
                 time_ms(lambda: blocks.decode_ffn_block(*args)),
                 time_ms(lambda: blocks.decode_ffn_block_plain(*args)),
                 time_ms(lambda: F_.linear(torch.relu(
                     F_.linear(xs, f1.T, fb1)), f2.T, fb2) + xs),
-                calls=4 if n == N else 0)
+                calls=0 if n == 1 else 4)
             print(f"    time N={n}: {line}")
-    return {name: t.result() for name, t in results.items()}
+    return ({name: t.result() for name, t in results.items()},
+            {name: t.result() for name, t in beam.items()})
 
 
 def flash_phase(torch, flash):
@@ -556,6 +598,14 @@ def make_job(rng, B: int, article_lens):
     }
 
 
+def stage_batch(torch, job, device) -> dict:
+    """A job's arrays as the model's batch on `device`, features bf16."""
+    batch = {k: torch.as_tensor(v).to(device) for k, v in job.items()}
+    batch["image"] = batch["image"].bfloat16()
+    batch["article"] = batch["article"].bfloat16()
+    return batch
+
+
 def decode_steps(tokens: np.ndarray, eos: int, max_len: int) -> int:
     """Steps an early-exit greedy loop ran for these tokens: until every
     row had emitted eos (its column), or max_len."""
@@ -581,7 +631,8 @@ def check_tokens(tokens: np.ndarray, B: int, cfg, vocab: int) -> None:
 
 
 def serving_phase(torch, counted):
-    """Phase 4. Returns the main-path launch count of each kernel."""
+    """Phase 4. Returns (the main-path launch count of each kernel, the
+    server's predict)."""
     from news_image_caption_tpu_torch.config import FLAGSHIP
     from news_image_caption_tpu_torch.models.captioner import \
         TransformerFlattened
@@ -632,11 +683,8 @@ def serving_phase(torch, counted):
     # Kernel path vs plain path: the same weights, the plain twins on
     # the CPU, on the 16-row request.
     job = jobs[-1]
-    gpu_batch = {k: torch.as_tensor(v).to("cuda") for k, v in job.items()}
-    cpu_batch = {k: torch.as_tensor(v) for k, v in job.items()}
-    for b in (gpu_batch, cpu_batch):
-        b["image"] = b["image"].bfloat16()
-        b["article"] = b["article"].bfloat16()
+    gpu_batch, cpu_batch = stage_batch(torch, job, "cuda"), stage_batch(
+        torch, job, "cpu")
     tok_k, lp_k = predict.model.generate(gpu_batch, cfg, predict.weights)
     check(bool(np.array_equal(tok_k.cpu().numpy(), outputs[-1])),
           "generate and predict disagree on the same request")
@@ -655,7 +703,323 @@ def serving_phase(torch, counted):
           f" token agreement over the decode {agree:.3f}", flush=True)
     check(e0 <= 0.1, "step-0 log-probs of the kernel and plain paths differ")
     check(agree0 >= 0.75, "step-0 tokens of the kernel and plain paths differ")
-    return launches
+    return launches, predict
+
+
+def check_beams(tokens: np.ndarray, scores: np.ndarray, B: int, cfg,
+                vocab: int) -> None:
+    """Beam output: tokens [B, K, max_len + 1] as `check_tokens` holds
+    each row, scores [B, K] finite and best first."""
+    K = cfg.beam_size
+    check(tokens.shape == (B, K, cfg.max_len + 1),
+          f"beam tokens shape {tokens.shape}, expected"
+          f" {(B, K, cfg.max_len + 1)}")
+    check_tokens(tokens.reshape(B * K, -1), B * K, cfg, vocab)
+    check(scores.shape == (B, K) and bool(np.isfinite(scores).all()),
+          f"beam scores {scores.shape} not finite")
+    check(bool((np.diff(scores, axis=1) <= 0).all()),
+          "beam scores are not sorted best first")
+
+
+def beam_launches_a_step(torch, rows: int, beam: int) -> dict:
+    """Each decode kernel's launches in one flagship step of `rows`
+    rows, from the kernels' plans: a band call a band, a conv and an FFN
+    call a layer, an attention call a layer and context."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.ops import _build
+    from news_image_caption_tpu_torch.ops.band_topk import band_plan
+    from news_image_caption_tpu_torch.ops.decode_blocks import (
+        conv_block_plan, ffn_plan)
+    sms = _build.sms_of(torch.device("cuda"))
+    D, H = FLAGSHIP["embed_dim"], FLAGSHIP["num_heads"]
+    cut = FLAGSHIP["cutoff"]
+    bands = [cut[0] + len(cut) - 1] + [b - a for a, b in zip(cut, cut[1:])]
+    layers = FLAGSHIP["kernel_sizes"]
+    return {
+        "band_topk_lse": sum(band_plan(rows, D, v, beam, sms).launches
+                             for v in bands),
+        "decode_cross_attention": 2 * len(layers),
+        "decode_conv_block": sum(conv_block_plan(rows, D, H, K, sms).launches
+                                 for K in layers),
+        "decode_ffn_block": len(layers) * ffn_plan(
+            rows, D, FLAGSHIP["ffn_dim"], sms).launches}
+
+
+def rescore_beams(torch, decoder, batch, tokens, scores, cfg):
+    """Each returned beam's raw score (its score times len**alpha, len
+    counting the tokens that are not pad) against the sum of its tokens'
+    log-probs re-scored by teacher forcing (`decoder.log_prob`, the
+    full-sequence path) up to and including its eos. Returns (|diff|,
+    tokens summed) a beam."""
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    B, K, L1 = tokens.shape
+    flat = tokens.reshape(B * K, L1)
+    ctx = {k: v.repeat_interleave(K, 0)
+           for k, v in TransformerFlattened._contexts(batch).items()}
+    with torch.inference_mode():
+        lp = decoder.log_prob(flat[:, :-1], ctx)
+    step_lp = torch.gather(lp, 2, flat[:, 1:, None])[..., 0].float()
+    eos = (flat[:, 1:] == cfg.eos_id).int()
+    live = (torch.cumsum(eos, 1) - eos) == 0       # no eos before the step
+    rescored = (step_lp * live).sum(1)
+    lengths = (flat != cfg.pad_id).sum(1).float()
+    raw = scores.reshape(-1) * lengths.clamp(min=1) ** cfg.length_penalty
+    return (raw - rescored).abs(), rescored, live.sum(1)
+
+
+def check_rescored(torch, decoder, batch, tokens, scores, cfg,
+                   what: str) -> None:
+    """`rescore_beams` on the card, held to its bound: the bf16
+    teacher-forced log-probs are rounded to bf16 up to three times
+    (head, tail, prior add; 0.031 each at |lp| < 16), and the two paths'
+    hidden states differ by bf16 roundings: 0.05 a token plus 1% of the
+    sum."""
+    diff, rescored, n_tok = rescore_beams(
+        torch, decoder, batch, torch.from_numpy(tokens).cuda(),
+        torch.from_numpy(scores).cuda(), cfg)
+    bound = 0.05 * n_tok + 0.01 * rescored.abs()
+    print(f"  {what}: score x len^alpha against the teacher-forced sum of"
+          f" its log-probs: max |diff| {diff.max().item():.4g} over sums of"
+          f" {rescored.min().item():.1f} to {rescored.max().item():.1f}"
+          f" (bound 0.05 a token + 1%); largest share of the bound"
+          f" {(diff / bound).max().item():.3f}", flush=True)
+    check(bool((diff <= bound).all()),
+          f"{what}: beam scores disagree with teacher forcing")
+
+
+def beam_phase(torch, counted, predict):
+    """Phase 4b. Beam-5 requests through `TransformerFlattened.
+    generate_beam` with the serving phase's flagship model and weights,
+    max_len 32 and early exit: five timed requests of 16 items and four
+    of 128, then one profiled request of each, and at B=16 an early-exit
+    and a harvest search on a copy of the model whose beams finish
+    (`finishing_requests`). Checks
+    the tokens and scores, that every kernel's launches equal its plan's
+    count a step times the steps run, the scores against a
+    teacher-forced re-scoring on the card, and the kernel path against
+    the plain path on the CPU, at both sizes. Returns the beam path's
+    launch count of each kernel and the timings (a smoke reading: the
+    request latency metric is `--serving-latency`'s)."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    model, weights = predict.model, predict.weights
+    K, vocab = 5, FLAGSHIP["vocab_size"]
+    cfg = GenerationConfig(max_len=32, early_exit=True, beam_size=K)
+    rng = np.random.RandomState(1)
+
+    def beam_steps(tokens):
+        return decode_steps(tokens.reshape(-1, tokens.shape[-1]),
+                            cfg.eos_id, cfg.max_len)
+
+    launches = {name: 0 for name in counted}
+    summary = {}
+    for B, n_req in ((16, 5), (128, 4)):
+        jobs = [make_job(rng, B, rng.randint(20, 513, size=B))
+                for _ in range(n_req)]
+        batches = [stage_batch(torch, job, "cuda") for job in jobs]
+        model.generate_beam(batches[0], cfg, weights)       # warm-up
+        torch.cuda.synchronize()
+        per_step = beam_launches_a_step(torch, B * K, K)
+        for fn in counted.values():
+            fn.launches = 0
+        lat, steps, outs = [], 0, []
+        for batch in batches:
+            t = time.perf_counter()
+            tokens, scores = model.generate_beam(batch, cfg, weights)
+            tokens, scores = tokens.cpu().numpy(), scores.cpu().numpy()
+            lat.append((time.perf_counter() - t) * 1e3)
+            check_beams(tokens, scores, B, cfg, vocab)
+            steps += beam_steps(tokens)
+            outs.append((tokens, scores))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            tokens, _ = model.generate_beam(batches[0], cfg, weights)
+            n = beam_steps(tokens.cpu().numpy())
+            wall = (time.perf_counter() - t) * 1e3
+        steps += n
+        for name, fn in counted.items():
+            print(f"  B={B} beam {K}: {name}: {fn.launches} launches over"
+                  f" {steps} steps (plan: {per_step[name]} a step at"
+                  f" {B * K} rows)")
+            check(fn.launches == per_step[name] * steps and fn.launches > 0,
+                  f"{name} launched {fn.launches} times at B={B} beam {K},"
+                  f" expected {per_step[name] * steps}")
+            launches[name] += fn.launches
+        dev_events = [e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+        check(busy > 0, "the profiler saw no device time")
+        lat_sorted = sorted(lat)
+        p50 = lat_sorted[len(lat) // 2]
+        summary[B] = {"requests": lat, "p50_ms": p50,
+                      "captions_per_s": B * 1e3 / p50,
+                      "steps_per_request": (steps - n) / len(lat),
+                      "profiled_wall_ms": wall, "device_busy_ms": busy,
+                      "device_busy_share": busy / wall,
+                      "device_ms_per_step": busy / n}
+        print(f"  B={B} beam {K}: request ms {[round(x, 1) for x in lat]},"
+              f" p50 {p50:.1f} ms, {B * 1e3 / p50:.1f} captions/s;"
+              f" profiled request: {n} steps, wall {wall:.1f} ms, device"
+              f" busy {busy:.2f} ms ({100 * busy / wall:.1f}%),"
+              f" {busy / n:.4f} device ms a step; best beam of item 0"
+              f" {outs[0][0][0, 0, :10].tolist()}", flush=True)
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)
+        for e in top[:6]:
+            print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step"
+                  f" x{e.count / n:<5.1f} {e.key[:80]}")
+        check_rescored(torch, model.decoder, batches[0], *outs[0], cfg,
+                       f"B={B} beam {K}")
+        beam_vs_plain(torch, model, weights, jobs[0], cfg, search=B == 16)
+        if B == 16:
+            summary[B]["finishing_steps"], more = finishing_requests(
+                torch, counted, model, batches[0], outs[0][0], cfg, per_step)
+            for name, n in more.items():
+                launches[name] += n
+    summary["launches"] = launches
+    return launches, summary
+
+
+def finishing_requests(torch, counted, model, batch, tokens, cfg,
+                       per_step) -> dict:
+    """Two beam-5 requests at B=16 on a copy of the model whose eos word
+    row leans toward the decoder's mean state m (as the tests' weights
+    do, at flagship width), so that beams finish: eos rises by `lift`
+    at that state, `lift` the mean gap between a step's best log-prob
+    and eos's (teacher forced over `tokens`, a search's beams on the
+    same batch) plus the first of 1, 2, 4, 8, 16 at which an early-exit
+    search stops before max_len with beams ending at different steps.
+    At that lift: the early-exit search, then one with harvest (the
+    done list; early exit on, which a harvest search reaches only if
+    all its live beams emit eos in one step). Checks for each the
+    steps run, that every returned beam ends in eos and pad follows it,
+    that beams end at different steps, the launches against the plans a
+    step times the steps, and the scores against teacher forcing.
+    Returns ({config: steps run}, {kernel: launches in the two checked
+    searches})."""
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    decoder = copy.deepcopy(model.decoder)
+    B, K, L1 = tokens.shape
+    flat = torch.from_numpy(tokens).cuda().reshape(B * K, L1)[:, :-1]
+    ctx = {k: v.repeat_interleave(K, 0)
+           for k, v in TransformerFlattened._contexts(batch).items()}
+    with torch.inference_mode():
+        m = decoder.hidden(flat, ctx).float().mean((0, 1))
+        lp = decoder.log_prob(flat, ctx).float()
+        gap = (lp.max(-1).values - lp[..., cfg.eos_id]).mean().item()
+    del lp
+    e0 = decoder.embedder.adaptive.embed_0
+    row = e0[cfg.eos_id].detach().float().clone()
+    steps = []
+    step_topk = decoder.step_topk
+
+    def counted_step(tok, i, *args, **kw):
+        steps.append(i)
+        return step_topk(tok, i, *args, **kw)
+    decoder.step_topk = counted_step
+    biased = TransformerFlattened(decoder=decoder)
+
+    def search(c):
+        steps.clear()
+        tok, sc = biased.generate_beam(batch, c, weights)
+        tok, sc = tok.cpu().numpy(), sc.cpu().numpy()
+        ends = [int(np.argmax(r[1:] == cfg.eos_id)) + 1
+                if (r[1:] == cfg.eos_id).any() else 0
+                for r in tok.reshape(B * K, L1)]
+        return tok, sc, len(steps), ends
+
+    for extra in (1.0, 2.0, 4.0, 8.0, 16.0):
+        lift = gap + extra
+        with torch.no_grad():
+            e0[cfg.eos_id] = (row + lift * m / (m @ m)).to(e0.dtype)
+        weights = decoder.decode_weights()
+        _, _, n, ends = search(cfg)
+        print(f"  B={B} beam {K}, eos raised by {lift:.2f}: {n} steps,"
+              f" beams end at steps {sorted(set(ends))}", flush=True)
+        if n < cfg.max_len and min(ends) > 0 and len(set(ends)) > 1:
+            break
+    run, launches = {}, {key: 0 for key in counted}
+    for name, c in (("early_exit", cfg),
+                    ("harvest", dataclasses.replace(cfg,
+                                                    harvest_finished=True))):
+        for fn in counted.values():
+            fn.launches = 0
+        tok, sc, n, ends = search(c)
+        run[name] = n
+        print(f"  B={B} beam {K} {name}, eos raised by {lift:.2f}: {n}"
+              f" steps, the returned beams end at steps {min(ends)} to"
+              f" {max(ends)}; launches"
+              f" {dict((k, f.launches) for k, f in counted.items())}",
+              flush=True)
+        check_beams(tok, sc, B, c, model.decoder.vocab_size)
+        check(name == "harvest" or n < cfg.max_len,
+              "early exit did not stop the search")
+        check(min(ends) > 0, f"{name}: a returned beam has no eos")
+        check(len(set(ends)) > 1, f"{name}: every returned beam ended at"
+              " one step")
+        for key, fn in counted.items():
+            check(fn.launches == per_step[key] * n,
+                  f"{key} launched {fn.launches} times in the {name}"
+                  f" search, expected {per_step[key] * n}")
+            launches[key] += fn.launches
+        check_rescored(torch, decoder, batch, tok, sc, c,
+                       f"B={B} beam {K} {name}")
+    return run, launches
+
+
+def beam_vs_plain(torch, model, weights, job, cfg, search: bool):
+    """The kernel path against the plain path on the CPU (the same
+    weights) on one beam-5 request: step 0's candidates (every beam of
+    an item starts from bos) within 0.1 and their ids; then, with
+    `search`, the first tokens of the beams of 8-step searches, as
+    multisets an item."""
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    K = cfg.beam_size
+    B = job["image"].shape[0]
+    batches = {dev: stage_batch(torch, job, dev) for dev in ("cuda", "cpu")}
+    cpu_model = TransformerFlattened(
+        decoder=copy.deepcopy(model.decoder).to("cpu"))
+    short = dataclasses.replace(cfg, max_len=8)
+    t = time.perf_counter()
+    out = {}
+    for dev, m, w in (("cuda", model, weights), ("cpu", cpu_model, None)):
+        with torch.inference_mode():
+            kvs, caches, seed, w = m._decode_setup(batches[dev], cfg, w, K)
+            cand = m.decoder.step_topk(seed.repeat_interleave(K), 0, kvs,
+                                       caches, K, w, beam=K)
+            out[dev] = [c.cpu() for c in cand]
+            if search:
+                out[dev].append(m.generate_beam(batches[dev], short,
+                                                w)[0].cpu())
+    print(f"  plain path on the CPU: {time.perf_counter() - t:.1f} s")
+    (v_k, i_k, *t_k), (v_p, i_p, *t_p) = out["cuda"], out["cpu"]
+    e0 = (v_k - v_p).abs().max().item()
+    agree_ids = (i_k == i_p).float().mean().item()
+    line = (f"  B={B} beam {K} step 0, kernel vs plain path: candidate"
+            f" log-probs max |diff| {e0:.4g} (tol 0.1), candidate ids equal"
+            f" {agree_ids:.3f} (min 0.75)")
+    if search:
+        first = []
+        for a, b in zip(t_k[0][:, :, 1].tolist(), t_p[0][:, :, 1].tolist()):
+            first.append(sum(min(a.count(x), b.count(x)) for x in set(a)) / K)
+        agree = float(np.mean(first))
+        same = (t_k[0] == t_p[0]).float().mean().item()
+        line += (f"; first tokens of the beams after 8 steps agree"
+                 f" {agree:.3f} (min 0.75); all tokens equal {same:.3f}")
+    print(line, flush=True)
+    check(e0 <= 0.1, f"B={B} beam step-0 candidates of the kernel and plain"
+          " paths differ")
+    check(agree_ids >= 0.75, f"B={B} beam step-0 candidate ids of the kernel"
+          " and plain paths differ")
+    if search:
+        check(agree >= 0.75, "beam first tokens of the kernel and plain paths"
+              " differ")
 
 
 def train_phase(torch, flash):
@@ -878,46 +1242,68 @@ def dynamic_conv_phase(torch, dc):
 
 
 def latency_mode(torch, n_requests: int) -> None:
-    """`--serving-latency N`: request latency of the flagship greedy
-    server over N requests at B=1 and at B=16 (host clock, request in to
-    tokens on the host; articles of 20-512 tokens, max_len 32), and one
-    profiled request of each size: device busy share of the wall time,
-    device ms a decode step and the kernels' device time by name.
-    Prints one JSON object a batch size."""
+    """`--serving-latency N`: request latency over N requests (host
+    clock, request in to tokens on the host; articles of 20-512 tokens,
+    max_len 32, early exit): the flagship greedy server at B=1 and B=16,
+    then beam-5 (`generate_beam`, the same model and weights, the job
+    staged inside the request as the server does) at B=16 and B=128;
+    and one profiled request of each: device busy share of the wall
+    time, device ms a decode step and the kernels' device time by name.
+    Prints one JSON object a path and batch size."""
     from torch.profiler import ProfilerActivity, profile
 
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
     from news_image_caption_tpu_torch.serving.worker import \
         flagship_model_builder
     predict = flagship_model_builder("cuda", batch_size=1, max_len=32,
                                      early_exit=True, seed=0)
     cfg = predict.config
-    rng = np.random.RandomState(0)
-    for B in (1, 16):
+    beam_cfg = dataclasses.replace(cfg, beam_size=5)
+
+    def greedy(job):
+        return predict(job)["tokens"]
+
+    def beam(job):
+        tokens, _ = predict.model.generate_beam(
+            stage_batch(torch, job, "cuda"), beam_cfg, predict.weights)
+        return tokens.cpu().numpy()
+
+    def steps_of(tokens):
+        return decode_steps(tokens.reshape(-1, tokens.shape[-1]),
+                            cfg.eos_id, cfg.max_len)
+
+    rngs = {"greedy": np.random.RandomState(0),
+            "beam5": np.random.RandomState(1)}
+    for path, B, serve in (("greedy", 1, greedy), ("greedy", 16, greedy),
+                           ("beam5", 16, beam), ("beam5", 128, beam)):
+        rng = rngs[path]
         jobs = [make_job(rng, B, rng.randint(20, 513, size=B))
                 for _ in range(n_requests)]
         for job in jobs[:3]:
-            predict(job)
+            serve(job)
         lat, steps = [], 0
         for job in jobs:
             t = time.perf_counter()
-            tokens = predict(job)["tokens"]
+            tokens = serve(job)
             lat.append((time.perf_counter() - t) * 1e3)
-            steps += decode_steps(tokens, cfg.eos_id, cfg.max_len)
+            steps += steps_of(tokens)
         lat.sort()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            tokens = predict(jobs[0])["tokens"]
+            tokens = serve(jobs[0])
             wall = (time.perf_counter() - t) * 1e3
-        n = decode_steps(tokens, cfg.eos_id, cfg.max_len)
+        n = steps_of(tokens)
         dev_events = [e for e in prof.key_averages()
                       if str(e.device_type).endswith("CUDA")]
         busy = sum(e.self_device_time_total for e in dev_events) / 1e3
         check(busy > 0, "the profiler saw no device time")
         top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
         print(json.dumps({
-            "B": B, "requests": n_requests,
+            "path": path, "B": B, "requests": n_requests,
             "p50_ms": lat[len(lat) // 2], "p90_ms": lat[(9 * len(lat)) // 10],
+            "quartiles_ms": [lat[len(lat) // 4], lat[(3 * len(lat)) // 4]],
             "captions_per_s": B * 1e3 / lat[len(lat) // 2],
             "steps_per_request": steps / n_requests,
             "profiled_wall_ms": wall, "device_busy_ms": busy,
@@ -954,25 +1340,38 @@ def main() -> None:
 
     print("phase 3: kernels vs plain versions (bf16, flagship shapes)",
           flush=True)
-    timing = kernel_phase(torch, (band_topk, decode_attention, decode_blocks,
-                                  _build))
+    timing, beam_timing = kernel_phase(
+        torch, (band_topk, decode_attention, decode_blocks, _build))
     timing.update(flash_phase(torch, flash_attention))
+    print(json.dumps({"beam5_step_b16": beam_timing}), flush=True)
 
     print("phase 4: flagship serving (bf16, random weights)", flush=True)
     counted = {"band_topk_lse": band_topk.band_topk_lse,
                "decode_cross_attention": decode_attention.decode_cross_attention,
                "decode_conv_block": decode_blocks.decode_conv_block,
                "decode_ffn_block": decode_blocks.decode_ffn_block}
-    launches = serving_phase(torch, counted)
+    launches, predict = serving_phase(torch, counted)
+    by_path = {name: {"greedy": n} for name, n in launches.items()}
+
+    print("phase 4b: flagship beam-5 search (bf16, random weights)",
+          flush=True)
+    beam_launches, beam_summary = beam_phase(torch, counted, predict)
+    for name, n in beam_launches.items():
+        launches[name] += n
+        by_path[name]["beam5"] = n
+    print(json.dumps({"beam5_requests": beam_summary}), flush=True)
+    del predict
 
     print("phase 5: flagship train step (bf16_o2, random weights)",
           flush=True)
     train_launches, step_ms = train_phase(torch, flash_attention)
     launches.update(train_launches)
+    by_path.update({name: {"train": n} for name, n in train_launches.items()})
 
     print("phase 6: dynamic conv at full flagship width (bf16)", flush=True)
     conv_timing, launches["dynamic_conv"] = dynamic_conv_phase(torch,
                                                                dynamic_conv)
+    by_path["dynamic_conv"] = {"conv_module": launches["dynamic_conv"]}
     timing.update(conv_timing)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
@@ -991,6 +1390,7 @@ def main() -> None:
                 "source": f"news_image_caption_tpu_torch/csrc/{src}",
                 "replaces": f"news_image_caption_tpu/ops/{tpu}",
                 "launches": launches[name],
+                "launches_by_path": by_path[name],
                 "max_abs_err": timing[name]["max_abs_err"],
                 "ms": timing[name]["ms"],
                 "plain_ms": timing[name]["plain_ms"],

@@ -1,11 +1,12 @@
 """Flagship captioning model: contexts -> dynamic-conv decoder -> caption.
 
 Counterpart of `news_image_caption_tpu/models/captioner.py::
-TransformerFlattened` for training (`shift_caption`, `loss_fn`) and
-greedy decoding (`_contexts`, `_check_max_len`, `generate`). The
-decoder's weights live in the module; `generate` takes the fused decode
-weights of `DynamicConvDecoder.decode_weights()` so a server computes
-them once.
+TransformerFlattened` for training (`shift_caption`, `loss_fn`), greedy
+decoding (`_contexts`, `_check_max_len`, `generate`; `generate_full`
+through the full-vocab step) and beam search (`generate_beam`,
+impl="topk"). The decoder's weights live in the module; the generate
+methods take the fused decode weights of
+`DynamicConvDecoder.decode_weights()` so a server computes them once.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from news_image_caption_tpu_torch.generation.generator import (
-    GenerationConfig, generate_candidates)
+    GenerationConfig, beam_search_candidates, generate, generate_candidates,
+    index_reorder)
 from news_image_caption_tpu_torch.models.decoder_flattened import (
     DecodeWeights, DynamicConvDecoder)
 
@@ -31,7 +33,7 @@ def shift_caption(caption_ids: torch.Tensor
 
 
 class TransformerFlattened:
-    """Greedy captioner around a `DynamicConvDecoder`."""
+    """Greedy and beam captioner around a `DynamicConvDecoder`."""
 
     def __init__(self, decoder: Optional[DynamicConvDecoder] = None,
                  **decoder_kwargs):
@@ -65,13 +67,12 @@ class TransformerFlattened:
             raise ValueError(f"max_len {config.max_len} exceeds the "
                              f"decoder's max_positions {mp}")
 
-    @torch.inference_mode()
-    def generate(self, batch: Dict[str, torch.Tensor],
-                 config: GenerationConfig = GenerationConfig(),
-                 weights: Optional[DecodeWeights] = None):
-        """Greedy captions: (tokens [B, max_len + 1] int64, log_probs
-        [B, max_len] fp32). The context K/V are projected once; each
-        step yields the exact top-1 from the adaptive-softmax bands."""
+    def _decode_setup(self, batch: Dict[str, torch.Tensor],
+                      config: GenerationConfig,
+                      weights: Optional[DecodeWeights], beam: int):
+        """(kvs, caches, seed, weights): the context K/V projected once
+        for the untiled batch B, zero ring-major caches for B * beam rows
+        and the bos seed [B]."""
         contexts = self._contexts(batch)
         B = contexts["image"].shape[0]
         device = contexts["image"].device
@@ -79,12 +80,67 @@ class TransformerFlattened:
         if weights is None:
             weights = self.decoder.decode_weights()
         kvs = self.decoder.precompute_kv(contexts)
-        caches = self.decoder.init_cache(B, device)
+        caches = self.decoder.init_cache(B * beam, device)
         seed = torch.full((B,), config.bos_id, dtype=torch.long,
                           device=device)
+        return kvs, caches, seed, weights
+
+    @torch.inference_mode()
+    def generate(self, batch: Dict[str, torch.Tensor],
+                 config: GenerationConfig = GenerationConfig(),
+                 weights: Optional[DecodeWeights] = None):
+        """Greedy captions: (tokens [B, max_len + 1] int64, log_probs
+        [B, max_len] fp32). The context K/V are projected once; each
+        step yields the exact top-1 from the adaptive-softmax bands."""
+        kvs, caches, seed, weights = self._decode_setup(batch, config,
+                                                        weights, 1)
 
         def step(tok, i):
             return self.decoder.step_topk(tok, i, kvs, caches,
                                           config.sampling_topk, weights)
 
         return generate_candidates(step, seed, config)
+
+    @torch.inference_mode()
+    def generate_full(self, batch: Dict[str, torch.Tensor],
+                      config: GenerationConfig = GenerationConfig(),
+                      weights: Optional[DecodeWeights] = None):
+        """`generate` through the full-vocab `step` and the `generate`
+        adapter: the same tokens and log-probs, with the [B, V] log-prob
+        matrix materialised each step."""
+        kvs, caches, seed, weights = self._decode_setup(batch, config,
+                                                        weights, 1)
+
+        def step(tok, i):
+            return self.decoder.step(tok, i, kvs, caches, weights)
+
+        return generate(step, seed, config)
+
+    @torch.inference_mode()
+    def generate_beam(self, batch: Dict[str, torch.Tensor],
+                      config: GenerationConfig = GenerationConfig(),
+                      weights: Optional[DecodeWeights] = None,
+                      impl: str = "topk"):
+        """Beam-searched captions: (tokens [B, beam, max_len + 1] int64,
+        scores [B, beam] fp32), best first by score / length**alpha.
+
+        impl="topk": each step yields every row's exact top-K from the
+        adaptive-softmax bands, the combine is K*K wide, and the context
+        K/V of the untiled batch are shared by an item's beams
+        (`attend_flat_beam`). The ring-major caches [K-1, B*beam, C]
+        follow the beams' ancestry by `index_select` on dim 1."""
+        if impl in ("shift", "lazy"):
+            raise NotImplementedError(
+                f"beam impl {impl!r} is not ported yet (ROADMAP Queue 1)")
+        if impl != "topk":
+            raise ValueError(f"unknown beam impl: {impl!r}")
+        K = config.beam_size
+        kvs, caches, seed, weights = self._decode_setup(batch, config,
+                                                        weights, K)
+
+        def step(tok, i):
+            return self.decoder.step_topk(tok, i, kvs, caches, K, weights,
+                                          beam=K)
+
+        return beam_search_candidates(step, seed, config,
+                                      index_reorder(caches))

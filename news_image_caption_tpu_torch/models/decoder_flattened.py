@@ -6,7 +6,7 @@ article contexts, tied adaptive softmax): `SumEmbedder`,
 `DynamicConvDecoderLayer` (full-sequence forward, with the training
 dropouts, and the ring-major decode step) and `DynamicConvDecoder`
 (`precompute_kv`, `hidden`, `loss`, `log_prob`, `init_cache`,
-`step_topk`).
+`step_topk`, and the full-vocab `step` and `step_with_hidden`).
 
 A training forward takes a `torch.Generator` on the model's device and
 drops as the reference does: the embeddings (`dropout`), the conv
@@ -23,7 +23,9 @@ the reference's weights by renaming alone.
 
 The decode step runs the port's kernels: `decode_conv_block`,
 `decode_cross_attention` (inside `attend_flat_beam`), `decode_ffn_block`
-and `band_topk_lse` (inside `topk_log_prob`). Their weights, with the
+and `band_topk_lse` (inside `topk_log_prob`); the full-vocab `step`
+takes the same layer steps and ends in `AdaptiveSoftmax.log_prob`, plain
+products outside any kernel as in the reference. Their weights, with the
 weight norm folded and cast to the working dtype, come from
 `DynamicConvDecoder.decode_weights()`, computed once per model load
 rather than once per step. Each wrapper takes its plain PyTorch version
@@ -299,6 +301,17 @@ class DynamicConvDecoder(nn.Module):
                 head_table=self.adaptive_softmax.head_table(tables,
                                                             self.dtype))
 
+    def _step_layers(self, token_t: torch.Tensor, step_idx: int,
+                     kvs: List[LayerKV], caches: List[torch.Tensor],
+                     weights: DecodeWeights, beam: int) -> torch.Tensor:
+        """The layers of one decode step: hidden state [B*beam, D]; the
+        conv caches advance in place."""
+        x = self.embedder(token_t[:, None], start_pos=step_idx)[:, 0, :]
+        for layer, kv, cache, w in zip(self.layers, kvs, caches,
+                                       weights.layers):
+            x = layer.step(x, kv, cache, step_idx, w, beam)
+        return x
+
     def step_topk(self, token_t: torch.Tensor, step_idx: int,
                   kvs: List[LayerKV], caches: List[torch.Tensor], k: int,
                   weights: DecodeWeights, beam: int = 1):
@@ -308,9 +321,25 @@ class DynamicConvDecoder(nn.Module):
         caches advance in place. Returns (cand_log_probs [B*beam, k]
         fp32, cand_ids [B*beam, k] int64).
         """
-        x = self.embedder(token_t[:, None], start_pos=step_idx)[:, 0, :]
-        for layer, kv, cache, w in zip(self.layers, kvs, caches,
-                                       weights.layers):
-            x = layer.step(x, kv, cache, step_idx, w, beam)
+        x = self._step_layers(token_t, step_idx, kvs, caches, weights, beam)
         return self.adaptive_softmax.topk_log_prob(
             x, k, self.embedder.embed_tables(), weights.head_table)
+
+    def step_with_hidden(self, token_t: torch.Tensor, step_idx: int,
+                         kvs: List[LayerKV], caches: List[torch.Tensor],
+                         weights: DecodeWeights, beam: int = 1):
+        """One decode step with the full-vocab head, the same layer steps
+        as `step_topk`. Returns (log_probs [B*beam, V] in the model's
+        dtype, hidden [B*beam, D]); the conv caches advance in place.
+        With beam > 1, kvs are the untiled batch's (shared K/V)."""
+        x = self._step_layers(token_t, step_idx, kvs, caches, weights, beam)
+        lp = self.adaptive_softmax.log_prob(x, self.embedder.embed_tables())
+        return lp, x
+
+    def step(self, token_t: torch.Tensor, step_idx: int,
+             kvs: List[LayerKV], caches: List[torch.Tensor],
+             weights: DecodeWeights, beam: int = 1) -> torch.Tensor:
+        """`step_with_hidden` without the hidden state: log_probs
+        [B*beam, V]."""
+        return self.step_with_hidden(token_t, step_idx, kvs, caches,
+                                     weights, beam)[0]
