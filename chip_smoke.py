@@ -53,7 +53,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      `DynamicConv(method="pallas")` at full flagship width with seeded
      weights: one launch per forward at T=512 (the output against the
      same module on the CPU), none at T=63 (the output equal to the
-     shift route's), and a backward that raises.
+     shift route's), and a backward that raises;
+  7. the evaluate command, `news_image_caption_tpu_torch.cli.main(
+     ["evaluate", "configs/goodnews_transformer_roberta.yaml", "--split",
+     "test", "--dump-attention", DIR])` with its serialization directory
+     in a temporary directory: the flagship in bf16 with random weights
+     (the command's own init), the split's 256 records in batches of 16,
+     max_len 100, articles padded to 512. Check the files
+     (generations.jsonl: 256 enriched records, `checkdiff.
+     integrity_check` passes; evaluate-metrics.json: finite BLEU-1..4,
+     CIDEr, ROUGE-L; `compute_metrics` over the generations returns its
+     keys; every dumped attention row sums to 1 within 1e-2), that every
+     decode kernel's launches rose by its count a step (3 / 8 / 4 / 4)
+     times the decode steps of all batches, and the first batch against
+     the plain path on the CPU (the same weights, rebuilt; its tokens
+     first equal to the command's): step-0 log-probs within 0.1, step-0
+     tokens agreeing >= 0.75. Print the command's wall seconds, its
+     host-clock spans, captions/s and the device ms a step of one
+     profiled batch (the `evaluate` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path); the last is
 {"ok": true, "device": {...}}.
@@ -630,6 +647,17 @@ def check_tokens(tokens: np.ndarray, B: int, cfg, vocab: int) -> None:
                   "a row continues after eos")
 
 
+def greedy_launches_a_step() -> dict:
+    """Per greedy decode step of the flagship: one band call per
+    adaptive band, one attention per layer and context (image, article),
+    one conv and FFN block per layer: 3 / 8 / 4 / 4."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    n_layers = FLAGSHIP["num_layers"]
+    return {"band_topk_lse": len(FLAGSHIP["cutoff"]),
+            "decode_cross_attention": 2 * n_layers,
+            "decode_conv_block": n_layers, "decode_ffn_block": n_layers}
+
+
 def serving_phase(torch, counted):
     """Phase 4. Returns (the main-path launch count of each kernel, the
     server's predict)."""
@@ -651,13 +679,7 @@ def serving_phase(torch, counted):
     jobs = [make_job(rng, 1, [512]), make_job(rng, 1, [300]),
             make_job(rng, 1, [40]),
             make_job(rng, 16, rng.randint(20, 513, size=16))]
-    # Per decode step: one band call per adaptive band, one attention
-    # per layer and context (image, article), one conv and FFN block
-    # per layer: 3 / 8 / 4 / 4 for the flagship.
-    n_layers = FLAGSHIP["num_layers"]
-    per_step = {"band_topk_lse": len(FLAGSHIP["cutoff"]),
-                "decode_cross_attention": 2 * n_layers,
-                "decode_conv_block": n_layers, "decode_ffn_block": n_layers}
+    per_step = greedy_launches_a_step()
 
     for fn in counted.values():
         fn.launches = 0
@@ -1241,6 +1263,157 @@ def dynamic_conv_phase(torch, dc):
     return {"dynamic_conv": tally.result()}, launches
 
 
+EVAL_CONFIG = "configs/goodnews_transformer_roberta.yaml"
+
+
+def check_evaluate_files(out_dir: str, attn_dir: str, n_batches: int,
+                         cfg) -> list:
+    """Phase 7's checks of the files the command wrote. Returns each
+    batch's tokens, read back from its attention dump."""
+    import math
+
+    from news_image_caption_tpu_torch.evaluation import checkdiff
+    from news_image_caption_tpu_torch.evaluation.compute_metrics import \
+        compute_metrics
+    gen_path = f"{out_dir}/generations.jsonl"
+    with open(gen_path) as f:
+        recs = [json.loads(line) for line in f]
+    check(len(recs) == 256, f"{len(recs)} generations, expected 256")
+    check(all(k in r for r in recs for k in checkdiff.ENRICHED_FIELDS),
+          "a generation record lacks its enrichment")
+    integrity = checkdiff.integrity_check(gen_path)
+    check(integrity["ok"] and integrity["records"] == 256
+          and not integrity["problems"],
+          f"integrity check failed: {integrity}")
+    with open(f"{out_dir}/evaluate-metrics.json") as f:
+        metrics = json.load(f)
+    keys = ("bleu-1", "bleu-2", "bleu-3", "bleu-4", "cider", "rouge-l")
+    check(metrics["n_samples"] == 256
+          and all(math.isfinite(metrics[k]) for k in keys),
+          f"evaluate metrics {metrics}")
+    offline = compute_metrics(gen_path)
+    for k in ("BLEU-1", "BLEU-4", "ROUGE", "CIDEr", "All names - recall",
+              "Entity all - precision", "Generation TTR"):
+        check(k in offline, f"compute_metrics lacks {k!r}")
+    tokens, worst = [], 0.0
+    for i in range(n_batches):
+        with np.load(f"{attn_dir}/attn_{i:05d}.npz") as z:
+            tok = z["tokens"]
+            check(tok.shape == (16, cfg.max_len + 1),
+                  f"dumped tokens of shape {tok.shape}")
+            maps = [k for k in z.files if k != "tokens"]
+            check(len(maps) == 8, f"dumped maps {sorted(z.files)}")
+            for k in maps:
+                arr = z[k]
+                check(arr.shape[:2] == tok.shape, f"{k} of shape {arr.shape}")
+                worst = max(worst, float(np.abs(arr.sum(-1) - 1.0).max()))
+            tokens.append(tok)
+    print(f"  files: 256 enriched records, integrity ok, metrics"
+          f" { {k: round(metrics[k], 4) for k in keys} }, compute_metrics"
+          f" {len(offline)} keys; {n_batches} attention dumps, rows sum to 1"
+          f" within {worst:.3g} (tol 1e-2)", flush=True)
+    check(worst <= 1e-2, "a dumped attention row does not sum to 1")
+    return tokens
+
+
+def evaluate_phase(torch, counted):
+    """Phase 7. The evaluate command on the flagship config's test split,
+    then its first batch again with the command's model rebuilt: against
+    the dumped tokens, profiled, and against the plain path on the CPU.
+    Returns the command's launch count of each decode kernel and a
+    summary."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import (build_dataset,
+                                                     load_config)
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    from torch.profiler import ProfilerActivity, profile
+
+    per_step = greedy_launches_a_step()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir, attn_dir = f"{tmp}/serialization", f"{tmp}/attn"
+        overrides = json.dumps({"trainer": {"serialization_dir": out_dir}})
+        cfg = load_config(EVAL_CONFIG, overrides)
+        gcfg = cli.generation_config(cfg)
+        timings = {}
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["evaluate", EVAL_CONFIG, "--split", "test",
+                       "--dump-attention", attn_dir, "-o", overrides],
+                      timings=timings)
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counted.items()}
+        check(rc == 0, f"evaluate returned {rc}")
+        n_batches = 256 // cfg["iterator"]["batch_size"]
+        tokens = check_evaluate_files(out_dir, attn_dir, n_batches, gcfg)
+    steps = sum(decode_steps(t, gcfg.eos_id, gcfg.max_len) for t in tokens)
+    print(f"  command: {wall:.1f} s, {256 / wall:.2f} captions/s; spans"
+          f" (host clock, s) { {k: round(v, 3) for k, v in timings.items()} }",
+          flush=True)
+    for name, n in launches.items():
+        print(f"  {name}: {n} launches over {steps} steps"
+              f" (expected {per_step[name]} per step)")
+        check(n == per_step[name] * steps and n > 0,
+              f"{name} launched {n} times, expected {per_step[name] * steps}")
+
+    model = cli.evaluation_model(cfg, torch.device("cuda"))
+    weights = model.decoder.decode_weights()
+    batch_np = next(build_dataset(cfg, "test").batches(16, shuffle=False))
+    batch = {k: torch.from_numpy(batch_np[k]).cuda()
+             for k in ("image", "image_mask", "article", "article_mask")}
+    tok_k, lp_k = model.generate(batch, gcfg, weights)
+    check(bool(np.array_equal(tok_k.to(torch.int32).cpu().numpy(),
+                              tokens[0])),
+          "the rebuilt model's first batch differs from the command's")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prof_tokens, _ = model.generate(batch, gcfg, weights)
+        n = decode_steps(prof_tokens.cpu().numpy(), gcfg.eos_id, gcfg.max_len)
+        batch_wall = (time.perf_counter() - t) * 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    print(f"  profiled batch: {n} steps, wall {batch_wall:.1f} ms, device"
+          f" busy {busy:.2f} ms ({100 * busy / batch_wall:.1f}%),"
+          f" {busy / n:.4f} device ms a step", flush=True)
+
+    cpu_model = TransformerFlattened(
+        decoder=copy.deepcopy(model.decoder).to("cpu"))
+    short = dataclasses.replace(gcfg, max_len=min(16, gcfg.max_len))
+    t = time.perf_counter()
+    tok_p, lp_p = cpu_model.generate({k: v.cpu() for k, v in batch.items()},
+                                     short)
+    print(f"  plain path on the CPU, {short.max_len} steps:"
+          f" {time.perf_counter() - t:.1f} s")
+    lp_k, tok_k = lp_k.cpu(), tok_k.cpu()
+    check(bool(torch.isfinite(lp_k).all()), "non-finite log-probs")
+    e0 = (lp_k[:, 0] - lp_p[:, 0]).abs().max().item()
+    agree0 = (tok_k[:, 1] == tok_p[:, 1]).float().mean().item()
+    agree = (tok_k[:, 1:short.max_len + 1]
+             == tok_p[:, 1:]).float().mean().item()
+    print(f"  first batch, step-0 top-1 log-prob, kernel vs plain path: max"
+          f" |diff| {e0:.4g} (tol 0.1); step-0 token agreement {agree0:.3f}"
+          f" (min 0.75); token agreement over {short.max_len} steps"
+          f" {agree:.3f}", flush=True)
+    check(e0 <= 0.1, "step-0 log-probs of the kernel and plain paths differ")
+    check(agree0 >= 0.75, "step-0 tokens of the kernel and plain paths differ")
+    return launches, {
+        "config": EVAL_CONFIG, "samples": 256, "batch_size": 16,
+        "max_len": gcfg.max_len, "decode_steps": steps, "wall_s": wall,
+        "captions_per_s": 256 / wall, "spans_s": timings,
+        "profiled_batch": {"steps": n, "wall_ms": batch_wall,
+                           "device_busy_ms": busy,
+                           "device_busy_share": busy / batch_wall,
+                           "device_ms_per_step": busy / n},
+        "step0_lp_diff": e0, "step0_token_agreement": agree0,
+        "card": card_line(), "launches": launches}
+
+
 def latency_mode(torch, n_requests: int) -> None:
     """`--serving-latency N`: request latency over N requests (host
     clock, request in to tokens on the host; articles of 20-512 tokens,
@@ -1373,6 +1546,14 @@ def main() -> None:
                                                                dynamic_conv)
     by_path["dynamic_conv"] = {"conv_module": launches["dynamic_conv"]}
     timing.update(conv_timing)
+
+    print("phase 7: the evaluate command (flagship, bf16, random weights)",
+          flush=True)
+    eval_launches, eval_summary = evaluate_phase(torch, counted)
+    for name, n in eval_launches.items():
+        launches[name] += n
+        by_path[name]["evaluate"] = n
+    print(json.dumps({"evaluate": eval_summary}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

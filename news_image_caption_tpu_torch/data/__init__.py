@@ -1,1 +1,2 @@
-"""Data for the port: synthetic flagship batches (numpy)."""
+"""Data for the port (numpy): synthetic news-caption datasets and
+collation."""

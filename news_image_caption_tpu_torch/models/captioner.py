@@ -3,8 +3,9 @@
 Counterpart of `news_image_caption_tpu/models/captioner.py::
 TransformerFlattened` for training (`shift_caption`, `loss_fn`), greedy
 decoding (`_contexts`, `_check_max_len`, `generate`; `generate_full`
-through the full-vocab step) and beam search (`generate_beam`,
-impl="topk"). The decoder's weights live in the module; the generate
+through the full-vocab step), beam search (`generate_beam`,
+impl="topk") and the attention maps of given captions
+(`attention_maps`). The decoder's weights live in the module; the generate
 methods take the fused decode weights of
 `DynamicConvDecoder.decode_weights()` so a server computes them once.
 """
@@ -115,6 +116,15 @@ class TransformerFlattened:
             return self.decoder.step(tok, i, kvs, caches, weights)
 
         return generate(step, seed, config)
+
+    @torch.inference_mode()
+    def attention_maps(self, batch: Dict[str, torch.Tensor],
+                       token_ids: torch.Tensor):
+        """[L] list of {context: [B, T, S']} head-averaged attention maps
+        over token_ids (typically generated captions); plain PyTorch on
+        either device."""
+        return self.decoder.attention_maps(token_ids.long(),
+                                           self._contexts(batch))
 
     @torch.inference_mode()
     def generate_beam(self, batch: Dict[str, torch.Tensor],

@@ -5,8 +5,9 @@ the flagship structure (dynamic conv, GLU, post-LayerNorm, image and
 article contexts, tied adaptive softmax): `SumEmbedder`,
 `DynamicConvDecoderLayer` (full-sequence forward, with the training
 dropouts, and the ring-major decode step) and `DynamicConvDecoder`
-(`precompute_kv`, `hidden`, `loss`, `log_prob`, `init_cache`,
-`step_topk`, and the full-vocab `step` and `step_with_hidden`).
+(`precompute_kv`, `hidden`, `loss`, `log_prob`, `attention_maps`,
+`init_cache`, `step_topk`, and the full-vocab `step` and
+`step_with_hidden`).
 
 A training forward takes a `torch.Generator` on the model's device and
 drops as the reference does: the embeddings (`dropout`), the conv
@@ -154,23 +155,29 @@ class DynamicConvDecoderLayer(nn.Module):
                 for name in self.context_names}
 
     def forward(self, x: torch.Tensor, kv: LayerKV,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                need_attn: bool = False):
         """Full-sequence forward, x [B, T, D]; training with a
-        generator."""
+        generator. need_attn=True returns (x, {context: head-averaged
+        attention [B, T, S']}), the context attentions off the flash
+        route; otherwise x alone."""
         def drop(t, rate):
             return dropout(t, rate, generator)
 
         a, g = self.linear1(drop(x, self.input_dropout)).chunk(2, dim=-1)
         h = self.conv(a * torch.sigmoid(g), generator)
         x = self.conv_layer_norm(x + drop(self.linear2(h), self.dropout))
-        parts = []
+        parts, attns = [], {}
         for name in self.context_names:
-            y = self._attn(name).attend(x, kv[name], generator)
+            y = self._attn(name).attend(x, kv[name], generator, need_attn)
+            if need_attn:
+                y, attns[name] = y
             parts.append(self._attn_ln(name)(x + drop(y, self.dropout)))
         x = self.context_fc(torch.cat(parts, dim=-1))
         y = drop(torch.relu(self.fc1(x)), self.relu_dropout)
         y = drop(self.fc2(y), self.dropout)
-        return self.final_layer_norm(x + y)
+        x = self.final_layer_norm(x + y)
+        return (x, attns) if need_attn else x
 
     def decode_weights(self, dtype: torch.dtype) -> LayerDecodeWeights:
         w1, b1 = self.linear1.folded(dtype)
@@ -283,6 +290,22 @@ class DynamicConvDecoder(nn.Module):
         lp = self.adaptive_softmax.log_prob(x.reshape(B * T, D),
                                             self.embedder.embed_tables())
         return lp.view(B, T, self.vocab_size)
+
+    def attention_maps(self, token_ids: torch.Tensor,
+                       contexts: Dict[str, torch.Tensor]
+                       ) -> List[Dict[str, torch.Tensor]]:
+        """Per layer, {context: attention [B, T, S']} of a teacher-forced
+        pass over token_ids (head-averaged; S' counts the bias and zero
+        slots). Decoding is deterministic given its tokens, so a pass
+        over generated ids gives the attention of the steps that made
+        them."""
+        kvs = self.precompute_kv(contexts)
+        x = self.embedder(token_ids)
+        maps = []
+        for layer, kv in zip(self.layers, kvs):
+            x, attns = layer(x, kv, need_attn=True)
+            maps.append(attns)
+        return maps
 
     def init_cache(self, batch_size: int, device) -> List[torch.Tensor]:
         """Zero ring-major conv histories [K-1, B, C], one per layer

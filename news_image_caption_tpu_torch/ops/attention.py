@@ -2,9 +2,10 @@
 
 Counterpart of `news_image_caption_tpu/ops/attention.py`
 (MultiHeadAttention: `precompute_kv`, the plain full-sequence
-`attend` with its flash route, and `attend_flat_beam`). Context K/V are
-projected once per request and kept flat, [B, S', E] with S' = S + 2 (the learned bias_k /
-bias_v slot and the zero slot), beside an additive fp32 key bias
+`attend` with its flash route and its head-averaged weights, and
+`attend_flat_beam`). Context K/V are projected once per request and kept
+flat, [B, S', E] with S' = S + 2 (the learned bias_k / bias_v slot and
+the zero slot), beside an additive fp32 key bias
 [B, S'] (0 attendable, -1e9 padded): the input layout of
 `decode_cross_attention`.
 """
@@ -85,7 +86,8 @@ class MultiHeadAttention(nn.Module):
         return AttentionKV(k=k.contiguous(), v=v.contiguous(), bias=bias)
 
     def attend(self, query: torch.Tensor, kv: AttentionKV,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               need_weights: bool = False):
         """Full-sequence attention of query [B, T, E] over kv. With a
         generator (training) the probabilities are dropped at rate
         `dropout`; generator=None is evaluation.
@@ -94,12 +96,16 @@ class MultiHeadAttention(nn.Module):
         and softmax, probabilities rounded to the value dtype, the
         dropout seed drawn from the generator (the reference's Pallas
         path). Otherwise the reference's XLA path: scores in the compute
-        dtype, softmax in fp32, dropout on the rounded probabilities."""
+        dtype, softmax in fp32, dropout on the rounded probabilities.
+
+        need_weights=True takes the XLA path and returns (output, the
+        probabilities averaged over heads [B, T, S'] in the value
+        dtype, before dropout); otherwise the output alone."""
         B, T, _ = query.shape
         H, hd = self.num_heads, self.head_dim
         S = kv.k.shape[1]
         q = self.q_proj(query) * (hd ** -0.5)
-        if self.use_flash and T > 1:
+        if self.use_flash and T > 1 and not need_weights:
             p = self.dropout if generator is not None else 0.0
             if p > 0.0:
                 seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
@@ -113,9 +119,11 @@ class MultiHeadAttention(nn.Module):
                               kv.k.view(B, S, H, hd))
         scores = scores.float() + kv.bias[:, None, None, :]
         probs = torch.softmax(scores, dim=-1).to(kv.v.dtype)
+        weights = probs.mean(dim=1) if need_weights else None
         probs = dropout(probs, self.dropout, generator)
         out = torch.einsum("bhts,bshd->bthd", probs, kv.v.view(B, S, H, hd))
-        return self.out_proj(out.reshape(B, T, self.embed_dim))
+        out = self.out_proj(out.reshape(B, T, self.embed_dim))
+        return (out, weights) if need_weights else out
 
     def attend_flat_beam(self, query: torch.Tensor, kv: AttentionKV,
                          beam: int) -> torch.Tensor:
