@@ -70,7 +70,23 @@ Phases, each fatal on failure (exit code 1, no result line):
      first equal to the command's): step-0 log-probs within 0.1, step-0
      tokens agreeing >= 0.75. Print the command's wall seconds, its
      host-clock spans, captions/s and the device ms a step of one
-     profiled batch (the `evaluate` JSON line).
+     profiled batch (the `evaluate` JSON line);
+  8. the train command, `cli.main(["train", "configs/goodnews_transformer_
+     roberta.yaml", "-o", ...])`, at full width and depth (bf16_o2, flash,
+     the YAML's dropouts, B=16) with only amounts cut (64 / 32 / 32 train
+     / val / test records, 2 epochs, keep 2, log_every 2, t_total 100),
+     into a temporary directory removed afterwards; then `evaluate -m
+     best` and `-m avg:2` from its checkpoints. Check every logged loss
+     finite and no step skipped, val loss falling, meta.json's steps and
+     best, the flash launches (8 forward and 8 backward a train step, 8
+     forward a val batch), the decode launches (3 / 8 / 4 / 4 times the
+     steps the evaluate batches ran), that the decoded model holds best.pt's
+     params (or the fp64 mean of the two checkpoints) cast to bf16 tensor
+     for tensor, the files as in phase 7, and the best checkpoint's loss
+     on 4 rows against the plain path on the CPU. Print the command's
+     wall, epochs, step times, input_wait, checkpoint snapshot and write
+     times, peak memory, and evaluate's captions/s and steps (the
+     `train_command` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path); the last is
 {"ok": true, "device": {...}}.
@@ -1267,28 +1283,29 @@ EVAL_CONFIG = "configs/goodnews_transformer_roberta.yaml"
 
 
 def check_evaluate_files(out_dir: str, attn_dir: str, n_batches: int,
-                         cfg) -> list:
-    """Phase 7's checks of the files the command wrote. Returns each
-    batch's tokens, read back from its attention dump."""
+                         cfg, n_records: int = 256, suffix: str = "") -> list:
+    """Phase 7's (and 8's) checks of the files the command wrote.
+    Returns each batch's tokens, read back from its attention dump."""
     import math
 
     from news_image_caption_tpu_torch.evaluation import checkdiff
     from news_image_caption_tpu_torch.evaluation.compute_metrics import \
         compute_metrics
-    gen_path = f"{out_dir}/generations.jsonl"
+    gen_path = f"{out_dir}/generations{suffix}.jsonl"
     with open(gen_path) as f:
         recs = [json.loads(line) for line in f]
-    check(len(recs) == 256, f"{len(recs)} generations, expected 256")
+    check(len(recs) == n_records,
+          f"{len(recs)} generations, expected {n_records}")
     check(all(k in r for r in recs for k in checkdiff.ENRICHED_FIELDS),
           "a generation record lacks its enrichment")
     integrity = checkdiff.integrity_check(gen_path)
-    check(integrity["ok"] and integrity["records"] == 256
+    check(integrity["ok"] and integrity["records"] == n_records
           and not integrity["problems"],
           f"integrity check failed: {integrity}")
-    with open(f"{out_dir}/evaluate-metrics.json") as f:
+    with open(f"{out_dir}/evaluate-metrics{suffix}.json") as f:
         metrics = json.load(f)
     keys = ("bleu-1", "bleu-2", "bleu-3", "bleu-4", "cider", "rouge-l")
-    check(metrics["n_samples"] == 256
+    check(metrics["n_samples"] == n_records
           and all(math.isfinite(metrics[k]) for k in keys),
           f"evaluate metrics {metrics}")
     offline = compute_metrics(gen_path)
@@ -1308,7 +1325,7 @@ def check_evaluate_files(out_dir: str, attn_dir: str, n_batches: int,
                 check(arr.shape[:2] == tok.shape, f"{k} of shape {arr.shape}")
                 worst = max(worst, float(np.abs(arr.sum(-1) - 1.0).max()))
             tokens.append(tok)
-    print(f"  files: 256 enriched records, integrity ok, metrics"
+    print(f"  files: {n_records} enriched records, integrity ok, metrics"
           f" { {k: round(metrics[k], 4) for k in keys} }, compute_metrics"
           f" {len(offline)} keys; {n_batches} attention dumps, rows sum to 1"
           f" within {worst:.3g} (tol 1e-2)", flush=True)
@@ -1412,6 +1429,254 @@ def evaluate_phase(torch, counted):
                            "device_ms_per_step": busy / n},
         "step0_lp_diff": e0, "step0_token_agreement": agree0,
         "card": card_line(), "launches": launches}
+
+
+def train_command_overrides(out_dir: str) -> dict:
+    """Phase 8's cuts of the flagship YAML: amounts only (records,
+    epochs, checkpoints kept, the log interval, the schedule's length),
+    no width or depth."""
+    return {"dataset": {"train": {"size": 64}, "val": {"size": 32},
+                        "test": {"size": 32}},
+            "trainer": {"num_epochs": 2, "num_serialized_models_to_keep": 2,
+                        "log_every": 2, "optimizer": {"t_total": 100},
+                        "serialization_dir": out_dir}}
+
+
+def fp64_mean(torch, trees, dtype):
+    """The store's `avg`: fp64 sum over the trees, divided, cast back."""
+    out = {}
+    for k in trees[0]:
+        acc = torch.zeros(trees[0][k].shape, dtype=torch.float64)
+        for t in trees:
+            acc += t[k].to(torch.float64)
+        out[k] = (acc / len(trees)).to(dtype)
+    return out
+
+
+def train_command_phase(torch, flash, counted):
+    """Phase 8. The train command on the flagship YAML (bf16_o2, flash,
+    the YAML's dropouts, B=16) with phase 8's cuts, then `evaluate -m
+    best` and `-m avg:2` from its checkpoints. Returns each kernel's
+    launches on the two paths and a summary."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import (FLAGSHIP,
+                                                     build_dataset,
+                                                     load_config)
+    from news_image_caption_tpu_torch.data.synthetic import LOSS_KEYS
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    from news_image_caption_tpu_torch.training.train_step import \
+        make_eval_step
+
+    flash_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+                     "flash_attention_bwd": flash.flash_attention_bwd}
+    all_counted = {**flash_counted, **counted}
+    per_step = greedy_launches_a_step()
+    n_layers = FLAGSHIP["num_layers"]
+    # A fresh temporary directory, removed with everything in it; the
+    # command's checkpoints hold about 6.6 GB.
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = f"{tmp}/serialization"
+        overrides = train_command_overrides(out_dir)
+        print(f"  cuts of {EVAL_CONFIG}: {json.dumps(overrides)}", flush=True)
+        ovr = json.dumps(overrides)
+        cfg = load_config(EVAL_CONFIG, ovr)
+        B = cfg["iterator"]["batch_size"]
+        n_train = cfg["dataset"]["train"]["size"]
+        n_val = cfg["dataset"]["val"]["size"]
+        n_test = cfg["dataset"]["test"]["size"]
+        epochs = cfg["trainer"]["num_epochs"]
+        steps = epochs * (n_train // B)
+        val_batches = epochs * (n_val // B)
+
+        # The train command, every kernel's count set to 0 just before.
+        timings = {}
+        for fn in all_counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rc = cli.main(["train", EVAL_CONFIG, "-o", ovr], timings=timings)
+        wall = time.perf_counter() - t
+        train_launches = {n: fn.launches for n, fn in all_counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(rc == 0, f"train returned {rc}")
+        want = {"flash_attention_fwd": 2 * n_layers * (steps + val_batches),
+                "flash_attention_bwd": 2 * n_layers * steps,
+                **{n: 0 for n in counted}}
+        how = {"flash_attention_fwd": f"{2 * n_layers} a train step x"
+                                      f" {steps} + {2 * n_layers} a val"
+                                      f" batch x {val_batches}",
+               "flash_attention_bwd": f"{2 * n_layers} a train step x"
+                                      f" {steps}"}
+        for name, n in train_launches.items():
+            print(f"  train: {name} {n} launches (expected {want[name]}"
+                  + (f": {how[name]})" if name in how else ")"))
+            check(n == want[name], f"{name} launched {n} times in train,"
+                  f" expected {want[name]}")
+        with open(f"{out_dir}/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r["split"] == "train"]
+        val_recs = [r for r in recs if r["split"] == "val"]
+        print("  metrics.jsonl: " + "; ".join(
+            f"{r['split']} step {r['step']} loss {r['loss']:.4f}"
+            + (f" input_wait {r['input_wait']}" if "input_wait" in r else "")
+            for r in recs), flush=True)
+        check(len(train_recs) == steps // cfg["trainer"]["log_every"]
+              and len(val_recs) == epochs, f"records {recs}")
+        check(all(np.isfinite(r["loss"]) for r in recs),
+              "a logged loss is not finite")
+        check(all(r["skipped"] == 0 for r in train_recs),
+              "a train step was skipped")
+        check(val_recs[1]["loss"] < val_recs[0]["loss"],
+              f"val loss did not fall: {val_recs[0]['loss']:.4f} ->"
+              f" {val_recs[1]['loss']:.4f}")
+        ckpt_dir = f"{out_dir}/checkpoints"
+        with open(f"{ckpt_dir}/meta.json") as f:
+            meta = json.load(f)
+        per_epoch = n_train // B
+        check([c["step"] for c in meta["checkpoints"]]
+              == [per_epoch, 2 * per_epoch], f"meta.json {meta}")
+        best_step = min(meta["checkpoints"],
+                        key=lambda c: c["metrics"]["loss"])["step"]
+        check(meta["best"]["step"] == best_step, f"best of {meta}")
+
+        step_s = sorted(timings["step_s"])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        epoch_s = [end - start for start, end in timings["epochs"]]
+        saves = timings["checkpoints"]
+        # The first checkpoint's write against the next epoch (host clock).
+        first = saves[0]
+        e1_start, e1_end = timings["epochs"][1]
+        w_start = first["write_end"] - first["write_s"]
+        overlap = max(0.0, min(first["write_end"], e1_end)
+                      - max(w_start, e1_start))
+        input_wait = [r["input_wait"] for r in train_recs]
+        epochs_txt = [round(e, 2) for e in epoch_s]
+        saves_txt = [(round(c["snapshot_s"], 3), round(c["write_s"], 3))
+                     for c in saves]
+        print(f"  train command: {wall:.1f} s; epochs {epochs_txt} s; train"
+              f" step median {step_ms:.2f} ms ({B / step_ms * 1e3:.1f}"
+              f" samples/s; host clock, the step's guard reads the device);"
+              f" input_wait {input_wait}; saves (snapshot s, write s)"
+              f" {saves_txt}; the step-{first['step']} write overlaps epoch 1"
+              f" by {overlap:.2f} s; peak device memory {peak:.2f} GiB",
+              flush=True)
+
+        # evaluate -m best and -m avg:2, the decoded model captured.
+        gcfg = cli.generation_config(cfg)
+        captured = []
+        real = cli.checkpoint_model
+
+        def capture(*args, **kw):
+            model = real(*args, **kw)
+            captured.append(model)
+            return model
+
+        cli.checkpoint_model = capture
+        eval_launches = dict.fromkeys(all_counted, 0)
+        evals = {}
+        try:
+            for which, suffix in (("best", "_best"), ("avg:2", "_avg2")):
+                attn_dir = f"{tmp}/attn{suffix}"
+                for fn in all_counted.values():
+                    fn.launches = 0
+                t = time.perf_counter()
+                rc = cli.main(["evaluate", EVAL_CONFIG, "-o", ovr, "-m",
+                               which, "-s", suffix, "--dump-attention",
+                               attn_dir])
+                e_wall = time.perf_counter() - t
+                got = {n: fn.launches for n, fn in all_counted.items()}
+                check(rc == 0, f"evaluate -m {which} returned {rc}")
+                tokens = check_evaluate_files(out_dir, attn_dir, n_test // B,
+                                              gcfg, n_test, suffix)
+                n_steps = [decode_steps(tk, gcfg.eos_id, gcfg.max_len)
+                           for tk in tokens]
+                lengths = []
+                for tk in tokens:
+                    for row in tk:
+                        hits = np.flatnonzero(row[1:] == gcfg.eos_id)
+                        lengths.append(int(hits[0]) + 1 if hits.size
+                                       else gcfg.max_len)
+                total = sum(n_steps)
+                for name, n in got.items():
+                    want = per_step.get(name, 0) * total
+                    check(n == want, f"evaluate -m {which}: {name} launched"
+                          f" {n} times, expected {want}")
+                    eval_launches[name] += n
+                evals[which] = {"wall_s": e_wall,
+                                "captions_per_s": n_test / e_wall,
+                                "steps_per_batch": n_steps,
+                                "mean_steps_per_caption":
+                                    float(np.mean(lengths)),
+                                "captions_ending_in_eos": sum(
+                                    n < gcfg.max_len for n in lengths),
+                                "launches": got}
+                print(f"  evaluate -m {which}: {e_wall:.1f} s,"
+                      f" {n_test / e_wall:.2f} captions/s, steps a batch"
+                      f" {n_steps}, mean steps a caption"
+                      f" {np.mean(lengths):.2f}, launches {got}", flush=True)
+        finally:
+            cli.checkpoint_model = real
+        check(len(captured) == 2, "evaluate did not load a checkpoint")
+
+        # The decoded models hold the checkpoints' params cast to bf16.
+        best = torch.load(f"{ckpt_dir}/best.pt", weights_only=True)["params"]
+        pair = [torch.load(f"{ckpt_dir}/ckpt_{c['step']}.pt",
+                           weights_only=True)["params"]
+                for c in meta["checkpoints"]]
+        for name, want_params in (
+                ("best", best),
+                ("avg:2", fp64_mean(torch, pair, pair[0][next(iter(pair[0]))]
+                                    .dtype))):
+            model = captured[0 if name == "best" else 1]
+            sd = model.decoder.state_dict()
+            check(set(sd) == set(want_params), f"{name}: parameter names")
+            bad = [k for k, v in sd.items()
+                   if v.dtype != torch.bfloat16
+                   or not torch.equal(v.cpu(), want_params[k].bfloat16())]
+            check(not bad, f"evaluate -m {name}: the decoded model differs"
+                  f" from the checkpoint in {bad[:3]}")
+        print(f"  evaluate -m best decodes best.pt's params (step"
+              f" {meta['best']['step']}), -m avg:2 the fp64 mean of steps"
+              f" {[c['step'] for c in meta['checkpoints']]}, tensor for"
+              f" tensor in bf16", flush=True)
+
+        # Kernel path vs plain path: the best checkpoint's deterministic
+        # loss on 4 val rows, on the card and on the CPU.
+        model = captured[0]
+        rows_np = next(build_dataset(cfg, "val").batches(4, shuffle=False))
+        rows = {k: torch.from_numpy(rows_np[k]) for k in LOSS_KEYS}
+        got_loss = make_eval_step(model.loss_fn)(
+            {k: v.cuda() for k, v in rows.items()})["loss"].item()
+        cpu_model = TransformerFlattened(
+            decoder=copy.deepcopy(model.decoder).to("cpu"))
+        want_loss = make_eval_step(cpu_model.loss_fn)(rows)["loss"].item()
+        print(f"  best checkpoint's deterministic loss on 4 rows: kernel path"
+              f" {got_loss:.5f}, plain path on the CPU {want_loss:.5f}"
+              f" bits/token; |diff| {abs(got_loss - want_loss):.4g}"
+              f" (tol 0.01 |plain|)", flush=True)
+        check(abs(got_loss - want_loss) <= 0.01 * abs(want_loss),
+              "the best checkpoint's kernel and plain losses differ")
+    summary = {
+        "config": EVAL_CONFIG, "cuts": overrides["dataset"] | {
+            k: v for k, v in overrides["trainer"].items()
+            if k != "serialization_dir"},
+        "batch_size": B, "train_steps": steps, "val_batches": val_batches,
+        "wall_s": wall, "epoch_s": epoch_s, "step_ms_median": step_ms,
+        "samples_per_s": B / step_ms * 1e3, "step_s": timings["step_s"],
+        "input_wait": input_wait,
+        "checkpoint_saves": [{"step": c["step"], "snapshot_s": c["snapshot_s"],
+                              "write_s": c["write_s"]} for c in saves],
+        "first_write_overlaps_next_epoch_s": overlap,
+        "peak_device_memory_gib": peak,
+        "val_loss": [r["loss"] for r in val_recs],
+        "best_step": meta["best"]["step"],
+        "evaluate": evals, "best_loss_4_rows": {"kernel": got_loss,
+                                                "plain": want_loss},
+        "card": card_line()}
+    return train_launches, eval_launches, summary
 
 
 def latency_mode(torch, n_requests: int) -> None:
@@ -1554,6 +1819,17 @@ def main() -> None:
         launches[name] += n
         by_path[name]["evaluate"] = n
     print(json.dumps({"evaluate": eval_summary}), flush=True)
+
+    print("phase 8: the train command, then evaluate from its checkpoints"
+          " (flagship, bf16_o2)", flush=True)
+    cmd_launches, ckpt_launches, cmd_summary = train_command_phase(
+        torch, flash_attention, counted)
+    for name in cmd_launches:
+        n = cmd_launches[name] + ckpt_launches[name]
+        launches[name] += n
+        by_path[name]["train_command"] = cmd_launches[name]
+        by_path[name]["evaluate_checkpoint"] = ckpt_launches[name]
+    print(json.dumps({"train_command": cmd_summary}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

@@ -1,26 +1,49 @@
-"""Command line of the port: `evaluate` a YAML config on a split.
+"""Command line of the port: `train` a YAML config, `evaluate` it on a
+split.
 
-Counterpart of `news_image_caption_tpu/cli.py` (`main`,
-`evaluate_command`): build the config's model and dataset split, caption
-every batch greedily, write `generations{suffix}.jsonl` (each record
-enriched with names, entities, readability and TTR unless `--no-enrich`)
-and `evaluate-metrics{suffix}.json` (BLEU-1..4, CIDEr, ROUGE-L) into the
-serialization directory, print the metrics as one JSON line and, with
-`--dump-attention DIR`, write each batch's attention maps over its
-captions to `DIR/attn_{batch:05d}.npz`.
+Counterpart of `news_image_caption_tpu/cli.py` (`main`, `train_command`,
+`evaluate_command`).
 
+`train` builds the config's model, optimizer (`trainer.optimizer`,
+wrapped by `accumulate_gradients` for `trainer.accumulate_steps`) and
+the state that `trainer.mixed_precision` names, then runs the `Trainer`
+over the train split (shuffled with the epoch as seed) and validates on
+the val split, both through `DeviceLoader`. Checkpoints, `meta.json`,
+`metrics.jsonl` and TensorBoard scalars go to the serialization
+directory (`-s`, else `trainer.serialization_dir`, else
+`serialization/` beside the config); `-r` resumes from the latest
+checkpoint. With no checkpoint the weights are random, drawn in fp32
+from a `torch.Generator` seeded with `trainer.seed` (default 0).
+
+`evaluate` captions every batch of the split greedily, writes
+`generations{suffix}.jsonl` (each record enriched with names, entities,
+readability and TTR unless `--no-enrich`) and
+`evaluate-metrics{suffix}.json` (BLEU-1..4, CIDEr, ROUGE-L) into the
+serialization directory, prints the metrics as one JSON line and, with
+`--dump-attention DIR`, writes each batch's attention maps over its
+captions to `DIR/attn_{batch:05d}.npz`. With a `checkpoints/` directory
+there it evaluates the checkpoint `-m` names (`best` by default,
+`latest`, a step, or `avg:N` for the mean of the newest N); `-m` without
+that directory, or a checkpoint that is not there, raises. With neither
+it warns and draws random weights from a generator seeded with 0.
+
+    python -m news_image_caption_tpu_torch.cli train \\
+        configs/tiny_test.yaml --platform cpu -s DIR
     python -m news_image_caption_tpu_torch.cli evaluate \\
-        configs/tiny_test.yaml --platform cpu
+        configs/tiny_test.yaml --platform cpu \\
+        -o '{"trainer": {"serialization_dir": "DIR"}}'
 
-The command runs on the card unless `--platform cpu` is given, and
-raises where there is no card. On the card the decoder runs in bf16
-(the kernels' type) and each step through the four decode kernels; on
-the CPU it runs in the config's dtype (float32 unless set) through their
-plain versions. The reference's train, serve, port and preprocess
-commands are not ported, and neither are checkpoints, speculative
-decoding, sampling or quantized K/V: each raises NotImplementedError
-naming its ROADMAP Queue 1 item. With no checkpoint, the weights are
-random, drawn from a `torch.Generator` seeded with 0.
+Both run on the card unless `--platform cpu` is given, and raise where
+there is no card. On the card the model computes in bf16 (the kernels'
+type), except that `train` at fp32 computes in fp32 and so raises for a
+model with `use_flash_train` (the flash kernels take bf16); `evaluate`
+casts the checkpoint's params to bf16 and decodes through the four
+decode kernels. On the CPU `train` computes in the precision's dtype and
+`evaluate` in the config's (float32 unless set), through the kernels'
+plain versions. The reference's serve, port and preprocess commands are
+not ported, and neither are speculative decoding, sampling, quantized
+K/V, meshes or multi-process training: each raises NotImplementedError
+naming its ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
@@ -30,35 +53,59 @@ import json
 import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from news_image_caption_tpu_torch.config import (build_dataset, build_model,
-                                                 load_config)
+                                                 build_optimizer,
+                                                 decoder_kwargs, load_config)
+from news_image_caption_tpu_torch.data.loader import DeviceLoader
+from news_image_caption_tpu_torch.data.synthetic import LOSS_KEYS
 from news_image_caption_tpu_torch.evaluation.enrich import enrich_record
 from news_image_caption_tpu_torch.evaluation.metrics import (BleuScorer,
                                                              CiderScorer,
                                                              RougeScorer)
 from news_image_caption_tpu_torch.generation.generator import \
     GenerationConfig
+from news_image_caption_tpu_torch.training.checkpoint import (CheckpointStore,
+                                                              check_layout)
+from news_image_caption_tpu_torch.training.optim import accumulate_gradients
+from news_image_caption_tpu_torch.training.train_step import (
+    create_o2_train_state, create_train_state)
+from news_image_caption_tpu_torch.training.trainer import (PRECISIONS,
+                                                           Trainer,
+                                                           TrainerConfig)
 
-INIT_SEED = 0   # the random init's seed when there is no checkpoint
+INIT_SEED = 0   # evaluate's random init seed when there is no checkpoint
 
 
 def main(argv: Optional[list] = None, *,
-         timings: Optional[Dict[str, float]] = None) -> int:
-    """timings, if given, gets `evaluate`'s host-clock spans."""
+         timings: Optional[Dict[str, Any]] = None) -> int:
+    """timings, if given, gets the command's host-clock spans
+    (`evaluate`) or its epochs', steps' and checkpoints' times
+    (`train`)."""
     p = argparse.ArgumentParser(
         prog="python -m news_image_caption_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
+    pt = sub.add_parser("train", help="train a model from a YAML config")
+    pt.add_argument("param_path")
+    pt.add_argument("-o", "--overrides", default=None,
+                    help="JSON dict merged over the YAML config")
+    pt.add_argument("-r", "--recover", action="store_true",
+                    help="resume from the latest checkpoint")
+    pt.add_argument("-s", "--serialization-dir", default=None)
+    pt.add_argument("--platform", default=None, choices=("cpu", "cuda"),
+                    help="cpu: the plain versions on the CPU; default: the "
+                         "card")
     pe = sub.add_parser("evaluate", help="generate + score on a split")
     pe.add_argument("param_path")
     pe.add_argument("-o", "--overrides", default=None,
                     help="JSON dict merged over the YAML config")
     pe.add_argument("-m", "--model-path", default=None,
-                    help="checkpoint to load (not ported yet)")
+                    help="checkpoint to load: best (default), latest, a "
+                         "step, or avg:N")
     pe.add_argument("-s", "--suffix", default="")
     pe.add_argument("--split", default="test")
     pe.add_argument("--no-enrich", action="store_true",
@@ -70,6 +117,8 @@ def main(argv: Optional[list] = None, *,
                     help="write per-batch attention maps (.npz) over the "
                          "generated captions to DIR")
     args = p.parse_args(argv)
+    if args.command == "train":
+        return train_command(args, timings)
     return evaluate_command(args, timings)
 
 
@@ -104,19 +153,160 @@ def evaluation_model(cfg: Dict, device: torch.device):
     """The config's model with the command's random init: bf16 on the
     card, the config's dtype on the CPU."""
     generator = torch.Generator(device=device).manual_seed(INIT_SEED)
-    dtype = torch.bfloat16 if device.type == "cuda" else None
-    model = build_model(cfg, device, dtype, generator)
+    model = build_model(cfg, device, _evaluate_dtype(device), generator)
     model.decoder.eval()
     return model
+
+
+def training_model(cfg: Dict, device: torch.device, seed: int):
+    """The config's model in fp32 with the train command's random init,
+    drawn from a generator seeded with `seed`."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return build_model(cfg, device, torch.float32, generator)
+
+
+def _evaluate_dtype(device: torch.device) -> Optional[torch.dtype]:
+    return torch.bfloat16 if device.type == "cuda" else None
 
 
 def _device(platform: Optional[str]) -> torch.device:
     if platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("evaluate: no CUDA device; pass --platform cpu to "
-                           "run the plain versions on the CPU")
+        raise RuntimeError("no CUDA device; pass --platform cpu to run the "
+                           "plain versions on the CPU")
     return torch.device("cuda")
+
+
+def _serialization_dir(cfg: Dict, param_path: str,
+                       override: Optional[str] = None) -> str:
+    return (override or cfg.get("trainer", {}).get("serialization_dir")
+            or os.path.join(os.path.dirname(param_path) or ".",
+                            "serialization"))
+
+
+def _precision(cfg: Dict) -> str:
+    precision = cfg.get("trainer", {}).get("mixed_precision") or "fp32"
+    if precision not in PRECISIONS:
+        raise ValueError(f"trainer.mixed_precision {precision!r}: the port "
+                         "has fp32, bf16 and bf16_o2")
+    return precision
+
+
+def _optimizer(cfg: Dict):
+    """The config's optimizer, wrapped for `trainer.accumulate_steps`."""
+    every = int(cfg.get("trainer", {}).get("accumulate_steps", 1))
+    return accumulate_gradients(build_optimizer(cfg), every)
+
+
+def train_state(cfg: Dict, model, tx, precision: str,
+                device: torch.device):
+    """(the model that computes, its TrainState) for `precision` from
+    `model`, the config's model in fp32: fp32 trains `model` itself;
+    bf16 keeps its fp32 parameters as the state's and computes in a bf16
+    copy; bf16_o2 stores the bf16 copy's parameters, `model`'s values
+    as the fp32 master."""
+    if precision == "fp32":
+        return model, create_train_state(model.decoder, tx)
+    compute = build_model(cfg, device, torch.bfloat16)
+    if precision == "bf16":
+        return compute, create_train_state(model.decoder, tx,
+                                           compute=compute.decoder)
+    return compute, create_o2_train_state(compute.decoder, tx,
+                                          master=model.decoder)
+
+
+def _loss_batches(batches):
+    """The keys the loss reads, so the loader moves nothing else."""
+    for b in batches:
+        yield {k: b[k] for k in LOSS_KEYS}
+
+
+def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
+    cfg = load_config(args.param_path, args.overrides)
+    tcfg = cfg.get("trainer", {})
+    for key in ("mesh", "distributed"):
+        if tcfg.get(key):
+            raise NotImplementedError(
+                f"trainer.{key}: multi-device training is not ported yet "
+                "(ROADMAP Queue 1 item 11)")
+    fmt = tcfg.get("checkpoint_format", "msgpack")
+    if fmt == "sharded":
+        raise NotImplementedError(
+            "trainer.checkpoint_format 'sharded' is not ported yet (ROADMAP "
+            "Queue 1 item 11)")
+    if fmt != "msgpack":
+        raise ValueError(f"unknown trainer.checkpoint_format {fmt!r}; use "
+                         "'msgpack' (the port's single files) or 'sharded'")
+    device = _device(args.platform)
+    precision = _precision(cfg)
+    if device.type == "cuda" and precision == "fp32" \
+            and decoder_kwargs(cfg).get("use_flash_train"):
+        raise ValueError(
+            "trainer.mixed_precision fp32 on the card with "
+            "use_flash_train: the flash kernels take bf16 only; choose "
+            "mixed_precision bf16 or bf16_o2, or set use_flash_train: "
+            "false to train through the plain attention")
+    serialization_dir = _serialization_dir(cfg, args.param_path,
+                                           args.serialization_dir)
+    tx = _optimizer(cfg)
+    model, state = train_state(
+        cfg, training_model(cfg, device, int(tcfg.get("seed", 0))), tx,
+        precision, device)
+    train_ds = build_dataset(cfg, "train")
+    val_ds = build_dataset(cfg, "val")
+    batch_size = cfg.get("iterator", {}).get("batch_size", 16)
+    trainer = Trainer(model.loss_fn, tx, TrainerConfig(
+        num_epochs=tcfg.get("num_epochs", 10),
+        patience=tcfg.get("patience"),
+        keep_checkpoints=tcfg.get("num_serialized_models_to_keep", 10),
+        validation_metric=tcfg.get("validation_metric", "loss"),
+        maximize_metric=tcfg.get("maximize_metric", False),
+        serialization_dir=serialization_dir,
+        skip_nan_batches=tcfg.get("skip_nan_batches", True),
+        mixed_precision=precision,
+        log_every=tcfg.get("log_every", 40),
+        summary_interval=tcfg.get("summary_interval", 512),
+        profile_steps=tcfg.get("profile_steps", 0),
+        seed=tcfg.get("seed", 0)))
+
+    def train_batches(epoch):
+        return DeviceLoader(_loss_batches(
+            train_ds.batches(batch_size, seed=epoch)), device)
+
+    def val_batches(epoch):
+        return DeviceLoader(_loss_batches(
+            val_ds.batches(batch_size, shuffle=False)), device)
+
+    trainer.train(state, train_batches, val_batches, recover=args.recover)
+    if timings is not None:
+        timings.update(epochs=trainer.epoch_times,
+                       step_s=trainer.step_seconds,
+                       checkpoints=trainer.store.timings)
+    return 0
+
+
+def checkpoint_model(cfg: Dict, ckpt_dir: str, which: str,
+                     device: torch.device):
+    """The config's model holding the params of checkpoint `which`
+    (best, latest, a step or avg:N, their fp64 mean), cast to the
+    evaluate dtype. The params must have the model's names and shapes in
+    the training precision's stored dtype (bf16 for bf16_o2, else fp32),
+    so a checkpoint of another model or precision raises."""
+    stored = (torch.bfloat16 if _precision(cfg) == "bf16_o2"
+              else torch.float32)
+    store = CheckpointStore(ckpt_dir)
+    if which.startswith("avg:"):
+        params = store.read_averaged(last_n=int(which[4:]), key="params")
+    else:
+        params = store.read(which)["params"]
+    model = build_model(cfg, device, _evaluate_dtype(device))
+    template = {k: torch.empty(p.shape, dtype=stored, device="meta")
+                for k, p in model.decoder.named_parameters()}
+    check_layout(template, params, "params")
+    model.decoder.load_state_dict(params)
+    model.decoder.eval()
+    return model
 
 
 def evaluate_command(args,
@@ -124,18 +314,19 @@ def evaluate_command(args,
     cfg = load_config(args.param_path, args.overrides)
     device = _device(args.platform)
     gcfg = generation_config(cfg)
-    out_dir = (cfg.get("trainer", {}).get("serialization_dir")
-               or os.path.join(os.path.dirname(args.param_path) or ".",
-                               "serialization"))
+    out_dir = _serialization_dir(cfg, args.param_path)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
-    if os.path.isdir(ckpt_dir) or args.model_path:
-        raise NotImplementedError(
-            f"loading a checkpoint ({args.model_path or ckpt_dir}) is not "
-            "ported yet (ROADMAP Queue 1 item 5)")
     ds = build_dataset(cfg, args.split)
-    print(f"warning: no checkpoint in {ckpt_dir}; using random init "
-          f"(torch.Generator seeded with {INIT_SEED})", file=sys.stderr)
-    model = evaluation_model(cfg, device)
+    if os.path.isdir(ckpt_dir):
+        model = checkpoint_model(cfg, ckpt_dir, args.model_path or "best",
+                                 device)
+    elif args.model_path:
+        raise FileNotFoundError(f"-m {args.model_path}: no checkpoints "
+                                f"directory {ckpt_dir}")
+    else:
+        print(f"warning: no checkpoint in {ckpt_dir}; using random init "
+              f"(torch.Generator seeded with {INIT_SEED})", file=sys.stderr)
+        model = evaluation_model(cfg, device)
     metrics = evaluate(
         model, ds, gcfg, out_dir,
         batch_size=cfg.get("iterator", {}).get("batch_size", 16),

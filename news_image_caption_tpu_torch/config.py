@@ -10,12 +10,13 @@ decoder's dropouts and flash switch, `iterator.batch_size`,
 `trainer.mixed_precision` is bf16_o2.
 
 Counterpart of `news_image_caption_tpu/config.py` (`load_config`,
-`merge_overrides`, `build_model`, `build_dataset`). The YAML files are
-read by `yaml_subset.safe_load`, the port's own reader of the subset
-they use. `build_model` builds `transformer_flattened` with the
-`dynamic_conv_decoder_flattened` decoder; the decoder options the port
-implements at one value only, and every other model type, raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+`merge_overrides`, `build_model`, `build_dataset`, `build_optimizer`).
+The YAML files are read by `yaml_subset.safe_load`, the port's own
+reader of the subset they use. `build_model` builds
+`transformer_flattened` with the `dynamic_conv_decoder_flattened`
+decoder; the decoder options the port implements at one value only, and
+every other model type, raise `NotImplementedError` naming the ROADMAP
+item that ports them. `build_optimizer` builds `bert_adam`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from news_image_caption_tpu_torch.data.dataset import SyntheticNewsDataset
 from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
+from news_image_caption_tpu_torch.training.optim import make_bert_adam
 from news_image_caption_tpu_torch.yaml_subset import safe_load
 
 FLAGSHIP = dict(
@@ -194,7 +196,34 @@ def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:
     if dtype_ == "nics_shards":
         raise NotImplementedError(
             "dataset type 'nics_shards' is not ported yet (ROADMAP Queue 1 "
-            "item 5)")
+            "item 5b)")
     if dtype_ != "synthetic_news":
         raise KeyError(f"unknown dataset type {dtype_!r}")
     return SyntheticNewsDataset(**dcfg)
+
+
+def build_optimizer(cfg: Dict):
+    """The `trainer.optimizer` block's optimizer: `bert_adam` with the
+    reference's defaults and key names (`e` is eps). An unknown key
+    raises ValueError, so a misspelled hyperparameter never trains at
+    its default; `noam` and `gen1_adam` come with their model families
+    (ROADMAP Queue 1 item 10)."""
+    ocfg = copy.deepcopy(cfg.get("trainer", {}).get(
+        "optimizer", {"type": "bert_adam"}))
+    otype = ocfg.pop("type")
+    if otype in ("noam", "gen1_adam"):
+        raise NotImplementedError(
+            f"optimizer type {otype!r} is not ported yet (ROADMAP Queue 1 "
+            "item 10)")
+    if otype != "bert_adam":
+        raise KeyError(f"unknown optimizer type {otype!r}")
+    tx = make_bert_adam(
+        lr=ocfg.pop("lr", 1e-4), t_total=ocfg.pop("t_total", 437600),
+        warmup=ocfg.pop("warmup", 0.05), b1=ocfg.pop("b1", 0.9),
+        b2=ocfg.pop("b2", 0.98), eps=ocfg.pop("e", 1e-6),
+        weight_decay=ocfg.pop("weight_decay", 1e-5),
+        max_grad_norm=ocfg.pop("max_grad_norm", 0.1))
+    if ocfg:
+        raise ValueError(f"unknown {otype} optimizer config keys: "
+                         f"{sorted(ocfg)}")
+    return tx

@@ -6,6 +6,11 @@ the state dict of the port's `DynamicConvDecoder`, whose parameter
 names mirror the flax tree (`layers.0.image_attn.k_proj.kernel`).
 Kernels are (in, out) in both packages, so no leaf is transposed.
 
+`state_from_jax(tree, state)` carries a whole JAX `TrainState` (as
+flax's state dict) into the port's `training/train_step.py::TrainState`:
+the step, the params, the O2 master and the BertAdam chain's moments and
+count, so a run resumed in the port continues JAX's trajectory.
+
 `load_npz(path)` reads the `.npz` layout of the reference server
 (`news_image_caption_tpu/serving/worker.py::unflatten_params`):
 '/'-joined keys, bf16 leaves stored as 2-byte void (`V2`), read here
@@ -62,10 +67,15 @@ def params_from_jax(tree: Mapping[str, Any],
     """State dict for `module` from a flax param tree (with or without
     the top-level 'params' collection). Strict: a missing, unused or
     misshapen key raises ValueError."""
+    return _mapped(tree, {k: tuple(v.shape)
+                          for k, v in module.state_dict().items()})
+
+
+def _mapped(tree: Mapping[str, Any],
+            expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
     mapped = {torch_key(path): leaf for path, leaf in _flatten(tree).items()}
-    expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     missing = sorted(set(expected) - set(mapped))
     unused = sorted(set(mapped) - set(expected))
     bad = sorted(k for k in set(expected) & set(mapped)
@@ -74,6 +84,40 @@ def params_from_jax(tree: Mapping[str, Any],
         raise ValueError(f"params_from_jax: missing {missing}, unused "
                          f"{unused}, shape mismatch {bad}")
     return {k: to_tensor(mapped[k]) for k in expected}
+
+
+def _bert_adam_from_jax(chain: Mapping[str, Any], expected):
+    """The port's BertAdam state dict from optax's chain state (clip ->
+    adam without bias correction -> decayed weights -> learning rate):
+    the adam stage's moments, the learning-rate stage's count."""
+    stages = [chain[k] for k in sorted(chain, key=int)]
+    adam = [s for s in stages if set(s) == {"count", "mu", "nu"}]
+    counts = [s for s in stages if set(s) == {"count"}]
+    if len(adam) != 1 or not counts:
+        raise ValueError("state_from_jax: opt_state is not a BertAdam chain "
+                         f"(stages {[sorted(s) for s in stages]})")
+    return {"count": int(np.asarray(counts[-1]["count"])),
+            "mu": _mapped(adam[0]["mu"], expected),
+            "nu": _mapped(adam[0]["nu"], expected)}
+
+
+def state_from_jax(tree: Mapping[str, Any], state):
+    """Copy a JAX `TrainState` into the port's `state` of the same
+    precision, in place, and return it. `tree` is the JAX state as
+    flax's state dict (`flax.serialization.to_state_dict`, or a
+    reference checkpoint read back with `msgpack_restore`): {"step",
+    "params", "opt_state"}, the O2 opt_state {"master", "inner"}."""
+    expected = {k: tuple(v.shape) for k, v in state.params.items()}
+    opt = tree["opt_state"]
+    if set(opt) == {"master", "inner"}:
+        opt_state = {"master": _mapped(opt["master"], expected),
+                     "inner": _bert_adam_from_jax(opt["inner"], expected)}
+    else:
+        opt_state = _bert_adam_from_jax(opt, expected)
+    state.load_state_dict({"step": int(np.asarray(tree["step"])),
+                           "params": _mapped(tree["params"], expected),
+                           "opt_state": opt_state})
+    return state
 
 
 def load_npz(path: str) -> Dict[str, Any]:

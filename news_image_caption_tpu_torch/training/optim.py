@@ -13,27 +13,49 @@ does not call `apply`, so neither n nor the moments advance.
 
 The update runs in place on fp32 master tensors, with `torch._foreach`
 ops (a few launches for all tensors rather than several per tensor).
+
+`accumulate_gradients(tx, every)` is optax's `MultiSteps` (the
+reference's `accumulate_gradients`): the mean gradient of `every`
+micro-batches reaches `tx` once a window.
+
+An optimizer state goes to and from a checkpoint as a dict of ints and
+named tensors (`state_dict(names)`, `load_state_dict(tree, names)`),
+the names being the parameters' in the order `init` saw them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
+
+from news_image_caption_tpu_torch.training.checkpoint import restore
 
 
 def warmup_linear_schedule(lr: float, t_total: int, warmup: float = 0.05
                            ) -> Callable[[int], float]:
     """pytorch-pretrained-bert `warmup_linear`: x / warmup, then 1 - x,
-    with x = min(n / t_total, 1)."""
+    with x = min(n / t_total, 1), in float32 as the reference's jitted
+    train step computes it: XLA turns both divisions by a constant into
+    products with the float32 reciprocal, so at the warmup's end
+    (n = warmup * t_total) x can land one unit under `warmup` and the
+    rate stays on the ramp (e.g. lr at n = 10 of t_total 100, warmup
+    0.1)."""
+    f32 = np.float32
+    inv_total, inv_warmup = f32(1) / f32(t_total), f32(1) / f32(warmup)
 
     def schedule(step: int) -> float:
-        x = min(step / t_total, 1.0)
-        mult = x / warmup if x < warmup else 1.0 - x
-        return lr * max(mult, 0.0)
+        x = min(f32(step) * inv_total, f32(1))
+        mult = x * inv_warmup if x < f32(warmup) else f32(1) - x
+        return float(f32(lr) * max(mult, f32(0)))
 
     return schedule
+
+
+def _named(tensors: List[torch.Tensor], names: Sequence[str]):
+    return dict(zip(names, tensors))
 
 
 @dataclass
@@ -41,6 +63,19 @@ class BertAdamState:
     count: int                 # updates applied
     mu: List[torch.Tensor]     # first moments, fp32
     nu: List[torch.Tensor]     # second moments, fp32
+
+    def state_dict(self, names: Sequence[str]) -> Dict[str, Any]:
+        return {"count": self.count, "mu": _named(self.mu, names),
+                "nu": _named(self.nu, names)}
+
+    def load_state_dict(self, tree: Dict[str, Any],
+                        names: Sequence[str]) -> None:
+        if set(tree) != {"count", "mu", "nu"}:
+            raise ValueError(f"opt_state: checkpoint keys {sorted(tree)} "
+                             "are not a BertAdam state")
+        self.count = restore(self.count, tree["count"], "count")
+        for key in ("mu", "nu"):
+            restore(_named(getattr(self, key), names), tree[key], key)
 
 
 class BertAdam:
@@ -86,3 +121,70 @@ class BertAdam:
 def make_bert_adam(lr: float, t_total: int, warmup: float = 0.05,
                    **kw) -> BertAdam:
     return BertAdam(warmup_linear_schedule(lr, t_total, warmup), **kw)
+
+
+@dataclass
+class MultiStepsState:
+    mini_step: int                   # micro-batches in the open window
+    gradient_step: int               # windows applied
+    inner_opt_state: Any
+    acc_grads: List[torch.Tensor]    # running mean gradient, fp32
+
+    def state_dict(self, names: Sequence[str]) -> Dict[str, Any]:
+        return {"mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "inner_opt_state": self.inner_opt_state.state_dict(names),
+                "acc_grads": _named(self.acc_grads, names)}
+
+    def load_state_dict(self, tree: Dict[str, Any],
+                        names: Sequence[str]) -> None:
+        if set(tree) != {"mini_step", "gradient_step", "inner_opt_state",
+                         "acc_grads"}:
+            raise ValueError(f"opt_state: checkpoint keys {sorted(tree)} "
+                             "are not an accumulation state")
+        self.mini_step = restore(0, tree["mini_step"], "mini_step")
+        self.gradient_step = restore(0, tree["gradient_step"],
+                                     "gradient_step")
+        self.inner_opt_state.load_state_dict(tree["inner_opt_state"], names)
+        restore(_named(self.acc_grads, names), tree["acc_grads"],
+                "acc_grads")
+
+
+class MultiSteps:
+    """optax.MultiSteps: each call folds the gradient into the window's
+    running mean, acc + (g - acc) / (mini_step + 1); the last call of a
+    window hands the mean to the wrapped optimizer, which updates the
+    parameters (and advances its own count) once a window, and clears
+    the mean. In between, the parameters stay as they are."""
+
+    def __init__(self, inner: BertAdam, every: int):
+        self.inner = inner
+        self.every = every
+
+    def init(self, master: List[torch.Tensor]) -> MultiStepsState:
+        return MultiStepsState(
+            mini_step=0, gradient_step=0,
+            inner_opt_state=self.inner.init(master),
+            acc_grads=[torch.zeros_like(p, dtype=torch.float32)
+                       for p in master])
+
+    def apply(self, grads: List[torch.Tensor], state: MultiStepsState,
+              master: List[torch.Tensor]) -> None:
+        delta = torch._foreach_sub(grads, state.acc_grads)
+        torch._foreach_div_(delta, float(state.mini_step + 1))
+        torch._foreach_add_(state.acc_grads, delta)
+        if state.mini_step < self.every - 1:
+            state.mini_step += 1
+            return
+        self.inner.apply(state.acc_grads, state.inner_opt_state, master)
+        torch._foreach_zero_(state.acc_grads)
+        state.mini_step = 0
+        state.gradient_step += 1
+
+
+def accumulate_gradients(tx: BertAdam, every: int):
+    """Average gradients over `every` micro-batches and apply `tx` once
+    a window; every <= 1 is `tx` itself."""
+    if every <= 1:
+        return tx
+    return MultiSteps(tx, every)

@@ -1,21 +1,31 @@
-"""O2 mixed-precision train step and eval step.
+"""Train state, train step and eval step in three precisions.
 
 Counterpart of `news_image_caption_tpu/training/train_step.py`
-(`TrainState`, `create_o2_train_state`, `make_train_step(...,
-o2_master=True)`, `make_eval_step`), on one device. The model holds the
-stored parameters in the compute dtype (bf16 for the flagship); the
-fp32 master copy and the optimizer moments live in the optimizer state.
-A step runs forward and backward in the compute dtype, casts the
-gradients to fp32, updates the master and writes it back into the
-stored parameters.
+(`TrainState`, `create_train_state`, `create_o2_train_state`,
+`make_train_step`, `make_eval_step`), on one device. The checkpointed
+layout of each precision is the reference's:
 
-A step whose loss or global gradient norm is not finite leaves the
-parameters and the optimizer state untouched and reports skipped = 1;
-the step counter still advances. Deciding that reads one flag on the
-host per step (the JAX step decides on the device with `lax.cond`).
+- fp32 (`create_train_state`): `params` are the model's fp32
+  parameters, `opt_state` the optimizer's state over them;
+- bf16 (`create_train_state(..., compute=)`): `params` and the optimizer
+  stay fp32; forward and backward run on a bf16 copy of the model, whose
+  parameters (`TrainState.compute`, not checkpointed) are written from
+  `params` after each update and after a load;
+- bf16_o2 (`create_o2_train_state`): `params` are the model's stored
+  bf16 parameters, `opt_state = {"master": fp32 copy, "inner": the
+  optimizer's state}`; an update writes the master back into them.
+
+Gradients reach the optimizer as fp32. With `guard_nonfinite` a step
+whose loss or global gradient norm is not finite leaves the parameters
+and the optimizer state untouched and reports skipped = 1; deciding that
+reads one flag on the host per step (the JAX step decides on the device
+with `lax.cond`). Without it the step reads nothing on the host. The
+step counter advances either way.
 
 The state's tensors are updated in place, as the JAX step donates its
-state: the state passed in is the state returned.
+state: the state passed in is the state returned. `in_update` is true
+while the optimizer writes them, so a caller that catches a failure
+there knows the state is torn (the JAX step's deleted donated buffers).
 
 Each phase runs inside a `torch.profiler.record_function` span
 (`train_step.forward`, `.backward`, `.guard`, `.optimizer`), so a
@@ -27,30 +37,94 @@ each on an H100 machine's host, 0.1% of a flagship step).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
-from news_image_caption_tpu_torch.training.optim import BertAdam
+from news_image_caption_tpu_torch.training.checkpoint import restore
 
 
 @dataclass
 class TrainState:
     step: int
-    params: Dict[str, torch.Tensor]   # the model's stored parameters
-    opt_state: Dict[str, Any]         # {"master": {name: fp32}, "inner": BertAdamState}
+    params: Dict[str, torch.Tensor]   # the stored parameters
+    opt_state: Any                    # optimizer state, or {"master", "inner"}
+    compute: Optional[Dict[str, torch.Tensor]] = None   # bf16 copy (bf16)
+    in_update: bool = False
+
+    @property
+    def o2(self) -> bool:
+        return isinstance(self.opt_state, dict)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"step", "params", "opt_state"}: ints and named tensors."""
+        names = list(self.params)
+        if self.o2:
+            opt = {"master": dict(self.opt_state["master"]),
+                   "inner": self.opt_state["inner"].state_dict(names)}
+        else:
+            opt = self.opt_state.state_dict(names)
+        return {"step": self.step, "params": dict(self.params),
+                "opt_state": opt}
+
+    def load_state_dict(self, tree: Dict[str, Any]) -> None:
+        """Copy a checkpoint of the same precision into this state."""
+        if set(tree) != {"step", "params", "opt_state"}:
+            raise ValueError(f"state: checkpoint keys {sorted(tree)}")
+        names = list(self.params)
+        self.step = restore(self.step, tree["step"], "step")
+        restore(self.params, tree["params"], "params")
+        opt = tree["opt_state"]
+        if self.o2:
+            if set(opt) != {"master", "inner"}:
+                raise ValueError(f"opt_state: checkpoint keys {sorted(opt)}"
+                                 ", expected an O2 state's")
+            restore(self.opt_state["master"], opt["master"], "master")
+            self.opt_state["inner"].load_state_dict(opt["inner"], names)
+        else:
+            self.opt_state.load_state_dict(opt, names)
+        self.in_update = False
+        write_compute(self)
 
 
-def create_o2_train_state(model: nn.Module, tx: BertAdam) -> TrainState:
-    """State over `model`'s parameters, stored in the dtype the model was
-    built in; the master copy is their fp32 value."""
+def write_compute(state: TrainState) -> None:
+    """Write the fp32 params into the bf16 model's (bf16 precision)."""
+    if state.compute is not None:
+        with torch.no_grad():
+            torch._foreach_copy_(list(state.compute.values()),
+                                 list(state.params.values()))
+
+
+def create_train_state(model: nn.Module, tx,
+                       compute: Optional[nn.Module] = None) -> TrainState:
+    """State over `model`'s fp32 parameters. With `compute` (the same
+    model built in bf16), forward and backward run there: its parameters
+    are written from the fp32 ones now and after each update."""
     params = dict(model.named_parameters())
-    master = {k: p.detach().float().clone() for k, p in params.items()}
+    state = TrainState(step=0, params=params,
+                       opt_state=tx.init(list(params.values())),
+                       compute=(None if compute is None
+                                else dict(compute.named_parameters())))
+    write_compute(state)
+    return state
+
+
+def create_o2_train_state(model: nn.Module, tx,
+                          master: Optional[nn.Module] = None) -> TrainState:
+    """O2 state over `model`'s parameters, stored in the dtype the model
+    was built in. The master copy is their fp32 value, or `master`'s
+    parameters (the same model in fp32) cloned, which are then written
+    into the stored ones."""
+    params = dict(model.named_parameters())
+    source = params if master is None else dict(master.named_parameters())
+    fp32 = {k: p.detach().float().clone() for k, p in source.items()}
+    with torch.no_grad():
+        torch._foreach_copy_(list(params.values()), list(fp32.values()))
     return TrainState(step=0, params=params,
-                      opt_state={"master": master,
-                                 "inner": tx.init(list(master.values()))})
+                      opt_state={"master": fp32,
+                                 "inner": tx.init(list(fp32.values()))})
 
 
 def cast_floats(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
@@ -65,36 +139,52 @@ def _step_generator(device, seed: int, step: int) -> torch.Generator:
         (seed * 1_000_003 + step) % (1 << 63))
 
 
-def make_train_step(loss_fn: Callable, tx: BertAdam,
-                    compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+def _update(state: TrainState, tx, grads) -> None:
+    """The optimizer's in-place update of `state` from fp32 grads."""
+    state.in_update = True
+    with record_function("train_step.optimizer"), torch.no_grad():
+        if state.o2:
+            master = list(state.opt_state["master"].values())
+            tx.apply(grads, state.opt_state["inner"], master)
+            torch._foreach_copy_(list(state.params.values()), master)
+        else:
+            tx.apply(grads, state.opt_state, list(state.params.values()))
+            write_compute(state)
+    state.in_update = False
+
+
+def make_train_step(loss_fn: Callable, tx,
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    guard_nonfinite: bool = True) -> Callable:
     """loss_fn(batch, generator) -> (loss, aux), over the model whose
-    parameters the state holds. Returns step(state, batch, seed) ->
-    (state, metrics): metrics hold loss, grad_norm (global, fp32) and
-    aux as device tensors, and skipped as an int."""
+    parameters the state holds (its `compute` copy where it has one).
+    Returns step(state, batch, seed) -> (state, metrics): metrics hold
+    loss, grad_norm (global, fp32) and aux as device tensors, and
+    skipped as an int."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              seed: int = 0) -> Tuple[TrainState, Dict[str, Any]]:
-        params = list(state.params.values())
-        for p in params:
+        model_params = list((state.compute or state.params).values())
+        for p in model_params:
             p.grad = None
-        generator = _step_generator(params[0].device, seed, state.step)
+        generator = _step_generator(model_params[0].device, seed, state.step)
         with record_function("train_step.forward"):
             loss, aux = loss_fn(cast_floats(batch, compute_dtype), generator)
         with record_function("train_step.backward"):
             loss.backward()
             grads = [torch.zeros_like(p, dtype=torch.float32)
-                     if p.grad is None else p.grad.float() for p in params]
-            for p in params:
+                     if p.grad is None else p.grad.float()
+                     for p in model_params]
+            for p in model_params:
                 p.grad = None
             grad_norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
-        with record_function("train_step.guard"):
-            good = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        good = True
+        if guard_nonfinite:
+            with record_function("train_step.guard"):
+                good = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if good:
-            master = list(state.opt_state["master"].values())
-            with record_function("train_step.optimizer"), torch.no_grad():
-                tx.apply(grads, state.opt_state["inner"], master)
-                torch._foreach_copy_(params, master)
+            _update(state, tx, grads)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "skipped": int(not good),
                    **{k: v.detach() for k, v in aux.items()}}

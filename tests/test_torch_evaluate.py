@@ -27,13 +27,25 @@ import jax  # noqa: E402
 from news_image_caption_tpu import cli as jax_cli  # noqa: E402
 from news_image_caption_tpu import config as jax_config  # noqa: E402
 from news_image_caption_tpu_torch import cli  # noqa: E402
-from news_image_caption_tpu_torch.config import (build_model,  # noqa: E402
-                                                 load_config)
+from news_image_caption_tpu_torch.config import (  # noqa: E402
+    build_model, load_config, merge_overrides)
 from news_image_caption_tpu_torch.models.from_jax import \
     params_from_jax  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = str(REPO / "configs" / "tiny_test.yaml")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny models: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RUNS = {
     # name: (extra overrides, extra arguments)
     "enriched": ({}, ["--dump-attention", "{dir}/attn"]),
@@ -151,32 +163,77 @@ def test_random_init_command_runs(tmp_path, capsys):
     assert texts[0] == texts[1]
 
 
-@pytest.mark.parametrize("overrides,argv,item", [
-    ({"generation": {"speculative_k": 4}}, [], 6),
-    ({"generation": {"sampling_topk": 3}}, [], 4),
-    ({"generation": {"quantize_kv": True}}, [], 7),
-    ({}, ["-m", "best"], 5),
-    ({"dataset": {"type": "nics_shards"}}, [], 5),
-    ({"model": {"decoder": {"normalize_before": True}}}, [], 8),
-    ({"model": {"type": "transformer_pointer"}}, [], 10),
-    ({"model": {"type": "gen3_pipeline"}}, [], 9),
+@pytest.mark.parametrize("command,overrides,argv,item", [
+    ("evaluate", {"generation": {"speculative_k": 4}}, [], "6"),
+    ("evaluate", {"generation": {"sampling_topk": 3}}, [], "4"),
+    ("evaluate", {"generation": {"quantize_kv": True}}, [], "7"),
+    ("train", {"trainer": {"checkpoint_format": "sharded"}}, [], "11"),
+    ("evaluate", {"dataset": {"type": "nics_shards"}}, [], "5b"),
+    ("evaluate", {"model": {"decoder": {"normalize_before": True}}}, [], "8"),
+    ("evaluate", {"model": {"type": "transformer_pointer"}}, [], "10"),
+    ("evaluate", {"model": {"type": "gen3_pipeline"}}, [], "9"),
+    ("train", {"trainer": {"optimizer": {"type": "noam"}}}, [], "10"),
+    ("train", {"trainer": {"profile_steps": 3}}, [], "5b"),
+    ("train", {"trainer": {"mesh": {"data": -1, "model": 1}}}, [], "11"),
+    ("train", {"trainer": {"distributed": True}}, [], "11"),
 ])
-def test_options_not_ported_raise(tmp_path, overrides, argv, item):
-    overrides = dict(overrides, trainer={"serialization_dir": str(tmp_path)})
+def test_options_not_ported_raise(tmp_path, command, overrides, argv, item):
+    overrides = dict(overrides, trainer=dict(
+        overrides.get("trainer", {}), serialization_dir=str(tmp_path)))
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1 item {item}\)"):
-        cli.main(["evaluate", TINY, "--platform", "cpu", "-o",
+        cli.main([command, TINY, "--platform", "cpu", "-o",
                   json.dumps(overrides)] + argv)
     assert not (tmp_path / "generations.jsonl").exists()
+    assert not (tmp_path / "metrics.jsonl").exists()
 
 
 def test_checkpoint_directory_raises(tmp_path):
+    """-m without a checkpoints directory, and a checkpoint that is not
+    there, raise: the port never evaluates random weights where a
+    checkpoint was meant."""
+    argv = ["evaluate", TINY, "--platform", "cpu", "-o",
+            json.dumps({"trainer": {"serialization_dir": str(tmp_path)}})]
+    with pytest.raises(FileNotFoundError, match="no checkpoints directory"):
+        cli.main(argv + ["-m", "best"])
     (tmp_path / "checkpoints").mkdir()
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 item 5\)"):
-        cli.main(["evaluate", TINY, "--platform", "cpu", "-o",
-                  json.dumps({"trainer": {"serialization_dir":
-                                          str(tmp_path)}})])
+    for which in ("best", "latest", "3", "avg:2"):
+        with pytest.raises(FileNotFoundError):
+            cli.main(argv + ["-m", which])
+    assert not (tmp_path / "generations.jsonl").exists()
+
+
+def test_checkpoint_directory_loads(tmp_path, capsys):
+    """`train` then `evaluate` from its checkpoints: the default (best),
+    a step and avg:2 decode the checkpoint's params, without the random
+    init's warning."""
+    overrides = json.dumps({"trainer": {"serialization_dir": str(tmp_path),
+                                        "num_epochs": 2}})
+    assert cli.main(["train", TINY, "--platform", "cpu", "-o",
+                     overrides]) == 0
+    meta = json.loads((tmp_path / "checkpoints" / "meta.json").read_text())
+    assert [c["step"] for c in meta["checkpoints"]] == [8, 16]
+    texts = {}
+    for argv in ([], ["-m", "8"], ["-m", "avg:2"]):
+        assert cli.main(["evaluate", TINY, "--platform", "cpu", "-o",
+                         overrides, "-s", "_x"] + argv) == 0
+        assert "random init" not in capsys.readouterr().err
+        texts[tuple(argv)] = (tmp_path / "generations_x.jsonl").read_bytes()
+    best = torch.load(tmp_path / "checkpoints" / "best.pt",
+                      weights_only=True)
+    model = cli.checkpoint_model(load_config(TINY, overrides),
+                                 str(tmp_path / "checkpoints"), "best",
+                                 torch.device("cpu"))
+    for k, p in model.decoder.state_dict().items():
+        assert torch.equal(p, best["params"][k]), k
+    assert len(set(texts.values())) >= 2
+    # An O2 config stores bf16 params: the fp32 checkpoint is refused.
+    o2 = load_config(TINY, json.dumps(merge_overrides(
+        json.loads(overrides), {"trainer": {"mixed_precision": "bf16_o2"}})))
+    with pytest.raises(ValueError, match="torch.float32 .*expected "
+                                         "torch.bfloat16"):
+        cli.checkpoint_model(o2, str(tmp_path / "checkpoints"), "avg:2",
+                             torch.device("cpu"))
 
 
 def test_no_card_without_platform_cpu_raises(tmp_path, monkeypatch):

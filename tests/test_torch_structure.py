@@ -140,14 +140,21 @@ def test_builder_loads_params_path(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and a small model builds and
-    decodes on the CPU, without jax or the reference package loaded."""
+    """Every module of the port imports, a small model builds and
+    decodes, and the train command takes two steps and writes its
+    checkpoint, on the CPU, without jax or the reference package
+    loaded."""
     code = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys, tempfile
 import torch
 import news_image_caption_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")}
+for name in sorted(names):
+    importlib.import_module(name)
+new = {"training.checkpoint", "training.preemption", "data.loader",
+       "utils.logging", "utils.tensorboard", "cli", "config"}
+assert {pkg.__name__ + "." + n for n in new} <= names, names
 from news_image_caption_tpu_torch.models.captioner import TransformerFlattened
 from news_image_caption_tpu_torch.generation.generator import GenerationConfig
 model = TransformerFlattened(device="cpu", dtype=torch.float32,
@@ -156,6 +163,14 @@ batch = {"image": torch.randn(2, 5, 48), "image_mask": None,
          "article": torch.randn(2, 7, 32), "article_mask": None}
 tokens, _ = model.generate(batch, GenerationConfig(max_len=4))
 assert tokens.shape == (2, 5), tokens.shape
+from news_image_caption_tpu_torch import cli
+with tempfile.TemporaryDirectory() as out:
+    over = json.dumps({"trainer": {"num_epochs": 1},
+                       "dataset": {"train": {"size": 8}, "val": {"size": 4}}})
+    assert cli.main(["train", "configs/tiny_test.yaml", "--platform", "cpu",
+                     "-s", out, "-o", over]) == 0
+    assert torch.load(out + "/checkpoints/ckpt_2.pt",
+                      weights_only=True)["step"] == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "news_image_caption_tpu"))

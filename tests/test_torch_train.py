@@ -63,6 +63,16 @@ DATA = dict(vocab_size=V, caption_len=12, article_len=9, n_patches=5,
             image_dim=48, article_dim=32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny models: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(B=4, seed=0):
     ds = SyntheticNewsDataset(size=B, seed=seed, **DATA)
     return next(ds.batches(B, shuffle=False))
@@ -274,9 +284,12 @@ def test_o2_bert_adam_trajectory_matches():
 
 def test_warmup_linear_schedule_matches():
     sched = warmup_linear_schedule(1e-4, 100, 0.05)
-    jsched = jax_optim.warmup_linear_schedule(1e-4, 100, 0.05)
+    # Jitted, as the reference's train step runs it (XLA's float32
+    # reciprocals decide n = 5, the warmup's end).
+    jsched = jax.jit(jax_optim.warmup_linear_schedule(1e-4, 100, 0.05))
     for n in (0, 1, 4, 5, 6, 50, 99, 100, 150):
-        np.testing.assert_allclose(sched(n), float(jsched(n)), rtol=1e-6,
+        np.testing.assert_allclose(sched(n), float(jsched(jnp.int32(n))),
+                                   rtol=1e-6,
                                    atol=1e-12)
     assert sched(0) == 0.0
 
@@ -327,7 +340,7 @@ def test_synthetic_batches_are_the_references(seed):
             np.testing.assert_array_equal(v, w[k], err_msg=k)
 
 
-def test_trainer_loop_logs_and_validates():
+def test_trainer_loop_logs_and_validates(tmp_path):
     model = TransformerFlattened(device="cpu", dtype=torch.float32,
                                  generator=torch.Generator().manual_seed(0),
                                  **SMALL)
@@ -335,7 +348,8 @@ def test_trainer_loop_logs_and_validates():
     state = create_o2_train_state(model.decoder, tx)
     ds = SyntheticNewsDataset(size=12, **DATA)
     trainer = Trainer(model.loss_fn, tx, TrainerConfig(
-        num_epochs=2, log_every=2, mixed_precision="fp32"))
+        num_epochs=2, log_every=2, mixed_precision="fp32",
+        serialization_dir=str(tmp_path)))
 
     def batches(epoch):
         return (to_device(b, "cpu") for b in ds.batches(4, seed=epoch))
@@ -348,7 +362,8 @@ def test_trainer_loop_logs_and_validates():
     assert all(np.isfinite(r["loss"]) and r["skipped"] == 0 for r in train)
     assert val[1]["n_batches"] == 3 and val[1]["loss"] < val[0]["loss"]
     with pytest.raises(ValueError, match="mixed_precision"):
-        Trainer(model.loss_fn, tx, TrainerConfig(mixed_precision="bf16"))
+        Trainer(model.loss_fn, tx, TrainerConfig(
+            mixed_precision="fp16", serialization_dir=str(tmp_path)))
 
 
 def test_flagship_trainer_builder_runs_bf16_o2(monkeypatch):
