@@ -86,9 +86,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      on 4 rows against the plain path on the CPU. Print the command's
      wall, epochs, step times, input_wait, checkpoint snapshot and write
      times, peak memory, and evaluate's captions/s and steps (the
-     `train_command` JSON line).
+     `train_command` JSON line);
+  9. the serve command, `python -m news_image_caption_tpu_torch.cli serve
+     --http-port 0 --max-len 32`, in a subprocess: the flagship at full
+     width and depth in bf16 with phase 4's seeded random weights, one
+     worker on the card. Read its two JSON lines and the worker's ready
+     line (which must name the card); send phase 4's four jobs through
+     `CaptioningClient.caption` and two of them through POST /encode, a
+     job without `article` (an error reply, and the worker serves the
+     next job), 8 B=1 jobs through `caption_stream(window=2)`, 20 B=1
+     jobs each beside the same job through phase 4's in-process
+     `predict`, and phase 4's B=16 job both ways. Every token array must
+     equal the in-process `predict`'s for the same job, element for
+     element, and the stream's come in submission order; `stats()` must
+     count the jobs served, and the worker's kernel launches (from the
+     stats RPC, after the jobs less before them) must be 3 / 8 / 4 / 4
+     times the decode steps of the served tokens. SIGTERM must end the
+     command with rc 0 within 30 s and leave no sink or worker process.
+     Print start to ready, p50 / p90 of the 20 B=1 requests both ways,
+     the B=16 request both ways, and, in this process, the host ms of
+     `pack`, one socket hop and `unpack` + `stage` for a B=1 and the B=16
+     job, their sum over a job's way in (two hops) and that sum over the
+     in-process B=1 p50 (the `serve` JSON line, a smoke reading).
 The line before the last is a JSON summary of the kernels (`launches`
-over the main paths, `launches_by_path` split by path); the last is
+over the main paths, `launches_by_path` split by path, the serve
+command's counted in its worker); the last is
 {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -676,7 +698,7 @@ def greedy_launches_a_step() -> dict:
 
 def serving_phase(torch, counted):
     """Phase 4. Returns (the main-path launch count of each kernel, the
-    server's predict)."""
+    server's predict, the four jobs, their tokens)."""
     from news_image_caption_tpu_torch.config import FLAGSHIP
     from news_image_caption_tpu_torch.models.captioner import \
         TransformerFlattened
@@ -741,7 +763,7 @@ def serving_phase(torch, counted):
           f" token agreement over the decode {agree:.3f}", flush=True)
     check(e0 <= 0.1, "step-0 log-probs of the kernel and plain paths differ")
     check(agree0 >= 0.75, "step-0 tokens of the kernel and plain paths differ")
-    return launches, predict
+    return launches, predict, jobs, outputs
 
 
 def check_beams(tokens: np.ndarray, scores: np.ndarray, B: int, cfg,
@@ -1679,6 +1701,296 @@ def train_command_phase(torch, flash, counted):
     return train_launches, eval_launches, summary
 
 
+SERVE_CMD = [sys.executable, "-m", "news_image_caption_tpu_torch.cli",
+             "serve", "--http-port", "0", "--max-len", "32"]
+
+
+def spawned_children(pid: int) -> list:
+    """Pids of the live processes that pid started with
+    multiprocessing's spawn (the server's sink and workers)."""
+    import glob
+    out = []
+    for stat in glob.glob("/proc/[0-9]*/stat"):
+        child = int(stat.split("/")[2])
+        try:
+            with open(stat) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{child}/cmdline", "rb") as f:
+                cmdline = f.read()
+        except OSError:
+            continue
+        if (int(fields[1]) == pid and fields[0] != "Z"
+                and b"spawn_main" in cmdline):
+            out.append(child)
+    return out
+
+
+class ServeProcess:
+    """The serve command in a subprocess, its stdout and stderr read by
+    threads into queues (stderr echoed with a prefix). `stop()` sends
+    SIGTERM and returns (rc, seconds); leaving the `with` block stops it
+    and kills whatever is left, so no process outlives the script."""
+
+    def __init__(self, cmd):
+        import queue
+        import threading
+        self.lines = {"stdout": queue.Queue(), "stderr": queue.Queue()}
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.readers = [threading.Thread(target=self._read, args=(name,),
+                                         daemon=True)
+                        for name in self.lines]
+        for t in self.readers:
+            t.start()
+        self.children: list = []
+
+    def _read(self, name):
+        for line in getattr(self.proc, name):
+            if name == "stderr":
+                print(f"  [serve] {line.rstrip()}", flush=True)
+            self.lines[name].put(line)
+
+    def next_line(self, name: str, timeout_s: float, match=None) -> str:
+        import queue
+        deadline = time.monotonic() + timeout_s
+        while True:
+            left = deadline - time.monotonic()
+            check(left > 0 and self.proc.poll() is None,
+                  f"serve: no {name} line{' with ' + match if match else ''}"
+                  f" within {timeout_s} s (rc {self.proc.poll()})")
+            try:
+                line = self.lines[name].get(timeout=min(left, 1.0))
+            except queue.Empty:
+                continue
+            if match is None or match in line:
+                return line
+
+    def stop(self, timeout_s: float = 30.0):
+        import signal
+        self.children = spawned_children(self.proc.pid)
+        t = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        return rc, time.perf_counter() - t
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        import signal
+        if self.proc.poll() is None:
+            self.stop()
+        if self.proc.poll() is None:      # SIGTERM did not end it
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        for pid in self.children:         # anything it left behind
+            if _alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        for t in self.readers:
+            t.join(timeout=10)
+        return False
+
+
+def http_encode(port: int, job) -> np.ndarray:
+    import urllib.request
+    payload = {k: {"data": v.tolist(), "dtype": str(v.dtype)}
+               for k, v in job.items()}
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/encode", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        body = json.loads(r.read())
+    check(set(body) == {"tokens"}, f"HTTP answered {str(body)[:300]}")
+    return np.asarray(body["tokens"], np.int32)
+
+
+def stack_costs(predict, job) -> dict:
+    """Host milliseconds (medians of 5) of what a job pays on its way
+    from the client to the decode, in this process: `messages.pack`, one
+    socket hop (PUSH -> PULL through `serving/transport.py`; a request
+    crosses two such hops going in, client -> server -> worker), and
+    `unpack` with `predict.stage` until its copy has ended."""
+    import shutil
+    from news_image_caption_tpu_torch.serving import transport
+    from news_image_caption_tpu_torch.serving.base import auto_bind
+    from news_image_caption_tpu_torch.serving.messages import pack, unpack
+
+    dirs = []
+    pull = transport.Socket(transport.PULL)
+    addr = auto_bind(pull, dirs)
+    push = transport.Socket(transport.PUSH)
+    push.connect(addr)
+    times = {"pack": [], "hop": [], "unpack_stage": []}
+    try:
+        for _ in range(5):
+            t = time.perf_counter()
+            frames = pack(job)
+            times["pack"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            push.send_multipart(frames)
+            frames = pull.recv_multipart()
+            times["hop"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            predict.stage(unpack(frames)).event.synchronize()
+            times["unpack_stage"].append(time.perf_counter() - t)
+    finally:
+        push.close(linger=0)
+        pull.close(linger=0)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    return {k: sorted(v)[2] * 1e3 for k, v in times.items()}
+
+
+def serve_phase(torch, predict, jobs, outputs):
+    """Phase 9. `python -m news_image_caption_tpu_torch.cli serve` in a
+    subprocess: the flagship at full width and depth in bf16 with the
+    random weights of seed 0 (phase 4's), one worker on the card. Every
+    token array it serves must equal the in-process `predict`'s for the
+    same job (the same card, weights and kernels). Returns the worker's
+    launch count of each decode kernel over the jobs and a summary."""
+    from news_image_caption_tpu_torch.serving.client import CaptioningClient
+
+    per_step = greedy_launches_a_step()
+    cfg = predict.config
+    served = []      # the tokens of every job the worker decoded
+
+    def expect(got, want, what):
+        check(got.dtype == np.int32 and got.shape == want.shape
+              and bool(np.array_equal(got, want)),
+              f"serve: {what}: tokens differ from the in-process predict's")
+        served.append(got)
+
+    t0 = time.perf_counter()
+    with ServeProcess(SERVE_CMD) as serve:
+        info = json.loads(serve.next_line("stdout", 120))
+        port = json.loads(serve.next_line("stdout", 60))["http_port"]
+        check(info["task"] == "flagship" and info["n_workers"] == 1,
+              f"serve printed {info}")
+        ready = serve.next_line("stderr", 300, match="worker 0 ready")
+        ready_s = time.perf_counter() - t0
+        name = torch.cuda.get_device_name(0)
+        check(name in ready and "cuda" in ready,
+              f"the worker's ready line does not name {name}: {ready}")
+        print(f"  start to ready: {ready_s:.1f} s", flush=True)
+        client = CaptioningClient(info["frontend_addr"],
+                                  info["sink_pub_addr"], timeout_ms=300000)
+        try:
+            stats0 = client.stats(timeout_ms=60000)
+            check(stats0["mode"] == "plain" and stats0["jobs_served"] == 0,
+                  f"stats before any job: {stats0}")
+            # Phase 4's four jobs through the client, two through HTTP.
+            for i, (job, want) in enumerate(zip(jobs, outputs)):
+                expect(client.caption(job)["tokens"], want, f"job {i}")
+            for i in (0, 2):
+                expect(http_encode(port, jobs[i]), outputs[i],
+                       f"HTTP job {i}")
+            # A malformed job is an error reply; the worker serves on.
+            bad = {k: v for k, v in jobs[0].items() if k != "article"}
+            bad["articel"] = jobs[0]["article"]
+            try:
+                client.caption(bad)
+                fail("serve: a job without 'article' was answered")
+            except RuntimeError as e:
+                check("KeyError" in str(e), f"serve: error reply {e}")
+            expect(client.caption(jobs[1])["tokens"], outputs[1],
+                   "job 1 after the error")
+            # Eight jobs pipelined, two in flight: submission order.
+            rng = np.random.RandomState(9)
+            stream_jobs = [make_job(rng, 1, [n])
+                           for n in rng.randint(20, 513, size=8)]
+            want = [predict(j)["tokens"] for j in stream_jobs]
+            got = list(client.caption_stream(iter(stream_jobs), window=2))
+            check(len(got) == 8, f"caption_stream yielded {len(got)}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                expect(g["tokens"], w, f"stream job {i} (in order)")
+            # Latency: 20 B=1 requests through the client, each beside
+            # the same request through the in-process predict; one B=16.
+            rng = np.random.RandomState(10)
+            lat_jobs = [make_job(rng, 1, [n])
+                        for n in rng.randint(20, 513, size=20)]
+            lat = {"client": [], "in_process": []}
+            for job in lat_jobs:
+                t = time.perf_counter()
+                got = client.caption(job)["tokens"]
+                lat["client"].append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                want = predict(job)["tokens"]
+                lat["in_process"].append((time.perf_counter() - t) * 1e3)
+                expect(got, want, "latency job")
+            t = time.perf_counter()
+            got = client.caption(jobs[3])["tokens"]
+            b16_client = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            want = predict(jobs[3])["tokens"]
+            b16_in_process = (time.perf_counter() - t) * 1e3
+            expect(got, want, "B=16 job")
+            stats = client.stats(timeout_ms=60000)
+        finally:
+            client.close()
+        rc, stop_s = serve.stop()
+        check(rc == 0, f"serve exited with {rc} after SIGTERM")
+        check(stop_s <= 30, f"serve took {stop_s:.1f} s to stop")
+        check(len(serve.children) == 2,
+              f"serve ran {len(serve.children)} spawned processes, expected"
+              " the sink and one worker")
+        left = [p for p in serve.children if _alive(p)]
+        check(not left, f"processes left after serve stopped: {left}")
+    check(stats["mode"] == "plain" and stats["jobs_served"] == len(served),
+          f"stats {stats}, expected {len(served)} jobs served")
+    steps = sum(decode_steps(t, cfg.eos_id, cfg.max_len) for t in served)
+    launches = {k: stats["kernel_launches"][k] - stats0["kernel_launches"][k]
+                for k in per_step}
+    for k, n in launches.items():
+        print(f"  {k}: {n} launches in the worker over {steps} steps"
+              f" (expected {per_step[k]} per step)")
+        check(n == per_step[k] * steps and n > 0,
+              f"{k} launched {n} times in the worker, expected"
+              f" {per_step[k] * steps}")
+
+    def pct(xs):
+        xs = sorted(xs)
+        return {"p50": xs[len(xs) // 2], "p90": xs[(9 * len(xs)) // 10]}
+
+    b1 = {k: pct(v) for k, v in lat.items()}
+    costs = {"b1": stack_costs(predict, lat_jobs[0]),
+             "b16": stack_costs(predict, jobs[3])}
+    # What a job pays on its way in, measured in this process: pack, the
+    # two hops (client -> server -> worker), unpack and stage.
+    way_in = {k: v["pack"] + 2 * v["hop"] + v["unpack_stage"]
+              for k, v in costs.items()}
+    print(f"  host ms on the way in (pack / one socket hop / unpack and"
+          f" stage): { {k: {n: round(x, 3) for n, x in v.items()}
+                        for k, v in costs.items()} }; in all B=1"
+          f" {way_in['b1']:.3f}, B=16 {way_in['b16']:.3f}", flush=True)
+    print(f"  B=1 over 20 requests, client p50 {b1['client']['p50']:.2f} /"
+          f" p90 {b1['client']['p90']:.2f} ms, in process p50"
+          f" {b1['in_process']['p50']:.2f} / p90 {b1['in_process']['p90']:.2f}"
+          f" ms; B=16 {b16_client:.2f} / {b16_in_process:.2f} ms;"
+          f" SIGTERM to exit {stop_s:.2f} s", flush=True)
+    return launches, {
+        "card": card_line(), "start_to_ready_s": ready_s,
+        "b1_ms": b1, "b1_ms_all": lat,
+        "way_in_host_ms": way_in,
+        "way_in_over_b1_in_process_p50":
+            way_in["b1"] / b1["in_process"]["p50"],
+        "b16_ms": {"client": b16_client, "in_process": b16_in_process},
+        "stack_host_ms": costs,
+        "jobs_served": stats["jobs_served"], "decode_steps": steps,
+        "stop_s": stop_s, "launches": launches}
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
 def latency_mode(torch, n_requests: int) -> None:
     """`--serving-latency N`: request latency over N requests (host
     clock, request in to tokens on the host; articles of 20-512 tokens,
@@ -1788,7 +2100,7 @@ def main() -> None:
                "decode_cross_attention": decode_attention.decode_cross_attention,
                "decode_conv_block": decode_blocks.decode_conv_block,
                "decode_ffn_block": decode_blocks.decode_ffn_block}
-    launches, predict = serving_phase(torch, counted)
+    launches, predict, jobs, outputs = serving_phase(torch, counted)
     by_path = {name: {"greedy": n} for name, n in launches.items()}
 
     print("phase 4b: flagship beam-5 search (bf16, random weights)",
@@ -1798,7 +2110,6 @@ def main() -> None:
         launches[name] += n
         by_path[name]["beam5"] = n
     print(json.dumps({"beam5_requests": beam_summary}), flush=True)
-    del predict
 
     print("phase 5: flagship train step (bf16_o2, random weights)",
           flush=True)
@@ -1830,6 +2141,16 @@ def main() -> None:
         by_path[name]["train_command"] = cmd_launches[name]
         by_path[name]["evaluate_checkpoint"] = ckpt_launches[name]
     print(json.dumps({"train_command": cmd_summary}), flush=True)
+
+    print("phase 9: the serve command (flagship, bf16, random weights),"
+          " client, HTTP proxy and SIGTERM", flush=True)
+    serve_launches, serve_summary = serve_phase(torch, predict, jobs,
+                                                outputs)
+    del predict
+    for name, n in serve_launches.items():
+        launches[name] += n
+        by_path[name]["serve"] = n
+    print(json.dumps({"serve": serve_summary}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

@@ -1,8 +1,8 @@
 """Command line of the port: `train` a YAML config, `evaluate` it on a
-split.
+split, `serve` captions.
 
 Counterpart of `news_image_caption_tpu/cli.py` (`main`, `train_command`,
-`evaluate_command`).
+`evaluate_command`, `serve_command`).
 
 `train` builds the config's model, optimizer (`trainer.optimizer`,
 wrapped by `accumulate_gradients` for `trainer.accumulate_steps`) and
@@ -27,23 +27,35 @@ there it evaluates the checkpoint `-m` names (`best` by default,
 that directory, or a checkpoint that is not there, raises. With neither
 it warns and draws random weights from a generator seeded with 0.
 
+`serve` starts the server (`serving/base.py::CaptionServer`: a frontend
+for client jobs, `-n` worker processes and a sink that publishes the
+results), prints its addresses as one JSON line and, with `--http-port`,
+starts the HTTP proxy and prints its port as a second; it serves until
+SIGTERM, then stops the proxy, the server and its workers and exits 0.
+`--task flagship` serves the flagship captioner in bf16 (`--params` a
+'/'-joined .npz of the reference's params, else random weights seeded
+with 0); `--task toy` the reference's tiny model, on the CPU only (its
+head size is one the decode kernels do not admit).
+
     python -m news_image_caption_tpu_torch.cli train \\
         configs/tiny_test.yaml --platform cpu -s DIR
     python -m news_image_caption_tpu_torch.cli evaluate \\
         configs/tiny_test.yaml --platform cpu \\
         -o '{"trainer": {"serialization_dir": "DIR"}}'
+    python -m news_image_caption_tpu_torch.cli serve --http-port 0
 
-Both run on the card unless `--platform cpu` is given, and raise where
-there is no card. On the card the model computes in bf16 (the kernels'
+All three run on the card unless `--platform cpu` is given, and raise
+where there is no card. On the card the model computes in bf16 (the kernels'
 type), except that `train` at fp32 computes in fp32 and so raises for a
 model with `use_flash_train` (the flash kernels take bf16); `evaluate`
 casts the checkpoint's params to bf16 and decodes through the four
 decode kernels. On the CPU `train` computes in the precision's dtype and
 `evaluate` in the config's (float32 unless set), through the kernels'
-plain versions. The reference's serve, port and preprocess commands are
-not ported, and neither are speculative decoding, sampling, quantized
-K/V, meshes or multi-process training: each raises NotImplementedError
-naming its ROADMAP Queue 1 item.
+plain versions. The reference's port and preprocess commands are not
+ported, and neither are speculative decoding, sampling, continuous
+batching, quantized K/V and head tables, meshes or multi-process
+training: each raises NotImplementedError naming its ROADMAP Queue 1
+item.
 """
 
 from __future__ import annotations
@@ -116,9 +128,51 @@ def main(argv: Optional[list] = None, *,
     pe.add_argument("--dump-attention", default=None, metavar="DIR",
                     help="write per-batch attention maps (.npz) over the "
                          "generated captions to DIR")
+    ps = sub.add_parser("serve",
+                        help="start the captioning server (+HTTP proxy)")
+    ps.add_argument("--task", default="flagship", choices=("flagship", "toy"),
+                    help="the flagship captioner, or the reference's tiny "
+                         "random-weight model for smoke tests (CPU only)")
+    ps.add_argument("-n", "--n-workers", type=int, default=1)
+    ps.add_argument("--http-port", type=int, default=None,
+                    help="also start the HTTP proxy on this port (0 = pick "
+                         "a free port)")
+    ps.add_argument("--max-len", type=int, default=32)
+    ps.add_argument("--batch-size", type=int, default=1,
+                    help="request batch of the workers' warmup")
+    ps.add_argument("--quantize-kv", action="store_true",
+                    help="not ported (ROADMAP Queue 1 item 7b)")
+    ps.add_argument("--quantize-head", action="store_true",
+                    help="not ported (ROADMAP Queue 1 item 7b)")
+    ps.add_argument("--speculative-k", type=int, default=0,
+                    help=">= 2 is not ported (ROADMAP Queue 1 item 6)")
+    ps.add_argument("--continuous-slots", type=int, default=0,
+                    help="> 0 is not ported (ROADMAP Queue 1 item 6)")
+    ps.add_argument("--inner-steps", type=int, default=8,
+                    help="continuous mode only (not ported)")
+    ps.add_argument("--harvest-lag", type=int, default=1,
+                    help="continuous mode only (not ported)")
+    ps.add_argument("--continuous-beam", action="store_true",
+                    help="not ported (ROADMAP Queue 1 item 6)")
+    ps.add_argument("--sampling-topk", type=int, default=1,
+                    help="> 1 is not ported (ROADMAP Queue 1 item 4); "
+                         "requires --continuous-slots")
+    ps.add_argument("--sampling-temp", type=float, default=1.0,
+                    help="top-k sampling only (not ported)")
+    ps.add_argument("--no-early-exit", action="store_true")
+    ps.add_argument("--params", default=None,
+                    help=".npz of the reference's params ('/'-joined flat "
+                         "keys) for the task's model")
+    ps.add_argument("--platform", default=None, choices=("cpu", "cuda"),
+                    help="cpu: the workers decode with the plain versions "
+                         "on the CPU; default: the card")
+    ps.add_argument("--exit-after-ready", action="store_true",
+                    help=argparse.SUPPRESS)  # test hook
     args = p.parse_args(argv)
     if args.command == "train":
         return train_command(args, timings)
+    if args.command == "serve":
+        return serve_command(args)
     return evaluate_command(args, timings)
 
 
@@ -334,6 +388,105 @@ def evaluate_command(args,
         dump_attention=args.dump_attention, timings=timings)
     print(json.dumps(metrics))
     return 0
+
+
+def serve_command(args) -> int:
+    """Start the server with N captioning workers (and the HTTP proxy)
+    and block until SIGTERM. Counterpart of the reference's
+    `serve_command`: the same argument errors (exit 2), addresses and
+    port printed as JSON lines, graceful SIGTERM."""
+    import functools
+    import signal
+
+    from news_image_caption_tpu_torch.serving.base import CaptionServer
+    from news_image_caption_tpu_torch.serving.worker import (
+        CaptioningWorker, check_serving_args, check_toy_device,
+        default_model_builder, flagship_model_builder)
+    from news_image_caption_tpu_torch.training.preemption import \
+        PreemptionHandler
+
+    if args.continuous_beam and args.continuous_slots <= 0:
+        # Never silently serve greedy payloads to a client expecting
+        # [beam, L+1] tokens + scores.
+        print("error: --continuous-beam requires --continuous-slots N",
+              file=sys.stderr)
+        return 2
+    if args.sampling_topk > 1:
+        # Sampling is served from the slot pool only; a plain worker
+        # would silently serve greedy captions instead.
+        if args.continuous_slots <= 0:
+            print("error: --sampling-topk requires "
+                  "--continuous-slots N", file=sys.stderr)
+            return 2
+        if args.continuous_beam or args.speculative_k >= 2:
+            print("error: --sampling-topk excludes --continuous-beam "
+                  "and --speculative-k", file=sys.stderr)
+            return 2
+    # Everything that would make every worker fail raises here, before
+    # a worker is spawned (the monitor would respawn it in a loop).
+    check_serving_args(args.speculative_k, args.continuous_slots,
+                       args.continuous_beam, args.sampling_topk,
+                       args.quantize_kv, args.quantize_head)
+    if args.task == "toy":
+        check_toy_device(args.platform or "cuda")
+    device = _device(args.platform)
+    if device.type == "cuda":
+        # Compile the kernels once here; the workers then load the
+        # library instead of each running nvcc.
+        from news_image_caption_tpu_torch.ops import _build
+        _build.build()
+
+    # Graceful SIGTERM (systemd/k8s stop, pod eviction): installed
+    # BEFORE worker spawn so a stop during startup still reaches the
+    # finally block, which drains the proxy and terminates the worker
+    # processes instead of orphaning them.
+    guard = PreemptionHandler((signal.SIGTERM,))
+    guard.__enter__()
+
+    if args.task == "toy":
+        builder = functools.partial(default_model_builder,
+                                    params_path=args.params)
+    else:
+        builder = functools.partial(
+            flagship_model_builder,
+            max_len=args.max_len,
+            early_exit=not args.no_early_exit,
+            params_path=args.params,
+            batch_size=args.batch_size)
+    worker_device = "cpu" if device.type == "cpu" else None
+    server = CaptionServer(
+        worker_factory=lambda **kw: CaptioningWorker(
+            model_builder=builder, device=worker_device, **kw),
+        num_workers=args.n_workers)
+    httpd = None
+    try:
+        server.start()
+        print(json.dumps({
+            "frontend_addr": server.frontend_addr,
+            "sink_pub_addr": server.sink_pub_addr,
+            "task": args.task, "n_workers": args.n_workers}), flush=True)
+        if args.http_port is not None:
+            from news_image_caption_tpu_torch.serving.client import \
+                CaptioningClient
+            from news_image_caption_tpu_torch.serving.http import serve_http
+            client = CaptioningClient(server.frontend_addr,
+                                      server.sink_pub_addr,
+                                      timeout_ms=900000)
+            httpd, port = serve_http(client, args.http_port,
+                                     {"task": args.task})
+            print(json.dumps({"http_port": port}), flush=True)
+        if args.exit_after_ready:
+            return 0
+        while not guard.triggered:
+            time.sleep(0.5)
+        return 0
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        server.stop()
+        guard.__exit__()
 
 
 def _texts(tokens: np.ndarray, caption: np.ndarray):

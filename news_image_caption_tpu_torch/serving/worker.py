@@ -1,15 +1,33 @@
-"""Serving builder for the flagship captioner on one CUDA device.
+"""Captioning worker process and the builders of its predict function.
 
-Counterpart of `news_image_caption_tpu/serving/worker.py::
-flagship_model_builder` for plain greedy serving: the flagship decoder
-in bf16 end to end, greedy decode with early exit, over precomputed
-image (49 x 2048) and article (512 x 1024) features. The ZMQ worker and
-the HTTP proxy are not part of the port yet.
+Counterpart of `news_image_caption_tpu/serving/worker.py`:
+`CaptioningWorker` is a spawned process that pulls jobs from the
+server's backend, runs `predict(job)` and pushes each result to the
+sink; `flagship_model_builder` serves the flagship captioner at the
+reference's serving shapes (image 49 x 2048, article 512 x 1024) in
+bf16, greedy with early exit; `default_model_builder` serves the
+reference's toy model (`--task toy`) in fp32.
+
+Each builder's `predict.stage(job)` moves a job's arrays to the device;
+the worker's ingest thread calls it one job ahead of `predict`. On the
+card it copies from pinned host memory on a CUDA stream of its own, and
+`predict` makes its stream wait for that copy before decoding.
+
+What the port does not have raises before any model is built, naming
+its ROADMAP Queue 1 item: speculative decoding and the continuous slot
+pool (item 6), top-k sampling (item 4), int8 context K/V and int8 head
+tables (item 7b), and the detection pipeline of `full_model_builder`
+(items 9 and 10).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import multiprocessing
+import os
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -23,63 +41,377 @@ from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
 from news_image_caption_tpu_torch.models.from_jax import (load_npz,
                                                           params_from_jax)
+from news_image_caption_tpu_torch.serving import transport
+from news_image_caption_tpu_torch.serving.messages import pack, unpack
+from news_image_caption_tpu_torch.utils.logging import setup_logger
+
+# The reference's toy captioner (`default_model_builder`) and its
+# request shapes: image 4 x 16, article 6 x 24, 16 decode steps.
+TOY = dict(vocab_size=64, cutoff=(16, 32, 64), embed_dim=32, ffn_dim=64,
+           num_heads=4, num_layers=2, kernel_sizes=(3, 5), image_dim=16,
+           article_dim=24, max_positions=64)
+TOY_IMAGE_LEN, TOY_ARTICLE_LEN, TOY_MAX_LEN = 4, 6, 16
+
+_FEATURES = ("image", "article")
+_MASKS = ("image_mask", "article_mask")
 
 
-def flagship_model_builder(device, batch_size: int = 1, max_len: int = 32,
+def check_serving_args(speculative_k: int = 0, continuous_slots: int = 0,
+                       continuous_beam: bool = False, sampling_topk: int = 1,
+                       quantize_kv: bool = False,
+                       quantize_head: bool = False) -> None:
+    """The reference's checks of the serving switches (ValueError),
+    then NotImplementedError for each switch the port does not have."""
+    _check_sampling_args(sampling_topk, continuous_slots, continuous_beam,
+                         speculative_k)
+    if continuous_beam and continuous_slots <= 0:
+        raise ValueError("continuous_beam requires continuous_slots "
+                         "> 0 (a plain worker would silently serve "
+                         "greedy payloads)")
+    if sampling_topk > 1:
+        raise NotImplementedError(
+            "sampling_topk > 1: top-k sampling is not ported yet (ROADMAP "
+            "Queue 1 item 4; it is served from the slot pool of item 6)")
+    if speculative_k >= 2:
+        raise NotImplementedError(
+            "speculative_k >= 2: speculative decoding is not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    if continuous_slots > 0 or continuous_beam:
+        raise NotImplementedError(
+            "continuous_slots / continuous_beam: continuous batching is not "
+            "ported yet (ROADMAP Queue 1 item 6)")
+    for name, on in (("quantize_kv", quantize_kv),
+                     ("quantize_head", quantize_head)):
+        if on:
+            raise NotImplementedError(
+                f"{name}: int8 context K/V and int8 head tables are not "
+                "ported yet; each needs a kernel variant on the card "
+                "(ROADMAP Queue 1 item 7b)")
+
+
+def _check_sampling_args(sampling_topk: int, continuous_slots: int,
+                         continuous_beam: bool,
+                         speculative_k: int) -> None:
+    """Serving-mode validation for top-k sampling: it is served from
+    the slot pool only (per-slot PRNG chains replicate generate's B=1
+    key schedule); the plain/beam/speculative paths would silently
+    serve something other than what the client asked for."""
+    if sampling_topk <= 1:
+        return
+    if continuous_slots <= 0:
+        raise ValueError("sampling_topk > 1 requires continuous_slots "
+                         "> 0 (sampling is served from the slot pool)")
+    if continuous_beam:
+        raise ValueError("sampling_topk > 1 excludes continuous_beam")
+    if speculative_k >= 2:
+        raise ValueError("sampling_topk > 1 excludes speculative_k "
+                         "(the draft-verify commit rule is greedy)")
+
+
+def check_toy_device(device) -> None:
+    """The toy's head size (32 / 4 = 8) is one the decode kernels do not
+    admit, so it serves on the CPU only."""
+    if torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            "the toy model (--task toy) has head size 8, which the decode "
+            "kernels do not admit on the card (ROADMAP Queue 3 item 1); "
+            "serve it with --platform cpu")
+
+
+class Staged(dict):
+    """A job's batch on the device; `event` marks the end of its copy
+    on the staging stream (None where the copy was synchronous)."""
+
+    event: Optional[torch.cuda.Event] = None
+
+
+def _pinned(arr: np.ndarray) -> torch.Tensor:
+    out = torch.empty(arr.shape, pin_memory=True,
+                      dtype=torch.from_numpy(np.empty(0, arr.dtype)).dtype)
+    out.numpy()[...] = arr
+    return out
+
+
+def _serving_predict(model: TransformerFlattened, cfg: GenerationConfig,
+                     device: torch.device, dtype: torch.dtype,
+                     warmup_job: Dict[str, np.ndarray]):
+    """predict(job) -> {"tokens": int32 [B, max_len + 1]} with `.stage`,
+    `.warmup`, `.model`, `.weights` and `.config`."""
+    weights = model.decoder.decode_weights()
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def stage(job: Dict[str, Any]) -> Staged:
+        # Idempotent: the direct path and the worker's ingest thread
+        # share one staging definition.
+        if isinstance(job, Staged):
+            return job
+        arrays = {k: np.asarray(job[k]) for k in _FEATURES}
+        arrays.update({k: np.asarray(job[k], bool) for k in _MASKS})
+        staged = Staged()
+        if stream is None:
+            for k, arr in arrays.items():
+                t = torch.tensor(arr)
+                staged[k] = t.to(dtype) if k in _FEATURES else t
+        else:
+            with torch.cuda.stream(stream):
+                for k, arr in arrays.items():
+                    t = _pinned(arr).to(device, non_blocking=True)
+                    staged[k] = t.to(dtype) if k in _FEATURES else t
+                staged.event = stream.record_event()
+        if "max_len" in job:   # per-request cap (continuous engine)
+            staged["max_len"] = int(np.asarray(job["max_len"]).ravel()[0])
+        if "rng_seed" in job:  # per-request PRNG (sampling slots)
+            staged["rng_seed"] = int(np.asarray(job["rng_seed"]).ravel()[0])
+        return staged
+
+    def predict(job: Dict[str, Any]) -> Dict[str, Any]:
+        b = stage(job)
+        if b.pop("max_len", None) is not None:
+            # honor-or-reject: the plain path decodes the full
+            # config max_len; silently ignoring the cap would lie.
+            raise ValueError("per-request max_len requires a "
+                             "--continuous-slots worker")
+        if b.pop("rng_seed", None) is not None:
+            raise ValueError("per-request rng_seed requires a "
+                             "--sampling-topk --continuous-slots "
+                             "worker")
+        if b.event is not None:
+            # The copy ran on the staging stream: order the decode after
+            # it, and tell the allocator that this stream uses the
+            # tensors (they were allocated on the staging stream).
+            current = torch.cuda.current_stream(device)
+            current.wait_event(b.event)
+            for t in b.values():
+                t.record_stream(current)
+        tokens, _ = model.generate(b, cfg, weights)
+        return {"tokens": tokens.to(torch.int32).cpu().numpy()}
+
+    def warmup():
+        predict(warmup_job)
+
+    predict.stage = stage
+    predict.warmup = warmup
+    predict.model = model
+    predict.weights = weights
+    predict.config = cfg
+    return predict
+
+
+def _build_model(dims: Dict[str, Any], device: torch.device,
+                 dtype: torch.dtype, params_path: Optional[str],
+                 seed: int) -> TransformerFlattened:
+    generator = torch.Generator(device=device).manual_seed(seed)
+    model = TransformerFlattened(device=device, dtype=dtype,
+                                 generator=generator, **dims)
+    if params_path is not None:
+        model.decoder.load_state_dict(
+            params_from_jax(load_npz(params_path), model.decoder))
+    model.decoder.eval()
+    return model
+
+
+def _zero_job(B: int, P: int, S: int, image_dim: int,
+              article_dim: int) -> Dict[str, np.ndarray]:
+    return {"image": np.zeros((B, P, image_dim), np.float32),
+            "image_mask": np.zeros((B, P), bool),
+            "article": np.zeros((B, S, article_dim), np.float32),
+            "article_mask": np.zeros((B, S), bool)}
+
+
+def default_model_builder(device="cuda", params_path: Optional[str] = None,
+                          speculative_k: int = 0,
+                          continuous_slots: int = 0,
+                          continuous_beam: bool = False,
+                          sampling_topk: int = 1):
+    """The reference's tiny captioner (smoke and serving tests), fp32,
+    greedy, 16 steps. params_path: a '/'-joined .npz of the reference's
+    params (`load_npz`), e.g. JAX's PRNGKey(0) init; otherwise random
+    weights drawn from a generator seeded with 0. CPU only (see
+    `check_toy_device`)."""
+    check_serving_args(speculative_k, continuous_slots, continuous_beam,
+                       sampling_topk)
+    check_toy_device(device)
+    device = torch.device(device)
+    model = _build_model(TOY, device, torch.float32, params_path, seed=0)
+    return _serving_predict(
+        model, GenerationConfig(max_len=TOY_MAX_LEN), device, torch.float32,
+        _zero_job(1, TOY_IMAGE_LEN, TOY_ARTICLE_LEN, TOY["image_dim"],
+                  TOY["article_dim"]))
+
+
+def flagship_model_builder(device="cuda", max_len: int = 32,
                            early_exit: bool = True,
+                           quantize_kv: bool = False,
+                           quantize_head: bool = False,
                            params_path: Optional[str] = None,
+                           batch_size: int = 1,
+                           speculative_k: int = 0,
+                           continuous_slots: int = 0,
+                           continuous_beam: bool = False,
+                           sampling_topk: int = 1,
                            seed: int = 0):
-    """Returns predict(job) -> {"tokens": int32 [B, max_len + 1]}.
+    """Returns predict(job) -> {"tokens": int32 [B, max_len + 1]}: the
+    flagship decoder in bf16 end to end, greedy decode.
 
     job: numpy `image` [B, 49, 2048], `image_mask` [B, 49],
     `article` [B, 512, 1024], `article_mask` [B, 512] (masks True at
     padding). params_path: a '/'-joined .npz of the reference's params
     (`models/from_jax.py::load_npz`); otherwise random weights drawn
     from a generator seeded with `seed`. `predict.warmup()` serves one
-    zero request of `batch_size` rows; `predict.model`,
-    `predict.weights` and `predict.config` expose what it runs.
+    zero request of `batch_size` rows; `predict.stage(job)` moves a job
+    to the device ahead of `predict`; `predict.model`, `predict.weights`
+    and `predict.config` expose what it runs. The other switches are the
+    reference's; those the port does not have raise
+    (`check_serving_args`).
     """
+    check_serving_args(speculative_k, continuous_slots, continuous_beam,
+                       sampling_topk, quantize_kv, quantize_head)
     device = torch.device(device)
-    dtype = torch.bfloat16
-    generator = torch.Generator(device=device).manual_seed(seed)
-    model = TransformerFlattened(device=device, dtype=dtype,
-                                 generator=generator, **FLAGSHIP)
-    if params_path is not None:
-        model.decoder.load_state_dict(
-            params_from_jax(load_npz(params_path), model.decoder))
-    model.decoder.eval()
-    weights = model.decoder.decode_weights()
+    model = _build_model(FLAGSHIP, device, torch.bfloat16, params_path, seed)
     cfg = GenerationConfig(max_len=max_len, early_exit=early_exit)
+    return _serving_predict(
+        model, cfg, device, torch.bfloat16,
+        _zero_job(batch_size, FLAGSHIP_IMAGE_LEN, FLAGSHIP_ARTICLE_LEN,
+                  FLAGSHIP["image_dim"], FLAGSHIP["article_dim"]))
 
-    def stage(job: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        for key in ("max_len", "rng_seed"):
-            if key in job:
-                raise ValueError(f"per-request {key} is not supported by "
-                                 "the greedy worker")
-        return {
-            "image": torch.as_tensor(np.asarray(job["image"])).to(device, dtype),
-            "image_mask": torch.as_tensor(
-                np.asarray(job["image_mask"], bool)).to(device),
-            "article": torch.as_tensor(np.asarray(job["article"])).to(device, dtype),
-            "article_mask": torch.as_tensor(
-                np.asarray(job["article_mask"], bool)).to(device),
-        }
 
-    def predict(job: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        tokens, _ = model.generate(stage(job), cfg, weights)
-        return {"tokens": tokens.to(torch.int32).cpu().numpy()}
+def full_model_builder(*args, **kwargs):
+    """The reference's detection + captioning builder (MTCNN, FaceNet,
+    YOLOv3, ResNet upstream of the captioner) is not ported."""
+    raise NotImplementedError(
+        "full_model_builder: face and object detection and the image "
+        "encoders are not ported yet (ROADMAP Queue 1 items 9 and 10)")
 
-    def warmup():
-        B, P, S = batch_size, FLAGSHIP_IMAGE_LEN, FLAGSHIP_ARTICLE_LEN
-        predict({
-            "image": np.zeros((B, P, FLAGSHIP["image_dim"]), np.float32),
-            "image_mask": np.zeros((B, P), bool),
-            "article": np.zeros((B, S, FLAGSHIP["article_dim"]), np.float32),
-            "article_mask": np.zeros((B, S), bool),
-        })
 
-    predict.warmup = warmup
-    predict.model = model
-    predict.weights = weights
-    predict.config = cfg
-    return predict
+def decode_launches() -> Dict[str, int]:
+    """Launch counts of the four decode kernels in this process."""
+    from news_image_caption_tpu_torch.ops import (band_topk,
+                                                  decode_attention,
+                                                  decode_blocks)
+    return {"band_topk_lse": band_topk.band_topk_lse.launches,
+            "decode_cross_attention":
+                decode_attention.decode_cross_attention.launches,
+            "decode_conv_block": decode_blocks.decode_conv_block.launches,
+            "decode_ffn_block": decode_blocks.decode_ffn_block.launches}
+
+
+def is_cuda_error(e: BaseException) -> bool:
+    """An error of the CUDA context, which the worker treats as fatal: a
+    sticky error poisons the context, and every later job would fail
+    or be served from a broken one. Out-of-memory is not one."""
+    accelerator_error = getattr(torch, "AcceleratorError", None)
+    return (isinstance(e, torch.cuda.CudaError)
+            or (accelerator_error is not None
+                and isinstance(e, accelerator_error))
+            or (isinstance(e, RuntimeError) and "CUDA error" in str(e)))
+
+
+_MP = multiprocessing.get_context("spawn")
+
+
+class CaptioningWorker(_MP.Process):
+    """device: where the worker decodes: None, the card (worker i on
+    card i modulo the count, as the reference pins one worker a chip),
+    or "cpu" when asked. model_builder(device=...) returns predict
+    (default: the toy, `default_model_builder`)."""
+
+    def __init__(self, worker_id: int, receive_addr: str, sink_addr: str,
+                 model_builder: Optional[Callable] = None,
+                 device: Optional[str] = None):
+        super().__init__()
+        self.worker_id = worker_id
+        self.receive_addr = receive_addr
+        self.sink_addr = sink_addr
+        self.model_builder = model_builder or default_model_builder
+        self.device = device
+        self.daemon = True
+
+    def _device(self) -> torch.device:
+        if self.device is not None:
+            return torch.device(self.device)
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device for the worker; pass "
+                               "device='cpu' to serve on the CPU")
+        device = torch.device("cuda",
+                              self.worker_id % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        return device
+
+    def run(self):
+        logger = setup_logger(f"worker-{self.worker_id}")
+        device = self._device()
+        predict = self.model_builder(device=device)
+        # Builders may expose .warmup() so the first real job does not
+        # pay the first call's costs.
+        warmup = getattr(predict, "warmup", None)
+        if warmup is not None:
+            warmup()
+        # Builders may expose .stage(job) -> staged input: work that
+        # should overlap with the PREVIOUS job's compute, the host to
+        # device copy of the features. The ingest thread runs recv +
+        # unpack + stage one job ahead of the predict loop.
+        stage = getattr(predict, "stage", None)
+        receiver = transport.Socket(transport.PULL)
+        receiver.connect(self.receive_addr)
+        sink = transport.Socket(transport.PUSH)
+        sink.connect(self.sink_addr)
+        staged_q: "queue.Queue" = queue.Queue(maxsize=2)
+
+        def ingest():
+            while True:
+                try:
+                    frames = receiver.recv_multipart()
+                except transport.Closed:
+                    return
+                try:
+                    client_id, job_id = frames[0], frames[1]
+                except IndexError:
+                    logger.warning("dropping short multipart message "
+                                   "(%d frames)", len(frames))
+                    continue   # the thread must outlive bad clients
+                try:
+                    job = unpack(frames[2:])
+                    # Stats RPC: no feature tensors, must not hit
+                    # stage() (it would KeyError on "image").
+                    if not job.get("_stats") and stage is not None:
+                        job = stage(job)
+                    staged_q.put((client_id, job_id, job, None))
+                except Exception as e:   # malformed job / bad stage
+                    staged_q.put((client_id, job_id, None, e))
+
+        threading.Thread(target=ingest, daemon=True).start()
+        name = (torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "cpu")
+        logger.info("worker %d ready on %s (%s)", self.worker_id, device,
+                    name)
+        t_ready = time.monotonic()
+        n_served = 0
+        try:
+            while True:
+                client_id, job_id, job, err = staged_q.get()
+                if err is None and job.get("_stats"):
+                    result = {"mode": "plain",
+                              "worker_id": self.worker_id,
+                              "jobs_served": n_served,
+                              "uptime_s": round(
+                                  time.monotonic() - t_ready, 1),
+                              "kernel_launches": decode_launches()}
+                elif err is None:
+                    try:
+                        result = predict(job)
+                        n_served += 1
+                    except Exception as e:  # report errors to client
+                        err = e
+                if err is not None:
+                    result = {"error": repr(err)}
+                sink.send_multipart([client_id, job_id] + pack(result))
+                if err is not None and is_cuda_error(err):
+                    # Reply first, then exit non-zero so that the server's
+                    # monitor starts a worker with a fresh context.
+                    logger.error("worker %d: CUDA error, exiting: %r",
+                                 self.worker_id, err)
+                    sink.close(linger=10000)
+                    os._exit(1)
+        finally:
+            receiver.close(linger=0)
+            sink.close()

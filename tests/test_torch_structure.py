@@ -153,7 +153,9 @@ names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in sorted(names):
     importlib.import_module(name)
 new = {"training.checkpoint", "training.preemption", "data.loader",
-       "utils.logging", "utils.tensorboard", "cli", "config"}
+       "utils.logging", "utils.tensorboard", "cli", "config",
+       "serving.base", "serving.client", "serving.http",
+       "serving.messages", "serving.transport", "serving.worker"}
 assert {pkg.__name__ + "." + n for n in new} <= names, names
 from news_image_caption_tpu_torch.models.captioner import TransformerFlattened
 from news_image_caption_tpu_torch.generation.generator import GenerationConfig
@@ -172,7 +174,7 @@ with tempfile.TemporaryDirectory() as out:
     assert torch.load(out + "/checkpoints/ckpt_2.pt",
                       weights_only=True)["step"] == 2
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "zmq",
                                     "news_image_caption_tpu"))
 assert not bad, bad
 print("ok")
