@@ -107,7 +107,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      the B=16 request both ways, and, in this process, the host ms of
      `pack`, one socket hop and `unpack` + `stage` for a B=1 and the B=16
      job, their sum over a job's way in (two hops) and that sum over the
-     in-process B=1 p50 (the `serve` JSON line, a smoke reading).
+     in-process B=1 p50 (the `serve` JSON line, a smoke reading);
+  10. the faces, objects, GloVe and no-image variants: first
+     `decode_cross_attention` (Q = 1 and 5) and flash attention forward
+     and backward (T = 63, p = 0.1) at B=16 over S' = 6 (4 faces or
+     objects) and S' = 502 (a GloVe article) with two items whose every
+     real row is masked, held and timed as in phase 3; then the train
+     command on `configs/nytimes/transformer_faces_objects.yaml` at full
+     width and depth with phase 8's cuts (and bf16_o2 with flash), flash
+     launches 16 forward and 16 backward a step (4 layers x 4 contexts),
+     `evaluate -m best` on 64 test records with the attention dumped
+     (`layer{i}_faces`, `layer{i}_obj`), decode launches 3 / 16 / 4 / 4
+     a step, every batch's tokens equal to the in-process `generate` of
+     the decoded model, one profiled batch and one beam-5 B=16 search;
+     then `evaluate` with random weights on 32 records of
+     `configs/goodnews/transformer_glove.yaml` (3 / 8 / 4 / 4) and
+     `configs/goodnews/no_image.yaml` (3 / 4 / 4 / 4). Print the
+     `variants` JSON line: the train step median against phases 5 and
+     8's flagship step, captions/s, the device-busy share of a batch,
+     the launches and the kernels' times (a smoke reading).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -247,6 +265,37 @@ def sdpa(torch, q, k, v, bias, H: int, dropout_p: float = 0.0):
         scale=1.0).transpose(1, 2).reshape(B, Q, E)
 
 
+def attention_case(torch, xattn, what: str, q, k, v, bias, H: int,
+                   tally=None, calls: int = 1) -> float:
+    """`decode_cross_attention` at these inputs against its plain version
+    (0.02 abs + 0.02 rel: one bf16 rounding of a probability or the
+    output) and a second call bit for bit. With `tally`, add the error
+    and `calls` calls of the kernel's time beside its plain version's and
+    scaled_dot_product_attention's. Returns the largest error."""
+    got = xattn.decode_cross_attention(q, k, v, bias, H)
+    again = xattn.decode_cross_attention(q, k, v, bias, H)
+    want = xattn.decode_cross_attention_plain(q, k, v, bias, H)
+    torch.cuda.synchronize()
+    e, ok = within(got, want, 0.02, 0.02)
+    same = bool(torch.equal(got, again))
+    print(f"  decode_cross_attention {what}: {e:.3g} (tol 0.02 + 0.02|ref|),"
+          f" repeated call bit-equal {same}", flush=True)
+    check(ok, f"decode_cross_attention {what} disagrees")
+    check(same, f"decode_cross_attention {what}: two calls on the same"
+          " inputs differ")
+    if tally is not None:
+        B, Q, D = q.shape
+        tally.errs.append(e)
+        line = tally.add(
+            (q, k, v, bias, got), 4.0 * B * Q * k.shape[1] * D,
+            time_ms(lambda: xattn.decode_cross_attention(q, k, v, bias, H)),
+            time_ms(lambda: xattn.decode_cross_attention_plain(q, k, v, bias,
+                                                               H)),
+            time_ms(lambda: sdpa(torch, q, k, v, bias, H)), calls=calls)
+        print(f"    time {what}: {line}")
+    return e
+
+
 def kernel_phase(torch, ops):
     """Phase 3. Returns two {kernel: dict(max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms)}, the times summed over one decode
@@ -375,7 +424,7 @@ def kernel_phase(torch, ops):
     # yardstick: scaled_dot_product_attention.
     tally = results["decode_cross_attention"] = Tally()
 
-    def attention_case(B, Q, S, timed=None, one_key=False):
+    def case(B, Q, S, timed=None, one_key=False):
         k_, v_ = rn(B, S, D), rn(B, S, D)
         bias = torch.zeros(B, S, device=dev)
         bias[B // 2:, S // 2:S - 2] = -1e9      # padded context slots
@@ -383,45 +432,25 @@ def kernel_phase(torch, ops):
             bias[0] = -1e9
             bias[0, S // 3] = 0.0
         q = rn(B, Q, D, scale=0.125)
-        got = xattn.decode_cross_attention(q, k_, v_, bias, H)
-        again = xattn.decode_cross_attention(q, k_, v_, bias, H)
-        want = xattn.decode_cross_attention_plain(q, k_, v_, bias, H)
-        torch.cuda.synchronize()
-        e, ok = within(got, want, 0.02, 0.02)
-        same = bool(torch.equal(got, again))
-        print(f"  decode_cross_attention B={B} Q={Q} S'={S}"
-              f"{' (item 0: one key unmasked)' if one_key else ''}: {e:.3g}"
-              f" (tol 0.02 + 0.02|ref|), repeated call bit-equal {same}",
-              flush=True)
-        check(ok, f"decode_cross_attention B={B} Q={Q} S'={S} disagrees")
-        check(same, f"decode_cross_attention B={B} Q={Q} S'={S}: two calls"
-              " on the same inputs differ")
+        what = (f"B={B} Q={Q} S'={S}"
+                + (" (item 0: one key unmasked)" if one_key else ""))
+        e = attention_case(torch, xattn, what, q, k_, v_, bias, H, timed,
+                           calls=4 if B == N else 0)
         tally.errs.append(e)
-        if timed is not None:
-            timed.errs.append(e)
-            line = timed.add(
-                (q, k_, v_, bias, got), 4.0 * B * Q * S * D,
-                time_ms(lambda: xattn.decode_cross_attention(q, k_, v_, bias,
-                                                             H)),
-                time_ms(lambda: xattn.decode_cross_attention_plain(
-                    q, k_, v_, bias, H)),
-                time_ms(lambda: sdpa(torch, q, k_, v_, bias, H)),
-                calls=4 if B == N else 0)
-            print(f"    time B={B} Q={Q}: {line}")
 
     for S in (514, 51):
-        attention_case(N, 1, S, timed=tally)
-        attention_case(N, 5, S, timed=beam["decode_cross_attention"])
-        attention_case(128, 5, S)
-        attention_case(N, 16, S)
-        attention_case(1, 1, S, timed=tally)
-        attention_case(1, 5, S)
-        attention_case(1, 16, S)
+        case(N, 1, S, timed=tally)
+        case(N, 5, S, timed=beam["decode_cross_attention"])
+        case(128, 5, S)
+        case(N, 16, S)
+        case(1, 1, S, timed=tally)
+        case(1, 5, S)
+        case(1, 16, S)
     for S in (1, 63, 65):
-        attention_case(N, 1, S)
-        attention_case(1, 16, S)
-    attention_case(N, 5, 514, one_key=True)
-    attention_case(1, 1, 51, one_key=True)
+        case(N, 1, S)
+        case(1, 16, S)
+    case(N, 5, 514, one_key=True)
+    case(1, 1, 51, one_key=True)
 
     # decode_conv_block: K = 2/3/7/15/31 at 1, 5, 16, 80 and 640 rows, at t
     # before, at and past the ring filling. Tolerance 0.02 (h) and 0.05
@@ -518,6 +547,76 @@ def kernel_phase(torch, ops):
             {name: t.result() for name, t in beam.items()})
 
 
+def flash_case(torch, flash, what: str, q, k, v, g, bias, seed, H: int,
+               p: float, tallies=None, calls: int = 1) -> None:
+    """Flash attention forward and backward at these inputs against their
+    plain versions, and a second call bit for bit. With `tallies`
+    ({"flash_attention_fwd": Tally, "flash_attention_bwd": Tally}), add
+    the errors and `calls` calls of each kernel's time beside its plain
+    version's and the library call's (scaled_dot_product_attention with
+    dropout_p = p, and its backward through autograd)."""
+    fargs = (q, k, v, bias, seed, H, p)
+    out, lse = flash.flash_attention_fwd(*fargs)
+    grads = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
+    out2, lse2 = flash.flash_attention_fwd(*fargs)
+    grads2 = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
+    torch.cuda.synchronize()
+    pout, plse = flash.flash_attention_fwd_plain(*fargs)
+    pgrads = flash.flash_attention_bwd_plain(q, k, v, bias, seed, plse, g, H,
+                                             p)
+    # out: one bf16 rounding of a probability or of the output (0.02 abs
+    # + rel); lse fp32 (1e-3 + 1e-5 rel); gradients: a bf16 rounding of ds
+    # summed over up to 514 terms, 2% of the item's largest entry plus 2%
+    # relative. (Of an item whose keys are all padded the saved lse is
+    # -1e9, which swallows log S: its probs are 1 in the backward, here
+    # as in the reference, and its gradients S times larger than its
+    # neighbours'.)
+    e_o, ok_o = within(out, pout, 0.02, 0.02)
+    e_l, ok_l = within(lse, plse, 1e-3, 1e-5)
+    errs = [e_o, e_l]
+    oks = [ok_o, ok_l]
+    for got, want in zip(grads, pgrads):
+        e, ok = within(got, want,
+                       0.02 * want.float().abs().amax((1, 2), True), 0.02)
+        errs.append(e)
+        oks.append(ok)
+    same = (torch.equal(out, out2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+    print(f"  flash attention {what}: out {e_o:.3g}, lse {e_l:.3g}, dq"
+          f" {errs[2]:.3g}, dk {errs[3]:.3g}, dv {errs[4]:.3g} (tol"
+          f" 0.02+0.02|ref| / 1e-3+1e-5|ref| / 0.02 max|ref|+0.02|ref|),"
+          f" repeated call bit-equal {same}", flush=True)
+    check(all(oks), f"flash attention {what} disagrees with its plain twin")
+    check(same, f"flash attention {what}: two calls on the same inputs"
+          " differ")
+    if tallies is None:
+        return
+    fwd, bwd = tallies["flash_attention_fwd"], tallies["flash_attention_bwd"]
+    fwd.errs += errs[:2]
+    bwd.errs += errs[2:]
+    # The library's forward and, over one retained graph, its backward.
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lout = sdpa(torch, lq, lk, lv, bias, H, p)
+    B, T, E = q.shape
+    flops = 4.0 * B * T * k.shape[1] * E
+    line = fwd.add(
+        (q, k, v, bias, seed, out, lse), flops,
+        time_ms(lambda: flash.flash_attention_fwd(*fargs)),
+        time_ms(lambda: flash.flash_attention_fwd_plain(*fargs)),
+        time_ms(lambda: sdpa(torch, q, k, v, bias, H, p)), calls=calls)
+    print(f"    time flash_attention_fwd {what}: {line}")
+    # Backward: the scores again, dp, dv, dq and dk: five products.
+    line = bwd.add(
+        (q, k, v, bias, seed, lse, g, *grads), 2.5 * flops,
+        time_ms(lambda: flash.flash_attention_bwd(q, k, v, bias, seed, lse,
+                                                  g, H, p)),
+        time_ms(lambda: flash.flash_attention_bwd_plain(
+            q, k, v, bias, seed, plse, g, H, p)),
+        time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), g,
+                                            retain_graph=True)), calls=calls)
+    print(f"    time flash_attention_bwd {what}: {line}")
+
+
 def flash_phase(torch, flash):
     """Phase 3, flash attention. The dropout mask against the plain
     generator; then the flagship train step's shapes, timed: q
@@ -562,7 +661,7 @@ def flash_phase(torch, flash):
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
     res = {"flash_attention_fwd": Tally(), "flash_attention_bwd": Tally()}
 
-    def flash_case(B, T, S, timed=False):
+    def case(B, T, S, timed=False):
         # q as the layer gives it: unit-scale projections times 64^-0.5.
         q, k, v = rn(B, T, E, scale=0.125), rn(B, S, E), rn(B, S, E)
         g = rn(B, T, E, scale=0.1)
@@ -570,72 +669,14 @@ def flash_phase(torch, flash):
         bias[B // 2:, S // 2:max(S - 2, S // 2)] = -1e9
         if not timed:
             bias[0] = -1e9                  # an item with every key padded
-        fargs = (q, k, v, bias, seed, H, p)
-        out, lse = flash.flash_attention_fwd(*fargs)
-        grads = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
-        out2, lse2 = flash.flash_attention_fwd(*fargs)
-        grads2 = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
-        torch.cuda.synchronize()
-        pout, plse = flash.flash_attention_fwd_plain(*fargs)
-        pgrads = flash.flash_attention_bwd_plain(q, k, v, bias, seed, plse,
-                                                 g, H, p)
-        # out: one bf16 rounding of a probability or of the output (0.02
-        # abs + rel); lse fp32 (1e-3 + 1e-5 rel); gradients: a bf16
-        # rounding of ds summed over up to 514 terms, 2% of the item's
-        # largest entry plus 2% relative. (Of an item whose keys are all
-        # padded the saved lse is -1e9, which swallows log S: its probs
-        # are 1 in the backward, here as in the reference, and its
-        # gradients S times larger than its neighbours'.)
-        e_o, ok_o = within(out, pout, 0.02, 0.02)
-        e_l, ok_l = within(lse, plse, 1e-3, 1e-5)
-        errs = [e_o, e_l]
-        oks = [ok_o, ok_l]
-        for got, want in zip(grads, pgrads):
-            e, ok = within(got, want,
-                           0.02 * want.float().abs().amax((1, 2), True), 0.02)
-            errs.append(e)
-            oks.append(ok)
-        same = (torch.equal(out, out2) and torch.equal(lse, lse2)
-                and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
-        print(f"  flash attention B={B} T={T} S'={S} p={p}: out {e_o:.3g},"
-              f" lse {e_l:.3g}, dq {errs[2]:.3g}, dk {errs[3]:.3g},"
-              f" dv {errs[4]:.3g} (tol 0.02+0.02|ref| / 1e-3+1e-5|ref| /"
-              f" 0.02 max|ref|+0.02|ref|), repeated call bit-equal {same}",
-              flush=True)
-        check(all(oks), f"flash attention T={T} S'={S} disagrees with its"
-              " plain twin")
-        check(same, f"flash attention T={T} S'={S}: two calls on the same"
-              " inputs differ")
-        if not timed:
-            return
-        res["flash_attention_fwd"].errs += errs[:2]
-        res["flash_attention_bwd"].errs += errs[2:]
-        # The library's forward and, over one retained graph, its backward.
-        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
-        lout = sdpa(torch, lq, lk, lv, bias, H, p)
-        flops = 4.0 * B * T * S * E
-        line = res["flash_attention_fwd"].add(
-            (q, k, v, bias, seed, out, lse), flops,
-            time_ms(lambda: flash.flash_attention_fwd(*fargs)),
-            time_ms(lambda: flash.flash_attention_fwd_plain(*fargs)),
-            time_ms(lambda: sdpa(torch, q, k, v, bias, H, p)), calls=4)
-        print(f"    time flash_attention_fwd S'={S}: {line}")
-        # Backward: the scores again, dp, dv, dq and dk: five products.
-        line = res["flash_attention_bwd"].add(
-            (q, k, v, bias, seed, lse, g, *grads), 2.5 * flops,
-            time_ms(lambda: flash.flash_attention_bwd(q, k, v, bias, seed,
-                                                      lse, g, H, p)),
-            time_ms(lambda: flash.flash_attention_bwd_plain(
-                q, k, v, bias, seed, plse, g, H, p)),
-            time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), g,
-                                                retain_graph=True)), calls=4)
-        print(f"    time flash_attention_bwd S'={S}: {line}")
+        flash_case(torch, flash, f"B={B} T={T} S'={S} p={p}", q, k, v, g,
+                   bias, seed, H, p, res if timed else None, calls=4)
 
     for S in (514, 51):
-        flash_case(16, 63, S, timed=True)
+        case(16, 63, S, timed=True)
     for T in (2, 63, 64, 65, 128):
         for S in (1, 63, 65, 514):
-            flash_case(2, T, S)
+            case(2, T, S)
     return {name: t.result() for name, t in res.items()}
 
 
@@ -685,14 +726,15 @@ def check_tokens(tokens: np.ndarray, B: int, cfg, vocab: int) -> None:
                   "a row continues after eos")
 
 
-def greedy_launches_a_step() -> dict:
-    """Per greedy decode step of the flagship: one band call per
-    adaptive band, one attention per layer and context (image, article),
-    one conv and FFN block per layer: 3 / 8 / 4 / 4."""
+def greedy_launches_a_step(n_contexts: int = 2) -> dict:
+    """Per greedy decode step of the flagship's decoder: one band call
+    per adaptive band, one attention per layer and context (image and
+    article: 2; a variant attends 1 to 4), one conv and FFN block per
+    layer: 3 / 8 / 4 / 4 for the flagship."""
     from news_image_caption_tpu_torch.config import FLAGSHIP
     n_layers = FLAGSHIP["num_layers"]
     return {"band_topk_lse": len(FLAGSHIP["cutoff"]),
-            "decode_cross_attention": 2 * n_layers,
+            "decode_cross_attention": n_contexts * n_layers,
             "decode_conv_block": n_layers, "decode_ffn_block": n_layers}
 
 
@@ -781,10 +823,12 @@ def check_beams(tokens: np.ndarray, scores: np.ndarray, B: int, cfg,
           "beam scores are not sorted best first")
 
 
-def beam_launches_a_step(torch, rows: int, beam: int) -> dict:
+def beam_launches_a_step(torch, rows: int, beam: int,
+                         n_contexts: int = 2) -> dict:
     """Each decode kernel's launches in one flagship step of `rows`
     rows, from the kernels' plans: a band call a band, a conv and an FFN
-    call a layer, an attention call a layer and context."""
+    call a layer, an attention call a layer and context (`n_contexts`
+    of them)."""
     from news_image_caption_tpu_torch.config import FLAGSHIP
     from news_image_caption_tpu_torch.ops import _build
     from news_image_caption_tpu_torch.ops.band_topk import band_plan
@@ -798,7 +842,7 @@ def beam_launches_a_step(torch, rows: int, beam: int) -> dict:
     return {
         "band_topk_lse": sum(band_plan(rows, D, v, beam, sms).launches
                              for v in bands),
-        "decode_cross_attention": 2 * len(layers),
+        "decode_cross_attention": n_contexts * len(layers),
         "decode_conv_block": sum(conv_block_plan(rows, D, H, K, sms).launches
                                  for K in layers),
         "decode_ffn_block": len(layers) * ffn_plan(
@@ -1305,11 +1349,18 @@ EVAL_CONFIG = "configs/goodnews_transformer_roberta.yaml"
 
 
 def check_evaluate_files(out_dir: str, attn_dir: str, n_batches: int,
-                         cfg, n_records: int = 256, suffix: str = "") -> list:
-    """Phase 7's (and 8's) checks of the files the command wrote.
-    Returns each batch's tokens, read back from its attention dump."""
+                         cfg, n_records: int = 256, suffix: str = "",
+                         contexts=("image", "article"),
+                         empty_ok: bool = False) -> list:
+    """Phase 7's (and 8's and 10's) checks of the files the command
+    wrote; the attention dumps hold a map a layer and attended context.
+    With `empty_ok` (a trained model may end a caption at once), a record
+    may have an empty generation where its dumped tokens hold nothing but
+    bos, eos and pad, and nowhere else. Returns each batch's tokens, read
+    back from its attention dump."""
     import math
 
+    from news_image_caption_tpu_torch.config import FLAGSHIP
     from news_image_caption_tpu_torch.evaluation import checkdiff
     from news_image_caption_tpu_torch.evaluation.compute_metrics import \
         compute_metrics
@@ -1320,10 +1371,6 @@ def check_evaluate_files(out_dir: str, attn_dir: str, n_batches: int,
           f"{len(recs)} generations, expected {n_records}")
     check(all(k in r for r in recs for k in checkdiff.ENRICHED_FIELDS),
           "a generation record lacks its enrichment")
-    integrity = checkdiff.integrity_check(gen_path)
-    check(integrity["ok"] and integrity["records"] == n_records
-          and not integrity["problems"],
-          f"integrity check failed: {integrity}")
     with open(f"{out_dir}/evaluate-metrics{suffix}.json") as f:
         metrics = json.load(f)
     keys = ("bleu-1", "bleu-2", "bleu-3", "bleu-4", "cider", "rouge-l")
@@ -1335,22 +1382,36 @@ def check_evaluate_files(out_dir: str, attn_dir: str, n_batches: int,
               "Entity all - precision", "Generation TTR"):
         check(k in offline, f"compute_metrics lacks {k!r}")
     tokens, worst = [], 0.0
+    want = {f"layer{li}_{c}" for li in range(FLAGSHIP["num_layers"])
+            for c in contexts}
     for i in range(n_batches):
         with np.load(f"{attn_dir}/attn_{i:05d}.npz") as z:
             tok = z["tokens"]
             check(tok.shape == (16, cfg.max_len + 1),
                   f"dumped tokens of shape {tok.shape}")
             maps = [k for k in z.files if k != "tokens"]
-            check(len(maps) == 8, f"dumped maps {sorted(z.files)}")
+            check(set(maps) == want, f"dumped maps {sorted(z.files)}")
             for k in maps:
                 arr = z[k]
                 check(arr.shape[:2] == tok.shape, f"{k} of shape {arr.shape}")
                 worst = max(worst, float(np.abs(arr.sum(-1) - 1.0).max()))
             tokens.append(tok)
-    print(f"  files: {n_records} enriched records, integrity ok, metrics"
-          f" { {k: round(metrics[k], 4) for k in keys} }, compute_metrics"
-          f" {len(offline)} keys; {n_batches} attention dumps, rows sum to 1"
-          f" within {worst:.3g} (tol 1e-2)", flush=True)
+    # A generation is empty where every token is bos 0, pad 1 or eos 2.
+    empty = [bool(np.isin(row, (0, 1, 2)).all())
+             for tok in tokens for row in tok]
+    expected = ({"missing_generation": sum(empty)} if empty_ok and any(empty)
+                else {})
+    integrity = checkdiff.integrity_check(gen_path)
+    check(integrity["records"] == n_records
+          and integrity["problems"] == expected
+          and [not r["generation"] for r in recs] == empty,
+          f"integrity check failed: {integrity} (expected problems"
+          f" {expected})")
+    print(f"  files: {n_records} enriched records, integrity as expected"
+          f" ({sum(empty)} empty generations, each a caption of bos, eos and"
+          f" pad only), metrics { {k: round(metrics[k], 4) for k in keys} },"
+          f" compute_metrics {len(offline)} keys; {n_batches} attention"
+          f" dumps, rows sum to 1 within {worst:.3g} (tol 1e-2)", flush=True)
     check(worst <= 1e-2, "a dumped attention row does not sum to 1")
     return tokens
 
@@ -2064,6 +2125,304 @@ def latency_mode(torch, n_requests: int) -> None:
                 for e in top}}), flush=True)
 
 
+VARIANT_CONFIG = "configs/nytimes/transformer_faces_objects.yaml"
+VARIANT_CONTEXTS = ("image", "article", "faces", "obj")
+# The evaluate-only variants: their config, and the contexts they attend.
+VARIANT_EVALUATE = (("configs/goodnews/transformer_glove.yaml",
+                     ("image", "article")),
+                    ("configs/goodnews/no_image.yaml", ("article",)))
+
+
+def variant_kernel_phase(torch, ops):
+    """Phase 10, the kernels at the variants' new key counts: S' = 6 (4
+    faces or objects, then the bias and zero slots) and S' = 502 (a
+    500-token GloVe article), B = 16, bf16. Items 0 and 1 have every
+    real row masked, so only the bias and zero slots are attendable (an
+    article without a face); the last half have part of theirs masked.
+    `decode_cross_attention` at Q = 1 and 5, flash attention forward and
+    backward at T = 63 with p = 0.1, held and timed as in phase 3.
+    Returns {case: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)}, each a call's."""
+    xattn, flash = ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, D, H, T, p = 16, 1024, 16, 63, 0.1
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    out = {}
+    for S in (6, 502):
+        k, v = rn(B, S, D), rn(B, S, D)
+        k[:, -1] = 0                       # the zero slot
+        v[:, -1] = 0
+        bias = torch.zeros(B, S, device=dev)
+        bias[:2, :S - 2] = -1e9            # items 0 and 1: no real row
+        bias[B // 2:, (S - 2) // 2:S - 2] = -1e9
+        masked = "items 0-1 with every real row masked"
+        for Q in (1, 5):
+            tally = Tally()
+            attention_case(torch, xattn, f"B={B} Q={Q} S'={S}, {masked}",
+                           rn(B, Q, D, scale=0.125), k, v, bias, H, tally)
+            out[f"decode_cross_attention B={B} Q={Q} S'={S}"] = \
+                tally.result()
+        tallies = {"flash_attention_fwd": Tally(),
+                   "flash_attention_bwd": Tally()}
+        flash_case(torch, flash, f"B={B} T={T} S'={S} p={p}, {masked}",
+                   rn(B, T, D, scale=0.125), k, v, rn(B, T, D, scale=0.1),
+                   bias, seed, H, p, tallies)
+        for name, tally in tallies.items():
+            out[f"{name} B={B} T={T} S'={S}"] = tally.result()
+    return out
+
+
+def profiled_busy(torch, fn) -> tuple:
+    """(wall ms, device busy ms, fn's result) of fn() under
+    torch.profiler, device operations only."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    return wall, busy, result
+
+
+def variant_command_phase(torch, flash, counted):
+    """Phase 10, the commands on the faces-and-objects captioner: `train`
+    on `VARIANT_CONFIG` at full width and depth with phase 8's cuts and
+    the flagship YAML's bf16_o2 and flash switch (which this config
+    leaves at fp32 and off), the decoder's dropouts; then `evaluate -m
+    best` on 64 test records with the attention dumped. Checks the
+    losses, the flash launches (16 forward and 16 backward a train step,
+    16 forward a val batch: 4 layers x 4 contexts), the decode launches
+    (3 / 16 / 4 / 4 a greedy step), the dumps' faces and objects maps,
+    every batch's tokens against the in-process `generate` of the model
+    the command decoded, one profiled batch, and one beam-5 B=16 search
+    (launches from the plans, scores against teacher forcing). Returns
+    the launches and a summary."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import (FLAGSHIP,
+                                                     build_dataset,
+                                                     load_config)
+    from news_image_caption_tpu_torch.data.synthetic import CONTEXT_KEYS
+
+    flash_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+                     "flash_attention_bwd": flash.flash_attention_bwd}
+    all_counted = {**flash_counted, **counted}
+    n_layers, n_ctx = FLAGSHIP["num_layers"], len(VARIANT_CONTEXTS)
+    per_step = greedy_launches_a_step(n_ctx)
+    launches = dict.fromkeys(all_counted, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir, attn_dir = f"{tmp}/serialization", f"{tmp}/attn"
+        overrides = train_command_overrides(out_dir)
+        overrides["dataset"]["test"]["size"] = 64
+        overrides["trainer"]["mixed_precision"] = "bf16_o2"
+        overrides["model"] = {"use_flash_train": True}
+        ovr = json.dumps(overrides)
+        print(f"  cuts of {VARIANT_CONFIG}: {ovr}", flush=True)
+        cfg = load_config(VARIANT_CONFIG, ovr)
+        B = cfg["iterator"]["batch_size"]
+        n_train = cfg["dataset"]["train"]["size"]
+        n_val = cfg["dataset"]["val"]["size"]
+        n_test = cfg["dataset"]["test"]["size"]
+        epochs = cfg["trainer"]["num_epochs"]
+        steps = epochs * (n_train // B)
+        val_batches = epochs * (n_val // B)
+
+        timings = {}
+        for fn in all_counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["train", VARIANT_CONFIG, "-o", ovr], timings=timings)
+        wall = time.perf_counter() - t
+        check(rc == 0, f"train returned {rc}")
+        want = {"flash_attention_fwd": n_ctx * n_layers * (steps
+                                                           + val_batches),
+                "flash_attention_bwd": n_ctx * n_layers * steps,
+                **{n: 0 for n in counted}}
+        for name, fn in all_counted.items():
+            print(f"  train: {name} {fn.launches} launches (expected"
+                  f" {want[name]})")
+            check(fn.launches == want[name], f"{name} launched"
+                  f" {fn.launches} times in train, expected {want[name]}")
+            launches[name] += fn.launches
+        with open(f"{out_dir}/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r["split"] == "train"]
+        check(len(train_recs) == steps // cfg["trainer"]["log_every"]
+              and all(np.isfinite(r["loss"]) for r in recs)
+              and all(r["skipped"] == 0 for r in train_recs),
+              f"train records {recs}")
+        step_s = sorted(timings["step_s"])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        print("  metrics.jsonl: " + "; ".join(
+            f"{r['split']} step {r['step']} loss {r['loss']:.4f}"
+            for r in recs) + f"; command {wall:.1f} s, train step median"
+            f" {step_ms:.2f} ms (host clock)", flush=True)
+
+        gcfg = cli.generation_config(cfg)
+        captured = []
+        real = cli.checkpoint_model
+
+        def capture(*args, **kw):
+            captured.append(real(*args, **kw))
+            return captured[-1]
+
+        cli.checkpoint_model = capture
+        eval_timings = {}
+        try:
+            for fn in all_counted.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            rc = cli.main(["evaluate", VARIANT_CONFIG, "-o", ovr, "-m",
+                           "best", "--dump-attention", attn_dir],
+                          timings=eval_timings)
+            e_wall = time.perf_counter() - t
+        finally:
+            cli.checkpoint_model = real
+        check(rc == 0 and len(captured) == 1, f"evaluate -m best returned"
+              f" {rc}")
+        tokens = check_evaluate_files(out_dir, attn_dir, n_test // B, gcfg,
+                                      n_test, contexts=VARIANT_CONTEXTS,
+                                      empty_ok=True)
+    n_steps = sum(decode_steps(tk, gcfg.eos_id, gcfg.max_len)
+                  for tk in tokens)
+    for name, fn in all_counted.items():
+        want = per_step.get(name, 0) * n_steps
+        print(f"  evaluate -m best: {name} {fn.launches} launches over"
+              f" {n_steps} steps (expected {want})")
+        check(fn.launches == want, f"evaluate -m best: {name} launched"
+              f" {fn.launches} times, expected {want}")
+        launches[name] += fn.launches
+    print(f"  evaluate -m best: {e_wall:.1f} s, {n_test / e_wall:.2f}"
+          f" captions/s; spans (host clock, s)"
+          f" { {k: round(v, 3) for k, v in eval_timings.items()} }",
+          flush=True)
+
+    # The decoded model in process: every batch's tokens, one profiled
+    # batch, one beam-5 search.
+    model = captured[0]
+    weights = model.decoder.decode_weights()
+    staged = []
+    for i, batch_np in enumerate(build_dataset(cfg, "test").batches(
+            B, shuffle=False)):
+        batch = {k: torch.from_numpy(batch_np[k]).cuda()
+                 for k in CONTEXT_KEYS if k in batch_np}
+        tok, _ = model.generate(batch, gcfg, weights)
+        check(bool(np.array_equal(tok.to(torch.int32).cpu().numpy(),
+                                  tokens[i])),
+              f"batch {i}: in-process generate differs from the command's")
+        staged.append(batch)
+    b_wall, busy, (prof_tok, _) = profiled_busy(
+        torch, lambda: model.generate(staged[0], gcfg, weights))
+    n = decode_steps(prof_tok.cpu().numpy(), gcfg.eos_id, gcfg.max_len)
+    print(f"  in-process generate equals the command's tokens in all"
+          f" {len(staged)} batches; profiled batch: {n} steps, wall"
+          f" {b_wall:.1f} ms, device busy {busy:.2f} ms"
+          f" ({100 * busy / b_wall:.1f}%), {busy / n:.4f} device ms a step",
+          flush=True)
+
+    K = 5
+    bcfg = dataclasses.replace(gcfg, max_len=32, beam_size=K)
+    beam_per_step = beam_launches_a_step(torch, B * K, K, n_ctx)
+    # The steps a search runs (early exit waits for every live beam, not
+    # only the returned ones): counted at the decoder's step.
+    step_topk, seen = model.decoder.step_topk, []
+
+    def counted_step(*args, **kw):
+        seen.append(1)
+        return step_topk(*args, **kw)
+
+    model.decoder.step_topk = counted_step
+    for fn in counted.values():
+        fn.launches = 0
+    try:
+        t = time.perf_counter()
+        btok, bscores = model.generate_beam(staged[0], bcfg, weights)
+        btok, bscores = btok.cpu().numpy(), bscores.cpu().numpy()
+        beam_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        del model.decoder.step_topk
+    check_beams(btok, bscores, B, bcfg, FLAGSHIP["vocab_size"])
+    b_steps = len(seen)
+    for name, fn in counted.items():
+        check(fn.launches == beam_per_step[name] * b_steps,
+              f"beam 5: {name} launched {fn.launches} times, expected"
+              f" {beam_per_step[name] * b_steps}")
+        launches[name] += fn.launches
+    print(f"  beam 5, B={B}: {beam_ms:.1f} ms, {b_steps} steps, launches"
+          f" { {n: fn.launches for n, fn in counted.items()} } (plans:"
+          f" {beam_per_step} a step)", flush=True)
+    check_rescored(torch, model.decoder, staged[0], btok, bscores, bcfg,
+                   f"faces and objects, B={B} beam {K}")
+    return launches, {
+        "config": VARIANT_CONFIG, "cuts": overrides["dataset"] | {
+            k: v for k, v in overrides["trainer"].items()
+            if k != "serialization_dir"} | overrides["model"],
+        "train_steps": steps, "val_batches": val_batches, "train_wall_s": wall,
+        "train_step_ms_median": step_ms, "step_s": timings["step_s"],
+        "losses": [r["loss"] for r in recs],
+        "evaluate": {"records": n_test, "wall_s": e_wall,
+                     "captions_per_s": n_test / e_wall,
+                     "decode_steps": n_steps, "spans_s": eval_timings},
+        "profiled_batch": {"steps": n, "wall_ms": b_wall,
+                           "device_busy_ms": busy,
+                           "device_busy_share": busy / b_wall,
+                           "device_ms_per_step": busy / n},
+        "beam5_b16": {"ms": beam_ms, "steps": b_steps}}
+
+
+def variant_evaluate_phase(torch, counted, path: str, contexts) -> tuple:
+    """Phase 10, `evaluate` on a variant's config with random weights
+    (the command's own init), full width, 2 batches of 16: the files,
+    the dumps' maps, decode launches of 3 / (4 x contexts) / 4 / 4 a
+    step. Returns the launches and a summary."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import load_config
+
+    per_step = greedy_launches_a_step(len(contexts))
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir, attn_dir = f"{tmp}/serialization", f"{tmp}/attn"
+        ovr = json.dumps({"dataset": {"test": {"size": 32}},
+                          "trainer": {"serialization_dir": out_dir}})
+        cfg = load_config(path, ovr)
+        gcfg = cli.generation_config(cfg)
+        timings = {}
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["evaluate", path, "--dump-attention", attn_dir, "-o",
+                       ovr], timings=timings)
+        wall = time.perf_counter() - t
+        check(rc == 0, f"evaluate {path} returned {rc}")
+        tokens = check_evaluate_files(out_dir, attn_dir, 2, gcfg, 32,
+                                      contexts=contexts)
+    steps = sum(decode_steps(tk, gcfg.eos_id, gcfg.max_len) for tk in tokens)
+    launches = {}
+    for name, fn in counted.items():
+        want = per_step[name] * steps
+        check(fn.launches == want, f"evaluate {path}: {name} launched"
+              f" {fn.launches} times, expected {want}")
+        launches[name] = fn.launches
+    print(f"  evaluate {path} (contexts {list(contexts)}): {wall:.1f} s,"
+          f" {32 / wall:.2f} captions/s, launches {launches} over {steps}"
+          f" steps ({per_step} a step)", flush=True)
+    return launches, {"config": path, "records": 32, "wall_s": wall,
+                      "captions_per_s": 32 / wall, "decode_steps": steps,
+                      "spans_s": timings, "launches": launches}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2151,6 +2510,29 @@ def main() -> None:
         launches[name] += n
         by_path[name]["serve"] = n
     print(json.dumps({"serve": serve_summary}), flush=True)
+
+    print("phase 10: the faces, objects, GloVe and no-image variants"
+          " (bf16)", flush=True)
+    variant_timing = variant_kernel_phase(torch, (decode_attention,
+                                                  flash_attention))
+    var_launches, var_summary = variant_command_phase(torch, flash_attention,
+                                                      counted)
+    var_summary["flagship_train_step_ms"] = {
+        "phase5_step": step_ms, "phase8_command": cmd_summary[
+            "step_ms_median"]}
+    var_summary["evaluate_only"] = []
+    for path, contexts in VARIANT_EVALUATE:
+        more, summary = variant_evaluate_phase(torch, counted, path,
+                                               contexts)
+        var_summary["evaluate_only"].append(summary)
+        for name, n in more.items():
+            var_launches[name] += n
+    for name, n in var_launches.items():
+        launches[name] += n
+        by_path[name]["variants"] = n
+    print(json.dumps({"variants": {
+        **var_summary, "launches": var_launches, "kernels": variant_timing,
+        "card": card_line()}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

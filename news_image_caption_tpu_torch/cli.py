@@ -21,8 +21,11 @@ readability and TTR unless `--no-enrich`) and
 `evaluate-metrics{suffix}.json` (BLEU-1..4, CIDEr, ROUGE-L) into the
 serialization directory, prints the metrics as one JSON line and, with
 `--dump-attention DIR`, writes each batch's attention maps over its
-captions to `DIR/attn_{batch:05d}.npz`. With a `checkpoints/` directory
-there it evaluates the checkpoint `-m` names (`best` by default,
+captions to `DIR/attn_{batch:05d}.npz` (`layer{i}_{context}`, one a
+layer and attended context: image, article, faces, obj). The batch's
+every context goes to the device, so the faces, objects, GloVe and
+no-image variants evaluate as the flagship does. With a `checkpoints/`
+directory there it evaluates the checkpoint `-m` names (`best` by default,
 `latest`, a step, or `avg:N` for the mean of the newest N); `-m` without
 that directory, or a checkpoint that is not there, raises. With neither
 it warns and draws random weights from a generator seeded with 0.
@@ -74,7 +77,8 @@ from news_image_caption_tpu_torch.config import (build_dataset, build_model,
                                                  build_optimizer,
                                                  decoder_kwargs, load_config)
 from news_image_caption_tpu_torch.data.loader import DeviceLoader
-from news_image_caption_tpu_torch.data.synthetic import LOSS_KEYS
+from news_image_caption_tpu_torch.data.synthetic import (CONTEXT_KEYS,
+                                                        loss_inputs)
 from news_image_caption_tpu_torch.evaluation.enrich import enrich_record
 from news_image_caption_tpu_torch.evaluation.metrics import (BleuScorer,
                                                              CiderScorer,
@@ -273,7 +277,7 @@ def train_state(cfg: Dict, model, tx, precision: str,
 def _loss_batches(batches):
     """The keys the loss reads, so the loader moves nothing else."""
     for b in batches:
-        yield {k: b[k] for k in LOSS_KEYS}
+        yield loss_inputs(b)
 
 
 def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
@@ -528,8 +532,7 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
             if batch is None:
                 break
             staged = {k: torch.from_numpy(batch[k]).to(device)
-                      for k in ("image", "image_mask", "article",
-                                "article_mask")}
+                      for k in CONTEXT_KEYS if k in batch}
             tokens, _ = model.generate(staged, gcfg, weights)
             tokens = tokens.to(torch.int32).cpu().numpy()
             t = _lap(spans, "decode", t)

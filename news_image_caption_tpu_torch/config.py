@@ -14,9 +14,11 @@ Counterpart of `news_image_caption_tpu/config.py` (`load_config`,
 The YAML files are read by `yaml_subset.safe_load`, the port's own
 reader of the subset they use. `build_model` builds
 `transformer_flattened` with the `dynamic_conv_decoder_flattened`
-decoder; the decoder options the port implements at one value only, and
-every other model type, raise `NotImplementedError` naming the ROADMAP
-item that ports them. `build_optimizer` builds `bert_adam`.
+decoder, and the faces, faces-and-objects, GloVe and no-image variants
+of `models/variants.py` over it; the decoder options the port implements
+at one value only, and every other model type, raise
+`NotImplementedError` naming the ROADMAP item that ports them.
+`build_optimizer` builds `bert_adam`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from news_image_caption_tpu_torch.data.dataset import SyntheticNewsDataset
 from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
+from news_image_caption_tpu_torch.models.variants import VARIANTS
 from news_image_caption_tpu_torch.training.optim import make_bert_adam
 from news_image_caption_tpu_torch.yaml_subset import safe_load
 
@@ -79,7 +82,6 @@ FLAGSHIP_CAPTION_LEN = 64
 # implements at one value: any other raises.
 _FIXED = dict(conv_type="dynamic", decoder_glu=True, weight_softmax=True,
               normalize_before=False, final_norm=False, conv_dim=None,
-              extra_contexts=(), include_image=True,
               adaptive_softmax_dropout=0.0, tie_adaptive_proj=False,
               remat=False, param_dtype=torch.float32)
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -87,8 +89,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 # Model types of the reference and the ROADMAP Queue 1 item that ports
 # each.
 _NOT_PORTED = {
-    **dict.fromkeys(("transformer_faces", "transformer_faces_objects",
-                     "transformer_glove", "transformer_no_image"), 8),
     "gen3_pipeline": 9,
     **dict.fromkeys(("transformer_pointer", "transformer_only_pointer",
                      "transformer_pointer_2", "transformer_context_pointer",
@@ -141,18 +141,19 @@ def config_dtype(value: Any) -> torch.dtype:
 
 
 def decoder_kwargs(cfg: Dict) -> Dict:
-    """The port's `DynamicConvDecoder` arguments of the `model:` block
-    (its `decoder:` block, or the model block itself), `dtype` among
-    them (the config's, float32 by default)."""
+    """The arguments of the `model:` block's builder (its `decoder:`
+    block, or the model block itself): the port's `DynamicConvDecoder`
+    arguments, `dtype` among them (the config's, float32 by default),
+    and a variant's own keys (`face_dim`, `obj_dim`)."""
     mcfg = copy.deepcopy(cfg["model"])
     mtype = mcfg.pop("type")
-    if mtype != "transformer_flattened":
+    if mtype != "transformer_flattened" and mtype not in VARIANTS:
         raise _not_ported("model", mtype)
     dcfg = mcfg.pop("decoder", None)
     if dcfg is None:
         dcfg, mcfg = mcfg, {}
     if mcfg:
-        raise TypeError(f"transformer_flattened: unknown keys {sorted(mcfg)}")
+        raise TypeError(f"{mtype}: unknown keys {sorted(mcfg)}")
     dtype_ = dcfg.pop("type", "dynamic_conv_decoder_flattened")
     if dtype_ != "dynamic_conv_decoder_flattened":
         raise _not_ported("decoder", dtype_)
@@ -166,6 +167,9 @@ def decoder_kwargs(cfg: Dict) -> Dict:
                     f"decoder {key}={got!r}: the port implements {want!r} "
                     "only (ROADMAP Queue 1 item 8)")
     dcfg["dtype"] = config_dtype(dcfg.pop("dtype", "float32"))
+    if "extra_contexts" in dcfg:        # [[name, dim], ...] in YAML
+        dcfg["extra_contexts"] = tuple(
+            (name, dim) for name, dim in dcfg["extra_contexts"])
     return {k: tuple(v) if isinstance(v, list) else v
             for k, v in dcfg.items()}
 
@@ -180,8 +184,8 @@ def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
     kw = decoder_kwargs(cfg)
     if dtype is not None:
         kw["dtype"] = dtype
-    return TransformerFlattened(device=torch.device(device),
-                                generator=generator, **kw)
+    builder = VARIANTS.get(cfg["model"]["type"], TransformerFlattened)
+    return builder(device=torch.device(device), generator=generator, **kw)
 
 
 def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:

@@ -1,9 +1,11 @@
 """Synthetic news-caption batches for the train path, numpy only.
 
 `SyntheticNewsDataset` is `data/dataset.py::SyntheticNewsDataset` (the
-reference's draws, bit for bit) with its batches cut to the keys the
-flagship loss reads: caption_ids, image, image_mask, article and
-article_mask. RoBERTa-style captions: bos 0, eos 2, pad 1.
+reference's draws, bit for bit) with its batches cut to the keys a
+captioner's loss reads (`loss_inputs`): caption_ids, image, image_mask,
+article and article_mask (`LOSS_KEYS`, in every batch), and the faces,
+objects and entities with their masks where the set draws them.
+RoBERTa-style captions: bos 0, eos 2, pad 1.
 """
 
 from __future__ import annotations
@@ -16,13 +18,21 @@ import torch
 from news_image_caption_tpu_torch.data import dataset
 
 LOSS_KEYS = ("caption_ids", "image", "image_mask", "article", "article_mask")
+EXTRA_KEYS = ("faces", "faces_mask", "obj", "obj_mask", "entity",
+              "entity_mask")
+# Every context and mask a batch may carry, for evaluate's staging.
+CONTEXT_KEYS = LOSS_KEYS[1:] + EXTRA_KEYS
+
+
+def loss_inputs(batch: Dict) -> Dict:
+    """The batch's `LOSS_KEYS` and the extra contexts it has."""
+    return {k: batch[k] for k in LOSS_KEYS + EXTRA_KEYS if k in batch}
 
 
 class SyntheticNewsDataset(dataset.SyntheticNewsDataset):
     def collate(self, examples: List[dataset.Example]
                 ) -> Dict[str, np.ndarray]:
-        batch = super().collate(examples)
-        return {k: batch[k] for k in LOSS_KEYS}
+        return loss_inputs(super().collate(examples))
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -1,13 +1,15 @@
 """Flagship captioning model: contexts -> dynamic-conv decoder -> caption.
 
 Counterpart of `news_image_caption_tpu/models/captioner.py::
-TransformerFlattened` for training (`shift_caption`, `loss_fn`), greedy
-decoding (`_contexts`, `_check_max_len`, `generate`; `generate_full`
-through the full-vocab step), beam search (`generate_beam`,
-impl="topk") and the attention maps of given captions
-(`attention_maps`). The decoder's weights live in the module; the generate
-methods take the fused decode weights of
-`DynamicConvDecoder.decode_weights()` so a server computes them once.
+TransformerFlattened` (and, through its decoder's contexts, of the
+faces, objects, GloVe and no-image variants of `models/variants.py`)
+for training (`shift_caption`, `loss_fn`), greedy decoding
+(`_contexts`, `_check_max_len`, `generate`; `generate_full` through the
+full-vocab step), beam search (`generate_beam`, impl="topk") and the
+attention maps of given captions (`attention_maps`). The decoder's
+weights live in the module; the generate methods take the fused decode
+weights of `DynamicConvDecoder.decode_weights()` so a server computes
+them once.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from news_image_caption_tpu_torch.models.decoder_flattened import (
     DecodeWeights, DynamicConvDecoder)
 
 LN2 = math.log(2.0)
+# Contexts beyond image and article that a batch may carry.
+EXTRA_CONTEXTS = ("faces", "obj", "entity")
 
 
 def shift_caption(caption_ids: torch.Tensor
@@ -42,12 +46,21 @@ class TransformerFlattened:
 
     @staticmethod
     def _contexts(batch: Dict[str, torch.Tensor]):
-        return {
-            "image": batch["image"],
+        """The batch's contexts and masks: image and article, and the
+        faces, objects and entities of the variants where the batch has
+        them (`models/variants.py`). A decoder reads only the contexts
+        it attends."""
+        ctx = {
+            "image": batch.get("image"),
             "image_mask": batch.get("image_mask"),
             "article": batch["article"],
             "article_mask": batch.get("article_mask"),
         }
+        for extra in EXTRA_CONTEXTS:
+            if extra in batch:
+                ctx[extra] = batch[extra]
+                ctx[f"{extra}_mask"] = batch.get(f"{extra}_mask")
+        return ctx
 
     def loss_fn(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None):
@@ -75,8 +88,8 @@ class TransformerFlattened:
         for the untiled batch B, zero ring-major caches for B * beam rows
         and the bos seed [B]."""
         contexts = self._contexts(batch)
-        B = contexts["image"].shape[0]
-        device = contexts["image"].device
+        B = contexts["article"].shape[0]         # every variant attends it
+        device = contexts["article"].device
         self._check_max_len(config)
         if weights is None:
             weights = self.decoder.decode_weights()

@@ -1,8 +1,10 @@
 """Dynamic-convolution caption decoder (Transform-and-Tell style).
 
 Counterpart of `news_image_caption_tpu/models/decoder_flattened.py` for
-the flagship structure (dynamic conv, GLU, post-LayerNorm, image and
-article contexts, tied adaptive softmax): `SumEmbedder`,
+the flagship structure (dynamic conv, GLU, post-LayerNorm, tied adaptive
+softmax) over its attended contexts: image (unless `include_image` is
+False), article, then `extra_contexts` in order, such as faces and
+objects (`models/variants.py`): `SumEmbedder`,
 `DynamicConvDecoderLayer` (full-sequence forward, with the training
 dropouts, and the ring-major decode step) and `DynamicConvDecoder`
 (`precompute_kv`, `hidden`, `loss`, `log_prob`, `attention_maps`,
@@ -214,7 +216,9 @@ class DynamicConvDecoder(nn.Module):
 
     contexts (batch first): image [B, P, image_dim], image_mask [B, P]
     and article [B, S, article_dim], article_mask [B, S], masks True at
-    padding.
+    padding, and each extra context [B, n, dim] with its `{name}_mask`.
+    The order of the contexts (image, article, extras) names the layers'
+    attentions and fixes the rows of `context_fc`.
     """
 
     def __init__(self, *, device, dtype, generator=None,
@@ -224,7 +228,9 @@ class DynamicConvDecoder(nn.Module):
                  kernel_sizes: Sequence[int] = (3, 7, 15, 31),
                  cutoff: Sequence[int] = (5000, 20000, 50265),
                  image_dim: int = 2048, article_dim: int = 1024,
-                 padding_idx: int = 0, target_padding_idx: int = 1,
+                 extra_contexts: Sequence[Tuple[str, int]] = (),
+                 include_image: bool = True, padding_idx: int = 0,
+                 target_padding_idx: int = 1,
                  max_positions: int = 512, dropout: float = 0.1,
                  weight_dropout: float = 0.1, relu_dropout: float = 0.0,
                  input_dropout: float = 0.1, attention_dropout: float = 0.1,
@@ -243,7 +249,9 @@ class DynamicConvDecoder(nn.Module):
             vocab_size, embed_dim, cutoff, padding_idx=padding_idx,
             pos_padding_idx=target_padding_idx, max_positions=max_positions,
             **kw)
-        specs = (("image", image_dim), ("article", article_dim))
+        specs = ((("image", image_dim),) if include_image else ()) \
+            + (("article", article_dim),) \
+            + tuple((name, dim) for name, dim in extra_contexts)
         self.layers = nn.ModuleList(
             DynamicConvDecoderLayer(
                 embed_dim, k, num_heads, ffn_dim, specs, dropout=dropout,

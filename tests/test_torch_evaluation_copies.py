@@ -6,10 +6,12 @@ give the reference's answers on the same inputs: scores, enriched
 records, offline metrics, diffs, batches bit for bit. The port's YAML
 reader must read every file under `configs/` as `yaml.safe_load` does,
 types included, and raise outside its subset. `build_model` must build
-every `transformer_flattened` config: at full width on the meta device
-(every parameter's shape the reference's, traced with `jax.eval_shape`,
-nothing allocated) and, with the widths narrowed by overrides, decoding
-on the CPU; every other model type raises NotImplementedError.
+every `transformer_flattened` config and every config of its faces,
+faces-and-objects, GloVe and no-image variants: at full width on the
+meta device (every parameter's shape the reference's, traced with
+`jax.eval_shape`, nothing allocated) and, with the widths narrowed by
+overrides, decoding on the CPU; every other model type raises
+NotImplementedError.
 """
 
 import glob
@@ -51,10 +53,23 @@ CONFIGS = sorted(str(Path(p).relative_to(REPO)) for p in
 FLATTENED = ["configs/goodnews_transformer_roberta.yaml",
              "configs/nytimes/location_aware.yaml",
              "configs/nytimes/transformer_roberta.yaml",
-             "configs/tiny_test.yaml"]
+             "configs/tiny_test.yaml",
+             # The variants: faces, faces and objects, GloVe, no image.
+             "configs/goodnews/transformer_faces.yaml",
+             "configs/nytimes/transformer_faces.yaml",
+             "configs/goodnews/transformer_objects.yaml",
+             "configs/nytimes/transformer_objects.yaml",
+             "configs/nytimes/transformer_faces_objects.yaml",
+             "configs/goodnews/transformer_glove.yaml",
+             "configs/nytimes/transformer_glove.yaml",
+             "configs/goodnews/no_image.yaml",
+             "configs/nytimes/no_image.yaml"]
 # Widths that make any transformer_flattened config a small model.
 NARROW = dict(vocab_size=64, cutoff=[16, 32, 64], embed_dim=16, ffn_dim=32,
               num_heads=4, image_dim=16, article_dim=12, max_positions=64)
+# And the variants' own context widths.
+NARROW_EXTRA = {"transformer_faces": dict(face_dim=8),
+                "transformer_faces_objects": dict(face_dim=8, obj_dim=6)}
 
 PAIRS = [
     ("the cat sat on the mat", ["the cat is on the mat"]),
@@ -352,17 +367,25 @@ def test_build_model_maps_the_config_at_full_width(path):
 @pytest.mark.parametrize("path", FLATTENED)
 def test_build_model_decodes_narrowed_on_the_cpu(path):
     cfg = config.load_config(str(REPO / path))
-    narrow = ({"decoder": NARROW} if "decoder" in cfg["model"] else NARROW)
+    narrow = ({"decoder": NARROW} if "decoder" in cfg["model"] else
+              dict(NARROW, **NARROW_EXTRA.get(cfg["model"]["type"], {})))
     cfg = config.merge_overrides(cfg, {"model": narrow})
     gen = torch.Generator().manual_seed(0)
     model = config.build_model(cfg, "cpu", generator=gen)
     rng = np.random.RandomState(0)
     article_mask = np.arange(5)[None, :] >= np.array([[5], [3]])
+    # Faces and objects ride along (read by the variants that attend
+    # them); item 1 has no face at all.
+    faces_mask = np.array([[False, False, True], [True, True, True]])
     batch = {k: torch.from_numpy(v) for k, v in (
         ("image", rng.randn(2, 3, 16).astype(np.float32)),
         ("image_mask", np.zeros((2, 3), bool)),
         ("article", rng.randn(2, 5, 12).astype(np.float32)),
-        ("article_mask", article_mask))}
+        ("article_mask", article_mask),
+        ("faces", rng.randn(2, 3, 8).astype(np.float32)),
+        ("faces_mask", faces_mask),
+        ("obj", rng.randn(2, 4, 6).astype(np.float32)),
+        ("obj_mask", np.zeros((2, 4), bool)))}
     tokens, lps = model.generate(batch, GenerationConfig(max_len=4))
     assert tokens.shape == (2, 5) and bool((tokens[:, 0] == 0).all())
     assert bool(torch.isfinite(lps).all())
@@ -379,8 +402,7 @@ def test_build_model_raises_for_models_not_ported(path):
 @pytest.mark.parametrize("key,value", [
     ("conv_type", "lightweight"), ("decoder_glu", False),
     ("weight_softmax", False), ("normalize_before", True),
-    ("final_norm", True), ("include_image", False),
-    ("extra_contexts", [["faces", 512]]), ("param_dtype", "bfloat16"),
+    ("final_norm", True), ("param_dtype", "bfloat16"),
 ])
 def test_build_model_raises_for_decoder_options_not_ported(key, value):
     cfg = config.load_config(str(REPO / "configs/tiny_test.yaml"))
@@ -388,6 +410,22 @@ def test_build_model_raises_for_decoder_options_not_ported(key, value):
     with pytest.raises(NotImplementedError,
                        match=rf"{key}=.*ROADMAP Queue 1 item 8\)"):
         config.build_model(cfg, "meta")
+
+
+@pytest.mark.parametrize("key,value,contexts", [
+    ("include_image", False, ["article"]),
+    ("extra_contexts", [["faces", 512]], ["image", "article", "faces"]),
+])
+def test_build_model_builds_the_context_options(key, value, contexts):
+    """The decoder's contexts as the reference orders them: image
+    (unless include_image is False), article, then the extras."""
+    cfg = config.load_config(str(REPO / "configs/tiny_test.yaml"))
+    cfg = config.merge_overrides(cfg, {"model": {"decoder": {key: value}}})
+    decoder = config.build_model(cfg, "meta").decoder
+    assert [layer.context_names for layer in decoder.layers] == \
+        [contexts] * len(decoder.layers)
+    D = cfg["model"]["decoder"]["embed_dim"]
+    assert decoder.layers[0].context_fc.kernel.shape == (len(contexts) * D, D)
 
 
 def test_build_model_accepts_the_implemented_values():

@@ -26,8 +26,9 @@ its `evaluate -m best` and `-m avg:2` once, so JAX compiles once:
   port's `bf16` and `bf16_o2` trajectories bit-equal to each other, and
   `accumulate_gradients(tx, 2)` against optax's `MultiSteps` over 4
   micro-batches (params within rtol 1e-5 / atol 1e-7 after each);
-- the `train` command runs every `transformer_flattened` config the port
-  builds, narrowed, and `evaluate` loads what it wrote.
+- the `train` command runs every config the port builds (those of
+  `transformer_flattened` and of its variants), narrowed, and `evaluate`
+  loads what it wrote.
 """
 
 import json
@@ -616,18 +617,31 @@ def test_accumulation_matches_reference_multisteps():
 FLATTENED = ["configs/goodnews_transformer_roberta.yaml",
              "configs/nytimes/location_aware.yaml",
              "configs/nytimes/transformer_roberta.yaml",
-             "configs/tiny_test.yaml"]
+             "configs/tiny_test.yaml",
+             "configs/goodnews/transformer_faces.yaml",
+             "configs/nytimes/transformer_faces.yaml",
+             "configs/goodnews/transformer_objects.yaml",
+             "configs/nytimes/transformer_objects.yaml",
+             "configs/nytimes/transformer_faces_objects.yaml",
+             "configs/goodnews/transformer_glove.yaml",
+             "configs/nytimes/transformer_glove.yaml",
+             "configs/goodnews/no_image.yaml",
+             "configs/nytimes/no_image.yaml"]
 NARROW = dict(vocab_size=64, cutoff=[16, 32, 64], embed_dim=16, ffn_dim=32,
               num_heads=4, image_dim=16, article_dim=12, max_positions=64)
+NARROW_EXTRA = {"transformer_faces": dict(face_dim=8),
+                "transformer_faces_objects": dict(face_dim=8, obj_dim=6)}
 NARROW_DATA = dict(vocab_size=64, caption_len=12, article_len=16,
-                   n_patches=4, image_dim=16, article_dim=12,
-                   train={"size": 8}, val={"size": 4}, test={"size": 4})
+                   n_patches=4, image_dim=16, article_dim=12, face_dim=8,
+                   obj_dim=6, train={"size": 8}, val={"size": 4},
+                   test={"size": 4})
 
 
 @pytest.mark.parametrize("path", FLATTENED)
 def test_train_command_runs_every_config_narrowed(path, tmp_path, capsys):
     cfg = load_config(str(REPO / path))
-    narrow = {"decoder": NARROW} if "decoder" in cfg["model"] else NARROW
+    narrow = ({"decoder": NARROW} if "decoder" in cfg["model"] else
+              dict(NARROW, **NARROW_EXTRA.get(cfg["model"]["type"], {})))
     overrides = json.dumps({
         "model": narrow, "dataset": NARROW_DATA, "iterator": {"batch_size": 4},
         "generation": {"max_len": 4},
