@@ -126,6 +126,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      `variants` JSON line: the train step median against phases 5 and
      8's flagship step, captions/s, the device-busy share of a batch,
      the launches and the kernels' times (a smoke reading).
+  11. speculative greedy, top-k sampling and the continuous slot pool
+     on phase 4's flagship (bf16, seeded random weights): first
+     `decode_conv_block` with a position a row against its plain twin
+     at N = 16 and 80, K = 3/7/15/31 (rows at 0, K-2, K-1 and past a
+     wrap; phase 3's tolerances; a second call bit-equal; one position
+     for every row bit for bit the scalar-t kernel), timed beside the
+     scalar-t kernel, the plain twin, a library chain and the bound;
+     then the greedy pool (16 slots, 8 steps a dispatch, 48 requests in
+     three waves, caps of 8 to 32 tokens), the beam pool (8 slots of 5
+     rows, 16 requests) and the sampling pool (top-4 at 0.8, 16 seeded
+     requests), each request token for token its row of `generate` /
+     `generate_beam` run at the pool's row count over the same requests
+     (K/V projected a request, as the pool projects them; sampling with
+     one generator a row); speculative greedy at B=16, spec_k 4, with
+     oracle drafts (the card's greedy caption) and with the synthetic
+     article's ids: chunks against steps, the share of tokens equal to
+     greedy's (at least 0.891 over 16 steps with oracle drafts, phase
+     7's bf16-against-fp32 figure), the drafts never changing the
+     tokens; every path's launches from the counts, zeroed just
+     before it; then `serve --continuous-slots 8`: phase 9's 20 latency
+     jobs one at a time and 8 in flight, tokens equal to an in-process
+     pool's, p50 / p90 beside phase 9's plain worker, the worker's
+     launches from its stats RPC, SIGTERM (the `continuous` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -2423,6 +2446,406 @@ def variant_evaluate_phase(torch, counted, path: str, contexts) -> tuple:
                       "spans_s": timings, "launches": launches}
 
 
+# -- phase 11: speculative greedy, top-k sampling, the slot pool -------------
+
+def conv_positions_phase(torch, blocks):
+    """Phase 11.1. `decode_conv_block` with a position a row against its
+    plain twin (h 0.02, y 0.05, abs + rel, phase 3's tolerances), bit for
+    bit on a second call, at the pool's N = 16 and the beam pool's N = 80
+    for the flagship's K = 3/7/15/31, rows at 0, K-2, K-1 and past a
+    wrap; every row at one position bit for bit the scalar-t kernel. Times
+    the per-row kernel beside the scalar-t kernel (one call each, in
+    turns), the plain twin and a library chain with a per-row gather.
+    Returns {N: Tally-like dict summed over the four layers}."""
+    F_ = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(bf16)
+
+    D, H = 1024, 16
+    w1, b1 = rn(D, 2 * D, scale=D ** -0.5), rn(2 * D, scale=0.05)
+    w2, b2 = rn(D, D, scale=D ** -0.5), rn(D, scale=0.05)
+    out = {}
+    for n in (16, 80):
+        tally, scalar_ms = Tally(), 0.0
+        for K in (3, 7, 15, 31):
+            wl = rn(D, H * K, scale=0.05)
+            taps = blocks.pack_taps(wl, H)
+            x, cache = rn(n, D), rn(K - 1, n, D, scale=0.5)
+            base = torch.tensor([0, K - 2, K - 1, 3 * K + 5], dtype=torch.int32)
+            pos = base.repeat(n // 4).to(dev)
+            args = (x, cache, pos, w1, b1, wl, w2, b2, H)
+            y, h = blocks.decode_conv_block(*args, taps=taps)
+            y2, h2 = blocks.decode_conv_block(*args, taps=taps)
+            py, ph = blocks.decode_conv_block_plain(*args)
+            same = torch.full((n,), 2 * K + 3, dtype=torch.int32, device=dev)
+            ya, ha = blocks.decode_conv_block(x, cache, same, w1, b1, wl, w2,
+                                              b2, H, taps=taps)
+            yt, ht = blocks.decode_conv_block(x, cache, 2 * K + 3, w1, b1, wl,
+                                              w2, b2, H, taps=taps)
+            torch.cuda.synchronize()
+            e_h, ok_h = within(h, ph, 0.02, 0.02)
+            e_y, ok_y = within(y, py, 0.05, 0.05)
+            check(ok_h and ok_y,
+                  f"decode_conv_block per-row positions N={n} K={K} disagrees")
+            check(bool(torch.equal(y, y2)) and bool(torch.equal(h, h2)),
+                  f"decode_conv_block per-row N={n} K={K}: two calls differ")
+            check(bool(torch.equal(ya, yt)) and bool(torch.equal(ha, ht)),
+                  f"decode_conv_block N={n} K={K}: one position for every row"
+                  " is not the scalar-t kernel bit for bit")
+            tally.errs += [e_h, e_y]
+            rows = torch.arange(n, device=dev)[None, :]
+            slots = (pos.long()[None, :]
+                     + torch.arange(K - 1, device=dev)[:, None]) % (K - 1)
+
+            def library():
+                hh = F_.glu(F_.linear(x, w1.T, b1), dim=-1)
+                p = torch.softmax(F_.linear(hh, wl.T).view(n, H, K), dim=-1)
+                hist = torch.cat([cache[slots, rows], hh[None]]).view(
+                    K, n, H, D // H)
+                conv = torch.einsum("nhk,knhr->nhr", p, hist).reshape(n, D)
+                return F_.linear(conv, w2.T, b2) + x, hh
+            t_pos = time_ms(lambda: blocks.decode_conv_block(*args, taps=taps))
+            t_int = time_ms(lambda: blocks.decode_conv_block(
+                x, cache, 2 * K + 3, w1, b1, wl, w2, b2, H, taps=taps))
+            t_pos2 = time_ms(lambda: blocks.decode_conv_block(*args,
+                                                              taps=taps))
+            scalar_ms += t_int
+            line = tally.add(
+                (x, cache, pos, w1, b1, wl, w2, b2, y, h),
+                2.0 * n * D * (2 * D + H * K + D) + 2.0 * n * D * K,
+                (t_pos + t_pos2) / 2,
+                time_ms(lambda: blocks.decode_conv_block_plain(*args)),
+                time_ms(library))
+            print(f"  decode_conv_block per-row N={n} K={K}: h {e_h:.3g}, y"
+                  f" {e_y:.3g} (tol 0.02 / 0.05); {line}; scalar-t kernel"
+                  f" {t_int:.4f} ms (per-row {t_pos:.4f} / {t_pos2:.4f})",
+                  flush=True)
+        out[n] = dict(tally.result(), scalar_ms=scalar_ms)
+    return out
+
+
+def stacked_kvs(torch, model, batches):
+    """The context K/V of each request projected alone (batch 1), as the
+    slot pool projects them, then stacked: the yardstick's K/V equal the
+    pool's bit for bit (a product of another batch may sum in another
+    order)."""
+    from news_image_caption_tpu_torch.ops.attention import AttentionKV
+    per = [model.decoder.precompute_kv(model._contexts(b)) for b in batches]
+    return [{name: AttentionKV(*(torch.cat([p[layer][name][i] for p in per])
+                                 for i in range(3)))
+             for name in per[0][layer]} for layer in range(len(per[0]))]
+
+
+def rows_generate(torch, model, weights, batches, cfg, generator=None):
+    """`generate` at B = len(batches) over these requests (K/V projected
+    a request, `stacked_kvs`): the yardstick of the greedy and sampling
+    pools, every kernel at the pool's row count."""
+    from news_image_caption_tpu_torch.generation.generator import \
+        generate_candidates
+    with torch.inference_mode():
+        kvs = stacked_kvs(torch, model, batches)
+        B = len(batches)
+        caches = model.decoder.init_cache(B, "cuda")
+        seed = torch.full((B,), cfg.bos_id, dtype=torch.long, device="cuda")
+        return generate_candidates(
+            lambda tok, i: model.decoder.step_topk(
+                tok, i, kvs, caches, cfg.sampling_topk, weights),
+            seed, cfg, generator)
+
+
+def rows_generate_beam(torch, model, weights, batches, cfg):
+    """`generate_beam` at B = len(batches) over these requests (K/V
+    projected a request): the beam pool's yardstick."""
+    from news_image_caption_tpu_torch.generation.generator import (
+        beam_search_candidates, index_reorder)
+    K = cfg.beam_size
+    with torch.inference_mode():
+        kvs = stacked_kvs(torch, model, batches)
+        B = len(batches)
+        caches = model.decoder.init_cache(B * K, "cuda")
+        seed = torch.full((B,), cfg.bos_id, dtype=torch.long, device="cuda")
+        return beam_search_candidates(
+            lambda tok, i: model.decoder.step_topk(tok, i, kvs, caches, K,
+                                                   weights, beam=K),
+            seed, cfg, index_reorder(caches))
+
+
+def counted_run(counted, fn):
+    """fn() with every decode kernel's count set to 0 just before and read
+    just after: (fn's result, {kernel: launches}, seconds)."""
+    import torch
+    for k in counted.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in counted.items()}, \
+        time.perf_counter() - t
+
+
+def check_launches(what, launches, per_step, steps):
+    for k, n in launches.items():
+        want = per_step[k] * steps
+        print(f"  {what}: {k} {n} launches over {steps} steps (expected"
+              f" {per_step[k]} a step)")
+        check(n == want, f"{what}: {k} launched {n} times, expected {want}")
+
+
+def pool_phase(torch, counted, predict):
+    """Phases 11.2 to 11.5: the greedy, beam and sampling pools and
+    speculative greedy on phase 4's flagship (bf16, seeded random
+    weights), each against the same path run at the pool's row count.
+    Returns ({path: launches}, summary)."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.generation.continuous import (
+        ContinuousBatcher, ContinuousBeamBatcher)
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    model, weights = predict.model, predict.weights
+    V, pad = FLAGSHIP["vocab_size"], 1
+    summary, launches = {}, {}
+    rng = np.random.RandomState(11)
+    jobs = [make_job(rng, 1, [n]) for n in rng.randint(20, 513, size=48)]
+    batches = [stage_batch(torch, j, "cuda") for j in jobs]
+    caps = rng.randint(8, 33, size=48)
+    cfg = GenerationConfig(max_len=32)
+
+    # 11.2 The greedy pool: 16 slots, 8 steps a dispatch, three waves of
+    # 16 requests with caps of 8 to 32 tokens, two dispatches apart.
+    engine = ContinuousBatcher.for_flattened(model, cfg, 16, weights=weights,
+                                             inner_steps=8)
+
+    def greedy_pool():
+        ids, res = [], {}
+        for w in range(3):
+            ids += [engine.submit(b, max_len=int(c)) for b, c in
+                    zip(batches[16 * w:16 * w + 16], caps[16 * w:16 * w + 16])]
+            res.update(engine.step())
+            res.update(engine.step())
+        res.update(engine.run())
+        return ids, res
+    (ids, res), n, secs = counted_run(counted, greedy_pool)
+    steps = engine.n_chunks * engine.inner_steps
+    check_launches("greedy pool", n, greedy_launches_a_step(), steps)
+    launches["greedy_pool"] = n
+    check(sorted(res) == sorted(ids), "greedy pool: not every request back")
+    same = 0
+    for w in range(3):
+        want, want_lp = rows_generate(torch, model, weights,
+                                      batches[16 * w:16 * w + 16], cfg)
+        want, want_lp = want.cpu().numpy(), want_lp.cpu().numpy()
+        for r in range(16):
+            i = 16 * w + r
+            exp = want[r].copy()
+            exp[caps[i] + 1:] = pad
+            got_t, got_lp = res[ids[i]]
+            check(bool(np.array_equal(got_t, exp)),
+                  f"greedy pool: request {i} (cap {caps[i]}) differs from its"
+                  f" row of generate at B=16: {got_t[:12]} vs {exp[:12]}")
+            same += bool(np.array_equal(got_lp[:caps[i]],
+                                        want_lp[r, :caps[i]]))
+    check(same == 48, f"greedy pool: log-probs of {48 - same} requests differ"
+          " from their rows of generate at B=16")
+    tokens = int(sum(caps))
+    summary["greedy_pool"] = {
+        "slots": 16, "inner_steps": 8, "requests": 48, "tokens": tokens,
+        "dispatches": engine.n_chunks, "steps": steps, "wall_s": secs,
+        "tokens_per_s": tokens / secs, "captions_per_s": 48 / secs,
+        "occupancy": engine.occupancy, "ms_per_step": secs * 1e3 / steps}
+    print(f"  greedy pool: 48 requests (caps 8-32, three waves) equal to"
+          f" their rows of generate at B=16, tokens and log-probs; "
+          f"{engine.n_chunks} dispatches, {secs:.2f} s, {tokens / secs:.1f}"
+          f" tokens/s, occupancy {engine.occupancy:.3f}", flush=True)
+    del engine
+
+    # 11.3 The beam pool: 8 slots of 5 rows, 16 requests.
+    bcfg = GenerationConfig(max_len=32, beam_size=5, early_exit=True)
+    engine = ContinuousBeamBatcher(model, bcfg, 8, weights=weights,
+                                   inner_steps=8)
+    (ids, res), n, secs = counted_run(counted, lambda: (
+        [engine.submit(b) for b in batches[:16]], engine.run()))
+    steps = engine.n_chunks * engine.inner_steps
+    check_launches("beam pool", n, beam_launches_a_step(torch, 40, 5), steps)
+    launches["beam_pool"] = n
+    for w in range(2):
+        want_t, want_s = rows_generate_beam(torch, model, weights,
+                                            batches[8 * w:8 * w + 8], bcfg)
+        for r in range(8):
+            got_t, got_s = res[ids[8 * w + r]]
+            check(bool(np.array_equal(got_t, want_t[r].cpu().numpy()))
+                  and bool(np.array_equal(got_s, want_s[r].cpu().numpy())),
+                  f"beam pool: request {8 * w + r} differs from its row of"
+                  " generate_beam at B=8")
+    summary["beam_pool"] = {"slots": 8, "rows": 40, "requests": 16,
+                            "dispatches": engine.n_chunks, "steps": steps,
+                            "wall_s": secs, "captions_per_s": 16 / secs}
+    print(f"  beam pool: 16 requests equal to their rows of generate_beam at"
+          f" B=8 (tokens [5, 33], scores bit for bit); {engine.n_chunks}"
+          f" dispatches, {secs:.2f} s", flush=True)
+    del engine
+
+    # 11.4 The sampling pool: top-4 at temperature 0.8, a seed a request.
+    scfg = GenerationConfig(max_len=32, sampling_topk=4, sampling_temp=0.8)
+    engine = ContinuousBatcher.for_flattened(model, scfg, 16,
+                                             weights=weights, inner_steps=8)
+    seeds = [2000 + i for i in range(16)]
+
+    def gens():
+        return [torch.Generator(device="cuda").manual_seed(s) for s in seeds]
+    (ids, res), n, secs = counted_run(counted, lambda: (
+        [engine.submit(b, generator=g)
+         for b, g in zip(batches[16:32], gens())], engine.run()))
+    steps = engine.n_chunks * engine.inner_steps
+    check_launches("sampling pool", n, greedy_launches_a_step(), steps)
+    launches["sampling_pool"] = n
+    want, _ = rows_generate(torch, model, weights, batches[16:32], scfg,
+                            gens())
+    greedy, _ = rows_generate(torch, model, weights, batches[16:32], cfg)
+    want, greedy = want.cpu().numpy(), greedy.cpu().numpy()
+    for r in range(16):
+        check(bool(np.array_equal(res[ids[r]][0], want[r])),
+              f"sampling pool: request {r} differs from its row of generate"
+              " at B=16 with its generator")
+    differ = float((want[:, 1:] != greedy[:, 1:]).mean())
+    check(differ > 0, "sampling pool: every token is greedy's")
+    summary["sampling_pool"] = {"slots": 16, "requests": 16, "topk": 4,
+                                "temp": 0.8, "dispatches": engine.n_chunks,
+                                "wall_s": secs,
+                                "tokens_unlike_greedy": differ}
+    print(f"  sampling pool: 16 seeded requests equal to their rows of"
+          f" generate at B=16 with one generator a row; {differ:.3f} of the"
+          f" tokens differ from greedy's; {secs:.2f} s", flush=True)
+    del engine
+
+    # 11.5 Speculative greedy at B=16, spec_k 4: oracle drafts (the card's
+    # own greedy caption as article_ids) and the synthetic article's ids.
+    from news_image_caption_tpu_torch.config import (build_dataset,
+                                                     load_config)
+    batch16 = {k: torch.cat([b[k] for b in batches[:16]])
+               for k in batches[0]}
+    (greedy16, _), _, g_secs = counted_run(
+        counted, lambda: model.generate(batch16, cfg, weights))
+    greedy16 = greedy16.cpu()
+    article = next(build_dataset(load_config(EVAL_CONFIG), "test").batches(
+        16, shuffle=False))["article_ids"]
+    # A chunk of 4 at B=16: the conv block position by position (4 a
+    # layer), one attention a layer and context (Q = 4), the FFN and the
+    # head on 64 rows.
+    spec_per_chunk = {"band_topk_lse": 3, "decode_cross_attention": 8,
+                      "decode_conv_block": 16, "decode_ffn_block": 16}
+    spec_tokens = []
+    for name, source in (("oracle", greedy16),
+                         ("ngram_article", torch.from_numpy(article))):
+        (toks, lps, chunks), n, secs = counted_run(
+            counted, lambda: model.generate_speculative(
+                dict(batch16, article_ids=source.cuda()), cfg, weights,
+                spec_k=4))
+        check_launches(f"speculative ({name})", n, spec_per_chunk, chunks)
+        launches[f"speculative_{name}"] = n
+        toks = toks.cpu()
+        check_tokens(toks.numpy(), 16, cfg, V)
+        spec_tokens.append(toks)
+        check(bool(torch.equal(toks, spec_tokens[0])),
+              f"speculative ({name}): the drafts changed the tokens")
+        agree16 = (toks[:, 1:17] == greedy16[:, 1:17]).float().mean().item()
+        agree = (toks[:, 1:] == greedy16[:, 1:]).float().mean().item()
+        summary[f"speculative_{name}"] = {
+            "B": 16, "spec_k": 4, "chunks": chunks, "greedy_steps": 32,
+            "agree_16_steps": agree16, "agree_32_steps": agree,
+            "wall_s": secs, "greedy_wall_s": g_secs}
+        print(f"  speculative ({name}): {chunks} chunks against 32 greedy"
+              f" steps; tokens equal to greedy's {agree16:.3f} over 16 steps,"
+              f" {agree:.3f} over 32; {secs:.2f} s against greedy's"
+              f" {g_secs:.2f} s", flush=True)
+    oracle = summary["speculative_oracle"]
+    check(oracle["chunks"] < 32, "speculative with oracle drafts took as many"
+          " chunks as greedy steps")
+    check(oracle["agree_16_steps"] >= 0.891,
+          f"speculative (oracle) agrees with greedy on"
+          f" {oracle['agree_16_steps']:.3f} of 16 steps, below 0.891 (bf16"
+          " against fp32, phase 7)")
+
+    return launches, summary
+
+
+def serve_continuous_phase(torch, predict, plain_b1_ms):
+    """Phase 11.6. `serve --continuous-slots 8` in a subprocess (phase 4's
+    seeded weights): phase 9's 20 B=1 latency jobs one at a time, then
+    all 20 with 8 in flight, through the client; every token array equal
+    to an in-process pool's over the same weights; the worker's launches
+    from its stats RPC; SIGTERM. Returns (launches, summary)."""
+    from news_image_caption_tpu_torch.generation.continuous import \
+        ContinuousBatcher
+    from news_image_caption_tpu_torch.serving.client import CaptioningClient
+
+    rng = np.random.RandomState(10)          # phase 9's latency jobs
+    jobs = [make_job(rng, 1, [n]) for n in rng.randint(20, 513, size=20)]
+    local = ContinuousBatcher.for_flattened(predict.model, predict.config, 8,
+                                            weights=predict.weights,
+                                            inner_steps=8)
+    ids = [local.submit(stage_batch(torch, j, "cuda")) for j in jobs]
+    res = local.run()
+    want = [res[i][0][None].astype(np.int32) for i in ids]
+    del local
+    per_step = greedy_launches_a_step()
+    t0 = time.perf_counter()
+    with ServeProcess(SERVE_CMD + ["--continuous-slots", "8"]) as serve:
+        info = json.loads(serve.next_line("stdout", 120))
+        serve.next_line("stdout", 60)                    # the http port
+        serve.next_line("stderr", 300, match="worker 0 ready")
+        ready_s = time.perf_counter() - t0
+        client = CaptioningClient(info["frontend_addr"],
+                                  info["sink_pub_addr"], timeout_ms=300000)
+        try:
+            stats0 = client.stats(timeout_ms=60000)
+            check(stats0["mode"] == "continuous" and stats0["slots"] == 8
+                  and stats0["n_chunks"] == 0, f"stats: {stats0}")
+            lat = []
+            for i, job in enumerate(jobs):
+                t = time.perf_counter()
+                got = client.caption(job)["tokens"]
+                lat.append((time.perf_counter() - t) * 1e3)
+                check(bool(np.array_equal(got, want[i])),
+                      f"serve --continuous-slots: job {i} differs from the"
+                      " in-process pool's")
+            t = time.perf_counter()
+            got = list(client.caption_stream(iter(jobs), window=8))
+            stream_s = time.perf_counter() - t
+            for i, g in enumerate(got):
+                check(bool(np.array_equal(g["tokens"], want[i])),
+                      f"serve --continuous-slots: streamed job {i} differs")
+            stats = client.stats(timeout_ms=60000)
+        finally:
+            client.close()
+        rc, stop_s = serve.stop()
+        check(rc == 0, f"serve --continuous-slots exited with {rc}")
+        left = [p for p in serve.children if _alive(p)]
+        check(not left, f"processes left after serve stopped: {left}")
+    steps = (stats["n_chunks"] - stats0["n_chunks"]) * stats["inner_steps"]
+    launches = {k: stats["kernel_launches"][k] - stats0["kernel_launches"][k]
+                for k in per_step}
+    check_launches("serve --continuous-slots (worker)", launches, per_step,
+                   steps)
+    lat_s = sorted(lat)
+    b1 = {"p50": lat_s[10], "p90": lat_s[18]}
+    print(f"  serve --continuous-slots 8: B=1 one at a time p50 {b1['p50']:.2f}"
+          f" / p90 {b1['p90']:.2f} ms (phase 9's plain worker:"
+          f" {plain_b1_ms['p50']:.2f} / {plain_b1_ms['p90']:.2f}); 20 jobs 8"
+          f" in flight {stream_s:.2f} s ({20 / stream_s:.1f} captions/s);"
+          f" start to ready {ready_s:.1f} s", flush=True)
+    return launches, {"b1_ms": b1, "plain_worker_b1_ms": plain_b1_ms,
+                      "b1_ms_all": lat, "stream_8_in_flight_s": stream_s,
+                      "stream_captions_per_s": 20 / stream_s,
+                      "start_to_ready_s": ready_s, "steps": steps,
+                      "stop_s": stop_s}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2505,7 +2928,6 @@ def main() -> None:
           " client, HTTP proxy and SIGTERM", flush=True)
     serve_launches, serve_summary = serve_phase(torch, predict, jobs,
                                                 outputs)
-    del predict
     for name, n in serve_launches.items():
         launches[name] += n
         by_path[name]["serve"] = n
@@ -2534,6 +2956,23 @@ def main() -> None:
         **var_summary, "launches": var_launches, "kernels": variant_timing,
         "card": card_line()}}), flush=True)
 
+    print("phase 11: speculative greedy, top-k sampling and the continuous"
+          " slot pool (flagship, bf16, phase 4's weights)", flush=True)
+    per_row = conv_positions_phase(torch, decode_blocks)
+    pool_launches, pool_summary = pool_phase(torch, counted, predict)
+    worker_launches, pool_summary["serve_continuous"] = \
+        serve_continuous_phase(torch, predict,
+                               serve_summary["b1_ms"]["client"])
+    del predict
+    pool_launches["serve_continuous"] = worker_launches
+    for path, counts in pool_launches.items():
+        for name, n in counts.items():
+            launches[name] += n
+            by_path[name][path] = n
+    print(json.dumps({"continuous": {
+        **pool_summary, "decode_conv_block_per_row": per_row,
+        "launches": pool_launches, "card": card_line()}}), flush=True)
+
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",
                                           "pallas_kernels.py:146"),
@@ -2558,6 +2997,10 @@ def main() -> None:
                 "bound_by": timing[name]["bound_by"],
                 "library_ms": timing[name]["library_ms"]}
                for name, (src, tpu) in sources.items()]
+    # The conv block with a position a row (the pool's steps), at the
+    # pool's 16 rows and the beam pool's 80, summed over the four layers.
+    conv_entry = next(k for k in kernels if k["name"] == "decode_conv_block")
+    conv_entry["per_row_positions"] = {f"N={n}": t for n, t in per_row.items()}
     print("(ms / plain_ms / library_ms / bound_ms: device time, CUDA events,"
           " and the card's least time at 3.35 TB/s and 989 TFLOP/s bf16 or"
           " 67 TFLOP/s fp32, of one decode step at"

@@ -15,7 +15,12 @@ directory (`-s`, else `trainer.serialization_dir`, else
 checkpoint. With no checkpoint the weights are random, drawn in fp32
 from a `torch.Generator` seeded with `trainer.seed` (default 0).
 
-`evaluate` captions every batch of the split greedily, writes
+`evaluate` captions every batch of the split greedily (or by top-k
+sampling with `generation.sampling_topk > 1`, a generator seeded with 0
+for each batch, as the reference samples each batch with PRNGKey(0); or
+by exact speculative greedy with `generation.speculative_k >= 2`, drafts
+copied from the batch's `article_ids` by `generation.ngram_n`-grams),
+writes
 `generations{suffix}.jsonl` (each record enriched with names, entities,
 readability and TTR unless `--no-enrich`) and
 `evaluate-metrics{suffix}.json` (BLEU-1..4, CIDEr, ROUGE-L) into the
@@ -38,7 +43,10 @@ SIGTERM, then stops the proxy, the server and its workers and exits 0.
 `--task flagship` serves the flagship captioner in bf16 (`--params` a
 '/'-joined .npz of the reference's params, else random weights seeded
 with 0); `--task toy` the reference's tiny model, on the CPU only (its
-head size is one the decode kernels do not admit).
+head size is one the decode kernels do not admit). The reference's
+switches: `--speculative-k`, `--continuous-slots` (with
+`--inner-steps`, `--harvest-lag`, `--continuous-beam`),
+`--sampling-topk` and `--sampling-temp` (see `serving/worker.py`).
 
     python -m news_image_caption_tpu_torch.cli train \\
         configs/tiny_test.yaml --platform cpu -s DIR
@@ -55,10 +63,9 @@ casts the checkpoint's params to bf16 and decodes through the four
 decode kernels. On the CPU `train` computes in the precision's dtype and
 `evaluate` in the config's (float32 unless set), through the kernels'
 plain versions. The reference's port and preprocess commands are not
-ported, and neither are speculative decoding, sampling, continuous
-batching, quantized K/V and head tables, meshes or multi-process
-training: each raises NotImplementedError naming its ROADMAP Queue 1
-item.
+ported, and neither are quantized K/V and head tables, meshes or
+multi-process training: each raises NotImplementedError naming its
+ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
@@ -149,20 +156,37 @@ def main(argv: Optional[list] = None, *,
     ps.add_argument("--quantize-head", action="store_true",
                     help="not ported (ROADMAP Queue 1 item 7b)")
     ps.add_argument("--speculative-k", type=int, default=0,
-                    help=">= 2 is not ported (ROADMAP Queue 1 item 6)")
+                    help=">= 2: exact speculative greedy decode for jobs "
+                         "that carry article_ids (the greedy tokens; "
+                         "generation/speculative.py)")
     ps.add_argument("--continuous-slots", type=int, default=0,
-                    help="> 0 is not ported (ROADMAP Queue 1 item 6)")
+                    help="> 0: the workers serve from a pool of N decode "
+                         "slots refilled mid-flight "
+                         "(generation/continuous.py), so a long caption "
+                         "never holds up the others; jobs are single "
+                         "requests (B=1) and may carry max_len; composes "
+                         "with --speculative-k")
     ps.add_argument("--inner-steps", type=int, default=8,
-                    help="continuous mode only (not ported)")
+                    help="continuous mode: decode steps a dispatch "
+                         "(finished slots are harvested and refilled "
+                         "between dispatches)")
     ps.add_argument("--harvest-lag", type=int, default=1,
-                    help="continuous mode only (not ported)")
+                    help="continuous mode: dispatches kept in flight "
+                         "before waiting on the oldest's results (the "
+                         "copy to the host overlaps the next dispatches; "
+                         "deeper lag keeps finished slots frozen longer)")
     ps.add_argument("--continuous-beam", action="store_true",
-                    help="not ported (ROADMAP Queue 1 item 6)")
+                    help="continuous mode serves exact beam search "
+                         "(beam_size 5) from the pool; results carry "
+                         "[beam, L+1] tokens and scores")
     ps.add_argument("--sampling-topk", type=int, default=1,
-                    help="> 1 is not ported (ROADMAP Queue 1 item 4); "
-                         "requires --continuous-slots")
+                    help="> 1: top-k sampled captions from the slot pool; "
+                         "a job's rng_seed seeds its slot's generator "
+                         "(default: the request id). Requires "
+                         "--continuous-slots; excludes --continuous-beam "
+                         "and --speculative-k")
     ps.add_argument("--sampling-temp", type=float, default=1.0,
-                    help="top-k sampling only (not ported)")
+                    help="sampling temperature (with --sampling-topk)")
     ps.add_argument("--no-early-exit", action="store_true")
     ps.add_argument("--params", default=None,
                     help=".npz of the reference's params ('/'-joined flat "
@@ -180,22 +204,23 @@ def main(argv: Optional[list] = None, *,
     return evaluate_command(args, timings)
 
 
+def speculative_settings(cfg: Dict):
+    """(speculative_k, ngram_n) of the `generation:` block: speculative
+    greedy decode at speculative_k >= 2, its prompt-lookup key length
+    ngram_n (default 2, at least 1)."""
+    raw = cfg.get("generation", {})
+    raw_n = raw.get("ngram_n", 2)
+    ngram_n = 2 if raw_n is None else int(raw_n)
+    if ngram_n < 1:
+        raise ValueError(f"generation.ngram_n must be >= 1, got {ngram_n}")
+    return int(raw.get("speculative_k", 0) or 0), ngram_n
+
+
 def generation_config(cfg: Dict) -> GenerationConfig:
     """The `generation:` block with the reference's evaluate defaults
     (beam_size 5, unused by greedy decode; early exit on). Options the
     port does not have yet raise."""
     raw = cfg.get("generation", {})
-    ngram_n = raw.get("ngram_n", 2)
-    if ngram_n is not None and int(ngram_n) < 1:
-        raise ValueError(f"generation.ngram_n must be >= 1, got {ngram_n}")
-    if int(raw.get("speculative_k", 0) or 0) >= 2:
-        raise NotImplementedError("generation.speculative_k >= 2: "
-                                  "speculative decoding is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
-    if raw.get("sampling_topk", 1) > 1:
-        raise NotImplementedError("generation.sampling_topk > 1: top-k "
-                                  "sampling is not ported yet (ROADMAP "
-                                  "Queue 1 item 4)")
     if raw.get("quantize_kv", False):
         raise NotImplementedError("generation.quantize_kv: quantized K/V is "
                                   "not ported yet (ROADMAP Queue 1 item 7)")
@@ -372,6 +397,7 @@ def evaluate_command(args,
     cfg = load_config(args.param_path, args.overrides)
     device = _device(args.platform)
     gcfg = generation_config(cfg)
+    spec_k, ngram_n = speculative_settings(cfg)
     out_dir = _serialization_dir(cfg, args.param_path)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     ds = build_dataset(cfg, args.split)
@@ -389,7 +415,8 @@ def evaluate_command(args,
         model, ds, gcfg, out_dir,
         batch_size=cfg.get("iterator", {}).get("batch_size", 16),
         suffix=args.suffix, enrich=not args.no_enrich,
-        dump_attention=args.dump_attention, timings=timings)
+        dump_attention=args.dump_attention, timings=timings,
+        spec_k=spec_k if gcfg.sampling_topk == 1 else 0, ngram_n=ngram_n)
     print(json.dumps(metrics))
     return 0
 
@@ -447,16 +474,23 @@ def serve_command(args) -> int:
     guard = PreemptionHandler((signal.SIGTERM,))
     guard.__enter__()
 
+    switches = dict(speculative_k=args.speculative_k,
+                    continuous_slots=args.continuous_slots,
+                    inner_steps=args.inner_steps,
+                    harvest_lag=args.harvest_lag,
+                    continuous_beam=args.continuous_beam,
+                    sampling_topk=args.sampling_topk,
+                    sampling_temp=args.sampling_temp)
     if args.task == "toy":
         builder = functools.partial(default_model_builder,
-                                    params_path=args.params)
+                                    params_path=args.params, **switches)
     else:
         builder = functools.partial(
             flagship_model_builder,
             max_len=args.max_len,
             early_exit=not args.no_early_exit,
             params_path=args.params,
-            batch_size=args.batch_size)
+            batch_size=args.batch_size, **switches)
     worker_device = "cpu" if device.type == "cpu" else None
     server = CaptionServer(
         worker_factory=lambda **kw: CaptioningWorker(
@@ -506,14 +540,17 @@ def _texts(tokens: np.ndarray, caption: np.ndarray):
 def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
              batch_size: int, suffix: str = "", enrich: bool = True,
              dump_attention: Optional[str] = None,
-             timings: Optional[Dict[str, float]] = None) -> Dict:
+             timings: Optional[Dict[str, float]] = None,
+             spec_k: int = 0, ngram_n: int = 2) -> Dict:
     """Caption `ds` in batches of `batch_size` (unshuffled, the last
-    partial batch dropped) with `model.generate`, on the model's device;
-    write the generations and the metrics to `out_dir` and return the
-    metrics. timings, if given, gets the host-clock seconds of each
-    span: data (numpy batches), decode (staging, generate, tokens back),
-    attention (maps and their files), records (texts, enrichment,
-    scorers' inputs, lines), score (corpus scores, metrics file)."""
+    partial batch dropped) with `model.generate`, or, at spec_k >= 2 and
+    where the batch has `article_ids`, `model.generate_speculative`, on
+    the model's device; write the generations and the metrics to
+    `out_dir` and return the metrics. timings, if given, gets the
+    host-clock seconds of each span: data (numpy batches), decode
+    (staging, generate, tokens back), attention (maps and their files),
+    records (texts, enrichment, scorers' inputs, lines), score (corpus
+    scores, metrics file)."""
     spans = dict.fromkeys(("data", "decode", "attention", "records",
                            "score"), 0.0)
     device = next(model.decoder.parameters()).device
@@ -533,7 +570,19 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
                 break
             staged = {k: torch.from_numpy(batch[k]).to(device)
                       for k in CONTEXT_KEYS if k in batch}
-            tokens, _ = model.generate(staged, gcfg, weights)
+            if spec_k >= 2 and "article_ids" in batch:
+                S = batch["article_ids"].shape[1]
+                if batch_idx == 0 and ngram_n > S - 1:
+                    print(f"warning: generation.ngram_n={ngram_n} exceeds "
+                          f"the article window ({S} tokens); drafts will be "
+                          "all-pad and speculative decode pays pure "
+                          "overhead", file=sys.stderr)
+                staged["article_ids"] = torch.from_numpy(
+                    batch["article_ids"]).to(device)
+                tokens, _, _ = model.generate_speculative(
+                    staged, gcfg, weights, spec_k=spec_k, ngram_n=ngram_n)
+            else:
+                tokens, _ = model.generate(staged, gcfg, weights)
             tokens = tokens.to(torch.int32).cpu().numpy()
             t = _lap(spans, "decode", t)
             if dump_attention:

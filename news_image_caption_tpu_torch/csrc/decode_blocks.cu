@@ -40,6 +40,11 @@
 //     four blocks of a head each compute that head's tap logits and
 //     softmax; the ring combine is elementwise in the block that owns
 //     the channels, history summed in fp32 in tap order, rounded once.
+//   - Each row reads its ring at its own position where the caller gives
+//     `pos` (int32 [N], a slot pool whose rows sit at different depths),
+//     else at the one step index `t`: tap k of row r is slot (pos_r + k)
+//     mod (K - 1), its position read from device memory where its ring
+//     rows are requested, never on the host.
 //   - More than 16 rows (a beam step) stay in the launch, with the same
 //     two waits: every stage walks the row tiles, 16 rows at a time, over
 //     the weights and taps in shared memory. Where the card holds them,
@@ -114,14 +119,16 @@ __device__ __forceinline__ void store_part(float* part, const float (&acc)[4],
 // taps [H][kp][C] bf16 is the packed tap predictor (taps >= K zero);
 // cache [K - 1][n_total][C] with this launch's rows first; hconv [N][C]
 // bf16 is scratch; counters [1 + 2 * 2] are the barriers'
-// (barrier_set_begin, common.cuh).
+// (barrier_set_begin, common.cuh); pos, if not null, the rows' positions
+// (this launch's first), which take the place of t.
 __global__ void __launch_bounds__(CB_THREADS, 1)
 decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
                    const bf16* __restrict__ w1, const bf16* __restrict__ b1,
                    const bf16* __restrict__ taps, const bf16* __restrict__ w2,
                    const bf16* __restrict__ b2, bf16* h_out, bf16* hconv,
-                   bf16* __restrict__ y, unsigned* counters, int N,
-                   int n_total, int C, int H, int K, int kp, int t) {
+                   bf16* __restrict__ y, unsigned* counters,
+                   const int* __restrict__ pos, int N, int n_total, int C,
+                   int H, int K, int kp, int t) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int strips = C / CB_STRIP, strip = blockIdx.x % strips;
@@ -172,17 +179,21 @@ decode_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cache,
       zero16(as + (rows + i / cpr) * a_stride + (i % cpr) * 16);
     load_rows(x, row0, rows);
   };
-  // The block's channels of a tile's ring rows, tap k's row (slot (t + k)
-  // mod (K - 1)) at index k.
+  // The block's channels of a tile's ring rows, tap k's row (slot (p + k)
+  // mod (K - 1), p the row's position or t) at index k.
   auto load_ring = [&](int row0, int rows) {
     for (int i = tid; i < Km1 * CB_ROWS * 2; i += CB_THREADS) {
       const int k = i >> 5, rr = (i >> 1) & 15, half = i & 1;
       bf16* dst = cache_s + (k * CB_ROWS + rr) * CB_STRIP + half * 8;
-      if (rr < rows)
-        cp_async16(dst, cache + ((size_t)((t + k) % Km1) * n_total + row0 + rr) * C +
+      if (rr < rows) {
+        const int p = pos != nullptr ? __ldg(pos + row0 + rr) : t;
+        int slot = (p % Km1 + k) % Km1;
+        if (slot < 0) slot += Km1;   // a negative position reads in bounds
+        cp_async16(dst, cache + ((size_t)slot * n_total + row0 + rr) * C +
                             ch0 + half * 8);
-      else
+      } else {
         zero16(dst);
+      }
     }
   };
 
@@ -342,9 +353,10 @@ NIC_DEFINE_PHASE_READER(nic_decode_conv_phases)
 
 // y, h = conv block step for N <= 128 rows. x [N, C]; cache
 // [K - 1, n_total, C] ring-major, its first N rows of every slot this
-// launch's; w1 [C, 2C], b1 [2C] (weight norm folded); taps [H, kp, C] the
-// packed tap predictor, kp = 8, 16 or 32 >= K; w2 [C, C], b2 [C]; all
-// bf16, 16-byte aligned. C % 16 == 0 and (C / H) % 16 == 0; `smem` is the
+// launch's; pos null (every row at step t >= 0) or int32 [N] on the card,
+// each row's position (t is then not read); w1 [C, 2C], b1 [2C] (weight
+// norm folded); taps [H, kp, C] the packed tap predictor, kp = 8, 16 or
+// 32 >= K; w2 [C, C], b2 [C]; all bf16, 16-byte aligned. C % 16 == 0 and (C / H) % 16 == 0; `smem` is the
 // kernel's dynamic shared memory as the caller planned it, which must
 // equal conv_block_smem_bytes(C, kp). The C / 16 blocks must fit on the
 // card together, `groups` (at most the row tiles) times, or the launch
@@ -355,15 +367,15 @@ extern "C" int nic_decode_conv_block(const void* x, const void* cache,
                                      const void* w1, const void* b1,
                                      const void* taps, const void* w2,
                                      const void* b2, void* h, void* hconv,
-                                     void* y, void* counters, int N,
-                                     int n_total, int C, int H, int K, int kp,
-                                     int t, int groups, int smem,
+                                     void* y, void* counters, const void* pos,
+                                     int N, int n_total, int C, int H, int K,
+                                     int kp, int t, int groups, int smem,
                                      void* stream) {
   using nic::bf16;
   if (N < 1 || N > nic::CB_MAX_ROWS || n_total < N || K < 2 ||
       K > nic::CB_MAX_TAPS || (kp != 8 && kp != 16 && kp != 32) || kp < K ||
       H < 1 || C < 16 || C % 16 != 0 || C % H != 0 || (C / H) % 16 != 0 ||
-      t < 0 || groups < 1 || groups > nic::cdiv(N, nic::CB_ROWS) ||
+      (pos == nullptr && t < 0) || groups < 1 || groups > nic::cdiv(N, nic::CB_ROWS) ||
       smem != nic::conv_block_smem_bytes(C, kp) ||
       smem > nic::MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
@@ -385,7 +397,8 @@ extern "C" int nic_decode_conv_block(const void* x, const void* cache,
                            (const bf16*)cache, (const bf16*)w1, (const bf16*)b1,
                            (const bf16*)taps, (const bf16*)w2, (const bf16*)b2,
                            (bf16*)h, (bf16*)hconv, (bf16*)y,
-                           (unsigned*)counters, N, n_total, C, H, K, kp, t);
+                           (unsigned*)counters, (const int*)pos, N, n_total,
+                           C, H, K, kp, t);
   if (err != cudaSuccess) return (int)err;
   NIC_RETURN_IF_LAUNCH_FAILED();
   return 0;

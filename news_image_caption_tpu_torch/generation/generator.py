@@ -1,13 +1,20 @@
-"""Greedy and beam-search decode loops over a candidate-producing step.
+"""Greedy, top-k sampling and beam-search decode loops over a
+candidate-producing step.
 
 Counterpart of `news_image_caption_tpu/generation/generator.py`
 (`GenerationConfig`, `generate`, `generate_candidates`, `beam_combine`,
-`rank_beams`, `beam_search_candidates`, `beam_search`) for greedy
-decoding (`sampling_topk == 1`) and beam search. The reference's
+`rank_beams`, `beam_search_candidates`, `beam_search`). The reference's
 `lax.scan` / `lax.while_loop` becomes a Python loop: with `early_exit`
 it stops as soon as every row has emitted eos (one host read of the
 finished mask per step); the outputs are the same either way, since
 finished rows emit pad with log-prob 0.
+
+Top-k sampling (`sampling_topk > 1`) picks argmax(log_prob / temp +
+Gumbel noise) over the step's exact top-k candidates, which is how
+`jax.random.categorical` samples. The noise comes from `gumbel_noise`,
+drawn from a `torch.Generator` for the batch or from one generator a
+row; torch's streams are not JAX's, so the tests feed JAX's draws
+through that one function.
 
 A step function owns its decode state (the conv caches): the loops pass
 it tokens and a step index only. Beam search reorders that state through
@@ -19,7 +26,7 @@ lowest position as `lax.top_k` breaks them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -53,9 +60,45 @@ class GenerationConfig:
     harvest_finished: bool = False
 
 
-def generate(step_fn: Callable, seed: torch.Tensor, config: GenerationConfig
+Generators = Union[torch.Generator, Sequence]
+
+
+def gumbel_noise(generator: Generators, shape: Tuple[int, int]
+                 ) -> torch.Tensor:
+    """Gumbel(0, 1) noise [B, k] fp32, -log(-log(u)) with u uniform in
+    [tiny, 1) as `jax.random.gumbel` draws it: from one generator for
+    the batch, or from a sequence of B generators, a [1, k] draw each,
+    so a row's noise does not depend on the batch it is decoded in. On
+    each generator's device."""
+    if isinstance(generator, torch.Generator):
+        return _gumbel(generator, shape)
+    return torch.cat([_gumbel(g, (1,) + tuple(shape[1:])) for g in generator])
+
+
+def _gumbel(generator: torch.Generator, shape) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def select_candidates(cand_lp: torch.Tensor, cand_ids: torch.Tensor,
+                      config: GenerationConfig,
+                      generator: Optional[Generators] = None):
+    """One step's choice among the exact top-k candidates: (log_prob / temp
+    of the chosen [B], its id [B]). Greedy takes the best; sampling takes
+    argmax(log_prob / temp + `gumbel_noise`), drawing from `generator`."""
+    lp = cand_lp / config.sampling_temp
+    if config.sampling_topk == 1:
+        return lp[:, 0], cand_ids[:, 0]
+    noise = gumbel_noise(generator, tuple(lp.shape)).to(lp.device)
+    choice = torch.argmax(lp.float() + noise, dim=1, keepdim=True)
+    return lp.gather(1, choice)[:, 0], cand_ids.gather(1, choice)[:, 0]
+
+
+def generate(step_fn: Callable, seed: torch.Tensor, config: GenerationConfig,
+             generator: Optional[Generators] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy generation over a full-vocab step.
+    """Greedy or top-k sampled generation over a full-vocab step.
 
     step_fn(token_t [B], step_idx) -> log_probs [B, V]; the per-row
     top-k of those log-probs is the candidate set of
@@ -64,23 +107,26 @@ def generate(step_fn: Callable, seed: torch.Tensor, config: GenerationConfig
     def cand_step(tok, i):
         return stable_topk(step_fn(tok, i), config.sampling_topk)
 
-    return generate_candidates(cand_step, seed, config)
+    return generate_candidates(cand_step, seed, config, generator)
 
 
 def generate_candidates(step_fn: Callable, seed: torch.Tensor,
-                        config: GenerationConfig
+                        config: GenerationConfig,
+                        generator: Optional[Generators] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy generation.
+    """Greedy or top-k sampled generation.
 
     step_fn(token_t [B], step_idx) -> (cand_lp [B, k], cand_ids [B, k])
     with the candidates the exact top-k, best first; step_fn owns its
-    decode state. seed [B] is the first input token. Returns
-    (tokens [B, max_len + 1] int64 with the seed first, log_probs
-    [B, max_len] fp32).
+    decode state. seed [B] is the first input token. Sampling draws
+    from `generator` (see `gumbel_noise`); without one, from a generator
+    on seed's device seeded with 0, as the reference samples with
+    PRNGKey(0) where it is given no key. Returns (tokens
+    [B, max_len + 1] int64 with the seed first, log_probs [B, max_len]
+    fp32, each the chosen candidate's log-prob / temp).
     """
-    if config.sampling_topk != 1:
-        raise NotImplementedError(
-            "only greedy decoding (sampling_topk == 1) is ported")
+    if config.sampling_topk > 1 and generator is None:
+        generator = torch.Generator(device=seed.device).manual_seed(0)
     B = seed.shape[0]
     L = config.max_len
     tokens = torch.full((B, L + 1), config.pad_id, dtype=torch.long,
@@ -96,8 +142,9 @@ def generate_candidates(step_fn: Callable, seed: torch.Tensor,
         if config.early_exit and bool(finished.all()):
             break
         cand_lp, cand_ids = step_fn(cur, i)
-        sel_lp = cand_lp[:, 0] / config.sampling_temp
-        next_tok = torch.where(finished, config.pad_id, cand_ids[:, 0])
+        sel_lp, sel_ids = select_candidates(cand_lp, cand_ids, config,
+                                            generator)
+        next_tok = torch.where(finished, config.pad_id, sel_ids)
         lps[:, i] = torch.where(finished, 0.0, sel_lp.float())
         tokens[:, i + 1] = next_tok
         finished = finished | (next_tok == config.eos_id)

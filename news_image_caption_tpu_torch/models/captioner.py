@@ -3,10 +3,11 @@
 Counterpart of `news_image_caption_tpu/models/captioner.py::
 TransformerFlattened` (and, through its decoder's contexts, of the
 faces, objects, GloVe and no-image variants of `models/variants.py`)
-for training (`shift_caption`, `loss_fn`), greedy decoding
-(`_contexts`, `_check_max_len`, `generate`; `generate_full` through the
-full-vocab step), beam search (`generate_beam`, impl="topk") and the
-attention maps of given captions (`attention_maps`). The decoder's
+for training (`shift_caption`, `loss_fn`), greedy and top-k sampled
+decoding (`_contexts`, `_check_max_len`, `generate`; `generate_full`
+through the full-vocab step), exact speculative greedy
+(`generate_speculative`), beam search (`generate_beam`, impl="topk") and
+the attention maps of given captions (`attention_maps`). The decoder's
 weights live in the module; the generate methods take the fused decode
 weights of `DynamicConvDecoder.decode_weights()` so a server computes
 them once.
@@ -20,8 +21,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from news_image_caption_tpu_torch.generation.generator import (
-    GenerationConfig, beam_search_candidates, generate, generate_candidates,
-    index_reorder)
+    GenerationConfig, Generators, beam_search_candidates, generate,
+    generate_candidates, index_reorder)
+from news_image_caption_tpu_torch.generation.speculative import (
+    commit_conv_caches, ngram_drafts, speculative_greedy)
 from news_image_caption_tpu_torch.models.decoder_flattened import (
     DecodeWeights, DynamicConvDecoder)
 
@@ -102,10 +105,14 @@ class TransformerFlattened:
     @torch.inference_mode()
     def generate(self, batch: Dict[str, torch.Tensor],
                  config: GenerationConfig = GenerationConfig(),
-                 weights: Optional[DecodeWeights] = None):
-        """Greedy captions: (tokens [B, max_len + 1] int64, log_probs
-        [B, max_len] fp32). The context K/V are projected once; each
-        step yields the exact top-1 from the adaptive-softmax bands."""
+                 weights: Optional[DecodeWeights] = None,
+                 generator: Optional[Generators] = None):
+        """Greedy or top-k sampled captions: (tokens [B, max_len + 1]
+        int64, log_probs [B, max_len] fp32). The context K/V are
+        projected once; each step yields the exact top-k from the
+        adaptive-softmax bands. Sampling draws from `generator`, one for
+        the batch or one a row (`generation/generator.py::
+        gumbel_noise`); without one, from a generator seeded with 0."""
         kvs, caches, seed, weights = self._decode_setup(batch, config,
                                                         weights, 1)
 
@@ -113,12 +120,48 @@ class TransformerFlattened:
             return self.decoder.step_topk(tok, i, kvs, caches,
                                           config.sampling_topk, weights)
 
-        return generate_candidates(step, seed, config)
+        return generate_candidates(step, seed, config, generator)
+
+    @torch.inference_mode()
+    def generate_speculative(self, batch: Dict[str, torch.Tensor],
+                             config: GenerationConfig = GenerationConfig(),
+                             weights: Optional[DecodeWeights] = None,
+                             spec_k: int = 8,
+                             draft_source: Optional[torch.Tensor] = None,
+                             ngram_n: int = 2):
+        """Greedy captions by prompt-lookup speculative decoding: the
+        tokens of `generate` with sampling_topk = 1, each verification
+        step scoring `spec_k` positions of every row. Drafts continue a
+        caption's last `ngram_n` tokens from their first occurrence in
+        `draft_source` (default: batch["article_ids"], the article's
+        token ids). Returns (tokens [B, max_len + 1], log_probs
+        [B, max_len], n_chunks), n_chunks the verification steps run."""
+        if config.sampling_topk != 1:
+            raise ValueError("speculative decoding is greedy-only "
+                             "(sampling_topk must be 1)")
+        kvs, caches, seed, weights = self._decode_setup(batch, config,
+                                                        weights, 1)
+        source = (draft_source if draft_source is not None
+                  else batch["article_ids"]).to(seed.device).long()
+
+        def chunk_fn(toks, pos):
+            return self.decoder.step_chunk(toks, pos, kvs, caches, weights)
+
+        def commit_fn(hs, m, pos):
+            commit_conv_caches(caches, hs, m, pos)
+
+        def draft_fn(tokens, pos, finished):
+            return ngram_drafts(source, tokens, pos, spec_k - 1, n=ngram_n,
+                                pad_id=config.pad_id)
+
+        return speculative_greedy(chunk_fn, commit_fn, seed, config, spec_k,
+                                  draft_fn)
 
     @torch.inference_mode()
     def generate_full(self, batch: Dict[str, torch.Tensor],
                       config: GenerationConfig = GenerationConfig(),
-                      weights: Optional[DecodeWeights] = None):
+                      weights: Optional[DecodeWeights] = None,
+                      generator: Optional[Generators] = None):
         """`generate` through the full-vocab `step` and the `generate`
         adapter: the same tokens and log-probs, with the [B, V] log-prob
         matrix materialised each step."""
@@ -128,7 +171,7 @@ class TransformerFlattened:
         def step(tok, i):
             return self.decoder.step(tok, i, kvs, caches, weights)
 
-        return generate(step, seed, config)
+        return generate(step, seed, config, generator)
 
     @torch.inference_mode()
     def attention_maps(self, batch: Dict[str, torch.Tensor],

@@ -8,7 +8,8 @@ objects (`models/variants.py`): `SumEmbedder`,
 `DynamicConvDecoderLayer` (full-sequence forward, with the training
 dropouts, and the ring-major decode step) and `DynamicConvDecoder`
 (`precompute_kv`, `hidden`, `loss`, `log_prob`, `attention_maps`,
-`init_cache`, `step_topk`, and the full-vocab `step` and
+`init_cache`, `step_topk` at one position or a position a row, the
+speculative chunk `step_chunk`, and the full-vocab `step` and
 `step_with_hidden`).
 
 A training forward takes a `torch.Generator` on the model's device and
@@ -100,7 +101,9 @@ class SumEmbedder(nn.Module):
         self.n_bands = len(cutoff)
 
     def forward(self, token_ids: torch.Tensor,
-                start_pos: int = 0) -> torch.Tensor:
+                start_pos: int | torch.Tensor = 0) -> torch.Tensor:
+        """start_pos: an int, or a [B, 1] tensor of each row's position
+        (a slot pool, a speculative chunk)."""
         return self.adaptive(token_ids) + self.position(token_ids, start_pos)
 
     def embed_tables(self):
@@ -191,17 +194,19 @@ class DynamicConvDecoderLayer(nn.Module):
         return LayerDecodeWeights(w1, b1, wl, pack_taps(wl, self.num_heads),
                                   w2, b2, cw, cb, f1, fb1, f2, fb2)
 
-    def step(self, x_t: torch.Tensor, kv: LayerKV, cache: torch.Tensor,
-             t: int, w: LayerDecodeWeights, beam: int = 1) -> torch.Tensor:
-        """One decode step, x_t [B*beam, D]. cache [K-1, B*beam, C] is
-        the ring-major conv history; the GLU row of step t is written
-        into slot t mod (K-1) in place (a pointwise layer, K = 1, has an
-        empty one)."""
-        y, h = decode_conv_block(x_t, cache, t, w.conv_w1, w.conv_b1,
+    def _conv_step(self, x_t: torch.Tensor, cache: torch.Tensor, t,
+                   w: LayerDecodeWeights):
+        """The conv block of one token a row through `decode_conv_block`:
+        (y [N, D] before its LayerNorm, the GLU row h [N, C])."""
+        return decode_conv_block(x_t, cache, t, w.conv_w1, w.conv_b1,
                                  w.conv_wl, w.conv_w2, w.conv_b2,
                                  self.num_heads, taps=w.conv_taps)
-        if self.kernel_size > 1:
-            cache[t % (self.kernel_size - 1)] = h
+
+    def _after_conv(self, y: torch.Tensor, kv: LayerKV,
+                    w: LayerDecodeWeights, beam: int) -> torch.Tensor:
+        """The conv block's LayerNorm, the context attentions of
+        [B*beam, D] rows over the untiled batch's K/V, `context_fc` and
+        the FFN."""
         x = self.conv_layer_norm(y)
         parts = [self._attn_ln(name)(
                      x + self._attn(name).attend_flat_beam(x, kv[name], beam))
@@ -209,6 +214,64 @@ class DynamicConvDecoderLayer(nn.Module):
         x = torch.cat(parts, dim=-1) @ w.context_w + w.context_b
         y = decode_ffn_block(x, w.ffn_w1, w.ffn_b1, w.ffn_w2, w.ffn_b2)
         return self.final_layer_norm(y)
+
+    def step(self, x_t: torch.Tensor, kv: LayerKV, cache: torch.Tensor,
+             t, w: LayerDecodeWeights, beam: int = 1) -> torch.Tensor:
+        """One decode step, x_t [B*beam, D]. cache [K-1, B*beam, C] is
+        the ring-major conv history; t is the step index of every row
+        (an int) or each row's position (an int32 [B*beam] tensor on
+        x_t's device). The GLU row of a row at position p is written into
+        its slot p mod (K-1) in place (a pointwise layer, K = 1, has an
+        empty ring)."""
+        y, h = self._conv_step(x_t, cache, t, w)
+        self._write_ring(cache, t, h)
+        return self._after_conv(y, kv, w, beam)
+
+    def _write_ring(self, cache: torch.Tensor, t, h: torch.Tensor) -> None:
+        """Each row's GLU row h into its slot t mod (K-1), in place: t an
+        int for every row, or an [N] tensor of positions."""
+        Km1 = self.kernel_size - 1
+        if Km1 == 0:
+            return
+        if isinstance(t, torch.Tensor):
+            rows = torch.arange(h.shape[0], device=h.device)
+            cache[t.long() % Km1, rows] = h
+        else:
+            cache[t % Km1] = h
+
+    def chunk(self, x: torch.Tensor, kv: LayerKV, cache: torch.Tensor,
+              pos: torch.Tensor, w: LayerDecodeWeights):
+        """k decode steps of each row at once, x [B, k, D], the same math
+        as k sequential `step`s: the conv is the layer's only mixing over
+        time. pos [B] int32: each row's count of tokens consumed. The
+        conv block runs `decode_conv_block` position by position at the
+        rows' positions, over a copy of the ring that takes each
+        position's GLU row (k launches of the one-token kernel, so the
+        chunk's conv block sums as the sequential steps sum); the
+        context attentions read the chunk as a beam of k over its row's
+        K/V, and the FFN takes its B*k rows at once. The cache is not
+        advanced. Returns (x [B, k, D], h [B, k, C]: the conv inputs, the
+        GLU rows that `commit_conv_caches` writes for the verified
+        prefix)."""
+        B, k, D = x.shape
+        ring = cache.clone() if k > 1 else cache
+        ys, hs = [], []
+        for j in range(k):
+            p = pos + j if j else pos
+            y, h = self._conv_step(x[:, j].contiguous(), ring, p, w)
+            if j < k - 1:
+                self._write_ring(ring, p, h)
+            ys.append(y)
+            hs.append(h)
+        y, h = torch.stack(ys, dim=1), torch.stack(hs, dim=1)
+        out = self._after_conv(y.reshape(B * k, D), kv, w, k)
+        return out.view(B, k, D), h
+
+
+def _positions(pos: torch.Tensor) -> torch.Tensor:
+    """Rows' positions as the conv block's kernel reads them: int32,
+    contiguous (no copy where they are so already)."""
+    return pos.to(torch.int32).contiguous()
 
 
 class DynamicConvDecoder(nn.Module):
@@ -332,29 +395,62 @@ class DynamicConvDecoder(nn.Module):
                 head_table=self.adaptive_softmax.head_table(tables,
                                                             self.dtype))
 
-    def _step_layers(self, token_t: torch.Tensor, step_idx: int,
+    def _step_layers(self, token_t: torch.Tensor, step_idx,
                      kvs: List[LayerKV], caches: List[torch.Tensor],
                      weights: DecodeWeights, beam: int) -> torch.Tensor:
         """The layers of one decode step: hidden state [B*beam, D]; the
-        conv caches advance in place."""
-        x = self.embedder(token_t[:, None], start_pos=step_idx)[:, 0, :]
+        conv caches advance in place. step_idx: an int, or each row's
+        position (a [B*beam] tensor)."""
+        start = step_idx
+        if isinstance(step_idx, torch.Tensor):
+            step_idx = _positions(step_idx)
+            start = step_idx[:, None]
+        x = self.embedder(token_t[:, None], start_pos=start)[:, 0, :]
         for layer, kv, cache, w in zip(self.layers, kvs, caches,
                                        weights.layers):
             x = layer.step(x, kv, cache, step_idx, w, beam)
         return x
 
-    def step_topk(self, token_t: torch.Tensor, step_idx: int,
+    def step_topk(self, token_t: torch.Tensor, step_idx,
                   kvs: List[LayerKV], caches: List[torch.Tensor], k: int,
                   weights: DecodeWeights, beam: int = 1):
         """One decode step returning the exact top-k candidates.
 
-        token_t [B*beam]; step_idx = tokens already consumed. The conv
-        caches advance in place. Returns (cand_log_probs [B*beam, k]
-        fp32, cand_ids [B*beam, k] int64).
+        token_t [B*beam]; step_idx = tokens already consumed, an int or
+        a [B*beam] tensor of each row's (a slot pool's rows sit at
+        different depths). The conv caches advance in place. Returns
+        (cand_log_probs [B*beam, k] fp32, cand_ids [B*beam, k] int64).
         """
         x = self._step_layers(token_t, step_idx, kvs, caches, weights, beam)
         return self.adaptive_softmax.topk_log_prob(
             x, k, self.embedder.embed_tables(), weights.head_table)
+
+    def step_chunk(self, tokens: torch.Tensor, pos: torch.Tensor,
+                   kvs: List[LayerKV], caches: List[torch.Tensor],
+                   weights: DecodeWeights):
+        """A greedy chunk (speculative verification). tokens [B, k]: the
+        last committed token, then k-1 drafts; pos [B] each row's count
+        of tokens consumed. Returns (log_probs [B, k] fp32, argmax_ids
+        [B, k] int64, hs): output t is the greedy next token given
+        inputs 0..t, as t+1 sequential `step_topk(k=1)` calls give it;
+        hs[l] [B, k, C] are layer l's conv inputs for
+        `commit_conv_caches`. The caches are not advanced. Positions
+        past the embedder's table take its last row: only a chunk's
+        tail reaches there, whose outputs are never committed."""
+        pos = _positions(pos)
+        offsets = torch.arange(tokens.shape[1], device=pos.device)
+        start = (pos[:, None] + offsets).clamp(max=self.max_positions)
+        x = self.embedder(tokens, start_pos=start - offsets)
+        hs = []
+        for layer, kv, cache, w in zip(self.layers, kvs, caches,
+                                       weights.layers):
+            x, h = layer.chunk(x, kv, cache, pos, w)
+            hs.append(h)
+        B, k, D = x.shape
+        v, ids = self.adaptive_softmax.topk_log_prob(
+            x.reshape(B * k, D), 1, self.embedder.embed_tables(),
+            weights.head_table)
+        return v.view(B, k), ids.view(B, k), hs
 
     def step_with_hidden(self, token_t: torch.Tensor, step_idx: int,
                          kvs: List[LayerKV], caches: List[torch.Tensor],

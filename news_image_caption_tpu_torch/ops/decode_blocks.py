@@ -34,7 +34,7 @@ import torch
 from news_image_caption_tpu_torch.ops import _build
 
 MAX_TAPS = 32
-_CONV_ARGTYPES = [_build.P] * 11 + [_build.I] * 9 + [_build.P]
+_CONV_ARGTYPES = [_build.P] * 12 + [_build.I] * 9 + [_build.P]
 _FFN_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P]
 # The conv block kernel: channels a block, rows of x a tile (the tensor
 # cores' 16-row operand), rows a launch.
@@ -63,16 +63,28 @@ def _rounder(dtype):
     return lambda t: t.to(dtype).float()
 
 
-def decode_conv_block_plain(x, cache, t: int, w1, b1, wl, w2, b2,
+def ring_slots(t, Km1: int, N: int, device) -> torch.Tensor:
+    """[K-1, N] ring slot of each tap and row, oldest first: slot (p + k)
+    mod (K-1) for tap k of a row at position p, the one step index t (an
+    int) or each row's own (an [N] tensor)."""
+    k = torch.arange(Km1, device=device)
+    if isinstance(t, torch.Tensor):
+        return (t.long().to(device)[None, :] + k[:, None]) % Km1
+    return ((t + k) % Km1)[:, None].expand(Km1, N)
+
+
+def decode_conv_block_plain(x, cache, t, w1, b1, wl, w2, b2,
                             num_heads: int):
     """One conv-block decode step, in plain PyTorch.
 
     x [N, C]; cache [K-1, N, C] ring-major (slot s mod (K-1) holds the
-    GLU row of step s, zeros before the sequence start); w1 [C, 2C],
-    b1 [2C] and w2 [C, C], b2 [C] with weight norm folded; wl [C, H*K]
-    the tap predictor, head-major (column h*K + k). Returns (y [N, C],
-    the conv output + linear2 + residual before the LayerNorm; h [N, C],
-    the GLU row the caller writes into slot t mod (K-1)).
+    GLU row of step s, zeros before the sequence start); t the step
+    index of every row (an int), or each row's position (an int32 [N]
+    tensor); w1 [C, 2C], b1 [2C] and w2 [C, C], b2 [C] with weight norm
+    folded; wl [C, H*K] the tap predictor, head-major (column h*K + k).
+    Returns (y [N, C], the conv output + linear2 + residual before the
+    LayerNorm; h [N, C], the GLU row the caller writes into the row's
+    slot t mod (K-1)).
     """
     N, C = x.shape
     H = num_heads
@@ -86,8 +98,9 @@ def decode_conv_block_plain(x, cache, t: int, w1, b1, wl, w2, b2,
     taps = r(h @ wl.float()).view(N, H, K)
     p = r(torch.softmax(taps, dim=-1))
     if Km1 > 0:
-        slots = (t + torch.arange(Km1, device=x.device)) % Km1
-        hist = cache.float()[slots].view(Km1, N, H, C // H)
+        rows = torch.arange(N, device=x.device)[None, :]
+        slots = ring_slots(t, Km1, N, x.device)
+        hist = cache.float()[slots, rows].view(Km1, N, H, C // H)
         acc = torch.einsum("nhk,knhr->nhr", p[:, :, :Km1],
                            hist).reshape(N, C)
     else:
@@ -126,19 +139,22 @@ def _padded_taps(K: int) -> int:
     return 8 if K <= 8 else 16 if K <= 16 else 32
 
 
-def decode_conv_block(x, cache, t: int, w1, b1, wl, w2, b2,
+def decode_conv_block(x, cache, t, w1, b1, wl, w2, b2,
                       num_heads: int, taps: Optional[torch.Tensor] = None):
     """See `decode_conv_block_plain`. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises. `taps` is
     `pack_taps(wl, num_heads)` where the caller has it (the model packs
-    it once a load); without it the kernel path packs wl every call."""
+    it once a load); without it the kernel path packs wl every call. On
+    the card, positions `t` given as a tensor stay there: the kernel
+    reads them (int32 [N], contiguous)."""
     if x.device.type == "cpu":
         return decode_conv_block_plain(x, cache, t, w1, b1, wl, w2, b2,
                                        num_heads)
     _build.require(x.device.type == "cuda",
                    f"decode_conv_block: no kernel for device {x.device}")
-    return _launch_conv(x, cache, int(t), w1, b1, wl, w2, b2, num_heads,
-                        taps)
+    if not isinstance(t, torch.Tensor):
+        t = int(t)
+    return _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps)
 
 
 def decode_ffn_block(x, w1, b1, w2, b2):
@@ -244,7 +260,17 @@ def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
     K = wl.shape[1] // H
     sms = _build.sms_of(x.device)
     ok, why = admits_conv(x.dtype, N, C, H, K, sms)
-    _build.require(ok and t >= 0, why or "decode_conv_block: need t >= 0")
+    _build.require(ok, why)
+    pos = t if isinstance(t, torch.Tensor) else None
+    if pos is None:
+        _build.require(t >= 0, "decode_conv_block: need t >= 0")
+    else:
+        _build.require(pos.dtype == torch.int32 and tuple(pos.shape) == (N,)
+                       and pos.is_contiguous() and pos.device == x.device,
+                       f"decode_conv_block: positions int32 [{N}] on"
+                       f" {x.device}, contiguous, got {pos.dtype}"
+                       f" {tuple(pos.shape)} on {pos.device}")
+        t = 0
     plan = conv_block_plan(N, C, H, K, sms)
     if taps is None:
         taps = pack_taps(wl, H)
@@ -273,7 +299,9 @@ def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
                         w1.data_ptr(), b1.data_ptr(), taps.data_ptr(),
                         w2.data_ptr(), b2.data_ptr(), h[r0:].data_ptr(),
                         hconv.data_ptr(), y[r0:].data_ptr(),
-                        counters.data_ptr(), rows, N, C, H, K, plan.taps, t,
+                        counters.data_ptr(),
+                        None if pos is None else pos[r0:].data_ptr(),
+                        rows, N, C, H, K, plan.taps, t,
                         groups, plan.smem_bytes, _build.stream_of(x)),
                      "decode_conv_block")
         decode_conv_block.launches += 1

@@ -13,11 +13,20 @@ the worker's ingest thread calls it one job ahead of `predict`. On the
 card it copies from pinned host memory on a CUDA stream of its own, and
 `predict` makes its stream wait for that copy before decoding.
 
+The reference's serving switches: with `speculative_k >= 2`, a job that
+carries `article_ids` is decoded by exact speculative greedy
+(`generate_speculative`), others greedily. With `continuous_slots > 0`
+the builder attaches a slot pool (`generation/continuous.py`) as
+`predict.engine`, and the worker runs its continuous loop: requests
+enter free slots as they arrive, each answered when its own caption is
+done; a job may carry its own `max_len` and, for top-k sampling
+(`sampling_topk > 1`, served from the pool only), its `rng_seed`.
+`continuous_beam` serves exact beam search from the pool.
+
 What the port does not have raises before any model is built, naming
-its ROADMAP Queue 1 item: speculative decoding and the continuous slot
-pool (item 6), top-k sampling (item 4), int8 context K/V and int8 head
-tables (item 7b), and the detection pipeline of `full_model_builder`
-(items 9 and 10).
+its ROADMAP Queue 1 item: int8 context K/V and int8 head tables (item
+7b), and the detection pipeline of `full_model_builder` (items 9 and
+10).
 """
 
 from __future__ import annotations
@@ -68,18 +77,6 @@ def check_serving_args(speculative_k: int = 0, continuous_slots: int = 0,
         raise ValueError("continuous_beam requires continuous_slots "
                          "> 0 (a plain worker would silently serve "
                          "greedy payloads)")
-    if sampling_topk > 1:
-        raise NotImplementedError(
-            "sampling_topk > 1: top-k sampling is not ported yet (ROADMAP "
-            "Queue 1 item 4; it is served from the slot pool of item 6)")
-    if speculative_k >= 2:
-        raise NotImplementedError(
-            "speculative_k >= 2: speculative decoding is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
-    if continuous_slots > 0 or continuous_beam:
-        raise NotImplementedError(
-            "continuous_slots / continuous_beam: continuous batching is not "
-            "ported yet (ROADMAP Queue 1 item 6)")
     for name, on in (("quantize_kv", quantize_kv),
                      ("quantize_head", quantize_head)):
         if on:
@@ -132,13 +129,41 @@ def _pinned(arr: np.ndarray) -> torch.Tensor:
     return out
 
 
+def _fit_ids(ids: np.ndarray, S: int, pad_id: int = 1) -> np.ndarray:
+    """article_ids [B, n] right-padded with pad_id or cut to the served
+    article length S: ids past S have no features beside them."""
+    ids = np.asarray(ids)
+    if ids.shape[1] >= S:
+        return ids[:, :S]
+    out = np.full((ids.shape[0], S), pad_id, ids.dtype)
+    out[:, :ids.shape[1]] = ids
+    return out
+
+
+def await_staging(b: "Staged", device: torch.device) -> None:
+    """Order the current stream after a job's staging copy, and tell the
+    allocator that it uses the job's tensors (they were allocated on the
+    staging stream). A no-op where the copy was synchronous."""
+    if b.event is None:
+        return
+    current = torch.cuda.current_stream(device)
+    current.wait_event(b.event)
+    for t in b.values():
+        if isinstance(t, torch.Tensor):
+            t.record_stream(current)
+
+
 def _serving_predict(model: TransformerFlattened, cfg: GenerationConfig,
                      device: torch.device, dtype: torch.dtype,
-                     warmup_job: Dict[str, np.ndarray]):
+                     warmup_job: Dict[str, np.ndarray],
+                     speculative_k: int = 0):
     """predict(job) -> {"tokens": int32 [B, max_len + 1]} with `.stage`,
-    `.warmup`, `.model`, `.weights` and `.config`."""
+    `.warmup`, `.model`, `.weights` and `.config`. With speculative_k >= 2
+    a job's `article_ids` (fitted to the served article length) make
+    `predict` decode it by `generate_speculative`."""
     weights = model.decoder.decode_weights()
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    S = warmup_job["article"].shape[1]
 
     def stage(job: Dict[str, Any]) -> Staged:
         # Idempotent: the direct path and the worker's ingest thread
@@ -158,6 +183,10 @@ def _serving_predict(model: TransformerFlattened, cfg: GenerationConfig,
                     t = _pinned(arr).to(device, non_blocking=True)
                     staged[k] = t.to(dtype) if k in _FEATURES else t
                 staged.event = stream.record_event()
+        if speculative_k >= 2 and "article_ids" in job:
+            # Host ids: the draft source of a speculative job or slot.
+            staged["article_ids"] = _fit_ids(
+                np.asarray(job["article_ids"], np.int64), S, cfg.pad_id)
         if "max_len" in job:   # per-request cap (continuous engine)
             staged["max_len"] = int(np.asarray(job["max_len"]).ravel()[0])
         if "rng_seed" in job:  # per-request PRNG (sampling slots)
@@ -175,19 +204,21 @@ def _serving_predict(model: TransformerFlattened, cfg: GenerationConfig,
             raise ValueError("per-request rng_seed requires a "
                              "--sampling-topk --continuous-slots "
                              "worker")
-        if b.event is not None:
-            # The copy ran on the staging stream: order the decode after
-            # it, and tell the allocator that this stream uses the
-            # tensors (they were allocated on the staging stream).
-            current = torch.cuda.current_stream(device)
-            current.wait_event(b.event)
-            for t in b.values():
-                t.record_stream(current)
-        tokens, _ = model.generate(b, cfg, weights)
+        ids = b.pop("article_ids", None)
+        await_staging(b, device)
+        if ids is not None:
+            b["article_ids"] = torch.from_numpy(ids).to(device)
+            tokens, _, _ = model.generate_speculative(
+                b, cfg, weights, spec_k=speculative_k)
+        else:
+            tokens, _ = model.generate(b, cfg, weights)
         return {"tokens": tokens.to(torch.int32).cpu().numpy()}
 
     def warmup():
         predict(warmup_job)
+        if speculative_k >= 2:
+            B = warmup_job["article"].shape[0]
+            predict(dict(warmup_job, article_ids=np.ones((B, S), np.int64)))
 
     predict.stage = stage
     predict.warmup = warmup
@@ -218,25 +249,76 @@ def _zero_job(B: int, P: int, S: int, image_dim: int,
             "article_mask": np.zeros((B, S), bool)}
 
 
+def _attach_continuous(predict, n_slots: int, inner_steps: int,
+                       speculative_k: int, dummy: Dict[str, np.ndarray],
+                       beam: bool = False, harvest_lag: int = 1) -> None:
+    """Attach a slot pool to a builder's predict as `predict.engine`, and
+    a warmup that decodes one dummy request through it (sizing the pool's
+    context K/V at the served shapes). The worker then runs its
+    continuous loop. beam=True serves exact beam search from the pool
+    (`ContinuousBeamBatcher`; results carry [beam, max_len + 1] tokens
+    and scores; drafts are greedy-only and not read)."""
+    from news_image_caption_tpu_torch.generation.continuous import (
+        ContinuousBatcher, ContinuousBeamBatcher)
+
+    model, cfg, weights = predict.model, predict.config, predict.weights
+    if beam:
+        engine = ContinuousBeamBatcher(model, cfg, n_slots, weights=weights,
+                                       inner_steps=inner_steps,
+                                       harvest_lag=harvest_lag)
+    else:
+        engine = ContinuousBatcher.for_flattened(
+            model, cfg, n_slots, weights=weights, inner_steps=inner_steps,
+            spec_k=max(1, speculative_k), source_len=dummy["article"].shape[1],
+            harvest_lag=harvest_lag)
+    stage = predict.stage
+    device = next(model.decoder.parameters()).device
+
+    def warmup():
+        job = stage(dummy)
+        await_staging(job, device)
+        engine.submit(job)
+        engine.run()
+        engine.n_chunks = 0
+        if hasattr(engine, "n_committed"):
+            engine.n_committed = engine.n_slot_steps = 0
+
+    predict.engine = engine
+    predict.warmup = warmup
+
+
 def default_model_builder(device="cuda", params_path: Optional[str] = None,
                           speculative_k: int = 0,
                           continuous_slots: int = 0,
+                          inner_steps: int = 8,
+                          harvest_lag: int = 1,
                           continuous_beam: bool = False,
-                          sampling_topk: int = 1):
+                          sampling_topk: int = 1,
+                          sampling_temp: float = 1.0):
     """The reference's tiny captioner (smoke and serving tests), fp32,
-    greedy, 16 steps. params_path: a '/'-joined .npz of the reference's
-    params (`load_npz`), e.g. JAX's PRNGKey(0) init; otherwise random
-    weights drawn from a generator seeded with 0. CPU only (see
+    16 steps, with the reference's serving switches (see the module).
+    params_path: a '/'-joined .npz of the reference's params
+    (`load_npz`), e.g. JAX's PRNGKey(0) init; otherwise random weights
+    drawn from a generator seeded with 0. CPU only (see
     `check_toy_device`)."""
     check_serving_args(speculative_k, continuous_slots, continuous_beam,
                        sampling_topk)
     check_toy_device(device)
     device = torch.device(device)
     model = _build_model(TOY, device, torch.float32, params_path, seed=0)
-    return _serving_predict(
-        model, GenerationConfig(max_len=TOY_MAX_LEN), device, torch.float32,
+    cfg = GenerationConfig(max_len=TOY_MAX_LEN, sampling_topk=sampling_topk,
+                           sampling_temp=sampling_temp)
+    predict = _serving_predict(
+        model, cfg, device, torch.float32,
         _zero_job(1, TOY_IMAGE_LEN, TOY_ARTICLE_LEN, TOY["image_dim"],
-                  TOY["article_dim"]))
+                  TOY["article_dim"]), speculative_k)
+    if continuous_slots > 0:
+        _attach_continuous(predict, continuous_slots, inner_steps,
+                           speculative_k,
+                           _zero_job(1, TOY_IMAGE_LEN, TOY_ARTICLE_LEN,
+                                     TOY["image_dim"], TOY["article_dim"]),
+                           beam=continuous_beam, harvest_lag=harvest_lag)
+    return predict
 
 
 def flagship_model_builder(device="cuda", max_len: int = 32,
@@ -247,32 +329,50 @@ def flagship_model_builder(device="cuda", max_len: int = 32,
                            batch_size: int = 1,
                            speculative_k: int = 0,
                            continuous_slots: int = 0,
+                           inner_steps: int = 8,
+                           harvest_lag: int = 1,
                            continuous_beam: bool = False,
                            sampling_topk: int = 1,
+                           sampling_temp: float = 1.0,
                            seed: int = 0):
     """Returns predict(job) -> {"tokens": int32 [B, max_len + 1]}: the
-    flagship decoder in bf16 end to end, greedy decode.
+    flagship decoder in bf16 end to end, greedy decode with early exit.
 
     job: numpy `image` [B, 49, 2048], `image_mask` [B, 49],
     `article` [B, 512, 1024], `article_mask` [B, 512] (masks True at
     padding). params_path: a '/'-joined .npz of the reference's params
     (`models/from_jax.py::load_npz`); otherwise random weights drawn
     from a generator seeded with `seed`. `predict.warmup()` serves one
-    zero request of `batch_size` rows; `predict.stage(job)` moves a job
-    to the device ahead of `predict`; `predict.model`, `predict.weights`
-    and `predict.config` expose what it runs. The other switches are the
-    reference's; those the port does not have raise
+    zero request of `batch_size` rows (or, with a slot pool, one request
+    through it); `predict.stage(job)` moves a job to the device ahead of
+    `predict`; `predict.model`, `predict.weights` and `predict.config`
+    expose what it runs, `predict.engine` the slot pool. The other
+    switches are the reference's (see the module: speculative_k,
+    continuous_slots with inner_steps, harvest_lag and continuous_beam,
+    sampling_topk with sampling_temp); the quantized routes raise
     (`check_serving_args`).
     """
     check_serving_args(speculative_k, continuous_slots, continuous_beam,
                        sampling_topk, quantize_kv, quantize_head)
     device = torch.device(device)
     model = _build_model(FLAGSHIP, device, torch.bfloat16, params_path, seed)
-    cfg = GenerationConfig(max_len=max_len, early_exit=early_exit)
-    return _serving_predict(
+    cfg = GenerationConfig(max_len=max_len, early_exit=early_exit,
+                           sampling_topk=sampling_topk,
+                           sampling_temp=sampling_temp)
+    predict = _serving_predict(
         model, cfg, device, torch.bfloat16,
         _zero_job(batch_size, FLAGSHIP_IMAGE_LEN, FLAGSHIP_ARTICLE_LEN,
-                  FLAGSHIP["image_dim"], FLAGSHIP["article_dim"]))
+                  FLAGSHIP["image_dim"], FLAGSHIP["article_dim"]),
+        speculative_k)
+    if continuous_slots > 0:
+        _attach_continuous(predict, continuous_slots, inner_steps,
+                           speculative_k,
+                           _zero_job(1, FLAGSHIP_IMAGE_LEN,
+                                     FLAGSHIP_ARTICLE_LEN,
+                                     FLAGSHIP["image_dim"],
+                                     FLAGSHIP["article_dim"]),
+                           beam=continuous_beam, harvest_lag=harvest_lag)
+    return predict
 
 
 def full_model_builder(*args, **kwargs):
@@ -386,7 +486,12 @@ class CaptioningWorker(_MP.Process):
                     name)
         t_ready = time.monotonic()
         n_served = 0
+        engine = getattr(predict, "engine", None)
         try:
+            if engine is not None:
+                self._continuous_loop(engine, staged_q, sink, logger, device,
+                                      t_ready)
+                return
             while True:
                 client_id, job_id, job, err = staged_q.get()
                 if err is None and job.get("_stats"):
@@ -415,3 +520,112 @@ class CaptioningWorker(_MP.Process):
         finally:
             receiver.close(linger=0)
             sink.close()
+
+    def _exit_on_cuda_error(self, sink, logger, err: BaseException) -> None:
+        """After a CUDA error (replies sent), exit non-zero so that the
+        server's monitor starts a worker with a fresh context."""
+        if is_cuda_error(err):
+            logger.error("worker %d: CUDA error, exiting: %r",
+                         self.worker_id, err)
+            sink.close(linger=10000)
+            os._exit(1)
+
+    def _reply_error(self, sink, logger, client_id, job_id,
+                     err: BaseException) -> None:
+        sink.send_multipart([client_id, job_id] + pack({"error": repr(err)}))
+        self._exit_on_cuda_error(sink, logger, err)
+
+    def _continuous_loop(self, engine, staged_q, sink, logger, device,
+                         t_ready: float) -> None:
+        """Serve from a slot pool: submit staged jobs as they arrive,
+        dispatch the pool, and push each caption to the sink when its own
+        slot is done (the plain loop answers strictly in order; here a
+        short caption never waits behind a long one)."""
+        from news_image_caption_tpu_torch.generation.continuous import \
+            ContinuousBeamBatcher
+        is_beam = isinstance(engine, ContinuousBeamBatcher)
+        sampling = engine.config.sampling_topk > 1
+        pending: Dict[int, tuple] = {}
+        while True:
+            # Block for work only when idle; while slots decode, take what
+            # has arrived without waiting, until the engine's queue is full
+            # (staged features hold device memory; more jobs wait as bytes
+            # in the transport, as the plain loop's staged_q bounds them).
+            block = not pending
+            while engine.backlog < engine.max_queue:
+                try:
+                    item = staged_q.get(block=block)
+                except queue.Empty:
+                    break
+                block = False
+                client_id, job_id, job, err = item
+                if err is not None:
+                    self._reply_error(sink, logger, client_id, job_id, err)
+                    continue
+                if job.get("_stats"):
+                    stats = {"mode": "continuous",
+                             "worker_id": self.worker_id,
+                             "in_flight": len(pending),
+                             "uptime_s": round(time.monotonic() - t_ready,
+                                               1),
+                             "kernel_launches": decode_launches(),
+                             **engine.stats()}
+                    sink.send_multipart([client_id, job_id] + pack(stats))
+                    continue
+                try:
+                    src = job.pop("article_ids", None)
+                    if src is not None:
+                        src = np.asarray(src)[0]   # [1, S] -> [S]
+                    max_len = job.pop("max_len", None)
+                    seed = job.pop("rng_seed", None)
+                    await_staging(job, device)
+                    if is_beam:   # exact beam reads no drafts, no seed
+                        if seed is not None:
+                            raise ValueError(
+                                "rng_seed requires a --sampling-topk worker "
+                                "(this one serves exact beam)")
+                        rid = engine.submit(job, max_len=max_len)
+                    else:
+                        # The request's seed, else its id, seeds its
+                        # slot's generator; greedy slots draw nothing.
+                        gen = None
+                        if sampling and seed is not None:
+                            gen = torch.Generator(
+                                device=engine.device).manual_seed(int(seed))
+                        rid = engine.submit(job, source_row=src,
+                                            max_len=max_len, generator=gen)
+                    pending[rid] = (client_id, job_id)
+                except Exception as e:   # report errors to the client
+                    self._reply_error(sink, logger, client_id, job_id, e)
+            if not pending:
+                continue
+            try:
+                done = engine.step()
+            except Exception as e:
+                # step() reset the engine: every request in flight is
+                # lost. Fail them all and go on serving on the fresh pool.
+                logger.exception("continuous engine step failed; engine "
+                                 "reset")
+                failed, pending = list(pending.values()), {}
+                for client_id, job_id in failed:
+                    sink.send_multipart([client_id, job_id]
+                                        + pack({"error": repr(e)}))
+                self._exit_on_cuda_error(sink, logger, e)
+                continue
+            # A malformed request fails alone. pop(rid, None): an unknown
+            # id (one from before a reset) must not end the loop.
+            for rid, e in engine.drain_failed().items():
+                entry = pending.pop(rid, None)
+                if entry is not None:
+                    sink.send_multipart(list(entry)
+                                        + pack({"error": repr(e)}))
+            for rid, (toks, aux) in done.items():
+                entry = pending.pop(rid, None)
+                if entry is None:
+                    continue
+                if is_beam:   # [1, beam, L+1] tokens, [1, beam] scores
+                    payload = {"tokens": toks[None].astype(np.int32),
+                               "scores": aux[None]}
+                else:         # [1, L+1] tokens
+                    payload = {"tokens": toks[None].astype(np.int32)}
+                sink.send_multipart(list(entry) + pack(payload))

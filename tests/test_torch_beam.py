@@ -380,6 +380,14 @@ def test_generate_beam_max_len_past_positions_raises(pair):
 
 
 def test_full_vocab_generate_sampling_raises(pair):
-    with pytest.raises(NotImplementedError):
-        pair["model"].generate_full(
-            pair["tbatch"], gen.GenerationConfig(max_len=4, sampling_topk=5))
+    """Top-k sampling is ported: the full-vocab step's top-5 are the
+    candidate step's, so with the same generator `generate_full` samples
+    the tokens of `generate`."""
+    cfg = gen.GenerationConfig(max_len=4, sampling_topk=5)
+    want, want_lp = pair["model"].generate(
+        pair["tbatch"], cfg, generator=torch.Generator().manual_seed(3))
+    got, got_lp = pair["model"].generate_full(
+        pair["tbatch"], cfg, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got_lp.numpy(), want_lp.numpy(), atol=2e-4,
+                               rtol=2e-4)

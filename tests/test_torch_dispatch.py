@@ -457,6 +457,52 @@ def test_decode_conv_block_shapes_on_card(cuda_device, N, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 3, 7, 15, 31])
+@pytest.mark.parametrize("N", [4, 16, 80, 150])
+def test_decode_conv_block_per_row_positions_on_card(cuda_device, N, K):
+    """A position a row (a slot pool's rows at their own depths): rows at
+    0, K-2, K-1 and past a wrap of the ring, within the reference tests'
+    bf16 tolerances of the plain version, bit-equal on a second call; one
+    launch a 128 rows; every row at one position is the scalar-t kernel
+    bit for bit."""
+    H = 16
+    x, cache, w1, b1, wl, w2, b2 = _conv_case(cuda_device, N, 1024, H, K,
+                                              seed=N * K)
+    taps = pack_taps(wl, H)
+    base = torch.tensor([0, K - 2, K - 1, 3 * K + 5], dtype=torch.int32)
+    pos = base.repeat(-(-N // 4))[:N].to(cuda_device)
+    args = (x, cache, pos, w1, b1, wl, w2, b2, H)
+    before = decode_conv_block.launches
+    y, h = decode_conv_block(*args, taps=taps)
+    assert decode_conv_block.launches == before + -(-N // 128)
+    y2, h2 = decode_conv_block(*args, taps=taps)
+    torch.cuda.synchronize()
+    py, ph = decode_conv_block_plain(*args)
+    torch.testing.assert_close(h.float(), ph.float(), atol=0.02, rtol=0.02)
+    torch.testing.assert_close(y.float(), py.float(), atol=0.05, rtol=0.05)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    same = torch.full((N,), 2 * K + 3, dtype=torch.int32, device=cuda_device)
+    ya, ha = decode_conv_block(x, cache, same, w1, b1, wl, w2, b2, H,
+                               taps=taps)
+    yt, ht = decode_conv_block(x, cache, 2 * K + 3, w1, b1, wl, w2, b2, H,
+                               taps=taps)
+    torch.cuda.synchronize()
+    assert torch.equal(ya, yt) and torch.equal(ha, ht)
+
+
+@pytest.mark.cuda
+def test_decode_conv_block_refuses_positions_it_does_not_take(cuda_device):
+    x, cache, w1, b1, wl, w2, b2 = _conv_case(cuda_device, 4, 64, 4, 7)
+    before = decode_conv_block.launches
+    for pos in (torch.zeros(4, dtype=torch.int64, device=cuda_device),
+                torch.zeros(5, dtype=torch.int32, device=cuda_device),
+                torch.zeros(4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="positions int32"):
+            decode_conv_block(x, cache, pos, w1, b1, wl, w2, b2, 4)
+    assert decode_conv_block.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N,C,H,K", [(5, 64, 4, 7), (16, 256, 2, 5),
                                      (3, 512, 32, 31), (16, 128, 1, 16)])
 def test_decode_conv_block_small_widths_on_card(cuda_device, N, C, H, K):

@@ -164,8 +164,6 @@ def test_random_init_command_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("command,overrides,argv,item", [
-    ("evaluate", {"generation": {"speculative_k": 4}}, [], "6"),
-    ("evaluate", {"generation": {"sampling_topk": 3}}, [], "4"),
     ("evaluate", {"generation": {"quantize_kv": True}}, [], "7"),
     ("train", {"trainer": {"checkpoint_format": "sharded"}}, [], "11"),
     ("evaluate", {"dataset": {"type": "nics_shards"}}, [], "5b"),

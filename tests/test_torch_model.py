@@ -144,9 +144,19 @@ def test_greedy_tokens_identical_without_eos(pair):
 
 
 def test_sampling_raises_not_implemented(pair):
-    with pytest.raises(NotImplementedError):
-        pair["model"].generate(pair["tbatch"],
-                               GenerationConfig(max_len=4, sampling_topk=5))
+    """Top-k sampling is ported: without a generator `generate` samples
+    from one seeded with 0 (the same tokens as an explicit generator
+    seeded with 0); speculative decoding, greedy-only, still raises for it."""
+    cfg = GenerationConfig(max_len=4, sampling_topk=5)
+    got, _ = pair["model"].generate(pair["tbatch"], cfg)
+    again, _ = pair["model"].generate(
+        pair["tbatch"], cfg, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="greedy-only"):
+        pair["model"].generate_speculative(
+            dict(pair["tbatch"], article_ids=torch.ones(got.shape[0], 4,
+                                                        dtype=torch.long)),
+            cfg)
 
 
 def test_max_len_past_positions_raises(pair):

@@ -383,14 +383,8 @@ def test_http_handler_matches_reference(name, proxies):
 # -- the builders -------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs, error, match", [
-    (dict(speculative_k=2), NotImplementedError, "item 6"),
-    (dict(continuous_slots=2), NotImplementedError, "item 6"),
-    (dict(continuous_slots=2, continuous_beam=True), NotImplementedError,
-     "item 6"),
     (dict(continuous_beam=True), ValueError, "continuous_slots"),
     (dict(sampling_topk=2), ValueError, "continuous_slots"),
-    (dict(sampling_topk=2, continuous_slots=2), NotImplementedError,
-     "item 4"),
     (dict(sampling_topk=4, continuous_slots=2, continuous_beam=True),
      ValueError, "excludes continuous_beam"),
     (dict(sampling_topk=4, continuous_slots=2, speculative_k=4), ValueError,
@@ -808,12 +802,12 @@ def test_cli_serve_sigterm_during_startup():
 
 
 @pytest.mark.parametrize("args, error, match", [
-    (["--speculative-k", "2"], NotImplementedError, "item 6"),
-    (["--continuous-slots", "2"], NotImplementedError, "item 6"),
-    (["--continuous-slots", "2", "--continuous-beam"], NotImplementedError,
-     "item 6"),
+    (["--speculative-k", "2"], RuntimeError, "no CUDA device"),
+    (["--continuous-slots", "2"], RuntimeError, "no CUDA device"),
+    (["--continuous-slots", "2", "--continuous-beam"], RuntimeError,
+     "no CUDA device"),
     (["--sampling-topk", "2", "--continuous-slots", "2"],
-     NotImplementedError, "item 4"),
+     RuntimeError, "no CUDA device"),
     (["--quantize-kv"], NotImplementedError, "item 7b"),
     (["--quantize-head"], NotImplementedError, "item 7b"),
     (["--task", "toy"], NotImplementedError, "Queue 3 item 1"),
