@@ -149,6 +149,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      jobs one at a time and 8 in flight, tokens equal to an in-process
      pool's, p50 / p90 beside phase 9's plain worker, the worker's
      launches from its stats RPC, SIGTERM (the `continuous` JSON line).
+  12. the pointer family (entity gate and copy head), full width, bf16:
+     the train command on `configs/nytimes/copy_loss.yaml` (loss weights
+     (1, 1, 1)) with phase 8's cuts and the flash switch, 8 flash
+     forward a train step and a val batch and 8 backward, every train
+     record of `metrics.jsonl` with finite gen / entity / copy losses
+     that sum to its loss; `evaluate -m best` on two test batches of
+     16, greedy then `speculative_k: 4`, `copied_texts` on every record
+     and every record equal to the in-process decode of the checkpoint,
+     launches 0 / 8 / 4 / 4 a greedy step (the full-vocab head is plain
+     products) and 3 / 8 / 16 / 16 a chunk of 4; then the gate forced
+     open (a weight edit in this phase) at B=16: every flagged token a
+     relevant article id, none twice in a caption, speculative tokens
+     and flags equal to k = 1 `pointer_chunk` steps, second calls
+     bit-equal; `ContinuousBatcher.for_pointer` with 16 slots, 32
+     requests in two waves (caps 8 to 32), each request's tokens and
+     flags its row of those steps at 16 rows; one greedy batch each of
+     `transformer_only_pointer` (3 / 8 / 4 / 4) and
+     `transformer_faces_pointer` (0 / 12 / 4 / 4) with random weights;
+     the device ms of a greedy step at B=16 and the heads' share of it
+     (the same steps without them); the share of bf16 greedy tokens
+     equal to speculative's (reported, not held). The `pointer` JSON
+     line.
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -2846,6 +2868,417 @@ def serve_continuous_phase(torch, predict, plain_b1_ms):
                       "stop_s": stop_s}
 
 
+# -- phase 12: the pointer family ---------------------------------------------
+
+POINTER_CONFIG = "configs/nytimes/copy_loss.yaml"
+# The configs decoded once each with random weights, and their contexts.
+POINTER_GREEDY = (("configs/goodnews/only_pointer.yaml", 2),
+                  ("configs/goodnews/faces_pointer.yaml", 3))
+# A speculative chunk of 4 at B=16 (phase 11's): the conv block position
+# by position, one attention a layer and context (Q = 4), the FFN and
+# the head's band top-1 on 64 rows.
+CHUNK4_B16 = {"band_topk_lse": 3, "decode_cross_attention": 8,
+              "decode_conv_block": 16, "decode_ffn_block": 16}
+
+
+def pointer_launches_a_step(n_contexts: int = 2) -> dict:
+    """A pointer's greedy `generate` step: the decoder's layers, then the
+    full-vocab head in plain products (no band kernel), as the reference
+    decodes it."""
+    return dict(greedy_launches_a_step(n_contexts), band_topk_lse=0)
+
+
+def pointer_steps(torch, model, tree, cfg, weights):
+    """Greedy `pointer_chunk` steps of k = 1 over the rows of `tree` (the
+    head and gate of speculative decoding and the pool, a position at a
+    time): (tokens [B, max_len + 1], copied_flags [B, max_len]), the
+    yardstick of `generate_speculative` and `for_pointer`."""
+    with torch.inference_mode():
+        B = tree["context_ids"].shape[0]
+        dev = tree["context_ids"].device
+        caches = model.pointer_caches(B, cfg.max_len + 1, dev)
+        tokens = torch.full((B, cfg.max_len + 1), cfg.pad_id,
+                            dtype=torch.long, device=dev)
+        tokens[:, 0] = cfg.bos_id
+        flags = torch.zeros(B, cfg.max_len, dtype=torch.bool, device=dev)
+        pos = torch.zeros(B, dtype=torch.int32, device=dev)
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        for i in range(cfg.max_len):
+            if bool(finished.all()):
+                break
+            _, ids, aux, fl = model.pointer_chunk(
+                tokens[:, i:i + 1], pos, tree, caches, cfg.eos_id, weights)
+            live = ~finished
+            tokens[:, i + 1] = torch.where(live, ids[:, 0], cfg.pad_id)
+            flags[:, i] = fl[:, 0] & live
+            model.pointer_commit(caches, aux, live.to(torch.int32), pos)
+            pos += live.to(torch.int32)
+            finished |= live & (ids[:, 0] == cfg.eos_id)
+        return tokens, flags
+
+
+def staged_batches(torch, cfg, split: str, B: int):
+    """The split's batches of B staged as the evaluate command stages
+    them (`CONTEXT_KEYS`, features fp32 on the card)."""
+    from news_image_caption_tpu_torch.config import build_dataset
+    from news_image_caption_tpu_torch.data.synthetic import CONTEXT_KEYS
+    return [({k: torch.from_numpy(b[k]).cuda() for k in CONTEXT_KEYS
+              if k in b}, b["caption_ids"])
+            for b in build_dataset(cfg, split).batches(B, shuffle=False)]
+
+
+def pointer_records(tokens: np.ndarray, flags: np.ndarray, captions):
+    """(generation, copied_texts) a row, as the evaluate command writes
+    them: flags[b, t] marks tokens[b, t + 1]."""
+    from news_image_caption_tpu_torch.cli import _texts
+    out = []
+    for b in range(tokens.shape[0]):
+        gen_text, _ = _texts(tokens[b], captions[b])
+        out.append((gen_text, " ".join(
+            f"w{tokens[b, t + 1]}" for t in range(flags.shape[1])
+            if flags[b, t])))
+    return out
+
+
+def check_copies(tokens: np.ndarray, flags: np.ndarray, batch, what: str):
+    """Every flagged token one of its row's relevant article ids, none
+    flagged twice in a caption. Returns the flags' count."""
+    ids = batch["article_ids"].cpu().numpy()
+    relevant = batch["context_proper_masks"].cpu().numpy() >= 1
+    for b in range(tokens.shape[0]):
+        copied = tokens[b, 1:][flags[b]].tolist()
+        check(set(copied) <= set(ids[b][relevant[b]].tolist()),
+              f"{what}: row {b} copied {copied}, not all relevant article"
+              " ids")
+        check(len(copied) == len(set(copied)),
+              f"{what}: row {b} copied a token twice: {copied}")
+    return int(flags.sum())
+
+
+def pointer_phase(torch, flash, counted):
+    """Phase 12, the pointer family at full width in bf16. Returns
+    ({path: {kernel: launches}}, summary)."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import (build_model,
+                                                     load_config,
+                                                     merge_overrides)
+    from news_image_caption_tpu_torch.generation.continuous import (
+        ContinuousBatcher, _tree_map)
+    from news_image_caption_tpu_torch.ops.band_topk import stable_topk
+
+    flash_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+                     "flash_attention_bwd": flash.flash_attention_bwd}
+    all_counted = {**flash_counted, **counted}
+    V = 50265
+    launches, summary = {}, {"config": POINTER_CONFIG}
+
+    def run(fn):
+        return counted_run(all_counted, fn)
+
+    def decode(n):
+        return {k: n[k] for k in counted}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 12.1 The train command: loss weights (1, 1, 1), phase 8's cuts
+        # and the flash switch (the config leaves it off).
+        out_dir = f"{tmp}/serialization"
+        overrides = train_command_overrides(out_dir)
+        overrides["model"] = {"use_flash_train": True}
+        ovr = json.dumps(overrides)
+        print(f"  cuts of {POINTER_CONFIG}: {ovr}", flush=True)
+        cfg = load_config(POINTER_CONFIG, ovr)
+        check(cfg["model"]["loss_weights"] == [1.0, 1.0, 1.0],
+              "the config's loss weights are not (1, 1, 1)")
+        B = cfg["iterator"]["batch_size"]
+        epochs = cfg["trainer"]["num_epochs"]
+        steps = epochs * (cfg["dataset"]["train"]["size"] // B)
+        val_batches = epochs * (cfg["dataset"]["val"]["size"] // B)
+        n_test = cfg["dataset"]["test"]["size"]
+        timings = {}
+        rc, n, wall = run(lambda: cli.main(["train", POINTER_CONFIG, "-o",
+                                            ovr], timings=timings))
+        check(rc == 0, f"train returned {rc}")
+        want = {"flash_attention_fwd": 8 * (steps + val_batches),
+                "flash_attention_bwd": 8 * steps, **dict.fromkeys(counted, 0)}
+        for name in all_counted:
+            print(f"  train: {name} {n[name]} launches (expected"
+                  f" {want[name]})")
+            check(n[name] == want[name], f"pointer train: {name} launched"
+                  f" {n[name]} times, expected {want[name]}")
+        launches["pointer_train"] = n
+        with open(f"{out_dir}/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r["split"] == "train"]
+        parts = ("gen_loss", "entity_loss", "copy_loss")
+        check(len(train_recs) == steps // cfg["trainer"]["log_every"]
+              and all(np.isfinite(r["loss"]) for r in recs)
+              and all(r["skipped"] == 0 for r in train_recs), f"{recs}")
+        for r in train_recs:
+            check(all(k in r and np.isfinite(r[k]) and r[k] > 0
+                      for k in parts), f"train record without finite parts:"
+                  f" {r}")
+            total = sum(r[k] for k in parts)
+            check(abs(r["loss"] - total) <= 1e-3 * abs(total),
+                  f"loss {r['loss']} is not gen + entity + copy {total}")
+        step_s = sorted(timings["step_s"])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        print("  metrics.jsonl: " + "; ".join(
+            f"{r['split']} step {r['step']} loss {r['loss']:.4f}"
+            + "".join(f" {k} {r[k]:.4f}" for k in parts if k in r)
+            for r in recs) + f"; command {wall:.1f} s, train step median"
+            f" {step_ms:.2f} ms (host clock)", flush=True)
+        summary["train"] = {
+            "cuts": overrides["dataset"] | {
+                k: v for k, v in overrides["trainer"].items()
+                if k != "serialization_dir"} | overrides["model"],
+            "steps": steps, "val_batches": val_batches, "wall_s": wall,
+            "step_ms_median": step_ms, "step_s": timings["step_s"],
+            "records": [{k: r[k] for k in ("split", "step", "loss") + parts
+                         if k in r} for r in recs]}
+
+        # 12.2 evaluate -m best: greedy, then speculative_k 4.
+        gcfg = cli.generation_config(cfg)
+        captured = []
+        real = cli.checkpoint_model
+
+        def capture(*args, **kw):
+            captured.append(real(*args, **kw))
+            return captured[-1]
+
+        cli.checkpoint_model = capture
+        evals = {}
+        try:
+            for name, extra in (("greedy", {}), ("speculative", {
+                    "generation": {"speculative_k": 4}})):
+                e_ovr = json.dumps(merge_overrides(overrides, extra))
+                suffix = f"_{name}"
+                rc, n, e_wall = run(lambda: cli.main([
+                    "evaluate", POINTER_CONFIG, "-o", e_ovr, "-m", "best",
+                    "-s", suffix]))
+                check(rc == 0, f"evaluate ({name}) returned {rc}")
+                with open(f"{out_dir}/generations{suffix}.jsonl") as f:
+                    recs = [json.loads(line) for line in f]
+                check(len(recs) == n_test and all("copied_texts" in r
+                                                  for r in recs),
+                      f"evaluate ({name}): {len(recs)} records, copied_texts"
+                      " on every one expected")
+                evals[name] = (recs, n, e_wall)
+        finally:
+            cli.checkpoint_model = real
+        check(len(captured) == 2, "evaluate did not load the checkpoint")
+    model = captured[0]
+    weights = model.decoder.decode_weights()
+    batches = staged_batches(torch, cfg, "test", B)
+    per_step, total_steps, total_chunks = pointer_launches_a_step(), 0, 0
+    greedy_t, spec_t = [], []
+    for name, (recs, n, e_wall) in evals.items():
+        for i, (batch, captions) in enumerate(batches):
+            with torch.inference_mode():
+                if name == "greedy":
+                    tok, fl = model.generate(batch, gcfg, weights)
+                    total_steps += decode_steps(tok.cpu().numpy(),
+                                                gcfg.eos_id, gcfg.max_len)
+                    greedy_t.append(tok.cpu())
+                else:
+                    tok, fl, chunks = model.generate_speculative(
+                        batch, gcfg, weights, spec_k=4)
+                    total_chunks += chunks
+                    spec_t.append(tok.cpu())
+            got = [(r["generation"], r["copied_texts"])
+                   for r in recs[i * B:(i + 1) * B]]
+            check(got == pointer_records(tok.cpu().numpy(), fl.cpu().numpy(),
+                                         captions),
+                  f"evaluate ({name}): batch {i}'s records differ from the"
+                  " in-process decode of the checkpoint")
+        want = (per_step if name == "greedy" else CHUNK4_B16)
+        units = total_steps if name == "greedy" else total_chunks
+        for k in counted:
+            check(n[k] == want[k] * units, f"evaluate ({name}): {k} launched"
+                  f" {n[k]} times, expected {want[k]} x {units}")
+        check(n["flash_attention_fwd"] == n["flash_attention_bwd"] == 0,
+              f"evaluate ({name}) launched the flash kernels")
+        launches[f"pointer_evaluate_{name}"] = n
+        copied = sum(bool(r["copied_texts"]) for r in recs)
+        evals[name] = {"wall_s": e_wall, "captions_per_s": n_test / e_wall,
+                       ("steps" if name == "greedy" else "chunks"): units,
+                       "records_with_copies": copied, "launches": n}
+        print(f"  evaluate -m best ({name}): {n_test} records, copied_texts"
+              f" on each ({copied} non-empty), {e_wall:.1f} s, records equal"
+              f" to the in-process decode, {units}"
+              f" {'steps' if name == 'greedy' else 'chunks'}, launches {n}",
+              flush=True)
+    agree = float(np.mean([(s[:, 1:] == g[:, 1:]).float().mean().item()
+                           for s, g in zip(spec_t, greedy_t)]))
+    evals["bf16_greedy_tokens_equal_to_speculative"] = agree
+    summary["evaluate"] = evals
+    print(f"  bf16: {agree:.4f} of greedy `generate`'s tokens equal"
+          " speculative's (full-vocab head against the band top-1; reported,"
+          " not held)", flush=True)
+
+    # 12.3 The gate forced open (a weight edit in this phase): greedy and
+    # speculative at B=16 and max_len 32.
+    gate = copy.deepcopy(model)
+    with torch.no_grad():
+        gate.entity_fc.bias[1] = 1e4
+    gweights = gate.decoder.decode_weights()
+    cfg32 = dataclasses.replace(gcfg, max_len=32)
+    batch0 = batches[0][0]
+    (g1, n_g, _) = run(lambda: gate.generate(batch0, cfg32, gweights))
+    (s1, n_s, _) = run(lambda: gate.generate_speculative(
+        batch0, cfg32, gweights, spec_k=4))
+    g2 = gate.generate(batch0, cfg32, gweights)
+    s2 = gate.generate_speculative(batch0, cfg32, gweights, spec_k=4)
+    check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+          "gate open: a second greedy call differs")
+    check(all(torch.equal(a, b) for a, b in zip(s1[:2], s2[:2])),
+          "gate open: a second speculative call differs")
+    with torch.inference_mode():
+        tree = gate.pointer_tree(batch0, gate.decoder.precompute_kv(
+            gate._contexts(batch0)))
+    (steps_t, steps_f), n_k1, _ = run(lambda: pointer_steps(
+        torch, gate, tree, cfg32, gweights))
+    check(torch.equal(s1[0], steps_t) and torch.equal(s1[1], steps_f),
+          "gate open: speculative tokens or flags differ from sequential"
+          " k=1 pointer_chunk steps")
+    n_flags = {}
+    for what, (tok, fl) in (("greedy", g1), ("speculative", s1[:2])):
+        n_flags[what] = check_copies(tok.cpu().numpy(), fl.cpu().numpy(),
+                                     batch0, f"gate open, {what}")
+    check(n_flags["speculative"] > 0, "gate open: nothing was copied")
+    g_steps = decode_steps(g1[0].cpu().numpy(), cfg32.eos_id, cfg32.max_len)
+    check_launches("gate open, greedy", decode(n_g),
+                   pointer_launches_a_step(), g_steps)
+    check_launches("gate open, speculative", decode(n_s), CHUNK4_B16, s1[2])
+    launches["pointer_gate_open"] = {k: n_g[k] + n_s[k] + n_k1[k]
+                                     for k in all_counted}
+    gate_agree = (g1[0][:, 1:] == s1[0][:, 1:]).float().mean().item()
+    summary["gate_open"] = {"B": 16, "max_len": 32, "flags": n_flags,
+                            "speculative_chunks": s1[2],
+                            "greedy_tokens_equal_to_speculative": gate_agree}
+    print(f"  gate open, B=16: copied flags greedy {n_flags['greedy']},"
+          f" speculative {n_flags['speculative']}, every one a relevant"
+          f" article id once a caption; speculative ({s1[2]} chunks) equal"
+          f" to k=1 pointer_chunk steps, tokens and flags; second calls"
+          f" bit-equal; greedy tokens equal to speculative's {gate_agree:.4f}",
+          flush=True)
+
+    # 12.4 for_pointer: 16 slots, 32 requests in two waves, caps 8 to 32,
+    # each request its row of k=1 pointer_chunk steps at 16 rows.
+    rng = np.random.RandomState(12)
+    caps = rng.randint(8, 33, size=32)
+    requests = [{k: v[r:r + 1] for k, v in b.items()}
+                for b, _ in batches for r in range(B)]
+    engine = ContinuousBatcher.for_pointer(gate, cfg32, 16, weights=gweights,
+                                           inner_steps=8)
+
+    def pool():
+        ids, res = [], {}
+        for w in range(2):
+            wave = slice(16 * w, 16 * w + 16)
+            ids += [engine.submit(q, max_len=int(c))
+                    for q, c in zip(requests[wave], caps[wave])]
+            res.update(engine.step())
+            res.update(engine.step())
+        res.update(engine.run())
+        return ids, res
+    (ids, res), n_p, p_secs = run(pool)
+    p_steps = engine.n_chunks * engine.inner_steps
+    check_launches("pointer pool", decode(n_p), greedy_launches_a_step(),
+                   p_steps)
+    launches["pointer_pool"] = n_p
+    check(sorted(res) == sorted(ids), "pointer pool: not every request back")
+    pool_flags = 0
+    for w in range(2):
+        with torch.inference_mode():
+            trees = [gate.pointer_tree(q, gate.decoder.precompute_kv(
+                gate._contexts(q))) for q in requests[16 * w:16 * w + 16]]
+            wave = _tree_map(lambda *leaves: torch.cat(leaves), *trees)
+        want_t, want_f = pointer_steps(torch, gate, wave, cfg32, gweights)
+        want_t, want_f = want_t.cpu().numpy(), want_f.cpu().numpy()
+        for r in range(16):
+            i = 16 * w + r
+            exp_t, exp_f = want_t[r].copy(), want_f[r].copy()
+            exp_t[caps[i] + 1:] = 1
+            exp_f[caps[i]:] = False
+            got_t, _, got_f = res[ids[i]]
+            check(bool(np.array_equal(got_t, exp_t))
+                  and bool(np.array_equal(got_f, exp_f)),
+                  f"pointer pool: request {i} (cap {caps[i]}) differs from"
+                  f" its row of k=1 steps at 16 rows")
+            pool_flags += int(got_f.sum())
+    summary["pool"] = {"slots": 16, "inner_steps": 8, "requests": 32,
+                       "dispatches": engine.n_chunks, "steps": p_steps,
+                       "wall_s": p_secs, "copied_flags": pool_flags,
+                       "occupancy": engine.occupancy}
+    print(f"  pointer pool: 32 requests (caps 8-32, two waves) equal to their"
+          f" rows of k=1 pointer_chunk steps at 16 rows, tokens and flags"
+          f" ({pool_flags} copies); {engine.n_chunks} dispatches,"
+          f" {p_secs:.2f} s, occupancy {engine.occupancy:.3f}", flush=True)
+    del engine, gate
+
+    # 12.5 transformer_only_pointer and transformer_faces_pointer, one
+    # greedy batch each with seeded random weights.
+    summary["greedy_batch"] = {}
+    for path, n_ctx in POINTER_GREEDY:
+        vcfg = load_config(path, json.dumps({"dataset": {"test": {
+            "size": 16}}}))
+        vmodel = build_model(vcfg, "cuda", torch.bfloat16,
+                             torch.Generator(device="cuda").manual_seed(0))
+        vmodel.param_module.eval()
+        vbatch = staged_batches(torch, vcfg, "test", 16)[0][0]
+        vweights = vmodel.decoder.decode_weights()
+        (tok, fl), n_v, v_secs = run(lambda: vmodel.generate(vbatch, cfg32,
+                                                             vweights))
+        tok_np = tok.cpu().numpy()
+        check_tokens(tok_np, 16, cfg32, V)
+        v_steps = decode_steps(tok_np, cfg32.eos_id, cfg32.max_len)
+        want = (greedy_launches_a_step(n_ctx) if not vmodel.use_entity_head
+                else pointer_launches_a_step(n_ctx))
+        check_launches(path, decode(n_v), want, v_steps)
+        name = path.split("/")[-1][:-5]
+        launches[f"pointer_{name}"] = n_v
+        summary["greedy_batch"][name] = {
+            "contexts": n_ctx, "steps": v_steps, "wall_s": v_secs,
+            "copied_flags": int(fl.sum()), "launches": n_v}
+        print(f"  {path}: one B=16 greedy batch, {v_steps} steps,"
+              f" {v_secs:.2f} s, {int(fl.sum())} copied flags, launches"
+              f" {n_v}", flush=True)
+        del vmodel
+
+    # 12.6 Device ms a greedy step of the trained pointer at B=16, and the
+    # share the heads take: the same steps without them (the decoder's
+    # step and the full-vocab top-1 over the pointer's own tokens).
+    b_wall, busy, (ptok, _) = profiled_busy(
+        torch, lambda: model.generate(batch0, cfg32, weights))
+    n_steps = decode_steps(ptok.cpu().numpy(), cfg32.eos_id, cfg32.max_len)
+
+    def decoder_only():
+        with torch.inference_mode():
+            kvs = model.decoder.precompute_kv(model._contexts(batch0))
+            caches = model.decoder.init_cache(16, ptok.device)
+            for i in range(n_steps):
+                lp, _ = model.decoder.step_with_hidden(ptok[:, i], i, kvs,
+                                                       caches, weights)
+                stable_topk(lp, 1)
+    d_wall, d_busy, _ = profiled_busy(torch, decoder_only)
+    step_ms, dec_ms = busy / n_steps, d_busy / n_steps
+    summary["greedy_step_b16"] = {
+        "steps": n_steps, "wall_ms": b_wall, "device_busy_ms": busy,
+        "device_busy_share": busy / b_wall, "device_ms_per_step": step_ms,
+        "decoder_only_device_ms_per_step": dec_ms,
+        "heads_share_of_step": (step_ms - dec_ms) / step_ms}
+    print(f"  pointer greedy B=16: {n_steps} steps, wall {b_wall:.1f} ms,"
+          f" device busy {busy:.2f} ms ({100 * busy / b_wall:.1f}%),"
+          f" {step_ms:.4f} device ms a step; without the heads"
+          f" {dec_ms:.4f}; heads {100 * (step_ms - dec_ms) / step_ms:.1f}%"
+          " of the step", flush=True)
+    summary["card"] = card_line()
+    return launches, summary
+
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2972,6 +3405,19 @@ def main() -> None:
     print(json.dumps({"continuous": {
         **pool_summary, "decode_conv_block_per_row": per_row,
         "launches": pool_launches, "card": card_line()}}), flush=True)
+
+    print("phase 12: the pointer family (copy_loss.yaml's train and"
+          " evaluate, the gate forced open, the pool, only / faces pointer;"
+          " bf16)", flush=True)
+    ptr_launches, ptr_summary = pointer_phase(torch, flash_attention,
+                                              counted)
+    for path, counts in ptr_launches.items():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name][path] = n
+    print(json.dumps({"pointer": {**ptr_summary,
+                                  "launches": ptr_launches}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

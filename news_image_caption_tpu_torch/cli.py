@@ -81,8 +81,7 @@ import numpy as np
 import torch
 
 from news_image_caption_tpu_torch.config import (build_dataset, build_model,
-                                                 build_optimizer,
-                                                 decoder_kwargs, load_config)
+                                                 build_optimizer, load_config)
 from news_image_caption_tpu_torch.data.loader import DeviceLoader
 from news_image_caption_tpu_torch.data.synthetic import (CONTEXT_KEYS,
                                                         loss_inputs)
@@ -237,7 +236,7 @@ def evaluation_model(cfg: Dict, device: torch.device):
     card, the config's dtype on the CPU."""
     generator = torch.Generator(device=device).manual_seed(INIT_SEED)
     model = build_model(cfg, device, _evaluate_dtype(device), generator)
-    model.decoder.eval()
+    model.param_module.eval()
     return model
 
 
@@ -290,19 +289,26 @@ def train_state(cfg: Dict, model, tx, precision: str,
     copy; bf16_o2 stores the bf16 copy's parameters, `model`'s values
     as the fp32 master."""
     if precision == "fp32":
-        return model, create_train_state(model.decoder, tx)
+        return model, create_train_state(model.param_module, tx)
     compute = build_model(cfg, device, torch.bfloat16)
     if precision == "bf16":
-        return compute, create_train_state(model.decoder, tx,
-                                           compute=compute.decoder)
-    return compute, create_o2_train_state(compute.decoder, tx,
-                                          master=model.decoder)
+        return compute, create_train_state(model.param_module, tx,
+                                           compute=compute.param_module)
+    return compute, create_o2_train_state(compute.param_module, tx,
+                                          master=model.param_module)
 
 
-def _loss_batches(batches):
-    """The keys the loss reads, so the loader moves nothing else."""
+def _loss_batches(batches, keep=()):
+    """The keys the loss reads (`keep`: the model's own beside the
+    captioner's), so the loader moves nothing else."""
     for b in batches:
-        yield loss_inputs(b)
+        yield loss_inputs(b, keep)
+
+
+def _flash_train(cfg: Dict) -> bool:
+    """Whether the config's model trains through the flash kernels."""
+    return any(getattr(m, "use_flash", False) for m in
+               build_model(cfg, "meta").param_module.modules())
 
 
 def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
@@ -323,8 +329,7 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
                          "'msgpack' (the port's single files) or 'sharded'")
     device = _device(args.platform)
     precision = _precision(cfg)
-    if device.type == "cuda" and precision == "fp32" \
-            and decoder_kwargs(cfg).get("use_flash_train"):
+    if device.type == "cuda" and precision == "fp32" and _flash_train(cfg):
         raise ValueError(
             "trainer.mixed_precision fp32 on the card with "
             "use_flash_train: the flash kernels take bf16 only; choose "
@@ -339,6 +344,7 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
     train_ds = build_dataset(cfg, "train")
     val_ds = build_dataset(cfg, "val")
     batch_size = cfg.get("iterator", {}).get("batch_size", 16)
+    keep = getattr(model, "batch_keys", ())
     trainer = Trainer(model.loss_fn, tx, TrainerConfig(
         num_epochs=tcfg.get("num_epochs", 10),
         patience=tcfg.get("patience"),
@@ -355,11 +361,11 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
 
     def train_batches(epoch):
         return DeviceLoader(_loss_batches(
-            train_ds.batches(batch_size, seed=epoch)), device)
+            train_ds.batches(batch_size, seed=epoch), keep), device)
 
     def val_batches(epoch):
         return DeviceLoader(_loss_batches(
-            val_ds.batches(batch_size, shuffle=False)), device)
+            val_ds.batches(batch_size, shuffle=False), keep), device)
 
     trainer.train(state, train_batches, val_batches, recover=args.recover)
     if timings is not None:
@@ -384,11 +390,12 @@ def checkpoint_model(cfg: Dict, ckpt_dir: str, which: str,
     else:
         params = store.read(which)["params"]
     model = build_model(cfg, device, _evaluate_dtype(device))
+    module = model.param_module
     template = {k: torch.empty(p.shape, dtype=stored, device="meta")
-                for k, p in model.decoder.named_parameters()}
+                for k, p in module.named_parameters()}
     check_layout(template, params, "params")
-    model.decoder.load_state_dict(params)
-    model.decoder.eval()
+    module.load_state_dict(params)
+    module.eval()
     return model
 
 
@@ -553,8 +560,12 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
     scores, metrics file)."""
     spans = dict.fromkeys(("data", "decode", "attention", "records",
                            "score"), 0.0)
-    device = next(model.decoder.parameters()).device
+    device = next(model.param_module.parameters()).device
     weights = model.decoder.decode_weights()
+    if dump_attention and not hasattr(model, "attention_maps"):
+        print("warning: model has no attention_maps; skipping dump",
+              file=sys.stderr)
+        dump_attention = None
     if dump_attention:
         os.makedirs(dump_attention, exist_ok=True)
     os.makedirs(out_dir, exist_ok=True)
@@ -579,11 +590,14 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
                           "overhead", file=sys.stderr)
                 staged["article_ids"] = torch.from_numpy(
                     batch["article_ids"]).to(device)
-                tokens, _, _ = model.generate_speculative(
+                tokens, aux, _ = model.generate_speculative(
                     staged, gcfg, weights, spec_k=spec_k, ngram_n=ngram_n)
             else:
-                tokens, _ = model.generate(staged, gcfg, weights)
+                tokens, aux = model.generate(staged, gcfg, weights)
             tokens = tokens.to(torch.int32).cpu().numpy()
+            # A pointer's copied flags: flags[b, t] marks tokens[b, t+1].
+            copied = (aux.cpu().numpy() if aux.dtype == torch.bool
+                      else None)
             t = _lap(spans, "decode", t)
             if dump_attention:
                 ids = torch.from_numpy(tokens).to(device)
@@ -600,12 +614,15 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
                 bleu_s += (gen_text, [ref_text])
                 cider_s += (gen_text, [ref_text])
                 rouge_s += (gen_text, [ref_text])
+                copied_text = "" if copied is None else " ".join(
+                    f"w{tokens[b, t + 1]}" for t in range(copied.shape[1])
+                    if copied[b, t])
                 if enrich:
                     rec = enrich_record(caption=ref_text, generation=gen_text,
-                                        copied_text="")
+                                        copied_text=copied_text)
                 else:
                     rec = {"generation": gen_text, "caption": ref_text,
-                           "copied_texts": ""}
+                           "copied_texts": copied_text}
                 f.write(json.dumps(rec) + "\n")
                 n += 1
             _lap(spans, "records", t)

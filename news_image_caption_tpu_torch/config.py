@@ -14,9 +14,13 @@ Counterpart of `news_image_caption_tpu/config.py` (`load_config`,
 The YAML files are read by `yaml_subset.safe_load`, the port's own
 reader of the subset they use. `build_model` builds
 `transformer_flattened` with the `dynamic_conv_decoder_flattened`
-decoder, and the faces, faces-and-objects, GloVe and no-image variants
-of `models/variants.py` over it; the decoder options the port implements
-at one value only, and every other model type, raise
+decoder, the faces, faces-and-objects, GloVe, no-image and entity
+captioners over it (`models/variants.py`, `models/tgnc.py`), and the
+pointer family (`models/pointer.py` and its variants): for those the
+model block's keys go to the builder as the reference passes them, a
+`decoder:` block builds the decoder it is handed, `loss_weights` is a
+tuple and `max_entities` is accepted and dropped. The decoder options
+the port implements at one value only, and every other model type, raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 `build_optimizer` builds `bert_adam`.
 """
@@ -25,14 +29,20 @@ from __future__ import annotations
 
 import copy
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
 from news_image_caption_tpu_torch.data.dataset import SyntheticNewsDataset
 from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
-from news_image_caption_tpu_torch.models.variants import VARIANTS
+from news_image_caption_tpu_torch.models.decoder_flattened import \
+    DynamicConvDecoder
+from news_image_caption_tpu_torch.models.pointer import TransformerPointer
+from news_image_caption_tpu_torch.models.tgnc import (
+    transformer_entity, transformer_entity_pointer)
+from news_image_caption_tpu_torch.models.variants import (POINTER_VARIANTS,
+                                                          VARIANTS)
 from news_image_caption_tpu_torch.training.optim import make_bert_adam
 from news_image_caption_tpu_torch.yaml_subset import safe_load
 
@@ -86,17 +96,22 @@ _FIXED = dict(conv_type="dynamic", decoder_glu=True, weight_softmax=True,
               remat=False, param_dtype=torch.float32)
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
+# Builders by model type: the captioners take the decoder's arguments,
+# the pointer family the model block's.
+CAPTIONERS = {"transformer_flattened": TransformerFlattened, **VARIANTS,
+              "transformer_entity": transformer_entity}
+POINTERS = {**POINTER_VARIANTS,
+            "transformer_entity_pointer": transformer_entity_pointer}
+# The pointer family's own keys of the model block.
+_POINTER_OWN_KEYS = ("loss_weights", "use_entity_head", "max_entities",
+                 "face_dim", "obj_dim", "entity_dim")
 # Model types of the reference and the ROADMAP Queue 1 item that ports
 # each.
 _NOT_PORTED = {
     "gen3_pipeline": 9,
-    **dict.fromkeys(("transformer_pointer", "transformer_only_pointer",
-                     "transformer_pointer_2", "transformer_context_pointer",
-                     "transformer_faces_pointer",
-                     "transformer_objects_pointer", "transformer_entity",
-                     "transformer_entity_pointer", "tgnc", "gen1",
-                     "gen2_transformer", "lstm_flattened", "baseline_glove",
-                     "lstm_decoder_flattened", "decoder_tgnc"), 10),
+    **dict.fromkeys(("tgnc", "gen1", "gen2_transformer", "lstm_flattened",
+                     "baseline_glove", "lstm_decoder_flattened",
+                     "decoder_tgnc"), "10b"),
 }
 
 
@@ -141,19 +156,30 @@ def config_dtype(value: Any) -> torch.dtype:
 
 
 def decoder_kwargs(cfg: Dict) -> Dict:
-    """The arguments of the `model:` block's builder (its `decoder:`
-    block, or the model block itself): the port's `DynamicConvDecoder`
-    arguments, `dtype` among them (the config's, float32 by default),
-    and a variant's own keys (`face_dim`, `obj_dim`)."""
+    """The arguments of the `model:` block's builder: for a captioner,
+    the port's `DynamicConvDecoder` arguments (its `decoder:` block, or
+    the model block itself) with the variant's own keys (`face_dim`,
+    `obj_dim`, `entity_dim`); for the pointer family, the model block's
+    keys, its `decoder:` or `decoder_kwargs:` block as decoder arguments.
+    `dtype` is the config's (float32 by default)."""
     mcfg = copy.deepcopy(cfg["model"])
     mtype = mcfg.pop("type")
-    if mtype != "transformer_flattened" and mtype not in VARIANTS:
+    if mtype in POINTERS:
+        return _pointer_args(mcfg)
+    if mtype not in CAPTIONERS:
         raise _not_ported("model", mtype)
     dcfg = mcfg.pop("decoder", None)
     if dcfg is None:
         dcfg, mcfg = mcfg, {}
     if mcfg:
         raise TypeError(f"{mtype}: unknown keys {sorted(mcfg)}")
+    return _decoder_args(dcfg)
+
+
+def _decoder_args(dcfg: Dict) -> Dict:
+    """A decoder block as `DynamicConvDecoder` arguments: the options the
+    port fixes checked, the dtype and lists converted."""
+    dcfg = dict(dcfg)
     dtype_ = dcfg.pop("type", "dynamic_conv_decoder_flattened")
     if dtype_ != "dynamic_conv_decoder_flattened":
         raise _not_ported("decoder", dtype_)
@@ -174,18 +200,42 @@ def decoder_kwargs(cfg: Dict) -> Dict:
             for k, v in dcfg.items()}
 
 
+def _pointer_args(mcfg: Dict) -> Dict:
+    """A pointer's model block as its builder's keywords. The model's
+    one dtype is the block's, else its decoder block's."""
+    dtype = mcfg.pop("dtype", None)
+    kw = {k: mcfg.pop(k) for k in _POINTER_OWN_KEYS if k in mcfg}
+    if "loss_weights" in kw:
+        kw["loss_weights"] = tuple(float(w) for w in kw["loss_weights"])
+    for key in ("decoder", "decoder_kwargs"):
+        if key in mcfg:
+            kw[key] = _decoder_args(mcfg.pop(key))
+            nested = kw[key].pop("dtype")
+            dtype = nested if dtype is None else dtype
+    kw.update(_decoder_args(mcfg))
+    kw["dtype"] = config_dtype(dtype) if isinstance(dtype, str) else \
+        (dtype or torch.float32)
+    return kw
+
+
 def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None
-                ) -> TransformerFlattened:
-    """The `model:` block's captioner on `device`, its parameters and
+                ) -> Union[TransformerFlattened, TransformerPointer]:
+    """The `model:` block's model on `device`, its parameters and
     compute in `dtype` (default: the config's `dtype`, float32 unless
     set), drawn from `generator`. An unknown decoder key raises
     TypeError, as the reference's dataclass does."""
+    mtype = cfg["model"]["type"]
     kw = decoder_kwargs(cfg)
     if dtype is not None:
         kw["dtype"] = dtype
-    builder = VARIANTS.get(cfg["model"]["type"], TransformerFlattened)
-    return builder(device=torch.device(device), generator=generator, **kw)
+    device = torch.device(device)
+    if "decoder" in kw:                 # a pointer handed its decoder
+        kw["decoder"] = DynamicConvDecoder(device=device, dtype=kw["dtype"],
+                                           generator=generator,
+                                           **kw["decoder"])
+    builder = POINTERS.get(mtype) or CAPTIONERS[mtype]
+    return builder(device=device, generator=generator, **kw)
 
 
 def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:
@@ -211,14 +261,14 @@ def build_optimizer(cfg: Dict):
     reference's defaults and key names (`e` is eps). An unknown key
     raises ValueError, so a misspelled hyperparameter never trains at
     its default; `noam` and `gen1_adam` come with their model families
-    (ROADMAP Queue 1 item 10)."""
+    (ROADMAP Queue 1 item 10b)."""
     ocfg = copy.deepcopy(cfg.get("trainer", {}).get(
         "optimizer", {"type": "bert_adam"}))
     otype = ocfg.pop("type")
     if otype in ("noam", "gen1_adam"):
         raise NotImplementedError(
             f"optimizer type {otype!r} is not ported yet (ROADMAP Queue 1 "
-            "item 10)")
+            "item 10b)")
     if otype != "bert_adam":
         raise KeyError(f"unknown optimizer type {otype!r}")
     tx = make_bert_adam(

@@ -1,11 +1,11 @@
 """Continuous batching: a pool of decode slots refilled mid-flight.
 
 Counterpart of `news_image_caption_tpu/generation/continuous.py`
-(`_SlotPool`, `ContinuousBatcher` with `for_flattened`,
-`ContinuousBeamBatcher`). The decoder steps a fixed pool of W slots;
-requests queue, each slot decodes its own caption at its own position,
-and a slot whose caption is done is harvested and refilled without
-stopping the others.
+(`_SlotPool`, `ContinuousBatcher` with `for_flattened` and
+`for_pointer`, `ContinuousBeamBatcher`). The decoder steps a fixed pool
+of W slots; requests queue, each slot decodes its own caption at its own
+position, and a slot whose caption is done is harvested and refilled
+without stopping the others.
 
 The pool's state lives on the model's device in tensors allocated once
 (`reset`) and written in place: tokens, log-probs, positions, finished
@@ -27,10 +27,13 @@ engines:
 - `ContinuousBatcher`: greedy (optionally speculative) slots, or top-k
   sampling slots with a generator each (`sampling_topk > 1`); a
   harvested caption equals `TransformerFlattened.generate` on the
-  request alone (sampling: with that request's generator);
+  request alone (sampling: with that request's generator). Over the
+  pointer family (`for_pointer`) each slot also carries the copy head's
+  keys, the article's ids and relevance, entity K/V and a copied-token
+  table, and results carry the copied flags;
 - `ContinuousBeamBatcher`: exact beam search, K rows a slot; a harvested
   result equals `generate_beam` on the request alone.
-The pointer, TGNC and Gen-2 engines come with their model families.
+The TGNC and Gen-2 engines come with their model families.
 """
 
 from __future__ import annotations
@@ -294,7 +297,12 @@ class ContinuousBatcher(_SlotPool):
     sample_step_fn(tokens [W], pos, kvs, caches) -> (log_probs [W, k],
         ids [W, k]), the exact top-k of one step at each slot's position,
         the caches advancing in place (sampling_topk > 1)
-    `for_flattened` builds one over the flagship captioner.
+    clear_slot_fn(caches, slot) zeroes a slot's caches in place (default:
+        the ring-major conv caches' rows)
+    collect_flags: chunk_fn returns a fourth [W, k] bool tensor, a flag
+        an output; results are then (tokens, log_probs, flags [max_len])
+    `for_flattened` builds one over the flagship captioner, `for_pointer`
+    over the pointer family.
     """
 
     def __init__(self, prep_fn: Callable, chunk_fn: Callable,
@@ -304,7 +312,8 @@ class ContinuousBatcher(_SlotPool):
                  source_len: int = 1, ngram_n: int = 2,
                  max_queue: Optional[int] = None,
                  sample_step_fn: Optional[Callable] = None,
-                 harvest_lag: int = 1):
+                 harvest_lag: int = 1, collect_flags: bool = False,
+                 clear_slot_fn: Optional[Callable] = None):
         super().__init__(config, n_slots, inner_steps, max_queue,
                          harvest_lag=harvest_lag)
         if spec_k < 1:
@@ -316,6 +325,10 @@ class ContinuousBatcher(_SlotPool):
         if self._sampling and sample_step_fn is None:
             raise ValueError("sampling_topk > 1 needs a sample_step_fn (a "
                              "top-k candidate step at each row's position)")
+        if self._sampling and collect_flags:
+            raise ValueError("collect_flags is greedy-only")
+        self.collect_flags = collect_flags
+        self._clear_slot = clear_slot_fn or _clear_conv_slot
         self.k = spec_k
         self.source_len = source_len
         self.ngram_n = ngram_n
@@ -340,6 +353,8 @@ class ContinuousBatcher(_SlotPool):
                                  dtype=torch.long, device=dev)
         self.lps = torch.zeros(W, self._buf - 1, dtype=torch.float32,
                                device=dev)
+        self.flags = torch.zeros(W, self._buf - 1, dtype=torch.bool,
+                                 device=dev)
         self.pos = torch.zeros(W, dtype=torch.int32, device=dev)
         # An empty slot is finished: it commits nothing.
         self.finished = torch.ones(W, dtype=torch.bool, device=dev)
@@ -385,11 +400,11 @@ class ContinuousBatcher(_SlotPool):
             n = min(self.source_len, row.shape[0])
             src[:n] = row[:n]
         _tree_map(lambda big, one: big[slot].copy_(one[0]), self.kvs, kvs1)
-        for cache in self.caches:
-            cache[:, slot].zero_()
+        self._clear_slot(self.caches, slot)
         self.tokens[slot] = cfg.pad_id
         self.tokens[slot, 0] = cfg.bos_id
         self.lps[slot] = 0.0
+        self.flags[slot] = False
         self.pos[slot] = 0
         self.finished[slot] = cfg.init_finished and cfg.bos_id == cfg.eos_id
         self.limit[slot] = limit
@@ -407,7 +422,8 @@ class ContinuousBatcher(_SlotPool):
                                   self.k - 1, n=self.ngram_n,
                                   pad_id=cfg.pad_id)
             inp = torch.cat([cur, drafts], dim=1)
-        lp_c, ids, hs = self._chunk_fn(inp, self.pos, self.kvs, self.caches)
+        out = self._chunk_fn(inp, self.pos, self.kvs, self.caches)
+        lp_c, ids, hs = out[:3]
         # The commit rule of speculative decoding, with each request's
         # cap in place of the global max_len.
         m, committed_eos = greedy_verify(ids, drafts, self.finished,
@@ -416,6 +432,8 @@ class ContinuousBatcher(_SlotPool):
         write_rows(self.tokens, torch.where(live, ids, cfg.pad_id),
                    self.pos + 1)
         write_rows(self.lps, torch.where(live, lp_c.float(), 0.0), self.pos)
+        if self.collect_flags:
+            write_rows(self.flags, out[3] & live, self.pos)
         self._commit_fn(self.caches, hs, m, self.pos)
         self.pos += m
         self.finished |= committed_eos | (self.pos >= self.limit)
@@ -443,15 +461,18 @@ class ContinuousBatcher(_SlotPool):
         self.n_slot_steps += self.W * self.inner_steps
         # Take the slot owners as of this dispatch: by harvest time a
         # slot may have been freed and refilled.
-        self._pending.append((list(self._slot_req), _HostView({
-            "finished": self.finished, "tokens": self.tokens[:, :L + 1],
-            "lps": self.lps[:, :L], "committed": committed.reshape(1)})))
+        arrays = {"finished": self.finished, "tokens": self.tokens[:, :L + 1],
+                  "lps": self.lps[:, :L], "committed": committed.reshape(1)}
+        if self.collect_flags:
+            arrays["flags"] = self.flags[:, :L]
+        self._pending.append((list(self._slot_req), _HostView(arrays)))
 
-    def _harvest(self, pending) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    def _harvest(self, pending) -> Dict[int, Tuple[np.ndarray, ...]]:
         owners, view = pending
         view = view.numpy()        # the step's one wait on the device
         self.n_committed += int(view["committed"][0])
-        return {r: (view["tokens"][s], view["lps"][s])
+        extra = ("flags",) if self.collect_flags else ()
+        return {r: tuple(view[k][s] for k in ("tokens", "lps") + extra)
                 for s, r in self._owned_done(owners, view["finished"])}
 
     @property
@@ -504,22 +525,66 @@ class ContinuousBatcher(_SlotPool):
                    harvest_lag=harvest_lag)
 
     @classmethod
-    def for_pointer(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "ContinuousBatcher.for_pointer: the pointer family is not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+    def for_pointer(cls, model, config: GenerationConfig, n_slots: int,
+                    weights=None, inner_steps: int = 8, spec_k: int = 1,
+                    source_len: int = 512, ngram_n: int = 2,
+                    max_queue: Optional[int] = None,
+                    harvest_lag: int = 1) -> "ContinuousBatcher":
+        """An engine over a `TransformerPointer` (entity gate and copy
+        head), greedy or speculative: a request's K/V, the copy head's
+        keys, the article's ids and proper-noun relevance ride its slot
+        (`pointer_tree`); the caches are the conv rings, entity K/V of
+        max_len + max(spec_k, 1) rows and the [W, V] copied-token table
+        (`pointer_caches`); chunks and commits are the pointer's own
+        `pointer_chunk` / `pointer_commit`, shared with
+        `generate_speculative`. Results are (tokens, log_probs,
+        copied_flags). transformer_only_pointer has no copy gate: serve
+        its captioner through `for_flattened`."""
+        if config.sampling_topk != 1:
+            raise ValueError("the pointer engine is greedy-only "
+                             "(sampling_topk must be 1)")
+        if not model.use_entity_head:
+            raise ValueError("transformer_only_pointer has no copy gate; "
+                             "use for_flattened on model.captioner")
+        dec = model.decoder
+        model._check_max_len(config)
+        if weights is None:
+            weights = dec.decode_weights()
+        device = next(dec.parameters()).device
+
+        def prep_fn(request):
+            return model.pointer_tree(
+                request, dec.precompute_kv(model._contexts(request)))
+
+        def chunk_fn(tokens, pos, tree, caches):
+            return model.pointer_chunk(tokens, pos, tree, caches,
+                                       config.eos_id, weights)
+
+        return cls(prep_fn, chunk_fn, model.pointer_commit,
+                   lambda W: model.pointer_caches(
+                       W, config.max_len + max(spec_k, 1), device),
+                   config, n_slots, device, inner_steps=inner_steps,
+                   spec_k=spec_k, source_len=source_len, ngram_n=ngram_n,
+                   max_queue=max_queue, harvest_lag=harvest_lag,
+                   collect_flags=True,
+                   clear_slot_fn=model.clear_pointer_slot)
 
     @classmethod
     def for_tgnc(cls, *args, **kwargs):
         raise NotImplementedError(
             "ContinuousBatcher.for_tgnc: TGNC is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
+            "Queue 1 item 10b)")
 
     @classmethod
     def for_gen2(cls, *args, **kwargs):
         raise NotImplementedError(
             "ContinuousBatcher.for_gen2: the Gen-2 family is not ported "
-            "yet (ROADMAP Queue 1 item 10)")
+            "yet (ROADMAP Queue 1 item 10b)")
+
+
+def _clear_conv_slot(caches: List[torch.Tensor], slot: int) -> None:
+    for cache in caches:
+        cache[:, slot].zero_()
 
 
 class ContinuousBeamBatcher(_SlotPool):

@@ -90,9 +90,15 @@ def select_candidates(cand_lp: torch.Tensor, cand_ids: torch.Tensor,
     lp = cand_lp / config.sampling_temp
     if config.sampling_topk == 1:
         return lp[:, 0], cand_ids[:, 0]
-    noise = gumbel_noise(generator, tuple(lp.shape)).to(lp.device)
-    choice = torch.argmax(lp.float() + noise, dim=1, keepdim=True)
+    choice = sample_index(lp, generator)[:, None]
     return lp.gather(1, choice)[:, 0], cand_ids.gather(1, choice)[:, 0]
+
+
+def sample_index(logits: torch.Tensor, generator: Generators) -> torch.Tensor:
+    """A draw a row from softmax(logits [B, k]), as `jax.random.
+    categorical` draws: argmax(logits + `gumbel_noise`) [B] int64."""
+    noise = gumbel_noise(generator, tuple(logits.shape)).to(logits.device)
+    return torch.argmax(logits.float() + noise, dim=1)
 
 
 def generate(step_fn: Callable, seed: torch.Tensor, config: GenerationConfig,

@@ -126,7 +126,8 @@ def ngram_drafts(source: torch.Tensor, tokens: torch.Tensor,
 
 def speculative_greedy(chunk_fn: Callable, commit_fn: Callable,
                        seed: torch.Tensor, config: GenerationConfig,
-                       spec_k: int, draft_fn: Callable):
+                       spec_k: int, draft_fn: Callable,
+                       collect_flags: bool = False):
     """Greedy generation by draft and verify; the tokens are those of
     `generate_candidates` with sampling_topk = 1.
 
@@ -139,6 +140,12 @@ def speculative_greedy(chunk_fn: Callable, commit_fn: Callable,
 
     Returns (tokens [B, max_len + 1] int64, log_probs [B, max_len] fp32,
     n_chunks): the verification steps run, the unit of wall time.
+
+    collect_flags=True: chunk_fn returns a fourth [B, spec_k] bool
+    tensor, a flag an output (the pointer family's copied marks); the
+    committed outputs' flags are kept beside their tokens (False
+    elsewhere) and returned as (tokens, log_probs, flags [B, max_len],
+    n_chunks).
     """
     B = seed.shape[0]
     L, k = config.max_len, spec_k
@@ -150,6 +157,7 @@ def speculative_greedy(chunk_fn: Callable, commit_fn: Callable,
                         device=dev)
     tokens[:, 0] = seed
     lps = torch.zeros(B, buf - 1, dtype=torch.float32, device=dev)
+    flags = torch.zeros(B, buf - 1, dtype=torch.bool, device=dev)
     pos = torch.zeros(B, dtype=torch.int32, device=dev)
     if config.init_finished:
         finished = seed == config.eos_id
@@ -160,7 +168,8 @@ def speculative_greedy(chunk_fn: Callable, commit_fn: Callable,
     while bool((~finished & (pos < L)).any()):   # one host read a chunk
         cur = tokens.gather(1, pos.long()[:, None])
         drafts = draft_fn(tokens, pos, finished)
-        lp_c, ids, aux = chunk_fn(torch.cat([cur, drafts], dim=1), pos)
+        out = chunk_fn(torch.cat([cur, drafts], dim=1), pos)
+        lp_c, ids, aux = out[:3]
         m, committed_eos = greedy_verify(ids, drafts, finished, pos, L,
                                          config.eos_id)
         live = arange_k < m[:, None]
@@ -168,8 +177,12 @@ def speculative_greedy(chunk_fn: Callable, commit_fn: Callable,
         # writes change nothing; buf = L + k + 1 keeps the window inside.
         write_rows(tokens, torch.where(live, ids, config.pad_id), pos + 1)
         write_rows(lps, torch.where(live, lp_c.float(), 0.0), pos)
+        if collect_flags:
+            write_rows(flags, out[3] & live, pos)
         commit_fn(aux, m, pos)
         pos = pos + m
         finished = finished | committed_eos | (pos >= L)
         n_chunks += 1
+    if collect_flags:
+        return tokens[:, :L + 1], lps[:, :L], flags[:, :L], n_chunks
     return tokens[:, :L + 1], lps[:, :L], n_chunks

@@ -47,6 +47,12 @@ class TransformerFlattened:
                  **decoder_kwargs):
         self.decoder = decoder or DynamicConvDecoder(**decoder_kwargs)
 
+    @property
+    def param_module(self) -> DynamicConvDecoder:
+        """The module that holds every parameter: the decoder, whose
+        state dict is the checkpoints' `params`."""
+        return self.decoder
+
     @staticmethod
     def _contexts(batch: Dict[str, torch.Tensor]):
         """The batch's contexts and masks: image and article, and the

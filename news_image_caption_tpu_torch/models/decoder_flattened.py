@@ -10,7 +10,8 @@ dropouts, and the ring-major decode step) and `DynamicConvDecoder`
 (`precompute_kv`, `hidden`, `loss`, `log_prob`, `attention_maps`,
 `init_cache`, `step_topk` at one position or a position a row, the
 speculative chunk `step_chunk`, and the full-vocab `step` and
-`step_with_hidden`).
+`step_with_hidden`; `loss_from_hidden` and `step_chunk_with_hidden`, the
+hidden states' ways in for the pointer family of `models/pointer.py`).
 
 A training forward takes a `torch.Generator` on the model's device and
 drops as the reference does: the embeddings (`dropout`), the conv
@@ -304,6 +305,7 @@ class DynamicConvDecoder(nn.Module):
         self.dtype = dtype
         self.vocab_size = vocab_size
         self.embed_dim = embed_dim
+        self.article_dim = article_dim
         self.kernel_sizes = tuple(kernel_sizes)
         self.max_positions = max_positions
         self.dropout = dropout
@@ -348,7 +350,13 @@ class DynamicConvDecoder(nn.Module):
              generator: Optional[torch.Generator] = None):
         """(summed adaptive CE fp32, ntokens) of the targets, padding
         `target_padding_idx` ignored."""
-        x = self.hidden(token_ids, contexts, generator)
+        return self.loss_from_hidden(self.hidden(token_ids, contexts,
+                                                 generator), target_ids)
+
+    def loss_from_hidden(self, x: torch.Tensor, target_ids: torch.Tensor):
+        """`loss` of hidden states x [B, T, D] already computed (the
+        pointer family reads them too): (summed adaptive CE fp32,
+        ntokens)."""
         return self.adaptive_softmax.loss_sum(
             x.reshape(-1, x.shape[-1]), target_ids.reshape(-1),
             self.target_padding_idx, self.embedder.embed_tables())
@@ -434,9 +442,20 @@ class DynamicConvDecoder(nn.Module):
         [B, k] int64, hs): output t is the greedy next token given
         inputs 0..t, as t+1 sequential `step_topk(k=1)` calls give it;
         hs[l] [B, k, C] are layer l's conv inputs for
-        `commit_conv_caches`. The caches are not advanced. Positions
-        past the embedder's table take its last row: only a chunk's
-        tail reaches there, whose outputs are never committed."""
+        `commit_conv_caches`. The caches are not advanced."""
+        v, ids, _, hs = self.step_chunk_with_hidden(tokens, pos, kvs, caches,
+                                                    weights)
+        return v, ids, hs
+
+    def step_chunk_with_hidden(self, tokens: torch.Tensor, pos: torch.Tensor,
+                               kvs: List[LayerKV],
+                               caches: List[torch.Tensor],
+                               weights: DecodeWeights):
+        """`step_chunk` with the chunk's hidden states: (log_probs,
+        argmax_ids, hidden [B, k, D], hs), the hidden states what the
+        pointer family's heads read. Positions past the embedder's table
+        take its last row: only a chunk's tail reaches there, whose
+        outputs are never committed."""
         pos = _positions(pos)
         offsets = torch.arange(tokens.shape[1], device=pos.device)
         start = (pos[:, None] + offsets).clamp(max=self.max_positions)
@@ -450,7 +469,7 @@ class DynamicConvDecoder(nn.Module):
         v, ids = self.adaptive_softmax.topk_log_prob(
             x.reshape(B * k, D), 1, self.embedder.embed_tables(),
             weights.head_table)
-        return v.view(B, k), ids.view(B, k), hs
+        return v.view(B, k), ids.view(B, k), x, hs
 
     def step_with_hidden(self, token_t: torch.Tensor, step_idx: int,
                          kvs: List[LayerKV], caches: List[torch.Tensor],

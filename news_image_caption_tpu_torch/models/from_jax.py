@@ -4,7 +4,12 @@
 leaves, flax names such as `layers_0/image_attn/k_proj/kernel`) onto
 the state dict of the port's `DynamicConvDecoder`, whose parameter
 names mirror the flax tree (`layers.0.image_attn.k_proj.kernel`).
-Kernels are (in, out) in both packages, so no leaf is transposed.
+Kernels are (in, out) in both packages, so no leaf is transposed: the
+copy head's raw `q_proj_weight` [E, E] and `k_proj_weight` [kdim, E]
+are used as `x @ W` in both too. A pointer's variables
+{captioner, entity_attn, entity_fc, copy_attn}, each with its own
+`params` collection, map onto `models/pointer.py::TransformerPointer`,
+the captioner's under `decoder.`.
 
 `state_from_jax(tree, state)` carries a whole JAX `TrainState` (as
 flax's state dict) into the port's `training/train_step.py::TrainState`:
@@ -71,10 +76,18 @@ def params_from_jax(tree: Mapping[str, Any],
                           for k, v in module.state_dict().items()})
 
 
+def _strip(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    return tree["params"] if set(tree) == {"params"} else tree
+
+
 def _mapped(tree: Mapping[str, Any],
             expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    tree = _strip(tree)
+    if "captioner" in tree:
+        # The pointer's variables: each part its own collection, the
+        # captioner's params the port's `decoder.`.
+        tree = {("decoder" if k == "captioner" else k): _strip(v)
+                for k, v in tree.items()}
     mapped = {torch_key(path): leaf for path, leaf in _flatten(tree).items()}
     missing = sorted(set(expected) - set(mapped))
     unused = sorted(set(mapped) - set(expected))

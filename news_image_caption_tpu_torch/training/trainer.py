@@ -4,7 +4,10 @@ Counterpart of `news_image_caption_tpu/training/trainer.py` (`Trainer`,
 `TrainerConfig`): per-epoch train and validation, checkpoints under
 `<serialization_dir>/checkpoints` (keep-N, best, asynchronous writes),
 patience and early stop on the validation metric, the non-finite batch
-skip, `metrics.jsonl` records with the reference's keys, TensorBoard
+skip, `metrics.jsonl` records with the reference's keys (and, for a
+pointer model, the window's mean `gen_loss`, `entity_loss` and
+`copy_loss` beside the loss, as the reference's trainer logs them),
+TensorBoard
 scalars every `summary_interval` steps, `recover` from the latest
 checkpoint, a blocking checkpoint tagged `preempted` on SIGTERM, and the
 out-of-memory batch skip. Every logged record is also kept in `history`.
@@ -36,6 +39,8 @@ from news_image_caption_tpu_torch.training.train_step import (
     TrainState, make_eval_step, make_train_step)
 from news_image_caption_tpu_torch.utils.logging import setup_logger
 
+# A pointer model's loss components, logged beside its loss.
+PARTS = ("gen_loss", "entity_loss", "copy_loss")
 # mixed_precision -> the dtype the model computes in.
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16,
               "bf16_o2": torch.bfloat16}
@@ -187,12 +192,16 @@ class Trainer:
                 n_batches += 1
                 window.append((metrics["loss"],
                                metrics.get("sample_size", 0),
-                               metrics["skipped"]))
+                               metrics["skipped"],
+                               [metrics[k] for k in PARTS if k in metrics]))
                 if n_batches % cfg.log_every == 0:
-                    losses, sizes, skips = zip(*window)
+                    losses, sizes, skips, parts = zip(*window)
                     window = []
-                    # The window's mean loss: one host read.
-                    loss = torch.stack(losses).float().mean().item()
+                    # The window's mean loss and parts: one host read.
+                    means = torch.stack([torch.stack(losses).float().mean()]
+                                        + [torch.stack(p).float().mean()
+                                           for p in zip(*parts)]).tolist()
+                    loss = means[0]
                     total_tokens += int(sum(int(s) for s in sizes))
                     n_skipped = int(sum(skips))
                     dt = time.perf_counter() - t_epoch
@@ -206,6 +215,8 @@ class Trainer:
                         total_tokens / max(dt, 1e-9), 100.0 * input_wait)
                     self._log_metrics({
                         "epoch": epoch, "step": state.step, "loss": loss,
+                        **dict(zip([k for k in PARTS if k in metrics],
+                                   means[1:])),
                         "skipped": n_skipped,
                         "input_wait": round(input_wait, 4),
                         "split": "train"})

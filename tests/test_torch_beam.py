@@ -379,7 +379,7 @@ def test_generate_beam_max_len_past_positions_raises(pair):
             pair["tbatch"], gen.GenerationConfig(beam_size=BEAM, max_len=65))
 
 
-def test_full_vocab_generate_sampling_raises(pair):
+def test_full_vocab_generate_samples_like_generate(pair):
     """Top-k sampling is ported: the full-vocab step's top-5 are the
     candidate step's, so with the same generator `generate_full` samples
     the tokens of `generate`."""

@@ -306,9 +306,9 @@ def test_engine_constructor_validation(setup):
                                              harvest_finished=True))
 
 
-@pytest.mark.parametrize("name", ["for_pointer", "for_tgnc", "for_gen2"])
+@pytest.mark.parametrize("name", ["for_tgnc", "for_gen2"])
 def test_other_families_raise_naming_item_10(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
         getattr(ContinuousBatcher, name)(None, None, 2)
 
 

@@ -168,9 +168,9 @@ def test_random_init_command_runs(tmp_path, capsys):
     ("train", {"trainer": {"checkpoint_format": "sharded"}}, [], "11"),
     ("evaluate", {"dataset": {"type": "nics_shards"}}, [], "5b"),
     ("evaluate", {"model": {"decoder": {"normalize_before": True}}}, [], "8"),
-    ("evaluate", {"model": {"type": "transformer_pointer"}}, [], "10"),
+    ("evaluate", {"model": {"type": "tgnc"}}, [], "10b"),
     ("evaluate", {"model": {"type": "gen3_pipeline"}}, [], "9"),
-    ("train", {"trainer": {"optimizer": {"type": "noam"}}}, [], "10"),
+    ("train", {"trainer": {"optimizer": {"type": "noam"}}}, [], "10b"),
     ("train", {"trainer": {"profile_steps": 3}}, [], "5b"),
     ("train", {"trainer": {"mesh": {"data": -1, "model": 1}}}, [], "11"),
     ("train", {"trainer": {"distributed": True}}, [], "11"),

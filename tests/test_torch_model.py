@@ -143,7 +143,7 @@ def test_greedy_tokens_identical_without_eos(pair):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_sampling_raises_not_implemented(pair):
+def test_sampling_default_generator_reproducible(pair):
     """Top-k sampling is ported: without a generator `generate` samples
     from one seeded with 0 (the same tokens as an explicit generator
     seeded with 0); speculative decoding, greedy-only, still raises for it."""
