@@ -157,20 +157,46 @@ Phases, each fatal on failure (exit code 1, no result line):
      that sum to its loss; `evaluate -m best` on two test batches of
      16, greedy then `speculative_k: 4`, `copied_texts` on every record
      and every record equal to the in-process decode of the checkpoint,
-     launches 0 / 8 / 4 / 4 a greedy step (the full-vocab head is plain
-     products) and 3 / 8 / 16 / 16 a chunk of 4; then the gate forced
-     open (a weight edit in this phase) at B=16: every flagged token a
+     launches 3 / 8 / 4 / 4 a greedy step (the generated token from the
+     band kernel, as the chunk's) and 3 / 8 / 16 / 16 a chunk of 4;
+     then the gate forced open (a weight edit in this phase) at B=16:
+     every flagged token a
      relevant article id, none twice in a caption, speculative tokens
      and flags equal to k = 1 `pointer_chunk` steps, second calls
      bit-equal; `ContinuousBatcher.for_pointer` with 16 slots, 32
      requests in two waves (caps 8 to 32), each request's tokens and
      flags its row of those steps at 16 rows; one greedy batch each of
      `transformer_only_pointer` (3 / 8 / 4 / 4) and
-     `transformer_faces_pointer` (0 / 12 / 4 / 4) with random weights;
+     `transformer_faces_pointer` (3 / 12 / 4 / 4) with random weights;
      the device ms of a greedy step at B=16 and the heads' share of it
      (the same steps without them); the share of bf16 greedy tokens
-     equal to speculative's (reported, not held). The `pointer` JSON
-     line.
+     equal to speculative's, which must be 1. The `pointer` JSON line.
+  13. the LSTM family (`models/decoder_lstm.py`): the train command on
+     `configs/goodnews/lstm_roberta.yaml` (bf16) with phase 8's cuts, no
+     kernel launched, every logged loss finite, none skipped, the
+     checkpoints' steps; `evaluate -m best` on its 32 test records,
+     every record equal to the in-process decode of the checkpoint,
+     `band_topk_lse` 3 a step and no other kernel; step 0 of the first
+     batch against the plain path on the CPU (the top-5 log-probs and
+     the plain path's log-prob of each id the card chose within 0.1);
+     one B=16 greedy batch of `configs/goodnews/baseline_glove_lstm.yaml`
+     from seeded random weights in bf16 (the same launches, a second
+     call bit-equal, step 0 against the plain path), the device ms of a
+     step (the `lstm` JSON line).
+  14. the Gen-2 family (`models/gen2.py`): the train command on
+     `configs/goodnews/gen2_roberta.yaml` (fp32, Noam with its warmup
+     cut to 400) with phase 8's cuts, then `evaluate -m best` greedy and
+     `speculative_k: 4` as in phase 13, 1 / 6 launches (band /
+     attention) a greedy step and a chunk, speculative tokens equal to
+     greedy's; step 0 against the plain path; one B=16 batch each of
+     `gen2_roberta.yaml` (head size 128) and
+     `configs/goodnews/gen2_word.yaml` (head size 64) from seeded random
+     weights: greedy, then speculative at spec_k 4, equal token for
+     token, launches as above, the device ms of a greedy step;
+     `ContinuousBatcher.for_gen2` over the random gen2_roberta model
+     with 16 slots and the 32 test requests in two waves (caps 8 to 32),
+     each request its row of `generate` over the wave at 16 rows (K/V
+     projected a request) (the `gen2` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -2879,13 +2905,9 @@ POINTER_GREEDY = (("configs/goodnews/only_pointer.yaml", 2),
 # the head's band top-1 on 64 rows.
 CHUNK4_B16 = {"band_topk_lse": 3, "decode_cross_attention": 8,
               "decode_conv_block": 16, "decode_ffn_block": 16}
-
-
-def pointer_launches_a_step(n_contexts: int = 2) -> dict:
-    """A pointer's greedy `generate` step: the decoder's layers, then the
-    full-vocab head in plain products (no band kernel), as the reference
-    decodes it."""
-    return dict(greedy_launches_a_step(n_contexts), band_topk_lse=0)
+# Phase 12's greedy step at B=16 when the generated token came from
+# full-vocab products (PERF.md §6; H100 80GB HBM3, 700.00 W).
+POINTER_STEP_MS_FULL_VOCAB = 1.4465
 
 
 def pointer_steps(torch, model, tree, cfg, weights):
@@ -2966,7 +2988,6 @@ def pointer_phase(torch, flash, counted):
                                                      merge_overrides)
     from news_image_caption_tpu_torch.generation.continuous import (
         ContinuousBatcher, _tree_map)
-    from news_image_caption_tpu_torch.ops.band_topk import stable_topk
 
     flash_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
                      "flash_attention_bwd": flash.flash_attention_bwd}
@@ -3071,7 +3092,7 @@ def pointer_phase(torch, flash, counted):
     model = captured[0]
     weights = model.decoder.decode_weights()
     batches = staged_batches(torch, cfg, "test", B)
-    per_step, total_steps, total_chunks = pointer_launches_a_step(), 0, 0
+    per_step, total_steps, total_chunks = greedy_launches_a_step(), 0, 0
     greedy_t, spec_t = [], []
     for name, (recs, n, e_wall) in evals.items():
         for i, (batch, captions) in enumerate(batches):
@@ -3114,8 +3135,9 @@ def pointer_phase(torch, flash, counted):
     evals["bf16_greedy_tokens_equal_to_speculative"] = agree
     summary["evaluate"] = evals
     print(f"  bf16: {agree:.4f} of greedy `generate`'s tokens equal"
-          " speculative's (full-vocab head against the band top-1; reported,"
-          " not held)", flush=True)
+          " speculative's (both take the generated token from the band"
+          " kernel; 0.9338 with the full-vocab greedy head)", flush=True)
+    check(agree == 1.0, "pointer: greedy and speculative tokens differ")
 
     # 12.3 The gate forced open (a weight edit in this phase): greedy and
     # speculative at B=16 and max_len 32.
@@ -3149,7 +3171,7 @@ def pointer_phase(torch, flash, counted):
     check(n_flags["speculative"] > 0, "gate open: nothing was copied")
     g_steps = decode_steps(g1[0].cpu().numpy(), cfg32.eos_id, cfg32.max_len)
     check_launches("gate open, greedy", decode(n_g),
-                   pointer_launches_a_step(), g_steps)
+                   greedy_launches_a_step(), g_steps)
     check_launches("gate open, speculative", decode(n_s), CHUNK4_B16, s1[2])
     launches["pointer_gate_open"] = {k: n_g[k] + n_s[k] + n_k1[k]
                                      for k in all_counted}
@@ -3234,9 +3256,8 @@ def pointer_phase(torch, flash, counted):
         tok_np = tok.cpu().numpy()
         check_tokens(tok_np, 16, cfg32, V)
         v_steps = decode_steps(tok_np, cfg32.eos_id, cfg32.max_len)
-        want = (greedy_launches_a_step(n_ctx) if not vmodel.use_entity_head
-                else pointer_launches_a_step(n_ctx))
-        check_launches(path, decode(n_v), want, v_steps)
+        check_launches(path, decode(n_v), greedy_launches_a_step(n_ctx),
+                       v_steps)
         name = path.split("/")[-1][:-5]
         launches[f"pointer_{name}"] = n_v
         summary["greedy_batch"][name] = {
@@ -3249,7 +3270,7 @@ def pointer_phase(torch, flash, counted):
 
     # 12.6 Device ms a greedy step of the trained pointer at B=16, and the
     # share the heads take: the same steps without them (the decoder's
-    # step and the full-vocab top-1 over the pointer's own tokens).
+    # step and the band top-1 over the pointer's own tokens).
     b_wall, busy, (ptok, _) = profiled_busy(
         torch, lambda: model.generate(batch0, cfg32, weights))
     n_steps = decode_steps(ptok.cpu().numpy(), cfg32.eos_id, cfg32.max_len)
@@ -3259,21 +3280,405 @@ def pointer_phase(torch, flash, counted):
             kvs = model.decoder.precompute_kv(model._contexts(batch0))
             caches = model.decoder.init_cache(16, ptok.device)
             for i in range(n_steps):
-                lp, _ = model.decoder.step_with_hidden(ptok[:, i], i, kvs,
-                                                       caches, weights)
-                stable_topk(lp, 1)
+                model.decoder.step_topk(ptok[:, i], i, kvs, caches, 1,
+                                        weights)
     d_wall, d_busy, _ = profiled_busy(torch, decoder_only)
     step_ms, dec_ms = busy / n_steps, d_busy / n_steps
     summary["greedy_step_b16"] = {
         "steps": n_steps, "wall_ms": b_wall, "device_busy_ms": busy,
         "device_busy_share": busy / b_wall, "device_ms_per_step": step_ms,
         "decoder_only_device_ms_per_step": dec_ms,
-        "heads_share_of_step": (step_ms - dec_ms) / step_ms}
+        "heads_share_of_step": (step_ms - dec_ms) / step_ms,
+        "full_vocab_head_device_ms_per_step": POINTER_STEP_MS_FULL_VOCAB}
     print(f"  pointer greedy B=16: {n_steps} steps, wall {b_wall:.1f} ms,"
           f" device busy {busy:.2f} ms ({100 * busy / b_wall:.1f}%),"
-          f" {step_ms:.4f} device ms a step; without the heads"
-          f" {dec_ms:.4f}; heads {100 * (step_ms - dec_ms) / step_ms:.1f}%"
-          " of the step", flush=True)
+          f" {step_ms:.4f} device ms a step (full-vocab head:"
+          f" {POINTER_STEP_MS_FULL_VOCAB}); without the heads {dec_ms:.4f};"
+          " heads"
+          f" {100 * (step_ms - dec_ms) / step_ms:.1f}% of the step",
+          flush=True)
+    summary["card"] = card_line()
+    return launches, summary
+
+
+# -- phases 13 and 14: the LSTM and Gen-2 families ---------------------------
+
+LSTM_CONFIG = "configs/goodnews/lstm_roberta.yaml"
+LSTM_GREEDY = "configs/goodnews/baseline_glove_lstm.yaml"
+GEN2_CONFIG = "configs/goodnews/gen2_roberta.yaml"     # head size 128
+GEN2_GREEDY = "configs/goodnews/gen2_word.yaml"        # head size 64
+GEN2_LAYERS = 3
+# Noam's warmup in the Gen-2 train command: its 30000 would leave 8 steps
+# at rates of 1e-7; a cut of the schedule's length, as phase 8 cuts
+# t_total.
+GEN2_WARMUP = 400
+
+
+def family_launches_a_step(family: str) -> dict:
+    """A greedy step's (or a Gen-2 chunk's) launches: the LSTM's tied
+    adaptive head, one band call a band (3); Gen-2's folded head (1
+    band) and the image and the article attention of each layer (6)."""
+    out = dict.fromkeys(("band_topk_lse", "decode_cross_attention",
+                         "decode_conv_block", "decode_ffn_block"), 0)
+    if family == "lstm":
+        out["band_topk_lse"] = 3
+    else:
+        out.update(band_topk_lse=1, decode_cross_attention=2 * GEN2_LAYERS)
+    return out
+
+
+def first_step(torch, model, batch, k: int = 5, full: bool = False):
+    """Step 0's exact top-k candidates (log-probs, ids) of an LSTM or a
+    Gen-2 model on `batch`, on the batch's device; with `full`, also the
+    full-vocab log-probs [B, V] of the same hidden state in fp32 (the
+    plain path's yardstick; no decode path forms them)."""
+    with torch.inference_mode():
+        w = model.decode_weights()
+        dev = batch["article"].device
+        B = batch["article"].shape[0]
+        seed = torch.zeros(B, dtype=torch.long, device=dev)
+        if hasattr(model, "module"):                   # Gen-2
+            m = model.module
+            x = m._layers(seed[:, None], seed, model.prep(batch),
+                          m.init_cache(B, 2, dev))[:, 0]
+            out = m.head(x, k, w)
+            lp = (torch.log_softmax(m.generator(x.float()), dim=-1)
+                  if full else None)
+        else:
+            x, _ = model.step(model.embed(seed, 0), model.init_state(B),
+                              model._contexts(batch))
+            tables = model.embedder.embed_tables()
+            out = model.adaptive_softmax.topk_log_prob(x, k, tables,
+                                                       w.head_table)
+            lp = (model.adaptive_softmax.log_prob(x.float(), tables)
+                  if full else None)
+        return (*out, lp)
+
+
+def family_vs_plain(torch, model, batch, what: str) -> dict:
+    """Step 0 on the card against the same weights' plain path on the
+    CPU (bf16), 4 rows: the top-5 log-probs within 0.1 (phase 4b's
+    tolerance), and the plain path's log-prob of each id the card chose
+    within 0.1 of the card's (random weights leave many near ties, so
+    the ids themselves are reported, not held)."""
+    rows = {k: v[:4] for k, v in batch.items()}
+    cpu = copy.deepcopy(model)
+    cpu.param_module.to("cpu")
+    v_k, i_k, _ = (t if t is None else t.cpu()
+                   for t in first_step(torch, model, rows))
+    v_p, i_p, lp_p = first_step(torch, cpu,
+                                {k: v.cpu() for k, v in rows.items()},
+                                full=True)
+    e0 = (v_k - v_p).abs().max().item()
+    e_ids = (v_k - lp_p.gather(1, i_k)).abs().max().item()
+    agree = (i_k == i_p).float().mean().item()
+    print(f"  {what}: step 0 on 4 rows, kernel vs plain path on the CPU:"
+          f" top-5 log-probs max |diff| {e0:.4g} (tol 0.1), the plain"
+          f" log-prob of the card's ids max |diff| {e_ids:.4g} (tol 0.1),"
+          f" ids equal {agree:.3f}", flush=True)
+    check(e0 <= 0.1 and e_ids <= 0.1, f"{what}: step 0 of the kernel and"
+          " plain paths differ")
+    return {"step0_max_abs_diff": e0, "step0_card_ids_max_abs_diff": e_ids,
+            "step0_ids_equal": agree}
+
+
+def family_command(torch, flash, counted, family: str, path: str,
+                   overrides: dict, spec: bool):
+    """The train command on `path` with `overrides`, then `evaluate -m
+    best` greedy and, with `spec`, at `speculative_k: 4`: no kernel in
+    training, every record the in-process decode of the checkpoint's
+    model, `family_launches_a_step` a step or a chunk, speculative tokens
+    greedy's. Returns (launches by path, summary, the decoded model, the
+    generation config, the staged test batches)."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import (load_config,
+                                                     merge_overrides)
+
+    all_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+                   "flash_attention_bwd": flash.flash_attention_bwd,
+                   **counted}
+    per_step = family_launches_a_step(family)
+    launches, summary = {}, {"config": path}
+
+    def run(fn):
+        return counted_run(all_counted, fn)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = f"{tmp}/serialization"
+        overrides["trainer"]["serialization_dir"] = out_dir
+        ovr = json.dumps(overrides)
+        print(f"  cuts of {path}: {ovr}", flush=True)
+        cfg = load_config(path, ovr)
+        B = cfg["iterator"]["batch_size"]
+        epochs = cfg["trainer"]["num_epochs"]
+        per_epoch = cfg["dataset"]["train"]["size"] // B
+        n_test = cfg["dataset"]["test"]["size"]
+        timings = {}
+        rc, n, wall = run(lambda: cli.main(["train", path, "-o", ovr],
+                                           timings=timings))
+        check(rc == 0, f"{family} train returned {rc}")
+        check(not any(n.values()), f"{family} train launched {n}: no kernel"
+              " is on this train path")
+        launches[f"{family}_train"] = n
+        with open(f"{out_dir}/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        with open(f"{out_dir}/checkpoints/meta.json") as f:
+            meta = json.load(f)
+        train_recs = [r for r in recs if r["split"] == "train"]
+        check(len(train_recs) == epochs * per_epoch
+              // cfg["trainer"]["log_every"]
+              and all(np.isfinite(r["loss"]) for r in recs)
+              and all(r["skipped"] == 0 for r in train_recs), f"{recs}")
+        check([c["step"] for c in meta["checkpoints"]]
+              == [per_epoch * (e + 1) for e in range(epochs)],
+              f"meta.json checkpoints {meta['checkpoints']}")
+        step_s = sorted(timings["step_s"])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        precision = cfg["trainer"].get("mixed_precision") or "fp32"
+        print(f"  train ({precision}): " + "; ".join(
+            f"{r['split']} step {r['step']} loss {r['loss']:.4f}"
+            for r in recs) + f"; command {wall:.1f} s, train step median"
+            f" {step_ms:.2f} ms (host clock), no kernel launched", flush=True)
+        summary["train"] = {
+            "precision": precision, "steps": epochs * per_epoch,
+            "wall_s": wall, "step_ms_median": step_ms,
+            "records": [{k: r[k] for k in ("split", "step", "loss")}
+                        for r in recs]}
+
+        gcfg = cli.generation_config(cfg)
+        captured = []
+        real = cli.checkpoint_model
+
+        def capture(*args, **kw):
+            captured.append(real(*args, **kw))
+            return captured[-1]
+
+        modes = [("greedy", {})] + ([("speculative", {
+            "generation": {"speculative_k": 4}})] if spec else [])
+        evals = {}
+        cli.checkpoint_model = capture
+        try:
+            for name, extra in modes:
+                e_ovr = json.dumps(merge_overrides(overrides, extra))
+                rc, n, e_wall = run(lambda: cli.main([
+                    "evaluate", path, "-o", e_ovr, "-m", "best", "-s",
+                    f"_{name}"]))
+                check(rc == 0, f"{family} evaluate ({name}) returned {rc}")
+                with open(f"{out_dir}/generations_{name}.jsonl") as f:
+                    recs = [json.loads(line) for line in f]
+                check(len(recs) == n_test, f"{family} evaluate ({name}):"
+                      f" {len(recs)} records")
+                evals[name] = (recs, n, e_wall)
+        finally:
+            cli.checkpoint_model = real
+        check(len(captured) == len(modes), "evaluate did not load the"
+              " checkpoint")
+    from news_image_caption_tpu_torch.cli import _texts
+    model = captured[0]
+    weights = model.decode_weights()
+    batches = staged_batches(torch, cfg, "test", B)
+    tokens = {}
+    for name, (recs, n, e_wall) in evals.items():
+        units, toks = 0, []
+        for i, (batch, captions) in enumerate(batches):
+            with torch.inference_mode():
+                if name == "greedy":
+                    tok, _ = model.generate(batch, gcfg, weights)
+                    units += decode_steps(tok.cpu().numpy(), gcfg.eos_id,
+                                          gcfg.max_len)
+                else:
+                    tok, _, chunks = model.generate_speculative(
+                        batch, gcfg, weights, spec_k=4)
+                    units += chunks
+            toks.append(tok.cpu())
+            want = [_texts(row, cap)[0]
+                    for row, cap in zip(tok.cpu().numpy(), captions)]
+            check([r["generation"] for r in recs[i * B:(i + 1) * B]] == want,
+                  f"{family} evaluate ({name}): batch {i}'s records differ"
+                  " from the in-process decode of the checkpoint")
+        check_launches(f"{family} evaluate ({name})",
+                       {k: n[k] for k in counted}, per_step, units)
+        check(n["flash_attention_fwd"] == n["flash_attention_bwd"] == 0,
+              f"{family} evaluate ({name}) launched the flash kernels")
+        launches[f"{family}_evaluate_{name}"] = n
+        tokens[name] = toks
+        evals[name] = {"wall_s": e_wall, "captions_per_s": n_test / e_wall,
+                       ("steps" if name == "greedy" else "chunks"): units,
+                       "launches": n}
+        print(f"  evaluate -m best ({name}): {n_test} records equal to the"
+              f" in-process decode, {e_wall:.1f} s, {units}"
+              f" {'steps' if name == 'greedy' else 'chunks'}", flush=True)
+    if spec:
+        agree = float(np.mean([(s == g).float().mean().item() for s, g in
+                               zip(tokens["speculative"], tokens["greedy"])]))
+        evals["bf16_greedy_tokens_equal_to_speculative"] = agree
+        print(f"  bf16: {agree:.4f} of greedy tokens equal speculative's",
+              flush=True)
+        check(agree == 1.0, f"{family}: greedy and speculative tokens differ")
+    summary["evaluate"] = evals
+    return launches, summary, model, gcfg, batches
+
+
+def family_greedy(torch, counted, family: str, path: str, spec: bool):
+    """One B=16 batch of `path` from seeded random weights in bf16,
+    greedy (and, with `spec`, speculative at spec_k 4, token for token
+    greedy's), max_len 32: launches, a second call bit-equal, step 0
+    against the plain path, the device ms a step. Returns (launches by
+    path, summary, the model, its generation config)."""
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import build_model, load_config
+
+    name = path.split("/")[-1][:-5]
+    per_step = family_launches_a_step(family)
+    cfg = load_config(path, json.dumps({"dataset": {"test": {"size": 16}}}))
+    model = build_model(cfg, "cuda", torch.bfloat16,
+                        torch.Generator(device="cuda").manual_seed(0))
+    model.param_module.eval()
+    batch = staged_batches(torch, cfg, "test", 16)[0][0]
+    w = model.decode_weights()
+    cfg32 = dataclasses.replace(cli.generation_config(cfg), max_len=32)
+    (tok, _), n, secs = counted_run(counted, lambda: model.generate(
+        batch, cfg32, w))
+    again, _ = model.generate(batch, cfg32, w)
+    check(torch.equal(tok, again), f"{path}: a second greedy call differs")
+    tok_np = tok.cpu().numpy()
+    check_tokens(tok_np, 16, cfg32, cfg["model"]["vocab_size"])
+    steps = decode_steps(tok_np, cfg32.eos_id, cfg32.max_len)
+    check_launches(path, n, per_step, steps)
+    launches = {f"{name}_batch": n}
+    summary = {"config": path, "steps": steps, "wall_s": secs,
+               "launches": n, **family_vs_plain(torch, model, batch, path)}
+    if spec:
+        (s_tok, _, chunks), n_s, s_secs = counted_run(
+            counted, lambda: model.generate_speculative(batch, cfg32, w,
+                                                        spec_k=4))
+        check_launches(f"{path} speculative", n_s, per_step, chunks)
+        agree = (s_tok == tok).float().mean().item()
+        print(f"  {path}: speculative spec_k 4, {chunks} chunks, {s_secs:.2f}"
+              f" s; tokens equal to greedy's {agree:.4f}", flush=True)
+        check(agree == 1.0, f"{path}: speculative tokens differ from"
+              " greedy's")
+        launches[f"{name}_speculative"] = n_s
+        summary["speculative"] = {"chunks": chunks, "wall_s": s_secs,
+                                  "tokens_equal_to_greedy": agree}
+    summary.update(device_step(torch, model, batch, cfg32, w, path))
+    return launches, summary, model, cfg32
+
+
+def device_step(torch, model, batch, cfg, w, what: str) -> dict:
+    """The device ms a greedy step of one profiled `generate`."""
+    wall, busy, (tok, _) = profiled_busy(
+        torch, lambda: model.generate(batch, cfg, w))
+    steps = decode_steps(tok.cpu().numpy(), cfg.eos_id, cfg.max_len)
+    print(f"  {what}: greedy B={tok.shape[0]}, {steps} steps, wall"
+          f" {wall:.1f} ms, device busy {busy:.2f} ms"
+          f" ({100 * busy / wall:.1f}%), {busy / steps:.4f} device ms a step",
+          flush=True)
+    return {"profiled_steps": steps, "wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "device_ms_per_step": busy / steps}
+
+
+def lstm_phase(torch, flash, counted):
+    """Phase 13. Returns ({path: {kernel: launches}}, summary)."""
+    launches, summary, model, _, batches = family_command(
+        torch, flash, counted, "lstm", LSTM_CONFIG,
+        train_command_overrides(""), spec=False)
+    summary.update(family_vs_plain(torch, model, batches[0][0], LSTM_CONFIG))
+    more, summary["greedy_batch"], _, _ = family_greedy(
+        torch, counted, "lstm", LSTM_GREEDY, spec=False)
+    launches.update(more)
+    summary["card"] = card_line()
+    return launches, summary
+
+
+def gen2_rows_generate(torch, model, weights, requests, cfg):
+    """Gen-2's `generate` over these requests at B = len(requests), the
+    memory K/V projected a request, as the pool projects them: the
+    pool's yardstick."""
+    from news_image_caption_tpu_torch.generation.generator import \
+        generate_candidates
+    from news_image_caption_tpu_torch.ops.attention import AttentionKV
+    with torch.inference_mode():
+        per = [model.prep(q) for q in requests]
+        kvs = [{name: AttentionKV(*(torch.cat([p[layer][name][i]
+                                               for p in per])
+                                    for i in range(3)))
+                for name in per[0][layer]} for layer in range(len(per[0]))]
+        B = len(requests)
+        caches = model.module.init_cache(B, cfg.max_len + 1, "cuda")
+        seed = torch.full((B,), cfg.bos_id, dtype=torch.long, device="cuda")
+        return generate_candidates(
+            lambda tok, i: model.module.step(tok, i, kvs, caches, 1, weights),
+            seed, cfg)
+
+
+def gen2_phase(torch, flash, counted):
+    """Phase 14. Returns ({path: {kernel: launches}}, summary)."""
+    from news_image_caption_tpu_torch.generation.continuous import \
+        ContinuousBatcher
+
+    overrides = train_command_overrides("")
+    overrides["trainer"]["optimizer"] = {"warmup": GEN2_WARMUP}
+    launches, summary, model, _, batches = family_command(
+        torch, flash, counted, "gen2", GEN2_CONFIG, overrides, spec=True)
+    summary.update(family_vs_plain(torch, model, batches[0][0], GEN2_CONFIG))
+    # A B=16 batch of each config from random weights (the trained model
+    # may end its captions at once): head sizes 128 and 64.
+    summary["greedy_batch"] = {}
+    for path in (GEN2_CONFIG, GEN2_GREEDY):
+        more, summary["greedy_batch"][path], rmodel, cfg32 = family_greedy(
+            torch, counted, "gen2", path, spec=True)
+        launches.update(more)
+        if path == GEN2_CONFIG:
+            model, weights = rmodel, rmodel.decode_weights()
+    del rmodel
+
+    # for_gen2 over the random gen2_roberta model: 16 slots, 32 requests
+    # (the test split's) in two waves, caps 8 to 32, each request its row
+    # of `generate` over its wave at 16 rows.
+    rng = np.random.RandomState(14)
+    caps = rng.randint(8, 33, size=32)
+    requests = [{k: v[r:r + 1] for k, v in b.items()}
+                for b, _ in batches for r in range(16)]
+    engine = ContinuousBatcher.for_gen2(model, cfg32, 16, weights=weights,
+                                        inner_steps=8)
+
+    def pool():
+        ids, res = [], {}
+        for wave in range(2):
+            part = slice(16 * wave, 16 * wave + 16)
+            ids += [engine.submit(q, max_len=int(c))
+                    for q, c in zip(requests[part], caps[part])]
+            res.update(engine.step())
+            res.update(engine.step())
+        res.update(engine.run())
+        return ids, res
+    (ids, res), n_p, p_secs = counted_run(counted, pool)
+    p_steps = engine.n_chunks * engine.inner_steps
+    check_launches("gen2 pool", n_p, family_launches_a_step("gen2"), p_steps)
+    launches["gen2_pool"] = n_p
+    check(sorted(res) == sorted(ids), "gen2 pool: not every request back")
+    for wave in range(2):
+        want, _ = gen2_rows_generate(torch, model, weights,
+                                     requests[16 * wave:16 * wave + 16],
+                                     cfg32)
+        want = want.cpu().numpy()
+        for r in range(16):
+            i = 16 * wave + r
+            exp = want[r].copy()
+            exp[caps[i] + 1:] = cfg32.pad_id
+            check(bool(np.array_equal(res[ids[i]][0], exp)),
+                  f"gen2 pool: request {i} (cap {caps[i]}) differs from its"
+                  " row of generate at 16 rows")
+    summary["pool"] = {"slots": 16, "inner_steps": 8, "requests": 32,
+                       "dispatches": engine.n_chunks, "steps": p_steps,
+                       "wall_s": p_secs, "occupancy": engine.occupancy}
+    print(f"  gen2 pool: 32 requests (caps 8-32, two waves) equal to their"
+          f" rows of generate at 16 rows; {engine.n_chunks} dispatches,"
+          f" {p_secs:.2f} s, occupancy {engine.occupancy:.3f}", flush=True)
     summary["card"] = card_line()
     return launches, summary
 
@@ -3418,6 +3823,21 @@ def main() -> None:
                 by_path[name][path] = n
     print(json.dumps({"pointer": {**ptr_summary,
                                   "launches": ptr_launches}}), flush=True)
+
+    for family, title, phase in (
+            ("lstm", "phase 13: the LSTM family (lstm_roberta.yaml's train"
+             " and evaluate, a baseline_glove_lstm batch; bf16)", lstm_phase),
+            ("gen2", "phase 14: the Gen-2 family (gen2_roberta.yaml's train"
+             " and evaluate, a gen2_word batch, the pool; bf16)", gen2_phase)):
+        print(title, flush=True)
+        fam_launches, fam_summary = phase(torch, flash_attention, counted)
+        for path, counts in fam_launches.items():
+            for name, n in counts.items():
+                if n:
+                    launches[name] += n
+                    by_path[name][path] = n
+        print(json.dumps({family: {**fam_summary,
+                                   "launches": fam_launches}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

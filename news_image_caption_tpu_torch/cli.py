@@ -19,8 +19,8 @@ from a `torch.Generator` seeded with `trainer.seed` (default 0).
 sampling with `generation.sampling_topk > 1`, a generator seeded with 0
 for each batch, as the reference samples each batch with PRNGKey(0); or
 by exact speculative greedy with `generation.speculative_k >= 2`, drafts
-copied from the batch's `article_ids` by `generation.ngram_n`-grams),
-writes
+copied from the batch's `article_ids` by `generation.ngram_n`-grams, for
+a model that has `generate_speculative`: not the LSTM), writes
 `generations{suffix}.jsonl` (each record enriched with names, entities,
 readability and TTR unless `--no-enrich`) and
 `evaluate-metrics{suffix}.json` (BLEU-1..4, CIDEr, ROUGE-L) into the
@@ -29,7 +29,9 @@ serialization directory, prints the metrics as one JSON line and, with
 captions to `DIR/attn_{batch:05d}.npz` (`layer{i}_{context}`, one a
 layer and attended context: image, article, faces, obj). The batch's
 every context goes to the device, so the faces, objects, GloVe and
-no-image variants evaluate as the flagship does. With a `checkpoints/`
+no-image variants evaluate as the flagship does, and so do the pointer,
+LSTM and Gen-2 families (a model without `attention_maps` warns and
+skips the dump, as the reference does). With a `checkpoints/`
 directory there it evaluates the checkpoint `-m` names (`best` by default,
 `latest`, a step, or `avg:N` for the mean of the newest N); `-m` without
 that directory, or a checkpoint that is not there, raises. With neither
@@ -423,7 +425,9 @@ def evaluate_command(args,
         batch_size=cfg.get("iterator", {}).get("batch_size", 16),
         suffix=args.suffix, enrich=not args.no_enrich,
         dump_attention=args.dump_attention, timings=timings,
-        spec_k=spec_k if gcfg.sampling_topk == 1 else 0, ngram_n=ngram_n)
+        spec_k=(spec_k if gcfg.sampling_topk == 1
+                and hasattr(model, "generate_speculative") else 0),
+        ngram_n=ngram_n)
     print(json.dumps(metrics))
     return 0
 
@@ -552,7 +556,8 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
     """Caption `ds` in batches of `batch_size` (unshuffled, the last
     partial batch dropped) with `model.generate`, or, at spec_k >= 2 and
     where the batch has `article_ids`, `model.generate_speculative`, on
-    the model's device; write the generations and the metrics to
+    the model's device, with the decode weights of
+    `model.decode_weights()`; write the generations and the metrics to
     `out_dir` and return the metrics. timings, if given, gets the
     host-clock seconds of each span: data (numpy batches), decode
     (staging, generate, tokens back), attention (maps and their files),
@@ -561,7 +566,7 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
     spans = dict.fromkeys(("data", "decode", "attention", "records",
                            "score"), 0.0)
     device = next(model.param_module.parameters()).device
-    weights = model.decoder.decode_weights()
+    weights = model.decode_weights()
     if dump_attention and not hasattr(model, "attention_maps"):
         print("warning: model has no attention_maps; skipping dump",
               file=sys.stderr)

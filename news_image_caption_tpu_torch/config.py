@@ -19,10 +19,15 @@ captioners over it (`models/variants.py`, `models/tgnc.py`), and the
 pointer family (`models/pointer.py` and its variants): for those the
 model block's keys go to the builder as the reference passes them, a
 `decoder:` block builds the decoder it is handed, `loss_weights` is a
-tuple and `max_entities` is accepted and dropped. The decoder options
-the port implements at one value only, and every other model type, raise
+tuple and `max_entities` is accepted and dropped. It builds the LSTM
+captioner (`lstm_flattened` and `baseline_glove`, `models/
+decoder_lstm.py`; the model block's keys, or its `decoder:` block of
+type `lstm_decoder_flattened`) and the Gen-2 captioner
+(`gen2_transformer`, `models/gen2.py`), their keys checked as the
+reference's dataclasses check them. The decoder options the port
+implements at one value only, and every other model type, raise
 `NotImplementedError` naming the ROADMAP item that ports them.
-`build_optimizer` builds `bert_adam`.
+`build_optimizer` builds `bert_adam` and `noam`.
 """
 
 from __future__ import annotations
@@ -38,12 +43,17 @@ from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
 from news_image_caption_tpu_torch.models.decoder_flattened import \
     DynamicConvDecoder
+from news_image_caption_tpu_torch.models.decoder_lstm import \
+    LSTMFlattenedModel
+from news_image_caption_tpu_torch.models.gen2 import (Gen2Captioner,
+                                                      gen2_transformer)
 from news_image_caption_tpu_torch.models.pointer import TransformerPointer
 from news_image_caption_tpu_torch.models.tgnc import (
     transformer_entity, transformer_entity_pointer)
 from news_image_caption_tpu_torch.models.variants import (POINTER_VARIANTS,
                                                           VARIANTS)
-from news_image_caption_tpu_torch.training.optim import make_bert_adam
+from news_image_caption_tpu_torch.training.optim import (NoamAdam,
+                                                        make_bert_adam)
 from news_image_caption_tpu_torch.yaml_subset import safe_load
 
 FLAGSHIP = dict(
@@ -105,13 +115,26 @@ POINTERS = {**POINTER_VARIANTS,
 # The pointer family's own keys of the model block.
 _POINTER_OWN_KEYS = ("loss_weights", "use_entity_head", "max_entities",
                  "face_dim", "obj_dim", "entity_dim")
+# The LSTM and Gen-2 families: their builders and the keys of their
+# model blocks (the reference's dataclass fields).
+FAMILIES = {"lstm_flattened": LSTMFlattenedModel,
+            "baseline_glove": LSTMFlattenedModel,
+            "gen2_transformer": gen2_transformer}
+_FAMILY_KEYS = {
+    LSTMFlattenedModel: ("vocab_size", "embed_dim", "hidden_size",
+                         "num_layers", "cutoff", "tie_adaptive_proj",
+                         "image_dim", "article_dim", "dropout_rate",
+                         "padding_idx", "target_padding_idx",
+                         "max_positions"),
+    gen2_transformer: ("smoothing", "vocab_size", "d_model", "d_ff",
+                       "num_heads", "num_layers", "img_dim", "sent_dim",
+                       "dropout_rate", "max_len", "pad_id", "remat"),
+}
 # Model types of the reference and the ROADMAP Queue 1 item that ports
 # each.
 _NOT_PORTED = {
     "gen3_pipeline": 9,
-    **dict.fromkeys(("tgnc", "gen1", "gen2_transformer", "lstm_flattened",
-                     "baseline_glove", "lstm_decoder_flattened",
-                     "decoder_tgnc"), "10b"),
+    **dict.fromkeys(("tgnc", "gen1", "decoder_tgnc"), "10b"),
 }
 
 
@@ -160,12 +183,15 @@ def decoder_kwargs(cfg: Dict) -> Dict:
     the port's `DynamicConvDecoder` arguments (its `decoder:` block, or
     the model block itself) with the variant's own keys (`face_dim`,
     `obj_dim`, `entity_dim`); for the pointer family, the model block's
-    keys, its `decoder:` or `decoder_kwargs:` block as decoder arguments.
-    `dtype` is the config's (float32 by default)."""
+    keys, its `decoder:` or `decoder_kwargs:` block as decoder arguments;
+    for the LSTM and Gen-2 families, their model block's keys (no
+    `dtype`). `dtype` is the config's (float32 by default)."""
     mcfg = copy.deepcopy(cfg["model"])
     mtype = mcfg.pop("type")
     if mtype in POINTERS:
         return _pointer_args(mcfg)
+    if mtype in FAMILIES:
+        return _family_args(mtype, mcfg)
     if mtype not in CAPTIONERS:
         raise _not_ported("model", mtype)
     dcfg = mcfg.pop("decoder", None)
@@ -200,6 +226,28 @@ def _decoder_args(dcfg: Dict) -> Dict:
             for k, v in dcfg.items()}
 
 
+def _family_args(mtype: str, mcfg: Dict) -> Dict:
+    """An LSTM or Gen-2 model block as its builder's keywords: an unknown
+    key raises TypeError. An LSTM's `decoder:` block (type
+    `lstm_decoder_flattened`) is the decoder's keys, and the model
+    block's other keys are dropped, as the reference drops them."""
+    builder = FAMILIES[mtype]
+    dcfg = mcfg.pop("decoder", None)
+    if dcfg is not None and builder is LSTMFlattenedModel:
+        dtype_ = dcfg.pop("type", "lstm_decoder_flattened")
+        if dtype_ != "lstm_decoder_flattened":
+            raise TypeError(f"{mtype}: decoder type {dtype_!r} is not "
+                            "lstm_decoder_flattened")
+        mcfg = dcfg
+    elif dcfg is not None:
+        raise TypeError(f"{mtype}: unknown keys ['decoder']")
+    unknown = sorted(set(mcfg) - set(_FAMILY_KEYS[builder]))
+    if unknown:
+        raise TypeError(f"{mtype}: unknown keys {unknown}")
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in mcfg.items()}
+
+
 def _pointer_args(mcfg: Dict) -> Dict:
     """A pointer's model block as its builder's keywords. The model's
     one dtype is the block's, else its decoder block's."""
@@ -220,16 +268,21 @@ def _pointer_args(mcfg: Dict) -> Dict:
 
 def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None
-                ) -> Union[TransformerFlattened, TransformerPointer]:
+                ) -> Union[TransformerFlattened, TransformerPointer,
+                           LSTMFlattenedModel, Gen2Captioner]:
     """The `model:` block's model on `device`, its parameters and
     compute in `dtype` (default: the config's `dtype`, float32 unless
-    set), drawn from `generator`. An unknown decoder key raises
-    TypeError, as the reference's dataclass does."""
+    set; the LSTM and Gen-2 blocks have no dtype key), drawn from
+    `generator`. An unknown decoder key raises TypeError, as the
+    reference's dataclass does."""
     mtype = cfg["model"]["type"]
     kw = decoder_kwargs(cfg)
+    device = torch.device(device)
+    if mtype in FAMILIES:
+        return FAMILIES[mtype](device=device, generator=generator,
+                               dtype=dtype or torch.float32, **kw)
     if dtype is not None:
         kw["dtype"] = dtype
-    device = torch.device(device)
     if "decoder" in kw:                 # a pointer handed its decoder
         kw["decoder"] = DynamicConvDecoder(device=device, dtype=kw["dtype"],
                                            generator=generator,
@@ -257,26 +310,31 @@ def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:
 
 
 def build_optimizer(cfg: Dict):
-    """The `trainer.optimizer` block's optimizer: `bert_adam` with the
-    reference's defaults and key names (`e` is eps). An unknown key
-    raises ValueError, so a misspelled hyperparameter never trains at
-    its default; `noam` and `gen1_adam` come with their model families
-    (ROADMAP Queue 1 item 10b)."""
+    """The `trainer.optimizer` block's optimizer: `bert_adam` or `noam`
+    with the reference's defaults and key names (`e` is bert_adam's
+    eps). An unknown key raises ValueError, so a misspelled
+    hyperparameter never trains at its default; `gen1_adam` comes with
+    the Gen-1 family (ROADMAP Queue 1 item 10b)."""
     ocfg = copy.deepcopy(cfg.get("trainer", {}).get(
         "optimizer", {"type": "bert_adam"}))
     otype = ocfg.pop("type")
-    if otype in ("noam", "gen1_adam"):
+    if otype == "gen1_adam":
         raise NotImplementedError(
             f"optimizer type {otype!r} is not ported yet (ROADMAP Queue 1 "
             "item 10b)")
-    if otype != "bert_adam":
+    if otype == "bert_adam":
+        tx = make_bert_adam(
+            lr=ocfg.pop("lr", 1e-4), t_total=ocfg.pop("t_total", 437600),
+            warmup=ocfg.pop("warmup", 0.05), b1=ocfg.pop("b1", 0.9),
+            b2=ocfg.pop("b2", 0.98), eps=ocfg.pop("e", 1e-6),
+            weight_decay=ocfg.pop("weight_decay", 1e-5),
+            max_grad_norm=ocfg.pop("max_grad_norm", 0.1))
+    elif otype == "noam":
+        tx = NoamAdam(model_size=ocfg.pop("model_size", 512),
+                      factor=ocfg.pop("factor", 1.0),
+                      warmup=ocfg.pop("warmup", 30000))
+    else:
         raise KeyError(f"unknown optimizer type {otype!r}")
-    tx = make_bert_adam(
-        lr=ocfg.pop("lr", 1e-4), t_total=ocfg.pop("t_total", 437600),
-        warmup=ocfg.pop("warmup", 0.05), b1=ocfg.pop("b1", 0.9),
-        b2=ocfg.pop("b2", 0.98), eps=ocfg.pop("e", 1e-6),
-        weight_decay=ocfg.pop("weight_decay", 1e-5),
-        max_grad_norm=ocfg.pop("max_grad_norm", 0.1))
     if ocfg:
         raise ValueError(f"unknown {otype} optimizer config keys: "
                          f"{sorted(ocfg)}")

@@ -1,8 +1,8 @@
 """Continuous batching: a pool of decode slots refilled mid-flight.
 
 Counterpart of `news_image_caption_tpu/generation/continuous.py`
-(`_SlotPool`, `ContinuousBatcher` with `for_flattened` and
-`for_pointer`, `ContinuousBeamBatcher`). The decoder steps a fixed pool
+(`_SlotPool`, `ContinuousBatcher` with `for_flattened`, `for_pointer`
+and `for_gen2`, `ContinuousBeamBatcher`). The decoder steps a fixed pool
 of W slots; requests queue, each slot decodes its own caption at its own
 position, and a slot whose caption is done is harvested and refilled
 without stopping the others.
@@ -30,10 +30,12 @@ engines:
   request alone (sampling: with that request's generator). Over the
   pointer family (`for_pointer`) each slot also carries the copy head's
   keys, the article's ids and relevance, entity K/V and a copied-token
-  table, and results carry the copied flags;
+  table, and results carry the copied flags; over the Gen-2 family
+  (`for_gen2`) the caches are the self-attention K/V that the chunk
+  writes at each slot's positions;
 - `ContinuousBeamBatcher`: exact beam search, K rows a slot; a harvested
   result equals `generate_beam` on the request alone.
-The TGNC and Gen-2 engines come with their model families.
+The TGNC engine comes with its model family.
 """
 
 from __future__ import annotations
@@ -576,10 +578,47 @@ class ContinuousBatcher(_SlotPool):
             "Queue 1 item 10b)")
 
     @classmethod
-    def for_gen2(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "ContinuousBatcher.for_gen2: the Gen-2 family is not ported "
-            "yet (ROADMAP Queue 1 item 10b)")
+    def for_gen2(cls, model, config: GenerationConfig, n_slots: int,
+                 weights=None, inner_steps: int = 8, spec_k: int = 1,
+                 source_len: int = 512, ngram_n: int = 2,
+                 max_queue: Optional[int] = None,
+                 harvest_lag: int = 1) -> "ContinuousBatcher":
+        """An engine over a `Gen2Captioner`, greedy or speculative: a
+        request's memory K/V of every layer ride its slot, the article's
+        padding in their key bias; the caches are the self-attention K/V
+        of max_len + spec_k slots, which `Gen2Transformer.step_chunk`
+        writes at each slot's positions, so the chunk's writes are the
+        commit (a slot attends no slot past its position); a refilled
+        slot's rows are zeroed. weights: the model's `decode_weights()`,
+        computed here when not given."""
+        if config.sampling_topk != 1:
+            raise ValueError("continuous batching is greedy-only "
+                             "(sampling_topk must be 1)")
+        module = model.module
+        model._check_max_len(config)
+        if weights is None:
+            weights = model.decode_weights()
+        device = module.embed.embedding.device
+
+        def chunk_fn(tokens, pos, kvs, caches):
+            lp, ids = module.step_chunk(tokens, pos, kvs, caches, weights)
+            return lp, ids, None
+
+        def commit_fn(caches, hs, m, pos):
+            """The chunk's cache writes are the commit."""
+
+        def clear_slot(caches, slot):
+            for k_c, v_c in caches:
+                k_c[slot].zero_()
+                v_c[slot].zero_()
+
+        return cls(model.prep, chunk_fn, commit_fn,
+                   lambda W: module.init_cache(
+                       W, config.max_len + max(spec_k, 1), device),
+                   config, n_slots, device, inner_steps=inner_steps,
+                   spec_k=spec_k, source_len=source_len, ngram_n=ngram_n,
+                   max_queue=max_queue, harvest_lag=harvest_lag,
+                   clear_slot_fn=clear_slot)
 
 
 def _clear_conv_slot(caches: List[torch.Tensor], slot: int) -> None:

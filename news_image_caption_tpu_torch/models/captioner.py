@@ -83,6 +83,10 @@ class TransformerFlattened:
         mean_loss = loss_bits / torch.clamp(ntokens, min=1)
         return mean_loss, {"loss_sum": loss_bits, "sample_size": ntokens}
 
+    def decode_weights(self) -> DecodeWeights:
+        """The decoder's fused decode weights; compute once per load."""
+        return self.decoder.decode_weights()
+
     def _check_max_len(self, config: GenerationConfig) -> None:
         """Positions past the sinusoidal table would index out of it."""
         mp = self.decoder.max_positions

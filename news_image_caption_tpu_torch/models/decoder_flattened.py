@@ -10,8 +10,9 @@ dropouts, and the ring-major decode step) and `DynamicConvDecoder`
 (`precompute_kv`, `hidden`, `loss`, `log_prob`, `attention_maps`,
 `init_cache`, `step_topk` at one position or a position a row, the
 speculative chunk `step_chunk`, and the full-vocab `step` and
-`step_with_hidden`; `loss_from_hidden` and `step_chunk_with_hidden`, the
-hidden states' ways in for the pointer family of `models/pointer.py`).
+`step_with_hidden`; `loss_from_hidden`, `step_topk_with_hidden` and
+`step_chunk_with_hidden`, the hidden states' ways in for the pointer
+family of `models/pointer.py`).
 
 A training forward takes a `torch.Generator` on the model's device and
 drops as the reference does: the embeddings (`dropout`), the conv
@@ -54,7 +55,8 @@ from news_image_caption_tpu_torch.ops.conv import DynamicConv
 from news_image_caption_tpu_torch.ops.decode_blocks import (
     decode_conv_block, decode_ffn_block, pack_taps)
 from news_image_caption_tpu_torch.ops.dropout import dropout
-from news_image_caption_tpu_torch.ops.linear import GehringLinear, LayerNorm
+from news_image_caption_tpu_torch.ops.linear import (GehringLinear, LayerNorm,
+                                                     positionwise)
 from news_image_caption_tpu_torch.ops.positional import \
     SinusoidalPositionalEmbedding
 
@@ -249,11 +251,13 @@ class DynamicConvDecoderLayer(nn.Module):
         rows' positions, over a copy of the ring that takes each
         position's GLU row (k launches of the one-token kernel, so the
         chunk's conv block sums as the sequential steps sum); the
-        context attentions read the chunk as a beam of k over its row's
-        K/V, and the FFN takes its B*k rows at once. The cache is not
-        advanced. Returns (x [B, k, D], h [B, k, C]: the conv inputs, the
-        GLU rows that `commit_conv_caches` writes for the verified
-        prefix)."""
+        context attentions' kernel reads a row's k positions at once
+        over its K/V, and the FFN's takes the B*k rows at once (both
+        kernels sum each row alone); the plain products between them run
+        position by position at a step's shapes (`_after_conv_chunk`).
+        The cache is not advanced. Returns (x [B, k, D], h [B, k, C]: the
+        conv inputs, the GLU rows that `commit_conv_caches` writes for
+        the verified prefix)."""
         B, k, D = x.shape
         ring = cache.clone() if k > 1 else cache
         ys, hs = [], []
@@ -265,8 +269,27 @@ class DynamicConvDecoderLayer(nn.Module):
             ys.append(y)
             hs.append(h)
         y, h = torch.stack(ys, dim=1), torch.stack(hs, dim=1)
-        out = self._after_conv(y.reshape(B * k, D), kv, w, k)
-        return out.view(B, k, D), h
+        return self._after_conv_chunk(y, kv, w), h
+
+    def _after_conv_chunk(self, y: torch.Tensor, kv: LayerKV,
+                          w: LayerDecodeWeights) -> torch.Tensor:
+        """`_after_conv` of k positions a row, y [B, k, D]: the attention
+        kernel on a row's k positions at once (`attend_chunk`), the FFN
+        kernel on the B*k rows, the LayerNorms on every row (row by row
+        in any case), and the products `attend_chunk`'s projections and
+        `context_fc` position by position, so that each position sums
+        as a step's (a library product may sum in another order at
+        another row count)."""
+        B, k, D = y.shape
+        x = self.conv_layer_norm(y)
+        parts = [self._attn_ln(name)(
+                     x + self._attn(name).attend_chunk(x, kv[name]))
+                 for name in self.context_names]
+        x = positionwise(lambda r: r @ w.context_w + w.context_b,
+                         torch.cat(parts, dim=-1))
+        y = decode_ffn_block(x.reshape(B * k, D), w.ffn_w1, w.ffn_b1,
+                             w.ffn_w2, w.ffn_b2)
+        return self.final_layer_norm(y).view(B, k, D)
 
 
 def _positions(pos: torch.Tensor) -> torch.Tensor:
@@ -429,9 +452,19 @@ class DynamicConvDecoder(nn.Module):
         different depths). The conv caches advance in place. Returns
         (cand_log_probs [B*beam, k] fp32, cand_ids [B*beam, k] int64).
         """
+        return self.step_topk_with_hidden(token_t, step_idx, kvs, caches, k,
+                                          weights, beam)[:2]
+
+    def step_topk_with_hidden(self, token_t: torch.Tensor, step_idx,
+                              kvs: List[LayerKV], caches: List[torch.Tensor],
+                              k: int, weights: DecodeWeights, beam: int = 1):
+        """`step_topk` with the step's hidden state: (cand_log_probs,
+        cand_ids, hidden [B*beam, D]), the hidden state what the pointer
+        family's heads read."""
         x = self._step_layers(token_t, step_idx, kvs, caches, weights, beam)
-        return self.adaptive_softmax.topk_log_prob(
+        v, ids = self.adaptive_softmax.topk_log_prob(
             x, k, self.embedder.embed_tables(), weights.head_table)
+        return v, ids, x
 
     def step_chunk(self, tokens: torch.Tensor, pos: torch.Tensor,
                    kvs: List[LayerKV], caches: List[torch.Tensor],
@@ -457,19 +490,21 @@ class DynamicConvDecoder(nn.Module):
         take its last row: only a chunk's tail reaches there, whose
         outputs are never committed."""
         pos = _positions(pos)
-        offsets = torch.arange(tokens.shape[1], device=pos.device)
+        k = tokens.shape[1]
+        offsets = torch.arange(k, device=pos.device)
         start = (pos[:, None] + offsets).clamp(max=self.max_positions)
-        x = self.embedder(tokens, start_pos=start - offsets)
+        # The embedding's product position by position, as a step's.
+        x = torch.cat([self.embedder(tokens[:, j:j + 1],
+                                     start_pos=start[:, j:j + 1])
+                       for j in range(k)], dim=1)
         hs = []
         for layer, kv, cache, w in zip(self.layers, kvs, caches,
                                        weights.layers):
             x, h = layer.chunk(x, kv, cache, pos, w)
             hs.append(h)
-        B, k, D = x.shape
         v, ids = self.adaptive_softmax.topk_log_prob(
-            x.reshape(B * k, D), 1, self.embedder.embed_tables(),
-            weights.head_table)
-        return v.view(B, k), ids.view(B, k), x, hs
+            x, 1, self.embedder.embed_tables(), weights.head_table)
+        return v[..., 0], ids[..., 0], x, hs
 
     def step_with_hidden(self, token_t: torch.Tensor, step_idx: int,
                          kvs: List[LayerKV], caches: List[torch.Tensor],

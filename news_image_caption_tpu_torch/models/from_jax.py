@@ -2,8 +2,10 @@
 
 `params_from_jax(tree, module)` maps a JAX/flax parameter tree (numpy
 leaves, flax names such as `layers_0/image_attn/k_proj/kernel`) onto
-the state dict of the port's `DynamicConvDecoder`, whose parameter
-names mirror the flax tree (`layers.0.image_attn.k_proj.kernel`).
+the state dict of a port module whose parameter names mirror the flax
+tree (`layers.0.image_attn.k_proj.kernel`): the `DynamicConvDecoder`,
+the LSTM captioner (`cells_0.ih.kernel`, `h0_0`) and the Gen-2
+transformer (`layers.0.norm_0.a_2`, `embed.embedding`).
 Kernels are (in, out) in both packages, so no leaf is transposed: the
 copy head's raw `q_proj_weight` [E, E] and `k_proj_weight` [kdim, E]
 are used as `x @ W` in both too. A pointer's variables
@@ -13,8 +15,9 @@ the captioner's under `decoder.`.
 
 `state_from_jax(tree, state)` carries a whole JAX `TrainState` (as
 flax's state dict) into the port's `training/train_step.py::TrainState`:
-the step, the params, the O2 master and the BertAdam chain's moments and
-count, so a run resumed in the port continues JAX's trajectory.
+the step, the params, the O2 master and the optimizer chain's Adam
+moments and count (BertAdam's, or Noam's `scale_by_adam` and schedule),
+so a run resumed in the port continues JAX's trajectory.
 
 `load_npz(path)` reads the `.npz` layout of the reference server
 (`news_image_caption_tpu/serving/worker.py::unflatten_params`):
@@ -99,15 +102,16 @@ def _mapped(tree: Mapping[str, Any],
     return {k: to_tensor(mapped[k]) for k in expected}
 
 
-def _bert_adam_from_jax(chain: Mapping[str, Any], expected):
-    """The port's BertAdam state dict from optax's chain state (clip ->
-    adam without bias correction -> decayed weights -> learning rate):
-    the adam stage's moments, the learning-rate stage's count."""
+def _adam_from_jax(chain: Mapping[str, Any], expected):
+    """The port's Adam state dict (count, mu, nu) from optax's chain
+    state, BertAdam's (clip -> adam without bias correction -> decayed
+    weights -> learning rate) or Noam's (scale_by_adam -> learning
+    rate): the adam stage's moments, the learning-rate stage's count."""
     stages = [chain[k] for k in sorted(chain, key=int)]
     adam = [s for s in stages if set(s) == {"count", "mu", "nu"}]
     counts = [s for s in stages if set(s) == {"count"}]
     if len(adam) != 1 or not counts:
-        raise ValueError("state_from_jax: opt_state is not a BertAdam chain "
+        raise ValueError("state_from_jax: opt_state is not an Adam chain "
                          f"(stages {[sorted(s) for s in stages]})")
     return {"count": int(np.asarray(counts[-1]["count"])),
             "mu": _mapped(adam[0]["mu"], expected),
@@ -124,9 +128,9 @@ def state_from_jax(tree: Mapping[str, Any], state):
     opt = tree["opt_state"]
     if set(opt) == {"master", "inner"}:
         opt_state = {"master": _mapped(opt["master"], expected),
-                     "inner": _bert_adam_from_jax(opt["inner"], expected)}
+                     "inner": _adam_from_jax(opt["inner"], expected)}
     else:
-        opt_state = _bert_adam_from_jax(opt, expected)
+        opt_state = _adam_from_jax(opt, expected)
     state.load_state_dict({"step": int(np.asarray(tree["step"])),
                            "params": _mapped(tree["params"], expected),
                            "opt_state": opt_state})

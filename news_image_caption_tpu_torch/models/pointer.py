@@ -23,16 +23,18 @@ trains the heads only) and `use_entity_head=False`
 decoder alone).
 
 Decoding: `generate` (greedy or top-k sampled) steps the decoder through
-`step_with_hidden`, the full-vocab head in the compute dtype, as the
-reference does; `generate_speculative` and the slot pool
-(`generation/continuous.py::ContinuousBatcher.for_pointer`) run
-`pointer_chunk` / `pointer_commit` over `step_chunk_with_hidden`, the
-banded top-1. Every selection is `stable_topk` (ties to the lowest id,
-the `lax.top_k` rule) and the gate compares its two logits (ties say
-"generate", as `argmax` does). `copy_distribution` scatters each
-position's summed mass over the positions holding its id rather than
-adding duplicates with atomics, so a second call on the card is
-bit-equal. The heads are plain PyTorch operations on either device.
+`step_topk_with_hidden`, the generated candidates the exact top-k of the
+adaptive-softmax bands (`band_topk_lse` on the card), where the
+reference takes them from full-vocab log-probs; `generate_speculative`
+and the slot pool (`generation/continuous.py::ContinuousBatcher.
+for_pointer`) run `pointer_chunk` / `pointer_commit` over
+`step_chunk_with_hidden`, the banded top-1, so greedy and speculative
+take their tokens from the same head. Every selection is `stable_topk`
+(ties to the lowest id, the `lax.top_k` rule) and the gate compares its
+two logits (ties say "generate", as `argmax` does). `copy_distribution`
+scatters each position's summed mass over the positions holding its id
+rather than adding duplicates with atomics, so a second call on the card
+is bit-equal. The heads are plain PyTorch operations on either device.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from news_image_caption_tpu_torch.ops.band_topk import stable_topk
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      LayerNorm, initializes,
-                                                     new_param)
+                                                     new_param, positionwise)
 
 NEG = -1e9
 
@@ -120,39 +122,42 @@ class EntitySelfAttention(nn.Module):
         return (torch.zeros(shape, device=device, dtype=dtype),
                 torch.zeros(shape, device=device, dtype=dtype))
 
-    def step(self, x_t: torch.Tensor, pos: int,
-             cache: EntityCache) -> torch.Tensor:
-        """x_t [B, E] at position pos: its K/V written into row pos of
-        the cache in place, rows < pos attended. Returns [B, E] fp32."""
+    def step(self, x_t: torch.Tensor, pos, cache: EntityCache,
+             row=None) -> torch.Tensor:
+        """x_t [B, E] at position pos (an int, or each row's [B]
+        tensor): its K/V written into cache row `row` (default pos) in
+        place, rows < pos attended. Returns [B, E] fp32."""
         k_c, v_c = cache
         q, k, v = self._qkv(x_t[:, None])
-        k_c[:, pos] = k[:, 0].to(k_c.dtype)
-        v_c[:, pos] = v[:, 0].to(v_c.dtype)
-        valid = torch.arange(k_c.shape[1], device=x_t.device) < pos
+        slots = torch.arange(k_c.shape[1], device=x_t.device)
+        if isinstance(pos, torch.Tensor):
+            rows = torch.arange(x_t.shape[0], device=x_t.device)
+            row = pos.long() if row is None else row
+            k_c[rows, row] = k[:, 0].to(k_c.dtype)
+            v_c[rows, row] = v[:, 0].to(v_c.dtype)
+            valid = (slots[None, :] < pos.long()[:, None])[:, None, None]
+        else:
+            k_c[:, pos] = k[:, 0].to(k_c.dtype)
+            v_c[:, pos] = v[:, 0].to(v_c.dtype)
+            valid = slots < pos
         return self._attend(x_t[:, None], q, k_c, v_c, valid)[:, 0]
 
     def chunk(self, x_c: torch.Tensor, pos: torch.Tensor,
               cache: EntityCache) -> torch.Tensor:
-        """k positions of each row at once (speculative verification):
-        x_c [B, k, E], pos [B] the position of x_c[:, 0]. The k K/V rows
-        are written at pos..pos+k-1 in place (a window past the cache's
-        end moved back inside it, as `dynamic_update_slice` moves it);
-        position pos+j attends rows < pos+j, so output j is j+1
-        sequential `step`s'. Rows past a row's committed frontier are
-        never attended and the next chunk overwrites them, so a partial
-        commit needs no rewind. Returns [B, k, E] fp32."""
-        k_c, v_c = cache
+        """k positions of each row (speculative verification): x_c
+        [B, k, E], pos [B] the position of x_c[:, 0]; output j is the
+        `step` of x_c[:, j] at pos + j, its K/V written into cache row
+        start + j in place, start = pos moved back so that the window
+        stays inside the cache (as `dynamic_update_slice` moves it).
+        Rows past a row's committed frontier are never attended and the
+        next chunk overwrites them, so a partial commit needs no rewind.
+        The steps run one position after the other at a step's shapes,
+        so each sums as `step` does. Returns [B, k, E] fp32."""
         B, k, _ = x_c.shape
-        S = k_c.shape[1]
-        q, kn, vn = self._qkv(x_c)
-        offs = torch.arange(k, device=x_c.device)
-        start = pos.long().clamp(0, S - k)
-        rows = torch.arange(B, device=x_c.device)[:, None]
-        k_c[rows, start[:, None] + offs] = kn.to(k_c.dtype)
-        v_c[rows, start[:, None] + offs] = vn.to(v_c.dtype)
-        limit = pos.long()[:, None] + offs                      # [B, k]
-        valid = torch.arange(S, device=x_c.device) < limit[:, :, None]
-        return self._attend(x_c, q, k_c, v_c, valid[:, None])
+        start = pos.long().clamp(0, cache[0].shape[1] - k)
+        return torch.stack([self.step(x_c[:, j].contiguous(), pos.long() + j,
+                                      cache, row=start + j)
+                            for j in range(k)], dim=1)
 
 
 class CopyAttentionScores(nn.Module):
@@ -301,6 +306,10 @@ class TransformerPointer(nn.Module):
     def _check_max_len(self, config: GenerationConfig) -> None:
         self.captioner._check_max_len(config)
 
+    def decode_weights(self) -> DecodeWeights:
+        """The decoder's fused decode weights; compute once per load."""
+        return self.decoder.decode_weights()
+
     @staticmethod
     def load_pretrained_captioner(state: Dict[str, torch.Tensor],
                                   captioner_state: Dict[str, torch.Tensor]
@@ -434,7 +443,7 @@ class TransformerPointer(nn.Module):
         A step's gate reads the entity self-attention of the hidden
         states so far; the copy candidate is drawn from the top-k of the
         copy distribution (its first at top-1), the generated token from
-        the top-k of the full-vocab log-probs / temp. Copying is
+        the exact top-k of the banded log-probs / temp. Copying is
         suppressed where any of the top-k copy probabilities is under
         1e-6 or the candidate was copied before (no re-ranking). A
         copied eos drops its flag. Sampling draws, each step, the copy
@@ -469,11 +478,11 @@ class TransformerPointer(nn.Module):
         for i in range(L):
             if config.early_exit and bool(finished.all()):
                 break
-            lp, h = self.decoder.step_with_hidden(cur, i, kvs, conv, weights)
+            gen_lp, gen_ids, h = self.decoder.step_topk_with_hidden(
+                cur, i, kvs, conv, k, weights)
             want = self._wants_copy(self.entity_attn.step(h, i, e_cache))
             copy_p, copy_ids = (t[:, 0] for t in self._copy_candidates(
                 h[:, None], tree, k))
-            gen_lp, gen_ids = stable_topk(lp, k)
             gen_lp = gen_lp / config.sampling_temp
             if k == 1:
                 copy_tok, gen_tok = copy_ids[:, 0], gen_ids[:, 0]
@@ -508,9 +517,13 @@ class TransformerPointer(nn.Module):
         conv, e_cache, copied = caches
         lp, gen_ids, h, hs = self.decoder.step_chunk_with_hidden(
             tokens, pos, tree["kvs"], conv, weights)
-        want = self._wants_copy(self.entity_attn.chunk(h, pos, e_cache))
-        copy_p, copy_tok = (t[..., 0] for t in self._copy_candidates(
-            h, tree, 1))
+        # The heads position by position, at a greedy step's shapes.
+        want = positionwise(self._wants_copy,
+                            self.entity_attn.chunk(h, pos, e_cache))
+        cands = [self._copy_candidates(h[:, j:j + 1].contiguous(), tree, 1)
+                 for j in range(h.shape[1])]
+        copy_p = torch.cat([p for p, _ in cands], dim=1)[..., 0]
+        copy_tok = torch.cat([t for _, t in cands], dim=1)[..., 0]
         gate_pre = want & (copy_p >= 1e-6)
         rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
         committed = copied[rows, copy_tok]                    # [B, k]

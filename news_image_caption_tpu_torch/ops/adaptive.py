@@ -19,7 +19,8 @@ from torch import nn
 
 from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
                                                         stable_topk)
-from news_image_caption_tpu_torch.ops.linear import initializes, new_param
+from news_image_caption_tpu_torch.ops.linear import (initializes, new_param,
+                                                     positionwise)
 
 
 def band_ranges(cutoff: Sequence[int]) -> List[Tuple[int, int]]:
@@ -173,21 +174,33 @@ class AdaptiveSoftmax(nn.Module):
     def topk_log_prob(self, x, k: int, embed_tables, head_table=None):
         """Exact top-k full-vocab log-probs without the [N, V] matrix:
         per band the kernel's top-k and logsumexp, tails shifted by
-        their class prior, then a (bands * k)-wide merge. Returns
-        (log_probs [N, k] fp32, token_ids [N, k] int64), best first."""
+        their class prior, then a (bands * k)-wide merge. x [N, D];
+        or [B, n, D], a decode chunk's n positions a row, whose products
+        (class slots, tail projections) run position by position at a
+        step's shapes (`positionwise`) and whose bands' kernels take all
+        B*n rows at once. Returns (log_probs [..., k] fp32, token_ids
+        [..., k] int64), best first."""
         c0 = self.cutoff[0]
+        lead = x.shape[:-1]
         if head_table is None:
             head_table = self.head_table(embed_tables, x.dtype)
-        hv, hi, lse_h = band_topk_lse(x, head_table, k, sel_limit=c0)
+
+        def rows(fn):
+            y = positionwise(fn, x) if x.dim() == 3 else fn(x)
+            return y.reshape(-1, y.shape[-1])
+
+        flat = x.reshape(-1, x.shape[-1])
+        hv, hi, lse_h = band_topk_lse(flat, head_table, k, sel_limit=c0)
         # Class-slot logits at the kernel's rounding point (x's dtype).
-        cls = (x @ self.class_proj.to(x.dtype)).float()
+        cls = rows(lambda r: r @ self.class_proj.to(r.dtype)).float()
         vals, ids = [hv - lse_h], [hi]
         for i in range(1, len(self.cutoff)):
-            h = self.tail_hidden(x, i)
+            h = rows(lambda r: self.tail_hidden(r, i))
             tv, ti, lse_t = band_topk_lse(h, embed_tables[i][0].to(h.dtype),
                                           k)
             prior = cls[:, i - 1:i] - lse_h
             vals.append(tv - lse_t + prior)
             ids.append(ti + self.cutoff[i - 1])
         v, j = stable_topk(torch.cat(vals, dim=-1), k)
-        return v, torch.gather(torch.cat(ids, dim=-1).long(), -1, j)
+        ids = torch.gather(torch.cat(ids, dim=-1).long(), -1, j)
+        return v.view(*lead, k), ids.view(*lead, k)

@@ -3,11 +3,11 @@
 Counterpart of `news_image_caption_tpu/ops/attention.py`
 (MultiHeadAttention: `precompute_kv`, the plain full-sequence
 `attend` with its flash route and its head-averaged weights, and
-`attend_flat_beam`). Context K/V are projected once per request and kept
-flat, [B, S', E] with S' = S + 2 (the learned bias_k / bias_v slot and
-the zero slot), beside an additive fp32 key bias
-[B, S'] (0 attendable, -1e9 padded): the input layout of
-`decode_cross_attention`.
+`attend_flat_beam`; `attend_chunk`, a decode chunk's k positions a
+row). Context K/V are projected once per request and kept flat,
+[B, S', E] with S' = S + 2 (the learned bias_k / bias_v slot and the
+zero slot), beside an additive fp32 key bias [B, S'] (0 attendable,
+-1e9 padded): the input layout of `decode_cross_attention`.
 """
 
 from __future__ import annotations
@@ -24,9 +24,23 @@ from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.flash_attention import \
     flash_cross_attention
 from news_image_caption_tpu_torch.ops.linear import (XavierLinear,
-                                                     initializes, new_param)
+                                                     initializes, new_param,
+                                                     positionwise)
 
 NEG_INF = -1e9
+
+
+def attend_positions(q_proj, out_proj, num_heads: int, query: torch.Tensor,
+                     kv: AttentionKV) -> torch.Tensor:
+    """Decode attention of k positions a row, query [B, k, E] over kv of
+    the batch B: `decode_cross_attention` takes a row's k positions at
+    once (Q = k), the projections run position by position at a step's
+    shapes (`positionwise`), the query scaled by head_dim**-0.5 before
+    the kernel. Returns [B, k, E]."""
+    scale = (query.shape[-1] // num_heads) ** -0.5
+    q = positionwise(lambda r: q_proj(r) * scale, query)
+    out = decode_cross_attention(q, kv.k, kv.v, kv.bias, num_heads)
+    return positionwise(out_proj, out)
 
 
 class AttentionKV(NamedTuple):
@@ -124,6 +138,13 @@ class MultiHeadAttention(nn.Module):
         out = torch.einsum("bhts,bshd->bthd", probs, kv.v.view(B, S, H, hd))
         out = self.out_proj(out.reshape(B, T, self.embed_dim))
         return (out, weights) if need_weights else out
+
+    def attend_chunk(self, query: torch.Tensor, kv: AttentionKV
+                     ) -> torch.Tensor:
+        """`attend_positions` through this attention's projections: each
+        position sums as `attend_flat_beam` at beam 1 does."""
+        return attend_positions(self.q_proj, self.out_proj, self.num_heads,
+                                query, kv)
 
     def attend_flat_beam(self, query: torch.Tensor, kv: AttentionKV,
                          beam: int) -> torch.Tensor:

@@ -25,6 +25,16 @@ def fold_weight_norm(v: torch.Tensor, g: torch.Tensor,
     return w.to(dtype or v.dtype)
 
 
+def positionwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn over each position of x [B, k, ...], one contiguous [B, ...]
+    slice at a time, stacked back along dim 1: a decode chunk's k
+    positions computed at a single step's shapes, so that its products
+    sum as the step's do (a library product may pick another algorithm,
+    and so another order of its sums, at another row count)."""
+    return torch.stack([fn(x[:, j].contiguous()) for j in range(x.shape[1])],
+                       dim=1)
+
+
 def new_param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
@@ -62,20 +72,24 @@ class GehringLinear(nn.Module):
 
     The per-output scale is applied in the epilogue,
     (x @ kernel) * s, as the reference does; decode folds it into the
-    kernel once per model load (`folded`).
+    kernel once per model load (`folded`). weight_norm=False is a plain
+    `kernel` and `bias` with the same init.
     """
 
     def __init__(self, in_features: int, features: int, *, device, dtype,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 weight_norm: bool = True):
         super().__init__()
         self.kernel = new_param((in_features, features), device, dtype)
-        self.scale = new_param((features,), device, dtype)
+        self.scale = (new_param((features,), device, dtype) if weight_norm
+                      else None)
         self.bias = new_param((features,), device, dtype)
         if initializes(device):
             with torch.no_grad():
                 self.kernel.normal_(0.0, math.sqrt(1.0 / in_features),
                                     generator=generator)
-                self.scale.copy_(self.kernel.float().norm(dim=0))
+                if weight_norm:
+                    self.scale.copy_(self.kernel.float().norm(dim=0))
                 self.bias.zero_()
 
     def _norm_scale(self) -> torch.Tensor:
@@ -85,13 +99,15 @@ class GehringLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel.to(x.dtype)
-        y = y * self._norm_scale().to(x.dtype)
+        if self.scale is not None:
+            y = y * self._norm_scale().to(x.dtype)
         return y + self.bias.to(x.dtype)
 
     def folded(self, dtype: torch.dtype):
         """(kernel with the weight norm folded in, bias), in `dtype`."""
-        return (fold_weight_norm(self.kernel, self.scale, dtype),
-                self.bias.to(dtype))
+        kernel = (self.kernel.to(dtype) if self.scale is None
+                  else fold_weight_norm(self.kernel, self.scale, dtype))
+        return kernel, self.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):

@@ -1,7 +1,7 @@
 """Pad-aware sinusoidal positional embeddings.
 
-Counterpart of `news_image_caption_tpu/ops/positional.py` (the
-sinusoidal embedder only).
+Counterpart of `news_image_caption_tpu/ops/positional.py`: the
+sinusoidal embedder, and the Gen-2 family's `interleaved_sinusoidal_table`.
 """
 
 from __future__ import annotations
@@ -39,6 +39,18 @@ def sinusoidal_table(n_embeds: int, embed_dim: int,
     if padding_idx is not None:
         signal[padding_idx, :] = 0
     return signal.astype(np.float32)
+
+
+def interleaved_sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
+    """Annotated-Transformer layout, pe[:, 0::2] = sin and pe[:, 1::2] =
+    cos; positions from 0, no padding row (the Gen-2 family)."""
+    pe = np.zeros((max_len, d_model))
+    position = np.arange(max_len)[:, None].astype(np.float64)
+    div_term = np.exp(np.arange(0, d_model, 2)
+                      * -(math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe.astype(np.float32)
 
 
 class SinusoidalPositionalEmbedding(nn.Module):

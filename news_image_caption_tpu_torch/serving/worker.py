@@ -25,8 +25,8 @@ done; a job may carry its own `max_len` and, for top-k sampling
 
 What the port does not have raises before any model is built, naming
 its ROADMAP Queue 1 item: int8 context K/V and int8 head tables (item
-7b), and the detection pipeline of `full_model_builder` (items 9 and
-10b); serving a pointer model waits for it, as in the reference.
+7b), and the detection pipeline of `full_model_builder` (item 9b);
+serving a pointer model waits for it, as in the reference.
 """
 
 from __future__ import annotations
@@ -380,7 +380,7 @@ def full_model_builder(*args, **kwargs):
     YOLOv3, ResNet upstream of the captioner) is not ported."""
     raise NotImplementedError(
         "full_model_builder: face and object detection and the image "
-        "encoders are not ported yet (ROADMAP Queue 1 items 9 and 10b)")
+        "encoders are not ported yet (ROADMAP Queue 1 item 9b)")
 
 
 def decode_launches() -> Dict[str, int]:

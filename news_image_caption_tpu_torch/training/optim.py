@@ -1,15 +1,20 @@
-"""BertAdam and its warmup-linear schedule.
+"""BertAdam and its warmup-linear schedule; Noam's Adam.
 
 Counterpart of `news_image_caption_tpu/training/optim.py::bert_adam`
 and `warmup_linear_schedule` (the flagship's optimizer): each tensor's
 gradient clipped to `max_grad_norm` by its own norm (not the global
 norm), Adam moments without bias correction, decoupled weight decay
-added to the update, the update scaled by -lr(n).
+added to the update, the update scaled by -lr(n). And of `noam_adam`
+and `noam_schedule` (the Gen-2 family's): optax's `scale_by_adam` (bias
+correction, b1 0.9, b2 0.98, eps 1e-9, no decay, no clipping) scaled by
+-lr(n), lr(n) = factor * model_size^-0.5 * min(s^-0.5, s *
+warmup^-1.5) with s = max(n, 1).
 
 As in optax's `scale_by_learning_rate`, n counts the updates applied so
 far, starting at 0: lr(0) = 0 under the warmup, so the first update
-moves no weight. A skipped step (the train step's non-finite guard)
-does not call `apply`, so neither n nor the moments advance.
+moves no weight (Noam's s = max(n, 1) makes its first two updates' rates
+equal). A skipped step (the train step's non-finite guard) does not
+call `apply`, so neither n nor the moments advance.
 
 The update runs in place on fp32 master tensors, with `torch._foreach`
 ops (a few launches for all tensors rather than several per tensor).
@@ -123,6 +128,58 @@ def make_bert_adam(lr: float, t_total: int, warmup: float = 0.05,
     return BertAdam(warmup_linear_schedule(lr, t_total, warmup), **kw)
 
 
+def noam_schedule(model_size: int, factor: float = 1.0, warmup: int = 30000
+                  ) -> Callable[[int], float]:
+    """The Annotated Transformer's rate at update count n, in float32 as
+    the reference's jitted step computes it."""
+    f32 = np.float32
+    scale = f32(factor * model_size ** -0.5)
+    slope = f32(warmup ** -1.5)
+
+    def schedule(step: int) -> float:
+        s = f32(max(step, 1))
+        return float(scale * min(s ** f32(-0.5), s * slope))
+
+    return schedule
+
+
+class NoamAdam:
+    """optax `chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(
+    noam_schedule))`: Adam with bias correction at update t = n + 1, the
+    rate read at n. `init` / `apply` as `BertAdam`'s, over the same
+    state (count, mu, nu)."""
+
+    def __init__(self, model_size: int, factor: float = 1.0,
+                 warmup: int = 30000, b1: float = 0.9, b2: float = 0.98,
+                 eps: float = 1e-9):
+        self.lr_schedule = noam_schedule(model_size, factor, warmup)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, master: List[torch.Tensor]) -> BertAdamState:
+        return BertAdamState(count=0,
+                             mu=[torch.zeros_like(p) for p in master],
+                             nu=[torch.zeros_like(p) for p in master])
+
+    def apply(self, grads: List[torch.Tensor], state: BertAdamState,
+              master: List[torch.Tensor]) -> None:
+        lr = self.lr_schedule(state.count)
+        t = np.float32(state.count + 1)
+        f32 = np.float32
+        bc1 = float(f32(1) - f32(self.b1) ** t)
+        bc2 = float(f32(1) - f32(self.b2) ** t)
+        torch._foreach_mul_(state.mu, self.b1)
+        torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(state.nu, self.b2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(state.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        updates = torch._foreach_div(state.mu, bc1)
+        torch._foreach_div_(updates, denom)
+        torch._foreach_add_(master, updates, alpha=-lr)
+        state.count += 1
+
+
 @dataclass
 class MultiStepsState:
     mini_step: int                   # micro-batches in the open window
@@ -157,7 +214,7 @@ class MultiSteps:
     parameters (and advances its own count) once a window, and clears
     the mean. In between, the parameters stay as they are."""
 
-    def __init__(self, inner: BertAdam, every: int):
+    def __init__(self, inner, every: int):
         self.inner = inner
         self.every = every
 
@@ -182,7 +239,7 @@ class MultiSteps:
         state.gradient_step += 1
 
 
-def accumulate_gradients(tx: BertAdam, every: int):
+def accumulate_gradients(tx, every: int):
     """Average gradients over `every` micro-batches and apply `tx` once
     a window; every <= 1 is `tx` itself."""
     if every <= 1:

@@ -308,8 +308,15 @@ def test_engine_constructor_validation(setup):
 
 @pytest.mark.parametrize("name", ["for_tgnc", "for_gen2"])
 def test_other_families_raise_naming_item_10(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
-        getattr(ContinuousBatcher, name)(None, None, 2)
+    """TGNC's engine is not ported (item 10b); Gen-2's is, and refuses
+    sampling as the reference's does."""
+    if name == "for_tgnc":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+            ContinuousBatcher.for_tgnc(None, None, 2)
+        return
+    with pytest.raises(ValueError, match="greedy-only"):
+        ContinuousBatcher.for_gen2(
+            None, GenerationConfig(max_len=4, sampling_topk=3), 2)
 
 
 # -- the toy's builders and the serve command -----------------------------

@@ -170,7 +170,7 @@ def test_random_init_command_runs(tmp_path, capsys):
     ("evaluate", {"model": {"decoder": {"normalize_before": True}}}, [], "8"),
     ("evaluate", {"model": {"type": "tgnc"}}, [], "10b"),
     ("evaluate", {"model": {"type": "gen3_pipeline"}}, [], "9"),
-    ("train", {"trainer": {"optimizer": {"type": "noam"}}}, [], "10b"),
+    ("train", {"trainer": {"optimizer": {"type": "gen1_adam"}}}, [], "10b"),
     ("train", {"trainer": {"profile_steps": 3}}, [], "5b"),
     ("train", {"trainer": {"mesh": {"data": -1, "model": 1}}}, [], "11"),
     ("train", {"trainer": {"distributed": True}}, [], "11"),

@@ -79,6 +79,12 @@ POINTER_FAMILY = [
     "configs/goodnews/transformer_pointer.yaml",
     "configs/nytimes/copy_fix.yaml", "configs/nytimes/copy_loss.yaml",
     "configs/nytimes/transformer_copying.yaml", "configs/tiny_pointer.yaml"]
+# The LSTM and Gen-2 families (tests/test_torch_lstm_gen2_cli.py).
+LSTM_GEN2_FAMILIES = [
+    "configs/goodnews/baseline_glove_lstm.yaml",
+    "configs/goodnews/gen2_roberta.yaml", "configs/goodnews/gen2_word.yaml",
+    "configs/goodnews/lstm_roberta.yaml", "configs/nytimes/lstm_glove.yaml",
+    "configs/nytimes/lstm_roberta.yaml"]
 # Widths that make any transformer_flattened config a small model.
 NARROW = dict(vocab_size=64, cutoff=[16, 32, 64], embed_dim=16, ffn_dim=32,
               num_heads=4, image_dim=16, article_dim=12, max_positions=64)
@@ -407,7 +413,8 @@ def test_build_model_decodes_narrowed_on_the_cpu(path):
 
 
 @pytest.mark.parametrize("path", sorted(set(CONFIGS) - set(FLATTENED)
-                                        - set(POINTER_FAMILY)))
+                                        - set(POINTER_FAMILY)
+                                        - set(LSTM_GEN2_FAMILIES)))
 def test_build_model_raises_for_models_not_ported(path):
     cfg = config.load_config(str(REPO / path))
     with pytest.raises(NotImplementedError,

@@ -418,7 +418,7 @@ def test_toy_refuses_the_card():
 
 
 def test_full_model_builder_raises():
-    with pytest.raises(NotImplementedError, match="items 9 and 10"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\)"):
         worker.full_model_builder(use_faces=False)
 
 

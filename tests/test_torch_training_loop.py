@@ -449,11 +449,20 @@ def test_build_optimizer_reads_the_references_keys():
                                                           1.0}}})
     with pytest.raises(ValueError, match="learning_rate"):
         build_optimizer(bad)
-    for otype in ("noam", "gen1_adam"):
-        other = merge_overrides(cfg, {"trainer": {"optimizer": {
-            "type": otype}}})
-        with pytest.raises(NotImplementedError, match="item 10"):
-            build_optimizer(other)
+    other = merge_overrides(cfg, {"trainer": {"optimizer": {
+        "type": "gen1_adam"}}})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build_optimizer(other)
+    noam = {"trainer": {"optimizer": {"type": "noam", "model_size": 512,
+                                      "warmup": 300}}}
+    tx = build_optimizer(noam)
+    nsched = jax.jit(jax_optim.noam_schedule(512, 1.0, 300))
+    for n in (0, 1, 2, 299, 300, 5000):
+        np.testing.assert_allclose(tx.lr_schedule(n),
+                                   float(nsched(jnp.int32(n))), rtol=1e-6)
+    with pytest.raises(ValueError, match="lr"):
+        build_optimizer(merge_overrides(noam, {"trainer": {"optimizer": {
+            "lr": 1.0}}}))
 
 
 def test_train_without_card_raises(tmp_path, monkeypatch):
