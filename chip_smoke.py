@@ -197,6 +197,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      with 16 slots and the 32 test requests in two waves (caps 8 to 32),
      each request its row of `generate` over the wave at 16 rows (K/V
      projected a request) (the `gen2` JSON line).
+  15. the online pipeline (`models/pipeline.py`: frozen ResNet-152 and
+     RoBERTa-large, the 25-layer weighted sum, the flagship's decoder):
+     the train command on `configs/goodnews/transformer_weighted_roberta.
+     yaml` (bf16) at full width and depth with phase 8's cuts, from the
+     synthetic set's raw uint8 images at 224, no kernel launched, every
+     logged loss finite, none skipped; the frozen encoders bit-equal
+     before and after, `bert_weight` moved, the decoded checkpoint's
+     encoders the same values in bf16; `evaluate -m best` greedy on 32
+     records, 3 / 8 / 4 / 4 launches a step, every record the in-process
+     decode; step 0 against the CPU's plain path on the card's contexts;
+     one B=16 greedy batch from seeded random weights: the device ms
+     (CUDA events) of the encode's preprocessing, ResNet, RoBERTa and
+     weighted sum, the costliest kernels of ResNet, RoBERTa and the
+     encode (profiler), a RoBERTa layer's attention by part beside
+     PyTorch's fused attention, the device ms of a decode step and the
+     busy share of the batch;
+     one B=16 batch of `configs/nytimes/transformer_weighted_roberta.
+     yaml` (the `pipeline` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -3317,7 +3335,10 @@ GEN2_WARMUP = 400
 def family_launches_a_step(family: str) -> dict:
     """A greedy step's (or a Gen-2 chunk's) launches: the LSTM's tied
     adaptive head, one band call a band (3); Gen-2's folded head (1
-    band) and the image and the article attention of each layer (6)."""
+    band) and the image and the article attention of each layer (6); the
+    pipeline's, the flagship decoder's (3 / 8 / 4 / 4)."""
+    if family == "pipeline":
+        return greedy_launches_a_step()
     out = dict.fromkeys(("band_topk_lse", "decode_cross_attention",
                          "decode_conv_block", "decode_ffn_block"), 0)
     if family == "lstm":
@@ -3684,6 +3705,234 @@ def gen2_phase(torch, flash, counted):
 
 
 
+# -- phase 15: the online pipeline --------------------------------------------
+
+PIPELINE_CONFIG = "configs/goodnews/transformer_weighted_roberta.yaml"
+PIPELINE_OTHER = "configs/nytimes/transformer_weighted_roberta.yaml"
+
+
+def pipeline_vs_plain(torch, model, batch, what: str) -> dict:
+    """Step 0 of 4 rows on the card against the decoder's plain path on
+    the CPU (bf16) over the same contexts, the card's encode of the raw
+    images and article ids: the top-5 log-probs within 0.1 of the plain
+    path's full-vocab top-5, and the plain log-prob of each id the card
+    chose within 0.1 of the card's (phase 13's tolerances)."""
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    rows = {k: v[:4] for k, v in batch.items()}
+    cfg = GenerationConfig(max_len=1)
+    cpu = TransformerFlattened(decoder=copy.deepcopy(model.decoder).to("cpu"))
+    with torch.inference_mode():
+        ctx = model.encode(rows)
+        kvs, caches, seed, w = model.captioner._decode_setup(
+            ctx, cfg, model.decode_weights(), 1)
+        v_k, i_k = (t.cpu() for t in model.decoder.step_topk(
+            seed, 0, kvs, caches, 5, w))
+        kvs, caches, seed, w = cpu._decode_setup(
+            {k: v.cpu() for k, v in ctx.items()}, cfg, None, 1)
+        lp = cpu.decoder.step(seed, 0, kvs, caches, w).float()
+    v_p, i_p = torch.topk(lp, 5, dim=-1)
+    e0 = (v_k - v_p).abs().max().item()
+    e_ids = (v_k - lp.gather(1, i_k)).abs().max().item()
+    agree = (i_k == i_p).float().mean().item()
+    print(f"  {what}: step 0 on 4 rows, kernel vs plain path on the CPU"
+          f" (the card's contexts): top-5 log-probs max |diff| {e0:.4g} (tol"
+          f" 0.1), the plain log-prob of the card's ids max |diff|"
+          f" {e_ids:.4g} (tol 0.1), ids equal {agree:.3f}", flush=True)
+    check(e0 <= 0.1 and e_ids <= 0.1, f"{what}: step 0 of the kernel and"
+          " plain paths differ")
+    return {"step0_max_abs_diff": e0, "step0_card_ids_max_abs_diff": e_ids,
+            "step0_ids_equal": agree}
+
+
+def pipeline_batch(torch, counted, path: str, generator_seed: int = 0):
+    """`path`'s model from seeded random weights in bf16 and its first
+    B=16 test batch, greedy at max_len 32: tokens checked, launches 3 /
+    8 / 4 / 4 a step, a second call bit-equal. Returns (model, batch,
+    generation config, weights, launches, summary)."""
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import build_model, load_config
+    cfg = load_config(path, json.dumps({"dataset": {"test": {"size": 16}}}))
+    model = build_model(cfg, "cuda", torch.bfloat16, torch.Generator(
+        device="cuda").manual_seed(generator_seed))
+    model.eval()
+    batch = staged_batches(torch, cfg, "test", 16)[0][0]
+    batch = {k: batch[k] for k in model.context_keys}
+    w = model.decode_weights()
+    cfg32 = dataclasses.replace(cli.generation_config(cfg), max_len=32)
+    (tok, _), n, secs = counted_run(counted, lambda: model.generate(
+        batch, cfg32, w))
+    again, _ = model.generate(batch, cfg32, w)
+    check(torch.equal(tok, again), f"{path}: a second greedy call differs")
+    tok_np = tok.cpu().numpy()
+    check_tokens(tok_np, 16, cfg32, cfg["model"]["decoder"]["vocab_size"])
+    steps = decode_steps(tok_np, cfg32.eos_id, cfg32.max_len)
+    check_launches(path, n, greedy_launches_a_step(), steps)
+    print(f"  {path}: random weights, greedy B=16, {steps} steps,"
+          f" {secs:.2f} s", flush=True)
+    return model, batch, cfg32, w, n, {"config": path, "steps": steps,
+                                       "wall_s": secs, "launches": n}
+
+
+def top_device_kernels(torch, fn, n: int = 8) -> dict:
+    """The device time of one fn() under torch.profiler and its `n`
+    costliest kernels: (name cut to 70 characters, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")),
+                  key=lambda e: -e.self_device_time_total)
+    return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+                    for e in rows[:n]]}
+
+
+def roberta_attention_parts(torch, layer, x, keep) -> dict:
+    """Device ms (CUDA events) of one RoBERTa layer on x and of its
+    attention's parts as the port computes them (fp32 scores, their
+    scale, mask and softmax), beside the same scores as a bf16 product
+    and PyTorch's fused `scaled_dot_product_attention` over the same
+    q / k / v and mask (timed here only, used nowhere in the port)."""
+    import torch.nn.functional as F
+    B, S, H = x.shape
+    hd = H // layer.heads
+
+    def split(t):
+        return t.view(B, S, layer.heads, hd).transpose(1, 2)
+
+    q, k, v = split(layer.q(x)), split(layer.k(x)), split(layer.v(x))
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    return {
+        "layer": time_ms(lambda: layer(x, keep), iters=10),
+        "scores_fp32": time_ms(lambda: torch.matmul(
+            q.float(), k.float().transpose(-1, -2)), iters=10),
+        "scale_mask_softmax_fp32": time_ms(lambda: torch.softmax(
+            (scores / hd ** 0.5).masked_fill(~keep[:, None, None, :], -1e9),
+            dim=-1).to(v.dtype), iters=10),
+        "scores_bf16_product": time_ms(lambda: torch.matmul(
+            q, k.transpose(-1, -2)), iters=10),
+        "library_fused_attention": time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep[:, None, None, :]), iters=10)}
+
+
+def pipeline_phase(torch, flash, counted):
+    """Phase 15. Returns ({path: {kernel: launches}}, summary)."""
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.models.resnet import preprocess_image
+
+    # The train command's fp32 model, captured as it is built: its
+    # frozen encoders before training, and bert_weight.
+    seen = {}
+    real = cli.training_model
+
+    def capture(cfg, device, seed):
+        model = real(cfg, device, seed)
+        seen["model"] = model
+        seen["frozen"] = {k: p.detach().clone()
+                          for k, p in model.named_parameters()
+                          if k.split(".")[0] in model.frozen_collections}
+        seen["bert_weight"] = model.weighted_sum.bert_weight.detach().clone()
+        return model
+
+    cli.training_model = capture
+    try:
+        launches, summary, model, _, batches = family_command(
+            torch, flash, counted, "pipeline", PIPELINE_CONFIG,
+            train_command_overrides(""), spec=False)
+    finally:
+        cli.training_model = real
+    trained, frozen = seen["model"], seen["frozen"]
+    params = dict(trained.named_parameters())
+    check(len(frozen) > 0 and all(torch.equal(params[k], v)
+                                  for k, v in frozen.items()),
+          "the frozen encoders changed in training")
+    bw = trained.weighted_sum.bert_weight.detach()
+    moved = (bw - seen["bert_weight"]).abs().max().item()
+    check(moved > 0, "bert_weight did not move in training")
+    decoded = dict(model.named_parameters())
+    check(all(torch.equal(decoded[k], v.to(decoded[k].dtype))
+              for k, v in frozen.items()),
+          "the decoded checkpoint's encoders differ from the initial ones")
+    n_frozen = sum(v.numel() for v in frozen.values())
+    print(f"  frozen encoders: {len(frozen)} tensors, {n_frozen} parameters"
+          f" bit-equal after training and in the decoded checkpoint (bf16);"
+          f" bert_weight moved by up to {moved:.3g}", flush=True)
+    summary["frozen"] = {"tensors": len(frozen), "parameters": n_frozen,
+                         "bert_weight_max_move": moved}
+    del seen, trained, frozen, params, decoded
+    summary.update(pipeline_vs_plain(torch, model, batches[0][0],
+                                     PIPELINE_CONFIG))
+    del model, batches
+    torch.cuda.empty_cache()
+
+    # Timing: one B=16 greedy batch from random weights.
+    model, batch, cfg32, w, n, summary["greedy_batch"] = pipeline_batch(
+        torch, counted, PIPELINE_CONFIG)
+    launches["pipeline_batch"] = n
+    with torch.inference_mode():
+        image = preprocess_image(batch["image"]).to(torch.bfloat16)
+        ids = batch["article_ids"]
+        _, hiddens = model.roberta(ids)
+        enc = {"preprocess": time_ms(lambda: preprocess_image(
+                   batch["image"]), iters=10),
+               "resnet": time_ms(lambda: model.resnet.patches(image),
+                                 iters=10),
+               "roberta": time_ms(lambda: model.roberta(ids), iters=10),
+               "weighted_sum": time_ms(lambda: model.weighted_sum(hiddens),
+                                       iters=10),
+               "encode": time_ms(lambda: model.encode(batch), iters=10)}
+        attention = roberta_attention_parts(torch, model.roberta.layer_0,
+                                            hiddens[0], ids != 1)
+        del hiddens
+        ctx = model.encode(batch)
+    enc_kernels = {part: top_device_kernels(torch, fn) for part, fn in (
+        ("resnet", lambda: model.resnet.patches(image)),
+        ("roberta", lambda: model.roberta(ids)),
+        ("encode", lambda: model.encode(batch)))}
+    wall, busy, (tok, _) = profiled_busy(
+        torch, lambda: model.captioner.generate(ctx, cfg32, w))
+    steps = decode_steps(tok.cpu().numpy(), cfg32.eos_id, cfg32.max_len)
+    b_wall, b_busy, _ = profiled_busy(
+        torch, lambda: model.generate(batch, cfg32, w))
+    print("  encode at B=16, device ms (CUDA events, L2-cold): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in enc.items()), flush=True)
+    for part, k in enc_kernels.items():
+        print(f"  {part}'s device time by kernel (profiler, one call,"
+              f" {k['device_ms']:.3f} ms busy): " + "; ".join(
+                  f"{name} x{count} {ms:.3f} ms"
+                  for name, ms, count in k["top"][:5]), flush=True)
+    print("  a RoBERTa layer at B=16, S=512, device ms (CUDA events): " +
+          ", ".join(f"{k} {v:.4f}" for k, v in attention.items()),
+          flush=True)
+    print(f"  decode: {steps} steps, {busy / steps:.4f} device ms a step"
+          f" (busy {100 * busy / wall:.1f}% of the decode's wall); the whole"
+          f" batch, encode included: wall {b_wall:.1f} ms, device busy"
+          f" {b_busy:.2f} ms ({100 * b_busy / b_wall:.1f}%)", flush=True)
+    summary["timing"] = {"encode_ms": enc, "encode_kernels": enc_kernels,
+                         "roberta_layer_ms": attention,
+                         "decode_steps": steps,
+                         "device_ms_per_step": busy / steps,
+                         "decode_busy_share": busy / wall,
+                         "batch_wall_ms": b_wall, "batch_busy_ms": b_busy,
+                         "batch_busy_share": b_busy / b_wall}
+    del model, batch, ctx, w
+    torch.cuda.empty_cache()
+
+    # The other config: builds and decodes a batch.
+    _, _, _, _, n, summary["other"] = pipeline_batch(torch, counted,
+                                                     PIPELINE_OTHER)
+    launches["pipeline_other_batch"] = n
+    torch.cuda.empty_cache()
+    summary["card"] = card_line()
+    return launches, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3838,6 +4087,20 @@ def main() -> None:
                     by_path[name][path] = n
         print(json.dumps({family: {**fam_summary,
                                    "launches": fam_launches}}), flush=True)
+
+    print("phase 15: the online pipeline (transformer_weighted_roberta.yaml's"
+          " train and evaluate from raw images, ResNet-152 and RoBERTa-large;"
+          " bf16)", flush=True)
+    pipe_launches, pipe_summary = pipeline_phase(torch, flash_attention,
+                                                 counted)
+    for counts in pipe_launches.values():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name]["pipeline"] = \
+                    by_path[name].get("pipeline", 0) + n
+    print(json.dumps({"pipeline": {**pipe_summary,
+                                   "launches": pipe_launches}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

@@ -4,8 +4,9 @@ split, `serve` captions.
 Counterpart of `news_image_caption_tpu/cli.py` (`main`, `train_command`,
 `evaluate_command`, `serve_command`).
 
-`train` builds the config's model, optimizer (`trainer.optimizer`,
-wrapped by `accumulate_gradients` for `trainer.accumulate_steps`) and
+`train` builds the config's model, optimizer (`trainer.optimizer`, the
+model's frozen collections left out, wrapped by `accumulate_gradients`
+for `trainer.accumulate_steps`) and
 the state that `trainer.mixed_precision` names, then runs the `Trainer`
 over the train split (shuffled with the epoch as seed) and validates on
 the val split, both through `DeviceLoader`. Checkpoints, `meta.json`,
@@ -20,7 +21,8 @@ sampling with `generation.sampling_topk > 1`, a generator seeded with 0
 for each batch, as the reference samples each batch with PRNGKey(0); or
 by exact speculative greedy with `generation.speculative_k >= 2`, drafts
 copied from the batch's `article_ids` by `generation.ngram_n`-grams, for
-a model that has `generate_speculative`: not the LSTM), writes
+a model that has `generate_speculative`: not the LSTM or the
+pipeline), writes
 `generations{suffix}.jsonl` (each record enriched with names, entities,
 readability and TTR unless `--no-enrich`) and
 `evaluate-metrics{suffix}.json` (BLEU-1..4, CIDEr, ROUGE-L) into the
@@ -30,7 +32,9 @@ captions to `DIR/attn_{batch:05d}.npz` (`layer{i}_{context}`, one a
 layer and attended context: image, article, faces, obj). The batch's
 every context goes to the device, so the faces, objects, GloVe and
 no-image variants evaluate as the flagship does, and so do the pointer,
-LSTM and Gen-2 families (a model without `attention_maps` warns and
+LSTM and Gen-2 families and the online pipeline, which stages only the
+raw uint8 image and the article's ids and encodes them on the device (a
+model without `attention_maps` warns and
 skips the dump, as the reference does). With a `checkpoints/`
 directory there it evaluates the checkpoint `-m` names (`best` by default,
 `latest`, a step, or `avg:N` for the mean of the newest N); `-m` without
@@ -277,10 +281,11 @@ def _precision(cfg: Dict) -> str:
     return precision
 
 
-def _optimizer(cfg: Dict):
-    """The config's optimizer, wrapped for `trainer.accumulate_steps`."""
+def _optimizer(cfg: Dict, model):
+    """The config's optimizer for `model` (its frozen collections left
+    out), wrapped for `trainer.accumulate_steps`."""
     every = int(cfg.get("trainer", {}).get("accumulate_steps", 1))
-    return accumulate_gradients(build_optimizer(cfg), every)
+    return accumulate_gradients(build_optimizer(cfg, model), every)
 
 
 def train_state(cfg: Dict, model, tx, precision: str,
@@ -300,11 +305,15 @@ def train_state(cfg: Dict, model, tx, precision: str,
                                           master=model.param_module)
 
 
-def _loss_batches(batches, keep=()):
-    """The keys the loss reads (`keep`: the model's own beside the
-    captioner's), so the loader moves nothing else."""
+def _loss_batches(batches, model):
+    """The keys the loss reads (the caption and the model's
+    `context_keys` where it names them, else the captioner's and its
+    `batch_keys`), so the loader moves nothing else."""
+    keys = getattr(model, "context_keys", None)
+    keep = getattr(model, "batch_keys", ())
     for b in batches:
-        yield loss_inputs(b, keep)
+        yield ({k: b[k] for k in ("caption_ids",) + keys} if keys
+               else loss_inputs(b, keep))
 
 
 def _flash_train(cfg: Dict) -> bool:
@@ -339,14 +348,12 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
             "false to train through the plain attention")
     serialization_dir = _serialization_dir(cfg, args.param_path,
                                            args.serialization_dir)
-    tx = _optimizer(cfg)
-    model, state = train_state(
-        cfg, training_model(cfg, device, int(tcfg.get("seed", 0))), tx,
-        precision, device)
+    model = training_model(cfg, device, int(tcfg.get("seed", 0)))
+    tx = _optimizer(cfg, model)
+    model, state = train_state(cfg, model, tx, precision, device)
     train_ds = build_dataset(cfg, "train")
     val_ds = build_dataset(cfg, "val")
     batch_size = cfg.get("iterator", {}).get("batch_size", 16)
-    keep = getattr(model, "batch_keys", ())
     trainer = Trainer(model.loss_fn, tx, TrainerConfig(
         num_epochs=tcfg.get("num_epochs", 10),
         patience=tcfg.get("patience"),
@@ -363,11 +370,11 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
 
     def train_batches(epoch):
         return DeviceLoader(_loss_batches(
-            train_ds.batches(batch_size, seed=epoch), keep), device)
+            train_ds.batches(batch_size, seed=epoch), model), device)
 
     def val_batches(epoch):
         return DeviceLoader(_loss_batches(
-            val_ds.batches(batch_size, shuffle=False), keep), device)
+            val_ds.batches(batch_size, shuffle=False), model), device)
 
     trainer.train(state, train_batches, val_batches, recover=args.recover)
     if timings is not None:
@@ -566,6 +573,7 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
     spans = dict.fromkeys(("data", "decode", "attention", "records",
                            "score"), 0.0)
     device = next(model.param_module.parameters()).device
+    staged_keys = getattr(model, "context_keys", CONTEXT_KEYS)
     weights = model.decode_weights()
     if dump_attention and not hasattr(model, "attention_maps"):
         print("warning: model has no attention_maps; skipping dump",
@@ -585,7 +593,7 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
             if batch is None:
                 break
             staged = {k: torch.from_numpy(batch[k]).to(device)
-                      for k in CONTEXT_KEYS if k in batch}
+                      for k in staged_keys if k in batch}
             if spec_k >= 2 and "article_ids" in batch:
                 S = batch["article_ids"].shape[1]
                 if batch_idx == 0 and ngram_n > S - 1:

@@ -24,10 +24,13 @@ captioner (`lstm_flattened` and `baseline_glove`, `models/
 decoder_lstm.py`; the model block's keys, or its `decoder:` block of
 type `lstm_decoder_flattened`) and the Gen-2 captioner
 (`gen2_transformer`, `models/gen2.py`), their keys checked as the
-reference's dataclasses check them. The decoder options the port
-implements at one value only, and every other model type, raise
-`NotImplementedError` naming the ROADMAP item that ports them.
-`build_optimizer` builds `bert_adam` and `noam`.
+reference's dataclasses check them, and the online pipeline
+(`gen3_pipeline`, `models/pipeline.py`: `weigh_bert`, the `resnet` and
+`roberta` blocks, the `decoder:` block or the model block's own decoder
+keys). The decoder options the port implements at one value only, and
+every other model type, raise `NotImplementedError` naming the ROADMAP
+item that ports them. `build_optimizer` builds `bert_adam` and `noam`,
+and leaves a model's `frozen_collections` out of them (`mask_frozen`).
 """
 
 from __future__ import annotations
@@ -47,13 +50,15 @@ from news_image_caption_tpu_torch.models.decoder_lstm import \
     LSTMFlattenedModel
 from news_image_caption_tpu_torch.models.gen2 import (Gen2Captioner,
                                                       gen2_transformer)
+from news_image_caption_tpu_torch.models.pipeline import Gen3Pipeline
 from news_image_caption_tpu_torch.models.pointer import TransformerPointer
 from news_image_caption_tpu_torch.models.tgnc import (
     transformer_entity, transformer_entity_pointer)
 from news_image_caption_tpu_torch.models.variants import (POINTER_VARIANTS,
                                                           VARIANTS)
 from news_image_caption_tpu_torch.training.optim import (NoamAdam,
-                                                        make_bert_adam)
+                                                        make_bert_adam,
+                                                        mask_frozen)
 from news_image_caption_tpu_torch.yaml_subset import safe_load
 
 FLAGSHIP = dict(
@@ -130,12 +135,18 @@ _FAMILY_KEYS = {
                        "num_heads", "num_layers", "img_dim", "sent_dim",
                        "dropout_rate", "max_len", "pad_id", "remat"),
 }
+# The online pipeline's own keys of the model block, and of its encoder
+# blocks (the reference's `ResNetTrunk` and `RobertaEncoder` fields, but
+# the RoBERTa's compute `dtype`; `ring` and `pipe`, its multi-device
+# encoders, raise).
+_PIPELINE_KEYS = ("weigh_bert", "resnet", "roberta")
+_RESNET_KEYS = ("depth", "num_stages")
+_ROBERTA_KEYS = ("vocab_size", "hidden", "num_layers", "heads",
+                 "intermediate", "max_positions", "padding_idx", "eps",
+                 "ring", "pipe")
 # Model types of the reference and the ROADMAP Queue 1 item that ports
 # each.
-_NOT_PORTED = {
-    "gen3_pipeline": 9,
-    **dict.fromkeys(("tgnc", "gen1", "decoder_tgnc"), "10b"),
-}
+_NOT_PORTED = dict.fromkeys(("tgnc", "gen1", "decoder_tgnc"), "10b")
 
 
 def load_config(path: str, overrides: Optional[str] = None) -> Dict:
@@ -192,6 +203,8 @@ def decoder_kwargs(cfg: Dict) -> Dict:
         return _pointer_args(mcfg)
     if mtype in FAMILIES:
         return _family_args(mtype, mcfg)
+    if mtype == "gen3_pipeline":
+        return _pipeline_args(mcfg)
     if mtype not in CAPTIONERS:
         raise _not_ported("model", mtype)
     dcfg = mcfg.pop("decoder", None)
@@ -248,6 +261,24 @@ def _family_args(mtype: str, mcfg: Dict) -> Dict:
             for k, v in mcfg.items()}
 
 
+def _pipeline_args(mcfg: Dict) -> Dict:
+    """The pipeline's model block as `Gen3Pipeline`'s keywords: its own
+    keys, its `decoder:` block (or, without one, the block's other keys)
+    as decoder arguments, the decoder's `dtype` the model's. An unknown
+    key raises TypeError."""
+    kw = {k: mcfg.pop(k) for k in _PIPELINE_KEYS if k in mcfg}
+    for name, known in (("resnet", _RESNET_KEYS), ("roberta", _ROBERTA_KEYS)):
+        unknown = sorted(set(kw.get(name) or {}) - set(known))
+        if unknown:
+            raise TypeError(f"gen3_pipeline: unknown {name} keys {unknown}")
+    dcfg = mcfg.pop("decoder", None)
+    if dcfg is None:
+        dcfg, mcfg = mcfg, {}
+    if mcfg:
+        raise TypeError(f"gen3_pipeline: unknown keys {sorted(mcfg)}")
+    return {**kw, **_decoder_args(dcfg)}
+
+
 def _pointer_args(mcfg: Dict) -> Dict:
     """A pointer's model block as its builder's keywords. The model's
     one dtype is the block's, else its decoder block's."""
@@ -269,7 +300,7 @@ def _pointer_args(mcfg: Dict) -> Dict:
 def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Union[TransformerFlattened, TransformerPointer,
-                           LSTMFlattenedModel, Gen2Captioner]:
+                           LSTMFlattenedModel, Gen2Captioner, Gen3Pipeline]:
     """The `model:` block's model on `device`, its parameters and
     compute in `dtype` (default: the config's `dtype`, float32 unless
     set; the LSTM and Gen-2 blocks have no dtype key), drawn from
@@ -287,6 +318,8 @@ def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
         kw["decoder"] = DynamicConvDecoder(device=device, dtype=kw["dtype"],
                                            generator=generator,
                                            **kw["decoder"])
+    if mtype == "gen3_pipeline":
+        return Gen3Pipeline(device=device, generator=generator, **kw)
     builder = POINTERS.get(mtype) or CAPTIONERS[mtype]
     return builder(device=device, generator=generator, **kw)
 
@@ -309,12 +342,14 @@ def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:
     return SyntheticNewsDataset(**dcfg)
 
 
-def build_optimizer(cfg: Dict):
+def build_optimizer(cfg: Dict, model=None):
     """The `trainer.optimizer` block's optimizer: `bert_adam` or `noam`
     with the reference's defaults and key names (`e` is bert_adam's
     eps). An unknown key raises ValueError, so a misspelled
     hyperparameter never trains at its default; `gen1_adam` comes with
-    the Gen-1 family (ROADMAP Queue 1 item 10b)."""
+    the Gen-1 family (ROADMAP Queue 1 item 10b). A `model` that declares
+    `frozen_collections` (the pipeline's encoders) gets them left out of
+    the optimizer (`mask_frozen`): no decay, no moments."""
     ocfg = copy.deepcopy(cfg.get("trainer", {}).get(
         "optimizer", {"type": "bert_adam"}))
     otype = ocfg.pop("type")
@@ -338,4 +373,5 @@ def build_optimizer(cfg: Dict):
     if ocfg:
         raise ValueError(f"unknown {otype} optimizer config keys: "
                          f"{sorted(ocfg)}")
-    return tx
+    frozen = getattr(model, "frozen_collections", ())
+    return mask_frozen(tx, frozen) if frozen else tx

@@ -7,7 +7,10 @@ prefetch depth, stop event and error hand-off. On the card a batch's
 arrays go through pinned memory and `non_blocking` copies
 (`torch.from_numpy(x).pin_memory().to(device, non_blocking=True)`),
 enqueued on the default stream, so the step that reads them is ordered
-after them; on the CPU each array is copied.
+after them; on the CPU each array is copied. Arrays keep their dtype: the
+online pipeline's raw uint8 images travel as they are (a quarter of
+their float size) and are normalized on the device
+(`models/pipeline.py::Gen3Pipeline.encode`).
 """
 
 from __future__ import annotations

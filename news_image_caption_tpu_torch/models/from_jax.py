@@ -11,13 +11,22 @@ copy head's raw `q_proj_weight` [E, E] and `k_proj_weight` [kdim, E]
 are used as `x @ W` in both too. A pointer's variables
 {captioner, entity_attn, entity_fc, copy_attn}, each with its own
 `params` collection, map onto `models/pointer.py::TransformerPointer`,
-the captioner's under `decoder.`.
+the captioner's under `decoder.`. The online pipeline's variables
+{captioner, resnet, roberta, weighted_sum} map onto `models/pipeline.py::
+Gen3Pipeline` the same way, its encoders' leaves into PyTorch's layout:
+conv kernels HWIO -> OIHW and Dense kernels transposed, as `weight`;
+`Embed.embedding` and a LayerNorm's `scale` as `weight`; the frozen
+BatchNorm's four leaves and `bert_weight` as they are.
 
 `state_from_jax(tree, state)` carries a whole JAX `TrainState` (as
 flax's state dict) into the port's `training/train_step.py::TrainState`:
 the step, the params, the O2 master and the optimizer chain's Adam
 moments and count (BertAdam's, or Noam's `scale_by_adam` and schedule),
 so a run resumed in the port continues JAX's trajectory.
+
+An optax `masked` state (the pipeline's optimizer) is read through its
+`inner_state`: the frozen leaves' `MaskedNode`s are empty, so the moments
+cover the trainable parameters alone, as the port's do.
 
 `load_npz(path)` reads the `.npz` layout of the reference server
 (`news_image_caption_tpu/serving/worker.py::unflatten_params`):
@@ -35,6 +44,8 @@ import torch
 from torch import nn
 
 _LAYER = re.compile(r"^layers_(\d+)$")
+# Collections whose leaves are stored in PyTorch's layout.
+_TORCH_LAYOUT = ("resnet", "roberta")
 
 
 def torch_key(path: str) -> str:
@@ -91,7 +102,8 @@ def _mapped(tree: Mapping[str, Any],
         # captioner's params the port's `decoder.`.
         tree = {("decoder" if k == "captioner" else k): _strip(v)
                 for k, v in tree.items()}
-    mapped = {torch_key(path): leaf for path, leaf in _flatten(tree).items()}
+    mapped = dict(_torch_layout(torch_key(path), leaf)
+                  for path, leaf in _flatten(tree).items())
     missing = sorted(set(expected) - set(mapped))
     unused = sorted(set(mapped) - set(expected))
     bad = sorted(k for k in set(expected) & set(mapped)
@@ -100,6 +112,26 @@ def _mapped(tree: Mapping[str, Any],
         raise ValueError(f"params_from_jax: missing {missing}, unused "
                          f"{unused}, shape mismatch {bad}")
     return {k: to_tensor(mapped[k]) for k in expected}
+
+
+def _torch_layout(key: str, leaf):
+    """(key, leaf) of an encoder's leaf in PyTorch's layout: a kernel
+    (HWIO conv or [in, out] Dense) as `weight` (OIHW or [out, in]), an
+    embedding table and a LayerNorm's scale as `weight`; other keys, and
+    the FrozenBatchNorm's `scale`, as they are."""
+    parts = key.split(".")
+    if parts[0] not in _TORCH_LAYOUT:
+        return key, leaf
+    name = parts[-1]
+    if name == "kernel":
+        perm = (3, 2, 0, 1) if np.ndim(leaf) == 4 else (1, 0)
+        leaf = (leaf.permute(perm).contiguous()
+                if isinstance(leaf, torch.Tensor)
+                else np.ascontiguousarray(np.transpose(leaf, perm)))
+    elif not (name == "embedding"
+              or (name == "scale" and parts[0] == "roberta")):
+        return key, leaf
+    return ".".join(parts[:-1] + ["weight"]), leaf
 
 
 def _adam_from_jax(chain: Mapping[str, Any], expected):
@@ -125,12 +157,19 @@ def state_from_jax(tree: Mapping[str, Any], state):
     reference checkpoint read back with `msgpack_restore`): {"step",
     "params", "opt_state"}, the O2 opt_state {"master", "inner"}."""
     expected = {k: tuple(v.shape) for k, v in state.params.items()}
+    trained = {k: expected[k] for k in state.opt_names}
     opt = tree["opt_state"]
+
+    def inner(chain):
+        if set(chain) == {"inner_state"}:      # optax.masked
+            chain = chain["inner_state"]
+        return _adam_from_jax(chain, trained)
+
     if set(opt) == {"master", "inner"}:
         opt_state = {"master": _mapped(opt["master"], expected),
-                     "inner": _adam_from_jax(opt["inner"], expected)}
+                     "inner": inner(opt["inner"])}
     else:
-        opt_state = _adam_from_jax(opt, expected)
+        opt_state = inner(opt)
     state.load_state_dict({"step": int(np.asarray(tree["step"])),
                            "params": _mapped(tree["params"], expected),
                            "opt_state": opt_state})

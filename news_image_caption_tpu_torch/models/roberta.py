@@ -1,0 +1,219 @@
+"""The frozen RoBERTa article encoder and the weighted sum of its layers.
+
+Counterpart of `news_image_caption_tpu/models/roberta.py`
+(`position_ids_from_tokens`, `RobertaLayer`, `RobertaEncoder`,
+`WeightedSumFeatures`, `port_hf_roberta`): post-norm layers with separate
+q / k / v / attn_out products, scores and softmax in fp32 with padded keys
+at -1e9, the probabilities in v's dtype, exact GELU, eps 1e-5 on every
+LayerNorm, and the encoder's (last hidden, all L + 1 hiddens) as fairseq's
+`extract_features(return_all_hiddens=True)` gives them.
+
+Parameters are stored in PyTorch's layout, as `F.linear`, `F.embedding`
+and `F.layer_norm` take them: a linear's `weight` is [out, in], an
+embedding's and a LayerNorm's scale are `weight`. `models/from_jax.py`
+maps the reference's flax tree (kernels [in, out], `embedding`, `scale`)
+onto them, and `state_from_hf` maps a HuggingFace `RobertaModel` state
+dict.
+
+The encoder computes in its parameters' dtype (the reference's `dtype`
+field, its compute dtype, is not taken: no config sets it), and every
+LayerNorm returns that dtype rather than promoting to fp32. The
+attention is plain PyTorch: the reference computes it in XLA, and no
+Pallas kernel touches it. The ring-attention and pipelined encoders
+(`ring_mesh`, `encode_pipelined`) are multi-device and not ported (ROADMAP
+Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from news_image_caption_tpu_torch.ops.linear import initializes, new_param
+
+NEG = -1e9
+
+
+def position_ids_from_tokens(ids: torch.Tensor, padding_idx: int = 1
+                             ) -> torch.Tensor:
+    """HF / fairseq positions: pad-aware, the first real token at
+    padding_idx + 1, every pad at padding_idx."""
+    mask = (ids != padding_idx).long()
+    return torch.cumsum(mask, dim=1) * mask + padding_idx
+
+
+class Dense(nn.Module):
+    """y = x W^T + b, W [out, in]; fan-in normal init, zero bias."""
+
+    def __init__(self, in_features: int, features: int, *, device, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = new_param((features, in_features), device, dtype)
+        self.bias = new_param((features,), device, dtype)
+        if initializes(device):
+            with torch.no_grad():
+                self.weight.normal_(0.0, in_features ** -0.5,
+                                    generator=generator)
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class Norm(nn.Module):
+    """LayerNorm in the parameters' dtype."""
+
+    def __init__(self, features: int, eps: float, *, device, dtype):
+        super().__init__()
+        self.eps = eps
+        self.weight = new_param((features,), device, dtype)
+        self.bias = new_param((features,), device, dtype)
+        if initializes(device):
+            with torch.no_grad():
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, x.shape[-1:], self.weight, self.bias,
+                            self.eps)
+
+
+class Embed(nn.Module):
+    """Table lookup, normal init with std features^-0.5 (flax's)."""
+
+    def __init__(self, num: int, features: int, *, device, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = new_param((num, features), device, dtype)
+        if initializes(device):
+            with torch.no_grad():
+                self.weight.normal_(0.0, features ** -0.5,
+                                    generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids.long(), self.weight)
+
+
+class RobertaLayer(nn.Module):
+    def __init__(self, hidden: int, heads: int, intermediate: int,
+                 eps: float = 1e-5, *, device, dtype, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.heads = heads
+        self.q = Dense(hidden, hidden, **kw)
+        self.k = Dense(hidden, hidden, **kw)
+        self.v = Dense(hidden, hidden, **kw)
+        self.attn_out = Dense(hidden, hidden, **kw)
+        self.attn_ln = Norm(hidden, eps, device=device, dtype=dtype)
+        self.inter = Dense(hidden, intermediate, **kw)
+        self.out = Dense(intermediate, hidden, **kw)
+        self.out_ln = Norm(hidden, eps, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+        """x [B, S, H]; keep [B, S], True at real tokens."""
+        B, S, H = x.shape
+        hd = H // self.heads
+
+        def split(t):
+            return t.view(B, S, self.heads, hd).transpose(1, 2)
+
+        q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = (scores / math.sqrt(hd)).masked_fill(
+            ~keep[:, None, None, :], NEG)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, H)
+        x = self.attn_ln(x + self.attn_out(ctx))
+        h = F.gelu(self.inter(x), approximate="none")
+        return self.out_ln(x + self.out(h))
+
+
+class RobertaEncoder(nn.Module):
+    """ids [B, S] -> (last hidden [B, S, H], all L + 1 hiddens)."""
+
+    def __init__(self, vocab_size: int = 50265, hidden: int = 1024,
+                 num_layers: int = 24, heads: int = 16,
+                 intermediate: int = 4096, max_positions: int = 514,
+                 padding_idx: int = 1, eps: float = 1e-5, *, device, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.num_layers = num_layers
+        self.padding_idx = padding_idx
+        self.word_embeddings = Embed(vocab_size, hidden, **kw)
+        self.position_embeddings = Embed(max_positions, hidden, **kw)
+        self.token_type_embedding = new_param((hidden,), device, dtype)
+        if initializes(device):
+            with torch.no_grad():
+                self.token_type_embedding.zero_()
+        self.embed_ln = Norm(hidden, eps, device=device, dtype=dtype)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", RobertaLayer(
+                hidden, heads, intermediate, eps, **kw))
+
+    def forward(self, ids: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        keep = ids != self.padding_idx
+        x = (self.word_embeddings(ids)
+             + self.position_embeddings(
+                 position_ids_from_tokens(ids, self.padding_idx))
+             + self.token_type_embedding)
+        x = self.embed_ln(x)
+        hiddens = [x]
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, keep)
+            hiddens.append(x)
+        return x, tuple(hiddens)
+
+
+class WeightedSumFeatures(nn.Module):
+    """Softmax-weighted sum over the encoder's hiddens (weigh_bert):
+    softmax(bert_weight) . [L, B, S, H], in the promoted dtype of the
+    weights and the hiddens (fp32 weights over bf16 hiddens give fp32, as
+    in JAX)."""
+
+    def __init__(self, num_layers: int = 25, *, device, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.bert_weight = new_param((num_layers,), device, dtype)
+        if initializes(device):
+            with torch.no_grad():
+                self.bert_weight.uniform_(0.0, 1.0, generator=generator)
+
+    def forward(self, hiddens) -> torch.Tensor:
+        weights = torch.softmax(self.bert_weight, dim=0)
+        stacked = torch.stack(hiddens, dim=0)
+        dt = torch.promote_types(weights.dtype, stacked.dtype)
+        return torch.einsum("l,lbsh->bsh", weights.to(dt), stacked.to(dt))
+
+
+def state_from_hf(state_dict: Mapping[str, Any], num_layers: int = 24
+                  ) -> Dict[str, torch.Tensor]:
+    """A HuggingFace `RobertaModel` state dict (keys with or without the
+    `roberta.` prefix) as `RobertaEncoder`'s state dict. Linear weights
+    are [out, in] in both, so nothing is transposed."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    prefix = "roberta." if any(k.startswith("roberta.") for k in sd) else ""
+    emb = f"{prefix}embeddings"
+    out = {"word_embeddings.weight": sd[f"{emb}.word_embeddings.weight"],
+           "position_embeddings.weight":
+               sd[f"{emb}.position_embeddings.weight"],
+           "token_type_embedding":
+               sd[f"{emb}.token_type_embeddings.weight"][0],
+           "embed_ln.weight": sd[f"{emb}.LayerNorm.weight"],
+           "embed_ln.bias": sd[f"{emb}.LayerNorm.bias"]}
+    parts = {"q": "attention.self.query", "k": "attention.self.key",
+             "v": "attention.self.value", "attn_out": "attention.output.dense",
+             "attn_ln": "attention.output.LayerNorm",
+             "inter": "intermediate.dense", "out": "output.dense",
+             "out_ln": "output.LayerNorm"}
+    for i in range(num_layers):
+        for name, hf in parts.items():
+            for leaf in ("weight", "bias"):
+                out[f"layer_{i}.{name}.{leaf}"] = \
+                    sd[f"{prefix}encoder.layer.{i}.{hf}.{leaf}"]
+    return out

@@ -377,10 +377,11 @@ def flagship_model_builder(device="cuda", max_len: int = 32,
 
 def full_model_builder(*args, **kwargs):
     """The reference's detection + captioning builder (MTCNN, FaceNet,
-    YOLOv3, ResNet upstream of the captioner) is not ported."""
+    YOLOv3 upstream of the captioner) is not ported; its ResNet and
+    RoBERTa encoders are (`models/resnet.py`, `models/roberta.py`)."""
     raise NotImplementedError(
-        "full_model_builder: face and object detection and the image "
-        "encoders are not ported yet (ROADMAP Queue 1 item 9b)")
+        "full_model_builder: face and object detection (MTCNN, FaceNet, "
+        "YOLOv3) are not ported yet (ROADMAP Queue 1 item 9b)")
 
 
 def decode_launches() -> Dict[str, int]:

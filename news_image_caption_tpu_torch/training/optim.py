@@ -23,6 +23,13 @@ ops (a few launches for all tensors rather than several per tensor).
 reference's `accumulate_gradients`): the mean gradient of `every`
 micro-batches reaches `tx` once a window.
 
+`mask_frozen(tx, frozen_collections)` is the reference's `mask_frozen`
+(optax's `masked`): `tx` sees only the parameters outside the frozen
+top-level collections (`trainable_names`), so the frozen ones take no
+decay, hold no moments and stay as they are. The train state applies the
+mask (`training/train_step.py`): it hands the optimizer those parameters
+alone, and their gradients alone.
+
 An optimizer state goes to and from a checkpoint as a dict of ints and
 named tensors (`state_dict(names)`, `load_state_dict(tree, names)`),
 the names being the parameters' in the order `init` saw them.
@@ -180,6 +187,22 @@ class NoamAdam:
         state.count += 1
 
 
+def mask_frozen(tx, frozen_collections: Sequence[str]):
+    """`tx` with the frozen top-level collections (the first component of
+    a parameter's name) left out: it records them as `tx.frozen`, and the
+    train state hands `tx` the other parameters alone
+    (`trainable_names`)."""
+    tx.frozen = tuple(frozen_collections)
+    return tx
+
+
+def trainable_names(tx, names: Sequence[str]) -> List[str]:
+    """The names among `names` that `tx` updates: all but those of a
+    collection it masks."""
+    frozen = getattr(tx, "frozen", ())
+    return [n for n in names if n.split(".", 1)[0] not in frozen]
+
+
 @dataclass
 class MultiStepsState:
     mini_step: int                   # micro-batches in the open window
@@ -217,6 +240,7 @@ class MultiSteps:
     def __init__(self, inner, every: int):
         self.inner = inner
         self.every = every
+        self.frozen = getattr(inner, "frozen", ())
 
     def init(self, master: List[torch.Tensor]) -> MultiStepsState:
         return MultiStepsState(

@@ -15,6 +15,13 @@ layout of each precision is the reference's:
   bf16 parameters, `opt_state = {"master": fp32 copy, "inner": the
   optimizer's state}`; an update writes the master back into them.
 
+An optimizer that masks frozen collections (`training/optim.py::
+mask_frozen`, the pipeline's encoders) sees only the other parameters
+(`TrainState.trainable`): the step takes no gradient of the frozen ones,
+the optimizer holds no state for them, and in bf16 the per-step refresh
+of the compute copy writes the trainable ones alone. The checkpoint's
+`params` still hold every parameter.
+
 Gradients reach the optimizer as fp32. With `guard_nonfinite` a step
 whose loss or global gradient norm is not finite leaves the parameters
 and the optimizer state untouched and reports skipped = 1; deciding that
@@ -37,13 +44,14 @@ each on an H100 machine's host, 0.1% of a flagship step).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
 from news_image_caption_tpu_torch.training.checkpoint import restore
+from news_image_caption_tpu_torch.training.optim import trainable_names
 
 
 @dataclass
@@ -53,14 +61,21 @@ class TrainState:
     opt_state: Any                    # optimizer state, or {"master", "inner"}
     compute: Optional[Dict[str, torch.Tensor]] = None   # bf16 copy (bf16)
     in_update: bool = False
+    # The parameters the optimizer updates, in its order (None: all).
+    trainable: Optional[List[str]] = None
 
     @property
     def o2(self) -> bool:
         return isinstance(self.opt_state, dict)
 
+    @property
+    def opt_names(self) -> List[str]:
+        return list(self.params) if self.trainable is None \
+            else self.trainable
+
     def state_dict(self) -> Dict[str, Any]:
         """{"step", "params", "opt_state"}: ints and named tensors."""
-        names = list(self.params)
+        names = self.opt_names
         if self.o2:
             opt = {"master": dict(self.opt_state["master"]),
                    "inner": self.opt_state["inner"].state_dict(names)}
@@ -73,7 +88,7 @@ class TrainState:
         """Copy a checkpoint of the same precision into this state."""
         if set(tree) != {"step", "params", "opt_state"}:
             raise ValueError(f"state: checkpoint keys {sorted(tree)}")
-        names = list(self.params)
+        names = self.opt_names
         self.step = restore(self.step, tree["step"], "step")
         restore(self.params, tree["params"], "params")
         opt = tree["opt_state"]
@@ -89,24 +104,36 @@ class TrainState:
         write_compute(self)
 
 
-def write_compute(state: TrainState) -> None:
-    """Write the fp32 params into the bf16 model's (bf16 precision)."""
+def write_compute(state: TrainState,
+                  names: Optional[List[str]] = None) -> None:
+    """Write the fp32 params `names` (default: all) into the bf16
+    model's (bf16 precision)."""
     if state.compute is not None:
+        names = list(state.params) if names is None else names
         with torch.no_grad():
-            torch._foreach_copy_(list(state.compute.values()),
-                                 list(state.params.values()))
+            torch._foreach_copy_([state.compute[n] for n in names],
+                                 [state.params[n] for n in names])
+
+
+def _trainable(tx, params: Dict[str, torch.Tensor]) -> Optional[List[str]]:
+    names = trainable_names(tx, list(params))
+    return None if len(names) == len(params) else names
 
 
 def create_train_state(model: nn.Module, tx,
                        compute: Optional[nn.Module] = None) -> TrainState:
     """State over `model`'s fp32 parameters. With `compute` (the same
     model built in bf16), forward and backward run there: its parameters
-    are written from the fp32 ones now and after each update."""
+    are written from the fp32 ones now, and the trainable ones after
+    each update."""
     params = dict(model.named_parameters())
+    trainable = _trainable(tx, params)
     state = TrainState(step=0, params=params,
-                       opt_state=tx.init(list(params.values())),
+                       opt_state=tx.init([params[n] for n in
+                                          trainable or params]),
                        compute=(None if compute is None
-                                else dict(compute.named_parameters())))
+                                else dict(compute.named_parameters())),
+                       trainable=trainable)
     write_compute(state)
     return state
 
@@ -122,9 +149,11 @@ def create_o2_train_state(model: nn.Module, tx,
     fp32 = {k: p.detach().float().clone() for k, p in source.items()}
     with torch.no_grad():
         torch._foreach_copy_(list(params.values()), list(fp32.values()))
+    trainable = _trainable(tx, params)
     return TrainState(step=0, params=params,
-                      opt_state={"master": fp32,
-                                 "inner": tx.init(list(fp32.values()))})
+                      opt_state={"master": fp32, "inner": tx.init(
+                          [fp32[n] for n in trainable or fp32])},
+                      trainable=trainable)
 
 
 def cast_floats(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
@@ -142,14 +171,16 @@ def _step_generator(device, seed: int, step: int) -> torch.Generator:
 def _update(state: TrainState, tx, grads) -> None:
     """The optimizer's in-place update of `state` from fp32 grads."""
     state.in_update = True
+    names = state.opt_names
     with record_function("train_step.optimizer"), torch.no_grad():
         if state.o2:
-            master = list(state.opt_state["master"].values())
+            master = [state.opt_state["master"][n] for n in names]
             tx.apply(grads, state.opt_state["inner"], master)
-            torch._foreach_copy_(list(state.params.values()), master)
+            torch._foreach_copy_([state.params[n] for n in names], master)
         else:
-            tx.apply(grads, state.opt_state, list(state.params.values()))
-            write_compute(state)
+            tx.apply(grads, state.opt_state,
+                     [state.params[n] for n in names])
+            write_compute(state, names)
     state.in_update = False
 
 
@@ -164,7 +195,8 @@ def make_train_step(loss_fn: Callable, tx,
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              seed: int = 0) -> Tuple[TrainState, Dict[str, Any]]:
-        model_params = list((state.compute or state.params).values())
+        source = state.compute or state.params
+        model_params = [source[n] for n in state.opt_names]
         for p in model_params:
             p.grad = None
         generator = _step_generator(model_params[0].device, seed, state.step)

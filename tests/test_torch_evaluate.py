@@ -169,7 +169,9 @@ def test_random_init_command_runs(tmp_path, capsys):
     ("evaluate", {"dataset": {"type": "nics_shards"}}, [], "5b"),
     ("evaluate", {"model": {"decoder": {"normalize_before": True}}}, [], "8"),
     ("evaluate", {"model": {"type": "tgnc"}}, [], "10b"),
-    ("evaluate", {"model": {"type": "gen3_pipeline"}}, [], "9"),
+    ("evaluate", {"model": {"type": "gen3_pipeline",
+                            "roberta": {"ring": {"data": 1, "context": 2}}}},
+     [], "11"),
     ("train", {"trainer": {"optimizer": {"type": "gen1_adam"}}}, [], "10b"),
     ("train", {"trainer": {"profile_steps": 3}}, [], "5b"),
     ("train", {"trainer": {"mesh": {"data": -1, "model": 1}}}, [], "11"),

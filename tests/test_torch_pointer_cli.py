@@ -17,10 +17,11 @@ best; the last checkpoint's params (decoder and heads) within rtol
 `generations.jsonl` (with `copied_texts`) and `evaluate-metrics.json`
 byte-equal.
 
-Every pointer-family config builds at full width on the meta device with
-the parameter names and shapes of the reference's init (traced with
-`jax.eval_shape`); every other model type raises naming its ROADMAP
-item; the flagship's checkpoint keys stay the decoder's own.
+Every pointer-family config, and each of the online pipeline's two,
+builds at full width on the meta device with the parameter names and
+shapes of the reference's init (traced with `jax.eval_shape`); every
+other model type raises naming its ROADMAP item; the flagship's
+checkpoint keys stay the decoder's own.
 """
 
 import functools
@@ -64,13 +65,16 @@ POINTER_CONFIGS = [
     "configs/goodnews/transformer_pointer.yaml",
     "configs/nytimes/copy_fix.yaml", "configs/nytimes/copy_loss.yaml",
     "configs/nytimes/transformer_copying.yaml", "configs/tiny_pointer.yaml"]
-# The configs of ROADMAP Queue 1 items 9 and 10b still open (the LSTM and
-# Gen-2 configs build since, tests/test_torch_lstm_gen2_cli.py).
-OTHER_CONFIGS = [
-    "configs/goodnews/gen1_show_attend_tell.yaml",
-    "configs/goodnews/joganic_tgnc.yaml",
+# The online pipeline's configs (tests/test_torch_pipeline_cli.py runs
+# the commands).
+PIPELINE_CONFIGS = [
     "configs/goodnews/transformer_weighted_roberta.yaml",
     "configs/nytimes/transformer_weighted_roberta.yaml"]
+# The configs of ROADMAP Queue 1 item 10b still open (the LSTM and Gen-2
+# configs build since, tests/test_torch_lstm_gen2_cli.py).
+OTHER_CONFIGS = [
+    "configs/goodnews/gen1_show_attend_tell.yaml",
+    "configs/goodnews/joganic_tgnc.yaml"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -208,10 +212,13 @@ def test_config_lists_cover_the_repository():
               if t in config.POINTERS or t == "transformer_entity"}
     assert family == set(POINTER_CONFIGS)
     assert len(family) == 16
+    assert set(PIPELINE_CONFIGS) == {p for p, t in types.items()
+                                     if t == "gen3_pipeline"}
     assert set(OTHER_CONFIGS) == {p for p, t in types.items()
                                   if t not in config.CAPTIONERS
                                   and t not in config.POINTERS
-                                  and t not in config.FAMILIES}
+                                  and t not in config.FAMILIES
+                                  and t != "gen3_pipeline"}
 
 
 def _jax_shapes(cfg):
@@ -223,7 +230,7 @@ def _jax_shapes(cfg):
     return jax.eval_shape(model.init, jax.random.PRNGKey(0), sample)
 
 
-@pytest.mark.parametrize("path", POINTER_CONFIGS)
+@pytest.mark.parametrize("path", POINTER_CONFIGS + PIPELINE_CONFIGS)
 def test_config_builds_the_references_parameters(path):
     cfg = config.load_config(str(REPO / path))
     model = config.build_model(cfg, "meta")
@@ -246,7 +253,7 @@ def test_config_builds_the_references_parameters(path):
 @pytest.mark.parametrize("path", OTHER_CONFIGS)
 def test_other_model_types_raise_naming_their_item(path, tmp_path):
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 item (9|10b)\)"):
+                       match=r"ROADMAP Queue 1 item 10b\)"):
         cli.main(["train", str(REPO / path), "--platform", "cpu", "-s",
                   str(tmp_path)])
     assert not any(tmp_path.iterdir())
