@@ -215,6 +215,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      busy share of the batch;
      one B=16 batch of `configs/nytimes/transformer_weighted_roberta.
      yaml` (the `pipeline` JSON line).
+  16. TGNC (`models/tgnc.py`: the template classifier, 4 trunk layers
+     and 5 template heads of kernel 31 mixed before the tied head): the
+     train command on `configs/goodnews/joganic_tgnc.yaml` (bf16, the
+     BCE template loss) with phase 8's cuts, no kernel launched, then
+     `evaluate -m best` as in phase 13 (3 / 18 / 9 / 9 a step); one B=16
+     batch from seeded random weights: greedy (launches, a second call
+     bit-equal, the device ms a step by CUDA events and the profiler),
+     speculative at spec_k 4 with oracle drafts (3 / 18 / 36 / 36 a
+     chunk, tokens equal to greedy's), `ContinuousBatcher.for_tgnc`
+     with 16 slots (each request its row of `generate` at 16 rows, the
+     template logits and K/V computed a request), step 0 against the
+     plain path on the CPU (the `tgnc` JSON line).
+  17. Gen-1 (`models/gen1.py`): the train command on
+     `configs/goodnews/gen1_show_attend_tell.yaml` (fp32, gen1_adam)
+     with phase 8's cuts, no kernel launched, `evaluate -m best` (bf16,
+     one `band_topk_lse` over the folded head a step), step 0 against
+     the plain path; one B=16 batch from seeded random weights: beam 5
+     (80 rows, one band launch a step), `sample_with_attention` (the
+     maps' rows summing to 1, the tokens `sample`'s), greedy with its
+     device ms a step (the `gen1` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -2595,16 +2615,22 @@ def conv_positions_phase(torch, blocks):
     return out
 
 
+def stack_kvs(torch, per):
+    """Per-request lists of each layer's {context: AttentionKV}, stacked
+    into one list over the requests' rows, as a slot pool holds them."""
+    from news_image_caption_tpu_torch.ops.attention import AttentionKV
+    return [{name: AttentionKV(*(torch.cat([p[layer][name][i] for p in per])
+                                 for i in range(3)))
+             for name in per[0][layer]} for layer in range(len(per[0]))]
+
+
 def stacked_kvs(torch, model, batches):
     """The context K/V of each request projected alone (batch 1), as the
     slot pool projects them, then stacked: the yardstick's K/V equal the
     pool's bit for bit (a product of another batch may sum in another
     order)."""
-    from news_image_caption_tpu_torch.ops.attention import AttentionKV
-    per = [model.decoder.precompute_kv(model._contexts(b)) for b in batches]
-    return [{name: AttentionKV(*(torch.cat([p[layer][name][i] for p in per])
-                                 for i in range(3)))
-             for name in per[0][layer]} for layer in range(len(per[0]))]
+    return stack_kvs(torch, [model.decoder.precompute_kv(model._contexts(b))
+                             for b in batches])
 
 
 def rows_generate(torch, model, weights, batches, cfg, generator=None):
@@ -3336,29 +3362,59 @@ def family_launches_a_step(family: str) -> dict:
     """A greedy step's (or a Gen-2 chunk's) launches: the LSTM's tied
     adaptive head, one band call a band (3); Gen-2's folded head (1
     band) and the image and the article attention of each layer (6); the
-    pipeline's, the flagship decoder's (3 / 8 / 4 / 4)."""
+    pipeline's, the flagship decoder's (3 / 8 / 4 / 4); TGNC's, the
+    mixed heads' bands and the YAML's 4 trunk and 5 head layers a
+    kernel each, two attentions a layer (3 / 18 / 9 / 9); Gen-1's folded
+    head (1 band)."""
     if family == "pipeline":
         return greedy_launches_a_step()
+    if family == "tgnc":
+        return {"band_topk_lse": 3, "decode_cross_attention": 18,
+                "decode_conv_block": 9, "decode_ffn_block": 9}
     out = dict.fromkeys(("band_topk_lse", "decode_cross_attention",
                          "decode_conv_block", "decode_ffn_block"), 0)
     if family == "lstm":
         out["band_topk_lse"] = 3
+    elif family == "gen1":
+        out["band_topk_lse"] = 1
     else:
         out.update(band_topk_lse=1, decode_cross_attention=2 * GEN2_LAYERS)
     return out
 
 
-def first_step(torch, model, batch, k: int = 5, full: bool = False):
-    """Step 0's exact top-k candidates (log-probs, ids) of an LSTM or a
-    Gen-2 model on `batch`, on the batch's device; with `full`, also the
-    full-vocab log-probs [B, V] of the same hidden state in fp32 (the
-    plain path's yardstick; no decode path forms them)."""
+def first_step(torch, model, batch, k: int = 5, full: bool = False,
+               beam: int = 1):
+    """Step 0's exact top-k candidates (log-probs, ids) of an LSTM, a
+    Gen-2, a TGNC or a Gen-1 model on `batch`, on the batch's device;
+    with `full`, also the full-vocab log-probs [B, V] of the same step in
+    fp32 (the plain path's yardstick; no decode path forms them). A
+    Gen-1 `beam` > 1 is the beam search's step 0: each row tiled beam
+    times, B * beam rows."""
+    from news_image_caption_tpu_torch.models.gen1 import Gen1Model
+    from news_image_caption_tpu_torch.models.tgnc import TGNC
     with torch.inference_mode():
         w = model.decode_weights()
         dev = batch["article"].device
         B = batch["article"].shape[0]
         seed = torch.zeros(B, dtype=torch.long, device=dev)
-        if hasattr(model, "module"):                   # Gen-2
+        if isinstance(model, TGNC):
+            dec = model.tg_decoder
+            tree = model.prep(batch)
+            out = dec.step_topk(seed, 0, tree["kvs"], dec.init_cache(B, dev),
+                                tree["template_logits"], k, w)
+            lp = None
+            if full:                       # the same step, teacher forced
+                x = dec.hidden(seed[:, None], model._contexts(batch),
+                               tree["template_logits"])[:, 0]
+                lp = dec.adaptive_softmax.log_prob(
+                    x.float(), dec.embedder.embed_tables())
+        elif isinstance(model, Gen1Model):
+            holder, feats, _, _, _ = model._setup_decode(batch, w, beam)
+            h, _ = model.module.core_step(seed.repeat_interleave(beam),
+                                          feats, holder[0])
+            out = model.module.head(h, k, w)
+            lp = model.module.log_probs(h.float()) if full else None
+        elif hasattr(model, "module"):                 # Gen-2
             m = model.module
             x = m._layers(seed[:, None], seed, model.prep(batch),
                           m.init_cache(B, 2, dev))[:, 0]
@@ -3376,24 +3432,27 @@ def first_step(torch, model, batch, k: int = 5, full: bool = False):
         return (*out, lp)
 
 
-def family_vs_plain(torch, model, batch, what: str) -> dict:
+def family_vs_plain(torch, model, batch, what: str, n: int = 4,
+                    beam: int = 1) -> dict:
     """Step 0 on the card against the same weights' plain path on the
-    CPU (bf16), 4 rows: the top-5 log-probs within 0.1 (phase 4b's
-    tolerance), and the plain path's log-prob of each id the card chose
-    within 0.1 of the card's (random weights leave many near ties, so
-    the ids themselves are reported, not held)."""
-    rows = {k: v[:4] for k, v in batch.items()}
+    CPU (bf16), the batch's first n rows (a Gen-1 `beam` > 1: the beam
+    search's step 0, n * beam rows): the top-5 log-probs within 0.1
+    (phase 4b's tolerance), and the plain path's log-prob of each id the
+    card chose within 0.1 of the card's (random weights leave many near
+    ties, so the ids themselves are reported, not held)."""
+    rows = {k: v[:n] for k, v in batch.items()}
     cpu = copy.deepcopy(model)
     cpu.param_module.to("cpu")
     v_k, i_k, _ = (t if t is None else t.cpu()
-                   for t in first_step(torch, model, rows))
+                   for t in first_step(torch, model, rows, beam=beam))
     v_p, i_p, lp_p = first_step(torch, cpu,
                                 {k: v.cpu() for k, v in rows.items()},
-                                full=True)
+                                full=True, beam=beam)
     e0 = (v_k - v_p).abs().max().item()
     e_ids = (v_k - lp_p.gather(1, i_k)).abs().max().item()
     agree = (i_k == i_p).float().mean().item()
-    print(f"  {what}: step 0 on 4 rows, kernel vs plain path on the CPU:"
+    print(f"  {what}: step 0 on {n * beam} rows, kernel vs plain path on"
+          " the CPU:"
           f" top-5 log-probs max |diff| {e0:.4g} (tol 0.1), the plain"
           f" log-prob of the card's ids max |diff| {e_ids:.4g} (tol 0.1),"
           f" ids equal {agree:.3f}", flush=True)
@@ -3542,24 +3601,30 @@ def family_command(torch, flash, counted, family: str, path: str,
     return launches, summary, model, gcfg, batches
 
 
+def random_batch_model(torch, path: str):
+    """(the config's model in bf16 from weights seeded with 0, a staged
+    B=16 test batch, its generation config at max_len 32, the config)."""
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import build_model, load_config
+    cfg = load_config(path, json.dumps({"dataset": {"test": {"size": 16}}}))
+    model = build_model(cfg, "cuda", torch.bfloat16,
+                        torch.Generator(device="cuda").manual_seed(0))
+    model.param_module.eval()
+    batch = staged_batches(torch, cfg, "test", 16)[0][0]
+    return model, batch, dataclasses.replace(cli.generation_config(cfg),
+                                             max_len=32), cfg
+
+
 def family_greedy(torch, counted, family: str, path: str, spec: bool):
     """One B=16 batch of `path` from seeded random weights in bf16,
     greedy (and, with `spec`, speculative at spec_k 4, token for token
     greedy's), max_len 32: launches, a second call bit-equal, step 0
     against the plain path, the device ms a step. Returns (launches by
     path, summary, the model, its generation config)."""
-    from news_image_caption_tpu_torch import cli
-    from news_image_caption_tpu_torch.config import build_model, load_config
-
     name = path.split("/")[-1][:-5]
     per_step = family_launches_a_step(family)
-    cfg = load_config(path, json.dumps({"dataset": {"test": {"size": 16}}}))
-    model = build_model(cfg, "cuda", torch.bfloat16,
-                        torch.Generator(device="cuda").manual_seed(0))
-    model.param_module.eval()
-    batch = staged_batches(torch, cfg, "test", 16)[0][0]
+    model, batch, cfg32, cfg = random_batch_model(torch, path)
     w = model.decode_weights()
-    cfg32 = dataclasses.replace(cli.generation_config(cfg), max_len=32)
     (tok, _), n, secs = counted_run(counted, lambda: model.generate(
         batch, cfg32, w))
     again, _ = model.generate(batch, cfg32, w)
@@ -3621,13 +3686,8 @@ def gen2_rows_generate(torch, model, weights, requests, cfg):
     pool's yardstick."""
     from news_image_caption_tpu_torch.generation.generator import \
         generate_candidates
-    from news_image_caption_tpu_torch.ops.attention import AttentionKV
     with torch.inference_mode():
-        per = [model.prep(q) for q in requests]
-        kvs = [{name: AttentionKV(*(torch.cat([p[layer][name][i]
-                                               for p in per])
-                                    for i in range(3)))
-                for name in per[0][layer]} for layer in range(len(per[0]))]
+        kvs = stack_kvs(torch, [model.prep(q) for q in requests])
         B = len(requests)
         caches = model.module.init_cache(B, cfg.max_len + 1, "cuda")
         seed = torch.full((B,), cfg.bos_id, dtype=torch.long, device="cuda")
@@ -3933,6 +3993,204 @@ def pipeline_phase(torch, flash, counted):
     return launches, summary
 
 
+# -- phases 16 and 17: TGNC and Gen-1 -----------------------------------------
+
+TGNC_CONFIG = "configs/goodnews/joganic_tgnc.yaml"
+GEN1_CONFIG = "configs/goodnews/gen1_show_attend_tell.yaml"
+TGNC_SPEC_K = 4
+
+
+def tgnc_launches_a_chunk(B: int, k: int) -> dict:
+    """A TGNC chunk of k positions at B rows: the conv block a position
+    and layer (k launches of the one-token kernel over a copy of the
+    ring), the attentions once a layer and context, the FFN one launch
+    per 16 of the B*k rows a layer, the bands one per 128."""
+    per = family_launches_a_step("tgnc")
+    n = per["decode_conv_block"]
+    return {"band_topk_lse": per["band_topk_lse"] * -(-B * k // 128),
+            "decode_cross_attention": per["decode_cross_attention"],
+            "decode_conv_block": n * k * -(-B // 128),
+            "decode_ffn_block": n * -(-B * k // 16)}
+
+
+def events_ms(torch, fn):
+    """(fn's result, the ms between CUDA events recorded around it: the
+    span of a host-bound call, not its device busy time)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def tgnc_rows_generate(torch, model, weights, requests, cfg):
+    """TGNC's `generate` at B = len(requests), each request's K/V and
+    template logits computed alone (as `for_tgnc` computes them), then
+    stacked: the pool's yardstick."""
+    from news_image_caption_tpu_torch.generation.generator import \
+        generate_candidates
+    dec = model.tg_decoder
+    with torch.inference_mode():
+        per = [model.prep(q) for q in requests]
+        kvs = stack_kvs(torch, [p["kvs"] for p in per])
+        logits = torch.cat([p["template_logits"] for p in per])
+        B = len(requests)
+        caches = dec.init_cache(B, "cuda")
+        seed = torch.full((B,), cfg.bos_id, dtype=torch.long, device="cuda")
+        return generate_candidates(
+            lambda tok, i: dec.step_topk(tok, i, kvs, caches, logits, 1,
+                                         weights), seed, cfg)
+
+
+def tgnc_phase(torch, flash, counted):
+    """Phase 16. Returns ({path: {kernel: launches}}, summary)."""
+    from news_image_caption_tpu_torch.generation.continuous import \
+        ContinuousBatcher
+
+    launches, summary, trained, _, batches = family_command(
+        torch, flash, counted, "tgnc", TGNC_CONFIG,
+        train_command_overrides(""), spec=False)
+    del trained, batches
+    model, batch, cfg32, _ = random_batch_model(torch, TGNC_CONFIG)
+    w = model.decode_weights()
+    per_step = family_launches_a_step("tgnc")
+    (tok, _), n, secs = counted_run(counted, lambda: model.generate(
+        batch, cfg32, w))
+    again, _ = model.generate(batch, cfg32, w)
+    check(torch.equal(tok, again), "tgnc: a second greedy call differs")
+    tok_np = tok.cpu().numpy()
+    check_tokens(tok_np, 16, cfg32, model.tg_decoder.vocab_size)
+    steps = decode_steps(tok_np, cfg32.eos_id, cfg32.max_len)
+    check_launches("tgnc greedy B=16", n, per_step, steps)
+    launches["tgnc_batch"] = n
+    _, ev_ms = events_ms(torch, lambda: model.generate(batch, cfg32, w))
+    greedy = {"steps": steps, "wall_s": secs, "launches": n,
+              "launches_a_step": per_step,
+              "events_ms_per_step": ev_ms / steps,
+              **device_step(torch, model, batch, cfg32, w, TGNC_CONFIG)}
+    print(f"  tgnc greedy B=16: {steps} steps, {ev_ms / steps:.4f} ms between"
+          " CUDA events a step", flush=True)
+
+    # Speculative greedy with oracle drafts (the card's greedy caption).
+    oracle = dict(batch, article_ids=tok[:, 1:].contiguous())
+    (s_tok, _, chunks), n_s, s_secs = counted_run(
+        counted, lambda: model.generate_speculative(
+            oracle, cfg32, w, spec_k=TGNC_SPEC_K))
+    check_launches("tgnc speculative", n_s,
+                   tgnc_launches_a_chunk(16, TGNC_SPEC_K), chunks)
+    agree = (s_tok == tok).float().mean().item()
+    print(f"  tgnc speculative spec_k {TGNC_SPEC_K}, oracle drafts: {chunks}"
+          f" chunks for {steps} steps, {s_secs:.2f} s; tokens equal to"
+          f" greedy's {agree:.4f}", flush=True)
+    check(agree == 1.0, "tgnc: speculative tokens differ from greedy's")
+    launches["tgnc_speculative"] = n_s
+
+    # for_tgnc: 16 slots, the batch's 16 rows as requests, each its row of
+    # `generate` at 16 rows over the same per-request K/V and logits.
+    requests = [{k: v[r:r + 1] for k, v in batch.items()
+                 if k != "article_ids"} for r in range(16)]
+    engine = ContinuousBatcher.for_tgnc(model, cfg32, 16, weights=w,
+                                        inner_steps=8)
+
+    def pool():
+        ids = [engine.submit(q) for q in requests]
+        return ids, engine.run()
+    (ids, res), n_p, p_secs = counted_run(counted, pool)
+    p_steps = engine.n_chunks * engine.inner_steps
+    check_launches("tgnc pool", n_p, tgnc_launches_a_chunk(16, 1),
+                   p_steps)
+    launches["tgnc_pool"] = n_p
+    want, _ = tgnc_rows_generate(torch, model, w, requests, cfg32)
+    want = want.cpu().numpy()
+    for r in range(16):
+        check(bool(np.array_equal(res[ids[r]][0], want[r])),
+              f"tgnc pool: request {r} differs from its row of generate at"
+              " 16 rows")
+    print(f"  tgnc pool: 16 requests equal to their rows of generate at 16"
+          f" rows; {engine.n_chunks} dispatches, {p_secs:.2f} s", flush=True)
+    summary["greedy_batch"] = {
+        **greedy, "speculative": {"spec_k": TGNC_SPEC_K, "chunks": chunks,
+                                  "wall_s": s_secs,
+                                  "tokens_equal_to_greedy": agree},
+        "pool": {"slots": 16, "requests": 16, "dispatches": engine.n_chunks,
+                 "wall_s": p_secs},
+        **family_vs_plain(torch, model, batch, TGNC_CONFIG)}
+    summary["card"] = card_line()
+    return launches, summary
+
+
+def gen1_phase(torch, flash, counted):
+    """Phase 17. Returns ({path: {kernel: launches}}, summary)."""
+    overrides = train_command_overrides("")
+    del overrides["trainer"]["optimizer"]      # gen1_adam has no t_total
+    launches, summary, trained, _, batches = family_command(
+        torch, flash, counted, "gen1", GEN1_CONFIG, overrides, spec=False)
+    summary.update(family_vs_plain(torch, trained, batches[0][0],
+                                   GEN1_CONFIG))
+    del trained, batches
+    model, batch, cfg32, _ = random_batch_model(torch, GEN1_CONFIG)
+    w = model.decode_weights()
+    V1 = model.module.vocab_size + 1
+    seq_len = model.module.seq_length
+    band = family_launches_a_step("gen1")
+
+    # Beam 5 at B=16: 80 rows, one band launch a step, seq_length steps.
+    (b_tok, b_score), n_b, b_secs = counted_run(
+        counted, lambda: model.sample_beam(batch, beam_size=5))
+    check(tuple(b_tok.shape) == (16, seq_len)
+          and bool(((b_tok >= 0) & (b_tok < V1)).all())
+          and bool(torch.isfinite(b_score).all()),
+          f"gen1 beam: tokens {tuple(b_tok.shape)}, scores {b_score}")
+    check_launches("gen1 beam 5 B=16", n_b, band, seq_len)
+    launches["gen1_beam5"] = n_b
+    beam_step0 = family_vs_plain(torch, model, batch,
+                                 f"{GEN1_CONFIG} beam 5", n=16, beam=5)
+
+    # sample_with_attention: greedy, the maps' rows sum to 1.
+    (a_tok, a_lp, (vis, sen)), n_a, a_secs = counted_run(
+        counted, lambda: model.sample_with_attention(batch))
+    P = batch["image"].shape[1]
+    S = batch["article"].shape[1]
+    check(tuple(vis.shape) == (seq_len, 16, P)
+          and tuple(sen.shape) == (seq_len, 16, S), f"gen1 maps {vis.shape}"
+          f" {sen.shape}")
+    e_vis = (vis.float().sum(-1) - 1).abs().max().item()
+    e_sen = (sen.float().sum(-1) - 1).abs().max().item()
+    check(e_vis <= 1e-2 and e_sen <= 1e-2, f"gen1 maps' rows sum to 1 within"
+          f" {e_vis:.3g} / {e_sen:.3g}")
+    check_launches("gen1 sample_with_attention", n_a, band, seq_len)
+    launches["gen1_attention"] = n_a
+    g_tok, _ = model.sample(batch)
+    check(torch.equal(g_tok, a_tok), "gen1: sample_with_attention's tokens"
+          " differ from sample's")
+
+    # Greedy at B=16: the device ms a step.
+    (tok, _), n, secs = counted_run(counted, lambda: model.generate(
+        batch, cfg32, w))
+    steps = decode_steps(tok.cpu().numpy(), cfg32.eos_id, cfg32.max_len)
+    check_launches("gen1 greedy B=16", n, band, steps)
+    launches["gen1_batch"] = n
+    _, ev_ms = events_ms(torch, lambda: model.generate(batch, cfg32, w))
+    print(f"  gen1: beam 5 B=16 {b_secs:.2f} s, sample_with_attention"
+          f" {a_secs:.2f} s (maps' rows sum to 1 within {e_vis:.2g} /"
+          f" {e_sen:.2g}), greedy B=16 {steps} steps,"
+          f" {ev_ms / steps:.4f} ms between CUDA events a step", flush=True)
+    summary["greedy_batch"] = {
+        "steps": steps, "wall_s": secs, "launches": n,
+        "events_ms_per_step": ev_ms / steps,
+        "beam5": {"wall_s": b_secs, "launches": n_b, **beam_step0},
+        "sample_with_attention": {"wall_s": a_secs, "launches": n_a,
+                                  "vis_row_sum_err": e_vis,
+                                  "sen_row_sum_err": e_sen},
+        **device_step(torch, model, batch, cfg32, w, GEN1_CONFIG),
+        **family_vs_plain(torch, model, batch, GEN1_CONFIG)}
+    summary["card"] = card_line()
+    return launches, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4101,6 +4359,23 @@ def main() -> None:
                     by_path[name].get("pipeline", 0) + n
     print(json.dumps({"pipeline": {**pipe_summary,
                                    "launches": pipe_launches}}), flush=True)
+
+    for family, title, phase in (
+            ("tgnc", "phase 16: TGNC (joganic_tgnc.yaml's train and evaluate,"
+             " a greedy, speculative and pooled B=16 batch; bf16)",
+             tgnc_phase),
+            ("gen1", "phase 17: Gen-1 (gen1_show_attend_tell.yaml's train"
+             " and evaluate, beam 5, attention maps, a greedy B=16 batch;"
+             " bf16 decode)", gen1_phase)):
+        print(title, flush=True)
+        fam_launches, fam_summary = phase(torch, flash_attention, counted)
+        for counts in fam_launches.values():
+            for name, n in counts.items():
+                if n:
+                    launches[name] += n
+                    by_path[name][family] = by_path[name].get(family, 0) + n
+        print(json.dumps({family: {**fam_summary,
+                                   "launches": fam_launches}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

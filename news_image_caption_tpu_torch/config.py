@@ -22,15 +22,18 @@ model block's keys go to the builder as the reference passes them, a
 tuple and `max_entities` is accepted and dropped. It builds the LSTM
 captioner (`lstm_flattened` and `baseline_glove`, `models/
 decoder_lstm.py`; the model block's keys, or its `decoder:` block of
-type `lstm_decoder_flattened`) and the Gen-2 captioner
-(`gen2_transformer`, `models/gen2.py`), their keys checked as the
-reference's dataclasses check them, and the online pipeline
-(`gen3_pipeline`, `models/pipeline.py`: `weigh_bert`, the `resnet` and
-`roberta` blocks, the `decoder:` block or the model block's own decoder
-keys). The decoder options the port implements at one value only, and
-every other model type, raise `NotImplementedError` naming the ROADMAP
-item that ports them. `build_optimizer` builds `bert_adam` and `noam`,
-and leaves a model's `frozen_collections` out of them (`mask_frozen`).
+type `lstm_decoder_flattened`), the Gen-2 captioner
+(`gen2_transformer`, `models/gen2.py`) and the Gen-1 captioners (`gen1`,
+`models/gen1.py`), their keys checked as the reference's dataclasses
+check them, the online pipeline (`gen3_pipeline`, `models/pipeline.py`:
+`weigh_bert`, the `resnet` and `roberta` blocks, the `decoder:` block or
+the model block's own decoder keys) and TGNC (`tgnc`, `models/tgnc.py`:
+its own keys, then its template-guided or flattened decoder's). The
+decoder options the port implements at one value only raise
+`NotImplementedError` naming the ROADMAP item that ports them; an
+unknown model type raises KeyError. `build_optimizer` builds
+`bert_adam`, `noam` and `gen1_adam`, and leaves a model's
+`frozen_collections` out of them (`mask_frozen`).
 """
 
 from __future__ import annotations
@@ -48,15 +51,16 @@ from news_image_caption_tpu_torch.models.decoder_flattened import \
     DynamicConvDecoder
 from news_image_caption_tpu_torch.models.decoder_lstm import \
     LSTMFlattenedModel
+from news_image_caption_tpu_torch.models.gen1 import Gen1Model, gen1_factory
 from news_image_caption_tpu_torch.models.gen2 import (Gen2Captioner,
                                                       gen2_transformer)
 from news_image_caption_tpu_torch.models.pipeline import Gen3Pipeline
 from news_image_caption_tpu_torch.models.pointer import TransformerPointer
 from news_image_caption_tpu_torch.models.tgnc import (
-    transformer_entity, transformer_entity_pointer)
+    TGNC, transformer_entity, transformer_entity_pointer)
 from news_image_caption_tpu_torch.models.variants import (POINTER_VARIANTS,
                                                           VARIANTS)
-from news_image_caption_tpu_torch.training.optim import (NoamAdam,
+from news_image_caption_tpu_torch.training.optim import (NoamAdam, gen1_adam,
                                                         make_bert_adam,
                                                         mask_frozen)
 from news_image_caption_tpu_torch.yaml_subset import safe_load
@@ -124,7 +128,8 @@ _POINTER_OWN_KEYS = ("loss_weights", "use_entity_head", "max_entities",
 # model blocks (the reference's dataclass fields).
 FAMILIES = {"lstm_flattened": LSTMFlattenedModel,
             "baseline_glove": LSTMFlattenedModel,
-            "gen2_transformer": gen2_transformer}
+            "gen2_transformer": gen2_transformer,
+            "gen1": gen1_factory}
 _FAMILY_KEYS = {
     LSTMFlattenedModel: ("vocab_size", "embed_dim", "hidden_size",
                          "num_layers", "cutoff", "tie_adaptive_proj",
@@ -134,7 +139,21 @@ _FAMILY_KEYS = {
     gen2_transformer: ("smoothing", "vocab_size", "d_model", "d_ff",
                        "num_heads", "num_layers", "img_dim", "sent_dim",
                        "dropout_rate", "max_len", "pad_id", "remat"),
+    gen1_factory: ("model_type", "vocab_size", "input_encoding_size",
+                   "rnn_size", "num_layers", "att_hid_size", "fc_feat_size",
+                   "att_feat_size", "drop_prob", "seq_length",
+                   "sentence_embed_method", "sentence_embed_size",
+                   "sentence_length"),
 }
+# TGNC's own keys of the model block, and its template-guided decoder's
+# (the reference's `TemplateGuidedDecoder` fields).
+_TGNC_KEYS = ("n_templates", "image_dim", "article_dim",
+              "template_loss_weight", "use_template_decoder")
+_TGNC_DECODER_KEYS = ("vocab_size", "embed_dim", "ffn_dim", "num_heads",
+                      "num_layers", "kernel_sizes", "cutoff",
+                      "tie_adaptive_proj", "head_kernel", "dropout",
+                      "padding_idx", "target_padding_idx", "max_positions",
+                      "remat")
 # The online pipeline's own keys of the model block, and of its encoder
 # blocks (the reference's `ResNetTrunk` and `RobertaEncoder` fields, but
 # the RoBERTa's compute `dtype`; `ring` and `pipe`, its multi-device
@@ -144,9 +163,6 @@ _RESNET_KEYS = ("depth", "num_stages")
 _ROBERTA_KEYS = ("vocab_size", "hidden", "num_layers", "heads",
                  "intermediate", "max_positions", "padding_idx", "eps",
                  "ring", "pipe")
-# Model types of the reference and the ROADMAP Queue 1 item that ports
-# each.
-_NOT_PORTED = dict.fromkeys(("tgnc", "gen1", "decoder_tgnc"), "10b")
 
 
 def load_config(path: str, overrides: Optional[str] = None) -> Dict:
@@ -173,15 +189,6 @@ def merge_overrides(cfg: Dict, overrides: Dict) -> Dict:
     return out
 
 
-def _not_ported(kind: str, name: str) -> NotImplementedError:
-    item = _NOT_PORTED.get(name)
-    if item is None:
-        raise KeyError(f"unknown {kind} type {name!r}")
-    return NotImplementedError(
-        f"{kind} type {name!r} is not ported yet (ROADMAP Queue 1 item "
-        f"{item})")
-
-
 def config_dtype(value: Any) -> torch.dtype:
     if value not in _DTYPES:
         raise ValueError(f"unsupported dtype {value!r}; accepted "
@@ -202,11 +209,22 @@ def decoder_kwargs(cfg: Dict) -> Dict:
     if mtype in POINTERS:
         return _pointer_args(mcfg)
     if mtype in FAMILIES:
-        return _family_args(mtype, mcfg)
+        kw = _family_args(mtype, mcfg)
+        if mtype == "gen1":
+            # Flax reads the sentence embeddings' width and length from
+            # the batch; the port's layers are declared at build time.
+            data = cfg.get("dataset", {})
+            for key, dkey in (("sentence_embed_size", "article_dim"),
+                              ("sentence_length", "article_len")):
+                if kw.get(key) is None and dkey in data:
+                    kw[key] = data[dkey]
+        return kw
     if mtype == "gen3_pipeline":
         return _pipeline_args(mcfg)
+    if mtype == "tgnc":
+        return _tgnc_args(mcfg)
     if mtype not in CAPTIONERS:
-        raise _not_ported("model", mtype)
+        raise KeyError(f"unknown model type {mtype!r}")
     dcfg = mcfg.pop("decoder", None)
     if dcfg is None:
         dcfg, mcfg = mcfg, {}
@@ -221,7 +239,7 @@ def _decoder_args(dcfg: Dict) -> Dict:
     dcfg = dict(dcfg)
     dtype_ = dcfg.pop("type", "dynamic_conv_decoder_flattened")
     if dtype_ != "dynamic_conv_decoder_flattened":
-        raise _not_ported("decoder", dtype_)
+        raise KeyError(f"unknown decoder type {dtype_!r}")
     for key, want in _FIXED.items():
         if key in dcfg:
             got = dcfg.pop(key)
@@ -279,6 +297,35 @@ def _pipeline_args(mcfg: Dict) -> Dict:
     return {**kw, **_decoder_args(dcfg)}
 
 
+def _tgnc_args(mcfg: Dict) -> Dict:
+    """TGNC's model block as `TGNC`'s keywords: its own keys, then its
+    decoder's, from its `decoder:` block or the block's other keys:
+    `TemplateGuidedDecoder`'s (type `decoder_tgnc`) with
+    use_template_decoder, else a flattened decoder's. An unknown key
+    raises TypeError; `dtype` is the model's (float32 by default)."""
+    kw = {k: mcfg.pop(k) for k in _TGNC_KEYS if k in mcfg}
+    dcfg = mcfg.pop("decoder", None)
+    if dcfg is not None:
+        if mcfg:
+            raise TypeError(f"tgnc: unknown keys {sorted(mcfg)}")
+        mcfg = dict(dcfg)
+    dtype = config_dtype(mcfg.pop("dtype", "float32"))
+    if kw.get("use_template_decoder", False):
+        dtype_ = mcfg.pop("type", "decoder_tgnc")
+        if dtype_ != "decoder_tgnc":
+            raise TypeError(f"tgnc: decoder type {dtype_!r} with "
+                            "use_template_decoder is not decoder_tgnc")
+        unknown = sorted(set(mcfg) - set(_TGNC_DECODER_KEYS))
+        if unknown:
+            raise TypeError(f"decoder_tgnc: unknown keys {unknown}")
+        dec = {k: tuple(v) if isinstance(v, list) else v
+               for k, v in mcfg.items()}
+    else:
+        dec = _decoder_args(mcfg)
+        dec.pop("dtype")
+    return {**kw, **dec, "dtype": dtype}
+
+
 def _pointer_args(mcfg: Dict) -> Dict:
     """A pointer's model block as its builder's keywords. The model's
     one dtype is the block's, else its decoder block's."""
@@ -300,7 +347,8 @@ def _pointer_args(mcfg: Dict) -> Dict:
 def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Union[TransformerFlattened, TransformerPointer,
-                           LSTMFlattenedModel, Gen2Captioner, Gen3Pipeline]:
+                           LSTMFlattenedModel, Gen2Captioner, Gen3Pipeline,
+                           TGNC, Gen1Model]:
     """The `model:` block's model on `device`, its parameters and
     compute in `dtype` (default: the config's `dtype`, float32 unless
     set; the LSTM and Gen-2 blocks have no dtype key), drawn from
@@ -320,6 +368,8 @@ def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
                                            **kw["decoder"])
     if mtype == "gen3_pipeline":
         return Gen3Pipeline(device=device, generator=generator, **kw)
+    if mtype == "tgnc":
+        return TGNC(device=device, generator=generator, **kw)
     builder = POINTERS.get(mtype) or CAPTIONERS[mtype]
     return builder(device=device, generator=generator, **kw)
 
@@ -343,20 +393,16 @@ def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:
 
 
 def build_optimizer(cfg: Dict, model=None):
-    """The `trainer.optimizer` block's optimizer: `bert_adam` or `noam`
-    with the reference's defaults and key names (`e` is bert_adam's
-    eps). An unknown key raises ValueError, so a misspelled
-    hyperparameter never trains at its default; `gen1_adam` comes with
-    the Gen-1 family (ROADMAP Queue 1 item 10b). A `model` that declares
+    """The `trainer.optimizer` block's optimizer: `bert_adam`, `noam` or
+    `gen1_adam` with the reference's defaults and key names (`e` is
+    bert_adam's eps, `grad_clip` gen1_adam's clamp). An unknown key
+    raises ValueError, so a misspelled hyperparameter never trains at
+    its default. A `model` that declares
     `frozen_collections` (the pipeline's encoders) gets them left out of
     the optimizer (`mask_frozen`): no decay, no moments."""
     ocfg = copy.deepcopy(cfg.get("trainer", {}).get(
         "optimizer", {"type": "bert_adam"}))
     otype = ocfg.pop("type")
-    if otype == "gen1_adam":
-        raise NotImplementedError(
-            f"optimizer type {otype!r} is not ported yet (ROADMAP Queue 1 "
-            "item 10b)")
     if otype == "bert_adam":
         tx = make_bert_adam(
             lr=ocfg.pop("lr", 1e-4), t_total=ocfg.pop("t_total", 437600),
@@ -368,6 +414,12 @@ def build_optimizer(cfg: Dict, model=None):
         tx = NoamAdam(model_size=ocfg.pop("model_size", 512),
                       factor=ocfg.pop("factor", 1.0),
                       warmup=ocfg.pop("warmup", 30000))
+    elif otype == "gen1_adam":
+        tx = gen1_adam(lr=ocfg.pop("lr", 5e-4),
+                       decay_start=ocfg.pop("decay_start", 0),
+                       decay_every=ocfg.pop("decay_every", 10000),
+                       decay_rate=ocfg.pop("decay_rate", 0.8),
+                       grad_clip_value=ocfg.pop("grad_clip", 5.0))
     else:
         raise KeyError(f"unknown optimizer type {otype!r}")
     if ocfg:

@@ -7,7 +7,8 @@ article and article_mask (`LOSS_KEYS`, in every batch), and the faces,
 objects and entities with their masks where the set draws them. A
 pointer model's loss also reads article_ids, caption_copy_masks and
 context_proper_masks (`POINTER_KEYS`), which `loss_inputs` keeps when
-asked. RoBERTa-style captions: bos 0, eos 2, pad 1.
+asked, as it keeps TGNC's `template_label` (its `batch_keys`).
+RoBERTa-style captions: bos 0, eos 2, pad 1.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Continuous batching: a pool of decode slots refilled mid-flight.
 
 Counterpart of `news_image_caption_tpu/generation/continuous.py`
-(`_SlotPool`, `ContinuousBatcher` with `for_flattened`, `for_pointer`
-and `for_gen2`, `ContinuousBeamBatcher`). The decoder steps a fixed pool
-of W slots; requests queue, each slot decodes its own caption at its own
-position, and a slot whose caption is done is harvested and refilled
-without stopping the others.
+(`_SlotPool`, `ContinuousBatcher` with `for_flattened`, `for_pointer`,
+`for_tgnc` and `for_gen2`, `ContinuousBeamBatcher`). The decoder steps a
+fixed pool of W slots; requests queue, each slot decodes its own caption
+at its own position, and a slot whose caption is done is harvested and
+refilled without stopping the others.
 
 The pool's state lives on the model's device in tensors allocated once
 (`reset`) and written in place: tokens, log-probs, positions, finished
@@ -32,10 +32,11 @@ engines:
   keys, the article's ids and relevance, entity K/V and a copied-token
   table, and results carry the copied flags; over the Gen-2 family
   (`for_gen2`) the caches are the self-attention K/V that the chunk
-  writes at each slot's positions;
+  writes at each slot's positions; over TGNC (`for_tgnc`) each slot
+  also carries its request's template logits, and the caches are the
+  trunk's and the template heads' rings;
 - `ContinuousBeamBatcher`: exact beam search, K rows a slot; a harvested
   result equals `generate_beam` on the request alone.
-The TGNC engine comes with its model family.
 """
 
 from __future__ import annotations
@@ -572,10 +573,41 @@ class ContinuousBatcher(_SlotPool):
                    clear_slot_fn=model.clear_pointer_slot)
 
     @classmethod
-    def for_tgnc(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "ContinuousBatcher.for_tgnc: TGNC is not ported yet (ROADMAP "
-            "Queue 1 item 10b)")
+    def for_tgnc(cls, model, config: GenerationConfig, n_slots: int,
+                 weights=None, inner_steps: int = 8, spec_k: int = 1,
+                 source_len: int = 512, ngram_n: int = 2,
+                 max_queue: Optional[int] = None,
+                 harvest_lag: int = 1) -> "ContinuousBatcher":
+        """An engine over TGNC's template-guided decoder, greedy or
+        speculative: a request's template logits (the classifier over
+        its article and image) are computed once in prep and ride its
+        slot beside its K/V (`TGNC.prep`); the trunk's and the heads'
+        rings advance by `commit_conv_caches`; chunks go through
+        `TemplateGuidedDecoder.step_chunk` at each slot's position.
+        weights: the decoder's `decode_weights()`, computed here when
+        not given. A TGNC without its template decoder is a flattened
+        captioner: serve `model.captioner` through `for_flattened`."""
+        if config.sampling_topk != 1:
+            raise ValueError("the tgnc engine is greedy-only "
+                             "(sampling_topk must be 1)")
+        if not model.use_template_decoder:
+            raise ValueError("this TGNC has no template decoder; use "
+                             "for_flattened on model.captioner")
+        dec = model.tg_decoder
+        model._check_max_len(config)
+        if weights is None:
+            weights = dec.decode_weights()
+        device = next(dec.parameters()).device
+
+        def chunk_fn(tokens, pos, tree, caches):
+            return dec.step_chunk(tokens, pos, tree["kvs"], caches,
+                                  tree["template_logits"], weights)
+
+        return cls(model.prep, chunk_fn, commit_conv_caches,
+                   lambda W: dec.init_cache(W, device), config, n_slots,
+                   device, inner_steps=inner_steps, spec_k=spec_k,
+                   source_len=source_len, ngram_n=ngram_n,
+                   max_queue=max_queue, harvest_lag=harvest_lag)
 
     @classmethod
     def for_gen2(cls, model, config: GenerationConfig, n_slots: int,

@@ -330,6 +330,7 @@ class DynamicConvDecoder(nn.Module):
         self.embed_dim = embed_dim
         self.article_dim = article_dim
         self.kernel_sizes = tuple(kernel_sizes)
+        self.num_layers = num_layers
         self.max_positions = max_positions
         self.dropout = dropout
         self.target_padding_idx = target_padding_idx
@@ -350,19 +351,28 @@ class DynamicConvDecoder(nn.Module):
             for k in kernel_sizes)
         self.adaptive_softmax = AdaptiveSoftmax(embed_dim, cutoff, **kw)
 
+    def all_layers(self) -> List[DynamicConvDecoderLayer]:
+        """Every decoder layer, in the order of `kvs`, caches and decode
+        weights (a subclass may add layers after the stack's)."""
+        return list(self.layers)
+
     def precompute_kv(self, contexts: Dict[str, Optional[torch.Tensor]]
                       ) -> List[LayerKV]:
         contexts = {k: (v.to(self.dtype)
                         if v is not None and v.is_floating_point() else v)
                     for k, v in contexts.items()}
-        return [layer.precompute_kv(contexts) for layer in self.layers]
+        return [layer.precompute_kv(contexts) for layer in self.all_layers()]
 
     def hidden(self, token_ids: torch.Tensor,
                contexts: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced hidden states [B, T, D]; training with a
         generator."""
-        kvs = self.precompute_kv(contexts)
+        return self._stack(token_ids, self.precompute_kv(contexts), generator)
+
+    def _stack(self, token_ids: torch.Tensor, kvs: List[LayerKV],
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The embedding and the stack's layers, teacher forced."""
         x = dropout(self.embedder(token_ids), self.dropout, generator)
         for layer, kv in zip(self.layers, kvs):
             x = layer(x, kv, generator)
@@ -387,7 +397,10 @@ class DynamicConvDecoder(nn.Module):
     def log_prob(self, token_ids: torch.Tensor,
                  contexts: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Full-vocab log-probs [B, T, V] (teacher forced)."""
-        x = self.hidden(token_ids, contexts)
+        return self.log_prob_from_hidden(self.hidden(token_ids, contexts))
+
+    def log_prob_from_hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """Full-vocab log-probs [B, T, V] of hidden states x [B, T, D]."""
         B, T, D = x.shape
         lp = self.adaptive_softmax.log_prob(x.reshape(B * T, D),
                                             self.embedder.embed_tables())
@@ -412,9 +425,9 @@ class DynamicConvDecoder(nn.Module):
     def init_cache(self, batch_size: int, device) -> List[torch.Tensor]:
         """Zero ring-major conv histories [K-1, B, C], one per layer
         (empty for a pointwise layer)."""
-        return [torch.zeros(k - 1, batch_size, self.embed_dim,
-                            device=device, dtype=self.dtype)
-                for k in self.kernel_sizes]
+        return [torch.zeros(layer.kernel_size - 1, batch_size,
+                            self.embed_dim, device=device, dtype=self.dtype)
+                for layer in self.all_layers()]
 
     def decode_weights(self) -> DecodeWeights:
         """The step's fused weights; compute once per model load."""
@@ -422,16 +435,16 @@ class DynamicConvDecoder(nn.Module):
             tables = self.embedder.embed_tables()
             return DecodeWeights(
                 layers=[layer.decode_weights(self.dtype)
-                        for layer in self.layers],
+                        for layer in self.all_layers()],
                 head_table=self.adaptive_softmax.head_table(tables,
                                                             self.dtype))
 
     def _step_layers(self, token_t: torch.Tensor, step_idx,
                      kvs: List[LayerKV], caches: List[torch.Tensor],
                      weights: DecodeWeights, beam: int) -> torch.Tensor:
-        """The layers of one decode step: hidden state [B*beam, D]; the
-        conv caches advance in place. step_idx: an int, or each row's
-        position (a [B*beam] tensor)."""
+        """The stack's layers of one decode step: hidden state
+        [B*beam, D]; their conv caches advance in place. step_idx: an
+        int, or each row's position (a [B*beam] tensor)."""
         start = step_idx
         if isinstance(step_idx, torch.Tensor):
             step_idx = _positions(step_idx)
@@ -489,7 +502,17 @@ class DynamicConvDecoder(nn.Module):
         pointer family's heads read. Positions past the embedder's table
         take its last row: only a chunk's tail reaches there, whose
         outputs are never committed."""
-        pos = _positions(pos)
+        x, hs = self._chunk_layers(tokens, _positions(pos), kvs, caches,
+                                   weights)
+        v, ids = self.adaptive_softmax.topk_log_prob(
+            x, 1, self.embedder.embed_tables(), weights.head_table)
+        return v[..., 0], ids[..., 0], x, hs
+
+    def _chunk_layers(self, tokens: torch.Tensor, pos: torch.Tensor,
+                      kvs: List[LayerKV], caches: List[torch.Tensor],
+                      weights: DecodeWeights):
+        """The embedding and the stack's layers of a chunk at int32
+        positions pos [B]: (hidden [B, k, D], the layers' conv inputs)."""
         k = tokens.shape[1]
         offsets = torch.arange(k, device=pos.device)
         start = (pos[:, None] + offsets).clamp(max=self.max_positions)
@@ -502,9 +525,7 @@ class DynamicConvDecoder(nn.Module):
                                        weights.layers):
             x, h = layer.chunk(x, kv, cache, pos, w)
             hs.append(h)
-        v, ids = self.adaptive_softmax.topk_log_prob(
-            x, 1, self.embedder.embed_tables(), weights.head_table)
-        return v[..., 0], ids[..., 0], x, hs
+        return x, hs
 
     def step_with_hidden(self, token_t: torch.Tensor, step_idx: int,
                          kvs: List[LayerKV], caches: List[torch.Tensor],

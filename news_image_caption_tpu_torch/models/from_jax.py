@@ -4,14 +4,19 @@
 leaves, flax names such as `layers_0/image_attn/k_proj/kernel`) onto
 the state dict of a port module whose parameter names mirror the flax
 tree (`layers.0.image_attn.k_proj.kernel`): the `DynamicConvDecoder`,
-the LSTM captioner (`cells_0.ih.kernel`, `h0_0`) and the Gen-2
-transformer (`layers.0.norm_0.a_2`, `embed.embedding`).
+the LSTM captioner (`cells_0.ih.kernel`, `h0_0`), the Gen-2
+transformer (`layers.0.norm_0.a_2`, `embed.embedding`) and the Gen-1
+captioners (`core.rnn.ih_0.kernel`, `logit.kernel`; convolutions'
+kernels in flax's layout in both packages).
 Kernels are (in, out) in both packages, so no leaf is transposed: the
 copy head's raw `q_proj_weight` [E, E] and `k_proj_weight` [kdim, E]
 are used as `x @ W` in both too. A pointer's variables
 {captioner, entity_attn, entity_fc, copy_attn}, each with its own
 `params` collection, map onto `models/pointer.py::TransformerPointer`,
-the captioner's under `decoder.`. The online pipeline's variables
+the captioner's under `decoder.`. TGNC's variables {classifier,
+decoder} (or {classifier, captioner} without the template decoder) map
+onto `models/tgnc.py::TGNCModule` under the same names; its heads keep
+flax's `head_{i}`. The online pipeline's variables
 {captioner, resnet, roberta, weighted_sum} map onto `models/pipeline.py::
 Gen3Pipeline` the same way, its encoders' leaves into PyTorch's layout:
 conv kernels HWIO -> OIHW and Dense kernels transposed, as `weight`;
@@ -97,7 +102,11 @@ def _strip(tree: Mapping[str, Any]) -> Mapping[str, Any]:
 def _mapped(tree: Mapping[str, Any],
             expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
     tree = _strip(tree)
-    if "captioner" in tree:
+    if "classifier" in tree:
+        # TGNC's variables: each part its own collection, named as the
+        # port's (`classifier.`, then `decoder.` or `captioner.`).
+        tree = {k: _strip(v) for k, v in tree.items()}
+    elif "captioner" in tree:
         # The pointer's variables: each part its own collection, the
         # captioner's params the port's `decoder.`.
         tree = {("decoder" if k == "captioner" else k): _strip(v)

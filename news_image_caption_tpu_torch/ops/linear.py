@@ -66,6 +66,37 @@ class XavierLinear(nn.Module):
         return y
 
 
+class Dense(nn.Module):
+    """flax `nn.Dense`: y = x @ kernel + bias. The kernel is drawn
+    normal with variance 1 / in_features, cut at two deviations (flax's
+    lecun-normal), or uniform in ±uniform_scale; the bias is zero."""
+
+    def __init__(self, in_features: int, features: int, *, device, dtype,
+                 generator: torch.Generator | None = None,
+                 use_bias: bool = True,
+                 uniform_scale: float | None = None):
+        super().__init__()
+        self.kernel = new_param((in_features, features), device, dtype)
+        self.bias = new_param((features,), device, dtype) if use_bias else None
+        if initializes(device):
+            with torch.no_grad():
+                if uniform_scale is None:
+                    std = math.sqrt(1.0 / in_features)
+                    self.kernel.normal_(0.0, std, generator=generator)
+                    self.kernel.clamp_(-2.0 * std, 2.0 * std)
+                else:
+                    self.kernel.uniform_(-uniform_scale, uniform_scale,
+                                         generator=generator)
+                if self.bias is not None:
+                    self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.kernel.to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
 class GehringLinear(nn.Module):
     """Linear with weight normalization w = scale * kernel / ||kernel||
     (norm per output feature), fan-in normal init with scale = ||kernel||.

@@ -1,4 +1,4 @@
-"""BertAdam and its warmup-linear schedule; Noam's Adam.
+"""BertAdam and its warmup-linear schedule; Noam's and Gen-1's Adam.
 
 Counterpart of `news_image_caption_tpu/training/optim.py::bert_adam`
 and `warmup_linear_schedule` (the flagship's optimizer): each tensor's
@@ -8,7 +8,10 @@ added to the update, the update scaled by -lr(n). And of `noam_adam`
 and `noam_schedule` (the Gen-2 family's): optax's `scale_by_adam` (bias
 correction, b1 0.9, b2 0.98, eps 1e-9, no decay, no clipping) scaled by
 -lr(n), lr(n) = factor * model_size^-0.5 * min(s^-0.5, s *
-warmup^-1.5) with s = max(n, 1).
+warmup^-1.5) with s = max(n, 1). And of `gen1_adam` and
+`step_decay_schedule` (the Gen-1 family's): each gradient element
+clamped to ±grad_clip_value, then the same Adam (b1 0.8, b2 0.999, eps
+1e-8), scaled by the step-decayed rate.
 
 As in optax's `scale_by_learning_rate`, n counts the updates applied so
 far, starting at 0: lr(0) = 0 under the warmup, so the first update
@@ -150,17 +153,18 @@ def noam_schedule(model_size: int, factor: float = 1.0, warmup: int = 30000
     return schedule
 
 
-class NoamAdam:
-    """optax `chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(
-    noam_schedule))`: Adam with bias correction at update t = n + 1, the
-    rate read at n. `init` / `apply` as `BertAdam`'s, over the same
-    state (count, mu, nu)."""
+class ScheduledAdam:
+    """optax `chain([clip(clip_value)], scale_by_adam(b1, b2, eps),
+    scale_by_learning_rate(lr_schedule))`: each gradient element clamped
+    to ±clip_value where one is given, then Adam with bias correction at
+    update t = n + 1, the rate read at n. `init` / `apply` as
+    `BertAdam`'s, over the same state (count, mu, nu)."""
 
-    def __init__(self, model_size: int, factor: float = 1.0,
-                 warmup: int = 30000, b1: float = 0.9, b2: float = 0.98,
-                 eps: float = 1e-9):
-        self.lr_schedule = noam_schedule(model_size, factor, warmup)
+    def __init__(self, lr_schedule: Callable[[int], float], b1: float,
+                 b2: float, eps: float, clip_value: Optional[float] = None):
+        self.lr_schedule = lr_schedule
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.clip_value = clip_value
 
     def init(self, master: List[torch.Tensor]) -> BertAdamState:
         return BertAdamState(count=0,
@@ -174,6 +178,9 @@ class NoamAdam:
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.b1) ** t)
         bc2 = float(f32(1) - f32(self.b2) ** t)
+        if self.clip_value is not None:
+            torch._foreach_clamp_min_(grads, -self.clip_value)
+            torch._foreach_clamp_max_(grads, self.clip_value)
         torch._foreach_mul_(state.mu, self.b1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(state.nu, self.b2)
@@ -185,6 +192,45 @@ class NoamAdam:
         torch._foreach_div_(updates, denom)
         torch._foreach_add_(master, updates, alpha=-lr)
         state.count += 1
+
+
+class NoamAdam(ScheduledAdam):
+    """optax `chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(
+    noam_schedule))`, the Gen-2 family's optimizer."""
+
+    def __init__(self, model_size: int, factor: float = 1.0,
+                 warmup: int = 30000, b1: float = 0.9, b2: float = 0.98,
+                 eps: float = 1e-9):
+        super().__init__(noam_schedule(model_size, factor, warmup), b1, b2,
+                         eps)
+
+
+def step_decay_schedule(lr: float, decay_start: int, decay_every: int,
+                        decay_rate: float = 0.8) -> Callable[[int], float]:
+    """The Gen-1 trainer's step decay: lr * decay_rate ** ((n -
+    decay_start) // decay_every) from decay_start on (the power at 0
+    before it), in float32 as the reference's jitted step computes it; a
+    negative decay_start never decays."""
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        if decay_start < 0:
+            return float(f32(lr))
+        frac = max(step - decay_start, 0) // max(decay_every, 1)
+        return float(f32(lr) * f32(decay_rate) ** f32(frac))
+
+    return schedule
+
+
+def gen1_adam(lr: float, decay_start: int, decay_every: int,
+              decay_rate: float = 0.8, grad_clip_value: float = 5.0,
+              b1: float = 0.8, b2: float = 0.999, eps: float = 1e-8
+              ) -> ScheduledAdam:
+    """The Gen-1 trainer's optimizer: each gradient element clamped to
+    ±grad_clip_value, then Adam, then the step decay."""
+    return ScheduledAdam(step_decay_schedule(lr, decay_start, decay_every,
+                                             decay_rate),
+                         b1, b2, eps, clip_value=grad_clip_value)
 
 
 def mask_frozen(tx, frozen_collections: Sequence[str]):

@@ -308,11 +308,12 @@ def test_engine_constructor_validation(setup):
 
 @pytest.mark.parametrize("name", ["for_tgnc", "for_gen2"])
 def test_other_families_raise_naming_item_10(name):
-    """TGNC's engine is not ported (item 10b); Gen-2's is, and refuses
-    sampling as the reference's does."""
+    """TGNC's and Gen-2's engines, ported with their families (ROADMAP
+    Queue 1 item 10b), refuse sampling as the reference's do."""
     if name == "for_tgnc":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
-            ContinuousBatcher.for_tgnc(None, None, 2)
+        with pytest.raises(ValueError, match="greedy-only"):
+            ContinuousBatcher.for_tgnc(
+                None, GenerationConfig(max_len=4, sampling_topk=3), 2)
         return
     with pytest.raises(ValueError, match="greedy-only"):
         ContinuousBatcher.for_gen2(

@@ -168,11 +168,9 @@ def test_random_init_command_runs(tmp_path, capsys):
     ("train", {"trainer": {"checkpoint_format": "sharded"}}, [], "11"),
     ("evaluate", {"dataset": {"type": "nics_shards"}}, [], "5b"),
     ("evaluate", {"model": {"decoder": {"normalize_before": True}}}, [], "8"),
-    ("evaluate", {"model": {"type": "tgnc"}}, [], "10b"),
     ("evaluate", {"model": {"type": "gen3_pipeline",
                             "roberta": {"ring": {"data": 1, "context": 2}}}},
      [], "11"),
-    ("train", {"trainer": {"optimizer": {"type": "gen1_adam"}}}, [], "10b"),
     ("train", {"trainer": {"profile_steps": 3}}, [], "5b"),
     ("train", {"trainer": {"mesh": {"data": -1, "model": 1}}}, [], "11"),
     ("train", {"trainer": {"distributed": True}}, [], "11"),
@@ -186,6 +184,28 @@ def test_options_not_ported_raise(tmp_path, command, overrides, argv, item):
                   json.dumps(overrides)] + argv)
     assert not (tmp_path / "generations.jsonl").exists()
     assert not (tmp_path / "metrics.jsonl").exists()
+
+
+@pytest.mark.parametrize("command,overrides", [
+    ("evaluate", {"model": {"type": "tgnc"}}),
+    ("train", {"model": {"type": "tgnc"}}),
+])
+def test_options_ported_with_the_last_families_run(tmp_path, command,
+                                                   overrides):
+    """TGNC over the tiny config's flattened decoder, once raising
+    (ROADMAP Queue 1 item 10b), now trains and evaluates (the Gen-1
+    optimizer builds: tests/test_torch_training_loop.py)."""
+    overrides = dict(overrides, trainer=dict(
+        overrides.get("trainer", {}), num_epochs=1,
+        serialization_dir=str(tmp_path)))
+    assert cli.main([command, TINY, "--platform", "cpu", "-o",
+                     json.dumps(overrides)]) == 0
+    if command == "evaluate":
+        assert (tmp_path / "generations.jsonl").read_text().count("\n") == 8
+    else:
+        val = json.loads((tmp_path / "metrics.jsonl").read_text())
+        assert val["split"] == "val" and np.isfinite(val["loss"])
+        assert (tmp_path / "checkpoints" / "best.pt").exists()
 
 
 def test_checkpoint_directory_raises(tmp_path):

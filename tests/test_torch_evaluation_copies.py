@@ -420,11 +420,17 @@ def test_build_model_decodes_narrowed_on_the_cpu(path):
                                         - set(POINTER_FAMILY)
                                         - set(LSTM_GEN2_FAMILIES)
                                         - set(PIPELINE)))
-def test_build_model_raises_for_models_not_ported(path):
+def test_build_model_builds_the_last_two_families(path):
+    """TGNC's and Gen-1's configs, the rest of the repository's, build at
+    full width with the reference's parameters (their commands run in
+    tests/test_torch_tgnc_gen1_cli.py)."""
     cfg = config.load_config(str(REPO / path))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 item 10b\)"):
-        config.build_model(cfg, "meta")
+    assert cfg["model"]["type"] in ("tgnc", "gen1")
+    model = config.build_model(cfg, "meta")
+    tree = jax.tree.map(lambda s: np.lib.stride_tricks.as_strided(
+        np.zeros(1, np.float32), s.shape, (0,) * len(s.shape)),
+        _jax_shapes(cfg))
+    params_from_jax(tree, model.param_module)   # strict: names and shapes
 
 
 @pytest.mark.parametrize("key,value", [

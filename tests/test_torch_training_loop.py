@@ -449,10 +449,14 @@ def test_build_optimizer_reads_the_references_keys():
                                                           1.0}}})
     with pytest.raises(ValueError, match="learning_rate"):
         build_optimizer(bad)
-    other = merge_overrides(cfg, {"trainer": {"optimizer": {
-        "type": "gen1_adam"}}})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_optimizer(other)
+    gen1 = build_optimizer({"trainer": {"optimizer": {
+        "type": "gen1_adam", "lr": 5e-4, "decay_every": 30000,
+        "decay_rate": 0.8, "grad_clip": 2.0}}})
+    assert (gen1.b1, gen1.b2, gen1.eps, gen1.clip_value) == (
+        0.8, 0.999, 1e-8, 2.0)
+    gsched = jax.jit(jax_optim.step_decay_schedule(5e-4, 0, 30000, 0.8))
+    for n in (0, 29999, 30000, 90001):
+        assert gen1.lr_schedule(n) == float(gsched(jnp.int32(n)))
     noam = {"trainer": {"optimizer": {"type": "noam", "model_size": 512,
                                       "warmup": 300}}}
     tx = build_optimizer(noam)
