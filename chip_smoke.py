@@ -235,6 +235,33 @@ Phases, each fatal on failure (exit code 1, no result line):
      (80 rows, one band launch a step), `sample_with_attention` (the
      maps' rows summing to 1, the tokens `sample`'s), greedy with its
      device ms a step (the `gen1` JSON line).
+  18. the data path: `cli.main(["preprocess", ...])` on 96 jsonl
+     records naming people and places (64 train, 32 val) with
+     `--records-per-shard 32`, ResNet-152 and RoBERTa-large built on the
+     card in bf16 with seeded random weights (the records carry no
+     image: the reference's zeros; no kernel of the port launched), then
+     `materialize(reader=...)` over 32 records with 256 x 256 random
+     uint8 images inline; the first batch of 16 of each pass against the
+     same encoders in fp32 on the card (relative error in norm within
+     `DATA_FEATURE_TOL`), the pixels' features not the zeros'; every
+     field of every record read back through `NativeShardLoader` bit
+     for bit what was written, a shuffled epoch a permutation of the
+     records; the flagship YAML with `dataset: nics_shards` over the
+     shards (bf16_o2, flash, B=16, phase 8's amounts) trained 2 epochs:
+     losses finite, none skipped, flash 8 + 8 a step and 8 a val batch,
+     no decode launch; `evaluate -m best` on the val shard: the files,
+     3 / 8 / 4 / 4 launches a step. Print encode ms a batch of 16,
+     records/s, the shard reader's batches/s on the host, the train
+     step's median and `input_wait` (the `data_commands` JSON line);
+  19. the migration path: a flagship-width reference-keyed decoder
+     (`tests/torch_tell_decoder.py`, seeded) saved as `best.th`, ported
+     by `cli.main(["port", CONFIG, best.th, "-s", DIR])` onto the
+     flagship YAML (bf16_o2: best.pt's bf16 params its fp32 master's);
+     the ported master's teacher-forced log-probs through the port's
+     decoder, fp32 on the card, against the reference-keyed decoder's
+     own fp32 forward on the card (|diff| <= 2e-4 + 2e-4 |reference|);
+     `evaluate -m best` on 32 test records: the files, 3 / 8 / 4 / 4
+     launches a step (the `port_command` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -4191,6 +4218,422 @@ def gen1_phase(torch, flash, counted):
     return launches, summary
 
 
+PEOPLE = ("Barack Obama", "Angela Merkel", "Emmanuel Macron",
+          "Jacinda Ardern", "José Mujica", "Narendra Modi", "Serena Williams",
+          "Lionel Messi")
+PLACES = ("Paris", "New York", "Berlin", "Wellington", "Montevideo",
+          "New Delhi", "London", "Buenos Aires")
+
+
+def news_records(n: int, seed: int = 0) -> list:
+    """n news records whose captions and articles name people and
+    places (seeded), about 150 words an article."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        who, other = (PEOPLE[j] for j in rng.permutation(len(PEOPLE))[:2])
+        where, there = (PLACES[j] for j in rng.permutation(len(PLACES))[:2])
+        day = int(rng.integers(1, 29))
+        sentences = [
+            f"{who} arrived in {where} on March {day} for talks with"
+            f" {other}.",
+            f"Officials in {where} said the visit had been planned for"
+            f" months, and crowds gathered near the station.",
+            f"{other} told reporters in {there} that the meeting would"
+            f" cover trade, climate and security.",
+            f"It's the first time {who} has travelled abroad this year;"
+            f" they'll return to {there} on Friday.",
+        ]
+        article = " ".join(sentences[j % 4] for j in rng.permutation(8))
+        out.append({"caption": f"{who} speaks with {other} in {where} on"
+                               f" March {day}.",
+                    "article": article})
+    return out
+
+
+def feature_error(got: np.ndarray, want: np.ndarray) -> float:
+    """||got - want|| / ||want|| over the batch (Frobenius)."""
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+DATA_FEATURE_TOL = 0.05     # bf16 encoders against fp32, relative norm
+
+
+def data_phase(torch, flash, counted):
+    """Phase 18. `preprocess` of 96 jsonl records (64 train, 32 val) into
+    shards of 32 on the card's ResNet-152 and RoBERTa-large (random
+    weights, bf16), then a second offline pass over 256 x 256 random
+    images; the shards read back; the flagship YAML trained on the
+    shards (`nics_shards`) for 2 epochs and evaluated (`-m best`) on the
+    val shard. Returns the launches of each path and a summary."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import FLAGSHIP, load_config
+    from news_image_caption_tpu_torch.data import materialize as mat
+    from news_image_caption_tpu_torch.data.native_loader import \
+        NativeShardLoader
+    from news_image_caption_tpu_torch.data.readers import NewsRecord
+
+    flash_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+                     "flash_attention_bwd": flash.flash_attention_bwd}
+    all_counted = {**flash_counted, **counted}
+    n_layers = FLAGSHIP["num_layers"]
+    written = {}                 # shard path -> the arrays written to it
+    real_write, real_encoders = mat.write_shard, mat.FeatureEncoders
+    built = []
+
+    def write(path, arrays):
+        written[path] = {k: np.array(v, copy=True) for k, v in arrays.items()}
+        real_write(path, arrays)
+
+    def encoders(*args, **kw):
+        built.append(real_encoders(*args, **kw))
+        return built[-1]
+
+    summary = {"card": card_line()}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = f"{tmp}/news.jsonl"
+        with open(src, "w") as f:
+            for rec in news_records(96):
+                f.write(json.dumps(rec) + "\n")
+        mat.write_shard, mat.FeatureEncoders = write, encoders
+        try:
+            for fn in all_counted.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            rc = cli.main(["preprocess", src, f"{tmp}/news",
+                           "--records-per-shard", "32"])
+            pre_wall = time.perf_counter() - t
+            check(rc == 0, f"preprocess returned {rc}")
+            check(all(fn.launches == 0 for fn in all_counted.values()),
+                  "preprocess launched a kernel of the port")
+            paths = sorted(written)
+            check([p.rsplit("/", 1)[1] for p in paths]
+                  == [f"news-{i:05d}.nics" for i in range(3)],
+                  f"preprocess wrote {paths}")
+            enc = built[0]
+            check(enc.resnet.conv1.weight.is_cuda
+                  and enc.resnet.conv1.weight.dtype == torch.bfloat16
+                  and enc.roberta.word_embeddings.weight.dtype
+                  == torch.bfloat16, "the encoders are not bf16 on the card")
+            print(f"  preprocess: 96 records, 3 shards, {pre_wall:.1f} s"
+                  f" ({96 / pre_wall:.1f} records/s, the encoders' build"
+                  f" included)", flush=True)
+
+            # Real pixels: a second pass, images inline at 256 x 256.
+            rng = np.random.default_rng(1)
+            records = [NewsRecord(caption=r["caption"], article=r["article"],
+                                  image=rng.integers(0, 256, (256, 256, 3),
+                                                     dtype=np.uint8))
+                       for r in news_records(32, seed=1)]
+            images = np.stack([r.image for r in records])
+            t = time.perf_counter()
+            pix_paths = mat.materialize(None, f"{tmp}/pixels",
+                                        records_per_shard=32, encoders=enc,
+                                        reader=records)
+            pix_wall = time.perf_counter() - t
+        finally:
+            mat.write_shard, mat.FeatureEncoders = real_write, real_encoders
+        check(len(pix_paths) == 1, f"the pixel pass wrote {pix_paths}")
+
+        # The encoders: bf16 on the card against the fp32 path on the
+        # card, the first batch of 16 of each pass.
+        r32 = copy.deepcopy(enc.resnet).float()
+        b32 = copy.deepcopy(enc.roberta).float()
+        fp32 = mat.FeatureEncoders(resnet=r32, resnet_state=r32.state_dict(),
+                                   roberta=b32,
+                                   roberta_state=b32.state_dict(),
+                                   crop=enc.crop)
+        errs = {}
+        for what, path, imgs in (
+                ("zero_images", paths[0], np.zeros((16, 256, 256, 3),
+                                                   np.uint8)),
+                ("pixels", pix_paths[0], images[:16])):
+            arrays = written[path]
+            want_img = fp32.image_patches(imgs)
+            want_art = fp32.article_features(arrays["article_ids"][:16])
+            check(arrays["image"].shape == (32, 49, 2048)
+                  and arrays["article"].shape == (32, 512, 1024),
+                  f"feature shapes {arrays['image'].shape},"
+                  f" {arrays['article'].shape}")
+            check(bool(np.isfinite(arrays["image"]).all()
+                       and np.isfinite(arrays["article"]).all()),
+                  f"{what}: non-finite features")
+            errs[what] = {
+                "image": feature_error(arrays["image"][:16], want_img),
+                "article": feature_error(arrays["article"][:16],
+                                         want_art)}
+        check(feature_error(written[pix_paths[0]]["image"][:16],
+                            written[paths[0]]["image"][:16]) > 0.1,
+              "the pixels' features equal the zero images'")
+        print(f"  encoders, bf16 on the card vs fp32 on the card, first"
+              f" batch of 16: relative error (Frobenius) {errs}"
+              f" (tol {DATA_FEATURE_TOL})", flush=True)
+        check(all(v <= DATA_FEATURE_TOL for e in errs.values()
+                  for v in e.values()),
+              "the bf16 encoders' features differ from the fp32 path's")
+
+        # Encode ms a batch of 16 (the offline pass's batch), host clock
+        # of the whole call (features back on the host), and the pass's
+        # records/s over the 32 pixel records.
+        ids16 = written[paths[0]]["article_ids"][:16]
+
+        def wall_ms(fn, n=5):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return (time.perf_counter() - t) / n * 1e3
+        encode_ms = {"resnet_b16": wall_ms(lambda: enc.image_patches(
+                         images[:16])),
+                     "roberta_b16": wall_ms(lambda: enc.article_features(
+                         ids16))}
+        print(f"  encode a batch of 16 (host clock, features on the host):"
+              f" {encode_ms}; the pixel pass: 32 records in"
+              f" {pix_wall:.2f} s ({32 / pix_wall:.1f} records/s)",
+              flush=True)
+
+        # The shards read back: every field of every record bit-equal to
+        # what was written; a shuffled epoch a permutation.
+        for path in paths + pix_paths:
+            loader = NativeShardLoader([path], batch_size=32,
+                                       drop_last=False)
+            (got,) = [{k: v.copy() for k, v in b.items()}
+                      for b in loader.epoch(shuffle=False)]
+            want = written[path]
+            check(list(got) == list(want), f"{path}: fields {list(got)}")
+            for k, v in want.items():
+                check(got[k].dtype == v.dtype and got[k].tobytes()
+                      == v.tobytes(), f"{path}: {k} read back differs")
+            loader.close()
+        loader = NativeShardLoader(paths, batch_size=16)
+        rows = {}
+        for path in paths:
+            for i in range(32):
+                key = written[path]["caption_ids"][i].tobytes() + \
+                    written[path]["article_ids"][i].tobytes()
+                rows.setdefault(key, []).append((path, i))
+        seen = []
+        t = time.perf_counter()
+        n_batches = 0
+        for batch in loader.epoch(shuffle=True, seed=3):
+            n_batches += 1
+            for i in range(batch["caption_ids"].shape[0]):
+                seen.append(batch["caption_ids"][i].tobytes()
+                            + batch["article_ids"][i].tobytes())
+        read_s = time.perf_counter() - t
+        loader.close()
+        check(sorted(seen) == sorted(k for k, v in rows.items()
+                                     for _ in v),
+              "a shuffled epoch is not a permutation of the records")
+        reader = {"batches_per_s": n_batches / read_s,
+                  "records_per_s": len(seen) / read_s,
+                  "record_bytes": sum(v[0].nbytes
+                                      for v in written[paths[0]].values())}
+        print(f"  shards read back bit for bit ({len(paths) + 1} shards);"
+              f" a shuffled epoch of {len(seen)} records a permutation;"
+              f" the reader on the host: {reader}", flush=True)
+
+        # The flagship YAML over the shards: train 2 epochs, evaluate.
+        with open(EVAL_CONFIG) as f:
+            text = f.read()
+        head, tail = text.split("\nmodel:", 1)
+        cfg_path = f"{tmp}/flagship_shards.yaml"
+        with open(cfg_path, "w") as f:
+            f.write("dataset:\n  type: nics_shards\n"
+                    f"  train: {{paths: [{paths[0]}, {paths[1]}]}}\n"
+                    f"  val: {{paths: [{paths[2]}]}}\n"
+                    f"  test: {{paths: [{paths[2]}]}}\n"
+                    "model:" + tail)
+        out_dir = f"{tmp}/serialization"
+        ovr = json.dumps({"trainer": {
+            "num_epochs": 2, "num_serialized_models_to_keep": 2,
+            "log_every": 2, "optimizer": {"t_total": 100},
+            "serialization_dir": out_dir}})
+        cfg = load_config(cfg_path, ovr)
+        B = cfg["iterator"]["batch_size"]
+        steps, val_batches = 2 * (64 // B), 2 * (32 // B)
+        timings = {}
+        for fn in all_counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["train", cfg_path, "-o", ovr], timings=timings)
+        train_wall = time.perf_counter() - t
+        launches["data_train"] = {n: fn.launches
+                                  for n, fn in all_counted.items()}
+        check(rc == 0, f"train returned {rc}")
+        want = {"flash_attention_fwd": 2 * n_layers * (steps + val_batches),
+                "flash_attention_bwd": 2 * n_layers * steps,
+                **{n: 0 for n in counted}}
+        check(launches["data_train"] == want,
+              f"train launches {launches['data_train']}, expected {want}")
+        with open(f"{out_dir}/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r["split"] == "train"]
+        check(len(train_recs) == steps // 2
+              and len(recs) == len(train_recs) + 2, f"records {recs}")
+        check(all(np.isfinite(r["loss"]) for r in recs),
+              "a logged loss is not finite")
+        check(all(r["skipped"] == 0 for r in train_recs),
+              "a train step was skipped")
+        step_s = sorted(timings["step_s"])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        input_wait = [r["input_wait"] for r in train_recs]
+        print("  train on the shards: " + "; ".join(
+            f"{r['split']} step {r['step']} loss {r['loss']:.4f}"
+            for r in recs), flush=True)
+        print(f"  train command: {train_wall:.1f} s; step median"
+              f" {step_ms:.2f} ms; input_wait {input_wait} (phase 8's"
+              f" synthetic set: 0.43-0.59); flash launches"
+              f" {launches['data_train']['flash_attention_fwd']} /"
+              f" {launches['data_train']['flash_attention_bwd']}"
+              f" ({2 * n_layers} + {2 * n_layers} a step)", flush=True)
+
+        gcfg = cli.generation_config(cfg)
+        per_step = greedy_launches_a_step()
+        for fn in all_counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["evaluate", cfg_path, "-o", ovr, "-m", "best",
+                       "--split", "val", "--dump-attention",
+                       f"{tmp}/attn"])
+        eval_wall = time.perf_counter() - t
+        launches["data_evaluate"] = {n: fn.launches
+                                     for n, fn in all_counted.items()}
+        check(rc == 0, f"evaluate returned {rc}")
+        tokens = check_evaluate_files(out_dir, f"{tmp}/attn", 32 // B, gcfg,
+                                      n_records=32, empty_ok=True)
+        n_steps = sum(decode_steps(tk, gcfg.eos_id, gcfg.max_len)
+                      for tk in tokens)
+        for name, n in launches["data_evaluate"].items():
+            check(n == per_step.get(name, 0) * n_steps,
+                  f"evaluate: {name} launched {n} times, expected"
+                  f" {per_step.get(name, 0) * n_steps}")
+        print(f"  evaluate -m best on the val shard: {eval_wall:.1f} s,"
+              f" {n_steps} steps, launches {launches['data_evaluate']}"
+              f" (3 / 8 / 4 / 4 a step)", flush=True)
+    summary.update({
+        "records": {"train": 64, "val": 32, "pixel_pass": 32},
+        "preprocess_wall_s": pre_wall, "preprocess_records_per_s":
+            96 / pre_wall, "pixel_pass_records_per_s": 32 / pix_wall,
+        "encode_ms_b16": encode_ms, "feature_rel_err_bf16_vs_fp32": errs,
+        "shard_reader": reader, "train_wall_s": train_wall,
+        "train_step_ms_median": step_ms, "step_s": timings["step_s"],
+        "input_wait": input_wait,
+        "val_loss": [r["loss"] for r in recs if r["split"] == "val"],
+        "evaluate_wall_s": eval_wall, "evaluate_steps": n_steps})
+    return launches, summary
+
+
+def port_phase(torch, counted):
+    """Phase 19. A flagship-width Transform-and-Tell decoder
+    (`tests/torch_tell_decoder.py`, seeded) saved as `best.th`, ported
+    by the `port` command onto the flagship YAML, then `evaluate -m best`
+    on the card. Returns the evaluate's launches and a summary."""
+    import os
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import FLAGSHIP, load_config
+    from news_image_caption_tpu_torch.models.decoder_flattened import \
+        DynamicConvDecoder
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_tell_decoder import TellDecoder
+
+    torch.manual_seed(0)
+    t = time.perf_counter()
+    tell = TellDecoder(**{k: FLAGSHIP[k] for k in (
+        "vocab_size", "embed_dim", "ffn_dim", "num_heads", "kernel_sizes",
+        "cutoff", "image_dim", "article_dim", "max_positions")}).eval()
+    build_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        best_th = f"{tmp}/best.th"
+        torch.save({f"decoder.{k}": v for k, v in tell.state_dict().items()},
+                   best_th)
+        out_dir = f"{tmp}/serialization"
+        t = time.perf_counter()
+        rc = cli.main(["port", EVAL_CONFIG, best_th, "-s", out_dir])
+        port_wall = time.perf_counter() - t
+        check(rc == 0, f"port returned {rc}")
+        ckpt = torch.load(f"{out_dir}/checkpoints/best.pt",
+                          weights_only=True)
+        master = ckpt["opt_state"]["master"]
+        check(all(ckpt["params"][k].dtype == torch.bfloat16
+                  and torch.equal(ckpt["params"][k], v.bfloat16())
+                  for k, v in master.items()),
+              "best.pt's bf16 params are not its fp32 master's")
+
+        # Teacher-forced log-probs, fp32 on the card: the ported master
+        # through the port's decoder against the reference-keyed model.
+        dec = DynamicConvDecoder(**FLAGSHIP, device="cuda",
+                                 dtype=torch.float32)
+        dec.load_state_dict(master)
+        dec.eval()
+        tell = tell.cuda()
+        rng = np.random.default_rng(2)
+        B, T, P, S = 2, 16, 49, 64
+        ids = rng.integers(3, FLAGSHIP["vocab_size"], (B, T))
+        ids[:, 0] = 0
+        ids[1, -3:] = 1
+        ctx = {"image": torch.from_numpy(rng.standard_normal(
+                   (B, P, FLAGSHIP["image_dim"])).astype(np.float32)),
+               "image_mask": torch.zeros(B, P, dtype=torch.bool),
+               "article": torch.from_numpy(rng.standard_normal(
+                   (B, S, FLAGSHIP["article_dim"])).astype(np.float32)),
+               "article_mask": torch.from_numpy(
+                   np.arange(S)[None] >= np.array([[S], [40]]))}
+        ctx = {k: v.cuda() for k, v in ctx.items()}
+        ids_t = torch.from_numpy(ids).cuda()
+        with torch.no_grad():
+            got = dec.log_prob(ids_t, ctx)
+            with torch.device("cuda"):
+                want = tell.log_prob(ids_t, ctx)
+        err = (got - want).abs().max().item()
+        # The CPU tests' tolerance for teacher-forced log-probs
+        # (tests/test_torch_model.py): |diff| <= 2e-4 + 2e-4 |reference|.
+        excess = ((got - want).abs() - 2e-4 * want.abs()).max().item()
+        print(f"  port: {port_wall:.1f} s (the reference-keyed decoder built"
+              f" in {build_s:.1f} s); teacher-forced log-probs [{B}, {T},"
+              f" {FLAGSHIP['vocab_size']}], fp32 on the card: max |ported -"
+              f" reference-keyed| {err:.3g}, max |diff| - 2e-4 |reference|"
+              f" {excess:.3g} (tol 2e-4)", flush=True)
+        check(bool(torch.isfinite(got).all()), "non-finite log-probs")
+        check(excess <= 2e-4, "the ported decoder's log-probs differ")
+        del tell, dec, got, want
+
+        ovr = json.dumps({"dataset": {"test": {"size": 32}},
+                          "trainer": {"serialization_dir": out_dir}})
+        gcfg = cli.generation_config(load_config(EVAL_CONFIG, ovr))
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["evaluate", EVAL_CONFIG, "-o", ovr, "-m", "best",
+                       "--dump-attention", f"{tmp}/attn"])
+        eval_wall = time.perf_counter() - t
+        launches = {n: fn.launches for n, fn in counted.items()}
+        check(rc == 0, f"evaluate returned {rc}")
+        tokens = check_evaluate_files(out_dir, f"{tmp}/attn", 2, gcfg,
+                                      n_records=32, empty_ok=True)
+    n_steps = sum(decode_steps(tk, gcfg.eos_id, gcfg.max_len)
+                  for tk in tokens)
+    per_step = greedy_launches_a_step()
+    for name, n in launches.items():
+        check(n == per_step[name] * n_steps and n > 0,
+              f"evaluate: {name} launched {n} times, expected"
+              f" {per_step[name] * n_steps}")
+    print(f"  evaluate -m best: {eval_wall:.1f} s, {n_steps} steps,"
+          f" launches {launches} (3 / 8 / 4 / 4 a step)", flush=True)
+    return launches, {"port_wall_s": port_wall, "tell_build_s": build_s,
+                      "log_prob_max_abs_diff": err,
+                      "log_prob_excess_over_rtol": excess,
+                      "evaluate_wall_s": eval_wall,
+                      "evaluate_steps": n_steps, "card": card_line()}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4376,6 +4819,29 @@ def main() -> None:
                     by_path[name][family] = by_path[name].get(family, 0) + n
         print(json.dumps({family: {**fam_summary,
                                    "launches": fam_launches}}), flush=True)
+
+    print("phase 18: preprocess -> nics_shards -> train -> evaluate"
+          " (ResNet-152 and RoBERTa-large on the card, bf16; the flagship"
+          " YAML on the shards)", flush=True)
+    data_launches, data_summary = data_phase(torch, flash_attention, counted)
+    for path, counts in data_launches.items():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name][path] = n
+    print(json.dumps({"data_commands": {**data_summary,
+                                        "launches": data_launches}}),
+          flush=True)
+
+    print("phase 19: port a Transform-and-Tell best.th, then evaluate"
+          " (flagship, bf16)", flush=True)
+    port_launches, port_summary = port_phase(torch, counted)
+    for name, n in port_launches.items():
+        launches[name] += n
+        by_path[name]["port_evaluate"] = n
+    print(json.dumps({"port_command": {**port_summary,
+                                       "launches": port_launches}}),
+          flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

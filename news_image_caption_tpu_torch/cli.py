@@ -1,8 +1,10 @@
 """Command line of the port: `train` a YAML config, `evaluate` it on a
-split, `serve` captions.
+split, `serve` captions, `preprocess` raw records into shards, `port` a
+reference checkpoint.
 
 Counterpart of `news_image_caption_tpu/cli.py` (`main`, `train_command`,
-`evaluate_command`, `serve_command`).
+`evaluate_command`, `serve_command`, `port_command`, and `preprocess`,
+which runs `data/materialize.py::main`).
 
 `train` builds the config's model, optimizer (`trainer.optimizer`, the
 model's frozen collections left out, wrapped by `accumulate_gradients`
@@ -68,10 +70,17 @@ model with `use_flash_train` (the flash kernels take bf16); `evaluate`
 casts the checkpoint's params to bf16 and decodes through the four
 decode kernels. On the CPU `train` computes in the precision's dtype and
 `evaluate` in the config's (float32 unless set), through the kernels'
-plain versions. The reference's port and preprocess commands are not
-ported, and neither are quantized K/V and head tables, meshes or
-multi-process training: each raises NotImplementedError naming its
+plain versions. Quantized K/V and head tables, meshes and multi-process
+training are not ported yet: each raises NotImplementedError naming its
 ROADMAP Queue 1 item.
+
+`preprocess IN.jsonl PREFIX [flags]` writes `PREFIX-{i:05d}.nics` shards
+(and their `.schema`) of the records' caption and article ids, copy
+masks, ResNet-152 patches and RoBERTa-large features, computed on the
+card (or with `--platform cpu`); a `dataset: {type: nics_shards}` block
+then trains and evaluates on them. `port CONFIG best.th [-s DIR]` maps a
+Transform-and-Tell `best.th` onto the config's model and writes it as the
+store's best checkpoint (`port_command`); it runs on the CPU.
 """
 
 from __future__ import annotations
@@ -88,7 +97,8 @@ import torch
 
 from news_image_caption_tpu_torch.config import (build_dataset, build_model,
                                                  build_optimizer, load_config)
-from news_image_caption_tpu_torch.data.loader import DeviceLoader
+from news_image_caption_tpu_torch.data.loader import (DeviceLoader,
+                                                      host_tensor)
 from news_image_caption_tpu_torch.data.synthetic import (CONTEXT_KEYS,
                                                         loss_inputs)
 from news_image_caption_tpu_torch.evaluation.enrich import enrich_record
@@ -144,6 +154,29 @@ def main(argv: Optional[list] = None, *,
     pe.add_argument("--dump-attention", default=None, metavar="DIR",
                     help="write per-batch attention maps (.npz) over the "
                          "generated captions to DIR")
+    pp = sub.add_parser(
+        "preprocess",
+        help="materialize raw jsonl records into fixed-shape NICS shards "
+             "(the offline frozen-encoder pass, data/materialize.py)")
+    pp.add_argument("input_jsonl")
+    pp.add_argument("out_prefix")
+    # The remaining flags go to data/materialize.py as they are (their
+    # one definition): --records-per-shard, --caption-len,
+    # --article-len, --no-copy-masks, --mongo-*, --platform.
+    pp.add_argument("materialize_flags", nargs=argparse.REMAINDER,
+                    help="flags forwarded to data/materialize.py")
+    po = sub.add_parser(
+        "port",
+        help="port a reference torch checkpoint (best.th) into the "
+             "checkpoint store, ready for evaluate / serve "
+             "(models/port_checkpoint.py: the family detected from the "
+             "state dict's keys)")
+    po.add_argument("param_path", help="YAML config of the target model")
+    po.add_argument("checkpoint", help="torch state dict (best.th)")
+    po.add_argument("-o", "--overrides", default=None)
+    po.add_argument("-s", "--serialization-dir", default=None)
+    po.add_argument("--no-strict", action="store_true",
+                    help="tolerate unconsumed reference keys")
     ps = sub.add_parser("serve",
                         help="start the captioning server (+HTTP proxy)")
     ps.add_argument("--task", default="flagship", choices=("flagship", "toy"),
@@ -206,6 +239,13 @@ def main(argv: Optional[list] = None, *,
         return train_command(args, timings)
     if args.command == "serve":
         return serve_command(args)
+    if args.command == "port":
+        return port_command(args)
+    if args.command == "preprocess":
+        from news_image_caption_tpu_torch.data.materialize import \
+            main as materialize_main
+        return materialize_main([args.input_jsonl, args.out_prefix]
+                                + args.materialize_flags)
     return evaluate_command(args, timings)
 
 
@@ -439,6 +479,87 @@ def evaluate_command(args,
     return 0
 
 
+def port_command(args) -> int:
+    """best.th -> checkpoint store: the migration path of a
+    Transform-and-Tell user (port a `best.th`, then `evaluate -m best` or
+    `serve` against the same config). The reference's `port_command`:
+    the family's flax tree from `port_checkpoint`, shaped by
+    `assemble_for_init` and grafted by `merge_into_init` onto the
+    config's model, here the port's model in fp32 on the CPU (random
+    weights from `trainer.seed`, kept for what the checkpoint lacks) seen
+    in flax naming (`from_jax.flax_view`), then loaded back strictly
+    (`params_from_jax`) and saved as step 0 with the best metric, in the
+    layout of the config's `mixed_precision`. The bundled frozen encoders
+    go beside it as `{resnet,roberta}_ported.pt`, `torch.save` state
+    dicts in the port's layout (`from_jax.encoder_state`). Only arrays
+    are mapped: no card is needed."""
+    from news_image_caption_tpu_torch.models.from_jax import (
+        encoder_state, flax_view, params_from_jax)
+    from news_image_caption_tpu_torch.models.port_checkpoint import (
+        assemble_for_init, merge_into_init, port_checkpoint)
+    cfg = load_config(args.param_path, args.overrides)
+    device = torch.device("cpu")
+    model = training_model(cfg, device,
+                           int(cfg.get("trainer", {}).get("seed", 0)))
+    init_params = flax_view(model.param_module)
+    try:
+        sd = torch.load(args.checkpoint, map_location="cpu",
+                        weights_only=True)
+    except Exception:
+        # Older pickled formats (AllenNLP-era best.th)
+        sd = torch.load(args.checkpoint, map_location="cpu",
+                        weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+
+    mcfg = dict(cfg.get("model", {}))
+    dcfg = mcfg.get("decoder") or mcfg
+    ported = port_checkpoint(
+        sd,
+        num_layers=int(dcfg.get("num_layers", 4)),
+        embed_dim=int(dcfg.get("embed_dim", 1024)),
+        n_bands=len(dcfg.get("cutoff", (5000, 20000, 50265))),
+        strict=not args.no_strict)
+    if ported["unused"]:
+        print(f"warning: {len(ported['unused'])} reference keys "
+              f"unconsumed: {ported['unused'][:5]}...", file=sys.stderr)
+    print(f"detected family: {ported['model']} "
+          f"(config model type: {mcfg.get('type')})")
+    cand, warnings = assemble_for_init(ported, init_params)
+    for w in warnings:
+        print(w, file=sys.stderr)
+    try:
+        cand, dropped = merge_into_init(init_params, cand)
+    except KeyError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if dropped:
+        print(f"note: dropped {len(dropped)} ported leaves the model "
+              f"does not own (dead reference params): "
+              f"{dropped[:4]}...", file=sys.stderr)
+    model.param_module.load_state_dict(
+        params_from_jax(cand, model.param_module))
+
+    serialization_dir = _serialization_dir(cfg, args.param_path,
+                                           args.serialization_dir)
+    ckpt_dir = os.path.join(serialization_dir, "checkpoints")
+    store = CheckpointStore(ckpt_dir)
+    tx = _optimizer(cfg, model)
+    _, state = train_state(cfg, model, tx, _precision(cfg), device)
+    # The metric marks it best, so evaluate's default (-m best) and
+    # serve pick the ported weights up.
+    store.save(state, step=0, metrics={store.best_metric: 0.0})
+    print(f"ported checkpoint written to {ckpt_dir} (best + step 0)")
+
+    for enc in ("roberta", "resnet"):
+        if enc in ported:
+            path = os.path.join(ckpt_dir, f"{enc}_ported.pt")
+            torch.save(encoder_state(ported[enc], enc), path)
+            print(f"bundled frozen {enc} encoder written to {path} (a "
+                  "state dict in the port's layout, for load_state_dict)")
+    return 0
+
+
 def serve_command(args) -> int:
     """Start the server with N captioning workers (and the HTTP proxy)
     and block until SIGTERM. Counterpart of the reference's
@@ -592,7 +713,7 @@ def evaluate(model, ds, gcfg: GenerationConfig, out_dir: str, *,
             t = _lap(spans, "data", t)
             if batch is None:
                 break
-            staged = {k: torch.from_numpy(batch[k]).to(device)
+            staged = {k: host_tensor(batch[k]).to(device)
                       for k in staged_keys if k in batch}
             if spec_k >= 2 and "article_ids" in batch:
                 S = batch["article_ids"].shape[1]

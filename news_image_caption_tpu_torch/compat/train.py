@@ -13,11 +13,13 @@ every `save_checkpoint_every` iterations (`CheckpointStore`, best by
 CIDEr) with an `infos_{id}.json`, and `--start_from DIR` resuming from
 that directory's infos and newest readable checkpoint.
 
-Data: the synthetic news set (`--tpu_synthetic_size N`, vocab
-`--tpu_vocab_size`); the HDF5 inputs (`--input_image_h5`,
-`--input_json`) need the reference's readers, which the port does not
-have yet (ROADMAP Queue 1 item 5b). The model trains in fp32 on the
-card, or on the CPU with `--platform cpu`.
+Data: the HDF5 inputs when `--input_image_h5` and `--input_json` are
+given (`data/readers.py::H5DataLoader`, the reference's `get_batch`
+contract: labels and masks as they come, the images' pixels mean-pooled
+into 49 feature stand-ins of `--att_feat_size`, as the reference does);
+otherwise the synthetic news set (`--tpu_synthetic_size N`, vocab
+`--tpu_vocab_size`). The model trains in fp32 on the card, or on the CPU
+with `--platform cpu`.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from news_image_caption_tpu_torch.data.dataset import SyntheticNewsDataset
+from news_image_caption_tpu_torch.data.readers import H5DataLoader
 from news_image_caption_tpu_torch.data.synthetic import to_device
 from news_image_caption_tpu_torch.evaluation.metrics import CiderScorer
 from news_image_caption_tpu_torch.models.gen1 import gen1_factory
@@ -43,12 +46,10 @@ from news_image_caption_tpu_torch.training.train_step import (
 log = logging.getLogger("compat.train")
 
 
-def _build_loader(opt) -> SyntheticNewsDataset:
-    if opt.input_image_h5 or opt.input_json:
-        raise NotImplementedError(
-            "--input_image_h5 / --input_json: the HDF5 readers are not "
-            "ported yet (ROADMAP Queue 1 item 5b); pass "
-            "--tpu_synthetic_size N")
+def _build_loader(opt):
+    if opt.input_image_h5 and opt.input_json:
+        return H5DataLoader(opt.input_image_h5, opt.input_json,
+                            seq_per_img=opt.seq_per_img)
     if not opt.tpu_synthetic_size:
         raise SystemExit("no --input_image_h5/--input_json given; pass "
                          "--tpu_synthetic_size N to run on synthetic data")
@@ -58,10 +59,35 @@ def _build_loader(opt) -> SyntheticNewsDataset:
         image_dim=opt.att_feat_size, article_dim=opt.sentence_embed_size)
 
 
-def _batch(loader, opt, rng: np.random.Generator, device):
-    batch = next(loader.batches(opt.batch_size,
-                                seed=int(rng.integers(1 << 31))))
-    return to_device(batch, device)
+def _gen1_batch(loader, opt, split: str, rng: np.random.Generator
+                ) -> Dict[str, np.ndarray]:
+    """The next batch of `split` on the Gen-1 contract: an HDF5 batch as
+    (seq, mask, fc_feats, att_feats), a synthetic one as it is."""
+    if not hasattr(loader, "get_batch"):
+        return next(loader.batches(opt.batch_size,
+                                   seed=int(rng.integers(1 << 31))))
+    data = loader.get_batch(split, opt.batch_size)
+    images = data["images"].astype(np.float32) / 255.0
+    # The reference runs the CNN here (train.py:151-152); feature
+    # extraction is the offline pipeline's job, so the pixels are
+    # mean-pooled into 49 (fc, att) feature stand-ins, widened (ceil
+    # division) to exactly att_feat_size.
+    B, H, W, C = images.shape
+    P = 49
+    att = images.reshape(B, -1, C)
+    att = att[:, :P * (att.shape[1] // P), :].reshape(B, P, -1, C)
+    rep = -(-opt.att_feat_size // C)
+    att = att.mean(axis=2).repeat(rep, axis=-1)[..., :opt.att_feat_size]
+    # One image feeds seq_per_img captions (dataloader.py:300-320).
+    spi = max(1, data["labels"].shape[0] // max(B, 1))
+    if spi > 1:
+        att = att.repeat(spi, axis=0)
+    # The loader's masks keep the slot after the last word (<end>)
+    # supervised. The HDF5's labels (uint32 as the reference's prepro
+    # writes them) become int64, which torch indexes with.
+    return {"seq": data["labels"].astype(np.int64),
+            "mask": data["masks"].astype(np.float32),
+            "fc_feats": att.mean(axis=1), "att_feats": att}
 
 
 def _ss_prob(opt, epoch: int) -> float:
@@ -79,7 +105,7 @@ def train(opt) -> Dict[str, float]:
     device = _device(opt.platform)
     loader = _build_loader(opt)
     rng = np.random.default_rng(0)
-    vocab_size = loader.vocab_size
+    vocab_size = getattr(loader, "vocab_size", None) or opt.tpu_vocab_size
     if opt.cnn_weight:
         log.warning("--cnn_weight %s is not used by this command: it trains "
                     "on the batches' features", opt.cnn_weight)
@@ -97,8 +123,11 @@ def train(opt) -> Dict[str, float]:
         sentence_length=opt.sentence_length)
     # The reference initializes its model from a first training batch:
     # the batches it trains on are drawn after that one.
-    rng.integers(1 << 31)
-    iters_per_epoch = max(1, loader.size // opt.batch_size)
+    _gen1_batch(loader, opt, "train", rng)
+    iters_per_epoch = max(1, (getattr(loader, "size", None)
+                              or len(getattr(loader, "splits", {})
+                                     .get("train", []))
+                              or opt.tpu_synthetic_size) // opt.batch_size)
     # The epoch schedules in steps; a negative decay start never decays.
     decay_start = (10 ** 12 if opt.learning_rate_decay_start < 0
                    else opt.learning_rate_decay_start * iters_per_epoch)
@@ -146,8 +175,8 @@ def train(opt) -> Dict[str, float]:
             steps[ss] = make_train_step(
                 lambda b, g, ss=ss: model.loss_fn(b, g, ss), tx,
                 compute_dtype=torch.float32)
-        state, metrics = steps[ss](state, _batch(loader, opt, rng, device),
-                                   seed=it)
+        batch = to_device(_gen1_batch(loader, opt, "train", rng), device)
+        state, metrics = steps[ss](state, batch, seed=it)
         it += 1
         loss = float(metrics["loss"])
         if it % opt.losses_log_every == 0:
@@ -169,15 +198,17 @@ def train(opt) -> Dict[str, float]:
 
 
 def _eval_cider(model, loader, opt, rng, device) -> float:
-    """Greedy captions of about two batches and their CIDEr."""
+    """Greedy captions of about two batches of the val split (the train
+    split where there is none) and their CIDEr."""
     scorer = CiderScorer()
     n = 0
     specials = (0, 1, 2)
+    split = "val" if "val" in getattr(loader, "splits", {}) else "train"
     while n < min(opt.val_images_use, 2 * opt.batch_size):
-        batch = _batch(loader, opt, rng, device)
+        batch = to_device(_gen1_batch(loader, opt, split, rng), device)
         toks, _ = model.sample(batch, max_len=12)
-        for hyp_ids, ref_ids in zip(toks.cpu().numpy(),
-                                    batch["caption_ids"].cpu().numpy()):
+        refs = batch.get("seq", batch.get("caption_ids"))
+        for hyp_ids, ref_ids in zip(toks.cpu().numpy(), refs.cpu().numpy()):
             hyp = " ".join(f"w{t}" for t in hyp_ids if t not in specials)
             ref = " ".join(f"w{t}" for t in ref_ids if t not in specials)
             scorer += (hyp or "w0", [ref or "w0"])

@@ -44,7 +44,8 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from news_image_caption_tpu_torch.data.dataset import SyntheticNewsDataset
+from news_image_caption_tpu_torch.data.dataset import (NicsShardDataset,
+                                                      SyntheticNewsDataset)
 from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
 from news_image_caption_tpu_torch.models.decoder_flattened import \
@@ -374,9 +375,13 @@ def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
     return builder(device=device, generator=generator, **kw)
 
 
-def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:
+def build_dataset(cfg: Dict, split: str = "train"):
     """The `dataset:` block's `split`: its keys, with the split's own
-    block merged over them."""
+    block merged over them, for its type: `synthetic_news`
+    (`SyntheticNewsDataset`), `nics_shards` (`NicsShardDataset`, shards
+    that `preprocess` writes) or `jsonl_news` (`data/readers.py::
+    jsonl_news_dataset`: the list of the jsonl's model-ready instances,
+    as the reference returns it)."""
     dcfg = copy.deepcopy(cfg.get("dataset", {"type": "synthetic_news"}))
     dtype_ = dcfg.pop("type")
     split_cfg = dcfg.pop(split, {})
@@ -384,9 +389,11 @@ def build_dataset(cfg: Dict, split: str = "train") -> SyntheticNewsDataset:
         dcfg.pop(other, None)
     dcfg.update(split_cfg)
     if dtype_ == "nics_shards":
-        raise NotImplementedError(
-            "dataset type 'nics_shards' is not ported yet (ROADMAP Queue 1 "
-            "item 5b)")
+        return NicsShardDataset(**dcfg)
+    if dtype_ == "jsonl_news":
+        from news_image_caption_tpu_torch.data.readers import \
+            jsonl_news_dataset
+        return jsonl_news_dataset(**dcfg)
     if dtype_ != "synthetic_news":
         raise KeyError(f"unknown dataset type {dtype_!r}")
     return SyntheticNewsDataset(**dcfg)

@@ -12,8 +12,8 @@ blocks on Python preprocessing (SURVEY.md §7 step 2); this module is
 the in-memory form of that contract plus a synthetic generator used
 by tests and benchmarks.
 
-The shard dataset of the reference (`nics_shards`, read by its C++
-reader) is not ported yet: `config.build_dataset` raises for it.
+`NicsShardDataset` is the reference's shard dataset (`nics_shards`),
+read by the port's copy of its C++ reader.
 """
 
 from __future__ import annotations
@@ -249,3 +249,79 @@ class SyntheticNewsDataset:
                     [getattr(ex, name + "_mask") for ex in examples])
         return batch
 
+
+
+class NicsShardDataset:
+    """Dataset over materialized NICS shards, read by the C++ prefetch
+    reader (data/native_loader.py, SoA zero-copy delivery).
+
+    This is the training-time face of the offline materialization
+    pass (`preprocess`): the reference reads Mongo/HDF5/JPEGs inside
+    its training loop (goodnews_flattened.py:25-118,
+    dataloader.py:245-296); here the loop reads fixed-shape array
+    shards and never blocks on Python preprocessing.
+
+    config:
+      dataset:
+        type: nics_shards
+        train: {pattern: "/data/train-*.nics"}
+        val:   {pattern: "/data/val-*.nics"}
+
+    paths/pattern: explicit shard list, or a glob. uint8 fields named
+    *_mask are delivered as bool (write_shard stores bool as uint8).
+    float16, the shards' disk format, stays float16 here: the reference
+    promotes it to bfloat16 with `ml_dtypes` at delivery, the port as
+    it makes the host tensor (`data/loader.py::host_tensor`), with the
+    same bits.
+    """
+
+    def __init__(self, paths=None, pattern: Optional[str] = None,
+                 soa: bool = True, n_threads: int = 2,
+                 n_slots: int = 4, pool_size: int = 8):
+        import glob as _glob
+        if paths is None:
+            if pattern is None:
+                raise ValueError("nics_shards needs paths or pattern")
+            paths = sorted(_glob.glob(pattern))
+        if not paths:
+            raise FileNotFoundError(
+                f"no shards match {pattern or paths!r}")
+        self.paths = list(paths)
+        self.soa = soa
+        self.n_threads = n_threads
+        self.n_slots = n_slots
+        self.pool_size = pool_size
+        self._loaders: Dict = {}
+
+    def _loader(self, batch_size: int, drop_last: bool):
+        from news_image_caption_tpu_torch.data.native_loader import \
+            NativeShardLoader
+        key = (batch_size, drop_last)
+        if key not in self._loaders:
+            self._loaders[key] = NativeShardLoader(
+                self.paths, batch_size=batch_size,
+                n_threads=self.n_threads, n_slots=self.n_slots,
+                drop_last=drop_last, soa=self.soa,
+                pool_size=self.pool_size)
+        return self._loaders[key]
+
+    def __len__(self) -> int:
+        return len(self._loader(1, False))
+
+    @staticmethod
+    def _cast(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return {k: (v.astype(bool)
+                    if k.endswith("_mask") and v.dtype == np.uint8 else v)
+                for k, v in batch.items()}
+
+    def batches(self, batch_size: int, shuffle: bool = True,
+                seed: int = 0, drop_last: bool = True
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        loader = self._loader(batch_size, drop_last)
+        for b in loader.epoch(shuffle=shuffle, seed=seed):
+            yield self._cast(b)
+
+    def close(self) -> None:
+        for loader in self._loaders.values():
+            loader.close()
+        self._loaders.clear()

@@ -10,7 +10,11 @@ enqueued on the default stream, so the step that reads them is ordered
 after them; on the CPU each array is copied. Arrays keep their dtype: the
 online pipeline's raw uint8 images travel as they are (a quarter of
 their float size) and are normalized on the device
-(`models/pipeline.py::Gen3Pipeline.encode`).
+(`models/pipeline.py::Gen3Pipeline.encode`). float16, the shards' disk
+format, is the one exception: `host_tensor` makes it bfloat16 with the
+bits of the reference's `ml_dtypes` cast (round to nearest even, a NaN
+the quiet NaN of its sign), as the reference's shard dataset delivers
+it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,25 @@ import torch
 PREFETCH = 2    # batches placed ahead of the consumer
 
 
+def f16_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """The bfloat16 bits (uint16) of float16 `a`, as `ml_dtypes` casts
+    float16 to bfloat16: through float32, rounded to nearest even; a NaN
+    becomes the quiet NaN 0x7FC0 with its sign."""
+    bits = a.astype(np.float32).view(np.uint32)
+    rne = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16
+    nan = ((bits >> 16) & 0x8000) | 0x7FC0
+    return np.where(np.isnan(a), nan, rne).astype(np.uint16)
+
+
+def host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host tensor of `a`: float16 as bfloat16 (`f16_bf16_bits`),
+    other dtypes as they are (a view where `a` is contiguous)."""
+    if a.dtype == np.float16:
+        return torch.from_numpy(f16_bf16_bits(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
 class DeviceLoader:
     """Wrap a host batch iterator with prefetch + device placement."""
 
@@ -36,7 +59,7 @@ class DeviceLoader:
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {}
         for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
+            t = host_tensor(v)
             if self._device.type == "cuda":
                 out[k] = t.pin_memory().to(self._device, non_blocking=True)
             else:

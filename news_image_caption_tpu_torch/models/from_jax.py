@@ -33,6 +33,12 @@ An optax `masked` state (the pipeline's optimizer) is read through its
 `inner_state`: the frozen leaves' `MaskedNode`s are empty, so the moments
 cover the trainable parameters alone, as the port's do.
 
+`encoder_state(tree, collection)` maps one encoder's tree, unchecked
+(the `port` command's bundled encoders). `flax_view(module)` is the
+inverse of `params_from_jax`: the port
+model's parameters as the reference's flax variables, the init tree onto
+which the `port` command grafts a ported reference checkpoint.
+
 `load_npz(path)` reads the `.npz` layout of the reference server
 (`news_image_caption_tpu/serving/worker.py::unflatten_params`):
 '/'-joined keys, bf16 leaves stored as 2-byte void (`V2`), read here
@@ -141,6 +147,78 @@ def _torch_layout(key: str, leaf):
               or (name == "scale" and parts[0] == "roberta")):
         return key, leaf
     return ".".join(parts[:-1] + ["weight"]), leaf
+
+
+def encoder_state(tree: Mapping[str, Any],
+                  collection: str) -> Dict[str, torch.Tensor]:
+    """A ResNet's or RoBERTa's flax tree (`collection` "resnet" or
+    "roberta", with or without its 'params') as the port encoder's state
+    dict in PyTorch's layout. Unchecked: `load_state_dict` checks it
+    against the encoder it is loaded into."""
+    out = {}
+    for path, leaf in _flatten(_strip(tree)).items():
+        key, leaf = _torch_layout(torch_key(f"{collection}/{path}"), leaf)
+        out[key[len(collection) + 1:]] = to_tensor(leaf)
+    return out
+
+
+def flax_view(module: nn.Module) -> Dict[str, Any]:
+    """`module`'s parameters as the reference's flax variables (float32
+    numpy leaves): the inverse of `params_from_jax`, so
+    `params_from_jax(flax_view(m), m)` is `m`'s state dict. A model of
+    parts (the pointer, the pipeline, TGNC: parameters under `decoder.`,
+    `captioner.` or `classifier.`) is a tree of collections, one a part,
+    the pointer's and the pipeline's `decoder` named `captioner`; any
+    other model is {"params": tree}. `layers.{i}` is `layers_{i}`; the
+    encoders' leaves are in flax's layout (conv kernels HWIO, Dense
+    kernels [in, out], `embedding`, a LayerNorm's `scale`)."""
+    flat = {}
+    for key, t in module.state_dict().items():
+        path, leaf = _flax_layout(module, key,
+                                  t.detach().float().cpu().numpy())
+        flat[path] = leaf
+    tops = {p.split("/")[0] for p in flat}
+    if tops & {"decoder", "captioner", "classifier"}:
+        rename = ({} if "classifier" in tops
+                  else {"decoder": "captioner"})
+        grouped = {}
+        for path, leaf in flat.items():
+            top, rest = path.split("/", 1)
+            grouped[f"{rename.get(top, top)}/params/{rest}"] = leaf
+        flat = grouped
+    else:
+        flat = {f"params/{p}": v for p, v in flat.items()}
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        parts = path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+def _flax_layout(module: nn.Module, key: str, leaf: np.ndarray):
+    """('/'-joined flax path, leaf) of the port's parameter `key`: the
+    inverse of `torch_key` and `_torch_layout`."""
+    parts = key.split(".")
+    path = []
+    for p in parts:
+        if p.isdigit() and path and path[-1] == "layers":
+            path[-1] = f"layers_{p}"
+        else:
+            path.append(p)
+    if parts[0] in _TORCH_LAYOUT and parts[-1] == "weight":
+        owner = type(module.get_submodule(".".join(parts[:-1]))).__name__
+        if owner == "Embed":
+            path[-1] = "embedding"
+        elif leaf.ndim == 1:
+            path[-1] = "scale"
+        else:
+            path[-1] = "kernel"
+            leaf = np.ascontiguousarray(np.transpose(
+                leaf, (2, 3, 1, 0) if leaf.ndim == 4 else (1, 0)))
+    return "/".join(path), leaf
 
 
 def _adam_from_jax(chain: Mapping[str, Any], expected):

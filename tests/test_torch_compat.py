@@ -15,7 +15,9 @@ package's, on the CPU.
   checkpoint's params within rtol 1e-5 / atol 1e-5. The scheduled
   sampling's draws are JAX's (the reference's key schedule replayed
   into `Gen1Model._scheduled` from the seed the command gives each
-  step); HDF5 inputs raise naming their ROADMAP item;
+  step); a show_tell run of 4 iterations over a small HDF5 written with
+  h5py (`--input_image_h5` / `--input_json`, the reference's
+  `H5DataLoader`): losses within 1e-5, logs, infos and metadata equal;
 - `compat.test` decodes a config's test split (8 captions) from the
   reference's init and from the checkpoint of a `train` command: the
   interim lines and the final BLEU, CIDEr and n_samples equal to the
@@ -341,11 +343,58 @@ def test_compat_train_params_match_reference(scenario, request):
         np.testing.assert_allclose(again.item(), loss.item(), rtol=1e-6)
 
 
-def test_compat_train_hdf5_inputs_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5b\)"):
-        compat_train.main(TINY + [
-            "--platform", "cpu", "--checkpoint_path", str(tmp_path),
-            "--input_json", "x.json", "--input_image_h5", "x.h5"])
+def _h5_inputs(where: Path):
+    """A Gen-1 HDF5 (7 images of 20 x 20, 2-6 captions of 6 words each)
+    and its split JSON (train 5, val 2; vocab 40)."""
+    h5py = pytest.importorskip("h5py")
+    rng = np.random.default_rng(6)
+    per = [5, 2, 6, 3, 5, 4, 5]
+    labels = rng.integers(1, 41, size=(sum(per), 6)).astype(np.uint32)
+    labels[::3, 4:] = 0
+    start = np.cumsum([0] + per[:-1]) + 1
+    with h5py.File(where / "data.h5", "w") as f:
+        f["images"] = rng.integers(0, 256, size=(7, 20, 20, 3),
+                                   dtype=np.uint8)
+        f["labels"] = labels
+        f["label_start_ix"] = start
+        f["label_end_ix"] = start + np.array(per) - 1
+    splits = ["train", "val", "train", "train", "val", "train", "train"]
+    (where / "data.json").write_text(json.dumps({
+        "images": [{"split": s, "id": i, "file_path": f"{i}.jpg"}
+                   for i, s in enumerate(splits)],
+        "ix_to_word": {str(i): f"w{i}" for i in range(1, 41)}}))
+    return str(where / "data.h5"), str(where / "data.json")
+
+
+@pytest.fixture(scope="module")
+def h5_run(tmp_path_factory):
+    h5, js = _h5_inputs(tmp_path_factory.mktemp("h5"))
+    return _run_both(tmp_path_factory, "h5", [[
+        "--caption_model", "show_tell", "--input_image_h5", h5,
+        "--input_json", js, "--seq_per_img", "2", "--tpu_max_iters", "4",
+        "--save_checkpoint_every", "2", "--losses_log_every", "1"]])
+
+
+def test_compat_train_hdf5_inputs_match_reference(h5_run):
+    """`--input_image_h5` / `--input_json` (once raising for want of the
+    HDF5 loader) train through `H5DataLoader` as the reference's command
+    does: an iteration an epoch (5 train images // batches of 4), each
+    step's loss within 1e-5, the logs (times aside), result line, infos
+    and checkpoints' metadata equal, the vocabulary the split JSON's."""
+    _same_files(h5_run, "h5")
+    ref, port = h5_run["reference"], h5_run["port"]
+    assert len(port["steps"]) == len(ref["steps"]) == 4
+    for (g, _), (w, _) in zip(port["steps"], ref["steps"]):
+        np.testing.assert_allclose(g, w, rtol=1e-5)
+    assert [line.split(",")[0] for line in port["lines"][0][:4]] == [
+        f"iter {i + 1} (epoch {i})" for i in range(4)]
+    assert [line.rsplit(",", 1)[0] for line in port["lines"][0][:4]] == \
+        [line.rsplit(",", 1)[0] for line in ref["lines"][0][:4]]
+    got, want = (json.loads(r["lines"][0][-1]) for r in (port, ref))
+    assert got["iter"] == want["iter"] == 4
+    assert got["cider"] == pytest.approx(want["cider"], rel=1e-9)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    assert _json(port["dirs"][0] / "infos_h5.json")["vocab_size"] == 40
 
 
 # -- compat.test against the reference's -------------------------------------

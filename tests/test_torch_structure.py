@@ -185,6 +185,67 @@ print("ok")
     assert res.stdout.strip().endswith("ok")
 
 
+GATED = ("regex", "ml_dtypes", "PIL", "h5py", "pymongo", "flax", "jax",
+         "jaxlib", "news_image_caption_tpu")
+
+
+def test_port_imports_no_gated_dependency():
+    """The card's machine has none of regex, ml_dtypes, PIL, h5py,
+    pymongo or flax: importing every module of the port loads none of
+    them (nor jax), and the tokenizer, the readers, the shard reader and
+    the offline pass run without them."""
+    code = """
+import importlib, json, pkgutil, sys, tempfile
+import numpy as np
+import torch
+import news_image_caption_tpu_torch as pkg
+names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")}
+new = {"data.bpe", "data.vocabulary", "data.indexer", "data.preprocess",
+       "data.readers", "data.native_loader", "data.materialize",
+       "models.port_tell", "models.port_checkpoint"}
+assert {pkg.__name__ + "." + n for n in new} <= names, names
+for name in sorted(names):
+    importlib.import_module(name)
+from news_image_caption_tpu_torch.data import materialize as mat
+from news_image_caption_tpu_torch.data.native_loader import NativeShardLoader
+from news_image_caption_tpu_torch.models.resnet import ResNetTrunk
+from news_image_caption_tpu_torch.models.roberta import RobertaEncoder
+with tempfile.TemporaryDirectory() as out:
+    with open(out + "/n.jsonl", "w") as f:
+        for i in range(3):
+            f.write(json.dumps({"caption": f"José's café {i}",
+                                "article": f"Zürich 北京 {i}."}) + "\\n")
+    kw = dict(device="cpu", dtype=torch.float32)
+    enc = mat.FeatureEncoders(resnet=ResNetTrunk(18, 2, **kw),
+                              roberta=RobertaEncoder(512, 16, 1, 4, 32, 64,
+                                                     **kw), crop=32)
+    paths = mat.materialize(out + "/n.jsonl", out + "/s", caption_len=8,
+                            article_len=16, encoders=enc, image_size=32)
+    (batch,) = NativeShardLoader(paths, 3).epoch(shuffle=False)
+    assert batch["image"].shape == (3, 16, 128), batch["image"].shape
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("ok")
+""" % (GATED,)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_shard_reader_source_lives_outside_csrc():
+    """nvcc compiles csrc/*.cu; the shard reader is host code, built by
+    g++ from native/."""
+    from news_image_caption_tpu_torch.data import native_loader
+    src = native_loader.SOURCE
+    assert src.exists() and src.suffix == ".cc"
+    assert src.parent == REPO / "news_image_caption_tpu_torch" / "native"
+    assert not (_build.CSRC / src.name).exists()
+    assert src not in _build.sources()
+    assert native_loader.BUILD_DIR == _build.BUILD_DIR
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
