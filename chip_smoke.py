@@ -262,6 +262,23 @@ Phases, each fatal on failure (exit code 1, no result line):
      own fp32 forward on the card (|diff| <= 2e-4 + 2e-4 |reference|);
      `evaluate -m best` on 32 test records: the files, 3 / 8 / 4 / 4
      launches a step (the `port_command` JSON line).
+  20. detection and captioning of a raw photo through
+     `serving/worker.py::full_model_builder` (its defaults, `device=
+     "cuda"`, `warmup()` first): `configs/nytimes/transformer_faces.yaml`
+     in bf16 from seeded random weights; MTCNN's nets drawn on the CPU
+     with their face-class biases raised (`DETECT_FACE_BIAS`), the
+     embedder and YOLOv3-SPP (at 256) `full_model_builder`'s seeded random
+     weights, all fp32 without TF32; a 480 x 640 uint8 photo with the
+     flagship's image [1, 49, 2048] and article [1, 512, 1024]. Each net
+     on identical inputs against its CPU copy (`DETECT_NET_TOL`), the
+     cascade's per-call counts and boxes against the CPU's, the tokens
+     equal to the model's own `generate` on the batch built by hand from
+     the detectors' faces, 3 / 12 / 4 / 4 launches a step, step 0
+     against the CPU's plain path, the maps (1, T, S' + 2) with rows
+     summing to 1, and `ObjectFeatureExtractor` once at 416. Print the
+     MTCNN and YOLO stages (host clock), the embedder, YOLO, generate
+     and maps (CUDA events), `predict` over 10 calls and the device-busy
+     share of a profiled call (the `detect_caption` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -3798,24 +3815,23 @@ PIPELINE_CONFIG = "configs/goodnews/transformer_weighted_roberta.yaml"
 PIPELINE_OTHER = "configs/nytimes/transformer_weighted_roberta.yaml"
 
 
-def pipeline_vs_plain(torch, model, batch, what: str) -> dict:
-    """Step 0 of 4 rows on the card against the decoder's plain path on
-    the CPU (bf16) over the same contexts, the card's encode of the raw
-    images and article ids: the top-5 log-probs within 0.1 of the plain
-    path's full-vocab top-5, and the plain log-prob of each id the card
-    chose within 0.1 of the card's (phase 13's tolerances)."""
+def captioner_vs_plain(torch, captioner, ctx, weights, what: str) -> dict:
+    """Step 0 of a flagship-decoder captioner on the card over the
+    contexts `ctx` (on the card) against its decoder's plain path on the
+    CPU (bf16) over the same contexts: the top-5 log-probs within 0.1 of
+    the plain path's full-vocab top-5, and the plain log-prob of each id
+    the card chose within 0.1 of the card's (phase 13's tolerances)."""
     from news_image_caption_tpu_torch.generation.generator import \
         GenerationConfig
     from news_image_caption_tpu_torch.models.captioner import \
         TransformerFlattened
-    rows = {k: v[:4] for k, v in batch.items()}
     cfg = GenerationConfig(max_len=1)
-    cpu = TransformerFlattened(decoder=copy.deepcopy(model.decoder).to("cpu"))
+    cpu = TransformerFlattened(decoder=copy.deepcopy(captioner.decoder).to(
+        "cpu"))
+    n = ctx["article"].shape[0]
     with torch.inference_mode():
-        ctx = model.encode(rows)
-        kvs, caches, seed, w = model.captioner._decode_setup(
-            ctx, cfg, model.decode_weights(), 1)
-        v_k, i_k = (t.cpu() for t in model.decoder.step_topk(
+        kvs, caches, seed, w = captioner._decode_setup(ctx, cfg, weights, 1)
+        v_k, i_k = (t.cpu() for t in captioner.decoder.step_topk(
             seed, 0, kvs, caches, 5, w))
         kvs, caches, seed, w = cpu._decode_setup(
             {k: v.cpu() for k, v in ctx.items()}, cfg, None, 1)
@@ -3824,7 +3840,7 @@ def pipeline_vs_plain(torch, model, batch, what: str) -> dict:
     e0 = (v_k - v_p).abs().max().item()
     e_ids = (v_k - lp.gather(1, i_k)).abs().max().item()
     agree = (i_k == i_p).float().mean().item()
-    print(f"  {what}: step 0 on 4 rows, kernel vs plain path on the CPU"
+    print(f"  {what}: step 0 on {n} rows, kernel vs plain path on the CPU"
           f" (the card's contexts): top-5 log-probs max |diff| {e0:.4g} (tol"
           f" 0.1), the plain log-prob of the card's ids max |diff|"
           f" {e_ids:.4g} (tol 0.1), ids equal {agree:.3f}", flush=True)
@@ -3832,6 +3848,17 @@ def pipeline_vs_plain(torch, model, batch, what: str) -> dict:
           " plain paths differ")
     return {"step0_max_abs_diff": e0, "step0_card_ids_max_abs_diff": e_ids,
             "step0_ids_equal": agree}
+
+
+def pipeline_vs_plain(torch, model, batch, what: str) -> dict:
+    """Step 0 of 4 rows on the card's encode of the raw images and
+    article ids against the plain path on the CPU
+    (`captioner_vs_plain`)."""
+    rows = {k: v[:4] for k, v in batch.items()}
+    with torch.inference_mode():
+        ctx = model.encode(rows)
+    return captioner_vs_plain(torch, model.captioner, ctx,
+                              model.decode_weights(), what)
 
 
 def pipeline_batch(torch, counted, path: str, generator_seed: int = 0):
@@ -4634,6 +4661,254 @@ def port_phase(torch, counted):
                       "evaluate_steps": n_steps, "card": card_line()}
 
 
+DETECT_CONFIG = "configs/nytimes/transformer_faces.yaml"
+# The phase's photo (numpy seed 20) and MTCNN weights (drawn on the CPU
+# from a generator seeded with 0), with the face-class biases of PNet's
+# conv4_1, RNet's dense5_1 and ONet's dense6_1 raised by these: on the
+# CPU, 283 of 50114 PNet cells, 11 of 281 RNet crops and 5 of 8 ONet
+# crops pass, 4 faces, every probability at least 7.2e-5 from its
+# threshold (`tests/test_torch_detection.py` raises them the same way).
+DETECT_FACE_BIAS = (0.1, 0.4, 0.7)
+DETECT_PHOTO = (480, 640, 3)
+# A detector net's outputs on the card (fp32, TF32 off) against its CPU
+# copy on the same inputs: max |card - CPU| <= DETECT_NET_TOL * max(1,
+# max |CPU|).
+DETECT_NET_TOL = 1e-4
+
+
+def cascade_states(torch) -> list:
+    """PNet, RNet and ONet state dicts drawn on the CPU, face biases
+    raised by DETECT_FACE_BIAS."""
+    from news_image_caption_tpu_torch.models import facenet
+    g = torch.Generator().manual_seed(0)
+    out = []
+    for cls, head, bias in zip((facenet.PNet, facenet.RNet, facenet.ONet),
+                               ("conv4_1", "dense5_1", "dense6_1"),
+                               DETECT_FACE_BIAS):
+        sd = cls(device="cpu", generator=g).state_dict()
+        sd[f"{head}.bias"][1] += bias
+        out.append(sd)
+    return out
+
+
+def net_vs_cpu(torch, net, x: np.ndarray, what: str) -> float:
+    """`net`'s outputs on the card against its CPU copy on the same NCHW
+    float32 input, both fp32 without TF32: max |diff| over max(1, max
+    |CPU|), held to DETECT_NET_TOL."""
+    from news_image_caption_tpu_torch.models.facenet import fp32_exact
+    cpu = copy.deepcopy(net).to("cpu")
+    xt = torch.from_numpy(np.ascontiguousarray(x))
+    with torch.inference_mode(), fp32_exact():
+        got, want = net(xt.cuda()), cpu(xt)
+    flat = []
+
+    def walk(g, w):
+        if isinstance(w, torch.Tensor):
+            flat.append((g.float().cpu(), w.float()))
+        else:
+            for a, b in zip(g, w):
+                walk(a, b)
+
+    walk(got, want)
+    err = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
+              for g, w in flat)
+    print(f"  {what} {tuple(x.shape)}: card vs CPU (fp32, TF32 off), max"
+          f" |diff| / max(1, max |CPU|) {err:.3g} (tol {DETECT_NET_TOL})",
+          flush=True)
+    check(err <= DETECT_NET_TOL, f"{what}: the card's outputs differ from"
+          " the CPU's")
+    return err
+
+
+def cascade_counts(mtcnn, image: np.ndarray):
+    """(boxes, [(net, boxes above its threshold, boxes in)] of each net
+    call) of `mtcnn.detect(image)`."""
+    seen = []
+    run = mtcnn._run
+
+    def counting(net, batch):
+        out = run(net, batch)
+        probs = out[0][:, 1].ravel()
+        name = type(net).__name__
+        thr = mtcnn.thresholds[("PNet", "RNet", "ONet").index(name)]
+        seen.append((name, int((probs > thr).sum()), int(probs.size)))
+        return out
+
+    mtcnn._run = counting
+    try:
+        boxes, _ = mtcnn.detect(image)
+    finally:
+        mtcnn._run = run
+    return boxes, seen
+
+
+def detect_caption_phase(torch, counted):
+    """Phase 20. `serving/worker.py::full_model_builder` on the card at
+    full width: the faces captioner of DETECT_CONFIG in bf16 from seeded
+    random weights, MTCNN (forced detections), InceptionResnetV1 and
+    YOLOv3-SPP at 256 from `full_model_builder`'s seeded weights, on a
+    480 x 640 photo with the flagship's precomputed image and article
+    features. Returns (launches, summary)."""
+    import functools
+    import statistics
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import build_model, load_config
+    from news_image_caption_tpu_torch.models import facenet
+    from news_image_caption_tpu_torch.models.variants import nan_to_mask
+    from news_image_caption_tpu_torch.models.yolov3 import (
+        ObjectFeatureExtractor, letterbox)
+    from news_image_caption_tpu_torch.serving.worker import \
+        full_model_builder
+
+    cfg = load_config(DETECT_CONFIG)
+    model = build_model(cfg, "cuda", torch.bfloat16,
+                        torch.Generator(device="cuda").manual_seed(0))
+    model.param_module.eval()
+    states = cascade_states(torch)
+    real_mtcnn = facenet.MTCNN
+    facenet.MTCNN = functools.partial(real_mtcnn, *states)
+    try:
+        t = time.perf_counter()
+        predict = full_model_builder(caption_model=model, device="cuda")
+        build_s = time.perf_counter() - t
+    finally:
+        facenet.MTCNN = real_mtcnn
+    t = time.perf_counter()
+    predict.warmup()
+    warmup_s = time.perf_counter() - t
+    gcfg = dataclasses.replace(cli.generation_config(cfg), max_len=32)
+    rng = np.random.RandomState(20)
+    job = make_job(rng, 1, [400])
+    job["image_raw"] = np.random.default_rng(20).integers(
+        0, 256, DETECT_PHOTO, np.uint8)
+    photo = job["image_raw"]
+    mtcnn, embedder, objector = (predict.mtcnn, predict.embedder,
+                                 predict.objector)
+    t = time.perf_counter()
+    predict(job)                            # cuDNN's first calls
+    first_s = time.perf_counter() - t
+
+    # Each net against its CPU copy on identical inputs.
+    errs = {}
+    H, W = photo.shape[:2]
+    scale = 12.0 / mtcnn.min_face
+    pyr = mtcnn._norm(mtcnn._resize(photo, int(H * scale), int(W * scale)))
+    errs["pnet"] = net_vs_cpu(torch, mtcnn.pnet,
+                              pyr[None].transpose(0, 3, 1, 2), "PNet")
+    crops = np.random.default_rng(21).uniform(-1, 1, (16, 3, 48, 48)
+                                              ).astype(np.float32)
+    errs["rnet"] = net_vs_cpu(torch, mtcnn.rnet, crops[:, :, :24, :24],
+                              "RNet")
+    errs["onet"] = net_vs_cpu(torch, mtcnn.onet, crops, "ONet")
+    boxes, seen = cascade_counts(mtcnn, photo)
+    faces = mtcnn.extract_faces(photo, boxes[:4])
+    check(len(faces) >= 1, "phase 20: MTCNN found no face")
+    errs["embedder"] = net_vs_cpu(torch, embedder,
+                                  faces.transpose(0, 3, 1, 2),
+                                  "InceptionResnetV1")
+    boxed, _, _ = letterbox(photo, objector.img_size)
+    errs["yolo_256"] = net_vs_cpu(
+        torch, objector.model,
+        (boxed.astype(np.float32)[None] / 255.0).transpose(0, 3, 1, 2),
+        "YoloV3SPP")
+    cpu_mtcnn = facenet.MTCNN(*states, device="cpu")
+    cpu_boxes, cpu_seen = cascade_counts(cpu_mtcnn, photo)
+    box_err = (float(np.abs(boxes - cpu_boxes).max())
+               if boxes.shape == cpu_boxes.shape and len(boxes) else None)
+    print(f"  MTCNN on the {H} x {W} photo: {len(boxes)} faces; each net"
+          f" call's (net, passed, in): {seen}; the CPU's: {cpu_seen}; max"
+          f" |box diff| {box_err}", flush=True)
+    check(seen == cpu_seen and box_err is not None and box_err <= 1e-2,
+          "phase 20: the cascade's counts or boxes differ from the CPU's")
+
+    # predict against the model's own generate on the batch built by
+    # hand from the detectors' outputs, the launches, the maps.
+    (out, launches, predict_s) = counted_run(counted, lambda: predict(job))
+    emb = facenet.embed_faces(embedder, faces)
+    slots = np.full((4, 512), np.nan, np.float32)
+    slots[:len(emb)] = emb
+    batch = stage_batch(torch, {k: job[k] for k in (
+        "image", "image_mask", "article", "article_mask")}, "cuda")
+    f, fm = nan_to_mask(torch.from_numpy(slots)[None])
+    batch["faces"], batch["faces_mask"] = f.cuda().bfloat16(), fm.cuda()
+    w = model.decode_weights()
+    (tokens, _), gen_ms = events_ms(torch, lambda: model.generate(
+        batch, gcfg, w))
+    tok = tokens.to(torch.int32).cpu().numpy()
+    check(np.array_equal(out["tokens"], tok), "phase 20: predict's tokens"
+          " differ from generate's on the detectors' faces")
+    check_tokens(tok, 1, gcfg, cfg["model"]["vocab_size"])
+    check(int(out["n_faces"]) == len(faces), "phase 20: n_faces")
+    check(out["obj_boxes"].shape == (int(out["n_objects"]), 4),
+          "phase 20: obj_boxes")
+    steps = decode_steps(tok, gcfg.eos_id, gcfg.max_len)
+    check_launches(DETECT_CONFIG, launches, greedy_launches_a_step(3), steps)
+    T = tok.shape[1] - 1
+    for li in range(len(model.decoder.layers)):
+        for name, n in (("image", 49), ("article", 512), ("faces", 4)):
+            attn = out[f"attn_l{li}_{name}"]
+            check(attn.shape == (1, T, n + 2) and bool(np.isfinite(
+                attn).all()) and bool(np.allclose(attn.sum(-1), 1.0,
+                                                  atol=1e-2)),
+                  f"phase 20: attn_l{li}_{name} {attn.shape}")
+    _, maps_ms = events_ms(torch, lambda: model.attention_maps(
+        batch, tokens[:, :-1]))
+    summary = {"config": DETECT_CONFIG, "build_s": build_s,
+               "warmup_s": warmup_s, "first_predict_s": first_s,
+               "n_faces": int(out["n_faces"]),
+               "n_objects": int(out["n_objects"]), "steps": steps,
+               "cascade": seen, "net_vs_cpu": errs,
+               "box_max_abs_diff_vs_cpu": box_err,
+               "counted_predict_s": predict_s,
+               **captioner_vs_plain(torch, model, batch, w, DETECT_CONFIG)}
+
+    # Readings: the stages on the host clock, the nets by CUDA events.
+    mtcnn.timings, objector.timings = {}, {}
+    walls = []
+    for _ in range(10):
+        t = time.perf_counter()
+        predict(job)
+        walls.append((time.perf_counter() - t) * 1e3)
+    stage_ms = {f"mtcnn_{k}": v * 1e3 for k, v in mtcnn.timings.items()}
+    stage_ms.update({f"yolo_{k}": v * 1e3
+                     for k, v in objector.timings.items()})
+    mtcnn.timings = objector.timings = None
+    _, embed_ms = events_ms(torch, lambda: facenet.embed_faces(embedder,
+                                                               faces))
+    _, yolo_ms = events_ms(torch, lambda: objector.forward(boxed))
+    wall, busy, _ = profiled_busy(torch, lambda: predict(job))
+    ex416 = ObjectFeatureExtractor(objector.model.state_dict(), 416,
+                                   device="cuda")
+    ex416(photo)
+    (b416, f416), ex416_ms = events_ms(torch, lambda: ex416(photo))
+    check(b416.shape == (len(f416), 4) and f416.shape[1:] == (1024,)
+          and bool(np.isfinite(f416).all()), "phase 20: objects at 416")
+    boxed416, _, _ = letterbox(photo, 416)
+    _, yolo416_ms = events_ms(torch, lambda: ex416.forward(boxed416))
+    walls.sort()
+    summary.update({
+        "predict_ms": {"calls": len(walls), "median": statistics.median(
+            walls), "min": walls[0], "max": walls[-1]},
+        "last_call_ms": stage_ms, "embed_ms": embed_ms,
+        "yolo_256_forward_ms": yolo_ms, "generate_ms": gen_ms,
+        "maps_ms": maps_ms, "profiled_predict": {
+            "wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall},
+        "objects_416": {"n": len(f416), "call_ms": ex416_ms,
+                        "forward_ms": yolo416_ms},
+        "launches": launches, "card": card_line()})
+    print(f"  predict: median {summary['predict_ms']['median']:.1f} ms over"
+          f" 10 calls; last call's stages (host ms) {stage_ms}; embed"
+          f" {embed_ms:.2f} ms, YOLO at 256 {yolo_ms:.2f} ms, at 416"
+          f" {yolo416_ms:.2f} ms, generate {gen_ms:.1f} ms ({steps} steps),"
+          f" maps {maps_ms:.1f} ms (CUDA events); device busy {busy:.1f} of"
+          f" {wall:.1f} ms", flush=True)
+    del predict, model, ex416
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4842,6 +5117,15 @@ def main() -> None:
     print(json.dumps({"port_command": {**port_summary,
                                        "launches": port_launches}}),
           flush=True)
+
+    print("phase 20: detection and captioning of a raw photo through"
+          " full_model_builder (MTCNN, InceptionResnetV1, YOLOv3-SPP in"
+          " fp32; transformer_faces.yaml in bf16)", flush=True)
+    det_launches, det_summary = detect_caption_phase(torch, counted)
+    for name, n in det_launches.items():
+        launches[name] += n
+        by_path[name]["detect_caption"] = n
+    print(json.dumps({"detect_caption": det_summary}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

@@ -21,7 +21,12 @@ flax's `head_{i}`. The online pipeline's variables
 Gen3Pipeline` the same way, its encoders' leaves into PyTorch's layout:
 conv kernels HWIO -> OIHW and Dense kernels transposed, as `weight`;
 `Embed.embedding` and a LayerNorm's `scale` as `weight`; the frozen
-BatchNorm's four leaves and `bert_weight` as they are.
+BatchNorm's four leaves and `bert_weight` as they are. The detectors'
+bare variables (`PNet`, `RNet`, `ONet`, `InceptionResnetV1`,
+`YoloV3SPP` of `models/facenet.py` and `models/yolov3.py`, whose
+classes set `torch_layout`) map the same way: every kernel as `weight`,
+OIHW or [out, in]; biases, the PReLU slopes and the frozen BatchNorm's
+leaves as they are.
 
 `state_from_jax(tree, state)` carries a whole JAX `TrainState` (as
 flax's state dict) into the port's `training/train_step.py::TrainState`:
@@ -96,17 +101,20 @@ def params_from_jax(tree: Mapping[str, Any],
                     module: nn.Module) -> Dict[str, torch.Tensor]:
     """State dict for `module` from a flax param tree (with or without
     the top-level 'params' collection). Strict: a missing, unused or
-    misshapen key raises ValueError."""
+    misshapen key raises ValueError. A module with `torch_layout` set
+    (the detectors of `models/facenet.py` and `models/yolov3.py`) takes
+    every kernel in PyTorch's layout, as `weight`."""
     return _mapped(tree, {k: tuple(v.shape)
-                          for k, v in module.state_dict().items()})
+                          for k, v in module.state_dict().items()},
+                   getattr(module, "torch_layout", False))
 
 
 def _strip(tree: Mapping[str, Any]) -> Mapping[str, Any]:
     return tree["params"] if set(tree) == {"params"} else tree
 
 
-def _mapped(tree: Mapping[str, Any],
-            expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+def _mapped(tree: Mapping[str, Any], expected: Dict[str, tuple],
+            torch_layout: bool = False) -> Dict[str, torch.Tensor]:
     tree = _strip(tree)
     if "classifier" in tree:
         # TGNC's variables: each part its own collection, named as the
@@ -117,7 +125,7 @@ def _mapped(tree: Mapping[str, Any],
         # captioner's params the port's `decoder.`.
         tree = {("decoder" if k == "captioner" else k): _strip(v)
                 for k, v in tree.items()}
-    mapped = dict(_torch_layout(torch_key(path), leaf)
+    mapped = dict(_torch_layout(torch_key(path), leaf, torch_layout)
                   for path, leaf in _flatten(tree).items())
     missing = sorted(set(expected) - set(mapped))
     unused = sorted(set(mapped) - set(expected))
@@ -129,13 +137,14 @@ def _mapped(tree: Mapping[str, Any],
     return {k: to_tensor(mapped[k]) for k in expected}
 
 
-def _torch_layout(key: str, leaf):
-    """(key, leaf) of an encoder's leaf in PyTorch's layout: a kernel
-    (HWIO conv or [in, out] Dense) as `weight` (OIHW or [out, in]), an
-    embedding table and a LayerNorm's scale as `weight`; other keys, and
-    the FrozenBatchNorm's `scale`, as they are."""
+def _torch_layout(key: str, leaf, detector: bool = False):
+    """(key, leaf) of an encoder's or a detector's leaf in PyTorch's
+    layout: a kernel (HWIO conv or [in, out] Dense) as `weight` (OIHW or
+    [out, in]), an encoder's embedding table and a LayerNorm's scale as
+    `weight`; other keys, and the FrozenBatchNorm's `scale`, as they
+    are."""
     parts = key.split(".")
-    if parts[0] not in _TORCH_LAYOUT:
+    if not detector and parts[0] not in _TORCH_LAYOUT:
         return key, leaf
     name = parts[-1]
     if name == "kernel":

@@ -43,21 +43,27 @@ CROP = 224
 
 
 class Conv(nn.Module):
-    """Bias-free convolution, weight OIHW, fan-in normal init."""
+    """Convolution, weight OIHW, fan-in normal init; bias-free unless
+    `bias` (then zero). kernel and padding: an int or an (h, w) pair,
+    the padding symmetric."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, *, device, dtype, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride: int = 1,
+                 padding=0, bias: bool = False, *, device, dtype,
+                 generator=None):
         super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.stride, self.padding = stride, padding
-        self.weight = new_param((out_ch, in_ch, kernel, kernel), device,
-                                dtype)
+        self.weight = new_param((out_ch, in_ch, kh, kw), device, dtype)
+        self.bias = new_param((out_ch,), device, dtype) if bias else None
         if initializes(device):
             with torch.no_grad():
-                self.weight.normal_(0.0, (in_ch * kernel * kernel) ** -0.5,
+                self.weight.normal_(0.0, (in_ch * kh * kw) ** -0.5,
                                     generator=generator)
+                if bias:
+                    self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, None, self.stride, self.padding)
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class FrozenBatchNorm(nn.Module):

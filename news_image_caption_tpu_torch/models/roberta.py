@@ -47,18 +47,20 @@ def position_ids_from_tokens(ids: torch.Tensor, padding_idx: int = 1
 
 
 class Dense(nn.Module):
-    """y = x W^T + b, W [out, in]; fan-in normal init, zero bias."""
+    """y = x W^T + b, W [out, in]; fan-in normal init, zero bias (none
+    without `bias`)."""
 
-    def __init__(self, in_features: int, features: int, *, device, dtype,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, in_features: int, features: int, bias: bool = True,
+                 *, device, dtype, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.weight = new_param((features, in_features), device, dtype)
-        self.bias = new_param((features,), device, dtype)
+        self.bias = new_param((features,), device, dtype) if bias else None
         if initializes(device):
             with torch.no_grad():
                 self.weight.normal_(0.0, in_features ** -0.5,
                                     generator=generator)
-                self.bias.zero_()
+                if bias:
+                    self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

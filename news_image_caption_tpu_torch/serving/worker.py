@@ -23,10 +23,16 @@ done; a job may carry its own `max_len` and, for top-k sampling
 (`sampling_topk > 1`, served from the pool only), its `rng_seed`.
 `continuous_beam` serves exact beam search from the pool.
 
+`full_model_builder` composes the reference's detection and captioning
+of a raw photo: MTCNN faces, their InceptionResnetV1 embeddings and
+YOLOv3-SPP object regions (`models/facenet.py`, `models/yolov3.py`),
+then the faces (and objects) captioner, returning the caption and the
+attention maps of each context; the reference serves it from Python,
+not from its `serve` command, and so does the port.
+
 What the port does not have raises before any model is built, naming
 its ROADMAP Queue 1 item: int8 context K/V and int8 head tables (item
-7b), and the detection pipeline of `full_model_builder` (item 9b);
-serving a pointer model waits for it, as in the reference.
+7b).
 """
 
 from __future__ import annotations
@@ -231,7 +237,7 @@ def _serving_predict(model: TransformerFlattened, cfg: GenerationConfig,
 def _build_model(dims: Dict[str, Any], device: torch.device,
                  dtype: torch.dtype, params_path: Optional[str],
                  seed: int) -> TransformerFlattened:
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(0)
     model = TransformerFlattened(device=device, dtype=dtype,
                                  generator=generator, **dims)
     if params_path is not None:
@@ -375,13 +381,138 @@ def flagship_model_builder(device="cuda", max_len: int = 32,
     return predict
 
 
-def full_model_builder(*args, **kwargs):
-    """The reference's detection + captioning builder (MTCNN, FaceNet,
-    YOLOv3 upstream of the captioner) is not ported; its ResNet and
-    RoBERTa encoders are (`models/resnet.py`, `models/roberta.py`)."""
-    raise NotImplementedError(
-        "full_model_builder: face and object detection (MTCNN, FaceNet, "
-        "YOLOv3) are not ported yet (ROADMAP Queue 1 item 9b)")
+def full_model_builder(caption_model=None, caption_params=None,
+                       use_faces: bool = True, use_objects: bool = True,
+                       gen_config: Optional[GenerationConfig] = None,
+                       return_attns: bool = True,
+                       yolo_variables=None, facenet_variables=None,
+                       max_faces: int = 4, max_objects: int = 16,
+                       yolo_img_size: int = 256, device="cuda"):
+    """Detection and captioning of a raw photo, as the reference's
+    builder composes them: MTCNN face detection, InceptionResnetV1
+    embeddings of the faces, YOLOv3-SPP object regions pooled from its
+    1024-wide neck, then the captioner over the precomputed image and
+    article features and those faces and objects. Returns predict(job)
+    -> {"tokens": int32 [1, max_len + 1], "n_faces", "n_objects",
+    "obj_boxes" [n, 4], "attn_l{i}_{context}": [1, T, S']} (the keys of
+    the parts that ran) with `predict.warmup()`.
+
+    job: `image_raw` [H, W, 3] uint8 (the photo the detectors read),
+    `image` [1, P, image_dim] and `article` [1, S, article_dim] features
+    with `image_mask` / `article_mask` (True = padding).
+
+    caption_model: a port captioner (`TransformerFlattened` and its
+    variants) that holds its weights, on `device`; caption_params, when
+    given, the reference's flax tree of it, loaded strictly
+    (`params_from_jax`). yolo_variables / facenet_variables: the port's
+    state dicts of `YoloV3SPP` / `InceptionResnetV1`
+    (`port_darknet_weights`, `port_facenet_pt`); random weights drawn
+    from a generator seeded with 0 otherwise, as for MTCNN's nets.
+
+    Faces fill `max_faces` slots of 512 and objects `max_objects` slots
+    of 1024, NaN where nothing was found, masked through
+    `models/variants.py::nan_to_mask`. The objects are the neck's
+    1024-wide features, so only a model whose `obj` context is 1024
+    wide consumes them (the configs' `obj_dim` is 2048): as in the
+    reference, a model of another width fails, here before anything is
+    built. The detectors run in float32 without TF32
+    (`models/facenet.py::fp32_exact`); the caption decodes on the
+    model's kernels (greedy, `generate`), the maps come from
+    `attention_maps` over the generated tokens.
+    """
+    from news_image_caption_tpu_torch.models.facenet import (
+        MTCNN, InceptionResnetV1, build_net, embed_faces)
+    from news_image_caption_tpu_torch.models.variants import nan_to_mask
+    from news_image_caption_tpu_torch.models.yolov3 import \
+        ObjectFeatureExtractor
+
+    device = torch.device(device)
+    dims = {}
+    if caption_model is not None:
+        layer = caption_model.decoder.all_layers()[0]
+        dims = {name: layer._attn(name).k_proj.kernel.shape[0]
+                for name in layer.context_names}
+        for name, width in (("faces", 512), ("obj", 1024)):
+            if name in dims and dims[name] != width:
+                raise ValueError(
+                    f"full_model_builder: the detectors give {width}-wide "
+                    f"{name} features; this model's {name} context is "
+                    f"{dims[name]} wide")
+        if caption_params is not None:
+            module = caption_model.param_module
+            module.load_state_dict(params_from_jax(caption_params, module))
+        caption_model.param_module.eval()
+        weights = caption_model.decode_weights()
+        param = next(caption_model.param_module.parameters())
+    generator = torch.Generator(device=device).manual_seed(0)
+    det = dict(device=device, generator=generator)
+    mtcnn = MTCNN(**det) if use_faces else None
+    embedder = (build_net(InceptionResnetV1, facenet_variables, **det)
+                if use_faces else None)
+    objector = (ObjectFeatureExtractor(yolo_variables, yolo_img_size, **det)
+                if use_objects else None)
+    cfg = gen_config or GenerationConfig(max_len=32)
+    with_maps = return_attns and hasattr(caption_model, "attention_maps")
+
+    def context(feats: np.ndarray):
+        f, m = nan_to_mask(torch.from_numpy(feats)[None])
+        return f.to(param.device, param.dtype), m.to(param.device)
+
+    def predict(job: Dict[str, Any]) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        img = job.get("image_raw")
+        faces = np.full((max_faces, 512), np.nan, np.float32)
+        objs = np.full((max_objects, 1024), np.nan, np.float32)
+        if use_faces and img is not None:
+            boxes, _ = mtcnn.detect(img)
+            crops = mtcnn.extract_faces(img, boxes[:max_faces])
+            if len(crops):
+                emb = embed_faces(embedder, crops)
+                faces[:len(emb)] = emb
+            out["n_faces"] = np.asarray(len(crops))
+        if use_objects and img is not None:
+            obj_boxes, obj_feats = objector(img)
+            n = min(len(obj_feats), max_objects)
+            objs[:n] = obj_feats[:n]
+            out["n_objects"] = np.asarray(n)
+            out["obj_boxes"] = np.asarray(obj_boxes[:n], np.float32)
+        if caption_model is None:
+            return out
+        batch = {}
+        for k in _FEATURES + _MASKS:
+            if k in job:
+                t = torch.from_numpy(np.asarray(
+                    job[k], bool if k in _MASKS else np.float32))
+                batch[k] = t.to(param.device,
+                                None if k in _MASKS else param.dtype)
+        if "faces" in dims:
+            batch["faces"], batch["faces_mask"] = context(faces)
+        if "obj" in dims:
+            batch["obj"], batch["obj_mask"] = context(objs)
+        tokens, _ = caption_model.generate(batch, cfg, weights)
+        out["tokens"] = tokens.to(torch.int32).cpu().numpy()
+        if with_maps:
+            maps = caption_model.attention_maps(batch, tokens[:, :-1])
+            for li, layer_maps in enumerate(maps):
+                for cname, attn in layer_maps.items():
+                    out[f"attn_l{li}_{cname}"] = attn.float().cpu().numpy()
+        return out
+
+    def warmup():
+        """Serve one zero job without a photo, as the reference's warmup
+        (no detector runs)."""
+        if caption_model is None:
+            return
+        job = _zero_job(1, 49, 512, dims.get("image", 2048),
+                        dims["article"])
+        if "image" not in dims:
+            del job["image"], job["image_mask"]
+        predict(job)
+
+    predict.warmup = warmup
+    predict.mtcnn, predict.embedder, predict.objector = (mtcnn, embedder,
+                                                         objector)
+    return predict
 
 
 def decode_launches() -> Dict[str, int]:

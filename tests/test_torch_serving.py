@@ -417,11 +417,6 @@ def test_toy_refuses_the_card():
         default_model_builder("cuda")
 
 
-def test_full_model_builder_raises():
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\)"):
-        worker.full_model_builder(use_faces=False)
-
-
 def test_is_cuda_error():
     assert worker.is_cuda_error(RuntimeError(
         "decode_ffn_block: CUDA error 700 (an illegal memory access)"))

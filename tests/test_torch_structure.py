@@ -142,8 +142,9 @@ def test_builder_loads_params_path(tmp_path, monkeypatch):
 def test_port_imports_no_jax():
     """Every module of the port imports, a small model builds and
     decodes, and the train command takes two steps and writes its
-    checkpoint, on the CPU, without jax or the reference package
-    loaded."""
+    checkpoint, on the CPU, without jax, OpenCV, PIL or the reference
+    package loaded (the detection modules resize images without
+    them)."""
     code = """
 import importlib, json, pkgutil, sys, tempfile
 import torch
@@ -155,7 +156,8 @@ for name in sorted(names):
 new = {"training.checkpoint", "training.preemption", "data.loader",
        "utils.logging", "utils.tensorboard", "cli", "config",
        "serving.base", "serving.client", "serving.http",
-       "serving.messages", "serving.transport", "serving.worker"}
+       "serving.messages", "serving.transport", "serving.worker",
+       "models.facenet", "models.yolov3", "models.image_resize"}
 assert {pkg.__name__ + "." + n for n in new} <= names, names
 from news_image_caption_tpu_torch.models.captioner import TransformerFlattened
 from news_image_caption_tpu_torch.generation.generator import GenerationConfig
@@ -174,8 +176,8 @@ with tempfile.TemporaryDirectory() as out:
     assert torch.load(out + "/checkpoints/ckpt_2.pt",
                       weights_only=True)["step"] == 2
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "zmq",
-                                    "news_image_caption_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "zmq", "cv2",
+                                    "PIL", "news_image_caption_tpu"))
 assert not bad, bad
 print("ok")
 """ % (SMALL,)
