@@ -279,6 +279,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      MTCNN and YOLO stages (host clock), the embedder, YOLO, generate
      and maps (CUDA events), `predict` over 10 calls and the device-busy
      share of a profiled call (the `detect_caption` JSON line).
+  21. int8 context K/V and int8 head tables: `decode_cross_attention_int8`
+     (kernel A) at B=16 over S' = 514 and 51 with Q = 1 (a greedy step),
+     5 (beam-5) and 4 (a speculative chunk), and at B=1 / 128, and
+     `band_topk_lse_int8` (kernel B) over the three word tables at 1, 16,
+     80 and 640 rows, the K/V and tables quantized by the port's own
+     quantizers, each against its plain twin (phase 3's tolerances; a
+     second call bit-equal) and timed with its plain twin, its library
+     chain (the int8 operands widened and scaled, then the product) and
+     the bound; then phase 4's weights through `flagship_model_builder(
+     quantize_kv=True, quantize_head=True)`: greedy and beam-5 at B=16
+     under each switch and both (the share of tokens equal to the exact
+     route's), speculative greedy (spec_k 4, oracle drafts) under each
+     (tokens equal to that switch's greedy: 1.0), the greedy pool (16
+     slots) and beam pool (8 slots) under both (each request its row of
+     the same path at the pool's row count), `serve --quantize-kv
+     --quantize-head` answering four jobs equal to the in-process
+     builder's, and `evaluate` with `generation.quantize_kv` on phase 7's
+     256 records (the files, the first batch the rebuilt model's); every
+     path's launches from the counts zeroed just before it, the int8
+     variants where their switch is on and the bf16 kernel they stand in
+     for never (the `quantize` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -2660,54 +2681,62 @@ def conv_positions_phase(torch, blocks):
 
 
 def stack_kvs(torch, per):
-    """Per-request lists of each layer's {context: AttentionKV}, stacked
-    into one list over the requests' rows, as a slot pool holds them."""
-    from news_image_caption_tpu_torch.ops.attention import AttentionKV
-    return [{name: AttentionKV(*(torch.cat([p[layer][name][i] for p in per])
-                                 for i in range(3)))
-             for name in per[0][layer]} for layer in range(len(per[0]))]
+    """Per-request lists of each layer's {context: AttentionKV} (or
+    `QuantAttentionKV`), stacked into one list over the requests' rows,
+    as a slot pool holds them."""
+    return [{name: type(kv)(*(torch.cat([p[layer][name][i] for p in per])
+                              for i in range(len(kv))))
+             for name, kv in per[0][layer].items()}
+            for layer in range(len(per[0]))]
 
 
-def stacked_kvs(torch, model, batches):
+def stacked_kvs(torch, model, batches, quantize: bool = False):
     """The context K/V of each request projected alone (batch 1), as the
-    slot pool projects them, then stacked: the yardstick's K/V equal the
-    pool's bit for bit (a product of another batch may sum in another
-    order)."""
-    return stack_kvs(torch, [model.decoder.precompute_kv(model._contexts(b))
+    slot pool projects them (int8 with quantize), then stacked: the
+    yardstick's K/V equal the pool's bit for bit (a product of another
+    batch may sum in another order)."""
+    return stack_kvs(torch, [model.decoder.precompute_kv(model._contexts(b),
+                                                         quantize)
                              for b in batches])
 
 
 def rows_generate(torch, model, weights, batches, cfg, generator=None):
     """`generate` at B = len(batches) over these requests (K/V projected
-    a request, `stacked_kvs`): the yardstick of the greedy and sampling
-    pools, every kernel at the pool's row count."""
+    a request, `stacked_kvs`), with cfg's int8 routes: the yardstick of
+    the greedy and sampling pools, every kernel at the pool's row
+    count."""
     from news_image_caption_tpu_torch.generation.generator import \
         generate_candidates
     with torch.inference_mode():
-        kvs = stacked_kvs(torch, model, batches)
+        kvs = stacked_kvs(torch, model, batches, cfg.quantize_kv)
+        tables = model.head_tables(cfg, weights)
         B = len(batches)
         caches = model.decoder.init_cache(B, "cuda")
         seed = torch.full((B,), cfg.bos_id, dtype=torch.long, device="cuda")
         return generate_candidates(
             lambda tok, i: model.decoder.step_topk(
-                tok, i, kvs, caches, cfg.sampling_topk, weights),
+                tok, i, kvs, caches, cfg.sampling_topk, weights,
+                tables=tables),
             seed, cfg, generator)
 
 
 def rows_generate_beam(torch, model, weights, batches, cfg):
     """`generate_beam` at B = len(batches) over these requests (K/V
-    projected a request): the beam pool's yardstick."""
+    projected a request), with cfg's int8 routes: the beam pool's
+    yardstick."""
     from news_image_caption_tpu_torch.generation.generator import (
         beam_search_candidates, index_reorder)
     K = cfg.beam_size
     with torch.inference_mode():
-        kvs = stacked_kvs(torch, model, batches)
+        kvs = stacked_kvs(torch, model, batches, cfg.quantize_kv)
+        tables = model.head_tables(cfg, weights)
         B = len(batches)
         caches = model.decoder.init_cache(B * K, "cuda")
         seed = torch.full((B,), cfg.bos_id, dtype=torch.long, device="cuda")
         return beam_search_candidates(
             lambda tok, i: model.decoder.step_topk(tok, i, kvs, caches, K,
-                                                   weights, beam=K),
+                                                   weights, beam=K,
+                                                   tables=tables),
             seed, cfg, index_reorder(caches))
 
 
@@ -4909,6 +4938,439 @@ def detect_caption_phase(torch, counted):
     return launches, summary
 
 
+# -- phase 21: int8 context K/V and int8 head tables ----------------------
+
+# The routes' switches, and the bf16 kernel each int8 variant stands in
+# for: under its switch the bf16 kernel must not launch at all.
+QUANT_SWITCHES = {"kv": (True, False), "head": (False, True),
+                  "both": (True, True)}
+INT8_OF = {"band_topk_lse_int8": "band_topk_lse",
+           "decode_cross_attention_int8": "decode_cross_attention"}
+
+
+def quant_kernel_phase(torch, ops):
+    """Phase 21.1. `decode_cross_attention_int8` (kernel A) and
+    `band_topk_lse_int8` (kernel B) against their plain twins on the card
+    at the flagship's shapes, the K/V and tables quantized from seeded
+    bf16 ones by the port's own quantizers; second calls bit-equal; timed
+    with their plain twins, the library chains and the bound. Returns
+    three {kernel: result}: a greedy step at B=16, a beam-5 step at B=16
+    and (kernel A) a speculative chunk of 4 at B=16, all layers."""
+    from news_image_caption_tpu_torch.ops.adaptive import \
+        quantize_embed_tables
+    from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
+                                                            quantize_kv)
+    band, xattn = ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bf16 = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(bf16)
+
+    N, D, H = 16, 1024, 16
+    NB = 5 * N
+    names = ("band_topk_lse_int8", "decode_cross_attention_int8")
+    greedy = {n: Tally() for n in names}
+    beam = {n: Tally() for n in names}
+    chunk = {"decode_cross_attention_int8": Tally()}
+
+    # Kernel B over the three word tables (the int8 head band is table0
+    # alone, every id selectable; the class rows stay exact outside it),
+    # at 1, 16, 80 and 640 rows. Tolerances as phase 3's: one bf16
+    # rounding of a logit (0.03125) for the values and for the plain
+    # logit at each id the kernel chose, 1e-3 + 1e-4 |lse| for the lse.
+    # Library chain: (x @ q.to(bf16).T) * scale, logsumexp, topk.
+    for V in (5000, 15000, 30265):
+        ((qt, _),) = quantize_embed_tables([(rn(V, D, scale=D ** -0.5),
+                                             None)])
+        for n, k, tally in ((1, 1, None), (N, 1, greedy), (NB, 5, beam),
+                            (5 * 128, 5, None)):
+            x = rn(n, D)
+            got = band.band_topk_lse_int8(x, qt.q, qt.scale, k)
+            again = band.band_topk_lse_int8(x, qt.q, qt.scale, k)
+            want = band.band_topk_lse_int8_plain(x, qt.q, qt.scale, k)
+            torch.cuda.synchronize()
+            logits = ((x.float() @ qt.q.float().T) * qt.scale.float()).to(
+                bf16).float()
+            e_v, ok_v = within(got[0], want[0], 0.03125, 0.0)
+            e_l, ok_l = within(got[2], want[2], 1e-3, 1e-4)
+            e_i, ok_i = within(torch.gather(logits, 1, got[1].long()),
+                               want[0], 0.03125, 0.0)
+            agree = (got[1] == want[1]).float().mean().item()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"  band_topk_lse_int8 V={V} N={n} k={k}: values {e_v:.3g},"
+                  f" lse {e_l:.3g}, plain logit at chosen ids {e_i:.3g} (tol"
+                  f" 0.03125 / 1e-3+1e-4|lse| / 0.03125), ids equal"
+                  f" {agree:.3f}, repeated call bit-equal {same}", flush=True)
+            check(ok_v and ok_l and ok_i and bool((got[1] >= 0).all())
+                  and bool((got[1] < V).all()),
+                  f"band_topk_lse_int8 V={V} N={n} k={k} disagrees with its"
+                  " plain twin")
+            check(same, f"band_topk_lse_int8 V={V} N={n} k={k}: two calls on"
+                  " the same inputs differ")
+            if tally is None:
+                continue
+            tally["band_topk_lse_int8"].errs += [e_v, e_l]
+
+            def library(x=x, k=k):
+                lg = (x @ qt.q.to(bf16).T) * qt.scale
+                return torch.logsumexp(lg.float(), -1), torch.topk(lg, k)
+            line = tally["band_topk_lse_int8"].add(
+                (x, qt.q, qt.scale, *got), 2.0 * n * V * D,
+                time_ms(lambda: band.band_topk_lse_int8(x, qt.q, qt.scale,
+                                                        k)),
+                time_ms(lambda: band.band_topk_lse_int8_plain(
+                    x, qt.q, qt.scale, k)),
+                time_ms(library))
+            print(f"    time N={n} k={k}: {line}")
+
+    # Kernel A over the article (S' = 514) and image (S' = 51) contexts,
+    # half the items' keys padded; tolerance 0.02 abs + 0.02 rel, one bf16
+    # rounding of a probability or of the output (phase 3's). The timed
+    # shapes, 4 layers each: a greedy step (Q = 1), a beam-5 step (Q = 5)
+    # and a speculative chunk of 4 (Q = 4), all at B=16. Library chain:
+    # the int8 K and V widened and scaled, then scaled_dot_product_attention.
+    dh = D // H
+
+    def acase(B, Q, S, tally=None, one_key=False):
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:S - 2] = -1e9
+        if one_key:
+            bias[0] = -1e9
+            bias[0, S // 3] = 0.0
+        kv = quantize_kv(AttentionKV(rn(B, S, D), rn(B, S, D), bias), H)
+        q = rn(B, Q, D, scale=0.125)
+        args = (q, kv.k_q, kv.k_scale, kv.v_q, kv.v_scale, kv.bias, H)
+        got = xattn.decode_cross_attention_int8(*args)
+        again = xattn.decode_cross_attention_int8(*args)
+        want = xattn.decode_cross_attention_int8_plain(*args)
+        torch.cuda.synchronize()
+        e, ok = within(got, want, 0.02, 0.02)
+        same = bool(torch.equal(got, again))
+        what = f"B={B} Q={Q} S'={S}" + (" (item 0: one key)" if one_key
+                                        else "")
+        print(f"  decode_cross_attention_int8 {what}: {e:.3g} (tol 0.02 +"
+              f" 0.02|ref|), repeated call bit-equal {same}", flush=True)
+        check(ok, f"decode_cross_attention_int8 {what} disagrees")
+        check(same, f"decode_cross_attention_int8 {what}: two calls on the"
+              " same inputs differ")
+        if tally is None:
+            return
+        tally.errs.append(e)
+
+        def widened(t, scale):
+            return (t.to(bf16).view(B, S, H, dh) * scale[..., None]).view(
+                B, S, D)
+
+        def library():
+            return sdpa(torch, q, widened(kv.k_q, kv.k_scale),
+                        widened(kv.v_q, kv.v_scale), kv.bias, H)
+        line = tally.add(
+            (*args[:6], got), 4.0 * B * Q * S * D,
+            time_ms(lambda: xattn.decode_cross_attention_int8(*args)),
+            time_ms(lambda: xattn.decode_cross_attention_int8_plain(*args)),
+            time_ms(library), calls=4)
+        print(f"    time {what}, 4 layers: {line}")
+
+    for S in (514, 51):
+        acase(N, 1, S, greedy["decode_cross_attention_int8"])
+        acase(N, 5, S, beam["decode_cross_attention_int8"])
+        acase(N, 4, S, chunk["decode_cross_attention_int8"])
+        acase(128, 5, S)
+        acase(1, 1, S)
+        acase(1, 16, S)
+    for S in (1, 63, 65):
+        acase(N, 1, S)
+    acase(N, 5, 514, one_key=True)
+    return tuple({n: t.result() for n, t in d.items()}
+                 for d in (greedy, beam, chunk))
+
+
+def quant_launches(per_step: dict, switch: str) -> dict:
+    """per_step of the exact route moved onto the int8 variants that
+    `switch` turns on: {kernel: launches a step} over the six kernels."""
+    qk, qh = QUANT_SWITCHES[switch]
+    out = dict(per_step, band_topk_lse_int8=0, decode_cross_attention_int8=0)
+    for on, k8 in ((qh, "band_topk_lse_int8"),
+                   (qk, "decode_cross_attention_int8")):
+        if on:
+            out[k8], out[INT8_OF[k8]] = out[INT8_OF[k8]], 0
+    return out
+
+
+def quant_decode_phase(torch, counted):
+    """Phases 21.2 to 21.5 on phase 4's flagship weights (seed 0, bf16),
+    built by `flagship_model_builder(quantize_kv=True,
+    quantize_head=True)`: greedy and beam-5 at B=16 under each switch
+    (tokens against the exact route's), speculative greedy under each
+    (tokens equal to that switch's greedy), the greedy and beam pools
+    under both (each request its row of the same path at the pool's row
+    count). Returns (the builder's predict, the B=16 job, {path:
+    launches}, summary)."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.generation.continuous import (
+        ContinuousBatcher, ContinuousBeamBatcher)
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from news_image_caption_tpu_torch.serving.worker import \
+        flagship_model_builder
+
+    t0 = time.perf_counter()
+    qpredict = flagship_model_builder("cuda", batch_size=1, max_len=32,
+                                      early_exit=True, seed=0,
+                                      quantize_kv=True, quantize_head=True)
+    qpredict.warmup()
+    model, weights = qpredict.model, qpredict.weights
+    check(weights.quant_tables is not None, "the builder did not quantize"
+          " the head tables at load")
+    print(f"  flagship_model_builder(quantize_kv=True, quantize_head=True):"
+          f" built and warmed up in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    V, K = FLAGSHIP["vocab_size"], 5
+    rng = np.random.RandomState(21)
+    job16 = make_job(rng, 16, rng.randint(20, 513, size=16))
+    batch16 = stage_batch(torch, job16, "cuda")
+    launches, summary = {}, {}
+
+    def cfg_of(switch=None, **kw):
+        qk, qh = QUANT_SWITCHES[switch] if switch else (False, False)
+        return GenerationConfig(max_len=32, early_exit=True, quantize_kv=qk,
+                                quantize_head=qh, **kw)
+
+    # 21.2 / 21.3 greedy and beam-5 at B=16: each switch against the
+    # exact route (the share of equal tokens, a reading), launches from
+    # the counts zeroed just before each run.
+    exact_g = model.generate(batch16, cfg_of(), weights)[0].cpu().numpy()
+    exact_b = model.generate_beam(batch16, cfg_of(beam_size=K),
+                                  weights)[0].cpu().numpy()
+    greedy_tokens = {}
+    for switch in QUANT_SWITCHES:
+        cfg = cfg_of(switch)
+        (tok, lp), n, secs = counted_run(
+            counted, lambda: model.generate(batch16, cfg, weights))
+        tok = tok.cpu().numpy()
+        check_tokens(tok, 16, cfg, V)
+        check(bool(torch.isfinite(lp).all()), f"greedy ({switch}):"
+              " non-finite log-probs")
+        steps = decode_steps(tok, cfg.eos_id, cfg.max_len)
+        check_launches(f"greedy B=16 ({switch})", n,
+                       quant_launches(greedy_launches_a_step(), switch),
+                       steps)
+        launches[f"quant_greedy_{switch}"] = n
+        greedy_tokens[switch] = tok
+        eq = float((tok[:, 1:] == exact_g[:, 1:]).mean())
+        bcfg = cfg_of(switch, beam_size=K)
+        (btok, bsc), bn, bsecs = counted_run(
+            counted, lambda: model.generate_beam(batch16, bcfg, weights))
+        btok, bsc = btok.cpu().numpy(), bsc.cpu().numpy()
+        check_beams(btok, bsc, 16, bcfg, V)
+        bsteps = decode_steps(btok.reshape(-1, btok.shape[-1]), bcfg.eos_id,
+                              bcfg.max_len)
+        check_launches(f"beam-5 B=16 ({switch})", bn,
+                       quant_launches(beam_launches_a_step(torch, 16 * K, K),
+                                      switch), bsteps)
+        launches[f"quant_beam5_{switch}"] = bn
+        beq = float((btok[:, :, 1:] == exact_b[:, :, 1:]).mean())
+        beq0 = float((btok[:, 0, 1:] == exact_b[:, 0, 1:]).mean())
+        summary[switch] = {"greedy_equal_to_exact": eq,
+                           "greedy_wall_s": secs, "greedy_steps": steps,
+                           "beam5_equal_to_exact": beq,
+                           "beam5_best_equal_to_exact": beq0,
+                           "beam5_wall_s": bsecs, "beam5_steps": bsteps}
+        print(f"  {switch}: greedy B=16 tokens equal to the exact route's"
+              f" {eq:.3f} ({steps} steps, {secs:.2f} s); beam-5 B=16"
+              f" {beq:.3f}, best beam {beq0:.3f} ({bsteps} steps,"
+              f" {bsecs:.2f} s)", flush=True)
+
+    # 21.4 speculative greedy, spec_k 4, oracle drafts (the switch's own
+    # greedy caption): the tokens of that greedy, all of them. A chunk of
+    # 4 at B=16: 3 / 8 / 16 / 16 launches (phase 11.5), moved onto the
+    # int8 variants the switch turns on.
+    spec_per_chunk = {"band_topk_lse": 3, "decode_cross_attention": 8,
+                      "decode_conv_block": 16, "decode_ffn_block": 16}
+    for switch, want in greedy_tokens.items():
+        cfg = cfg_of(switch)
+        src = torch.from_numpy(want[:, 1:]).to(batch16["image"].device)
+        (toks, _, chunks), n, secs = counted_run(
+            counted, lambda: model.generate_speculative(
+                dict(batch16, article_ids=src), cfg, weights, spec_k=4))
+        check_launches(f"speculative ({switch})", n,
+                       quant_launches(spec_per_chunk, switch), chunks)
+        launches[f"quant_speculative_{switch}"] = n
+        eq = float((toks.cpu().numpy() == want).mean())
+        summary[switch].update(speculative_equal_to_greedy=eq,
+                               speculative_chunks=chunks,
+                               speculative_wall_s=secs)
+        print(f"  {switch}: speculative B=16, spec_k 4, oracle drafts:"
+              f" {chunks} chunks, tokens equal to the quantized greedy's"
+              f" {eq:.4f} (must be 1)", flush=True)
+        check(eq == 1.0, f"speculative ({switch}) differs from the"
+              " quantized greedy")
+
+    # 21.5 the greedy pool (16 slots, 16 requests, caps 8 to 32) and the
+    # beam pool (8 slots of 5 rows, 8 requests) under both switches: each
+    # request its row of the same path at the pool's row count.
+    cfg, bcfg = cfg_of("both"), cfg_of("both", beam_size=K)
+    jobs = [make_job(rng, 1, [n]) for n in rng.randint(20, 513, size=16)]
+    batches = [stage_batch(torch, j, "cuda") for j in jobs]
+    caps = rng.randint(8, 33, size=16)
+    engine = ContinuousBatcher.for_flattened(model, cfg, 16, weights=weights,
+                                             inner_steps=8)
+    (ids, res), n, secs = counted_run(counted, lambda: (
+        [engine.submit(b, max_len=int(c)) for b, c in zip(batches, caps)],
+        engine.run()))
+    steps = engine.n_chunks * engine.inner_steps
+    check_launches("greedy pool (both)", n,
+                   quant_launches(greedy_launches_a_step(), "both"), steps)
+    launches["quant_greedy_pool"] = n
+    want, _ = rows_generate(torch, model, weights, batches, cfg)
+    want = want.cpu().numpy()
+    for r in range(16):
+        exp = want[r].copy()
+        exp[caps[r] + 1:] = cfg.pad_id
+        check(bool(np.array_equal(res[ids[r]][0], exp)),
+              f"greedy pool (both): request {r} differs from its row of the"
+              " quantized generate at B=16")
+    del engine
+    engine = ContinuousBeamBatcher(model, bcfg, 8, weights=weights,
+                                   inner_steps=8)
+    (bids, bres), bn, bsecs = counted_run(counted, lambda: (
+        [engine.submit(b) for b in batches[:8]], engine.run()))
+    bsteps = engine.n_chunks * engine.inner_steps
+    check_launches("beam pool (both)", bn,
+                   quant_launches(beam_launches_a_step(torch, 40, K), "both"),
+                   bsteps)
+    launches["quant_beam_pool"] = bn
+    want_t, want_s = rows_generate_beam(torch, model, weights, batches[:8],
+                                        bcfg)
+    for r in range(8):
+        got_t, got_s = bres[bids[r]]
+        check(bool(np.array_equal(got_t, want_t[r].cpu().numpy()))
+              and bool(np.array_equal(got_s, want_s[r].cpu().numpy())),
+              f"beam pool (both): request {r} differs from its row of the"
+              " quantized generate_beam at B=8")
+    del engine
+    summary["pools"] = {"greedy_requests": 16, "greedy_wall_s": secs,
+                        "beam_requests": 8, "beam_wall_s": bsecs}
+    print(f"  pools (both): 16 greedy requests and 8 beam-5 requests equal to"
+          f" their rows of the quantized generate / generate_beam; {secs:.2f}"
+          f" / {bsecs:.2f} s", flush=True)
+    return qpredict, job16, launches, summary
+
+
+def quant_serve_phase(torch, qpredict, job16):
+    """Phase 21.6: returns (the worker's launches, summary)."""
+    from news_image_caption_tpu_torch.serving.client import CaptioningClient
+
+    rng = np.random.RandomState(22)
+    # 21.6 `serve --quantize-kv --quantize-head` (one worker on the card,
+    # the same seeded weights): three B=1 jobs and the B=16 job through
+    # the client, each equal to this process's builder's tokens; the
+    # worker's launches from its stats RPC, int8 variants only.
+    sjobs = [make_job(rng, 1, [n]) for n in (512, 300, 40)] + [job16]
+    local = [qpredict(j)["tokens"] for j in sjobs]
+    t0 = time.perf_counter()
+    with ServeProcess(SERVE_CMD + ["--quantize-kv",
+                                   "--quantize-head"]) as serve:
+        info = json.loads(serve.next_line("stdout", 120))
+        serve.next_line("stdout", 60)                    # the http port
+        serve.next_line("stderr", 300, match="worker 0 ready")
+        ready_s = time.perf_counter() - t0
+        client = CaptioningClient(info["frontend_addr"],
+                                  info["sink_pub_addr"], timeout_ms=300000)
+        try:
+            stats0 = client.stats(timeout_ms=60000)
+            lat = []
+            for i, job in enumerate(sjobs):
+                t = time.perf_counter()
+                got = client.caption(job)["tokens"]
+                lat.append((time.perf_counter() - t) * 1e3)
+                check(bool(np.array_equal(got, local[i])),
+                      f"serve --quantize-kv --quantize-head: job {i} differs"
+                      " from the in-process builder's")
+            stats = client.stats(timeout_ms=60000)
+        finally:
+            client.close()
+        rc, _ = serve.stop()
+        check(rc == 0, f"serve --quantize-kv --quantize-head exited with {rc}")
+        left = [p for p in serve.children if _alive(p)]
+        check(not left, f"processes left after serve stopped: {left}")
+    steps = sum(decode_steps(t, 2, 32) for t in local)
+    per_step = quant_launches(greedy_launches_a_step(), "both")
+    n = {k: stats["kernel_launches"][k] - stats0["kernel_launches"][k]
+         for k in per_step}
+    check_launches("serve --quantize-kv --quantize-head (worker)", n,
+                   per_step, steps)
+    print(f"  serve --quantize-kv --quantize-head: 4 jobs equal to the"
+          f" in-process builder's, request ms {[round(x, 1) for x in lat]};"
+          f" start to ready {ready_s:.1f} s", flush=True)
+    return n, {"start_to_ready_s": ready_s, "request_ms": lat,
+               "steps": steps}
+
+
+def quant_evaluate_phase(torch, counted):
+    """Phase 21.7: returns (the command's launches, summary)."""
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import (build_dataset,
+                                                     load_config)
+
+    # 21.7 evaluate with generation.quantize_kv on phase 7's 256 records:
+    # the files, launches (the int8 attention 8 a step, the bf16 one
+    # none), the first batch the rebuilt model's quantized generate, and
+    # its share of tokens equal to the exact route's.
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir, attn_dir = f"{tmp}/serialization", f"{tmp}/attn"
+        overrides = json.dumps({"trainer": {"serialization_dir": out_dir},
+                                "generation": {"quantize_kv": True}})
+        ecfg = load_config(EVAL_CONFIG, overrides)
+        gcfg = cli.generation_config(ecfg)
+        check(gcfg.quantize_kv and not gcfg.quantize_head,
+              f"evaluate's generation config {gcfg}")
+        rc, n, wall = counted_run(counted, lambda: cli.main(
+            ["evaluate", EVAL_CONFIG, "--split", "test", "--dump-attention",
+             attn_dir, "-o", overrides]))
+        check(rc == 0, f"evaluate with quantize_kv returned {rc}")
+        tokens = check_evaluate_files(out_dir, attn_dir, 16, gcfg)
+    steps = sum(decode_steps(t, gcfg.eos_id, gcfg.max_len) for t in tokens)
+    check_launches("evaluate (quantize_kv)", n,
+                   quant_launches(greedy_launches_a_step(), "kv"), steps)
+    emodel = cli.evaluation_model(ecfg, torch.device("cuda"))
+    eweights = emodel.decoder.decode_weights()
+    batch_np = next(build_dataset(ecfg, "test").batches(16, shuffle=False))
+    batch = {k: torch.from_numpy(batch_np[k]).cuda()
+             for k in ("image", "image_mask", "article", "article_mask")}
+    tok_q = emodel.generate(batch, gcfg, eweights)[0].to(torch.int32)
+    check(bool(np.array_equal(tok_q.cpu().numpy(), tokens[0])),
+          "evaluate (quantize_kv): the rebuilt model's first batch differs"
+          " from the command's")
+    exact = dataclasses.replace(gcfg, quantize_kv=False)
+    tok_e = emodel.generate(batch, exact, eweights)[0].cpu().numpy()
+    eq = float((tokens[0][:, 1:] == tok_e[:, 1:]).mean())
+    print(f"  evaluate (quantize_kv): {wall:.1f} s, {256 / wall:.2f}"
+          f" captions/s, {steps} steps; first batch tokens equal to the"
+          f" exact route's {eq:.3f}", flush=True)
+    return n, {"wall_s": wall, "captions_per_s": 256 / wall,
+               "decode_steps": steps, "first_batch_equal_to_exact": eq}
+
+
+def quantize_phase(torch, counted):
+    """Phases 21.2 to 21.7 (see `quant_decode_phase`,
+    `quant_serve_phase`, `quant_evaluate_phase`). `counted` holds the six
+    kernels. Returns ({path: launches}, summary)."""
+    qpredict, job16, launches, summary = quant_decode_phase(torch, counted)
+    launches["quant_serve"], summary["serve"] = quant_serve_phase(
+        torch, qpredict, job16)
+    del qpredict
+    launches["quant_evaluate"], summary["evaluate"] = quant_evaluate_phase(
+        torch, counted)
+    summary["card"] = card_line()
+    return launches, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5127,6 +5589,29 @@ def main() -> None:
         by_path[name]["detect_caption"] = n
     print(json.dumps({"detect_caption": det_summary}), flush=True)
 
+    print("phase 21: int8 context K/V and int8 head tables (kernels A and B"
+          " at flagship shapes; greedy, beam-5, speculative, the pools,"
+          " serve --quantize-kv --quantize-head, evaluate with quantize_kv;"
+          " bf16)", flush=True)
+    q_greedy, q_beam, q_chunk = quant_kernel_phase(
+        torch, (band_topk, decode_attention))
+    counted8 = dict(counted, band_topk_lse_int8=band_topk.band_topk_lse_int8,
+                    decode_cross_attention_int8=(
+                        decode_attention.decode_cross_attention_int8))
+    q_launches, q_summary = quantize_phase(torch, counted8)
+    for name in INT8_OF:
+        launches[name] = 0
+        by_path[name] = {}
+    for path, counts in q_launches.items():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name][path] = n
+    timing.update(q_greedy)
+    print(json.dumps({"quantize": {
+        **q_summary, "beam5_step_b16": q_beam, "chunk4_b16": q_chunk,
+        "launches": q_launches}}), flush=True)
+
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",
                                           "pallas_kernels.py:146"),
@@ -5138,7 +5623,12 @@ def main() -> None:
                                        "pallas_flash.py:243"),
                "flash_attention_bwd": ("flash_attention.cu",
                                        "pallas_flash.py:266"),
-               "dynamic_conv": ("dynamic_conv.cu", "pallas_kernels.py:72")}
+               "dynamic_conv": ("dynamic_conv.cu", "pallas_kernels.py:72"),
+               # The int8 variants: the kernels of the reference's int8
+               # routes, which it computes in XLA beside these two.
+               "band_topk_lse_int8": ("band_topk.cu", "pallas_topk.py:124"),
+               "decode_cross_attention_int8": ("decode_attention.cu",
+                                               "pallas_kernels.py:146")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"news_image_caption_tpu_torch/csrc/{src}",
                 "replaces": f"news_image_caption_tpu/ops/{tpu}",
@@ -5151,6 +5641,9 @@ def main() -> None:
                 "bound_by": timing[name]["bound_by"],
                 "library_ms": timing[name]["library_ms"]}
                for name, (src, tpu) in sources.items()]
+    for entry in kernels:
+        if entry["name"] in INT8_OF:
+            entry["variant_of"] = INT8_OF[entry["name"]]
     # The conv block with a position a row (the pool's steps), at the
     # pool's 16 rows and the beam pool's 80, summed over the four layers.
     conv_entry = next(k for k in kernels if k["name"] == "decode_conv_block")
@@ -5162,7 +5655,10 @@ def main() -> None:
           " 16 for the flash kernels, all layers; for dynamic_conv, one"
           " forward at B=16, T=512 of each flagship layer width, K ="
           " 3/7/15/31, summed, its library_ms the faster of the shift and"
-          f" band routes a width; train step {step_ms:.2f} ms)")
+          " band routes a width; for the int8 variants, a greedy step at"
+          " B=16 under quantize_kv / quantize_head, library_ms the chain"
+          " that widens the int8 operands and scales them before the"
+          f" product; train step {step_ms:.2f} ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

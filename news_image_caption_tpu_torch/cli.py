@@ -190,9 +190,11 @@ def main(argv: Optional[list] = None, *,
     ps.add_argument("--batch-size", type=int, default=1,
                     help="request batch of the workers' warmup")
     ps.add_argument("--quantize-kv", action="store_true",
-                    help="not ported (ROADMAP Queue 1 item 7b)")
+                    help="int8 context K/V, one scale a key and head "
+                         "(flagship; captions may differ near ties)")
     ps.add_argument("--quantize-head", action="store_true",
-                    help="not ported (ROADMAP Queue 1 item 7b)")
+                    help="int8 head word tables, one scale a row "
+                         "(flagship; captions may differ near ties)")
     ps.add_argument("--speculative-k", type=int, default=0,
                     help=">= 2: exact speculative greedy decode for jobs "
                          "that carry article_ids (the greedy tokens; "
@@ -263,18 +265,17 @@ def speculative_settings(cfg: Dict):
 
 def generation_config(cfg: Dict) -> GenerationConfig:
     """The `generation:` block with the reference's evaluate defaults
-    (beam_size 5, unused by greedy decode; early exit on). Options the
-    port does not have yet raise."""
+    (beam_size 5, unused by greedy decode; early exit on). It reads
+    `quantize_kv` (int8 context K/V) and, as the reference's evaluate,
+    not `quantize_head`."""
     raw = cfg.get("generation", {})
-    if raw.get("quantize_kv", False):
-        raise NotImplementedError("generation.quantize_kv: quantized K/V is "
-                                  "not ported yet (ROADMAP Queue 1 item 7)")
     return GenerationConfig(
         max_len=raw.get("max_len", 100),
         sampling_topk=raw.get("sampling_topk", 1),
         sampling_temp=raw.get("sampling_temp", 1.0),
         beam_size=raw.get("beam_size", 5),
-        early_exit=raw.get("early_exit", True))
+        early_exit=raw.get("early_exit", True),
+        quantize_kv=raw.get("quantize_kv", False))
 
 
 def evaluation_model(cfg: Dict, device: torch.device):
@@ -595,8 +596,7 @@ def serve_command(args) -> int:
     # Everything that would make every worker fail raises here, before
     # a worker is spawned (the monitor would respawn it in a loop).
     check_serving_args(args.speculative_k, args.continuous_slots,
-                       args.continuous_beam, args.sampling_topk,
-                       args.quantize_kv, args.quantize_head)
+                       args.continuous_beam, args.sampling_topk)
     if args.task == "toy":
         check_toy_device(args.platform or "cuda")
     device = _device(args.platform)
@@ -628,6 +628,8 @@ def serve_command(args) -> int:
             flagship_model_builder,
             max_len=args.max_len,
             early_exit=not args.no_early_exit,
+            quantize_kv=args.quantize_kv,
+            quantize_head=args.quantize_head,
             params_path=args.params,
             batch_size=args.batch_size, **switches)
     worker_device = "cpu" if device.type == "cpu" else None

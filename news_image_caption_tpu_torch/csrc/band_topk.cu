@@ -46,6 +46,21 @@
 //     faster at every shape, by 2 us at 16 rows and k = 1 and by half at
 //     80 rows, since the rows then merge side by side. No float is added
 //     atomically: a repeated call is bit-equal.
+//
+// The int8 variant (nic_band_topk_lse_int8, the walk with Q8 set) takes
+// an int8 table with one bf16 scale a row, the reference's QuantTable
+// (news_image_caption_tpu/ops/adaptive.py:41-88, quantize_embed_tables).
+// It replaces no TPU kernel of its own: the reference takes its XLA
+// route for int8 tables (ops/adaptive.py:343-349), and on the card a
+// tensor launches a kernel or raises. Bound: one read of the int8 table
+// and its scales, half the bytes of the bf16 walk (5.1 / 15.4 / 31.0
+// MB for the flagship's 5000 / 15000 / 30265-row word bands). Design:
+// the same walk; a slot holds 64 int8 table rows x `kc` bytes (rows
+// padded by 16 bytes, so that the 8 rows a fragment reads fall in
+// distinct banks), turned into bf16 where a fragment is built (exact for
+// |q| <= 127), and the row scale applied at the rounding point: a logit
+// is bf16(fp32 sum x scale), one rounding (the reference rounds the sum
+// to the compute dtype, then the product: two).
 
 #include "common.cuh"
 
@@ -63,6 +78,8 @@ constexpr int BAND_MAX_BLOCKS = 32 * BAND_MERGE_LISTS;
 struct BandArgs {
   const bf16* x;       // [N, D]
   const bf16* table;   // [V, D]
+  const int8_t* qtable;   // int8 variant: [V, D]
+  const bf16* scale;      // int8 variant: [V]
   float* pmax;         // [npad, blocks]
   float* psum;         // [npad, blocks]
   float* pval;         // [npad, blocks, k]
@@ -194,14 +211,23 @@ __device__ __forceinline__ void band_merge_row(const BandArgs& a, int row,
   __syncwarp();
 }
 
+// Bytes a table row of a slot takes: kc + 8 bf16, or kc int8 and 16
+// bytes of padding.
+__host__ __device__ constexpr int band_table_row_bytes(int kc, bool q8) {
+  return q8 ? kc + 16 : (kc + 8) * 2;
+}
+
 // Dynamic shared memory, in order: x [npad][D + 8] bf16 where it is
-// resident; `stages` slots of the table tile [64][kc + 8] bf16 and, where
-// x streams, its slice [npad][kc + 8] bf16; the logits tile [npad][72]
-// bf16; the rows' lists, values [npad][16] fp32 then ids [npad][16] int.
+// resident; `stages` slots of the table tile [64] rows
+// (band_table_row_bytes) and, where x streams, its slice [npad][kc + 8]
+// bf16; the logits tile [npad][72] bf16; the rows' lists, values
+// [npad][16] fp32 then ids [npad][16] int.
 __host__ __device__ constexpr int band_smem_bytes(int npad, int D, int kc,
-                                                  int stages, int x_resident) {
+                                                  int stages, int x_resident,
+                                                  bool q8) {
   return (x_resident ? npad * (D + 8) * 2 : 0) +
-         stages * (BAND_TILE + (x_resident ? 0 : npad)) * (kc + 8) * 2 +
+         stages * (BAND_TILE * band_table_row_bytes(kc, q8) +
+                   (x_resident ? 0 : npad * (kc + 8) * 2)) +
          npad * BAND_LOGIT_STRIDE * 2 + npad * BAND_MAX_K * 8;
 }
 
@@ -210,8 +236,8 @@ __host__ __device__ constexpr int band_smem_bytes(int npad, int D, int kc,
 // grid over a vocab tile's [npad, 64] logits: a warp owns the row tiles
 // wm, wm + WM, ... and WM neighbouring 8-id column tiles, so that at 128
 // rows an x fragment read from shared memory feeds four products and a
-// table fragment two.
-template <int MT, int WM>
+// table fragment two. Q8: the table is a.qtable (int8) with a.scale.
+template <int MT, int WM, bool Q8>
 __global__ void __launch_bounds__(BAND_THREADS, 1) band_walk_kernel(BandArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int NPAD = 16 * MT, RPW = 2 * MT;   // rows a warp of the row pass
@@ -222,8 +248,10 @@ __global__ void __launch_bounds__(BAND_THREADS, 1) band_walk_kernel(BandArgs a) 
   const int blocks = gridDim.x;
   const int kc = a.kc, stages = a.stages, D = a.D, N = a.N, V = a.V;
   const int chunks = D / kc;
-  const int row_bytes = (kc + 8) * 2;             // of a slot's rows
-  const int slot_bytes = (BAND_TILE + (a.x_resident ? 0 : NPAD)) * row_bytes;
+  const int row_bytes = (kc + 8) * 2;             // of a slot's x rows
+  const int trow_bytes = band_table_row_bytes(kc, Q8);   // table rows
+  const int slot_bytes =
+      BAND_TILE * trow_bytes + (a.x_resident ? 0 : NPAD * row_bytes);
   const int mtiles = cdiv(N, 16);
 
   unsigned char* xs = smem;
@@ -240,6 +268,12 @@ __global__ void __launch_bounds__(BAND_THREADS, 1) band_walk_kernel(BandArgs a) 
   const int total = my_tiles * chunks;
   const int cpr = kc / 8;                         // 16-byte pieces a row,
   const int cshift = kc == 256 ? 5 : kc == 128 ? 4 : 3;   // a power of two
+  // The same of a table row: bf16 as x, int8 half as many.
+  const int tpr = Q8 ? cpr / 2 : cpr, tshift = Q8 ? cshift - 1 : cshift;
+  const size_t trow_src = (size_t)D * (Q8 ? 1 : 2);   // bytes a table row
+  const unsigned char* tsrc = Q8
+      ? reinterpret_cast<const unsigned char*>(a.qtable)
+      : reinterpret_cast<const unsigned char*>(a.table);
 
   // Request slot `it` of the walk: columns [c * kc, + kc) of the 64 table
   // rows of this block's j-th tile and, where x streams, of x.
@@ -248,16 +282,17 @@ __global__ void __launch_bounds__(BAND_THREADS, 1) band_walk_kernel(BandArgs a) 
       const int j = it / chunks, c = it % chunks;
       const int v0 = ((int)blockIdx.x + j * blocks) * BAND_TILE;
       unsigned char* slot = ring + (it % stages) * slot_bytes;
-      for (int i = tid; i < BAND_TILE * cpr; i += BAND_THREADS) {
-        const int r = i >> cshift, p = i & (cpr - 1);
-        unsigned char* dst = slot + r * row_bytes + p * 16;
+      for (int i = tid; i < BAND_TILE * tpr; i += BAND_THREADS) {
+        const int r = i >> tshift, p = i & (tpr - 1);
+        unsigned char* dst = slot + r * trow_bytes + p * 16;
         if (v0 + r < V)
-          cp_async16(dst, a.table + (size_t)(v0 + r) * D + c * kc + p * 8);
+          cp_async16(dst, tsrc + (size_t)(v0 + r) * trow_src +
+                              (size_t)c * kc * (Q8 ? 1 : 2) + p * 16);
         else
           zero16(dst);
       }
       if (!a.x_resident) {
-        unsigned char* xslot = slot + BAND_TILE * row_bytes;
+        unsigned char* xslot = slot + BAND_TILE * trow_bytes;
         for (int i = tid; i < NPAD * cpr; i += BAND_THREADS) {
           const int r = i >> cshift, p = i & (cpr - 1);
           unsigned char* dst = xslot + r * row_bytes + p * 16;
@@ -302,7 +337,7 @@ __global__ void __launch_bounds__(BAND_THREADS, 1) band_walk_kernel(BandArgs a) 
     const int j = it / chunks, c = it % chunks;
     const unsigned char* slot = ring + (it % stages) * slot_bytes;
     const unsigned char* a_base =
-        a.x_resident ? xs + c * kc * 2 : slot + BAND_TILE * row_bytes;
+        a.x_resident ? xs + c * kc * 2 : slot + BAND_TILE * trow_bytes;
     if (c == 0) {
 #pragma unroll
       for (int i = 0; i < MTW; ++i)
@@ -314,15 +349,25 @@ __global__ void __launch_bounds__(BAND_THREADS, 1) band_walk_kernel(BandArgs a) 
     // column tile at k offsets 0, 8, 16, 24 (two k steps); x row
     // lane % 16 of a row tile at 0, 8.
     const unsigned char* b_at =
-        slot + (wn * NTW * 8 + (lane & 7)) * row_bytes + (lane >> 3) * 16;
+        Q8 ? slot + (wn * NTW * 8 + g) * trow_bytes + 2 * t
+           : slot + (wn * NTW * 8 + (lane & 7)) * trow_bytes + (lane >> 3) * 16;
     const unsigned char* a_at =
         a_base + (wm * 16 + (lane & 15)) * a_stride + (lane >> 4) * 16;
 #pragma unroll 2
     for (int kk = 0; kk < kc; kk += 32) {
       uint32_t bf[NTW][4];
 #pragma unroll
-      for (int jn = 0; jn < NTW; ++jn)
-        ldmatrix_x4(bf[jn], b_at + jn * 8 * row_bytes + kk * 2);
+      for (int jn = 0; jn < NTW; ++jn) {
+        if constexpr (Q8) {
+          // Row g of the column tile, columns kk + 8j + 2t, + 1: the
+          // fragments ldmatrix_x4 gives the bf16 walk.
+          const unsigned char* at = b_at + jn * 8 * trow_bytes + kk;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bf[jn][j] = i8pair_to_bf16x2(at + 8 * j);
+        } else {
+          ldmatrix_x4(bf[jn], b_at + jn * 8 * trow_bytes + kk * 2);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < MTW; ++i) {
         if (wm + WM * i < mtiles) {
@@ -347,6 +392,14 @@ __global__ void __launch_bounds__(BAND_THREADS, 1) band_walk_kernel(BandArgs a) 
 #pragma unroll
         for (int jn = 0; jn < NTW; ++jn) {
           const int col = (wn * NTW + jn) * 8 + 2 * t, id = v0 + col;
+          if constexpr (Q8) {   // the row scale, at the rounding point
+            const float s0 = id < V ? to_f(a.scale[id]) : 0.f;
+            const float s1 = id + 1 < V ? to_f(a.scale[id + 1]) : 0.f;
+            acc[i][jn][0] *= s0;
+            acc[i][jn][1] *= s1;
+            acc[i][jn][2] *= s0;
+            acc[i][jn][3] *= s1;
+          }
           const __nv_bfloat162 lo = __halves2bfloat162(
               to_bf(id < V ? acc[i][jn][0] : -INFINITY),
               to_bf(id + 1 < V ? acc[i][jn][1] : -INFINITY));
@@ -428,15 +481,57 @@ __global__ void __launch_bounds__(32) band_merge_kernel(BandArgs a, int blocks) 
                  reinterpret_cast<int*>(cand_v + blocks * a.k));
 }
 
-template <int MT, int WM>
+template <int MT, int WM, bool Q8>
 static cudaError_t launch_band(const BandArgs& a, int blocks, int smem,
                                cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      band_walk_kernel<MT, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      band_walk_kernel<MT, WM, Q8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  band_walk_kernel<MT, WM><<<blocks, BAND_THREADS, smem, s>>>(a);
+  band_walk_kernel<MT, WM, Q8><<<blocks, BAND_THREADS, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+// Checks the caller's plan, then the walk and the merge.
+template <bool Q8>
+static int band_entry(const void* x, const void* table, const void* scale,
+                      void* pmax, void* psum, void* pval, void* pid,
+                      void* vals, void* ids, void* lse, int N, int D, int V,
+                      int sel_limit, int k, int blocks, int kc, int stages,
+                      int x_resident, int smem, void* stream) {
+  const int n_tiles = cdiv(V, BAND_TILE);
+  const int mt = N <= 16 ? 1 : N <= 32 ? 2 : 8;
+  if (N < 1 || N > BAND_MAX_ROWS || V < 1 || k < 1 || k > BAND_MAX_K ||
+      k > sel_limit || sel_limit > V || D < 64 || D % 64 != 0 ||
+      (kc != 64 && kc != 128 && kc != 256) || D % kc != 0 || stages < 2 ||
+      stages > 4 || blocks < 1 || blocks > n_tiles ||
+      blocks > BAND_MAX_BLOCKS ||
+      smem != band_smem_bytes(16 * mt, D, kc, stages, x_resident, Q8) ||
+      smem > MAX_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  BandArgs a;
+  a.x = (const bf16*)x;
+  a.table = Q8 ? nullptr : (const bf16*)table;
+  a.qtable = Q8 ? (const int8_t*)table : nullptr;
+  a.scale = (const bf16*)scale;
+  a.pmax = (float*)pmax;
+  a.psum = (float*)psum;
+  a.pval = (float*)pval;
+  a.pid = (int*)pid;
+  a.vals = (float*)vals;
+  a.ids = (int*)ids;
+  a.lse = (float*)lse;
+  a.N = N, a.D = D, a.V = V, a.sel_limit = sel_limit, a.k = k;
+  a.n_tiles = n_tiles, a.kc = kc, a.stages = stages;
+  a.x_resident = x_resident;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = mt == 1   ? launch_band<1, 1, Q8>(a, blocks, smem, s)
+                    : mt == 2 ? launch_band<2, 2, Q8>(a, blocks, smem, s)
+                              : launch_band<8, 4, Q8>(a, blocks, smem, s);
+  if (err != cudaSuccess) return (int)err;
+  band_merge_kernel<<<N, 32, blocks * k * 8, s>>>(a, blocks);
+  NIC_RETURN_IF_LAUNCH_FAILED();
+  return 0;
 }
 
 }  // namespace nic
@@ -456,38 +551,25 @@ extern "C" int nic_band_topk_lse(const void* x, const void* table, void* pmax,
                                  int sel_limit, int k, int blocks, int kc,
                                  int stages, int x_resident, int smem,
                                  void* stream) {
-  using namespace nic;
-  const int n_tiles = cdiv(V, BAND_TILE);
-  const int mt = N <= 16 ? 1 : N <= 32 ? 2 : 8;
-  if (N < 1 || N > BAND_MAX_ROWS || V < 1 || k < 1 || k > BAND_MAX_K ||
-      k > sel_limit || sel_limit > V || D < 64 || D % 64 != 0 ||
-      (kc != 64 && kc != 128 && kc != 256) || D % kc != 0 || stages < 2 ||
-      stages > 4 || blocks < 1 || blocks > n_tiles ||
-      blocks > BAND_MAX_BLOCKS ||
-      smem != band_smem_bytes(16 * mt, D, kc, stages, x_resident) ||
-      smem > MAX_SMEM_BYTES)
-    return (int)cudaErrorInvalidValue;
-  BandArgs a;
-  a.x = (const bf16*)x;
-  a.table = (const bf16*)table;
-  a.pmax = (float*)pmax;
-  a.psum = (float*)psum;
-  a.pval = (float*)pval;
-  a.pid = (int*)pid;
-  a.vals = (float*)vals;
-  a.ids = (int*)ids;
-  a.lse = (float*)lse;
-  a.N = N, a.D = D, a.V = V, a.sel_limit = sel_limit, a.k = k;
-  a.n_tiles = n_tiles, a.kc = kc, a.stages = stages;
-  a.x_resident = x_resident;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = mt == 1   ? launch_band<1, 1>(a, blocks, smem, s)
-                    : mt == 2 ? launch_band<2, 2>(a, blocks, smem, s)
-                              : launch_band<8, 4>(a, blocks, smem, s);
-  if (err != cudaSuccess) return (int)err;
-  band_merge_kernel<<<N, 32, blocks * k * 8, s>>>(a, blocks);
-  NIC_RETURN_IF_LAUNCH_FAILED();
-  return 0;
+  return nic::band_entry<false>(x, table, nullptr, pmax, psum, pval, pid,
+                                vals, ids, lse, N, D, V, sel_limit, k, blocks,
+                                kc, stages, x_resident, smem, stream);
+}
+
+// The same over an int8 table [V, D] (16-byte aligned) with bf16 scales
+// [V]: a logit is bf16((x . table_q[v]) * scale[v]). `smem` is
+// band_smem_bytes(npad, D, kc, stages, x_resident, true). Returns a
+// cudaError_t.
+extern "C" int nic_band_topk_lse_int8(const void* x, const void* table,
+                                      const void* scale, void* pmax,
+                                      void* psum, void* pval, void* pid,
+                                      void* vals, void* ids, void* lse, int N,
+                                      int D, int V, int sel_limit, int k,
+                                      int blocks, int kc, int stages,
+                                      int x_resident, int smem, void* stream) {
+  return nic::band_entry<true>(x, table, scale, pmax, psum, pval, pid, vals,
+                               ids, lse, N, D, V, sel_limit, k, blocks, kc,
+                               stages, x_resident, smem, stream);
 }
 
 // An empty kernel: what a launch costs whatever it computes, for reading

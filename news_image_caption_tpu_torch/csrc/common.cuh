@@ -154,6 +154,21 @@ __device__ __forceinline__ void zero16(void* smem) {
   *reinterpret_cast<uint4*>(smem) = make_uint4(0u, 0u, 0u, 0u);
 }
 
+// Two int8 values as a bf16 pair packed the way mma_bf16 reads its
+// operands, `lo` in the lower half. Exact: an int8 has 8 significant
+// bits at most, and bf16 holds 8.
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(int lo, int hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn((float)lo, (float)hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The same for two neighbouring int8 values in shared memory, the one
+// at the lower address in the lower half (2-byte aligned).
+__device__ __forceinline__ uint32_t i8pair_to_bf16x2(const void* at) {
+  const uint16_t v = *reinterpret_cast<const uint16_t*>(at);
+  return i8x2_to_bf16x2((int)(int8_t)(v & 0xffu), (int)(int8_t)(v >> 8));
+}
+
 // Two 8 x 8 bf16 tiles as the B operand of one mma_bf16 where shared
 // memory holds B as [n][k], k contiguous (K of attention): lanes 0-7
 // give the row addresses (16 bytes each) of the k 0-7 tile, lanes 8-15

@@ -46,6 +46,24 @@
 //     on every run.
 // Rows of K and V lie in shared memory as in device memory, 16-byte
 // chunks XOR-swizzled by key so that ldmatrix hits distinct banks.
+//
+// The int8 variant (nic_decode_attention_int8, the same kernel with Q8
+// set) takes int8 K and V with one scale a (item, key, head), the
+// layout of ops/attention.py::quantize_kv. It replaces no TPU kernel of
+// its own: the reference computes its quantized route in XLA
+// (news_image_caption_tpu/ops/attention.py::attend_flat_beam over
+// QuantDecodeKV), and on the card a tensor launches a kernel or raises.
+// Bound: bytes, as the bf16 kernel, with K and V half as many (8.4 MB
+// each a layer at batch 16) and the scales beside them (0.5 MB). Design:
+// the bf16 kernel's plan, loads, softmax and cluster reduction; the
+// int8 rows land in shared memory as they are (a row padded by 16 bytes,
+// so that the 8 keys a fragment reads fall in distinct banks) and are
+// turned into bf16 where a fragment is built (exact for |q| <= 127).
+// The scales factor out of both products in the reference's order
+// (ops/attention.py:295-317): the fp32 score of a key times its K
+// scale, before the key bias and the softmax; the probability, rounded
+// to bf16, times the key's V scale, rounded to bf16 again, before the
+// value product.
 
 #include <cooperative_groups.h>
 
@@ -61,15 +79,24 @@ constexpr int ATTN_MAX_Q = 16;    // the mma's M
 constexpr int ATTN_PAD = 8;       // elements added to a row of s and p
 constexpr int ATTN_MAX_SPLITS = 8;   // blocks a cluster
 
+// Bytes a K / V row of one head takes in shared memory: dh bf16, or
+// dh int8 and 16 bytes of padding.
+__host__ __device__ constexpr int attn_row_bytes(int dh, bool q8) {
+  return q8 ? dh + 16 : dh * 2;
+}
+
 // Dynamic shared memory of decode_attention_kernel for Q query rows
-// and `per` keys a block (a multiple of 16), in order: K [per][dh]
-// bf16, which V replaces; scores [Q][per + 8] fp32; p [Q][per + 8] bf16; the
-// key bias [per] fp32; the warps' row maxima and sums [2][4][16], every
-// block's row maximum and sum [8][2][16] and the context's [2][16],
-// fp32; every block's share of the output this block adds,
-// Q * dh / 2 + 8 pairs of fp32.
-__host__ __device__ constexpr int attn_smem_bytes(int Q, int per, int dh) {
-  return per * dh * 2 + Q * (per + ATTN_PAD) * (4 + 2) + per * 4 +
+// and `per` keys a block (a multiple of 16), in order: K [per] rows
+// (attn_row_bytes), which V replaces; scores [Q][per + 8] fp32; p
+// [Q][per + 8] bf16; the key bias [per] fp32 and, for int8 K/V, the K
+// and V scales [per] fp32 each; the warps' row maxima and sums
+// [2][4][16], every block's row maximum and sum [8][2][16] and the
+// context's [2][16], fp32; every block's share of the output this
+// block adds, Q * dh / 2 + 8 pairs of fp32.
+__host__ __device__ constexpr int attn_smem_bytes(int Q, int per, int dh,
+                                                  bool q8) {
+  return per * attn_row_bytes(dh, q8) + Q * (per + ATTN_PAD) * (4 + 2) +
+         per * 4 * (q8 ? 3 : 1) +
          (2 * ATTN_WARPS + 2 * ATTN_MAX_SPLITS + 2) * ATTN_MAX_Q * 4 +
          (Q * dh / 2 + ATTN_MAX_SPLITS) * 8;
 }
@@ -83,16 +110,23 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// grid = (H, B, splits), one cluster of `splits` blocks along z.
-template <int DH>
+// grid = (H, B, splits), one cluster of `splits` blocks along z. Q8:
+// k and v are int8 with the scales k_scale, v_scale [B, S, H] bf16;
+// otherwise bf16, and the scales are not read.
+template <int DH, bool Q8>
 __global__ void __launch_bounds__(ATTN_THREADS)
-decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
+decode_attention_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
+                        const void* __restrict__ v,
+                        const bf16* __restrict__ k_scale,
+                        const bf16* __restrict__ v_scale,
                         const float* __restrict__ bias, bf16* __restrict__ out,
                         int Q, int S, int E, int per) {
-  constexpr int CHUNKS = DH / 8;                        // 16 bytes each
-  constexpr int SWZ = (CHUNKS < 8 ? CHUNKS : 8) - 1;    // chunk ^ (key & SWZ)
-  constexpr int ROW = DH * 2;                           // bytes a K / V row
+  // 16-byte chunks a K / V row in device memory.
+  constexpr int CHUNKS = Q8 ? DH / 16 : DH / 8;
+  // bf16 rows: chunk ^ (key & SWZ); int8 rows are padded instead.
+  constexpr int SWZ = Q8 ? 0 : (CHUNKS < 8 ? CHUNKS : 8) - 1;
+  constexpr int ROW = attn_row_bytes(DH, Q8);          // bytes a row
+  constexpr int ESIZE = Q8 ? 1 : 2;                     // bytes an element
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -111,7 +145,9 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sc = reinterpret_cast<float*>(kv + per * ROW);
   bf16* ps = reinterpret_cast<bf16*>(sc + Q * ss);
   float* bs = reinterpret_cast<float*>(ps + Q * ss);
-  float* wmax = bs + per;                               // [4][16]
+  float* ksc = bs + per;                     // int8 K/V: scales [per] each
+  float* vsc = ksc + per;
+  float* wmax = bs + per * (Q8 ? 3 : 1);                // [4][16]
   float* wsum = wmax + ATTN_WARPS * ATTN_MAX_Q;         // [4][16]
   float* stats = wsum + ATTN_WARPS * ATTN_MAX_Q;        // [8][2][16]
   float* fin = stats + 2 * ATTN_MAX_SPLITS * ATTN_MAX_Q;  // [2][16]
@@ -136,17 +172,30 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   // The key bias and every row of K, at once; rows past the block's
   // keys are zeros, and stay zeros when V takes K's place.
-  const bf16* kb = k + ((size_t)b * S + s_lo) * E + head * DH;
-  const bf16* vb = v + ((size_t)b * S + s_lo) * E + head * DH;
+  const unsigned char* kb = static_cast<const unsigned char*>(k) +
+                            (((size_t)b * S + s_lo) * E + head * DH) * ESIZE;
+  const unsigned char* vb = static_cast<const unsigned char*>(v) +
+                            (((size_t)b * S + s_lo) * E + head * DH) * ESIZE;
+  const size_t key_bytes = (size_t)E * ESIZE;   // from one key to the next
   for (int i = tid; i < n; i += ATTN_THREADS)
     cp_async4(bs + i, bias + (size_t)b * S + s_lo + i);
   for (int i = tid; i < n16 * CHUNKS; i += ATTN_THREADS) {
     const int key = i / CHUNKS, c = i % CHUNKS;
     unsigned char* dst = kv + key * ROW + ((c ^ (key & SWZ)) << 4);
-    if (key < n) cp_async16(dst, kb + (size_t)key * E + c * 8);
+    if (key < n) cp_async16(dst, kb + key * key_bytes + c * 16);
     else zero16(dst);
   }
   cp_async_commit();
+  if constexpr (Q8) {
+    // The keys' scales of this head, fp32 (each read once: the host
+    // waits for nothing here, the loads overlap K's copies).
+    const int H = gridDim.x;
+    for (int i = tid; i < n; i += ATTN_THREADS) {
+      const size_t o = ((size_t)b * S + s_lo + i) * H + head;
+      ksc[i] = to_f(k_scale[o]);
+      vsc[i] = to_f(v_scale[o]);
+    }
+  }
   NIC_PHASE(0);   // loads issued
   cp_async_wait<0>();
   __syncthreads();   // K and the bias are in place
@@ -155,17 +204,32 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Scores: warp w takes the 8-key tiles w, w + 4, ...
   for (int nt = warp; nt < n16 / 8; nt += ATTN_WARPS) {
     float c4[4] = {};
-    const int key = nt * 8 + (lane & 7);
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       uint32_t b0, b1;
-      const int c = 2 * kk + ((lane >> 3) & 1);
-      ldmatrix_x2(b0, b1, kv + key * ROW + ((c ^ (key & SWZ)) << 4));
+      if constexpr (Q8) {
+        // Dims kk * 16 + 2t, + 1 and + 8, + 9 of key g of the tile.
+        const unsigned char* row = kv + (nt * 8 + g) * ROW + kk * 16 + 2 * t;
+        b0 = i8pair_to_bf16x2(row);
+        b1 = i8pair_to_bf16x2(row + 8);
+      } else {
+        const int key = nt * 8 + (lane & 7);
+        const int c = 2 * kk + ((lane >> 3) & 1);
+        ldmatrix_x2(b0, b1, kv + key * ROW + ((c ^ (key & SWZ)) << 4));
+      }
       mma_bf16(c4, qa[kk], b0, b1);
     }
     const int col = nt * 8 + 2 * t;
     const float bias0 = col < n ? bs[col] : 0.f;
     const float bias1 = col + 1 < n ? bs[col + 1] : 0.f;
+    if constexpr (Q8) {
+      const float ks0 = col < n ? ksc[col] : 0.f;
+      const float ks1 = col + 1 < n ? ksc[col + 1] : 0.f;
+      c4[0] *= ks0;
+      c4[1] *= ks1;
+      c4[2] *= ks0;
+      c4[3] *= ks1;
+    }
     const float2 top = make_float2(col < n ? c4[0] + bias0 : -INFINITY,
                                    col + 1 < n ? c4[1] + bias1 : -INFINITY);
     const float2 bot = make_float2(col < n ? c4[2] + bias0 : -INFINITY,
@@ -179,7 +243,7 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = tid; i < n * CHUNKS; i += ATTN_THREADS) {
     const int key = i / CHUNKS, c = i % CHUNKS;
     cp_async16(kv + key * ROW + ((c ^ (key & SWZ)) << 4),
-               vb + (size_t)key * E + c * 8);
+               vb + key * key_bytes + c * 16);
   }
   cp_async_commit();
   NIC_PHASE(2);   // scores, V requested
@@ -241,8 +305,13 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   for (int r = 0; r < Q; ++r) {
     const float mx = fin[r], sum = fin[ATTN_MAX_Q + r];
-    for (int i = tid; i < n16; i += ATTN_THREADS)
-      ps[r * ss + i] = to_bf(expf(sc[r * ss + i] - mx) / sum);
+    for (int i = tid; i < n16; i += ATTN_THREADS) {
+      const float p = expf(sc[r * ss + i] - mx) / sum;
+      if constexpr (Q8)   // keys past n weigh 0 (their scale is not set)
+        ps[r * ss + i] = to_bf(i < n ? rbf(p) * vsc[i] : 0.f);
+      else
+        ps[r * ss + i] = to_bf(p);
+    }
   }
   NIC_PHASE(5);   // p
   cp_async_wait<0>();
@@ -266,8 +335,19 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       a[1] = g + 8 < Q ? hi[0] : 0u;
       a[2] = g < Q ? lo[4] : 0u;
       a[3] = g + 8 < Q ? hi[4] : 0u;
-      const int key = kk * 16 + klane, c = 2 * np + nsel;
-      ldmatrix_x4_trans(b0, b1, b2, b3, kv + key * ROW + ((c ^ (key & SWZ)) << 4));
+      if constexpr (Q8) {
+        // Keys kk * 16 + 2t, + 1 (and + 8, + 9) at dim np * 16 + g (and
+        // + 8): two rows' bytes a pair.
+        const unsigned char* at = kv + (kk * 16 + 2 * t) * ROW + np * 16 + g;
+        b0 = i8x2_to_bf16x2((int8_t)at[0], (int8_t)at[ROW]);
+        b1 = i8x2_to_bf16x2((int8_t)at[8 * ROW], (int8_t)at[9 * ROW]);
+        b2 = i8x2_to_bf16x2((int8_t)at[8], (int8_t)at[ROW + 8]);
+        b3 = i8x2_to_bf16x2((int8_t)at[8 * ROW + 8], (int8_t)at[9 * ROW + 8]);
+      } else {
+        const int key = kk * 16 + klane, c = 2 * np + nsel;
+        ldmatrix_x4_trans(b0, b1, b2, b3,
+                          kv + key * ROW + ((c ^ (key & SWZ)) << 4));
+      }
       mma_bf16(o[0], a, b0, b1);
       mma_bf16(o[1], a, b2, b3);
     }
@@ -311,15 +391,17 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   NIC_PHASE(9);   // out written
 }
 
-template <int DH>
-static cudaError_t launch_decode_attention(const bf16* q, const bf16* k,
-                                           const bf16* v, const float* bias,
-                                           bf16* out, int B, int Q, int S,
-                                           int E, int H, int splits, int per,
-                                           int smem, cudaStream_t stream) {
+template <int DH, bool Q8>
+static cudaError_t launch_decode_attention(const bf16* q, const void* k,
+                                           const void* v, const bf16* k_scale,
+                                           const bf16* v_scale,
+                                           const float* bias, bf16* out,
+                                           int B, int Q, int S, int E, int H,
+                                           int splits, int per, int smem,
+                                           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      decode_attention_kernel<DH, Q8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(H, B, splits);
@@ -333,41 +415,33 @@ static cudaError_t launch_decode_attention(const bf16* q, const bf16* k,
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_attention_kernel<DH>, q, k, v, bias,
-                           out, Q, S, E, per);
+  err = cudaLaunchKernelEx(&cfg, decode_attention_kernel<DH, Q8>, q, k, v,
+                           k_scale, v_scale, bias, out, Q, S, E, per);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-}  // namespace nic
-
-NIC_DEFINE_PHASE_READER(nic_decode_attention_phases)
-
-// out [B, Q, E] = decode cross-attention of q [B, Q, E] (pre-scaled)
-// over k, v [B, S, E] (bf16, 16-byte aligned) with fp32 key bias
-// [B, S]. 1 <= Q <= 16, S >= 1, E / H in {16, 32, 64, 128}. The caller
-// plans `splits` (1..8) blocks of `per` keys (a multiple of 16) for
-// each (head, item), with (splits - 1) * per < S <= splits * per, and
-// `smem`, which must equal attn_smem_bytes(Q, per, E / H). Returns a
-// cudaError_t.
-extern "C" int nic_decode_attention(const void* q, const void* k,
-                                    const void* v, const void* bias,
-                                    void* out, int B, int Q, int S, int E,
-                                    int H, int splits, int per, int smem,
-                                    void* stream) {
-  using nic::bf16;
-  if (B < 1 || Q < 1 || Q > nic::ATTN_MAX_Q || S < 1 || H < 1 || E % H != 0 ||
-      splits < 1 || splits > nic::ATTN_MAX_SPLITS || per < 16 || per % 16 != 0 ||
+// Checks the caller's plan and launches the variant of its head size.
+template <bool Q8>
+static int decode_attention_entry(const void* q, const void* k,
+                                  const void* k_scale, const void* v,
+                                  const void* v_scale, const void* bias,
+                                  void* out, int B, int Q, int S, int E,
+                                  int H, int splits, int per, int smem,
+                                  void* stream) {
+  if (B < 1 || Q < 1 || Q > ATTN_MAX_Q || S < 1 || H < 1 || E % H != 0 ||
+      splits < 1 || splits > ATTN_MAX_SPLITS || per < 16 || per % 16 != 0 ||
       (long long)(splits - 1) * per >= S || (long long)splits * per < S)
     return (int)cudaErrorInvalidValue;
   const int dh = E / H;
-  if (smem != nic::attn_smem_bytes(Q, per, dh) || smem > nic::MAX_SMEM_BYTES)
+  if (smem != attn_smem_bytes(Q, per, dh, Q8) || smem > MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
 #define NIC_ATTN_CASE(DH)                                                   \
   case DH:                                                                  \
-    err = nic::launch_decode_attention<DH>(                                 \
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias, \
-        (bf16*)out, B, Q, S, E, H, splits, per, smem, (cudaStream_t)stream); \
+    err = launch_decode_attention<DH, Q8>(                                  \
+        (const bf16*)q, k, v, (const bf16*)k_scale, (const bf16*)v_scale,   \
+        (const float*)bias, (bf16*)out, B, Q, S, E, H, splits, per, smem,   \
+        (cudaStream_t)stream);                                              \
     break;
   switch (dh) {
     NIC_ATTN_CASE(16)
@@ -379,4 +453,41 @@ extern "C" int nic_decode_attention(const void* q, const void* k,
   }
 #undef NIC_ATTN_CASE
   return (int)err;
+}
+
+}  // namespace nic
+
+NIC_DEFINE_PHASE_READER(nic_decode_attention_phases)
+
+// out [B, Q, E] = decode cross-attention of q [B, Q, E] (pre-scaled)
+// over k, v [B, S, E] (bf16, 16-byte aligned) with fp32 key bias
+// [B, S]. 1 <= Q <= 16, S >= 1, E / H in {16, 32, 64, 128}. The caller
+// plans `splits` (1..8) blocks of `per` keys (a multiple of 16) for
+// each (head, item), with (splits - 1) * per < S <= splits * per, and
+// `smem`, which must equal attn_smem_bytes(Q, per, E / H, false).
+// Returns a cudaError_t.
+extern "C" int nic_decode_attention(const void* q, const void* k,
+                                    const void* v, const void* bias,
+                                    void* out, int B, int Q, int S, int E,
+                                    int H, int splits, int per, int smem,
+                                    void* stream) {
+  return nic::decode_attention_entry<false>(q, k, nullptr, v, nullptr, bias,
+                                            out, B, Q, S, E, H, splits, per,
+                                            smem, stream);
+}
+
+// The same over int8 k, v [B, S, E] (16-byte aligned) with bf16 scales
+// k_scale, v_scale [B, S, H]: scores (q . k_q) * k_scale + bias, and
+// p V as round_bf16(round_bf16(p) * v_scale) . v_q. `smem` must equal
+// attn_smem_bytes(Q, per, E / H, true). Returns a cudaError_t.
+extern "C" int nic_decode_attention_int8(const void* q, const void* k,
+                                         const void* k_scale, const void* v,
+                                         const void* v_scale,
+                                         const void* bias, void* out, int B,
+                                         int Q, int S, int E, int H,
+                                         int splits, int per, int smem,
+                                         void* stream) {
+  return nic::decode_attention_entry<true>(q, k, k_scale, v, v_scale, bias,
+                                           out, B, Q, S, E, H, splits, per,
+                                           smem, stream);
 }

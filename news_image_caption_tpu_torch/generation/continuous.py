@@ -37,6 +37,13 @@ engines:
   trunk's and the template heads' rings;
 - `ContinuousBeamBatcher`: exact beam search, K rows a slot; a harvested
   result equals `generate_beam` on the request alone.
+
+Over the flattened captioner both engines take the config's int8 routes
+as `generate` does: with `quantize_kv` a request's K/V are quantized in
+its prep, so the slots hold int8 K/V and their scales
+(`QuantAttentionKV` leaves, sized by the first insert like any); with
+`quantize_head` the head's tables are quantized once at engine build
+(unless the weights carry them) and every step reads them.
 """
 
 from __future__ import annotations
@@ -503,22 +510,26 @@ class ContinuousBatcher(_SlotPool):
         through `DynamicConvDecoder.step_chunk` at each slot's position,
         commits by `commit_conv_caches`, sampling steps through
         `step_topk` at each slot's position. weights: the decoder's `decode_weights()`,
-        computed here when not given."""
+        computed here when not given. The config's int8 routes as
+        `generate` takes them (see the module)."""
         dec = model.decoder
         model._check_max_len(config)
         if weights is None:
-            weights = dec.decode_weights()
+            weights = dec.decode_weights(config.quantize_head)
         device = next(dec.parameters()).device
+        tables = model.head_tables(config, weights)
 
         def prep_fn(request):
-            return dec.precompute_kv(model._contexts(request))
+            return dec.precompute_kv(model._contexts(request),
+                                     config.quantize_kv)
 
         def chunk_fn(tokens, pos, kvs, caches):
-            return dec.step_chunk(tokens, pos, kvs, caches, weights)
+            return dec.step_chunk(tokens, pos, kvs, caches, weights, tables)
 
         def sample_step_fn(tok, pos, kvs, caches):
             return dec.step_topk(tok, pos, kvs, caches,
-                                 config.sampling_topk, weights)
+                                 config.sampling_topk, weights,
+                                 tables=tables)
 
         return cls(prep_fn, chunk_fn, commit_conv_caches,
                    lambda W: dec.init_cache(W, device), config, n_slots,
@@ -682,12 +693,15 @@ class ContinuousBeamBatcher(_SlotPool):
         self.K = config.beam_size
         dec = model.decoder
         self.weights = weights if weights is not None else \
-            dec.decode_weights()
+            dec.decode_weights(config.quantize_head)
+        # The int8 head tables, once at engine build (quantize_head).
+        self.tables = model.head_tables(config, self.weights)
         self.device = next(dec.parameters()).device
         self.reset()
 
     def _prep(self, request):
-        return self.model.decoder.precompute_kv(self.model._contexts(request))
+        return self.model.decoder.precompute_kv(
+            self.model._contexts(request), self.config.quantize_kv)
 
     @torch.inference_mode()
     def reset(self) -> None:
@@ -741,7 +755,8 @@ class ContinuousBeamBatcher(_SlotPool):
         freeze = self.done.repeat_interleave(K)
         cur = self.tokens.gather(1, pos_rows.long()[:, None])[:, 0]
         rv, ri = self.model.decoder.step_topk(
-            cur, pos_rows, self.kvs, self.caches, K, self.weights, beam=K)
+            cur, pos_rows, self.kvs, self.caches, K, self.weights, beam=K,
+            tables=self.tables)
         scores, tok, flat_src = beam_combine(self.scores, rv, ri,
                                              self.finished, W, K, cfg.pad_id)
         tokens = self.tokens.index_select(0, flat_src)

@@ -58,6 +58,12 @@ class GenerationConfig:
     # over the done list (the Gen-1 reference ranks by raw sum: pass
     # 0.0). False: finished beams freeze in their slot emitting pad.
     harvest_finished: bool = False
+    # int8 context K/V (`ops/attention.py::quantize_kv`) and int8 head
+    # word tables (`ops/adaptive.py::QuantTable`), opt-in: each halves
+    # its stream of decode bytes, and captions may differ from the exact
+    # route's near ties. The flattened captioner's decode reads them.
+    quantize_kv: bool = False
+    quantize_head: bool = False
 
 
 Generators = Union[torch.Generator, Sequence]

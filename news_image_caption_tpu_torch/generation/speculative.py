@@ -16,7 +16,10 @@ rows' finished flags on the host once a chunk, as `generate_candidates`
 does a step. The conv caches are ring-major [K-1, B, C], as the conv
 block's kernel reads them; `commit_conv_caches` writes each row's
 verified prefix into its own ring slots. The buffers are written in
-place.
+place. Under the int8 routes (`quantize_kv`, `quantize_head`) the chunk
+runs over int8 K/V and tables (`TransformerFlattened.
+generate_speculative` binds them into `chunk_fn`), and its tokens are
+the quantized greedy's.
 """
 
 from __future__ import annotations

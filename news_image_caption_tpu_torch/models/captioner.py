@@ -11,6 +11,12 @@ the attention maps of given captions (`attention_maps`). The decoder's
 weights live in the module; the generate methods take the fused decode
 weights of `DynamicConvDecoder.decode_weights()` so a server computes
 them once.
+
+`GenerationConfig.quantize_kv` / `quantize_head` are the reference's
+opt-in int8 routes: K/V quantized once a generation in `_decode_setup`,
+the head's tables once a load (`decode_weights(quantize_head=True)`)
+or, where the weights lack them, once a generation; greedy, sampled,
+speculative and beam decode all take them.
 """
 
 from __future__ import annotations
@@ -96,21 +102,35 @@ class TransformerFlattened:
 
     def _decode_setup(self, batch: Dict[str, torch.Tensor],
                       config: GenerationConfig,
-                      weights: Optional[DecodeWeights], beam: int):
+                      weights: Optional[DecodeWeights], beam: int,
+                      quantize: bool = False):
         """(kvs, caches, seed, weights): the context K/V projected once
         for the untiled batch B, zero ring-major caches for B * beam rows
-        and the bos seed [B]."""
+        and the bos seed [B]. quantize: the generate methods' own
+        decode, which takes the config's int8 routes (the K/V int8 with
+        quantize_kv; `head_tables` for quantize_head)."""
         contexts = self._contexts(batch)
         B = contexts["article"].shape[0]         # every variant attends it
         device = contexts["article"].device
         self._check_max_len(config)
         if weights is None:
             weights = self.decoder.decode_weights()
-        kvs = self.decoder.precompute_kv(contexts)
+        kvs = self.decoder.precompute_kv(contexts,
+                                         quantize and config.quantize_kv)
         caches = self.decoder.init_cache(B * beam, device)
         seed = torch.full((B,), config.bos_id, dtype=torch.long,
                           device=device)
         return kvs, caches, seed, weights
+
+    def head_tables(self, config: GenerationConfig,
+                    weights: DecodeWeights):
+        """The int8 head tables a decode under `config` takes (the
+        weights' own, else quantized now), or None for the exact head."""
+        if not config.quantize_head:
+            return None
+        if weights.quant_tables is not None:
+            return weights.quant_tables
+        return self.decoder.quantized_embed_tables()
 
     @torch.inference_mode()
     def generate(self, batch: Dict[str, torch.Tensor],
@@ -124,11 +144,13 @@ class TransformerFlattened:
         the batch or one a row (`generation/generator.py::
         gumbel_noise`); without one, from a generator seeded with 0."""
         kvs, caches, seed, weights = self._decode_setup(batch, config,
-                                                        weights, 1)
+                                                        weights, 1, True)
+        tables = self.head_tables(config, weights)
 
         def step(tok, i):
             return self.decoder.step_topk(tok, i, kvs, caches,
-                                          config.sampling_topk, weights)
+                                          config.sampling_topk, weights,
+                                          tables=tables)
 
         return generate_candidates(step, seed, config, generator)
 
@@ -150,12 +172,14 @@ class TransformerFlattened:
             raise ValueError("speculative decoding is greedy-only "
                              "(sampling_topk must be 1)")
         kvs, caches, seed, weights = self._decode_setup(batch, config,
-                                                        weights, 1)
+                                                        weights, 1, True)
+        tables = self.head_tables(config, weights)
         source = (draft_source if draft_source is not None
                   else batch["article_ids"]).to(seed.device).long()
 
         def chunk_fn(toks, pos):
-            return self.decoder.step_chunk(toks, pos, kvs, caches, weights)
+            return self.decoder.step_chunk(toks, pos, kvs, caches, weights,
+                                           tables)
 
         def commit_fn(hs, m, pos):
             commit_conv_caches(caches, hs, m, pos)
@@ -174,12 +198,15 @@ class TransformerFlattened:
                       generator: Optional[Generators] = None):
         """`generate` through the full-vocab `step` and the `generate`
         adapter: the same tokens and log-probs, with the [B, V] log-prob
-        matrix materialised each step."""
+        matrix materialised each step (the int8 routes too; the head's
+        products then plain ones, as the reference's XLA route)."""
         kvs, caches, seed, weights = self._decode_setup(batch, config,
-                                                        weights, 1)
+                                                        weights, 1, True)
+        tables = self.head_tables(config, weights)
 
         def step(tok, i):
-            return self.decoder.step(tok, i, kvs, caches, weights)
+            return self.decoder.step(tok, i, kvs, caches, weights,
+                                     tables=tables)
 
         return generate(step, seed, config, generator)
 
@@ -212,11 +239,12 @@ class TransformerFlattened:
             raise ValueError(f"unknown beam impl: {impl!r}")
         K = config.beam_size
         kvs, caches, seed, weights = self._decode_setup(batch, config,
-                                                        weights, K)
+                                                        weights, K, True)
+        tables = self.head_tables(config, weights)
 
         def step(tok, i):
             return self.decoder.step_topk(tok, i, kvs, caches, K, weights,
-                                          beam=K)
+                                          beam=K, tables=tables)
 
         return beam_search_candidates(step, seed, config,
                                       index_reorder(caches))

@@ -38,6 +38,15 @@ rather than once per step. Each wrapper takes its plain PyTorch version
 on CPU tensors; on the card it launches its kernel or raises, so a model
 the kernels do not admit (fp32, narrow widths, a pointwise conv layer:
 `admits*` of the ops modules say why) decodes on the CPU only.
+
+The opt-in int8 routes (the reference's `quantize_kv` and
+`quantize_head`): `precompute_kv(contexts, quantize=True)` quantizes
+each attention's K/V once a request (`ops/attention.py::quantize_kv`),
+which `attend_flat_beam` / `attend_chunk` send through
+`decode_cross_attention_int8`; `quantized_embed_tables()` quantizes the
+head's word tables once (`decode_weights(quantize_head=True)` keeps
+them beside the fused weights), and every step takes them as `tables=`,
+the head then on `band_topk_lse_int8`.
 """
 
 from __future__ import annotations
@@ -47,10 +56,11 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from news_image_caption_tpu_torch.ops.adaptive import (AdaptiveEmbedding,
-                                                       AdaptiveSoftmax)
+from news_image_caption_tpu_torch.ops.adaptive import (
+    AdaptiveEmbedding, AdaptiveSoftmax, quantize_embed_tables)
 from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
-                                                        MultiHeadAttention)
+                                                        MultiHeadAttention,
+                                                        quantize_kv)
 from news_image_caption_tpu_torch.ops.conv import DynamicConv
 from news_image_caption_tpu_torch.ops.decode_blocks import (
     decode_conv_block, decode_ffn_block, pack_taps)
@@ -83,6 +93,8 @@ class LayerDecodeWeights(NamedTuple):
 class DecodeWeights(NamedTuple):
     layers: List[LayerDecodeWeights]
     head_table: torch.Tensor   # [cutoff0 + n_tails, D]
+    # The int8 head tables (`quantized_embed_tables`), where asked for.
+    quant_tables: Optional[list] = None
 
 
 class SumEmbedder(nn.Module):
@@ -156,11 +168,16 @@ class DynamicConvDecoderLayer(nn.Module):
     def _attn_ln(self, name: str) -> LayerNorm:
         return getattr(self, f"{name}_attn_ln")
 
-    def precompute_kv(self, contexts: Dict[str, torch.Tensor]) -> LayerKV:
-        return {name: self._attn(name).precompute_kv(
-                    contexts[name], contexts[name],
-                    contexts.get(f"{name}_mask"))
-                for name in self.context_names}
+    def precompute_kv(self, contexts: Dict[str, torch.Tensor],
+                      quantize: bool = False) -> LayerKV:
+        """Each context's K/V; int8 (`quantize_kv`) with quantize."""
+        out = {}
+        for name in self.context_names:
+            kv = self._attn(name).precompute_kv(contexts[name],
+                                                contexts[name],
+                                                contexts.get(f"{name}_mask"))
+            out[name] = quantize_kv(kv, self.num_heads) if quantize else kv
+        return out
 
     def forward(self, x: torch.Tensor, kv: LayerKV,
                 generator: Optional[torch.Generator] = None,
@@ -356,12 +373,16 @@ class DynamicConvDecoder(nn.Module):
         weights (a subclass may add layers after the stack's)."""
         return list(self.layers)
 
-    def precompute_kv(self, contexts: Dict[str, Optional[torch.Tensor]]
-                      ) -> List[LayerKV]:
+    def precompute_kv(self, contexts: Dict[str, Optional[torch.Tensor]],
+                      quantize: bool = False) -> List[LayerKV]:
+        """Every layer's context K/V, once a request; int8 K/V with one
+        scale a (item, key, head) with quantize (the reference's
+        `decode_kv_tree(kvs, quantize=True)`)."""
         contexts = {k: (v.to(self.dtype)
                         if v is not None and v.is_floating_point() else v)
                     for k, v in contexts.items()}
-        return [layer.precompute_kv(contexts) for layer in self.all_layers()]
+        return [layer.precompute_kv(contexts, quantize)
+                for layer in self.all_layers()]
 
     def hidden(self, token_ids: torch.Tensor,
                contexts: Dict[str, torch.Tensor],
@@ -429,15 +450,35 @@ class DynamicConvDecoder(nn.Module):
                             self.embed_dim, device=device, dtype=self.dtype)
                 for layer in self.all_layers()]
 
-    def decode_weights(self) -> DecodeWeights:
-        """The step's fused weights; compute once per model load."""
+    def decode_weights(self, quantize_head: bool = False) -> DecodeWeights:
+        """The step's fused weights; compute once per model load. With
+        quantize_head, the int8 head tables too (`quant_tables`)."""
         with torch.no_grad():
             tables = self.embedder.embed_tables()
             return DecodeWeights(
                 layers=[layer.decode_weights(self.dtype)
                         for layer in self.all_layers()],
                 head_table=self.adaptive_softmax.head_table(tables,
-                                                            self.dtype))
+                                                            self.dtype),
+                quant_tables=(self.quantized_embed_tables() if quantize_head
+                              else None))
+
+    def quantized_embed_tables(self):
+        """The head's word tables as int8 with a scale a row, for the
+        opt-in quantized decode head: [(QuantTable, proj)] of every
+        band (the reference's `quantized_embed_tables`). The tables are
+        frozen while decoding, so once a load (or a generation) does."""
+        with torch.no_grad():
+            return quantize_embed_tables(self.embedder.embed_tables())
+
+    def _head_topk(self, x: torch.Tensor, k: int, weights: DecodeWeights,
+                   tables=None):
+        """The exact top-k head over the fused head table, or over the
+        int8 `tables` where given."""
+        if tables is None:
+            return self.adaptive_softmax.topk_log_prob(
+                x, k, self.embedder.embed_tables(), weights.head_table)
+        return self.adaptive_softmax.topk_log_prob(x, k, tables)
 
     def _step_layers(self, token_t: torch.Tensor, step_idx,
                      kvs: List[LayerKV], caches: List[torch.Tensor],
@@ -457,46 +498,49 @@ class DynamicConvDecoder(nn.Module):
 
     def step_topk(self, token_t: torch.Tensor, step_idx,
                   kvs: List[LayerKV], caches: List[torch.Tensor], k: int,
-                  weights: DecodeWeights, beam: int = 1):
+                  weights: DecodeWeights, beam: int = 1, tables=None):
         """One decode step returning the exact top-k candidates.
 
         token_t [B*beam]; step_idx = tokens already consumed, an int or
         a [B*beam] tensor of each row's (a slot pool's rows sit at
-        different depths). The conv caches advance in place. Returns
-        (cand_log_probs [B*beam, k] fp32, cand_ids [B*beam, k] int64).
+        different depths). The conv caches advance in place. tables: the
+        int8 head tables (`quantized_embed_tables`), or None for the
+        exact head. Returns (cand_log_probs [B*beam, k] fp32, cand_ids
+        [B*beam, k] int64).
         """
         return self.step_topk_with_hidden(token_t, step_idx, kvs, caches, k,
-                                          weights, beam)[:2]
+                                          weights, beam, tables)[:2]
 
     def step_topk_with_hidden(self, token_t: torch.Tensor, step_idx,
                               kvs: List[LayerKV], caches: List[torch.Tensor],
-                              k: int, weights: DecodeWeights, beam: int = 1):
+                              k: int, weights: DecodeWeights, beam: int = 1,
+                              tables=None):
         """`step_topk` with the step's hidden state: (cand_log_probs,
         cand_ids, hidden [B*beam, D]), the hidden state what the pointer
         family's heads read."""
         x = self._step_layers(token_t, step_idx, kvs, caches, weights, beam)
-        v, ids = self.adaptive_softmax.topk_log_prob(
-            x, k, self.embedder.embed_tables(), weights.head_table)
+        v, ids = self._head_topk(x, k, weights, tables)
         return v, ids, x
 
     def step_chunk(self, tokens: torch.Tensor, pos: torch.Tensor,
                    kvs: List[LayerKV], caches: List[torch.Tensor],
-                   weights: DecodeWeights):
+                   weights: DecodeWeights, tables=None):
         """A greedy chunk (speculative verification). tokens [B, k]: the
         last committed token, then k-1 drafts; pos [B] each row's count
         of tokens consumed. Returns (log_probs [B, k] fp32, argmax_ids
         [B, k] int64, hs): output t is the greedy next token given
         inputs 0..t, as t+1 sequential `step_topk(k=1)` calls give it;
         hs[l] [B, k, C] are layer l's conv inputs for
-        `commit_conv_caches`. The caches are not advanced."""
+        `commit_conv_caches`. The caches are not advanced. tables: as
+        `step_topk`'s."""
         v, ids, _, hs = self.step_chunk_with_hidden(tokens, pos, kvs, caches,
-                                                    weights)
+                                                    weights, tables)
         return v, ids, hs
 
     def step_chunk_with_hidden(self, tokens: torch.Tensor, pos: torch.Tensor,
                                kvs: List[LayerKV],
                                caches: List[torch.Tensor],
-                               weights: DecodeWeights):
+                               weights: DecodeWeights, tables=None):
         """`step_chunk` with the chunk's hidden states: (log_probs,
         argmax_ids, hidden [B, k, D], hs), the hidden states what the
         pointer family's heads read. Positions past the embedder's table
@@ -504,8 +548,7 @@ class DynamicConvDecoder(nn.Module):
         outputs are never committed."""
         x, hs = self._chunk_layers(tokens, _positions(pos), kvs, caches,
                                    weights)
-        v, ids = self.adaptive_softmax.topk_log_prob(
-            x, 1, self.embedder.embed_tables(), weights.head_table)
+        v, ids = self._head_topk(x, 1, weights, tables)
         return v[..., 0], ids[..., 0], x, hs
 
     def _chunk_layers(self, tokens: torch.Tensor, pos: torch.Tensor,
@@ -529,19 +572,22 @@ class DynamicConvDecoder(nn.Module):
 
     def step_with_hidden(self, token_t: torch.Tensor, step_idx: int,
                          kvs: List[LayerKV], caches: List[torch.Tensor],
-                         weights: DecodeWeights, beam: int = 1):
+                         weights: DecodeWeights, beam: int = 1, tables=None):
         """One decode step with the full-vocab head, the same layer steps
         as `step_topk`. Returns (log_probs [B*beam, V] in the model's
         dtype, hidden [B*beam, D]); the conv caches advance in place.
-        With beam > 1, kvs are the untiled batch's (shared K/V)."""
+        With beam > 1, kvs are the untiled batch's (shared K/V). tables:
+        the int8 head tables, or None (plain products either way)."""
         x = self._step_layers(token_t, step_idx, kvs, caches, weights, beam)
-        lp = self.adaptive_softmax.log_prob(x, self.embedder.embed_tables())
+        lp = self.adaptive_softmax.log_prob(
+            x, self.embedder.embed_tables() if tables is None else tables)
         return lp, x
 
     def step(self, token_t: torch.Tensor, step_idx: int,
              kvs: List[LayerKV], caches: List[torch.Tensor],
-             weights: DecodeWeights, beam: int = 1) -> torch.Tensor:
+             weights: DecodeWeights, beam: int = 1,
+             tables=None) -> torch.Tensor:
         """`step_with_hidden` without the hidden state: log_probs
         [B*beam, V]."""
         return self.step_with_hidden(token_t, step_idx, kvs, caches,
-                                     weights, beam)[0]
+                                     weights, beam, tables)[0]

@@ -7,20 +7,64 @@ kernel path (`_topk_log_prob_pallas`), which this port takes on every
 device: the head band is [table0; class_projᵀ] with only the word rows
 selectable, each tail band goes through `band_topk_lse`, and the class
 priors are cls_logit - lse_head; and the training loss `loss_sum`.
+
+The opt-in int8 head (the reference's `QuantTable`,
+`quantize_embed_tables`, `_word_logits`): each word table int8 with one
+scale a row, the class rows exact. `head_logits`, `tail_logits` and
+`log_prob` take quantized tables as the reference's XLA route does (the
+raw product rounded to x's dtype, times the scale in that dtype);
+`topk_log_prob` runs `band_topk_lse_int8` over each word table, the head
+band's over table0 alone, and folds the exact class logits into the
+head's logsumexp. The kernel rounds a logit once, after the scale
+(`ops/band_topk.py`); in fp32 the two roundings agree.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
+                                                        band_topk_lse_int8,
                                                         stable_topk)
 from news_image_caption_tpu_torch.ops.linear import (initializes, new_param,
                                                      positionwise)
+
+
+class QuantTable(NamedTuple):
+    """An int8 word table for the decode head: q [band_v, d] int8 and
+    scale [band_v] in the table's dtype, logits[n, v] = scale[v] *
+    (x[n] . q[v])."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def quantize_embed_tables(embed_tables):
+    """[(table, proj)] -> [(QuantTable, proj)], the reference's
+    per-row symmetric rule: amax in fp32, the scale max(amax, 1e-8) /
+    127 rounded to the table's dtype FIRST, then q = clip(round-half-
+    even(table / scale), ±127) with that rounded scale (the scale
+    dequantization multiplies by)."""
+    out = []
+    for table, proj in embed_tables:
+        t32 = table.float()
+        amax = t32.abs().amax(dim=1, keepdim=True)
+        scale = (amax.clamp(min=1e-8) / 127.0).to(table.dtype).float()
+        q = torch.round(t32 / scale).clamp(-127, 127).to(torch.int8)
+        out.append((QuantTable(q, scale[:, 0].to(table.dtype)), proj))
+    return out
+
+
+def _word_logits(x: torch.Tensor, table) -> torch.Tensor:
+    """x [N, d] @ tableᵀ in x's dtype; an int8 table's raw product
+    rounded to x's dtype, then times its row scales in that dtype."""
+    if isinstance(table, QuantTable):
+        return (x @ table.q.to(x.dtype).T) * table.scale.to(x.dtype)
+    return x @ table.to(x.dtype).T
 
 
 def band_ranges(cutoff: Sequence[int]) -> List[Tuple[int, int]]:
@@ -104,9 +148,9 @@ class AdaptiveSoftmax(nn.Module):
                                      generator)
 
     def head_logits(self, x, embed_tables) -> torch.Tensor:
-        """x [N, D] -> [N, cutoff0 + n_tails]."""
-        table0 = embed_tables[0][0]
-        word = x @ table0.to(x.dtype).T
+        """x [N, D] -> [N, cutoff0 + n_tails]; the class logits exact
+        with quantized tables too."""
+        word = _word_logits(x, embed_tables[0][0])
         cls = x @ self.class_proj.to(x.dtype)
         return torch.cat([word, cls], dim=-1)
 
@@ -115,8 +159,7 @@ class AdaptiveSoftmax(nn.Module):
         return x @ getattr(self, f"tail_proj_{i}").to(x.dtype)
 
     def tail_logits(self, x, i: int, embed_tables) -> torch.Tensor:
-        h = self.tail_hidden(x, i)
-        return h @ embed_tables[i][0].to(h.dtype).T
+        return _word_logits(self.tail_hidden(x, i), embed_tables[i][0])
 
     def log_prob(self, x, embed_tables) -> torch.Tensor:
         """Full-vocab log-probs [N, V]; softmax in fp32, result in x's
@@ -179,25 +222,41 @@ class AdaptiveSoftmax(nn.Module):
         (class slots, tail projections) run position by position at a
         step's shapes (`positionwise`) and whose bands' kernels take all
         B*n rows at once. Returns (log_probs [..., k] fp32, token_ids
-        [..., k] int64), best first."""
+        [..., k] int64), best first.
+
+        With quantized tables (`quantize_embed_tables`) every band goes
+        through `band_topk_lse_int8`, the head's over table0 alone (ids
+        < c0 all selectable), and the head's logsumexp takes the exact
+        class logits in beside the kernel's; head_table is not read."""
         c0 = self.cutoff[0]
         lead = x.shape[:-1]
-        if head_table is None:
+        quantized = isinstance(embed_tables[0][0], QuantTable)
+        if head_table is None and not quantized:
             head_table = self.head_table(embed_tables, x.dtype)
 
         def rows(fn):
             y = positionwise(fn, x) if x.dim() == 3 else fn(x)
             return y.reshape(-1, y.shape[-1])
 
+        def band(h, table, sel_limit=None):
+            if quantized:
+                return band_topk_lse_int8(h, table.q, table.scale, k,
+                                          sel_limit)
+            return band_topk_lse(h, table.to(h.dtype), k, sel_limit)
+
         flat = x.reshape(-1, x.shape[-1])
-        hv, hi, lse_h = band_topk_lse(flat, head_table, k, sel_limit=c0)
         # Class-slot logits at the kernel's rounding point (x's dtype).
         cls = rows(lambda r: r @ self.class_proj.to(r.dtype)).float()
+        if quantized:
+            hv, hi, lse_w = band(flat, embed_tables[0][0])
+            lse_h = torch.logaddexp(lse_w, torch.logsumexp(cls, dim=-1,
+                                                           keepdim=True))
+        else:
+            hv, hi, lse_h = band(flat, head_table, c0)
         vals, ids = [hv - lse_h], [hi]
         for i in range(1, len(self.cutoff)):
             h = rows(lambda r: self.tail_hidden(r, i))
-            tv, ti, lse_t = band_topk_lse(h, embed_tables[i][0].to(h.dtype),
-                                          k)
+            tv, ti, lse_t = band(h, embed_tables[i][0])
             prior = cls[:, i - 1:i] - lse_h
             vals.append(tv - lse_t + prior)
             ids.append(ti + self.cutoff[i - 1])

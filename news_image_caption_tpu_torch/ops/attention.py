@@ -8,6 +8,11 @@ row). Context K/V are projected once per request and kept flat,
 [B, S', E] with S' = S + 2 (the learned bias_k / bias_v slot and the
 zero slot), beside an additive fp32 key bias [B, S'] (0 attendable,
 -1e9 padded): the input layout of `decode_cross_attention`.
+
+`quantize_kv` is the reference's `to_decode_kv(quantize=True)` in that
+layout (`QuantAttentionKV`: int8 K/V [B, S', E] and one scale a (item,
+key, head) [B, S', H]); `attend_positions` and `attend_flat_beam` take
+either form, the int8 one through `decode_cross_attention_int8`.
 """
 
 from __future__ import annotations
@@ -18,8 +23,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from news_image_caption_tpu_torch.ops.decode_attention import \
-    decode_cross_attention
+from news_image_caption_tpu_torch.ops.decode_attention import (
+    decode_cross_attention, decode_cross_attention_int8)
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.flash_attention import \
     flash_cross_attention
@@ -30,19 +35,6 @@ from news_image_caption_tpu_torch.ops.linear import (XavierLinear,
 NEG_INF = -1e9
 
 
-def attend_positions(q_proj, out_proj, num_heads: int, query: torch.Tensor,
-                     kv: AttentionKV) -> torch.Tensor:
-    """Decode attention of k positions a row, query [B, k, E] over kv of
-    the batch B: `decode_cross_attention` takes a row's k positions at
-    once (Q = k), the projections run position by position at a step's
-    shapes (`positionwise`), the query scaled by head_dim**-0.5 before
-    the kernel. Returns [B, k, E]."""
-    scale = (query.shape[-1] // num_heads) ** -0.5
-    q = positionwise(lambda r: q_proj(r) * scale, query)
-    out = decode_cross_attention(q, kv.k, kv.v, kv.bias, num_heads)
-    return positionwise(out_proj, out)
-
-
 class AttentionKV(NamedTuple):
     """k, v [B, S', E]; bias [B, S'] fp32, 0 where a slot can be
     attended and -1e9 where it is padding."""
@@ -50,6 +42,62 @@ class AttentionKV(NamedTuple):
     k: torch.Tensor
     v: torch.Tensor
     bias: torch.Tensor
+
+
+class QuantAttentionKV(NamedTuple):
+    """int8 decode K/V (`quantize_kv`): k_q, v_q [B, S', E] int8;
+    k_scale, v_scale [B, S', H] in the model's dtype, one symmetric
+    scale a (item, key, head) over the head's dims; bias as
+    `AttentionKV`'s. The reference's `QuantDecodeKV` holds the same
+    numbers head-major (kT_q [B, H, D, S'], k_scale [B, H, 1, S'])."""
+
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_q: torch.Tensor
+    v_scale: torch.Tensor
+    bias: torch.Tensor
+
+
+def _quantize_rows(x: torch.Tensor, num_heads: int):
+    """The reference's `_quantize_rows` over each head's dims of x
+    [B, S', E]: amax in fp32, scale max(amax, 1e-8) / 127, q =
+    clip(round-half-even(x / scale), ±127) with that fp32 scale, and
+    the scale returned rounded to x's dtype (which dequantization
+    multiplies by). A zero row (the zero slot) gets q = 0."""
+    B, S, E = x.shape
+    x32 = x.float().view(B, S, num_heads, E // num_heads)
+    scale = x32.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+    q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)
+    return q.view(B, S, E), scale[..., 0].to(x.dtype)
+
+
+def quantize_kv(kv: AttentionKV, num_heads: int) -> QuantAttentionKV:
+    """int8 K/V of one attention, once a request (the reference's
+    `to_decode_kv(kv, quantize=True)` in the port's layout)."""
+    k_q, k_scale = _quantize_rows(kv.k, num_heads)
+    v_q, v_scale = _quantize_rows(kv.v, num_heads)
+    return QuantAttentionKV(k_q, k_scale, v_q, v_scale, kv.bias)
+
+
+def _decode_attention(q: torch.Tensor, kv, num_heads: int) -> torch.Tensor:
+    """The decode kernel of kv's form: bf16 K/V or int8 K/V."""
+    if isinstance(kv, QuantAttentionKV):
+        return decode_cross_attention_int8(q, kv.k_q, kv.k_scale, kv.v_q,
+                                           kv.v_scale, kv.bias, num_heads)
+    return decode_cross_attention(q, kv.k, kv.v, kv.bias, num_heads)
+
+
+def attend_positions(q_proj, out_proj, num_heads: int, query: torch.Tensor,
+                     kv) -> torch.Tensor:
+    """Decode attention of k positions a row, query [B, k, E] over kv of
+    the batch B (an `AttentionKV` or a `QuantAttentionKV`): the decode
+    kernel takes a row's k positions at once (Q = k), the projections
+    run position by position at a step's shapes (`positionwise`), the
+    query scaled by head_dim**-0.5 before the kernel. Returns
+    [B, k, E]."""
+    scale = (query.shape[-1] // num_heads) ** -0.5
+    q = positionwise(lambda r: q_proj(r) * scale, query)
+    return positionwise(out_proj, _decode_attention(q, kv, num_heads))
 
 
 class MultiHeadAttention(nn.Module):
@@ -139,20 +187,20 @@ class MultiHeadAttention(nn.Module):
         out = self.out_proj(out.reshape(B, T, self.embed_dim))
         return (out, weights) if need_weights else out
 
-    def attend_chunk(self, query: torch.Tensor, kv: AttentionKV
-                     ) -> torch.Tensor:
+    def attend_chunk(self, query: torch.Tensor, kv) -> torch.Tensor:
         """`attend_positions` through this attention's projections: each
         position sums as `attend_flat_beam` at beam 1 does."""
         return attend_positions(self.q_proj, self.out_proj, self.num_heads,
                                 query, kv)
 
-    def attend_flat_beam(self, query: torch.Tensor, kv: AttentionKV,
+    def attend_flat_beam(self, query: torch.Tensor, kv,
                          beam: int) -> torch.Tensor:
         """Single-step attention of query [B*beam, E] (beam-major within
-        an item) over kv of the untiled batch B: the beams of one item
-        share its K/V. Returns [B*beam, E]."""
+        an item) over kv of the untiled batch B (an `AttentionKV` or a
+        `QuantAttentionKV`): the beams of one item share its K/V.
+        Returns [B*beam, E]."""
         BK, E = query.shape
         q = self.q_proj(query) * (self.head_dim ** -0.5)
-        out = decode_cross_attention(q.view(BK // beam, beam, E).contiguous(),
-                                     kv.k, kv.v, kv.bias, self.num_heads)
+        out = _decode_attention(q.view(BK // beam, beam, E).contiguous(), kv,
+                                self.num_heads)
         return self.out_proj(out.view(BK, E))

@@ -14,6 +14,15 @@ what the kernel takes.
 
 `band_topk_lse_plain` is the same function in plain PyTorch: the CPU
 path, and the oracle the kernel is held against on the card.
+
+`band_topk_lse_int8` is the same walk over an int8 table with one scale
+a row (`ops/adaptive.py::QuantTable`), the port's route for the
+reference's quantized head, which the reference computes in XLA: the
+kernel reads half the table's bytes and turns its rows into bf16 in
+shared memory. A logit is rounded once, after the scale: bf16(fp32 sum
+x scale); the reference's `_word_logits` rounds the sum to the compute
+dtype, then the product in that dtype (ROADMAP Queue 3, "by design"). In
+fp32 on the CPU the two agree.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ RESIDENT_ROWS = 32          # rows of x that may stay in shared memory
 MAX_BLOCKS = 256            # lists the merge's tournament takes
 LOGIT_STRIDE = TILE + 8     # bf16 elements a row of the logits tile
 _ARGTYPES = [_build.P] * 9 + [_build.I] * 10 + [_build.P]
+_ARGTYPES_INT8 = [_build.P] * 10 + [_build.I] * 10 + [_build.P]
 # The blocks' partials, per (device, rows, blocks, k). Calls on one
 # device share them, so they must follow one another (one stream).
 _scratch: dict = {}
@@ -58,12 +68,14 @@ class BandPlan(NamedTuple):
 
 
 def band_smem_bytes(rows: int, D: int, kc: int, stages: int,
-                    x_resident: bool) -> int:
+                    x_resident: bool, int8: bool = False) -> int:
     """Dynamic shared memory of a block (csrc/band_topk.cu::
-    band_smem_bytes): resident x, the ring's slots, the logits tile, the
-    rows' top-k lists."""
+    band_smem_bytes): resident x, the ring's slots (int8 table rows
+    padded by 16 bytes), the logits tile, the rows' top-k lists."""
+    table_row = kc + 16 if int8 else (kc + 8) * 2
     return ((rows * (D + 8) * 2 if x_resident else 0)
-            + stages * (TILE + (0 if x_resident else rows)) * (kc + 8) * 2
+            + stages * (TILE * table_row
+                        + (0 if x_resident else rows * (kc + 8) * 2))
             + rows * LOGIT_STRIDE * 2 + rows * MAX_K * 8)
 
 
@@ -82,12 +94,23 @@ def admits(dtype, N: int, D: int, V: int, k: int,
     return True, ""
 
 
-def band_plan(N: int, D: int, V: int, k: int, sms: int) -> BandPlan:
+def admits_int8(dtype, N: int, D: int, V: int, k: int,
+                sel_limit: int) -> Tuple[bool, str]:
+    """`admits` of the int8 variant: x of `dtype`, an int8 table, scales
+    of x's dtype."""
+    if dtype != torch.bfloat16:
+        return False, ("band_topk_lse_int8 kernel takes bf16 x, an int8"
+                       " table and bf16 scales")
+    return admits(dtype, N, D, V, k, sel_limit)
+
+
+def band_plan(N: int, D: int, V: int, k: int, sms: int,
+              int8: bool = False) -> BandPlan:
     """The kernel's plan for x [N, D] over a table of V rows on a card
     of `sms` multiprocessors, or ValueError for a shape it does not
     take. One block a multiprocessor, none without a tile; x resident
     where at most 32 rows and four slots fit beside it; else the deepest
-    ring that fits."""
+    ring that fits. int8: the int8 variant's plan."""
     ok, why = admits(torch.bfloat16, N, D, V, k, V)
     _build.require(ok and sms >= 1, why or "band_topk_lse: sms < 1")
     n = min(N, MAX_ROWS)
@@ -98,7 +121,7 @@ def band_plan(N: int, D: int, V: int, k: int, sms: int) -> BandPlan:
     choices = [(kc, 4, True)] if rows <= RESIDENT_ROWS else []
     choices += [(min(kc, 128), s, False) for s in (4, 3, 2)]
     for kc_, stages, resident in choices:     # the last always fits
-        smem = band_smem_bytes(rows, D, kc_, stages, resident)
+        smem = band_smem_bytes(rows, D, kc_, stages, resident, int8)
         if smem <= _build.MAX_SMEM_BYTES:
             break
     return BandPlan(TILE, n_tiles, blocks, -(-n_tiles // blocks), rows, kc_,
@@ -125,6 +148,21 @@ def band_topk_lse_plain(x: torch.Tensor, table: torch.Tensor, k: int,
     V = table.shape[0]
     sel_limit = V if sel_limit is None else sel_limit
     logits = (x.float() @ table.float().T).to(x.dtype).float()
+    lse = torch.logsumexp(logits, dim=1, keepdim=True)
+    vals, ids = stable_topk(logits[:, :sel_limit], k)
+    return vals, ids.to(torch.int32), lse
+
+
+def band_topk_lse_int8_plain(x: torch.Tensor, table_q: torch.Tensor,
+                             scale: torch.Tensor, k: int,
+                             sel_limit: int | None = None):
+    """`band_topk_lse_plain` over an int8 table [V, D] with one scale a
+    row [V]: logits (x . table_q[v]) * scale[v], fp32 sums rounded once
+    to x's dtype."""
+    V = table_q.shape[0]
+    sel_limit = V if sel_limit is None else sel_limit
+    logits = ((x.float() @ table_q.float().T) * scale.float()).to(
+        x.dtype).float()
     lse = torch.logsumexp(logits, dim=1, keepdim=True)
     vals, ids = stable_topk(logits[:, :sel_limit], k)
     return vals, ids.to(torch.int32), lse
@@ -160,15 +198,61 @@ def _launch(x, table, k, sel_limit):
                    and x.data_ptr() % 16 == 0 and table.data_ptr() % 16 == 0,
                    "band_topk_lse: inputs must be contiguous and 16-byte"
                    " aligned")
+    fn = _build.function("nic_band_topk_lse", _ARGTYPES)
+    return _walk(lambda *a: fn(a[0], table.data_ptr(), *a[1:]), x, V, k,
+                 sel_limit, False, band_topk_lse, "band_topk_lse")
+
+
+def band_topk_lse_int8(x: torch.Tensor, table_q: torch.Tensor,
+                       scale: torch.Tensor, k: int,
+                       sel_limit: int | None = None):
+    """`band_topk_lse` over an int8 table [V, D] with one scale a row
+    [V] (see `band_topk_lse_int8_plain`). A CPU tensor takes the plain
+    version; a CUDA tensor launches the int8 kernel or raises (it never
+    widens the table to call the bf16 kernel)."""
+    if x.device.type == "cpu":
+        return band_topk_lse_int8_plain(x, table_q, scale, k, sel_limit)
+    _build.require(x.device.type == "cuda",
+                   f"band_topk_lse_int8: no kernel for device {x.device}")
+    return _launch_int8(x, table_q, scale, k, table_q.shape[0]
+                        if sel_limit is None else sel_limit)
+
+
+def _launch_int8(x, table_q, scale, k, sel_limit):
+    N, D = x.shape
+    V = table_q.shape[0]
+    ok, why = admits_int8(x.dtype, N, D, V, k, sel_limit)
+    _build.require(ok, why)
+    _build.require(table_q.dtype == torch.int8 and table_q.shape[1] == D
+                   and scale.dtype == x.dtype and scale.shape == (V,)
+                   and table_q.device == x.device
+                   and scale.device == x.device,
+                   "band_topk_lse_int8: table must be [V, D] int8 and its"
+                   " scales [V] of x's dtype, on x's device")
+    _build.require(x.is_contiguous() and table_q.is_contiguous()
+                   and scale.is_contiguous() and x.data_ptr() % 16 == 0
+                   and table_q.data_ptr() % 16 == 0,
+                   "band_topk_lse_int8: inputs must be contiguous and"
+                   " 16-byte aligned")
+    fn = _build.function("nic_band_topk_lse_int8", _ARGTYPES_INT8)
+    return _walk(lambda *a: fn(a[0], table_q.data_ptr(), scale.data_ptr(),
+                               *a[1:]), x, V, k, sel_limit, True,
+                 band_topk_lse_int8, "band_topk_lse_int8")
+
+
+def _walk(call, x, V, k, sel_limit, int8, counted, what):
+    """Launch `call` (the C entry point with its table bound) on each
+    128-row slice of x, its plan and the blocks' scratch; count each
+    launch on `counted`."""
+    N, D = x.shape
     dev = x.device
     sms = _build.sms_of(dev)
-    fn = _build.function("nic_band_topk_lse", _ARGTYPES)
     vals = torch.empty(N, k, device=dev, dtype=torch.float32)
     ids = torch.empty(N, k, device=dev, dtype=torch.int32)
     lse = torch.empty(N, 1, device=dev, dtype=torch.float32)
     for r0 in range(0, N, MAX_ROWS):
         n = min(MAX_ROWS, N - r0)
-        plan = band_plan(n, D, V, k, sms)
+        plan = band_plan(n, D, V, k, sms, int8)
         key = (dev, plan.rows, plan.blocks, k)
         scratch = _scratch.get(key)
         if scratch is None:
@@ -178,16 +262,16 @@ def _launch(x, table, k, sel_limit):
         pmax, psum = scratch[:cells], scratch[cells:2 * cells]
         pval = scratch[2 * cells:(2 + k) * cells]
         pid = scratch[(2 + k) * cells:]
-        _build.check(fn(x[r0:].data_ptr(), table.data_ptr(), pmax.data_ptr(),
-                        psum.data_ptr(), pval.data_ptr(), pid.data_ptr(),
-                        vals[r0:].data_ptr(), ids[r0:].data_ptr(),
-                        lse[r0:].data_ptr(), n, D, V, sel_limit, k,
-                        plan.blocks, plan.kc, plan.stages,
-                        int(plan.x_resident), plan.smem_bytes,
-                        _build.stream_of(x)),
-                     "band_topk_lse")
-        band_topk_lse.launches += 1
+        _build.check(call(x[r0:].data_ptr(), pmax.data_ptr(),
+                          psum.data_ptr(), pval.data_ptr(), pid.data_ptr(),
+                          vals[r0:].data_ptr(), ids[r0:].data_ptr(),
+                          lse[r0:].data_ptr(), n, D, V, sel_limit, k,
+                          plan.blocks, plan.kc, plan.stages,
+                          int(plan.x_resident), plan.smem_bytes,
+                          _build.stream_of(x)), what)
+        counted.launches += 1
     return vals, ids, lse
 
 
 band_topk_lse.launches = 0
+band_topk_lse_int8.launches = 0

@@ -15,6 +15,19 @@ The port follows the TPU kernel's numerics, fp32 scores and softmax
 with probabilities rounded to the value dtype; the reference's XLA
 decode path (`ops/attention.py::attend_flat_beam` over `DecodeKV`)
 instead materializes the scores in the compute dtype.
+
+`decode_cross_attention_int8` is the same kernel over int8 K and V with
+one scale a (item, key, head) (`ops/attention.py::quantize_kv`), the
+port's route for the reference's `QuantDecodeKV`, which the reference
+computes in XLA: the kernel reads half the bytes of K and V and turns
+the int8 rows into bf16 in shared memory. The scales factor out of
+both products in the reference's order: an fp32 score times its key's
+K scale, then the key bias and the fp32 softmax; the probability
+rounded to bf16, times the key's V scale, rounded to bf16 again, then
+the value product. The reference rounds the scores to the compute dtype
+before and after the scale; the port keeps them fp32, as its bf16
+kernel does (ROADMAP Queue 3, "by design"). In fp32 on the CPU the two
+agree.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ KEY_STEP = 16               # keys a block come in whole mma steps
 BLOCKS_PER_SM = 3           # blocks the plan aims to give a multiprocessor
 MIN_KEYS = 64               # keys a block before the plan splits further
 _ARGTYPES = [_build.P] * 5 + [_build.I] * 8 + [_build.P]
+_ARGTYPES_INT8 = [_build.P] * 7 + [_build.I] * 8 + [_build.P]
 
 
 class AttentionPlan(NamedTuple):
@@ -58,19 +72,31 @@ def admits(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
     return True, ""
 
 
-def attention_smem_bytes(Q: int, per: int, head_dim: int) -> int:
+def admits_int8(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
+    """`admits` of the int8 variant: q of `dtype`, int8 K and V, scales
+    of q's dtype."""
+    if dtype != torch.bfloat16:
+        return False, ("decode_cross_attention_int8 kernel takes bf16 q,"
+                       " int8 k/v, bf16 scales and an fp32 bias")
+    return admits(dtype, Q, head_dim)
+
+
+def attention_smem_bytes(Q: int, per: int, head_dim: int,
+                         int8: bool = False) -> int:
     """Dynamic shared memory of a block (csrc/decode_attention.cu::
-    attn_smem_bytes): K rows (then V's), fp32 scores and bf16 probabilities
-    for Q query rows, the key bias, the row maxima and sums (the warps',
-    every block's of the cluster, the context's), the parts of the
-    output this block adds."""
-    return (per * head_dim * 2 + Q * (per + 8) * (4 + 2) + per * 4
+    attn_smem_bytes): K rows (then V's; int8 rows padded by 16 bytes),
+    fp32 scores and bf16 probabilities for Q query rows, the key bias
+    (and the int8 rows' K and V scales), the row maxima and sums (the
+    warps', every block's of the cluster, the context's), the parts of
+    the output this block adds."""
+    row = head_dim + 16 if int8 else head_dim * 2
+    return (per * row + Q * (per + 8) * (4 + 2) + per * 4 * (3 if int8 else 1)
             + (2 * 4 + 2 * MAX_SPLITS + 2) * MAX_Q * 4
             + (Q * head_dim // 2 + MAX_SPLITS) * 8)
 
 
 def attention_plan(B: int, Q: int, S: int, num_heads: int, head_dim: int,
-                   sms: int) -> AttentionPlan:
+                   sms: int, int8: bool = False) -> AttentionPlan:
     """The kernel's plan for B items of Q queries over S keys on a card
     of `sms` multiprocessors: enough splits to give every
     multiprocessor BLOCKS_PER_SM blocks (so batch 1 spreads over the
@@ -87,7 +113,7 @@ def attention_plan(B: int, Q: int, S: int, num_heads: int, head_dim: int,
                       -(-BLOCKS_PER_SM * sms // (B * num_heads))))
     while True:
         per = -(-(-(-S // want)) // KEY_STEP) * KEY_STEP
-        smem = attention_smem_bytes(Q, per, head_dim)
+        smem = attention_smem_bytes(Q, per, head_dim, int8)
         if smem <= _build.MAX_SMEM_BYTES:
             return AttentionPlan(-(-S // per), per, smem)
         want += 1
@@ -114,6 +140,34 @@ def decode_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
     s = torch.einsum("bqhd,bshd->bhqs", qh, kh) + bias.float()[:, None, None, :]
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     out = torch.einsum("bhqs,bshd->bqhd", p, vh)
+    return out.to(q.dtype).reshape(B, Q, E)
+
+
+def decode_cross_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor,
+                                      k_scale: torch.Tensor,
+                                      v_q: torch.Tensor,
+                                      v_scale: torch.Tensor,
+                                      bias: torch.Tensor,
+                                      num_heads: int) -> torch.Tensor:
+    """`decode_cross_attention_plain` over int8 K/V, in plain PyTorch.
+
+    q [B, Q, E] (pre-scaled); k_q, v_q [B, S, E] int8; k_scale, v_scale
+    [B, S, H] (one scale a key and head); bias [B, S] fp32. Scores
+    (q . k_q) * k_scale + bias and softmax in fp32; probabilities
+    rounded to q's dtype, times v_scale in q's dtype; the value product
+    in fp32; output in q's dtype.
+    """
+    B, Q, E = q.shape
+    S = k_q.shape[1]
+    dh = E // num_heads
+    heads = lambda t: t.float().view(B, S, num_heads, dh)
+    qh = q.float().view(B, Q, num_heads, dh)
+    s = torch.einsum("bqhd,bshd->bhqs", qh, heads(k_q))
+    s = s * k_scale.float().permute(0, 2, 1)[:, :, None, :] \
+        + bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    p = p * v_scale.to(q.dtype).permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bhqs,bshd->bqhd", p.float(), heads(v_q))
     return out.to(q.dtype).reshape(B, Q, E)
 
 
@@ -166,3 +220,60 @@ def _launch(q, k, v, bias, num_heads):
 
 
 decode_cross_attention.launches = 0
+
+
+def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
+                                k_scale: torch.Tensor, v_q: torch.Tensor,
+                                v_scale: torch.Tensor, bias: torch.Tensor,
+                                num_heads: int) -> torch.Tensor:
+    """Returns [B, Q, E]; see `decode_cross_attention_int8_plain`. A CPU
+    tensor takes the plain version; a CUDA tensor launches the int8
+    kernel or raises (it never widens K/V to call the bf16 kernel)."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_int8_plain(q, k_q, k_scale, v_q,
+                                                 v_scale, bias, num_heads)
+    _build.require(q.device.type == "cuda",
+                   f"decode_cross_attention_int8: no kernel for device"
+                   f" {q.device}")
+    return _launch_int8(q, k_q, k_scale, v_q, v_scale, bias, num_heads)
+
+
+def _launch_int8(q, k_q, k_scale, v_q, v_scale, bias, num_heads):
+    B, Q, E = q.shape
+    S = k_q.shape[1]
+    _build.require(E % num_heads == 0,
+                   "decode_cross_attention_int8: E % num_heads != 0")
+    ok, why = admits_int8(q.dtype, Q, E // num_heads)
+    _build.require(ok, why)
+    _build.require(k_q.dtype == torch.int8 and v_q.dtype == torch.int8
+                   and k_scale.dtype == q.dtype and v_scale.dtype == q.dtype
+                   and bias.dtype == torch.float32,
+                   "decode_cross_attention_int8 kernel takes bf16 q, int8"
+                   " k/v, bf16 scales and an fp32 bias")
+    _build.require(k_q.shape == (B, S, E) and v_q.shape == (B, S, E)
+                   and k_scale.shape == (B, S, num_heads)
+                   and v_scale.shape == (B, S, num_heads)
+                   and bias.shape == (B, S),
+                   "decode_cross_attention_int8: k_q, v_q must be [B, S, E],"
+                   " the scales [B, S, H] and bias [B, S]")
+    _build.require(all(t.is_contiguous() and t.device == q.device
+                       for t in (q, k_q, k_scale, v_q, v_scale, bias)),
+                   "decode_cross_attention_int8: inputs must be contiguous,"
+                   " on one device")
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k_q, v_q)),
+                   "decode_cross_attention_int8: q, k_q and v_q must be"
+                   " 16-byte aligned")
+    plan = attention_plan(B, Q, S, num_heads, E // num_heads,
+                          _build.sms_of(q.device), int8=True)
+    fn = _build.function("nic_decode_attention_int8", _ARGTYPES_INT8)
+    out = torch.empty_like(q)
+    _build.check(fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
+                    v_q.data_ptr(), v_scale.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), B, Q, S, E, num_heads, plan.splits,
+                    plan.per, plan.smem_bytes, _build.stream_of(q)),
+                 "decode_cross_attention_int8")
+    decode_cross_attention_int8.launches += 1
+    return out
+
+
+decode_cross_attention_int8.launches = 0

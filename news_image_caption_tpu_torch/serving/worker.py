@@ -30,9 +30,12 @@ then the faces (and objects) captioner, returning the caption and the
 attention maps of each context; the reference serves it from Python,
 not from its `serve` command, and so does the port.
 
-What the port does not have raises before any model is built, naming
-its ROADMAP Queue 1 item: int8 context K/V and int8 head tables (item
-7b).
+`flagship_model_builder`'s `quantize_kv` / `quantize_head` are the
+reference's opt-in int8 routes: int8 context K/V quantized once a
+request, int8 head tables quantized once at load (`decode_weights(
+quantize_head=True)`), on every path it serves (greedy, speculative,
+both slot pools), on the card through `decode_cross_attention_int8` and
+`band_topk_lse_int8`.
 """
 
 from __future__ import annotations
@@ -72,24 +75,15 @@ _MASKS = ("image_mask", "article_mask")
 
 
 def check_serving_args(speculative_k: int = 0, continuous_slots: int = 0,
-                       continuous_beam: bool = False, sampling_topk: int = 1,
-                       quantize_kv: bool = False,
-                       quantize_head: bool = False) -> None:
-    """The reference's checks of the serving switches (ValueError),
-    then NotImplementedError for each switch the port does not have."""
+                       continuous_beam: bool = False,
+                       sampling_topk: int = 1) -> None:
+    """The reference's checks of the serving switches (ValueError)."""
     _check_sampling_args(sampling_topk, continuous_slots, continuous_beam,
                          speculative_k)
     if continuous_beam and continuous_slots <= 0:
         raise ValueError("continuous_beam requires continuous_slots "
                          "> 0 (a plain worker would silently serve "
                          "greedy payloads)")
-    for name, on in (("quantize_kv", quantize_kv),
-                     ("quantize_head", quantize_head)):
-        if on:
-            raise NotImplementedError(
-                f"{name}: int8 context K/V and int8 head tables are not "
-                "ported yet; each needs a kernel variant on the card "
-                "(ROADMAP Queue 1 item 7b)")
 
 
 def _check_sampling_args(sampling_topk: int, continuous_slots: int,
@@ -166,8 +160,9 @@ def _serving_predict(model: TransformerFlattened, cfg: GenerationConfig,
     """predict(job) -> {"tokens": int32 [B, max_len + 1]} with `.stage`,
     `.warmup`, `.model`, `.weights` and `.config`. With speculative_k >= 2
     a job's `article_ids` (fitted to the served article length) make
-    `predict` decode it by `generate_speculative`."""
-    weights = model.decoder.decode_weights()
+    `predict` decode it by `generate_speculative`. The int8 head tables
+    of `cfg.quantize_head` are quantized here, once."""
+    weights = model.decoder.decode_weights(cfg.quantize_head)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     S = warmup_job["article"].shape[1]
 
@@ -355,16 +350,18 @@ def flagship_model_builder(device="cuda", max_len: int = 32,
     expose what it runs, `predict.engine` the slot pool. The other
     switches are the reference's (see the module: speculative_k,
     continuous_slots with inner_steps, harvest_lag and continuous_beam,
-    sampling_topk with sampling_temp); the quantized routes raise
-    (`check_serving_args`).
+    sampling_topk with sampling_temp, and the int8 routes quantize_kv
+    and quantize_head, which every path takes).
     """
     check_serving_args(speculative_k, continuous_slots, continuous_beam,
-                       sampling_topk, quantize_kv, quantize_head)
+                       sampling_topk)
     device = torch.device(device)
     model = _build_model(FLAGSHIP, device, torch.bfloat16, params_path, seed)
     cfg = GenerationConfig(max_len=max_len, early_exit=early_exit,
                            sampling_topk=sampling_topk,
-                           sampling_temp=sampling_temp)
+                           sampling_temp=sampling_temp,
+                           quantize_kv=quantize_kv,
+                           quantize_head=quantize_head)
     predict = _serving_predict(
         model, cfg, device, torch.bfloat16,
         _zero_job(batch_size, FLAGSHIP_IMAGE_LEN, FLAGSHIP_ARTICLE_LEN,
@@ -516,7 +513,8 @@ def full_model_builder(caption_model=None, caption_params=None,
 
 
 def decode_launches() -> Dict[str, int]:
-    """Launch counts of the four decode kernels in this process."""
+    """Launch counts of the four decode kernels and the two int8
+    variants in this process."""
     from news_image_caption_tpu_torch.ops import (band_topk,
                                                   decode_attention,
                                                   decode_blocks)
@@ -524,7 +522,10 @@ def decode_launches() -> Dict[str, int]:
             "decode_cross_attention":
                 decode_attention.decode_cross_attention.launches,
             "decode_conv_block": decode_blocks.decode_conv_block.launches,
-            "decode_ffn_block": decode_blocks.decode_ffn_block.launches}
+            "decode_ffn_block": decode_blocks.decode_ffn_block.launches,
+            "band_topk_lse_int8": band_topk.band_topk_lse_int8.launches,
+            "decode_cross_attention_int8":
+                decode_attention.decode_cross_attention_int8.launches}
 
 
 def is_cuda_error(e: BaseException) -> bool:

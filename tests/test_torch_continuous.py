@@ -10,9 +10,10 @@ requests. The cases mirror the reference's `tests/test_continuous.py`
 (staggered submits, log-probs within 1e-5, speculative slots with
 oracle and garbage sources, a request's own max_len, a malformed
 request failing alone, batched requests, reset, the beam pool, the
-first request sizing the pool, the constructors' checks, harvest_lag),
-without its quantized, Gen-2, pointer and TGNC engines (ROADMAP Queue 1
-items 7b and 10). Then the toy's builders and the `serve` command with
+first request sizing the pool, the constructors' checks, harvest_lag);
+its quantized cases are in `tests/test_torch_quantize.py`, its Gen-2,
+pointer and TGNC engines' in those families' files. Then the toy's
+builders and the `serve` command with
 `--continuous-slots` against JAX's `generate` of the reference's toy.
 JAX's references are computed once a module, under jit.
 """

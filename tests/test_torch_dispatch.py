@@ -14,9 +14,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from news_image_caption_tpu_torch.ops.band_topk import (  # noqa: E402
-    band_topk_lse, band_topk_lse_plain)
+    band_topk_lse, band_topk_lse_int8, band_topk_lse_int8_plain,
+    band_topk_lse_plain)
 from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
-    decode_cross_attention, decode_cross_attention_plain)
+    decode_cross_attention, decode_cross_attention_int8,
+    decode_cross_attention_int8_plain, decode_cross_attention_plain)
 from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
     decode_conv_block, decode_conv_block_plain, decode_ffn_block,
     decode_ffn_block_plain, pack_taps)
@@ -28,7 +30,7 @@ from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
 
 KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
            "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd",
-           "dynamic_conv"]
+           "dynamic_conv", "band_topk_lse_int8", "decode_cross_attention_int8"]
 
 
 @pytest.fixture
@@ -44,6 +46,10 @@ def _kernel_calls(device, dtype=torch.bfloat16):
 
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dtype).to(device)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(device)
 
     N, C, H, K, F, V, S = 5, 64, 4, 7, 128, 300, 51
     x = rn(N, C)
@@ -78,6 +84,14 @@ def _kernel_calls(device, dtype=torch.bfloat16):
             decode_ffn_block, decode_ffn_block_plain,
             (x, rn(C, F, scale=0.05), rn(F, scale=0.05),
              rn(F, C, scale=0.05), rn(C, scale=0.05))),
+        "band_topk_lse_int8": (
+            band_topk_lse_int8, band_topk_lse_int8_plain,
+            (x, i8(V, C), rn(V, scale=0.2).abs() / 127, 5, 250)),
+        "decode_cross_attention_int8": (
+            decode_cross_attention_int8, decode_cross_attention_int8_plain,
+            (rn(2, 3, C, scale=0.3), i8(2, S, C),
+             rn(2, S, H).abs() / 127, i8(2, S, C), rn(2, S, H).abs() / 127,
+             torch.zeros(2, S, device=device), H)),
     }
 
 
@@ -578,6 +592,53 @@ def test_models_no_kernel_admits_raise_on_card(cuda_device, dtype,
     with pytest.raises(ValueError, match=match):
         model.loss_fn(batch, torch.Generator(device=cuda_device).manual_seed(2))
     assert [fn.launches for fn in counted] == before
+
+
+NARROW = dict(vocab_size=640, embed_dim=256, ffn_dim=512, num_heads=4,
+              num_layers=2, kernel_sizes=(3, 7), cutoff=(128, 384, 640),
+              image_dim=64, article_dim=64, max_positions=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize_kv,quantize_head", [
+    (True, False), (False, True), (True, True)])
+def test_int8_routes_launch_their_kernels_on_card(cuda_device, quantize_kv,
+                                                  quantize_head):
+    """The int8 routes on the card: greedy, beam-3 and speculative decode
+    of a bf16 model the kernels admit (d 256, 4 heads of 64) launch the
+    int8 variants where their switch is on and never the bf16 kernel of
+    that route (K/V and tables are not widened to bf16 for it, and no
+    plain twin stands in); the speculative tokens are greedy's."""
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+
+    model = TransformerFlattened(
+        device=cuda_device, dtype=torch.bfloat16,
+        generator=torch.Generator(device=cuda_device).manual_seed(0),
+        **NARROW)
+    g = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randn(3, 5, 64, generator=g),
+             "article": torch.randn(3, 20, 64, generator=g),
+             "image_mask": torch.zeros(3, 5, dtype=torch.bool),
+             "article_mask": torch.zeros(3, 20, dtype=torch.bool)}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    cfg = GenerationConfig(max_len=10, beam_size=3, quantize_kv=quantize_kv,
+                           quantize_head=quantize_head)
+    counted = (band_topk_lse, band_topk_lse_int8, decode_cross_attention,
+               decode_cross_attention_int8)
+    before = [fn.launches for fn in counted]
+    tokens, _ = model.generate(batch, cfg)
+    model.generate_beam(batch, cfg)
+    spec, _, _ = model.generate_speculative(
+        dict(batch, article_ids=tokens[:, 1:]), cfg, spec_k=3)
+    torch.cuda.synchronize()
+    band, band8, attn, attn8 = (fn.launches - n
+                                for fn, n in zip(counted, before))
+    assert (band8 > 0, band == 0) == (quantize_head, quantize_head)
+    assert (attn8 > 0, attn == 0) == (quantize_kv, quantize_kv)
+    assert torch.equal(spec, tokens)
 
 
 def _flash_case(device, B, T, S, E, seed):

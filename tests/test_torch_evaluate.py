@@ -8,9 +8,11 @@ the port with `params_from_jax` and runs the port's `cli.main` with the
 same arguments, its `evaluation_model` (the random init) replaced by
 the carried model. The files must agree: generations.jsonl
 and evaluate-metrics.json byte for byte, with and without `--no-enrich`,
-and every `--dump-attention` array within 1e-5 (tokens equal). Two
+and every `--dump-attention` array within 1e-5 (tokens equal). Three
 reference runs in all, in a module fixture: the first enriched with the
-attention dump, the second bare with a suffix and a `max_len` override.
+attention dump, the second bare with a suffix and a `max_len` override,
+the third bare with `generation.quantize_kv` (the int8 K/V route, its
+kernel's plain twin counted on the port's side).
 """
 
 import json
@@ -50,6 +52,8 @@ RUNS = {
     # name: (extra overrides, extra arguments)
     "enriched": ({}, ["--dump-attention", "{dir}/attn"]),
     "bare": ({"generation": {"max_len": 6}}, ["--no-enrich", "-s", "_bare"]),
+    "quantized": ({"generation": {"quantize_kv": True}},
+                  ["--no-enrich", "-s", "_q8"]),
 }
 
 
@@ -82,10 +86,21 @@ def _port_model(params, overrides: str):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{run: (reference dir, port dir)}, both commands run once a run."""
+    """{run: (reference dir, port dir)}, both commands run once a run;
+    under "int8_calls", the calls of the int8 attention's plain twin in
+    each port run."""
+    from news_image_caption_tpu_torch.ops import decode_attention
+
     root = tmp_path_factory.mktemp("evaluate")
-    out = {}
+    out = {"int8_calls": {}}
     with pytest.MonkeyPatch.context() as mp:
+        twin = decode_attention.decode_cross_attention_int8_plain
+
+        def counting(*args):
+            out["int8_calls"][run] = out["int8_calls"].get(run, 0) + 1
+            return twin(*args)
+        mp.setattr(decode_attention, "decode_cross_attention_int8_plain",
+                   counting)
         for run in RUNS:
             ref, port = root / f"{run}_ref", root / f"{run}_port"
             ref_overrides, ref_argv = _argv(run, ref)
@@ -100,7 +115,8 @@ def runs(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("run,suffix", [("enriched", ""), ("bare", "_bare")])
+@pytest.mark.parametrize("run,suffix", [("enriched", ""), ("bare", "_bare"),
+                                        ("quantized", "_q8")])
 @pytest.mark.parametrize("name", ["generations{}.jsonl",
                                   "evaluate-metrics{}.json"])
 def test_files_are_byte_equal(runs, run, suffix, name):
@@ -163,8 +179,21 @@ def test_random_init_command_runs(tmp_path, capsys):
     assert texts[0] == texts[1]
 
 
+def test_quantize_kv_takes_the_int8_route(runs):
+    """`generation.quantize_kv: true` decodes through the int8 K/V route
+    (its files are the reference's, `test_files_are_byte_equal`), and
+    only then; evaluate reads no `quantize_head`, as the reference's
+    command reads none."""
+    calls = runs["int8_calls"]
+    # 2 layers x 2 contexts, a step of each of the 2 batches at least.
+    assert calls.get("quantized", 0) >= 8
+    assert "enriched" not in calls and "bare" not in calls
+    gcfg = cli.generation_config({"generation": {"quantize_kv": True,
+                                                 "quantize_head": True}})
+    assert gcfg.quantize_kv and not gcfg.quantize_head
+
+
 @pytest.mark.parametrize("command,overrides,argv,item", [
-    ("evaluate", {"generation": {"quantize_kv": True}}, [], "7"),
     ("train", {"trainer": {"checkpoint_format": "sharded"}}, [], "11"),
     ("evaluate", {"model": {"decoder": {"normalize_before": True}}}, [], "8"),
     ("evaluate", {"model": {"type": "gen3_pipeline",

@@ -389,15 +389,71 @@ def test_http_handler_matches_reference(name, proxies):
      ValueError, "excludes continuous_beam"),
     (dict(sampling_topk=4, continuous_slots=2, speculative_k=4), ValueError,
      "excludes speculative_k"),
-    (dict(quantize_kv=True), NotImplementedError, "item 7b"),
-    (dict(quantize_head=True), NotImplementedError, "item 7b"),
 ])
 def test_flagship_builder_switches_raise(kwargs, error, match):
-    """The reference's ValueErrors, then one NotImplementedError naming
-    its ROADMAP item for each switch the port lacks; all before a model
-    is built (so on the meta device too, and fast)."""
+    """The reference's ValueErrors, all before a model is built (so on
+    the meta device too, and fast)."""
     with pytest.raises(error, match=match):
         worker.flagship_model_builder("meta", **kwargs)
+
+
+# The flagship's structure at the toy's widths: the builders' int8 routes
+# run on the CPU in a second.
+NARROW = dict(TOY, cutoff=(16, 32, 64), num_heads=4)
+
+
+@pytest.fixture
+def narrow_flagship(monkeypatch):
+    """`flagship_model_builder` at the toy's widths and request shapes,
+    and the int8 plain twins counting their calls: {name: calls}."""
+    from news_image_caption_tpu_torch.ops import band_topk, decode_attention
+
+    monkeypatch.setattr(worker, "FLAGSHIP", NARROW)
+    monkeypatch.setattr(worker, "FLAGSHIP_IMAGE_LEN", TOY_IMAGE_LEN)
+    monkeypatch.setattr(worker, "FLAGSHIP_ARTICLE_LEN", TOY_ARTICLE_LEN)
+    calls = {}
+    for module, name in ((decode_attention,
+                          "decode_cross_attention_int8_plain"),
+                         (band_topk, "band_topk_lse_int8_plain")):
+        def counting(*args, _fn=getattr(module, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args)
+        monkeypatch.setattr(module, name, counting)
+    return calls
+
+
+def _quantized_route_runs(predict, calls, quantize_kv, quantize_head):
+    """predict serves a job through the int8 routes its switches name:
+    tokens of the quantized `generate` on the staged job, each int8
+    twin called exactly where its switch is on."""
+    job = make_job(3, article_len=4)
+    cfg = predict.config
+    assert (cfg.quantize_kv, cfg.quantize_head) == (quantize_kv,
+                                                   quantize_head)
+    assert (predict.weights.quant_tables is not None) == quantize_head
+    calls.clear()
+    tokens = predict(job)["tokens"]
+    assert tokens.shape == (1, cfg.max_len + 1) and tokens[0, 0] == 0
+    assert ("decode_cross_attention_int8_plain" in calls) == quantize_kv
+    assert ("band_topk_lse_int8_plain" in calls) == quantize_head
+    staged = predict.stage(job)
+    want, _ = predict.model.generate(staged, cfg, predict.weights)
+    np.testing.assert_array_equal(tokens, want.numpy())
+
+
+@pytest.mark.parametrize("quantize_kv,quantize_head", [
+    (True, False), (False, True), (True, True)])
+def test_flagship_builder_quantized_routes(narrow_flagship, quantize_kv,
+                                           quantize_head):
+    """`flagship_model_builder(quantize_kv=..., quantize_head=...)` builds
+    (the head tables quantized once, at load) and serves through the
+    int8 routes, on the CPU at the toy's widths."""
+    predict = worker.flagship_model_builder(
+        "cpu", max_len=6, quantize_kv=quantize_kv,
+        quantize_head=quantize_head)
+    predict.warmup()
+    _quantized_route_runs(predict, narrow_flagship, quantize_kv,
+                          quantize_head)
 
 
 def test_sampling_args_validation():
@@ -643,7 +699,8 @@ def test_worker_stats_rpc(server_and_client):
     assert n >= 1 and stats["uptime_s"] >= 0
     assert stats["kernel_launches"] == dict.fromkeys(
         ("band_topk_lse", "decode_cross_attention", "decode_conv_block",
-         "decode_ffn_block"), 0)
+         "decode_ffn_block", "band_topk_lse_int8",
+         "decode_cross_attention_int8"), 0)
     client.caption(JOBS[0])
     assert client.stats()["jobs_served"] == n + 1
 
@@ -803,8 +860,7 @@ def test_cli_serve_sigterm_during_startup():
      "no CUDA device"),
     (["--sampling-topk", "2", "--continuous-slots", "2"],
      RuntimeError, "no CUDA device"),
-    (["--quantize-kv"], NotImplementedError, "item 7b"),
-    (["--quantize-head"], NotImplementedError, "item 7b"),
+    (["--quantize-kv"], RuntimeError, "no CUDA device"),
     (["--task", "toy"], NotImplementedError, "Queue 3 item 1"),
     (["--task", "toy", "--platform", "cuda"], NotImplementedError,
      "Queue 3 item 1"),
@@ -824,6 +880,29 @@ def test_cli_serve_raises_before_spawning(args, error, match,
 
 def _no_start(self):
     raise AssertionError("the server was started")
+
+
+@pytest.mark.parametrize("args", [["--quantize-kv"], ["--quantize-head"],
+                                  ["--quantize-kv", "--quantize-head"]])
+def test_cli_serve_quantized_routes_reach_the_worker(args, narrow_flagship,
+                                                     monkeypatch):
+    """`serve --quantize-kv` / `--quantize-head` hand the switches to the
+    flagship builder of every worker: the worker's builder, called as
+    the worker calls it, serves through the int8 routes (the flagship at
+    the toy's widths, on the CPU; no process is spawned)."""
+    workers = []
+
+    def no_spawn(self):
+        workers.append(self.worker_factory(worker_id=0, receive_addr="",
+                                           sink_addr=""))
+
+    monkeypatch.setattr(CaptionServer, "start", no_spawn)
+    assert cli.main(["serve", "--platform", "cpu", "--max-len", "6",
+                     "--exit-after-ready", *args]) == 0
+    (w,) = workers
+    predict = w.model_builder(device=w._device())
+    _quantized_route_runs(predict, narrow_flagship, "--quantize-kv" in args,
+                          "--quantize-head" in args)
 
 
 @pytest.mark.parametrize("args", [
