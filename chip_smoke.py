@@ -300,6 +300,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      path's launches from the counts zeroed just before it, the int8
      variants where their switch is on and the bf16 kernel they stand in
      for never (the `quantize` JSON line).
+  22. the profiler window, bf16 first moments, the step loaders and the
+     beam layouts: the train command on the flagship YAML (full width
+     and depth, bf16_o2, flash; 80 train records, one epoch of 5 steps)
+     with `trainer.profile_start: 2, profile_steps: 3`, then `-r` with
+     two epochs, resuming at step 5, past the start: each run writes one
+     `torch.profiler` trace into `<serialization_dir>/profile` whose
+     kernel events hold exactly 3 steps' flash kernels (24 forward, 24
+     backward) and whose host spans hold 3 `train_step.forward`, the
+     windows opening at steps 2 and 5; 8 flagship train steps from the
+     same seeded weights and batches with BertAdam's first moments in
+     fp32 and in bf16 (mu stored bf16, losses finite and within rtol
+     0.05 of fp32's, `apply` timed on each state); the `Trainer` fed by
+     a `FixedStepsLoader` (3 steps an epoch) over phase 18's two train
+     shards, stopped after epoch 0 and recovered into epoch 1: its
+     batches the uninterrupted stream's, 6 steps; a `TokenBucketBatcher`
+     (max_tokens 16384, 16 rows) over the flagship YAML's 128 synthetic
+     train records by article length, each batch padded to its bucket,
+     through the train step: 8 + 8 flash launches at each of three or
+     more bucket lengths; beam-5 at B=16 through `generate_beam` with
+     impl "shift", "lazy" and "topk" on phase 4's weights: shift's and
+     lazy's tokens equal bit for bit, 0 / 8 / 4 / 20 launches a step
+     (the full-vocab head, no band kernel), the share of beams equal to
+     topk's and each impl's device ms a step (the `phase22` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -318,8 +341,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -4315,13 +4340,14 @@ def feature_error(got: np.ndarray, want: np.ndarray) -> float:
 DATA_FEATURE_TOL = 0.05     # bf16 encoders against fp32, relative norm
 
 
-def data_phase(torch, flash, counted):
+def data_phase(torch, flash, counted, shard_dir: str):
     """Phase 18. `preprocess` of 96 jsonl records (64 train, 32 val) into
     shards of 32 on the card's ResNet-152 and RoBERTa-large (random
-    weights, bf16), then a second offline pass over 256 x 256 random
-    images; the shards read back; the flagship YAML trained on the
-    shards (`nics_shards`) for 2 epochs and evaluated (`-m best`) on the
-    val shard. Returns the launches of each path and a summary."""
+    weights, bf16), written into `shard_dir` (kept for phase 22), then a
+    second offline pass over 256 x 256 random images; the shards read
+    back; the flagship YAML trained on the shards (`nics_shards`) for 2
+    epochs and evaluated (`-m best`) on the val shard. Returns the
+    launches of each path and a summary (its `shards` the three paths)."""
     import tempfile
 
     from news_image_caption_tpu_torch import cli
@@ -4359,7 +4385,7 @@ def data_phase(torch, flash, counted):
             for fn in all_counted.values():
                 fn.launches = 0
             t = time.perf_counter()
-            rc = cli.main(["preprocess", src, f"{tmp}/news",
+            rc = cli.main(["preprocess", src, f"{shard_dir}/news",
                            "--records-per-shard", "32"])
             pre_wall = time.perf_counter() - t
             check(rc == 0, f"preprocess returned {rc}")
@@ -4572,6 +4598,7 @@ def data_phase(torch, flash, counted):
               f" {n_steps} steps, launches {launches['data_evaluate']}"
               f" (3 / 8 / 4 / 4 a step)", flush=True)
     summary.update({
+        "shards": paths,
         "records": {"train": 64, "val": 32, "pixel_pass": 32},
         "preprocess_wall_s": pre_wall, "preprocess_records_per_s":
             96 / pre_wall, "pixel_pass_records_per_s": 32 / pix_wall,
@@ -5371,6 +5398,409 @@ def quantize_phase(torch, counted):
     return launches, summary
 
 
+PROFILE_WINDOW = {"profile_start": 2, "profile_steps": 3}
+
+
+def trace_counts(path: str) -> dict:
+    """In a `torch.profiler` trace file: the device events of the port's
+    flash kernels, all device kernels, and the train step's
+    `record_function` spans (their host side)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    return {"flash_fwd_kernel": sum("flash_fwd_kernel" in k
+                                    for k in kernels),
+            "flash_bwd_kernel": sum("flash_bwd_kernel" in k
+                                    for k in kernels),
+            "device_kernels": len(kernels),
+            **{s: spans.count(s) for s in (
+                "train_step.forward", "train_step.backward",
+                "train_step.optimizer")}}
+
+
+def profile_window_phase(torch, flash_counted):
+    """Phase 22.1. The train command on the flagship YAML (full width and
+    depth, bf16_o2, flash) with `trainer.profile_start: 2,
+    profile_steps: 3`: 80 train records (5 steps an epoch), one epoch,
+    then `-r` with two epochs, resuming at step 5, past the start. Each
+    run must write one trace into `<serialization_dir>/profile` holding
+    3 steps' flash kernels (8 forward and 8 backward a step) and 3
+    `train_step.forward` spans, the second window opening at step 5.
+    Returns the flash launches of both runs and a summary."""
+    import glob
+    import logging
+    import os
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+
+    per_step = 2 * FLAGSHIP["num_layers"]
+    steps = PROFILE_WINDOW["profile_steps"]
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    logging.getLogger("trainer").addHandler(handler)
+    launches = dict.fromkeys(flash_counted, 0)
+    summary = {"window": PROFILE_WINDOW, "traces": [], "card": card_line()}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out_dir = f"{tmp}/serialization"
+            for epochs, extra in ((1, []), (2, ["-r"])):
+                ovr = json.dumps({
+                    "dataset": {"train": {"size": 80}, "val": {"size": 16},
+                                "test": {"size": 16}},
+                    "trainer": {"num_epochs": epochs, **PROFILE_WINDOW,
+                                "num_serialized_models_to_keep": 1,
+                                "log_every": 5, "summary_interval": 0,
+                                "optimizer": {"t_total": 100},
+                                "serialization_dir": out_dir}})
+                for fn in flash_counted.values():
+                    fn.launches = 0
+                t = time.perf_counter()
+                rc = cli.main(["train", EVAL_CONFIG, "-o", ovr] + extra)
+                wall = time.perf_counter() - t
+                check(rc == 0, f"train {extra} returned {rc}")
+                got = {k: fn.launches for k, fn in flash_counted.items()}
+                # 5 train steps and 1 val batch a run.
+                check(got == {"flash_attention_fwd": per_step * 6,
+                              "flash_attention_bwd": per_step * 5},
+                      f"train {extra}: flash launches {got}")
+                for name, n in got.items():
+                    launches[name] += n
+                traces = sorted(glob.glob(f"{out_dir}/profile/*.pt.trace.json"),
+                                key=lambda p: p.rsplit(".", 4)[-4])
+                check(len(traces) == len(summary["traces"]) + 1,
+                      f"profile directory holds {traces}")
+                new = [p for p in traces if p not in
+                       {s["file"] for s in summary["traces"]}]
+                counts = trace_counts(new[0])
+                print(f"  train {' '.join(extra) or '(fresh)'}: {wall:.1f} s;"
+                      f" trace {new[0].rsplit('/', 1)[1]}"
+                      f" ({os.path.getsize(new[0]) / 2 ** 20:.1f} MiB):"
+                      f" {counts}", flush=True)
+                check(counts["flash_fwd_kernel"] == per_step * steps
+                      and counts["flash_bwd_kernel"] == per_step * steps,
+                      f"the window holds {counts}, expected"
+                      f" {per_step * steps} flash forward and backward"
+                      " kernels")
+                check(counts["train_step.forward"] == steps,
+                      f"the window holds {counts['train_step.forward']}"
+                      f" train steps, expected {steps}")
+                summary["traces"].append({"file": new[0], "wall_s": wall,
+                                          **counts})
+    finally:
+        logging.getLogger("trainer").removeHandler(handler)
+    opened = [m for m in messages if m.startswith("profiling steps")]
+    print(f"  trainer: {opened}", flush=True)
+    check(len(opened) == 2 and opened[0].startswith("profiling steps 2..5")
+          and opened[1].startswith("profiling steps 5..8"),
+          f"the windows opened at {opened}, expected steps 2 and 5")
+    for t in summary["traces"]:
+        t["file"] = t["file"].rsplit("/", 1)[1]
+    return launches, summary
+
+
+def moments_phase(torch, flash_counted):
+    """Phase 22.2. 8 flagship train steps (bf16_o2, full width and depth)
+    from the same seeded weights and synthetic batches, BertAdam's first
+    moments in fp32 and in bf16: mu stored bf16, the bf16 run's losses
+    finite and within rtol 0.05 of the fp32 run's; the optimizer's
+    `apply` timed on each state. Returns the flash launches and a
+    summary."""
+    from news_image_caption_tpu_torch.config import (FLAGSHIP,
+                                                     FLAGSHIP_ARTICLE_LEN,
+                                                     FLAGSHIP_CAPTION_LEN,
+                                                     FLAGSHIP_IMAGE_LEN,
+                                                     FLAGSHIP_OPTIMIZER)
+    from news_image_caption_tpu_torch.data.synthetic import (
+        SyntheticNewsDataset, to_device)
+    from news_image_caption_tpu_torch.training.builder import \
+        flagship_trainer_builder
+    from news_image_caption_tpu_torch.training.optim import make_bert_adam
+
+    B, n = 16, 8
+    ds = SyntheticNewsDataset(
+        size=B * n, vocab_size=FLAGSHIP["vocab_size"],
+        caption_len=FLAGSHIP_CAPTION_LEN, article_len=FLAGSHIP_ARTICLE_LEN,
+        n_patches=FLAGSHIP_IMAGE_LEN, image_dim=FLAGSHIP["image_dim"],
+        article_dim=FLAGSHIP["article_dim"], seed=0)
+    batches = [to_device(b, "cuda") for b in ds.batches(B, seed=0)]
+    losses, apply_ms, launches = {}, {}, dict.fromkeys(flash_counted, 0)
+    for name, mdt in (("fp32", None), ("bf16", torch.bfloat16)):
+        model, state, train_step, _ = flagship_trainer_builder(
+            "cuda", seed=0, t_total=100, moment_dtype=mdt)
+        inner = state.opt_state["inner"]
+        want = mdt or torch.float32
+        check(all(m.dtype == want for m in inner.mu)
+              and all(v.dtype == torch.float32 for v in inner.nu),
+              f"{name} moments: mu {inner.mu[0].dtype}, nu"
+              f" {inner.nu[0].dtype}")
+        for fn in flash_counted.values():
+            fn.launches = 0
+        traj = []
+        for b in batches:
+            state, m = train_step(state, b, 0)
+            traj.append(m["loss"].item())
+            check(m["skipped"] == 0, f"{name} moments: a step was skipped")
+        for k, fn in flash_counted.items():
+            check(fn.launches == 8 * n, f"{name} moments: {k} launched"
+                  f" {fn.launches} times, expected {8 * n}")
+            launches[k] += fn.launches
+        losses[name] = traj
+        tx = make_bert_adam(**{**FLAGSHIP_OPTIMIZER, "t_total": 100},
+                            moment_dtype=mdt)
+        master = [state.opt_state["master"][k] for k in state.opt_names]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        grads = [torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+                 for p in master]
+        apply_ms[name] = time_ms(lambda: tx.apply(grads, inner, master),
+                                 iters=10)
+        del model, state, train_step, master, grads, inner
+        torch.cuda.empty_cache()
+    print(f"  losses fp32 moments: {[round(x, 4) for x in losses['fp32']]}",
+          flush=True)
+    print(f"  losses bf16 moments: {[round(x, 4) for x in losses['bf16']]};"
+          f" BertAdam.apply {apply_ms['fp32']:.4f} ms (fp32 mu) /"
+          f" {apply_ms['bf16']:.4f} ms (bf16 mu), CUDA events, L2-cold",
+          flush=True)
+    check(all(np.isfinite(losses["bf16"])), "a bf16-moment loss is not"
+          " finite")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["bf16"],
+                                               losses["fp32"])]
+    check(max(rel) <= 0.05, f"bf16-moment losses off the fp32 ones by"
+          f" {max(rel):.4f} (rtol 0.05)")
+    return launches, {"losses": losses, "max_rel_diff": max(rel),
+                      "apply_ms": apply_ms}
+
+
+def loaders_phase(torch, flash_counted, shard_paths):
+    """Phase 22.3. The `Trainer` fed by a `FixedStepsLoader` of 3 steps
+    an epoch over phase 18's two train shards (64 records, 4 batches of
+    16 a seed): epoch 0, stopped, then `recover` into epoch 1; the
+    resumed run's batches and the first run's must be the uninterrupted
+    stream's (the shards' batches of seeds 0, 1, ... in turn) and its
+    step count 6. Then a `TokenBucketBatcher` (max_tokens 16384, batches
+    of 16) over the flagship YAML's 128 synthetic train records by
+    article length, each batch padded to its bucket, through the train
+    step: flash kernels at every bucket length, at least three of them.
+    Returns the launches of both paths and a summary."""
+    import itertools
+    import tempfile
+
+    from news_image_caption_tpu_torch.config import (FLAGSHIP_OPTIMIZER,
+                                                     build_dataset,
+                                                     load_config)
+    from news_image_caption_tpu_torch.data.dataset import NicsShardDataset
+    from news_image_caption_tpu_torch.data.loader import (DeviceLoader,
+                                                          FixedStepsLoader,
+                                                          TokenBucketBatcher)
+    from news_image_caption_tpu_torch.data.synthetic import (LOSS_KEYS,
+                                                            to_device)
+    from news_image_caption_tpu_torch.training.builder import \
+        flagship_trainer_builder
+    from news_image_caption_tpu_torch.training.optim import make_bert_adam
+    from news_image_caption_tpu_torch.training.trainer import (Trainer,
+                                                               TrainerConfig)
+
+    B, S = 16, 3
+    ds = NicsShardDataset(paths=list(shard_paths))
+
+    def make_batches(seed):
+        return ds.batches(B, seed=seed)
+
+    def key(b):
+        return b["caption_ids"].tobytes() + b["article_ids"].tobytes()
+
+    stream = itertools.chain.from_iterable(make_batches(s)
+                                           for s in itertools.count())
+    want = [key(b) for b in itertools.islice(stream, 2 * S)]
+    fixed = FixedStepsLoader(make_batches, S, batches_per_seed=64 // B)
+    launches = {"loaders_train": dict.fromkeys(flash_counted, 0)}
+    seen = {}
+    tx = make_bert_adam(**{**FLAGSHIP_OPTIMIZER, "t_total": 100})
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, epochs, recover in (("stopped", 1, False),
+                                     ("resumed", 2, True)):
+            model, state, _, _ = flagship_trainer_builder(
+                "cuda", seed=0, t_total=100)
+            trainer = Trainer(model.loss_fn, tx, TrainerConfig(
+                num_epochs=epochs, serialization_dir=tmp,
+                mixed_precision="bf16_o2", log_every=S, keep_checkpoints=1,
+                summary_interval=0))
+            seen[run] = []
+
+            def train_batches(epoch, run=run):
+                for b in fixed.epoch(epoch):
+                    seen[run].append((epoch, key(b)))
+                    yield {k: b[k] for k in LOSS_KEYS}
+
+            for fn in flash_counted.values():
+                fn.launches = 0
+            state = trainer.train(
+                state, lambda e: DeviceLoader(train_batches(e), "cuda"),
+                recover=recover)
+            for k, fn in flash_counted.items():
+                launches["loaders_train"][k] += fn.launches
+            seen[run + "_steps"] = state.step
+            seen[run + "_loss"] = [r["loss"] for r in trainer.history]
+            del state, trainer, model
+            torch.cuda.empty_cache()
+    ds.close()
+    stopped = [k for e, k in seen["stopped"]]
+    resumed = [(e, k) for e, k in seen["resumed"]]
+    check(stopped == want[:S], "epoch 0's batches are not the stream's")
+    check([e for e, _ in resumed] == [1] * S
+          and [k for _, k in resumed] == want[S:],
+          "the resumed epoch's batches are not the uninterrupted stream's")
+    check(launches["loaders_train"] == {"flash_attention_fwd": 16 * S,
+                                         "flash_attention_bwd": 16 * S},
+          f"the loader runs' flash launches {launches['loaders_train']}")
+    check(seen["stopped_steps"] == S and seen["resumed_steps"] == 2 * S,
+          f"steps {seen['stopped_steps']} then {seen['resumed_steps']},"
+          f" expected {S} then {2 * S}")
+    print(f"  FixedStepsLoader ({S} steps an epoch over 4 batches a seed):"
+          f" epoch 0 then the resumed epoch 1 = the stream's batches 0-5,"
+          f" steps {seen['stopped_steps']} -> {seen['resumed_steps']};"
+          f" losses {seen['stopped_loss']} / {seen['resumed_loss']}",
+          flush=True)
+
+    # Bucketed batches of the flagship's synthetic train records.
+    cfg = load_config(EVAL_CONFIG, json.dumps(
+        {"dataset": {"train": {"size": 128}}}))
+    syn = build_dataset(cfg, "train")
+    batcher = TokenBucketBatcher(lambda ex: len(ex.article_ids),
+                                 batch_size=B, max_tokens=16384)
+    buckets = []
+    _, state, train_step, _ = flagship_trainer_builder("cuda", seed=0,
+                                                       t_total=100)
+    for fn in flash_counted.values():
+        fn.launches = 0
+    per_bucket, losses = [], []
+    for examples, bucket in batcher.batches(syn[i] for i in range(len(syn))):
+        syn_b = type(syn)(**{**vars(syn), "article_len": bucket})
+        batch = syn_b.collate(examples)
+        check(batch["article"].shape[1] == bucket, "collate ignored the"
+              " bucket")
+        before = {k: fn.launches for k, fn in flash_counted.items()}
+        state, m = train_step(state, to_device({k: batch[k] for k in
+                                                LOSS_KEYS}, "cuda"), 0)
+        losses.append(m["loss"].item())
+        got = {k: fn.launches - before[k] for k, fn in flash_counted.items()}
+        per_bucket.append((bucket, len(examples), got))
+        buckets.append(bucket)
+    launches["bucket_train"] = {k: fn.launches
+                                for k, fn in flash_counted.items()}
+    del state, train_step
+    torch.cuda.empty_cache()
+    print(f"  TokenBucketBatcher (max_tokens 16384): (bucket, rows, flash"
+          f" launches) {per_bucket}; losses {[round(x, 3) for x in losses]}",
+          flush=True)
+    check(len(set(buckets)) >= 3, f"bucket lengths {sorted(set(buckets))}:"
+          " fewer than three")
+    check(all(np.isfinite(losses)), "a bucketed loss is not finite")
+    check(all(g["flash_attention_fwd"] == 8 and g["flash_attention_bwd"] == 8
+              for _, _, g in per_bucket),
+          "a bucketed step did not launch 8 + 8 flash kernels")
+    return launches, {"fixed_steps": {
+        "steps_per_epoch": S, "steps": [seen["stopped_steps"],
+                                        seen["resumed_steps"]],
+        "losses": [seen["stopped_loss"], seen["resumed_loss"]]},
+        "token_buckets": [{"bucket": b, "rows": r} for b, r, _ in
+                          per_bucket], "bucket_losses": losses}
+
+
+def beam_layouts_phase(torch, counted):
+    """Phase 22.4. Beam-5 at B=16 (max_len 32, early exit) with phase 4's
+    flagship weights (seed 0, bf16) through `generate_beam` with
+    impl="shift", "lazy" and "topk". shift and lazy must give the same
+    tokens bit for bit (both run the full-vocab head over the same
+    kernels; only the caches' layout differs), each layer kernel launched
+    its plan's count every step and the band kernel never; the share of
+    their tokens equal to topk's is printed (both bf16, the heads sum
+    differently, so ties may split). Prints each impl's kernel launches
+    and device ms a step (one profiled search each). Returns each
+    layout's launches and a summary."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from news_image_caption_tpu_torch.serving.worker import \
+        flagship_model_builder
+    from torch.profiler import ProfilerActivity, profile
+
+    predict = flagship_model_builder("cuda", max_len=32)
+    model, weights = predict.model, predict.weights
+    B, K = 16, 5
+    cfg = GenerationConfig(max_len=32, early_exit=True, beam_size=K)
+    batch = stage_batch(torch, make_job(np.random.RandomState(22), B,
+                                        np.random.RandomState(23).randint(
+                                            20, 513, size=B)), "cuda")
+    plan = beam_launches_a_step(torch, B * K, K)
+    launches, out, summary = {}, {}, {"card": card_line()}
+    for impl in ("topk", "shift", "lazy"):
+        model.generate_beam(batch, cfg, weights, impl=impl)     # warm-up
+        (tokens, scores), got, wall = counted_run(
+            counted, lambda: model.generate_beam(batch, cfg, weights,
+                                                 impl=impl))
+        tokens, scores = tokens.cpu().numpy(), scores.cpu().numpy()
+        check_beams(tokens, scores, B, cfg, FLAGSHIP["vocab_size"])
+        n = decode_steps(tokens.reshape(-1, tokens.shape[-1]), cfg.eos_id,
+                         cfg.max_len)
+        per_step = dict(plan) if impl == "topk" else \
+            dict(plan, band_topk_lse=0)
+        check_launches(f"beam-5 B=16 impl={impl}", got, per_step, n)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.generate_beam(batch, cfg, weights, impl=impl)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")) / 1e3
+        check(busy > 0, "the profiler saw no device time")
+        out[impl] = tokens
+        launches[f"beam5_{impl}"] = got
+        summary[impl] = {"steps": n, "wall_ms": wall * 1e3,
+                         "launches_a_step": {k: v / n for k, v in
+                                             got.items()},
+                         "device_ms_a_step": busy / n}
+        print(f"  impl={impl}: {n} steps, {wall * 1e3:.1f} ms, launches a"
+              f" step {summary[impl]['launches_a_step']}, device"
+              f" {busy / n:.4f} ms a step (profiler)", flush=True)
+    check(np.array_equal(out["shift"], out["lazy"]),
+          "shift and lazy beams differ")
+    same = float((out["shift"] == out["topk"]).all(-1).mean())
+    first = float((out["shift"][:, 0] == out["topk"][:, 0]).all(-1).mean())
+    summary.update(shift_equals_lazy=True, beams_equal_to_topk=same,
+                   best_beams_equal_to_topk=first)
+    print(f"  shift == lazy bit for bit; beams equal to topk's: {same:.3f}"
+          f" (best beams {first:.3f})", flush=True)
+    del launches["beam5_topk"]
+    return launches, summary
+
+
+def phase22(torch, flash, counted, shard_paths):
+    """Phase 22: the profiler window, bf16 first moments, the step
+    loaders and the shift and lazy beam layouts (22.1 to 22.4). Returns
+    each path's launches and a summary."""
+    flash_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+                     "flash_attention_bwd": flash.flash_attention_bwd}
+    t = time.perf_counter()
+    launches, summary = {}, {}
+    launches["profile_train"], summary["profile_window"] = \
+        profile_window_phase(torch, flash_counted)
+    launches["moments_train"], summary["moments"] = moments_phase(
+        torch, flash_counted)
+    more, summary["loaders"] = loaders_phase(torch, flash_counted,
+                                             shard_paths)
+    launches.update(more)
+    more, summary["beam_layouts"] = beam_layouts_phase(torch, counted)
+    launches.update(more)
+    for path, counts in launches.items():
+        check(any(counts.values()), f"phase 22 {path}: no kernel launched")
+    summary["wall_s"] = time.perf_counter() - t
+    return launches, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5560,7 +5990,10 @@ def main() -> None:
     print("phase 18: preprocess -> nics_shards -> train -> evaluate"
           " (ResNet-152 and RoBERTa-large on the card, bf16; the flagship"
           " YAML on the shards)", flush=True)
-    data_launches, data_summary = data_phase(torch, flash_attention, counted)
+    # The shards stay for phase 22's loaders; removed at the end.
+    shard_dir = tempfile.mkdtemp()
+    data_launches, data_summary = data_phase(torch, flash_attention, counted,
+                                             shard_dir)
     for path, counts in data_launches.items():
         for name, n in counts.items():
             if n:
@@ -5611,6 +6044,23 @@ def main() -> None:
     print(json.dumps({"quantize": {
         **q_summary, "beam5_step_b16": q_beam, "chunk4_b16": q_chunk,
         "launches": q_launches}}), flush=True)
+
+    print("phase 22: the profiler window of the train command, bf16 first"
+          " moments, FixedStepsLoader over phase 18's shards and"
+          " TokenBucketBatcher, the shift and lazy beam layouts (flagship,"
+          " bf16)", flush=True)
+    try:
+        p22_launches, p22_summary = phase22(
+            torch, flash_attention, counted, data_summary["shards"][:2])
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    for path, counts in p22_launches.items():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name][path] = n
+    print(json.dumps({"phase22": {**p22_summary,
+                                  "launches": p22_launches}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

@@ -70,9 +70,14 @@ model with `use_flash_train` (the flash kernels take bf16); `evaluate`
 casts the checkpoint's params to bf16 and decodes through the four
 decode kernels. On the CPU `train` computes in the precision's dtype and
 `evaluate` in the config's (float32 unless set), through the kernels'
-plain versions. Quantized K/V and head tables, meshes and multi-process
-training are not ported yet: each raises NotImplementedError naming its
-ROADMAP Queue 1 item.
+plain versions. `evaluate` takes the int8 K/V route with
+`generation.quantize_kv` (decode_cross_attention_int8 on the card), as
+`serve --quantize-kv / --quantize-head` do. Meshes, multi-process
+training and the sharded checkpoint format are not ported yet: each
+raises NotImplementedError naming ROADMAP Queue 1 item 11. `train` reads
+`trainer.profile_steps` and `trainer.profile_start` (default 2): steps
+[profile_start, profile_start + profile_steps) are traced by
+`torch.profiler` into `<serialization_dir>/profile`.
 
 `preprocess IN.jsonl PREFIX [flags]` writes `PREFIX-{i:05d}.nics` shards
 (and their `.schema`) of the records' caption and article ids, copy
@@ -406,6 +411,7 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
         mixed_precision=precision,
         log_every=tcfg.get("log_every", 40),
         summary_interval=tcfg.get("summary_interval", 512),
+        profile_start=tcfg.get("profile_start", 2),
         profile_steps=tcfg.get("profile_steps", 0),
         seed=tcfg.get("seed", 0)))
 

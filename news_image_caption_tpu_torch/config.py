@@ -34,6 +34,19 @@ decoder options the port implements at one value only raise
 unknown model type raises KeyError. `build_optimizer` builds
 `bert_adam`, `noam` and `gen1_adam`, and leaves a model's
 `frozen_collections` out of them (`mask_frozen`).
+
+`model.type`, `decoder.type` and `dataset.type` resolve through the
+registries of `utils/registry.py` (`MODELS`, `DECODERS`, `DATASETS`),
+where the port's builders are registered under the reference's names.
+How a built-in type's model block becomes its builder's keywords stays
+here as data keyed by registered name (`CAPTIONERS`, `POINTERS`,
+`FAMILIES`, the pipeline and TGNC). A type a user registers takes the
+port's keywords `device`, `dtype` and `generator`, and its model block's
+keys; with a `decoder:` block, the decoder registered under that block's
+`type` (default `dynamic_conv_decoder_flattened`) is built from its keys
+with the same `device`, `dtype` and `generator` and handed over as
+`decoder=`, as the reference's `build_model` hands it. A dataset type a
+user registers takes the block's keys.
 """
 
 from __future__ import annotations
@@ -44,26 +57,28 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from news_image_caption_tpu_torch.data.dataset import (NicsShardDataset,
-                                                      SyntheticNewsDataset)
+# Imported for their registrations too.
+import news_image_caption_tpu_torch.data.dataset  # noqa: F401
+import news_image_caption_tpu_torch.data.readers  # noqa: F401
 from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
 from news_image_caption_tpu_torch.models.decoder_flattened import \
     DynamicConvDecoder
 from news_image_caption_tpu_torch.models.decoder_lstm import \
     LSTMFlattenedModel
-from news_image_caption_tpu_torch.models.gen1 import Gen1Model, gen1_factory
-from news_image_caption_tpu_torch.models.gen2 import (Gen2Captioner,
-                                                      gen2_transformer)
+from news_image_caption_tpu_torch.models.gen1 import Gen1Model
+from news_image_caption_tpu_torch.models.gen2 import Gen2Captioner
 from news_image_caption_tpu_torch.models.pipeline import Gen3Pipeline
 from news_image_caption_tpu_torch.models.pointer import TransformerPointer
-from news_image_caption_tpu_torch.models.tgnc import (
-    TGNC, transformer_entity, transformer_entity_pointer)
+from news_image_caption_tpu_torch.models.tgnc import (TGNC,
+                                                      TemplateGuidedDecoder)
 from news_image_caption_tpu_torch.models.variants import (POINTER_VARIANTS,
                                                           VARIANTS)
 from news_image_caption_tpu_torch.training.optim import (NoamAdam, gen1_adam,
                                                         make_bert_adam,
                                                         mask_frozen)
+from news_image_caption_tpu_torch.utils.registry import (DATASETS, DECODERS,
+                                                         MODELS)
 from news_image_caption_tpu_torch.yaml_subset import safe_load
 
 FLAGSHIP = dict(
@@ -116,35 +131,30 @@ _FIXED = dict(conv_type="dynamic", decoder_glu=True, weight_softmax=True,
               remat=False, param_dtype=torch.float32)
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
-# Builders by model type: the captioners take the decoder's arguments,
-# the pointer family the model block's.
-CAPTIONERS = {"transformer_flattened": TransformerFlattened, **VARIANTS,
-              "transformer_entity": transformer_entity}
-POINTERS = {**POINTER_VARIANTS,
-            "transformer_entity_pointer": transformer_entity_pointer}
+# How the built-in model types' blocks become their builders' keywords,
+# by registered name: the captioners take the decoder's arguments, the
+# pointer family the model block's.
+CAPTIONERS = ("transformer_flattened", *VARIANTS, "transformer_entity")
+POINTERS = (*POINTER_VARIANTS, "transformer_entity_pointer")
 # The pointer family's own keys of the model block.
 _POINTER_OWN_KEYS = ("loss_weights", "use_entity_head", "max_entities",
                  "face_dim", "obj_dim", "entity_dim")
-# The LSTM and Gen-2 families: their builders and the keys of their
-# model blocks (the reference's dataclass fields).
-FAMILIES = {"lstm_flattened": LSTMFlattenedModel,
-            "baseline_glove": LSTMFlattenedModel,
-            "gen2_transformer": gen2_transformer,
-            "gen1": gen1_factory}
-_FAMILY_KEYS = {
-    LSTMFlattenedModel: ("vocab_size", "embed_dim", "hidden_size",
-                         "num_layers", "cutoff", "tie_adaptive_proj",
-                         "image_dim", "article_dim", "dropout_rate",
-                         "padding_idx", "target_padding_idx",
-                         "max_positions"),
-    gen2_transformer: ("smoothing", "vocab_size", "d_model", "d_ff",
-                       "num_heads", "num_layers", "img_dim", "sent_dim",
-                       "dropout_rate", "max_len", "pad_id", "remat"),
-    gen1_factory: ("model_type", "vocab_size", "input_encoding_size",
-                   "rnn_size", "num_layers", "att_hid_size", "fc_feat_size",
-                   "att_feat_size", "drop_prob", "seq_length",
-                   "sentence_embed_method", "sentence_embed_size",
-                   "sentence_length"),
+# The LSTM, Gen-2 and Gen-1 families: the keys of their model blocks
+# (the reference's dataclass fields).
+_LSTM_KEYS = ("vocab_size", "embed_dim", "hidden_size", "num_layers",
+              "cutoff", "tie_adaptive_proj", "image_dim", "article_dim",
+              "dropout_rate", "padding_idx", "target_padding_idx",
+              "max_positions")
+FAMILIES = {
+    "lstm_flattened": _LSTM_KEYS,
+    "baseline_glove": _LSTM_KEYS,
+    "gen2_transformer": ("smoothing", "vocab_size", "d_model", "d_ff",
+                         "num_heads", "num_layers", "img_dim", "sent_dim",
+                         "dropout_rate", "max_len", "pad_id", "remat"),
+    "gen1": ("model_type", "vocab_size", "input_encoding_size", "rnn_size",
+             "num_layers", "att_hid_size", "fc_feat_size", "att_feat_size",
+             "drop_prob", "seq_length", "sentence_embed_method",
+             "sentence_embed_size", "sentence_length"),
 }
 # TGNC's own keys of the model block, and its template-guided decoder's
 # (the reference's `TemplateGuidedDecoder` fields).
@@ -204,7 +214,9 @@ def decoder_kwargs(cfg: Dict) -> Dict:
     `obj_dim`, `entity_dim`); for the pointer family, the model block's
     keys, its `decoder:` or `decoder_kwargs:` block as decoder arguments;
     for the LSTM and Gen-2 families, their model block's keys (no
-    `dtype`). `dtype` is the config's (float32 by default)."""
+    `dtype`); for a type a user registered, the model block's keys, its
+    `decoder:` block as a dict. `dtype` is the config's (float32 by
+    default)."""
     mcfg = copy.deepcopy(cfg["model"])
     mtype = mcfg.pop("type")
     if mtype in POINTERS:
@@ -225,7 +237,8 @@ def decoder_kwargs(cfg: Dict) -> Dict:
     if mtype == "tgnc":
         return _tgnc_args(mcfg)
     if mtype not in CAPTIONERS:
-        raise KeyError(f"unknown model type {mtype!r}")
+        MODELS.get(mtype)       # KeyError naming the registered types
+        return _registered_args(mcfg)
     dcfg = mcfg.pop("decoder", None)
     if dcfg is None:
         dcfg, mcfg = mcfg, {}
@@ -239,8 +252,9 @@ def _decoder_args(dcfg: Dict) -> Dict:
     port fixes checked, the dtype and lists converted."""
     dcfg = dict(dcfg)
     dtype_ = dcfg.pop("type", "dynamic_conv_decoder_flattened")
-    if dtype_ != "dynamic_conv_decoder_flattened":
-        raise KeyError(f"unknown decoder type {dtype_!r}")
+    if DECODERS.get(dtype_) is not DynamicConvDecoder:
+        raise KeyError(f"decoder type {dtype_!r} is not a "
+                       "dynamic_conv_decoder_flattened")
     for key, want in _FIXED.items():
         if key in dcfg:
             got = dcfg.pop(key)
@@ -254,8 +268,7 @@ def _decoder_args(dcfg: Dict) -> Dict:
     if "extra_contexts" in dcfg:        # [[name, dim], ...] in YAML
         dcfg["extra_contexts"] = tuple(
             (name, dim) for name, dim in dcfg["extra_contexts"])
-    return {k: tuple(v) if isinstance(v, list) else v
-            for k, v in dcfg.items()}
+    return _tuples(dcfg)
 
 
 def _family_args(mtype: str, mcfg: Dict) -> Dict:
@@ -263,21 +276,19 @@ def _family_args(mtype: str, mcfg: Dict) -> Dict:
     key raises TypeError. An LSTM's `decoder:` block (type
     `lstm_decoder_flattened`) is the decoder's keys, and the model
     block's other keys are dropped, as the reference drops them."""
-    builder = FAMILIES[mtype]
     dcfg = mcfg.pop("decoder", None)
-    if dcfg is not None and builder is LSTMFlattenedModel:
+    if dcfg is not None and FAMILIES[mtype] is _LSTM_KEYS:
         dtype_ = dcfg.pop("type", "lstm_decoder_flattened")
-        if dtype_ != "lstm_decoder_flattened":
+        if DECODERS.get(dtype_) is not LSTMFlattenedModel:
             raise TypeError(f"{mtype}: decoder type {dtype_!r} is not "
                             "lstm_decoder_flattened")
         mcfg = dcfg
     elif dcfg is not None:
         raise TypeError(f"{mtype}: unknown keys ['decoder']")
-    unknown = sorted(set(mcfg) - set(_FAMILY_KEYS[builder]))
+    unknown = sorted(set(mcfg) - set(FAMILIES[mtype]))
     if unknown:
         raise TypeError(f"{mtype}: unknown keys {unknown}")
-    return {k: tuple(v) if isinstance(v, list) else v
-            for k, v in mcfg.items()}
+    return _tuples(mcfg)
 
 
 def _pipeline_args(mcfg: Dict) -> Dict:
@@ -313,18 +324,51 @@ def _tgnc_args(mcfg: Dict) -> Dict:
     dtype = config_dtype(mcfg.pop("dtype", "float32"))
     if kw.get("use_template_decoder", False):
         dtype_ = mcfg.pop("type", "decoder_tgnc")
-        if dtype_ != "decoder_tgnc":
+        if DECODERS.get(dtype_) is not TemplateGuidedDecoder:
             raise TypeError(f"tgnc: decoder type {dtype_!r} with "
                             "use_template_decoder is not decoder_tgnc")
         unknown = sorted(set(mcfg) - set(_TGNC_DECODER_KEYS))
         if unknown:
             raise TypeError(f"decoder_tgnc: unknown keys {unknown}")
-        dec = {k: tuple(v) if isinstance(v, list) else v
-               for k, v in mcfg.items()}
+        dec = _tuples(mcfg)
     else:
         dec = _decoder_args(mcfg)
         dec.pop("dtype")
     return {**kw, **dec, "dtype": dtype}
+
+
+def _tuples(block: Dict) -> Dict:
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in block.items()}
+
+
+def _registered_args(mcfg: Dict) -> Dict:
+    """A user-registered model type's block: its keys (lists as
+    tuples), a `decoder:` block kept as a dict for `build_model`. The
+    model's one dtype is the block's, else its decoder block's (float32
+    by default), as a pointer's is."""
+    dcfg = mcfg.pop("decoder", None)
+    kw = _tuples(mcfg)
+    dtype = kw.pop("dtype", None)
+    if dcfg is not None:
+        kw["decoder"] = dict(dcfg)
+        nested = kw["decoder"].pop("dtype", None)
+        dtype = nested if dtype is None else dtype
+    kw["dtype"] = config_dtype(dtype or "float32")
+    return kw
+
+
+def _registered_decoder(dcfg: Dict, device, dtype: torch.dtype,
+                        generator: Optional[torch.Generator]):
+    """The decoder a user-registered model type's `decoder:` block
+    names (`dynamic_conv_decoder_flattened` by default), from its keys,
+    in the model's dtype."""
+    dtype_ = dcfg.pop("type", "dynamic_conv_decoder_flattened")
+    builder = DECODERS.get(dtype_)
+    kw = (_decoder_args(dcfg) if builder is DynamicConvDecoder
+          else _tuples(dcfg))
+    kw["dtype"] = dtype
+    return builder(device=device, generator=generator, **kw)
 
 
 def _pointer_args(mcfg: Dict) -> Dict:
@@ -353,50 +397,44 @@ def build_model(cfg: Dict, device, dtype: Optional[torch.dtype] = None,
     """The `model:` block's model on `device`, its parameters and
     compute in `dtype` (default: the config's `dtype`, float32 unless
     set; the LSTM and Gen-2 blocks have no dtype key), drawn from
-    `generator`. An unknown decoder key raises TypeError, as the
-    reference's dataclass does."""
+    `generator`. `model.type` resolves through `MODELS`; a registered
+    builder is called with `device`, `dtype` and `generator` beside its
+    keys. An unknown decoder key raises TypeError, as the reference's
+    dataclass does."""
     mtype = cfg["model"]["type"]
     kw = decoder_kwargs(cfg)
     device = torch.device(device)
+    builder = MODELS.get(mtype)
     if mtype in FAMILIES:
-        return FAMILIES[mtype](device=device, generator=generator,
-                               dtype=dtype or torch.float32, **kw)
+        return builder(device=device, generator=generator,
+                       dtype=dtype or torch.float32, **kw)
     if dtype is not None:
         kw["dtype"] = dtype
     if "decoder" in kw:                 # a pointer handed its decoder
-        kw["decoder"] = DynamicConvDecoder(device=device, dtype=kw["dtype"],
-                                           generator=generator,
-                                           **kw["decoder"])
-    if mtype == "gen3_pipeline":
-        return Gen3Pipeline(device=device, generator=generator, **kw)
-    if mtype == "tgnc":
-        return TGNC(device=device, generator=generator, **kw)
-    builder = POINTERS.get(mtype) or CAPTIONERS[mtype]
+        if mtype in POINTERS:
+            kw["decoder"] = DynamicConvDecoder(
+                device=device, dtype=kw["dtype"], generator=generator,
+                **kw["decoder"])
+        else:
+            kw["decoder"] = _registered_decoder(kw["decoder"], device,
+                                                kw["dtype"], generator)
     return builder(device=device, generator=generator, **kw)
 
 
 def build_dataset(cfg: Dict, split: str = "train"):
     """The `dataset:` block's `split`: its keys, with the split's own
-    block merged over them, for its type: `synthetic_news`
-    (`SyntheticNewsDataset`), `nics_shards` (`NicsShardDataset`, shards
-    that `preprocess` writes) or `jsonl_news` (`data/readers.py::
-    jsonl_news_dataset`: the list of the jsonl's model-ready instances,
-    as the reference returns it)."""
+    block merged over them, for its type, resolved through `DATASETS`:
+    `synthetic_news` (`SyntheticNewsDataset`), `nics_shards`
+    (`NicsShardDataset`, shards that `preprocess` writes) or `jsonl_news`
+    (`data/readers.py::jsonl_news_dataset`: the list of the jsonl's
+    model-ready instances, as the reference returns it)."""
     dcfg = copy.deepcopy(cfg.get("dataset", {"type": "synthetic_news"}))
     dtype_ = dcfg.pop("type")
     split_cfg = dcfg.pop(split, {})
     for other in ("train", "val", "test"):
         dcfg.pop(other, None)
     dcfg.update(split_cfg)
-    if dtype_ == "nics_shards":
-        return NicsShardDataset(**dcfg)
-    if dtype_ == "jsonl_news":
-        from news_image_caption_tpu_torch.data.readers import \
-            jsonl_news_dataset
-        return jsonl_news_dataset(**dcfg)
-    if dtype_ != "synthetic_news":
-        raise KeyError(f"unknown dataset type {dtype_!r}")
-    return SyntheticNewsDataset(**dcfg)
+    return DATASETS.build(dtype_, **dcfg)
 
 
 def build_optimizer(cfg: Dict, model=None):

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+from news_image_caption_tpu_torch.utils.registry import DATASETS
 
 
 @dataclass
@@ -61,6 +62,7 @@ def _example_stream(seed: int, stream: int, idx: int):
     return np.random.default_rng((seed, stream, idx))
 
 
+@DATASETS.register("synthetic_news")
 class SyntheticNewsDataset:
     """Random but deterministic caption/article/feature data.
 
@@ -251,6 +253,7 @@ class SyntheticNewsDataset:
 
 
 
+@DATASETS.register("nics_shards")
 class NicsShardDataset:
     """Dataset over materialized NICS shards, read by the C++ prefetch
     reader (data/native_loader.py, SoA zero-copy delivery).

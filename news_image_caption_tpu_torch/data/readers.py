@@ -39,6 +39,7 @@ from news_image_caption_tpu_torch.data.indexer import RobertaCopyIndexer
 from news_image_caption_tpu_torch.data.preprocess import (clean_sentence,
                                                           entity_spans,
                                                           truncate_words)
+from news_image_caption_tpu_torch.utils.registry import DATASETS
 
 
 @dataclass
@@ -419,6 +420,7 @@ class H5DataLoader:
 _BPE_MEMO: Dict = {}
 
 
+@DATASETS.register("jsonl_news")
 def jsonl_news_dataset(path: str, **builder_kwargs):
     """Registry hook: reader + builder over a materialized jsonl.
 

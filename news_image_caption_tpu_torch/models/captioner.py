@@ -6,7 +6,8 @@ faces, objects, GloVe and no-image variants of `models/variants.py`)
 for training (`shift_caption`, `loss_fn`), greedy and top-k sampled
 decoding (`_contexts`, `_check_max_len`, `generate`; `generate_full`
 through the full-vocab step), exact speculative greedy
-(`generate_speculative`), beam search (`generate_beam`, impl="topk") and
+(`generate_speculative`), beam search (`generate_beam`, impl="topk",
+and the reference's two other cache layouts, "shift" and "lazy") and
 the attention maps of given captions (`attention_maps`). The decoder's
 weights live in the module; the generate methods take the fused decode
 weights of `DynamicConvDecoder.decode_weights()` so a server computes
@@ -27,12 +28,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from news_image_caption_tpu_torch.generation.generator import (
-    GenerationConfig, Generators, beam_search_candidates, generate,
-    generate_candidates, index_reorder)
+    GenerationConfig, Generators, beam_search, beam_search_candidates,
+    generate, generate_candidates, index_reorder)
 from news_image_caption_tpu_torch.generation.speculative import (
     commit_conv_caches, ngram_drafts, speculative_greedy)
 from news_image_caption_tpu_torch.models.decoder_flattened import (
     DecodeWeights, DynamicConvDecoder)
+from news_image_caption_tpu_torch.utils.registry import MODELS
 
 LN2 = math.log(2.0)
 # Contexts beyond image and article that a batch may carry.
@@ -46,6 +48,7 @@ def shift_caption(caption_ids: torch.Tensor
     return caption_ids[:, :-1], caption_ids[:, 1:]
 
 
+@MODELS.register("transformer_flattened")
 class TransformerFlattened:
     """Greedy and beam captioner around a `DynamicConvDecoder`."""
 
@@ -103,12 +106,13 @@ class TransformerFlattened:
     def _decode_setup(self, batch: Dict[str, torch.Tensor],
                       config: GenerationConfig,
                       weights: Optional[DecodeWeights], beam: int,
-                      quantize: bool = False):
+                      quantize: bool = False, ring_major: bool = True):
         """(kvs, caches, seed, weights): the context K/V projected once
-        for the untiled batch B, zero ring-major caches for B * beam rows
-        and the bos seed [B]. quantize: the generate methods' own
-        decode, which takes the config's int8 routes (the K/V int8 with
-        quantize_kv; `head_tables` for quantize_head)."""
+        for the untiled batch B, zero caches for B * beam rows
+        (ring-major, else the shift layout) and the bos seed [B].
+        quantize: the generate methods' own decode, which takes the
+        config's int8 routes (the K/V int8 with quantize_kv;
+        `head_tables` for quantize_head)."""
         contexts = self._contexts(batch)
         B = contexts["article"].shape[0]         # every variant attends it
         device = contexts["article"].device
@@ -117,7 +121,7 @@ class TransformerFlattened:
             weights = self.decoder.decode_weights()
         kvs = self.decoder.precompute_kv(contexts,
                                          quantize and config.quantize_kv)
-        caches = self.decoder.init_cache(B * beam, device)
+        caches = self.decoder.init_cache(B * beam, device, ring_major)
         seed = torch.full((B,), config.bos_id, dtype=torch.long,
                           device=device)
         return kvs, caches, seed, weights
@@ -231,15 +235,42 @@ class TransformerFlattened:
         adaptive-softmax bands, the combine is K*K wide, and the context
         K/V of the untiled batch are shared by an item's beams
         (`attend_flat_beam`). The ring-major caches [K-1, B*beam, C]
-        follow the beams' ancestry by `index_select` on dim 1."""
-        if impl in ("shift", "lazy"):
-            raise NotImplementedError(
-                f"beam impl {impl!r} is not ported yet (ROADMAP Queue 1)")
-        if impl != "topk":
+        follow the beams' ancestry by `index_select` on dim 1.
+
+        impl="shift" and impl="lazy", the reference's ablations, run the
+        full-vocab head (`AdaptiveSoftmax.log_prob`) through
+        `beam_search`, over the same layer kernels: "shift" over
+        shifted-copy caches [B*beam, K-1, C] whose rows follow the
+        ancestry by a gather on dim 0 (`DynamicConvDecoder.step_shift`);
+        "lazy" over ring-major caches that stay where they are, the
+        ancestry composed into each layer's slot map, m[:, flat_src]
+        (`step_beam_lazy`). Neither takes the int8 routes."""
+        if impl not in ("topk", "shift", "lazy"):
             raise ValueError(f"unknown beam impl: {impl!r}")
         K = config.beam_size
-        kvs, caches, seed, weights = self._decode_setup(batch, config,
-                                                        weights, K, True)
+        kvs, caches, seed, weights = self._decode_setup(
+            batch, config, weights, K, impl == "topk", impl != "shift")
+        if impl == "shift":
+            def step(tok, i):
+                return self.decoder.step_shift(tok, i, kvs, caches, weights,
+                                               beam=K)
+
+            def reorder(flat_src):
+                caches[:] = [c.index_select(0, flat_src) for c in caches]
+
+            return beam_search(step, seed, config, reorder)
+        if impl == "lazy":
+            maps = self.decoder.init_slot_maps(seed.shape[0] * K,
+                                               seed.device)
+
+            def step(tok, i):
+                return self.decoder.step_beam_lazy(tok, i, kvs, caches, maps,
+                                                   weights, beam=K)
+
+            def reorder(flat_src):
+                maps[:] = [m[:, flat_src] for m in maps]
+
+            return beam_search(step, seed, config, reorder)
         tables = self.head_tables(config, weights)
 
         def step(tok, i):

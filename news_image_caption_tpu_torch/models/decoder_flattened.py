@@ -9,8 +9,10 @@ objects (`models/variants.py`): `SumEmbedder`,
 dropouts, and the ring-major decode step) and `DynamicConvDecoder`
 (`precompute_kv`, `hidden`, `loss`, `log_prob`, `attention_maps`,
 `init_cache`, `step_topk` at one position or a position a row, the
-speculative chunk `step_chunk`, and the full-vocab `step` and
-`step_with_hidden`; `loss_from_hidden`, `step_topk_with_hidden` and
+speculative chunk `step_chunk`, the full-vocab `step` and
+`step_with_hidden`, and the full-vocab beam steps of the reference's two
+other cache layouts, `step_shift` and `step_beam_lazy` with
+`init_slot_maps`; `loss_from_hidden`, `step_topk_with_hidden` and
 `step_chunk_with_hidden`, the hidden states' ways in for the pointer
 family of `models/pointer.py`).
 
@@ -38,6 +40,19 @@ rather than once per step. Each wrapper takes its plain PyTorch version
 on CPU tensors; on the card it launches its kernel or raises, so a model
 the kernels do not admit (fp32, narrow widths, a pointwise conv layer:
 `admits*` of the ops modules say why) decodes on the CPU only.
+
+The conv block's kernel reads the ring-major layout [K-1, N, C] only,
+tap k of a row at position p from slot (p + k) mod (K-1). The shift
+layout [N, K-1, C] (oldest first) is copied into a contiguous
+ring-major tensor and launched with every row at position 0, so tap k
+reads the k-th oldest input; its new cache is the old one shifted by one
+with the GLU row appended. The lazy layout keeps a ring-major cache
+where it is across beam reorders, with a slot map [K-1, N] a layer
+(the physical row of each logical row's input in each slot): each
+slot's rows are gathered through the map into a contiguous ring-major
+tensor, launched at the step's position, the GLU row written into slot
+t mod (K-1) in logical order and that slot's map row reset to the
+identity. Both copy the cache once a layer and step.
 
 The opt-in int8 routes (the reference's `quantize_kv` and
 `quantize_head`): `precompute_kv(contexts, quantize=True)` quantizes
@@ -69,6 +84,7 @@ from news_image_caption_tpu_torch.ops.linear import (GehringLinear, LayerNorm,
                                                      positionwise)
 from news_image_caption_tpu_torch.ops.positional import \
     SinusoidalPositionalEmbedding
+from news_image_caption_tpu_torch.utils.registry import DECODERS
 
 LayerKV = Dict[str, AttentionKV]
 
@@ -247,6 +263,31 @@ class DynamicConvDecoderLayer(nn.Module):
         self._write_ring(cache, t, h)
         return self._after_conv(y, kv, w, beam)
 
+    def step_shift(self, x_t: torch.Tensor, kv: LayerKV,
+                   cache: torch.Tensor, w: LayerDecodeWeights,
+                   beam: int = 1):
+        """One decode step over a shifted-copy cache [N, K-1, C], the
+        inputs oldest first: (x [N, D], the new cache)."""
+        ring = cache.transpose(0, 1).contiguous()
+        y, h = self._conv_step(x_t, ring, 0, w)
+        new_cache = torch.cat([cache, h[:, None]], dim=1)[:, 1:]
+        return self._after_conv(y, kv, w, beam), new_cache
+
+    def step_lazy_beam(self, x_t: torch.Tensor, kv: LayerKV,
+                       cache: torch.Tensor, slot_map: torch.Tensor, t: int,
+                       w: LayerDecodeWeights, beam: int) -> torch.Tensor:
+        """One decode step over a physically stationary ring-major cache
+        [K-1, N, C] read through slot_map [K-1, N]. The cache and the map
+        advance in place."""
+        Km1 = self.kernel_size - 1
+        slots = torch.arange(Km1, device=cache.device)[:, None]
+        y, h = self._conv_step(x_t, cache[slots, slot_map], t, w)
+        if Km1:
+            cache[t % Km1] = h
+            slot_map[t % Km1] = torch.arange(h.shape[0],
+                                             device=slot_map.device)
+        return self._after_conv(y, kv, w, beam)
+
     def _write_ring(self, cache: torch.Tensor, t, h: torch.Tensor) -> None:
         """Each row's GLU row h into its slot t mod (K-1), in place: t an
         int for every row, or an [N] tensor of positions."""
@@ -315,6 +356,7 @@ def _positions(pos: torch.Tensor) -> torch.Tensor:
     return pos.to(torch.int32).contiguous()
 
 
+@DECODERS.register("dynamic_conv_decoder_flattened")
 class DynamicConvDecoder(nn.Module):
     """Decoder stack + tied adaptive softmax.
 
@@ -443,12 +485,23 @@ class DynamicConvDecoder(nn.Module):
             maps.append(attns)
         return maps
 
-    def init_cache(self, batch_size: int, device) -> List[torch.Tensor]:
-        """Zero ring-major conv histories [K-1, B, C], one per layer
-        (empty for a pointwise layer)."""
-        return [torch.zeros(layer.kernel_size - 1, batch_size,
+    def init_cache(self, batch_size: int, device,
+                   ring_major: bool = True) -> List[torch.Tensor]:
+        """Zero conv histories, one per layer (empty for a pointwise
+        layer): ring-major [K-1, B, C], or with ring_major=False the
+        shift layout [B, K-1, C]."""
+        return [torch.zeros(*((layer.kernel_size - 1, batch_size)
+                              if ring_major else
+                              (batch_size, layer.kernel_size - 1)),
                             self.embed_dim, device=device, dtype=self.dtype)
                 for layer in self.all_layers()]
+
+    def init_slot_maps(self, batch_size: int, device) -> List[torch.Tensor]:
+        """Identity slot -> physical row maps [K-1, B] of the lazy
+        layout, one per layer."""
+        return [torch.arange(batch_size, device=device).repeat(
+                    layer.kernel_size - 1, 1)
+                for layer in self.layers]
 
     def decode_weights(self, quantize_head: bool = False) -> DecodeWeights:
         """The step's fused weights; compute once per model load. With
@@ -591,3 +644,30 @@ class DynamicConvDecoder(nn.Module):
         [B*beam, V]."""
         return self.step_with_hidden(token_t, step_idx, kvs, caches,
                                      weights, beam, tables)[0]
+
+    def step_shift(self, token_t: torch.Tensor, step_idx: int,
+                   kvs: List[LayerKV], caches: List[torch.Tensor],
+                   weights: DecodeWeights, beam: int = 1) -> torch.Tensor:
+        """`step` over shifted-copy caches [B*beam, K-1, C]
+        (`init_cache(..., ring_major=False)`): log_probs [B*beam, V];
+        each layer's entry of `caches` is replaced by its new cache."""
+        x = self.embedder(token_t[:, None], start_pos=step_idx)[:, 0, :]
+        for i, (layer, kv, w) in enumerate(zip(self.layers, kvs,
+                                                weights.layers)):
+            x, caches[i] = layer.step_shift(x, kv, caches[i], w, beam)
+        return self.adaptive_softmax.log_prob(x,
+                                              self.embedder.embed_tables())
+
+    def step_beam_lazy(self, token_t: torch.Tensor, step_idx: int,
+                       kvs: List[LayerKV], caches: List[torch.Tensor],
+                       slot_maps: List[torch.Tensor],
+                       weights: DecodeWeights, beam: int) -> torch.Tensor:
+        """`step` over ring-major caches that stay where they are across
+        beam reorders, read through `slot_maps` (`init_slot_maps`):
+        log_probs [B*beam, V]; the caches and maps advance in place."""
+        x = self.embedder(token_t[:, None], start_pos=step_idx)[:, 0, :]
+        for layer, kv, cache, smap, w in zip(self.layers, kvs, caches,
+                                             slot_maps, weights.layers):
+            x = layer.step_lazy_beam(x, kv, cache, smap, step_idx, w, beam)
+        return self.adaptive_softmax.log_prob(x,
+                                              self.embedder.embed_tables())

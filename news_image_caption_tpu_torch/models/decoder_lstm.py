@@ -45,6 +45,7 @@ from news_image_caption_tpu_torch.ops.adaptive import AdaptiveSoftmax
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      initializes, new_param)
+from news_image_caption_tpu_torch.utils.registry import DECODERS, MODELS
 
 LN2 = math.log(2.0)
 NEG = -1e9
@@ -107,6 +108,9 @@ class LSTMWeights(NamedTuple):
     head_table: torch.Tensor
 
 
+@DECODERS.register("lstm_decoder_flattened")
+@MODELS.register("baseline_glove")
+@MODELS.register("lstm_flattened")
 class LSTMFlattenedModel(nn.Module):
     """Embedder, stacked input-feeding cells, the two context attentions
     and the tied adaptive softmax; `loss_fn` and `generate`.

@@ -61,6 +61,7 @@ from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (Dense, initializes,
                                                      new_param)
+from news_image_caption_tpu_torch.utils.registry import MODELS
 
 Feats = Dict[str, torch.Tensor]
 # Model types whose features are embedded to rnn_size first.
@@ -701,6 +702,7 @@ def masked_nll_loss(log_probs: torch.Tensor, targets: torch.Tensor,
     return total / torch.clamp(m.sum(), min=1.0), m.sum()
 
 
+@MODELS.register("gen1")
 def gen1_factory(*, device, dtype=torch.float32, generator=None,
                  **kw) -> "Gen1Model":
     """The config's model block -> a Gen-1 model."""

@@ -66,6 +66,7 @@ from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      positionwise)
 from news_image_caption_tpu_torch.ops.positional import \
     interleaved_sinusoidal_table
+from news_image_caption_tpu_torch.utils.registry import MODELS
 
 NEG = -1e9
 HEAD_PAD = 64       # the bias column and zeros: D % 64 == 0 for the kernel
@@ -495,6 +496,7 @@ def label_smoothing_loss_from_logits(logits: torch.Tensor,
     return torch.where(mask, loss_tok, 0.0).sum(), mask.sum()
 
 
+@MODELS.register("gen2_transformer")
 def gen2_transformer(smoothing: float = 0.0, **kw) -> "Gen2Captioner":
     """The config's model block -> a trainable Gen-2 captioner."""
     return Gen2Captioner(Gen2Transformer(**kw), smoothing=smoothing)

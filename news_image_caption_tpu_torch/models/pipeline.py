@@ -40,8 +40,10 @@ from news_image_caption_tpu_torch.models.resnet import (ResNetTrunk,
                                                         preprocess_image)
 from news_image_caption_tpu_torch.models.roberta import (RobertaEncoder,
                                                          WeightedSumFeatures)
+from news_image_caption_tpu_torch.utils.registry import MODELS
 
 
+@MODELS.register("gen3_pipeline")
 class Gen3Pipeline(nn.Module):
     """ResNet + RoBERTa encoders feeding the flagship captioner.
 

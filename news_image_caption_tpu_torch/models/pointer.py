@@ -59,6 +59,7 @@ from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      LayerNorm, initializes,
                                                      new_param, positionwise)
+from news_image_caption_tpu_torch.utils.registry import MODELS
 
 NEG = -1e9
 
@@ -249,6 +250,7 @@ def copy_distribution(copy_attn: torch.Tensor, context_ids: torch.Tensor,
     return dist.scatter_(1, ids, mass)
 
 
+@MODELS.register("transformer_pointer")
 class TransformerPointer(nn.Module):
     """Flagship captioner + entity gate + copy head.
 

@@ -61,6 +61,7 @@ from news_image_caption_tpu_torch.models.decoder_flattened import (
 from news_image_caption_tpu_torch.models.pointer import TransformerPointer
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import Dense
+from news_image_caption_tpu_torch.utils.registry import DECODERS, MODELS
 
 
 class ClassificationHead(nn.Module):
@@ -87,6 +88,7 @@ class ClassificationHead(nn.Module):
         return self.out_proj(dropout(x, self.dropout, generator))
 
 
+@DECODERS.register("decoder_tgnc")
 class TemplateGuidedDecoder(DynamicConvDecoder):
     """The flagship's decoder (`layers_{i}`, the trunk) with a head layer
     a template over the trunk's output (`head_{i}`), mixed by
@@ -144,7 +146,8 @@ class TemplateGuidedDecoder(DynamicConvDecoder):
             "step_topk or step_chunk, teacher force with hidden")
 
     step = step_with_hidden = step_topk_with_hidden = \
-        step_chunk_with_hidden = attention_maps = _trunk_only
+        step_chunk_with_hidden = step_shift = step_beam_lazy = \
+        attention_maps = _trunk_only
 
     def _mix(self, head_outs: List[torch.Tensor],
              template_logits: torch.Tensor) -> torch.Tensor:
@@ -245,6 +248,7 @@ class TGNCModule(nn.Module):
             self.captioner = captioner
 
 
+@MODELS.register("tgnc")
 class TGNC:
     """Caption decoder + template classifier."""
 
@@ -417,11 +421,13 @@ class TGNC:
                                   draft_fn)
 
 
+@MODELS.register("transformer_entity")
 def transformer_entity(entity_dim: int = 1024, **kw) -> TransformerFlattened:
     extra = tuple(kw.pop("extra_contexts", ())) + (("entity", entity_dim),)
     return TransformerFlattened(extra_contexts=extra, **kw)
 
 
+@MODELS.register("transformer_entity_pointer")
 def transformer_entity_pointer(entity_dim: int = 1024,
                                decoder_kwargs: Optional[Dict] = None, *,
                                device, dtype, generator=None,

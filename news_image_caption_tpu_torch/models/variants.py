@@ -39,6 +39,7 @@ import torch
 from news_image_caption_tpu_torch.models.captioner import \
     TransformerFlattened
 from news_image_caption_tpu_torch.models.pointer import TransformerPointer
+from news_image_caption_tpu_torch.utils.registry import MODELS
 
 FACE_DIM = 512
 OBJ_DIM = 2048
@@ -58,22 +59,26 @@ def _captioner(extra: Tuple[Tuple[str, int], ...] = (),
     return TransformerFlattened(**kw)
 
 
+@MODELS.register("transformer_faces")
 def transformer_faces(**kw) -> TransformerFlattened:
     face_dim = kw.pop("face_dim", FACE_DIM)
     return _captioner((("faces", face_dim),), **kw)
 
 
+@MODELS.register("transformer_faces_objects")
 def transformer_faces_objects(**kw) -> TransformerFlattened:
     face_dim = kw.pop("face_dim", FACE_DIM)
     obj_dim = kw.pop("obj_dim", OBJ_DIM)
     return _captioner((("faces", face_dim), ("obj", obj_dim)), **kw)
 
 
+@MODELS.register("transformer_glove")
 def transformer_glove(**kw) -> TransformerFlattened:
     kw.setdefault("article_dim", GLOVE_DIM)
     return _captioner(**kw)
 
 
+@MODELS.register("transformer_no_image")
 def transformer_no_image(**kw) -> TransformerFlattened:
     kw.setdefault("include_image", False)
     return _captioner(**kw)
@@ -87,16 +92,19 @@ VARIANTS = {
 }
 
 
+@MODELS.register("transformer_only_pointer")
 def transformer_only_pointer(**kw) -> TransformerPointer:
     kw.setdefault("use_entity_head", False)
     return TransformerPointer(**kw)
 
 
+@MODELS.register("transformer_pointer_2")
 def transformer_pointer_2(**kw) -> TransformerPointer:
     kw.setdefault("loss_weights", (1.0, 1.0, 1.0))
     return TransformerPointer(**kw)
 
 
+@MODELS.register("transformer_context_pointer")
 def transformer_context_pointer(**kw) -> TransformerPointer:
     """Copies from the full context: callers pass context_proper_masks =
     (article_ids != pad), so every article token is copyable."""
@@ -124,6 +132,7 @@ def _split_pointer_kwargs(kw):
     return kw, dec_kw
 
 
+@MODELS.register("transformer_faces_pointer")
 def transformer_faces_pointer(**kw) -> TransformerPointer:
     face_dim = kw.pop("face_dim", FACE_DIM)
     kw, dec_kw = _split_pointer_kwargs(kw)
@@ -131,6 +140,7 @@ def transformer_faces_pointer(**kw) -> TransformerPointer:
         captioner=_captioner((("faces", face_dim),), **dec_kw), **kw)
 
 
+@MODELS.register("transformer_objects_pointer")
 def transformer_objects_pointer(**kw) -> TransformerPointer:
     obj_dim = kw.pop("obj_dim", OBJ_DIM)
     kw, dec_kw = _split_pointer_kwargs(kw)

@@ -2,8 +2,10 @@
 
 Counterpart of `news_image_caption_tpu/ops/conv.py::DynamicConv`: the
 full-sequence causal forward by one of three routes, as the reference
-chooses them, and the ring decode step `step_ring`, kept as the
-reference math. The routes:
+chooses them, and the decode steps kept as the reference math: the
+shift step `step` over a cache [B, K-1, C] oldest first (`init_cache`),
+the ring step `step_ring`, and the lazy ring step `step_ring_lazy`,
+which reads each slot's rows through a slot map. The routes:
 - `"shift"` (default): a K-term shift-accumulate in x's dtype
   (`_shift_accumulate`); the decoder's train and teacher-forced paths
   take it, with dropout on the softmaxed taps;
@@ -145,3 +147,58 @@ class DynamicConv(nn.Module):
         new_cache = cache.clone()
         new_cache[:, t % Km1] = x_t
         return out, new_cache
+
+    def init_cache(self, batch_size: int, device,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Zero history [B, K-1, C] for `step` and `step_ring_lazy`."""
+        return torch.zeros(batch_size, self.kernel_size - 1,
+                           self.weight_linear.kernel.shape[0],
+                           device=device, dtype=dtype)
+
+    def step(self, x_t: torch.Tensor, cache: torch.Tensor):
+        """Shift decode step. x_t [B, C]; cache [B, K-1, C], the previous
+        inputs oldest first. Returns (out [B, C], the cache shifted by
+        one with x_t last)."""
+        B, C = x_t.shape
+        H, K = self.num_heads, self.kernel_size
+        w = self._weights(x_t)                              # [B, H, K]
+        hist = torch.cat([cache, x_t[:, None, :]], dim=1)    # [B, K, C]
+        out = torch.einsum("bhk,bkhr->bhr", w,
+                           hist.view(B, K, H, C // H)).reshape(B, C)
+        if self.conv_bias is not None:
+            out = out + self.conv_bias.to(out.dtype)
+        return out, hist[:, 1:]
+
+    def step_ring_lazy(self, x_t: torch.Tensor, cache: torch.Tensor,
+                       slot_map: torch.Tensor, t: int):
+        """Ring step over a cache that stays in physical row order
+        across beam reorders. x_t [B, C]; cache [B, K-1, C]; slot_map
+        [K-1, B]: the physical row that holds each logical row's input
+        in that slot (beam search composes it with the ancestry instead
+        of moving the cache). Returns (out [B, C], the cache with x_t
+        written at slot t mod (K-1) in logical order, the slot map with
+        that slot's row reset to the identity)."""
+        B, C = x_t.shape
+        H, K = self.num_heads, self.kernel_size
+        R, Km1 = C // H, K - 1
+        w = self._weights(x_t)                              # [B, H, K]
+        if K == 1:
+            out = w.expand(B, H, R).reshape(B, C) * x_t
+            if self.conv_bias is not None:
+                out = out + self.conv_bias.to(out.dtype)
+            return out, cache, slot_map
+        slots = torch.arange(Km1, device=x_t.device)
+        w_hist = w[:, :, (slots - t) % Km1]                 # [B, H, K-1]
+        hist = cache[slot_map.T.long(), slots[None, :]]     # [B, K-1, C]
+        out = torch.einsum("bhk,bkhr->bhr", w_hist,
+                           hist.view(B, Km1, H, R)).reshape(B, C)
+        out = out + w[:, :, Km1:].expand(B, H, R).reshape(B, C) * x_t
+        if self.conv_bias is not None:
+            out = out + self.conv_bias.to(out.dtype)
+        j = t % Km1
+        new_cache = cache.clone()
+        new_cache[:, j] = x_t
+        new_map = slot_map.clone()
+        new_map[j] = torch.arange(B, device=slot_map.device,
+                                  dtype=slot_map.dtype)
+        return out, new_cache, new_map

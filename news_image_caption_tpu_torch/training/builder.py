@@ -25,11 +25,14 @@ from news_image_caption_tpu_torch.training.train_step import (
 
 
 def flagship_trainer_builder(device, seed: int = 0,
-                             t_total: Optional[int] = None):
+                             t_total: Optional[int] = None,
+                             moment_dtype: Optional[torch.dtype] = None):
     """Returns (model, state, train_step, eval_step).
 
     Random weights drawn from a generator seeded with `seed`; t_total
-    (the schedule's length in updates) defaults to the YAML's.
+    (the schedule's length in updates) defaults to the YAML's;
+    moment_dtype (e.g. torch.bfloat16) stores BertAdam's first moments
+    in that dtype (fp32 by default).
     train_step(state, batch, seed) and eval_step(batch) take batches of
     tensors on `device` (`data/synthetic.py::to_device`).
     """
@@ -42,7 +45,7 @@ def flagship_trainer_builder(device, seed: int = 0,
     opt = dict(FLAGSHIP_OPTIMIZER)
     if t_total is not None:
         opt["t_total"] = t_total
-    tx = make_bert_adam(**opt)
+    tx = make_bert_adam(**opt, moment_dtype=moment_dtype)
     state = create_o2_train_state(model.decoder, tx)
     return (model, state,
             make_train_step(model.loss_fn, tx, compute_dtype=dtype),

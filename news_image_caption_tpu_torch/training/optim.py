@@ -21,6 +21,11 @@ call `apply`, so neither n nor the moments advance.
 
 The update runs in place on fp32 master tensors, with `torch._foreach`
 ops (a few launches for all tensors rather than several per tensor).
+BertAdam's `moment_dtype` (the reference's opt-in, e.g. bfloat16) stores
+the first moments in that dtype: a step computes b1 * mu + (1 - b1) * g
+in fp32 and rounds it once on store, and the update divides the stored
+mu, widened back to fp32, by sqrt(nu) + eps; the second moments stay
+fp32.
 
 `accumulate_gradients(tx, every)` is optax's `MultiSteps` (the
 reference's `accumulate_gradients`): the mean gradient of `every`
@@ -76,7 +81,7 @@ def _named(tensors: List[torch.Tensor], names: Sequence[str]):
 @dataclass
 class BertAdamState:
     count: int                 # updates applied
-    mu: List[torch.Tensor]     # first moments, fp32
+    mu: List[torch.Tensor]     # first moments, fp32 or moment_dtype
     nu: List[torch.Tensor]     # second moments, fp32
 
     def state_dict(self, names: Sequence[str]) -> Dict[str, Any]:
@@ -100,16 +105,20 @@ class BertAdam:
     def __init__(self, lr_schedule: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.98, eps: float = 1e-6,
                  weight_decay: float = 1e-5,
-                 max_grad_norm: Optional[float] = 0.1):
+                 max_grad_norm: Optional[float] = 0.1,
+                 moment_dtype: Optional[torch.dtype] = None):
         self.lr_schedule = lr_schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.moment_dtype = moment_dtype
 
     def init(self, master: List[torch.Tensor]) -> BertAdamState:
-        return BertAdamState(count=0,
-                             mu=[torch.zeros_like(p) for p in master],
-                             nu=[torch.zeros_like(p) for p in master])
+        return BertAdamState(
+            count=0,
+            mu=[torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)
+                for p in master],
+            nu=[torch.zeros_like(p) for p in master])
 
     def apply(self, grads: List[torch.Tensor], state: BertAdamState,
               master: List[torch.Tensor]) -> None:
@@ -120,13 +129,25 @@ class BertAdam:
             scale = torch.clamp(self.max_grad_norm
                                 / torch.clamp(norms, min=1e-12), max=1.0)
             torch._foreach_mul_(grads, list(scale.unbind()))
-        torch._foreach_mul_(state.mu, self.b1)
-        torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
+        if self.moment_dtype is None:
+            torch._foreach_mul_(state.mu, self.b1)
+            torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
+            mu = state.mu
+        else:
+            # b1 * mu + (1 - b1) * g in fp32, rounded once on store; the
+            # update reads the stored (rounded) mu, widened again.
+            mu = [torch.empty_like(m, dtype=torch.float32)
+                  for m in state.mu]
+            torch._foreach_copy_(mu, state.mu)
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
+            torch._foreach_copy_(state.mu, mu)
+            torch._foreach_copy_(mu, state.mu)
         torch._foreach_mul_(state.nu, self.b2)
         torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
         denom = torch._foreach_sqrt(state.nu)
         torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(state.mu, denom)
+        updates = torch._foreach_div(mu, denom)
         if self.weight_decay:
             torch._foreach_add_(updates, master, alpha=self.weight_decay)
         torch._foreach_add_(master, updates, alpha=-lr)

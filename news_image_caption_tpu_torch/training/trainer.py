@@ -15,9 +15,15 @@ out-of-memory batch skip. Every logged record is also kept in `history`.
 The host reads the device every `log_every` steps (the window's mean
 loss) and, with `skip_nan_batches`, once a step (the train step's
 guard). `input_wait` is the share of the epoch's wall the loop spent
-waiting on the batch iterator. Not ported: the profiler window (ROADMAP
-Queue 1 item 5b); the command refuses the sharded checkpoint format
-(item 11).
+waiting on the batch iterator. With `profile_steps > 0`, steps
+[profile_start, profile_start + profile_steps) are traced by
+`torch.profiler` (`utils/profiling.py`) into
+`<serialization_dir>/profile`: the window opens at the first step at or
+past `profile_start` (a recovered run that resumes past it still traces
+its first `profile_steps` steps), closes `profile_steps` steps after it
+opened, with the device synchronized first so the trace holds the
+window's device work, and is closed on any exit. The command refuses the
+sharded checkpoint format (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from news_image_caption_tpu_torch.training.preemption import \
 from news_image_caption_tpu_torch.training.train_step import (
     TrainState, make_eval_step, make_train_step)
 from news_image_caption_tpu_torch.utils.logging import setup_logger
+from news_image_caption_tpu_torch.utils.profiling import (start_trace,
+                                                          stop_trace)
 
 # A pointer model's loss components, logged beside its loss.
 PARTS = ("gen_loss", "entity_loss", "copy_loss")
@@ -65,7 +73,10 @@ class TrainerConfig:
     # up after this many consecutive ones.
     max_consecutive_oom: int = 3
     summary_interval: int = 512             # TensorBoard; 0 disables
-    profile_steps: int = 0                  # > 0 is not ported
+    # Profiler window: steps [profile_start, profile_start +
+    # profile_steps) into <serialization_dir>/profile (0 steps = off).
+    profile_start: int = 2
+    profile_steps: int = 0
     seed: int = 0
 
 
@@ -74,10 +85,6 @@ class Trainer:
         if config.mixed_precision not in PRECISIONS:
             raise ValueError(f"mixed_precision {config.mixed_precision!r}:"
                              " the port has fp32, bf16 and bf16_o2")
-        if config.profile_steps > 0:
-            raise NotImplementedError(
-                "trainer.profile_steps > 0: the profiler window is not "
-                "ported yet (ROADMAP Queue 1 item 5b)")
         dtype = PRECISIONS[config.mixed_precision]
         self.config = config
         self.train_step = make_train_step(
@@ -101,6 +108,9 @@ class Trainer:
         # train step's seconds.
         self.epoch_times: List[tuple] = []
         self.step_seconds: List[float] = []
+        self._prof = None          # the running profiler, if any
+        self._prof_done = False
+        self._prof_started_at = 0
 
     def _log_metrics(self, record: Dict[str, Any]) -> None:
         self.history.append(record)
@@ -142,16 +152,45 @@ class Trainer:
                 self.logger.info("recovered step=%s epoch=%s", step,
                                  start_epoch)
         guard = PreemptionHandler((signal.SIGTERM,))
-        with guard:
-            state = self._run_epochs(state, train_batches, val_batches,
-                                     start_epoch, self.store.best_value(),
-                                     guard)
+        try:
+            with guard:
+                state = self._run_epochs(state, train_batches, val_batches,
+                                         start_epoch,
+                                         self.store.best_value(), guard)
+        finally:
+            if self._prof is not None:
+                stop_trace(self._prof)
+                self._prof = None
         # Surface any async write error before declaring success.
         self.store.wait()
         if self._tb is not None:
             self._tb.close()
             self._tb = None
         return state
+
+    def _profile_tick(self, step: int, last_loss=None) -> None:
+        """Open or close the profiler window at a step's edge. It opens
+        at the first step >= profile_start (not ==, so a recovered run
+        resuming past it still traces) and closes profile_steps steps
+        after the step it opened at."""
+        cfg = self.config
+        if cfg.profile_steps <= 0 or self._prof_done:
+            return
+        if self._prof is None and step >= cfg.profile_start:
+            logdir = os.path.join(cfg.serialization_dir, "profile")
+            self.logger.info("profiling steps %d..%d -> %s", step,
+                             step + cfg.profile_steps, logdir)
+            self._prof = start_trace(logdir)
+            self._prof_started_at = step
+        elif (self._prof is not None
+              and step >= self._prof_started_at + cfg.profile_steps):
+            if last_loss is not None and last_loss.is_cuda:
+                # The window holds its steps' device work.
+                torch.cuda.synchronize(last_loss.device)
+            stop_trace(self._prof)
+            self._prof = None
+            self._prof_done = True
+            self.logger.info("profile trace written")
 
     def _run_epochs(self, state, train_batches, val_batches, start_epoch,
                     best, guard: PreemptionHandler) -> TrainState:
@@ -173,6 +212,7 @@ class Trainer:
                 if guard.triggered:
                     preempted = True
                     break
+                self._profile_tick(state.step)
                 t_step = time.perf_counter()
                 try:
                     state, metrics = self.train_step(state, batch, cfg.seed)
@@ -188,6 +228,7 @@ class Trainer:
                     state = self._revive_if_torn(state)
                     continue
                 self.step_seconds.append(time.perf_counter() - t_step)
+                self._profile_tick(state.step, metrics["loss"])
                 consecutive_oom = 0
                 n_batches += 1
                 window.append((metrics["loss"],

@@ -1,1 +1,2 @@
-"""Utilities of the port: logging and TensorBoard scalars."""
+"""Utilities of the port: logging, TensorBoard scalars, profiling and
+the registries."""

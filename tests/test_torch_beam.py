@@ -11,7 +11,10 @@ the full-vocab `beam_search` and greedy `generate` over `step` must give
 the same tokens as the candidate paths; `beam_combine`, `rank_beams` and
 the done-list merge must give JAX's outputs on crafted ties. JAX's beam
 loop is compiled once a configuration (four in all) and shared by the
-tests through a module-scoped cache.
+tests through a module-scoped cache. The reference's two other cache
+layouts, `impl="shift"` and `impl="lazy"`, must give JAX's same impl's
+tokens and the port's `topk` tokens, and `DynamicConv`'s shift and lazy
+ring steps JAX's steps under beam-like row permutations.
 """
 
 import numpy as np
@@ -55,6 +58,16 @@ CONFIGS = {
                     length_penalty=0.0),
     "early_exit_harvest": dict(early_exit=True, harvest_finished=True),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_tree(tree):
@@ -363,14 +376,38 @@ def test_index_reorder_moves_every_slot_into_a_second_buffer():
     assert caches[0].data_ptr() in ptrs and len(ptrs) == 2
 
 
-@pytest.mark.parametrize("impl,error", [("shift", NotImplementedError),
-                                        ("lazy", NotImplementedError),
-                                        ("flat", ValueError)])
-def test_generate_beam_impls_raise(pair, impl, error):
-    with pytest.raises(error, match="ROADMAP Queue 1" if error is
-                       NotImplementedError else "unknown beam impl"):
-        pair["model"].generate_beam(pair["tbatch"], _config("plain", gen),
-                                    impl=impl)
+# The cases keep the ids of the time when "shift" and "lazy" raised
+# NotImplementedError.
+@pytest.mark.parametrize("impl", [
+    pytest.param("shift", id="shift-NotImplementedError"),
+    pytest.param("lazy", id="lazy-NotImplementedError"),
+    pytest.param("flat", id="flat-ValueError")])
+def test_generate_beam_impls_raise(pair, impl, monkeypatch):
+    """Only an unknown impl raises. The reference's two other cache
+    layouts, "shift" (shifted-copy caches) and "lazy" (stationary caches
+    read through slot maps), give JAX's same impl's tokens and the port's
+    "topk" tokens, scores within 2e-4, through the full-vocab step of
+    their layout every step."""
+    if impl == "flat":
+        with pytest.raises(ValueError, match="unknown beam impl"):
+            pair["model"].generate_beam(pair["tbatch"],
+                                        _config("plain", gen), impl=impl)
+        return
+    want, want_s = pair["model"].generate_beam(pair["tbatch"],
+                                               _config("plain", gen))
+    jtokens, jscores = pair["jmodel"].generate_beam(
+        pair["params"], pair["jbatch"], _config("plain", jgen), impl=impl)
+    method = {"shift": "step_shift", "lazy": "step_beam_lazy"}[impl]
+    steps = _count_steps(monkeypatch, pair["model"].decoder, method)
+    got, got_s = pair["model"].generate_beam(pair["tbatch"],
+                                             _config("plain", gen), impl=impl)
+    assert steps == list(range(MAX_LEN))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jtokens))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(jscores),
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(got_s.numpy(), want_s.numpy(), atol=2e-4,
+                               rtol=2e-4)
 
 
 def test_generate_beam_max_len_past_positions_raises(pair):
@@ -391,3 +428,53 @@ def test_full_vocab_generate_samples_like_generate(pair):
     assert torch.equal(got, want)
     np.testing.assert_allclose(got_lp.numpy(), want_lp.numpy(), atol=2e-4,
                                rtol=2e-4)
+
+
+@pytest.mark.parametrize("K,conv_bias", [(1, False), (3, True), (5, False)])
+def test_dynamic_conv_shift_and_lazy_steps_match_jax(K, conv_bias):
+    """`DynamicConv.step` over a shifted cache and `step_ring_lazy` over a
+    stationary cache read through a slot map, 8 steps with the rows
+    permuted between steps as a beam reorder moves them (the shifted
+    cache gathered, the map composed m[:, perm]): outputs, caches and
+    maps equal to JAX's same steps (1e-5), and lazy's outputs equal to
+    shift's."""
+    from news_image_caption_tpu.ops.conv import \
+        DynamicConv as JaxDynamicConv
+    from news_image_caption_tpu_torch.ops.conv import DynamicConv
+    rng = np.random.RandomState(K)
+    N, steps = 4, 8
+    xs = rng.randn(steps, N, D).astype(np.float32)
+    perms = [rng.permutation(N) for _ in range(steps)]
+    jconv = JaxDynamicConv(input_size=D, kernel_size=K, num_heads=H,
+                           conv_bias=conv_bias)
+    params = jax.jit(jconv.init)(jax.random.PRNGKey(K),
+                                 jnp.asarray(xs.transpose(1, 0, 2)))
+    conv = DynamicConv(D, K, H, device="cpu", dtype=torch.float32,
+                       conv_bias=conv_bias)
+    conv.load_state_dict(params_from_jax(_np_tree(params), conv))
+    jstep = jax.jit(lambda p, x, c: jconv.apply(p, x, c,
+                                                method=JaxDynamicConv.step))
+    jlazy = jax.jit(lambda p, x, c, m, t: jconv.apply(
+        p, x, c, m, t, method=JaxDynamicConv.step_ring_lazy))
+    shift = conv.init_cache(N, "cpu")
+    ring = conv.init_cache(N, "cpu")
+    smap = torch.arange(N).repeat(K - 1, 1)
+    jshift, jring = jnp.zeros((N, K - 1, D)), jnp.zeros((N, K - 1, D))
+    jmap = jnp.tile(jnp.arange(N, dtype=jnp.int32), (K - 1, 1))
+    assert tuple(shift.shape) == (N, K - 1, D)
+    with torch.no_grad():
+        for t in range(steps):
+            x = torch.from_numpy(xs[t])
+            out, shift = conv.step(x, shift)
+            lout, ring, smap = conv.step_ring_lazy(x, ring, smap, t)
+            jout, jshift = jstep(params, jnp.asarray(xs[t]), jshift)
+            jlout, jring, jmap = jlazy(params, jnp.asarray(xs[t]), jring,
+                                       jmap, jnp.int32(t))
+            for got, want in ((out, jout), (shift, jshift), (lout, jlout),
+                              (ring, jring), (lout, out)):
+                np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                           rtol=1e-5, atol=1e-5)
+            np.testing.assert_array_equal(smap.numpy(), np.asarray(jmap))
+            perm = perms[t]
+            shift, jshift = shift[perm], jshift[perm]
+            smap, jmap = smap[:, perm], jmap[:, perm]

@@ -312,7 +312,7 @@ def test_state_from_jax_continues_jax_steps():
     jmodel = jax_config.build_model(jcfg)
     batches = [b for _, b in zip(range(5), jax_config.build_dataset(
         jcfg, "train").batches(4, seed=0))]
-    params = jmodel.init(jax.random.PRNGKey(0), batches[0])
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), batches[0])
     jtx = jax_config.build_optimizer(jcfg)
     jstate = jax_train_step.create_o2_train_state(params, jtx,
                                                   compute_dtype=jnp.float32)

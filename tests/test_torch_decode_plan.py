@@ -30,6 +30,16 @@ SMEM_LIMIT = 232448
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # -- (a) the plans ---------------------------------------------------------
 
 @pytest.mark.parametrize("sms", [132, 108, 16])

@@ -39,6 +39,16 @@ FLAGS = {"default": {}, "use_bias": {"use_bias": True},
          "no_softmax": {"weight_softmax": False}}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _taps(rng, B, T, H, K):
     logits = rng.randn(B, T, H, K)
     e = np.exp(logits - logits.max(-1, keepdims=True))

@@ -204,8 +204,22 @@ def test_quantize_kv_takes_the_int8_route(runs):
     ("train", {"trainer": {"distributed": True}}, [], "11"),
 ])
 def test_options_not_ported_raise(tmp_path, command, overrides, argv, item):
+    """Each option raises naming the ROADMAP item that ports it; those of
+    item 5b, since ported, run (the profiler window: `train --platform
+    cpu` writes a trace of its window into `<serialization_dir>/profile`,
+    tests/test_torch_profiling_loaders.py holds the window itself)."""
     overrides = dict(overrides, trainer=dict(
         overrides.get("trainer", {}), serialization_dir=str(tmp_path)))
+    if item == "5b":
+        assert cli.main([command, TINY, "--platform", "cpu", "-o",
+                         json.dumps(overrides)] + argv) == 0
+        traces = list((tmp_path / "profile").glob("*.pt.trace.json"))
+        assert len(traces) == 1
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        assert sum(e.get("name") == "train_step.forward"
+                   for e in events) == 3
+        assert (tmp_path / "metrics.jsonl").exists()
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1 item {item}\)"):
         cli.main([command, TINY, "--platform", "cpu", "-o",

@@ -109,6 +109,16 @@ PAIRS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def same(a, b) -> bool:
     """Equal values of equal types (True is not 1, 1.0 is not 1)."""
     if type(a) is not type(b):

@@ -37,6 +37,16 @@ BATCHES = (1, 16, 64)
 SMS = (132, 108)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # -- (a) the plan ----------------------------------------------------------
 
 def ring_schedule(key_tiles, stages, backward):

@@ -34,6 +34,16 @@ SM_SMEM = 228 * 1024
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def bf16_ulp(t):
     """One bf16 unit in the last place at the magnitude of t (fp32)."""
     mag = t.float().abs().clamp_min(2.0 ** -126)

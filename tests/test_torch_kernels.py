@@ -34,6 +34,16 @@ DTYPES = {"fp32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(a, name):
     """The same values as a JAX array and a torch tensor of one dtype
     (bf16 rounding happens once, in JAX, and is carried bit-exact)."""

@@ -49,6 +49,16 @@ SMALL = dict(vocab_size=V, cutoff=CUTOFF, embed_dim=D, ffn_dim=FFN,
 EOS_BIAS = 2.0   # eos row shift that makes the rows finish at steps 3-9
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -69,7 +79,7 @@ def pair():
               "article": jnp.asarray(article),
               "article_mask": jnp.asarray(article_mask)}
     jmodel = JaxTransformerFlattened(**SMALL)
-    params = jmodel.init(jax.random.PRNGKey(0), jbatch)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jbatch)
     model = TransformerFlattened(device="cpu", dtype=torch.float32, **SMALL)
     model.decoder.load_state_dict(
         params_from_jax(_np_tree(params), model.decoder))
@@ -81,18 +91,21 @@ def pair():
                 tbatch=tbatch, caption=caption)
 
 
-def _hidden_jax(pair):
+def _decoder_jax(pair, method):
+    """The JAX decoder's `method` over the pair's captions, jitted."""
     jm = pair["jmodel"]
-    return jm.decoder.apply(pair["params"], pair["jbatch"]["caption_ids"],
-                            jm._contexts(pair["jbatch"]),
-                            method=JaxDecoder.hidden)
+    return jax.jit(lambda p, ids, ctx: jm.decoder.apply(
+        p, ids, ctx, method=method))(
+            pair["params"], pair["jbatch"]["caption_ids"],
+            jm._contexts(pair["jbatch"]))
+
+
+def _hidden_jax(pair):
+    return _decoder_jax(pair, JaxDecoder.hidden)
 
 
 def test_teacher_forced_log_prob_matches(pair):
-    jm = pair["jmodel"]
-    lp_jax = jm.decoder.apply(pair["params"], pair["jbatch"]["caption_ids"],
-                              jm._contexts(pair["jbatch"]),
-                              method=JaxDecoder.log_prob)
+    lp_jax = _decoder_jax(pair, JaxDecoder.log_prob)
     with torch.no_grad():
         lp = pair["model"].decoder.log_prob(
             torch.from_numpy(pair["caption"]).long(), pair["tbatch"])

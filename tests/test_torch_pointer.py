@@ -29,6 +29,7 @@ the copy head and the copy loss all see entities. At fp32:
   log-probs within 1e-5, flags), greedy and speculative.
 """
 
+import functools
 import json
 from pathlib import Path
 
@@ -115,11 +116,17 @@ def _torch(batch):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
 
+def _jitted(module, method=None):
+    """module.apply(variables, *args, method=method), jitted: one XLA
+    compile in place of every primitive's own."""
+    return jax.jit(functools.partial(module.apply, method=method))
+
+
 @pytest.fixture(scope="module")
 def pair():
     jmodel, model = _models()
     batch = _batch()
-    variables = jmodel.init(jax.random.PRNGKey(0), _jax(batch))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), _jax(batch))
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, variables),
                                           model))
     return dict(jmodel=jmodel, model=model, variables=variables,
@@ -138,19 +145,19 @@ def test_entity_attention_full_step_and_chunk(pair):
     jea = pair["jmodel"].entity_attn
     params = pair["variables"]["entity_attn"]
     x = np.random.RandomState(3).randn(3, 7, 16).astype(np.float32)
-    want = np.asarray(jea.apply(params, jnp.asarray(x)))
+    want = np.asarray(_jitted(jea)(params, jnp.asarray(x)))
     full = ea(torch.from_numpy(x))
     np.testing.assert_allclose(full.detach().numpy(), want, rtol=1e-5,
                                atol=1e-5)
     # Sequential steps: position 0 attends only the zero slot.
     cache = ea.init_cache(3, 9, "cpu", torch.float32)
     jcache = jea.init_cache(3, 9)
+    jstep = _jitted(jea, jax_pointer.EntitySelfAttention.step)
     with torch.no_grad():
         for t in range(7):
             got = ea.step(torch.from_numpy(x[:, t]), t, cache)
-            out, jcache = jea.apply(
-                params, jnp.asarray(x[:, t]), t, jcache,
-                method=jax_pointer.EntitySelfAttention.step)
+            out, jcache = jstep(params, jnp.asarray(x[:, t]), jnp.int32(t),
+                                jcache)
             np.testing.assert_allclose(got.numpy(), np.asarray(out),
                                        rtol=1e-5, atol=1e-5)
             np.testing.assert_allclose(got.numpy(), want[:, t], rtol=1e-5,
@@ -160,8 +167,8 @@ def test_entity_attention_full_step_and_chunk(pair):
     xc = np.stack([x[b, p:p + 3] for b, p in enumerate(pos)])
     with torch.no_grad():
         got = ea.chunk(torch.from_numpy(xc), torch.from_numpy(pos), cache)
-    out, jc = jea.apply(params, jnp.asarray(xc), jnp.asarray(pos), jcache,
-                        method=jax_pointer.EntitySelfAttention.chunk)
+    out, jc = _jitted(jea, jax_pointer.EntitySelfAttention.chunk)(
+        params, jnp.asarray(xc), jnp.asarray(pos), jcache)
     np.testing.assert_allclose(got.numpy(), np.asarray(out), rtol=1e-5,
                                atol=1e-5)
     for b, p in enumerate(pos):
@@ -234,25 +241,24 @@ def test_decoder_hidden_states_match(pair):
     jctx = jm.captioner._contexts(_jax(batch))
     ctx = model._contexts(_torch(batch))
     tokens = np.asarray(batch["caption_ids"][:, :6])
-    want = jdec.apply(params, jnp.asarray(tokens), jctx,
-                      method=JaxDecoder.hidden)
+    want = _jitted(jdec, JaxDecoder.hidden)(params, jnp.asarray(tokens), jctx)
     with torch.no_grad():
         got = dec.hidden(torch.from_numpy(tokens).long(), ctx)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    jkvs = decode_kv_tree(jdec.apply(params, jctx,
-                                     method=JaxDecoder.precompute_kv))
+    jkvs = decode_kv_tree(_jitted(jdec, JaxDecoder.precompute_kv)(params,
+                                                                  jctx))
     jcaches = jdec.init_cache(tokens.shape[0])
     weights = dec.decode_weights()
+    jstep = _jitted(jdec, JaxDecoder.step_with_hidden)
     with torch.no_grad():
         kvs = dec.precompute_kv(ctx)
         caches = dec.init_cache(tokens.shape[0], "cpu")
         for i in range(3):
             lp, h = dec.step_with_hidden(torch.from_numpy(tokens[:, i]).long(),
                                          i, kvs, caches, weights)
-            jlp, jh, jcaches = jdec.apply(
-                params, jnp.asarray(tokens[:, i]), i, jkvs, jcaches,
-                method=JaxDecoder.step_with_hidden)
+            jlp, jh, jcaches = jstep(params, jnp.asarray(tokens[:, i]),
+                                     jnp.int32(i), jkvs, jcaches)
             np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5,
                                        atol=1e-5)
             np.testing.assert_allclose(lp.numpy(), np.asarray(jlp),
@@ -261,10 +267,10 @@ def test_decoder_hidden_states_match(pair):
         pos = torch.zeros(tokens.shape[0], dtype=torch.int32)
         v, ids, x, _ = dec.step_chunk_with_hidden(
             chunk, pos, kvs, dec.init_cache(tokens.shape[0], "cpu"), weights)
-    jv, jids, jx, _ = jdec.apply(params, jnp.asarray(tokens[:, :4]),
-                                 jnp.zeros(tokens.shape[0], jnp.int32), jkvs,
-                                 jdec.init_cache(tokens.shape[0]),
-                                 method=JaxDecoder.step_chunk_with_hidden)
+    jv, jids, jx, _ = _jitted(jdec, JaxDecoder.step_chunk_with_hidden)(
+        params, jnp.asarray(tokens[:, :4]),
+        jnp.zeros(tokens.shape[0], jnp.int32), jkvs,
+        jdec.init_cache(tokens.shape[0]))
     np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
@@ -303,9 +309,9 @@ def test_loss_parts_and_gradients_match(pair, case, flash):
     jmodel, model = _models(overrides, flash)
     _carried(pair, model)
     batch = _loss_batch(pair["batch"], kind)
-    (jloss, jaux), jgrads = jax.value_and_grad(
-        lambda v: jmodel.loss_fn(v, _jax(batch)), has_aux=True)(
-            pair["variables"])
+    (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda v, b: jmodel.loss_fn(v, b), has_aux=True))(
+            pair["variables"], _jax(batch))
     loss, aux = model.loss_fn(_torch(batch))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)

@@ -47,6 +47,16 @@ TINY = dict(vocab_size=64, embed_dim=16, ffn_dim=32, num_heads=4,
             image_dim=16, article_dim=12, max_positions=64)   # tiny_test.yaml
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, so that the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def stub_library(monkeypatch):
     """The kernel library's entry points as stubs that succeed, so a
@@ -231,10 +241,10 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("early_exit", [False, True])
-def test_pointwise_layer_decodes_as_jax_does(early_exit):
-    """kernel_sizes = (1, 3): the K = 1 layer has an empty cache; greedy
-    tokens equal JAX's, log-probs within 2e-4."""
+@pytest.fixture(scope="module")
+def pointwise_params():
+    """JAX's init of the POINTWISE model (PRNGKey(0), jitted) and its
+    batch, shared by the cases."""
     B, T, P, S = 3, 10, 5, 7
     rng = np.random.RandomState(0)
     caption = rng.randint(2, 120, size=(B, T)).astype(np.int32)
@@ -248,7 +258,18 @@ def test_pointwise_layer_decodes_as_jax_does(early_exit):
               "article": jnp.asarray(article),
               "article_mask": jnp.asarray(article_mask)}
     jmodel = JaxTransformerFlattened(**POINTWISE)
-    params = jmodel.init(jax.random.PRNGKey(0), jbatch)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jbatch)
+    return dict(jmodel=jmodel, params=params, jbatch=jbatch, caption=caption,
+                image=image, article=article, article_mask=article_mask)
+
+
+@pytest.mark.parametrize("early_exit", [False, True])
+def test_pointwise_layer_decodes_as_jax_does(pointwise_params, early_exit):
+    """kernel_sizes = (1, 3): the K = 1 layer has an empty cache; greedy
+    tokens equal JAX's, log-probs within 2e-4."""
+    B, P = 3, 5
+    pw = pointwise_params
+    jmodel, params, jbatch = pw["jmodel"], pw["params"], pw["jbatch"]
     model = TransformerFlattened(device="cpu", dtype=torch.float32,
                                  **POINTWISE)
     model.decoder.load_state_dict(
@@ -256,10 +277,10 @@ def test_pointwise_layer_decodes_as_jax_does(early_exit):
     weights = model.decoder.decode_weights()
     caches = model.decoder.init_cache(B, "cpu")
     assert [tuple(c.shape) for c in caches] == [(0, B, 32), (2, B, 32)]
-    tbatch = {"image": torch.from_numpy(image),
+    tbatch = {"image": torch.from_numpy(pw["image"]),
               "image_mask": torch.zeros(B, P, dtype=torch.bool),
-              "article": torch.from_numpy(article),
-              "article_mask": torch.from_numpy(article_mask)}
+              "article": torch.from_numpy(pw["article"]),
+              "article_mask": torch.from_numpy(pw["article_mask"])}
     want, want_lp = jmodel.generate(
         params, jbatch, JaxGenerationConfig(max_len=12, early_exit=early_exit))
     got, got_lp = model.generate(
@@ -268,11 +289,12 @@ def test_pointwise_layer_decodes_as_jax_does(early_exit):
     np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp), atol=2e-4,
                                rtol=2e-4)
     # Teacher forcing through the same layers agrees too.
-    lp_jax = jmodel.decoder.apply(params, jbatch["caption_ids"],
-                                  jmodel._contexts(jbatch),
-                                  method=type(jmodel.decoder).log_prob)
+    lp_jax = jax.jit(lambda p, ids, ctx: jmodel.decoder.apply(
+        p, ids, ctx, method=type(jmodel.decoder).log_prob))(
+            params, jbatch["caption_ids"], jmodel._contexts(jbatch))
     with torch.no_grad():
-        lp = model.decoder.log_prob(torch.from_numpy(caption).long(), tbatch)
+        lp = model.decoder.log_prob(torch.from_numpy(pw["caption"]).long(),
+                                    tbatch)
     np.testing.assert_allclose(lp.numpy(), np.asarray(lp_jax), rtol=2e-4,
                                atol=2e-4)
 

@@ -122,9 +122,9 @@ def test_builder_loads_params_path(tmp_path, monkeypatch):
     import ml_dtypes
     from flax.traverse_util import flatten_dict
     jmodel = JaxTransformerFlattened(**SMALL)
-    params = jmodel.init(jax.random.PRNGKey(0),
-                         _batch(2, 5, 7, 48, 32,
-                                lambda s, d: jnp.zeros(s, d)))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                  _batch(2, 5, 7, 48, 32,
+                                         lambda s, d: jnp.zeros(s, d)))
     flat = {"/".join(k): np.asarray(v).astype(ml_dtypes.bfloat16)
             for k, v in flatten_dict(params).items()}
     path = tmp_path / "flagship.npz"

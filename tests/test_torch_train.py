@@ -101,8 +101,8 @@ def test_loss_and_gradients_match(flash):
     jmodel, params, model = _jax_pair(flash)
     batch = _batch()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    (jloss, jaux), jgrads = jax.value_and_grad(
-        lambda p: jmodel.loss_fn(p, jbatch, None), has_aux=True)(params)
+    (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn(p, b, None), has_aux=True))(params, jbatch)
     loss, aux = model.loss_fn(to_device(batch, "cpu"))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)

@@ -131,7 +131,7 @@ def pair(request):
     jmodel, model = _build(kind)
     article_dim = KINDS[kind].get("article_dim", variants.GLOVE_DIM)
     jbatch, tbatch = _batches(kind, article_dim)
-    params = jmodel.init(jax.random.PRNGKey(0), jbatch)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jbatch)
     model.decoder.load_state_dict(
         params_from_jax(jax.tree.map(np.asarray, params), model.decoder))
     model.decoder.eval()
@@ -182,9 +182,10 @@ def test_variants_follow_the_reference_defaults():
 
 def test_log_prob_and_loss_match(pair):
     jm = pair["jmodel"]
-    want = jm.decoder.apply(pair["params"], pair["jbatch"]["caption_ids"],
-                            jm._contexts(pair["jbatch"]),
-                            method=JaxDecoder.log_prob)
+    want = jax.jit(lambda p, ids, ctx: jm.decoder.apply(
+        p, ids, ctx, method=JaxDecoder.log_prob))(
+            pair["params"], pair["jbatch"]["caption_ids"],
+            jm._contexts(pair["jbatch"]))
     caption = torch.from_numpy(pair["caption"]).long()
     with torch.no_grad():
         got = pair["model"].decoder.log_prob(caption, pair["tbatch"])
@@ -192,7 +193,7 @@ def test_log_prob_and_loss_match(pair):
             dict(pair["tbatch"], caption_ids=caption))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    jloss, jaux = jm.loss_fn(pair["params"], pair["jbatch"])
+    jloss, jaux = jax.jit(jm.loss_fn)(pair["params"], pair["jbatch"])
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(aux["loss_sum"].item(),
                                float(jaux["loss_sum"]), rtol=1e-5)
@@ -229,9 +230,9 @@ def test_gradients_match(pair, flash):
     jmodel, model = _build(kind, flash)
     model.decoder.load_state_dict(pair["model"].decoder.state_dict())
     jbatch = pair["jbatch"]
-    (jloss, _), jgrads = jax.value_and_grad(
-        lambda p: jmodel.loss_fn(p, jbatch, None), has_aux=True)(
-            pair["params"])
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn(p, b, None), has_aux=True))(
+            pair["params"], jbatch)
     loss, _ = model.loss_fn(dict(
         pair["tbatch"], caption_ids=torch.from_numpy(pair["caption"]).long()))
     loss.backward()
