@@ -323,6 +323,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      lazy's tokens equal bit for bit, 0 / 8 / 4 / 20 launches a step
      (the full-vocab head, no band kernel), the share of beams equal to
      topk's and each impl's device ms a step (the `phase22` JSON line).
+  23. the decoder's options at the flagship's full width (d = 1024, 16
+     heads, FFN 4096, kernels 3/7/15/31, bands 5000/20000/50265, bf16,
+     flash, seeded random weights), set A (`conv_type: lightweight`, no
+     GLU, raw taps, `normalize_before` with `final_norm`, `conv_dim:
+     512`: the plain decode step) and set B (`remat`,
+     `tie_adaptive_proj`, `adaptive_softmax_dropout: 0.1`: the kernel
+     route): first the ops: flash forward and backward and
+     `decode_cross_attention` over an attention without bias slots,
+     zero slot or projection biases (S' = S = 49 and 512), and
+     `band_topk_lse` over an untied adaptive softmax's `factor: 4` bands
+     (1024 / 256 / 64 wide), each against its plain twin at phase 3's
+     tolerances; then per set 8 bf16_o2 train steps at B=16 (finite
+     losses; 8 + 8 flash launches a step, 16 + 8 with remat), for B the
+     dropout-on loss and gradients with and without remat (phase 5's 1%
+     and phase 3's gradient tolerance); greedy (16 steps) and beam-5 at
+     B=16, launches a greedy step 3 / 8 / 0 / 0 (A) and 3 / 8 / 4 / 4
+     (B), step 0 against the fp32 plain path on the CPU (rows whose
+     fp32 top-1 leads by more than 0.2 equal, 0.75 of all, the
+     agreement printed); set A's speculative greedy (oracle drafts)
+     equal to its greedy (the `options` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -5801,6 +5821,287 @@ def phase22(torch, flash, counted, shard_paths):
     return launches, summary
 
 
+# Phase 23's option sets on the flagship (ROADMAP Queue 1 item 8b).
+OPTION_SETS = {
+    "A": dict(conv_type="lightweight", decoder_glu=False,
+              weight_softmax=False, normalize_before=True, final_norm=True,
+              conv_dim=512),
+    "B": dict(remat=True, tie_adaptive_proj=True,
+              adaptive_softmax_dropout=0.1),
+}
+
+
+def options_model(torch, opts: dict, device, dtype, seed: int = 0):
+    """The flagship captioner with `opts`, its training dropouts and
+    flash, random weights drawn on `device` from `seed`."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP, FLAGSHIP_TRAIN
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return TransformerFlattened(device=device, dtype=dtype, generator=gen,
+                                **FLAGSHIP, **FLAGSHIP_TRAIN, **opts)
+
+
+def options_ops_phase(torch, flash, xattn, band) -> dict:
+    """Phase 23.1: the kernels at the shapes the options give them."""
+    from news_image_caption_tpu_torch.ops.adaptive import AdaptiveSoftmax
+    from news_image_caption_tpu_torch.ops.attention import \
+        MultiHeadAttention
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    E, H, B = 1024, 16, 16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(bf16)
+
+    errs = {}
+    seed = torch.tensor([23], dtype=torch.int32, device=dev)
+    for S, kdim in ((49, 2048), (512, 1024)):
+        attn = MultiHeadAttention(E, H, kdim, use_bias=False,
+                                  add_bias_kv=False, add_zero_attn=False,
+                                  use_flash=True, device=dev, dtype=bf16,
+                                  generator=gen)
+        mask = torch.zeros(B, S, dtype=torch.bool, device=dev)
+        mask[B // 2:, S // 2:] = True
+        with torch.no_grad():
+            kv = attn.precompute_kv(rn(B, S, kdim), rn(B, S, kdim), mask)
+            check(kv.k.shape == (B, S, E), f"S' = {kv.k.shape[1]}, not {S}")
+            q = attn.q_proj(rn(B, 63, E)) * (E // H) ** -0.5
+            flash_case(torch, flash, f"no extra slots S'={S}", q.contiguous(),
+                       kv.k, kv.v, rn(B, 63, E, scale=0.1), kv.bias, seed, H,
+                       0.1)
+            q1 = attn.q_proj(rn(B, 1, E)) * (E // H) ** -0.5
+            errs[f"decode_cross_attention_S{S}"] = attention_case(
+                torch, xattn, f"no extra slots S'={S}", q1.contiguous(),
+                kv.k, kv.v, kv.bias, H)
+    cut = (5000, 20000, 50265)
+    sm = AdaptiveSoftmax(E, cut, factor=4.0, tied=False, device=dev,
+                         dtype=bf16, generator=gen)
+    x = rn(B, E)
+    with torch.no_grad():
+        bands = [(x, sm.head_table(None, bf16), cut[0])]
+        for i in (1, 2):
+            table = sm.word_table(i, None).contiguous()
+            bands.append((sm.tail_hidden(x, i, None).contiguous(), table,
+                          table.shape[0]))
+        for h, table, sel in bands:
+            for k in (1, 5):
+                kv_, ki, kl = band.band_topk_lse(h, table, k, sel)
+                pv, pi, pl = band.band_topk_lse_plain(h, table, k, sel)
+                torch.cuda.synchronize()
+                e_v, ok_v = within(kv_, pv, 0.03125, 0.0)
+                e_l, ok_l = within(kl, pl, 1e-3, 1e-4)
+                what = f"untied factor-4 band {tuple(table.shape)} k={k}"
+                print(f"  band_topk_lse {what}: values {e_v:.3g} (tol"
+                      f" 0.03125), lse {e_l:.3g} (tol 1e-3 + 1e-4|ref|), ids"
+                      f" equal {(ki == pi).float().mean().item():.3f}",
+                      flush=True)
+                check(ok_v and ok_l and bool((ki < sel).all()),
+                      f"band_topk_lse {what} disagrees with its plain twin")
+                errs[what] = max(e_v, e_l)
+    return errs
+
+
+def options_batch(torch, B: int, seed: int):
+    from news_image_caption_tpu_torch.config import (FLAGSHIP,
+                                                     FLAGSHIP_ARTICLE_LEN,
+                                                     FLAGSHIP_CAPTION_LEN,
+                                                     FLAGSHIP_IMAGE_LEN)
+    from news_image_caption_tpu_torch.data.synthetic import (
+        SyntheticNewsDataset, to_device)
+    ds = SyntheticNewsDataset(
+        size=B, vocab_size=FLAGSHIP["vocab_size"],
+        caption_len=FLAGSHIP_CAPTION_LEN, article_len=FLAGSHIP_ARTICLE_LEN,
+        n_patches=FLAGSHIP_IMAGE_LEN, image_dim=FLAGSHIP["image_dim"],
+        article_dim=FLAGSHIP["article_dim"], seed=seed)
+    return to_device(next(ds.batches(B, shuffle=False)), "cuda")
+
+
+def options_train(torch, flash, name: str, opts: dict) -> dict:
+    """Phase 23.2: 8 bf16_o2 train steps at B=16; for a remat set, the
+    loss and gradients with and without remat."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP_OPTIMIZER
+    from news_image_caption_tpu_torch.training.optim import make_bert_adam
+    from news_image_caption_tpu_torch.training.train_step import (
+        cast_floats, create_o2_train_state, make_train_step)
+    bf16 = torch.bfloat16
+    model = options_model(torch, opts, "cuda", bf16)
+    batch = options_batch(torch, 16, 0)
+    out = {}
+    if opts.get("remat"):
+        dec = model.decoder
+        runs = []
+        for on in (False, True):
+            dec.remat = on
+            dec.zero_grad()
+            loss = model.loss_fn(cast_floats(batch, bf16), torch.Generator(
+                device="cuda").manual_seed(7))[0]
+            loss.backward()
+            runs.append((loss.item(), {k: p.grad.clone() for k, p in
+                                       dec.named_parameters()}))
+        dec.zero_grad()
+        (l0, g0), (l1, g1) = runs
+        worst, same = 0.0, l0 == l1
+        for k in g0:
+            e, ok = within(g1[k], g0[k],
+                           0.02 * g0[k].float().abs().max().item(), 0.02)
+            worst = max(worst, e)
+            same = same and bool(torch.equal(g0[k], g1[k]))
+            check(ok, f"set {name}: the remat gradient of {k} differs")
+        print(f"  set {name} remat vs not, dropout on: loss {l1:.6f} vs"
+              f" {l0:.6f} (tol 1%), gradients max |diff| {worst:.3g} (tol"
+              f" 0.02 max|ref| + 0.02|ref|), bit-identical {same}",
+              flush=True)
+        check(abs(l1 - l0) <= 0.01 * abs(l0), f"set {name}: remat loss")
+        out["remat_vs_not"] = {"loss": [l0, l1], "grad_max_abs_diff": worst,
+                               "bit_identical": same}
+        dec.remat = True
+    tx = make_bert_adam(**dict(FLAGSHIP_OPTIMIZER, t_total=100))
+    state = create_o2_train_state(model.decoder, tx)
+    step = make_train_step(model.loss_fn, tx, compute_dtype=bf16)
+    counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+               "flash_attention_bwd": flash.flash_attention_bwd}
+    losses, walls = [], []
+    for k in counted.values():
+        k.launches = 0
+    for _ in range(8):
+        t = time.perf_counter()
+        state, m = step(state, batch, 0)
+        losses.append(m["loss"].item())
+        walls.append(time.perf_counter() - t)
+    got = {n: k.launches for n, k in counted.items()}
+    fwd = 16 if opts.get("remat") else 8
+    print(f"  set {name}: 8 train steps, losses " + " ".join(
+        f"{x:.4f}" for x in losses) + f"; flash {got} (expected {fwd} + 8 a"
+          f" step); step ms median {sorted(walls)[4] * 1e3:.1f}", flush=True)
+    check(all(np.isfinite(losses)), f"set {name}: a train loss is not finite")
+    check(got == {"flash_attention_fwd": 8 * fwd, "flash_attention_bwd": 64},
+          f"set {name}: flash launches {got}")
+    del state, step, model
+    torch.cuda.empty_cache()
+    out.update(losses=losses, flash_launches=got,
+               step_ms_median=sorted(walls)[4] * 1e3)
+    return out
+
+
+def options_decode(torch, counted, name: str, opts: dict):
+    """Phase 23.3: greedy and beam-5 at B=16 over 16 steps on the card,
+    launches a step, step 0 against the fp32 plain path on the CPU, and
+    (set A) speculative greedy against greedy. Returns (launches by
+    path, a summary)."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    B, steps = 16, 16
+    model = options_model(torch, opts, "cuda", torch.bfloat16)
+    model.decoder.eval()
+    weights = model.decoder.decode_weights()
+    job = make_job(np.random.RandomState(23), B,
+                   np.random.RandomState(24).randint(20, 513, size=B))
+    batch = stage_batch(torch, job, "cuda")
+    cfg = GenerationConfig(max_len=steps, early_exit=False)
+    fused = model.decoder.layers[0].fused_decode_ok()
+    per_step = dict(greedy_launches_a_step())
+    if not fused:
+        per_step.update(decode_conv_block=0, decode_ffn_block=0)
+    launches, out = {}, {"card": card_line(), "kernel_route": fused}
+    with torch.inference_mode():
+        model.generate(batch, cfg, weights)                 # warm-up
+        (tok, lp), got, wall = counted_run(
+            counted, lambda: model.generate(batch, cfg, weights))
+        tok = tok.cpu().numpy()
+        check_tokens(tok, B, cfg, FLAGSHIP["vocab_size"])
+        check_launches(f"set {name} greedy", got, per_step, steps)
+        launches[f"options_{name}_greedy"] = got
+        out["greedy_ms"] = wall * 1e3
+        bcfg = dataclasses.replace(cfg, beam_size=5)
+        plan = beam_launches_a_step(torch, B * 5, 5)
+        if not fused:
+            plan.update(decode_conv_block=0, decode_ffn_block=0)
+        (btok, bscores), got, wall = counted_run(
+            counted, lambda: model.generate_beam(batch, bcfg, weights))
+        btok, bscores = btok.cpu().numpy(), bscores.cpu().numpy()
+        check_beams(btok, bscores, B, bcfg, FLAGSHIP["vocab_size"])
+        check_launches(f"set {name} beam-5", got, plan, steps)
+        launches[f"options_{name}_beam5"] = got
+        out["beam5_ms"] = wall * 1e3
+        if name == "A":
+            source = np.concatenate([tok, tok], axis=1)
+            sbatch = dict(batch, article_ids=torch.as_tensor(source).cuda())
+            (stok, _, n_chunks), got, _ = counted_run(
+                counted, lambda: model.generate_speculative(
+                    sbatch, cfg, weights, spec_k=4))
+            stok = stok.cpu().numpy()
+            equal = float((stok == tok).all(-1).mean())
+            print(f"  set {name} speculative greedy (spec_k 4, oracle"
+                  f" drafts): {n_chunks} chunks for {steps} steps, rows"
+                  f" equal to greedy {equal:.3f}", flush=True)
+            check(equal == 1.0, f"set {name}: speculative tokens differ from"
+                  " greedy's")
+            launches[f"options_{name}_speculative"] = got
+            out["speculative"] = {"chunks": int(n_chunks),
+                                  "rows_equal_to_greedy": equal}
+    # Step 0 against the fp32 plain path on the CPU, the same weights.
+    t = time.perf_counter()
+    cpu = options_model(torch, opts, "cpu", torch.float32)
+    cpu.decoder.load_state_dict({k: v.float().cpu() for k, v in
+                                 model.decoder.state_dict().items()})
+    cpu.decoder.eval()
+    del model, weights
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        cbatch = {k: (v.float() if v.is_floating_point() else v)
+                  for k, v in stage_batch(torch, job, "cpu").items()}
+        ctok, clp = cpu.generate(cbatch, cfg)
+        kvs, caches, seed, w = cpu._decode_setup(cbatch, cfg, None, 1)
+        top2, _ = cpu.decoder.step_topk(seed, 0, kvs, caches, 2, w)
+    ctok = ctok.numpy()
+    lead = (top2[:, 0] - top2[:, 1]).numpy()
+    decided = lead > 0.2
+    same0 = tok[:, 1] == ctok[:, 1]
+    e0 = float(np.abs(lp.cpu().numpy()[:, 0] - clp.numpy()[:, 0]).max())
+    agree = float((tok[:, 1:] == ctok[:, 1:]).mean())
+    beam_first = float(np.mean([ctok[i, 1] in btok[i, :, 1]
+                                for i in range(B)]))
+    print(f"  set {name} vs the fp32 plain path on the CPU"
+          f" ({time.perf_counter() - t:.1f} s): step-0 tokens equal"
+          f" {same0.mean():.3f} (min 0.75; {decided.sum()} rows lead by"
+          f" > 0.2, all equal: {bool(same0[decided].all())}), step-0"
+          f" log-prob max |diff| {e0:.4g} (tol 0.1), token agreement over"
+          f" {steps} steps {agree:.3f}; items whose beams start with the"
+          f" plain path's greedy token {beam_first:.3f}", flush=True)
+    check(bool(same0[decided].all()), f"set {name}: a decided step-0 token"
+          " differs from the fp32 plain path's")
+    check(same0.mean() >= 0.75 and e0 <= 0.1,
+          f"set {name}: step 0 differs from the fp32 plain path")
+    out.update(step0_tokens_equal=float(same0.mean()),
+               step0_rows_decided=int(decided.sum()),
+               step0_logprob_max_abs_diff=e0, token_agreement=agree,
+               beams_holding_plain_first_token=beam_first)
+    return launches, out
+
+
+def options_phase(torch, flash, counted, ops):
+    """Phase 23. Returns (each path's launches, a summary)."""
+    xattn, band = ops
+    t = time.perf_counter()
+    summary = {"ops": options_ops_phase(torch, flash, xattn, band),
+               "card": card_line()}
+    launches = {}
+    for name, opts in OPTION_SETS.items():
+        summary[f"train_{name}"] = options_train(torch, flash, name, opts)
+        launches[f"options_{name}_train"] = \
+            summary[f"train_{name}"]["flash_launches"]
+        more, summary[f"decode_{name}"] = options_decode(torch, counted,
+                                                         name, opts)
+        launches.update(more)
+    for path, counts in launches.items():
+        check(any(counts.values()), f"phase 23 {path}: no kernel launched")
+    summary["wall_s"] = time.perf_counter() - t
+    return launches, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6061,6 +6362,20 @@ def main() -> None:
                 by_path[name][path] = n
     print(json.dumps({"phase22": {**p22_summary,
                                   "launches": p22_launches}}), flush=True)
+
+    print("phase 23: the decoder's options at flagship width (lightweight"
+          " conv, no GLU, pre-norm with final norm, conv_dim 512; remat,"
+          " tied tail projections, tail dropout; the attention's and the"
+          " adaptive softmax's module options; bf16)", flush=True)
+    opt_launches, opt_summary = options_phase(
+        torch, flash_attention, counted, (decode_attention, band_topk))
+    for path, counts in opt_launches.items():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name][path] = n
+    print(json.dumps({"options": {**opt_summary,
+                                  "launches": opt_launches}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

@@ -435,11 +435,13 @@ def checkpoint_model(cfg: Dict, ckpt_dir: str, which: str,
                      device: torch.device):
     """The config's model holding the params of checkpoint `which`
     (best, latest, a step or avg:N, their fp64 mean), cast to the
-    evaluate dtype. The params must have the model's names and shapes in
-    the training precision's stored dtype (bf16 for bf16_o2, else fp32),
-    so a checkpoint of another model or precision raises."""
+    evaluate dtype. The params must have the model's names, shapes and
+    the dtypes its training precision stores (bf16 for bf16_o2; else
+    fp32, or the config's `param_dtype` where narrower), so a checkpoint
+    of another model or precision raises."""
     stored = (torch.bfloat16 if _precision(cfg) == "bf16_o2"
               else torch.float32)
+    layout = build_model(cfg, "meta", stored).param_module
     store = CheckpointStore(ckpt_dir)
     if which.startswith("avg:"):
         params = store.read_averaged(last_n=int(which[4:]), key="params")
@@ -447,8 +449,8 @@ def checkpoint_model(cfg: Dict, ckpt_dir: str, which: str,
         params = store.read(which)["params"]
     model = build_model(cfg, device, _evaluate_dtype(device))
     module = model.param_module
-    template = {k: torch.empty(p.shape, dtype=stored, device="meta")
-                for k, p in module.named_parameters()}
+    template = {k: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                for k, p in layout.named_parameters()}
     check_layout(template, params, "params")
     module.load_state_dict(params)
     module.eval()

@@ -28,10 +28,13 @@ type `lstm_decoder_flattened`), the Gen-2 captioner
 check them, the online pipeline (`gen3_pipeline`, `models/pipeline.py`:
 `weigh_bert`, the `resnet` and `roberta` blocks, the `decoder:` block or
 the model block's own decoder keys) and TGNC (`tgnc`, `models/tgnc.py`:
-its own keys, then its template-guided or flattened decoder's). The
-decoder options the port implements at one value only raise
-`NotImplementedError` naming the ROADMAP item that ports them; an
-unknown model type raises KeyError. `build_optimizer` builds
+its own keys, then its template-guided or flattened decoder's). Every
+option of the reference's decoder dataclasses builds (`param_dtype` a
+dtype spelling as `dtype`); `use_fused_decode` and `flash_interpret`,
+which pick the reference's TPU kernels or their interpreter, are
+accepted and dropped, since the port's kernels run wherever the model's
+tensors are on the card. An unknown key raises TypeError, an unknown
+model type KeyError. `build_optimizer` builds
 `bert_adam`, `noam` and `gen1_adam`, and leaves a model's
 `frozen_collections` out of them (`mask_frozen`).
 
@@ -123,12 +126,9 @@ FLAGSHIP_BATCH_SIZE = 16
 FLAGSHIP_CAPTION_LEN = 64
 
 
-# Decoder options (reference `DynamicConvDecoder` fields) that the port
-# implements at one value: any other raises.
-_FIXED = dict(conv_type="dynamic", decoder_glu=True, weight_softmax=True,
-              normalize_before=False, final_norm=False, conv_dim=None,
-              adaptive_softmax_dropout=0.0, tie_adaptive_proj=False,
-              remat=False, param_dtype=torch.float32)
+# Reference `DynamicConvDecoder` fields that choose among its TPU
+# kernels and their interpreter: the port has one route per device.
+_TPU_ONLY = ("use_fused_decode", "flash_interpret")
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
 # How the built-in model types' blocks become their builders' keywords,
@@ -248,22 +248,17 @@ def decoder_kwargs(cfg: Dict) -> Dict:
 
 
 def _decoder_args(dcfg: Dict) -> Dict:
-    """A decoder block as `DynamicConvDecoder` arguments: the options the
-    port fixes checked, the dtype and lists converted."""
+    """A decoder block as `DynamicConvDecoder` arguments: the dtypes and
+    lists converted, the TPU kernel switches dropped."""
     dcfg = dict(dcfg)
     dtype_ = dcfg.pop("type", "dynamic_conv_decoder_flattened")
     if DECODERS.get(dtype_) is not DynamicConvDecoder:
         raise KeyError(f"decoder type {dtype_!r} is not a "
                        "dynamic_conv_decoder_flattened")
-    for key, want in _FIXED.items():
-        if key in dcfg:
-            got = dcfg.pop(key)
-            norm = (config_dtype(got) if key == "param_dtype"
-                    else tuple(got) if isinstance(got, list) else got)
-            if norm != want:
-                raise NotImplementedError(
-                    f"decoder {key}={got!r}: the port implements {want!r} "
-                    "only (ROADMAP Queue 1 item 8)")
+    for key in _TPU_ONLY:
+        dcfg.pop(key, None)
+    if "param_dtype" in dcfg:
+        dcfg["param_dtype"] = config_dtype(dcfg["param_dtype"])
     dcfg["dtype"] = config_dtype(dcfg.pop("dtype", "float32"))
     if "extra_contexts" in dcfg:        # [[name, dim], ...] in YAML
         dcfg["extra_contexts"] = tuple(

@@ -1,10 +1,12 @@
 """Dynamic-convolution caption decoder (Transform-and-Tell style).
 
-Counterpart of `news_image_caption_tpu/models/decoder_flattened.py` for
-the flagship structure (dynamic conv, GLU, post-LayerNorm, tied adaptive
-softmax) over its attended contexts: image (unless `include_image` is
-False), article, then `extra_contexts` in order, such as faces and
-objects (`models/variants.py`): `SumEmbedder`,
+Counterpart of `news_image_caption_tpu/models/decoder_flattened.py`
+with every option of its dataclasses (the layer's conv width, conv type,
+GLU, taps, pre- or post-LayerNorm; the decoder's final norm, tail
+dropout, tied tail projections, remat and parameter dtype) over its
+attended contexts: image (unless `include_image` is False), article,
+then `extra_contexts` in order, such as faces and objects
+(`models/variants.py`): `SumEmbedder`,
 `DynamicConvDecoderLayer` (full-sequence forward, with the training
 dropouts, and the ring-major decode step) and `DynamicConvDecoder`
 (`precompute_kv`, `hidden`, `loss`, `log_prob`, `attention_maps`,
@@ -31,9 +33,15 @@ the reference's weights by renaming alone.
 
 The decode step runs the port's kernels: `decode_conv_block`,
 `decode_cross_attention` (inside `attend_flat_beam`), `decode_ffn_block`
-and `band_topk_lse` (inside `topk_log_prob`); the full-vocab `step`
-takes the same layer steps and ends in `AdaptiveSoftmax.log_prob`, plain
-products outside any kernel as in the reference. Their weights, with the
+and `band_topk_lse` (inside `topk_log_prob`). A layer whose structure
+the conv block's kernel does not take (`fused_decode_ok`: dynamic conv,
+GLU, softmaxed taps, post-LayerNorm, conv_dim == embed_dim) runs the
+reference's unfused conv step in plain PyTorch over the same ring-major
+cache, and a pre-norm layer its FFN so too (`fused_ffn_ok`); the
+configuration decides, once, when the decode weights are built. The
+full-vocab `step` takes the same layer steps and ends in
+`AdaptiveSoftmax.log_prob`, plain products outside any kernel as in the
+reference. The kernels' weights, with the
 weight norm folded and cast to the working dtype, come from
 `DynamicConvDecoder.decode_weights()`, computed once per model load
 rather than once per step. Each wrapper takes its plain PyTorch version
@@ -76,10 +84,11 @@ from news_image_caption_tpu_torch.ops.adaptive import (
 from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
                                                         MultiHeadAttention,
                                                         quantize_kv)
-from news_image_caption_tpu_torch.ops.conv import DynamicConv
+from news_image_caption_tpu_torch.ops.conv import (DynamicConv,
+                                                   LightweightConv)
 from news_image_caption_tpu_torch.ops.decode_blocks import (
     decode_conv_block, decode_ffn_block, pack_taps)
-from news_image_caption_tpu_torch.ops.dropout import dropout
+from news_image_caption_tpu_torch.ops.dropout import dropout, remat
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear, LayerNorm,
                                                      positionwise)
 from news_image_caption_tpu_torch.ops.positional import \
@@ -90,20 +99,23 @@ LayerKV = Dict[str, AttentionKV]
 
 
 class LayerDecodeWeights(NamedTuple):
-    """One layer's fused decode weights (weight norm folded)."""
+    """One layer's decode weights (weight norm folded). The conv block's
+    are None where the layer runs the plain conv step, the FFN's where
+    it runs the plain FFN (`DynamicConvDecoderLayer.fused_decode_ok`,
+    `fused_ffn_ok`)."""
 
-    conv_w1: torch.Tensor      # [D, 2C]
-    conv_b1: torch.Tensor
-    conv_wl: torch.Tensor      # [C, H*K], head-major tap predictor
-    conv_taps: torch.Tensor    # pack_taps(conv_wl), as the kernel reads it
-    conv_w2: torch.Tensor      # [C, D]
-    conv_b2: torch.Tensor
-    context_w: torch.Tensor    # [n_contexts * D, D]
+    conv_w1: Optional[torch.Tensor]      # [D, 2C]
+    conv_b1: Optional[torch.Tensor]
+    conv_wl: Optional[torch.Tensor]      # [C, H*K], head-major taps
+    conv_taps: Optional[torch.Tensor]    # pack_taps(conv_wl)
+    conv_w2: Optional[torch.Tensor]      # [C, D]
+    conv_b2: Optional[torch.Tensor]
+    context_w: torch.Tensor              # [n_contexts * D, D]
     context_b: torch.Tensor
-    ffn_w1: torch.Tensor       # [D, F]
-    ffn_b1: torch.Tensor
-    ffn_w2: torch.Tensor       # [F, D]
-    ffn_b2: torch.Tensor
+    ffn_w1: Optional[torch.Tensor]       # [D, F]
+    ffn_b1: Optional[torch.Tensor]
+    ffn_w2: Optional[torch.Tensor]       # [F, D]
+    ffn_b2: Optional[torch.Tensor]
 
 
 class DecodeWeights(NamedTuple):
@@ -114,18 +126,21 @@ class DecodeWeights(NamedTuple):
 
 
 class SumEmbedder(nn.Module):
-    """Adaptive word embedding + sinusoidal positions, summed."""
+    """Adaptive word embedding + sinusoidal positions, summed. The
+    tables are stored in `param_dtype` (default `dtype`); the sum is in
+    `dtype`."""
 
     def __init__(self, vocab_size: int, embed_dim: int,
                  cutoff: Sequence[int], *, device, dtype, generator=None,
                  padding_idx: int = 0, pos_padding_idx: int = 1,
-                 max_positions: int = 512):
+                 max_positions: int = 512,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         assert cutoff[-1] == vocab_size
         self.adaptive = AdaptiveEmbedding(
             cutoff, embed_dim, embed_dim, padding_idx=padding_idx,
-            scale_embeds=True, device=device, dtype=dtype,
-            generator=generator)
+            scale_embeds=True, device=device, dtype=param_dtype or dtype,
+            generator=generator, out_dtype=dtype)
         self.position = SinusoidalPositionalEmbedding(
             embed_dim, padding_idx=pos_padding_idx, init_size=max_positions,
             device=device, dtype=dtype)
@@ -142,29 +157,54 @@ class SumEmbedder(nn.Module):
                 for i in range(self.n_bands)]
 
 
+CONV_TYPES = {"dynamic": DynamicConv, "lightweight": LightweightConv}
+
+
 class DynamicConvDecoderLayer(nn.Module):
     """Conv block, then one attention per context fused by `context_fc`,
-    then the FFN; LayerNorm after each block."""
+    then the FFN. The reference's options: `conv_dim` (the conv block's
+    width C, default D), `conv_type` ("dynamic" or "lightweight"),
+    `decoder_glu` (linear1 to 2C and a GLU, or to C), `weight_softmax`,
+    and `normalize_before` (each block's LayerNorm on its input, not on
+    its output after the residual). The parameters of the linears, the
+    conv and the attentions are stored in `param_dtype` (default
+    `dtype`); the LayerNorms' in `dtype`."""
 
     def __init__(self, embed_dim: int, kernel_size: int, num_heads: int,
                  ffn_dim: int, context_specs: Sequence[Tuple[str, int]], *,
                  device, dtype, generator=None, dropout: float = 0.1,
                  weight_dropout: float = 0.1, relu_dropout: float = 0.0,
                  input_dropout: float = 0.1, attention_dropout: float = 0.1,
-                 use_flash_train: bool = False):
+                 use_flash_train: bool = False,
+                 conv_dim: Optional[int] = None, conv_type: str = "dynamic",
+                 decoder_glu: bool = True, weight_softmax: bool = True,
+                 normalize_before: bool = False,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        if conv_type not in CONV_TYPES:
+            raise ValueError(f"conv_type {conv_type!r}: expected one of "
+                             f"{sorted(CONV_TYPES)}")
+        kw = dict(device=device, dtype=param_dtype or dtype,
+                  generator=generator)
         D = embed_dim
+        C = conv_dim or D
+        self.embed_dim = D
+        self.conv_dim = C
+        self.conv_type = conv_type
+        self.decoder_glu = decoder_glu
+        self.weight_softmax = weight_softmax
+        self.normalize_before = normalize_before
         self.dropout = dropout
         self.relu_dropout = relu_dropout
         self.input_dropout = input_dropout
         self.num_heads = num_heads
         self.kernel_size = kernel_size
         self.context_names = [name for name, _ in context_specs]
-        self.linear1 = GehringLinear(D, 2 * D, **kw)
-        self.conv = DynamicConv(D, kernel_size, num_heads,
-                                weight_dropout=weight_dropout, **kw)
-        self.linear2 = GehringLinear(D, D, **kw)
+        self.linear1 = GehringLinear(D, (2 if decoder_glu else 1) * C, **kw)
+        self.conv = CONV_TYPES[conv_type](
+            C, kernel_size, num_heads, weight_softmax=weight_softmax,
+            weight_dropout=weight_dropout, **kw)
+        self.linear2 = GehringLinear(C, D, **kw)
         self.conv_layer_norm = LayerNorm(D, device=device, dtype=dtype)
         for name, kdim in context_specs:
             setattr(self, f"{name}_attn",
@@ -178,11 +218,31 @@ class DynamicConvDecoderLayer(nn.Module):
         self.fc2 = GehringLinear(ffn_dim, D, **kw)
         self.final_layer_norm = LayerNorm(D, device=device, dtype=dtype)
 
+    def fused_decode_ok(self) -> bool:
+        """Whether the decode step's conv block runs `decode_conv_block`:
+        the flagship's structure, the reference's `fused_decode_ok`
+        terms (dynamic conv, GLU, softmaxed taps, post-LayerNorm) with
+        the kernel's one width (conv_dim == embed_dim). Decided by the
+        configuration alone; otherwise the plain step runs."""
+        return (self.conv_type == "dynamic" and self.decoder_glu
+                and self.weight_softmax and not self.normalize_before
+                and self.conv_dim == self.embed_dim)
+
+    def fused_ffn_ok(self) -> bool:
+        """Whether the decode step's FFN runs `decode_ffn_block`: its
+        LayerNorm after the residual (the reference's `_ffn_block`)."""
+        return not self.normalize_before
+
     def _attn(self, name: str) -> MultiHeadAttention:
         return getattr(self, f"{name}_attn")
 
     def _attn_ln(self, name: str) -> LayerNorm:
         return getattr(self, f"{name}_attn_ln")
+
+    def _ln(self, ln: LayerNorm, x: torch.Tensor, before: bool):
+        """The reference's `_maybe_ln`: ln(x) where the block's LayerNorm
+        sits at this end of it (before or after)."""
+        return ln(x) if before == self.normalize_before else x
 
     def precompute_kv(self, contexts: Dict[str, torch.Tensor],
                       quantize: bool = False) -> LayerKV:
@@ -195,6 +255,23 @@ class DynamicConvDecoderLayer(nn.Module):
             out[name] = quantize_kv(kv, self.num_heads) if quantize else kv
         return out
 
+    def _conv_in(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """The conv block's input to the conv: [LayerNorm,] input
+        dropout, linear1[, GLU]."""
+        h = self.linear1(dropout(self._ln(self.conv_layer_norm, x, True),
+                                 self.input_dropout, generator))
+        if self.decoder_glu:
+            a, g = h.chunk(2, dim=-1)
+            h = a * torch.sigmoid(g)
+        return h
+
+    def _ffn(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """The FFN block, its residual and LayerNorm."""
+        y = self.fc1(self._ln(self.final_layer_norm, x, True))
+        y = dropout(torch.relu(y), self.relu_dropout, generator)
+        y = dropout(self.fc2(y), self.dropout, generator)
+        return self._ln(self.final_layer_norm, x + y, False)
+
     def forward(self, x: torch.Tensor, kv: LayerKV,
                 generator: Optional[torch.Generator] = None,
                 need_attn: bool = False):
@@ -205,49 +282,65 @@ class DynamicConvDecoderLayer(nn.Module):
         def drop(t, rate):
             return dropout(t, rate, generator)
 
-        a, g = self.linear1(drop(x, self.input_dropout)).chunk(2, dim=-1)
-        h = self.conv(a * torch.sigmoid(g), generator)
-        x = self.conv_layer_norm(x + drop(self.linear2(h), self.dropout))
+        h = self.conv(self._conv_in(x, generator), generator)
+        x = self._ln(self.conv_layer_norm,
+                     x + drop(self.linear2(h), self.dropout), False)
         parts, attns = [], {}
         for name in self.context_names:
-            y = self._attn(name).attend(x, kv[name], generator, need_attn)
+            ln = self._attn_ln(name)
+            y = self._attn(name).attend(self._ln(ln, x, True), kv[name],
+                                        generator, need_attn)
             if need_attn:
                 y, attns[name] = y
-            parts.append(self._attn_ln(name)(x + drop(y, self.dropout)))
-        x = self.context_fc(torch.cat(parts, dim=-1))
-        y = drop(torch.relu(self.fc1(x)), self.relu_dropout)
-        y = drop(self.fc2(y), self.dropout)
-        x = self.final_layer_norm(x + y)
+            parts.append(self._ln(ln, x + drop(y, self.dropout), False))
+        x = self._ffn(self.context_fc(torch.cat(parts, dim=-1)), generator)
         return (x, attns) if need_attn else x
 
     def decode_weights(self, dtype: torch.dtype) -> LayerDecodeWeights:
-        w1, b1 = self.linear1.folded(dtype)
-        w2, b2 = self.linear2.folded(dtype)
-        cw, cb = self.context_fc.folded(dtype)
-        f1, fb1 = self.fc1.folded(dtype)
-        f2, fb2 = self.fc2.folded(dtype)
-        wl = self.conv.weight_linear.kernel.to(dtype).contiguous()
-        return LayerDecodeWeights(w1, b1, wl, pack_taps(wl, self.num_heads),
-                                  w2, b2, cw, cb, f1, fb1, f2, fb2)
+        """The step's weights in `dtype`: the fused kernels' folded
+        weights where the layer's structure takes them (`fused_decode_ok`,
+        `fused_ffn_ok`), None in their place otherwise."""
+        conv, ffn = (None,) * 6, (None,) * 4
+        if self.fused_decode_ok():
+            w1, b1 = self.linear1.folded(dtype)
+            w2, b2 = self.linear2.folded(dtype)
+            wl = self.conv.weight_linear.kernel.to(dtype).contiguous()
+            conv = (w1, b1, wl, pack_taps(wl, self.num_heads), w2, b2)
+        if self.fused_ffn_ok():
+            ffn = self.fc1.folded(dtype) + self.fc2.folded(dtype)
+        return LayerDecodeWeights(*conv, *self.context_fc.folded(dtype),
+                                  *ffn)
 
-    def _conv_step(self, x_t: torch.Tensor, cache: torch.Tensor, t,
+    def _conv_step(self, x_t: torch.Tensor, ring: torch.Tensor, t,
                    w: LayerDecodeWeights):
-        """The conv block of one token a row through `decode_conv_block`:
-        (y [N, D] before its LayerNorm, the GLU row h [N, C])."""
-        return decode_conv_block(x_t, cache, t, w.conv_w1, w.conv_b1,
-                                 w.conv_wl, w.conv_w2, w.conv_b2,
-                                 self.num_heads, taps=w.conv_taps)
+        """The conv block of one token a row over a ring-major cache:
+        (its output x [N, D], the conv's input row h [N, C] to write into
+        the ring). Through `decode_conv_block` where `w` has the fused
+        weights, else the plain step (the reference's unfused step:
+        `_conv_block_pre`, the conv's ring step, `_conv_block_post`)."""
+        if w.conv_w1 is not None:
+            y, h = decode_conv_block(x_t, ring, t, w.conv_w1, w.conv_b1,
+                                     w.conv_wl, w.conv_w2, w.conv_b2,
+                                     self.num_heads, taps=w.conv_taps)
+            return self.conv_layer_norm(y), h
+        h = self._conv_in(x_t)
+        y = x_t + self.linear2(self.conv.ring_step(h, ring, t))
+        return self._ln(self.conv_layer_norm, y, False), h
 
-    def _after_conv(self, y: torch.Tensor, kv: LayerKV,
+    def _after_conv(self, x: torch.Tensor, kv: LayerKV,
                     w: LayerDecodeWeights, beam: int) -> torch.Tensor:
-        """The conv block's LayerNorm, the context attentions of
-        [B*beam, D] rows over the untiled batch's K/V, `context_fc` and
-        the FFN."""
-        x = self.conv_layer_norm(y)
-        parts = [self._attn_ln(name)(
-                     x + self._attn(name).attend_flat_beam(x, kv[name], beam))
-                 for name in self.context_names]
+        """The context attentions of [B*beam, D] rows over the untiled
+        batch's K/V, `context_fc` and the FFN (`decode_ffn_block` where
+        `w` has its weights)."""
+        parts = []
+        for name in self.context_names:
+            ln = self._attn_ln(name)
+            y = self._attn(name).attend_flat_beam(self._ln(ln, x, True),
+                                                  kv[name], beam)
+            parts.append(self._ln(ln, x + y, False))
         x = torch.cat(parts, dim=-1) @ w.context_w + w.context_b
+        if w.ffn_w1 is None:
+            return self._ffn(x)
         y = decode_ffn_block(x, w.ffn_w1, w.ffn_b1, w.ffn_w2, w.ffn_b2)
         return self.final_layer_norm(y)
 
@@ -256,12 +349,12 @@ class DynamicConvDecoderLayer(nn.Module):
         """One decode step, x_t [B*beam, D]. cache [K-1, B*beam, C] is
         the ring-major conv history; t is the step index of every row
         (an int) or each row's position (an int32 [B*beam] tensor on
-        x_t's device). The GLU row of a row at position p is written into
-        its slot p mod (K-1) in place (a pointwise layer, K = 1, has an
-        empty ring)."""
-        y, h = self._conv_step(x_t, cache, t, w)
+        x_t's device). The conv input row of a row at position p is
+        written into its slot p mod (K-1) in place (a pointwise layer,
+        K = 1, has an empty ring)."""
+        x, h = self._conv_step(x_t, cache, t, w)
         self._write_ring(cache, t, h)
-        return self._after_conv(y, kv, w, beam)
+        return self._after_conv(x, kv, w, beam)
 
     def step_shift(self, x_t: torch.Tensor, kv: LayerKV,
                    cache: torch.Tensor, w: LayerDecodeWeights,
@@ -269,9 +362,9 @@ class DynamicConvDecoderLayer(nn.Module):
         """One decode step over a shifted-copy cache [N, K-1, C], the
         inputs oldest first: (x [N, D], the new cache)."""
         ring = cache.transpose(0, 1).contiguous()
-        y, h = self._conv_step(x_t, ring, 0, w)
+        x, h = self._conv_step(x_t, ring, 0, w)
         new_cache = torch.cat([cache, h[:, None]], dim=1)[:, 1:]
-        return self._after_conv(y, kv, w, beam), new_cache
+        return self._after_conv(x, kv, w, beam), new_cache
 
     def step_lazy_beam(self, x_t: torch.Tensor, kv: LayerKV,
                        cache: torch.Tensor, slot_map: torch.Tensor, t: int,
@@ -281,16 +374,16 @@ class DynamicConvDecoderLayer(nn.Module):
         advance in place."""
         Km1 = self.kernel_size - 1
         slots = torch.arange(Km1, device=cache.device)[:, None]
-        y, h = self._conv_step(x_t, cache[slots, slot_map], t, w)
+        x, h = self._conv_step(x_t, cache[slots, slot_map], t, w)
         if Km1:
             cache[t % Km1] = h
             slot_map[t % Km1] = torch.arange(h.shape[0],
                                              device=slot_map.device)
-        return self._after_conv(y, kv, w, beam)
+        return self._after_conv(x, kv, w, beam)
 
     def _write_ring(self, cache: torch.Tensor, t, h: torch.Tensor) -> None:
-        """Each row's GLU row h into its slot t mod (K-1), in place: t an
-        int for every row, or an [N] tensor of positions."""
+        """Each row's conv input h into its slot t mod (K-1), in place: t
+        an int for every row, or an [N] tensor of positions."""
         Km1 = self.kernel_size - 1
         if Km1 == 0:
             return
@@ -305,46 +398,49 @@ class DynamicConvDecoderLayer(nn.Module):
         """k decode steps of each row at once, x [B, k, D], the same math
         as k sequential `step`s: the conv is the layer's only mixing over
         time. pos [B] int32: each row's count of tokens consumed. The
-        conv block runs `decode_conv_block` position by position at the
-        rows' positions, over a copy of the ring that takes each
-        position's GLU row (k launches of the one-token kernel, so the
+        conv block runs position by position at the rows' positions
+        (`decode_conv_block`, or the plain step), over a copy of the ring
+        that takes each position's conv input (k one-token steps, so the
         chunk's conv block sums as the sequential steps sum); the
         context attentions' kernel reads a row's k positions at once
         over its K/V, and the FFN's takes the B*k rows at once (both
         kernels sum each row alone); the plain products between them run
         position by position at a step's shapes (`_after_conv_chunk`).
         The cache is not advanced. Returns (x [B, k, D], h [B, k, C]: the
-        conv inputs, the GLU rows that `commit_conv_caches` writes for
-        the verified prefix)."""
+        conv inputs that `commit_conv_caches` writes for the verified
+        prefix)."""
         B, k, D = x.shape
         ring = cache.clone() if k > 1 else cache
-        ys, hs = [], []
+        xs, hs = [], []
         for j in range(k):
             p = pos + j if j else pos
             y, h = self._conv_step(x[:, j].contiguous(), ring, p, w)
             if j < k - 1:
                 self._write_ring(ring, p, h)
-            ys.append(y)
+            xs.append(y)
             hs.append(h)
-        y, h = torch.stack(ys, dim=1), torch.stack(hs, dim=1)
-        return self._after_conv_chunk(y, kv, w), h
+        x, h = torch.stack(xs, dim=1), torch.stack(hs, dim=1)
+        return self._after_conv_chunk(x, kv, w), h
 
-    def _after_conv_chunk(self, y: torch.Tensor, kv: LayerKV,
+    def _after_conv_chunk(self, x: torch.Tensor, kv: LayerKV,
                           w: LayerDecodeWeights) -> torch.Tensor:
-        """`_after_conv` of k positions a row, y [B, k, D]: the attention
+        """`_after_conv` of k positions a row, x [B, k, D]: the attention
         kernel on a row's k positions at once (`attend_chunk`), the FFN
         kernel on the B*k rows, the LayerNorms on every row (row by row
-        in any case), and the products `attend_chunk`'s projections and
-        `context_fc` position by position, so that each position sums
-        as a step's (a library product may sum in another order at
-        another row count)."""
-        B, k, D = y.shape
-        x = self.conv_layer_norm(y)
-        parts = [self._attn_ln(name)(
-                     x + self._attn(name).attend_chunk(x, kv[name]))
-                 for name in self.context_names]
+        in any case), and the products `attend_chunk`'s projections,
+        `context_fc` and a plain FFN's position by position, so that each
+        position sums as a step's (a library product may sum in another
+        order at another row count)."""
+        B, k, D = x.shape
+        parts = []
+        for name in self.context_names:
+            ln = self._attn_ln(name)
+            y = self._attn(name).attend_chunk(self._ln(ln, x, True), kv[name])
+            parts.append(self._ln(ln, x + y, False))
         x = positionwise(lambda r: r @ w.context_w + w.context_b,
                          torch.cat(parts, dim=-1))
+        if w.ffn_w1 is None:
+            return positionwise(self._ffn, x)
         y = decode_ffn_block(x.reshape(B * k, D), w.ffn_w1, w.ffn_b1,
                              w.ffn_w2, w.ffn_b2)
         return self.final_layer_norm(y).view(B, k, D)
@@ -365,6 +461,18 @@ class DynamicConvDecoder(nn.Module):
     padding, and each extra context [B, n, dim] with its `{name}_mask`.
     The order of the contexts (image, article, extras) names the layers'
     attentions and fixes the rows of `context_fc`.
+
+    The reference's options: the layers' (`conv_dim`, `conv_type`,
+    `decoder_glu`, `weight_softmax`, `normalize_before`), `final_norm`
+    (a LayerNorm `layer_norm` after the stack, with normalize_before),
+    `adaptive_softmax_dropout` and `tie_adaptive_proj` (the adaptive
+    softmax's tail dropout and its tails projected by the embedder's
+    band projections), `remat` (each layer of the teacher-forced path
+    under `ops/dropout.py::remat`) and `param_dtype`: the parameters
+    of the embedder, the layers' linears, convs and attentions and the
+    adaptive softmax are stored in it where it is narrower than `dtype`
+    (an fp32 model with bf16 parameters); the LayerNorms' stay in
+    `dtype`. A model built in bf16 stores every parameter in bf16.
     """
 
     def __init__(self, *, device, dtype, generator=None,
@@ -380,9 +488,18 @@ class DynamicConvDecoder(nn.Module):
                  max_positions: int = 512, dropout: float = 0.1,
                  weight_dropout: float = 0.1, relu_dropout: float = 0.0,
                  input_dropout: float = 0.1, attention_dropout: float = 0.1,
-                 use_flash_train: bool = False):
+                 use_flash_train: bool = False,
+                 conv_dim: Optional[int] = None, conv_type: str = "dynamic",
+                 decoder_glu: bool = True, weight_softmax: bool = True,
+                 normalize_before: bool = False, final_norm: bool = False,
+                 adaptive_softmax_dropout: float = 0.0,
+                 tie_adaptive_proj: bool = False, remat: bool = False,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         assert len(kernel_sizes) == num_layers
+        pdtype = (param_dtype if param_dtype is not None
+                  and torch.finfo(param_dtype).bits < torch.finfo(dtype).bits
+                  else dtype)
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.dtype = dtype
         self.vocab_size = vocab_size
@@ -393,10 +510,11 @@ class DynamicConvDecoder(nn.Module):
         self.max_positions = max_positions
         self.dropout = dropout
         self.target_padding_idx = target_padding_idx
+        self.remat = remat
         self.embedder = SumEmbedder(
             vocab_size, embed_dim, cutoff, padding_idx=padding_idx,
             pos_padding_idx=target_padding_idx, max_positions=max_positions,
-            **kw)
+            param_dtype=pdtype, **kw)
         specs = ((("image", image_dim),) if include_image else ()) \
             + (("article", article_dim),) \
             + tuple((name, dim) for name, dim in extra_contexts)
@@ -406,9 +524,17 @@ class DynamicConvDecoder(nn.Module):
                 weight_dropout=weight_dropout, relu_dropout=relu_dropout,
                 input_dropout=input_dropout,
                 attention_dropout=attention_dropout,
-                use_flash_train=use_flash_train, **kw)
+                use_flash_train=use_flash_train, conv_dim=conv_dim,
+                conv_type=conv_type, decoder_glu=decoder_glu,
+                weight_softmax=weight_softmax,
+                normalize_before=normalize_before, param_dtype=pdtype, **kw)
             for k in kernel_sizes)
-        self.adaptive_softmax = AdaptiveSoftmax(embed_dim, cutoff, **kw)
+        self.adaptive_softmax = AdaptiveSoftmax(
+            embed_dim, cutoff, dropout=adaptive_softmax_dropout,
+            tie_proj=tie_adaptive_proj, device=device, dtype=pdtype,
+            generator=generator)
+        self.layer_norm = (LayerNorm(embed_dim, device=device, dtype=dtype)
+                           if normalize_before and final_norm else None)
 
     def all_layers(self) -> List[DynamicConvDecoderLayer]:
         """Every decoder layer, in the order of `kvs`, caches and decode
@@ -431,15 +557,29 @@ class DynamicConvDecoder(nn.Module):
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced hidden states [B, T, D]; training with a
         generator."""
-        return self._stack(token_ids, self.precompute_kv(contexts), generator)
+        return self._final(self._stack(token_ids, self.precompute_kv(contexts),
+                                       generator))
 
     def _stack(self, token_ids: torch.Tensor, kvs: List[LayerKV],
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The embedding and the stack's layers, teacher forced."""
+        """The embedding and the stack's layers, teacher forced (no
+        final norm)."""
         x = dropout(self.embedder(token_ids), self.dropout, generator)
         for layer, kv in zip(self.layers, kvs):
-            x = layer(x, kv, generator)
+            x = self._layer(layer, x, kv, generator)
         return x
+
+    def _layer(self, layer: DynamicConvDecoderLayer, x: torch.Tensor,
+               kv: LayerKV, generator: Optional[torch.Generator]):
+        """One layer's teacher-forced forward, under `remat` where the
+        model asks for it."""
+        if self.remat:
+            return remat(lambda h: layer(h, kv, generator), generator, x)
+        return layer(x, kv, generator)
+
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm (normalize_before with final_norm)."""
+        return x if self.layer_norm is None else self.layer_norm(x)
 
     def loss(self, token_ids: torch.Tensor, contexts: Dict[str, torch.Tensor],
              target_ids: torch.Tensor,
@@ -447,15 +587,19 @@ class DynamicConvDecoder(nn.Module):
         """(summed adaptive CE fp32, ntokens) of the targets, padding
         `target_padding_idx` ignored."""
         return self.loss_from_hidden(self.hidden(token_ids, contexts,
-                                                 generator), target_ids)
+                                                 generator), target_ids,
+                                     generator)
 
-    def loss_from_hidden(self, x: torch.Tensor, target_ids: torch.Tensor):
+    def loss_from_hidden(self, x: torch.Tensor, target_ids: torch.Tensor,
+                         generator: Optional[torch.Generator] = None):
         """`loss` of hidden states x [B, T, D] already computed (the
         pointer family reads them too): (summed adaptive CE fp32,
-        ntokens)."""
+        ntokens); a generator drops the tail projections
+        (`adaptive_softmax_dropout`)."""
         return self.adaptive_softmax.loss_sum(
             x.reshape(-1, x.shape[-1]), target_ids.reshape(-1),
-            self.target_padding_idx, self.embedder.embed_tables())
+            self.target_padding_idx, self.embedder.embed_tables(),
+            generator)
 
     def log_prob(self, token_ids: torch.Tensor,
                  contexts: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -489,11 +633,11 @@ class DynamicConvDecoder(nn.Module):
                    ring_major: bool = True) -> List[torch.Tensor]:
         """Zero conv histories, one per layer (empty for a pointwise
         layer): ring-major [K-1, B, C], or with ring_major=False the
-        shift layout [B, K-1, C]."""
+        shift layout [B, K-1, C]; C the layer's conv_dim."""
         return [torch.zeros(*((layer.kernel_size - 1, batch_size)
                               if ring_major else
                               (batch_size, layer.kernel_size - 1)),
-                            self.embed_dim, device=device, dtype=self.dtype)
+                            layer.conv_dim, device=device, dtype=self.dtype)
                 for layer in self.all_layers()]
 
     def init_slot_maps(self, batch_size: int, device) -> List[torch.Tensor]:
@@ -547,7 +691,7 @@ class DynamicConvDecoder(nn.Module):
         for layer, kv, cache, w in zip(self.layers, kvs, caches,
                                        weights.layers):
             x = layer.step(x, kv, cache, step_idx, w, beam)
-        return x
+        return self._final(x)
 
     def step_topk(self, token_t: torch.Tensor, step_idx,
                   kvs: List[LayerKV], caches: List[torch.Tensor], k: int,
@@ -621,7 +765,7 @@ class DynamicConvDecoder(nn.Module):
                                        weights.layers):
             x, h = layer.chunk(x, kv, cache, pos, w)
             hs.append(h)
-        return x, hs
+        return self._final(x), hs
 
     def step_with_hidden(self, token_t: torch.Tensor, step_idx: int,
                          kvs: List[LayerKV], caches: List[torch.Tensor],
@@ -655,7 +799,7 @@ class DynamicConvDecoder(nn.Module):
         for i, (layer, kv, w) in enumerate(zip(self.layers, kvs,
                                                 weights.layers)):
             x, caches[i] = layer.step_shift(x, kv, caches[i], w, beam)
-        return self.adaptive_softmax.log_prob(x,
+        return self.adaptive_softmax.log_prob(self._final(x),
                                               self.embedder.embed_tables())
 
     def step_beam_lazy(self, token_t: torch.Tensor, step_idx: int,
@@ -669,5 +813,5 @@ class DynamicConvDecoder(nn.Module):
         for layer, kv, cache, smap, w in zip(self.layers, kvs, caches,
                                              slot_maps, weights.layers):
             x = layer.step_lazy_beam(x, kv, cache, smap, step_idx, w, beam)
-        return self.adaptive_softmax.log_prob(x,
+        return self.adaptive_softmax.log_prob(self._final(x),
                                               self.embedder.embed_tables())

@@ -117,7 +117,9 @@ class LSTMFlattenedModel(nn.Module):
 
     contexts: image [B, P, image_dim], article [B, S, article_dim] and
     their masks [B, P] / [B, S], True at padding. The head is tied to
-    the embedder's tables, so hidden_size must equal embed_dim.
+    the embedder's tables, so hidden_size must equal embed_dim;
+    tie_adaptive_proj ties its tail projections to the embedder's band
+    projections too.
     """
 
     batch_keys = LOSS_KEYS
@@ -131,10 +133,6 @@ class LSTMFlattenedModel(nn.Module):
                  padding_idx: int = 0, target_padding_idx: int = 1,
                  max_positions: int = 512):
         super().__init__()
-        if tie_adaptive_proj:
-            raise NotImplementedError(
-                "tie_adaptive_proj=True: the port implements False only "
-                "(ROADMAP Queue 1 item 8)")
         if hidden_size != embed_dim:
             raise ValueError(f"the tied head reads the hidden state: "
                              f"hidden_size {hidden_size} must equal "
@@ -166,7 +164,8 @@ class LSTMFlattenedModel(nn.Module):
         self.article_attention = AttentionLayer(hidden_size, article_dim,
                                                 hidden_size, **kw)
         self.attn_proj = GehringLinear(2 * hidden_size, hidden_size, **kw)
-        self.adaptive_softmax = AdaptiveSoftmax(embed_dim, cutoff, **kw)
+        self.adaptive_softmax = AdaptiveSoftmax(
+            embed_dim, cutoff, tie_proj=tie_adaptive_proj, **kw)
 
     @property
     def param_module(self) -> nn.Module:

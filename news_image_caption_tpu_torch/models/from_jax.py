@@ -7,7 +7,12 @@ tree (`layers.0.image_attn.k_proj.kernel`): the `DynamicConvDecoder`,
 the LSTM captioner (`cells_0.ih.kernel`, `h0_0`), the Gen-2
 transformer (`layers.0.norm_0.a_2`, `embed.embedding`) and the Gen-1
 captioners (`core.rnn.ih_0.kernel`, `logit.kernel`; convolutions'
-kernels in flax's layout in both packages).
+kernels in flax's layout in both packages). The decoder's options'
+parameters map by their flax names too: a `LightweightConv`'s
+`conv.weight`, the final `layer_norm`, untied tables `untied_head` and
+`untied_tail_{i}`, a learned position table's `embedding`, a
+`GatedLinear`'s `fc1`-`fc3` and a `DownsampledMultiHeadAttention`'s
+`q{i}` / `k{i}` / `v{i}` / `o{i}` (or `q` / `k` / `v`) and `out_proj`.
 Kernels are (in, out) in both packages, so no leaf is transposed: the
 copy head's raw `q_proj_weight` [E, E] and `k_proj_weight` [kdim, E]
 are used as `x @ W` in both too. A pointer's variables

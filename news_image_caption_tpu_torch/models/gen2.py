@@ -59,7 +59,7 @@ from news_image_caption_tpu_torch.generation.speculative import (
 from news_image_caption_tpu_torch.ops import attention
 from news_image_caption_tpu_torch.ops.attention import AttentionKV
 from news_image_caption_tpu_torch.ops.band_topk import band_topk_lse
-from news_image_caption_tpu_torch.ops.dropout import dropout
+from news_image_caption_tpu_torch.ops.dropout import dropout, remat
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      XavierLinear,
                                                      initializes, new_param,
@@ -305,7 +305,8 @@ class Embed(nn.Module):
 class Gen2Transformer(nn.Module):
     """The decoder: embedding, layers, final norm and the `generator`
     projection (the attribute keeps the flax name; it is a linear
-    layer, not a random generator)."""
+    layer, not a random generator). `remat` checkpoints each layer of
+    the teacher-forced path (`ops/dropout.py::remat`)."""
 
     def __init__(self, *, device, dtype=torch.float32, generator=None,
                  vocab_size: int, d_model: int = 512, d_ff: int = 2048,
@@ -313,11 +314,8 @@ class Gen2Transformer(nn.Module):
                  sent_dim: int = 300, dropout_rate: float = 0.1,
                  max_len: int = 512, pad_id: int = 0, remat: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "gen2_transformer remat=True: per-layer rematerialization is "
-                "not ported yet (ROADMAP Queue 1 item 8b)")
         kw = dict(device=device, dtype=dtype, generator=generator)
+        self.remat = remat
         self.dtype = dtype
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -364,7 +362,12 @@ class Gen2Transformer(nn.Module):
         memory = {k: v.to(self.dtype) for k, v in memory.items()}
         x = self._embed(tgt, 0, generator)
         for layer in self.layers:
-            x = layer(x, memory, tgt_mask, src_masks or {}, generator)
+            if self.remat:
+                x = remat(lambda h, layer=layer: layer(
+                    h, memory, tgt_mask, src_masks or {}, generator),
+                    generator, x)
+            else:
+                x = layer(x, memory, tgt_mask, src_masks or {}, generator)
         return self.final_norm(x)
 
     def logits(self, memory, tgt, tgt_mask=None, src_masks=None,

@@ -338,7 +338,7 @@ class TransformerPointer(nn.Module):
         and article_ids [B, S]. Training dropout with a generator."""
         inp, tgt = shift_caption(batch["caption_ids"].long())
         x = self.decoder.hidden(inp, self._contexts(batch), generator)
-        loss_sum, ntokens = self.decoder.loss_from_hidden(x, tgt)
+        loss_sum, ntokens = self.decoder.loss_from_hidden(x, tgt, generator)
         gen_loss = loss_sum / LN2 / torch.clamp(ntokens, min=1)
         zero = gen_loss.new_zeros(())
         entity_loss = copy_loss = zero

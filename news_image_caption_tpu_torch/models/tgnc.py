@@ -96,7 +96,9 @@ class TemplateGuidedDecoder(DynamicConvDecoder):
     `kvs` and decode weights list the trunk's layers, then the heads
     (`all_layers`). It decodes through `step_topk` and `step_chunk`
     alone: the flagship's full-vocab and hidden-state steps and its
-    attention maps would read the trunk without the heads, and raise."""
+    attention maps would read the trunk without the heads, and raise.
+    `remat` checkpoints the trunk's layers and the heads alike
+    (`ops/dropout.py::remat`); `tie_adaptive_proj` is the flagship's."""
 
     def __init__(self, *, device, dtype, generator=None,
                  vocab_size: int = 50265, embed_dim: int = 1024,
@@ -109,12 +111,6 @@ class TemplateGuidedDecoder(DynamicConvDecoder):
                  head_kernel: int = 31, dropout: float = 0.1,
                  padding_idx: int = 0, target_padding_idx: int = 1,
                  max_positions: int = 512, remat: bool = False):
-        for name, on in (("remat", remat),
-                         ("tie_adaptive_proj", tie_adaptive_proj)):
-            if on:
-                raise NotImplementedError(
-                    f"decoder_tgnc {name}=True is not ported yet (ROADMAP "
-                    "Queue 1 item 8b)")
         assert len(kernel_sizes) >= num_layers
         kw = dict(device=device, dtype=dtype, generator=generator)
         super().__init__(
@@ -123,7 +119,8 @@ class TemplateGuidedDecoder(DynamicConvDecoder):
             kernel_sizes=tuple(kernel_sizes[:num_layers]), cutoff=cutoff,
             image_dim=image_dim, article_dim=article_dim,
             padding_idx=padding_idx, target_padding_idx=target_padding_idx,
-            max_positions=max_positions, dropout=dropout, **kw)
+            max_positions=max_positions, dropout=dropout,
+            tie_adaptive_proj=tie_adaptive_proj, remat=remat, **kw)
         self.image_dim = image_dim
         self.n_templates = n_templates
         self.head_kernel = head_kernel
@@ -168,7 +165,7 @@ class TemplateGuidedDecoder(DynamicConvDecoder):
         generator."""
         kvs = self.precompute_kv(contexts)
         x = self._stack(token_ids, kvs, generator)
-        outs = [head(x, kv, generator)
+        outs = [self._layer(head, x, kv, generator)
                 for head, kv in zip(self.heads, kvs[self.num_layers:])]
         return self._mix(outs, template_logits)
 

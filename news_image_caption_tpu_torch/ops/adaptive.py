@@ -30,6 +30,7 @@ from torch import nn
 from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
                                                         band_topk_lse_int8,
                                                         stable_topk)
+from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (initializes, new_param,
                                                      positionwise)
 
@@ -76,29 +77,38 @@ def band_ranges(cutoff: Sequence[int]) -> List[Tuple[int, int]]:
     return out
 
 
+def band_dim(dim: int, factor: float, i: int) -> int:
+    """Band i's width: dim // factor**i."""
+    return int(dim // (factor ** i))
+
+
 def _xavier_uniform_(p: torch.Tensor, generator) -> None:
     bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
     p.uniform_(-bound, bound, generator=generator)
 
 
 class AdaptiveEmbedding(nn.Module):
-    """Per-band tables `embed_i` [band_v, dim] and projections `proj_i`
-    [dim, output_dim], summed over the bands; times sqrt(output_dim)
-    with scale_embeds."""
+    """Per-band tables `embed_i` [band_v, d_i] and projections `proj_i`
+    [d_i, output_dim], d_i = dim // factor**i, summed over the bands;
+    times sqrt(output_dim) with scale_embeds. The parameters are stored
+    in `dtype`, the output is in `out_dtype` (default `dtype`)."""
 
     def __init__(self, cutoff: Sequence[int], dim: int, output_dim: int, *,
                  device, dtype, generator=None, padding_idx: int = 0,
-                 scale_embeds: bool = False):
+                 scale_embeds: bool = False, factor: float = 1.0,
+                 out_dtype: torch.dtype | None = None):
         super().__init__()
         self.bands = band_ranges(cutoff)
         self.output_dim = output_dim
         self.scale_embeds = scale_embeds
+        self.out_dtype = out_dtype or dtype
         for i, (lo, hi) in enumerate(self.bands):
-            table = new_param((hi - lo, dim), device, dtype)
-            proj = new_param((dim, output_dim), device, dtype)
+            d = band_dim(dim, factor, i)
+            table = new_param((hi - lo, d), device, dtype)
+            proj = new_param((d, output_dim), device, dtype)
             if initializes(device):
                 with torch.no_grad():
-                    table.normal_(0.0, math.sqrt(1.0 / dim),
+                    table.normal_(0.0, math.sqrt(1.0 / d),
                                   generator=generator)
                     table[padding_idx] = 0.0
                     _xavier_uniform_(proj, generator)
@@ -109,7 +119,7 @@ class AdaptiveEmbedding(nn.Module):
         return getattr(self, f"embed_{i}"), getattr(self, f"proj_{i}")
 
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
-        dtype = self.proj_0.dtype
+        dtype = self.out_dtype
         out = torch.zeros(token_ids.shape + (self.output_dim,),
                           device=token_ids.device, dtype=dtype)
         for i, (lo, hi) in enumerate(self.bands):
@@ -126,40 +136,82 @@ class AdaptiveEmbedding(nn.Module):
 
 
 class AdaptiveSoftmax(nn.Module):
-    """Tied adaptive softmax: the word logits reuse the embedder's band
-    tables (passed as `embed_tables`, a list of (table, proj)); owns the
-    class head `class_proj` [D, n_tails] and the tail projections
-    `tail_proj_i` [D, D]."""
+    """Adaptive softmax over the bands of `cutoff`. Tied (the default),
+    the word logits reuse the embedder's band tables, passed as
+    `embed_tables` (a list of (table, proj)); untied (tied=False) it owns
+    them: `untied_head` [D, cutoff0] and `untied_tail_i` [d_i, band_v].
+    It owns the class head `class_proj` [D, n_tails] and the tail
+    projections `tail_proj_i` [D, d_i], d_i = D // factor**i, or with
+    tie_proj (tied only) reads the embedder's band projections
+    transposed instead. `dropout` drops the tail projections' output in
+    training (a generator given). The parameters are stored in `dtype`;
+    products run in the input's dtype."""
 
     def __init__(self, input_dim: int, cutoff: Sequence[int], *, device,
-                 dtype, generator=None):
+                 dtype, generator=None, factor: float = 1.0,
+                 dropout: float = 0.0, tied: bool = True,
+                 tie_proj: bool = False):
         super().__init__()
+        if tie_proj and not tied:
+            raise ValueError("tie_proj requires tied embeddings "
+                             "(embed_tables at call time)")
         self.cutoff = tuple(cutoff)
         self.n_tails = len(cutoff) - 1
+        self.dropout = dropout
+        self.tied = tied
+        self.tie_proj = tie_proj
+        dims = [band_dim(input_dim, factor, i) for i in range(len(cutoff))]
         self.class_proj = new_param((input_dim, self.n_tails), device, dtype)
-        for i in range(1, len(cutoff)):
-            setattr(self, f"tail_proj_{i}",
-                    new_param((input_dim, input_dim), device, dtype))
+        owned = [self.class_proj]
+        if not tie_proj:
+            for i in range(1, len(cutoff)):
+                p = new_param((input_dim, dims[i]), device, dtype)
+                setattr(self, f"tail_proj_{i}", p)
+                owned.append(p)
+        if not tied:
+            self.untied_head = new_param((input_dim, self.cutoff[0]), device,
+                                         dtype)
+            owned.append(self.untied_head)
+            for i, (lo, hi) in enumerate(band_ranges(cutoff)[1:], start=1):
+                p = new_param((dims[i], hi - lo), device, dtype)
+                setattr(self, f"untied_tail_{i}", p)
+                owned.append(p)
         if initializes(device):
             with torch.no_grad():
-                _xavier_uniform_(self.class_proj, generator)
-                for i in range(1, len(cutoff)):
-                    _xavier_uniform_(getattr(self, f"tail_proj_{i}"),
-                                     generator)
+                for p in owned:
+                    _xavier_uniform_(p, generator)
+
+    def word_table(self, i: int, embed_tables):
+        """Band i's word table [band_v, d_i]: the embedder's (or its int8
+        `QuantTable`) when tied, the untied one transposed otherwise."""
+        if self.tied:
+            return embed_tables[i][0]
+        owned = self.untied_head if i == 0 else \
+            getattr(self, f"untied_tail_{i}")
+        return owned.T
 
     def head_logits(self, x, embed_tables) -> torch.Tensor:
         """x [N, D] -> [N, cutoff0 + n_tails]; the class logits exact
         with quantized tables too."""
-        word = _word_logits(x, embed_tables[0][0])
+        word = _word_logits(x, self.word_table(0, embed_tables))
         cls = x @ self.class_proj.to(x.dtype)
         return torch.cat([word, cls], dim=-1)
 
-    def tail_hidden(self, x, i: int) -> torch.Tensor:
-        """Projection of x for tail band i (1-based)."""
-        return x @ getattr(self, f"tail_proj_{i}").to(x.dtype)
+    def tail_hidden(self, x, i: int, embed_tables=None,
+                    generator=None) -> torch.Tensor:
+        """Projection of x for tail band i (1-based), [N, d_i]: x @
+        tail_proj_i, or with tie_proj x @ proj_iᵀ of the embedder's band
+        i; dropped at `dropout` with a generator."""
+        if self.tie_proj:
+            h = x @ embed_tables[i][1].to(x.dtype).T
+        else:
+            h = x @ getattr(self, f"tail_proj_{i}").to(x.dtype)
+        return dropout(h, self.dropout, generator)
 
-    def tail_logits(self, x, i: int, embed_tables) -> torch.Tensor:
-        return _word_logits(self.tail_hidden(x, i), embed_tables[i][0])
+    def tail_logits(self, x, i: int, embed_tables,
+                    generator=None) -> torch.Tensor:
+        return _word_logits(self.tail_hidden(x, i, embed_tables, generator),
+                            self.word_table(i, embed_tables))
 
     def log_prob(self, x, embed_tables) -> torch.Tensor:
         """Full-vocab log-probs [N, V]; softmax in fp32, result in x's
@@ -176,7 +228,8 @@ class AdaptiveSoftmax(nn.Module):
             parts.append(tlog + prior)
         return torch.cat(parts, dim=-1)
 
-    def loss_sum(self, x, target, padding_idx: int, embed_tables):
+    def loss_sum(self, x, target, padding_idx: int, embed_tables,
+                 generator=None):
         """Summed adaptive cross-entropy and the token count.
 
         x [N, D]; target [N] ids. The head CE takes tail targets
@@ -184,7 +237,8 @@ class AdaptiveSoftmax(nn.Module):
         CE. Targets equal to padding_idx are ignored, and in a tail so
         is a target whose in-band index equals padding_idx (the
         reference's ignore_index quirk). NLL = logsumexp - picked logit,
-        in fp32. Returns (loss fp32 scalar, ntokens int64 scalar).
+        in fp32. A generator drops the tail projections (`dropout`).
+        Returns (loss fp32 scalar, ntokens int64 scalar).
         """
         c0 = self.cutoff[0]
         bands = band_ranges(self.cutoff)
@@ -203,7 +257,8 @@ class AdaptiveSoftmax(nn.Module):
         for i, (lo, hi) in enumerate(bands[1:], start=1):
             in_band = (target >= lo) & (target < hi)
             tgt_in = torch.clamp(target - lo, 0, hi - lo - 1)
-            nll = band_nll(self.tail_logits(x, i, embed_tables), tgt_in)
+            nll = band_nll(self.tail_logits(x, i, embed_tables, generator),
+                           tgt_in)
             valid = in_band & (tgt_in != padding_idx)
             loss = loss + torch.where(valid, nll, 0.0).sum()
         return loss, (target != padding_idx).sum()
@@ -211,7 +266,7 @@ class AdaptiveSoftmax(nn.Module):
     def head_table(self, embed_tables, dtype) -> torch.Tensor:
         """[table0; class_projᵀ]: the head band of `topk_log_prob`
         (word rows, then one class row per tail)."""
-        return torch.cat([embed_tables[0][0].to(dtype),
+        return torch.cat([self.word_table(0, embed_tables).to(dtype),
                           self.class_proj.to(dtype).T], dim=0).contiguous()
 
     def topk_log_prob(self, x, k: int, embed_tables, head_table=None):
@@ -230,7 +285,7 @@ class AdaptiveSoftmax(nn.Module):
         class logits in beside the kernel's; head_table is not read."""
         c0 = self.cutoff[0]
         lead = x.shape[:-1]
-        quantized = isinstance(embed_tables[0][0], QuantTable)
+        quantized = self.tied and isinstance(embed_tables[0][0], QuantTable)
         if head_table is None and not quantized:
             head_table = self.head_table(embed_tables, x.dtype)
 
@@ -242,7 +297,8 @@ class AdaptiveSoftmax(nn.Module):
             if quantized:
                 return band_topk_lse_int8(h, table.q, table.scale, k,
                                           sel_limit)
-            return band_topk_lse(h, table.to(h.dtype), k, sel_limit)
+            return band_topk_lse(h, table.to(h.dtype).contiguous(), k,
+                                 sel_limit)
 
         flat = x.reshape(-1, x.shape[-1])
         # Class-slot logits at the kernel's rounding point (x's dtype).
@@ -255,8 +311,8 @@ class AdaptiveSoftmax(nn.Module):
             hv, hi, lse_h = band(flat, head_table, c0)
         vals, ids = [hv - lse_h], [hi]
         for i in range(1, len(self.cutoff)):
-            h = rows(lambda r: self.tail_hidden(r, i))
-            tv, ti, lse_t = band(h, embed_tables[i][0])
+            h = rows(lambda r: self.tail_hidden(r, i, embed_tables))
+            tv, ti, lse_t = band(h, self.word_table(i, embed_tables))
             prior = cls[:, i - 1:i] - lse_h
             vals.append(tv - lse_t + prior)
             ids.append(ti + self.cutoff[i - 1])

@@ -1,4 +1,4 @@
-"""Dynamic depthwise convolution (Wu et al. 2019).
+"""Dynamic and lightweight depthwise convolutions (Wu et al. 2019).
 
 Counterpart of `news_image_caption_tpu/ops/conv.py::DynamicConv`: the
 full-sequence causal forward by one of three routes, as the reference
@@ -16,10 +16,27 @@ which reads each slot's rows through a slot map. The routes:
   tiling; forward only, as in the reference.
 The routes the rule does not admit fall back to the shift route. The
 decoder's decode path runs the fused `decode_conv_block` instead, over
-a ring-major cache.
+a ring-major cache, where its layer has the flagship's structure.
+
+`LightweightConv` is the reference's `LightweightConv`: K learned taps a
+head shared by every position, softmaxed over the taps in fp32 and
+rounded to the parameters' dtype (`weight_softmax`), dropped in training
+at `weight_dropout`, then cast to the input's dtype. Its full-sequence
+forward is the shift-accumulate; `step` and `chunk` read a cache
+[B, K-1, C] oldest first as the reference's do; its `step_ring` reads
+the ring-major cache [K-1, N, C] of the port's decoder.
+
+`ring_step(x_t, ring, t)` of both convolutions is the output of one
+decode step over a ring-major cache [K-1, N, C], without writing it:
+tap k of a row at position p reads slot (p + k) mod (K-1), t an int for
+every row or an [N] tensor of each row's position. The decoder's layers
+whose structure the fused conv block kernel does not take run it
+(`models/decoder_flattened.py`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +76,37 @@ def _band_matmul(x: torch.Tensor, w: torch.Tensor, K: int) -> torch.Tensor:
                                                   device=band.device))
     out = torch.einsum("bhts,bhsr->bhtr", band, x.permute(0, 2, 1, 3))
     return out.permute(0, 2, 1, 3)
+
+
+def _slot_taps(t, Km1: int, device) -> torch.Tensor:
+    """The tap index of each ring slot: (slot - t) mod (K-1), [K-1] for
+    an int t, [N, K-1] for a tensor of positions."""
+    slots = torch.arange(Km1, device=device)
+    if isinstance(t, torch.Tensor):
+        return (slots[None, :] - t.long()[:, None]) % Km1
+    return (slots - t) % Km1
+
+
+def _ring_sum(w: torch.Tensor, x_t: torch.Tensor, ring: torch.Tensor, t,
+              conv_bias) -> torch.Tensor:
+    """sum over the ring's slots of tap * input, then the current input's
+    tap, then the bias: w [N, H, K] or [H, K] (shared by the rows), x_t
+    [N, C], ring [K-1, N, C]."""
+    N, C = x_t.shape
+    H, K = w.shape[-2:]
+    R, Km1 = C // H, K - 1
+    w = w.expand(N, H, K)
+    out = w[:, :, Km1:].expand(N, H, R).reshape(N, C) * x_t
+    if Km1:
+        taps = _slot_taps(t, Km1, x_t.device)
+        taps = taps.expand(N, Km1)[:, None, :].expand(N, H, Km1)
+        w_hist = torch.gather(w, 2, taps)                   # [N, H, K-1]
+        hist = torch.einsum("nhk,knhr->nhr", w_hist,
+                            ring.view(Km1, N, H, R)).reshape(N, C)
+        out = hist + out
+    if conv_bias is not None:
+        out = out + conv_bias.to(out.dtype)
+    return out
 
 
 class DynamicConv(nn.Module):
@@ -148,6 +196,13 @@ class DynamicConv(nn.Module):
         new_cache[:, t % Km1] = x_t
         return out, new_cache
 
+    def ring_step(self, x_t: torch.Tensor, ring: torch.Tensor,
+                  t) -> torch.Tensor:
+        """One decode step's output [N, C] over a ring-major cache
+        [K-1, N, C] (the module docstring), the cache not written."""
+        w = self._weights(x_t)                              # [N, H, K]
+        return _ring_sum(w, x_t, ring, t, self.conv_bias)
+
     def init_cache(self, batch_size: int, device,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Zero history [B, K-1, C] for `step` and `step_ring_lazy`."""
@@ -202,3 +257,112 @@ class DynamicConv(nn.Module):
         new_map[j] = torch.arange(B, device=slot_map.device,
                                   dtype=slot_map.dtype)
         return out, new_cache, new_map
+
+
+class LightweightConv(nn.Module):
+    """Depthwise conv with K learned taps a head (`weight` [H, K]),
+    shared by every position."""
+
+    def __init__(self, input_size: int, kernel_size: int, num_heads: int,
+                 *, device, dtype, generator=None,
+                 weight_softmax: bool = True, weight_dropout: float = 0.0,
+                 conv_bias: bool = False):
+        super().__init__()
+        assert input_size % num_heads == 0
+        self.input_size = input_size
+        self.num_heads = num_heads
+        self.kernel_size = kernel_size
+        self.weight_softmax = weight_softmax
+        self.weight_dropout = weight_dropout
+        self.weight = new_param((num_heads, kernel_size), device, dtype)
+        self.conv_bias = (new_param((input_size,), device, dtype)
+                          if conv_bias else None)
+        if initializes(device):
+            bound = math.sqrt(6.0 / (num_heads + kernel_size))
+            with torch.no_grad():
+                self.weight.uniform_(-bound, bound, generator=generator)
+                if conv_bias:
+                    self.conv_bias.zero_()
+
+    def _weights(self, dtype: torch.dtype,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """The taps [H, K]: softmaxed in fp32 and rounded to the
+        parameters' dtype, dropped, then in `dtype`."""
+        w = self.weight
+        if self.weight_softmax:
+            w = torch.softmax(w.float(), dim=-1).to(w.dtype)
+        return dropout(w, self.weight_dropout, generator).to(dtype)
+
+    def _bias(self, out: torch.Tensor) -> torch.Tensor:
+        if self.conv_bias is None:
+            return out
+        return out + self.conv_bias.to(out.dtype)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Causal forward, x [B, T, C]: out[b,t,c] = sum_k w[h(c),k] *
+        x[b, t-K+1+k, c]."""
+        B, T, C = x.shape
+        H, K = self.num_heads, self.kernel_size
+        w = self._weights(x.dtype, generator)
+        out = _shift_accumulate(x.reshape(B, T, H, C // H),
+                                w.expand(B, T, H, K), K)
+        return self._bias(out.reshape(B, T, C))
+
+    def init_cache(self, batch_size: int, device,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Zero history [B, K-1, C] for `step` and `chunk`."""
+        return torch.zeros(batch_size, self.kernel_size - 1,
+                           self.input_size, device=device, dtype=dtype)
+
+    def step(self, x_t: torch.Tensor, cache: torch.Tensor,
+             generator: torch.Generator | None = None):
+        """Shift decode step. x_t [B, C]; cache [B, K-1, C] oldest
+        first. Returns (out [B, C], the cache shifted by one with x_t
+        last)."""
+        B, C = x_t.shape
+        H, K = self.num_heads, self.kernel_size
+        w = self._weights(x_t.dtype, generator)
+        hist = torch.cat([cache, x_t[:, None, :]], dim=1)    # [B, K, C]
+        out = torch.einsum("hk,bkhr->bhr", w,
+                           hist.view(B, K, H, C // H)).reshape(B, C)
+        return self._bias(out), hist[:, 1:]
+
+    def chunk(self, x_c: torch.Tensor, cache: torch.Tensor,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """k sequential `step`s at once: x_c [B, k, C] after the cache
+        [B, K-1, C] (oldest first). The taps' products summed in fp32,
+        rounded once to x_c's dtype. Returns out [B, k, C]; the cache is
+        not advanced."""
+        B, k, C = x_c.shape
+        H, K = self.num_heads, self.kernel_size
+        R = C // H
+        w = self._weights(x_c.dtype, generator).float()
+        full = torch.cat([cache, x_c], dim=1).view(B, K - 1 + k, H, R)
+        out = torch.zeros(B, k, H, R, device=x_c.device)
+        for j in range(K):
+            out = out + w[None, None, :, j, None] * full[:, j:j + k].float()
+        return self._bias(out.to(x_c.dtype).reshape(B, k, C))
+
+    def ring_step(self, x_t: torch.Tensor, ring: torch.Tensor,
+                  t) -> torch.Tensor:
+        """One decode step's output [N, C] over a ring-major cache
+        [K-1, N, C] (the module docstring), the cache not written."""
+        return _ring_sum(self._weights(x_t.dtype), x_t, ring, t,
+                         self.conv_bias)
+
+    def step_ring(self, x_t: torch.Tensor, ring: torch.Tensor, t):
+        """Ring decode step over the ring-major cache [K-1, N, C]:
+        (out [N, C], a copy of the cache with x_t in slot t mod (K-1)).
+        A pointwise conv (K = 1) has an empty ring."""
+        out = self.ring_step(x_t, ring, t)
+        Km1 = self.kernel_size - 1
+        if Km1 == 0:
+            return out, ring
+        new = ring.clone()
+        if isinstance(t, torch.Tensor):
+            new[t.long() % Km1, torch.arange(x_t.shape[0],
+                                             device=x_t.device)] = x_t
+        else:
+            new[t % Km1] = x_t
+        return out, new

@@ -1,9 +1,18 @@
-"""Linear layers, LayerNorm and the weight-norm fold.
+"""Linear layers and LayerNorm.
 
 Counterpart of `news_image_caption_tpu/ops/linear.py`. Kernels are
 stored as the JAX package stores them, (in, out), so weights carry
 across unchanged (`models/from_jax.py`); flax names (`kernel`, `scale`,
 `bias`) are kept as parameter names for the same reason.
+
+A module's `dtype` is the dtype its parameters are stored in (the
+reference's `param_dtype`); its products run in the dtype of the input
+(the reference's compute `dtype`), the parameters cast to it. Where a
+`GehringLinear`'s parameters are stored narrower than its input (bf16
+parameters of an fp32 model), its weight-norm scale is rounded at the
+parameters' dtype as the reference computes it: the column sums of
+squares in fp32 rounded once, the square root rounded, the quotient
+rounded.
 """
 
 from __future__ import annotations
@@ -13,16 +22,6 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
-
-
-def fold_weight_norm(v: torch.Tensor, g: torch.Tensor,
-                     dtype: torch.dtype | None = None) -> torch.Tensor:
-    """w = v * g / max(||v||_col, 1e-12), the norm over axis 0 of the
-    (in, out) kernel; computed in fp32, then cast to `dtype`."""
-    v32 = v.float()
-    norm = torch.sqrt(torch.sum(v32 * v32, dim=0, keepdim=True))
-    w = v32 * (g.float()[None, :] / torch.clamp(norm, min=1e-12))
-    return w.to(dtype or v.dtype)
 
 
 def positionwise(fn, x: torch.Tensor) -> torch.Tensor:
@@ -104,41 +103,56 @@ class GehringLinear(nn.Module):
     The per-output scale is applied in the epilogue,
     (x @ kernel) * s, as the reference does; decode folds it into the
     kernel once per model load (`folded`). weight_norm=False is a plain
-    `kernel` and `bias` with the same init.
+    `kernel` and `bias` with the same init. `dropout` scales the init's
+    deviation to sqrt((1 - dropout) / in_features), as the reference's
+    `gehring_normal(dropout)`.
     """
 
     def __init__(self, in_features: int, features: int, *, device, dtype,
                  generator: torch.Generator | None = None,
-                 weight_norm: bool = True):
+                 weight_norm: bool = True, use_bias: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.kernel = new_param((in_features, features), device, dtype)
         self.scale = (new_param((features,), device, dtype) if weight_norm
                       else None)
-        self.bias = new_param((features,), device, dtype)
+        self.bias = new_param((features,), device, dtype) if use_bias else None
         if initializes(device):
             with torch.no_grad():
-                self.kernel.normal_(0.0, math.sqrt(1.0 / in_features),
+                self.kernel.normal_(0.0,
+                                    math.sqrt((1.0 - dropout) / in_features),
                                     generator=generator)
                 if weight_norm:
                     self.scale.copy_(self.kernel.float().norm(dim=0))
-                self.bias.zero_()
+                if use_bias:
+                    self.bias.zero_()
 
-    def _norm_scale(self) -> torch.Tensor:
+    def _norm_scale(self, dtype: torch.dtype) -> torch.Tensor:
+        """g / max(||v||_col, 1e-12) in fp32, for an input of `dtype`:
+        rounded at the parameters' dtype where that is narrower."""
         v = self.kernel.float()
-        norm = torch.sqrt(torch.sum(v * v, dim=0))
-        return self.scale.float() / torch.clamp(norm, min=1e-12)
+        sumsq = torch.sum(v * v, dim=0)
+        pdtype = self.kernel.dtype
+        if torch.finfo(pdtype).bits >= torch.finfo(dtype).bits:
+            return self.scale.float() / torch.clamp(torch.sqrt(sumsq),
+                                                    min=1e-12)
+        norm = torch.sqrt(sumsq.to(pdtype).float()).to(pdtype).float()
+        return (self.scale.float() / torch.clamp(norm, min=1e-12)
+                ).to(pdtype).float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel.to(x.dtype)
         if self.scale is not None:
-            y = y * self._norm_scale().to(x.dtype)
-        return y + self.bias.to(x.dtype)
+            y = y * self._norm_scale(x.dtype).to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
     def folded(self, dtype: torch.dtype):
-        """(kernel with the weight norm folded in, bias), in `dtype`."""
+        """(kernel with the weight norm folded in, bias or None), in
+        `dtype`."""
         kernel = (self.kernel.to(dtype) if self.scale is None
-                  else fold_weight_norm(self.kernel, self.scale, dtype))
-        return kernel, self.bias.to(dtype)
+                  else (self.kernel.float()
+                        * self._norm_scale(dtype)[None, :]).to(dtype))
+        return kernel, None if self.bias is None else self.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):

@@ -1,7 +1,8 @@
 """Pad-aware sinusoidal positional embeddings.
 
 Counterpart of `news_image_caption_tpu/ops/positional.py`: the
-sinusoidal embedder, and the Gen-2 family's `interleaved_sinusoidal_table`.
+sinusoidal embedder, the learned one (`LearnedPositionalEmbedding`), and
+the Gen-2 family's `interleaved_sinusoidal_table`.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from news_image_caption_tpu_torch.ops.linear import initializes, new_param
 
 
 def make_positions(token_ids: torch.Tensor, padding_idx: int,
@@ -71,3 +74,28 @@ class SinusoidalPositionalEmbedding(nn.Module):
                 start_pos: int | torch.Tensor = 0) -> torch.Tensor:
         positions = make_positions(token_ids, self.padding_idx, start_pos)
         return self.table[positions].to(self.out_dtype)
+
+
+class LearnedPositionalEmbedding(nn.Module):
+    """Pad-aware learned positions: `embedding` [max_positions +
+    padding_idx + 2, dim] in `dtype`, drawn normal(0, 0.1) with the
+    padding row zero; looked up at `make_positions` and cast to
+    `out_dtype` (default `dtype`)."""
+
+    def __init__(self, max_positions: int, embedding_dim: int, *, device,
+                 dtype, generator=None, padding_idx: int = 1,
+                 out_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.padding_idx = padding_idx
+        self.out_dtype = out_dtype or dtype
+        self.embedding = new_param(
+            (max_positions + padding_idx + 2, embedding_dim), device, dtype)
+        if initializes(device):
+            with torch.no_grad():
+                self.embedding.normal_(0.0, 0.1, generator=generator)
+                self.embedding[padding_idx] = 0.0
+
+    def forward(self, token_ids: torch.Tensor,
+                start_pos: int | torch.Tensor = 0) -> torch.Tensor:
+        positions = make_positions(token_ids, self.padding_idx, start_pos)
+        return self.embedding[positions].to(self.out_dtype)

@@ -20,7 +20,10 @@ equal). A skipped step (the train step's non-finite guard) does not
 call `apply`, so neither n nor the moments advance.
 
 The update runs in place on fp32 master tensors, with `torch._foreach`
-ops (a few launches for all tensors rather than several per tensor).
+ops (a few launches for all tensors rather than several per tensor). A
+parameter stored narrower than fp32 (a bf16 `param_dtype` under the
+fp32 precision) is updated as optax updates such a leaf: every
+operation in its dtype, the constants rounded to it.
 BertAdam's `moment_dtype` (the reference's opt-in, e.g. bfloat16) stores
 the first moments in that dtype: a step computes b1 * mu + (1 - b1) * g
 in fp32 and rounds it once on store, and the update divides the stored
@@ -122,36 +125,76 @@ class BertAdam:
 
     def apply(self, grads: List[torch.Tensor], state: BertAdamState,
               master: List[torch.Tensor]) -> None:
-        """One update from fp32 grads (clipped in place)."""
+        """One update from fp32 grads (clipped in place): fp32 masters
+        at once, a narrower parameter by `_apply_in_dtype`."""
         lr = self.lr_schedule(state.count)
+        wide = []
+        for i, p in enumerate(master):
+            if p.dtype == torch.float32:
+                wide.append(i)
+            else:
+                self._apply_in_dtype(grads[i], state.mu[i], state.nu[i], p,
+                                     lr)
+        if wide:
+            self._apply_fp32([grads[i] for i in wide],
+                             [state.mu[i] for i in wide],
+                             [state.nu[i] for i in wide],
+                             [master[i] for i in wide], lr)
+        state.count += 1
+
+    def _apply_fp32(self, grads: List[torch.Tensor], mus: List[torch.Tensor],
+                    nus: List[torch.Tensor], master: List[torch.Tensor],
+                    lr: float) -> None:
         if self.max_grad_norm is not None:
             norms = torch.stack(torch._foreach_norm(grads))
             scale = torch.clamp(self.max_grad_norm
                                 / torch.clamp(norms, min=1e-12), max=1.0)
             torch._foreach_mul_(grads, list(scale.unbind()))
         if self.moment_dtype is None:
-            torch._foreach_mul_(state.mu, self.b1)
-            torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
-            mu = state.mu
+            torch._foreach_mul_(mus, self.b1)
+            torch._foreach_add_(mus, grads, alpha=1.0 - self.b1)
+            mu = mus
         else:
             # b1 * mu + (1 - b1) * g in fp32, rounded once on store; the
             # update reads the stored (rounded) mu, widened again.
-            mu = [torch.empty_like(m, dtype=torch.float32)
-                  for m in state.mu]
-            torch._foreach_copy_(mu, state.mu)
+            mu = [torch.empty_like(m, dtype=torch.float32) for m in mus]
+            torch._foreach_copy_(mu, mus)
             torch._foreach_mul_(mu, self.b1)
             torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
-            torch._foreach_copy_(state.mu, mu)
-            torch._foreach_copy_(mu, state.mu)
-        torch._foreach_mul_(state.nu, self.b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
-        denom = torch._foreach_sqrt(state.nu)
+            torch._foreach_copy_(mus, mu)
+            torch._foreach_copy_(mu, mus)
+        torch._foreach_mul_(nus, self.b2)
+        torch._foreach_addcmul_(nus, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_sqrt(nus)
         torch._foreach_add_(denom, self.eps)
         updates = torch._foreach_div(mu, denom)
         if self.weight_decay:
             torch._foreach_add_(updates, master, alpha=self.weight_decay)
         torch._foreach_add_(master, updates, alpha=-lr)
-        state.count += 1
+
+    def _apply_in_dtype(self, g: torch.Tensor, mu: torch.Tensor,
+                        nu: torch.Tensor, p: torch.Tensor, lr: float) -> None:
+        """The update of a parameter stored narrower than fp32 (bf16
+        parameters under the fp32 precision): as optax computes it on
+        such a leaf, every operation in the parameter's dtype with the
+        constants (b1, b2, eps, the decay, the rate) rounded to it; the
+        clip's norm in fp32, its scale rounded."""
+        dt = p.dtype
+
+        def c(x):
+            return torch.tensor(x, dtype=dt, device=p.device)
+
+        g = g.to(dt)
+        if self.max_grad_norm is not None:
+            norm = torch.linalg.vector_norm(g.float())
+            g = g * torch.clamp(self.max_grad_norm
+                                / torch.clamp(norm, min=1e-12), max=1.0).to(dt)
+        mu.copy_(mu * c(self.b1) + g * c(1.0 - self.b1))
+        nu.copy_(nu * c(self.b2) + g * c(1.0 - self.b2) * g)
+        u = mu / (torch.sqrt(nu) + c(self.eps))
+        if self.weight_decay:
+            u = u + p * c(self.weight_decay)
+        p.add_(u * c(-lr))
 
 
 def make_bert_adam(lr: float, t_total: int, warmup: float = 0.05,
@@ -213,6 +256,30 @@ class ScheduledAdam:
         torch._foreach_div_(updates, denom)
         torch._foreach_add_(master, updates, alpha=-lr)
         state.count += 1
+
+    def _apply_in_dtype(self, g: torch.Tensor, mu: torch.Tensor,
+                        nu: torch.Tensor, p: torch.Tensor, lr: float) -> None:
+        """The update of a parameter stored narrower than fp32 (bf16
+        parameters under the fp32 precision): as optax computes it on
+        such a leaf, every operation in the parameter's dtype with the
+        constants (b1, b2, eps, the decay, the rate) rounded to it; the
+        clip's norm in fp32, its scale rounded."""
+        dt = p.dtype
+
+        def c(x):
+            return torch.tensor(x, dtype=dt, device=p.device)
+
+        g = g.to(dt)
+        if self.max_grad_norm is not None:
+            norm = torch.linalg.vector_norm(g.float())
+            g = g * torch.clamp(self.max_grad_norm
+                                / torch.clamp(norm, min=1e-12), max=1.0).to(dt)
+        mu.copy_(mu * c(self.b1) + g * c(1.0 - self.b1))
+        nu.copy_(nu * c(self.b2) + g * c(1.0 - self.b2) * g)
+        u = mu / (torch.sqrt(nu) + c(self.eps))
+        if self.weight_decay:
+            u = u + p * c(self.weight_decay)
+        p.add_(u * c(-lr))
 
 
 class NoamAdam(ScheduledAdam):

@@ -205,11 +205,19 @@ def test_quantize_kv_takes_the_int8_route(runs):
 ])
 def test_options_not_ported_raise(tmp_path, command, overrides, argv, item):
     """Each option raises naming the ROADMAP item that ports it; those of
-    item 5b, since ported, run (the profiler window: `train --platform
+    items 5b and 8b, since ported, run (a pre-norm decoder's evaluate
+    writes its generations; the profiler window: `train --platform
     cpu` writes a trace of its window into `<serialization_dir>/profile`,
     tests/test_torch_profiling_loaders.py holds the window itself)."""
     overrides = dict(overrides, trainer=dict(
         overrides.get("trainer", {}), serialization_dir=str(tmp_path)))
+    if item == "8":
+        # Ported by item 8b: a pre-norm decoder evaluates (random init).
+        assert cli.main([command, TINY, "--platform", "cpu", "-o",
+                         json.dumps(overrides)] + argv) == 0
+        assert len((tmp_path / "generations.jsonl").read_text()
+                   .splitlines()) == 8
+        return
     if item == "5b":
         assert cli.main([command, TINY, "--platform", "cpu", "-o",
                          json.dumps(overrides)] + argv) == 0

@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 yaml = pytest.importorskip("yaml")
 
 import jax  # noqa: E402
+from flax.traverse_util import flatten_dict  # noqa: E402
 
 from news_image_caption_tpu import config as jax_config  # noqa: E402
 from news_image_caption_tpu.data import collate as jax_collate  # noqa: E402
@@ -41,8 +42,8 @@ from news_image_caption_tpu_torch.evaluation import (  # noqa: E402
     checkdiff, compute_metrics, enrich, meteor, metrics, text_analysis)
 from news_image_caption_tpu_torch.generation.generator import \
     GenerationConfig  # noqa: E402
-from news_image_caption_tpu_torch.models.from_jax import \
-    params_from_jax  # noqa: E402
+from news_image_caption_tpu_torch.models.from_jax import (  # noqa: E402
+    params_from_jax, torch_key)
 from news_image_caption_tpu_torch.yaml_subset import (  # noqa: E402
     YamlSubsetError, safe_load)
 
@@ -449,11 +450,25 @@ def test_build_model_builds_the_last_two_families(path):
     ("final_norm", True), ("param_dtype", "bfloat16"),
 ])
 def test_build_model_raises_for_decoder_options_not_ported(key, value):
+    """Ported by ROADMAP Queue 1 item 8b: each option builds, every
+    parameter the reference's name, shape and dtype (`jax.eval_shape`),
+    and reaches the decoder's layers."""
     cfg = config.load_config(str(REPO / "configs/tiny_test.yaml"))
     cfg = config.merge_overrides(cfg, {"model": {"decoder": {key: value}}})
-    with pytest.raises(NotImplementedError,
-                       match=rf"{key}=.*ROADMAP Queue 1 item 8\)"):
-        config.build_model(cfg, "meta")
+    model = config.build_model(cfg, "meta")
+    shapes = _jax_shapes(cfg)
+    tree = jax.tree.map(lambda s: np.lib.stride_tricks.as_strided(
+        np.zeros(1, np.float32), s.shape, (0,) * len(s.shape)), shapes)
+    params_from_jax(tree, model.decoder)     # strict: names and shapes
+    want = {torch_key(k): str(v.dtype) for k, v in
+            flatten_dict(shapes["params"], sep="/").items()}
+    assert {k: str(p.dtype).split(".")[-1] for k, p in
+            model.decoder.named_parameters()} == want
+    layer = model.decoder.layers[0]
+    if key in ("conv_type", "decoder_glu", "weight_softmax",
+               "normalize_before"):
+        assert getattr(layer, key) == value
+        assert layer.fused_decode_ok() is False
 
 
 @pytest.mark.parametrize("key,value,contexts", [

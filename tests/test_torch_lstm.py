@@ -205,14 +205,23 @@ def test_decode_takes_the_band_head(pair, monkeypatch):
 
 @pytest.mark.parametrize("extra,error,match", [
     ({"dtype": "bfloat16"}, TypeError, "unknown keys"),
-    ({"tie_adaptive_proj": True}, NotImplementedError, "item 8"),
+    pytest.param({"tie_adaptive_proj": True}, None, "item 8",
+                 id="extra1-NotImplementedError-item 8"),
     ({"hidden_size": 32}, ValueError, "embed_dim"),
     ({"decoder": {"type": "dynamic_conv_decoder_flattened"}}, TypeError,
      "lstm_decoder_flattened"),
 ])
 def test_model_block_keys_are_checked(extra, error, match):
+    """Each key is checked; tie_adaptive_proj, ported by item 8b, builds
+    a head without tail projections of its own."""
     cfg = config.load_config("configs/goodnews/lstm_roberta.yaml",
                              json.dumps({"model": extra}))
+    if error is None:
+        head = config.build_model(cfg, "meta").adaptive_softmax
+        assert head.tie_proj
+        assert not any(n.startswith("tail_proj")
+                       for n, _ in head.named_parameters())
+        return
     with pytest.raises(error, match=match):
         config.build_model(cfg, "meta")
 

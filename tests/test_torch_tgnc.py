@@ -328,5 +328,7 @@ def test_without_template_decoder_it_is_the_flattened_captioner():
 
 @pytest.mark.parametrize("key", ["remat", "tie_adaptive_proj"])
 def test_options_not_ported_raise_naming_item_8b(key):
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 8b\)"):
-        tgnc.TGNC(device="meta", **dict(KW, **{key: True}))
+    """Ported by item 8b: each builds (remat's numbers and the tied
+    tails' are held in tests/test_torch_decoder_options.py)."""
+    dec = tgnc.TGNC(device="meta", **dict(KW, **{key: True})).tg_decoder
+    assert (dec.remat if key == "remat" else dec.adaptive_softmax.tie_proj)
