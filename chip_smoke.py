@@ -10,8 +10,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      1 to 640 rows (a beam-5 step at B=128) and up to 128 items of five
      queries, every tap count and tied logits for the head and the conv
      block; train-step shapes for flash attention, then its ragged
-     tiles, T = 128 over S' = 514 and an item with every key padded), and
-     time both, the library's call and an empty launch with CUDA events;
+     tiles, T = 128 over S' = 514 and an item with every key padded, all
+     again with the rows offset by 8 in the dropout hash, as a
+     data-parallel rank's, and two half batches' masks at row offsets 0
+     and B/2 against the whole batch's), and time both, the library's call and an empty launch with CUDA events;
      the four decode kernels twice over: a greedy step's shapes and a
      beam-5 step's at B=16 (80 rows, five queries an item), the latter
      printed as the `beam5_step_b16` JSON line;
@@ -343,6 +345,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      fp32 top-1 leads by more than 0.2 equal, 0.75 of all, the
      agreement printed); set A's speculative greedy (oracle drafts)
      equal to its greedy (the `options` JSON line).
+  24. parallelism at one rank: the train command with phase 8's
+     overrides plus `trainer.distributed` (one process, a free local
+     port) and `trainer.mesh: {data: -1, model: 1}`, with the single-file
+     store (`mesh_train_single`) and with `checkpoint_format: sharded`
+     (`mesh_train`): one NCCL process group each (no other backend), 96
+     forward and 64 backward flash launches, records equal to phase 8's
+     bit for bit, the step's epoch medians beside phase 8's,
+     directory-per-step checkpoints;
+     `evaluate -m best` from the sharded store byte-equal to evaluate of
+     the same state through a `.pt` store and to phase 8's; DCP's save
+     and load against `torch.save` / `torch.load` of that state, the
+     step's gradient all-reduce on NCCL at one rank; RoBERTa-large in
+     fp32 (TF32 off) through ring attention over a `context` axis of one
+     and the pipeline over a `pipe` axis of one (n_micro 2) against the
+     dense encoder within 1e-3 (the `mesh` JSON line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -354,6 +371,12 @@ Run from the repository root: python3 chip_smoke.py
 flagship's request latency over N requests, greedy at B=1 and B=16 and
 beam-5 at B=16 and B=128, and profiles one request of each (see
 `latency_mode`); it prints no result line.
+
+`python3 chip_smoke.py --mesh-overhead [ORDER]` instead reads what the
+data-parallel step costs at one rank (see `mesh_overhead_mode`): the
+train command of phase 8's YAML at 20 steps, without and with
+`trainer.mesh` in ORDER (default pmpm), then one profiled window of
+each; it prints no result line.
 """
 
 from __future__ import annotations
@@ -361,6 +384,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -767,22 +791,25 @@ def kernel_phase(torch, ops):
 
 
 def flash_case(torch, flash, what: str, q, k, v, g, bias, seed, H: int,
-               p: float, tallies=None, calls: int = 1) -> None:
+               p: float, tallies=None, calls: int = 1, row0: int = 0) -> None:
     """Flash attention forward and backward at these inputs against their
-    plain versions, and a second call bit for bit. With `tallies`
+    plain versions, and a second call bit for bit, the batch's first
+    global row `row0` in the dropout hash. With `tallies`
     ({"flash_attention_fwd": Tally, "flash_attention_bwd": Tally}), add
     the errors and `calls` calls of each kernel's time beside its plain
     version's and the library call's (scaled_dot_product_attention with
     dropout_p = p, and its backward through autograd)."""
-    fargs = (q, k, v, bias, seed, H, p)
+    fargs = (q, k, v, bias, seed, H, p, None, row0)
     out, lse = flash.flash_attention_fwd(*fargs)
-    grads = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
+    grads = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p,
+                                      row0=row0)
     out2, lse2 = flash.flash_attention_fwd(*fargs)
-    grads2 = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p)
+    grads2 = flash.flash_attention_bwd(q, k, v, bias, seed, lse, g, H, p,
+                                       row0=row0)
     torch.cuda.synchronize()
     pout, plse = flash.flash_attention_fwd_plain(*fargs)
     pgrads = flash.flash_attention_bwd_plain(q, k, v, bias, seed, plse, g, H,
-                                             p)
+                                             p, row0=row0)
     # out: one bf16 rounding of a probability or of the output (0.02 abs
     # + rel); lse fp32 (1e-3 + 1e-5 rel); gradients: a bf16 rounding of ds
     # summed over up to 514 terms, 2% of the item's largest entry plus 2%
@@ -828,9 +855,9 @@ def flash_case(torch, flash, what: str, q, k, v, g, bias, seed, H: int,
     line = bwd.add(
         (q, k, v, bias, seed, lse, g, *grads), 2.5 * flops,
         time_ms(lambda: flash.flash_attention_bwd(q, k, v, bias, seed, lse,
-                                                  g, H, p)),
+                                                  g, H, p, row0=row0)),
         time_ms(lambda: flash.flash_attention_bwd_plain(
-            q, k, v, bias, seed, plse, g, H, p)),
+            q, k, v, bias, seed, plse, g, H, p, row0=row0)),
         time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), g,
                                             retain_graph=True)), calls=calls)
     print(f"    time flash_attention_bwd {what}: {line}")
@@ -849,7 +876,9 @@ def flash_phase(torch, flash):
     the train step's shapes and the times summed over one train step's
     calls (4 layers x 2 contexts). Library yardstick:
     scaled_dot_product_attention with dropout_p = 0.1, and its backward
-    through autograd."""
+    through autograd. Then, for a data-parallel rank's batch, the mask of
+    two half batches with their first rows as offsets against the whole
+    batch's, and every untimed case again with rows offset by 8."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16 = torch.bfloat16
@@ -875,12 +904,24 @@ def flash_phase(torch, flash):
               f" {keep.float().mean().item():.4f} (p = 0.25)", flush=True)
         check(same, "the flash kernel's dropout mask differs from the plain"
               " one")
+        # Two ranks' halves, each hashing from its first global row.
+        halves = [flash.flash_attention_fwd(
+            rn(B // 2, T, H * S, scale=0.3), rn(B // 2, S, H * S),
+            eye[:B // 2], torch.zeros(B // 2, S, device=dev), seed, H, 0.25,
+            row0=r0)[0] for r0 in (0, B // 2)]
+        kept = (torch.cat(halves).float() > 0).view(B, T, H, S).transpose(
+            1, 2)
+        same = bool(torch.equal(kept, keep))
+        print(f"  flash dropout mask of two half batches at row offsets 0"
+              f" and {B // 2}: the whole batch's {same}", flush=True)
+        check(same, "the flash kernel's mask with a row offset differs from"
+              " the whole batch's")
 
     E, H, p = 1024, 16, 0.1
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
     res = {"flash_attention_fwd": Tally(), "flash_attention_bwd": Tally()}
 
-    def case(B, T, S, timed=False):
+    def case(B, T, S, timed=False, row0=0):
         # q as the layer gives it: unit-scale projections times 64^-0.5.
         q, k, v = rn(B, T, E, scale=0.125), rn(B, S, E), rn(B, S, E)
         g = rn(B, T, E, scale=0.1)
@@ -888,14 +929,19 @@ def flash_phase(torch, flash):
         bias[B // 2:, S // 2:max(S - 2, S // 2)] = -1e9
         if not timed:
             bias[0] = -1e9                  # an item with every key padded
-        flash_case(torch, flash, f"B={B} T={T} S'={S} p={p}", q, k, v, g,
-                   bias, seed, H, p, res if timed else None, calls=4)
+        flash_case(torch, flash, f"B={B} T={T} S'={S} p={p}"
+                   + (f" row0={row0}" if row0 else ""), q, k, v, g, bias,
+                   seed, H, p, res if timed else None, calls=4, row0=row0)
 
     for S in (514, 51):
         case(16, 63, S, timed=True)
-    for T in (2, 63, 64, 65, 128):
-        for S in (1, 63, 65, 514):
-            case(2, T, S)
+    for row0 in (0, 8):
+        if row0:
+            for S in (514, 51):
+                case(16, 63, S, row0=row0)
+        for T in (2, 63, 64, 65, 128):
+            for S in (1, 63, 65, 514):
+                case(2, T, S, row0=row0)
     return {name: t.result() for name, t in res.items()}
 
 
@@ -1759,7 +1805,8 @@ def train_command_phase(torch, flash, counted):
     """Phase 8. The train command on the flagship YAML (bf16_o2, flash,
     the YAML's dropouts, B=16) with phase 8's cuts, then `evaluate -m
     best` and `-m avg:2` from its checkpoints. Returns each kernel's
-    launches on the two paths and a summary."""
+    launches on the two paths, a summary, and what phase 24 compares
+    with: the logged records and `-m best`'s generations file."""
     import tempfile
 
     from news_image_caption_tpu_torch import cli
@@ -1907,6 +1954,10 @@ def train_command_phase(torch, flash, counted):
                     check(n == want, f"evaluate -m {which}: {name} launched"
                           f" {n} times, expected {want}")
                     eval_launches[name] += n
+                if which == "best":
+                    with open(f"{out_dir}/generations{suffix}.jsonl",
+                              "rb") as f:
+                        best_generations = f.read()
                 evals[which] = {"wall_s": e_wall,
                                 "captions_per_s": n_test / e_wall,
                                 "steps_per_batch": n_steps,
@@ -1978,7 +2029,9 @@ def train_command_phase(torch, flash, counted):
         "evaluate": evals, "best_loss_4_rows": {"kernel": got_loss,
                                                 "plain": want_loss},
         "card": card_line()}
-    return train_launches, eval_launches, summary
+    return train_launches, eval_launches, summary, {
+        "records": recs, "generations_best": best_generations,
+        "step_s": timings["step_s"]}
 
 
 SERVE_CMD = [sys.executable, "-m", "news_image_caption_tpu_torch.cli",
@@ -6102,6 +6155,468 @@ def options_phase(torch, flash, counted, ops):
     return launches, summary
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def encoder_forms(torch):
+    """Phase 24.3: RoBERTa-large at full width (the online pipeline's
+    encoder, `PIPELINE_CONFIG`, seeded random weights, fp32 with TF32
+    off) on the config's first 16 test articles: the ring form over a
+    `context` axis of one and the pipelined form over a `pipe` axis of
+    one (n_micro 2), against the dense encoder. The YAML forms `ring:
+    {context: 1}` and `pipe: {pipe: 1}` leave no such axis (`make_mesh`
+    drops axes of one, as the reference's does) and the reference's ring
+    attention and pipeline raise on a mesh without their axis, so the
+    phase gives the encoder meshes that keep their axis of one."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from news_image_caption_tpu_torch.config import build_dataset, load_config
+    from news_image_caption_tpu_torch.models.facenet import fp32_exact
+    from news_image_caption_tpu_torch.models.roberta import RobertaEncoder
+    from news_image_caption_tpu_torch.parallel import distributed as pdist
+
+    cfg = load_config(PIPELINE_CONFIG,
+                      json.dumps({"dataset": {"test": {"size": 16}}}))
+    ids = torch.from_numpy(next(build_dataset(cfg, "test").batches(
+        16, shuffle=False))["article_ids"]).cuda()
+    enc = RobertaEncoder(device="cuda", dtype=torch.float32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0)).eval()
+    pdist.ensure_world("cuda")
+    try:
+        names = ("data", "model")
+        ring = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=names + ("context",))
+        pipe = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=names + ("pipe",))
+        out, ms = {}, {}
+        with torch.no_grad(), fp32_exact():
+            for form in ("dense", "ring", "pipe"):
+                enc.ring_mesh = ring if form == "ring" else None
+                run = ((lambda: enc.encode_pipelined(ids, pipe, 2))
+                       if form == "pipe" else (lambda: enc(ids)[0]))
+                out[form], ms[form] = events_ms(torch, run)
+        enc.ring_mesh = None
+    finally:
+        pdist.shutdown()
+    errs = {form: (out[form] - out["dense"]).abs().max().item()
+            for form in ("ring", "pipe")}
+    scale = out["dense"].abs().max().item()
+    print(f"  RoBERTa-large fp32 (TF32 off), {tuple(ids.shape)} ids: ring"
+          f" (context 1) max |diff| {errs['ring']:.3g}, pipelined (pipe 1,"
+          f" n_micro 2) {errs['pipe']:.3g} against the dense encoder (tol"
+          f" 1e-3; max |dense| {scale:.3g}); ms dense {ms['dense']:.2f} ring"
+          f" {ms['ring']:.2f} pipe {ms['pipe']:.2f}", flush=True)
+    check(all(np.isfinite(e) and e <= 1e-3 for e in errs.values()),
+          "the ring or pipelined encoder disagrees with the dense one")
+    return {"ids": list(ids.shape), "max_abs_diff": errs,
+            "max_abs_dense": scale, "ms": ms}
+
+
+def epoch_medians(step_s: list, epochs: int) -> list:
+    """The median step ms of each epoch (host clock)."""
+    n = len(step_s) // epochs
+    return [sorted(step_s[e * n:(e + 1) * n])[n // 2] * 1e3
+            for e in range(epochs)]
+
+
+def mesh_train(torch, flash_counted, phase8, out_dir: str, **trainer):
+    """Phase 8's train command plus `trainer.distributed` (one process at
+    a free local port), `trainer.mesh: {data: -1, model: 1}` and
+    `trainer`: one NCCL process group, ended with the command, flash
+    launches as phase 8's and its records bit for bit. Returns (the
+    config, its overrides, the command's timings, its wall seconds, the
+    flash launches)."""
+    import torch.distributed as dist
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import FLAGSHIP, load_config
+
+    overrides = train_command_overrides(out_dir)
+    overrides["trainer"].update(
+        distributed={"coordinator_address": f"127.0.0.1:{free_port()}",
+                     "num_processes": 1, "process_id": 0},
+        mesh={"data": -1, "model": 1}, **trainer)
+    ovr = json.dumps(overrides)
+    print(f"  phase 8's cuts plus {json.dumps({k: overrides['trainer'][k] for k in ('distributed', 'mesh', *trainer)})}",
+          flush=True)
+    cfg = load_config(EVAL_CONFIG, ovr)
+    B = cfg["iterator"]["batch_size"]
+    epochs = cfg["trainer"]["num_epochs"]
+    steps = epochs * (cfg["dataset"]["train"]["size"] // B)
+    val_batches = epochs * (cfg["dataset"]["val"]["size"] // B)
+    backends, timings = [], {}
+    real_init = dist.init_process_group
+
+    def recording_init(backend=None, *args, **kw):
+        backends.append(backend)
+        return real_init(backend, *args, **kw)
+
+    for fn in flash_counted.values():
+        fn.launches = 0
+    dist.init_process_group = recording_init
+    try:
+        t = time.perf_counter()
+        rc = cli.main(["train", EVAL_CONFIG, "-o", ovr], timings=timings)
+        wall = time.perf_counter() - t
+    finally:
+        dist.init_process_group = real_init
+    launches = {n: fn.launches for n, fn in flash_counted.items()}
+    check(rc == 0, f"train with the mesh returned {rc}")
+    check(backends == ["nccl"] and not dist.is_initialized(),
+          f"process groups {backends}: expected one NCCL group, ended")
+    n_layers = FLAGSHIP["num_layers"]
+    want = {"flash_attention_fwd": 2 * n_layers * (steps + val_batches),
+            "flash_attention_bwd": 2 * n_layers * steps}
+    print(f"  flash launches {launches} (expected {want}); process group"
+          f" backends {backends}", flush=True)
+    check(launches == want, "flash launches of the train command on a mesh")
+    with open(f"{out_dir}/metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    strip = [{k: v for k, v in r.items() if k != "input_wait"}
+             for r in recs]
+    want_recs = [{k: v for k, v in r.items() if k != "input_wait"}
+                 for r in phase8["records"]]
+    same = strip == want_recs
+    print("  losses with the mesh: " + "; ".join(
+        f"{r['split']} step {r['step']} {r['loss']!r}" for r in recs)
+        + f"; equal to phase 8's bit for bit: {same}", flush=True)
+    check(same, "the train command's records with the mesh differ from"
+          " phase 8's without it")
+    return cfg, ovr, timings, wall, launches
+
+
+def mesh_phase(torch, flash, counted, phase8, phase8_summary):
+    """Phase 24. The train command with phase 8's overrides plus
+    `trainer.distributed`, `trainer.mesh: {data: -1, model: 1}` and
+    `checkpoint_format: sharded` (`mesh_train`): one rank on NCCL, the
+    data-parallel step, the sharded store; then the same with the
+    single-file store (`mesh_train_single`), so the step with and
+    without the mesh is read on one store and the sharded store's cost
+    apart. Both runs' records must equal phase 8's bit for bit. Then
+    `evaluate -m best` from the sharded store, byte-equal to evaluate of
+    the same params through a `.pt` store (and to phase 8's); DCP's save
+    and load against `torch.save` / `torch.load` of the same state (warm
+    page cache); the gradient all-reduce of one step's fp32 gradients on
+    NCCL at one rank; and the encoder forms. Returns ({path: {kernel:
+    launches}}, summary)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_leaves
+
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.parallel import distributed as pdist
+    from news_image_caption_tpu_torch.parallel.collectives import \
+        GradientBuffer
+    from news_image_caption_tpu_torch.training.checkpoint import \
+        CheckpointStore
+    from news_image_caption_tpu_torch.training.checkpoint_sharded import \
+        ShardedCheckpointStore
+
+    flash_counted = {"flash_attention_fwd": flash.flash_attention_fwd,
+                     "flash_attention_bwd": flash.flash_attention_bwd}
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, single, _, single_launches = mesh_train(
+            torch, flash_counted, phase8, f"{tmp}/single")
+        shutil.rmtree(f"{tmp}/single")
+        out_dir = f"{tmp}/serialization"
+        cfg, ovr, timings, wall, train_launches = mesh_train(
+            torch, flash_counted, phase8, out_dir,
+            checkpoint_format="sharded")
+        epochs = cfg["trainer"]["num_epochs"]
+        ckpt_dir = f"{out_dir}/checkpoints"
+        store = ShardedCheckpointStore(ckpt_dir)
+        per_epoch = len(timings["step_s"]) // epochs
+        check([c["step"] for c in store.meta["checkpoints"]]
+              == [per_epoch, 2 * per_epoch], f"meta.json {store.meta}")
+        files = sorted(os.listdir(f"{ckpt_dir}/ckpt_{per_epoch}"))
+        check(".metadata" in files and "__0_0.distcp" in files,
+              f"a sharded checkpoint holds {files}")
+        step_s = sorted(timings["step_s"])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        saves = [(c["step"], round(c["snapshot_s"], 3), round(c["write_s"], 3))
+                 for c in timings["checkpoints"]]
+        by_epoch = {"phase8": epoch_medians(phase8["step_s"], epochs),
+                    "mesh_single": epoch_medians(single["step_s"], epochs),
+                    "mesh_sharded": epoch_medians(timings["step_s"], epochs)}
+
+        # evaluate -m best from the sharded store, and through a .pt
+        # store of the same state.
+        t = time.perf_counter()
+        tree = store.read("best")
+        dcp_load_s = time.perf_counter() - t
+        best = store.meta["best"]
+        for fn in counted.values():
+            fn.launches = 0
+        rc = cli.main(["evaluate", EVAL_CONFIG, "-o", ovr, "-m", "best", "-s",
+                       "_best"])
+        check(rc == 0, f"evaluate from the sharded store returned {rc}")
+        eval_launches = {n: fn.launches for n, fn in counted.items()}
+        with open(f"{out_dir}/generations_best.jsonl", "rb") as f:
+            from_sharded = f.read()
+        pt_dir = f"{tmp}/pt"
+        CheckpointStore(f"{pt_dir}/checkpoints").save(
+            tree, best["step"], next(c["metrics"] for c in
+                                     store.meta["checkpoints"]
+                                     if c["step"] == best["step"]))
+        pt_over = train_command_overrides(pt_dir)
+        rc = cli.main(["evaluate", EVAL_CONFIG, "-o", json.dumps(pt_over),
+                       "-m", "best", "-s", "_best"])
+        check(rc == 0, f"evaluate from the .pt store returned {rc}")
+        with open(f"{pt_dir}/generations_best.jsonl", "rb") as f:
+            from_pt = f.read()
+        shutil.rmtree(pt_dir)
+        print(f"  evaluate -m best (step {best['step']}) from the sharded"
+              f" store: {len(from_sharded)} bytes, byte-equal to the .pt"
+              f" store's {from_sharded == from_pt} and to phase 8's"
+              f" {from_sharded == phase8['generations_best']}; decode"
+              f" launches {eval_launches}", flush=True)
+        check(from_sharded == from_pt, "evaluate from the sharded store"
+              " differs from the .pt store's")
+        check(from_sharded == phase8["generations_best"], "evaluate from the"
+              " sharded store differs from phase 8's")
+
+        # DCP against torch.save / torch.load of the same state.
+        t = time.perf_counter()
+        ShardedCheckpointStore(f"{tmp}/dcp").save(tree, best["step"])
+        dcp_save_s = time.perf_counter() - t
+        shutil.rmtree(f"{tmp}/dcp")
+        t = time.perf_counter()
+        torch.save(tree, f"{tmp}/state.pt")
+        torch_save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        torch.load(f"{tmp}/state.pt", weights_only=True)
+        torch_load_s = time.perf_counter() - t
+        state_gb = sum(v.numel() * v.element_size() for v in
+                       tree_leaves(tree) if isinstance(v, torch.Tensor)) / 1e9
+    sizes = [v.numel() for v in tree["params"].values()]
+    del tree
+    # The step's gradient all-reduce: every trainable parameter's fp32
+    # gradient in the step's flat buffer, summed in place on NCCL at one
+    # rank; and the buffer's fill from the bf16 gradients of bf16_o2.
+    pdist.ensure_world("cuda")
+    try:
+        grads = [torch.zeros(n, device="cuda", dtype=torch.bfloat16)
+                 for n in sizes]
+        buf = GradientBuffer(grads)
+        allreduce_ms = time_ms(lambda: buf.all_reduce(dist.group.WORLD))
+        fill_ms = time_ms(lambda: buf.fill(grads))
+        del grads, buf
+    finally:
+        pdist.shutdown()
+    single_s = sorted(single["step_s"])
+    single_ms = single_s[len(single_s) // 2] * 1e3
+    print(f"  train command with the mesh {wall:.1f} s; step median"
+          f" {step_ms:.2f} ms (sharded store), {single_ms:.2f} ms (single"
+          f" files) against phase 8's"
+          f" {phase8_summary['step_ms_median']:.2f} ms without the mesh"
+          f" (host clock); epoch medians {by_epoch} ms; gradient"
+          f" all-reduce {allreduce_ms:.3f} ms a step"
+          f" ({sum(sizes) * 4 / 1e9:.2f} GB fp32 in place, NCCL, one rank;"
+          f" the buffer's fill from bf16 {fill_ms:.3f} ms); sharded"
+          f" saves (step, snapshot s, write s) {saves}; the best state"
+          f" ({state_gb:.2f} GB): DCP save {dcp_save_s:.2f} s, load"
+          f" {dcp_load_s:.2f} s; torch.save {torch_save_s:.2f} s, torch.load"
+          f" {torch_load_s:.2f} s (warm page cache)", flush=True)
+    summary = {"wall_s": wall, "step_ms_median": step_ms,
+               "single_file_step_ms_median": single_ms,
+               "phase8_step_ms_median": phase8_summary["step_ms_median"],
+               "epoch_median_ms": by_epoch, "step_s": timings["step_s"],
+               "single_file_step_s": single["step_s"],
+               "sharded_saves": saves,
+               "grad_allreduce_ms": allreduce_ms,
+               "grad_fill_ms": fill_ms,
+               "grad_bytes": sum(sizes) * 4, "state_gb": state_gb,
+               "dcp_save_s": dcp_save_s, "dcp_load_s": dcp_load_s,
+               "torch_save_s": torch_save_s, "torch_load_s": torch_load_s,
+               "records_equal_phase8": True,
+               "evaluate_equal_pt_store": True, "card": card_line()}
+    summary["encoders"] = encoder_forms(torch)
+    return {"mesh_train": train_launches,
+            "mesh_train_single": single_launches,
+            "mesh_evaluate": eval_launches}, summary
+
+
+def host_profile(path: str) -> dict:
+    """A train-step window of a `torch.profiler` trace, on the host's
+    clock: each `train_step.*` span's summed ms; the top-level operators
+    (an operator inside no other on its thread) summed by name, ms and
+    calls; the window's wall ms (first span start to last span end), the
+    device's busy ms (the union of its kernels) and the number of
+    operators of every depth."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("train_step.")]
+    start = min(e["ts"] for e in spans)
+    end = max(e["ts"] + e["dur"] for e in spans)
+    span_ms = {}
+    for e in spans:
+        span_ms[e["name"]] = span_ms.get(e["name"], 0.0) + e["dur"] / 1e3
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op"
+                  and start <= e["ts"] <= end),
+                 key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    top, open_until = {}, {}
+    for e in ops:
+        if e["ts"] < open_until.get(e["tid"], -1):
+            continue
+        open_until[e["tid"]] = e["ts"] + e["dur"]
+        ms, n = top.get(e["name"], (0.0, 0))
+        top[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    busy, reach = 0.0, start
+    for e in sorted((e for e in events if e.get("cat") == "kernel"
+                     and start <= e["ts"] <= end), key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], reach), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    return {"wall_ms": (end - start) / 1e3, "device_busy_ms": busy / 1e3,
+            "spans_ms": span_ms, "top_ops": top, "ops": len(ops)}
+
+
+MESH_OVERHEAD = {"train_size": 320, "profile_start": 6, "profile_steps": 5}
+
+
+def process_state(torch) -> dict:
+    """This process's threads, objects the garbage collector tracks,
+    resident memory (MiB) and the card's allocated memory (MiB)."""
+    import gc
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    return {"threads": len(os.listdir("/proc/self/task")),
+            "gc_objects": len(gc.get_objects()), "rss_mib": rss / 1024,
+            "cuda_mib": torch.cuda.memory_allocated() / 2 ** 20}
+
+
+def mesh_overhead_mode(torch, order: str = "pmpm") -> None:
+    """`--mesh-overhead [ORDER]`: the train command on phase 8's YAML and
+    cuts (bf16_o2, flash, B=16) at 320 records (20 steps, one epoch, the
+    single-file store), without (`p`, plain) and with
+    `trainer.distributed` and `trainer.mesh: {data: -1, model: 1}` (`m`,
+    mesh, one NCCL rank), in ORDER's order in one process (default
+    pmpm): each run's step seconds (host clock), their median past step
+    0, the seconds the garbage collector took during the run and the
+    process's state after it (`process_state`). Then one run of each
+    with the profiler over steps [6, 11): per step, the spans' host ms,
+    the top-level operators' ms (the 16 names whose time differs most
+    between the two), the window's wall and the device's busy ms.
+    Prints one `mesh_overhead` JSON line, also written to
+    chiprun_out/mesh_overhead.json."""
+    import gc
+    import glob
+    import tempfile
+
+    from news_image_caption_tpu_torch import cli
+
+    cfg = MESH_OVERHEAD
+    steps = cfg["train_size"] // 16
+
+    def run(mesh: bool, out_dir: str, **trainer):
+        over = train_command_overrides(out_dir)
+        over["dataset"]["train"]["size"] = cfg["train_size"]
+        over["dataset"]["val"]["size"] = 16
+        over["trainer"].update(num_epochs=1, log_every=steps,
+                               num_serialized_models_to_keep=1,
+                               summary_interval=0, **trainer)
+        if mesh:
+            over["trainer"].update(
+                distributed={"coordinator_address":
+                             f"127.0.0.1:{free_port()}",
+                             "num_processes": 1, "process_id": 0},
+                mesh={"data": -1, "model": 1})
+        timings = {}
+        rc = cli.main(["train", EVAL_CONFIG, "-o", json.dumps(over)],
+                      timings=timings)
+        check(rc == 0, f"train (mesh {mesh}) returned {rc}")
+        step_s = timings["step_s"]
+        check(len(step_s) == steps, f"{len(step_s)} steps, expected {steps}")
+        return step_s
+
+    check(order and set(order) <= {"p", "m"},
+          f"--mesh-overhead {order!r}: a string of p (plain) and m (mesh)")
+    gc_s, gc_start = [0.0], [0.0]
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_start[0]
+
+    out = {"config": {**cfg, "order": order}, "card": card_line(),
+           "runs": [], "profiles": {}}
+    gc.callbacks.append(gc_clock)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, which in enumerate(order):
+                name = "mesh" if which == "m" else "plain"
+                gc_s[0] = 0.0
+                step_s = run(which == "m", f"{tmp}/run{i}")
+                rest = sorted(step_s[1:])
+                out["runs"].append({
+                    "run": name, "step0_ms": step_s[0] * 1e3,
+                    "median_ms": rest[len(rest) // 2] * 1e3,
+                    "step_ms": [t * 1e3 for t in step_s],
+                    "gc_s": gc_s[0], **process_state(torch)})
+                shutil.rmtree(f"{tmp}/run{i}")
+                print(f"  run {i} {name}: step 0 {step_s[0] * 1e3:.2f} ms,"
+                      f" median of steps 1-{steps - 1}"
+                      f" {rest[len(rest) // 2] * 1e3:.2f} ms; after it "
+                      + json.dumps({k: out["runs"][-1][k] for k in (
+                          "gc_s", "threads", "gc_objects", "rss_mib",
+                          "cuda_mib")}), flush=True)
+            n = cfg["profile_steps"]
+            for mesh in (False, True):
+                name = "mesh" if mesh else "plain"
+                out_dir = f"{tmp}/profiled_{name}"
+                run(mesh, out_dir, profile_start=cfg["profile_start"],
+                    profile_steps=n)
+                traces = glob.glob(f"{out_dir}/profile/*.pt.trace.json")
+                check(len(traces) == 1, f"profile directory holds {traces}")
+                prof = host_profile(traces[0])
+                check(prof["spans_ms"].get("train_step.forward") is not None,
+                      f"no train step spans in {traces[0]}")
+                out["profiles"][name] = prof
+    finally:
+        gc.callbacks.remove(gc_clock)
+    plain, mesh = out["profiles"]["plain"], out["profiles"]["mesh"]
+    names = set(plain["top_ops"]) | set(mesh["top_ops"])
+
+    def per_step(prof, k):
+        return prof["top_ops"].get(k, (0.0, 0))[0] / n
+
+    diff = sorted(names, key=lambda k: -abs(per_step(mesh, k)
+                                            - per_step(plain, k)))[:16]
+    for name, prof in out["profiles"].items():
+        top_ms = sum(ms for ms, _ in prof["top_ops"].values())
+        print(f"  profiled {name}, per step: wall {prof['wall_ms'] / n:.2f}"
+              f" ms, device busy {prof['device_busy_ms'] / n:.2f} ms,"
+              f" top-level operators {top_ms / n:.2f} ms"
+              f" ({prof['ops'] / n:.0f} operators of any depth); spans "
+              + json.dumps({k: round(v / n, 3)
+                            for k, v in prof["spans_ms"].items()}),
+              flush=True)
+    print("  top-level operators whose host ms a step differ most (plain,"
+          " mesh): " + "; ".join(
+              f"{k} {per_step(plain, k):.3f} / {per_step(mesh, k):.3f}"
+              for k in diff), flush=True)
+    out["largest_differences"] = {k: (per_step(plain, k), per_step(mesh, k))
+                                  for k in diff}
+    for prof in out["profiles"].values():
+        prof["top_ops"] = {k: v for k, v in sorted(
+            prof["top_ops"].items(), key=lambda kv: -kv[1][0])[:40]}
+    line = json.dumps({"mesh_overhead": out})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/mesh_overhead.json", "w") as f:
+        f.write(line + "\n")
+    print(line, flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6121,8 +6636,13 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if len(sys.argv) > 1:
+        usage = ("usage: chip_smoke.py [--serving-latency N_REQUESTS |"
+                 " --mesh-overhead [ORDER]]")
+        if sys.argv[1] == "--mesh-overhead" and len(sys.argv) <= 3:
+            mesh_overhead_mode(torch, *sys.argv[2:])
+            return
         check(len(sys.argv) == 3 and sys.argv[1] == "--serving-latency",
-              "usage: chip_smoke.py [--serving-latency N_REQUESTS]")
+              usage)
         latency_mode(torch, int(sys.argv[2]))
         return
 
@@ -6171,7 +6691,7 @@ def main() -> None:
 
     print("phase 8: the train command, then evaluate from its checkpoints"
           " (flagship, bf16_o2)", flush=True)
-    cmd_launches, ckpt_launches, cmd_summary = train_command_phase(
+    cmd_launches, ckpt_launches, cmd_summary, phase8 = train_command_phase(
         torch, flash_attention, counted)
     for name in cmd_launches:
         n = cmd_launches[name] + ckpt_launches[name]
@@ -6376,6 +6896,20 @@ def main() -> None:
                 by_path[name][path] = n
     print(json.dumps({"options": {**opt_summary,
                                   "launches": opt_launches}}), flush=True)
+
+    print("phase 24: parallelism at one rank (the train command with"
+          " trainer.distributed, trainer.mesh and the sharded store on"
+          " NCCL, evaluate from the sharded store, the ring and pipelined"
+          " RoBERTa-large)", flush=True)
+    mesh_launches, mesh_summary = mesh_phase(
+        torch, flash_attention, counted, phase8, cmd_summary)
+    for path, counts in mesh_launches.items():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name][path] = n
+    print(json.dumps({"mesh": {**mesh_summary,
+                               "launches": mesh_launches}}), flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",

@@ -72,12 +72,30 @@ decode kernels. On the CPU `train` computes in the precision's dtype and
 `evaluate` in the config's (float32 unless set), through the kernels'
 plain versions. `evaluate` takes the int8 K/V route with
 `generation.quantize_kv` (decode_cross_attention_int8 on the card), as
-`serve --quantize-kv / --quantize-head` do. Meshes, multi-process
-training and the sharded checkpoint format are not ported yet: each
-raises NotImplementedError naming ROADMAP Queue 1 item 11. `train` reads
+`serve --quantize-kv / --quantize-head` do. `train` reads
 `trainer.profile_steps` and `trainer.profile_start` (default 2): steps
 [profile_start, profile_start + profile_steps) are traced by
 `torch.profiler` into `<serialization_dir>/profile`.
+
+`train` runs on several ranks, one process a device
+(`parallel/__init__.py`): `trainer.distributed` joins them (a
+{coordinator_address "host:port" or "file:///path", num_processes,
+process_id} block per process, or `true` under torchrun), then
+`trainer.mesh` ({data: -1, model: 1}) makes the rank mesh before the
+model is built, and the steps are data-parallel over its `data` axis
+(each rank trains on its rows of every global batch; rank 0 writes the
+logs). `trainer.mesh.model > 1` raises NotImplementedError (tensor
+parallelism, ROADMAP Queue 1 item 11b). Launch with
+
+    torchrun --nproc-per-node N -m news_image_caption_tpu_torch.cli \
+        train CONFIG -o '{"trainer": {"distributed": true,
+                                      "mesh": {"data": -1}}}'
+
+`trainer.checkpoint_format: sharded` keeps directory-per-step
+checkpoints written by every rank (`training/checkpoint_sharded.py`);
+`evaluate` reads them when the format says so or when it finds them, and
+refuses a directory of the reference's orbax store (its way in is
+`models/from_jax.py::state_from_jax`).
 
 `preprocess IN.jsonl PREFIX [flags]` writes `PREFIX-{i:05d}.nics` shards
 (and their `.schema`) of the records' caption and article ids, copy
@@ -112,6 +130,9 @@ from news_image_caption_tpu_torch.evaluation.metrics import (BleuScorer,
                                                              RougeScorer)
 from news_image_caption_tpu_torch.generation.generator import \
     GenerationConfig
+from news_image_caption_tpu_torch.parallel.distributed import (
+    initialize, shard_iterator, shutdown)
+from news_image_caption_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from news_image_caption_tpu_torch.training.checkpoint import (CheckpointStore,
                                                               check_layout)
 from news_image_caption_tpu_torch.training.optim import accumulate_gradients
@@ -242,18 +263,23 @@ def main(argv: Optional[list] = None, *,
     ps.add_argument("--exit-after-ready", action="store_true",
                     help=argparse.SUPPRESS)  # test hook
     args = p.parse_args(argv)
-    if args.command == "train":
-        return train_command(args, timings)
-    if args.command == "serve":
-        return serve_command(args)
-    if args.command == "port":
-        return port_command(args)
-    if args.command == "preprocess":
-        from news_image_caption_tpu_torch.data.materialize import \
-            main as materialize_main
-        return materialize_main([args.input_jsonl, args.out_prefix]
-                                + args.materialize_flags)
-    return evaluate_command(args, timings)
+    try:
+        if args.command == "train":
+            return train_command(args, timings)
+        if args.command == "serve":
+            return serve_command(args)
+        if args.command == "port":
+            return port_command(args)
+        if args.command == "preprocess":
+            from news_image_caption_tpu_torch.data.materialize import \
+                main as materialize_main
+            return materialize_main([args.input_jsonl, args.out_prefix]
+                                    + args.materialize_flags)
+        return evaluate_command(args, timings)
+    finally:
+        # A process group the command joined or made (`trainer.
+        # distributed`, a mesh's world of one) ends with it.
+        shutdown()
 
 
 def speculative_settings(cfg: Dict):
@@ -371,20 +397,26 @@ def _flash_train(cfg: Dict) -> bool:
 def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
     cfg = load_config(args.param_path, args.overrides)
     tcfg = cfg.get("trainer", {})
-    for key in ("mesh", "distributed"):
-        if tcfg.get(key):
-            raise NotImplementedError(
-                f"trainer.{key}: multi-device training is not ported yet "
-                "(ROADMAP Queue 1 item 11)")
-    fmt = tcfg.get("checkpoint_format", "msgpack")
-    if fmt == "sharded":
+    mesh_cfg = tcfg.get("mesh")
+    if mesh_cfg and int(mesh_cfg.get("model", 1)) > 1:
         raise NotImplementedError(
-            "trainer.checkpoint_format 'sharded' is not ported yet (ROADMAP "
-            "Queue 1 item 11)")
-    if fmt != "msgpack":
+            "trainer.mesh.model > 1: tensor parallelism (the reference's "
+            "parallel/partition.py rules) is not ported yet (ROADMAP Queue "
+            "1 item 11b)")
+    fmt = tcfg.get("checkpoint_format", "msgpack")
+    if fmt not in ("msgpack", "sharded"):
         raise ValueError(f"unknown trainer.checkpoint_format {fmt!r}; use "
                          "'msgpack' (the port's single files) or 'sharded'")
     device = _device(args.platform)
+    # Multi-process bootstrap (`trainer.distributed`: a {coordinator_
+    # address, num_processes, process_id} block, or true for torchrun's
+    # environment), then the mesh, before the model is built.
+    dist_cfg = tcfg.get("distributed")
+    if dist_cfg:
+        initialize(**(dist_cfg if isinstance(dist_cfg, dict) else {}),
+                   device=device)
+    mesh = make_mesh(MeshConfig(**mesh_cfg), device.type) if mesh_cfg \
+        else None
     precision = _precision(cfg)
     if device.type == "cuda" and precision == "fp32" and _flash_train(cfg):
         raise ValueError(
@@ -413,15 +445,18 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
         summary_interval=tcfg.get("summary_interval", 512),
         profile_start=tcfg.get("profile_start", 2),
         profile_steps=tcfg.get("profile_steps", 0),
-        seed=tcfg.get("seed", 0)))
+        seed=tcfg.get("seed", 0),
+        checkpoint_format=tcfg.get("checkpoint_format", "msgpack")),
+        mesh=mesh)
 
+    # Every rank draws the global batches; the loader places its rows.
     def train_batches(epoch):
-        return DeviceLoader(_loss_batches(
-            train_ds.batches(batch_size, seed=epoch), model), device)
+        return DeviceLoader(_loss_batches(shard_iterator(
+            train_ds.batches(batch_size, seed=epoch)), model), device, mesh)
 
     def val_batches(epoch):
-        return DeviceLoader(_loss_batches(
-            val_ds.batches(batch_size, shuffle=False), model), device)
+        return DeviceLoader(_loss_batches(shard_iterator(
+            val_ds.batches(batch_size, shuffle=False)), model), device, mesh)
 
     trainer.train(state, train_batches, val_batches, recover=args.recover)
     if timings is not None:
@@ -429,6 +464,22 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
                        step_s=trainer.step_seconds,
                        checkpoints=trainer.store.timings)
     return 0
+
+
+def checkpoint_store(cfg: Dict, ckpt_dir: str) -> CheckpointStore:
+    """The store of `ckpt_dir`: `trainer.checkpoint_format`'s, else the
+    sharded one where the directory holds directory-per-step
+    checkpoints (as the reference detects them)."""
+    fmt = cfg.get("trainer", {}).get("checkpoint_format")
+    if fmt is None:
+        fmt = ("sharded" if any(
+            e.startswith("ckpt_") and os.path.isdir(os.path.join(ckpt_dir, e))
+            for e in os.listdir(ckpt_dir)) else "msgpack")
+    if fmt == "sharded":
+        from news_image_caption_tpu_torch.training.checkpoint_sharded import \
+            ShardedCheckpointStore
+        return ShardedCheckpointStore(ckpt_dir)
+    return CheckpointStore(ckpt_dir)
 
 
 def checkpoint_model(cfg: Dict, ckpt_dir: str, which: str,
@@ -442,11 +493,11 @@ def checkpoint_model(cfg: Dict, ckpt_dir: str, which: str,
     stored = (torch.bfloat16 if _precision(cfg) == "bf16_o2"
               else torch.float32)
     layout = build_model(cfg, "meta", stored).param_module
-    store = CheckpointStore(ckpt_dir)
+    store = checkpoint_store(cfg, ckpt_dir)
     if which.startswith("avg:"):
         params = store.read_averaged(last_n=int(which[4:]), key="params")
     else:
-        params = store.read(which)["params"]
+        params = store.read(which, "params")
     model = build_model(cfg, device, _evaluate_dtype(device))
     module = model.param_module
     template = {k: torch.empty(p.shape, dtype=p.dtype, device="meta")

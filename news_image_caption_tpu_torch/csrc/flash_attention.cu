@@ -80,7 +80,9 @@
 //
 // Dropout: the TPU draws from its hardware generator, which cannot be
 // reproduced here. The seed is mixed as the TPU kernel mixes it,
-// key = seed * 2654435761 + (b * H + head) (mod 2^32), and the bits of
+// key = seed * 2654435761 + (b * H + head) (mod 2^32), b counted from
+// row0, the batch's first row in a data-parallel run's global batch (0
+// otherwise), so that every rank drops the single process's slots; the bits of
 // (key, t, s) come from a stateless hash: the murmur3 finalizer fmix32,
 // row_key = fmix32(key ^ fmix32(t + 0x9e3779b9)), bits =
 // fmix32(row_key + s). A slot is kept where bits >= threshold =
@@ -149,6 +151,7 @@ struct FlashArgs {
   int stages;         // slots of the ring; all key tiles where they fit
   uint32_t threshold;
   float scale;
+  int row0;           // the batch's first row in the global batch (dropout hash)
 };
 
 // Address of 16-byte chunk `chunk` of row `row` in a swizzled tile
@@ -376,7 +379,7 @@ flash_fwd_kernel(FlashArgs a, bf16* __restrict__ out, float* __restrict__ lse) {
   const int head = blockIdx.x, b = blockIdx.y, H = gridDim.x;
   const int t0 = blockIdx.z * FLASH_ROWS, rows = min(FLASH_ROWS, a.T - t0);
   const size_t qoff = ((size_t)b * a.T + t0) * a.E + head * DH;
-  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u + (uint32_t)(b * H + head);
+  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u + (uint32_t)((b + a.row0) * H + head);
 
   request_tile<DH>(blk.qs, a.q + qoff, a.E, rows);
   blk.request_first();
@@ -510,7 +513,7 @@ flash_bwd_kernel(FlashArgs a, const float* __restrict__ lse,
   const int t0 = blockIdx.z * FLASH_ROWS, rows = min(FLASH_ROWS, a.T - t0);
   const size_t qoff = ((size_t)b * a.T + t0) * a.E + head * DH;
   const size_t koff = (size_t)b * a.S * a.E + head * DH;
-  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u + (uint32_t)(b * H + head);
+  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u + (uint32_t)((b + a.row0) * H + head);
   const size_t kv_elems = (size_t)B * a.S * a.E;
   float* dk_part = parts == nullptr ? nullptr : parts + blockIdx.z * kv_elems + koff;
   float* dv_part = parts == nullptr ? nullptr
@@ -674,16 +677,17 @@ NIC_DEFINE_PHASE_READER(nic_flash_phases)
 // 128}. threshold = floor(p 2^32) (0: no dropout), scale = 1 / (1 - p).
 // The caller plans `stages` slots of 64 keys (1..3, at most the key
 // tiles; all of them or at least 2) and `smem`, which must equal
-// flash_smem_bytes(false, stages, E / H). Returns a cudaError_t.
+// flash_smem_bytes(false, stages, E / H). row0: the batch's first row in
+// the global batch, for the dropout hash. Returns a cudaError_t.
 extern "C" int nic_flash_fwd(const void* q, const void* k, const void* v,
                              const void* bias, const void* seed, void* out,
                              void* lse, int B, int T, int S, int E, int H,
                              unsigned threshold, float scale, int stages, int smem,
-                             void* stream) {
+                             int row0, void* stream) {
   using namespace nic;
   if (!flash_plan_ok(B, T, S, E, H, stages, smem, false)) return (int)cudaErrorInvalidValue;
   const FlashArgs a{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-                    (const int*)seed, T, S, E, stages, threshold, scale};
+                    (const int*)seed, T, S, E, stages, threshold, scale, row0};
   cudaError_t err;
 #define NIC_FLASH_FWD(DH) \
   launch_flash_fwd<DH>(a, (bf16*)out, (float*)lse, B, H, smem, (cudaStream_t)stream)
@@ -702,13 +706,13 @@ extern "C" int nic_flash_bwd(const void* q, const void* k, const void* v,
                              const void* g, void* dq, void* dk, void* dv,
                              void* parts, int B, int T, int S, int E, int H,
                              unsigned threshold, float scale, int stages, int smem,
-                             void* stream) {
+                             int row0, void* stream) {
   using namespace nic;
   if (!flash_plan_ok(B, T, S, E, H, stages, smem, true) ||
       ((T > FLASH_ROWS) != (parts != nullptr)))
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-                    (const int*)seed, T, S, E, stages, threshold, scale};
+                    (const int*)seed, T, S, E, stages, threshold, scale, row0};
   cudaError_t err;
 #define NIC_FLASH_BWD(DH)                                                     \
   launch_flash_bwd<DH>(a, (const float*)lse, (const bf16*)g, (bf16*)dq, (bf16*)dk, \

@@ -58,22 +58,41 @@ def host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-class DeviceLoader:
-    """Wrap a host batch iterator with prefetch + device placement."""
+def device_batch(batch: Dict[str, np.ndarray], device
+                 ) -> Dict[str, torch.Tensor]:
+    """Every host array of `batch` on `device` (`host_tensor`): through
+    pinned memory and a non-blocking copy on the card, copied on the
+    CPU."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = host_tensor(v)
+        if device.type == "cuda":
+            out[k] = t.pin_memory().to(device, non_blocking=True)
+        else:
+            out[k] = t.clone()
+    return out
 
-    def __init__(self, batches: Iterable[Dict[str, np.ndarray]], device):
+
+class DeviceLoader:
+    """Wrap a host batch iterator with prefetch + device placement. With
+    a mesh, each batch is the global one and the rank places its rows
+    along the mesh's `data` axis (`parallel/distributed.py::
+    place_local`), as the reference's loader places a data-sharded
+    global batch."""
+
+    def __init__(self, batches: Iterable[Dict[str, np.ndarray]], device,
+                 mesh=None):
         self._batches = batches
         self._device = torch.device(device)
+        self._mesh = mesh
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in batch.items():
-            t = host_tensor(v)
-            if self._device.type == "cuda":
-                out[k] = t.pin_memory().to(self._device, non_blocking=True)
-            else:
-                out[k] = t.clone()
-        return out
+        if self._mesh is None:
+            return device_batch(batch, self._device)
+        from news_image_caption_tpu_torch.parallel.distributed import \
+            place_local
+        return place_local(batch, self._mesh, self._device)
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)

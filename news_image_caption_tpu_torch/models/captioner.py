@@ -34,6 +34,7 @@ from news_image_caption_tpu_torch.generation.speculative import (
     commit_conv_caches, ngram_drafts, speculative_greedy)
 from news_image_caption_tpu_torch.models.decoder_flattened import (
     DecodeWeights, DynamicConvDecoder)
+from news_image_caption_tpu_torch.parallel.collectives import global_sums
 from news_image_caption_tpu_torch.utils.registry import MODELS
 
 LN2 = math.log(2.0)
@@ -88,7 +89,7 @@ class TransformerFlattened:
         inp, tgt = shift_caption(batch["caption_ids"].long())
         loss_sum, ntokens = self.decoder.loss(inp, self._contexts(batch), tgt,
                                               generator)
-        loss_bits = loss_sum / LN2
+        loss_bits, ntokens = global_sums(loss_sum / LN2, ntokens)
         mean_loss = loss_bits / torch.clamp(ntokens, min=1)
         return mean_loss, {"loss_sum": loss_bits, "sample_size": ntokens}
 

@@ -45,6 +45,7 @@ from news_image_caption_tpu_torch.ops.adaptive import AdaptiveSoftmax
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      initializes, new_param)
+from news_image_caption_tpu_torch.parallel.collectives import global_sums
 from news_image_caption_tpu_torch.utils.registry import DECODERS, MODELS
 
 LN2 = math.log(2.0)
@@ -240,7 +241,7 @@ class LSTMFlattenedModel(nn.Module):
         loss_sum, ntokens = self.adaptive_softmax.loss_sum(
             x.reshape(-1, x.shape[-1]), tgt.reshape(-1),
             self.target_padding_idx, self.embedder.embed_tables())
-        loss_bits = loss_sum / LN2
+        loss_bits, ntokens = global_sums(loss_sum / LN2, ntokens)
         return (loss_bits / torch.clamp(ntokens, min=1),
                 {"loss_sum": loss_bits, "sample_size": ntokens})
 

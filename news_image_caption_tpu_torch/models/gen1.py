@@ -61,6 +61,8 @@ from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (Dense, initializes,
                                                      new_param)
+from news_image_caption_tpu_torch.parallel.collectives import (batch_rows,
+                                                               global_sums)
 from news_image_caption_tpu_torch.utils.registry import MODELS
 
 Feats = Dict[str, torch.Tensor]
@@ -698,8 +700,8 @@ def masked_nll_loss(log_probs: torch.Tensor, targets: torch.Tensor,
     lp = log_probs[:, :T]
     m = mask[:, :T].to(lp.dtype)
     nll = -torch.gather(lp, 2, targets[:, :T, None].long())[..., 0]
-    total = torch.sum(nll * m)
-    return total / torch.clamp(m.sum(), min=1.0), m.sum()
+    total, count = global_sums(torch.sum(nll * m), m.sum())
+    return total / torch.clamp(count, min=1.0), count
 
 
 @MODELS.register("gen1")
@@ -755,6 +757,10 @@ class Gen1Model:
         by a draw from the previous step's distribution."""
         it = seq[:, t]
         if ss_prob > 0.0 and t >= 1:
+            if batch_rows() is not None:
+                raise NotImplementedError(
+                    "scheduled sampling under data parallelism: its draws "
+                    "are per row of the local batch")
             use = torch.rand(seq.shape[0], generator=generator,
                              device=generator.device) < ss_prob
             sampled = sample_index(prev_lp, generator)

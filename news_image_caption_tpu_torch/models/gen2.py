@@ -66,6 +66,7 @@ from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      positionwise)
 from news_image_caption_tpu_torch.ops.positional import \
     interleaved_sinusoidal_table
+from news_image_caption_tpu_torch.parallel.collectives import global_sums
 from news_image_caption_tpu_torch.utils.registry import MODELS
 
 NEG = -1e9
@@ -539,8 +540,8 @@ class Gen2Captioner:
         lg = self.module.logits(self._memory(batch), caption[:, :-1],
                                 src_masks=self._src_masks(batch),
                                 generator=generator)
-        loss, ntokens = label_smoothing_loss_from_logits(
-            lg, caption[:, 1:], self.module.pad_id, self.smoothing)
+        loss, ntokens = global_sums(*label_smoothing_loss_from_logits(
+            lg, caption[:, 1:], self.module.pad_id, self.smoothing))
         return (loss / torch.clamp(ntokens, min=1),
                 {"loss_sum": loss, "sample_size": ntokens})
 

@@ -17,6 +17,18 @@ optimizer leaves them out (`frozen_collections`, `training/optim.py::
 mask_frozen`). With `weigh_bert` the hiddens carry no gradient, but
 `bert_weight` gets one through the weighted sum.
 
+`roberta: {ring: {data: D, context: C}}` runs the encoder with ring
+attention over a `context` axis and `roberta: {pipe: {data: D, pipe: P,
+n_micro: M}}` through the GPipe schedule over a `pipe` axis
+(`models/roberta.py`), each over a mesh of the run's ranks
+(`parallel/mesh.py::make_mesh`, a `model` axis there only replicating,
+as in the reference); `encode` then takes the rank's rows of the batch.
+The ranks of a `context` or `pipe` line must hold the same rows: under
+a data-parallel step (`trainer.mesh`) `encode` raises unless they share
+their coordinate on its `data` axis, that is unless `trainer.mesh` has
+the same axis. The pipelined encoder makes only the last hidden, so
+`pipe` with `weigh_bert` raises.
+
 The decoder decodes with the flagship's four kernels, over the patches
 and the article hiddens the encoders computed on the card. There is no
 `generate_speculative`, as in the reference, so evaluate decodes greedily
@@ -40,6 +52,12 @@ from news_image_caption_tpu_torch.models.resnet import (ResNetTrunk,
                                                         preprocess_image)
 from news_image_caption_tpu_torch.models.roberta import (RobertaEncoder,
                                                          WeightedSumFeatures)
+from news_image_caption_tpu_torch.parallel.collectives import batch_rows
+from news_image_caption_tpu_torch.parallel.mesh import (CONTEXT_AXIS,
+                                                        PIPE_AXIS,
+                                                        MeshConfig,
+                                                        check_rows_shared,
+                                                        make_mesh)
 from news_image_caption_tpu_torch.utils.registry import MODELS
 
 
@@ -64,11 +82,27 @@ class Gen3Pipeline(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         roberta = dict(roberta or {})
-        for key in ("ring", "pipe"):
-            if roberta.pop(key, None):
-                raise NotImplementedError(
-                    f"roberta.{key}: the multi-device encoder is not "
-                    "ported yet (ROADMAP Queue 1 item 11)")
+        ring, pipe = roberta.pop("ring", None), roberta.pop("pipe", None)
+        # A model built for its layout alone (the meta device) runs
+        # nothing and joins no mesh.
+        meshes = torch.device(device).type != "meta"
+        self.roberta_pipe = None
+        self._rows_checked = None   # the data-parallel mesh checked last
+        if ring and meshes:
+            roberta["ring_mesh"] = make_mesh(MeshConfig(**ring),
+                                             torch.device(device).type)
+        if pipe:
+            pipe = dict(pipe)
+            n_micro = pipe.pop("n_micro", None)
+            if weigh_bert:
+                raise ValueError(
+                    "roberta.pipe is incompatible with weigh_bert: the "
+                    "pipelined encoder produces only the last hidden "
+                    "(RobertaEncoder.encode_pipelined)")
+            if meshes:
+                self.roberta_pipe = (make_mesh(MeshConfig(**pipe),
+                                               torch.device(device).type),
+                                     n_micro)
         self.captioner = TransformerFlattened(**kw, **decoder_kwargs)
         self.decoder = self.captioner.decoder
         self.resnet = ResNetTrunk(**(resnet or {}), **kw)
@@ -102,9 +136,13 @@ class Gen3Pipeline(nn.Module):
             image = preprocess_image(image)
         image = image.to(self.resnet.conv1.weight.dtype)
         ids = batch["article_ids"]
+        self._check_rows()
         with torch.no_grad():
             patches = self.resnet.patches(image)
-            last, hiddens = self.roberta(ids)
+            if self.roberta_pipe is not None:
+                last = self.roberta.encode_pipelined(ids, *self.roberta_pipe)
+            else:
+                last, hiddens = self.roberta(ids)
         if self.weigh_bert:
             if self.weighted_sum is None:
                 # Last-layer features would silently run another model.
@@ -119,6 +157,21 @@ class Gen3Pipeline(nn.Module):
                                           device=patches.device),
                 "article": article,
                 "article_mask": ids == self.article_pad}
+
+    def _check_rows(self) -> None:
+        """ValueError where the encoder's ring or pipe partners hold
+        different rows of a data-parallel batch."""
+        rows = batch_rows()
+        if rows is None or rows.mesh is None \
+                or rows.mesh is self._rows_checked:
+            return
+        if self.roberta.ring_mesh is not None:
+            check_rows_shared(rows.mesh, self.roberta.ring_mesh,
+                              CONTEXT_AXIS, "roberta.ring")
+        if self.roberta_pipe is not None:
+            check_rows_shared(rows.mesh, self.roberta_pipe[0], PIPE_AXIS,
+                              "roberta.pipe")
+        self._rows_checked = rows.mesh
 
     def loss_fn(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None):

@@ -59,6 +59,7 @@ from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      LayerNorm, initializes,
                                                      new_param, positionwise)
+from news_image_caption_tpu_torch.parallel.collectives import global_sums
 from news_image_caption_tpu_torch.utils.registry import MODELS
 
 NEG = -1e9
@@ -339,6 +340,7 @@ class TransformerPointer(nn.Module):
         inp, tgt = shift_caption(batch["caption_ids"].long())
         x = self.decoder.hidden(inp, self._contexts(batch), generator)
         loss_sum, ntokens = self.decoder.loss_from_hidden(x, tgt, generator)
+        loss_sum, ntokens = global_sums(loss_sum, ntokens)
         gen_loss = loss_sum / LN2 / torch.clamp(ntokens, min=1)
         zero = gen_loss.new_zeros(())
         entity_loss = copy_loss = zero
@@ -349,8 +351,9 @@ class TransformerPointer(nn.Module):
             lse = torch.log_softmax(self._entity_logits(x).float(), dim=-1)
             nll = -lse.gather(-1, ent_tgt.clamp(min=0)[..., None])[..., 0]
             valid = ent_tgt >= 0
-            entity_loss = (torch.where(valid, nll, 0.0).sum()
-                           / torch.clamp(valid.sum(), min=1)) / LN2
+            ent_sum, n_valid = global_sums(torch.where(valid, nll, 0.0).sum(),
+                                           valid.sum())
+            entity_loss = (ent_sum / torch.clamp(n_valid, min=1)) / LN2
             attn = self.copy_attn(x, batch["article"],
                                   batch.get("article_mask"), generator)
             attn = attn * (batch["context_proper_masks"] >= 1)[:, None, :]
@@ -366,14 +369,15 @@ class TransformerPointer(nn.Module):
             seg = on & (copy_masks < num)     # a larger index is dropped
             onehot = torch.nn.functional.one_hot(
                 torch.where(seg, copy_masks, 0), num).float() * seg[..., None]
-            sums = (onehot * -log_p[..., None]).sum(dim=(0, 1))
-            cnts = onehot.sum(dim=(0, 1))
+            sums, cnts, n_on = global_sums(
+                (onehot * -log_p[..., None]).sum(dim=(0, 1)),
+                onehot.sum(dim=(0, 1)), on.sum())
             per_entity = torch.where(cnts > 0,
                                      sums / torch.clamp(cnts, min=1.0), 0.0)
             copy_loss = per_entity[1:].sum() / LN2
             # A batch without entities adds neither loss (no gradient on
             # the gate), as the reference returns early.
-            has_entities = on.any()
+            has_entities = n_on > 0
             entity_loss = torch.where(has_entities, entity_loss, zero)
             copy_loss = torch.where(has_entities, copy_loss, zero)
         wg, we, wc = self.loss_weights

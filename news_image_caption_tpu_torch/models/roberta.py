@@ -19,9 +19,22 @@ The encoder computes in its parameters' dtype (the reference's `dtype`
 field, its compute dtype, is not taken: no config sets it), and every
 LayerNorm returns that dtype rather than promoting to fp32. The
 attention is plain PyTorch: the reference computes it in XLA, and no
-Pallas kernel touches it. The ring-attention and pipelined encoders
-(`ring_mesh`, `encode_pipelined`) are multi-device and not ported (ROADMAP
-Queue 1 item 11).
+Pallas kernel touches it.
+
+Two multi-rank forms, as the reference's:
+
+- `RobertaEncoder(ring_mesh=mesh)`: after the embeddings (over the whole
+  sequence, for the positions) each rank keeps its slice of the article
+  axis on the mesh's `context` axis (`parallel/sequence.py`), every
+  layer's attention is ring attention over the slices
+  (`parallel/ring.py`), and every hidden is gathered back whole;
+- `encode_pipelined(ids, mesh, n_micro)`: the embeddings on every rank,
+  the layers through the GPipe schedule over the mesh's `pipe` axis
+  (`parallel/pipe.py`), each rank holding its stage's layers, and the
+  last hidden alone on every rank.
+
+Both take the rank's rows of the batch and equal the dense encoder up to
+fp32 reassociation.
 """
 
 from __future__ import annotations
@@ -34,6 +47,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from news_image_caption_tpu_torch.ops.linear import initializes, new_param
+from news_image_caption_tpu_torch.parallel.pipe import (pipeline_apply,
+                                                        stage_layers)
+from news_image_caption_tpu_torch.parallel.ring import ring_attention
+from news_image_caption_tpu_torch.parallel.sequence import (
+    replicate_sequence, shard_article_axis)
 
 NEG = -1e9
 
@@ -115,37 +133,47 @@ class RobertaLayer(nn.Module):
         self.out = Dense(intermediate, hidden, **kw)
         self.out_ln = Norm(hidden, eps, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-        """x [B, S, H]; keep [B, S], True at real tokens."""
+    def forward(self, x: torch.Tensor, keep: torch.Tensor,
+                ring_mesh=None) -> torch.Tensor:
+        """x [B, S, H]; keep [B, S], True at real tokens; with a ring
+        mesh, this rank's slices of them."""
         B, S, H = x.shape
         hd = H // self.heads
 
         def split(t):
             return t.view(B, S, self.heads, hd).transpose(1, 2)
 
-        q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        scores = (scores / math.sqrt(hd)).masked_fill(
-            ~keep[:, None, None, :], NEG)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, H)
+        if ring_mesh is not None:
+            ctx = ring_attention(*(t.view(B, S, self.heads, hd) for t in (
+                self.q(x), self.k(x), self.v(x))), keep,
+                ring_mesh).reshape(B, S, H)
+        else:
+            q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            scores = (scores / math.sqrt(hd)).masked_fill(
+                ~keep[:, None, None, :], NEG)
+            probs = torch.softmax(scores, dim=-1).to(v.dtype)
+            ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, H)
         x = self.attn_ln(x + self.attn_out(ctx))
         h = F.gelu(self.inter(x), approximate="none")
         return self.out_ln(x + self.out(h))
 
 
 class RobertaEncoder(nn.Module):
-    """ids [B, S] -> (last hidden [B, S, H], all L + 1 hiddens)."""
+    """ids [B, S] -> (last hidden [B, S, H], all L + 1 hiddens). With
+    `ring_mesh`, sequence-parallel over its `context` axis."""
 
     def __init__(self, vocab_size: int = 50265, hidden: int = 1024,
                  num_layers: int = 24, heads: int = 16,
                  intermediate: int = 4096, max_positions: int = 514,
                  padding_idx: int = 1, eps: float = 1e-5, *, device, dtype,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ring_mesh=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.num_layers = num_layers
         self.padding_idx = padding_idx
+        self.ring_mesh = ring_mesh
         self.word_embeddings = Embed(vocab_size, hidden, **kw)
         self.position_embeddings = Embed(max_positions, hidden, **kw)
         self.token_type_embedding = new_param((hidden,), device, dtype)
@@ -157,19 +185,55 @@ class RobertaEncoder(nn.Module):
             self.add_module(f"layer_{i}", RobertaLayer(
                 hidden, heads, intermediate, eps, **kw))
 
-    def forward(self, ids: torch.Tensor
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        keep = ids != self.padding_idx
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The normalized word + position + token-type embeddings."""
         x = (self.word_embeddings(ids)
              + self.position_embeddings(
                  position_ids_from_tokens(ids, self.padding_idx))
              + self.token_type_embedding)
-        x = self.embed_ln(x)
+        return self.embed_ln(x)
+
+    def forward(self, ids: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        keep = ids != self.padding_idx
+        x = self.embed(ids)
+        mesh = self.ring_mesh
+        if mesh is not None:
+            x, keep = shard_article_axis(x, mesh), shard_article_axis(keep,
+                                                                      mesh)
         hiddens = [x]
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, keep)
+            x = getattr(self, f"layer_{i}")(x, keep, mesh)
             hiddens.append(x)
-        return x, tuple(hiddens)
+        if mesh is not None:
+            hiddens = [replicate_sequence(h, mesh) for h in hiddens]
+        return hiddens[-1], tuple(hiddens)
+
+    def encode_pipelined(self, ids: torch.Tensor, mesh,
+                         n_micro: Optional[int] = None) -> torch.Tensor:
+        """The last hidden [B, S, H] of this rank's rows `ids` through the
+        GPipe schedule over the mesh's `pipe` axis (`parallel/pipe.py`),
+        this rank's stage running its own layers. n_micro: default the
+        most microbatches the rows allow (microbatches of one row, the
+        reference's max(1, B // data)). The weighted sum of all hiddens
+        (weigh_bert) would have to travel the pipeline: only the last
+        hidden is made."""
+        if n_micro is None:
+            n_micro = max(1, ids.shape[0])
+        layers = stage_layers([getattr(self, f"layer_{i}")
+                               for i in range(self.num_layers)], mesh)
+
+        def stage_fn(layer, carry):
+            # The pad mask rides the carry; bubble lanes see an all-False
+            # mask, which the -1e9 fill makes a uniform average.
+            return {"x": layer(carry["x"], carry["mask"]),
+                    "mask": carry["mask"]}
+
+        out = pipeline_apply(stage_fn, layers,
+                             {"x": self.embed(ids),
+                              "mask": ids != self.padding_idx},
+                             mesh=mesh, n_micro=n_micro)
+        return out["x"]
 
 
 class WeightedSumFeatures(nn.Module):

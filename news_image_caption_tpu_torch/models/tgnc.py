@@ -61,6 +61,8 @@ from news_image_caption_tpu_torch.models.decoder_flattened import (
 from news_image_caption_tpu_torch.models.pointer import TransformerPointer
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import Dense
+from news_image_caption_tpu_torch.parallel.collectives import (global_mean,
+                                                               global_sums)
 from news_image_caption_tpu_torch.utils.registry import DECODERS, MODELS
 
 
@@ -317,8 +319,9 @@ class TGNC:
             inp, tgt = shift_caption(batch["caption_ids"].long())
             loss_sum, ntokens = self.tg_decoder.loss(
                 inp, self._contexts(batch), template_logits, tgt, generator)
-            cap_loss = (loss_sum / LN2) / torch.clamp(ntokens, min=1)
-            aux = {"loss_sum": loss_sum / LN2, "sample_size": ntokens}
+            loss_bits, ntokens = global_sums(loss_sum / LN2, ntokens)
+            cap_loss = loss_bits / torch.clamp(ntokens, min=1)
+            aux = {"loss_sum": loss_bits, "sample_size": ntokens}
         else:
             cap_loss, aux = self.captioner.loss_fn(batch, generator)
         loss = cap_loss
@@ -327,7 +330,7 @@ class TGNC:
             y = batch["template_label"].float()
             bce = -(y * torch.log(torch.clamp(probs, min=1e-7))
                     + (1 - y) * torch.log(torch.clamp(1 - probs, min=1e-7)))
-            t_loss = bce.mean()
+            t_loss = global_mean(bce)
             aux["template_loss"] = t_loss
             loss = loss + self.template_loss_weight * t_loss
         aux["caption_loss"] = cap_loss

@@ -34,7 +34,7 @@ from torch import nn
 
 from news_image_caption_tpu_torch.ops.decode_attention import (
     decode_cross_attention, decode_cross_attention_int8)
-from news_image_caption_tpu_torch.ops.dropout import dropout
+from news_image_caption_tpu_torch.ops.dropout import dropout, row_offset
 from news_image_caption_tpu_torch.ops.flash_attention import \
     flash_cross_attention
 from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
@@ -221,7 +221,7 @@ class MultiHeadAttention(nn.Module):
             else:
                 seed = torch.zeros(1, device=q.device, dtype=torch.int32)
             out = flash_cross_attention(q.contiguous(), kv.k, kv.v, kv.bias,
-                                        seed, H, p)
+                                        seed, H, p, row0=row_offset())
             return self.out_proj(out)
         scores = torch.einsum("bthd,bshd->bhts", q.view(B, T, H, hd),
                               kv.k.view(B, S, H, hd))

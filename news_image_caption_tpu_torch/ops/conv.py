@@ -291,7 +291,8 @@ class LightweightConv(nn.Module):
         w = self.weight
         if self.weight_softmax:
             w = torch.softmax(w.float(), dim=-1).to(w.dtype)
-        return dropout(w, self.weight_dropout, generator).to(dtype)
+        return dropout(w, self.weight_dropout, generator,
+                       batched=False).to(dtype)
 
     def _bias(self, out: torch.Tensor) -> torch.Tensor:
         if self.conv_bias is None:

@@ -22,7 +22,10 @@ adds in a fixed order. `flash_plan` is the host-side plan.
 
 Dropout bits come from a stateless hash of (seed, b, head, t, s) (see
 the source's note), which `dropout_keep` computes with the same integer
-steps in torch, so kernel and plain version drop the same slots. The
+steps in torch, so kernel and plain version drop the same slots. Every
+function takes `row0`, the batch's first row in a data-parallel run's
+global batch (`ops/dropout.py::row_offset`; 0 otherwise): b counts from
+it, so two ranks' halves drop the slots of one process's whole batch. The
 TPU's own bits cannot be reproduced; the plain versions therefore also
 take an explicit `keep` mask (the CPU tests feed JAX's).
 
@@ -41,7 +44,7 @@ import torch
 from news_image_caption_tpu_torch.ops import _build
 
 _TAIL_ARGTYPES = [_build.I] * 5 + [ctypes.c_uint, ctypes.c_float, _build.I,
-                                   _build.I, _build.P]
+                                   _build.I, _build.I, _build.P]
 _FWD_ARGTYPES = [_build.P] * 7 + _TAIL_ARGTYPES
 _BWD_ARGTYPES = [_build.P] * 11 + _TAIL_ARGTYPES
 ROWS = 64                   # query rows a block (16 a warp)
@@ -76,14 +79,16 @@ def dropout_threshold(p: float) -> int:
 
 
 def dropout_keep(seed: torch.Tensor, B: int, H: int, T: int, S: int,
-                 p: float) -> torch.Tensor:
-    """The kernels' keep mask, bool [B, H, T, S], on seed's device.
+                 p: float, row0: int = 0) -> torch.Tensor:
+    """The kernels' keep mask, bool [B, H, T, S], on seed's device, for
+    rows row0 .. row0 + B - 1 of the global batch.
 
     key = seed * 2654435761 + (b * H + h) (mod 2^32);
     row = fmix32(key ^ fmix32(t + 0x9e3779b9)); bits = fmix32(row + s).
     """
     dev = seed.device
-    bh = torch.arange(B * H, device=dev, dtype=torch.int64).view(B, H, 1, 1)
+    bh = torch.arange(row0 * H, (row0 + B) * H, device=dev,
+                      dtype=torch.int64).view(B, H, 1, 1)
     key = (_mul32(seed.reshape(()).long() & _MASK32, 2654435761) + bh) & _MASK32
     t = torch.arange(T, device=dev, dtype=torch.int64).view(1, 1, T, 1)
     row = _fmix32(key ^ _fmix32((t + 0x9E3779B9) & _MASK32))
@@ -91,13 +96,13 @@ def dropout_keep(seed: torch.Tensor, B: int, H: int, T: int, S: int,
     return _fmix32((row + s) & _MASK32) >= dropout_threshold(p)
 
 
-def _scale_mask(seed, B, H, T, S, p, keep):
+def _scale_mask(seed, B, H, T, S, p, keep, row0):
     """keep / (1 - p) as fp32 [B, H, T, S], or None without dropout."""
     if p == 0.0:
         _build.require(keep is None, "flash attention: keep given with p = 0")
         return None
     if keep is None:
-        keep = dropout_keep(seed, B, H, T, S, p)
+        keep = dropout_keep(seed, B, H, T, S, p, row0)
     return keep.to(torch.float32) * (1.0 / (1.0 - p))
 
 
@@ -200,13 +205,15 @@ def flash_plan(B: int, T: int, S: int, num_heads: int, head_dim: int,
 
 def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
                               dropout_p: float = 0.0,
-                              keep: Optional[torch.Tensor] = None):
+                              keep: Optional[torch.Tensor] = None,
+                              row0: int = 0):
     """(out [B, T, E] in q's dtype, lse [B, H, T] fp32) in plain
     PyTorch, differentiable in q, k and v.
 
     q [B, T, E] pre-scaled by head_dim**-0.5; k, v [B, S, E]; bias
     [B, S] fp32 (0 attendable, -1e9 padded); seed int32 [1]; keep an
-    optional bool [B, H, T, S] mask in place of the generated one.
+    optional bool [B, H, T, S] mask in place of the generated one; row0
+    the batch's first global row.
     """
     B, T, E = q.shape
     S, H = k.shape[1], num_heads
@@ -217,7 +224,7 @@ def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
     denom = e.sum(dim=-1, keepdim=True)
     lse = (mx + torch.log(denom))[..., 0]
     probs = e / denom
-    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep)
+    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep, row0)
     if scale is not None:
         probs = probs * scale
     probs = probs.to(v.dtype).float()
@@ -227,7 +234,8 @@ def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
 
 def flash_attention_bwd_plain(q, k, v, bias, seed, lse, g, num_heads: int,
                               dropout_p: float = 0.0,
-                              keep: Optional[torch.Tensor] = None):
+                              keep: Optional[torch.Tensor] = None,
+                              row0: int = 0):
     """(dq, dk, dv) of `flash_attention_fwd_plain` for the output
     gradient g [B, T, E], from the saved lse, as the TPU kernel forms
     them (see the module note)."""
@@ -236,7 +244,7 @@ def flash_attention_bwd_plain(q, k, v, bias, seed, lse, g, num_heads: int,
     qh, kh, vh, gh = (_heads(x, H) for x in (q, k, v, g))
     s = torch.einsum("bthd,bshd->bhts", qh, kh) + bias.float()[:, None, None, :]
     probs = torch.exp(s - lse[..., None])
-    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep)
+    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep, row0)
     dropped = probs if scale is None else probs * scale
     dv = torch.einsum("bhts,bthd->bshd", dropped.to(v.dtype).float(), gh)
     dp = torch.einsum("bthd,bshd->bhts", gh, vh)
@@ -252,11 +260,12 @@ def flash_attention_bwd_plain(q, k, v, bias, seed, lse, g, num_heads: int,
 
 def flash_cross_attention_plain(q, k, v, bias, seed, num_heads: int,
                                 dropout_p: float = 0.0,
-                                keep: Optional[torch.Tensor] = None):
+                                keep: Optional[torch.Tensor] = None,
+                                row0: int = 0):
     """out of `flash_attention_fwd_plain`; autograd through it is the
     reference gradient of `flash_cross_attention`."""
     return flash_attention_fwd_plain(q, k, v, bias, seed, num_heads,
-                                     dropout_p, keep)[0]
+                                     dropout_p, keep, row0)[0]
 
 
 def _dispatch(name: str, q: torch.Tensor, keep) -> bool:
@@ -273,12 +282,13 @@ def _dispatch(name: str, q: torch.Tensor, keep) -> bool:
 
 def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
                         dropout_p: float = 0.0,
-                        keep: Optional[torch.Tensor] = None):
+                        keep: Optional[torch.Tensor] = None,
+                        row0: int = 0):
     """(out, lse); see `flash_attention_fwd_plain`. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises."""
     if _dispatch("flash_attention_fwd", q, keep):
         return flash_attention_fwd_plain(q, k, v, bias, seed, num_heads,
-                                         dropout_p, keep)
+                                         dropout_p, keep, row0)
     B, T, E = q.shape
     S = k.shape[1]
     plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_fwd")
@@ -289,7 +299,7 @@ def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
                     seed.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, S,
                     E, num_heads, dropout_threshold(dropout_p),
                     1.0 / (1.0 - dropout_p), plan.fwd.stages,
-                    plan.fwd.smem_bytes, _build.stream_of(q)),
+                    plan.fwd.smem_bytes, row0, _build.stream_of(q)),
                  "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -297,12 +307,13 @@ def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
 
 def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
                         dropout_p: float = 0.0,
-                        keep: Optional[torch.Tensor] = None):
+                        keep: Optional[torch.Tensor] = None,
+                        row0: int = 0):
     """(dq, dk, dv); see `flash_attention_bwd_plain`. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises."""
     if _dispatch("flash_attention_bwd", q, keep):
         return flash_attention_bwd_plain(q, k, v, bias, seed, lse, g,
-                                         num_heads, dropout_p, keep)
+                                         num_heads, dropout_p, keep, row0)
     B, T, E = q.shape
     S = k.shape[1]
     plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_bwd")
@@ -326,7 +337,7 @@ def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
                     None if parts is None else parts.data_ptr(), B, T, S, E,
                     num_heads, dropout_threshold(dropout_p),
                     1.0 / (1.0 - dropout_p), plan.bwd.stages,
-                    plan.bwd.smem_bytes, _build.stream_of(q)),
+                    plan.bwd.smem_bytes, row0, _build.stream_of(q)),
                  "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -363,11 +374,11 @@ def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
 class _FlashCrossAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep):
+    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep, row0):
         out, lse = flash_attention_fwd(q, k, v, bias, seed, num_heads,
-                                       dropout_p, keep)
+                                       dropout_p, keep, row0)
         ctx.save_for_backward(q, k, v, bias, seed, lse, keep)
-        ctx.num_heads, ctx.dropout_p = num_heads, dropout_p
+        ctx.num_heads, ctx.dropout_p, ctx.row0 = num_heads, dropout_p, row0
         return out
 
     @staticmethod
@@ -375,16 +386,17 @@ class _FlashCrossAttention(torch.autograd.Function):
         q, k, v, bias, seed, lse, keep = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, bias, seed, lse,
                                          g.contiguous(), ctx.num_heads,
-                                         ctx.dropout_p, keep)
-        return dq, dk, dv, None, None, None, None, None
+                                         ctx.dropout_p, keep, ctx.row0)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_cross_attention(q, k, v, bias, seed, num_heads: int,
                           dropout_p: float = 0.0,
-                          keep: Optional[torch.Tensor] = None):
+                          keep: Optional[torch.Tensor] = None,
+                          row0: int = 0):
     """out [B, T, E] = dropout(softmax(q kᵀ + bias)) v per head, with
     kernel forward and backward on CUDA tensors; differentiable in q, k
     and v (bias and seed get no gradient). Arguments as in
     `flash_attention_fwd_plain`."""
     return _FlashCrossAttention.apply(q, k, v, bias, seed, num_heads,
-                                      dropout_p, keep)
+                                      dropout_p, keep, row0)

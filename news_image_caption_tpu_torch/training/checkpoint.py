@@ -225,10 +225,10 @@ class CheckpointStore:
             return None
         return max(c["step"] for c in self.meta["checkpoints"])
 
-    def read(self, which: Any = "latest") -> Any:
+    def read(self, which: Any = "latest", key: Optional[str] = None) -> Any:
         """The tree checkpoint `which` ('latest', 'best' or a step) holds,
-        on the host. The file is mapped, so only the tensors the caller
-        touches are read from disk."""
+        on the host, or its entry `key`. The file is mapped, so only the
+        tensors the caller touches are read from disk."""
         self.wait()
         if which == "latest":
             step = self.latest_step()
@@ -239,8 +239,9 @@ class CheckpointStore:
             path = os.path.join(self.dir, "best.pt")
         else:
             path = self._path(int(which))
-        return torch.load(path, map_location="cpu", weights_only=True,
+        tree = torch.load(path, map_location="cpu", weights_only=True,
                           mmap=True)
+        return tree if key is None else tree[key]
 
     def load(self, target: Any, which: Any = "latest") -> Any:
         """Restore into `target`: which is 'latest', 'best' or a step."""
@@ -289,5 +290,4 @@ class CheckpointStore:
             if not avail:
                 raise FileNotFoundError(f"no checkpoints in {self.dir}")
             steps = avail[-(last_n or len(avail)):]
-        trees = [self.read(s) for s in sorted(steps)]
-        return _average([t if key is None else t[key] for t in trees])
+        return _average([self.read(s, key) for s in sorted(steps)])

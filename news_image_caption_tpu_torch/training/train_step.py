@@ -2,7 +2,8 @@
 
 Counterpart of `news_image_caption_tpu/training/train_step.py`
 (`TrainState`, `create_train_state`, `create_o2_train_state`,
-`make_train_step`, `make_eval_step`), on one device. The checkpointed
+`make_train_step`, `make_eval_step`), on one device or data-parallel
+over a rank mesh (below). The checkpointed
 layout of each precision is the reference's:
 
 - fp32 (`create_train_state`): `params` are the model's fp32
@@ -34,6 +35,33 @@ state: the state passed in is the state returned. `in_update` is true
 while the optimizer writes them, so a caller that catches a failure
 there knows the state is torn (the JAX step's deleted donated buffers).
 
+With a mesh (`make_train_step(..., mesh=)`) the step is data-parallel
+over the mesh's `data` axis: the batch is the rank's rows of the global
+batch (`parallel/distributed.py::place_local`), dropout draws the global
+batch's masks and keeps the rank's rows (`parallel/collectives.py::
+global_rows`, the flash kernels' hash from the rank's first row), the
+loss is the global batch's on every rank, and the fp32 gradients are
+summed over the data ranks before the norm, the guard and the
+optimizer, one all-reduce in place over one flat buffer whose views
+they are (`parallel/collectives.py::GradientBuffer`), so every rank
+makes the same update and the same skip decision. Each family's loss is a
+ratio of sums over the batch, and it all-reduces those sums
+(`global_sums`) before dividing, so the global loss is exact rather
+than a mean of the ranks' means: the flagship, its variants and the
+online pipeline (`models/captioner.py`), the LSTM and Gen-2 take the
+summed loss over the summed count of target tokens; the pointer family
+the generation loss so, the entity loss the summed NLL over the summed
+count of labelled tokens and the copy loss each entity's summed -log p
+over its summed count (present on any rank); TGNC the caption loss so
+and the template BCE as its global mean (`global_mean`); Gen-1 the
+masked NLL over the summed mask, and scheduled sampling
+(`compat/train.py`'s, whose draws are per local row) raises under data
+parallelism.
+Each rank's gradient is that of its own terms of the sums divided by
+the global counts, so the ranks' gradients add up to the global loss's.
+With one rank every reduction is the identity and the step computes the
+single process's values bit for bit.
+
 Each phase runs inside a `torch.profiler.record_function` span
 (`train_step.forward`, `.backward`, `.guard`, `.optimizer`), so a
 profile attributes host and device time to them; with no profiler
@@ -43,6 +71,7 @@ each on an H100 machine's host, 0.1% of a flagship step).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -50,6 +79,9 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from news_image_caption_tpu_torch.parallel.collectives import (
+    GradientBuffer, data_parallel)
+from news_image_caption_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
 from news_image_caption_tpu_torch.training.checkpoint import restore
 from news_image_caption_tpu_torch.training.optim import trainable_names
 
@@ -184,14 +216,27 @@ def _update(state: TrainState, tx, grads) -> None:
     state.in_update = False
 
 
+def global_batch(mesh, batch: Dict[str, Any]):
+    """The context in which `batch`, this rank's rows, is a part of the
+    global batch over the mesh's `data` axis (a null context without a
+    mesh)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return data_parallel(mesh, next(v for v in batch.values()
+                                    if v is not None).shape[0])
+
+
 def make_train_step(loss_fn: Callable, tx,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    guard_nonfinite: bool = True) -> Callable:
+                    guard_nonfinite: bool = True, mesh=None) -> Callable:
     """loss_fn(batch, generator) -> (loss, aux), over the model whose
     parameters the state holds (its `compute` copy where it has one).
     Returns step(state, batch, seed) -> (state, metrics): metrics hold
     loss, grad_norm (global, fp32) and aux as device tensors, and
-    skipped as an int."""
+    skipped as an int. mesh: data-parallel over its `data` axis (see
+    the module note)."""
+
+    buffers: List[GradientBuffer] = []     # the mesh's, made at step 0
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              seed: int = 0) -> Tuple[TrainState, Dict[str, Any]]:
@@ -200,13 +245,22 @@ def make_train_step(loss_fn: Callable, tx,
         for p in model_params:
             p.grad = None
         generator = _step_generator(model_params[0].device, seed, state.step)
-        with record_function("train_step.forward"):
-            loss, aux = loss_fn(cast_floats(batch, compute_dtype), generator)
+        with global_batch(mesh, batch):
+            with record_function("train_step.forward"):
+                loss, aux = loss_fn(cast_floats(batch, compute_dtype),
+                                    generator)
+            with record_function("train_step.backward"):
+                loss.backward()
         with record_function("train_step.backward"):
-            loss.backward()
-            grads = [torch.zeros_like(p, dtype=torch.float32)
-                     if p.grad is None else p.grad.float()
-                     for p in model_params]
+            if mesh is None:
+                grads = [torch.zeros_like(p, dtype=torch.float32)
+                         if p.grad is None else p.grad.float()
+                         for p in model_params]
+            else:
+                if not buffers or not buffers[0].fits(model_params):
+                    buffers[:] = [GradientBuffer(model_params)]
+                grads = buffers[0].fill([p.grad for p in model_params])
+                buffers[0].all_reduce(axis_group(mesh, DATA_AXIS))
             for p in model_params:
                 p.grad = None
             grad_norm = torch.linalg.vector_norm(
@@ -227,13 +281,15 @@ def make_train_step(loss_fn: Callable, tx,
 
 
 def make_eval_step(loss_fn: Callable,
-                   compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   mesh=None) -> Callable:
     """eval_step(batch) -> {"loss", **aux}: the deterministic loss under
-    the train step's precision."""
+    the train step's precision; with a mesh, the global batch's."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        loss, aux = loss_fn(cast_floats(batch, compute_dtype), None)
+        with global_batch(mesh, batch):
+            loss, aux = loss_fn(cast_floats(batch, compute_dtype), None)
         return {"loss": loss, **aux}
 
     return eval_step

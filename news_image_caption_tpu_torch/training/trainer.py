@@ -22,14 +22,23 @@ waiting on the batch iterator. With `profile_steps > 0`, steps
 past `profile_start` (a recovered run that resumes past it still traces
 its first `profile_steps` steps), closes `profile_steps` steps after it
 opened, with the device synchronized first so the trace holds the
-window's device work, and is closed on any exit. The command refuses the
-sharded checkpoint format (ROADMAP Queue 1 item 11).
+window's device work, and is closed on any exit.
+
+`checkpoint_format` "sharded" keeps the checkpoints in `training/
+checkpoint_sharded.py::ShardedCheckpointStore` (a directory a step,
+every rank writing its share), "msgpack" in the single-file store. With
+a mesh (`Trainer(..., mesh=)`) the steps are data-parallel
+(`training/train_step.py`): every rank runs the loop on its rows, rank 0
+alone writes `metrics.jsonl`, TensorBoard and the profile, every rank
+takes part in a sharded save (the single-file store is written by rank 0
+alone), and a SIGTERM on any rank stops every rank at the same step.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
 import signal
 import time
@@ -37,7 +46,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from news_image_caption_tpu_torch.parallel.distributed import (any_rank,
+                                                               rank,
+                                                               world_size)
 from news_image_caption_tpu_torch.training.checkpoint import CheckpointStore
 from news_image_caption_tpu_torch.training.preemption import \
     PreemptionHandler
@@ -78,10 +91,13 @@ class TrainerConfig:
     profile_start: int = 2
     profile_steps: int = 0
     seed: int = 0
+    # "msgpack": the single-file store; "sharded": a directory a step.
+    checkpoint_format: str = "msgpack"
 
 
 class Trainer:
-    def __init__(self, loss_fn: Callable, tx, config: TrainerConfig):
+    def __init__(self, loss_fn: Callable, tx, config: TrainerConfig,
+                 mesh=None):
         if config.mixed_precision not in PRECISIONS:
             raise ValueError(f"mixed_precision {config.mixed_precision!r}:"
                              " the port has fp32, bf16 and bf16_o2")
@@ -89,15 +105,35 @@ class Trainer:
         self.config = config
         self.train_step = make_train_step(
             loss_fn, tx, compute_dtype=dtype,
-            guard_nonfinite=config.skip_nan_batches)
+            guard_nonfinite=config.skip_nan_batches, mesh=mesh)
         # Validation runs under the train step's precision.
-        self.eval_step = make_eval_step(loss_fn, compute_dtype=dtype)
-        self.store = CheckpointStore(
+        self.eval_step = make_eval_step(loss_fn, compute_dtype=dtype,
+                                        mesh=mesh)
+        if config.checkpoint_format == "sharded":
+            from news_image_caption_tpu_torch.training.checkpoint_sharded \
+                import ShardedCheckpointStore as store_type
+        elif config.checkpoint_format == "msgpack":
+            store_type = CheckpointStore
+        else:
+            raise ValueError(f"unknown checkpoint_format "
+                             f"{config.checkpoint_format!r}; use 'msgpack' "
+                             "or 'sharded'")
+        # Rank 0 writes the logs; every rank saves a sharded checkpoint,
+        # rank 0 alone the single file every rank would write alike.
+        self.main = rank() == 0
+        self.saves = self.main or config.checkpoint_format == "sharded"
+        # The ranks agree on preemption each step on the host: a gloo
+        # group, made before the store's.
+        self._flags = (dist.new_group(backend="gloo")
+                       if world_size() > 1 else None)
+        self.store = store_type(
             os.path.join(config.serialization_dir, "checkpoints"),
             keep=config.keep_checkpoints,
             best_metric=config.validation_metric,
             maximize=config.maximize_metric)
-        self.logger = setup_logger("trainer")
+        # Rank 0 reports for every rank.
+        self.logger = setup_logger(
+            "trainer", logging.INFO if self.main else logging.WARNING)
         self._metrics_path = os.path.join(config.serialization_dir,
                                           "metrics.jsonl")
         os.makedirs(config.serialization_dir, exist_ok=True)
@@ -114,13 +150,15 @@ class Trainer:
 
     def _log_metrics(self, record: Dict[str, Any]) -> None:
         self.history.append(record)
+        if not self.main:
+            return
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
     def _tb_scalars(self, step: int, scalars, force: bool = False) -> None:
         """Scalars to TensorBoard every `summary_interval` steps."""
         interval = self.config.summary_interval
-        if interval <= 0:
+        if interval <= 0 or not self.main:
             return
         if not force and step - self._last_summary_step < interval:
             return
@@ -174,7 +212,7 @@ class Trainer:
         resuming past it still traces) and closes profile_steps steps
         after the step it opened at."""
         cfg = self.config
-        if cfg.profile_steps <= 0 or self._prof_done:
+        if cfg.profile_steps <= 0 or self._prof_done or not self.main:
             return
         if self._prof is None and step >= cfg.profile_start:
             logdir = os.path.join(cfg.serialization_dir, "profile")
@@ -209,7 +247,7 @@ class Trainer:
                 t_input += time.perf_counter() - t_fetch
                 if batch is None:
                     break
-                if guard.triggered:
+                if self._preempted(guard):
                     preempted = True
                     break
                 self._profile_tick(state.step)
@@ -267,7 +305,7 @@ class Trainer:
                          total_tokens / max(dt, 1e-9)),
                         ("train/input_wait", input_wait),
                         ("train/skipped_batches", n_skipped)])
-            if preempted or guard.triggered:
+            if preempted or self._preempted(guard):
                 # Eviction imminent: persist now (blocking: the process
                 # may not live long enough for an async write), tagged
                 # with the epoch in progress so --recover restarts it
@@ -275,9 +313,10 @@ class Trainer:
                 self.logger.warning(
                     "preemption signal %s: checkpointing at step %d and "
                     "exiting cleanly", guard.signum, state.step)
-                self.store.save(state, state.step,
-                                {"epoch": epoch, "preempted": True},
-                                blocking=True)
+                if self.saves:
+                    self.store.save(state, state.step,
+                                    {"epoch": epoch, "preempted": True},
+                                    blocking=True)
                 self.epoch_times.append((t_epoch, time.perf_counter()))
                 return state
             val_metrics: Dict[str, float] = {}
@@ -291,9 +330,10 @@ class Trainer:
                                   for k, v in val_metrics.items()],
                                  force=True)
             # Async: the write overlaps the next epoch.
-            self.store.save(state, state.step,
-                            {"epoch": epoch + 1, **val_metrics},
-                            blocking=False)
+            if self.saves:
+                self.store.save(state, state.step,
+                                {"epoch": epoch + 1, **val_metrics},
+                                blocking=False)
             self.epoch_times.append((t_epoch, time.perf_counter()))
             if cfg.patience is not None and val_metrics:
                 val = val_metrics.get(cfg.validation_metric)
@@ -310,6 +350,14 @@ class Trainer:
                             cfg.validation_metric, cfg.patience)
                         break
         return state
+
+    def _preempted(self, guard: PreemptionHandler) -> bool:
+        """Whether SIGTERM reached this rank, or with several ranks any
+        of them (one flag all-reduced a step on the host's gloo group, so
+        the host never waits on the device for it)."""
+        if self._flags is None:
+            return guard.triggered
+        return any_rank(guard.triggered, self._flags)
 
     def _revive_if_torn(self, state: TrainState) -> TrainState:
         """A failure inside the optimizer's in-place update leaves the

@@ -205,12 +205,30 @@ def test_quantize_kv_takes_the_int8_route(runs):
 ])
 def test_options_not_ported_raise(tmp_path, command, overrides, argv, item):
     """Each option raises naming the ROADMAP item that ports it; those of
-    items 5b and 8b, since ported, run (a pre-norm decoder's evaluate
+    items 5b, 8b and 11, since ported, run (a pre-norm decoder's evaluate
     writes its generations; the profiler window: `train --platform
     cpu` writes a trace of its window into `<serialization_dir>/profile`,
-    tests/test_torch_profiling_loaders.py holds the window itself)."""
+    tests/test_torch_profiling_loaders.py holds the window itself; the
+    sharded store, the mesh and the bootstrap train in one process, and a
+    ring over two context ranks raises as the reference's mesh does on
+    one device; tests/test_torch_parallel.py and its neighbours hold them
+    on several ranks). No process group outlives a command."""
+    import torch.distributed as dist
     overrides = dict(overrides, trainer=dict(
         overrides.get("trainer", {}), serialization_dir=str(tmp_path)))
+    if item == "11":
+        run = [command, TINY, "--platform", "cpu", "-o",
+               json.dumps(overrides)] + argv
+        if command == "evaluate":
+            with pytest.raises(ValueError, match="does not cover 1 devices"):
+                cli.main(run)
+        else:
+            assert cli.main(run) == 0
+            assert (tmp_path / "metrics.jsonl").exists()
+            sharded = "checkpoint_format" in overrides["trainer"]
+            assert (tmp_path / "checkpoints" / "ckpt_16").is_dir() == sharded
+        assert not dist.is_initialized()
+        return
     if item == "8":
         # Ported by item 8b: a pre-norm decoder evaluates (random init).
         assert cli.main([command, TINY, "--platform", "cpu", "-o",

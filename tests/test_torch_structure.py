@@ -142,9 +142,9 @@ def test_builder_loads_params_path(tmp_path, monkeypatch):
 def test_port_imports_no_jax():
     """Every module of the port imports, a small model builds and
     decodes, and the train command takes two steps and writes its
-    checkpoint, on the CPU, without jax, OpenCV, PIL or the reference
-    package loaded (the detection modules resize images without
-    them)."""
+    checkpoint, also on a mesh into the sharded store, on the CPU,
+    without jax, orbax, OpenCV, PIL or the reference package loaded (the
+    detection modules resize images without them)."""
     code = """
 import importlib, json, pkgutil, sys, tempfile
 import torch
@@ -157,7 +157,10 @@ new = {"training.checkpoint", "training.preemption", "data.loader",
        "utils.logging", "utils.tensorboard", "cli", "config",
        "serving.base", "serving.client", "serving.http",
        "serving.messages", "serving.transport", "serving.worker",
-       "models.facenet", "models.yolov3", "models.image_resize"}
+       "models.facenet", "models.yolov3", "models.image_resize",
+       "parallel", "parallel.mesh", "parallel.distributed",
+       "parallel.collectives", "parallel.sequence", "parallel.ring",
+       "parallel.pipe", "training.checkpoint_sharded"}
 assert {pkg.__name__ + "." + n for n in new} <= names, names
 from news_image_caption_tpu_torch.models.captioner import TransformerFlattened
 from news_image_caption_tpu_torch.generation.generator import GenerationConfig
@@ -168,6 +171,8 @@ batch = {"image": torch.randn(2, 5, 48), "image_mask": None,
 tokens, _ = model.generate(batch, GenerationConfig(max_len=4))
 assert tokens.shape == (2, 5), tokens.shape
 from news_image_caption_tpu_torch import cli
+from news_image_caption_tpu_torch.training.checkpoint_sharded import (
+    ShardedCheckpointStore)
 with tempfile.TemporaryDirectory() as out:
     over = json.dumps({"trainer": {"num_epochs": 1},
                        "dataset": {"train": {"size": 8}, "val": {"size": 4}}})
@@ -175,9 +180,16 @@ with tempfile.TemporaryDirectory() as out:
                      "-s", out, "-o", over]) == 0
     assert torch.load(out + "/checkpoints/ckpt_2.pt",
                       weights_only=True)["step"] == 2
+with tempfile.TemporaryDirectory() as out:
+    over = json.dumps({"trainer": {"num_epochs": 1, "mesh": {"data": 1},
+                                   "checkpoint_format": "sharded"},
+                       "dataset": {"train": {"size": 8}, "val": {"size": 4}}})
+    assert cli.main(["train", "configs/tiny_test.yaml", "--platform", "cpu",
+                     "-s", out, "-o", over]) == 0
+    assert ShardedCheckpointStore(out + "/checkpoints").read(2)["step"] == 2
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "zmq", "cv2",
-                                    "PIL", "news_image_caption_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "zmq",
+                                    "cv2", "PIL", "news_image_caption_tpu"))
 assert not bad, bad
 print("ok")
 """ % (SMALL,)
