@@ -347,7 +347,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      equal to its greedy (the `options` JSON line).
   24. parallelism at one rank: the train command with phase 8's
      overrides plus `trainer.distributed` (one process, a free local
-     port) and `trainer.mesh: {data: -1, model: 1}`, with the single-file
+     port) and `trainer.mesh: {data: 1, model: 1}` (so through the split
+     code of phase 25 at a model axis of one), with the single-file
      store (`mesh_train_single`) and with `checkpoint_format: sharded`
      (`mesh_train`): one NCCL process group each (no other backend), 96
      forward and 64 backward flash launches, records equal to phase 8's
@@ -360,6 +361,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      fp32 (TF32 off) through ring attention over a `context` axis of one
      and the pipeline over a `pipe` axis of one (n_micro 2) against the
      dense encoder within 1e-3 (the `mesh` JSON line).
+  25. tensor parallelism's shard forms at the flagship's layer widths
+     (D = 1024, 16 heads, F = 4096, bf16, B = 16), every rank of m = 2
+     and 4 in this one process, each rank against its plain version on
+     its inputs and the ranks together against the whole launch: flash
+     forward and backward over a rank's heads with h0 (phase 5's
+     shapes, p = 0.1; phase 3's tolerances; out, lse, dq, dk, dv
+     concatenated bit for bit); the FFN's partial mode over F/m columns
+     at N = 16 and 80 (each fp32 partial within 2e-3 + 1e-3|ref| of the
+     plain one; summed, plus b2 and x, within phase 3's tolerance of the
+     whole kernel; at one rank bit for bit); `band_topk_lse` over a
+     rank's rows of the head band and band 1 (phase 3's tolerances;
+     merged, ids and values equal, lse within 1e-6 relative), and the
+     30265-row band refusing m = 2 and 4; decode attention over 16/m
+     heads (phase 3's tolerance, against both); then the split code at
+     a model axis of one, where every form is the unsplit call: phase
+     24's train commands (records bit for bit phase 8's) and phase 4's
+     model greedy and beam-5 at B=16 (tokens and scores equal to the
+     unsplit model's); rank 0's forms at m = 2 timed beside the whole
+     launches (the `tensor_parallel` JSON line; `*_shard` and
+     `decode_ffn_block_partial` in the kernels line, their launches
+     the ranks' calls of this phase).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -790,6 +812,22 @@ def kernel_phase(torch, ops):
             {name: t.result() for name, t in beam.items()})
 
 
+def flash_errors(got, want):
+    """([errors], [within tolerance]) of flash's (out, lse, dq, dk, dv)
+    against the plain versions'. out: one bf16 rounding of a probability
+    or of the output (0.02 abs + rel); lse fp32 (1e-3 + 1e-5 rel);
+    gradients: a bf16 rounding of ds summed over up to 514 terms, 2% of
+    the item's largest entry plus 2% relative. (Of an item whose keys
+    are all padded the saved lse is -1e9, which swallows log S: its
+    probs are 1 in the backward, here as in the reference, and its
+    gradients S times larger than its neighbours'.)"""
+    cases = [within(got[0], want[0], 0.02, 0.02),
+             within(got[1], want[1], 1e-3, 1e-5)]
+    cases += [within(a, b, 0.02 * b.float().abs().amax((1, 2), True), 0.02)
+              for a, b in zip(got[2:], want[2:])]
+    return [e for e, _ in cases], [ok for _, ok in cases]
+
+
 def flash_case(torch, flash, what: str, q, k, v, g, bias, seed, H: int,
                p: float, tallies=None, calls: int = 1, row0: int = 0) -> None:
     """Flash attention forward and backward at these inputs against their
@@ -810,28 +848,14 @@ def flash_case(torch, flash, what: str, q, k, v, g, bias, seed, H: int,
     pout, plse = flash.flash_attention_fwd_plain(*fargs)
     pgrads = flash.flash_attention_bwd_plain(q, k, v, bias, seed, plse, g, H,
                                              p, row0=row0)
-    # out: one bf16 rounding of a probability or of the output (0.02 abs
-    # + rel); lse fp32 (1e-3 + 1e-5 rel); gradients: a bf16 rounding of ds
-    # summed over up to 514 terms, 2% of the item's largest entry plus 2%
-    # relative. (Of an item whose keys are all padded the saved lse is
-    # -1e9, which swallows log S: its probs are 1 in the backward, here
-    # as in the reference, and its gradients S times larger than its
-    # neighbours'.)
-    e_o, ok_o = within(out, pout, 0.02, 0.02)
-    e_l, ok_l = within(lse, plse, 1e-3, 1e-5)
-    errs = [e_o, e_l]
-    oks = [ok_o, ok_l]
-    for got, want in zip(grads, pgrads):
-        e, ok = within(got, want,
-                       0.02 * want.float().abs().amax((1, 2), True), 0.02)
-        errs.append(e)
-        oks.append(ok)
+    errs, oks = flash_errors((out, lse, *grads), (pout, plse, *pgrads))
     same = (torch.equal(out, out2) and torch.equal(lse, lse2)
             and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
-    print(f"  flash attention {what}: out {e_o:.3g}, lse {e_l:.3g}, dq"
-          f" {errs[2]:.3g}, dk {errs[3]:.3g}, dv {errs[4]:.3g} (tol"
-          f" 0.02+0.02|ref| / 1e-3+1e-5|ref| / 0.02 max|ref|+0.02|ref|),"
-          f" repeated call bit-equal {same}", flush=True)
+    print(f"  flash attention {what}: out {errs[0]:.3g}, lse"
+          f" {errs[1]:.3g}, dq {errs[2]:.3g}, dk {errs[3]:.3g}, dv"
+          f" {errs[4]:.3g} (tol 0.02+0.02|ref| / 1e-3+1e-5|ref| / 0.02"
+          f" max|ref|+0.02|ref|), repeated call bit-equal {same}",
+          flush=True)
     check(all(oks), f"flash attention {what} disagrees with its plain twin")
     check(same, f"flash attention {what}: two calls on the same inputs"
           " differ")
@@ -6226,11 +6250,12 @@ def epoch_medians(step_s: list, epochs: int) -> list:
 
 def mesh_train(torch, flash_counted, phase8, out_dir: str, **trainer):
     """Phase 8's train command plus `trainer.distributed` (one process at
-    a free local port), `trainer.mesh: {data: -1, model: 1}` and
-    `trainer`: one NCCL process group, ended with the command, flash
-    launches as phase 8's and its records bit for bit. Returns (the
-    config, its overrides, the command's timings, its wall seconds, the
-    flash launches)."""
+    a free local port), `trainer.mesh: {data: 1, model: 1}` and
+    `trainer`: one NCCL process group, ended with the command, both
+    models through `shard_params` at a model axis of one (the split
+    code, phase 25), flash launches as phase 8's and its records bit for
+    bit. Returns (the config, its overrides, the command's timings, its
+    wall seconds, the flash launches)."""
     import torch.distributed as dist
 
     from news_image_caption_tpu_torch import cli
@@ -6240,7 +6265,7 @@ def mesh_train(torch, flash_counted, phase8, out_dir: str, **trainer):
     overrides["trainer"].update(
         distributed={"coordinator_address": f"127.0.0.1:{free_port()}",
                      "num_processes": 1, "process_id": 0},
-        mesh={"data": -1, "model": 1}, **trainer)
+        mesh={"data": 1, "model": 1}, **trainer)
     ovr = json.dumps(overrides)
     print(f"  phase 8's cuts plus {json.dumps({k: overrides['trainer'][k] for k in ('distributed', 'mesh', *trainer)})}",
           flush=True)
@@ -6256,17 +6281,33 @@ def mesh_train(torch, flash_counted, phase8, out_dir: str, **trainer):
         backends.append(backend)
         return real_init(backend, *args, **kw)
 
+    # The split code at a model axis of one (phase 25): every model the
+    # command builds goes through `shard_params`.
+    real_shard, splits = cli.shard_params, []
+
+    def recording_shard(module, mesh, *args):
+        out = real_shard(module, mesh, *args)
+        splits.append((len(out), module.model_shard.size))
+        return out
+
     for fn in flash_counted.values():
         fn.launches = 0
     dist.init_process_group = recording_init
+    cli.shard_params = recording_shard
     try:
         t = time.perf_counter()
         rc = cli.main(["train", EVAL_CONFIG, "-o", ovr], timings=timings)
         wall = time.perf_counter() - t
     finally:
         dist.init_process_group = real_init
+        cli.shard_params = real_shard
     launches = {n: fn.launches for n, fn in flash_counted.items()}
     check(rc == 0, f"train with the mesh returned {rc}")
+    # bf16_o2: the fp32 model and its bf16 copy, 75 split parameters each.
+    print(f"  shard_params calls (split parameters, model axis): {splits}",
+          flush=True)
+    check(splits == [(75, 1), (75, 1)], "the train command on the mesh did"
+          " not go through the split code")
     check(backends == ["nccl"] and not dist.is_initialized(),
           f"process groups {backends}: expected one NCCL group, ended")
     n_layers = FLAGSHIP["num_layers"]
@@ -6292,7 +6333,7 @@ def mesh_train(torch, flash_counted, phase8, out_dir: str, **trainer):
 
 def mesh_phase(torch, flash, counted, phase8, phase8_summary):
     """Phase 24. The train command with phase 8's overrides plus
-    `trainer.distributed`, `trainer.mesh: {data: -1, model: 1}` and
+    `trainer.distributed`, `trainer.mesh: {data: 1, model: 1}` and
     `checkpoint_format: sharded` (`mesh_train`): one rank on NCCL, the
     data-parallel step, the sharded store; then the same with the
     single-file store (`mesh_train_single`), so the step with and
@@ -6440,6 +6481,551 @@ def mesh_phase(torch, flash, counted, phase8, phase8_summary):
     return {"mesh_train": train_launches,
             "mesh_train_single": single_launches,
             "mesh_evaluate": eval_launches}, summary
+
+
+# -- phase 25: tensor parallelism's shard forms ---------------------------
+
+def shard_cols(t, r: int, n: int):
+    """Columns [r n, (r + 1) n) of t's last dim, contiguous."""
+    return t[..., r * n:(r + 1) * n].contiguous()
+
+
+def shard_window(torch, fns, run):
+    """run() with the launch counts of the wrappers `fns` ({entry name:
+    wrapper}) set to 0, the card synchronized after it: (its result,
+    {entry name: launches}). Only shard forms run inside, so the counts
+    are theirs."""
+    for fn in fns.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in fns.items()}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def shard_flash(torch, flash, tallies, launches, B: int = 16,
+                T: int = 63) -> dict:
+    """25.1. Flash forward and backward over each rank's heads [r H/m,
+    (r + 1) H/m) with h0 and the whole head count, at phase 5's shapes
+    (S' = 514 and 51, p = 0.1), for m = 2 and 4: every rank's out, lse,
+    dq, dk and dv against the plain versions on its inputs at phase 3's
+    tolerances (the errors go into `tallies`), and concatenated, bit for
+    bit the whole launch's. The ranks' launches are counted into
+    `launches`. Rank 0's forms at m = 2 are timed beside the whole
+    launch and go into `tallies` (a train step's 4 calls of each S');
+    every form's time is returned."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    E, H, p = 1024, 16, 0.1
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    fwd, bwd = (tallies["flash_attention_fwd_shard"],
+                tallies["flash_attention_bwd_shard"])
+    times = {}
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    def rank_kw(m, r):
+        return dict(h0=r * (H // m), heads_total=H)
+
+    for S in (514, 51):
+        q, k, v = rn(B, T, E, scale=0.125), rn(B, S, E), rn(B, S, E)
+        g = rn(B, T, E, scale=0.1)
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:max(S - 2, S // 2)] = -1e9
+        out, lse = flash.flash_attention_fwd(q, k, v, bias, seed, H, p)
+        whole = (out, lse) + tuple(flash.flash_attention_bwd(
+            q, k, v, bias, seed, lse, g, H, p))
+        times[f"S={S} whole"] = {
+            "fwd": time_ms(lambda: flash.flash_attention_fwd(
+                q, k, v, bias, seed, H, p)),
+            "bwd": time_ms(lambda: flash.flash_attention_bwd(
+                q, k, v, bias, seed, lse, g, H, p))}
+        ins = {m: [tuple(shard_cols(t, r, H // m * 64) for t in (q, k, v, g))
+                   for r in range(m)] for m in (2, 4)}
+
+        def ranks():
+            parts = {}
+            for m in (2, 4):
+                parts[m] = []
+                for r, (qs, ks, vs, gs) in enumerate(ins[m]):
+                    o, ls = flash.flash_attention_fwd(
+                        qs, ks, vs, bias, seed, H // m, p, **rank_kw(m, r))
+                    parts[m].append((o, ls) + tuple(flash.flash_attention_bwd(
+                        qs, ks, vs, bias, seed, ls, gs, H // m, p,
+                        **rank_kw(m, r))))
+            return parts
+
+        parts, counts = shard_window(
+            torch, {"flash_attention_fwd_shard": flash.flash_attention_fwd,
+                    "flash_attention_bwd_shard": flash.flash_attention_bwd},
+            ranks)
+        add_counts(launches, counts)
+        for m in (2, 4):
+            n = H // m
+            worst = [0.0] * 5
+            for r, ((qs, ks, vs, gs), got) in enumerate(zip(ins[m],
+                                                            parts[m])):
+                kw = rank_kw(m, r)
+                pout, plse = flash.flash_attention_fwd_plain(
+                    qs, ks, vs, bias, seed, n, p, **kw)
+                pgrads = flash.flash_attention_bwd_plain(
+                    qs, ks, vs, bias, seed, plse, gs, n, p, **kw)
+                errs, oks = flash_errors(got, (pout, plse, *pgrads))
+                check(all(oks), f"flash shard form S'={S} m={m} rank {r}"
+                      f" disagrees with its plain twin: {errs}")
+                fwd.errs += errs[:2]
+                bwd.errs += errs[2:]
+                worst = [max(a, b) for a, b in zip(worst, errs)]
+            qs, ks, vs, gs = ins[m][0]
+            kw = rank_kw(m, 0)
+            o, ls, *grads = parts[m][0]
+            times[f"S={S} m={m} rank0"] = {
+                "fwd": time_ms(lambda: flash.flash_attention_fwd(
+                    qs, ks, vs, bias, seed, n, p, **kw)),
+                "bwd": time_ms(lambda: flash.flash_attention_bwd(
+                    qs, ks, vs, bias, seed, ls, gs, n, p, **kw))}
+            if m == 2:
+                flops = 4.0 * B * T * S * n * 64
+                lq, lk, lv = (t.detach().requires_grad_()
+                              for t in (qs, ks, vs))
+                lout = sdpa(torch, lq, lk, lv, bias, n, p)
+                line = fwd.add(
+                    (qs, ks, vs, bias, seed, o, ls), flops,
+                    times[f"S={S} m={m} rank0"]["fwd"],
+                    time_ms(lambda: flash.flash_attention_fwd_plain(
+                        qs, ks, vs, bias, seed, n, p, **kw)),
+                    time_ms(lambda: sdpa(torch, qs, ks, vs, bias, n, p)),
+                    calls=4)
+                print(f"    time flash_attention_fwd shard S'={S} m=2"
+                      f" rank 0: {line}")
+                line = bwd.add(
+                    (qs, ks, vs, bias, seed, ls, gs, *grads), 2.5 * flops,
+                    times[f"S={S} m={m} rank0"]["bwd"],
+                    time_ms(lambda: flash.flash_attention_bwd_plain(
+                        qs, ks, vs, bias, seed, ls, gs, n, p, **kw)),
+                    time_ms(lambda: torch.autograd.grad(
+                        lout, (lq, lk, lv), gs, retain_graph=True)),
+                    calls=4)
+                print(f"    time flash_attention_bwd shard S'={S} m=2"
+                      f" rank 0: {line}")
+            dims = (-1, 1, -1, -1, -1)
+            same = [bool(torch.equal(torch.cat([pt[i] for pt in parts[m]],
+                                               dim=dims[i]), whole[i]))
+                    for i in range(5)]
+            print(f"  flash B={B} T={T} S'={S} m={m}: every rank against"
+                  f" its plain twin out {worst[0]:.3g}, lse {worst[1]:.3g},"
+                  f" dq {worst[2]:.3g}, dk {worst[3]:.3g}, dv"
+                  f" {worst[4]:.3g} (phase 3's tolerances); the {m} ranks'"
+                  f" heads concatenated bit-equal to the whole launch (out,"
+                  f" lse, dq, dk, dv) {same}; rank 0 fwd"
+                  f" {times[f'S={S} m={m} rank0']['fwd']:.4f} ms, bwd"
+                  f" {times[f'S={S} m={m} rank0']['bwd']:.4f} ms; whole fwd"
+                  f" {times[f'S={S} whole']['fwd']:.4f} ms, bwd"
+                  f" {times[f'S={S} whole']['bwd']:.4f} ms", flush=True)
+            check(all(same), f"flash shard forms at m={m}, S'={S} differ"
+                  " from the whole launch")
+    return times
+
+
+# The partial mode against its plain twin: fp32 sums of the same bf16
+# products in another order, the hidden row rounded to bf16 from sums of
+# another order. A rounding that flips moves one term h w2 by 2^-8 of
+# it, at most 5 * 0.08 / 256 = 1.6e-3 at these inputs' scales, in sums
+# of magnitude about 0.5; a group, b1 or a column of w2 missed, or b2
+# or x added, would be off by 0.03 or more.
+PARTIAL_TOL = (2e-3, 1e-3)
+
+
+def shard_ffn(torch, blocks, tally, launches) -> dict:
+    """25.2. `decode_ffn_block`'s partial mode over each rank's F/m
+    columns of w1 and rows of w2 at N = 16 and 80 (m = 2, 4): every
+    rank's fp32 partial against `decode_ffn_block_partial_plain` on its
+    inputs within PARTIAL_TOL (the errors go into `tally`); the partials
+    summed in rank order, then b2 and x (`ffn_epilogue`), within phase
+    3's FFN tolerance (0.02 abs + rel) of the whole kernel; at m = 1 the
+    partial mode plus the epilogue is the whole kernel bit for bit. The
+    ranks' launches are counted into `launches`. Rank 0's partial at
+    m = 2 is timed and tallied (4 layers of a greedy step, N = 16)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    D, F = 1024, 4096
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    f1, fb1 = rn(D, F, scale=D ** -0.5), rn(F, scale=0.05)
+    f2, fb2 = rn(F, D, scale=F ** -0.5), rn(D, scale=0.05)
+    shards = {m: [(f1[:, r * (F // m):(r + 1) * (F // m)].contiguous(),
+                   fb1[r * (F // m):(r + 1) * (F // m)].contiguous(),
+                   f2[r * (F // m):(r + 1) * (F // m)].contiguous())
+                  for r in range(m)] for m in (2, 4)}
+    times = {}
+    for N in (16, 80):
+        x = rn(N, D)
+        parts, counts = shard_window(
+            torch, {"decode_ffn_block_partial":
+                    blocks.decode_ffn_block_partial},
+            lambda: {m: [blocks.decode_ffn_block_partial(x, *w)
+                         for w in shards[m]] for m in (2, 4)})
+        add_counts(launches, counts)
+        whole = blocks.decode_ffn_block(x, f1, fb1, f2, fb2)
+        one = blocks.ffn_epilogue(blocks.decode_ffn_block_partial(
+            x, f1, fb1, f2), fb2, x)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(one, whole)), f"FFN N={N}: the partial mode"
+              " plus the epilogue at one rank differs from the whole kernel")
+        times[f"N={N} whole"] = time_ms(
+            lambda: blocks.decode_ffn_block(x, f1, fb1, f2, fb2))
+        for m in (2, 4):
+            n = F // m
+            worst = 0.0
+            for r, (w, got) in enumerate(zip(shards[m], parts[m])):
+                e, ok = within(got, blocks.decode_ffn_block_partial_plain(
+                    x, *w), *PARTIAL_TOL)
+                check(ok, f"FFN partial N={N} m={m} rank {r} disagrees"
+                      f" with its plain twin: {e:.3g}")
+                tally.errs.append(e)
+                worst = max(worst, e)
+            y = blocks.ffn_epilogue(sum(parts[m]), fb2, x)
+            e, ok = within(y, whole, 0.02, 0.02)
+            w1, b1, w2 = shards[m][0]
+            t = time_ms(lambda: blocks.decode_ffn_block_partial(x, w1, b1,
+                                                                w2))
+            times[f"N={N} m={m} rank0"] = t
+            print(f"  decode_ffn_block partial N={N} F/m={n} (m={m}): every"
+                  f" rank's fp32 partial against its plain twin {worst:.3g}"
+                  f" (tol {PARTIAL_TOL[0]} + {PARTIAL_TOL[1]}|ref|); the"
+                  f" partials summed + b2 + x against the whole kernel"
+                  f" {e:.3g} (tol 0.02 + 0.02|ref|); rank 0 {t:.4f} ms"
+                  f" against the whole {times[f'N={N} whole']:.4f} ms; at"
+                  f" m=1 bit-equal True", flush=True)
+            check(ok, f"FFN partial forms at m={m}, N={N} disagree with the"
+                  " whole kernel")
+            if N == 16 and m == 2:
+                plain = blocks.decode_ffn_block_partial_plain
+                line = tally.add(
+                    (x, w1, b1, w2, parts[m][0]), 4.0 * N * D * n, t,
+                    time_ms(lambda: plain(x, w1, b1, w2)),
+                    time_ms(lambda: torch.nn.functional.linear(torch.relu(
+                        torch.nn.functional.linear(x, w1.T, b1)), w2.T)),
+                    calls=4)
+                print(f"    time decode_ffn_block_partial N=16 m=2 rank 0:"
+                      f" {line}")
+    return times
+
+
+def library_band(torch, x, table, sel: int):
+    """The band's library chain (phase 3's): the bf16 product, logsumexp,
+    topk over the selectable ids."""
+    logits = (x @ table.T).float()
+    return torch.logsumexp(logits, -1), torch.topk(logits[:, :sel], 1)
+
+
+def shard_band(torch, band, tally, launches) -> dict:
+    """25.3. `band_topk_lse` over each rank's rows of the head band
+    (5000 words, the two class rows in rank 0's table, selectable below
+    its words) and of band 1 (15000 rows) at N = 16 and 80, k = 1 and 5,
+    m = 2 and 4: every rank's values, ids and logsumexp against
+    `band_topk_lse_plain` on its rows at phase 3's tolerances (the
+    errors go into `tally`); then the ids offset by the rank's first row
+    and merged (`ops/adaptive.py::merge_candidates`): ids equal to the
+    whole kernel's, values equal, the logsumexp within 1e-6 relative.
+    The ranks' launches are counted into `launches`. Rank 0's form at
+    m = 2, N = 16, k = 1 is timed and tallied (both bands)."""
+    from news_image_caption_tpu_torch.ops.adaptive import merge_candidates
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    D = 1024
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    times = {}
+    for name, V, words in (("head", 5002, 5000), ("band1", 15000, 15000)):
+        table = rn(V, D, scale=D ** -0.5)
+        rows_of = {}
+        for m in (2, 4):
+            n = words // m
+            rows_of[m] = [(torch.cat([table[:n], table[words:]]) if r == 0
+                           else table[r * n:(r + 1) * n]).contiguous()
+                          for r in range(m)]
+        for N in (16, 80):
+            x = rn(N, D)
+            got, counts = shard_window(
+                torch, {"band_topk_lse_shard": band.band_topk_lse},
+                lambda: {(m, k): [band.band_topk_lse(x, rows, k, words // m)
+                                  for rows in rows_of[m]]
+                         for m in (2, 4) for k in (1, 5)})
+            add_counts(launches, counts)
+            worst = [0.0, 0.0, 0.0]
+            for k in (1, 5):
+                want = band.band_topk_lse(x, table, k, words)
+                for m in (2, 4):
+                    n = words // m
+                    every = []
+                    for r, (rows, (v, i, l)) in enumerate(zip(rows_of[m],
+                                                              got[m, k])):
+                        pv, pi, pl = band.band_topk_lse_plain(x, rows, k, n)
+                        logits = (x.float() @ rows.float().T).to(
+                            torch.bfloat16).float()
+                        e_v, ok_v = within(v, pv, 0.03125, 0.0)
+                        e_l, ok_l = within(l, pl, 1e-3, 1e-4)
+                        e_i, ok_i = within(torch.gather(logits, 1, i.long()),
+                                           pv, 0.03125, 0.0)
+                        ok_sel = bool(((i >= 0) & (i < n)).all())
+                        check(ok_v and ok_l and ok_i and ok_sel,
+                              f"band_topk_lse shard {name} N={N} k={k} m={m}"
+                              f" rank {r} disagrees with its plain twin:"
+                              f" values {e_v:.3g}, lse {e_l:.3g}, logit at"
+                              f" ids {e_i:.3g}, ids in range {ok_sel}")
+                        tally.errs += [e_v, e_l]
+                        worst = [max(worst[0], e_v), max(worst[1], e_l),
+                                 max(worst[2], e_i)]
+                        every.append(torch.cat([v, (i + r * n).float(), l],
+                                               -1))
+                    mv, mi, ml = merge_candidates(torch.stack(every), k)
+                    torch.cuda.synchronize()
+                    ids_ok = bool(torch.equal(mi, want[1].long()))
+                    vals_ok = bool(torch.equal(mv, want[0]))
+                    rel = ((ml - want[2]).abs() / want[2].abs()).max().item()
+                    check(ids_ok and vals_ok and rel <= 1e-6,
+                          f"band_topk_lse shard {name} N={N} k={k} m={m}"
+                          f" merged: ids {ids_ok}, values {vals_ok}, lse"
+                          f" {rel:.3g} against the whole kernel")
+            if N == 16:
+                rows, n = rows_of[2][0], words // 2
+                v, i, l = got[2, 1][0]
+                t = time_ms(lambda: band.band_topk_lse(x, rows, 1, n))
+                times[f"{name} m=2 rank0"] = t
+                times[f"{name} whole"] = time_ms(
+                    lambda: band.band_topk_lse(x, table, 1, words))
+                line = tally.add(
+                    (x, rows, v, i, l), 2.0 * N * rows.shape[0] * D, t,
+                    time_ms(lambda: band.band_topk_lse_plain(x, rows, 1, n)),
+                    time_ms(lambda: library_band(torch, x, rows, n)),
+                    calls=1)
+                print(f"    time band_topk_lse shard {name} m=2 rank 0:"
+                      f" {line}")
+            print(f"  band_topk_lse {name} ({V} rows, {words} selectable)"
+                  f" N={N}, k = 1 / 5, over 2 and 4 ranks' rows: every rank"
+                  f" against its plain twin values {worst[0]:.3g}, lse"
+                  f" {worst[1]:.3g}, plain logit at chosen ids"
+                  f" {worst[2]:.3g} (phase 3's tolerances); merged, ids and"
+                  f" values equal to the whole kernel's, lse within 1e-6"
+                  f" relative", flush=True)
+        print(f"  band_topk_lse {name}: rank 0 (m=2)"
+              f" {times[f'{name} m=2 rank0']:.4f} ms against the whole"
+              f" {times[f'{name} whole']:.4f} ms", flush=True)
+    return times
+
+
+def shard_attention(torch, xattn, tally, launches) -> dict:
+    """25.4. `decode_cross_attention` over each rank's 16/m heads of 64
+    (m = 2, 4) at B = 16, Q = 1 (greedy) and 5 (beam), S' = 514 and 51:
+    every rank's output against `decode_cross_attention_plain` on its
+    inputs at phase 3's tolerance (0.02 abs + rel; the errors go into
+    `tally`), and against the whole launch's head slice at the same
+    tolerance. The ranks' launches are counted into `launches`. Rank 0's
+    form at m = 2, Q = 1 is timed and tallied (4 layers of a greedy
+    step, both contexts)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    B, E, H = 16, 1024, 16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    times = {}
+    for S in (514, 51):
+        k, v = rn(B, S, E), rn(B, S, E)
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:] = -1e9
+        for Q in (1, 5):
+            q = rn(B, Q, E, scale=0.125)
+            ins = {m: [tuple(shard_cols(t, r, H // m * 64) for t in (q, k, v))
+                       for r in range(m)] for m in (2, 4)}
+            outs, counts = shard_window(
+                torch, {"decode_cross_attention_shard":
+                        xattn.decode_cross_attention},
+                lambda: {m: [xattn.decode_cross_attention(qs, ks, vs, bias,
+                                                          H // m)
+                             for qs, ks, vs in ins[m]] for m in (2, 4)})
+            add_counts(launches, counts)
+            whole = xattn.decode_cross_attention(q, k, v, bias, H)
+            for m in (2, 4):
+                n = H // m
+                worst = [0.0, 0.0]
+                for r, ((qs, ks, vs), got) in enumerate(zip(ins[m],
+                                                            outs[m])):
+                    e, ok = within(got, xattn.decode_cross_attention_plain(
+                        qs, ks, vs, bias, n), 0.02, 0.02)
+                    check(ok, f"decode attention shard S'={S} Q={Q} m={m}"
+                          f" rank {r} disagrees with its plain twin")
+                    tally.errs.append(e)
+                    e_w, ok_w = within(got, shard_cols(whole, r, n * 64),
+                                       0.02, 0.02)
+                    check(ok_w, f"decode attention shard S'={S} Q={Q}"
+                          f" m={m} rank {r} disagrees with the whole launch")
+                    worst = [max(worst[0], e), max(worst[1], e_w)]
+                if m == 2 and Q == 1:
+                    qs, ks, vs = ins[m][0]
+                    t = time_ms(lambda: xattn.decode_cross_attention(
+                        qs, ks, vs, bias, n))
+                    times[f"S={S} m=2 rank0"] = t
+                    times[f"S={S} whole"] = time_ms(
+                        lambda: xattn.decode_cross_attention(q, k, v, bias,
+                                                             H))
+                    line = tally.add(
+                        (qs, ks, vs, bias, outs[m][0]),
+                        4.0 * B * Q * S * n * 64, t,
+                        time_ms(lambda: xattn.decode_cross_attention_plain(
+                            qs, ks, vs, bias, n)),
+                        time_ms(lambda: sdpa(torch, qs, ks, vs, bias, n)),
+                        calls=4)
+                    print(f"    time decode_cross_attention shard S'={S}"
+                          f" m=2 rank 0: {line}")
+                print(f"  decode_cross_attention S'={S} Q={Q} {n} heads"
+                      f" (m={m}): every rank against its plain twin"
+                      f" {worst[0]:.3g}, against the whole launch's heads"
+                      f" {worst[1]:.3g} (tol 0.02 + 0.02|ref|)", flush=True)
+    return times
+
+
+def split_decode(torch, counted):
+    """25.5. Phase 4's flagship (seed 0, bf16) split over a `model` axis
+    of one (`shard_params` over `make_mesh({data: 1, model: 1})`): greedy
+    on phase 4's B=16 job and beam-5 at B=16 through the split code,
+    where every form is the unsplit call (the FFN too: its whole
+    kernel); tokens and scores equal to the unsplit model's. Returns
+    ({kernel: launches} of the split runs, tokens equal)."""
+    from news_image_caption_tpu_torch.parallel import distributed as pdist
+    from news_image_caption_tpu_torch.parallel.mesh import (MeshConfig,
+                                                            make_mesh)
+    from news_image_caption_tpu_torch.parallel.partition import shard_params
+    from news_image_caption_tpu_torch.serving.worker import \
+        flagship_model_builder
+    predict = flagship_model_builder("cuda", batch_size=1, max_len=32,
+                                     early_exit=True, seed=0)
+    model, cfg = predict.model, predict.config
+    rng = np.random.RandomState(0)
+    jobs = [make_job(rng, 1, [512]), make_job(rng, 1, [300]),
+            make_job(rng, 1, [40]),
+            make_job(rng, 16, rng.randint(20, 513, size=16))]
+    batch = stage_batch(torch, jobs[-1], "cuda")
+    bcfg = dataclasses.replace(cfg, beam_size=5)
+    greedy, _ = model.generate(batch, cfg, predict.weights)
+    beam, beam_scores = model.generate_beam(batch, bcfg, predict.weights)
+    pdist.ensure_world("cuda")
+    try:
+        mesh = make_mesh(MeshConfig(data=1, model=1), "cuda")
+        splits = shard_params(model.decoder, mesh)
+        weights = model.decode_weights()
+        for fn in counted.values():
+            fn.launches = 0
+        s_greedy, _ = model.generate(batch, cfg, weights)
+        s_beam, s_scores = model.generate_beam(batch, bcfg, weights)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counted.items()}
+    finally:
+        pdist.shutdown()
+    same = {"greedy": bool(torch.equal(s_greedy, greedy)),
+            "beam5": bool(torch.equal(s_beam, beam)),
+            "beam5_scores": bool(torch.equal(s_scores, beam_scores))}
+    print(f"  phase 4's flagship split over a model axis of one ({len(splits)}"
+          f" split parameters): greedy B=16 and beam-5 B=16 tokens equal to"
+          f" the unsplit model's {same}; split-path launches {launches}",
+          flush=True)
+    check(all(same.values()), "the split decode at a model axis of one"
+          " differs from the unsplit decode")
+    check(all(n > 0 for n in launches.values()),
+          f"the split decode skipped a kernel: {launches}")
+    return launches, same
+
+
+# The shard forms' entries of the `kernels` line: (the whole kernel,
+# what the timed form holds). Their times are rank 0's at m = 2 over
+# one step's calls. The flagship refuses a model axis above one (its
+# 30265-row band), and one card runs one rank, so no entry point runs a
+# shard form on the card: their launches are phase 25's own calls, every
+# rank of m = 2 and 4, counted in the wrappers (`shard_window`).
+SHARD_OF = {
+    "flash_attention_fwd_shard": ("flash_attention_fwd",
+                                  "heads [0, 8) of 16, h0 = 0 (m = 2)"),
+    "flash_attention_bwd_shard": ("flash_attention_bwd",
+                                  "heads [0, 8) of 16, h0 = 0 (m = 2)"),
+    "decode_ffn_block_partial": ("decode_ffn_block",
+                                 "columns [0, 2048) of F = 4096 (m = 2),"
+                                 " fp32 partial"),
+    "band_topk_lse_shard": ("band_topk_lse",
+                            "rows [0, 2500) of the head band with its class"
+                            " rows and [0, 7500) of band 1 (m = 2)"),
+    "decode_cross_attention_shard": ("decode_cross_attention",
+                                     "heads [0, 8) of 16 (m = 2)"),
+}
+
+
+def tensor_parallel_phase(torch, ops, counted, mesh_summary):
+    """Phase 25. The shard forms of the flash, FFN, band top-k and decode
+    attention kernels at the flagship's layer widths, for every rank of
+    m = 2 and 4 in this one process, against their plain versions and
+    their whole launches (25.1-25.4; the flagship's 30265-row band
+    refuses m = 2 and 4 as the reference does), and the main path
+    through the split code at a model axis of one: phase 24's train
+    commands (records bit for bit phase 8's) and phase 4's model
+    decoding greedy and beam-5 at B=16 (25.5). Returns ({path: {kernel:
+    launches}}, {shard entry: Tally result}, {shard entry: launches of
+    the ranks' calls}, summary)."""
+    from news_image_caption_tpu_torch.config import build_model, load_config
+    from news_image_caption_tpu_torch.parallel.partition import (ModelShard,
+                                                                 shard_params)
+    band, xattn, blocks, flash = ops
+    tallies = {name: Tally() for name in SHARD_OF}
+    shard_launches = {}
+    summary = {"card": card_line()}
+    summary["flash_ms"] = shard_flash(torch, flash, tallies, shard_launches)
+    summary["ffn_ms"] = shard_ffn(torch, blocks,
+                                  tallies["decode_ffn_block_partial"],
+                                  shard_launches)
+    summary["band_ms"] = shard_band(torch, band,
+                                    tallies["band_topk_lse_shard"],
+                                    shard_launches)
+    decoder = build_model(load_config(EVAL_CONFIG), "meta").decoder
+    refused = {}
+    for m in (2, 4):
+        try:
+            shard_params(decoder, ModelShard(0, m))
+            refused[m] = ""
+        except ValueError as e:
+            refused[m] = str(e)
+        check("embedder.adaptive.embed_2" in refused[m]
+              and "30265" in refused[m],
+              f"the flagship at model {m} did not refuse its last band:"
+              f" {refused[m]!r}")
+    print(f"  the flagship at model 2 / 4: {refused[2]!r} / ...",
+          flush=True)
+    summary["attention_ms"] = shard_attention(
+        torch, xattn, tallies["decode_cross_attention_shard"],
+        shard_launches)
+    launches, same = split_decode(torch, counted)
+    summary["split_decode_equal"] = same
+    summary["train_command_split_at_one"] = mesh_summary[
+        "records_equal_phase8"]
+    summary["shard_launches"] = shard_launches
+    print(f"  times (ms, CUDA events, L2-cold, mean of 20) on {card_line()}:"
+          f" {json.dumps({k: summary[k] for k in ('flash_ms', 'ffn_ms', 'band_ms', 'attention_ms')})}",
+          flush=True)
+    return ({"split_decode": launches},
+            {name: t.result() for name, t in tallies.items()},
+            shard_launches, summary)
 
 
 def host_profile(path: str) -> dict:
@@ -6911,6 +7497,30 @@ def main() -> None:
     print(json.dumps({"mesh": {**mesh_summary,
                                "launches": mesh_launches}}), flush=True)
 
+    print("phase 25: tensor parallelism's shard forms at the flagship's"
+          " layer widths (flash by heads, the FFN's partial mode, band"
+          " top-k by rows, decode attention by heads; m = 2 and 4, every"
+          " rank) and the split code at a model axis of one (bf16)",
+          flush=True)
+    tp_launches, tp_timing, shard_launches, tp_summary = \
+        tensor_parallel_phase(torch, (band_topk, decode_attention,
+                                      decode_blocks, flash_attention),
+                              counted, mesh_summary)
+    for path, counts in tp_launches.items():
+        for name, n in counts.items():
+            if n:
+                launches[name] += n
+                by_path[name][path] = n
+    timing.update(tp_timing)
+    # The shard forms run on no entry point of one card (SHARD_OF): their
+    # launches are phase 25's calls of every rank of m = 2 and 4.
+    for name in SHARD_OF:
+        launches[name] = shard_launches[name]
+        by_path[name] = {"shard_ranks_m2_m4": shard_launches[name]}
+    print(json.dumps({"tensor_parallel": {**tp_summary,
+                                          "launches": tp_launches}}),
+          flush=True)
+
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",
                                           "pallas_kernels.py:146"),
@@ -6927,7 +7537,18 @@ def main() -> None:
                # routes, which it computes in XLA beside these two.
                "band_topk_lse_int8": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention_int8": ("decode_attention.cu",
-                                               "pallas_kernels.py:146")}
+                                               "pallas_kernels.py:146"),
+               # The shard forms of tensor parallelism (phase 25): the
+               # same kernels over a model rank's heads, columns or rows.
+               "flash_attention_fwd_shard": ("flash_attention.cu",
+                                             "pallas_flash.py:243"),
+               "flash_attention_bwd_shard": ("flash_attention.cu",
+                                             "pallas_flash.py:266"),
+               "decode_ffn_block_partial": ("decode_ffn.cu",
+                                            "pallas_decode.py:133"),
+               "band_topk_lse_shard": ("band_topk.cu", "pallas_topk.py:124"),
+               "decode_cross_attention_shard": ("decode_attention.cu",
+                                                "pallas_kernels.py:146")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"news_image_caption_tpu_torch/csrc/{src}",
                 "replaces": f"news_image_caption_tpu/ops/{tpu}",
@@ -6943,6 +7564,8 @@ def main() -> None:
     for entry in kernels:
         if entry["name"] in INT8_OF:
             entry["variant_of"] = INT8_OF[entry["name"]]
+        if entry["name"] in SHARD_OF:
+            entry["shard_of"], entry["shard"] = SHARD_OF[entry["name"]]
     # The conv block with a position a row (the pool's steps), at the
     # pool's 16 rows and the beam pool's 80, summed over the four layers.
     conv_entry = next(k for k in kernels if k["name"] == "decode_conv_block")
@@ -6957,7 +7580,10 @@ def main() -> None:
           " band routes a width; for the int8 variants, a greedy step at"
           " B=16 under quantize_kv / quantize_head, library_ms the chain"
           " that widens the int8 operands and scales them before the"
-          f" product; train step {step_ms:.2f} ms)")
+          " product; for the shard forms, rank 0's at m = 2 over the same"
+          " step's calls, launches phase 25's calls of every rank of m = 2"
+          " and 4, max_abs_err every rank's against its plain version;"
+          f" train step {step_ms:.2f} ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,8 +84,12 @@ process_id} block per process, or `true` under torchrun), then
 `trainer.mesh` ({data: -1, model: 1}) makes the rank mesh before the
 model is built, and the steps are data-parallel over its `data` axis
 (each rank trains on its rows of every global batch; rank 0 writes the
-logs). `trainer.mesh.model > 1` raises NotImplementedError (tensor
-parallelism, ROADMAP Queue 1 item 11b). Launch with
+logs) and tensor-parallel over its `model` axis: the model built on
+every rank keeps the rank's slices of the parameters the reference's
+partition rules split (`parallel/partition.py::shard_params`; a dim the
+axis does not divide raises, as the flagship's 30265-row band does at
+any `model` above 1, in both packages), and the single-file checkpoints
+hold the whole tensors. Launch with
 
     torchrun --nproc-per-node N -m news_image_caption_tpu_torch.cli \
         train CONFIG -o '{"trainer": {"distributed": true,
@@ -133,6 +137,7 @@ from news_image_caption_tpu_torch.generation.generator import \
 from news_image_caption_tpu_torch.parallel.distributed import (
     initialize, shard_iterator, shutdown)
 from news_image_caption_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from news_image_caption_tpu_torch.parallel.partition import shard_params
 from news_image_caption_tpu_torch.training.checkpoint import (CheckpointStore,
                                                               check_layout)
 from news_image_caption_tpu_torch.training.optim import accumulate_gradients
@@ -361,15 +366,18 @@ def _optimizer(cfg: Dict, model):
 
 
 def train_state(cfg: Dict, model, tx, precision: str,
-                device: torch.device):
+                device: torch.device, mesh=None):
     """(the model that computes, its TrainState) for `precision` from
     `model`, the config's model in fp32: fp32 trains `model` itself;
     bf16 keeps its fp32 parameters as the state's and computes in a bf16
     copy; bf16_o2 stores the bf16 copy's parameters, `model`'s values
-    as the fp32 master."""
+    as the fp32 master. With a mesh the bf16 copy is split as `model`
+    is."""
     if precision == "fp32":
         return model, create_train_state(model.param_module, tx)
     compute = build_model(cfg, device, torch.bfloat16)
+    if mesh is not None:
+        shard_params(compute.param_module, mesh)
     if precision == "bf16":
         return compute, create_train_state(model.param_module, tx,
                                            compute=compute.param_module)
@@ -398,11 +406,6 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
     cfg = load_config(args.param_path, args.overrides)
     tcfg = cfg.get("trainer", {})
     mesh_cfg = tcfg.get("mesh")
-    if mesh_cfg and int(mesh_cfg.get("model", 1)) > 1:
-        raise NotImplementedError(
-            "trainer.mesh.model > 1: tensor parallelism (the reference's "
-            "parallel/partition.py rules) is not ported yet (ROADMAP Queue "
-            "1 item 11b)")
     fmt = tcfg.get("checkpoint_format", "msgpack")
     if fmt not in ("msgpack", "sharded"):
         raise ValueError(f"unknown trainer.checkpoint_format {fmt!r}; use "
@@ -427,8 +430,10 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
     serialization_dir = _serialization_dir(cfg, args.param_path,
                                            args.serialization_dir)
     model = training_model(cfg, device, int(tcfg.get("seed", 0)))
+    if mesh is not None:
+        shard_params(model.param_module, mesh)
     tx = _optimizer(cfg, model)
-    model, state = train_state(cfg, model, tx, precision, device)
+    model, state = train_state(cfg, model, tx, precision, device, mesh)
     train_ds = build_dataset(cfg, "train")
     val_ds = build_dataset(cfg, "val")
     batch_size = cfg.get("iterator", {}).get("batch_size", 16)

@@ -44,6 +44,12 @@
 //     applies b2, the residual and the roundings, and writes y. Every
 //     sum has a fixed order and no float is added atomically: the
 //     result is the same on every run.
+// Partial mode (tensor parallelism: this rank holds F / m columns of w1
+// and the same rows of w2): with `sums` given, the blocks that own a
+// slice stop after adding the groups' partials in group order and write
+// that fp32 sum to sums [N, C], without b2, the residual or a rounding;
+// the caller sums the ranks' partials and applies the epilogue. y is not
+// written. With sums null the kernel is the whole one, unchanged.
 // (Thread block clusters with the partials added through distributed
 // shared memory were tried first: with 182 KB of shared memory a block,
 // the card places only 14 of the 16 clusters of 8 at once, the other
@@ -84,7 +90,7 @@ decode_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                   const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                   const bf16* __restrict__ b2, bf16* __restrict__ y,
                   bf16* hbuf, float* ws, unsigned* counters, int slots, int N,
-                  int C, int F, int group) {
+                  int C, int F, int group, float* __restrict__ sums) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
@@ -252,8 +258,11 @@ decode_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     if (i >= N * quads) break;
     const int r = i / quads, col = rank * slice + (i % quads) * 4;
     // b2 and the residual (x is still in shared memory), ahead of use.
-    const uint2 b2v = __ldg(reinterpret_cast<const uint2*>(b2 + col));
-    const uint2 xv = *reinterpret_cast<const uint2*>(xs + r * xs_stride + col * 2);
+    uint2 b2v = make_uint2(0u, 0u), xv = make_uint2(0u, 0u);
+    if (sums == nullptr) {
+      b2v = __ldg(reinterpret_cast<const uint2*>(b2 + col));
+      xv = *reinterpret_cast<const uint2*>(xs + r * xs_stride + col * 2);
+    }
     const float* at_ws = ws + (size_t)r * C + col;
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int g0 = 0; g0 < ngroups; g0 += 16) {
@@ -267,6 +276,10 @@ decode_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       for (int j2 = 0; j2 < 16; ++j2)
         if (g0 + j2 < ngroups)
           sum.x += v[j2].x, sum.y += v[j2].y, sum.z += v[j2].z, sum.w += v[j2].w;
+    }
+    if (sums != nullptr) {
+      *reinterpret_cast<float4*>(sums + (size_t)r * C + col) = sum;
+      continue;
     }
     const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
     const bf16* b2e = reinterpret_cast<const bf16*>(&b2v);
@@ -291,7 +304,9 @@ NIC_DEFINE_PHASE_READER(nic_decode_ffn_phases)
 // F / 32, and C / group is a multiple of 16; `smem` is the
 // kernel's dynamic shared memory as the caller planned it, which must
 // equal ffn_smem_bytes(C, group). The F / 32 blocks must fit on the
-// card together, or the launch fails. Scratch: hbuf [16][F] bf16; ws
+// card together, or the launch fails. sums: null for y, or fp32 [N, C]
+// (16-byte aligned) for the partial mode's sums, y then unwritten and
+// b2 unread (see the note above). Scratch: hbuf [16][F] bf16; ws
 // [F / 32 / group][16][C] fp32; counters [1 + 2 * slots] unsigned ints,
 // slots >= F / 32 / group + group, zeroed once and then left to the
 // kernel's launches, which must follow one another. Returns a
@@ -301,7 +316,7 @@ extern "C" int nic_decode_ffn_block(const void* x, const void* w1,
                                     const void* b2, void* y, void* hbuf,
                                     void* ws, void* counters, int slots,
                                     int N, int C, int F, int group,
-                                    int smem, void* stream) {
+                                    int smem, void* sums, void* stream) {
   using nic::bf16;
   if (N < 1 || N > nic::FFN_ROWS || C < 64 || C % 64 != 0 ||
       F < nic::FFN_STRIP || F % nic::FFN_STRIP != 0)
@@ -332,7 +347,8 @@ extern "C" int nic_decode_ffn_block(const void* x, const void* w1,
   err = cudaLaunchKernelEx(&cfg, nic::decode_ffn_kernel, (const bf16*)x,
                            (const bf16*)w1, (const bf16*)b1, (const bf16*)w2,
                            (const bf16*)b2, (bf16*)y, (bf16*)hbuf, (float*)ws,
-                           (unsigned*)counters, slots, N, C, F, group);
+                           (unsigned*)counters, slots, N, C, F, group,
+                           (float*)sums);
   if (err != cudaSuccess) return (int)err;
   NIC_RETURN_IF_LAUNCH_FAILED();
   return 0;

@@ -80,8 +80,9 @@
 //
 // Dropout: the TPU draws from its hardware generator, which cannot be
 // reproduced here. The seed is mixed as the TPU kernel mixes it,
-// key = seed * 2654435761 + (b * H + head) (mod 2^32), b counted from
-// row0, the batch's first row in a data-parallel run's global batch (0
+// key = seed * 2654435761 + ((b + row0) * H_total + h0 + head) (mod 2^32):
+// row0 the batch's first row in a data-parallel run's global batch and
+// h0 a tensor-parallel rank's first head among H_total (0 and H
 // otherwise), so that every rank drops the single process's slots; the bits of
 // (key, t, s) come from a stateless hash: the murmur3 finalizer fmix32,
 // row_key = fmix32(key ^ fmix32(t + 0x9e3779b9)), bits =
@@ -152,6 +153,8 @@ struct FlashArgs {
   uint32_t threshold;
   float scale;
   int row0;           // the batch's first row in the global batch (dropout hash)
+  int h0;             // the first head among heads_total (dropout hash)
+  int heads_total;
 };
 
 // Address of 16-byte chunk `chunk` of row `row` in a swizzled tile
@@ -379,7 +382,8 @@ flash_fwd_kernel(FlashArgs a, bf16* __restrict__ out, float* __restrict__ lse) {
   const int head = blockIdx.x, b = blockIdx.y, H = gridDim.x;
   const int t0 = blockIdx.z * FLASH_ROWS, rows = min(FLASH_ROWS, a.T - t0);
   const size_t qoff = ((size_t)b * a.T + t0) * a.E + head * DH;
-  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u + (uint32_t)((b + a.row0) * H + head);
+  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u +
+                       (uint32_t)((b + a.row0) * a.heads_total + a.h0 + head);
 
   request_tile<DH>(blk.qs, a.q + qoff, a.E, rows);
   blk.request_first();
@@ -513,7 +517,8 @@ flash_bwd_kernel(FlashArgs a, const float* __restrict__ lse,
   const int t0 = blockIdx.z * FLASH_ROWS, rows = min(FLASH_ROWS, a.T - t0);
   const size_t qoff = ((size_t)b * a.T + t0) * a.E + head * DH;
   const size_t koff = (size_t)b * a.S * a.E + head * DH;
-  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u + (uint32_t)((b + a.row0) * H + head);
+  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u +
+                       (uint32_t)((b + a.row0) * a.heads_total + a.h0 + head);
   const size_t kv_elems = (size_t)B * a.S * a.E;
   float* dk_part = parts == nullptr ? nullptr : parts + blockIdx.z * kv_elems + koff;
   float* dv_part = parts == nullptr ? nullptr
@@ -678,16 +683,20 @@ NIC_DEFINE_PHASE_READER(nic_flash_phases)
 // The caller plans `stages` slots of 64 keys (1..3, at most the key
 // tiles; all of them or at least 2) and `smem`, which must equal
 // flash_smem_bytes(false, stages, E / H). row0: the batch's first row in
-// the global batch, for the dropout hash. Returns a cudaError_t.
+// the global batch, h0 the first of the H heads among heads_total (>= h0 +
+// H), for the dropout hash. Returns a cudaError_t.
 extern "C" int nic_flash_fwd(const void* q, const void* k, const void* v,
                              const void* bias, const void* seed, void* out,
                              void* lse, int B, int T, int S, int E, int H,
                              unsigned threshold, float scale, int stages, int smem,
-                             int row0, void* stream) {
+                             int row0, int h0, int heads_total, void* stream) {
   using namespace nic;
-  if (!flash_plan_ok(B, T, S, E, H, stages, smem, false)) return (int)cudaErrorInvalidValue;
+  if (!flash_plan_ok(B, T, S, E, H, stages, smem, false) || h0 < 0 ||
+      heads_total < h0 + H)
+    return (int)cudaErrorInvalidValue;
   const FlashArgs a{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-                    (const int*)seed, T, S, E, stages, threshold, scale, row0};
+                    (const int*)seed, T, S, E, stages, threshold, scale, row0,
+                    h0, heads_total};
   cudaError_t err;
 #define NIC_FLASH_FWD(DH) \
   launch_flash_fwd<DH>(a, (bf16*)out, (float*)lse, B, H, smem, (cudaStream_t)stream)
@@ -706,13 +715,14 @@ extern "C" int nic_flash_bwd(const void* q, const void* k, const void* v,
                              const void* g, void* dq, void* dk, void* dv,
                              void* parts, int B, int T, int S, int E, int H,
                              unsigned threshold, float scale, int stages, int smem,
-                             int row0, void* stream) {
+                             int row0, int h0, int heads_total, void* stream) {
   using namespace nic;
   if (!flash_plan_ok(B, T, S, E, H, stages, smem, true) ||
-      ((T > FLASH_ROWS) != (parts != nullptr)))
+      ((T > FLASH_ROWS) != (parts != nullptr)) || h0 < 0 || heads_total < h0 + H)
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-                    (const int*)seed, T, S, E, stages, threshold, scale, row0};
+                    (const int*)seed, T, S, E, stages, threshold, scale, row0,
+                    h0, heads_total};
   cudaError_t err;
 #define NIC_FLASH_BWD(DH)                                                     \
   launch_flash_bwd<DH>(a, (const float*)lse, (const bf16*)g, (bf16*)dq, (bf16*)dk, \

@@ -70,6 +70,17 @@ which `attend_flat_beam` / `attend_chunk` send through
 head's word tables once (`decode_weights(quantize_head=True)` keeps
 them beside the fused weights), and every step takes them as `tables=`,
 the head then on `band_topk_lse_int8`.
+
+Tensor parallelism (`parallel/partition.py::shard_params` over a mesh's
+`model` axis): each attention holds its heads, the FFN its columns of
+fc1 and rows of fc2 (the hidden ReLU's dropout drawn whole and sliced),
+the embedder and the tied softmax their rows of each band. The decode
+weights are the rank's slices: fc2 folded with the whole weight norm,
+the FFN run through `decode_ffn_block`'s partial mode and summed over
+the ranks (`LayerDecodeWeights.ffn_shard`), the head table the rank's
+rows of table0 (the class rows in rank 0's). The conv blocks,
+`context_fc` and the LayerNorms are replicated. Every rank runs the
+same steps on the same rows, so decode's tokens are the same on each.
 """
 
 from __future__ import annotations
@@ -93,6 +104,8 @@ from news_image_caption_tpu_torch.ops.linear import (GehringLinear, LayerNorm,
                                                      positionwise)
 from news_image_caption_tpu_torch.ops.positional import \
     SinusoidalPositionalEmbedding
+from news_image_caption_tpu_torch.parallel.collectives import reduce_out
+from news_image_caption_tpu_torch.parallel.partition import shard_of
 from news_image_caption_tpu_torch.utils.registry import DECODERS
 
 LayerKV = Dict[str, AttentionKV]
@@ -116,11 +129,15 @@ class LayerDecodeWeights(NamedTuple):
     ffn_b1: Optional[torch.Tensor]
     ffn_w2: Optional[torch.Tensor]       # [F, D]
     ffn_b2: Optional[torch.Tensor]
+    # The model axis of a split FFN (its columns of w1, rows of w2), whose
+    # partial sums the step adds over the ranks; None unsplit or at a
+    # model axis of one.
+    ffn_shard: object = None
 
 
 class DecodeWeights(NamedTuple):
     layers: List[LayerDecodeWeights]
-    head_table: torch.Tensor   # [cutoff0 + n_tails, D]
+    head_table: torch.Tensor   # [cutoff0 + n_tails, D]; split, the rank's
     # The int8 head tables (`quantized_embed_tables`), where asked for.
     quant_tables: Optional[list] = None
 
@@ -252,7 +269,8 @@ class DynamicConvDecoderLayer(nn.Module):
             kv = self._attn(name).precompute_kv(contexts[name],
                                                 contexts[name],
                                                 contexts.get(f"{name}_mask"))
-            out[name] = quantize_kv(kv, self.num_heads) if quantize else kv
+            heads = self._attn(name).local_heads()
+            out[name] = quantize_kv(kv, heads) if quantize else kv
         return out
 
     def _conv_in(self, x: torch.Tensor, generator=None) -> torch.Tensor:
@@ -267,9 +285,10 @@ class DynamicConvDecoderLayer(nn.Module):
 
     def _ffn(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """The FFN block, its residual and LayerNorm."""
-        y = self.fc1(self._ln(self.final_layer_norm, x, True))
-        y = dropout(torch.relu(y), self.relu_dropout, generator)
-        y = dropout(self.fc2(y), self.dropout, generator)
+        y = self.fc1.local(self._ln(self.final_layer_norm, x, True))
+        y = dropout(torch.relu(y), self.relu_dropout, generator,
+                    part=(-1, shard_of(self.fc1)))
+        y = dropout(self.fc2.local(y), self.dropout, generator)
         return self._ln(self.final_layer_norm, x + y, False)
 
     def forward(self, x: torch.Tensor, kv: LayerKV,
@@ -300,7 +319,7 @@ class DynamicConvDecoderLayer(nn.Module):
         """The step's weights in `dtype`: the fused kernels' folded
         weights where the layer's structure takes them (`fused_decode_ok`,
         `fused_ffn_ok`), None in their place otherwise."""
-        conv, ffn = (None,) * 6, (None,) * 4
+        conv, ffn, shard = (None,) * 6, (None,) * 4, None
         if self.fused_decode_ok():
             w1, b1 = self.linear1.folded(dtype)
             w2, b2 = self.linear2.folded(dtype)
@@ -308,8 +327,20 @@ class DynamicConvDecoderLayer(nn.Module):
             conv = (w1, b1, wl, pack_taps(wl, self.num_heads), w2, b2)
         if self.fused_ffn_ok():
             ffn = self.fc1.folded(dtype) + self.fc2.folded(dtype)
+            if self.fc2.split == "row" and shard_of(self.fc2).size > 1:
+                shard = shard_of(self.fc2)
         return LayerDecodeWeights(*conv, *self.context_fc.folded(dtype),
-                                  *ffn)
+                                  *ffn, shard)
+
+    @staticmethod
+    def _decode_ffn(x: torch.Tensor, w: LayerDecodeWeights) -> torch.Tensor:
+        """`decode_ffn_block` over x's rows: split over more than one
+        rank, in its partial mode, the ranks' partial sums added before
+        b2 and the residual."""
+        reduce = (None if w.ffn_shard is None
+                  else lambda t: reduce_out(t, w.ffn_shard))
+        return decode_ffn_block(x, w.ffn_w1, w.ffn_b1, w.ffn_w2, w.ffn_b2,
+                                reduce=reduce)
 
     def _conv_step(self, x_t: torch.Tensor, ring: torch.Tensor, t,
                    w: LayerDecodeWeights):
@@ -341,8 +372,7 @@ class DynamicConvDecoderLayer(nn.Module):
         x = torch.cat(parts, dim=-1) @ w.context_w + w.context_b
         if w.ffn_w1 is None:
             return self._ffn(x)
-        y = decode_ffn_block(x, w.ffn_w1, w.ffn_b1, w.ffn_w2, w.ffn_b2)
-        return self.final_layer_norm(y)
+        return self.final_layer_norm(self._decode_ffn(x, w))
 
     def step(self, x_t: torch.Tensor, kv: LayerKV, cache: torch.Tensor,
              t, w: LayerDecodeWeights, beam: int = 1) -> torch.Tensor:
@@ -441,8 +471,7 @@ class DynamicConvDecoderLayer(nn.Module):
                          torch.cat(parts, dim=-1))
         if w.ffn_w1 is None:
             return positionwise(self._ffn, x)
-        y = decode_ffn_block(x.reshape(B * k, D), w.ffn_w1, w.ffn_b1,
-                             w.ffn_w2, w.ffn_b2)
+        y = self._decode_ffn(x.reshape(B * k, D), w)
         return self.final_layer_norm(y).view(B, k, D)
 
 

@@ -17,6 +17,24 @@ raw product rounded to x's dtype, times the scale in that dtype);
 band's over table0 alone, and folds the exact class logits into the
 head's logsumexp. The kernel rounds a logit once, after the scale
 (`ops/band_topk.py`); in fp32 the two roundings agree.
+
+Split over a `model` axis (`parallel/partition.py`: the embedder's band
+tables by rows, the untied tables by the vocabulary), a rank holds a
+contiguous slice of each band's word rows. The embedding takes the
+rows of its slice, zeros elsewhere, sums them over the ranks and then
+projects them: exact. The loss merges each band's logsumexp over the
+ranks (a max, then a sum of exponentials) and takes the target's logit
+from the rank that holds it (`split_nll`). `topk_log_prob` runs each
+band's kernel over the rank's rows, adds the rank's first id, gathers
+every rank's (values, ids, logsumexp), merges the logsumexps and runs
+`stable_topk` over the candidates in rank order, so ties still go to
+the lowest id (`merge_topk`); the head band's class rows ride in rank
+0's table (`head_table`), so their logits enter the merged logsumexp
+once, as the kernel computes them; under the int8 head, whose kernel
+runs over table0 alone, they join it outside as unsplit. The kernels
+are the same; only the call layout changes. Full-vocab log-probs gather
+the ranks' logits whole first. At a model axis of one every form is the
+unsplit one.
 """
 
 from __future__ import annotations
@@ -33,6 +51,13 @@ from news_image_caption_tpu_torch.ops.band_topk import (band_topk_lse,
 from news_image_caption_tpu_torch.ops.dropout import dropout
 from news_image_caption_tpu_torch.ops.linear import (initializes, new_param,
                                                      positionwise)
+from news_image_caption_tpu_torch.parallel.collectives import (axis_max,
+                                                               copy_in,
+                                                               gather_out,
+                                                               reduce_out,
+                                                               vocab_gather)
+from news_image_caption_tpu_torch.parallel.partition import (is_split,
+                                                             shard_of)
 
 
 class QuantTable(NamedTuple):
@@ -66,6 +91,65 @@ def _word_logits(x: torch.Tensor, table) -> torch.Tensor:
     if isinstance(table, QuantTable):
         return (x @ table.q.to(x.dtype).T) * table.scale.to(x.dtype)
     return x @ table.to(x.dtype).T
+
+
+def table_rows(table) -> int:
+    """The rows of a word table or of an int8 `QuantTable`."""
+    return (table.q if isinstance(table, QuantTable) else table).shape[0]
+
+
+def split_nll(local: torch.Tensor, first: int, target: torch.Tensor, shard,
+              extra: torch.Tensor | None = None,
+              extra_first: int = 0) -> torch.Tensor:
+    """logsumexp - picked logit [N], fp32, of a band whose logits are
+    split over the model ranks: `local` [N, n] this rank's, ids [first,
+    first + n); `extra` [N, e] replicated logits of ids [extra_first,
+    extra_first + e) (the head band's class slots). The max and the sum
+    of exponentials are merged over the ranks, the picked logit comes
+    from the rank that holds the target."""
+    n = local.shape[1]
+    m = axis_max(local.detach().amax(dim=-1), shard)
+    if extra is not None:
+        m = torch.maximum(m, extra.detach().amax(dim=-1))
+    sums = reduce_out(torch.exp(local - m[:, None]).sum(dim=-1), shard)
+    mine = (target >= first) & (target < first + n)
+    at = torch.clamp(target - first, 0, n - 1)[:, None]
+    picked = reduce_out(torch.where(mine, torch.gather(local, 1, at)[:, 0],
+                                    0.0), shard)
+    if extra is not None:
+        sums = sums + torch.exp(extra - m[:, None]).sum(dim=-1)
+        e = extra.shape[1]
+        held = (target >= extra_first) & (target < extra_first + e)
+        at = torch.clamp(target - extra_first, 0, e - 1)[:, None]
+        picked = picked + torch.where(held, torch.gather(extra, 1, at)[:, 0],
+                                      0.0)
+    return m + torch.log(sums) - picked
+
+
+def merge_topk(vals: torch.Tensor, ids: torch.Tensor, lse: torch.Tensor,
+               k: int, shard):
+    """Every model rank's band top-k merged: vals [N, k'] fp32, ids
+    [N, k'] global, lse [N, 1] of this rank's rows -> (vals [N, k], ids
+    [N, k], lse [N, 1]) of the whole band (`merge_candidates` over the
+    ranks' gathered candidates)."""
+    v, j, lse = merge_candidates(vocab_gather(torch.cat(
+        [vals.float(), ids.to(torch.float32), lse.float()], dim=-1), shard),
+        k)
+    return v, j.to(ids.dtype), lse
+
+
+def merge_candidates(every: torch.Tensor, k: int):
+    """every [m, N, 2k' + 1]: each rank's (top-k' values, their global
+    ids as fp32, logsumexp) in rank order -> (vals [N, k], ids [N, k]
+    int64, lse [N, 1]): the ranks' logsumexps merged, and `stable_topk`
+    over the candidates in rank order, so ties go to the lowest id."""
+    m, N, width = every.shape
+    kk = (width - 1) // 2
+    vals = every[..., :kk].permute(1, 0, 2).reshape(N, m * kk)
+    ids = every[..., kk:2 * kk].permute(1, 0, 2).reshape(N, m * kk)
+    lse = torch.logsumexp(every[..., 2 * kk].T, dim=-1, keepdim=True)
+    v, j = stable_topk(vals, k)
+    return v, torch.gather(ids, 1, j).long(), lse
 
 
 def band_ranges(cutoff: Sequence[int]) -> List[Tuple[int, int]]:
@@ -118,6 +202,23 @@ class AdaptiveEmbedding(nn.Module):
     def weights_for_band(self, i: int):
         return getattr(self, f"embed_{i}"), getattr(self, f"proj_{i}")
 
+    def _rows(self, table: torch.Tensor, token_ids: torch.Tensor,
+              lo: int, hi: int) -> torch.Tensor:
+        """The band's table rows of the tokens (a clamped row where a
+        token is outside the band); split, the rank's rows, zeros where
+        another rank holds the row, summed over the ranks."""
+        if not is_split(self) or table.shape[0] == hi - lo:
+            return table[torch.clamp(token_ids - lo, 0, hi - lo - 1)]
+        shard = shard_of(self)
+        n = table.shape[0]
+        first = lo + shard.index * n
+        mine = (token_ids >= first) & (token_ids < first + n)
+        rows = table[torch.clamp(token_ids - first, 0, n - 1)]
+        return reduce_out(torch.where(mine[..., None], rows,
+                                      torch.zeros((), dtype=rows.dtype,
+                                                  device=rows.device)),
+                          shard)
+
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
         dtype = self.out_dtype
         out = torch.zeros(token_ids.shape + (self.output_dim,),
@@ -125,8 +226,7 @@ class AdaptiveEmbedding(nn.Module):
         for i, (lo, hi) in enumerate(self.bands):
             table, proj = self.weights_for_band(i)
             in_band = (token_ids >= lo) & (token_ids < hi)
-            idx = torch.clamp(token_ids - lo, 0, hi - lo - 1)
-            e = table[idx].to(dtype) @ proj.to(dtype)
+            e = self._rows(table, token_ids, lo, hi).to(dtype) @ proj.to(dtype)
             out = out + torch.where(in_band[..., None], e,
                                     torch.zeros((), dtype=dtype,
                                                 device=e.device))
@@ -190,10 +290,26 @@ class AdaptiveSoftmax(nn.Module):
             getattr(self, f"untied_tail_{i}")
         return owned.T
 
+    def split_tables(self, embed_tables) -> bool:
+        """Whether the word tables are split over model ranks (a rank's
+        table0 holds fewer rows than the head band's words)."""
+        return (is_split(self)
+                and table_rows(self.word_table(0, embed_tables))
+                < self.cutoff[0])
+
+    def _whole_logits(self, x, table, i: int) -> torch.Tensor:
+        """x's logits over band i's whole vocabulary: split, the ranks'
+        gathered in rank order."""
+        lo, hi = band_ranges(self.cutoff)[i]
+        if not is_split(self) or table_rows(table) == hi - lo:
+            return _word_logits(x, table)
+        shard = shard_of(self)
+        return gather_out(_word_logits(copy_in(x, shard), table), shard, -1)
+
     def head_logits(self, x, embed_tables) -> torch.Tensor:
         """x [N, D] -> [N, cutoff0 + n_tails]; the class logits exact
         with quantized tables too."""
-        word = _word_logits(x, self.word_table(0, embed_tables))
+        word = self._whole_logits(x, self.word_table(0, embed_tables), 0)
         cls = x @ self.class_proj.to(x.dtype)
         return torch.cat([word, cls], dim=-1)
 
@@ -210,8 +326,9 @@ class AdaptiveSoftmax(nn.Module):
 
     def tail_logits(self, x, i: int, embed_tables,
                     generator=None) -> torch.Tensor:
-        return _word_logits(self.tail_hidden(x, i, embed_tables, generator),
-                            self.word_table(i, embed_tables))
+        return self._whole_logits(self.tail_hidden(x, i, embed_tables,
+                                                   generator),
+                                  self.word_table(i, embed_tables), i)
 
     def log_prob(self, x, embed_tables) -> torch.Tensor:
         """Full-vocab log-probs [N, V]; softmax in fp32, result in x's
@@ -242,8 +359,19 @@ class AdaptiveSoftmax(nn.Module):
         """
         c0 = self.cutoff[0]
         bands = band_ranges(self.cutoff)
+        shard = shard_of(self) if self.split_tables(embed_tables) else None
 
-        def band_nll(logits, tgt):
+        def band_nll(h, table, tgt, extra=None):
+            """NLL of the band whose word rows are `table` (this rank's
+            where split, `split_nll`), `extra` its class-slot logits."""
+            if shard is not None:
+                local = _word_logits(copy_in(h, shard), table).float()
+                return split_nll(local, shard.index * table.shape[0], tgt,
+                                 shard, None if extra is None
+                                 else extra.float(), c0)
+            logits = _word_logits(h, table)
+            if extra is not None:
+                logits = torch.cat([logits, extra], dim=-1)
             logits = logits.float()
             picked = torch.gather(logits, 1, tgt[:, None])[:, 0]
             return torch.logsumexp(logits, dim=-1) - picked
@@ -252,22 +380,26 @@ class AdaptiveSoftmax(nn.Module):
         for i, (lo, hi) in enumerate(bands[1:]):
             in_band = (target >= lo) & (target < hi)
             head_target = torch.where(in_band, c0 + i, head_target)
-        nll = band_nll(self.head_logits(x, embed_tables), head_target)
+        nll = band_nll(x, self.word_table(0, embed_tables), head_target,
+                       x @ self.class_proj.to(x.dtype))
         loss = torch.where(head_target != padding_idx, nll, 0.0).sum()
         for i, (lo, hi) in enumerate(bands[1:], start=1):
             in_band = (target >= lo) & (target < hi)
             tgt_in = torch.clamp(target - lo, 0, hi - lo - 1)
-            nll = band_nll(self.tail_logits(x, i, embed_tables, generator),
-                           tgt_in)
+            nll = band_nll(self.tail_hidden(x, i, embed_tables, generator),
+                           self.word_table(i, embed_tables), tgt_in)
             valid = in_band & (tgt_in != padding_idx)
             loss = loss + torch.where(valid, nll, 0.0).sum()
         return loss, (target != padding_idx).sum()
 
     def head_table(self, embed_tables, dtype) -> torch.Tensor:
         """[table0; class_projᵀ]: the head band of `topk_log_prob`
-        (word rows, then one class row per tail)."""
-        return torch.cat([self.word_table(0, embed_tables).to(dtype),
-                          self.class_proj.to(dtype).T], dim=0).contiguous()
+        (word rows, then one class row per tail). Split, this rank's
+        rows of table0, with the class rows in rank 0's alone."""
+        parts = [self.word_table(0, embed_tables).to(dtype)]
+        if not self.split_tables(embed_tables) or shard_of(self).index == 0:
+            parts.append(self.class_proj.to(dtype).T)
+        return torch.cat(parts, dim=0).contiguous()
 
     def topk_log_prob(self, x, k: int, embed_tables, head_table=None):
         """Exact top-k full-vocab log-probs without the [N, V] matrix:
@@ -288,17 +420,26 @@ class AdaptiveSoftmax(nn.Module):
         quantized = self.tied and isinstance(embed_tables[0][0], QuantTable)
         if head_table is None and not quantized:
             head_table = self.head_table(embed_tables, x.dtype)
+        shard = shard_of(self) if self.split_tables(embed_tables) else None
 
         def rows(fn):
             y = positionwise(fn, x) if x.dim() == 3 else fn(x)
             return y.reshape(-1, y.shape[-1])
 
         def band(h, table, sel_limit=None):
+            """The band's top-k and logsumexp over this rank's rows,
+            merged over the model ranks (ids from the band's start)."""
+            n = table_rows(table) if sel_limit is None else sel_limit
+            kk = min(k, n)
             if quantized:
-                return band_topk_lse_int8(h, table.q, table.scale, k,
-                                          sel_limit)
-            return band_topk_lse(h, table.to(h.dtype).contiguous(), k,
-                                 sel_limit)
+                v, ids, lse = band_topk_lse_int8(h, table.q, table.scale, kk,
+                                                 sel_limit)
+            else:
+                v, ids, lse = band_topk_lse(h, table.to(h.dtype).contiguous(),
+                                            kk, sel_limit)
+            if shard is None:
+                return v, ids, lse
+            return merge_topk(v, ids + shard.index * n, lse, k, shard)
 
         flat = x.reshape(-1, x.shape[-1])
         # Class-slot logits at the kernel's rounding point (x's dtype).
@@ -308,7 +449,8 @@ class AdaptiveSoftmax(nn.Module):
             lse_h = torch.logaddexp(lse_w, torch.logsumexp(cls, dim=-1,
                                                            keepdim=True))
         else:
-            hv, hi, lse_h = band(flat, head_table, c0)
+            words = self.word_table(0, embed_tables).shape[0]
+            hv, hi, lse_h = band(flat, head_table, words)
         vals, ids = [hv - lse_h], [hi]
         for i in range(1, len(self.cutoff)):
             h = rows(lambda r: self.tail_hidden(r, i, embed_tables))

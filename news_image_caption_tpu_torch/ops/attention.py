@@ -22,6 +22,17 @@ makes one), and the one-shot `forward(query, key, value)`, which is
 self-attention where all three are the same. `GatedLinear` and
 `DownsampledMultiHeadAttention` are the reference's fconv-style
 modules (strided heads, strict causality, the scalar-bias slot).
+
+Split over a `model` axis of m ranks (`parallel/partition.py`), a
+`MultiHeadAttention` holds heads [h0, h0 + H/m): its q/k/v projections
+are column-parallel (`local`), so the K/V it precomputes are its heads'
+[B, S', E/m], the replicated `bias_k` / `bias_v` slots are sliced to its
+heads (their gradient summed over the ranks by `copy_in`), the flash
+kernels take h0 and the whole head count for their dropout hash, the
+plain path's probability dropout draws every head's mask and keeps the
+rank's, and `out_proj` is row-parallel: its partial products summed over
+the ranks, its bias added once. The head-averaged weights are the sum
+over the ranks of their heads' sums, over H.
 """
 
 from __future__ import annotations
@@ -41,6 +52,10 @@ from news_image_caption_tpu_torch.ops.linear import (GehringLinear,
                                                      XavierLinear,
                                                      initializes, new_param,
                                                      positionwise)
+from news_image_caption_tpu_torch.parallel.collectives import (copy_in,
+                                                               reduce_out)
+from news_image_caption_tpu_torch.parallel.partition import (is_split,
+                                                             shard_of)
 
 NEG_INF = -1e9
 
@@ -105,8 +120,11 @@ def attend_positions(q_proj, out_proj, num_heads: int, query: torch.Tensor,
     run position by position at a step's shapes (`positionwise`), the
     query scaled by head_dim**-0.5 before the kernel. Returns
     [B, k, E]."""
-    scale = (query.shape[-1] // num_heads) ** -0.5
-    q = positionwise(lambda r: q_proj(r) * scale, query)
+    def scaled(r):
+        y = q_proj(r)
+        return y * (y.shape[-1] // num_heads) ** -0.5
+
+    q = positionwise(scaled, query)
     return positionwise(out_proj, _decode_attention(q, kv, num_heads))
 
 
@@ -148,6 +166,22 @@ class MultiHeadAttention(nn.Module):
                     self.bias_k.normal_(0.0, std, generator=generator)
                     self.bias_v.normal_(0.0, std, generator=generator)
 
+    def local_heads(self) -> int:
+        """The heads this rank holds: all of them unsplit, H / m split."""
+        return self.q_proj.kernel.shape[1] // self.head_dim
+
+    def _first_head(self) -> int:
+        shard = shard_of(self)
+        return 0 if shard is None else shard.index * self.local_heads()
+
+    def _slot(self, p: torch.Tensor, E: int) -> torch.Tensor:
+        """A replicated bias slot [1, 1, E_whole] cut to this rank's heads'
+        E columns."""
+        if not is_split(self):
+            return p
+        shard = shard_of(self)
+        return copy_in(p, shard)[..., shard.part(E)]
+
     def extra_slots(self) -> int:
         """The slots after the keys: bias_k/bias_v, then the zero slot."""
         return int(self.bias_k is not None) + int(self.add_zero_attn)
@@ -158,13 +192,13 @@ class MultiHeadAttention(nn.Module):
         """key [B, S, kdim], value [B, S, vdim]; key_padding_mask
         [B, S], True = pad."""
         B, S, _ = key.shape
-        k = self.k_proj(key)
-        v = self.v_proj(value)
-        E = self.embed_dim
+        k = self.k_proj.local(key)
+        v = self.v_proj.local(value)
+        E = k.shape[-1]
         ks, vs = [k], [v]
         if self.bias_k is not None:
-            ks.append(self.bias_k.to(k.dtype).expand(B, 1, E))
-            vs.append(self.bias_v.to(v.dtype).expand(B, 1, E))
+            ks.append(self._slot(self.bias_k, E).to(k.dtype).expand(B, 1, E))
+            vs.append(self._slot(self.bias_v, E).to(v.dtype).expand(B, 1, E))
         if self.add_zero_attn:
             zero = torch.zeros(B, 1, E, device=k.device, dtype=k.dtype)
             ks.append(zero)
@@ -209,9 +243,9 @@ class MultiHeadAttention(nn.Module):
         probabilities averaged over heads [B, T, S'] in the value
         dtype, before dropout); otherwise the output alone."""
         B, T, _ = query.shape
-        H, hd = self.num_heads, self.head_dim
+        H, hd = self.local_heads(), self.head_dim
         S = kv.k.shape[1]
-        q = self.q_proj(query) * (hd ** -0.5)
+        q = self.q_proj.local(query) * (hd ** -0.5)
         if (self.use_flash and T > 1 and not need_weights
                 and attn_mask is None):
             p = self.dropout if generator is not None else 0.0
@@ -221,25 +255,32 @@ class MultiHeadAttention(nn.Module):
             else:
                 seed = torch.zeros(1, device=q.device, dtype=torch.int32)
             out = flash_cross_attention(q.contiguous(), kv.k, kv.v, kv.bias,
-                                        seed, H, p, row0=row_offset())
-            return self.out_proj(out)
+                                        seed, H, p, row0=row_offset(),
+                                        h0=self._first_head(),
+                                        heads_total=self.num_heads)
+            return self.out_proj.local(out)
         scores = torch.einsum("bthd,bshd->bhts", q.view(B, T, H, hd),
                               kv.k.view(B, S, H, hd))
         if attn_mask is not None:
             scores = scores + attn_mask.to(scores.dtype)
         scores = scores.float() + kv.bias[:, None, None, :]
         probs = torch.softmax(scores, dim=-1).to(kv.v.dtype)
-        weights = probs.mean(dim=1) if need_weights else None
-        probs = dropout(probs, self.dropout, generator)
+        weights = None
+        if need_weights:
+            weights = (probs.mean(dim=1) if not is_split(self) else
+                       (reduce_out(probs.float().sum(dim=1), shard_of(self))
+                        / self.num_heads).to(probs.dtype))
+        probs = dropout(probs, self.dropout, generator,
+                        part=(1, shard_of(self)))
         out = torch.einsum("bhts,bshd->bthd", probs, kv.v.view(B, S, H, hd))
-        out = self.out_proj(out.reshape(B, T, self.embed_dim))
+        out = self.out_proj.local(out.reshape(B, T, H * hd))
         return (out, weights) if need_weights else out
 
     def attend_chunk(self, query: torch.Tensor, kv) -> torch.Tensor:
         """`attend_positions` through this attention's projections: each
         position sums as `attend_flat_beam` at beam 1 does."""
-        return attend_positions(self.q_proj, self.out_proj, self.num_heads,
-                                query, kv)
+        return attend_positions(self.q_proj.local, self.out_proj.local,
+                                self.local_heads(), query, kv)
 
     def attend_flat_beam(self, query: torch.Tensor, kv,
                          beam: int) -> torch.Tensor:
@@ -247,11 +288,12 @@ class MultiHeadAttention(nn.Module):
         an item) over kv of the untiled batch B (an `AttentionKV` or a
         `QuantAttentionKV`): the beams of one item share its K/V.
         Returns [B*beam, E]."""
-        BK, E = query.shape
-        q = self.q_proj(query) * (self.head_dim ** -0.5)
+        BK = query.shape[0]
+        q = self.q_proj.local(query) * (self.head_dim ** -0.5)
+        E = q.shape[-1]
         out = _decode_attention(q.view(BK // beam, beam, E).contiguous(), kv,
-                                self.num_heads)
-        return self.out_proj(out.view(BK, E))
+                                self.local_heads())
+        return self.out_proj.local(out.view(BK, E))
 
 
 def extend_attn_mask(attn_mask: torch.Tensor,

@@ -19,6 +19,15 @@ of h, and the groups' partial outputs are added in a fixed order (see
 the sources); `ffn_plan` is its plan. `admits_conv` and `admits_ffn`
 say what the kernels take.
 
+Under tensor parallelism a rank holds F / m columns of the FFN's w1 and
+the same rows of w2, so its second product is a partial sum:
+`decode_ffn_block(..., reduce=)` runs the kernel's partial mode, which
+stops after adding its groups' fp32 partials and writes that sum
+(`decode_ffn_block_partial`), hands it to `reduce` (the psum over the
+model ranks) and applies b2 and the residual at the whole kernel's
+rounding points (`ffn_epilogue`); at one rank that is the whole kernel
+bit for bit.
+
 The plain versions keep the reference kernels' bf16 rounding points
 (pallas_decode.py:47-101 and :111-129): every product accumulates in
 fp32 and is rounded to the working dtype where the reference rounds.
@@ -35,7 +44,7 @@ from news_image_caption_tpu_torch.ops import _build
 
 MAX_TAPS = 32
 _CONV_ARGTYPES = [_build.P] * 12 + [_build.I] * 9 + [_build.P]
-_FFN_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P]
+_FFN_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P, _build.P]
 # The conv block kernel: channels a block, rows of x a tile (the tensor
 # cores' 16-row operand), rows a launch.
 CONV_STRIP, CONV_ROWS, CONV_MAX_ROWS = 16, 16, 128
@@ -122,6 +131,22 @@ def decode_ffn_block_plain(x, w1, b1, w2, b2):
     return y.to(x.dtype)
 
 
+def decode_ffn_block_partial_plain(x, w1, b1, w2):
+    """The fp32 sum relu(x w1 + b1) w2 before b2, the residual and the
+    last roundings: the partial mode's output, in plain PyTorch."""
+    r = _rounder(x.dtype)
+    h = torch.relu(r(r(x.float() @ w1.float()) + b1.float()))
+    return h @ w2.float()
+
+
+def ffn_epilogue(s: torch.Tensor, b2: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """y from the fp32 sum s of the FFN's second product, at the whole
+    kernel's rounding points: rbf(rbf(rbf(s) + b2) + x)."""
+    r = _rounder(x.dtype)
+    return r(r(r(s) + b2.float()) + x.float()).to(x.dtype)
+
+
 def pack_taps(wl: torch.Tensor, num_heads: int) -> torch.Tensor:
     """The tap predictor wl [C, H*K] (head-major) as the kernel reads
     it: [H, kp, C] with the K taps of a head padded with zeros to kp = 8,
@@ -157,14 +182,31 @@ def decode_conv_block(x, cache, t, w1, b1, wl, w2, b2,
     return _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps)
 
 
-def decode_ffn_block(x, w1, b1, w2, b2):
+def decode_ffn_block(x, w1, b1, w2, b2, reduce=None):
     """See `decode_ffn_block_plain`. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel or raises. reduce: for a
+    model rank's columns of w1 and rows of w2, the sum over the ranks of
+    the fp32 partials (`decode_ffn_block_partial`), after which b2 and x
+    are added here (`ffn_epilogue`)."""
+    if reduce is not None:
+        return ffn_epilogue(reduce(decode_ffn_block_partial(x, w1, b1, w2)),
+                            b2, x)
     if x.device.type == "cpu":
         return decode_ffn_block_plain(x, w1, b1, w2, b2)
     _build.require(x.device.type == "cuda",
                    f"decode_ffn_block: no kernel for device {x.device}")
     return _launch_ffn(x, w1, b1, w2, b2)
+
+
+def decode_ffn_block_partial(x, w1, b1, w2):
+    """See `decode_ffn_block_partial_plain`: fp32 [N, C]. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel in its
+    partial mode (counted in this wrapper's `launches`) or raises."""
+    if x.device.type == "cpu":
+        return decode_ffn_block_partial_plain(x, w1, b1, w2)
+    _build.require(x.device.type == "cuda",
+                   f"decode_ffn_block: no kernel for device {x.device}")
+    return _launch_ffn(x, w1, b1, w2, None)
 
 
 def _check_inputs(name, tensors, shapes):
@@ -378,8 +420,13 @@ def ffn_plan(N: int, C: int, F: int, sms: int) -> FfnPlan:
 
 
 def _launch_ffn(x, w1, b1, w2, b2):
+    """The kernel over x's rows; b2 None for the partial mode's fp32
+    sums."""
     N, C = x.shape
     F = w1.shape[1]
+    partial = b2 is None
+    if partial:
+        b2 = torch.zeros(C, device=x.device, dtype=x.dtype)
     sms = _build.sms_of(x.device)
     ok, why = admits_ffn(x.dtype, N, C, F, sms)
     _build.require(ok, why)
@@ -397,21 +444,28 @@ def _launch_ffn(x, w1, b1, w2, b2):
                                device=x.device, dtype=torch.int32)
         _ffn_counters[x.device] = counters
     slots = (counters.numel() - 1) // 2
-    y = torch.empty_like(x)
+    y = torch.empty(N, C, device=x.device,
+                    dtype=torch.float32 if partial else x.dtype)
     hbuf = torch.empty(FFN_ROWS, F, device=x.device, dtype=x.dtype)
     ws = torch.empty(plan.groups * FFN_ROWS * C, device=x.device,
                      dtype=torch.float32)
     for r0 in range(0, N, FFN_ROWS):
         rows = min(FFN_ROWS, N - r0)
         _build.check(fn(x[r0:].data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                        w2.data_ptr(), b2.data_ptr(), y[r0:].data_ptr(),
+                        w2.data_ptr(), b2.data_ptr(),
+                        None if partial else y[r0:].data_ptr(),
                         hbuf.data_ptr(), ws.data_ptr(), counters.data_ptr(),
                         slots, rows, C, F, plan.group, plan.smem_bytes,
+                        y[r0:].data_ptr() if partial else None,
                         _build.stream_of(x)),
                      "decode_ffn_block")
-        decode_ffn_block.launches += 1
+        if partial:
+            decode_ffn_block_partial.launches += 1
+        else:
+            decode_ffn_block.launches += 1
     return y
 
 
 decode_conv_block.launches = 0
 decode_ffn_block.launches = 0
+decode_ffn_block_partial.launches = 0

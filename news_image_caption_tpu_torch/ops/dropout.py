@@ -33,7 +33,15 @@ def row_offset() -> int:
     return 0 if rows is None else rows.first
 
 
-def _uniform(shape, generator, device, batched: bool) -> torch.Tensor:
+def _uniform(shape, generator, device, batched: bool,
+             part=None) -> torch.Tensor:
+    if part is not None and part[1] is not None and part[1].size > 1:
+        dim, shard = part
+        dim %= len(shape)
+        whole = list(shape)
+        whole[dim] *= shard.size
+        u = _uniform(whole, generator, device, batched)
+        return u.narrow(dim, shard.index * shape[dim], shape[dim])
     rows = batch_rows()
     if rows is None or not batched:
         return torch.rand(shape, generator=generator, device=device)
@@ -49,14 +57,15 @@ def _uniform(shape, generator, device, batched: bool) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            batched: bool = True) -> torch.Tensor:
+            batched: bool = True, part=None) -> torch.Tensor:
     """x dropped at `rate`. batched: dim 0 runs over the batch's rows
     (a multiple of them where rows are flattened batch-major); false for
-    a tensor shared by every row (a module's taps)."""
+    a tensor shared by every row (a module's taps). part: (dim, shard)
+    for x a model rank's slice along dim of a split activation."""
     if rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = _uniform(x.shape, generator, x.device, batched) < keep
+    mask = _uniform(x.shape, generator, x.device, batched, part) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -25,8 +25,13 @@ the source's note), which `dropout_keep` computes with the same integer
 steps in torch, so kernel and plain version drop the same slots. Every
 function takes `row0`, the batch's first row in a data-parallel run's
 global batch (`ops/dropout.py::row_offset`; 0 otherwise): b counts from
-it, so two ranks' halves drop the slots of one process's whole batch. The
-TPU's own bits cannot be reproduced; the plain versions therefore also
+it, so two ranks' halves drop the slots of one process's whole batch.
+Likewise `h0` and `heads_total`, a tensor-parallel rank's first head and
+the whole attention's head count (defaults 0 and num_heads): the hash
+keys a head by its global index, so a rank of heads [h0, h0 + H) drops
+exactly the single process's slots of those heads, as the reference's
+kernel keys its masks by global head. The TPU's own bits cannot be
+reproduced; the plain versions therefore also
 take an explicit `keep` mask (the CPU tests feed JAX's).
 
 Numerics of the plain versions follow the TPU kernel: fp32 scores,
@@ -44,7 +49,8 @@ import torch
 from news_image_caption_tpu_torch.ops import _build
 
 _TAIL_ARGTYPES = [_build.I] * 5 + [ctypes.c_uint, ctypes.c_float, _build.I,
-                                   _build.I, _build.I, _build.P]
+                                   _build.I, _build.I, _build.I, _build.I,
+                                   _build.P]
 _FWD_ARGTYPES = [_build.P] * 7 + _TAIL_ARGTYPES
 _BWD_ARGTYPES = [_build.P] * 11 + _TAIL_ARGTYPES
 ROWS = 64                   # query rows a block (16 a warp)
@@ -79,16 +85,21 @@ def dropout_threshold(p: float) -> int:
 
 
 def dropout_keep(seed: torch.Tensor, B: int, H: int, T: int, S: int,
-                 p: float, row0: int = 0) -> torch.Tensor:
+                 p: float, row0: int = 0, h0: int = 0,
+                 heads_total: Optional[int] = None) -> torch.Tensor:
     """The kernels' keep mask, bool [B, H, T, S], on seed's device, for
-    rows row0 .. row0 + B - 1 of the global batch.
+    rows row0 .. row0 + B - 1 of the global batch and heads h0 .. h0 +
+    H - 1 of `heads_total` (default H).
 
-    key = seed * 2654435761 + (b * H + h) (mod 2^32);
-    row = fmix32(key ^ fmix32(t + 0x9e3779b9)); bits = fmix32(row + s).
+    key = seed * 2654435761 + ((b + row0) * heads_total + h0 + h)
+    (mod 2^32); row = fmix32(key ^ fmix32(t + 0x9e3779b9)); bits =
+    fmix32(row + s).
     """
     dev = seed.device
-    bh = torch.arange(row0 * H, (row0 + B) * H, device=dev,
-                      dtype=torch.int64).view(B, H, 1, 1)
+    Ht = H if heads_total is None else heads_total
+    bh = (torch.arange(row0, row0 + B, device=dev,
+                       dtype=torch.int64).view(B, 1, 1, 1) * Ht + h0
+          + torch.arange(H, device=dev, dtype=torch.int64).view(1, H, 1, 1))
     key = (_mul32(seed.reshape(()).long() & _MASK32, 2654435761) + bh) & _MASK32
     t = torch.arange(T, device=dev, dtype=torch.int64).view(1, 1, T, 1)
     row = _fmix32(key ^ _fmix32((t + 0x9E3779B9) & _MASK32))
@@ -96,13 +107,13 @@ def dropout_keep(seed: torch.Tensor, B: int, H: int, T: int, S: int,
     return _fmix32((row + s) & _MASK32) >= dropout_threshold(p)
 
 
-def _scale_mask(seed, B, H, T, S, p, keep, row0):
+def _scale_mask(seed, B, H, T, S, p, keep, row0, h0=0, heads_total=None):
     """keep / (1 - p) as fp32 [B, H, T, S], or None without dropout."""
     if p == 0.0:
         _build.require(keep is None, "flash attention: keep given with p = 0")
         return None
     if keep is None:
-        keep = dropout_keep(seed, B, H, T, S, p, row0)
+        keep = dropout_keep(seed, B, H, T, S, p, row0, h0, heads_total)
     return keep.to(torch.float32) * (1.0 / (1.0 - p))
 
 
@@ -206,14 +217,17 @@ def flash_plan(B: int, T: int, S: int, num_heads: int, head_dim: int,
 def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
                               dropout_p: float = 0.0,
                               keep: Optional[torch.Tensor] = None,
-                              row0: int = 0):
+                              row0: int = 0, h0: int = 0,
+                              heads_total: Optional[int] = None):
     """(out [B, T, E] in q's dtype, lse [B, H, T] fp32) in plain
     PyTorch, differentiable in q, k and v.
 
     q [B, T, E] pre-scaled by head_dim**-0.5; k, v [B, S, E]; bias
     [B, S] fp32 (0 attendable, -1e9 padded); seed int32 [1]; keep an
     optional bool [B, H, T, S] mask in place of the generated one; row0
-    the batch's first global row.
+    the batch's first global row; h0 the first of the num_heads heads
+    among heads_total (a tensor-parallel rank's; default 0 of
+    num_heads).
     """
     B, T, E = q.shape
     S, H = k.shape[1], num_heads
@@ -224,7 +238,8 @@ def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
     denom = e.sum(dim=-1, keepdim=True)
     lse = (mx + torch.log(denom))[..., 0]
     probs = e / denom
-    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep, row0)
+    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep, row0, h0,
+                        heads_total)
     if scale is not None:
         probs = probs * scale
     probs = probs.to(v.dtype).float()
@@ -235,7 +250,8 @@ def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,
 def flash_attention_bwd_plain(q, k, v, bias, seed, lse, g, num_heads: int,
                               dropout_p: float = 0.0,
                               keep: Optional[torch.Tensor] = None,
-                              row0: int = 0):
+                              row0: int = 0, h0: int = 0,
+                              heads_total: Optional[int] = None):
     """(dq, dk, dv) of `flash_attention_fwd_plain` for the output
     gradient g [B, T, E], from the saved lse, as the TPU kernel forms
     them (see the module note)."""
@@ -244,7 +260,8 @@ def flash_attention_bwd_plain(q, k, v, bias, seed, lse, g, num_heads: int,
     qh, kh, vh, gh = (_heads(x, H) for x in (q, k, v, g))
     s = torch.einsum("bthd,bshd->bhts", qh, kh) + bias.float()[:, None, None, :]
     probs = torch.exp(s - lse[..., None])
-    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep, row0)
+    scale = _scale_mask(seed, B, H, T, S, dropout_p, keep, row0, h0,
+                        heads_total)
     dropped = probs if scale is None else probs * scale
     dv = torch.einsum("bhts,bthd->bshd", dropped.to(v.dtype).float(), gh)
     dp = torch.einsum("bthd,bshd->bhts", gh, vh)
@@ -261,11 +278,13 @@ def flash_attention_bwd_plain(q, k, v, bias, seed, lse, g, num_heads: int,
 def flash_cross_attention_plain(q, k, v, bias, seed, num_heads: int,
                                 dropout_p: float = 0.0,
                                 keep: Optional[torch.Tensor] = None,
-                                row0: int = 0):
+                                row0: int = 0, h0: int = 0,
+                                heads_total: Optional[int] = None):
     """out of `flash_attention_fwd_plain`; autograd through it is the
     reference gradient of `flash_cross_attention`."""
     return flash_attention_fwd_plain(q, k, v, bias, seed, num_heads,
-                                     dropout_p, keep, row0)[0]
+                                     dropout_p, keep, row0, h0,
+                                     heads_total)[0]
 
 
 def _dispatch(name: str, q: torch.Tensor, keep) -> bool:
@@ -283,15 +302,19 @@ def _dispatch(name: str, q: torch.Tensor, keep) -> bool:
 def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
                         dropout_p: float = 0.0,
                         keep: Optional[torch.Tensor] = None,
-                        row0: int = 0):
+                        row0: int = 0, h0: int = 0,
+                        heads_total: Optional[int] = None):
     """(out, lse); see `flash_attention_fwd_plain`. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises."""
     if _dispatch("flash_attention_fwd", q, keep):
         return flash_attention_fwd_plain(q, k, v, bias, seed, num_heads,
-                                         dropout_p, keep, row0)
+                                         dropout_p, keep, row0, h0,
+                                         heads_total)
     B, T, E = q.shape
     S = k.shape[1]
     plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_fwd")
+    heads_total = _heads_total(num_heads, h0, heads_total,
+                               "flash_attention_fwd")
     out = torch.empty_like(q)
     lse = torch.empty(B, num_heads, T, device=q.device, dtype=torch.float32)
     fn = _build.function("nic_flash_fwd", _FWD_ARGTYPES)
@@ -299,7 +322,8 @@ def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
                     seed.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, S,
                     E, num_heads, dropout_threshold(dropout_p),
                     1.0 / (1.0 - dropout_p), plan.fwd.stages,
-                    plan.fwd.smem_bytes, row0, _build.stream_of(q)),
+                    plan.fwd.smem_bytes, row0, h0, heads_total,
+                    _build.stream_of(q)),
                  "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -308,15 +332,19 @@ def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
 def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
                         dropout_p: float = 0.0,
                         keep: Optional[torch.Tensor] = None,
-                        row0: int = 0):
+                        row0: int = 0, h0: int = 0,
+                        heads_total: Optional[int] = None):
     """(dq, dk, dv); see `flash_attention_bwd_plain`. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises."""
     if _dispatch("flash_attention_bwd", q, keep):
         return flash_attention_bwd_plain(q, k, v, bias, seed, lse, g,
-                                         num_heads, dropout_p, keep, row0)
+                                         num_heads, dropout_p, keep, row0,
+                                         h0, heads_total)
     B, T, E = q.shape
     S = k.shape[1]
     plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_bwd")
+    heads_total = _heads_total(num_heads, h0, heads_total,
+                               "flash_attention_bwd")
     _build.require(g.shape == q.shape and g.dtype == q.dtype
                    and g.is_contiguous() and g.device == q.device
                    and g.data_ptr() % 16 == 0
@@ -337,7 +365,8 @@ def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
                     None if parts is None else parts.data_ptr(), B, T, S, E,
                     num_heads, dropout_threshold(dropout_p),
                     1.0 / (1.0 - dropout_p), plan.bwd.stages,
-                    plan.bwd.smem_bytes, row0, _build.stream_of(q)),
+                    plan.bwd.smem_bytes, row0, h0, heads_total,
+                    _build.stream_of(q)),
                  "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -345,6 +374,17 @@ def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+
+
+def _heads_total(num_heads: int, h0: int, heads_total: Optional[int],
+                 name: str) -> int:
+    """heads_total (default num_heads), checked to hold heads [h0, h0 +
+    num_heads)."""
+    total = num_heads if heads_total is None else heads_total
+    _build.require(0 <= h0 and h0 + num_heads <= total,
+                   f"{name}: heads [{h0}, {h0 + num_heads}) are not among"
+                   f" {total}")
+    return total
 
 
 def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
@@ -374,29 +414,35 @@ def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
 class _FlashCrossAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep, row0):
+    def forward(ctx, q, k, v, bias, seed, num_heads, dropout_p, keep, row0,
+                h0, heads_total):
         out, lse = flash_attention_fwd(q, k, v, bias, seed, num_heads,
-                                       dropout_p, keep, row0)
+                                       dropout_p, keep, row0, h0,
+                                       heads_total)
         ctx.save_for_backward(q, k, v, bias, seed, lse, keep)
-        ctx.num_heads, ctx.dropout_p, ctx.row0 = num_heads, dropout_p, row0
+        ctx.args = (num_heads, dropout_p, row0, h0, heads_total)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, seed, lse, keep = ctx.saved_tensors
+        num_heads, dropout_p, row0, h0, heads_total = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, bias, seed, lse,
-                                         g.contiguous(), ctx.num_heads,
-                                         ctx.dropout_p, keep, ctx.row0)
-        return dq, dk, dv, None, None, None, None, None, None
+                                         g.contiguous(), num_heads,
+                                         dropout_p, keep, row0, h0,
+                                         heads_total)
+        return (dq, dk, dv) + (None,) * 8
 
 
 def flash_cross_attention(q, k, v, bias, seed, num_heads: int,
                           dropout_p: float = 0.0,
                           keep: Optional[torch.Tensor] = None,
-                          row0: int = 0):
+                          row0: int = 0, h0: int = 0,
+                          heads_total: Optional[int] = None):
     """out [B, T, E] = dropout(softmax(q kᵀ + bias)) v per head, with
     kernel forward and backward on CUDA tensors; differentiable in q, k
     and v (bias and seed get no gradient). Arguments as in
     `flash_attention_fwd_plain`."""
     return _FlashCrossAttention.apply(q, k, v, bias, seed, num_heads,
-                                      dropout_p, keep, row0)
+                                      dropout_p, keep, row0, h0,
+                                      heads_total)

@@ -13,6 +13,23 @@ parameters of an fp32 model), its weight-norm scale is rounded at the
 parameters' dtype as the reference computes it: the column sums of
 squares in fp32 rounded once, the square root rounded, the quotient
 rounded.
+
+Split forms (tensor parallelism, `parallel/partition.py`): a linear
+whose kernel the partition rules split is `split` "column" (the output
+dim: each rank holds its columns of the kernel, the bias and a weight
+norm's scale) or "row" (the input dim: each rank holds its rows, the
+bias and scale whole). `local(x)` is the form a split-aware module
+chains: a column linear takes the replicated x through `copy_in` and
+returns its columns of y, a row linear takes the rank's columns of its
+input and returns the whole y, the ranks' partial products summed by
+`reduce_out` before the scale and the bias, which are added once. A
+weight norm folds over the input dim, so a row linear's norm ||v||
+is the square root of the sum over the model ranks of each rank's sum
+of squares, in the forward, its backward and the decode fold
+(`folded`) alike. `forward(x)` stays whole in and whole out for a module
+that chains no split forms: a column linear gathers its output, a row
+linear takes its rank's columns of a whole input. Unsplit, or at a
+model axis of one, both are the plain forward.
 """
 
 from __future__ import annotations
@@ -22,6 +39,11 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from news_image_caption_tpu_torch.parallel.collectives import (copy_in,
+                                                               gather_out,
+                                                               reduce_out)
+from news_image_caption_tpu_torch.parallel.partition import shard_of
 
 
 def positionwise(fn, x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +64,42 @@ def initializes(device) -> bool:
     return torch.device(device).type != "meta"
 
 
-class XavierLinear(nn.Module):
+class SplitLinear(nn.Module):
+    """The split forms of a linear y = x @ kernel (+ bias); `_product`
+    is the product with the partial sums' reduction in place."""
+
+    split = None        # "column", "row" or None (`shard_params`)
+
+    def _product(self, x: torch.Tensor, reduce=None) -> torch.Tensor:
+        y = x @ self.kernel.to(x.dtype)
+        if reduce is not None:
+            y = reduce(y)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """The split-aware form: a column linear's columns of y from a
+        replicated x, a row linear's whole y from its rank's columns of
+        x (see the module note); the plain forward unsplit."""
+        if self.split is None:
+            return self._product(x)
+        shard = shard_of(self)
+        if self.split == "column":
+            return self._product(copy_in(x, shard))
+        return self._product(x, lambda y: reduce_out(y, shard))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = None if self.split is None else shard_of(self)
+        if shard is None or shard.size == 1:
+            return self.local(x)
+        if self.split == "column":
+            return gather_out(self.local(x), shard, -1)
+        n = self.kernel.shape[0]
+        return self.local(copy_in(x, shard)[..., shard.part(n)])
+
+
+class XavierLinear(SplitLinear):
     """y = x @ kernel + bias, xavier-uniform init."""
 
     def __init__(self, in_features: int, features: int, *, device, dtype,
@@ -58,14 +115,8 @@ class XavierLinear(nn.Module):
                 if self.bias is not None:
                     self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel.to(x.dtype)
-        if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
-        return y
 
-
-class Dense(nn.Module):
+class Dense(SplitLinear):
     """flax `nn.Dense`: y = x @ kernel + bias. The kernel is drawn
     normal with variance 1 / in_features, cut at two deviations (flax's
     lecun-normal), or uniform in ±uniform_scale; the bias is zero."""
@@ -89,14 +140,8 @@ class Dense(nn.Module):
                 if self.bias is not None:
                     self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel.to(x.dtype)
-        if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
-        return y
 
-
-class GehringLinear(nn.Module):
+class GehringLinear(SplitLinear):
     """Linear with weight normalization w = scale * kernel / ||kernel||
     (norm per output feature), fan-in normal init with scale = ||kernel||.
 
@@ -132,6 +177,8 @@ class GehringLinear(nn.Module):
         rounded at the parameters' dtype where that is narrower."""
         v = self.kernel.float()
         sumsq = torch.sum(v * v, dim=0)
+        if self.split == "row":
+            sumsq = reduce_out(sumsq, shard_of(self))
         pdtype = self.kernel.dtype
         if torch.finfo(pdtype).bits >= torch.finfo(dtype).bits:
             return self.scale.float() / torch.clamp(torch.sqrt(sumsq),
@@ -140,15 +187,17 @@ class GehringLinear(nn.Module):
         return (self.scale.float() / torch.clamp(norm, min=1e-12)
                 ).to(pdtype).float()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _product(self, x: torch.Tensor, reduce=None) -> torch.Tensor:
         y = x @ self.kernel.to(x.dtype)
+        if reduce is not None:
+            y = reduce(y)
         if self.scale is not None:
             y = y * self._norm_scale(x.dtype).to(x.dtype)
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
     def folded(self, dtype: torch.dtype):
         """(kernel with the weight norm folded in, bias or None), in
-        `dtype`."""
+        `dtype`: split, this rank's slice of the whole fold."""
         kernel = (self.kernel.to(dtype) if self.scale is None
                   else (self.kernel.float()
                         * self._norm_scale(dtype)[None, :]).to(dtype))

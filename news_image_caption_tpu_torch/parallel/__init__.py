@@ -18,13 +18,22 @@ the collectives are explicit:
   and keeps the rank's rows (`collectives.global_rows`);
 - `context`: ring attention over sequence slices (`ring`, `sequence`);
 - `pipe`: the GPipe schedule over layer stages (`pipe`);
-- `model`: replicated. Tensor parallelism (`partition.py` in the
-  reference) is ROADMAP Queue 1 item 11b.
+- `model`: tensor parallelism under the reference's partition rules
+  (`partition`): `shard_params` keeps each rank's slice of the
+  attentions' heads, the FFN's columns and rows and the adaptive band
+  tables' rows, and the modules run their split forms with explicit
+  collectives (`collectives.copy_in`, `reduce_out`, `vocab_gather`),
+  in training and in every decode engine; `gather_params` puts whole
+  tensors back for a checkpoint. A dim the axis does not divide raises,
+  as in the reference.
 """
 
 from news_image_caption_tpu_torch.parallel.distributed import (
     initialize, place_local, shard_iterator)
 from news_image_caption_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from news_image_caption_tpu_torch.parallel.partition import (gather_params,
+                                                             shard_params,
+                                                             spec_for_name)
 from news_image_caption_tpu_torch.parallel.pipe import (pipeline_apply,
                                                         stack_layers)
 from news_image_caption_tpu_torch.parallel.ring import ring_attention
@@ -38,4 +47,7 @@ __all__ = [
     "initialize",
     "shard_iterator",
     "place_local",
+    "shard_params",
+    "spec_for_name",
+    "gather_params",
 ]

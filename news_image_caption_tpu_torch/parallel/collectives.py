@@ -32,6 +32,17 @@ so the data ranks' gradients add up to the global loss's; outside
 `global_rows`, or without a group, the tensors come back as they are.
 `GradientBuffer` holds a step's fp32 gradients as views of one flat
 buffer, which the data ranks sum with one all-reduce in place.
+
+The `model` axis (tensor parallelism, `parallel/partition.py`) takes a
+`ModelShard` rather than the mesh: `copy_in` (identity forward, psum
+backward) where a replicated activation enters a rank's split
+computation, `reduce_out` (psum forward, identity backward) where the
+ranks' partial sums leave it, `gather_out` for a split output that must
+be whole, `axis_max` and `vocab_gather` for the split logsumexps and the
+top-k merge, and `whole_norms` for the per-tensor and global gradient
+norms of split tensors. With those in place a replicated
+parameter's gradient comes out the same on every model rank, so the
+train step sums gradients over the `data` axis alone.
 """
 
 from __future__ import annotations
@@ -153,6 +164,81 @@ def all_gather(x: torch.Tensor, mesh, axis_name: str, dim: int
         return x
     return _AllGather.apply(axis_group(mesh, axis_name), n,
                             axis_index(mesh, axis_name), dim, x)
+
+
+class _CopyIn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
+def copy_in(x: torch.Tensor, shard) -> torch.Tensor:
+    """x entering the model ranks' split computation: the identity, its
+    gradient summed over the `model` axis (each rank's part of the
+    gradient of a replicated input). `shard`: a `parallel/partition.py::
+    ModelShard`, or None."""
+    if shard is None or shard.size == 1:
+        return x
+    return _CopyIn.apply(shard.group, x)
+
+
+def reduce_out(x: torch.Tensor, shard) -> torch.Tensor:
+    """The sum of the model ranks' partial x, replicated: psum forward,
+    identity backward (the replicated output's gradient is each rank's
+    part's)."""
+    if shard is None or shard.size == 1:
+        return x
+    return _PSum.apply(shard.group, x)
+
+
+def gather_out(x: torch.Tensor, shard, dim: int) -> torch.Tensor:
+    """The model ranks' slices of x concatenated along `dim` in rank
+    order, replicated; its backward keeps the rank's slice."""
+    if shard is None or shard.size == 1:
+        return x
+    return _AllGather.apply(shard.group, shard.size, shard.index, dim, x)
+
+
+def axis_max(x: torch.Tensor, shard) -> torch.Tensor:
+    """The elementwise max of x over the model ranks (no gradient)."""
+    if shard is None or shard.size == 1:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=shard.group)
+    return out
+
+
+def vocab_gather(x: torch.Tensor, shard) -> torch.Tensor:
+    """[size, *x.shape]: every model rank's x in rank order (no
+    gradient): the top-k merge's per-rank candidates and logsumexps."""
+    if shard is None or shard.size == 1:
+        return x[None]
+    parts = [torch.empty_like(x) for _ in range(shard.size)]
+    dist.all_gather(parts, x.contiguous(), group=shard.group)
+    return torch.stack(parts)
+
+
+def whole_norms(norms: torch.Tensor, split=None) -> torch.Tensor:
+    """Per-tensor norms [n] made whole. split: None, or (flags, group),
+    flags saying for each of the n tensors whether the model ranks of
+    `group` split it: a split tensor's norm is the square root of the
+    sum over the ranks of their squared norms, a replicated one's its
+    own."""
+    if split is None or not any(split[0]):
+        return norms
+    flags, group = split
+    mask = torch.tensor(list(flags), device=norms.device)
+    part = torch.where(mask, norms.float() * norms.float(), 0.0)
+    dist.all_reduce(part, group=group)
+    return torch.where(mask, torch.sqrt(part), norms.float()).to(norms.dtype)
 
 
 ALIGN_ELEMS = 128           # 512 bytes: a fresh allocation's alignment

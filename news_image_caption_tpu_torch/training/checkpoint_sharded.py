@@ -18,7 +18,11 @@ sharded store's: latest / best / keep-N, `load(target, which)`,
 finalizes the meta entry only after the write, in submission order.
 Best is the pinned step, not a copy: its directory is exempt from
 retention. The bookkeeping runs on every rank after a barrier; rank 0
-alone writes `meta.json` and removes directories.
+alone writes `meta.json` and removes directories. A state split over
+model ranks (tensor parallelism) is written as its slices, each a
+`DTensor` with its offsets (`TrainState.sharded_state_dict`), each slice
+once; a load reads whole tensors from them, in one process too, and a
+split state takes its slices of those.
 
 DCP's collectives run on the writer's thread, so the store keeps a gloo
 group of its own (made collectively in the constructor), apart from the
@@ -83,7 +87,9 @@ class ShardedCheckpointStore(CheckpointStore):
         import torch.distributed.checkpoint as dcp
         self.wait()
         t = time.perf_counter()
-        host = to_host(_tree_of(state))
+        host = to_host(state.sharded_state_dict()
+                       if hasattr(state, "sharded_state_dict")
+                       else _tree_of(state))
         record = {"step": step, "snapshot_s": time.perf_counter() - t}
         with self._lock:
             self.timings.append(record)

@@ -30,6 +30,13 @@ in fp32 and rounds it once on store, and the update divides the stored
 mu, widened back to fp32, by sqrt(nu) + eps; the second moments stay
 fp32.
 
+Under tensor parallelism (`parallel/partition.py`) a tensor the model
+ranks split is clipped by the norm of the whole tensor, the square root
+of the sum over the ranks of their slices' squared norms; a replicated
+tensor keeps its own (`parallel/collectives.py::whole_norms`). The
+train step says which are split: `apply(..., split=(flags, group))`,
+one flag for each tensor it hands the optimizer.
+
 `accumulate_gradients(tx, every)` is optax's `MultiSteps` (the
 reference's `accumulate_gradients`): the mean gradient of `every`
 micro-batches reaches `tx` once a window.
@@ -54,6 +61,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from news_image_caption_tpu_torch.parallel.collectives import whole_norms
 from news_image_caption_tpu_torch.training.checkpoint import restore
 
 
@@ -124,29 +132,37 @@ class BertAdam:
             nu=[torch.zeros_like(p) for p in master])
 
     def apply(self, grads: List[torch.Tensor], state: BertAdamState,
-              master: List[torch.Tensor]) -> None:
+              master: List[torch.Tensor], split=None) -> None:
         """One update from fp32 grads (clipped in place): fp32 masters
-        at once, a narrower parameter by `_apply_in_dtype`."""
+        at once, a narrower parameter by `_apply_in_dtype`. split: None,
+        or (flags, group) with one flag a tensor, true where the model
+        ranks of `group` split it (its clip takes the whole norm)."""
         lr = self.lr_schedule(state.count)
+
+        def pick(at):
+            return None if split is None else ([split[0][i] for i in at],
+                                               split[1])
+
         wide = []
         for i, p in enumerate(master):
             if p.dtype == torch.float32:
                 wide.append(i)
             else:
                 self._apply_in_dtype(grads[i], state.mu[i], state.nu[i], p,
-                                     lr)
+                                     lr, pick([i]))
         if wide:
             self._apply_fp32([grads[i] for i in wide],
                              [state.mu[i] for i in wide],
                              [state.nu[i] for i in wide],
-                             [master[i] for i in wide], lr)
+                             [master[i] for i in wide], lr, pick(wide))
         state.count += 1
 
     def _apply_fp32(self, grads: List[torch.Tensor], mus: List[torch.Tensor],
                     nus: List[torch.Tensor], master: List[torch.Tensor],
-                    lr: float) -> None:
+                    lr: float, split=None) -> None:
         if self.max_grad_norm is not None:
-            norms = torch.stack(torch._foreach_norm(grads))
+            norms = whole_norms(torch.stack(torch._foreach_norm(grads)),
+                                split)
             scale = torch.clamp(self.max_grad_norm
                                 / torch.clamp(norms, min=1e-12), max=1.0)
             torch._foreach_mul_(grads, list(scale.unbind()))
@@ -173,12 +189,14 @@ class BertAdam:
         torch._foreach_add_(master, updates, alpha=-lr)
 
     def _apply_in_dtype(self, g: torch.Tensor, mu: torch.Tensor,
-                        nu: torch.Tensor, p: torch.Tensor, lr: float) -> None:
+                        nu: torch.Tensor, p: torch.Tensor, lr: float,
+                        split=None) -> None:
         """The update of a parameter stored narrower than fp32 (bf16
         parameters under the fp32 precision): as optax computes it on
         such a leaf, every operation in the parameter's dtype with the
         constants (b1, b2, eps, the decay, the rate) rounded to it; the
-        clip's norm in fp32, its scale rounded."""
+        clip's norm in fp32, its scale rounded; split: its one flag and
+        the group, as `apply`'s."""
         dt = p.dtype
 
         def c(x):
@@ -186,7 +204,8 @@ class BertAdam:
 
         g = g.to(dt)
         if self.max_grad_norm is not None:
-            norm = torch.linalg.vector_norm(g.float())
+            norm = whole_norms(torch.linalg.vector_norm(g.float())[None],
+                               split)[0]
             g = g * torch.clamp(self.max_grad_norm
                                 / torch.clamp(norm, min=1e-12), max=1.0).to(dt)
         mu.copy_(mu * c(self.b1) + g * c(1.0 - self.b1))
@@ -236,7 +255,8 @@ class ScheduledAdam:
                              nu=[torch.zeros_like(p) for p in master])
 
     def apply(self, grads: List[torch.Tensor], state: BertAdamState,
-              master: List[torch.Tensor]) -> None:
+              master: List[torch.Tensor], split=None) -> None:
+        """split is `BertAdam.apply`'s; no norm is taken here."""
         lr = self.lr_schedule(state.count)
         t = np.float32(state.count + 1)
         f32 = np.float32
@@ -384,14 +404,15 @@ class MultiSteps:
                        for p in master])
 
     def apply(self, grads: List[torch.Tensor], state: MultiStepsState,
-              master: List[torch.Tensor]) -> None:
+              master: List[torch.Tensor], split=None) -> None:
         delta = torch._foreach_sub(grads, state.acc_grads)
         torch._foreach_div_(delta, float(state.mini_step + 1))
         torch._foreach_add_(state.acc_grads, delta)
         if state.mini_step < self.every - 1:
             state.mini_step += 1
             return
-        self.inner.apply(state.acc_grads, state.inner_opt_state, master)
+        self.inner.apply(state.acc_grads, state.inner_opt_state, master,
+                         split)
         torch._foreach_zero_(state.acc_grads)
         state.mini_step = 0
         state.gradient_step += 1

@@ -62,6 +62,19 @@ the global counts, so the ranks' gradients add up to the global loss's.
 With one rank every reduction is the identity and the step computes the
 single process's values bit for bit.
 
+Over a mesh's `model` axis (tensor parallelism) the model holds its
+rank's slices (`parallel/partition.py::shard_params`) and the state
+records them (`TrainState.split`). The collectives inside the model
+give a replicated parameter the same gradient on every model rank and
+a split one its slice's, so the gradients are still summed over the
+`data` axis alone; the per-tensor clip and the global gradient norm
+take each split tensor's whole norm (`parallel/collectives.py::
+whole_norms`; the optimizer is told which tensors are split). `state_dict()` gathers the split tensors whole (every
+model rank calls it), so a single-file checkpoint holds the one-process
+layout; `load_state_dict` takes the rank's slices of whole tensors;
+`sharded_state_dict()` keeps the slices, with their offsets, for the
+sharded store.
+
 Each phase runs inside a `torch.profiler.record_function` span
 (`train_step.forward`, `.backward`, `.guard`, `.optimizer`), so a
 profile attributes host and device time to them; with no profiler
@@ -80,8 +93,12 @@ from torch import nn
 from torch.profiler import record_function
 
 from news_image_caption_tpu_torch.parallel.collectives import (
-    GradientBuffer, data_parallel)
+    GradientBuffer, data_parallel, whole_norms)
 from news_image_caption_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
+from news_image_caption_tpu_torch.parallel.partition import (gather_params,
+                                                             shard_of,
+                                                             sharded_tensors,
+                                                             slice_params)
 from news_image_caption_tpu_torch.training.checkpoint import restore
 from news_image_caption_tpu_torch.training.optim import trainable_names
 
@@ -95,6 +112,8 @@ class TrainState:
     in_update: bool = False
     # The parameters the optimizer updates, in its order (None: all).
     trainable: Optional[List[str]] = None
+    # ({name: split dim}, ModelShard) of a model split over model ranks.
+    split: Optional[Tuple[Dict[str, int], Any]] = None
 
     @property
     def o2(self) -> bool:
@@ -105,8 +124,7 @@ class TrainState:
         return list(self.params) if self.trainable is None \
             else self.trainable
 
-    def state_dict(self) -> Dict[str, Any]:
-        """{"step", "params", "opt_state"}: ints and named tensors."""
+    def _local_state_dict(self) -> Dict[str, Any]:
         names = self.opt_names
         if self.o2:
             opt = {"master": dict(self.opt_state["master"]),
@@ -116,10 +134,27 @@ class TrainState:
         return {"step": self.step, "params": dict(self.params),
                 "opt_state": opt}
 
+    def state_dict(self) -> Dict[str, Any]:
+        """{"step", "params", "opt_state"}: ints and named tensors, the
+        split ones gathered whole (a collective over the model ranks)."""
+        tree = self._local_state_dict()
+        return tree if self.split is None else gather_params(tree,
+                                                             *self.split)
+
+    def sharded_state_dict(self) -> Dict[str, Any]:
+        """`state_dict` with the split tensors this rank's slices, as
+        `DTensor`s that carry their offsets."""
+        tree = self._local_state_dict()
+        return tree if self.split is None else sharded_tensors(tree,
+                                                               *self.split)
+
     def load_state_dict(self, tree: Dict[str, Any]) -> None:
-        """Copy a checkpoint of the same precision into this state."""
+        """Copy a checkpoint of the same precision into this state (whole
+        tensors; a split state takes its slices)."""
         if set(tree) != {"step", "params", "opt_state"}:
             raise ValueError(f"state: checkpoint keys {sorted(tree)}")
+        if self.split is not None:
+            tree = slice_params(tree, *self.split)
         names = self.opt_names
         self.step = restore(self.step, tree["step"], "step")
         restore(self.params, tree["params"], "params")
@@ -152,6 +187,16 @@ def _trainable(tx, params: Dict[str, torch.Tensor]) -> Optional[List[str]]:
     return None if len(names) == len(params) else names
 
 
+def _split(model: nn.Module):
+    """({name: split dim}, ModelShard) where `shard_params` split the
+    model over more than one model rank, else None."""
+    shard = shard_of(model)
+    splits = getattr(model, "model_splits", None)
+    if shard is None or shard.size == 1 or not splits:
+        return None
+    return dict(splits), shard
+
+
 def create_train_state(model: nn.Module, tx,
                        compute: Optional[nn.Module] = None) -> TrainState:
     """State over `model`'s fp32 parameters. With `compute` (the same
@@ -165,7 +210,7 @@ def create_train_state(model: nn.Module, tx,
                                           trainable or params]),
                        compute=(None if compute is None
                                 else dict(compute.named_parameters())),
-                       trainable=trainable)
+                       trainable=trainable, split=_split(model))
     write_compute(state)
     return state
 
@@ -185,7 +230,7 @@ def create_o2_train_state(model: nn.Module, tx,
     return TrainState(step=0, params=params,
                       opt_state={"master": fp32, "inner": tx.init(
                           [fp32[n] for n in trainable or fp32])},
-                      trainable=trainable)
+                      trainable=trainable, split=_split(model))
 
 
 def cast_floats(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
@@ -204,16 +249,29 @@ def _update(state: TrainState, tx, grads) -> None:
     """The optimizer's in-place update of `state` from fp32 grads."""
     state.in_update = True
     names = state.opt_names
+    # An unsplit state calls `apply(grads, state, master)` as any
+    # optimizer takes it; a split one adds which tensors are split.
+    split = split_flags(state)
+    kw = {} if split is None else {"split": split}
     with record_function("train_step.optimizer"), torch.no_grad():
         if state.o2:
             master = [state.opt_state["master"][n] for n in names]
-            tx.apply(grads, state.opt_state["inner"], master)
+            tx.apply(grads, state.opt_state["inner"], master, **kw)
             torch._foreach_copy_([state.params[n] for n in names], master)
         else:
             tx.apply(grads, state.opt_state,
-                     [state.params[n] for n in names])
+                     [state.params[n] for n in names], **kw)
             write_compute(state, names)
     state.in_update = False
+
+
+def split_flags(state: TrainState):
+    """(flags, group): for each tensor the optimizer is handed, whether
+    the model ranks of `group` split it; None for an unsplit state."""
+    if state.split is None:
+        return None
+    splits, shard = state.split
+    return [n in splits for n in state.opt_names], shard.group
 
 
 def global_batch(mesh, batch: Dict[str, Any]):
@@ -263,8 +321,8 @@ def make_train_step(loss_fn: Callable, tx,
                 buffers[0].all_reduce(axis_group(mesh, DATA_AXIS))
             for p in model_params:
                 p.grad = None
-            grad_norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            grad_norm = torch.linalg.vector_norm(whole_norms(
+                torch.stack(torch._foreach_norm(grads)), split_flags(state)))
         good = True
         if guard_nonfinite:
             with record_function("train_step.guard"):

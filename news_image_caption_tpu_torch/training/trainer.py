@@ -31,7 +31,9 @@ a mesh (`Trainer(..., mesh=)`) the steps are data-parallel
 (`training/train_step.py`): every rank runs the loop on its rows, rank 0
 alone writes `metrics.jsonl`, TensorBoard and the profile, every rank
 takes part in a sharded save (the single-file store is written by rank 0
-alone), and a SIGTERM on any rank stops every rank at the same step.
+alone, from the whole tensors every model rank gathers where the model
+is split over a `model` axis), and a SIGTERM on any rank stops every
+rank at the same step.
 """
 
 from __future__ import annotations
@@ -313,10 +315,8 @@ class Trainer:
                 self.logger.warning(
                     "preemption signal %s: checkpointing at step %d and "
                     "exiting cleanly", guard.signum, state.step)
-                if self.saves:
-                    self.store.save(state, state.step,
-                                    {"epoch": epoch, "preempted": True},
-                                    blocking=True)
+                self._save(state, {"epoch": epoch, "preempted": True},
+                           blocking=True)
                 self.epoch_times.append((t_epoch, time.perf_counter()))
                 return state
             val_metrics: Dict[str, float] = {}
@@ -330,10 +330,8 @@ class Trainer:
                                   for k, v in val_metrics.items()],
                                  force=True)
             # Async: the write overlaps the next epoch.
-            if self.saves:
-                self.store.save(state, state.step,
-                                {"epoch": epoch + 1, **val_metrics},
-                                blocking=False)
+            self._save(state, {"epoch": epoch + 1, **val_metrics},
+                       blocking=False)
             self.epoch_times.append((t_epoch, time.perf_counter()))
             if cfg.patience is not None and val_metrics:
                 val = val_metrics.get(cfg.validation_metric)
@@ -350,6 +348,19 @@ class Trainer:
                             cfg.validation_metric, cfg.patience)
                         break
         return state
+
+    def _save(self, state: TrainState, metrics: Dict[str, Any],
+              blocking: bool) -> None:
+        """Checkpoint the state at its step. A state split over model
+        ranks is gathered whole on every rank for the single-file store
+        (a collective), which rank 0 writes; the sharded store takes
+        each rank's slices (`TrainState.sharded_state_dict`)."""
+        tree = state
+        if state.split is not None and \
+                self.config.checkpoint_format != "sharded":
+            tree = state.state_dict()
+        if self.saves:
+            self.store.save(tree, state.step, metrics, blocking=blocking)
 
     def _preempted(self, guard: PreemptionHandler) -> bool:
         """Whether SIGTERM reached this rank, or with several ranks any

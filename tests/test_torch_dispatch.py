@@ -21,6 +21,7 @@ from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_cross_attention_int8_plain, decode_cross_attention_plain)
 from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
     decode_conv_block, decode_conv_block_plain, decode_ffn_block,
+    decode_ffn_block_partial, decode_ffn_block_partial_plain,
     decode_ffn_block_plain, pack_taps)
 from news_image_caption_tpu_torch.ops.dynamic_conv import (  # noqa: E402
     dynamic_conv, dynamic_conv_plain, dynamic_conv_tolerance)
@@ -30,7 +31,8 @@ from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
 
 KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
            "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd",
-           "dynamic_conv", "band_topk_lse_int8", "decode_cross_attention_int8"]
+           "dynamic_conv", "band_topk_lse_int8", "decode_cross_attention_int8",
+           "decode_ffn_block_partial"]
 
 
 @pytest.fixture
@@ -84,6 +86,10 @@ def _kernel_calls(device, dtype=torch.bfloat16):
             decode_ffn_block, decode_ffn_block_plain,
             (x, rn(C, F, scale=0.05), rn(F, scale=0.05),
              rn(F, C, scale=0.05), rn(C, scale=0.05))),
+        "decode_ffn_block_partial": (
+            decode_ffn_block_partial, decode_ffn_block_partial_plain,
+            (x, rn(C, F, scale=0.05), rn(F, scale=0.05),
+             rn(F, C, scale=0.05))),
         "band_topk_lse_int8": (
             band_topk_lse_int8, band_topk_lse_int8_plain,
             (x, i8(V, C), rn(V, scale=0.2).abs() / 127, 5, 250)),
@@ -319,6 +325,39 @@ def test_decode_ffn_shapes_on_card(cuda_device, N, C, F):
                                decode_ffn_block_plain(*args).float(),
                                atol=0.02, rtol=0.02)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,m", [(16, 2), (40, 4)])
+def test_decode_ffn_partial_mode_on_card(cuda_device, N, m):
+    """The partial mode over each of m ranks' F/m columns (tensor
+    parallelism): the fp32 sums added, then b2 and x, within one bf16
+    rounding of the whole kernel; at one rank, the whole kernel bit for
+    bit; its launches counted on `decode_ffn_block_partial`."""
+    from news_image_caption_tpu_torch.ops.decode_blocks import ffn_epilogue
+    g = torch.Generator().manual_seed(N)
+    C, F = 1024, 4096
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).bfloat16().to(
+            cuda_device)
+
+    x, w1, b1 = rn(N, C), rn(C, F, scale=C ** -0.5), rn(F, scale=0.05)
+    w2, b2 = rn(F, C, scale=F ** -0.5), rn(C, scale=0.05)
+    whole = decode_ffn_block(x, w1, b1, w2, b2)
+    before = decode_ffn_block_partial.launches
+    one = ffn_epilogue(decode_ffn_block_partial(x, w1, b1, w2), b2, x)
+    assert decode_ffn_block_partial.launches == before + -(-N // 16)
+    n = F // m
+    total = sum(decode_ffn_block_partial(
+        x, w1[:, r * n:(r + 1) * n].contiguous(),
+        b1[r * n:(r + 1) * n].contiguous(),
+        w2[r * n:(r + 1) * n].contiguous()) for r in range(m))
+    got = ffn_epilogue(total, b2, x)
+    torch.cuda.synchronize()
+    assert torch.equal(one, whole)
+    torch.testing.assert_close(got.float(), whole.float(), atol=0.02,
+                               rtol=0.02)
 
 
 @pytest.mark.cuda
@@ -713,6 +752,29 @@ def test_flash_dropout_mask_on_card(cuda_device, T, S, H):
     kept = (out.float() > 0).view(B, T, H, S).transpose(1, 2)
     assert torch.equal(kept, keep)
     assert 0.7 < keep.float().mean().item() < 0.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_flash_dropout_mask_with_head_offset_on_card(cuda_device, m):
+    """A tensor-parallel rank's heads [r H/m, (r + 1) H/m), launched with
+    h0 and the whole head count, drop exactly the whole launch's slots
+    of those heads (v = I, as above)."""
+    B, T, S, H, p = 2, 70, 64, 4, 0.25
+    g = torch.Generator().manual_seed(m)
+    n = H // m
+    seed = torch.tensor([9], dtype=torch.int32, device=cuda_device)
+    keep = dropout_keep(seed, B, H, T, S, p, row0=3)
+    for r in range(m):
+        q = (torch.randn(B, T, n * S, generator=g) * 0.3).bfloat16()
+        k = torch.randn(B, S, n * S, generator=g).bfloat16()
+        v = torch.eye(S).repeat(B, 1, n).bfloat16()
+        out, _ = flash_attention_fwd(
+            q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+            torch.zeros(B, S, device=cuda_device), seed, n, p, row0=3,
+            h0=r * n, heads_total=H)
+        kept = (out.float() > 0).view(B, T, n, S).transpose(1, 2)
+        assert torch.equal(kept, keep[:, r * n:(r + 1) * n])
 
 
 @pytest.mark.cuda

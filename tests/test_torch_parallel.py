@@ -22,8 +22,10 @@ Two spawns (`tests/torch_parallel_workers.py` holds the rank bodies):
 
 `shard_iterator` against JAX's on ragged and even streams, the bootstrap
 in one process (a no-op without a cluster, an explicit spec that cannot
-be joined raises), a world of one for a mesh in one process and
-`trainer.mesh.model > 1` raising before anything is built run here.
+be joined raises), a world of one for a mesh in one process and a
+`trainer.mesh` of two model ranks over a world of one raising the mesh's
+error before anything is built run here (tensor parallelism itself is
+`tests/test_torch_partition.py`'s).
 """
 
 import functools
@@ -219,13 +221,17 @@ def test_one_rank_mesh_train_equals_plain_bit_for_bit(tmp_path):
 
 
 def test_mesh_model_axis_raises_naming_11b(tmp_path, monkeypatch):
+    """`trainer.mesh.model > 1` trains since tensor parallelism was
+    ported (`tests/test_torch_partition.py`); over a world of one rank,
+    {data: 1, model: 2} raises the mesh's "does not cover" error before
+    anything is built, and leaves no process group behind."""
     def never(*a, **k):
         raise AssertionError("built before the mesh was checked")
 
     monkeypatch.setattr(cli, "training_model", never)
     over = {"trainer": {"serialization_dir": str(tmp_path),
                         "mesh": {"data": 1, "model": 2}}}
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         cli.main(["train", TINY, "--platform", "cpu", "-o",
                   json.dumps(over)])
     assert not dist.is_initialized()

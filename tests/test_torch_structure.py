@@ -160,7 +160,8 @@ new = {"training.checkpoint", "training.preemption", "data.loader",
        "models.facenet", "models.yolov3", "models.image_resize",
        "parallel", "parallel.mesh", "parallel.distributed",
        "parallel.collectives", "parallel.sequence", "parallel.ring",
-       "parallel.pipe", "training.checkpoint_sharded"}
+       "parallel.pipe", "parallel.partition",
+       "training.checkpoint_sharded"}
 assert {pkg.__name__ + "." + n for n in new} <= names, names
 from news_image_caption_tpu_torch.models.captioner import TransformerFlattened
 from news_image_caption_tpu_torch.generation.generator import GenerationConfig

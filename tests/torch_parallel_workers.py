@@ -311,3 +311,136 @@ def sharded_store(rank, world, payload):
             "params": {k: _np(v) for k, v in loaded["params"].items()},
             "files": sorted(os.listdir(Path(payload["save_dir"]) /
                                        f"ckpt_{payload['step']}"))}
+
+
+# -- tensor parallelism ---------------------------------------------------
+
+def _counting(calls: dict):
+    """torch.distributed's all_reduce and all_gather wrapped to count
+    the calls on each process group (restored by the returned undo)."""
+    import torch.distributed as dist
+    saved = {name: getattr(dist, name) for name in ("all_reduce",
+                                                    "all_gather")}
+
+    def wrap(name):
+        def call(*args, **kw):
+            group = kw.get("group")
+            calls[name, id(group)] = calls.get((name, id(group)), 0) + 1
+            return saved[name](*args, **kw)
+        return call
+
+    for name in saved:
+        setattr(dist, name, wrap(name))
+    return lambda: [setattr(dist, n, f) for n, f in saved.items()]
+
+
+def _tp_model(payload, mesh):
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    from news_image_caption_tpu_torch.parallel.partition import shard_params
+    model = TransformerFlattened(device="cpu", dtype=torch.float32,
+                                 **payload["dims"])
+    model.decoder.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                   payload["state"].items()})
+    model.decoder.eval()
+    shard_params(model.decoder, mesh)
+    return model
+
+
+def _tp_case(payload, cfg):
+    """Every decode and the loss of `payload`'s model split over the
+    mesh `cfg` on this rank: its rows of the batch (by data coordinate),
+    the replicated B=1 requests of the two engines."""
+    from news_image_caption_tpu_torch.generation.continuous import (
+        ContinuousBatcher, ContinuousBeamBatcher)
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from news_image_caption_tpu_torch.parallel.collectives import \
+        data_parallel
+    from news_image_caption_tpu_torch.parallel.distributed import (
+        local_rows, place_local)
+    from news_image_caption_tpu_torch.parallel.mesh import (MODEL_AXIS,
+                                                            axis_group)
+    mesh = make_mesh(MeshConfig(**cfg), "cpu")
+    model = _tp_model(payload, mesh)
+    batch = payload["batch"]
+    rows = local_rows(mesh, batch["caption_ids"].shape[0])
+    local = place_local(batch, mesh, "cpu")
+    ctx = {k: v for k, v in local.items() if k != "caption_ids"}
+    out = {"rows": (rows.start, rows.stop),
+           "fc1": tuple(model.decoder.layers[0].fc1.kernel.shape),
+           "heads": model.decoder.layers[0].image_attn.local_heads(),
+           "embed_2": tuple(model.decoder.embedder.adaptive.embed_2.shape)}
+    calls: dict = {}
+    undo = _counting(calls)
+    try:
+        with data_parallel(mesh, rows.stop - rows.start):
+            loss, _ = model.loss_fn(local)
+    finally:
+        undo()
+    model_group = id(axis_group(mesh, MODEL_AXIS))
+    out["model_collectives"] = sum(n for (_, g), n in calls.items()
+                                   if g == model_group)
+    out["loss"] = float(loss.detach())
+    greedy = GenerationConfig(max_len=10, sampling_topk=1)
+    toks, lps = model.generate(ctx, greedy)
+    out["greedy"] = (_np(toks), _np(lps))
+    toks, scores = model.generate_beam(ctx, GenerationConfig(
+        max_len=10, beam_size=3, sampling_topk=1))
+    out["beam"] = (_np(toks), _np(scores))
+    toks, lps, n = model.generate_speculative(local, greedy, spec_k=4)
+    out["speculative"] = (_np(toks), _np(lps), int(n))
+    toks, lps = model.generate(ctx, GenerationConfig(
+        max_len=10, sampling_topk=1, quantize_kv=True, quantize_head=True))
+    out["quantized"] = (_np(toks), _np(lps))
+    reqs = [{k: torch.from_numpy(v) for k, v in r.items()}
+            for r in payload["requests"]]
+    eng = ContinuousBatcher.for_flattened(
+        model, GenerationConfig(max_len=8, sampling_topk=1), n_slots=2,
+        inner_steps=2)
+    ids = [eng.submit(r) for r in reqs]
+    got = eng.run()
+    out["continuous"] = [got[i][0] for i in ids]
+    reqs = [{k: torch.from_numpy(v) for k, v in r.items()}
+            for r in payload["beam_requests"]]
+    eng = ContinuousBeamBatcher(model, GenerationConfig(max_len=8,
+                                                        beam_size=3),
+                                n_slots=2, inner_steps=2)
+    ids = [eng.submit(r) for r in reqs]
+    got = eng.run()
+    out["beam_engine"] = [(got[i][0], got[i][1]) for i in ids]
+    return out
+
+
+def tensor_parallel(rank, world, payload):
+    """Each mesh of payload["meshes"]: `_tp_case`; then the train
+    command for each run of payload["train"] (config, overrides, the
+    init's state dict or None, more arguments) on the world's ranks, each
+    joining through
+    its `trainer.distributed` block (a `file://` store under
+    payload["init"])."""
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import build_model
+    out = {"cases": [_tp_case(payload, cfg) for cfg in payload["meshes"]]}
+    # Each command joins and leaves a group of its own.
+    pdist.shutdown()
+    for i, (path, overrides, state, extra) in enumerate(payload["train"]):
+        over = json.loads(overrides)
+        over["trainer"]["distributed"] = {
+            "coordinator_address": payload["init"] + f"_{i}",
+            "num_processes": world, "process_id": rank}
+        overrides = json.dumps(over)
+        saved = cli.training_model
+        if state is not None:
+            def carried(cfg, device, seed, state=state):
+                model = build_model(cfg, device, torch.float32)
+                model.param_module.load_state_dict(
+                    {k: torch.from_numpy(v) for k, v in state.items()})
+                return model
+            cli.training_model = carried
+        try:
+            assert cli.main(["train", path, "--platform", "cpu", "-o",
+                             overrides, *extra]) == 0
+        finally:
+            cli.training_model = saved
+    return out
