@@ -382,6 +382,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      launches (the `tensor_parallel` JSON line; `*_shard` and
      `decode_ffn_block_partial` in the kernels line, their launches
      the ranks' calls of this phase).
+     Every phase from 3 to 25 also checks that no generic variant
+     launched: the flagship in bf16 routes "fast" on all four wrappers.
+  26. the generic variants of the four decode kernels
+     (`csrc/decode_generic.cu`; fp32, narrow widths, K = 1), TF32 off:
+     each against its plain version on the card at the toy's shapes in
+     fp32 and tiny_test's in bf16, pointwise layers and other odd widths
+     (head sizes 1 to 256), and the fp32 flagship's greedy (16 rows) and
+     beam-5 (80 rows) steps at B=16, which are timed (fp32 1e-5 +
+     1e-5 |ref|; bf16 phase 3's tolerances; second calls bit-equal); the
+     fp32 flagship decoding greedy and beam-5 at B=16 over 32 steps,
+     3 / 8 / 4 / 4 generic launches a step and no fast one, tokens equal
+     to the same model's plain path on the card (near-ties reported);
+     `serve --task toy` on the card answering five HTTP requests with
+     the tokens of `serve --task toy --platform cpu` (its worker
+     launching only generic variants); `train configs/tiny_test.yaml`
+     on the card, `evaluate -m best` from it and `evaluate
+     configs/tiny_pointer.yaml` (bf16 decodes on the generic variants,
+     finite metrics) (the `generic` JSON line; the four `*_generic`
+     entries of the kernels line with `variant_of`).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -7203,6 +7222,585 @@ def mesh_overhead_mode(torch, order: str = "pmpm") -> None:
     print(line, flush=True)
 
 
+# -- phase 26: the generic decode kernels ---------------------------------
+
+GENERIC_OF = {"band_topk_lse_generic": "band_topk_lse",
+              "decode_cross_attention_generic": "decode_cross_attention",
+              "decode_conv_block_generic": "decode_conv_block",
+              "decode_ffn_block_generic": "decode_ffn_block"}
+# fp32 against the fp32 plain version: the sums differ in order only.
+FP32_TOL = (1e-5, 1e-5)
+
+
+def generic_counted() -> dict:
+    """The four generic variants' wrappers, by their kernels-line name
+    (each counts its launches in `.launches`)."""
+    from news_image_caption_tpu_torch.ops import (band_topk,
+                                                  decode_attention,
+                                                  decode_blocks)
+    return {"band_topk_lse_generic": band_topk.band_topk_lse_generic,
+            "decode_cross_attention_generic":
+                decode_attention.decode_cross_attention_generic,
+            "decode_conv_block_generic":
+                decode_blocks.decode_conv_block_generic,
+            "decode_ffn_block_generic": decode_blocks.decode_ffn_block_generic}
+
+
+def no_generic(phase: str) -> None:
+    """Phases 3 to 25 run the flagship's widths in bf16, where every
+    wrapper routes "fast": no generic variant may have launched."""
+    n = {name: fn.launches for name, fn in generic_counted().items()}
+    check(not any(n.values()),
+          f"phase {phase} launched a generic variant: {n}")
+
+
+def generic_kernel_phase(torch, ops):
+    """Phase 26.1. Each generic variant against its plain version on the
+    card (TF32 off), second calls bit-equal: the toy's shapes in fp32 and
+    tiny_test's in bf16 (embed 32 / 16, 4 heads, ffn 64 / 32, bands of
+    18 / 16 / 32 ids, S' of 5 to 18 keys), pointwise layers (K = 1, at
+    toy and flagship width), other odd widths, and the fp32 flagship's
+    greedy step (16 rows, Q = 1) and beam-5 step (80 rows, Q = 5) at
+    B=16. Tolerances: fp32 1e-5 + 1e-5 |ref|; bf16 phase 3's (band
+    values 0.03125, lse 1e-3 + 1e-4 |lse|, attention 0.02 + 0.02 |ref|,
+    conv h 0.02 and y 0.05, FFN 0.02), the FFN's fp32 partial sums of
+    bf16 rows phase 25's 2e-3 + 1e-3 |ref|. The fp32 flagship's calls
+    are timed beside their plain versions and the library chains in fp32
+    (fp32 rate and bytes in the bound). Returns ({kernel: result} of the
+    greedy step, the same of the beam-5 step, the worst error a kernel
+    over all cases)."""
+    band, xattn, blocks = ops
+    F_ = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    f32, bf16 = torch.float32, torch.bfloat16
+    greedy = {name: Tally("fp32") for name in GENERIC_OF}
+    beam = {name: Tally("fp32") for name in GENERIC_OF}
+    worst = dict.fromkeys(GENERIC_OF, 0.0)
+
+    def rn(dtype, *shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def tol(dtype, bf):
+        return FP32_TOL if dtype == f32 else bf
+
+    def note(name, what, errs, oks, same, line=""):
+        worst[name] = max(worst[name], *errs)
+        print(f"  {name} {what}: errors {', '.join(f'{e:.3g}' for e in errs)}"
+              f"{line}, repeated call bit-equal {same}", flush=True)
+        check(all(oks), f"{name} {what} disagrees with its plain version")
+        check(same, f"{name} {what}: two calls on the same inputs differ")
+
+    def band_case(dtype, N, D, V, sel, k, tally=None):
+        x, table = rn(dtype, N, D), rn(dtype, V, D, scale=D ** -0.5)
+        got = band.band_topk_lse_generic(x, table, k, sel)
+        again = band.band_topk_lse_generic(x, table, k, sel)
+        want = band.band_topk_lse_plain(x, table, k, sel)
+        torch.cuda.synchronize()
+        logits = (x.float() @ table.float().T).to(dtype).float()
+        tv = tol(dtype, (0.03125, 0.0))
+        e_v, ok_v = within(got[0], want[0], *tv)
+        e_l, ok_l = within(got[2], want[2], *tol(dtype, (1e-3, 1e-4)))
+        e_i, ok_i = within(torch.gather(logits, 1, got[1].long()), want[0],
+                           *tv)
+        ok_ids = bool((got[1] >= 0).all()) and bool((got[1] < sel).all())
+        agree = (got[1] == want[1]).float().mean().item()
+        note("band_topk_lse_generic",
+             f"{str(dtype)[6:]} N={N} D={D} V={V} sel={sel} k={k}",
+             [e_v, e_l, e_i], [ok_v, ok_l, ok_i, ok_ids],
+             all(torch.equal(a, b) for a, b in zip(got, again)),
+             f" (values / lse / plain logit at the chosen ids), ids equal"
+             f" {agree:.3f}")
+        if tally is None:
+            return
+        tally.errs += [e_v, e_l]
+
+        def library():
+            lg = x @ table.T
+            return torch.logsumexp(lg, -1), torch.topk(lg[:, :sel], k)
+        line = tally.add(
+            (x, table, *got), 2.0 * N * V * D,
+            time_ms(lambda: band.band_topk_lse_generic(x, table, k, sel)),
+            time_ms(lambda: band.band_topk_lse_plain(x, table, k, sel)),
+            time_ms(library))
+        print(f"    time: {line}", flush=True)
+
+    def attn_case(dtype, B, Q, S, E, H, tally=None, calls=1, one_key=False):
+        q = rn(dtype, B, Q, E, scale=(E // H) ** -0.5)
+        k_, v_ = rn(dtype, B, S, E), rn(dtype, B, S, E)
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:S - 1] = -1e9
+        if one_key:
+            bias[0] = -1e9
+            bias[0, S // 3] = 0.0
+        args = (q, k_, v_, bias, H)
+        got = xattn.decode_cross_attention_generic(*args)
+        again = xattn.decode_cross_attention_generic(*args)
+        want = xattn.decode_cross_attention_plain(*args)
+        torch.cuda.synchronize()
+        e, ok = within(got, want, *tol(dtype, (0.02, 0.02)))
+        note("decode_cross_attention_generic",
+             f"{str(dtype)[6:]} B={B} Q={Q} S'={S} E={E} H={H}"
+             + (" (item 0: one key)" if one_key else ""), [e], [ok],
+             bool(torch.equal(got, again)))
+        if tally is None:
+            return
+        tally.errs.append(e)
+        line = tally.add(
+            (q, k_, v_, bias, got), 4.0 * B * Q * S * E,
+            time_ms(lambda: xattn.decode_cross_attention_generic(*args)),
+            time_ms(lambda: xattn.decode_cross_attention_plain(*args)),
+            time_ms(lambda: sdpa(torch, q, k_, v_, bias, H)), calls=calls)
+        print(f"    time, {calls} calls: {line}", flush=True)
+
+    def conv_case(dtype, N, C, H, K, ts, tally=None, rows_pos=False):
+        x, cache = rn(dtype, N, C), rn(dtype, K - 1, N, C, scale=0.5)
+        w1, b1 = rn(dtype, C, 2 * C, scale=C ** -0.5), rn(dtype, 2 * C,
+                                                          scale=0.05)
+        wl = rn(dtype, C, H * K, scale=0.05 if dtype == bf16 else 0.3)
+        w2, b2 = rn(dtype, C, C, scale=C ** -0.5), rn(dtype, C, scale=0.05)
+        taps = blocks.pack_taps(wl, H)
+        errs, oks, same = [0.0, 0.0], [], True
+        steps = [torch.randint(0, 3 * K + 3, (N,), generator=gen, device=dev,
+                               dtype=torch.int32)] if rows_pos else ts
+        for t in steps:
+            args = (x, cache, t, w1, b1, wl, w2, b2, H)
+            y, h = blocks.decode_conv_block_generic(*args, taps=taps)
+            y2, h2 = blocks.decode_conv_block_generic(*args, taps=taps)
+            py, ph = blocks.decode_conv_block_plain(*args)
+            torch.cuda.synchronize()
+            e_h, ok_h = within(h, ph, *tol(dtype, (0.02, 0.02)))
+            e_y, ok_y = within(y, py, *tol(dtype, (0.05, 0.05)))
+            errs = [max(errs[0], e_h), max(errs[1], e_y)]
+            oks += [ok_h, ok_y]
+            same = same and bool(torch.equal(y, y2)) and bool(
+                torch.equal(h, h2))
+        note("decode_conv_block_generic",
+             f"{str(dtype)[6:]} N={N} C={C} H={H} K={K} t="
+             + ("a position a row" if rows_pos else "/".join(map(str, ts))),
+             errs, oks, same, " (h / y)")
+        if tally is None:
+            return
+        tally.errs += errs
+        slots = (ts[-1] + torch.arange(K - 1, device=dev)) % max(K - 1, 1)
+
+        def library():
+            hh = F_.glu(F_.linear(x, w1.T, b1), dim=-1)
+            p = torch.softmax(F_.linear(hh, wl.T).view(N, H, K), dim=-1)
+            hist = torch.cat([cache[slots], hh[None]]).view(K, N, H, C // H)
+            conv = torch.einsum("nhk,knhr->nhr", p, hist).reshape(N, C)
+            return F_.linear(conv, w2.T, b2) + x, hh
+        line = tally.add(
+            (x, cache, w1, b1, wl, w2, b2, y, h),
+            2.0 * N * C * (2 * C + H * K + C) + 2.0 * N * C * K,
+            time_ms(lambda: blocks.decode_conv_block_generic(*args,
+                                                             taps=taps)),
+            time_ms(lambda: blocks.decode_conv_block_plain(*args)),
+            time_ms(library))
+        print(f"    time K={K}: {line}", flush=True)
+
+    def ffn_case(dtype, N, C, F, tally=None, calls=1, partial=False):
+        x, w1, b1 = rn(dtype, N, C), rn(dtype, C, F, scale=C ** -0.5), \
+            rn(dtype, F, scale=0.05)
+        w2, b2 = rn(dtype, F, C, scale=F ** -0.5), rn(dtype, C, scale=0.05)
+        if partial:
+            args = (x, w1, b1, w2, None)
+            want = blocks.decode_ffn_block_partial_plain(x, w1, b1, w2)
+            t = tol(dtype, PARTIAL_TOL)
+        else:
+            args = (x, w1, b1, w2, b2)
+            want = blocks.decode_ffn_block_plain(*args)
+            t = tol(dtype, (0.02, 0.02))
+        got = blocks.decode_ffn_block_generic(*args)
+        again = blocks.decode_ffn_block_generic(*args)
+        torch.cuda.synchronize()
+        e, ok = within(got, want, *t)
+        note("decode_ffn_block_generic",
+             f"{str(dtype)[6:]} N={N} C={C} F={F}"
+             + (" (partial mode)" if partial else ""), [e], [ok],
+             bool(torch.equal(got, again)))
+        if tally is None:
+            return
+        tally.errs.append(e)
+        line = tally.add(
+            (x, w1, b1, w2, b2, got), 4.0 * N * C * F,
+            time_ms(lambda: blocks.decode_ffn_block_generic(*args)),
+            time_ms(lambda: blocks.decode_ffn_block_plain(*args)),
+            time_ms(lambda: F_.linear(torch.relu(F_.linear(x, w1.T, b1)),
+                                      w2.T, b2) + x), calls=calls)
+        print(f"    time, {calls} calls: {line}", flush=True)
+
+    # The toy's shapes in fp32 and tiny_test's in bf16: embed 32 / 16,
+    # 4 heads, ffn 64 / 32; the bands [table0; class rows] (18 ids, 16
+    # selectable) and the tails (16, 32); one row (B = 1) and five (a
+    # beam-5 step); image and article contexts plus the bias and zero
+    # slots (S' = 5 to 18); a chunk of 4 queries.
+    for dtype, D, F in ((f32, 32, 64), (bf16, 16, 32)):
+        for N in (1, 5):
+            for V, sel in ((18, 16), (16, 16), (32, 32)):
+                for k in (1, 5, 16):
+                    band_case(dtype, N, D, V, sel, min(k, sel))
+            ffn_case(dtype, N, D, F)
+            ffn_case(dtype, N, D, F, partial=True)
+            for K in (3, 5):
+                conv_case(dtype, N, D, 4, K, (0, K - 2, 2 * K + 3))
+            conv_case(dtype, N, D, 4, 5, None, rows_pos=True)
+        for Q in (1, 4, 5):
+            for S in (5, 6, 8, 18):
+                attn_case(dtype, 1 if Q == 1 else 2, Q, S, D, 4)
+        attn_case(dtype, 3, 1, 6, D, 4, one_key=True)
+    # Pointwise layers (K = 1: no ring, the cache empty) and other widths:
+    # head sizes 1, 3 and 256, D and C off every tile, two row tiles.
+    for dtype in (f32, bf16):
+        conv_case(dtype, 5, 32, 4, 1, (0, 3))
+        conv_case(dtype, 40, 48, 3, 32, (0, 40))
+        attn_case(dtype, 2, 3, 7, 4, 4)
+        attn_case(dtype, 2, 16, 70, 512, 2)
+        attn_case(dtype, 3, 2, 33, 39, 13)
+        band_case(dtype, 37, 100, 129, 129, 16)
+        band_case(dtype, 3, 1, 5, 5, 5)
+        ffn_case(dtype, 33, 100, 200)
+    conv_case(f32, 16, 1024, 16, 1, (0, 9))
+    conv_case(f32, 80, 1024, 16, 1, None, rows_pos=True)
+    # The fp32 flagship: a greedy step at B=16 (16 rows, Q = 1; the three
+    # bands at k = 1, K = 3 / 7 / 15 / 31, the image and article contexts
+    # of every layer), timed; a beam-5 step at B=16 (80 rows, Q = 5,
+    # k = 5), timed; 640 rows (beam-5 at B=128) held.
+    N, D, H, F = 16, 1024, 16, 4096
+    for V, sel in ((5002, 5000), (15000, 15000), (30265, 30265)):
+        band_case(f32, N, D, V, sel, 1, greedy["band_topk_lse_generic"])
+        band_case(f32, 5 * N, D, V, sel, 5, beam["band_topk_lse_generic"])
+    band_case(f32, 640, D, 5002, 5000, 5)
+    for S in (514, 51):
+        attn_case(f32, N, 1, S, D, H, greedy[
+            "decode_cross_attention_generic"], calls=4)
+        attn_case(f32, N, 5, S, D, H, beam[
+            "decode_cross_attention_generic"], calls=4)
+    attn_case(f32, N, 5, 514, D, H, one_key=True)
+    for K in (3, 7, 15, 31):
+        conv_case(f32, N, D, H, K, (0, K - 2, 2 * K + 3),
+                  greedy["decode_conv_block_generic"])
+        conv_case(f32, 5 * N, D, H, K, (2 * K + 3,),
+                  beam["decode_conv_block_generic"])
+    conv_case(f32, 5 * N, D, H, 7, None, rows_pos=True)
+    ffn_case(f32, N, D, F, greedy["decode_ffn_block_generic"], calls=4)
+    ffn_case(f32, 5 * N, D, F, beam["decode_ffn_block_generic"], calls=4)
+    ffn_case(f32, N, D, F, partial=True)
+    ffn_case(f32, 640, D, F)
+    return ({n: t.result() for n, t in greedy.items()},
+            {n: t.result() for n, t in beam.items()}, worst)
+
+
+def plain_decode():
+    """A context manager: the four decode wrappers, where the decoder's
+    modules call them, swapped for their plain versions, so that a model
+    decodes on the card through plain PyTorch (TF32 off): phase 26's
+    yardstick for the kernel path on the same card and weights."""
+    import contextlib
+
+    from news_image_caption_tpu_torch.models import decoder_flattened
+    from news_image_caption_tpu_torch.ops import (adaptive, attention,
+                                                  band_topk, decode_attention,
+                                                  decode_blocks)
+    swaps = [(adaptive, "band_topk_lse", band_topk.band_topk_lse_plain),
+             (attention, "decode_cross_attention",
+              decode_attention.decode_cross_attention_plain),
+             (decoder_flattened, "decode_conv_block",
+              lambda *a, taps=None: decode_blocks.decode_conv_block_plain(
+                  *a)),
+             (decoder_flattened, "decode_ffn_block",
+              lambda *a, reduce=None: decode_blocks.decode_ffn_block_plain(
+                  *a))]
+
+    @contextlib.contextmanager
+    def swapped():
+        old = [getattr(mod, name) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for (mod, name, _), fn in zip(swaps, old):
+                setattr(mod, name, fn)
+    return swapped()
+
+
+def token_ties(what: str, got, want, lp_got, lp_want, tol: float = 1e-5):
+    """Greedy tokens [B, L + 1] of the kernel path against the plain
+    path's. A row that differs must do so at a near-tie: at its first
+    differing position the two paths' top-1 log-probs (each of its own
+    token, after the same prefix) within `tol`, so the plain path's top
+    two were that close. Returns the rows that differ at such a tie;
+    fails on any other difference."""
+    got, want = np.asarray(got), np.asarray(want)
+    lp_got, lp_want = np.asarray(lp_got), np.asarray(lp_want)
+    ties = []
+    for row in np.flatnonzero((got != want).any(axis=1)):
+        j = int(np.flatnonzero(got[row] != want[row])[0])
+        gap = abs(float(lp_got[row, j - 1]) - float(lp_want[row, j - 1]))
+        check(j >= 1 and gap <= tol,
+              f"{what}: row {row} differs from the plain path at position"
+              f" {j} with top-1 log-probs {gap:.3g} apart (not a tie within"
+              f" {tol})")
+        ties.append({"row": int(row), "position": j, "lp_gap": gap})
+    print(f"  {what}: tokens equal to the plain path's on"
+          f" {len(got) - len(ties)} of {len(got)} rows"
+          + (f"; near-ties reported: {ties}" if ties else ""), flush=True)
+    return ties
+
+
+def generic_decode_phase(torch, counted):
+    """Phase 26.2. The flagship decoder in fp32 (seeded random weights,
+    full width and depth) decoding greedy at B=16 and beam-5 at B=16 over
+    32 steps on the card: every decode call through the generic variants
+    (3 / 8 / 4 / 4 a step, the fast kernels none), tokens against the
+    same model's plain path on the card (`plain_decode`). A greedy row
+    may differ only at a near-tie (`token_ties`); a beam item only where
+    its best scores agree within 1e-4, reported. Returns ({path: {kernel:
+    launches}}, summary)."""
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.generation.generator import \
+        GenerationConfig
+    from news_image_caption_tpu_torch.models.captioner import \
+        TransformerFlattened
+    dev = torch.device("cuda")
+    model = TransformerFlattened(
+        device=dev, dtype=torch.float32, **FLAGSHIP,
+        generator=torch.Generator(device=dev).manual_seed(26))
+    model.decoder.eval()
+    rng = np.random.RandomState(26)
+    job = make_job(rng, 16, rng.randint(20, 513, size=16))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in job.items()}
+    per_step = greedy_launches_a_step()
+    gen_names = {GENERIC_OF[n]: n for n in GENERIC_OF}
+    launches, summary = {}, {"card": card_line()}
+    with torch.no_grad():
+        weights = model.decoder.decode_weights()
+        for path, beam in (("fp32_greedy_b16", False),
+                           ("fp32_beam5_b16", True)):
+            cfg = GenerationConfig(max_len=32, early_exit=False, beam_size=5)
+            run = model.generate_beam if beam else model.generate
+            run(batch, cfg, weights)                    # warm-up
+            for fn in counted.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tok, score = run(batch, cfg, weights)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            got = {name: fn.launches for name, fn in counted.items()}
+            t = time.perf_counter()
+            with plain_decode():
+                ptok, pscore = run(batch, cfg, weights)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            for fast, n in per_step.items():
+                check(got[fast] == 0 and got[gen_names[fast]] == n * 32,
+                      f"{path}: launches {got}, expected {n} a step of"
+                      f" {gen_names[fast]} over 32 steps and no {fast}")
+            launches[path] = {name: n for name, n in got.items() if n}
+            tok, ptok = tok.cpu().numpy(), ptok.cpu().numpy()
+            score, pscore = score.float().cpu().numpy(), \
+                pscore.float().cpu().numpy()
+            check(bool(np.isfinite(score).all()),
+                  f"{path}: scores not finite")
+            if not beam:
+                ties = token_ties(path, tok, ptok, score, pscore)
+            else:
+                differ = np.flatnonzero((tok != ptok).reshape(16, -1).any(1))
+                ties = [{"item": int(i), "best_score_gap": float(abs(
+                    score[i, 0] - pscore[i, 0]))} for i in differ]
+                check(all(x["best_score_gap"] <= 1e-4 for x in ties),
+                      f"{path}: beams differ from the plain path's beyond a"
+                      f" tie: {ties}")
+                worst = float(np.abs(score - pscore).max())
+                print(f"  {path}: tokens equal to the plain path's on"
+                      f" {16 - len(ties)} of 16 items, scores within"
+                      f" {worst:.3g}" + (f"; near-ties reported: {ties}"
+                                          if ties else ""), flush=True)
+            summary[path] = {"request_ms": ms, "plain_path_ms": plain_ms,
+                             "ties": ties, "launches": launches[path]}
+            print(f"  {path}: 32 steps in {ms:.1f} ms on the generic"
+                  f" variants ({ms / 32:.3f} ms a step), {plain_ms:.1f} ms"
+                  f" on the plain path; launches {launches[path]}",
+                  flush=True)
+    return launches, summary
+
+
+TOY_SERVE_CMD = [sys.executable, "-m", "news_image_caption_tpu_torch.cli",
+                 "serve", "--task", "toy", "--http-port", "0"]
+
+
+def toy_jobs(n: int, seed: int = 26) -> list:
+    """Requests of the toy's shapes (image 4 x 16, article 6 x 24), the
+    last of three rows, articles padded at random."""
+    from news_image_caption_tpu_torch.serving.worker import (
+        TOY, TOY_ARTICLE_LEN, TOY_IMAGE_LEN)
+    rng = np.random.RandomState(seed)
+    jobs = []
+    for i in range(n):
+        B = 3 if i == n - 1 else 1
+        lens = rng.randint(1, TOY_ARTICLE_LEN + 1, size=B)
+        jobs.append({
+            "image": rng.randn(B, TOY_IMAGE_LEN,
+                               TOY["image_dim"]).astype(np.float32),
+            "image_mask": np.zeros((B, TOY_IMAGE_LEN), bool),
+            "article": rng.randn(B, TOY_ARTICLE_LEN,
+                                 TOY["article_dim"]).astype(np.float32),
+            "article_mask": np.arange(TOY_ARTICLE_LEN)[None, :]
+            >= lens[:, None]})
+    return jobs
+
+
+def toy_serve_phase(torch, platforms=("cuda", "cpu")):
+    """Phase 26.3. `serve --task toy` on the card (fp32, head size 8: the
+    generic variants) and the same server with `--platform cpu`, started
+    side by side, each answer five HTTP requests: tokens equal, or a
+    near-tie (`token_ties`, the log-probs from the in-process builder on
+    each device). The card's worker launches only generic variants (its
+    stats RPC). Returns (the worker's launches, summary)."""
+    import contextlib
+
+    from news_image_caption_tpu_torch.serving.client import CaptioningClient
+    from news_image_caption_tpu_torch.serving.worker import \
+        default_model_builder
+    jobs = toy_jobs(5)
+    tokens, summary = {}, {"card": card_line()}
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        serves = {p: stack.enter_context(ServeProcess(
+            TOY_SERVE_CMD + ["--platform", p])) for p in platforms}
+        ready = {}
+        for platform, serve in serves.items():
+            info = json.loads(serve.next_line("stdout", 120))
+            port = json.loads(serve.next_line("stdout", 60))["http_port"]
+            check(info["task"] == "toy", f"serve printed {info}")
+            serve.next_line("stderr", 300, match="worker 0 ready")
+            ready[platform] = (info, port, time.perf_counter() - t0)
+        for platform, serve in serves.items():
+            info, port, ready_s = ready[platform]
+            lat, got = [], []
+            for job in jobs:
+                t = time.perf_counter()
+                got.append(http_encode(port, job))
+                lat.append((time.perf_counter() - t) * 1e3)
+            client = CaptioningClient(info["frontend_addr"],
+                                      info["sink_pub_addr"],
+                                      timeout_ms=300000)
+            try:
+                stats = client.stats(timeout_ms=60000)
+            finally:
+                client.close()
+            rc, _ = serve.stop()
+            check(rc == 0, f"serve --task toy --platform {platform} exited"
+                  f" with {rc}")
+            left = [p for p in serve.children if _alive(p)]
+            check(not left, f"processes left after serve stopped: {left}")
+            tokens[platform] = np.concatenate(got)
+            summary[platform] = {"start_to_ready_s": ready_s,
+                                 "request_ms": lat,
+                                 "kernel_launches": stats["kernel_launches"]}
+            print(f"  serve --task toy --platform {platform}: {len(jobs)}"
+                  f" HTTP requests, ms {[round(x, 1) for x in lat]}, start"
+                  f" to ready {ready_s:.1f} s", flush=True)
+    worker = summary[platforms[0]]["kernel_launches"]
+    check(all(worker[g] > 0 and worker[f] == 0
+              for g, f in GENERIC_OF.items()),
+          f"the card's toy worker launched {worker}")
+    check(not any(summary[platforms[1]]["kernel_launches"].values()),
+          "the CPU's toy worker counted a launch")
+    lps = {}
+    for platform in platforms:
+        predict = default_model_builder(platform)
+        lps[platform] = np.concatenate([
+            predict.model.generate(
+                {k: torch.as_tensor(v).to(platform) for k, v in j.items()},
+                predict.config, predict.weights)[1].float().cpu().numpy()
+            for j in jobs])
+    summary["ties"] = token_ties("serve --task toy, card against CPU",
+                                 tokens[platforms[0]], tokens[platforms[1]],
+                                 lps[platforms[0]], lps[platforms[1]])
+    return {name: worker[name] for name in GENERIC_OF}, summary
+
+
+def tiny_commands_phase(torch, counted):
+    """Phase 26.4. `train configs/tiny_test.yaml` on the card (fp32, the
+    config's 2 epochs), then `evaluate -m best` from its checkpoints, then
+    `evaluate configs/tiny_pointer.yaml` (random init): the decodes in
+    bf16 at embed 16, 4 heads of 4, ffn 32 go through the generic
+    variants only; every command returns 0 with finite metrics. Returns
+    ({path: {kernel: launches}}, summary)."""
+    import math
+
+    from news_image_caption_tpu_torch import cli
+    launches, summary = {}, {}
+    keys = ("bleu-1", "bleu-4", "cider", "rouge-l")
+    with tempfile.TemporaryDirectory() as tmp:
+        run, ev = f"{tmp}/run", f"{tmp}/pointer"
+        t = time.perf_counter()
+        rc = cli.main(["train", "configs/tiny_test.yaml", "-s", run])
+        check(rc == 0, f"train configs/tiny_test.yaml returned {rc}")
+        with open(f"{run}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        summary["train_s"] = time.perf_counter() - t
+        summary["train_records"] = len(records)
+        for path, argv, out in (
+                ("tiny_test_evaluate",
+                 ["evaluate", "configs/tiny_test.yaml", "-m", "best", "-o",
+                  json.dumps({"trainer": {"serialization_dir": run}})], run),
+                ("tiny_pointer_evaluate",
+                 ["evaluate", "configs/tiny_pointer.yaml", "-o",
+                  json.dumps({"trainer": {"serialization_dir": ev}})], ev)):
+            for fn in counted.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t
+            got = {name: fn.launches for name, fn in counted.items()}
+            check(rc == 0, f"{' '.join(argv[:2])} returned {rc}")
+            with open(f"{out}/evaluate-metrics.json") as f:
+                metrics = json.load(f)
+            check(metrics["n_samples"] == 8
+                  and all(math.isfinite(metrics[k]) for k in keys),
+                  f"{path}: metrics {metrics}")
+            check(all(got[g] > 0 and got[f] == 0
+                      for g, f in GENERIC_OF.items()),
+                  f"{path}: launches {got}")
+            launches[path] = {name: n for name, n in got.items() if n}
+            summary[path] = {"s": wall,
+                             "metrics": {k: metrics[k] for k in keys},
+                             "launches": launches[path]}
+            print(f"  {' '.join(argv[:2])}: {wall:.1f} s, metrics"
+                  f" { {k: round(metrics[k], 4) for k in keys} }, launches"
+                  f" {launches[path]}", flush=True)
+    print(f"  train configs/tiny_test.yaml on the card:"
+          f" {summary['train_s']:.1f} s, {summary['train_records']}"
+          " records", flush=True)
+    return launches, summary
+
+
+def generic_phase(torch, ops, counted):
+    """Phase 26 (see the module): 26.1 the generic kernels against their
+    plain versions, 26.2 the fp32 flagship's decodes, 26.3 the toy's
+    serve command, 26.4 the tiny configs' commands. Returns ({path:
+    {kernel: launches}}, the greedy and beam-5 step tallies of 26.1, the
+    worst error a kernel, summary)."""
+    gcounted = generic_counted()
+    counted = dict(counted, **gcounted)
+    t = time.perf_counter()
+    greedy, beam, worst = generic_kernel_phase(torch, ops)
+    summary = {"kernels_s": time.perf_counter() - t}
+    launches, summary["fp32_flagship"] = generic_decode_phase(torch,
+                                                              counted)
+    launches["serve_toy"], summary["serve_toy"] = toy_serve_phase(torch)
+    tiny_launches, summary["tiny_commands"] = tiny_commands_phase(torch,
+                                                                  counted)
+    launches.update(tiny_launches)
+    summary["seconds"] = time.perf_counter() - t
+    return launches, greedy, beam, worst, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -7238,6 +7836,7 @@ def main() -> None:
         torch, (band_topk, decode_attention, decode_blocks, _build))
     timing.update(flash_phase(torch, flash_attention))
     print(json.dumps({"beam5_step_b16": beam_timing}), flush=True)
+    no_generic("3")
 
     print("phase 4: flagship serving (bf16, random weights)", flush=True)
     counted = {"band_topk_lse": band_topk.band_topk_lse,
@@ -7254,18 +7853,21 @@ def main() -> None:
         launches[name] += n
         by_path[name]["beam5"] = n
     print(json.dumps({"beam5_requests": beam_summary}), flush=True)
+    no_generic("4")
 
     print("phase 5: flagship train step (bf16_o2, random weights)",
           flush=True)
     train_launches, step_ms = train_phase(torch, flash_attention)
     launches.update(train_launches)
     by_path.update({name: {"train": n} for name, n in train_launches.items()})
+    no_generic("5")
 
     print("phase 6: dynamic conv at full flagship width (bf16)", flush=True)
     conv_timing, launches["dynamic_conv"] = dynamic_conv_phase(torch,
                                                                dynamic_conv)
     by_path["dynamic_conv"] = {"conv_module": launches["dynamic_conv"]}
     timing.update(conv_timing)
+    no_generic("6")
 
     print("phase 7: the evaluate command (flagship, bf16, random weights)",
           flush=True)
@@ -7274,6 +7876,7 @@ def main() -> None:
         launches[name] += n
         by_path[name]["evaluate"] = n
     print(json.dumps({"evaluate": eval_summary}), flush=True)
+    no_generic("7")
 
     print("phase 8: the train command, then evaluate from its checkpoints"
           " (flagship, bf16_o2)", flush=True)
@@ -7285,6 +7888,7 @@ def main() -> None:
         by_path[name]["train_command"] = cmd_launches[name]
         by_path[name]["evaluate_checkpoint"] = ckpt_launches[name]
     print(json.dumps({"train_command": cmd_summary}), flush=True)
+    no_generic("8")
 
     print("phase 9: the serve command (flagship, bf16, random weights),"
           " client, HTTP proxy and SIGTERM", flush=True)
@@ -7294,6 +7898,7 @@ def main() -> None:
         launches[name] += n
         by_path[name]["serve"] = n
     print(json.dumps({"serve": serve_summary}), flush=True)
+    no_generic("9")
 
     print("phase 10: the faces, objects, GloVe and no-image variants"
           " (bf16)", flush=True)
@@ -7317,6 +7922,7 @@ def main() -> None:
     print(json.dumps({"variants": {
         **var_summary, "launches": var_launches, "kernels": variant_timing,
         "card": card_line()}}), flush=True)
+    no_generic("10")
 
     print("phase 11: speculative greedy, top-k sampling and the continuous"
           " slot pool (flagship, bf16, phase 4's weights)", flush=True)
@@ -7334,6 +7940,7 @@ def main() -> None:
     print(json.dumps({"continuous": {
         **pool_summary, "decode_conv_block_per_row": per_row,
         "launches": pool_launches, "card": card_line()}}), flush=True)
+    no_generic("11")
 
     print("phase 12: the pointer family (copy_loss.yaml's train and"
           " evaluate, the gate forced open, the pool, only / faces pointer;"
@@ -7347,6 +7954,7 @@ def main() -> None:
                 by_path[name][path] = n
     print(json.dumps({"pointer": {**ptr_summary,
                                   "launches": ptr_launches}}), flush=True)
+    no_generic("12")
 
     for family, title, phase in (
             ("lstm", "phase 13: the LSTM family (lstm_roberta.yaml's train"
@@ -7362,6 +7970,7 @@ def main() -> None:
                     by_path[name][path] = n
         print(json.dumps({family: {**fam_summary,
                                    "launches": fam_launches}}), flush=True)
+        no_generic(title.split(":")[0][6:])
 
     print("phase 15: the online pipeline (transformer_weighted_roberta.yaml's"
           " train and evaluate from raw images, ResNet-152 and RoBERTa-large;"
@@ -7376,6 +7985,7 @@ def main() -> None:
                     by_path[name].get("pipeline", 0) + n
     print(json.dumps({"pipeline": {**pipe_summary,
                                    "launches": pipe_launches}}), flush=True)
+    no_generic("15")
 
     for family, title, phase in (
             ("tgnc", "phase 16: TGNC (joganic_tgnc.yaml's train and evaluate,"
@@ -7393,6 +8003,7 @@ def main() -> None:
                     by_path[name][family] = by_path[name].get(family, 0) + n
         print(json.dumps({family: {**fam_summary,
                                    "launches": fam_launches}}), flush=True)
+        no_generic(title.split(":")[0][6:])
 
     print("phase 18: preprocess -> nics_shards -> train -> evaluate"
           " (ResNet-152 and RoBERTa-large on the card, bf16; the flagship"
@@ -7409,6 +8020,7 @@ def main() -> None:
     print(json.dumps({"data_commands": {**data_summary,
                                         "launches": data_launches}}),
           flush=True)
+    no_generic("18")
 
     print("phase 19: port a Transform-and-Tell best.th, then evaluate"
           " (flagship, bf16)", flush=True)
@@ -7419,6 +8031,7 @@ def main() -> None:
     print(json.dumps({"port_command": {**port_summary,
                                        "launches": port_launches}}),
           flush=True)
+    no_generic("19")
 
     print("phase 20: detection and captioning of a raw photo through"
           " full_model_builder (MTCNN, InceptionResnetV1, YOLOv3-SPP in"
@@ -7428,6 +8041,7 @@ def main() -> None:
         launches[name] += n
         by_path[name]["detect_caption"] = n
     print(json.dumps({"detect_caption": det_summary}), flush=True)
+    no_generic("20")
 
     print("phase 21: int8 context K/V and int8 head tables (kernels A and B"
           " at flagship shapes; greedy, beam-5, speculative, the pools,"
@@ -7451,6 +8065,7 @@ def main() -> None:
     print(json.dumps({"quantize": {
         **q_summary, "beam5_step_b16": q_beam, "chunk4_b16": q_chunk,
         "launches": q_launches}}), flush=True)
+    no_generic("21")
 
     print("phase 22: the profiler window of the train command, bf16 first"
           " moments, FixedStepsLoader over phase 18's shards and"
@@ -7468,6 +8083,7 @@ def main() -> None:
                 by_path[name][path] = n
     print(json.dumps({"phase22": {**p22_summary,
                                   "launches": p22_launches}}), flush=True)
+    no_generic("22")
 
     print("phase 23: the decoder's options at flagship width (lightweight"
           " conv, no GLU, pre-norm with final norm, conv_dim 512; remat,"
@@ -7482,6 +8098,7 @@ def main() -> None:
                 by_path[name][path] = n
     print(json.dumps({"options": {**opt_summary,
                                   "launches": opt_launches}}), flush=True)
+    no_generic("23")
 
     print("phase 24: parallelism at one rank (the train command with"
           " trainer.distributed, trainer.mesh and the sharded store on"
@@ -7496,6 +8113,7 @@ def main() -> None:
                 by_path[name][path] = n
     print(json.dumps({"mesh": {**mesh_summary,
                                "launches": mesh_launches}}), flush=True)
+    no_generic("24")
 
     print("phase 25: tensor parallelism's shard forms at the flagship's"
           " layer widths (flash by heads, the FFN's partial mode, band"
@@ -7520,6 +8138,29 @@ def main() -> None:
     print(json.dumps({"tensor_parallel": {**tp_summary,
                                           "launches": tp_launches}}),
           flush=True)
+    no_generic("25")
+
+    print("phase 26: the generic decode kernels (fp32, narrow widths, K ="
+          " 1): each against its plain version on the card, the fp32"
+          " flagship's greedy and beam-5 decodes, serve --task toy against"
+          " --platform cpu over HTTP, train and evaluate of the tiny"
+          " configs", flush=True)
+    gen_launches, gen_greedy, gen_beam, gen_worst, gen_summary = \
+        generic_phase(torch, (band_topk, decode_attention, decode_blocks),
+                      counted)
+    for name in GENERIC_OF:
+        launches[name] = 0
+        by_path[name] = {}
+    for path, counts in gen_launches.items():
+        for name, n in counts.items():
+            if name in GENERIC_OF and n:
+                launches[name] += n
+                by_path[name][path] = n
+    timing.update(gen_greedy)
+    print(json.dumps({"generic": {
+        **gen_summary, "beam5_step_b16_fp32": gen_beam,
+        "max_abs_err_all_cases": gen_worst, "launches": gen_launches}}),
+        flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",
@@ -7548,7 +8189,18 @@ def main() -> None:
                                             "pallas_decode.py:133"),
                "band_topk_lse_shard": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention_shard": ("decode_attention.cu",
-                                                "pallas_kernels.py:146")}
+                                                "pallas_kernels.py:146"),
+               # The generic variants (phase 26): the same four functions
+               # at fp32, narrow widths and K = 1, where the reference's
+               # TPU kernels are generic in dtype and width.
+               "band_topk_lse_generic": ("decode_generic.cu",
+                                         "pallas_topk.py:124"),
+               "decode_cross_attention_generic": ("decode_generic.cu",
+                                                  "pallas_kernels.py:146"),
+               "decode_conv_block_generic": ("decode_generic.cu",
+                                             "pallas_decode.py:177"),
+               "decode_ffn_block_generic": ("decode_generic.cu",
+                                            "pallas_decode.py:133")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"news_image_caption_tpu_torch/csrc/{src}",
                 "replaces": f"news_image_caption_tpu/ops/{tpu}",
@@ -7566,6 +8218,9 @@ def main() -> None:
             entry["variant_of"] = INT8_OF[entry["name"]]
         if entry["name"] in SHARD_OF:
             entry["shard_of"], entry["shard"] = SHARD_OF[entry["name"]]
+        if entry["name"] in GENERIC_OF:
+            entry["variant_of"] = GENERIC_OF[entry["name"]]
+            entry["max_abs_err_all_cases"] = gen_worst[entry["name"]]
     # The conv block with a position a row (the pool's steps), at the
     # pool's 16 rows and the beam pool's 80, summed over the four layers.
     conv_entry = next(k for k in kernels if k["name"] == "decode_conv_block")
@@ -7583,6 +8238,9 @@ def main() -> None:
           " product; for the shard forms, rank 0's at m = 2 over the same"
           " step's calls, launches phase 25's calls of every rank of m = 2"
           " and 4, max_abs_err every rank's against its plain version;"
+          " for the generic variants, a greedy step of the fp32 flagship at"
+          " B=16, library_ms the fast kernels' chains in fp32, the bound at"
+          " fp32 bytes and 67 TFLOP/s;"
           f" train step {step_ms:.2f} ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -50,8 +50,8 @@ starts the HTTP proxy and prints its port as a second; it serves until
 SIGTERM, then stops the proxy, the server and its workers and exits 0.
 `--task flagship` serves the flagship captioner in bf16 (`--params` a
 '/'-joined .npz of the reference's params, else random weights seeded
-with 0); `--task toy` the reference's tiny model, on the CPU only (its
-head size is one the decode kernels do not admit). The reference's
+with 0); `--task toy` the reference's tiny model in fp32 (on the card
+through the decode kernels' generic variants: head size 8). The reference's
 switches: `--speculative-k`, `--continuous-slots` (with
 `--inner-steps`, `--harvest-lag`, `--continuous-beam`),
 `--sampling-topk` and `--sampling-temp` (see `serving/worker.py`).
@@ -66,11 +66,13 @@ switches: `--speculative-k`, `--continuous-slots` (with
 All three run on the card unless `--platform cpu` is given, and raise
 where there is no card. On the card the model computes in bf16 (the kernels'
 type), except that `train` at fp32 computes in fp32 and so raises for a
-model with `use_flash_train` (the flash kernels take bf16); `evaluate`
-casts the checkpoint's params to bf16 and decodes through the four
-decode kernels. On the CPU `train` computes in the precision's dtype and
-`evaluate` in the config's (float32 unless set), through the kernels'
-plain versions. `evaluate` takes the int8 K/V route with
+model with `use_flash_train` (the flash kernels take bf16; ROADMAP Queue 3
+item 1); `evaluate` casts the checkpoint's params to bf16 and decodes
+through the four decode kernels: the fast ones at the flagship's widths,
+their generic variants at any other (`configs/tiny_test.yaml` and
+`tiny_pointer.yaml`: embed 16, 4 heads). On the CPU `train` computes
+in the precision's dtype and `evaluate` in the config's (float32 unless
+set), through the kernels' plain versions. `evaluate` takes the int8 K/V route with
 `generation.quantize_kv` (decode_cross_attention_int8 on the card), as
 `serve --quantize-kv / --quantize-head` do. `train` reads
 `trainer.profile_steps` and `trainer.profile_start` (default 2): steps
@@ -212,7 +214,7 @@ def main(argv: Optional[list] = None, *,
                         help="start the captioning server (+HTTP proxy)")
     ps.add_argument("--task", default="flagship", choices=("flagship", "toy"),
                     help="the flagship captioner, or the reference's tiny "
-                         "random-weight model for smoke tests (CPU only)")
+                         "random-weight model for smoke tests (fp32)")
     ps.add_argument("-n", "--n-workers", type=int, default=1)
     ps.add_argument("--http-port", type=int, default=None,
                     help="also start the HTTP proxy on this port (0 = pick "
@@ -635,8 +637,8 @@ def serve_command(args) -> int:
 
     from news_image_caption_tpu_torch.serving.base import CaptionServer
     from news_image_caption_tpu_torch.serving.worker import (
-        CaptioningWorker, check_serving_args, check_toy_device,
-        default_model_builder, flagship_model_builder)
+        CaptioningWorker, check_serving_args, default_model_builder,
+        flagship_model_builder)
     from news_image_caption_tpu_torch.training.preemption import \
         PreemptionHandler
 
@@ -661,8 +663,6 @@ def serve_command(args) -> int:
     # a worker is spawned (the monitor would respawn it in a loop).
     check_serving_args(args.speculative_k, args.continuous_slots,
                        args.continuous_beam, args.sampling_topk)
-    if args.task == "toy":
-        check_toy_device(args.platform or "cuda")
     device = _device(args.platform)
     if device.type == "cuda":
         # Compile the kernels once here; the workers then load the

@@ -45,9 +45,12 @@ reference. The kernels' weights, with the
 weight norm folded and cast to the working dtype, come from
 `DynamicConvDecoder.decode_weights()`, computed once per model load
 rather than once per step. Each wrapper takes its plain PyTorch version
-on CPU tensors; on the card it launches its kernel or raises, so a model
-the kernels do not admit (fp32, narrow widths, a pointwise conv layer:
-`admits*` of the ops modules say why) decodes on the CPU only.
+on CPU tensors; on the card it launches a kernel or raises: the fast
+kernel where its `admits*` holds (the flagship in bf16), else the
+generic variant (`csrc/decode_generic.cu`), which takes fp32, narrow
+widths and head sizes down to 1, and a pointwise conv layer (K = 1,
+no ring), so every model the plain step decodes decodes on the card
+(`route_*` of the ops modules choose, by dtype and shapes alone).
 
 The conv block's kernel reads the ring-major layout [K-1, N, C] only,
 tap k of a row at position p from slot (p + k) mod (K-1). The shift

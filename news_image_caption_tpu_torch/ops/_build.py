@@ -41,6 +41,9 @@ MAX_SMEM_BYTES = 232448
 # Multiprocessors of an H100: the card the kernels' `admits` predicates
 # answer for where the caller names none.
 H100_SMS = 132
+# The dtypes the generic decode kernels take, by their entry points'
+# dtype codes (csrc/decode_generic.cu).
+GENERIC_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -15,6 +15,13 @@ what the kernel takes.
 `band_topk_lse_plain` is the same function in plain PyTorch: the CPU
 path, and the oracle the kernel is held against on the card.
 
+`band_topk_lse_generic` is the generic variant (`csrc/decode_generic.cu`):
+bf16 or fp32, any D and V, FFMA with fp32 sums and no tensor cores, for
+the models the fast kernel does not take (fp32, the toy's and the tiny
+configs' widths). `route_band` is the one predicate that chooses:
+"fast" where `admits` holds, else "generic" where `admits_generic`
+holds, else ValueError with both reasons.
+
 `band_topk_lse_int8` is the same walk over an int8 table with one scale
 a row (`ops/adaptive.py::QuantTable`), the port's route for the
 reference's quantized head, which the reference computes in XLA: the
@@ -41,6 +48,11 @@ MAX_BLOCKS = 256            # lists the merge's tournament takes
 LOGIT_STRIDE = TILE + 8     # bf16 elements a row of the logits tile
 _ARGTYPES = [_build.P] * 9 + [_build.I] * 10 + [_build.P]
 _ARGTYPES_INT8 = [_build.P] * 10 + [_build.I] * 10 + [_build.P]
+_ARGTYPES_GENERIC = [_build.I] + [_build.P] * 9 + [_build.I] * 7 + [_build.P]
+# The generic kernel: the most chunks of tiles a row tile, the blocks a
+# launch aims at.
+GENERIC_MAX_CHUNKS = 1024
+GENERIC_BLOCKS = 1024
 # The blocks' partials, per (device, rows, blocks, k). Calls on one
 # device share them, so they must follow one another (one stream).
 _scratch: dict = {}
@@ -100,8 +112,60 @@ def admits_int8(dtype, N: int, D: int, V: int, k: int,
     of x's dtype."""
     if dtype != torch.bfloat16:
         return False, ("band_topk_lse_int8 kernel takes bf16 x, an int8"
-                       " table and bf16 scales")
+                       " table and bf16 scales (fp32 quantize_head: ROADMAP"
+                       " Queue 3 item 1)")
     return admits(dtype, N, D, V, k, sel_limit)
+
+
+def admits_generic(dtype, N: int, D: int, V: int, k: int,
+                   sel_limit: int) -> Tuple[bool, str]:
+    """Whether the generic kernel takes x [N, D] and table [V, D] of
+    `dtype` with this k and sel_limit, and if not, why."""
+    if dtype not in _build.GENERIC_DTYPES:
+        return False, ("band_topk_lse generic kernel takes bf16 or fp32 x"
+                       " and table")
+    if not (N >= 1 and V >= 1 and D >= 1):
+        return False, (f"band_topk_lse generic: need N, V, D >= 1, got N={N},"
+                       f" V={V}, D={D}")
+    if not (1 <= k <= min(MAX_K, sel_limit) and sel_limit <= V):
+        return False, (f"band_topk_lse generic: need 1 <= k <= min({MAX_K},"
+                       " sel_limit) and sel_limit <= V")
+    return True, ""
+
+
+def route_band(dtype, N: int, D: int, V: int, k: int, sel_limit: int) -> str:
+    """"fast" (`band_topk_lse`'s kernel) where `admits` holds, else
+    "generic" where `admits_generic` holds; ValueError with both
+    reasons otherwise."""
+    ok, why = admits(dtype, N, D, V, k, sel_limit)
+    if ok:
+        return "fast"
+    ok, why_generic = admits_generic(dtype, N, D, V, k, sel_limit)
+    _build.require(ok, f"{why}; {why_generic}")
+    return "generic"
+
+
+class GenericBandPlan(NamedTuple):
+    """How the generic kernel cuts a call: row tiles of `rows` (16 or
+    32) rows; the 64-id tiles of the vocab go `tiles_per_chunk` a chunk
+    to `chunks` blocks a row tile, each walking its tiles in ascending
+    order; the merge kernel adds the chunks' states in chunk order."""
+
+    rows: int
+    row_tiles: int
+    tiles_per_chunk: int
+    chunks: int
+
+
+def generic_band_plan(N: int, V: int) -> GenericBandPlan:
+    """At most GENERIC_BLOCKS blocks (and GENERIC_MAX_CHUNKS chunks a row
+    tile), a tile of ids a block where the vocab allows, none empty."""
+    rows = 16 if N <= 16 else 32
+    row_tiles = -(-N // rows)
+    n_tiles = -(-V // TILE)
+    want = max(1, min(GENERIC_MAX_CHUNKS, GENERIC_BLOCKS // row_tiles))
+    per = -(-n_tiles // min(n_tiles, want))
+    return GenericBandPlan(rows, row_tiles, per, -(-n_tiles // per))
 
 
 def band_plan(N: int, D: int, V: int, k: int, sms: int,
@@ -181,8 +245,54 @@ def band_topk_lse(x: torch.Tensor, table: torch.Tensor, k: int,
         return band_topk_lse_plain(x, table, k, sel_limit)
     _build.require(x.device.type == "cuda",
                    f"band_topk_lse: no kernel for device {x.device}")
-    return _launch(x, table, k, table.shape[0] if sel_limit is None
-                   else sel_limit)
+    sel = table.shape[0] if sel_limit is None else sel_limit
+    if route_band(x.dtype, *x.shape, table.shape[0], k, sel) == "fast":
+        return _launch(x, table, k, sel)
+    return _launch_generic(x, table, k, sel)
+
+
+def band_topk_lse_generic(x: torch.Tensor, table: torch.Tensor, k: int,
+                          sel_limit: int | None = None):
+    """`band_topk_lse` through the generic kernel alone (see
+    `band_topk_lse_plain`). A CPU tensor takes the plain version; a
+    CUDA tensor launches the generic kernel or raises."""
+    if x.device.type == "cpu":
+        return band_topk_lse_plain(x, table, k, sel_limit)
+    _build.require(x.device.type == "cuda",
+                   f"band_topk_lse: no kernel for device {x.device}")
+    return _launch_generic(x, table, k, table.shape[0] if sel_limit is None
+                           else sel_limit)
+
+
+def _launch_generic(x, table, k, sel_limit):
+    N, D = x.shape
+    V = table.shape[0]
+    ok, why = admits_generic(x.dtype, N, D, V, k, sel_limit)
+    _build.require(ok, why)
+    _build.require(table.dtype == x.dtype and table.shape[1] == D
+                   and table.device == x.device,
+                   "band_topk_lse: table must be [V, D] of x's dtype on x's"
+                   " device")
+    _build.require(x.is_contiguous() and table.is_contiguous(),
+                   "band_topk_lse generic: inputs must be contiguous")
+    plan = generic_band_plan(N, V)
+    dev = x.device
+    vals = torch.empty(N, k, device=dev, dtype=torch.float32)
+    ids = torch.empty(N, k, device=dev, dtype=torch.int32)
+    lse = torch.empty(N, 1, device=dev, dtype=torch.float32)
+    cells = N * plan.chunks
+    scratch = torch.empty(cells * (2 + 2 * k), device=dev,
+                          dtype=torch.float32)
+    pid = scratch[(2 + k) * cells:].view(torch.int32)
+    fn = _build.function("nic_band_topk_lse_generic", _ARGTYPES_GENERIC)
+    _build.check(fn(_build.GENERIC_DTYPES[x.dtype], x.data_ptr(),
+                    table.data_ptr(), scratch.data_ptr(), scratch[cells:].data_ptr(),
+                    scratch[2 * cells:].data_ptr(), pid.data_ptr(),
+                    vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), N, D, V,
+                    sel_limit, k, plan.tiles_per_chunk, plan.chunks,
+                    _build.stream_of(x)), "band_topk_lse generic")
+    band_topk_lse_generic.launches += 1
+    return vals, ids, lse
 
 
 def _launch(x, table, k, sel_limit):
@@ -275,3 +385,4 @@ def _walk(call, x, V, k, sel_limit, int8, counted, what):
 
 band_topk_lse.launches = 0
 band_topk_lse_int8.launches = 0
+band_topk_lse_generic.launches = 0

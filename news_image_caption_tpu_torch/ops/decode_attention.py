@@ -28,6 +28,14 @@ the value product. The reference rounds the scores to the compute dtype
 before and after the scale; the port keeps them fp32, as its bf16
 kernel does (ROADMAP Queue 3, "by design"). In fp32 on the CPU the two
 agree.
+
+`decode_cross_attention_generic` is the generic variant
+(`csrc/decode_generic.cu`): bf16 or fp32, any head size from 1 to 256,
+one block an (item, head) walking the keys twice with FFMA and fp32
+sums, for the models the fast kernel does not take (fp32, the toy's head
+size 8, tiny_test's 4). `route_attention` is the one predicate that
+chooses: "fast" where `admits` holds, else "generic" where
+`admits_generic` holds, else ValueError with both reasons.
 """
 
 from __future__ import annotations
@@ -46,6 +54,10 @@ BLOCKS_PER_SM = 3           # blocks the plan aims to give a multiprocessor
 MIN_KEYS = 64               # keys a block before the plan splits further
 _ARGTYPES = [_build.P] * 5 + [_build.I] * 8 + [_build.P]
 _ARGTYPES_INT8 = [_build.P] * 7 + [_build.I] * 8 + [_build.P]
+_ARGTYPES_GENERIC = [_build.I] + [_build.P] * 5 + [_build.I] * 6 + [_build.P]
+# The generic kernel: its largest head size, keys a chunk.
+GENERIC_MAX_HEAD = 256
+GENERIC_KEYS = 32
 
 
 class AttentionPlan(NamedTuple):
@@ -77,8 +89,42 @@ def admits_int8(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
     of q's dtype."""
     if dtype != torch.bfloat16:
         return False, ("decode_cross_attention_int8 kernel takes bf16 q,"
-                       " int8 k/v, bf16 scales and an fp32 bias")
+                       " int8 k/v, bf16 scales and an fp32 bias (fp32"
+                       " quantize_kv: ROADMAP Queue 3 item 1)")
     return admits(dtype, Q, head_dim)
+
+
+def admits_generic(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
+    """Whether the generic kernel takes q/k/v of `dtype` with Q queries
+    an item and this head size, and if not, why."""
+    if dtype not in _build.GENERIC_DTYPES:
+        return False, ("decode_cross_attention generic kernel takes bf16 or"
+                       " fp32 q/k/v and an fp32 bias")
+    if not (1 <= Q <= MAX_Q and 1 <= head_dim <= GENERIC_MAX_HEAD):
+        return False, (f"decode_cross_attention generic: need 1 <= Q <="
+                       f" {MAX_Q} and a head size in 1..{GENERIC_MAX_HEAD},"
+                       f" got Q={Q}, head size {head_dim}")
+    return True, ""
+
+
+def route_attention(dtype, Q: int, head_dim: int) -> str:
+    """"fast" (`decode_cross_attention`'s kernel) where `admits` holds,
+    else "generic" where `admits_generic` holds; ValueError with both
+    reasons otherwise."""
+    ok, why = admits(dtype, Q, head_dim)
+    if ok:
+        return "fast"
+    ok, why_generic = admits_generic(dtype, Q, head_dim)
+    _build.require(ok, f"{why}; {why_generic}")
+    return "generic"
+
+
+def generic_smem_bytes(Q: int, head_dim: int) -> int:
+    """Dynamic shared memory of the generic kernel's block
+    (csrc/decode_generic.cu::att_smem_floats): q, a chunk of K and of V
+    rows (padded by one float), the chunk's scores."""
+    return 4 * (Q * head_dim + 2 * GENERIC_KEYS * (head_dim + 1)
+                + Q * GENERIC_KEYS)
 
 
 def attention_smem_bytes(Q: int, per: int, head_dim: int,
@@ -181,7 +227,66 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor,
         return decode_cross_attention_plain(q, k, v, bias, num_heads)
     _build.require(q.device.type == "cuda",
                    f"decode_cross_attention: no kernel for device {q.device}")
-    return _launch(q, k, v, bias, num_heads)
+    B, Q, E = q.shape
+    _build.require(E % num_heads == 0,
+                   "decode_cross_attention: E % num_heads != 0")
+    if route_attention(q.dtype, Q, E // num_heads) == "fast":
+        return _launch(q, k, v, bias, num_heads)
+    return _launch_generic(q, k, v, bias, num_heads)
+
+
+def decode_cross_attention_generic(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, bias: torch.Tensor,
+                                   num_heads: int) -> torch.Tensor:
+    """`decode_cross_attention` through the generic kernel alone. A CPU
+    tensor takes the plain version; a CUDA tensor launches the generic
+    kernel or raises."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_plain(q, k, v, bias, num_heads)
+    _build.require(q.device.type == "cuda",
+                   f"decode_cross_attention: no kernel for device {q.device}")
+    return _launch_generic(q, k, v, bias, num_heads)
+
+
+def _launch_generic(q, k, v, bias, num_heads):
+    B, Q, E = q.shape
+    S = k.shape[1]
+    _build.require(E % num_heads == 0,
+                   "decode_cross_attention: E % num_heads != 0")
+    ok, why = admits_generic(q.dtype, Q, E // num_heads)
+    _build.require(ok, why)
+    _build.require(k.dtype == q.dtype and v.dtype == q.dtype
+                   and bias.dtype == torch.float32,
+                   "decode_cross_attention generic kernel takes q/k/v of one"
+                   " dtype and an fp32 bias")
+    _check_kv(q, k, v, bias)
+    _build.require(B >= 1 and S >= 1,
+                   f"decode_cross_attention: need B, S >= 1, got B={B},"
+                   f" S={S}")
+    fn = _build.function("nic_decode_attention_generic", _ARGTYPES_GENERIC)
+    out = torch.empty_like(q)
+    _build.check(fn(_build.GENERIC_DTYPES[q.dtype], q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Q, S, E,
+                    num_heads, generic_smem_bytes(Q, E // num_heads),
+                    _build.stream_of(q)),
+                 "decode_cross_attention generic")
+    decode_cross_attention_generic.launches += 1
+    return out
+
+
+def _check_kv(q, k, v, bias):
+    """k, v [B, S, E] and bias [B, S] of q's batch, contiguous on q's
+    device (both kernels' check)."""
+    B, _, E = q.shape
+    S = k.shape[1]
+    _build.require(k.shape == (B, S, E) and v.shape == (B, S, E)
+                   and bias.shape == (B, S),
+                   "decode_cross_attention: k, v must be [B, S, E] and bias"
+                   " [B, S]")
+    _build.require(all(t.is_contiguous() and t.device == q.device
+                       for t in (q, k, v, bias)),
+                   "decode_cross_attention: inputs must be contiguous, on"
+                   " one device")
 
 
 def _launch(q, k, v, bias, num_heads):
@@ -195,14 +300,7 @@ def _launch(q, k, v, bias, num_heads):
                    and bias.dtype == torch.float32,
                    "decode_cross_attention kernel takes bf16 q/k/v and an"
                    " fp32 bias")
-    _build.require(k.shape == (B, S, E) and v.shape == (B, S, E)
-                   and bias.shape == (B, S),
-                   "decode_cross_attention: k, v must be [B, S, E] and bias"
-                   " [B, S]")
-    _build.require(all(t.is_contiguous() and t.device == q.device
-                       for t in (q, k, v, bias)),
-                   "decode_cross_attention: inputs must be contiguous, on"
-                   " one device")
+    _check_kv(q, k, v, bias)
     _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                    "decode_cross_attention: q, k and v must be 16-byte"
                    " aligned")
@@ -220,6 +318,7 @@ def _launch(q, k, v, bias, num_heads):
 
 
 decode_cross_attention.launches = 0
+decode_cross_attention_generic.launches = 0
 
 
 def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,

@@ -28,6 +28,19 @@ model ranks) and applies b2 and the residual at the whole kernel's
 rounding points (`ffn_epilogue`); at one rank that is the whole kernel
 bit for bit.
 
+The generic variants (`csrc/decode_generic.cu`, `decode_conv_block_generic`
+and `decode_ffn_block_generic`) take bf16 or fp32 at any C and F, K from
+1 to 32 and any head size, with FFMA and fp32 sums: the products split
+their depth over blocks, the splits' fp32 sums added in order by a
+second kernel before the epilogue (`generic_ksplit`); the conv block's
+taps, softmax and ring combine run a head and 8 rows a block, and at
+K = 1 the ring is never read. `route_conv` and `route_ffn` are the one
+predicate each wrapper chooses by: "fast" where `admits_conv` /
+`admits_ffn` hold, else "generic" where `admits_conv_generic` /
+`admits_ffn_generic` hold, else ValueError with both reasons. The
+FFN's partial mode takes the same route; its generic launches count on
+`decode_ffn_block_generic`.
+
 The plain versions keep the reference kernels' bf16 rounding points
 (pallas_decode.py:47-101 and :111-129): every product accumulates in
 fp32 and is rounded to the working dtype where the reference rounds.
@@ -45,6 +58,15 @@ from news_image_caption_tpu_torch.ops import _build
 MAX_TAPS = 32
 _CONV_ARGTYPES = [_build.P] * 12 + [_build.I] * 9 + [_build.P]
 _FFN_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P, _build.P]
+_CONV_GENERIC_ARGTYPES = [_build.I] + [_build.P] * 12 + [_build.I] * 8 \
+    + [_build.P]
+_FFN_GENERIC_ARGTYPES = [_build.I] + [_build.P] * 9 + [_build.I] * 5 \
+    + [_build.P]
+# The generic kernels' products: output columns a tile and depth a chunk,
+# the blocks a product aims at before it splits its depth, and the least
+# depth a split.
+GENERIC_COLS, GENERIC_DEPTH = 64, 32
+GENERIC_BLOCKS, GENERIC_MIN_SPLIT = 2 * _build.H100_SMS, 128
 # The conv block kernel: channels a block, rows of x a tile (the tensor
 # cores' 16-row operand), rows a launch.
 CONV_STRIP, CONV_ROWS, CONV_MAX_ROWS = 16, 16, 128
@@ -179,7 +201,42 @@ def decode_conv_block(x, cache, t, w1, b1, wl, w2, b2,
                    f"decode_conv_block: no kernel for device {x.device}")
     if not isinstance(t, torch.Tensor):
         t = int(t)
-    return _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps)
+    N, C = x.shape
+    if route_conv(x.dtype, N, C, num_heads, wl.shape[1] // num_heads,
+                  _build.sms_of(x.device)) == "fast":
+        return _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps)
+    return _launch_conv_generic(x, cache, t, w1, b1, wl, w2, b2, num_heads,
+                                taps)
+
+
+def decode_conv_block_generic(x, cache, t, w1, b1, wl, w2, b2,
+                              num_heads: int,
+                              taps: Optional[torch.Tensor] = None):
+    """`decode_conv_block` through the generic kernel alone. A CPU
+    tensor takes the plain version; a CUDA tensor launches the generic
+    kernel or raises."""
+    if x.device.type == "cpu":
+        return decode_conv_block_plain(x, cache, t, w1, b1, wl, w2, b2,
+                                       num_heads)
+    _build.require(x.device.type == "cuda",
+                   f"decode_conv_block: no kernel for device {x.device}")
+    if not isinstance(t, torch.Tensor):
+        t = int(t)
+    return _launch_conv_generic(x, cache, t, w1, b1, wl, w2, b2, num_heads,
+                                taps)
+
+
+def decode_ffn_block_generic(x, w1, b1, w2, b2):
+    """`decode_ffn_block` through the generic kernel alone; b2 None for
+    the partial mode's fp32 sums (`decode_ffn_block_partial_plain`). A
+    CPU tensor takes the plain version; a CUDA tensor launches the
+    generic kernel or raises."""
+    if x.device.type == "cpu":
+        return (decode_ffn_block_partial_plain(x, w1, b1, w2) if b2 is None
+                else decode_ffn_block_plain(x, w1, b1, w2, b2))
+    _build.require(x.device.type == "cuda",
+                   f"decode_ffn_block: no kernel for device {x.device}")
+    return _launch_ffn_generic(x, w1, b1, w2, b2)
 
 
 def decode_ffn_block(x, w1, b1, w2, b2, reduce=None):
@@ -195,7 +252,7 @@ def decode_ffn_block(x, w1, b1, w2, b2, reduce=None):
         return decode_ffn_block_plain(x, w1, b1, w2, b2)
     _build.require(x.device.type == "cuda",
                    f"decode_ffn_block: no kernel for device {x.device}")
-    return _launch_ffn(x, w1, b1, w2, b2)
+    return _launch_ffn_routed(x, w1, b1, w2, b2)
 
 
 def decode_ffn_block_partial(x, w1, b1, w2):
@@ -206,7 +263,15 @@ def decode_ffn_block_partial(x, w1, b1, w2):
         return decode_ffn_block_partial_plain(x, w1, b1, w2)
     _build.require(x.device.type == "cuda",
                    f"decode_ffn_block: no kernel for device {x.device}")
-    return _launch_ffn(x, w1, b1, w2, None)
+    return _launch_ffn_routed(x, w1, b1, w2, None)
+
+
+def _launch_ffn_routed(x, w1, b1, w2, b2):
+    N, C = x.shape
+    if route_ffn(x.dtype, N, C, w1.shape[1],
+                 _build.sms_of(x.device)) == "fast":
+        return _launch_ffn(x, w1, b1, w2, b2)
+    return _launch_ffn_generic(x, w1, b1, w2, b2)
 
 
 def _check_inputs(name, tensors, shapes):
@@ -280,6 +345,139 @@ def admits_conv(dtype, N: int, C: int, H: int, K: int,
     return True, ""
 
 
+def admits_conv_generic(dtype, N: int, C: int, H: int,
+                        K: int) -> Tuple[bool, str]:
+    """Whether the generic conv block kernel takes x [N, C] of `dtype`
+    with H heads and K taps, and if not, why."""
+    if dtype not in _build.GENERIC_DTYPES:
+        return False, "decode_conv_block generic kernel takes bf16 or fp32"
+    if not (N >= 1 and 1 <= K <= MAX_TAPS and H >= 1 and C >= 1
+            and C % H == 0):
+        return False, (f"decode_conv_block generic: need N >= 1, 1 <= K <="
+                       f" {MAX_TAPS} and C % H == 0, got N={N}, C={C}, H={H},"
+                       f" K={K}")
+    return True, ""
+
+
+def route_conv(dtype, N: int, C: int, H: int, K: int,
+               sms: int = _build.H100_SMS) -> str:
+    """"fast" (`decode_conv_block`'s kernel) where `admits_conv` holds,
+    else "generic" where `admits_conv_generic` holds; ValueError with
+    both reasons otherwise."""
+    ok, why = admits_conv(dtype, N, C, H, K, sms)
+    if ok:
+        return "fast"
+    ok, why_generic = admits_conv_generic(dtype, N, C, H, K)
+    _build.require(ok, f"{why}; {why_generic}")
+    return "generic"
+
+
+def admits_ffn_generic(dtype, N: int, C: int, F: int) -> Tuple[bool, str]:
+    """Whether the generic FFN kernel takes x [N, C] of `dtype` and an FFN
+    width F, and if not, why."""
+    if dtype not in _build.GENERIC_DTYPES:
+        return False, "decode_ffn_block generic kernel takes bf16 or fp32"
+    if not (N >= 1 and C >= 1 and F >= 1):
+        return False, (f"decode_ffn_block generic: need N, C, F >= 1, got"
+                       f" N={N}, C={C}, F={F}")
+    return True, ""
+
+
+def route_ffn(dtype, N: int, C: int, F: int,
+              sms: int = _build.H100_SMS) -> str:
+    """"fast" (`decode_ffn_block`'s kernel) where `admits_ffn` holds,
+    else "generic" where `admits_ffn_generic` holds; ValueError with
+    both reasons otherwise."""
+    ok, why = admits_ffn(dtype, N, C, F, sms)
+    if ok:
+        return "fast"
+    ok, why_generic = admits_ffn_generic(dtype, N, C, F)
+    _build.require(ok, f"{why}; {why_generic}")
+    return "generic"
+
+
+def generic_ksplit(M: int, K: int, width: int, groups: int = 1) -> int:
+    """The depth a block of a generic product of M rows, depth K and
+    `width` output columns (`groups` column sets a block, the GLU's 2):
+    all of K where the row and column tiles give GENERIC_BLOCKS blocks,
+    else K split into whole chunks of at least GENERIC_MIN_SPLIT until
+    they do."""
+    tiles = -(-M // (16 if M <= 16 else 32)) * -(-width // GENERIC_COLS)
+    splits = max(1, min(-(-GENERIC_BLOCKS // (tiles * groups)),
+                        -(-K // GENERIC_MIN_SPLIT)))
+    return -(-(-(-K // splits)) // GENERIC_DEPTH) * GENERIC_DEPTH
+
+
+def _generic_scratch(x, products):
+    """fp32 scratch for the splits' partial sums of the products, each
+    (M, K, width, groups): the largest that any of them needs."""
+    floats = 0
+    for M, K, width, groups in products:
+        ksplit = generic_ksplit(M, K, width, groups)
+        if ksplit < K:
+            floats = max(floats, -(-K // ksplit) * M * width * groups)
+    return torch.empty(max(floats, 1), device=x.device, dtype=torch.float32)
+
+
+def _launch_conv_generic(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
+    N, C = x.shape
+    H = num_heads
+    K = wl.shape[1] // H
+    ok, why = admits_conv_generic(x.dtype, N, C, H, K)
+    _build.require(ok, why)
+    pos, t = _step_or_positions(t, x)
+    if taps is None:
+        taps = pack_taps(wl, H)
+    kp = _padded_taps(K)
+    _check_inputs("decode_conv_block", (x, cache, w1, b1, wl, w2, b2, taps),
+                  [(N, C), (K - 1, N, C), (C, 2 * C), (2 * C,), (C, H * K),
+                   (C, C), (C,), (H, kp, C)])
+    fn = _build.function("nic_decode_conv_block_generic",
+                         _CONV_GENERIC_ARGTYPES)
+    h = torch.empty_like(x)
+    y = torch.empty_like(x)
+    hconv = torch.empty_like(x)
+    part = _generic_scratch(x, [(N, C, C, 2), (N, C, C, 1)])
+    _build.check(fn(_build.GENERIC_DTYPES[x.dtype], x.data_ptr(),
+                    cache.data_ptr() if K > 1 else None,
+                    None if pos is None else pos.data_ptr(), w1.data_ptr(),
+                    b1.data_ptr(), taps.data_ptr(), w2.data_ptr(),
+                    b2.data_ptr(), h.data_ptr(), hconv.data_ptr(),
+                    part.data_ptr(), y.data_ptr(), N, C, H, K, kp, t,
+                    generic_ksplit(N, C, C, 2), generic_ksplit(N, C, C),
+                    _build.stream_of(x)), "decode_conv_block generic")
+    decode_conv_block_generic.launches += 1
+    return y, h
+
+
+def _launch_ffn_generic(x, w1, b1, w2, b2):
+    """The generic kernel over x's rows; b2 None for the partial mode's
+    fp32 sums."""
+    N, C = x.shape
+    F = w1.shape[1]
+    ok, why = admits_ffn_generic(x.dtype, N, C, F)
+    _build.require(ok, why)
+    partial = b2 is None
+    _check_inputs("decode_ffn_block", (x, w1, b1, w2) + (() if partial
+                                                         else (b2,)),
+                  [(N, C), (C, F), (F,), (F, C), (C,)])
+    fn = _build.function("nic_decode_ffn_block_generic",
+                         _FFN_GENERIC_ARGTYPES)
+    h = torch.empty(N, F, device=x.device, dtype=x.dtype)
+    y = torch.empty(N, C, device=x.device,
+                    dtype=torch.float32 if partial else x.dtype)
+    part = _generic_scratch(x, [(N, C, F, 1), (N, F, C, 1)])
+    _build.check(fn(_build.GENERIC_DTYPES[x.dtype], x.data_ptr(),
+                    w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    None if partial else b2.data_ptr(), h.data_ptr(),
+                    part.data_ptr(), None if partial else y.data_ptr(),
+                    y.data_ptr() if partial else None, N, C, F,
+                    generic_ksplit(N, C, F), generic_ksplit(N, F, C),
+                    _build.stream_of(x)), "decode_ffn_block generic")
+    decode_ffn_block_generic.launches += 1
+    return y
+
+
 def conv_block_plan(N: int, C: int, H: int, K: int, sms: int
                     ) -> ConvBlockPlan:
     """The kernel's plan for x [N, C], H heads and K taps on a card of
@@ -296,6 +494,22 @@ def conv_block_plan(N: int, C: int, H: int, K: int, sms: int
                          taps, C // H // CONV_STRIP, smem)
 
 
+def _step_or_positions(t, x):
+    """(positions, t) as both conv block kernels take them: (None, t) for
+    one step index t >= 0 of every row, (pos, 0) for an int32 [N] tensor
+    of each row's position, contiguous on x's device."""
+    if not isinstance(t, torch.Tensor):
+        _build.require(t >= 0, "decode_conv_block: need t >= 0")
+        return None, t
+    N = x.shape[0]
+    _build.require(t.dtype == torch.int32 and tuple(t.shape) == (N,)
+                   and t.is_contiguous() and t.device == x.device,
+                   f"decode_conv_block: positions int32 [{N}] on"
+                   f" {x.device}, contiguous, got {t.dtype}"
+                   f" {tuple(t.shape)} on {t.device}")
+    return t, 0
+
+
 def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
     N, C = x.shape
     H = num_heads
@@ -303,16 +517,7 @@ def _launch_conv(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
     sms = _build.sms_of(x.device)
     ok, why = admits_conv(x.dtype, N, C, H, K, sms)
     _build.require(ok, why)
-    pos = t if isinstance(t, torch.Tensor) else None
-    if pos is None:
-        _build.require(t >= 0, "decode_conv_block: need t >= 0")
-    else:
-        _build.require(pos.dtype == torch.int32 and tuple(pos.shape) == (N,)
-                       and pos.is_contiguous() and pos.device == x.device,
-                       f"decode_conv_block: positions int32 [{N}] on"
-                       f" {x.device}, contiguous, got {pos.dtype}"
-                       f" {tuple(pos.shape)} on {pos.device}")
-        t = 0
+    pos, t = _step_or_positions(t, x)
     plan = conv_block_plan(N, C, H, K, sms)
     if taps is None:
         taps = pack_taps(wl, H)
@@ -469,3 +674,5 @@ def _launch_ffn(x, w1, b1, w2, b2):
 decode_conv_block.launches = 0
 decode_ffn_block.launches = 0
 decode_ffn_block_partial.launches = 0
+decode_conv_block_generic.launches = 0
+decode_ffn_block_generic.launches = 0

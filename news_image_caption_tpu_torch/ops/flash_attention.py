@@ -155,10 +155,12 @@ def admits(dtype, head_dim: int) -> Tuple[bool, str]:
     size, and if not, why. (They take any T and S.)"""
     if dtype != torch.bfloat16:
         return False, ("flash attention kernels take bf16 q/k/v, an fp32"
-                       " bias and an int32 seed of one element")
+                       " bias and an int32 seed of one element (fp32 flash:"
+                       " ROADMAP Queue 3 item 1)")
     if head_dim not in HEAD_DIMS:
         return False, (f"flash attention: the kernels take a head size E /"
-                       f" num_heads in {HEAD_DIMS}, got {head_dim}")
+                       f" num_heads in {HEAD_DIMS}, got {head_dim} (other"
+                       f" head sizes: ROADMAP Queue 3 item 1)")
     return True, ""
 
 

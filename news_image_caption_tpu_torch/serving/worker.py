@@ -105,16 +105,6 @@ def _check_sampling_args(sampling_topk: int, continuous_slots: int,
                          "(the draft-verify commit rule is greedy)")
 
 
-def check_toy_device(device) -> None:
-    """The toy's head size (32 / 4 = 8) is one the decode kernels do not
-    admit, so it serves on the CPU only."""
-    if torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "the toy model (--task toy) has head size 8, which the decode "
-            "kernels do not admit on the card (ROADMAP Queue 3 item 1); "
-            "serve it with --platform cpu")
-
-
 class Staged(dict):
     """A job's batch on the device; `event` marks the end of its copy
     on the staging stream (None where the copy was synchronous)."""
@@ -232,6 +222,9 @@ def _serving_predict(model: TransformerFlattened, cfg: GenerationConfig,
 def _build_model(dims: Dict[str, Any], device: torch.device,
                  dtype: torch.dtype, params_path: Optional[str],
                  seed: int) -> TransformerFlattened:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; build the model with "
+                           "device='cpu' to serve on the CPU")
     generator = torch.Generator(device=device).manual_seed(0)
     model = TransformerFlattened(device=device, dtype=dtype,
                                  generator=generator, **dims)
@@ -300,13 +293,20 @@ def default_model_builder(device="cuda", params_path: Optional[str] = None,
     16 steps, with the reference's serving switches (see the module).
     params_path: a '/'-joined .npz of the reference's params
     (`load_npz`), e.g. JAX's PRNGKey(0) init; otherwise random weights
-    drawn from a generator seeded with 0. CPU only (see
-    `check_toy_device`)."""
+    drawn on the CPU from a generator seeded with 0 (the same on every
+    device). On the card its decode kernels are the generic variants
+    (fp32, head size 8: `route_*` of the ops modules)."""
     check_serving_args(speculative_k, continuous_slots, continuous_beam,
                        sampling_topk)
-    check_toy_device(device)
     device = torch.device(device)
     model = _build_model(TOY, device, torch.float32, params_path, seed=0)
+    if params_path is None and device.type != "cpu":
+        # The random weights are the CPU generator's draws on every
+        # device (a device's generator draws other numbers), so the card
+        # serves the same toy as `--platform cpu`.
+        model.decoder.load_state_dict(_build_model(
+            TOY, torch.device("cpu"), torch.float32, None,
+            seed=0).decoder.state_dict())
     cfg = GenerationConfig(max_len=TOY_MAX_LEN, sampling_topk=sampling_topk,
                            sampling_temp=sampling_temp)
     predict = _serving_predict(
@@ -513,8 +513,8 @@ def full_model_builder(caption_model=None, caption_params=None,
 
 
 def decode_launches() -> Dict[str, int]:
-    """Launch counts of the four decode kernels and the two int8
-    variants in this process."""
+    """Launch counts of the four decode kernels, the two int8 variants
+    and the four generic variants in this process."""
     from news_image_caption_tpu_torch.ops import (band_topk,
                                                   decode_attention,
                                                   decode_blocks)
@@ -525,7 +525,15 @@ def decode_launches() -> Dict[str, int]:
             "decode_ffn_block": decode_blocks.decode_ffn_block.launches,
             "band_topk_lse_int8": band_topk.band_topk_lse_int8.launches,
             "decode_cross_attention_int8":
-                decode_attention.decode_cross_attention_int8.launches}
+                decode_attention.decode_cross_attention_int8.launches,
+            "band_topk_lse_generic":
+                band_topk.band_topk_lse_generic.launches,
+            "decode_cross_attention_generic":
+                decode_attention.decode_cross_attention_generic.launches,
+            "decode_conv_block_generic":
+                decode_blocks.decode_conv_block_generic.launches,
+            "decode_ffn_block_generic":
+                decode_blocks.decode_ffn_block_generic.launches}
 
 
 def is_cuda_error(e: BaseException) -> bool:

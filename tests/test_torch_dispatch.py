@@ -14,15 +14,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from news_image_caption_tpu_torch.ops.band_topk import (  # noqa: E402
-    band_topk_lse, band_topk_lse_int8, band_topk_lse_int8_plain,
-    band_topk_lse_plain)
+    band_topk_lse, band_topk_lse_generic, band_topk_lse_int8,
+    band_topk_lse_int8_plain, band_topk_lse_plain)
 from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
-    decode_cross_attention, decode_cross_attention_int8,
-    decode_cross_attention_int8_plain, decode_cross_attention_plain)
+    decode_cross_attention, decode_cross_attention_generic,
+    decode_cross_attention_int8, decode_cross_attention_int8_plain,
+    decode_cross_attention_plain)
 from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
-    decode_conv_block, decode_conv_block_plain, decode_ffn_block,
-    decode_ffn_block_partial, decode_ffn_block_partial_plain,
-    decode_ffn_block_plain, pack_taps)
+    decode_conv_block, decode_conv_block_generic, decode_conv_block_plain,
+    decode_ffn_block, decode_ffn_block_generic, decode_ffn_block_partial,
+    decode_ffn_block_partial_plain, decode_ffn_block_plain, pack_taps)
 from news_image_caption_tpu_torch.ops.dynamic_conv import (  # noqa: E402
     dynamic_conv, dynamic_conv_plain, dynamic_conv_tolerance)
 from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -32,7 +33,11 @@ from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
 KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
            "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd",
            "dynamic_conv", "band_topk_lse_int8", "decode_cross_attention_int8",
-           "decode_ffn_block_partial"]
+           "decode_ffn_block_partial", "band_topk_lse_generic",
+           "decode_cross_attention_generic", "decode_conv_block_generic",
+           "decode_ffn_block_generic"]
+GENERIC = (band_topk_lse_generic, decode_cross_attention_generic,
+           decode_conv_block_generic, decode_ffn_block_generic)
 
 
 @pytest.fixture
@@ -63,6 +68,14 @@ def _kernel_calls(device, dtype=torch.bfloat16):
     flash = (q, kf, vf, bias, seed, H, 0.1)
     lse = flash_attention_fwd_plain(*flash)[1]
     taps = torch.softmax(torch.randn(2, 9, H, K, generator=g), -1)
+    conv = (x, rn(K - 1, N, C), 9, rn(C, 2 * C, scale=0.05),
+            rn(2 * C, scale=0.05), rn(C, H * K, scale=0.05),
+            rn(C, C, scale=0.05), rn(C, scale=0.05), H)
+    ffn = (x, rn(C, F, scale=0.05), rn(F, scale=0.05), rn(F, C, scale=0.05),
+           rn(C, scale=0.05))
+    band = (x, rn(V, C, scale=0.2), 5, 250)
+    xattn = (rn(2, 3, C, scale=0.3), rn(2, S, C), rn(2, S, C),
+             torch.zeros(2, S, device=device), H)
     return {
         "dynamic_conv": (dynamic_conv, dynamic_conv_plain,
                          (rn(2, 9, C), taps.to(dtype).to(device), H)),
@@ -71,21 +84,22 @@ def _kernel_calls(device, dtype=torch.bfloat16):
         "flash_attention_bwd": (
             flash_attention_bwd, flash_attention_bwd_plain,
             (q, kf, vf, bias, seed, lse, rn(2, 9, C, scale=0.1), H, 0.1)),
-        "band_topk_lse": (band_topk_lse, band_topk_lse_plain,
-                          (x, rn(V, C, scale=0.2), 5, 250)),
+        "band_topk_lse": (band_topk_lse, band_topk_lse_plain, band),
         "decode_cross_attention": (
-            decode_cross_attention, decode_cross_attention_plain,
-            (rn(2, 3, C, scale=0.3), rn(2, S, C), rn(2, S, C),
-             torch.zeros(2, S, device=device), H)),
-        "decode_conv_block": (
-            decode_conv_block, decode_conv_block_plain,
-            (x, rn(K - 1, N, C), 9, rn(C, 2 * C, scale=0.05),
-             rn(2 * C, scale=0.05), rn(C, H * K, scale=0.05),
-             rn(C, C, scale=0.05), rn(C, scale=0.05), H)),
-        "decode_ffn_block": (
-            decode_ffn_block, decode_ffn_block_plain,
-            (x, rn(C, F, scale=0.05), rn(F, scale=0.05),
-             rn(F, C, scale=0.05), rn(C, scale=0.05))),
+            decode_cross_attention, decode_cross_attention_plain, xattn),
+        "decode_conv_block": (decode_conv_block, decode_conv_block_plain,
+                              conv),
+        "decode_ffn_block": (decode_ffn_block, decode_ffn_block_plain, ffn),
+        # The generic variants at the same inputs (they take any width).
+        "band_topk_lse_generic": (band_topk_lse_generic, band_topk_lse_plain,
+                                  band),
+        "decode_cross_attention_generic": (
+            decode_cross_attention_generic, decode_cross_attention_plain,
+            xattn),
+        "decode_conv_block_generic": (decode_conv_block_generic,
+                                      decode_conv_block_plain, conv),
+        "decode_ffn_block_generic": (decode_ffn_block_generic,
+                                     decode_ffn_block_plain, ffn),
         "decode_ffn_block_partial": (
             decode_ffn_block_partial, decode_ffn_block_partial_plain,
             (x, rn(C, F, scale=0.05), rn(F, scale=0.05),
@@ -292,11 +306,14 @@ def test_decode_attention_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         decode_cross_attention(
             q, k.transpose(0, 1).contiguous().transpose(0, 1), v, bias, H)
-    with pytest.raises(ValueError, match="bf16"):
-        decode_cross_attention(q.float(), k, v, bias, H)
-    with pytest.raises(ValueError, match="head size"):
-        decode_cross_attention(q, k, v, bias, 32)       # heads of 8
+    generic = decode_cross_attention_generic.launches
+    with pytest.raises(ValueError, match="bf16.*bf16 or fp32"):
+        decode_cross_attention(q.half(), k.half(), v.half(), bias, H)
+    q, k, v, bias, H = inputs(E=520)
+    with pytest.raises(ValueError, match="head size.*head size"):
+        decode_cross_attention(q, k, v, bias, 2)        # heads of 260
     assert decode_cross_attention.launches == before
+    assert decode_cross_attention_generic.launches == generic
 
 
 @pytest.mark.cuda
@@ -366,21 +383,30 @@ def test_decode_ffn_refuses_what_the_kernel_does_not_take(cuda_device):
         return torch.randn(*shape, device=cuda_device).bfloat16()
 
     before = decode_ffn_block.launches
+    generic = decode_ffn_block_generic.launches
     x, w1, b1, w2, b2 = rn(4, 64), rn(64, 128), rn(128), rn(128, 64), rn(64)
-    with pytest.raises(ValueError, match="C % 64 == 0"):
-        decode_ffn_block(rn(4, 96), rn(96, 128), b1, rn(128, 96), rn(96))
-    with pytest.raises(ValueError, match="F % 32 == 0"):
-        decode_ffn_block(x, rn(64, 100), rn(100), rn(100, 64), b2)
-    with pytest.raises(ValueError, match="shared memory"):
-        decode_ffn_block(rn(4, 2048), rn(2048, 64), rn(64), rn(64, 2048),
-                         rn(2048))
     with pytest.raises(ValueError, match="contiguous"):
         decode_ffn_block(x, rn(128, 64).T, b1, w2, b2)
-    with pytest.raises(ValueError, match="bf16"):
-        decode_ffn_block(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="bf16.*bf16 or fp32"):
+        decode_ffn_block(*(t.half() for t in (x, w1, b1, w2, b2)))
+    with pytest.raises(ValueError, match="one dtype"):
+        decode_ffn_block(x.float(), w1, b1, w2, b2)     # the generic route
     with pytest.raises(ValueError, match="expected"):
         decode_ffn_block(x, w1, b1, w2, rn(65))
     assert decode_ffn_block.launches == before
+    assert decode_ffn_block_generic.launches == generic
+    # The fast kernel's refusals of a width (C % 64, F % 32, its shared
+    # memory) are the generic variant's launches.
+    for args in [(rn(4, 96), rn(96, 128), b1, rn(128, 96), rn(96)),
+                 (x, rn(64, 100), rn(100), rn(100, 64), b2),
+                 (rn(4, 2048), rn(2048, 64), rn(64), rn(64, 2048),
+                  rn(2048))]:
+        got = decode_ffn_block(*args)
+        torch.testing.assert_close(got.float(),
+                                   decode_ffn_block_plain(*args).float(),
+                                   atol=0.02, rtol=0.02)
+    assert decode_ffn_block.launches == before
+    assert decode_ffn_block_generic.launches == generic + 3
 
 
 def _band_case(device, N, V, D=1024, seed=0, dup=()):
@@ -457,17 +483,27 @@ def test_band_topk_ties_go_to_the_lowest_id_on_card(cuda_device, N):
 def test_band_topk_refuses_what_the_kernel_does_not_take(cuda_device):
     x, table = _band_case(cuda_device, 4, 300, D=128)
     before = band_topk_lse.launches
-    for args, match in [((x.float(), table.float(), 1), "bf16"),
-                        ((x, table, 17), "1 <= k"),
-                        ((x, table, 5, 4), "1 <= k"),
+    generic = band_topk_lse_generic.launches
+    for args, match in [((x.half(), table.half(), 1), "bf16.*bf16 or fp32"),
+                        ((x, table, 17), "1 <= k.*1 <= k"),
+                        ((x, table, 5, 4), "1 <= k.*1 <= k"),
                         ((x, table, 1, 301), "sel_limit <= V"),
-                        ((x[:, :96].contiguous(), table[:, :96].contiguous(),
-                          1), "D % 64 == 0"),
                         ((x, table.T.contiguous().T, 1), "contiguous"),
                         ((x, table.float(), 1), "x's dtype")]:
         with pytest.raises(ValueError, match=match):
             band_topk_lse(*args)
     assert band_topk_lse.launches == before
+    assert band_topk_lse_generic.launches == generic
+    # D % 64 != 0 and fp32, which the fast kernel refuses, are the
+    # generic variant's launches.
+    for args in [(x[:, :96].contiguous(), table[:, :96].contiguous(), 3),
+                 (x.float(), table.float(), 3)]:
+        vals, ids, lse = band_topk_lse(*args)
+        pv, _, pl = band_topk_lse_plain(*args)
+        torch.testing.assert_close(vals, pv, atol=0.03125, rtol=1e-5)
+        torch.testing.assert_close(lse, pl, atol=1e-3, rtol=1e-4)
+    assert band_topk_lse.launches == before
+    assert band_topk_lse_generic.launches == generic + 2
 
 
 def _conv_case(device, N, C, H, K, seed=0):
@@ -572,24 +608,40 @@ def test_decode_conv_block_small_widths_on_card(cuda_device, N, C, H, K):
 def test_decode_conv_block_refuses_what_the_kernel_does_not_take(cuda_device):
     x, cache, w1, b1, wl, w2, b2 = _conv_case(cuda_device, 4, 64, 4, 7)
     before = decode_conv_block.launches
+    generic = decode_conv_block_generic.launches
     ok = (x, cache, 0, w1, b1, wl, w2, b2, 4)
-    f32 = tuple(a.float() if isinstance(a, torch.Tensor) else a for a in ok)
+    f16 = tuple(a.half() if isinstance(a, torch.Tensor) else a for a in ok)
+    wide = torch.zeros(64, 4 * 33, dtype=x.dtype, device=cuda_device)
     for args, match in [
-            (f32, "bf16"),
+            (f16, "bf16.*bf16 or fp32"),
             ((x, cache, -1, w1, b1, wl, w2, b2, 4), "t >= 0"),
-            ((x, cache, 0, w1, b1, wl[:, :4].contiguous(), w2, b2, 4),
-             "2 <= K <= 32"),
-            ((x, cache, 0, w1, b1, wl, w2, b2, 7), "head size"),
+            ((x, cache, 0, w1, b1, wide, w2, b2, 4), "<= K <= 32.*<= K <= 32"),
+            ((x, cache, 0, w1, b1, wl, w2, b2, 7), "head size.*C % H == 0"),
             ((x, cache[:, :3].contiguous(), 0, w1, b1, wl, w2, b2, 4),
              "expected"),
             ((x, cache, 0, w1.T.contiguous().T, b1, wl, w2, b2, 4),
              "expected|contiguous")]:
         with pytest.raises(ValueError, match=match):
             decode_conv_block(*args)
-    big = _conv_case(cuda_device, 2, 2048, 16, 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        decode_conv_block(big[0], big[1], 0, *big[2:], 16)
     assert decode_conv_block.launches == before
+    assert decode_conv_block_generic.launches == generic
+    # fp32, K = 1 and a width beyond the fast kernel's shared memory are
+    # the generic variant's launches.
+    f32 = tuple(a.float() if isinstance(a, torch.Tensor) else a for a in ok)
+    big = _conv_case(cuda_device, 2, 2048, 16, 3)
+    for args, tol in [
+            (f32, (1e-5, 1e-5)),
+            ((x, cache[:0], 5, w1, b1, wl[:, :4].contiguous(), w2, b2, 4),
+             (0.05, 0.05)),
+            ((big[0], big[1], 0, *big[2:], 16), (0.05, 0.05))]:
+        y, h = decode_conv_block(*args)
+        py, ph = decode_conv_block_plain(*args)
+        torch.testing.assert_close(h.float(), ph.float(), atol=tol[0],
+                                   rtol=tol[0])
+        torch.testing.assert_close(y.float(), py.float(), atol=tol[1],
+                                   rtol=tol[1])
+    assert decode_conv_block.launches == before
+    assert decode_conv_block_generic.launches == generic + 3
 
 
 TINY = dict(vocab_size=64, embed_dim=16, ffn_dim=32, num_heads=4,
@@ -602,16 +654,24 @@ TINY = dict(vocab_size=64, embed_dim=16, ffn_dim=32, num_heads=4,
     (torch.float32, (3, 5), "bf16"), (torch.bfloat16, (3, 5), "head size"),
     (torch.float32, (1, 3), "bf16")])
 def test_models_no_kernel_admits_raise_on_card(cuda_device, dtype,
-                                               kernel_sizes, match):
-    """A model no kernel admits (fp32, or embed 16 with 4 heads and ffn
-    32, or a pointwise layer) does not decode or train on the card
-    through a plain version: the first wrapper it reaches raises with the
-    kernel's reason, and nothing launches."""
+                                               kernel_sizes, match,
+                                               monkeypatch):
+    """A model the fast kernels do not admit (fp32, or embed 16 with 4
+    heads and ffn 32, or a pointwise layer) decodes on the card through
+    the generic variants: greedy and beam-3 launch each generic variant
+    and no fast kernel, with the tokens of the same model's plain path on
+    the card (the decode wrappers swapped for their plain versions where
+    the decoder calls them). Its training still raises with the flash
+    kernels' reason (fp32 and head sizes outside 16-128: ROADMAP Queue 3
+    item 1), and nothing launches there."""
     from news_image_caption_tpu_torch.generation.generator import \
         GenerationConfig
+    from news_image_caption_tpu_torch.models import decoder_flattened
     from news_image_caption_tpu_torch.models.captioner import \
         TransformerFlattened
+    from news_image_caption_tpu_torch.ops import adaptive, attention
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     model = TransformerFlattened(
         device=cuda_device, dtype=dtype, use_flash_train=True,
         generator=torch.Generator(device=cuda_device).manual_seed(0),
@@ -623,13 +683,32 @@ def test_models_no_kernel_admits_raise_on_card(cuda_device, dtype,
              "article_mask": torch.zeros(3, 16, dtype=torch.bool),
              "caption_ids": torch.randint(2, 64, (3, 12), generator=g)}
     batch = {k: v.to(cuda_device) for k, v in batch.items()}
-    counted = (band_topk_lse, decode_cross_attention, decode_conv_block,
-               decode_ffn_block, flash_attention_fwd, flash_attention_bwd)
+    fast = (band_topk_lse, decode_cross_attention, decode_conv_block,
+            decode_ffn_block)
+    counted = fast + GENERIC + (flash_attention_fwd, flash_attention_bwd)
+    before = [fn.launches for fn in counted]
+    cfg = GenerationConfig(max_len=8, beam_size=3)
+    with torch.no_grad():
+        tokens, _ = model.generate(batch, cfg)
+        beams, _ = model.generate_beam(batch, cfg)
+    torch.cuda.synchronize()
+    after = [fn.launches - n for fn, n in zip(counted, before)]
+    assert after[:4] == [0] * 4 and all(n > 0 for n in after[4:8])
+    assert after[8:] == [0, 0]
+    monkeypatch.setattr(adaptive, "band_topk_lse", band_topk_lse_plain)
+    monkeypatch.setattr(attention, "decode_cross_attention",
+                        decode_cross_attention_plain)
+    monkeypatch.setattr(decoder_flattened, "decode_conv_block",
+                        lambda *a, taps=None: decode_conv_block_plain(*a))
+    monkeypatch.setattr(decoder_flattened, "decode_ffn_block",
+                        lambda *a, reduce=None: decode_ffn_block_plain(*a))
+    with torch.no_grad():
+        assert torch.equal(model.generate(batch, cfg)[0], tokens)
+        assert torch.equal(model.generate_beam(batch, cfg)[0], beams)
     before = [fn.launches for fn in counted]
     with pytest.raises(ValueError, match=match):
-        model.generate(batch, GenerationConfig(max_len=8))
-    with pytest.raises(ValueError, match=match):
-        model.loss_fn(batch, torch.Generator(device=cuda_device).manual_seed(2))
+        model.loss_fn(batch,
+                      torch.Generator(device=cuda_device).manual_seed(2))
     assert [fn.launches for fn in counted] == before
 
 

@@ -1,16 +1,22 @@
-"""What each kernel admits, and the models no kernel admits (fp32, narrow
-widths, a pointwise conv layer), on the CPU.
+"""What each kernel admits, which kernel each model's decode routes to,
+and the models the fast kernels do not admit (fp32, narrow widths, a
+pointwise conv layer), on the CPU.
 
 Each kernel wrapper has one predicate, `admits(dtype, shapes...) ->
 (bool, reason)`, and its `_launch*` check calls the same predicate: here
 the launch is driven on CPU tensors with the C entry point replaced by a
 stub, over a grid of dtypes and shapes, and must accept exactly what the
-predicate admits, with the predicate's reason where it refuses. Nothing
-gives way to a plain version on the card: a wrapper takes it on CPU
-tensors only, so a model the kernels refuse decodes and trains on the
-CPU, and a decoder with `kernel_sizes=(1, 3)` is held against the JAX
-decoder there (weights through `params_from_jax`, fp32: greedy tokens
-equal, log-probs within 2e-4).
+predicate admits, with the predicate's reason where it refuses. The four
+decode wrappers have a generic variant each (`admits*_generic`,
+`_launch*_generic`, held the same way) and choose between the two by one
+predicate, `route_*(dtype, shapes...) -> "fast" | "generic"`: the
+flagship in bf16 routes "fast" everywhere, the fp32 flagship, the tiny
+configs' and the toy's widths and a K = 1 layer "generic", and a shape
+neither takes raises with both reasons. Nothing gives way to a plain
+version on the card: a wrapper takes it on CPU tensors only; a decoder
+with `kernel_sizes=(1, 3)` is held against the JAX decoder here (weights
+through `params_from_jax`, fp32: greedy tokens equal, log-probs within
+2e-4).
 """
 
 import numpy as np
@@ -40,6 +46,7 @@ from news_image_caption_tpu_torch.ops import (_build, band_topk,  # noqa: E402
                                               decode_attention,
                                               decode_blocks, flash_attention)
 from news_image_caption_tpu_torch.ops.conv import DynamicConv  # noqa: E402
+from news_image_caption_tpu_torch.serving.worker import TOY  # noqa: E402
 
 DTYPES = [torch.bfloat16, torch.float32, torch.float16]
 TINY = dict(vocab_size=64, embed_dim=16, ffn_dim=32, num_heads=4,
@@ -196,10 +203,188 @@ def test_every_kernel_admits_the_flagship(N):
 def test_models_no_kernel_admits_are_refused_with_the_reason(dtype, cfg,
                                                              reasons):
     """An fp32 model and the widths of configs/tiny_test.yaml (embed 16,
-    4 heads, ffn 32): every kernel refuses, and says why."""
+    4 heads, ffn 32): every fast kernel refuses, and says why; every
+    generic variant admits them; the flash kernels still refuse (ROADMAP
+    Queue 3 item 1)."""
     answers = _model_answers(dtype, cfg, 1)
     for (op, got), text in zip(answers.items(), reasons):
         assert all(not ok and text in why for ok, why in got), op
+    assert "Queue 3 item 1" in answers["flash_attention"][0][1]
+    generic = _generic_answers(dtype, cfg, 1)
+    assert all(a == (True, "") for op in generic.values() for a in op)
+
+
+def _generic_answers(dtype, cfg, N):
+    """Each generic variant's answer for a model of `cfg` at `dtype` and N
+    rows."""
+    D, H, F = cfg["embed_dim"], cfg["num_heads"], cfg["ffn_dim"]
+    return {
+        "decode_conv_block": [decode_blocks.admits_conv_generic(dtype, N, D, H,
+                                                                K)
+                              for K in cfg["kernel_sizes"]],
+        "decode_cross_attention": [decode_attention.admits_generic(
+            dtype, 1, D // H)],
+        "decode_ffn_block": [decode_blocks.admits_ffn_generic(dtype, N, D, F)],
+        "band_topk_lse": [band_topk.admits_generic(dtype, N, D, V, 1, sel)
+                          for V, sel in _bands(cfg)]}
+
+
+def _bands(cfg):
+    """(V, sel_limit) of the adaptive softmax's bands: the head [table0;
+    class rows] with its words selectable, then the tails."""
+    cut = cfg["cutoff"]
+    return [(cut[0] + len(cut) - 1, cut[0])] + [
+        (hi - lo, hi - lo) for lo, hi in zip(cut, cut[1:])]
+
+
+def _routes(dtype, cfg, N):
+    """Each decode wrapper's route for a model of `cfg` at `dtype`: N
+    rows, the attention's queries one an item (N <= 16) or a beam-5
+    step's five."""
+    D, H, F = cfg["embed_dim"], cfg["num_heads"], cfg["ffn_dim"]
+    Q = 1 if N <= 16 else 5
+    return {
+        "decode_conv_block": [decode_blocks.route_conv(dtype, N, D, H, K)
+                              for K in cfg["kernel_sizes"]],
+        "decode_cross_attention": [decode_attention.route_attention(
+            dtype, Q, D // H)],
+        "decode_ffn_block": [decode_blocks.route_ffn(dtype, N, D, F)],
+        "band_topk_lse": [band_topk.route_band(dtype, N, D, V, min(5, sel),
+                                               sel)
+                          for V, sel in _bands(cfg)]}
+
+
+@pytest.mark.parametrize("N", [1, 16, 80, 640])
+def test_flagship_routes_fast(N):
+    """The flagship at bf16, one row to a beam-5 step at B=128: every
+    decode wrapper routes "fast", so every shape launched before the
+    generic variants existed launches the same kernel."""
+    routes = _routes(torch.bfloat16, FLAGSHIP, N)
+    assert all(r == "fast" for op in routes.values() for r in op), routes
+
+
+@pytest.mark.parametrize("N", [1, 16, 80])
+@pytest.mark.parametrize("dtype,cfg", [
+    (torch.float32, FLAGSHIP), (torch.bfloat16, TINY),
+    (torch.float32, TINY), (torch.float32, TOY)],
+    ids=["fp32_flagship", "bf16_tiny", "fp32_tiny", "toy"])
+def test_models_the_fast_kernels_refuse_route_generic(dtype, cfg, N):
+    """The fp32 flagship, configs/tiny_test.yaml's widths in bf16 and
+    fp32, and the toy (`serving/worker.py::TOY`, fp32, head size 8):
+    every decode wrapper routes "generic"."""
+    routes = _routes(dtype, cfg, N)
+    assert all(r == "generic" for op in routes.values() for r in op), routes
+
+
+@pytest.mark.parametrize("N", [1, 16, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pointwise_layer_routes_generic(dtype, N):
+    """A K = 1 layer at the flagship's width: its conv block routes
+    "generic" (the fast kernel needs K >= 2), in bf16 beside K = 3 layers
+    that route "fast"."""
+    assert decode_blocks.route_conv(dtype, N, 1024, 16, 1) == "generic"
+    assert decode_blocks.route_conv(dtype, N, 1024, 16, 3) == (
+        "fast" if dtype == torch.bfloat16 else "generic")
+
+
+@pytest.mark.parametrize("route,args,reasons", [
+    (band_topk.route_band, (torch.float16, 4, 64, 100, 1, 100),
+     ("takes bf16 x", "bf16 or fp32")),
+    (band_topk.route_band, (torch.bfloat16, 4, 64, 100, 17, 100),
+     ("1 <= k", "generic: need 1 <= k")),
+    (decode_attention.route_attention, (torch.float16, 1, 64),
+     ("takes bf16 q/k/v", "bf16 or fp32")),
+    (decode_attention.route_attention, (torch.float32, 17, 64),
+     ("1 <= Q <= 16", "generic: need 1 <= Q <= 16")),
+    (decode_attention.route_attention, (torch.bfloat16, 1, 260),
+     ("head size", "head size in 1..256")),
+    (decode_blocks.route_conv, (torch.float16, 4, 64, 4, 3),
+     ("takes bf16", "bf16 or fp32")),
+    (decode_blocks.route_conv, (torch.bfloat16, 4, 64, 4, 33),
+     ("2 <= K <= 32", "1 <= K <= 32")),
+    (decode_blocks.route_conv, (torch.float32, 4, 64, 7, 3),
+     ("takes bf16", "C % H == 0")),
+    (decode_blocks.route_ffn, (torch.float16, 4, 64, 128),
+     ("takes bf16", "bf16 or fp32"))])
+def test_routes_raise_with_both_reasons(route, args, reasons):
+    """A shape neither kernel takes raises, naming the fast kernel's
+    reason and the generic variant's."""
+    with pytest.raises(ValueError) as e:
+        route(*args)
+    assert all(r in str(e.value) for r in reasons), str(e.value)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,D,V,k,sel", [
+    (1, 1024, 5002, 1, 5000), (80, 1024, 30265, 5, 30265), (5, 32, 18, 5, 16),
+    (1, 16, 32, 16, 32), (3, 1, 5, 5, 5), (40, 100, 129, 16, 129),
+    (4, 32, 18, 17, 18), (4, 32, 18, 0, 16), (4, 32, 18, 5, 19),
+    (4, 32, 18, 17, 16)])
+def test_band_generic_admits_is_what_its_launch_accepts(stub_library, dtype,
+                                                        N, D, V, k, sel):
+    ok, why = band_topk.admits_generic(dtype, N, D, V, k, sel)
+    before = band_topk.band_topk_lse_generic.launches
+    got = launch_outcome(band_topk._launch_generic, z(dtype, N, D),
+                         z(dtype, V, D), k, sel)
+    assert got == (ok, why)
+    assert band_topk.band_topk_lse_generic.launches == before + int(ok)
+    assert ok == (dtype in (torch.bfloat16, torch.float32)
+                  and 1 <= k <= min(16, sel) and sel <= V)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,C,H,K", [
+    (16, 1024, 16, 31), (80, 1024, 16, 1), (1, 32, 4, 3), (5, 16, 4, 5),
+    (40, 48, 3, 32), (4, 32, 4, 33), (4, 32, 4, 0), (4, 30, 4, 3),
+    (4, 2048, 16, 3)])
+def test_conv_generic_admits_is_what_its_launch_accepts(stub_library, dtype,
+                                                        N, C, H, K):
+    ok, why = decode_blocks.admits_conv_generic(dtype, N, C, H, K)
+    args = (z(dtype, N, C), z(dtype, max(K - 1, 0), N, C), 3,
+            z(dtype, C, 2 * C), z(dtype, 2 * C), z(dtype, C, H * K),
+            z(dtype, C, C), z(dtype, C), H, None)
+    before = decode_blocks.decode_conv_block_generic.launches
+    assert launch_outcome(decode_blocks._launch_conv_generic,
+                          *args) == (ok, why)
+    assert decode_blocks.decode_conv_block_generic.launches == before + int(ok)
+    assert ok == (dtype in (torch.bfloat16, torch.float32) and 1 <= K <= 32
+                  and C % H == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("N,C,F", [(16, 1024, 4096), (80, 1024, 4096),
+                                   (1, 32, 64), (5, 16, 32), (33, 100, 200),
+                                   (4, 2048, 64)])
+def test_ffn_generic_admits_is_what_its_launch_accepts(stub_library, dtype,
+                                                       partial, N, C, F):
+    ok, why = decode_blocks.admits_ffn_generic(dtype, N, C, F)
+    args = (z(dtype, N, C), z(dtype, C, F), z(dtype, F), z(dtype, F, C),
+            None if partial else z(dtype, C))
+    before = decode_blocks.decode_ffn_block_generic.launches
+    assert launch_outcome(decode_blocks._launch_ffn_generic,
+                          *args) == (ok, why)
+    assert decode_blocks.decode_ffn_block_generic.launches == before + int(ok)
+    assert ok == (dtype in (torch.bfloat16, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Q,E,H", [(1, 1024, 16), (5, 32, 4), (4, 16, 4),
+                                   (16, 512, 2), (3, 39, 13), (2, 4, 4),
+                                   (17, 32, 4), (1, 520, 2)])
+def test_attention_generic_admits_is_what_its_launch_accepts(stub_library,
+                                                             dtype, Q, E, H):
+    B, S = 2, 6
+    ok, why = decode_attention.admits_generic(dtype, Q, E // H)
+    args = (z(dtype, B, Q, E), z(dtype, B, S, E), z(dtype, B, S, E),
+            torch.zeros(B, S), H)
+    before = decode_attention.decode_cross_attention_generic.launches
+    assert launch_outcome(decode_attention._launch_generic,
+                          *args) == (ok, why)
+    assert (decode_attention.decode_cross_attention_generic.launches
+            == before + int(ok))
+    assert ok == (dtype in (torch.bfloat16, torch.float32) and Q <= 16
+                  and E // H <= 256)
 
 
 def test_tiny_model_decodes_and_trains_on_the_cpu():

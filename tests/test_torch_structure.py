@@ -269,5 +269,5 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         _build.build()
     assert {p.name for p in _build.sources()} == {
         "common.cuh", "band_topk.cu", "decode_attention.cu",
-        "decode_blocks.cu", "decode_ffn.cu", "dynamic_conv.cu",
-        "flash_attention.cu"}
+        "decode_blocks.cu", "decode_ffn.cu", "decode_generic.cu",
+        "dynamic_conv.cu", "flash_attention.cu"}
