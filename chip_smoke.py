@@ -400,7 +400,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      on the card, `evaluate -m best` from it and `evaluate
      configs/tiny_pointer.yaml` (bf16 decodes on the generic variants,
      finite metrics) (the `generic` JSON line; the four `*_generic`
-     entries of the kernels line with `variant_of`).
+     entries of the kernels line with `variant_of`). Phases 3 to 26
+     launch none of phase 27's variants.
+  27. the generic variants of the two flash kernels
+     (`csrc/flash_generic.cu`; fp32, head sizes 1 to 256) and of the two
+     int8 variants (`csrc/decode_generic.cu`; fp32, any width), TF32
+     off: each against its plain version on the card (fp32 1e-5 +
+     1e-5 |ref|, bf16 phase 3's and phase 21's tolerances, second calls
+     bit-equal); the generic flash dropping the fast kernel's slots
+     (v = I) and, at the fast kernel's shape, its lse within 1e-5 of the
+     fast kernel's; its shard forms at m = 2 bit-equal to the whole
+     launch; the fp32 flagship's train step (flash) and greedy and
+     beam-5 steps (int8) at B=16, timed; the train command on the
+     flagship YAML at trainer.mixed_precision fp32, 8 steps at B=16 and
+     a val batch, 8 generic flash launches a step each way and no fast
+     one, its first 3 losses within 1e-5 relative of the same command
+     with `flash_cross_attention_plain` in the attention's place; `train
+     configs/tiny_test.yaml` in bf16 with flash at heads of 4 and 8 and
+     `evaluate configs/tiny_test.yaml` with quantize_kv, only generic
+     launches; the fp32 flagship decoding greedy and beam-5 at B=16
+     under quantize_kv and quantize_head, 3 / 8 / 4 / 4 generic launches
+     a step (the int8 ones for the band and the attention), tokens equal
+     to the plain path's (the `generic27` JSON line; the four new
+     `*_generic` entries of the kernels line).
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -7227,29 +7249,49 @@ def mesh_overhead_mode(torch, order: str = "pmpm") -> None:
 GENERIC_OF = {"band_topk_lse_generic": "band_topk_lse",
               "decode_cross_attention_generic": "decode_cross_attention",
               "decode_conv_block_generic": "decode_conv_block",
-              "decode_ffn_block_generic": "decode_ffn_block"}
+              "decode_ffn_block_generic": "decode_ffn_block",
+              # Phase 27's: the flash kernels' and the int8 variants'.
+              "flash_attention_fwd_generic": "flash_attention_fwd",
+              "flash_attention_bwd_generic": "flash_attention_bwd",
+              "band_topk_lse_int8_generic": "band_topk_lse_int8",
+              "decode_cross_attention_int8_generic":
+                  "decode_cross_attention_int8"}
+# The decode kernels' four (phase 26) and phase 27's four.
+DECODE_GENERIC = tuple(GENERIC_OF)[:4]
+GENERIC27 = tuple(GENERIC_OF)[4:]
 # fp32 against the fp32 plain version: the sums differ in order only.
 FP32_TOL = (1e-5, 1e-5)
 
 
 def generic_counted() -> dict:
-    """The four generic variants' wrappers, by their kernels-line name
+    """The eight generic variants' wrappers, by their kernels-line name
     (each counts its launches in `.launches`)."""
     from news_image_caption_tpu_torch.ops import (band_topk,
                                                   decode_attention,
-                                                  decode_blocks)
+                                                  decode_blocks,
+                                                  flash_attention)
     return {"band_topk_lse_generic": band_topk.band_topk_lse_generic,
             "decode_cross_attention_generic":
                 decode_attention.decode_cross_attention_generic,
             "decode_conv_block_generic":
                 decode_blocks.decode_conv_block_generic,
-            "decode_ffn_block_generic": decode_blocks.decode_ffn_block_generic}
+            "decode_ffn_block_generic": decode_blocks.decode_ffn_block_generic,
+            "flash_attention_fwd_generic":
+                flash_attention.flash_attention_fwd_generic,
+            "flash_attention_bwd_generic":
+                flash_attention.flash_attention_bwd_generic,
+            "band_topk_lse_int8_generic":
+                band_topk.band_topk_lse_int8_generic,
+            "decode_cross_attention_int8_generic":
+                decode_attention.decode_cross_attention_int8_generic}
 
 
-def no_generic(phase: str) -> None:
+def no_generic(phase: str, names=tuple(GENERIC_OF)) -> None:
     """Phases 3 to 25 run the flagship's widths in bf16, where every
-    wrapper routes "fast": no generic variant may have launched."""
-    n = {name: fn.launches for name, fn in generic_counted().items()}
+    wrapper routes "fast": no generic variant of `names` may have
+    launched since the first phase (phase 26 resets its four only)."""
+    n = {name: fn.launches for name, fn in generic_counted().items()
+         if name in names}
     check(not any(n.values()),
           f"phase {phase} launched a generic variant: {n}")
 
@@ -7274,9 +7316,9 @@ def generic_kernel_phase(torch, ops):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(26)
     f32, bf16 = torch.float32, torch.bfloat16
-    greedy = {name: Tally("fp32") for name in GENERIC_OF}
-    beam = {name: Tally("fp32") for name in GENERIC_OF}
-    worst = dict.fromkeys(GENERIC_OF, 0.0)
+    greedy = {name: Tally("fp32") for name in DECODE_GENERIC}
+    beam = {name: Tally("fp32") for name in DECODE_GENERIC}
+    worst = dict.fromkeys(DECODE_GENERIC, 0.0)
 
     def rn(dtype, *shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev)
@@ -7493,10 +7535,11 @@ def generic_kernel_phase(torch, ops):
 
 
 def plain_decode():
-    """A context manager: the four decode wrappers, where the decoder's
-    modules call them, swapped for their plain versions, so that a model
-    decodes on the card through plain PyTorch (TF32 off): phase 26's
-    yardstick for the kernel path on the same card and weights."""
+    """A context manager: the four decode wrappers and the two int8 ones,
+    where the decoder's modules call them, swapped for their plain
+    versions, so that a model decodes on the card through plain PyTorch
+    (TF32 off): phases 26's and 27's yardstick for the kernel path on the
+    same card and weights."""
     import contextlib
 
     from news_image_caption_tpu_torch.models import decoder_flattened
@@ -7506,6 +7549,10 @@ def plain_decode():
     swaps = [(adaptive, "band_topk_lse", band_topk.band_topk_lse_plain),
              (attention, "decode_cross_attention",
               decode_attention.decode_cross_attention_plain),
+             (adaptive, "band_topk_lse_int8",
+              band_topk.band_topk_lse_int8_plain),
+             (attention, "decode_cross_attention_int8",
+              decode_attention.decode_cross_attention_int8_plain),
              (decoder_flattened, "decode_conv_block",
               lambda *a, taps=None: decode_blocks.decode_conv_block_plain(
                   *a)),
@@ -7550,15 +7597,18 @@ def token_ties(what: str, got, want, lp_got, lp_want, tol: float = 1e-5):
     return ties
 
 
-def generic_decode_phase(torch, counted):
+def generic_decode_phase(torch, counted, quantize: bool = False):
     """Phase 26.2. The flagship decoder in fp32 (seeded random weights,
     full width and depth) decoding greedy at B=16 and beam-5 at B=16 over
     32 steps on the card: every decode call through the generic variants
     (3 / 8 / 4 / 4 a step, the fast kernels none), tokens against the
     same model's plain path on the card (`plain_decode`). A greedy row
     may differ only at a near-tie (`token_ties`); a beam item only where
-    its best scores agree within 1e-4, reported. Returns ({path: {kernel:
-    launches}}, summary)."""
+    its best scores agree within 1e-4, reported. quantize (phase 27.4):
+    the same under quantize_kv and quantize_head (the int8 head tables
+    made once, `decode_weights(quantize_head=True)`), the band's 3 and
+    the attention's 8 calls a step through the int8 generic variants.
+    Returns ({path: {kernel: launches}}, summary)."""
     from news_image_caption_tpu_torch.config import FLAGSHIP
     from news_image_caption_tpu_torch.generation.generator import \
         GenerationConfig
@@ -7572,14 +7622,27 @@ def generic_decode_phase(torch, counted):
     rng = np.random.RandomState(26)
     job = make_job(rng, 16, rng.randint(20, 513, size=16))
     batch = {k: torch.as_tensor(v).to(dev) for k, v in job.items()}
-    per_step = greedy_launches_a_step()
-    gen_names = {GENERIC_OF[n]: n for n in GENERIC_OF}
+    # The generic variant each decode call takes, launches a step.
+    route = {"band_topk_lse": "band_topk_lse_generic",
+             "decode_cross_attention": "decode_cross_attention_generic",
+             "decode_conv_block": "decode_conv_block_generic",
+             "decode_ffn_block": "decode_ffn_block_generic"}
+    if quantize:
+        route.update(band_topk_lse="band_topk_lse_int8_generic",
+                     decode_cross_attention=(
+                         "decode_cross_attention_int8_generic"))
+    want = dict.fromkeys(counted, 0)
+    for fast, n in greedy_launches_a_step().items():
+        want[route[fast]] = n * 32
+    tag = "fp32_int8" if quantize else "fp32"
     launches, summary = {}, {"card": card_line()}
     with torch.no_grad():
-        weights = model.decoder.decode_weights()
-        for path, beam in (("fp32_greedy_b16", False),
-                           ("fp32_beam5_b16", True)):
-            cfg = GenerationConfig(max_len=32, early_exit=False, beam_size=5)
+        weights = model.decoder.decode_weights(quantize_head=quantize)
+        for path, beam in ((f"{tag}_greedy_b16", False),
+                           (f"{tag}_beam5_b16", True)):
+            cfg = GenerationConfig(max_len=32, early_exit=False, beam_size=5,
+                                   quantize_kv=quantize,
+                                   quantize_head=quantize)
             run = model.generate_beam if beam else model.generate
             run(batch, cfg, weights)                    # warm-up
             for fn in counted.values():
@@ -7595,10 +7658,7 @@ def generic_decode_phase(torch, counted):
                 ptok, pscore = run(batch, cfg, weights)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t) * 1e3
-            for fast, n in per_step.items():
-                check(got[fast] == 0 and got[gen_names[fast]] == n * 32,
-                      f"{path}: launches {got}, expected {n} a step of"
-                      f" {gen_names[fast]} over 32 steps and no {fast}")
+            check(got == want, f"{path}: launches {got}, expected {want}")
             launches[path] = {name: n for name, n in got.items() if n}
             tok, ptok = tok.cpu().numpy(), ptok.cpu().numpy()
             score, pscore = score.float().cpu().numpy(), \
@@ -7705,8 +7765,8 @@ def toy_serve_phase(torch, platforms=("cuda", "cpu")):
                   f" HTTP requests, ms {[round(x, 1) for x in lat]}, start"
                   f" to ready {ready_s:.1f} s", flush=True)
     worker = summary[platforms[0]]["kernel_launches"]
-    check(all(worker[g] > 0 and worker[f] == 0
-              for g, f in GENERIC_OF.items()),
+    check(all(worker[g] > 0 and worker[GENERIC_OF[g]] == 0
+              for g in DECODE_GENERIC),
           f"the card's toy worker launched {worker}")
     check(not any(summary[platforms[1]]["kernel_launches"].values()),
           "the CPU's toy worker counted a launch")
@@ -7721,7 +7781,7 @@ def toy_serve_phase(torch, platforms=("cuda", "cpu")):
     summary["ties"] = token_ties("serve --task toy, card against CPU",
                                  tokens[platforms[0]], tokens[platforms[1]],
                                  lps[platforms[0]], lps[platforms[1]])
-    return {name: worker[name] for name in GENERIC_OF}, summary
+    return {name: worker[name] for name in DECODE_GENERIC}, summary
 
 
 def tiny_commands_phase(torch, counted):
@@ -7764,8 +7824,8 @@ def tiny_commands_phase(torch, counted):
             check(metrics["n_samples"] == 8
                   and all(math.isfinite(metrics[k]) for k in keys),
                   f"{path}: metrics {metrics}")
-            check(all(got[g] > 0 and got[f] == 0
-                      for g, f in GENERIC_OF.items()),
+            check(all(got[g] > 0 and got[GENERIC_OF[g]] == 0
+                      for g in DECODE_GENERIC),
                   f"{path}: launches {got}")
             launches[path] = {name: n for name, n in got.items() if n}
             summary[path] = {"s": wall,
@@ -7786,7 +7846,8 @@ def generic_phase(torch, ops, counted):
     serve command, 26.4 the tiny configs' commands. Returns ({path:
     {kernel: launches}}, the greedy and beam-5 step tallies of 26.1, the
     worst error a kernel, summary)."""
-    gcounted = generic_counted()
+    gcounted = {n: fn for n, fn in generic_counted().items()
+                if n in DECODE_GENERIC}
     counted = dict(counted, **gcounted)
     t = time.perf_counter()
     greedy, beam, worst = generic_kernel_phase(torch, ops)
@@ -7799,6 +7860,506 @@ def generic_phase(torch, ops, counted):
     launches.update(tiny_launches)
     summary["seconds"] = time.perf_counter() - t
     return launches, greedy, beam, worst, summary
+
+
+# -- phase 27: generic flash kernels and the int8 generic variants ------
+
+# fp32 flagship train command: the steps, and the first steps whose losses
+# the plain flash path must give within 1e-5 relative.
+FP32_TRAIN_STEPS, FP32_TRAIN_HELD = 8, 3
+
+
+def flash_generic_case(torch, flash, what: str, q, k, v, g, bias, seed,
+                       H: int, p: float, tallies=None, calls: int = 1):
+    """The generic flash forward and backward at these inputs against
+    their plain versions and a second call bit for bit: fp32 within
+    1e-5 + 1e-5 |ref| (out, lse, dq, dk, dv), bf16 at phase 3's
+    tolerances (`flash_errors`). With `tallies`, add the errors and
+    `calls` calls of each kernel's time beside its plain version's and
+    the library's (scaled_dot_product_attention with dropout_p = p, and
+    its backward through autograd). Returns the worst error."""
+    fargs = (q, k, v, bias, seed, H, p)
+    out, lse = flash.flash_attention_fwd_generic(*fargs)
+    grads = flash.flash_attention_bwd_generic(q, k, v, bias, seed, lse, g,
+                                              H, p)
+    out2, lse2 = flash.flash_attention_fwd_generic(*fargs)
+    grads2 = flash.flash_attention_bwd_generic(q, k, v, bias, seed, lse, g,
+                                               H, p)
+    torch.cuda.synchronize()
+    pout, plse = flash.flash_attention_fwd_plain(*fargs)
+    pgrads = flash.flash_attention_bwd_plain(q, k, v, bias, seed, plse, g, H,
+                                             p)
+    got, want = (out, lse, *grads), (pout, plse, *pgrads)
+    if q.dtype == torch.float32:
+        cases = [within(a, b, *FP32_TOL) for a, b in zip(got, want)]
+        errs, oks = [e for e, _ in cases], [ok for _, ok in cases]
+        tol = "1e-5+1e-5|ref|"
+    else:
+        errs, oks = flash_errors(got, want)
+        tol = "phase 3's"
+    same = (torch.equal(out, out2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+    print(f"  flash generic {what}: out {errs[0]:.3g}, lse {errs[1]:.3g},"
+          f" dq {errs[2]:.3g}, dk {errs[3]:.3g}, dv {errs[4]:.3g} (tol"
+          f" {tol}), repeated call bit-equal {same}", flush=True)
+    check(all(oks), f"flash generic {what} disagrees with its plain twin")
+    check(same, f"flash generic {what}: two calls on the same inputs differ")
+    if tallies is None:
+        return max(errs)
+    fwd = tallies["flash_attention_fwd_generic"]
+    bwd = tallies["flash_attention_bwd_generic"]
+    fwd.errs += errs[:2]
+    bwd.errs += errs[2:]
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lout = sdpa(torch, lq, lk, lv, bias, H, p)
+    B, T, E = q.shape
+    flops = 4.0 * B * T * k.shape[1] * E
+    line = fwd.add(
+        (q, k, v, bias, seed, out, lse), flops,
+        time_ms(lambda: flash.flash_attention_fwd_generic(*fargs)),
+        time_ms(lambda: flash.flash_attention_fwd_plain(*fargs)),
+        time_ms(lambda: sdpa(torch, q, k, v, bias, H, p)), calls=calls)
+    print(f"    time flash_attention_fwd_generic {what}: {line}")
+    line = bwd.add(
+        (q, k, v, bias, seed, lse, g, *grads), 2.5 * flops,
+        time_ms(lambda: flash.flash_attention_bwd_generic(
+            q, k, v, bias, seed, lse, g, H, p)),
+        time_ms(lambda: flash.flash_attention_bwd_plain(
+            q, k, v, bias, seed, plse, g, H, p)),
+        time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), g,
+                                            retain_graph=True)), calls=calls)
+    print(f"    time flash_attention_bwd_generic {what}: {line}")
+    return max(errs)
+
+
+def flash_generic_phase(torch, flash, tallies, worst) -> None:
+    """Phase 27.1, flash. The generic kernels' dropout mask (v = I) equal
+    to the plain generator's and to the fast kernel's at the shapes both
+    take; at the fast kernels' shape (bf16, heads of 64, p = 0.1) the two
+    routes' lse within 1e-5 and out within phase 3's tolerance; the fp32
+    flagship's train-step calls (B=16, T=63, S' = 514 and 51, 16 heads of
+    64, p = 0.1), timed, 4 layers each; head sizes 1, 4 (tiny_test), 8
+    (the toy), 24, 129 and 256 in fp32 and bf16 at one and several query
+    and key tiles, an item's keys padded, an item with every key padded;
+    the shard forms at m = 2 (h0 = 0 and 8 of 16 heads) bit-equal to the
+    whole launch's heads."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    f32, bf16 = torch.float32, torch.bfloat16
+    name_f, name_b = "flash_attention_fwd_generic", "flash_attention_bwd_generic"
+
+    def rn(dtype, *shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    for B, T, S, H in ((2, 8, 64, 1), (2, 130, 128, 2)):
+        eye = torch.eye(S, device=dev, dtype=bf16).repeat(B, 1, H)
+        args = (rn(bf16, B, T, H * S, scale=0.3), rn(bf16, B, S, H * S), eye,
+                torch.zeros(B, S, device=dev), seed, H, 0.25)
+        kept = {route: (fn(*args)[0].float() > 0).view(B, T, H, S)
+                .transpose(1, 2) for route, fn in (
+                    ("generic", flash.flash_attention_fwd_generic),
+                    ("fast", flash.flash_attention_fwd))}
+        keep = flash.dropout_keep(seed, B, H, T, S, 0.25)
+        same = bool(torch.equal(kept["generic"], keep)) and bool(
+            torch.equal(kept["generic"], kept["fast"]))
+        print(f"  flash generic dropout mask T={T} S'={S} H={H}: the plain"
+              f" generator's and the fast kernel's {same}", flush=True)
+        check(same, "the generic flash kernel drops other slots than the"
+              " plain generator or the fast kernel")
+
+    E, H, p = 1024, 16, 0.1
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+
+    def inputs(dtype, B, T, S, E, H, padded_item=False):
+        q = rn(dtype, B, T, E, scale=(E // H) ** -0.5)
+        k, v, g = rn(dtype, B, S, E), rn(dtype, B, S, E), rn(dtype, B, T, E,
+                                                            scale=0.1)
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:max(S - 2, S // 2)] = -1e9
+        if padded_item:
+            bias[0] = -1e9
+        return q, k, v, g, bias
+
+    # The two routes at the fast kernels' shape, article context.
+    q, k, v, g, bias = inputs(bf16, 16, 63, 514, E, H)
+    (go, gl), (fo, fl) = (fn(q, k, v, bias, seed, H, p) for fn in (
+        flash.flash_attention_fwd_generic, flash.flash_attention_fwd))
+    e_l, ok_l = within(gl, fl, 1e-5, 1e-5)
+    e_o, ok_o = within(go, fo, 0.02, 0.02)
+    print(f"  flash generic against the fast kernel, bf16 B=16 T=63 S'=514"
+          f" p={p}: lse {e_l:.3g} (tol 1e-5+1e-5|ref|), out {e_o:.3g} (tol"
+          f" 0.02+0.02|ref|)", flush=True)
+    check(ok_l and ok_o, "the generic and fast flash kernels disagree")
+
+    # The fp32 flagship's train step, timed.
+    for S in (514, 51):
+        q, k, v, g, bias = inputs(f32, 16, 63, S, E, H)
+        e = flash_generic_case(torch, flash, f"fp32 B=16 T=63 S'={S} p={p}",
+                               q, k, v, g, bias, seed, H, p, tallies, calls=4)
+        worst[name_f] = worst[name_b] = max(worst[name_f], e)
+
+    # Head sizes, query and key tiles.
+    for dtype in (f32, bf16):
+        for E_, H_ in ((4, 4), (16, 4), (32, 4), (96, 4), (129, 1),
+                       (256, 1)):
+            for B, T, S in ((2, 10, 24), (3, 1, 5), (2, 70, 65), (2, 33, 1)):
+                q, k, v, g, bias = inputs(dtype, B, T, S, E_, H_,
+                                          padded_item=(B == 3))
+                e = flash_generic_case(
+                    torch, flash, f"{str(dtype)[6:]} B={B} T={T} S'={S}"
+                    f" E={E_} H={H_} p={p}", q, k, v, g, bias, seed, H_, p)
+                worst[name_f] = worst[name_b] = max(worst[name_f], e)
+
+    # Shard forms at m = 2: heads [h0, h0 + 8) of 16 against the whole
+    # launch, bit for bit.
+    for dtype, E_, H_ in ((f32, E, H), (bf16, 96, 4)):
+        q, k, v, g, bias = inputs(dtype, 16, 63, 514, E_, H_)
+        out, lse = flash.flash_attention_fwd_generic(q, k, v, bias, seed, H_,
+                                                     p)
+        grads = flash.flash_attention_bwd_generic(q, k, v, bias, seed, lse, g,
+                                                  H_, p)
+        m, w = 2, E_ // 2
+        same = True
+        for r in range(m):
+            cols = slice(r * w, (r + 1) * w)
+            sq, sk, sv, sg = (t[..., cols].contiguous() for t in (q, k, v, g))
+            h0 = r * H_ // m
+            sout, slse = flash.flash_attention_fwd_generic(
+                sq, sk, sv, bias, seed, H_ // m, p, h0=h0, heads_total=H_)
+            sgrads = flash.flash_attention_bwd_generic(
+                sq, sk, sv, bias, seed, slse, sg, H_ // m, p, h0=h0,
+                heads_total=H_)
+            same = (same and torch.equal(sout, out[..., cols])
+                    and torch.equal(slse, lse[:, h0:h0 + H_ // m])
+                    and all(torch.equal(a, b[..., cols])
+                            for a, b in zip(sgrads, grads)))
+        print(f"  flash generic shard forms, {str(dtype)[6:]} E={E_} H={H_},"
+              f" m = 2 (h0 = 0, {H_ // 2}): bit-equal to the whole launch's"
+              f" heads {same}", flush=True)
+        check(same, "a generic flash shard form differs from the whole"
+              " launch")
+
+
+def int8_generic_phase(torch, ops, greedy, beam, worst) -> None:
+    """Phase 27.1, int8. `band_topk_lse_int8_generic` and
+    `decode_cross_attention_int8_generic` against their plain versions,
+    second calls bit-equal, the tables and K/V quantized from seeded ones
+    by the port's own quantizers: the fp32 flagship's greedy step (16
+    rows, k = 1, Q = 1) and beam-5 step (80 rows, k = 5, Q = 5) at B=16,
+    timed (the three int8 word tables, the image and article contexts of
+    every layer); tiny_test's widths in bf16 (embed 16, heads of 4, int8
+    tables of 16 / 16 / 32 rows), the toy's in fp32 (embed 32, heads of
+    8), other widths. Tolerances: fp32 1e-5 + 1e-5 |ref|; bf16 phase
+    21's (values 0.03125, lse 1e-3 + 1e-4 |lse|, attention 0.02 + 0.02
+    |ref|)."""
+    from news_image_caption_tpu_torch.ops.adaptive import \
+        quantize_embed_tables
+    from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
+                                                            quantize_kv)
+    band, xattn = ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(127)
+    f32, bf16 = torch.float32, torch.bfloat16
+    nb, na = "band_topk_lse_int8_generic", "decode_cross_attention_int8_generic"
+
+    def rn(dtype, *shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def tol(dtype, bf):
+        return FP32_TOL if dtype == f32 else bf
+
+    def bcase(dtype, N, D, V, k, tally=None):
+        ((qt, _),) = quantize_embed_tables([(rn(dtype, V, D,
+                                                scale=D ** -0.5), None)])
+        x = rn(dtype, N, D)
+        args = (x, qt.q, qt.scale, k)
+        got = band.band_topk_lse_int8_generic(*args)
+        again = band.band_topk_lse_int8_generic(*args)
+        want = band.band_topk_lse_int8_plain(*args)
+        torch.cuda.synchronize()
+        logits = ((x.float() @ qt.q.float().T) * qt.scale.float()).to(
+            dtype).float()
+        tv = tol(dtype, (0.03125, 0.0))
+        e_v, ok_v = within(got[0], want[0], *tv)
+        e_l, ok_l = within(got[2], want[2], *tol(dtype, (1e-3, 1e-4)))
+        e_i, ok_i = within(torch.gather(logits, 1, got[1].long()), want[0],
+                           *tv)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        agree = (got[1] == want[1]).float().mean().item()
+        what = f"{str(dtype)[6:]} N={N} D={D} V={V} k={k}"
+        print(f"  {nb} {what}: values {e_v:.3g}, lse {e_l:.3g}, plain logit"
+              f" at chosen ids {e_i:.3g}, ids equal {agree:.3f}, repeated"
+              f" call bit-equal {same}", flush=True)
+        check(ok_v and ok_l and ok_i and bool((got[1] >= 0).all())
+              and bool((got[1] < V).all()), f"{nb} {what} disagrees with its"
+              " plain version")
+        check(same, f"{nb} {what}: two calls on the same inputs differ")
+        worst[nb] = max(worst[nb], e_v, e_l)
+        if tally is None:
+            return
+        tally.errs += [e_v, e_l]
+
+        def library():
+            lg = (x @ qt.q.to(dtype).T) * qt.scale
+            return torch.logsumexp(lg, -1), torch.topk(lg, k)
+        line = tally.add(
+            (x, qt.q, qt.scale, *got), 2.0 * N * V * D,
+            time_ms(lambda: band.band_topk_lse_int8_generic(*args)),
+            time_ms(lambda: band.band_topk_lse_int8_plain(*args)),
+            time_ms(library))
+        print(f"    time: {line}", flush=True)
+
+    def acase(dtype, B, Q, S, E, H, tally=None, one_key=False):
+        bias = torch.zeros(B, S, device=dev)
+        bias[B // 2:, S // 2:max(S - 2, S // 2)] = -1e9
+        if one_key:
+            bias[0] = -1e9
+            bias[0, S // 3] = 0.0
+        kv = quantize_kv(AttentionKV(rn(dtype, B, S, E), rn(dtype, B, S, E),
+                                     bias), H)
+        q = rn(dtype, B, Q, E, scale=(E // H) ** -0.5)
+        args = (q, kv.k_q, kv.k_scale, kv.v_q, kv.v_scale, kv.bias, H)
+        got = xattn.decode_cross_attention_int8_generic(*args)
+        again = xattn.decode_cross_attention_int8_generic(*args)
+        want = xattn.decode_cross_attention_int8_plain(*args)
+        torch.cuda.synchronize()
+        e, ok = within(got, want, *tol(dtype, (0.02, 0.02)))
+        same = bool(torch.equal(got, again))
+        what = (f"{str(dtype)[6:]} B={B} Q={Q} S'={S} E={E} H={H}"
+                + (" (item 0: one key)" if one_key else ""))
+        print(f"  {na} {what}: {e:.3g}, repeated call bit-equal {same}",
+              flush=True)
+        check(ok, f"{na} {what} disagrees with its plain version")
+        check(same, f"{na} {what}: two calls on the same inputs differ")
+        worst[na] = max(worst[na], e)
+        if tally is None:
+            return
+        tally.errs.append(e)
+        dh = E // H
+
+        def widened(t, scale):
+            return (t.to(dtype).view(B, S, H, dh) * scale[..., None]).view(
+                B, S, E)
+
+        def library():
+            return sdpa(torch, q, widened(kv.k_q, kv.k_scale),
+                        widened(kv.v_q, kv.v_scale), kv.bias, H)
+        line = tally.add(
+            (*args[:6], got), 4.0 * B * Q * S * E,
+            time_ms(lambda: xattn.decode_cross_attention_int8_generic(*args)),
+            time_ms(lambda: xattn.decode_cross_attention_int8_plain(*args)),
+            time_ms(library), calls=4)
+        print(f"    time, 4 layers: {line}", flush=True)
+
+    # The fp32 flagship's steps at B=16, timed; 640 rows held.
+    N, D, H = 16, 1024, 16
+    for V in (5000, 15000, 30265):
+        bcase(f32, N, D, V, 1, greedy[nb])
+        bcase(f32, 5 * N, D, V, 5, beam[nb])
+    bcase(f32, 640, D, 5000, 5)
+    for S in (514, 51):
+        acase(f32, N, 1, S, D, H, greedy[na])
+        acase(f32, N, 5, S, D, H, beam[na])
+    acase(f32, N, 5, 514, D, H, one_key=True)
+    # tiny_test's widths in bf16, the toy's in fp32, other widths.
+    for dtype, D_, Vs in ((bf16, 16, (16, 16, 32)), (f32, 32, (16, 16, 32))):
+        for N_ in (1, 5):
+            for V in Vs:
+                for k in (1, 5):
+                    bcase(dtype, N_, D_, V, k)
+        for Q in (1, 4, 5):
+            for S in (5, 6, 18):
+                acase(dtype, 2, Q, S, D_, 4)
+        acase(dtype, 3, 1, 6, D_, 4, one_key=True)
+    for dtype in (f32, bf16):
+        bcase(dtype, 37, 100, 129, 16)
+        acase(dtype, 2, 3, 33, 39, 13)
+        acase(dtype, 2, 16, 70, 512, 2)
+
+
+def fp32_train_command_phase(torch, flash, counted):
+    """Phase 27.2. The train command on the flagship YAML at
+    trainer.mixed_precision fp32 (full width and depth, flash on, the
+    YAML's dropouts, B=16), FP32_TRAIN_STEPS steps and a val batch: every
+    flash call through the generic kernels (8 a train step or val batch
+    forward, 8 a step backward), no fast flash launch; then the same
+    command with `flash_cross_attention_plain` in the attention's place
+    on the card (the same mask, drawn through `dropout_keep`): the first
+    FP32_TRAIN_HELD steps' losses within 1e-5 relative. Returns
+    ({path: {kernel: launches}}, summary)."""
+    from news_image_caption_tpu_torch import cli
+    from news_image_caption_tpu_torch.config import FLAGSHIP
+    from news_image_caption_tpu_torch.ops import attention
+    n_layers = FLAGSHIP["num_layers"]
+    B, steps = 16, FP32_TRAIN_STEPS
+    runs, launches, summary = {}, {}, {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in ("fp32_train_command", "fp32_train_plain_flash"):
+            ovr = {"dataset": {"train": {"size": steps * B},
+                               "val": {"size": B}, "test": {"size": B}},
+                   "trainer": {"num_epochs": 1, "log_every": 1,
+                               "num_serialized_models_to_keep": 1,
+                               "optimizer": {"t_total": 100},
+                               "mixed_precision": "fp32",
+                               "serialization_dir": f"{tmp}/{path}"}}
+            for fn in counted.values():
+                fn.launches = 0
+            real = attention.flash_cross_attention
+            if path.endswith("plain_flash"):
+                attention.flash_cross_attention = \
+                    flash.flash_cross_attention_plain
+            t = time.perf_counter()
+            try:
+                rc = cli.main(["train", EVAL_CONFIG, "-o", json.dumps(ovr)])
+            finally:
+                attention.flash_cross_attention = real
+            wall = time.perf_counter() - t
+            got = {n: fn.launches for n, fn in counted.items()}
+            check(rc == 0, f"{path}: train returned {rc}")
+            with open(f"{tmp}/{path}/metrics.jsonl") as f:
+                recs = [json.loads(line) for line in f]
+            train = [r["loss"] for r in recs if r["split"] == "train"]
+            val = [r["loss"] for r in recs if r["split"] == "val"]
+            check(len(train) == steps and len(val) == 1
+                  and all(np.isfinite(train + val)), f"{path}: records {recs}")
+            want = dict.fromkeys(counted, 0)
+            if path == "fp32_train_command":
+                want["flash_attention_fwd_generic"] = 2 * n_layers * (steps + 1)
+                want["flash_attention_bwd_generic"] = 2 * n_layers * steps
+            check(got == want, f"{path}: launches {got}, expected {want}")
+            launches[path] = {n: c for n, c in got.items() if c}
+            runs[path] = (train, val)
+            summary[path] = {"wall_s": wall, "train_loss": train,
+                             "val_loss": val, "launches": launches[path]}
+            print(f"  {path}: {wall:.1f} s, losses"
+                  f" {[round(x, 6) for x in train]}, val {val[0]:.6f},"
+                  f" launches {launches[path]}", flush=True)
+    (lk, vk), (lp, vp) = runs["fp32_train_command"], \
+        runs["fp32_train_plain_flash"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    summary["relative_loss_gaps"] = rel
+    summary["val_relative_gap"] = abs(vk[0] - vp[0]) / abs(vp[0])
+    print(f"  the generic kernels' losses against the plain flash path's:"
+          f" relative gaps {[f'{r:.3g}' for r in rel]} (first"
+          f" {FP32_TRAIN_HELD} held to 1e-5), val"
+          f" {summary['val_relative_gap']:.3g}", flush=True)
+    check(all(r <= 1e-5 for r in rel[:FP32_TRAIN_HELD]),
+          "the fp32 train command's losses differ from the plain flash"
+          " path's")
+    return launches, summary
+
+
+def tiny_generic_commands_phase(torch, counted):
+    """Phase 27.3. `train configs/tiny_test.yaml` on the card in bf16 with
+    use_flash_train at heads of 4 (the config's) and of 8 (2 heads):
+    the flash calls through the generic kernels only, losses finite; then
+    `evaluate configs/tiny_test.yaml` with generation.quantize_kv (random
+    init, bf16 on the card, heads of 4): the context attention through
+    the int8 generic variant only, finite metrics. Returns ({path:
+    {kernel: launches}}, summary)."""
+    import math
+
+    from news_image_caption_tpu_torch import cli
+    launches, summary = {}, {}
+    keys = ("bleu-1", "bleu-4", "cider", "rouge-l")
+    with tempfile.TemporaryDirectory() as tmp:
+        for heads in (4, 2):
+            path = f"tiny_bf16_flash_train_h{heads}"
+            ovr = {"model": {"decoder": {"use_flash_train": True,
+                                         "num_heads": heads}},
+                   "trainer": {"mixed_precision": "bf16",
+                               "serialization_dir": f"{tmp}/{path}"}}
+            for fn in counted.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            rc = cli.main(["train", "configs/tiny_test.yaml", "-o",
+                           json.dumps(ovr)])
+            wall = time.perf_counter() - t
+            got = {n: fn.launches for n, fn in counted.items()}
+            check(rc == 0, f"{path}: train returned {rc}")
+            with open(f"{tmp}/{path}/metrics.jsonl") as f:
+                losses = [json.loads(line)["loss"] for line in f]
+            check(losses and all(np.isfinite(losses)),
+                  f"{path}: losses {losses}")
+            check(got["flash_attention_fwd_generic"] > 0
+                  and got["flash_attention_bwd_generic"] > 0
+                  and got["flash_attention_fwd"] == 0
+                  and got["flash_attention_bwd"] == 0,
+                  f"{path}: launches {got}")
+            launches[path] = {n: c for n, c in got.items() if c}
+            summary[path] = {"s": wall, "losses": losses,
+                             "launches": launches[path]}
+            print(f"  train configs/tiny_test.yaml, bf16, flash, heads of"
+                  f" {16 // heads}: {wall:.1f} s, losses"
+                  f" {[round(x, 4) for x in losses]}, launches"
+                  f" {launches[path]}", flush=True)
+        path, ev = "tiny_test_evaluate_quantize_kv", f"{tmp}/evaluate"
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["evaluate", "configs/tiny_test.yaml", "-o",
+                       json.dumps({"generation": {"quantize_kv": True},
+                                   "trainer": {"serialization_dir": ev}})])
+        wall = time.perf_counter() - t
+        got = {n: fn.launches for n, fn in counted.items()}
+        check(rc == 0, f"{path}: evaluate returned {rc}")
+        with open(f"{ev}/evaluate-metrics.json") as f:
+            metrics = json.load(f)
+        check(metrics["n_samples"] == 8
+              and all(math.isfinite(metrics[k]) for k in keys),
+              f"{path}: metrics {metrics}")
+        check(got["decode_cross_attention_int8_generic"] > 0
+              and got["decode_cross_attention_int8"] == 0
+              and got["decode_cross_attention"] == 0
+              and got["decode_cross_attention_generic"] == 0,
+              f"{path}: launches {got}")
+        launches[path] = {n: c for n, c in got.items() if c}
+        summary[path] = {"s": wall, "metrics": {k: metrics[k] for k in keys},
+                         "launches": launches[path]}
+        print(f"  evaluate configs/tiny_test.yaml with quantize_kv:"
+              f" {wall:.1f} s, metrics"
+              f" { {k: round(metrics[k], 4) for k in keys} }, launches"
+              f" {launches[path]}", flush=True)
+    return launches, summary
+
+
+def generic27_phase(torch, ops, counted):
+    """Phase 27 (see the module): 27.1 the generic flash kernels and the
+    int8 generic variants against their plain versions, 27.2 the fp32
+    flagship's train command against the plain flash path, 27.3 the tiny
+    config's bf16 flash training and its evaluate with quantize_kv, 27.4
+    the fp32 flagship's greedy and beam-5 decodes under quantize_kv and
+    quantize_head. Returns ({path: {kernel: launches}}, {kernel: result}
+    of a train step (flash) or greedy step (int8), the beam-5 step's
+    int8 results, the worst error a kernel, summary)."""
+    band, xattn, flash = ops
+    step = {n: Tally("fp32") for n in GENERIC27}
+    beam = {n: Tally("fp32") for n in GENERIC27[2:]}
+    worst = dict.fromkeys(GENERIC27, 0.0)
+    t = time.perf_counter()
+    flash_generic_phase(torch, flash, step, worst)
+    int8_generic_phase(torch, (band, xattn), step, beam, worst)
+    summary = {"kernels_s": time.perf_counter() - t}
+    counted = dict(counted, flash_attention_fwd=flash.flash_attention_fwd,
+                   flash_attention_bwd=flash.flash_attention_bwd,
+                   band_topk_lse_int8=band.band_topk_lse_int8,
+                   decode_cross_attention_int8=(
+                       xattn.decode_cross_attention_int8),
+                   **generic_counted())
+    launches, summary["fp32_train_command"] = fp32_train_command_phase(
+        torch, flash, counted)
+    more, summary["tiny_commands"] = tiny_generic_commands_phase(torch,
+                                                                 counted)
+    launches.update(more)
+    more, summary["fp32_flagship_int8"] = generic_decode_phase(
+        torch, counted, quantize=True)
+    launches.update(more)
+    summary["seconds"] = time.perf_counter() - t
+    return (launches, {n: t_.result() for n, t_ in step.items()},
+            {n: t_.result() for n, t_ in beam.items()}, worst, summary)
 
 
 def main() -> None:
@@ -8161,6 +8722,28 @@ def main() -> None:
         **gen_summary, "beam5_step_b16_fp32": gen_beam,
         "max_abs_err_all_cases": gen_worst, "launches": gen_launches}}),
         flush=True)
+    no_generic("26", GENERIC27)
+
+    print("phase 27: the generic flash kernels and the int8 generic"
+          " variants (fp32, any head size): each against its plain version"
+          " on the card, the fp32 flagship's train command against the plain"
+          " flash path, the tiny config's bf16 flash training and its"
+          " evaluate with quantize_kv, the fp32 flagship's greedy and beam-5"
+          " decodes under quantize_kv and quantize_head", flush=True)
+    g27_launches, g27_step, g27_beam, g27_worst, g27_summary = \
+        generic27_phase(torch, (band_topk, decode_attention,
+                                flash_attention), counted)
+    for path, counts in g27_launches.items():
+        for name, n in counts.items():
+            if name in GENERIC_OF and n:
+                launches[name] += n
+                by_path[name][path] = n
+    timing.update(g27_step)
+    gen_worst.update(g27_worst)
+    print(json.dumps({"generic27": {
+        **g27_summary, "beam5_step_b16_fp32": g27_beam,
+        "max_abs_err_all_cases": g27_worst, "launches": g27_launches}}),
+        flush=True)
 
     sources = {"band_topk_lse": ("band_topk.cu", "pallas_topk.py:124"),
                "decode_cross_attention": ("decode_attention.cu",
@@ -8200,7 +8783,17 @@ def main() -> None:
                "decode_conv_block_generic": ("decode_generic.cu",
                                              "pallas_decode.py:177"),
                "decode_ffn_block_generic": ("decode_generic.cu",
-                                            "pallas_decode.py:133")}
+                                            "pallas_decode.py:133"),
+               # Phase 27's: the flash kernels at fp32 and any head size,
+               # the int8 variants at fp32 and narrow widths.
+               "flash_attention_fwd_generic": ("flash_generic.cu",
+                                               "pallas_flash.py:243"),
+               "flash_attention_bwd_generic": ("flash_generic.cu",
+                                               "pallas_flash.py:266"),
+               "band_topk_lse_int8_generic": ("decode_generic.cu",
+                                              "pallas_topk.py:124"),
+               "decode_cross_attention_int8_generic": ("decode_generic.cu",
+                                                       "pallas_kernels.py:146")}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"news_image_caption_tpu_torch/csrc/{src}",
                 "replaces": f"news_image_caption_tpu/ops/{tpu}",
@@ -8240,7 +8833,9 @@ def main() -> None:
           " and 4, max_abs_err every rank's against its plain version;"
           " for the generic variants, a greedy step of the fp32 flagship at"
           " B=16, library_ms the fast kernels' chains in fp32, the bound at"
-          " fp32 bytes and 67 TFLOP/s;"
+          " fp32 bytes and 67 TFLOP/s, the generic flash kernels' a train"
+          " step of the fp32 flagship at B=16, the int8 generic variants'"
+          " a greedy step under quantize_kv / quantize_head;"
           f" train step {step_ms:.2f} ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -65,9 +65,10 @@ switches: `--speculative-k`, `--continuous-slots` (with
 
 All three run on the card unless `--platform cpu` is given, and raise
 where there is no card. On the card the model computes in bf16 (the kernels'
-type), except that `train` at fp32 computes in fp32 and so raises for a
-model with `use_flash_train` (the flash kernels take bf16; ROADMAP Queue 3
-item 1); `evaluate` casts the checkpoint's params to bf16 and decodes
+type), except that `train` at fp32 computes in fp32, a model with
+`use_flash_train` then through the flash kernels' generic variants
+(`ops/flash_attention.py::route_flash`, as for bf16 heads outside 16-128);
+`evaluate` casts the checkpoint's params to bf16 and decodes
 through the four decode kernels: the fast ones at the flagship's widths,
 their generic variants at any other (`configs/tiny_test.yaml` and
 `tiny_pointer.yaml`: embed 16, 4 heads). On the CPU `train` computes
@@ -398,12 +399,6 @@ def _loss_batches(batches, model):
                else loss_inputs(b, keep))
 
 
-def _flash_train(cfg: Dict) -> bool:
-    """Whether the config's model trains through the flash kernels."""
-    return any(getattr(m, "use_flash", False) for m in
-               build_model(cfg, "meta").param_module.modules())
-
-
 def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
     cfg = load_config(args.param_path, args.overrides)
     tcfg = cfg.get("trainer", {})
@@ -423,12 +418,6 @@ def train_command(args, timings: Optional[Dict[str, Any]] = None) -> int:
     mesh = make_mesh(MeshConfig(**mesh_cfg), device.type) if mesh_cfg \
         else None
     precision = _precision(cfg)
-    if device.type == "cuda" and precision == "fp32" and _flash_train(cfg):
-        raise ValueError(
-            "trainer.mixed_precision fp32 on the card with "
-            "use_flash_train: the flash kernels take bf16 only; choose "
-            "mixed_precision bf16 or bf16_o2, or set use_flash_train: "
-            "false to train through the plain attention")
     serialization_dir = _serialization_dir(cfg, args.param_path,
                                            args.serialization_dir)
     model = training_model(cfg, device, int(tcfg.get("seed", 0)))

@@ -154,6 +154,44 @@ __device__ __forceinline__ void zero16(void* smem) {
   *reinterpret_cast<uint4*>(smem) = make_uint4(0u, 0u, 0u, 0u);
 }
 
+// The flash kernels' dropout (flash_attention.cu, flash_generic.cu), one
+// copy, so that every kernel drops the same slots: a stateless hash of
+// (seed, b, head, t, s). The seed is mixed as the TPU kernel mixes it,
+// key = seed * 2654435761 + ((b + row0) * heads_total + h0 + head)
+// (mod 2^32), row0 the batch's first row in a data-parallel run's
+// global batch and h0 a tensor-parallel rank's first head among
+// heads_total; row_key = fmix32(key ^ fmix32(t + 0x9e3779b9)), bits =
+// fmix32(row_key + s) (fmix32: the murmur3 finalizer), kept where bits
+// >= threshold = floor(p 2^32). ops/flash_attention.py::dropout_keep
+// computes the same bits in torch integer ops.
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t dropout_key(int seed, int b, int row0,
+                                                int heads_total, int h0,
+                                                int head) {
+  return (uint32_t)seed * 2654435761u +
+         (uint32_t)((b + row0) * heads_total + h0 + head);
+}
+
+__device__ __forceinline__ uint32_t row_key(uint32_t key, int t) {
+  return fmix32(key ^ fmix32((uint32_t)t + 0x9e3779b9u));
+}
+
+// Dropout multiplier of slot s in the row whose key is rk: 0 where
+// dropped, else scale (1 / (1 - p); 1 without dropout).
+__device__ __forceinline__ float drop_scale(uint32_t rk, int s,
+                                            uint32_t threshold, float scale) {
+  if (threshold == 0u) return scale;
+  return fmix32(rk + (uint32_t)s) >= threshold ? scale : 0.f;
+}
+
 // Two int8 values as a bf16 pair packed the way mma_bf16 reads its
 // operands, `lo` in the lower half. Exact: an int8 has 8 significant
 // bits at most, and bf16 holds 8.

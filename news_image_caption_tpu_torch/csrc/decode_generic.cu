@@ -13,6 +13,15 @@
 //   - decode cross-attention: fp32 scores q . k + bias and softmax, the
 //     probabilities rounded to v's dtype, fp32 value sums rounded to q's
 //     dtype (ops/pallas_kernels.py::decode_cross_attention);
+//   - the int8 variants of those two (the routes of the reference's
+//     quantized head and K/V, which it computes in XLA: ops/adaptive.py
+//     QuantTable, ops/attention.py QuantDecodeKV), the same walks with an
+//     int8 operand and its scales (of the working dtype): a band logit is
+//     the fp32 sum times its row's scale, rounded once; an attention
+//     score the fp32 sum times its key's K scale plus the bias, a
+//     probability rounded, times its key's V scale, rounded again
+//     (ops/band_topk.py::band_topk_lse_int8_plain,
+//     ops/decode_attention.py::decode_cross_attention_int8_plain);
 //   - the FFN block: h = relu(r(r(x w1) + b1)), y = r(r(r(h w2) + b2) + x),
 //     or the fp32 sum h w2 in the partial mode (ops/pallas_decode.py::
 //     decode_ffn_block);
@@ -55,8 +64,13 @@
 //     256: a first walk over the keys in chunks of 32 finds each query's
 //     max and sum of exponentials, a second recomputes the scores, forms
 //     the rounded probabilities and adds the value rows.
+// The int8 variants are template instantiations of the band walk and the
+// attention with an int8 table or int8 K and V (`if constexpr` on the
+// operand's type), so the bf16 and fp32 instantiations keep their code.
 // A call is one launch on its wrapper's count (the band, FFN and conv
 // block run two to five kernels in it, as band_topk.cu's two).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -81,6 +95,7 @@ enum Epi { EPI_RELU = 0, EPI_RESID = 1, EPI_SUM = 2, EPI_GLU = 3 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ld(const int8_t* p) { return (float)*p; }
 
 template <class T>
 __device__ __forceinline__ float round_to(float v);
@@ -109,10 +124,11 @@ __host__ __device__ constexpr int tile_smem_floats() {
 // row-major [M, lda]; B(k, n) is B[k * ldb + n] (a weight [K, N]) or,
 // NK, B[n * ldb + k] (a table's rows). Rows >= M, columns >= n_end and
 // depth >= k1 read as 0. k0 is a multiple of KC. Starts and ends with
-// every thread of the block past a barrier.
-template <class T, bool NK, int RPT, int NB>
+// every thread of the block past a barrier. B's elements are of type TB
+// (T, or int8 for the int8 band).
+template <class T, bool NK, int RPT, int NB, class TB = T>
 __device__ void tile_gemm(const T* __restrict__ A, int lda, int M, int m0,
-                          const T* __restrict__ B, int ldb, int goff, int n0,
+                          const TB* __restrict__ B, int ldb, int goff, int n0,
                           int n_end, int k0, int k1, float (&acc)[NB][RPT][4],
                           float* smem) {
   constexpr int RT = 16 * RPT;
@@ -380,10 +396,14 @@ __device__ __forceinline__ bool beats(float v, int id, float kv, int kid) {
 
 // Grid (row tiles, chunks). Block (g, c) walks the tiles of chunk c in
 // ascending order for rows [g * RT, (g + 1) * RT); warp w owns rows
-// w * RPW ..: their max, sum of exponentials and top-k list.
-template <class T, int RPT>
+// w * RPW ..: their max, sum of exponentials and top-k list. TB int8:
+// the table is int8 with one scale a row (`scale`, of x's dtype; null
+// otherwise), and a logit is the fp32 sum times its row's scale, rounded
+// once to x's dtype.
+template <class T, int RPT, class TB = T>
 __global__ void __launch_bounds__(THREADS)
-    band_walk_kernel(const T* __restrict__ x, const T* __restrict__ table,
+    band_walk_kernel(const T* __restrict__ x, const TB* __restrict__ table,
+                     const T* __restrict__ scale,
                      float* __restrict__ pmax, float* __restrict__ psum,
                      float* __restrict__ pval, int* __restrict__ pid, int N,
                      int D, int V, int sel_limit, int k, int tiles_per_chunk,
@@ -409,11 +429,19 @@ __global__ void __launch_bounds__(THREADS)
   for (int tile = t0; tile < t1; ++tile) {
     const int n0 = tile * TN;
     float acc[1][RPT][4] = {};
-    tile_gemm<T, true, RPT, 1>(x, D, N, m0, table, D, 0, n0, V, 0, D, acc, smem);
+    tile_gemm<T, true, RPT, 1, TB>(x, D, N, m0, table, D, 0, n0, V, 0, D, acc, smem);
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ls[ty + 16 * i][4 * tx + j] = round_to<T>(acc[0][i][j]);
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (std::is_same<TB, int8_t>::value) {
+          const int col = n0 + 4 * tx + j;
+          Ls[ty + 16 * i][4 * tx + j] =
+              round_to<T>(acc[0][i][j] * (col < V ? ld(scale + col) : 0.f));
+        } else {
+          Ls[ty + 16 * i][4 * tx + j] = round_to<T>(acc[0][i][j]);
+        }
+      }
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < RPW; ++j) {
@@ -515,11 +543,17 @@ __host__ __device__ constexpr int att_smem_floats(int Q, int dh) {
   return Q * dh + 2 * ATT_KEYS * (dh + 1) + Q * ATT_KEYS;
 }
 
-template <class T>
+// TK int8: K and V are int8 with one scale a (item, key, head)
+// (k_scale, v_scale [B, S, H] of q's dtype; null otherwise): a score is
+// the fp32 sum times its key's K scale plus the bias, a probability is
+// rounded to q's dtype, times its key's V scale, and rounded again.
+template <class T, class TK = T>
 __global__ void __launch_bounds__(THREADS)
-    attn_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ bias,
+    attn_generic_kernel(const T* __restrict__ q, const TK* __restrict__ k,
+                        const TK* __restrict__ v, const T* __restrict__ k_scale,
+                        const T* __restrict__ v_scale, const float* __restrict__ bias,
                         T* __restrict__ out, int Q, int S, int E, int H) {
+  constexpr bool INT8 = std::is_same<TK, int8_t>::value;
   extern __shared__ __align__(16) float sm[];
   const int hd = blockIdx.x, b = blockIdx.y, dh = E / H, DP = dh + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -549,6 +583,9 @@ __global__ void __launch_bounds__(THREADS)
         const int i = e / ATT_KEYS, s = e % ATT_KEYS;
         float dot = 0.f;
         for (int d = 0; d < dh; ++d) dot = fmaf(qs[i * dh + d], ks[s * DP + d], dot);
+        if constexpr (INT8) {
+          if (s < n_keys) dot *= ld(k_scale + ((size_t)b * S + s0 + s) * H + hd);
+        }
         sc[e] = s < n_keys ? dot + bias[(size_t)b * S + s0 + s] : -INFINITY;
       }
       __syncthreads();
@@ -563,8 +600,12 @@ __global__ void __launch_bounds__(THREADS)
           lrow[j] = lrow[j] * expf(mrow[j] - mn) + warp_sum(ex);
           mrow[j] = mn;
         } else {
-          sc[i * ATT_KEYS + lane] =
-              lane < n_keys ? round_to<T>(expf(x - mrow[j]) / lrow[j]) : 0.f;
+          float p = lane < n_keys ? round_to<T>(expf(x - mrow[j]) / lrow[j]) : 0.f;
+          if constexpr (INT8) {
+            if (lane < n_keys)
+              p = round_to<T>(p * ld(v_scale + ((size_t)b * S + s0 + lane) * H + hd));
+          }
+          sc[i * ATT_KEYS + lane] = p;
         }
       }
       if (pass == 0) continue;
@@ -591,11 +632,12 @@ __global__ void __launch_bounds__(THREADS)
 // ---------------------------------------------------------------------------
 // Entry points, typed.
 
-template <class T>
-int band_generic(const void* x, const void* table, void* pmax, void* psum,
-                 void* pval, void* pid, void* vals, void* ids, void* lse, int N,
-                 int D, int V, int sel_limit, int k, int tiles_per_chunk,
-                 int chunks, cudaStream_t stream) {
+// TB: the table's element type (T, or int8 with `scale`).
+template <class T, class TB = T>
+int band_generic(const void* x, const void* table, const void* scale, void* pmax,
+                 void* psum, void* pval, void* pid, void* vals, void* ids,
+                 void* lse, int N, int D, int V, int sel_limit, int k,
+                 int tiles_per_chunk, int chunks, cudaStream_t stream) {
   if (N < 1 || D < 1 || V < 1 || k < 1 || k > BAND_MAX_K || k > sel_limit ||
       sel_limit > V || tiles_per_chunk < 1 || chunks < 1 ||
       chunks > BAND_MAX_CHUNKS || chunks > 65535 ||
@@ -603,15 +645,15 @@ int band_generic(const void* x, const void* table, void* pmax, void* psum,
       (long long)tiles_per_chunk * (chunks - 1) >= cdiv(V, TN))
     return (int)cudaErrorInvalidValue;
   const T* xt = (const T*)x;
-  const T* tt = (const T*)table;
+  const TB* tt = (const TB*)table;
   if (N <= 16) {
-    band_walk_kernel<T, 1><<<dim3(cdiv(N, 16), chunks), THREADS, 0, stream>>>(
-        xt, tt, (float*)pmax, (float*)psum, (float*)pval, (int*)pid, N, D, V,
-        sel_limit, k, tiles_per_chunk, chunks);
+    band_walk_kernel<T, 1, TB><<<dim3(cdiv(N, 16), chunks), THREADS, 0, stream>>>(
+        xt, tt, (const T*)scale, (float*)pmax, (float*)psum, (float*)pval,
+        (int*)pid, N, D, V, sel_limit, k, tiles_per_chunk, chunks);
   } else {
-    band_walk_kernel<T, 2><<<dim3(cdiv(N, 32), chunks), THREADS, 0, stream>>>(
-        xt, tt, (float*)pmax, (float*)psum, (float*)pval, (int*)pid, N, D, V,
-        sel_limit, k, tiles_per_chunk, chunks);
+    band_walk_kernel<T, 2, TB><<<dim3(cdiv(N, 32), chunks), THREADS, 0, stream>>>(
+        xt, tt, (const T*)scale, (float*)pmax, (float*)psum, (float*)pval,
+        (int*)pid, N, D, V, sel_limit, k, tiles_per_chunk, chunks);
   }
   NIC_RETURN_IF_LAUNCH_FAILED();
   band_merge_kernel<<<cdiv(N, THREADS / 32), THREADS, 0, stream>>>(
@@ -621,8 +663,10 @@ int band_generic(const void* x, const void* table, void* pmax, void* psum,
   return 0;
 }
 
-template <class T>
+// TK: K's and V's element type (T, or int8 with the two scales).
+template <class T, class TK = T>
 int attention_generic(const void* q, const void* k, const void* v,
+                      const void* k_scale, const void* v_scale,
                       const void* bias, void* out, int B, int Q, int S, int E,
                       int H, int smem, cudaStream_t stream) {
   if (B < 1 || Q < 1 || Q > ATT_MAX_Q || S < 1 || H < 1 || E % H != 0 ||
@@ -631,11 +675,11 @@ int attention_generic(const void* q, const void* k, const void* v,
       smem > MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_generic_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_generic_kernel<T, TK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  attn_generic_kernel<T><<<dim3(H, B), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, Q, S,
-      E, H);
+  attn_generic_kernel<T, TK><<<dim3(H, B), THREADS, smem, stream>>>(
+      (const T*)q, (const TK*)k, (const TK*)v, (const T*)k_scale,
+      (const T*)v_scale, (const float*)bias, (T*)out, Q, S, E, H);
   NIC_RETURN_IF_LAUNCH_FAILED();
   return 0;
 }
@@ -690,6 +734,14 @@ int conv_generic(const void* x, const void* cache, const void* pos,
     if (dtype == 1) return nic::gen::fn<float>(__VA_ARGS__);        \
     return (int)cudaErrorInvalidValue;                              \
   } while (0)
+// The same for the int8 variants: x or q of the dtype, an int8 table or
+// int8 K and V.
+#define NIC_GENERIC_INT8_DISPATCH(fn, ...)                                   \
+  do {                                                                       \
+    if (dtype == 0) return nic::gen::fn<nic::bf16, int8_t>(__VA_ARGS__);     \
+    if (dtype == 1) return nic::gen::fn<float, int8_t>(__VA_ARGS__);         \
+    return (int)cudaErrorInvalidValue;                                       \
+  } while (0)
 
 // vals [N, k] fp32 logits (rounded to the dtype), ids [N, k] int32, lse
 // [N] fp32 of x [N, D] @ table [V, D]^T, any D and V, 1 <= k <= 16,
@@ -704,8 +756,8 @@ extern "C" int nic_band_topk_lse_generic(int dtype, const void* x,
                                          int N, int D, int V, int sel_limit,
                                          int k, int tiles_per_chunk,
                                          int chunks, void* stream) {
-  NIC_GENERIC_DISPATCH(band_generic, x, table, pmax, psum, pval, pid, vals,
-                                    ids, lse, N, D, V, sel_limit, k,
+  NIC_GENERIC_DISPATCH(band_generic, x, table, nullptr, pmax, psum, pval,
+                                    pid, vals, ids, lse, N, D, V, sel_limit, k,
                                     tiles_per_chunk, chunks,
                                     (cudaStream_t)stream);
 }
@@ -719,8 +771,9 @@ extern "C" int nic_decode_attention_generic(int dtype, const void* q,
                                             const void* bias, void* out, int B,
                                             int Q, int S, int E, int H,
                                             int smem, void* stream) {
-  NIC_GENERIC_DISPATCH(attention_generic, q, k, v, bias, out, B, Q, S, E, H,
-                                         smem, (cudaStream_t)stream);
+  NIC_GENERIC_DISPATCH(attention_generic, q, k, v, nullptr, nullptr, bias, out,
+                                         B, Q, S, E, H, smem,
+                                         (cudaStream_t)stream);
 }
 
 // y [N, C] = r(r(r(h w2) + b2) + x), h = relu(r(r(x w1) + b1)) written
@@ -758,4 +811,40 @@ extern "C" int nic_decode_conv_block_generic(int dtype, const void* x,
   NIC_GENERIC_DISPATCH(conv_generic, x, cache, pos, w1, b1, taps, w2, b2, h,
                                     hconv, part, y, N, C, H, K, kp, t, ksplit1,
                                     ksplit2, (cudaStream_t)stream);
+}
+
+// band_topk_lse's generic variant over an int8 table [V, D] with one
+// scale a row [V] of x's dtype: a logit is the fp32 sum x . table[v]
+// times scale[v], rounded once to x's dtype. Everything else as
+// nic_band_topk_lse_generic. Returns a cudaError_t.
+extern "C" int nic_band_topk_lse_int8_generic(int dtype, const void* x,
+                                              const void* table_q,
+                                              const void* scale, void* pmax,
+                                              void* psum, void* pval, void* pid,
+                                              void* vals, void* ids, void* lse,
+                                              int N, int D, int V, int sel_limit,
+                                              int k, int tiles_per_chunk,
+                                              int chunks, void* stream) {
+  NIC_GENERIC_INT8_DISPATCH(band_generic, x, table_q, scale, pmax, psum, pval,
+                            pid, vals, ids, lse, N, D, V, sel_limit, k,
+                            tiles_per_chunk, chunks, (cudaStream_t)stream);
+}
+
+// decode_cross_attention's generic variant over int8 k_q, v_q [B, S, E]
+// with one scale a key and head, k_scale and v_scale [B, S, H] of q's
+// dtype: scores (q . k_q) * k_scale + bias and the softmax in fp32,
+// probabilities rounded to q's dtype, times v_scale, rounded again, the
+// value sums in fp32. Everything else as nic_decode_attention_generic.
+// Returns a cudaError_t.
+extern "C" int nic_decode_attention_int8_generic(int dtype, const void* q,
+                                                 const void* k_q,
+                                                 const void* k_scale,
+                                                 const void* v_q,
+                                                 const void* v_scale,
+                                                 const void* bias, void* out,
+                                                 int B, int Q, int S, int E,
+                                                 int H, int smem, void* stream) {
+  NIC_GENERIC_INT8_DISPATCH(attention_generic, q, k_q, v_q, k_scale, v_scale,
+                            bias, out, B, Q, S, E, H, smem,
+                            (cudaStream_t)stream);
 }

@@ -84,8 +84,9 @@
 // row0 the batch's first row in a data-parallel run's global batch and
 // h0 a tensor-parallel rank's first head among H_total (0 and H
 // otherwise), so that every rank drops the single process's slots; the bits of
-// (key, t, s) come from a stateless hash: the murmur3 finalizer fmix32,
-// row_key = fmix32(key ^ fmix32(t + 0x9e3779b9)), bits =
+// (key, t, s) come from a stateless hash (common.cuh: fmix32, row_key,
+// drop_scale, one copy with flash_generic.cu): the murmur3 finalizer
+// fmix32, row_key = fmix32(key ^ fmix32(t + 0x9e3779b9)), bits =
 // fmix32(row_key + s). A slot is kept where bits >= threshold =
 // floor(p 2^32). The lane that holds (t, s) evaluates the hash, once a
 // walk; ops/flash_attention.py computes the same bits in torch integer
@@ -112,15 +113,6 @@ __host__ __device__ constexpr int flash_smem_bytes(bool backward, int stages, in
          stages * (2 * FLASH_KEYS * dh * 2 + FLASH_KEYS * 4);
 }
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85ebca6bu;
-  h ^= h >> 13;
-  h *= 0xc2b2ae35u;
-  h ^= h >> 16;
-  return h;
-}
-
 // exp(x) as one product and the hardware's base-2 exponential (2 ulp;
 // tiny results flush to 0; exp(-inf) = 0). The caller subtracts the
 // row's maximum or logsumexp first, so equal scores give exactly 1.
@@ -128,18 +120,6 @@ __device__ __forceinline__ float fast_exp(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
   return y;
-}
-
-__device__ __forceinline__ uint32_t row_key(uint32_t key, int t) {
-  return fmix32(key ^ fmix32((uint32_t)t + 0x9e3779b9u));
-}
-
-// Dropout multiplier of slot s in the row whose key is rk: 0 where
-// dropped, else scale (1 / (1 - p); 1 without dropout).
-__device__ __forceinline__ float drop_scale(uint32_t rk, int s,
-                                            uint32_t threshold, float scale) {
-  if (threshold == 0u) return scale;
-  return fmix32(rk + (uint32_t)s) >= threshold ? scale : 0.f;
 }
 
 struct FlashArgs {
@@ -382,8 +362,7 @@ flash_fwd_kernel(FlashArgs a, bf16* __restrict__ out, float* __restrict__ lse) {
   const int head = blockIdx.x, b = blockIdx.y, H = gridDim.x;
   const int t0 = blockIdx.z * FLASH_ROWS, rows = min(FLASH_ROWS, a.T - t0);
   const size_t qoff = ((size_t)b * a.T + t0) * a.E + head * DH;
-  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u +
-                       (uint32_t)((b + a.row0) * a.heads_total + a.h0 + head);
+  const uint32_t key = dropout_key(a.seed[0], b, a.row0, a.heads_total, a.h0, head);
 
   request_tile<DH>(blk.qs, a.q + qoff, a.E, rows);
   blk.request_first();
@@ -517,8 +496,7 @@ flash_bwd_kernel(FlashArgs a, const float* __restrict__ lse,
   const int t0 = blockIdx.z * FLASH_ROWS, rows = min(FLASH_ROWS, a.T - t0);
   const size_t qoff = ((size_t)b * a.T + t0) * a.E + head * DH;
   const size_t koff = (size_t)b * a.S * a.E + head * DH;
-  const uint32_t key = (uint32_t)a.seed[0] * 2654435761u +
-                       (uint32_t)((b + a.row0) * a.heads_total + a.h0 + head);
+  const uint32_t key = dropout_key(a.seed[0], b, a.row0, a.heads_total, a.h0, head);
   const size_t kv_elems = (size_t)B * a.S * a.E;
   float* dk_part = parts == nullptr ? nullptr : parts + blockIdx.z * kv_elems + koff;
   float* dv_part = parts == nullptr ? nullptr

@@ -30,6 +30,12 @@ shared memory. A logit is rounded once, after the scale: bf16(fp32 sum
 x scale); the reference's `_word_logits` rounds the sum to the compute
 dtype, then the product in that dtype (ROADMAP Queue 3, "by design"). In
 fp32 on the CPU the two agree.
+
+`band_topk_lse_int8_generic` is the int8 walk of the generic variant
+(`csrc/decode_generic.cu`, `nic_band_topk_lse_int8_generic`): x and the
+scales bf16 or fp32, any D and V, for the models the int8 kernel does
+not take (fp32 `quantize_head`, the tiny configs' widths).
+`route_band_int8` chooses between the two as `route_band` does.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ LOGIT_STRIDE = TILE + 8     # bf16 elements a row of the logits tile
 _ARGTYPES = [_build.P] * 9 + [_build.I] * 10 + [_build.P]
 _ARGTYPES_INT8 = [_build.P] * 10 + [_build.I] * 10 + [_build.P]
 _ARGTYPES_GENERIC = [_build.I] + [_build.P] * 9 + [_build.I] * 7 + [_build.P]
+_ARGTYPES_INT8_GENERIC = [_build.I] + [_build.P] * 10 + [_build.I] * 7 + [
+    _build.P]
 # The generic kernel: the most chunks of tiles a row tile, the blocks a
 # launch aims at.
 GENERIC_MAX_CHUNKS = 1024
@@ -112,9 +120,31 @@ def admits_int8(dtype, N: int, D: int, V: int, k: int,
     of x's dtype."""
     if dtype != torch.bfloat16:
         return False, ("band_topk_lse_int8 kernel takes bf16 x, an int8"
-                       " table and bf16 scales (fp32 quantize_head: ROADMAP"
-                       " Queue 3 item 1)")
+                       " table and bf16 scales")
     return admits(dtype, N, D, V, k, sel_limit)
+
+
+def admits_int8_generic(dtype, N: int, D: int, V: int, k: int,
+                        sel_limit: int) -> Tuple[bool, str]:
+    """`admits_generic` of the int8 walk: x of `dtype`, an int8 table,
+    scales of x's dtype."""
+    if dtype not in _build.GENERIC_DTYPES:
+        return False, ("band_topk_lse_int8 generic kernel takes bf16 or fp32"
+                       " x, an int8 table and scales of x's dtype")
+    return admits_generic(dtype, N, D, V, k, sel_limit)
+
+
+def route_band_int8(dtype, N: int, D: int, V: int, k: int,
+                    sel_limit: int) -> str:
+    """"fast" (`band_topk_lse_int8`'s kernel) where `admits_int8` holds,
+    else "generic" where `admits_int8_generic` holds; ValueError with
+    both reasons otherwise."""
+    ok, why = admits_int8(dtype, N, D, V, k, sel_limit)
+    if ok:
+        return "fast"
+    ok, why_generic = admits_int8_generic(dtype, N, D, V, k, sel_limit)
+    _build.require(ok, f"{why}; {why_generic}")
+    return "generic"
 
 
 def admits_generic(dtype, N: int, D: int, V: int, k: int,
@@ -275,6 +305,17 @@ def _launch_generic(x, table, k, sel_limit):
                    " device")
     _build.require(x.is_contiguous() and table.is_contiguous(),
                    "band_topk_lse generic: inputs must be contiguous")
+    fn = _build.function("nic_band_topk_lse_generic", _ARGTYPES_GENERIC)
+    out = _generic_walk(lambda *a: fn(a[0], a[1], table.data_ptr(), *a[2:]),
+                        x, V, k, sel_limit, "band_topk_lse generic")
+    band_topk_lse_generic.launches += 1
+    return out
+
+
+def _generic_walk(call, x, V, k, sel_limit, what):
+    """Launch `call` (a generic C entry point with its table bound after
+    x) on x, with the generic plan's scratch."""
+    N, D = x.shape
     plan = generic_band_plan(N, V)
     dev = x.device
     vals = torch.empty(N, k, device=dev, dtype=torch.float32)
@@ -284,14 +325,12 @@ def _launch_generic(x, table, k, sel_limit):
     scratch = torch.empty(cells * (2 + 2 * k), device=dev,
                           dtype=torch.float32)
     pid = scratch[(2 + k) * cells:].view(torch.int32)
-    fn = _build.function("nic_band_topk_lse_generic", _ARGTYPES_GENERIC)
-    _build.check(fn(_build.GENERIC_DTYPES[x.dtype], x.data_ptr(),
-                    table.data_ptr(), scratch.data_ptr(), scratch[cells:].data_ptr(),
-                    scratch[2 * cells:].data_ptr(), pid.data_ptr(),
-                    vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), N, D, V,
-                    sel_limit, k, plan.tiles_per_chunk, plan.chunks,
-                    _build.stream_of(x)), "band_topk_lse generic")
-    band_topk_lse_generic.launches += 1
+    _build.check(call(_build.GENERIC_DTYPES[x.dtype], x.data_ptr(),
+                      scratch.data_ptr(), scratch[cells:].data_ptr(),
+                      scratch[2 * cells:].data_ptr(), pid.data_ptr(),
+                      vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), N, D,
+                      V, sel_limit, k, plan.tiles_per_chunk, plan.chunks,
+                      _build.stream_of(x)), what)
     return vals, ids, lse
 
 
@@ -318,14 +357,63 @@ def band_topk_lse_int8(x: torch.Tensor, table_q: torch.Tensor,
                        sel_limit: int | None = None):
     """`band_topk_lse` over an int8 table [V, D] with one scale a row
     [V] (see `band_topk_lse_int8_plain`). A CPU tensor takes the plain
-    version; a CUDA tensor launches the int8 kernel or raises (it never
-    widens the table to call the bf16 kernel)."""
+    version; a CUDA tensor launches the int8 kernel, or its generic
+    variant where `route_band_int8` says so, or raises (it never widens
+    the table to call a kernel of another type)."""
     if x.device.type == "cpu":
         return band_topk_lse_int8_plain(x, table_q, scale, k, sel_limit)
     _build.require(x.device.type == "cuda",
                    f"band_topk_lse_int8: no kernel for device {x.device}")
-    return _launch_int8(x, table_q, scale, k, table_q.shape[0]
-                        if sel_limit is None else sel_limit)
+    sel = table_q.shape[0] if sel_limit is None else sel_limit
+    if route_band_int8(x.dtype, *x.shape, table_q.shape[0], k,
+                       sel) == "fast":
+        return _launch_int8(x, table_q, scale, k, sel)
+    return _launch_int8_generic(x, table_q, scale, k, sel)
+
+
+def band_topk_lse_int8_generic(x: torch.Tensor, table_q: torch.Tensor,
+                               scale: torch.Tensor, k: int,
+                               sel_limit: int | None = None):
+    """`band_topk_lse_int8` through the generic variant alone. A CPU
+    tensor takes the plain version; a CUDA tensor launches the generic
+    int8 walk or raises."""
+    if x.device.type == "cpu":
+        return band_topk_lse_int8_plain(x, table_q, scale, k, sel_limit)
+    _build.require(x.device.type == "cuda",
+                   f"band_topk_lse_int8: no kernel for device {x.device}")
+    return _launch_int8_generic(x, table_q, scale, k, table_q.shape[0]
+                                if sel_limit is None else sel_limit)
+
+
+def _check_int8_table(x, table_q, scale, what):
+    """table_q int8 [V, D] and its scales [V] of x's dtype, contiguous on
+    x's device (both int8 launches' check)."""
+    D = x.shape[1]
+    V = table_q.shape[0]
+    _build.require(table_q.dtype == torch.int8 and table_q.shape[1] == D
+                   and scale.dtype == x.dtype and scale.shape == (V,)
+                   and table_q.device == x.device
+                   and scale.device == x.device,
+                   f"{what}: table must be [V, D] int8 and its scales [V] of"
+                   " x's dtype, on x's device")
+    _build.require(x.is_contiguous() and table_q.is_contiguous()
+                   and scale.is_contiguous(),
+                   f"{what}: inputs must be contiguous")
+
+
+def _launch_int8_generic(x, table_q, scale, k, sel_limit):
+    N, D = x.shape
+    V = table_q.shape[0]
+    ok, why = admits_int8_generic(x.dtype, N, D, V, k, sel_limit)
+    _build.require(ok, why)
+    _check_int8_table(x, table_q, scale, "band_topk_lse_int8 generic")
+    fn = _build.function("nic_band_topk_lse_int8_generic",
+                         _ARGTYPES_INT8_GENERIC)
+    out = _generic_walk(lambda *a: fn(a[0], a[1], table_q.data_ptr(),
+                                      scale.data_ptr(), *a[2:]),
+                        x, V, k, sel_limit, "band_topk_lse_int8 generic")
+    band_topk_lse_int8_generic.launches += 1
+    return out
 
 
 def _launch_int8(x, table_q, scale, k, sel_limit):
@@ -333,17 +421,9 @@ def _launch_int8(x, table_q, scale, k, sel_limit):
     V = table_q.shape[0]
     ok, why = admits_int8(x.dtype, N, D, V, k, sel_limit)
     _build.require(ok, why)
-    _build.require(table_q.dtype == torch.int8 and table_q.shape[1] == D
-                   and scale.dtype == x.dtype and scale.shape == (V,)
-                   and table_q.device == x.device
-                   and scale.device == x.device,
-                   "band_topk_lse_int8: table must be [V, D] int8 and its"
-                   " scales [V] of x's dtype, on x's device")
-    _build.require(x.is_contiguous() and table_q.is_contiguous()
-                   and scale.is_contiguous() and x.data_ptr() % 16 == 0
-                   and table_q.data_ptr() % 16 == 0,
-                   "band_topk_lse_int8: inputs must be contiguous and"
-                   " 16-byte aligned")
+    _check_int8_table(x, table_q, scale, "band_topk_lse_int8")
+    _build.require(x.data_ptr() % 16 == 0 and table_q.data_ptr() % 16 == 0,
+                   "band_topk_lse_int8: inputs must be 16-byte aligned")
     fn = _build.function("nic_band_topk_lse_int8", _ARGTYPES_INT8)
     return _walk(lambda *a: fn(a[0], table_q.data_ptr(), scale.data_ptr(),
                                *a[1:]), x, V, k, sel_limit, True,
@@ -386,3 +466,4 @@ def _walk(call, x, V, k, sel_limit, int8, counted, what):
 band_topk_lse.launches = 0
 band_topk_lse_int8.launches = 0
 band_topk_lse_generic.launches = 0
+band_topk_lse_int8_generic.launches = 0

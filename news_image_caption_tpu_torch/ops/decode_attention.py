@@ -36,6 +36,13 @@ sums, for the models the fast kernel does not take (fp32, the toy's head
 size 8, tiny_test's 4). `route_attention` is the one predicate that
 chooses: "fast" where `admits` holds, else "generic" where
 `admits_generic` holds, else ValueError with both reasons.
+
+`decode_cross_attention_int8_generic` is the int8 attention of the
+generic variant (`nic_decode_attention_int8_generic`): q and the scales
+bf16 or fp32, head sizes 1 to 256, for the models the int8 kernel does
+not take (fp32 `quantize_kv`, tiny_test's head size 4).
+`route_attention_int8` chooses between the two as `route_attention`
+does.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ MIN_KEYS = 64               # keys a block before the plan splits further
 _ARGTYPES = [_build.P] * 5 + [_build.I] * 8 + [_build.P]
 _ARGTYPES_INT8 = [_build.P] * 7 + [_build.I] * 8 + [_build.P]
 _ARGTYPES_GENERIC = [_build.I] + [_build.P] * 5 + [_build.I] * 6 + [_build.P]
+_ARGTYPES_INT8_GENERIC = [_build.I] + [_build.P] * 7 + [_build.I] * 6 + [
+    _build.P]
 # The generic kernel: its largest head size, keys a chunk.
 GENERIC_MAX_HEAD = 256
 GENERIC_KEYS = 32
@@ -89,9 +98,30 @@ def admits_int8(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
     of q's dtype."""
     if dtype != torch.bfloat16:
         return False, ("decode_cross_attention_int8 kernel takes bf16 q,"
-                       " int8 k/v, bf16 scales and an fp32 bias (fp32"
-                       " quantize_kv: ROADMAP Queue 3 item 1)")
+                       " int8 k/v, bf16 scales and an fp32 bias")
     return admits(dtype, Q, head_dim)
+
+
+def admits_int8_generic(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
+    """`admits_generic` of the int8 attention: q of `dtype`, int8 K and
+    V, scales of q's dtype."""
+    if dtype not in _build.GENERIC_DTYPES:
+        return False, ("decode_cross_attention_int8 generic kernel takes bf16"
+                       " or fp32 q, int8 k/v, scales of q's dtype and an fp32"
+                       " bias")
+    return admits_generic(dtype, Q, head_dim)
+
+
+def route_attention_int8(dtype, Q: int, head_dim: int) -> str:
+    """"fast" (`decode_cross_attention_int8`'s kernel) where
+    `admits_int8` holds, else "generic" where `admits_int8_generic`
+    holds; ValueError with both reasons otherwise."""
+    ok, why = admits_int8(dtype, Q, head_dim)
+    if ok:
+        return "fast"
+    ok, why_generic = admits_int8_generic(dtype, Q, head_dim)
+    _build.require(ok, f"{why}; {why_generic}")
+    return "generic"
 
 
 def admits_generic(dtype, Q: int, head_dim: int) -> Tuple[bool, str]:
@@ -327,14 +357,86 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                                 num_heads: int) -> torch.Tensor:
     """Returns [B, Q, E]; see `decode_cross_attention_int8_plain`. A CPU
     tensor takes the plain version; a CUDA tensor launches the int8
-    kernel or raises (it never widens K/V to call the bf16 kernel)."""
+    kernel, or its generic variant where `route_attention_int8` says so,
+    or raises (it never widens K/V to call a kernel of another type)."""
     if q.device.type == "cpu":
         return decode_cross_attention_int8_plain(q, k_q, k_scale, v_q,
                                                  v_scale, bias, num_heads)
     _build.require(q.device.type == "cuda",
                    f"decode_cross_attention_int8: no kernel for device"
                    f" {q.device}")
-    return _launch_int8(q, k_q, k_scale, v_q, v_scale, bias, num_heads)
+    B, Q, E = q.shape
+    _build.require(E % num_heads == 0,
+                   "decode_cross_attention_int8: E % num_heads != 0")
+    if route_attention_int8(q.dtype, Q, E // num_heads) == "fast":
+        return _launch_int8(q, k_q, k_scale, v_q, v_scale, bias, num_heads)
+    return _launch_int8_generic(q, k_q, k_scale, v_q, v_scale, bias,
+                                num_heads)
+
+
+def decode_cross_attention_int8_generic(q: torch.Tensor, k_q: torch.Tensor,
+                                        k_scale: torch.Tensor,
+                                        v_q: torch.Tensor,
+                                        v_scale: torch.Tensor,
+                                        bias: torch.Tensor,
+                                        num_heads: int) -> torch.Tensor:
+    """`decode_cross_attention_int8` through the generic variant alone. A
+    CPU tensor takes the plain version; a CUDA tensor launches the
+    generic int8 attention or raises."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_int8_plain(q, k_q, k_scale, v_q,
+                                                 v_scale, bias, num_heads)
+    _build.require(q.device.type == "cuda",
+                   f"decode_cross_attention_int8: no kernel for device"
+                   f" {q.device}")
+    return _launch_int8_generic(q, k_q, k_scale, v_q, v_scale, bias,
+                                num_heads)
+
+
+def _check_int8_kv(q, k_q, k_scale, v_q, v_scale, bias, num_heads, what):
+    """int8 k_q, v_q [B, S, E], their scales [B, S, H] of q's dtype and an
+    fp32 bias [B, S], contiguous on q's device (both int8 launches'
+    check)."""
+    B, _, E = q.shape
+    S = k_q.shape[1]
+    _build.require(k_q.dtype == torch.int8 and v_q.dtype == torch.int8
+                   and k_scale.dtype == q.dtype and v_scale.dtype == q.dtype
+                   and bias.dtype == torch.float32,
+                   f"{what} kernel takes int8 k/v, scales of q's dtype and an"
+                   " fp32 bias")
+    _build.require(k_q.shape == (B, S, E) and v_q.shape == (B, S, E)
+                   and k_scale.shape == (B, S, num_heads)
+                   and v_scale.shape == (B, S, num_heads)
+                   and bias.shape == (B, S),
+                   f"{what}: k_q, v_q must be [B, S, E], the scales [B, S, H]"
+                   " and bias [B, S]")
+    _build.require(all(t.is_contiguous() and t.device == q.device
+                       for t in (q, k_q, k_scale, v_q, v_scale, bias)),
+                   f"{what}: inputs must be contiguous, on one device")
+    _build.require(B >= 1 and S >= 1,
+                   f"{what}: need B, S >= 1, got B={B}, S={S}")
+
+
+def _launch_int8_generic(q, k_q, k_scale, v_q, v_scale, bias, num_heads):
+    B, Q, E = q.shape
+    S = k_q.shape[1]
+    _build.require(E % num_heads == 0,
+                   "decode_cross_attention_int8: E % num_heads != 0")
+    ok, why = admits_int8_generic(q.dtype, Q, E // num_heads)
+    _build.require(ok, why)
+    _check_int8_kv(q, k_q, k_scale, v_q, v_scale, bias, num_heads,
+                   "decode_cross_attention_int8 generic")
+    fn = _build.function("nic_decode_attention_int8_generic",
+                         _ARGTYPES_INT8_GENERIC)
+    out = torch.empty_like(q)
+    _build.check(fn(_build.GENERIC_DTYPES[q.dtype], q.data_ptr(),
+                    k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+                    v_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Q,
+                    S, E, num_heads, generic_smem_bytes(Q, E // num_heads),
+                    _build.stream_of(q)),
+                 "decode_cross_attention_int8 generic")
+    decode_cross_attention_int8_generic.launches += 1
+    return out
 
 
 def _launch_int8(q, k_q, k_scale, v_q, v_scale, bias, num_heads):
@@ -344,21 +446,8 @@ def _launch_int8(q, k_q, k_scale, v_q, v_scale, bias, num_heads):
                    "decode_cross_attention_int8: E % num_heads != 0")
     ok, why = admits_int8(q.dtype, Q, E // num_heads)
     _build.require(ok, why)
-    _build.require(k_q.dtype == torch.int8 and v_q.dtype == torch.int8
-                   and k_scale.dtype == q.dtype and v_scale.dtype == q.dtype
-                   and bias.dtype == torch.float32,
-                   "decode_cross_attention_int8 kernel takes bf16 q, int8"
-                   " k/v, bf16 scales and an fp32 bias")
-    _build.require(k_q.shape == (B, S, E) and v_q.shape == (B, S, E)
-                   and k_scale.shape == (B, S, num_heads)
-                   and v_scale.shape == (B, S, num_heads)
-                   and bias.shape == (B, S),
-                   "decode_cross_attention_int8: k_q, v_q must be [B, S, E],"
-                   " the scales [B, S, H] and bias [B, S]")
-    _build.require(all(t.is_contiguous() and t.device == q.device
-                       for t in (q, k_q, k_scale, v_q, v_scale, bias)),
-                   "decode_cross_attention_int8: inputs must be contiguous,"
-                   " on one device")
+    _check_int8_kv(q, k_q, k_scale, v_q, v_scale, bias, num_heads,
+                   "decode_cross_attention_int8")
     _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k_q, v_q)),
                    "decode_cross_attention_int8: q, k_q and v_q must be"
                    " 16-byte aligned")
@@ -376,3 +465,4 @@ def _launch_int8(q, k_q, k_scale, v_q, v_scale, bias, num_heads):
 
 
 decode_cross_attention_int8.launches = 0
+decode_cross_attention_int8_generic.launches = 0

@@ -20,6 +20,18 @@ through shared memory (see the source). They take any T and any S:
 T > 64 becomes several blocks, whose parts of dk and dv a second kernel
 adds in a fixed order. `flash_plan` is the host-side plan.
 
+The generic variants (`csrc/flash_generic.cu`: `nic_flash_fwd_generic`,
+`nic_flash_bwd_generic`) take what the fast kernels do not: fp32 and
+head sizes 1 to 256 (bf16 outside 16-128), any T and S, with FFMA and
+fp32 sums (no tensor cores, so fp32 never goes through TF32), the same
+rounding points and the same dropout hash (`csrc/common.cuh`), so at a
+shape both take the two drop the same slots. `route_flash(dtype,
+head_dim)` is the one predicate that chooses: "fast" where `admits`
+holds, else "generic" where `admits_generic` holds, else ValueError with
+both reasons; `generic_flash_plan` is their host-side plan, and
+`flash_attention_fwd_generic` / `_bwd_generic` hold a CUDA call to them
+(their `.launches` count the generic launches).
+
 Dropout bits come from a stateless hash of (seed, b, head, t, s) (see
 the source's note), which `dropout_keep` computes with the same integer
 steps in torch, so kernel and plain version drop the same slots. Every
@@ -53,6 +65,10 @@ _TAIL_ARGTYPES = [_build.I] * 5 + [ctypes.c_uint, ctypes.c_float, _build.I,
                                    _build.P]
 _FWD_ARGTYPES = [_build.P] * 7 + _TAIL_ARGTYPES
 _BWD_ARGTYPES = [_build.P] * 11 + _TAIL_ARGTYPES
+_GENERIC_TAIL = [_build.I] * 5 + [ctypes.c_uint, ctypes.c_float, _build.I,
+                                  _build.I, _build.I, _build.I, _build.P]
+_FWD_ARGTYPES_GENERIC = [_build.I] + [_build.P] * 7 + _GENERIC_TAIL
+_BWD_ARGTYPES_GENERIC = [_build.I] + [_build.P] * 11 + _GENERIC_TAIL
 ROWS = 64                   # query rows a block (16 a warp)
 KEYS = 64                   # keys a tile
 MAX_STAGES = 3              # slots of the K / V ring
@@ -60,6 +76,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 SM_SMEM_BYTES = 233472      # shared memory of a multiprocessor (228 KB),
 BLOCK_RESERVED_BYTES = 1024   # of which the card keeps this much a block
 MAX_GRID_YZ = 65535         # blocks along B and along the T tiles
+GENERIC_MAX_HEAD = 256      # the generic kernels' largest head size
+# The generic kernels' tiles by head size (csrc/flash_generic.cu::
+# plan_of): (largest head size of the class, query rows, keys a chunk).
+GENERIC_TILES = ((16, 64, 64), (32, 64, 64), (64, 64, 64), (128, 64, 32),
+                 (256, 32, 32))
 _MASK32 = 0xFFFFFFFF
 
 
@@ -151,17 +172,39 @@ class FlashPlan(NamedTuple):
 
 
 def admits(dtype, head_dim: int) -> Tuple[bool, str]:
-    """Whether the flash kernels take q/k/v of `dtype` with this head
-    size, and if not, why. (They take any T and S.)"""
+    """Whether the fast flash kernels take q/k/v of `dtype` with this
+    head size, and if not, why. (They take any T and S.)"""
     if dtype != torch.bfloat16:
         return False, ("flash attention kernels take bf16 q/k/v, an fp32"
-                       " bias and an int32 seed of one element (fp32 flash:"
-                       " ROADMAP Queue 3 item 1)")
+                       " bias and an int32 seed of one element")
     if head_dim not in HEAD_DIMS:
         return False, (f"flash attention: the kernels take a head size E /"
-                       f" num_heads in {HEAD_DIMS}, got {head_dim} (other"
-                       f" head sizes: ROADMAP Queue 3 item 1)")
+                       f" num_heads in {HEAD_DIMS}, got {head_dim}")
     return True, ""
+
+
+def admits_generic(dtype, head_dim: int) -> Tuple[bool, str]:
+    """Whether the generic flash kernels take q/k/v of `dtype` with this
+    head size, and if not, why. (They take any T and S.)"""
+    if dtype not in _build.GENERIC_DTYPES:
+        return False, ("flash attention generic kernels take bf16 or fp32"
+                       " q/k/v")
+    if not 1 <= head_dim <= GENERIC_MAX_HEAD:
+        return False, (f"flash attention generic: need a head size in"
+                       f" 1..{GENERIC_MAX_HEAD}, got {head_dim}")
+    return True, ""
+
+
+def route_flash(dtype, head_dim: int) -> str:
+    """"fast" (the flash kernels) where `admits` holds, else "generic"
+    where `admits_generic` holds; ValueError with both reasons
+    otherwise."""
+    ok, why = admits(dtype, head_dim)
+    if ok:
+        return "fast"
+    ok, why_generic = admits_generic(dtype, head_dim)
+    _build.require(ok, f"{why}; {why_generic}")
+    return "generic"
 
 
 def flash_smem_bytes(backward: bool, stages: int, head_dim: int) -> int:
@@ -213,6 +256,52 @@ def flash_plan(B: int, T: int, S: int, num_heads: int, head_dim: int,
         ROWS, KEYS, t_tiles, key_tiles, blocks,
         _flash_pass(False, key_tiles, head_dim, want),
         _flash_pass(True, key_tiles, head_dim, want),
+        2 * t_tiles * B * S * num_heads * head_dim if t_tiles > 1 else 0)
+
+
+class GenericFlashPlan(NamedTuple):
+    """How the generic kernels cut a call: grid (num_heads, B, t_tiles),
+    block (h, b, i) owning query rows [i * rows, min(T, (i + 1) * rows))
+    and walking the keys twice in chunks of `keys`; the tile shape
+    follows the head size (GENERIC_TILES), so that q (and g), a chunk of
+    K and V and its probabilities fit shared memory as fp32."""
+
+    rows: int
+    keys: int
+    t_tiles: int
+    blocks: int
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+    parts_floats: int       # fp32 scratch of the backward where t_tiles > 1
+
+
+def generic_flash_smem_bytes(backward: bool, head_dim: int) -> int:
+    """Dynamic shared memory of a generic kernel's block (csrc/
+    flash_generic.cu::Tiles::smem_floats): q (and g) [W][rows + 1], K and
+    V [W][keys + 1], the chunk's probabilities [rows][keys + 1] and the
+    key bias [keys], fp32, W the class's head size."""
+    width, rows, keys = next(t for t in GENERIC_TILES if head_dim <= t[0])
+    return 4 * ((2 if backward else 1) * width * (rows + 1)
+                + 2 * width * (keys + 1) + rows * (keys + 1) + keys)
+
+
+def generic_flash_plan(B: int, T: int, S: int, num_heads: int,
+                       head_dim: int) -> GenericFlashPlan:
+    """The generic kernels' plan for B items of T queries over S keys, or
+    ValueError for what they do not take."""
+    _build.require(B >= 1 and T >= 1 and S >= 1 and num_heads >= 1,
+                   f"flash attention: need B, T, S >= 1, got B={B}, T={T},"
+                   f" S={S}")
+    _build.require(*admits_generic(torch.float32, head_dim))
+    _, rows, keys = next(t for t in GENERIC_TILES if head_dim <= t[0])
+    t_tiles = -(-T // rows)
+    _build.require(B <= MAX_GRID_YZ and t_tiles <= MAX_GRID_YZ,
+                   f"flash attention: B and T / {rows} may be at most"
+                   f" {MAX_GRID_YZ}")
+    return GenericFlashPlan(
+        rows, keys, t_tiles, num_heads * B * t_tiles,
+        generic_flash_smem_bytes(False, head_dim),
+        generic_flash_smem_bytes(True, head_dim),
         2 * t_tiles * B * S * num_heads * head_dim if t_tiles > 1 else 0)
 
 
@@ -305,25 +394,45 @@ def flash_attention_fwd(q, k, v, bias, seed, num_heads: int,
                         dropout_p: float = 0.0,
                         keep: Optional[torch.Tensor] = None,
                         row0: int = 0, h0: int = 0,
-                        heads_total: Optional[int] = None):
+                        heads_total: Optional[int] = None,
+                        route: Optional[str] = None):
     """(out, lse); see `flash_attention_fwd_plain`. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    the plain version; a CUDA tensor launches a kernel or raises: the one
+    `route_flash` chooses, or `route` ("fast" or "generic") where the
+    caller names it."""
     if _dispatch("flash_attention_fwd", q, keep):
         return flash_attention_fwd_plain(q, k, v, bias, seed, num_heads,
                                          dropout_p, keep, row0, h0,
                                          heads_total)
+    return _launch_fwd(q, k, v, bias, seed, num_heads, dropout_p, row0, h0,
+                       heads_total, route)
+
+
+def _launch_fwd(q, k, v, bias, seed, num_heads, dropout_p, row0, h0,
+                heads_total, route):
     B, T, E = q.shape
     S = k.shape[1]
-    plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_fwd")
+    route, plan = _check(q, k, v, bias, seed, num_heads,
+                         "flash_attention_fwd", route)
     heads_total = _heads_total(num_heads, h0, heads_total,
                                "flash_attention_fwd")
     out = torch.empty_like(q)
     lse = torch.empty(B, num_heads, T, device=q.device, dtype=torch.float32)
+    tail = (dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p))
+    if route == "generic":
+        fn = _build.function("nic_flash_fwd_generic", _FWD_ARGTYPES_GENERIC)
+        _build.check(fn(_build.GENERIC_DTYPES[q.dtype], q.data_ptr(),
+                        k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                        seed.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T,
+                        S, E, num_heads, *tail, plan.fwd_smem_bytes, row0, h0,
+                        heads_total, _build.stream_of(q)),
+                     "flash_attention_fwd generic")
+        flash_attention_fwd_generic.launches += 1
+        return out, lse
     fn = _build.function("nic_flash_fwd", _FWD_ARGTYPES)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                     seed.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, S,
-                    E, num_heads, dropout_threshold(dropout_p),
-                    1.0 / (1.0 - dropout_p), plan.fwd.stages,
+                    E, num_heads, *tail, plan.fwd.stages,
                     plan.fwd.smem_bytes, row0, h0, heads_total,
                     _build.stream_of(q)),
                  "flash_attention_fwd")
@@ -335,16 +444,25 @@ def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
                         dropout_p: float = 0.0,
                         keep: Optional[torch.Tensor] = None,
                         row0: int = 0, h0: int = 0,
-                        heads_total: Optional[int] = None):
+                        heads_total: Optional[int] = None,
+                        route: Optional[str] = None):
     """(dq, dk, dv); see `flash_attention_bwd_plain`. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    the plain version; a CUDA tensor launches a kernel or raises, as
+    `flash_attention_fwd` chooses it."""
     if _dispatch("flash_attention_bwd", q, keep):
         return flash_attention_bwd_plain(q, k, v, bias, seed, lse, g,
                                          num_heads, dropout_p, keep, row0,
                                          h0, heads_total)
+    return _launch_bwd(q, k, v, bias, seed, lse, g, num_heads, dropout_p,
+                       row0, h0, heads_total, route)
+
+
+def _launch_bwd(q, k, v, bias, seed, lse, g, num_heads, dropout_p, row0, h0,
+                heads_total, route):
     B, T, E = q.shape
     S = k.shape[1]
-    plan = _check(q, k, v, bias, seed, num_heads, "flash_attention_bwd")
+    route, plan = _check(q, k, v, bias, seed, num_heads,
+                         "flash_attention_bwd", route)
     heads_total = _heads_total(num_heads, h0, heads_total,
                                "flash_attention_bwd")
     _build.require(g.shape == q.shape and g.dtype == q.dtype
@@ -360,22 +478,52 @@ def flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads: int,
     # launch's second kernel.
     parts = (torch.empty(plan.parts_floats, device=q.device,
                          dtype=torch.float32) if plan.t_tiles > 1 else None)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            seed.data_ptr(), lse.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if parts is None else parts.data_ptr(), B, T, S, E,
+            num_heads, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p))
+    if route == "generic":
+        fn = _build.function("nic_flash_bwd_generic", _BWD_ARGTYPES_GENERIC)
+        _build.check(fn(_build.GENERIC_DTYPES[q.dtype], *ptrs,
+                        plan.bwd_smem_bytes, row0, h0, heads_total,
+                        _build.stream_of(q)), "flash_attention_bwd generic")
+        flash_attention_bwd_generic.launches += 1
+        return dq, dk, dv
     fn = _build.function("nic_flash_bwd", _BWD_ARGTYPES)
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                    seed.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    None if parts is None else parts.data_ptr(), B, T, S, E,
-                    num_heads, dropout_threshold(dropout_p),
-                    1.0 / (1.0 - dropout_p), plan.bwd.stages,
-                    plan.bwd.smem_bytes, row0, h0, heads_total,
-                    _build.stream_of(q)),
+    _build.check(fn(*ptrs, plan.bwd.stages, plan.bwd.smem_bytes, row0, h0,
+                    heads_total, _build.stream_of(q)),
                  "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
+def flash_attention_fwd_generic(q, k, v, bias, seed, num_heads: int,
+                                dropout_p: float = 0.0,
+                                keep: Optional[torch.Tensor] = None,
+                                row0: int = 0, h0: int = 0,
+                                heads_total: Optional[int] = None):
+    """`flash_attention_fwd` through the generic kernel alone (at a shape
+    the fast kernel takes too, for comparing the two)."""
+    return flash_attention_fwd(q, k, v, bias, seed, num_heads, dropout_p,
+                               keep, row0, h0, heads_total, "generic")
+
+
+def flash_attention_bwd_generic(q, k, v, bias, seed, lse, g, num_heads: int,
+                                dropout_p: float = 0.0,
+                                keep: Optional[torch.Tensor] = None,
+                                row0: int = 0, h0: int = 0,
+                                heads_total: Optional[int] = None):
+    """`flash_attention_bwd` through the generic kernel alone."""
+    return flash_attention_bwd(q, k, v, bias, seed, lse, g, num_heads,
+                               dropout_p, keep, row0, h0, heads_total,
+                               "generic")
+
+
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_fwd_generic.launches = 0
+flash_attention_bwd_generic.launches = 0
 
 
 def _heads_total(num_heads: int, h0: int, heads_total: Optional[int],
@@ -389,28 +537,39 @@ def _heads_total(num_heads: int, h0: int, heads_total: Optional[int],
     return total
 
 
-def _check(q, k, v, bias, seed, num_heads, name) -> FlashPlan:
-    """Raise for what the kernels do not take; else the call's plan."""
+def _check(q, k, v, bias, seed, num_heads, name, route=None):
+    """Raise for what the kernels do not take; else (the route, the
+    call's plan): `route_flash`'s route, or the caller's where it names
+    one (which must admit the call)."""
     B, T, E = q.shape
     S = k.shape[1]
     _build.require(E % num_heads == 0, f"{name}: E % num_heads != 0")
-    ok, why = admits(q.dtype, E // num_heads)
+    dh = E // num_heads
+    _build.require(route in (None, "fast", "generic"),
+                   f"{name}: no route {route!r}")
+    ok, why = (admits_generic if route == "generic" else admits)(q.dtype, dh)
+    if route is None:     # route_flash's choice, with both reasons
+        route = "fast" if ok else "generic"
+        if not ok:
+            ok, why_generic = admits_generic(q.dtype, dh)
+            why = f"{why}; {why_generic}"
     _build.require(ok, f"{name}: {why}")
     _build.require(k.dtype == q.dtype and v.dtype == q.dtype
                    and bias.dtype == torch.float32
                    and seed.dtype == torch.int32 and seed.numel() == 1,
-                   f"{name} kernel takes bf16 q/k/v, an fp32 bias and an"
-                   " int32 seed of one element")
+                   f"{name} kernel takes q/k/v of one dtype, an fp32 bias"
+                   " and an int32 seed of one element")
     _build.require(k.shape == (B, S, E) and v.shape == (B, S, E)
                    and bias.shape == (B, S),
                    f"{name}: k, v must be [B, S, E] and bias [B, S]")
     _build.require(all(t.is_contiguous() and t.device == q.device
                        for t in (q, k, v, bias, seed)),
                    f"{name}: inputs must be contiguous, on one device")
+    if route == "generic":
+        return route, generic_flash_plan(B, T, S, num_heads, dh)
     _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                    f"{name}: q, k and v must be 16-byte aligned")
-    return flash_plan(B, T, S, num_heads, E // num_heads,
-                      _build.sms_of(q.device))
+    return route, flash_plan(B, T, S, num_heads, dh, _build.sms_of(q.device))
 
 
 class _FlashCrossAttention(torch.autograd.Function):
@@ -422,17 +581,20 @@ class _FlashCrossAttention(torch.autograd.Function):
                                        dropout_p, keep, row0, h0,
                                        heads_total)
         ctx.save_for_backward(q, k, v, bias, seed, lse, keep)
-        ctx.args = (num_heads, dropout_p, row0, h0, heads_total)
+        # The backward takes the forward's kernel (its route).
+        route = None if q.device.type == "cpu" else route_flash(
+            q.dtype, q.shape[2] // num_heads)
+        ctx.args = (num_heads, dropout_p, row0, h0, heads_total, route)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, seed, lse, keep = ctx.saved_tensors
-        num_heads, dropout_p, row0, h0, heads_total = ctx.args
+        num_heads, dropout_p, row0, h0, heads_total, route = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, bias, seed, lse,
                                          g.contiguous(), num_heads,
                                          dropout_p, keep, row0, h0,
-                                         heads_total)
+                                         heads_total, route)
         return (dq, dk, dv) + (None,) * 8
 
 
@@ -442,7 +604,8 @@ def flash_cross_attention(q, k, v, bias, seed, num_heads: int,
                           row0: int = 0, h0: int = 0,
                           heads_total: Optional[int] = None):
     """out [B, T, E] = dropout(softmax(q kᵀ + bias)) v per head, with
-    kernel forward and backward on CUDA tensors; differentiable in q, k
+    kernel forward and backward on CUDA tensors (the fast kernels or
+    their generic variants, by `route_flash`); differentiable in q, k
     and v (bias and seed get no gradient). Arguments as in
     `flash_attention_fwd_plain`."""
     return _FlashCrossAttention.apply(q, k, v, bias, seed, num_heads,

@@ -514,7 +514,8 @@ def full_model_builder(caption_model=None, caption_params=None,
 
 def decode_launches() -> Dict[str, int]:
     """Launch counts of the four decode kernels, the two int8 variants
-    and the four generic variants in this process."""
+    and the six generic variants (the int8 ones' included) in this
+    process."""
     from news_image_caption_tpu_torch.ops import (band_topk,
                                                   decode_attention,
                                                   decode_blocks)
@@ -533,7 +534,11 @@ def decode_launches() -> Dict[str, int]:
             "decode_conv_block_generic":
                 decode_blocks.decode_conv_block_generic.launches,
             "decode_ffn_block_generic":
-                decode_blocks.decode_ffn_block_generic.launches}
+                decode_blocks.decode_ffn_block_generic.launches,
+            "band_topk_lse_int8_generic":
+                band_topk.band_topk_lse_int8_generic.launches,
+            "decode_cross_attention_int8_generic":
+                decode_attention.decode_cross_attention_int8_generic.launches}
 
 
 def is_cuda_error(e: BaseException) -> bool:

@@ -15,11 +15,11 @@ torch = pytest.importorskip("torch")
 
 from news_image_caption_tpu_torch.ops.band_topk import (  # noqa: E402
     band_topk_lse, band_topk_lse_generic, band_topk_lse_int8,
-    band_topk_lse_int8_plain, band_topk_lse_plain)
+    band_topk_lse_int8_generic, band_topk_lse_int8_plain, band_topk_lse_plain)
 from news_image_caption_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_cross_attention, decode_cross_attention_generic,
-    decode_cross_attention_int8, decode_cross_attention_int8_plain,
-    decode_cross_attention_plain)
+    decode_cross_attention_int8, decode_cross_attention_int8_generic,
+    decode_cross_attention_int8_plain, decode_cross_attention_plain)
 from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
     decode_conv_block, decode_conv_block_generic, decode_conv_block_plain,
     decode_ffn_block, decode_ffn_block_generic, decode_ffn_block_partial,
@@ -27,15 +27,18 @@ from news_image_caption_tpu_torch.ops.decode_blocks import (  # noqa: E402
 from news_image_caption_tpu_torch.ops.dynamic_conv import (  # noqa: E402
     dynamic_conv, dynamic_conv_plain, dynamic_conv_tolerance)
 from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
-    dropout_keep, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_fwd_plain)
+    dropout_keep, flash_attention_bwd, flash_attention_bwd_generic,
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_generic,
+    flash_attention_fwd_plain, flash_cross_attention_plain)
 
 KERNELS = ["band_topk_lse", "decode_cross_attention", "decode_conv_block",
            "decode_ffn_block", "flash_attention_fwd", "flash_attention_bwd",
            "dynamic_conv", "band_topk_lse_int8", "decode_cross_attention_int8",
            "decode_ffn_block_partial", "band_topk_lse_generic",
            "decode_cross_attention_generic", "decode_conv_block_generic",
-           "decode_ffn_block_generic"]
+           "decode_ffn_block_generic", "flash_attention_fwd_generic",
+           "flash_attention_bwd_generic", "band_topk_lse_int8_generic",
+           "decode_cross_attention_int8_generic"]
 GENERIC = (band_topk_lse_generic, decode_cross_attention_generic,
            decode_conv_block_generic, decode_ffn_block_generic)
 
@@ -67,6 +70,11 @@ def _kernel_calls(device, dtype=torch.bfloat16):
     seed = torch.tensor([7], dtype=torch.int32, device=device)
     flash = (q, kf, vf, bias, seed, H, 0.1)
     lse = flash_attention_fwd_plain(*flash)[1]
+    flash_bwd = (q, kf, vf, bias, seed, lse, rn(2, 9, C, scale=0.1), H, 0.1)
+    band8 = (x, i8(V, C), rn(V, scale=0.2).abs() / 127, 5, 250)
+    xattn8 = (rn(2, 3, C, scale=0.3), i8(2, S, C), rn(2, S, H).abs() / 127,
+              i8(2, S, C), rn(2, S, H).abs() / 127,
+              torch.zeros(2, S, device=device), H)
     taps = torch.softmax(torch.randn(2, 9, H, K, generator=g), -1)
     conv = (x, rn(K - 1, N, C), 9, rn(C, 2 * C, scale=0.05),
             rn(2 * C, scale=0.05), rn(C, H * K, scale=0.05),
@@ -81,9 +89,8 @@ def _kernel_calls(device, dtype=torch.bfloat16):
                          (rn(2, 9, C), taps.to(dtype).to(device), H)),
         "flash_attention_fwd": (flash_attention_fwd,
                                 flash_attention_fwd_plain, flash),
-        "flash_attention_bwd": (
-            flash_attention_bwd, flash_attention_bwd_plain,
-            (q, kf, vf, bias, seed, lse, rn(2, 9, C, scale=0.1), H, 0.1)),
+        "flash_attention_bwd": (flash_attention_bwd,
+                                flash_attention_bwd_plain, flash_bwd),
         "band_topk_lse": (band_topk_lse, band_topk_lse_plain, band),
         "decode_cross_attention": (
             decode_cross_attention, decode_cross_attention_plain, xattn),
@@ -104,14 +111,21 @@ def _kernel_calls(device, dtype=torch.bfloat16):
             decode_ffn_block_partial, decode_ffn_block_partial_plain,
             (x, rn(C, F, scale=0.05), rn(F, scale=0.05),
              rn(F, C, scale=0.05))),
-        "band_topk_lse_int8": (
-            band_topk_lse_int8, band_topk_lse_int8_plain,
-            (x, i8(V, C), rn(V, scale=0.2).abs() / 127, 5, 250)),
+        "band_topk_lse_int8": (band_topk_lse_int8, band_topk_lse_int8_plain,
+                               band8),
         "decode_cross_attention_int8": (
             decode_cross_attention_int8, decode_cross_attention_int8_plain,
-            (rn(2, 3, C, scale=0.3), i8(2, S, C),
-             rn(2, S, H).abs() / 127, i8(2, S, C), rn(2, S, H).abs() / 127,
-             torch.zeros(2, S, device=device), H)),
+            xattn8),
+        # The generic variants of flash and of the int8 kernels, likewise.
+        "flash_attention_fwd_generic": (flash_attention_fwd_generic,
+                                        flash_attention_fwd_plain, flash),
+        "flash_attention_bwd_generic": (flash_attention_bwd_generic,
+                                        flash_attention_bwd_plain, flash_bwd),
+        "band_topk_lse_int8_generic": (band_topk_lse_int8_generic,
+                                       band_topk_lse_int8_plain, band8),
+        "decode_cross_attention_int8_generic": (
+            decode_cross_attention_int8_generic,
+            decode_cross_attention_int8_plain, xattn8),
     }
 
 
@@ -661,9 +675,13 @@ def test_models_no_kernel_admits_raise_on_card(cuda_device, dtype,
     the generic variants: greedy and beam-3 launch each generic variant
     and no fast kernel, with the tokens of the same model's plain path on
     the card (the decode wrappers swapped for their plain versions where
-    the decoder calls them). Its training still raises with the flash
-    kernels' reason (fp32 and head sizes outside 16-128: ROADMAP Queue 3
-    item 1), and nothing launches there."""
+    the decoder calls them). It trains through the generic flash kernels:
+    the fast ones refuse its heads of 4 with `match` as their reason and
+    never launch; its loss, forward and backward, launches the generic
+    ones and equals the loss of the same model with the plain flash
+    version in the attention's place (the same mask, `dropout_keep`'s):
+    within 1e-5 relative in fp32, 0.01 in bf16 (a bf16 rounding of the
+    attention's output)."""
     from news_image_caption_tpu_torch.generation.generator import \
         GenerationConfig
     from news_image_caption_tpu_torch.models import decoder_flattened
@@ -705,11 +723,26 @@ def test_models_no_kernel_admits_raise_on_card(cuda_device, dtype,
     with torch.no_grad():
         assert torch.equal(model.generate(batch, cfg)[0], tokens)
         assert torch.equal(model.generate_beam(batch, cfg)[0], beams)
-    before = [fn.launches for fn in counted]
-    with pytest.raises(ValueError, match=match):
-        model.loss_fn(batch,
-                      torch.Generator(device=cuda_device).manual_seed(2))
-    assert [fn.launches for fn in counted] == before
+    from news_image_caption_tpu_torch.ops.flash_attention import admits
+    ok, why = admits(dtype, 4)
+    assert not ok and match in why
+    flash = (flash_attention_fwd, flash_attention_bwd,
+             flash_attention_fwd_generic, flash_attention_bwd_generic)
+    before = [fn.launches for fn in flash]
+    loss, _ = model.loss_fn(batch,
+                            torch.Generator(device=cuda_device).manual_seed(2))
+    loss.backward()
+    torch.cuda.synchronize()
+    after = [fn.launches - n for fn, n in zip(flash, before)]
+    assert after[:2] == [0, 0] and after[2] > 0 and after[3] > 0
+    monkeypatch.setattr(attention, "flash_cross_attention",
+                        flash_cross_attention_plain)
+    with torch.no_grad():
+        plain, _ = model.loss_fn(
+            batch, torch.Generator(device=cuda_device).manual_seed(2))
+    rtol = 1e-5 if dtype == torch.float32 else 0.01
+    torch.testing.assert_close(loss.detach().float(), plain.float(),
+                               rtol=rtol, atol=0)
 
 
 NARROW = dict(vocab_size=640, embed_dim=256, ffn_dim=512, num_heads=4,
@@ -863,11 +896,15 @@ def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda_device):
     lse = flash_attention_fwd_plain(q, k, v, bias, seed, 4)[1]
     before = flash_attention_fwd.launches, flash_attention_bwd.launches
     strided = k.transpose(0, 1).contiguous().transpose(0, 1)
+    counts = (flash_attention_fwd_generic, flash_attention_bwd_generic)
+    generic = [fn.launches for fn in counts]
+    # fp16 (neither kernel's type), a strided k, a head of 257 (past the
+    # generic kernels' 256).
+    wide = _flash_case(cuda_device, 2, 9, 51, 257, 1)
     for H, args, match in [
-            (4, (q.float(), k.float(), v.float()), "bf16"),
+            (4, (q.half(), k.half(), v.half()), "bf16 or fp32"),
             (4, (q, strided, v), "contiguous"),
-            (4, (q[..., :48].contiguous(), k[..., :48].contiguous(),
-                 v[..., :48].contiguous()), "head size")]:      # heads of 12
+            (1, wide[:3], "head size in 1..256")]:
         with pytest.raises(ValueError, match=match):
             flash_attention_fwd(*args, bias, seed, H)
         with pytest.raises(ValueError, match=match):
@@ -877,3 +914,228 @@ def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda_device):
         flash_attention_bwd(q, k, v, bias, seed, lse, g.float(), 4)
     assert (flash_attention_fwd.launches,
             flash_attention_bwd.launches) == before
+    assert [fn.launches for fn in counts] == generic
+
+
+# -- the generic flash kernels and the int8 generic variants ------------------
+
+FP32_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _assert_flash_close(got, want, dtype):
+    """(out, lse, dq, dk, dv) against the plain versions': fp32 within
+    1e-5 + 1e-5 |ref|, the gradients' absolute part times the item's
+    largest entry where that is above 1 (an item whose keys are all
+    padded has probs 1 in the backward and gradients S' times larger,
+    summed over S' terms in another order); bf16 at the fast kernels'
+    card tolerances."""
+    if dtype == torch.float32:
+        for name, a, b in zip(("out", "lse"), got, want):
+            torch.testing.assert_close(a, b, **FP32_TOL, msg=name)
+        for name, a, b in zip(("dq", "dk", "dv"), got[2:], want[2:]):
+            scale = b.abs().amax((1, 2), True).clamp(min=1.0)
+            assert bool(((a - b).abs() <= 1e-5 * scale
+                         + 1e-5 * b.abs()).all()), name
+        return
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=0.02,
+                               rtol=0.02)
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-5)
+    for name, a, b in zip(("dq", "dk", "dv"), got[2:], want[2:]):
+        a, b = a.float(), b.float()
+        tol = 0.02 * b.abs().amax((1, 2), True) + 0.02 * b.abs()
+        assert bool(((a - b).abs() <= tol).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,S,E,H", [
+    (63, 514, 1024, 16), (63, 51, 1024, 16), (11, 20, 16, 4),
+    (70, 65, 32, 4), (10, 24, 96, 4), (33, 1, 256, 1), (1, 5, 129, 1)])
+def test_flash_generic_matches_plain_on_card(cuda_device, dtype, T, S, E, H):
+    """The generic flash kernels against their plain versions at p = 0.1
+    (an item's keys all padded, another's half), heads of 64 (the fp32
+    flagship), 4, 8, 24, 256 and 129, one or several query and key
+    tiles: fp32 within 1e-5 + 1e-5 |ref|, bf16 at the fast kernels'
+    tolerances; second calls bit-equal; the fast kernels never launch."""
+    q, k, v, bias, g = (t.to(dtype) if t.is_floating_point() and t.dim() == 3
+                        else t for t in _flash_case(cuda_device, 3, T, S, E,
+                                                    T + S + E))
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    counts = (flash_attention_fwd_generic, flash_attention_bwd_generic,
+              flash_attention_fwd, flash_attention_bwd)
+    before = [fn.launches for fn in counts]
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention_fwd_generic(q, k, v, bias, seed, H, 0.1)
+        grads = flash_attention_bwd_generic(q, k, v, bias, seed, lse, g, H,
+                                            0.1)
+        runs.append((out, lse, *grads))
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(counts, before)] == [2, 2, 0, 0]
+    pout, plse = flash_attention_fwd_plain(q, k, v, bias, seed, H, 0.1)
+    pgrads = flash_attention_bwd_plain(q, k, v, bias, seed, plse, g, H, 0.1)
+    _assert_flash_close(runs[0], (pout, plse, *pgrads), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,H", [(8, 64, 1), (130, 128, 2)])
+def test_flash_generic_drops_the_fast_kernels_slots_on_card(cuda_device, T,
+                                                            S, H):
+    """At shapes both routes take (bf16, heads of 64 and 128, p = 0.25),
+    v = I: the generic kernel's dropped slots are the fast kernel's and
+    `dropout_keep`'s; at the flagship's article shape (p = 0.1) its lse
+    within 1e-5 + 1e-5 |ref| and its output within one bf16 rounding of
+    the fast kernel's."""
+    B, p = 2, 0.25
+    g = torch.Generator().manual_seed(T)
+    q = (torch.randn(B, T, H * S, generator=g) * 0.3).bfloat16()
+    k = torch.randn(B, S, H * S, generator=g).bfloat16()
+    v = torch.eye(S).repeat(B, 1, H).bfloat16()
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    args = (q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+            torch.zeros(B, S, device=cuda_device), seed, H, p)
+    kept = [(fn(*args)[0].float() > 0).view(B, T, H, S).transpose(1, 2)
+            for fn in (flash_attention_fwd_generic, flash_attention_fwd)]
+    assert torch.equal(kept[0], kept[1])
+    assert torch.equal(kept[0], dropout_keep(seed, B, H, T, S, p))
+    q, k, v, bias, _ = _flash_case(cuda_device, 16, 63, 514, 1024, 5)
+    (go, gl), (fo, fl) = (fn(q, k, v, bias, seed, 16, 0.1) for fn in (
+        flash_attention_fwd_generic, flash_attention_fwd))
+    torch.testing.assert_close(gl, fl, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(go.float(), fo.float(), atol=0.02, rtol=0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,E,H", [(torch.float32, 1024, 16),
+                                       (torch.bfloat16, 96, 4)])
+def test_flash_generic_shard_forms_on_card(cuda_device, dtype, E, H):
+    """Tensor parallelism at m = 2: the generic kernels over heads [h0,
+    h0 + H / 2) of H (h0 = 0 and H / 2, the whole head count given) are
+    bit-equal to the whole launch's heads: out, lse, dq, dk and dv."""
+    q, k, v, bias, g = (t.to(dtype) if t.dim() == 3 else t
+                        for t in _flash_case(cuda_device, 4, 63, 514, E, 7))
+    seed = torch.tensor([9], dtype=torch.int32, device=cuda_device)
+    out, lse = flash_attention_fwd_generic(q, k, v, bias, seed, H, 0.1)
+    grads = flash_attention_bwd_generic(q, k, v, bias, seed, lse, g, H, 0.1)
+    n, w = H // 2, E // 2
+    for r in range(2):
+        cols = slice(r * w, (r + 1) * w)
+        sq, sk, sv, sg = (t[..., cols].contiguous() for t in (q, k, v, g))
+        sout, slse = flash_attention_fwd_generic(
+            sq, sk, sv, bias, seed, n, 0.1, h0=r * n, heads_total=H)
+        sgrads = flash_attention_bwd_generic(
+            sq, sk, sv, bias, seed, slse, sg, n, 0.1, h0=r * n,
+            heads_total=H)
+        assert torch.equal(sout, out[..., cols])
+        assert torch.equal(slse, lse[:, r * n:(r + 1) * n])
+        assert all(torch.equal(a, b[..., cols])
+                   for a, b in zip(sgrads, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,V,k", [(16, 1024, 5000, 1),
+                                     (80, 1024, 30265, 5), (5, 16, 32, 5),
+                                     (1, 32, 16, 1), (37, 100, 129, 16)])
+def test_band_int8_generic_matches_plain_on_card(cuda_device, dtype, N, D, V,
+                                                 k):
+    """`band_topk_lse_int8_generic` over a table quantized by the port's
+    quantizer against its plain version: fp32 values and lse within
+    1e-5 + 1e-5 |ref|, bf16 values within one bf16 rounding of a logit
+    (0.03125) and lse within 1e-3 + 1e-4 |lse|, ids equal where the
+    values are; second calls bit-equal; the int8 kernel never launches."""
+    from news_image_caption_tpu_torch.ops.adaptive import \
+        quantize_embed_tables
+    g = torch.Generator().manual_seed(N + V)
+    ((qt, _),) = quantize_embed_tables([(
+        (torch.randn(V, D, generator=g) * D ** -0.5).to(dtype).to(
+            cuda_device), None)])
+    x = torch.randn(N, D, generator=g).to(dtype).to(cuda_device)
+    before = band_topk_lse_int8_generic.launches, band_topk_lse_int8.launches
+    got = band_topk_lse_int8_generic(x, qt.q, qt.scale, k)
+    again = band_topk_lse_int8_generic(x, qt.q, qt.scale, k)
+    torch.cuda.synchronize()
+    assert (band_topk_lse_int8_generic.launches,
+            band_topk_lse_int8.launches) == (before[0] + 2, before[1])
+    want = band_topk_lse_int8_plain(x, qt.q, qt.scale, k)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], **FP32_TOL)
+        torch.testing.assert_close(got[2], want[2], **FP32_TOL)
+    else:
+        torch.testing.assert_close(got[0], want[0], atol=0.03125, rtol=0)
+        torch.testing.assert_close(got[2], want[2], atol=1e-3, rtol=1e-4)
+    same = got[0] == want[0]
+    assert torch.equal(got[1][same], want[1][same])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Q,S,E,H", [
+    (16, 1, 514, 1024, 16), (16, 5, 51, 1024, 16), (2, 4, 18, 16, 4),
+    (2, 1, 6, 32, 4), (2, 3, 33, 39, 13), (2, 16, 70, 512, 2)])
+def test_attention_int8_generic_matches_plain_on_card(cuda_device, dtype, B,
+                                                      Q, S, E, H):
+    """`decode_cross_attention_int8_generic` over K/V quantized by the
+    port's quantizer against its plain version (half an item's keys
+    padded): fp32 within 1e-5 + 1e-5 |ref|, bf16 within 0.02 + 0.02
+    |ref|; second calls bit-equal; the int8 kernel never launches."""
+    from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
+                                                            quantize_kv)
+    g = torch.Generator().manual_seed(S + E)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dtype).to(
+            cuda_device)
+
+    bias = torch.zeros(B, S, device=cuda_device)
+    bias[B - 1, S // 2:] = -1e9
+    kv = quantize_kv(AttentionKV(rn(B, S, E), rn(B, S, E), bias), H)
+    args = (rn(B, Q, E, scale=(E // H) ** -0.5), kv.k_q, kv.k_scale, kv.v_q,
+            kv.v_scale, kv.bias, H)
+    before = (decode_cross_attention_int8_generic.launches,
+              decode_cross_attention_int8.launches)
+    got = decode_cross_attention_int8_generic(*args)
+    again = decode_cross_attention_int8_generic(*args)
+    torch.cuda.synchronize()
+    assert (decode_cross_attention_int8_generic.launches,
+            decode_cross_attention_int8.launches) == (before[0] + 2,
+                                                      before[1])
+    want = decode_cross_attention_int8_plain(*args)
+    tol = FP32_TOL if dtype == torch.float32 else dict(atol=0.02, rtol=0.02)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,E,H,route", [
+    (torch.float32, 1024, 16, "generic"), (torch.bfloat16, 1024, 16, "fast"),
+    (torch.bfloat16, 16, 4, "generic")])
+def test_int8_wrappers_route_on_card(cuda_device, dtype, E, H, route):
+    """`band_topk_lse_int8` and `decode_cross_attention_int8` launch the
+    int8 kernels where `route_*_int8` says "fast" (the flagship's widths
+    in bf16) and their generic variants otherwise (fp32, heads of 4),
+    one launch each, never both."""
+    from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
+                                                            quantize_kv)
+    from news_image_caption_tpu_torch.ops.adaptive import \
+        quantize_embed_tables
+    g = torch.Generator().manual_seed(E)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g).to(dtype).to(cuda_device)
+
+    ((qt, _),) = quantize_embed_tables([(rn(300, E), None)])
+    kv = quantize_kv(AttentionKV(rn(2, 20, E), rn(2, 20, E),
+                                 torch.zeros(2, 20, device=cuda_device)), H)
+    counts = (band_topk_lse_int8, band_topk_lse_int8_generic,
+              decode_cross_attention_int8,
+              decode_cross_attention_int8_generic)
+    before = [fn.launches for fn in counts]
+    band_topk_lse_int8(rn(4, E), qt.q, qt.scale, 5)
+    decode_cross_attention_int8(rn(2, 1, E), kv.k_q, kv.k_scale, kv.v_q,
+                                kv.v_scale, kv.bias, H)
+    torch.cuda.synchronize()
+    fast = [1, 0, 1, 0] if route == "fast" else [0, 1, 0, 1]
+    assert [fn.launches - n for fn, n in zip(counts, before)] == fast

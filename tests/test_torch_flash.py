@@ -10,6 +10,14 @@ mask is read back with v = I (one head, E = S: the output is the
 dropped probability matrix) and fed to the port as `keep`. The port's
 own generator is checked for its law, its seeds, and for using one
 mask in the forward and the backward.
+
+The head sizes the generic kernels add (4: tiny_test, 8: the toy, 24,
+and 256 in one head) are held the same way at p = 0.1 in fp32 (forward
+1e-5, gradients 2e-4) and bf16 (0.02, `test_bf16_rounding_points`'s):
+the mask of every (item, head) is read back through one-head calls over
+B * H items, since JAX keys head h of item b as item b * H + h of a
+one-head call. One JAX call a (head size, dtype), jitted, computed once
+a module.
 """
 
 import numpy as np
@@ -28,6 +36,14 @@ from news_image_caption_tpu_torch.ops.flash_attention import (  # noqa: E402
 
 B, H, T, D, S = 2, 4, 10, 16, 24
 E = H * D
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -199,3 +215,84 @@ def test_bf16_rounding_points(data):
     ref, _ = flash_attention_fwd(tq.float(), tk.float(), tv.float(), tb,
                                  _seed(1), H, 0.1)
     torch.testing.assert_close(out.float(), ref, rtol=0.02, atol=0.02)
+
+
+# -- the generic kernels' head sizes -----------------------------------------
+
+GENERIC_HEADS = [(4, 4), (8, 4), (24, 4), (256, 1)]   # (head size, heads)
+P_GENERIC, SEED_GENERIC = 0.1, 3
+
+
+def _jax_mask_heads(H, p, seed):
+    """JAX's keep mask [B, H, T, S] of an H-head call, read back through
+    one one-head call over B * H items (item b * H + h of that call
+    hashes as head h of item b)."""
+    rng = np.random.RandomState(5)
+    q = (rng.randn(B * H, T, S) * 0.3).astype(np.float32)
+    k = rng.randn(B * H, S, S).astype(np.float32)
+    return _jax_mask(q, k, p, seed).reshape(B, H, T, S)
+
+
+@pytest.fixture(scope="module")
+def generic_reference():
+    """get(head, H, dtype) -> (q, k, v, bias, keep, JAX's out, JAX's
+    dq, dk, dv of sum(sin(out))), numpy, for p = 0.1 and JAX's own mask;
+    each computed on first use."""
+    masks, cache = {}, {}
+
+    def get(head, H, dtype):
+        if H not in masks:
+            masks[H] = _jax_mask_heads(H, P_GENERIC, SEED_GENERIC)
+        if (head, H, dtype) not in cache:
+            rng = np.random.RandomState(head)
+            E = head * H
+            q = (rng.randn(B, T, E) * head ** -0.5).astype(np.float32)
+            k = rng.randn(B, S, E).astype(np.float32)
+            v = rng.randn(B, S, E).astype(np.float32)
+            bias = np.zeros((B, S), np.float32)
+            bias[1, -7:] = -1e9
+            jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+            seed = jnp.full((1,), SEED_GENERIC, jnp.int32)
+
+            def fwd(q, k, v):
+                return jax_flash(q, k, v, jnp.asarray(bias), seed, H,
+                                 P_GENERIC, True)
+
+            @jax.jit
+            def run(q, k, v):
+                # One forward: the output and the vjp of sum(sin(out)).
+                out, vjp = jax.vjp(fwd, q, k, v)
+                return out, vjp(jnp.cos(out.astype(jnp.float32)).astype(
+                    out.dtype))
+
+            out, grads = run(*(jnp.asarray(a, jd) for a in (q, k, v)))
+            cache[head, H, dtype] = (
+                q, k, v, bias, masks[H], np.asarray(out, np.float32),
+                [np.asarray(g, np.float32) for g in grads])
+        return cache[head, H, dtype]
+    return get
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head,H", GENERIC_HEADS)
+def test_generic_head_sizes_match_pallas(generic_reference, head, H, dtype):
+    """Heads of 4, 8, 24 and 256 (the generic kernels' sizes), p = 0.1
+    with JAX's mask: the port's output and gradients against the Pallas
+    kernel's, fp32 at 1e-5 / 2e-4, bf16 at 0.02 (one bf16 rounding of a
+    probability, of ds or of the output)."""
+    q, k, v, bias, keep, want, want_g = generic_reference(head, H, dtype)
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(td).requires_grad_()
+                  for a in (q, k, v))
+    out = flash_cross_attention(tq, tk, tv, torch.from_numpy(bias),
+                                _seed(SEED_GENERIC), H, P_GENERIC,
+                                torch.from_numpy(keep))
+    assert out.dtype == td
+    got = torch.autograd.grad(torch.sin(out.float()).sum(), (tq, tk, tv))
+    tol_out, tol_grad = (1e-5, 2e-4) if dtype == "float32" else (0.02, 0.02)
+    np.testing.assert_allclose(out.detach().float().numpy(), want,
+                               rtol=tol_out, atol=tol_out)
+    for g, w, name in zip(got, want_g, ("dq", "dk", "dv")):
+        assert g.dtype == td
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=tol_grad,
+                                   atol=tol_grad, err_msg=name)

@@ -13,9 +13,12 @@ rtol = 2e-4, ids equal), greedy and beam-topk tokens equal to JAX's
 under each switch and both, and, in the port alone, speculative greedy
 and both slot pools token for token the quantized `generate` /
 `generate_beam` (the reference's `tests/test_speculative.py:246` and
-`tests/test_continuous.py:151`, `:384`). What the int8 kernels admit
-is held against their launch checks with the C entry points stubbed.
-Every JAX call is jitted, and JAX's decodes are computed once a module.
+`tests/test_continuous.py:151`, `:384`). At configs/tiny_test.yaml's
+widths (embed 16, heads of 4: on the card the int8 generic variants'),
+greedy and beam tokens under both switches equal JAX's too. What the
+int8 kernels admit is held against their launch checks with the C entry
+points stubbed. Every JAX call is jitted, and JAX's decodes are computed
+once a module.
 """
 
 import numpy as np
@@ -28,6 +31,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from news_image_caption_tpu.generation.generator import \
     GenerationConfig as JaxConfig  # noqa: E402
+from news_image_caption_tpu.models.captioner import \
+    TransformerFlattened as JaxTransformerFlattened  # noqa: E402
 from news_image_caption_tpu.models.decoder_flattened import \
     DynamicConvDecoder as JaxDecoder  # noqa: E402
 from news_image_caption_tpu.ops.attention import \
@@ -38,6 +43,8 @@ from news_image_caption_tpu_torch.generation.continuous import (  # noqa: E402
     ContinuousBatcher, ContinuousBeamBatcher)
 from news_image_caption_tpu_torch.generation.generator import \
     GenerationConfig  # noqa: E402
+from news_image_caption_tpu_torch.models.captioner import \
+    TransformerFlattened  # noqa: E402
 from news_image_caption_tpu_torch.models.from_jax import \
     params_from_jax  # noqa: E402
 from news_image_caption_tpu_torch.ops import (_build, band_topk,  # noqa: E402
@@ -293,6 +300,57 @@ def test_beam_pool_equals_generate_beam(pair, switch):
         np.testing.assert_allclose(out[rid][1], want_s[i].numpy(), atol=1e-6,
                                    rtol=1e-6)
     assert (eng.tables is not None) == cfg.quantize_head
+
+
+# -- configs/tiny_test.yaml's widths -----------------------------------------
+
+TINY_WIDTHS = dict(vocab_size=64, cutoff=(16, 32, 64), embed_dim=16,
+                   ffn_dim=32, num_heads=4, num_layers=2, kernel_sizes=(3, 5),
+                   image_dim=16, article_dim=12, max_positions=64)
+
+
+@pytest.fixture(scope="module")
+def tiny_pair():
+    """JAX's captioner at tiny_test's widths (PRNGKey(0)), the port's
+    with its weights (fp32), and a batch of 3 requests as both take it."""
+    rng = np.random.RandomState(27)
+    mask = np.zeros((B, 16), bool)
+    mask[1, -5:] = True
+    arrays = {"image": rng.randn(B, 4, 16).astype(np.float32),
+              "image_mask": np.zeros((B, 4), bool),
+              "article": rng.randn(B, 16, 12).astype(np.float32),
+              "article_mask": mask}
+    caption = rng.randint(2, 64, size=(B, 10)).astype(np.int32)
+    caption[:, 0] = 0
+    jbatch = tp.jax_batch(arrays)
+    jmodel = JaxTransformerFlattened(**TINY_WIDTHS)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                  {"caption_ids": jnp.asarray(caption),
+                                   **jbatch})
+    model = TransformerFlattened(device="cpu", dtype=torch.float32,
+                                 **TINY_WIDTHS)
+    model.decoder.load_state_dict(params_from_jax(_np(params), model.decoder))
+    model.decoder.eval()
+    return dict(jmodel=jmodel, params=params, model=model, jbatch=jbatch,
+                tbatch=tp.torch_batch(arrays))
+
+
+@pytest.mark.parametrize("kind", ["greedy", "beam"])
+def test_tiny_widths_under_both_switches_match_jax(tiny_pair, kind):
+    """quantize_kv and quantize_head at heads of 4 in fp32 (the int8
+    generic variants' shapes on the card): greedy and beam-3 tokens equal
+    JAX's, log-probs and beam scores within 2e-4."""
+    jmodel, params = tiny_pair["jmodel"], tiny_pair["params"]
+    jcfg = JaxConfig(max_len=MAX_LEN, beam_size=BEAM, quantize_kv=True,
+                     quantize_head=True)
+    jfn = jmodel.generate if kind == "greedy" else jmodel.generate_beam
+    want_t, want_s = _np(jax.jit(lambda b: jfn(params, b, jcfg))(
+        tiny_pair["jbatch"]))
+    model = tiny_pair["model"]
+    fn = model.generate if kind == "greedy" else model.generate_beam
+    got_t, got_s = fn(tiny_pair["tbatch"], _config("both"))
+    np.testing.assert_array_equal(got_t.numpy(), want_t)
+    np.testing.assert_allclose(got_s.numpy(), want_s, atol=2e-4, rtol=2e-4)
 
 
 # -- what the int8 kernels admit ----------------------------------------------

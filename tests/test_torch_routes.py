@@ -7,9 +7,10 @@ Each kernel wrapper has one predicate, `admits(dtype, shapes...) ->
 the launch is driven on CPU tensors with the C entry point replaced by a
 stub, over a grid of dtypes and shapes, and must accept exactly what the
 predicate admits, with the predicate's reason where it refuses. The four
-decode wrappers have a generic variant each (`admits*_generic`,
-`_launch*_generic`, held the same way) and choose between the two by one
-predicate, `route_*(dtype, shapes...) -> "fast" | "generic"`: the
+decode wrappers, the flash kernels and the two int8 variants have a
+generic variant each (`admits*_generic`, `_launch*_generic` or the flash
+launches' generic route, held the same way) and choose between the two
+by one predicate, `route_*(dtype, shapes...) -> "fast" | "generic"`: the
 flagship in bf16 routes "fast" everywhere, the fp32 flagship, the tiny
 configs' and the toy's widths and a K = 1 layer "generic", and a shape
 neither takes raises with both reasons. Nothing gives way to a plain
@@ -155,13 +156,18 @@ def test_attention_admits_is_what_the_launches_accept(stub_library, dtype, Q,
     assert launch_outcome(decode_attention._launch, *args) == (ok, why)
     assert ok == (dtype == torch.bfloat16 and Q <= 16
                   and E // H in (16, 32, 64, 128))
+    # Flash: the fast kernels where `admits` holds, else the generic ones
+    # where `admits_generic` does; refused with both reasons otherwise.
     ok, why = flash_attention.admits(dtype, E // H)
+    ok_generic, why_generic = flash_attention.admits_generic(dtype, E // H)
     seed = torch.zeros(1, dtype=torch.int32)
     got, text = launch_outcome(
         flash_attention._check, z(dtype, B, T, E), z(dtype, B, S, E),
         z(dtype, B, S, E), torch.zeros(B, S), seed, H, "flash_attention_fwd")
-    assert got == ok and text.endswith(why)
+    assert got == (ok or ok_generic)
+    assert got or text.endswith(f"{why}; {why_generic}")
     assert ok == (dtype == torch.bfloat16 and E // H in (16, 32, 64, 128))
+    assert ok_generic == (dtype != torch.float16 and E // H <= 256)
 
 
 def _model_answers(dtype, cfg, N):
@@ -178,7 +184,11 @@ def _model_answers(dtype, cfg, N):
         "decode_ffn_block": [decode_blocks.admits_ffn(dtype, N, D, F)],
         "band_topk_lse": [band_topk.admits(dtype, N, D, V, 1, sel)
                           for V, sel in bands],
-        "flash_attention": [flash_attention.admits(dtype, D // H)]}
+        "flash_attention": [flash_attention.admits(dtype, D // H)],
+        "decode_cross_attention_int8": [decode_attention.admits_int8(
+            dtype, 1, D // H)],
+        "band_topk_lse_int8": [band_topk.admits_int8(dtype, N, D, V, 1, sel)
+                               for V, sel in bands]}
 
 
 @pytest.mark.parametrize("N", [1, 16, 80])
@@ -196,21 +206,23 @@ def test_every_kernel_admits_the_flagship(N):
 
 
 @pytest.mark.parametrize("dtype,cfg,reasons", [
-    (torch.float32, FLAGSHIP, ["bf16"] * 5),
+    (torch.float32, FLAGSHIP, ["bf16"] * 7),
     (torch.bfloat16, TINY, ["head size", "head size", "C % 64 == 0",
-                            "D % 64 == 0", "head size"]),
-    (torch.float32, TINY, ["bf16"] * 5)])
+                            "D % 64 == 0", "head size", "head size",
+                            "D % 64 == 0"]),
+    (torch.float32, TINY, ["bf16"] * 7)])
 def test_models_no_kernel_admits_are_refused_with_the_reason(dtype, cfg,
                                                              reasons):
     """An fp32 model and the widths of configs/tiny_test.yaml (embed 16,
-    4 heads, ffn 32): every fast kernel refuses, and says why; every
-    generic variant admits them; the flash kernels still refuse (ROADMAP
-    Queue 3 item 1)."""
+    4 heads, ffn 32): every fast kernel, the flash kernels and the int8
+    variants included, refuses, and says why; every generic variant, the
+    flash kernels' and the int8 ones included, admits them."""
     answers = _model_answers(dtype, cfg, 1)
+    assert len(answers) == len(reasons)
     for (op, got), text in zip(answers.items(), reasons):
         assert all(not ok and text in why for ok, why in got), op
-    assert "Queue 3 item 1" in answers["flash_attention"][0][1]
     generic = _generic_answers(dtype, cfg, 1)
+    assert set(generic) == set(answers)
     assert all(a == (True, "") for op in generic.values() for a in op)
 
 
@@ -226,7 +238,13 @@ def _generic_answers(dtype, cfg, N):
             dtype, 1, D // H)],
         "decode_ffn_block": [decode_blocks.admits_ffn_generic(dtype, N, D, F)],
         "band_topk_lse": [band_topk.admits_generic(dtype, N, D, V, 1, sel)
-                          for V, sel in _bands(cfg)]}
+                          for V, sel in _bands(cfg)],
+        "flash_attention": [flash_attention.admits_generic(dtype, D // H)],
+        "decode_cross_attention_int8": [decode_attention.admits_int8_generic(
+            dtype, 1, D // H)],
+        "band_topk_lse_int8": [band_topk.admits_int8_generic(dtype, N, D, V,
+                                                             1, sel)
+                               for V, sel in _bands(cfg)]}
 
 
 def _bands(cfg):
@@ -251,14 +269,21 @@ def _routes(dtype, cfg, N):
         "decode_ffn_block": [decode_blocks.route_ffn(dtype, N, D, F)],
         "band_topk_lse": [band_topk.route_band(dtype, N, D, V, min(5, sel),
                                                sel)
-                          for V, sel in _bands(cfg)]}
+                          for V, sel in _bands(cfg)],
+        "flash_attention": [flash_attention.route_flash(dtype, D // H)],
+        "decode_cross_attention_int8": [decode_attention.route_attention_int8(
+            dtype, Q, D // H)],
+        "band_topk_lse_int8": [band_topk.route_band_int8(dtype, N, D, V,
+                                                         min(5, sel), sel)
+                               for V, sel in _bands(cfg)]}
 
 
 @pytest.mark.parametrize("N", [1, 16, 80, 640])
 def test_flagship_routes_fast(N):
     """The flagship at bf16, one row to a beam-5 step at B=128: every
-    decode wrapper routes "fast", so every shape launched before the
-    generic variants existed launches the same kernel."""
+    decode wrapper, the flash kernels and the int8 variants route "fast",
+    so every shape launched before the generic variants existed launches
+    the same kernel."""
     routes = _routes(torch.bfloat16, FLAGSHIP, N)
     assert all(r == "fast" for op in routes.values() for r in op), routes
 
@@ -271,7 +296,8 @@ def test_flagship_routes_fast(N):
 def test_models_the_fast_kernels_refuse_route_generic(dtype, cfg, N):
     """The fp32 flagship, configs/tiny_test.yaml's widths in bf16 and
     fp32, and the toy (`serving/worker.py::TOY`, fp32, head size 8):
-    every decode wrapper routes "generic"."""
+    every decode wrapper, the flash kernels and the int8 variants route
+    "generic"."""
     routes = _routes(dtype, cfg, N)
     assert all(r == "generic" for op in routes.values() for r in op), routes
 
@@ -305,7 +331,21 @@ def test_pointwise_layer_routes_generic(dtype, N):
     (decode_blocks.route_conv, (torch.float32, 4, 64, 7, 3),
      ("takes bf16", "C % H == 0")),
     (decode_blocks.route_ffn, (torch.float16, 4, 64, 128),
-     ("takes bf16", "bf16 or fp32"))])
+     ("takes bf16", "bf16 or fp32")),
+    (flash_attention.route_flash, (torch.float16, 64),
+     ("take bf16 q/k/v", "bf16 or fp32")),
+    (flash_attention.route_flash, (torch.bfloat16, 257),
+     ("head size E / num_heads in", "head size in 1..256")),
+    (flash_attention.route_flash, (torch.float32, 257),
+     ("take bf16 q/k/v", "head size in 1..256")),
+    (band_topk.route_band_int8, (torch.float16, 4, 64, 100, 1, 100),
+     ("takes bf16 x, an int8 table", "bf16 or fp32 x, an int8 table")),
+    (band_topk.route_band_int8, (torch.float32, 4, 64, 100, 17, 100),
+     ("takes bf16 x", "generic: need 1 <= k")),
+    (decode_attention.route_attention_int8, (torch.float16, 1, 64),
+     ("takes bf16 q, int8 k/v", "bf16 or fp32 q, int8 k/v")),
+    (decode_attention.route_attention_int8, (torch.bfloat16, 1, 260),
+     ("head size", "head size in 1..256"))])
 def test_routes_raise_with_both_reasons(route, args, reasons):
     """A shape neither kernel takes raises, naming the fast kernel's
     reason and the generic variant's."""
@@ -385,6 +425,211 @@ def test_attention_generic_admits_is_what_its_launch_accepts(stub_library,
             == before + int(ok))
     assert ok == (dtype in (torch.bfloat16, torch.float32) and Q <= 16
                   and E // H <= 256)
+
+
+# -- the flash kernels' and the int8 variants' generic routes ----------------
+
+@pytest.mark.parametrize("dtype,head,route", [
+    (torch.bfloat16, 16, "fast"), (torch.bfloat16, 32, "fast"),
+    (torch.bfloat16, 64, "fast"), (torch.bfloat16, 128, "fast"),
+    (torch.float32, 64, "generic"), (torch.bfloat16, 4, "generic"),
+    (torch.float32, 4, "generic"), (torch.bfloat16, 8, "generic"),
+    (torch.float32, 8, "generic"), (torch.bfloat16, 24, "generic"),
+    (torch.bfloat16, 256, "generic"), (torch.float32, 256, "generic"),
+    (torch.float32, 1, "generic")])
+def test_flash_routes(dtype, head, route):
+    """bf16 at the fast kernels' head sizes routes "fast" (the flagship
+    in bf16: heads of 64); fp32 (the flagship at fp32) and any other head
+    size up to 256 (tiny_test's 4, the toy's 8) routes "generic"."""
+    assert flash_attention.route_flash(dtype, head) == route
+
+
+@pytest.mark.parametrize("N", [1, 16, 80])
+@pytest.mark.parametrize("dtype,cfg,route", [
+    (torch.bfloat16, FLAGSHIP, "fast"), (torch.float32, FLAGSHIP, "generic"),
+    (torch.bfloat16, TINY, "generic"), (torch.float32, TINY, "generic"),
+    (torch.float32, TOY, "generic")],
+    ids=["bf16_flagship", "fp32_flagship", "bf16_tiny", "fp32_tiny", "toy"])
+def test_int8_routes(dtype, cfg, route, N):
+    """The int8 variants at the flagship's widths route "fast" in bf16
+    and "generic" in fp32; at tiny_test's widths (embed 16, heads of 4)
+    and the toy's (fp32, heads of 8) "generic": the head's word tables
+    (the head band is table0 alone) and the tails, a greedy step's and a
+    beam-5 step's rows."""
+    D, H = cfg["embed_dim"], cfg["num_heads"]
+    Q = 1 if N <= 16 else 5
+    cut = (0, *cfg["cutoff"])
+    tables = [(hi - lo, hi - lo) for lo, hi in zip(cut, cut[1:])]
+    routes = [band_topk.route_band_int8(dtype, N, D, V, min(5, V), sel)
+              for V, sel in tables]
+    routes.append(decode_attention.route_attention_int8(dtype, Q, D // H))
+    assert routes == [route] * len(routes)
+
+
+@pytest.fixture
+def recording_library(monkeypatch):
+    """`stub_library` whose entry points record their name and arguments
+    in the returned list."""
+    calls = []
+    monkeypatch.setattr(_build, "function", lambda name, argtypes:
+                        lambda *args: calls.append((name, args)) or 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "sms_of", lambda device: _build.H100_SMS)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,S,E,H", [
+    (63, 514, 1024, 16), (63, 51, 1024, 16), (11, 20, 16, 4),
+    (70, 65, 32, 4), (10, 24, 96, 4), (33, 1, 256, 1), (5, 7, 257, 1),
+    (4, 9, 520, 2)])
+def test_flash_generic_admits_is_what_its_launches_accept(recording_library,
+                                                          dtype, T, S, E, H):
+    """The generic route of both flash launches accepts exactly what
+    `admits_generic` admits (fp32 or bf16, head sizes 1 to 256), passes
+    the dtype code, the plan's shared memory and row0 / h0 / heads_total
+    through to `nic_flash_*_generic`, and raises with the reason
+    otherwise; each launch counts one on its generic counter."""
+    B, dh = 3, E // H
+    ok, why = flash_attention.admits_generic(dtype, dh)
+    q, k, v = z(dtype, B, T, E), z(dtype, B, S, E), z(dtype, B, S, E)
+    bias, seed = torch.zeros(B, S), torch.zeros(1, dtype=torch.int32)
+    lse = torch.zeros(B, H, T)
+    tail = (0.1, 4, 0, 2 * H)       # p, row0, h0 (heads [0, H) of 2 H)
+    counts = (flash_attention.flash_attention_fwd_generic,
+              flash_attention.flash_attention_bwd_generic,
+              flash_attention.flash_attention_fwd,
+              flash_attention.flash_attention_bwd)
+    before = [fn.launches for fn in counts]
+    fwd = launch_outcome(flash_attention._launch_fwd, q, k, v, bias, seed, H,
+                         *tail, "generic")
+    bwd = launch_outcome(flash_attention._launch_bwd, q, k, v, bias, seed,
+                         lse, q, H, *tail, "generic")
+    assert fwd[0] == bwd[0] == ok
+    assert ok or (fwd[1].endswith(why) and bwd[1].endswith(why))
+    assert [fn.launches - n for fn, n in zip(counts, before)] == (
+        [1, 1, 0, 0] if ok else [0, 0, 0, 0])
+    assert ok == (dtype != torch.float16 and dh <= 256)
+    if not ok:
+        assert recording_library == []
+        return
+    plan = flash_attention.generic_flash_plan(B, T, S, H, dh)
+    (fname, fargs), (bname, bargs) = recording_library
+    assert (fname, bname) == ("nic_flash_fwd_generic",
+                              "nic_flash_bwd_generic")
+    code = _build.GENERIC_DTYPES[dtype]
+    assert fargs[0] == bargs[0] == code
+    assert fargs[8:15] == (B, T, S, E, H,
+                           flash_attention.dropout_threshold(0.1),
+                           pytest.approx(1 / 0.9))
+    assert fargs[15:19] == (plan.fwd_smem_bytes, 4, 0, 2 * H)
+    assert bargs[12:19] == fargs[8:15]
+    assert bargs[19:23] == (plan.bwd_smem_bytes, 4, 0, 2 * H)
+    # Several query tiles: the backward's fp32 parts of dk and dv.
+    assert (bargs[11] is None) == (plan.t_tiles == 1)
+
+
+def test_generic_flash_plans_fit_the_card():
+    """Every head size 1 to 256 has a tile class whose blocks fit shared
+    memory in both passes (two blocks a multiprocessor up to heads of
+    128); T past the class's rows makes several query tiles and the
+    backward's fp32 parts of dk and dv; the flagship's call is one tile
+    of 256 blocks."""
+    for dh in range(1, 257):
+        plan = flash_attention.generic_flash_plan(16, 63, 514, 16, dh)
+        width, rows, keys = next(t for t in flash_attention.GENERIC_TILES
+                                 if dh <= t[0])
+        assert (plan.rows, plan.keys) == (rows, keys)
+        assert plan.fwd_smem_bytes < plan.bwd_smem_bytes
+        assert plan.bwd_smem_bytes <= _build.MAX_SMEM_BYTES
+        if dh <= 128:
+            assert 2 * (plan.bwd_smem_bytes
+                        + flash_attention.BLOCK_RESERVED_BYTES) <= (
+                flash_attention.SM_SMEM_BYTES)
+        long = flash_attention.generic_flash_plan(2, 2 * rows + 1, 7, 3, dh)
+        assert long.t_tiles == 3 and long.parts_floats == 2 * 3 * 2 * 7 * 3 * dh
+    plan = flash_attention.generic_flash_plan(16, 63, 514, 16, 64)
+    assert (plan.t_tiles, plan.blocks, plan.parts_floats) == (1, 256, 0)
+    with pytest.raises(ValueError, match="head size in 1..256"):
+        flash_attention.generic_flash_plan(16, 63, 514, 4, 257)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_routes_its_launch(recording_library, dtype):
+    """flash_attention's launches take the route `route_flash` names: the
+    flagship's heads of 64 the fast kernels in bf16 and the generic ones
+    in fp32; heads of 4 the generic ones; fp16 neither, with both
+    reasons."""
+    for E, H in ((1024, 16), (16, 4)):
+        recording_library.clear()
+        q, k = z(dtype, 2, 9, E), z(dtype, 2, 5, E)
+        args = (q, k, k, torch.zeros(2, 5), torch.zeros(1, dtype=torch.int32),
+                H, 0.0, 0, 0, None, None)
+        try:
+            route = flash_attention.route_flash(dtype, E // H)
+        except ValueError as e:
+            assert dtype == torch.float16 and "bf16 or fp32" in str(e)
+            with pytest.raises(ValueError, match="bf16 or fp32"):
+                flash_attention._launch_fwd(*args)
+            continue
+        flash_attention._launch_fwd(*args)
+        name = recording_library[0][0]
+        assert name == ("nic_flash_fwd" if route == "fast"
+                        else "nic_flash_fwd_generic")
+        assert route == ("fast" if dtype == torch.bfloat16 and E == 1024
+                         else "generic")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,D,V,k", [(16, 1024, 5000, 1), (80, 1024, 30265, 5),
+                                     (1, 16, 16, 1), (5, 32, 32, 5),
+                                     (37, 100, 129, 16), (4, 16, 16, 17)])
+def test_band_int8_generic_admits_is_what_its_launch_accepts(
+        recording_library, dtype, N, D, V, k):
+    ok, why = band_topk.admits_int8_generic(dtype, N, D, V, k, V)
+    before = band_topk.band_topk_lse_int8_generic.launches
+    args = (z(dtype, N, D), z(torch.int8, V, D), torch.ones(V, dtype=dtype),
+            k, V)
+    assert launch_outcome(band_topk._launch_int8_generic, *args) == (ok, why)
+    assert band_topk.band_topk_lse_int8_generic.launches == before + int(ok)
+    assert ok == (dtype != torch.float16 and k <= 16)
+    if ok:
+        ((name, cargs),) = recording_library
+        plan = band_topk.generic_band_plan(N, V)
+        assert name == "nic_band_topk_lse_int8_generic"
+        assert cargs[0] == _build.GENERIC_DTYPES[dtype]
+        assert cargs[11:18] == (N, D, V, V, k, plan.tiles_per_chunk,
+                                plan.chunks)
+    # The non-int8 generic kernel never takes an int8 table in its place.
+    assert not launch_outcome(band_topk._launch_generic, args[0], args[1], k,
+                              V)[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Q,E,H", [(1, 1024, 16), (5, 1024, 16), (1, 16, 4),
+                                   (4, 32, 4), (3, 39, 13), (16, 512, 2),
+                                   (17, 32, 4), (1, 520, 2)])
+def test_attention_int8_generic_admits_is_what_its_launch_accepts(
+        recording_library, dtype, Q, E, H):
+    B, S = 2, 9
+    ok, why = decode_attention.admits_int8_generic(dtype, Q, E // H)
+    i8 = torch.zeros(B, S, E, dtype=torch.int8)
+    scale = torch.ones(B, S, H, dtype=dtype)
+    args = (z(dtype, B, Q, E), i8, scale, i8, scale, torch.zeros(B, S), H)
+    before = decode_attention.decode_cross_attention_int8_generic.launches
+    assert launch_outcome(decode_attention._launch_int8_generic,
+                          *args) == (ok, why)
+    assert (decode_attention.decode_cross_attention_int8_generic.launches
+            == before + int(ok))
+    assert ok == (dtype != torch.float16 and Q <= 16 and E // H <= 256)
+    if ok:
+        ((name, cargs),) = recording_library
+        assert name == "nic_decode_attention_int8_generic"
+        assert cargs[0] == _build.GENERIC_DTYPES[dtype]
+        assert cargs[8:14] == (B, Q, S, E, H, decode_attention.
+                               generic_smem_bytes(Q, E // H))
+    assert not launch_outcome(decode_attention._launch_generic, args[0], i8,
+                              i8, args[5], H)[0]
 
 
 def test_tiny_model_decodes_and_trains_on_the_cpu():

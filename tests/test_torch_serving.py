@@ -705,7 +705,8 @@ def test_worker_stats_rpc(server_and_client):
          "decode_ffn_block", "band_topk_lse_int8",
          "decode_cross_attention_int8", "band_topk_lse_generic",
          "decode_cross_attention_generic", "decode_conv_block_generic",
-         "decode_ffn_block_generic"), 0)
+         "decode_ffn_block_generic", "band_topk_lse_int8_generic",
+         "decode_cross_attention_int8_generic"), 0)
     client.caption(JOBS[0])
     assert client.stats()["jobs_served"] == n + 1
 

@@ -270,4 +270,4 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert {p.name for p in _build.sources()} == {
         "common.cuh", "band_topk.cu", "decode_attention.cu",
         "decode_blocks.cu", "decode_ffn.cu", "decode_generic.cu",
-        "dynamic_conv.cu", "flash_attention.cu"}
+        "dynamic_conv.cu", "flash_attention.cu", "flash_generic.cu"}

@@ -478,24 +478,55 @@ def test_train_without_card_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("path", ["configs/goodnews_transformer_roberta.yaml",
                                   "configs/nytimes/transformer_roberta.yaml"])
-def test_fp32_on_the_card_with_flash_raises(path, tmp_path, monkeypatch):
-    """fp32 on the card meets a model with use_flash_train: the flash
-    kernels take bf16 only, so the command refuses, before it builds or
-    writes anything, rather than train without them."""
-    def flash(cfg):
-        return any(getattr(m, "use_flash", False)
-                   for m in build_model(cfg, "meta").decoder.modules())
-
+def test_fp32_with_flash_routes_every_flash_attention_generic(path):
+    """fp32 meets a model with use_flash_train: every flash attention of
+    the built model (on meta) routes to the generic flash kernels, which
+    take fp32, so the card trains it through them; the same model in
+    bf16 routes to the fast kernels."""
+    from news_image_caption_tpu_torch.ops.flash_attention import route_flash
     on = {"use_flash_train": True}
     model = load_config(str(REPO / path))["model"]
     overrides = {"model": {"decoder": on} if "decoder" in model else on,
                  "trainer": {"mixed_precision": "fp32"}}
-    assert flash(load_config(str(REPO / path), json.dumps(overrides)))
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="use_flash_train: false"):
-        cli.main(["train", str(REPO / path), "-s", str(tmp_path), "-o",
-                  json.dumps(overrides)])
-    assert not any(tmp_path.iterdir())
+    cfg = load_config(str(REPO / path), json.dumps(overrides))
+    flash = [m for m in build_model(cfg, "meta",
+                                    torch.float32).param_module.modules()
+             if getattr(m, "use_flash", False)]
+    assert flash
+    assert all(route_flash(torch.float32, m.head_dim) == "generic"
+               for m in flash)
+    assert all(route_flash(torch.bfloat16, m.head_dim) == "fast"
+               for m in flash)
+
+
+def test_fp32_flash_train_command_matches_plain_attention(tmp_path,
+                                                          monkeypatch):
+    """train configs/tiny_test.yaml --platform cpu at mixed_precision
+    fp32 with use_flash_train (the flash path's plain version on the CPU)
+    gives, at p = 0, the records of the same command without flash:
+    losses within 1e-5 relative."""
+    from news_image_caption_tpu_torch.ops import attention
+    calls = []
+    real = attention.flash_cross_attention
+    monkeypatch.setattr(attention, "flash_cross_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    records = {}
+    for flash in (False, True):
+        out = tmp_path / f"flash_{flash}"
+        overrides = merge_overrides(OVERRIDES, {
+            "model": {"decoder": {"use_flash_train": flash}},
+            "trainer": {"mixed_precision": "fp32",
+                        "serialization_dir": str(out)}})
+        before = len(calls)
+        assert cli.main(["train", TINY, "--platform", "cpu", "-o",
+                         json.dumps(overrides)]) == 0
+        assert (len(calls) > before) == flash
+        records[flash] = _records(out / "metrics.jsonl")
+    want, got = records[False], records[True]
+    assert [(r["split"], r["step"]) for r in got] == [
+        (r["split"], r["step"]) for r in want]
+    np.testing.assert_allclose([r["loss"] for r in got],
+                               [r["loss"] for r in want], rtol=1e-5, atol=0)
 
 
 # -- precisions and accumulation against the reference ------------------
