@@ -388,7 +388,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      (`csrc/decode_generic.cu`; fp32, narrow widths, K = 1), TF32 off:
      each against its plain version on the card at the toy's shapes in
      fp32 and tiny_test's in bf16, pointwise layers and other odd widths
-     (head sizes 1 to 256), and the fp32 flagship's greedy (16 rows) and
+     (head sizes 1 to 256), the split attention's edges (S' of one
+     and two splits of 64 keys and one either side, 11 splits), and the
+     fp32 flagship's greedy (16 rows) and
      beam-5 (80 rows) steps at B=16, which are timed (fp32 1e-5 +
      1e-5 |ref|; bf16 phase 3's tolerances; second calls bit-equal); the
      fp32 flagship decoding greedy and beam-5 at B=16 over 32 steps,
@@ -409,7 +411,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      1e-5 |ref|, bf16 phase 3's and phase 21's tolerances, second calls
      bit-equal); the generic flash dropping the fast kernel's slots
      (v = I) and, at the fast kernel's shape, its lse within 1e-5 of the
-     fast kernel's; its shard forms at m = 2 bit-equal to the whole
+     fast kernel's; the held-row forward's edges (the last S' each row
+     count holds and the first past it, the two walks past 16 rows);
+     its shard forms at m = 2 bit-equal to the whole
      launch; the fp32 flagship's train step (flash) and greedy and
      beam-5 steps (int8) at B=16, timed; the train command on the
      flagship YAML at trainer.mixed_precision fp32, 8 steps at B=16 and
@@ -422,7 +426,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      under quantize_kv and quantize_head, 3 / 8 / 4 / 4 generic launches
      a step (the int8 ones for the band and the attention), tokens equal
      to the plain path's (the `generic27` JSON line; the four new
-     `*_generic` entries of the kernels line).
+     `*_generic` entries of the kernels line). Phases 26 and 27 print
+     the redesigned kernels' step times (the generic flash forward, the
+     generic attention and its int8 instantiation) beside their plain
+     versions, library calls, bounds and times before the redesign.
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -7261,6 +7268,32 @@ DECODE_GENERIC = tuple(GENERIC_OF)[:4]
 GENERIC27 = tuple(GENERIC_OF)[4:]
 # fp32 against the fp32 plain version: the sums differ in order only.
 FP32_TOL = (1e-5, 1e-5)
+# The redesigned generic kernels' times before their redesign (PERF.md
+# §6, from this script's calls on an H100 80GB HBM3 at 700.00 W): ms a
+# fp32 flagship train step (the flash forward) or greedy and beam-5 step
+# at B=16 (the attentions).
+WAS_MS = {"flash_attention_fwd_generic": {"train step": 1.0425},
+          "decode_cross_attention_generic": {"greedy": 0.6618,
+                                             "beam-5": 0.7260},
+          "decode_cross_attention_int8_generic": {"greedy": 0.6790,
+                                                  "beam-5": 0.7389}}
+
+
+def print_redesigned(name: str, results: dict) -> dict:
+    """A line for each step of a redesigned kernel: its time beside its
+    plain version's, the library call's, its bound and its time before
+    the redesign (WAS_MS). Returns {step: the numbers}."""
+    out = {}
+    for step, r in results.items():
+        was, lib = WAS_MS[name][step], r["library_ms"]
+        print(f"  redesigned {name}, {step}: kernel {r['ms']:.4f} ms (was"
+              f" {was:.4f}), plain {r['plain_ms']:.4f} ms, library"
+              f" {lib:.4f} ms, bound {r['bound_ms']:.4f} ms"
+              f" ({r['bound_by']}); the library's time over the kernel's"
+              f" {lib / r['ms']:.2f}", flush=True)
+        out[step] = dict(ms=r["ms"], was_ms=was, plain_ms=r["plain_ms"],
+                         library_ms=lib, bound_ms=r["bound_ms"])
+    return out
 
 
 def generic_counted() -> dict:
@@ -7520,6 +7553,16 @@ def generic_kernel_phase(torch, ops):
         attn_case(f32, N, 5, S, D, H, beam[
             "decode_cross_attention_generic"], calls=4)
     attn_case(f32, N, 5, 514, D, H, one_key=True)
+    # The split plan's edges: S' of a split's 64 keys and one either
+    # side, two splits' and one either side, 11 splits (heads of 1); heads
+    # of 3 (rows off 16 bytes), 24 and 256; Q 1 to 16.
+    for dtype in (f32, bf16):
+        for S in (63, 64, 65, 127, 128, 129):
+            attn_case(dtype, 3, 5, S, D, H)
+        attn_case(dtype, 3, 16, 700, 16, 16)
+        attn_case(dtype, 3, 3, 514, 96, 4)
+        attn_case(dtype, 3, 16, 300, 256, 1)
+        attn_case(dtype, 3, 2, 200, 39, 13)
     for K in (3, 7, 15, 31):
         conv_case(f32, N, D, H, K, (0, K - 2, 2 * K + 3),
                   greedy["decode_conv_block_generic"])
@@ -7851,7 +7894,10 @@ def generic_phase(torch, ops, counted):
     counted = dict(counted, **gcounted)
     t = time.perf_counter()
     greedy, beam, worst = generic_kernel_phase(torch, ops)
-    summary = {"kernels_s": time.perf_counter() - t}
+    name = "decode_cross_attention_generic"
+    summary = {"kernels_s": time.perf_counter() - t,
+               "redesigned": print_redesigned(name, {
+                   "greedy": greedy[name], "beam-5": beam[name]})}
     launches, summary["fp32_flagship"] = generic_decode_phase(torch,
                                                               counted)
     launches["serve_toy"], summary["serve_toy"] = toy_serve_phase(torch)
@@ -8012,6 +8058,19 @@ def flash_generic_phase(torch, flash, tallies, worst) -> None:
                     f" E={E_} H={H_} p={p}", q, k, v, g, bias, seed, H_, p)
                 worst[name_f] = worst[name_b] = max(worst[name_f], e)
 
+    # The held rows' edges: the last S' 64 rows hold at heads of 64 and
+    # the first past it (32 rows), 16 rows, past 16 rows (the two walks);
+    # heads of 256 at 16 rows and past them; T past one row tile.
+    for dtype in (f32, bf16):
+        for B, T, S, E_, H_ in ((2, 63, 552, E, H), (2, 63, 553, E, H),
+                                (2, 70, 2000, E, H), (2, 20, 2325, E, H),
+                                (2, 40, 514, 256, 1), (2, 9, 1213, 256, 1)):
+            q, k, v, g, bias = inputs(dtype, B, T, S, E_, H_)
+            e = flash_generic_case(
+                torch, flash, f"{str(dtype)[6:]} B={B} T={T} S'={S} E={E_}"
+                f" H={H_} p={p}", q, k, v, g, bias, seed, H_, p)
+            worst[name_f] = worst[name_b] = max(worst[name_f], e)
+
     # Shard forms at m = 2: heads [h0, h0 + 8) of 16 against the whole
     # launch, bit for bit.
     for dtype, E_, H_ in ((f32, E, H), (bf16, 96, 4)):
@@ -8164,6 +8223,11 @@ def int8_generic_phase(torch, ops, greedy, beam, worst) -> None:
         acase(f32, N, 1, S, D, H, greedy[na])
         acase(f32, N, 5, S, D, H, beam[na])
     acase(f32, N, 5, 514, D, H, one_key=True)
+    # The split plan's edges (one split, two, 11) and heads of 256.
+    for dtype in (f32, bf16):
+        for S in (64, 65, 128, 129, 700):
+            acase(dtype, 3, 5, S, D, H)
+        acase(dtype, 3, 16, 300, 256, 1)
     # tiny_test's widths in bf16, the toy's in fp32, other widths.
     for dtype, D_, Vs in ((bf16, 16, (16, 16, 32)), (f32, 32, (16, 16, 32))):
         for N_ in (1, 5):
@@ -8342,7 +8406,13 @@ def generic27_phase(torch, ops, counted):
     t = time.perf_counter()
     flash_generic_phase(torch, flash, step, worst)
     int8_generic_phase(torch, (band, xattn), step, beam, worst)
-    summary = {"kernels_s": time.perf_counter() - t}
+    na = "decode_cross_attention_int8_generic"
+    summary = {"kernels_s": time.perf_counter() - t, "redesigned": {
+        "flash_attention_fwd_generic": print_redesigned(
+            "flash_attention_fwd_generic", {
+                "train step": step["flash_attention_fwd_generic"].result()}),
+        na: print_redesigned(na, {"greedy": step[na].result(),
+                                  "beam-5": beam[na].result()})}}
     counted = dict(counted, flash_attention_fwd=flash.flash_attention_fwd,
                    flash_attention_bwd=flash.flash_attention_bwd,
                    band_topk_lse_int8=band.band_topk_lse_int8,

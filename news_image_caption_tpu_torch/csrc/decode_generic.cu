@@ -60,15 +60,29 @@
 //     max, sum of exponentials and top-k list (in the lanes of the warp
 //     that owns the row); a merge kernel adds the chunks' states in
 //     chunk order, as band_topk.cu's merge does.
-//   - The attention takes one block an (item, head), any head size up to
-//     256: a first walk over the keys in chunks of 32 finds each query's
-//     max and sum of exponentials, a second recomputes the scores, forms
-//     the rounded probabilities and adds the value rows.
+//   - The attention (bound by reading K and V once: 67 MB a layer at the
+//     fp32 flagship's greedy step, 20 us at 3.35 TB/s) splits each (item,
+//     head)'s S' keys over blocks, grid (H, B, splits), at most 64 keys
+//     a split (9 of 58 at S' = 514: 2304 blocks at B = 16; the image's
+//     S' = 51 one split). A first kernel forms its split's
+//     fp32 scores, writes them (B H Q S' floats) with the split's max and
+//     sum of exponentials; a second merges the splits' max and sum in a
+//     fixed order, forms the probabilities at the plain version's
+//     rounding points and writes the split's fp32 p v; a third adds the
+//     splits' parts in split order and rounds them to q's dtype. One
+//     split is one kernel (scores, softmax and p v in shared memory).
+//     K and V are read once each. Lanes run across a head's columns in
+//     16-byte loads (4 fp32, 8 bf16 or 16 int8 a lane; one element where
+//     a head's rows are not 16-byte aligned), the lanes of a key row sum
+//     its score by shuffles, and key rows go across lane groups and
+//     warps, a split's rows requested at once (four loads a lane) before
+//     the kernel waits on q, the scores or the statistics, so every
+//     thread works at Q = 1 and every multiprocessor has bytes in flight.
 // The int8 variants are template instantiations of the band walk and the
 // attention with an int8 table or int8 K and V (`if constexpr` on the
 // operand's type), so the bf16 and fp32 instantiations keep their code.
-// A call is one launch on its wrapper's count (the band, FFN and conv
-// block run two to five kernels in it, as band_topk.cu's two).
+// A call is one launch on its wrapper's count (the band, FFN, conv block
+// and attention run one to five kernels in it, as band_topk.cu's two).
 
 #include <type_traits>
 
@@ -83,10 +97,11 @@ constexpr int KC = 32;          // depth a chunk
 constexpr int BS = TN + 4;      // floats a row of the B chunk (16-byte rows)
 constexpr int BAND_MAX_K = 16;
 constexpr int BAND_MAX_CHUNKS = 1024;
-constexpr int ATT_KEYS = 32;    // keys a chunk
+constexpr int ATT_SPLIT_KEYS = 64;   // keys a split, at most (att_plan)
 constexpr int ATT_MAX_Q = 16;
 constexpr int ATT_MAX_HEAD = 256;
-constexpr int ATT_ACC = ATT_MAX_Q * ATT_MAX_HEAD / THREADS;
+constexpr int ATT_U = 4;             // key rows a lane loads at once
+constexpr int ATT_QG = 4;            // queries' p v sums a lane holds, at most
 constexpr int MIX_ROWS = 8;     // rows a conv mix block
 constexpr int MIX_CC = 64;      // channels a chunk of the tap product
 constexpr int MAX_TAPS = 32;
@@ -537,96 +552,390 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// Decode cross-attention, one block an (head, item): grid (H, B).
+// Decode cross-attention, S' split over blocks: grid (H, B, splits).
 
-__host__ __device__ constexpr int att_smem_floats(int Q, int dh) {
-  return Q * dh + 2 * ATT_KEYS * (dh + 1) + Q * ATT_KEYS;
+// The plan of a call over S keys: `splits` blocks an (item, head) of at
+// most ATT_SPLIT_KEYS keys, split z taking keys [z * per, min(S, (z + 1)
+// * per)), none empty; the host's ops/decode_attention.py::
+// generic_attention_plan mirrors it.
+__host__ __device__ inline void att_plan(int S, int& splits, int& per) {
+  splits = cdiv(S, ATT_SPLIT_KEYS);
+  per = cdiv(S, splits);
 }
 
-// TK int8: K and V are int8 with one scale a (item, key, head)
-// (k_scale, v_scale [B, S, H] of q's dtype; null otherwise): a score is
-// the fp32 sum times its key's K scale plus the bias, a probability is
-// rounded to q's dtype, times its key's V scale, and rounded again.
-template <class T, class TK = T>
-__global__ void __launch_bounds__(THREADS)
-    attn_generic_kernel(const T* __restrict__ q, const TK* __restrict__ k,
-                        const TK* __restrict__ v, const T* __restrict__ k_scale,
-                        const T* __restrict__ v_scale, const float* __restrict__ bias,
-                        T* __restrict__ out, int Q, int S, int E, int H) {
+// A head's width in shared memory: dh rounded up to 16 (the widest
+// vector, 16 int8).
+__host__ __device__ inline int att_width(int dh) { return (dh + 15) & ~15; }
+
+// Dynamic shared memory of every attention kernel's block, floats: q
+// [Q][dhp], the split's scores, then probabilities [Q][per], the warps'
+// parts of p v [8][min(Q, ATT_QG)][dhp].
+__host__ __device__ inline int att_smem_floats(int Q, int dh, int per) {
+  const int dhp = att_width(dh);
+  return Q * dhp + Q * per + (THREADS / 32) * (Q < ATT_QG ? Q : ATT_QG) * dhp;
+}
+
+struct AttnArgs {
+  const void* q;         // [B, Q, E] of T
+  const void* k;         // [B, S, E] of TK
+  const void* v;         // [B, S, E] of TK
+  const void* k_scale;   // [B, S, H] of T (int8)
+  const void* v_scale;   // [B, S, H] of T (int8)
+  const float* bias;     // [B, S]
+  void* out;             // [B, Q, E] of T
+  float* scores;         // [B, H, Q, S] (several splits)
+  float* stats;          // [2][B, H, Q, splits]: max, sum of exponentials
+  float* parts;          // [B, H, splits, Q, dh]: each split's p v
+  int B, Q, S, E, H, dh, splits, per;
+};
+
+// How a lane holds its part of a key row: VW elements a vector (16
+// bytes' worth, or 1 where a head's rows are not 16-byte aligned), at
+// most MAXV vectors a lane; QG queries' p v sums a lane keeps at once
+// (16 registers, 32 for int8: few enough for four blocks a
+// multiprocessor at fp32).
+template <class TK, int VW_, int MAXV_>
+struct RowLanes {
+  static constexpr int VW = VW_, MAXV = MAXV_;
+  static constexpr int QG = 16 / (MAXV * VW) > 2 ? 16 / (MAXV * VW) : 2;
+  static_assert(QG <= ATT_QG, "att_smem_floats holds ATT_QG queries' parts");
+  using Raw = typename std::conditional<VW == 1, float, uint4>::type;
+  static_assert(VW == 1 || VW * (int)sizeof(TK) == 16, "16-byte vectors");
+
+  __device__ static Raw load(const TK* p) {
+    if constexpr (VW == 1) return ld(p);
+    else return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  // Element e (a constant after unrolling) of a loaded vector.
+  __device__ static float elem(const Raw& r, int e) {
+    if constexpr (VW == 1) {
+      return r;
+    } else {
+      const uint32_t word = (&r.x)[e * (int)sizeof(TK) / 4];
+      if constexpr (std::is_same<TK, float>::value) {
+        return __uint_as_float(word);
+      } else if constexpr (std::is_same<TK, bf16>::value) {
+        return __uint_as_float((e & 1) ? (word & 0xffff0000u) : (word << 16));
+      } else {
+        return (float)(int8_t)((word >> (8 * (e & 3))) & 0xffu);
+      }
+    }
+  }
+};
+
+// The walk of a split's key rows: nv vectors a row, lpk lanes a row (a
+// power of 2 up to 32), kpw rows a warp at once, vpl vectors a lane; a
+// lane is lane group g (a key row) and li within it; warp w's pass at
+// `base` covers rows base + g + u * gpb, u < ATT_U (gpb = 8 kpw), from
+// base = w kpw in steps of gpb ATT_U.
+struct Walk {
+  int nv, lpk, kpw, vpl, g, li, gpb, base0;
+};
+
+__device__ __forceinline__ Walk walk_of(int dh, int vw) {
+  Walk w;
+  w.nv = cdiv(dh, vw);
+  w.lpk = 1;
+  while (w.lpk < w.nv && w.lpk < 32) w.lpk <<= 1;
+  w.kpw = 32 / w.lpk;
+  w.vpl = cdiv(w.nv, w.lpk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  w.g = lane / w.lpk;
+  w.li = lane % w.lpk;
+  w.gpb = (THREADS / 32) * w.kpw;
+  w.base0 = warp * w.kpw;
+  return w;
+}
+
+// Loads of a pass's key rows (rows at `rows`, E apart), those below n.
+template <class L, class TK>
+__device__ __forceinline__ void load_rows(typename L::Raw (&raw)[ATT_U][L::MAXV],
+                                          const TK* rows, int E, const Walk& w,
+                                          int base, int n) {
+#pragma unroll
+  for (int u = 0; u < ATT_U; ++u) {
+    const int j = base + w.g + u * w.gpb;
+#pragma unroll
+    for (int m = 0; m < L::MAXV; ++m) {
+      const int vi = w.li + w.lpk * m;
+      if (j < n && m < w.vpl && vi < w.nv) raw[u][m] = L::load(rows + (size_t)j * E + vi * L::VW);
+    }
+  }
+}
+
+// The split's scores into ss[qi * per + j] for its n keys: the fp32 sum
+// q . k (times the key's K scale, int8), plus the key's bias. `raw` holds
+// the first pass's K rows, loaded by the caller.
+template <class T, class TK, class L>
+__device__ void att_scores(const AttnArgs& a, typename L::Raw (&raw)[ATT_U][L::MAXV],
+                           const TK* kb, const float* qs, float* ss, const Walk& w,
+                           int b, int hd, int k0, int n) {
   constexpr bool INT8 = std::is_same<TK, int8_t>::value;
-  extern __shared__ __align__(16) float sm[];
-  const int hd = blockIdx.x, b = blockIdx.y, dh = E / H, DP = dh + 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* qs = sm;                          // [Q][dh]
-  float* ks = qs + Q * dh;                 // [ATT_KEYS][dh + 1]
-  float* vs = ks + ATT_KEYS * DP;          // [ATT_KEYS][dh + 1]
-  float* sc = vs + ATT_KEYS * DP;          // [Q][ATT_KEYS]
-  for (int e = tid; e < Q * dh; e += THREADS)
-    qs[e] = ld(q + ((size_t)b * Q + e / dh) * E + hd * dh + e % dh);
-  // Warp w keeps the max and sum of rows w and w + 8.
-  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
-  float acc[ATT_ACC];
+  const int dhp = att_width(a.dh);
+  const float* bb = a.bias + (size_t)b * a.S + k0;
+  for (int base = w.base0; base < n; base += w.gpb * ATT_U) {
+    if (base != w.base0) load_rows<L>(raw, kb, a.E, w, base, n);
 #pragma unroll
-  for (int j = 0; j < ATT_ACC; ++j) acc[j] = 0.f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int s0 = 0; s0 < S; s0 += ATT_KEYS) {
-      const int n_keys = min(ATT_KEYS, S - s0);
-      __syncthreads();
-      for (int e = tid; e < ATT_KEYS * dh; e += THREADS) {
-        const int s = e / dh, d = e % dh;
-        const size_t at = ((size_t)b * S + s0 + s) * E + hd * dh + d;
-        ks[s * DP + d] = s < n_keys ? ld(k + at) : 0.f;
-        if (pass == 1) vs[s * DP + d] = s < n_keys ? ld(v + at) : 0.f;
-      }
-      __syncthreads();
-      for (int e = tid; e < Q * ATT_KEYS; e += THREADS) {
-        const int i = e / ATT_KEYS, s = e % ATT_KEYS;
-        float dot = 0.f;
-        for (int d = 0; d < dh; ++d) dot = fmaf(qs[i * dh + d], ks[s * DP + d], dot);
-        if constexpr (INT8) {
-          if (s < n_keys) dot *= ld(k_scale + ((size_t)b * S + s0 + s) * H + hd);
-        }
-        sc[e] = s < n_keys ? dot + bias[(size_t)b * S + s0 + s] : -INFINITY;
-      }
-      __syncthreads();
+    for (int u = 0; u < ATT_U; ++u) {
+      if (base + u * w.gpb >= n) break;   // warp-uniform: no row of this u
+      const int j = base + w.g + u * w.gpb;
+      for (int qi = 0; qi < a.Q; ++qi) {
+        float part = 0.f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int i = warp + 8 * j;
-        if (i >= Q) continue;              // warp-uniform
-        const float x = sc[i * ATT_KEYS + lane];
-        if (pass == 0) {
-          const float mn = fmaxf(mrow[j], warp_max(x));
-          const float ex = lane < n_keys ? expf(x - mn) : 0.f;
-          lrow[j] = lrow[j] * expf(mrow[j] - mn) + warp_sum(ex);
-          mrow[j] = mn;
-        } else {
-          float p = lane < n_keys ? round_to<T>(expf(x - mrow[j]) / lrow[j]) : 0.f;
-          if constexpr (INT8) {
-            if (lane < n_keys)
-              p = round_to<T>(p * ld(v_scale + ((size_t)b * S + s0 + lane) * H + hd));
+        for (int m = 0; m < L::MAXV; ++m) {
+          const int vi = w.li + w.lpk * m;
+          if (j >= n || m >= w.vpl || vi >= w.nv) continue;
+          const float* qv = qs + qi * dhp + vi * L::VW;
+          if constexpr (L::VW == 1) {
+            part = fmaf(qv[0], L::elem(raw[u][m], 0), part);
+          } else {
+#pragma unroll
+            for (int e4 = 0; e4 < L::VW; e4 += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qv + e4);
+              part = fmaf(q4.x, L::elem(raw[u][m], e4), part);
+              part = fmaf(q4.y, L::elem(raw[u][m], e4 + 1), part);
+              part = fmaf(q4.z, L::elem(raw[u][m], e4 + 2), part);
+              part = fmaf(q4.w, L::elem(raw[u][m], e4 + 3), part);
+            }
           }
-          sc[i * ATT_KEYS + lane] = p;
         }
-      }
-      if (pass == 0) continue;
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < ATT_ACC; ++j) {
-        const int e = tid + THREADS * j;
-        if (e < Q * dh) {
-          const int i = e / dh, d = e % dh;
-          float a = acc[j];
-          for (int s = 0; s < n_keys; ++s) a = fmaf(sc[i * ATT_KEYS + s], vs[s * DP + d], a);
-          acc[j] = a;
+        for (int off = 1; off < w.lpk; off <<= 1)
+          part += __shfl_xor_sync(FULL_MASK, part, off);
+        if (j < n && w.li == (qi & (w.lpk - 1))) {
+          if constexpr (INT8)
+            part *= ld((const T*)a.k_scale + ((size_t)b * a.S + k0 + j) * a.H + hd);
+          ss[qi * a.per + j] = part + bb[j];
         }
       }
     }
   }
+}
+
+// p v over the split's n keys, QG queries at a time: each lane's sums,
+// the warp's lane groups added by shuffles, the warps' parts in warp
+// order: the sums, per query and column, to `put(qi, d, sum)`. `raw`
+// holds the first pass's V rows, loaded by the caller.
+template <class TK, class L, class Put>
+__device__ void att_values(const AttnArgs& a, typename L::Raw (&raw)[ATT_U][L::MAXV],
+                           const TK* vb, const float* ps, float* red, const Walk& w,
+                           int n, Put put) {
+  constexpr int QG = L::QG;
+  const int dhp = att_width(a.dh), warp = threadIdx.x >> 5;
+  const int qr = min(QG, a.Q);   // queries a warp's part in `red`
+  for (int q0 = 0; q0 < a.Q; q0 += QG) {
+    float acc[QG][L::MAXV][L::VW];
 #pragma unroll
-  for (int j = 0; j < ATT_ACC; ++j) {
-    const int e = tid + THREADS * j;
-    if (e < Q * dh) out[((size_t)b * Q + e / dh) * E + hd * dh + e % dh] = store_as<T>(acc[j]);
+    for (int qq = 0; qq < QG; ++qq)
+#pragma unroll
+      for (int m = 0; m < L::MAXV; ++m)
+#pragma unroll
+        for (int e = 0; e < L::VW; ++e) acc[qq][m][e] = 0.f;
+    for (int base = w.base0; base < n; base += w.gpb * ATT_U) {
+      if (q0 != 0 || base != w.base0) load_rows<L>(raw, vb, a.E, w, base, n);
+#pragma unroll
+      for (int u = 0; u < ATT_U; ++u) {
+        const int j = base + w.g + u * w.gpb;
+        if (j >= n) continue;
+        float pq[QG];
+#pragma unroll
+        for (int qq = 0; qq < QG; ++qq)
+          pq[qq] = q0 + qq < a.Q ? ps[(q0 + qq) * a.per + j] : 0.f;
+#pragma unroll
+        for (int m = 0; m < L::MAXV; ++m) {
+          const int vi = w.li + w.lpk * m;
+          if (m >= w.vpl || vi >= w.nv) continue;
+#pragma unroll
+          for (int e = 0; e < L::VW; ++e) {
+            const float x = L::elem(raw[u][m], e);
+#pragma unroll
+            for (int qq = 0; qq < QG; ++qq) acc[qq][m][e] = fmaf(pq[qq], x, acc[qq][m][e]);
+          }
+        }
+      }
+    }
+    for (int off = w.lpk; off < 32; off <<= 1)
+#pragma unroll
+      for (int qq = 0; qq < QG; ++qq)
+#pragma unroll
+        for (int m = 0; m < L::MAXV; ++m)
+#pragma unroll
+          for (int e = 0; e < L::VW; ++e)
+            acc[qq][m][e] += __shfl_xor_sync(FULL_MASK, acc[qq][m][e], off);
+    const int nq = min(QG, a.Q - q0);
+    if (w.g == 0) {
+#pragma unroll
+      for (int qq = 0; qq < QG; ++qq)
+#pragma unroll
+        for (int m = 0; m < L::MAXV; ++m) {
+          const int vi = w.li + w.lpk * m;
+          if (qq >= nq || m >= w.vpl || vi >= w.nv) continue;
+#pragma unroll
+          for (int e = 0; e < L::VW; ++e)
+            red[(warp * qr + qq) * dhp + vi * L::VW + e] = acc[qq][m][e];
+        }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nq * a.dh; idx += THREADS) {
+      const int qq = idx / a.dh, d = idx % a.dh;
+      float sum = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < THREADS / 32; ++wi) sum += red[(wi * qr + qq) * dhp + d];
+      put(q0 + qq, d, sum);
+    }
+    __syncthreads();
   }
+}
+
+// The probabilities of query qi over the split's n keys, from its fp32
+// scores `sq` and the softmax's max M and sum L, into pq: rounded to q's
+// dtype (int8: times the key's V scale, rounded again).
+template <class T, class TK>
+__device__ __forceinline__ void att_probs(const AttnArgs& a, const float* sq, float* pq,
+                                          float M, float L, int b, int hd, int k0, int n) {
+  const int lane = threadIdx.x & 31;
+  for (int j = lane; j < n; j += 32) {
+    float p = round_to<T>(expf(sq[j] - M) / L);
+    if constexpr (std::is_same<TK, int8_t>::value)
+      p = round_to<T>(p * ld((const T*)a.v_scale + ((size_t)b * a.S + k0 + j) * a.H + hd));
+    pq[j] = p;
+  }
+}
+
+enum AttMode { ATT_SCORES = 0, ATT_VALUES = 1, ATT_ONE_SPLIT = 2 };
+
+// grid (H, B, splits), THREADS threads, dynamic shared memory
+// att_smem_floats(Q, dh, per) floats. ATT_SCORES: the split's scores to
+// a.scores and its max and sum to a.stats. ATT_VALUES: the splits' max
+// and sum merged, the split's probabilities and its p v to a.parts.
+// ATT_ONE_SPLIT (splits = 1): all of it in shared memory, the output
+// rounded to q's dtype. Each kernel requests its K or V rows first, so
+// they are in flight while q, the scores or the statistics arrive.
+template <class T, class TK, int VW, int MAXV, int MODE>
+__global__ void __launch_bounds__(THREADS)
+    attn_split_kernel(AttnArgs a) {
+  using L = RowLanes<TK, VW, MAXV>;
+  extern __shared__ __align__(16) float sm[];
+  const int hd = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int k0 = z * a.per, n = min(a.per, a.S - k0);
+  const int dhp = att_width(a.dh);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* qs = sm;                                     // [Q][dhp]
+  float* ss = qs + a.Q * dhp;                         // [Q][per]
+  float* red = ss + a.Q * a.per;                      // [8][min(Q, ATT_QG)][dhp]
+  const size_t bhq = ((size_t)b * a.H + hd) * a.Q;    // (b, hd, query 0)
+  const size_t row0 = ((size_t)b * a.S + k0) * a.E + (size_t)hd * a.dh;
+  const TK* kb = (const TK*)a.k + row0;
+  const TK* vb = (const TK*)a.v + row0;
+  const Walk w = walk_of(a.dh, VW);
+  typename L::Raw raw[ATT_U][L::MAXV];
+  if (MODE != ATT_VALUES) {
+    load_rows<L>(raw, kb, a.E, w, w.base0, n);
+    for (int e = threadIdx.x; e < a.Q * dhp; e += THREADS) {
+      const int qi = e / dhp, d = e % dhp;
+      qs[e] = d < a.dh ? ld((const T*)a.q + ((size_t)b * a.Q + qi) * a.E +
+                            (size_t)hd * a.dh + d)
+                       : 0.f;
+    }
+    __syncthreads();
+    att_scores<T, TK, L>(a, raw, kb, qs, ss, w, b, hd, k0, n);
+    __syncthreads();
+    if (MODE == ATT_ONE_SPLIT) load_rows<L>(raw, vb, a.E, w, w.base0, n);
+    // Each query's max and sum of exponentials over the split (lanes in
+    // key order, then the warp's tree).
+    for (int qi = warp; qi < a.Q; qi += THREADS / 32) {
+      const float* sq = ss + qi * a.per;
+      float m = -INFINITY;
+      for (int j = lane; j < n; j += 32) m = fmaxf(m, sq[j]);
+      m = warp_max(m);
+      float l = 0.f;
+      for (int j = lane; j < n; j += 32) l += expf(sq[j] - m);
+      l = warp_sum(l);
+      if (MODE == ATT_SCORES) {
+        float* srow = a.scores + (bhq + qi) * a.S + k0;
+        for (int j = lane; j < n; j += 32) srow[j] = sq[j];
+        if (lane == 0) {
+          a.stats[(bhq + qi) * a.splits + z] = m;
+          a.stats[((size_t)a.B * a.H * a.Q + bhq + qi) * a.splits + z] = l;
+        }
+      } else {
+        att_probs<T, TK>(a, sq, ss + qi * a.per, m, l, b, hd, k0, n);
+      }
+    }
+    if (MODE == ATT_SCORES) return;
+  } else {
+    load_rows<L>(raw, vb, a.E, w, w.base0, n);
+    // The splits' max and sum of each query, merged in a fixed order
+    // (lanes in split order, then the warp's tree), and the split's
+    // probabilities from its scores.
+    // The split's scores are requested with the statistics (n <= 64: two
+    // a lane), so the two arrive together.
+    const size_t sl = (size_t)a.B * a.H * a.Q * a.splits;
+    for (int qi = warp; qi < a.Q; qi += THREADS / 32) {
+      const float* sg = a.scores + (bhq + qi) * a.S + k0;
+      float* sq = ss + qi * a.per;
+      for (int j = lane; j < n; j += 32) sq[j] = __ldcg(sg + j);
+      const float* mz = a.stats + (bhq + qi) * a.splits;
+      float M = -INFINITY;
+      for (int zz = lane; zz < a.splits; zz += 32) M = fmaxf(M, mz[zz]);
+      M = warp_max(M);
+      float Ls = 0.f;
+      for (int zz = lane; zz < a.splits; zz += 32) Ls += mz[sl + zz] * expf(mz[zz] - M);
+      Ls = warp_sum(Ls);
+      __syncwarp();
+      att_probs<T, TK>(a, sq, sq, M, Ls, b, hd, k0, n);
+    }
+  }
+  __syncthreads();
+  if (MODE == ATT_VALUES) {
+    float* part = a.parts + ((((size_t)b * a.H + hd) * a.splits + z) * a.Q) * a.dh;
+    att_values<TK, L>(a, raw, vb, ss, red, w, n, [&](int qi, int d, float sum) {
+      part[(size_t)qi * a.dh + d] = sum;
+    });
+  } else {
+    T* ob = (T*)a.out + (size_t)b * a.Q * a.E + (size_t)hd * a.dh;
+    att_values<TK, L>(a, raw, vb, ss, red, w, n, [&](int qi, int d, float sum) {
+      ob[(size_t)qi * a.E + d] = store_as<T>(sum);
+    });
+  }
+}
+
+// out[b, q, h dh + d] = the splits' parts added in split order, rounded
+// to q's dtype; a thread an output element.
+template <class T>
+__global__ void __launch_bounds__(THREADS) attn_combine_kernel(AttnArgs a) {
+  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (size_t)a.B * a.Q * a.E) return;
+  const int col = (int)(i % a.E), qi = (int)(i / a.E % a.Q), b = (int)(i / a.E / a.Q);
+  const int hd = col / a.dh, d = col % a.dh;
+  const size_t stride = (size_t)a.Q * a.dh;
+  const float* p = a.parts + ((((size_t)b * a.H + hd) * a.splits) * a.Q + qi) * a.dh + d;
+  float sum = 0.f;
+  for (int z = 0; z < a.splits; ++z) sum += p[z * stride];
+  ((T*)a.out)[i] = store_as<T>(sum);
+}
+
+template <class T, class TK, int VW, int MAXV, int MODE>
+cudaError_t launch_attn(const AttnArgs& a, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attn_split_kernel<T, TK, VW, MAXV, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  attn_split_kernel<T, TK, VW, MAXV, MODE><<<dim3(a.H, a.B, a.splits), THREADS, smem,
+                                             stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <class T, class TK, int VW, int MAXV>
+cudaError_t attn_run(const AttnArgs& a, int smem, cudaStream_t stream) {
+  if (a.splits == 1) return launch_attn<T, TK, VW, MAXV, ATT_ONE_SPLIT>(a, smem, stream);
+  cudaError_t err = launch_attn<T, TK, VW, MAXV, ATT_SCORES>(a, smem, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_attn<T, TK, VW, MAXV, ATT_VALUES>(a, smem, stream);
+  if (err != cudaSuccess) return err;
+  const size_t n = (size_t)a.B * a.Q * a.E;
+  attn_combine_kernel<T><<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
+                           stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -665,23 +974,29 @@ int band_generic(const void* x, const void* table, const void* scale, void* pmax
 
 // TK: K's and V's element type (T, or int8 with the two scales).
 template <class T, class TK = T>
-int attention_generic(const void* q, const void* k, const void* v,
-                      const void* k_scale, const void* v_scale,
-                      const void* bias, void* out, int B, int Q, int S, int E,
-                      int H, int smem, cudaStream_t stream) {
-  if (B < 1 || Q < 1 || Q > ATT_MAX_Q || S < 1 || H < 1 || E % H != 0 ||
-      E / H > ATT_MAX_HEAD || B > 65535 ||
-      smem != att_smem_floats(Q, E / H) * (int)sizeof(float) ||
-      smem > MAX_SMEM_BYTES)
+int attention_generic(AttnArgs a, int smem, cudaStream_t stream) {
+  if (a.B < 1 || a.Q < 1 || a.Q > ATT_MAX_Q || a.S < 1 || a.H < 1 || a.E % a.H != 0 ||
+      a.E / a.H > ATT_MAX_HEAD || a.B > 65535 || a.H > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_generic_kernel<T, TK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_generic_kernel<T, TK><<<dim3(H, B), THREADS, smem, stream>>>(
-      (const T*)q, (const TK*)k, (const TK*)v, (const T*)k_scale,
-      (const T*)v_scale, (const float*)bias, (T*)out, Q, S, E, H);
-  NIC_RETURN_IF_LAUNCH_FAILED();
-  return 0;
+  a.dh = a.E / a.H;
+  int splits, per;
+  att_plan(a.S, splits, per);
+  const bool split = splits > 1;
+  if (a.splits != splits || a.per != per || splits > 65535 ||
+      smem != att_smem_floats(a.Q, a.dh, per) * (int)sizeof(float) ||
+      smem > MAX_SMEM_BYTES ||
+      split != (a.scores != nullptr && a.stats != nullptr && a.parts != nullptr))
+    return (int)cudaErrorInvalidValue;
+  // 16-byte loads where every key row of a head starts 16-byte aligned
+  // (two a lane for fp32 heads past 128), else one element.
+  constexpr int VW = 16 / (int)sizeof(TK);
+  const bool vec = ((uintptr_t)a.k | (uintptr_t)a.v) % 16 == 0 &&
+                   (a.dh * sizeof(TK)) % 16 == 0 && (a.E * sizeof(TK)) % 16 == 0;
+  if (!vec) return (int)attn_run<T, TK, 1, 8>(a, smem, stream);
+  if constexpr (VW == 4) {
+    if (a.dh > 32 * VW) return (int)attn_run<T, TK, VW, 2>(a, smem, stream);
+  }
+  return (int)attn_run<T, TK, VW, 1>(a, smem, stream);
 }
 
 template <class T>
@@ -764,16 +1079,21 @@ extern "C" int nic_band_topk_lse_generic(int dtype, const void* x,
 
 // out [B, Q, E] = softmax(q_h k_h^T + bias) v_h per head h of E / H <=
 // 256 lanes; q [B, Q, E], k, v [B, S, E] of the dtype, bias [B, S] fp32,
-// Q <= 16. `smem` is att_smem_floats(Q, E / H) * 4. Returns a
-// cudaError_t.
+// Q <= 16. `splits` and `per` are att_plan(S)'s, `smem` is
+// att_smem_floats(Q, E / H, per) * 4. Scratch where splits > 1 (null
+// otherwise): scores [B, H, Q, S], stats [2, B, H, Q, splits], parts
+// [B, H, splits, Q, E / H], fp32. Returns a cudaError_t.
 extern "C" int nic_decode_attention_generic(int dtype, const void* q,
                                             const void* k, const void* v,
-                                            const void* bias, void* out, int B,
-                                            int Q, int S, int E, int H,
-                                            int smem, void* stream) {
-  NIC_GENERIC_DISPATCH(attention_generic, q, k, v, nullptr, nullptr, bias, out,
-                                         B, Q, S, E, H, smem,
-                                         (cudaStream_t)stream);
+                                            const void* bias, void* scores,
+                                            void* stats, void* parts, void* out,
+                                            int B, int Q, int S, int E, int H,
+                                            int splits, int per, int smem,
+                                            void* stream) {
+  const nic::gen::AttnArgs a{q, k, v, nullptr, nullptr, (const float*)bias, out,
+                             (float*)scores, (float*)stats, (float*)parts,
+                             B, Q, S, E, H, 0, splits, per};
+  NIC_GENERIC_DISPATCH(attention_generic, a, smem, (cudaStream_t)stream);
 }
 
 // y [N, C] = r(r(r(h w2) + b2) + x), h = relu(r(r(x w1) + b1)) written
@@ -841,10 +1161,13 @@ extern "C" int nic_decode_attention_int8_generic(int dtype, const void* q,
                                                  const void* k_scale,
                                                  const void* v_q,
                                                  const void* v_scale,
-                                                 const void* bias, void* out,
-                                                 int B, int Q, int S, int E,
-                                                 int H, int smem, void* stream) {
-  NIC_GENERIC_INT8_DISPATCH(attention_generic, q, k_q, v_q, k_scale, v_scale,
-                            bias, out, B, Q, S, E, H, smem,
-                            (cudaStream_t)stream);
+                                                 const void* bias, void* scores,
+                                                 void* stats, void* parts,
+                                                 void* out, int B, int Q, int S,
+                                                 int E, int H, int splits,
+                                                 int per, int smem, void* stream) {
+  const nic::gen::AttnArgs a{q, k_q, v_q, k_scale, v_scale, (const float*)bias, out,
+                             (float*)scores, (float*)stats, (float*)parts,
+                             B, Q, S, E, H, 0, splits, per};
+  NIC_GENERIC_INT8_DISPATCH(attention_generic, a, smem, (cudaStream_t)stream);
 }

@@ -5,12 +5,13 @@ It needs only the card, no profiler. It
 builds the kernels with `-DNIC_PHASE_TIMERS`, which turns every
 `NIC_PHASE(i)` marker of `csrc/decode_ffn.cu`, `csrc/decode_blocks.cu`,
 `csrc/band_topk.cu`, `csrc/decode_attention.cu`,
-`csrc/flash_attention.cu` and `csrc/dynamic_conv.cu` into a stamp
+`csrc/flash_attention.cu`, `csrc/dynamic_conv.cu` and the held-row
+forward of `csrc/flash_generic.cu` into a stamp
 of the multiprocessor's cycle counter and the card's nanosecond timer
 by thread 0 of every block (`csrc/common.cuh`). It launches each kernel
 once at the flagship's shapes (a decode step's for the decode kernels,
-a train step's for the flash kernels, B=16, T=512 for the dynamic
-conv) with the L2 cache flushed, reads
+a train step's for the flash kernels, fp32 for the generic forward,
+B=16, T=512 for the dynamic conv) with the L2 cache flushed, reads
 the stamps back and prints, for every phase, the mean and the largest
 time a block spent in it, when the blocks started and ended relative to
 the first, and the launch's span. The stamps cost a few hundred cycles a block, so the
@@ -50,6 +51,8 @@ FLASH_FWD_PHASES = ["issue loads", "wait first tile",
 DYNAMIC_CONV_PHASES = ["start", "issue every copy",
                        "wait for the first tile",
                        "every tile's taps, sums, writes (warp 0)"]
+FLASH_GENERIC_FWD_PHASES = ["start", "scores (q k^T, K chunks)",
+                            "softmax", "p v (V chunks)", "write out"]
 FLASH_BWD_PHASES = ["issue loads", "wait first tile",
                     "walk 1: probs, dp, delta, dv", "walk 2: ds, dq, dk",
                     "write dq"]
@@ -180,6 +183,17 @@ def main() -> None:
         report(f"flash_attention_bwd B={B} T={T} S'={S} ({plan.key_tiles}"
                f" key tiles, {plan.bwd.stages} slots)",
                read_stamps("nic_flash_phases"), plan.blocks, FLASH_BWD_PHASES)
+    for S in (514, 51):
+        q, k, v = (rn(B, T, D, scale=0.125).float(), rn(B, S, D).float(),
+                   rn(B, S, D).float())
+        bias = torch.zeros(B, S, device=dev)
+        plan = flash_attention.generic_flash_plan(B, T, S, H, D // H)
+        cold(lambda: flash_attention.flash_attention_fwd_generic(
+            q, k, v, bias, seed, H, p), "nic_flash_generic_phases")
+        report(f"flash_attention_fwd_generic fp32 B={B} T={T} S'={S}"
+               f" ({plan.fwd_rows} held rows, {plan.fwd_stages} slots)",
+               read_stamps("nic_flash_generic_phases"), plan.fwd_blocks,
+               FLASH_GENERIC_FWD_PHASES)
     x = rn(16, 512, D)
     for K in (3, 31):
         w = torch.softmax(rn(16, 512, H, K).float(), -1).bfloat16()

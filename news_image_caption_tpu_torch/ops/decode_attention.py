@@ -31,11 +31,15 @@ agree.
 
 `decode_cross_attention_generic` is the generic variant
 (`csrc/decode_generic.cu`): bf16 or fp32, any head size from 1 to 256,
-one block an (item, head) walking the keys twice with FFMA and fp32
-sums, for the models the fast kernel does not take (fp32, the toy's head
-size 8, tiny_test's 4). `route_attention` is the one predicate that
-chooses: "fast" where `admits` holds, else "generic" where
-`admits_generic` holds, else ValueError with both reasons.
+with FFMA and fp32 sums, for the models the fast kernel does not take
+(fp32, the toy's head size 8, tiny_test's 4). It splits each (item,
+head)'s keys over blocks of at most 64 keys (`generic_attention_plan`): a
+kernel writes each split's fp32 scores and its max and sum, a second
+merges them, forms the probabilities and each split's p v, a third adds
+the splits in order; one split is one kernel. K and V are read once.
+`route_attention` is the one predicate that chooses: "fast" where
+`admits` holds, else "generic" where `admits_generic` holds, else
+ValueError with both reasons.
 
 `decode_cross_attention_int8_generic` is the int8 attention of the
 generic variant (`nic_decode_attention_int8_generic`): q and the scales
@@ -61,12 +65,14 @@ BLOCKS_PER_SM = 3           # blocks the plan aims to give a multiprocessor
 MIN_KEYS = 64               # keys a block before the plan splits further
 _ARGTYPES = [_build.P] * 5 + [_build.I] * 8 + [_build.P]
 _ARGTYPES_INT8 = [_build.P] * 7 + [_build.I] * 8 + [_build.P]
-_ARGTYPES_GENERIC = [_build.I] + [_build.P] * 5 + [_build.I] * 6 + [_build.P]
-_ARGTYPES_INT8_GENERIC = [_build.I] + [_build.P] * 7 + [_build.I] * 6 + [
+_ARGTYPES_GENERIC = [_build.I] + [_build.P] * 8 + [_build.I] * 8 + [_build.P]
+_ARGTYPES_INT8_GENERIC = [_build.I] + [_build.P] * 10 + [_build.I] * 8 + [
     _build.P]
-# The generic kernel: its largest head size, keys a chunk.
+# The generic kernel: its largest head size, keys a split (at most).
 GENERIC_MAX_HEAD = 256
-GENERIC_KEYS = 32
+GENERIC_SPLIT_KEYS = 64
+GENERIC_THREADS = 256
+GENERIC_QUERY_GROUP = 4     # queries' p v parts a warp keeps, at most
 
 
 class AttentionPlan(NamedTuple):
@@ -149,12 +155,64 @@ def route_attention(dtype, Q: int, head_dim: int) -> str:
     return "generic"
 
 
-def generic_smem_bytes(Q: int, head_dim: int) -> int:
-    """Dynamic shared memory of the generic kernel's block
-    (csrc/decode_generic.cu::att_smem_floats): q, a chunk of K and of V
-    rows (padded by one float), the chunk's scores."""
-    return 4 * (Q * head_dim + 2 * GENERIC_KEYS * (head_dim + 1)
-                + Q * GENERIC_KEYS)
+class GenericAttentionPlan(NamedTuple):
+    """How the generic kernel cuts a call: grid (num_heads, B, splits),
+    split z taking keys [z * per, min(S, (z + 1) * per)), none empty;
+    fp32 scratch (0 for one split): the scores [B, H, Q, S], each
+    split's max and sum [2, B, H, Q, splits], its p v [B, H, splits, Q,
+    head_dim]."""
+
+    splits: int
+    per: int
+    smem_bytes: int
+    blocks: int
+    scores_floats: int
+    stats_floats: int
+    parts_floats: int
+
+
+def generic_smem_bytes(Q: int, head_dim: int, per: int) -> int:
+    """Dynamic shared memory of the generic kernels' blocks
+    (csrc/decode_generic.cu::att_smem_floats): q [Q][dhp], the split's
+    scores, then probabilities [Q][per] and the warps' parts of p v
+    [8][min(Q, 4)][dhp], fp32, dhp the head size rounded up to 16."""
+    dhp = -(-head_dim // 16) * 16
+    return 4 * (Q * dhp + Q * per + GENERIC_THREADS // 32
+                * min(Q, GENERIC_QUERY_GROUP) * dhp)
+
+
+def generic_attention_plan(B: int, Q: int, S: int, num_heads: int,
+                           head_dim: int) -> GenericAttentionPlan:
+    """The generic kernel's plan (csrc/decode_generic.cu::att_plan):
+    ceil(S / GENERIC_SPLIT_KEYS) splits of equal length but the last;
+    ValueError for what it does not take."""
+    _build.require(B >= 1 and S >= 1 and 1 <= Q <= MAX_Q and num_heads >= 1,
+                   f"decode_cross_attention: need B, S >= 1 and 1 <= Q <="
+                   f" {MAX_Q}, got B={B}, Q={Q}, S={S}")
+    splits = -(-S // GENERIC_SPLIT_KEYS)
+    per = -(-S // splits)
+    smem = generic_smem_bytes(Q, head_dim, per)
+    _build.require(smem <= _build.MAX_SMEM_BYTES,
+                   f"decode_cross_attention generic: {smem} bytes of shared"
+                   f" memory exceed the card's {_build.MAX_SMEM_BYTES}")
+    rows = B * num_heads * Q
+    return GenericAttentionPlan(
+        splits, per, smem, num_heads * B * splits,
+        rows * S if splits > 1 else 0, 2 * rows * splits if splits > 1 else 0,
+        rows * splits * head_dim if splits > 1 else 0)
+
+
+def _generic_scratch(plan: GenericAttentionPlan, device):
+    """The plan's fp32 scratch as three tensors on `device` (None each
+    for one split)."""
+    if plan.splits == 1:
+        return None, None, None
+    return tuple(torch.empty(n, device=device, dtype=torch.float32) for n in
+                 (plan.scores_floats, plan.stats_floats, plan.parts_floats))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def attention_smem_bytes(Q: int, per: int, head_dim: int,
@@ -293,11 +351,14 @@ def _launch_generic(q, k, v, bias, num_heads):
     _build.require(B >= 1 and S >= 1,
                    f"decode_cross_attention: need B, S >= 1, got B={B},"
                    f" S={S}")
+    plan = generic_attention_plan(B, Q, S, num_heads, E // num_heads)
+    scratch = _generic_scratch(plan, q.device)
     fn = _build.function("nic_decode_attention_generic", _ARGTYPES_GENERIC)
     out = torch.empty_like(q)
     _build.check(fn(_build.GENERIC_DTYPES[q.dtype], q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Q, S, E,
-                    num_heads, generic_smem_bytes(Q, E // num_heads),
+                    k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    *map(_ptr, scratch), out.data_ptr(), B, Q, S, E,
+                    num_heads, plan.splits, plan.per, plan.smem_bytes,
                     _build.stream_of(q)),
                  "decode_cross_attention generic")
     decode_cross_attention_generic.launches += 1
@@ -426,14 +487,16 @@ def _launch_int8_generic(q, k_q, k_scale, v_q, v_scale, bias, num_heads):
     _build.require(ok, why)
     _check_int8_kv(q, k_q, k_scale, v_q, v_scale, bias, num_heads,
                    "decode_cross_attention_int8 generic")
+    plan = generic_attention_plan(B, Q, S, num_heads, E // num_heads)
+    scratch = _generic_scratch(plan, q.device)
     fn = _build.function("nic_decode_attention_int8_generic",
                          _ARGTYPES_INT8_GENERIC)
     out = torch.empty_like(q)
     _build.check(fn(_build.GENERIC_DTYPES[q.dtype], q.data_ptr(),
                     k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
-                    v_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Q,
-                    S, E, num_heads, generic_smem_bytes(Q, E // num_heads),
-                    _build.stream_of(q)),
+                    v_scale.data_ptr(), bias.data_ptr(), *map(_ptr, scratch),
+                    out.data_ptr(), B, Q, S, E, num_heads, plan.splits,
+                    plan.per, plan.smem_bytes, _build.stream_of(q)),
                  "decode_cross_attention_int8 generic")
     decode_cross_attention_int8_generic.launches += 1
     return out

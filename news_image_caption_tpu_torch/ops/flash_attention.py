@@ -25,7 +25,11 @@ The generic variants (`csrc/flash_generic.cu`: `nic_flash_fwd_generic`,
 head sizes 1 to 256 (bf16 outside 16-128), any T and S, with FFMA and
 fp32 sums (no tensor cores, so fp32 never goes through TF32), the same
 rounding points and the same dropout hash (`csrc/common.cuh`), so at a
-shape both take the two drop the same slots. `route_flash(dtype,
+shape both take the two drop the same slots. The generic forward holds
+a block's score rows over all S keys in shared memory and forms them
+once (64, 32 or 16 rows, the most that fit by S: `generic_fwd_plan`),
+as the TPU kernel holds its block's score row; past that limit it walks
+the keys twice, as the backward does. `route_flash(dtype,
 head_dim)` is the one predicate that chooses: "fast" where `admits`
 holds, else "generic" where `admits_generic` holds, else ValueError with
 both reasons; `generic_flash_plan` is their host-side plan, and
@@ -81,6 +85,11 @@ GENERIC_MAX_HEAD = 256      # the generic kernels' largest head size
 # plan_of): (largest head size of the class, query rows, keys a chunk).
 GENERIC_TILES = ((16, 64, 64), (32, 64, 64), (64, 64, 64), (128, 64, 32),
                  (256, 32, 32))
+# The generic forward's held score rows (csrc/flash_generic.cu::
+# fwd_plan): rows a block, most first; floats after each row of q, K and
+# V in shared memory.
+HELD_ROWS = (64, 32, 16)
+HELD_PAD = 4
 _MASK32 = 0xFFFFFFFF
 
 
@@ -260,11 +269,16 @@ def flash_plan(B: int, T: int, S: int, num_heads: int, head_dim: int,
 
 
 class GenericFlashPlan(NamedTuple):
-    """How the generic kernels cut a call: grid (num_heads, B, t_tiles),
-    block (h, b, i) owning query rows [i * rows, min(T, (i + 1) * rows))
-    and walking the keys twice in chunks of `keys`; the tile shape
-    follows the head size (GENERIC_TILES), so that q (and g), a chunk of
-    K and V and its probabilities fit shared memory as fp32."""
+    """How the generic kernels cut a call, grid (num_heads, B, tiles).
+
+    The backward's block (h, b, i) owns query rows [i * rows, min(T,
+    (i + 1) * rows)) and walks the keys twice in chunks of `keys`; the
+    tile shape follows the head size (GENERIC_TILES), so that q and g,
+    a chunk of K and V and its probabilities fit shared memory as fp32.
+    The forward's block owns `fwd_rows` query rows and holds their
+    scores over all S keys (`fwd_stages` ring slots of `held_keys` keys,
+    `generic_fwd_plan`), or, past the held rows' limit (`fwd_stages`
+    0), walks the keys twice in the backward's tiles."""
 
     rows: int
     keys: int
@@ -273,16 +287,61 @@ class GenericFlashPlan(NamedTuple):
     fwd_smem_bytes: int
     bwd_smem_bytes: int
     parts_floats: int       # fp32 scratch of the backward where t_tiles > 1
+    fwd_rows: int
+    fwd_stages: int         # 0: the forward walks the keys twice
+    fwd_t_tiles: int
+    fwd_blocks: int
 
 
 def generic_flash_smem_bytes(backward: bool, head_dim: int) -> int:
-    """Dynamic shared memory of a generic kernel's block (csrc/
-    flash_generic.cu::Tiles::smem_floats): q (and g) [W][rows + 1], K and
-    V [W][keys + 1], the chunk's probabilities [rows][keys + 1] and the
-    key bias [keys], fp32, W the class's head size."""
+    """Dynamic shared memory of a two-walk block (csrc/flash_generic.cu::
+    Tiles::smem_floats): q (and g) [W][rows + 1], K and V [W][keys + 1],
+    the chunk's probabilities [rows][keys + 1] and the key bias [keys],
+    fp32, W the class's head size."""
     width, rows, keys = next(t for t in GENERIC_TILES if head_dim <= t[0])
     return 4 * ((2 if backward else 1) * width * (rows + 1)
                 + 2 * width * (keys + 1) + rows * (keys + 1) + keys)
+
+
+def held_rows_ok(width: int, rows: int) -> bool:
+    """Whether the held-row forward has a block of `rows` rows at this
+    head width (csrc/flash_generic.cu::held_rows_ok)."""
+    return (rows == 64 and width <= 128) or rows in (32, 16)
+
+
+def held_keys(width: int) -> int:
+    """Keys a chunk of the held-row forward's ring (csrc/flash_generic.cu
+    ::held_keys)."""
+    return 64 if width == 256 else 128
+
+
+def held_smem_bytes(width: int, rows: int, S: int, stages: int) -> int:
+    """Dynamic shared memory of a held-row forward block (csrc/
+    flash_generic.cu::held_smem_floats): q [rows][W + 4], the ring
+    [stages][held_keys][W + 4], the key bias [S4] and the score rows
+    [rows][S4 + 4], fp32, S4 = S rounded up to 4."""
+    pitch, s4 = width + HELD_PAD, -(-S // 4) * 4
+    return 4 * (rows * pitch + stages * held_keys(width) * pitch + s4
+                + rows * (s4 + 4))
+
+
+def generic_fwd_plan(head_dim: int, S: int) -> Tuple[int, int, int]:
+    """(rows a block, ring slots, shared memory bytes) of the generic
+    forward over S keys (csrc/flash_generic.cu::fwd_plan): the most rows
+    of HELD_ROWS, with 3 slots before 2 (2 where S takes one chunk of K
+    and one of V), whose held block fits the card; else the two walks'
+    (rows, 0, bytes)."""
+    width = next(t[0] for t in GENERIC_TILES if head_dim <= t[0])
+    most = min(3, 2 * -(-S // held_keys(width)))
+    for rows in HELD_ROWS:
+        if not held_rows_ok(width, rows):
+            continue
+        for stages in range(most, 1, -1):
+            smem = held_smem_bytes(width, rows, S, stages)
+            if smem <= _build.MAX_SMEM_BYTES:
+                return rows, stages, smem
+    rows = next(t[1] for t in GENERIC_TILES if head_dim <= t[0])
+    return rows, 0, generic_flash_smem_bytes(False, head_dim)
 
 
 def generic_flash_plan(B: int, T: int, S: int, num_heads: int,
@@ -294,15 +353,17 @@ def generic_flash_plan(B: int, T: int, S: int, num_heads: int,
                    f" S={S}")
     _build.require(*admits_generic(torch.float32, head_dim))
     _, rows, keys = next(t for t in GENERIC_TILES if head_dim <= t[0])
-    t_tiles = -(-T // rows)
-    _build.require(B <= MAX_GRID_YZ and t_tiles <= MAX_GRID_YZ,
-                   f"flash attention: B and T / {rows} may be at most"
-                   f" {MAX_GRID_YZ}")
+    fwd_rows, fwd_stages, fwd_smem = generic_fwd_plan(head_dim, S)
+    t_tiles, fwd_t_tiles = -(-T // rows), -(-T // fwd_rows)
+    _build.require(B <= MAX_GRID_YZ and max(t_tiles, fwd_t_tiles)
+                   <= MAX_GRID_YZ,
+                   f"flash attention: B and T / {min(rows, fwd_rows)} may be"
+                   f" at most {MAX_GRID_YZ}")
     return GenericFlashPlan(
-        rows, keys, t_tiles, num_heads * B * t_tiles,
-        generic_flash_smem_bytes(False, head_dim),
+        rows, keys, t_tiles, num_heads * B * t_tiles, fwd_smem,
         generic_flash_smem_bytes(True, head_dim),
-        2 * t_tiles * B * S * num_heads * head_dim if t_tiles > 1 else 0)
+        2 * t_tiles * B * S * num_heads * head_dim if t_tiles > 1 else 0,
+        fwd_rows, fwd_stages, fwd_t_tiles, num_heads * B * fwd_t_tiles)
 
 
 def flash_attention_fwd_plain(q, k, v, bias, seed, num_heads: int,

@@ -1035,6 +1035,98 @@ def test_flash_generic_shard_forms_on_card(cuda_device, dtype, E, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,S,E,H", [
+    (65, 1, 1024, 16), (63, 63, 1024, 16), (63, 64, 1024, 16),
+    (63, 65, 1024, 16), (63, 129, 1024, 16),    # 64 held rows, 2, 3 slots
+    (130, 514, 1024, 16),                       # 2 slots, T past a tile
+    (63, 552, 1024, 16), (63, 553, 1024, 16),   # the last 64 rows hold
+    (70, 2000, 1024, 16),                       # 16 rows
+    (20, 2325, 1024, 16),                       # past 16 rows: two walks
+    (70, 65, 1, 1), (70, 514, 96, 4),           # heads of 1 and 24
+    (5, 300, 256, 1), (40, 514, 256, 1),        # heads of 256: 32, 16 rows
+    (9, 1213, 256, 1), (33, 51, 16, 4)])        # two walks; heads of 4
+def test_flash_generic_forward_held_rows_on_card(cuda_device, dtype, T, S,
+                                                 E, H):
+    """The generic forward where its plan changes (`generic_fwd_plan`):
+    S' of one key, a chunk's 64 keys and one past, the flagship's 514,
+    the last S' each row count holds and the first past it, up to where
+    the two walks take over; T past one row tile; heads of 1, 4, 24, 64
+    and 256; item 0's keys all padded: out and lse against the plain
+    version (fp32 within 1e-5 + 1e-5 |ref|, bf16 at the fast kernels'
+    tolerances), a second call bit-equal, one launch each."""
+    q, k, v, bias, _ = (t.to(dtype) if t.is_floating_point() and t.dim() == 3
+                        else t for t in _flash_case(cuda_device, 3, T, S, E,
+                                                    T + S + E))
+    seed = torch.tensor([13], dtype=torch.int32, device=cuda_device)
+    before = flash_attention_fwd_generic.launches
+    out, lse = flash_attention_fwd_generic(q, k, v, bias, seed, H, 0.1)
+    out2, lse2 = flash_attention_fwd_generic(q, k, v, bias, seed, H, 0.1)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_generic.launches == before + 2
+    pout, plse = flash_attention_fwd_plain(q, k, v, bias, seed, H, 0.1)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, pout, **FP32_TOL)
+        torch.testing.assert_close(lse, plse, **FP32_TOL)
+    else:
+        torch.testing.assert_close(out.float(), pout.float(), atol=0.02,
+                                   rtol=0.02)
+        torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-5)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("B,Q,S,E,H", [
+    (3, 1, 1, 1024, 16), (3, 5, 63, 1024, 16), (3, 1, 64, 1024, 16),
+    (3, 16, 65, 1024, 16), (3, 1, 127, 1024, 16), (3, 5, 128, 1024, 16),
+    (3, 1, 129, 1024, 16), (16, 1, 514, 1024, 16), (16, 5, 514, 1024, 16),
+    (3, 16, 700, 16, 16),      # heads of 1, 11 splits
+    (3, 3, 514, 96, 4),        # heads of 24
+    (3, 16, 300, 256, 1),      # heads of 256, 16 queries
+    (3, 2, 200, 39, 13),       # heads of 3: rows not 16-byte aligned
+    (3, 4, 130, 16, 4)])       # heads of 4
+def test_attention_generic_splits_on_card(cuda_device, dtype, B, Q, S, E, H):
+    """The split generic attention (and its int8 instantiation) where its
+    plan changes: S' of one key, a split's 64 keys and one either side,
+    two splits' and one either side, the flagship's 514 (9 splits) at
+    greedy and beam-5 B=16, 11 splits; Q 1 to 16; heads of 1, 3, 4, 24,
+    64 and 256; item 0's keys all padded, the last item's half: against
+    the plain version (fp32 within 1e-5 + 1e-5 |ref|, bf16 within 0.02 +
+    0.02 |ref|), a second call bit-equal, one launch a call."""
+    from news_image_caption_tpu_torch.ops.attention import (AttentionKV,
+                                                            quantize_kv)
+    int8 = dtype == "int8"
+    dtype = torch.float32 if int8 else dtype
+    g = torch.Generator().manual_seed(S + E + Q)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dtype).to(
+            cuda_device)
+
+    bias = torch.zeros(B, S, device=cuda_device)
+    bias[0] = -1e9
+    bias[B - 1, S // 2:] = -1e9
+    q, k, v = rn(B, Q, E, scale=(E // H) ** -0.5), rn(B, S, E), rn(B, S, E)
+    if int8:
+        kv = quantize_kv(AttentionKV(k, v, bias), H)
+        args = (q, kv.k_q, kv.k_scale, kv.v_q, kv.v_scale, kv.bias, H)
+        fn, plain = (decode_cross_attention_int8_generic,
+                     decode_cross_attention_int8_plain)
+    else:
+        args = (q, k, v, bias, H)
+        fn, plain = (decode_cross_attention_generic,
+                     decode_cross_attention_plain)
+    before = fn.launches
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    tol = FP32_TOL if dtype == torch.float32 else dict(atol=0.02, rtol=0.02)
+    torch.testing.assert_close(got.float(), plain(*args).float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,V,k", [(16, 1024, 5000, 1),
                                      (80, 1024, 30265, 5), (5, 16, 32, 5),
                                      (1, 32, 16, 1), (37, 100, 129, 16)])

@@ -531,27 +531,90 @@ def test_flash_generic_admits_is_what_its_launches_accept(recording_library,
 
 def test_generic_flash_plans_fit_the_card():
     """Every head size 1 to 256 has a tile class whose blocks fit shared
-    memory in both passes (two blocks a multiprocessor up to heads of
-    128); T past the class's rows makes several query tiles and the
-    backward's fp32 parts of dk and dv; the flagship's call is one tile
-    of 256 blocks."""
+    memory in both passes (two backward blocks a multiprocessor up to
+    heads of 128); the forward holds the flagship's score rows (64 rows,
+    2 ring slots, one block a multiprocessor at S' = 514 and two at 51);
+    T past the class's rows makes several query tiles and the backward's
+    fp32 parts of dk and dv; the flagship's call is one tile of 256
+    blocks in both passes."""
     for dh in range(1, 257):
         plan = flash_attention.generic_flash_plan(16, 63, 514, 16, dh)
         width, rows, keys = next(t for t in flash_attention.GENERIC_TILES
                                  if dh <= t[0])
         assert (plan.rows, plan.keys) == (rows, keys)
-        assert plan.fwd_smem_bytes < plan.bwd_smem_bytes
+        assert plan.fwd_smem_bytes <= _build.MAX_SMEM_BYTES
         assert plan.bwd_smem_bytes <= _build.MAX_SMEM_BYTES
+        assert (plan.fwd_rows, plan.fwd_stages, plan.fwd_smem_bytes) == (
+            flash_attention.generic_fwd_plan(dh, 514))
+        assert plan.fwd_stages in (2, 3)            # S' = 514 is held
         if dh <= 128:
             assert 2 * (plan.bwd_smem_bytes
                         + flash_attention.BLOCK_RESERVED_BYTES) <= (
                 flash_attention.SM_SMEM_BYTES)
         long = flash_attention.generic_flash_plan(2, 2 * rows + 1, 7, 3, dh)
         assert long.t_tiles == 3 and long.parts_floats == 2 * 3 * 2 * 7 * 3 * dh
+        assert long.fwd_t_tiles == -(-(2 * rows + 1) // long.fwd_rows)
+        assert long.fwd_blocks == 3 * 2 * long.fwd_t_tiles
     plan = flash_attention.generic_flash_plan(16, 63, 514, 16, 64)
     assert (plan.t_tiles, plan.blocks, plan.parts_floats) == (1, 256, 0)
+    assert (plan.fwd_rows, plan.fwd_stages, plan.fwd_t_tiles,
+            plan.fwd_blocks, plan.fwd_smem_bytes) == (64, 2, 1, 256, 222224)
+    assert 2 * (plan.fwd_smem_bytes + flash_attention.BLOCK_RESERVED_BYTES) > (
+        flash_attention.SM_SMEM_BYTES)
+    image = flash_attention.generic_flash_plan(16, 63, 51, 16, 64)
+    assert (image.fwd_rows, image.fwd_stages, image.fwd_blocks) == (64, 2, 256)
+    assert 2 * (image.fwd_smem_bytes + flash_attention.BLOCK_RESERVED_BYTES) <= (
+        flash_attention.SM_SMEM_BYTES)
     with pytest.raises(ValueError, match="head size in 1..256"):
         flash_attention.generic_flash_plan(16, 63, 514, 4, 257)
+
+
+@pytest.mark.parametrize("width,limits", [
+    # The largest S' each row count holds at 3 and at 2 ring slots (0:
+    # no block of that many rows and slots at this width), then where the
+    # two walks take over.
+    (16, {64: (752, 788), 32: (1504, 1580), 16: (2944, 3092)}),
+    (32, {64: (640, 712), 32: (1300, 1440), 16: (2564, 2836)}),
+    (64, {64: (420, 552), 32: (896, 1160), 16: (1812, 2324)}),
+    (128, {64: (0, 240), 32: (92, 604), 16: (308, 1300)}),
+    (256, {64: (0, 0), 32: (0, 496), 16: (232, 1212)})])
+def test_generic_flash_forward_rows_follow_the_keys(width, limits):
+    """The generic forward's rows a block by S' (`generic_fwd_plan`, the
+    mirror of csrc/flash_generic.cu::fwd_plan): the most rows that hold
+    the score rows, 3 ring slots before 2 (2 where S' is one chunk of K
+    and one of V), at every S' from 1 to the limit of 16 rows and past
+    it, where the forward walks the keys twice in the backward's tiles;
+    every held plan fits the card and every head size of a width class
+    gets its plan."""
+    for rows, (lim3, lim2) in limits.items():
+        assert flash_attention.held_rows_ok(width, rows) == (lim2 > 0)
+        for stages, lim in ((3, lim3), (2, lim2)):
+            if lim:
+                assert flash_attention.held_smem_bytes(
+                    width, rows, lim, stages) <= _build.MAX_SMEM_BYTES
+                assert flash_attention.held_smem_bytes(
+                    width, rows, lim + 1, stages) > _build.MAX_SMEM_BYTES
+    held = [(r, st, lim) for r, lims in limits.items()
+            for st, lim in zip((3, 2), lims) if lim]
+    last = max(lim for _, _, lim in held)
+    keys = flash_attention.held_keys(width)
+    for S in list(range(1, 260)) + list(range(260, last + 40, 7)) + [
+            last, last + 1]:
+        most = 3 if S > keys else 2
+        want = next(((r, st) for r, st, lim in held
+                     if S <= lim and st <= most), None)
+        for dh in (width // 2 + 1, width):
+            rows, stages, smem = flash_attention.generic_fwd_plan(dh, S)
+            if want is None:
+                tiles = next(t for t in flash_attention.GENERIC_TILES
+                             if dh <= t[0])
+                assert (rows, stages, smem) == (
+                    tiles[1], 0, flash_attention.generic_flash_smem_bytes(
+                        False, dh)), S
+            else:
+                assert (rows, stages) == want, S
+                assert smem == flash_attention.held_smem_bytes(
+                    width, rows, S, stages) <= _build.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -624,12 +687,85 @@ def test_attention_int8_generic_admits_is_what_its_launch_accepts(
     assert ok == (dtype != torch.float16 and Q <= 16 and E // H <= 256)
     if ok:
         ((name, cargs),) = recording_library
+        plan = decode_attention.generic_attention_plan(B, Q, S, H, E // H)
         assert name == "nic_decode_attention_int8_generic"
         assert cargs[0] == _build.GENERIC_DTYPES[dtype]
-        assert cargs[8:14] == (B, Q, S, E, H, decode_attention.
-                               generic_smem_bytes(Q, E // H))
+        assert cargs[7:10] == (None, None, None)     # one split: no scratch
+        assert cargs[11:19] == (B, Q, S, E, H, plan.splits, plan.per,
+                                plan.smem_bytes)
     assert not launch_outcome(decode_attention._launch_generic, args[0], i8,
                               i8, args[5], H)[0]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 514, 4096])
+def test_generic_attention_launch_passes_the_plan(recording_library, int8,
+                                                   S):
+    """Both generic attention launches pass the plan's splits, keys a
+    split and shared memory, and fp32 scratch of the plan's sizes where
+    S' takes several splits (none for one split); one launch counted."""
+    B, Q, E, H = 2, 3, 96, 4
+    plan = decode_attention.generic_attention_plan(B, Q, S, H, E // H)
+    q = z(torch.float32, B, Q, E)
+    if int8:
+        i8 = torch.zeros(B, S, E, dtype=torch.int8)
+        scale = torch.ones(B, S, H)
+        decode_attention._launch_int8_generic(q, i8, scale, i8, scale,
+                                              torch.zeros(B, S), H)
+        ptrs, sizes = slice(7, 10), slice(11, 19)
+    else:
+        kv = z(torch.float32, B, S, E)
+        decode_attention._launch_generic(q, kv, kv, torch.zeros(B, S), H)
+        ptrs, sizes = slice(5, 8), slice(9, 17)
+    ((name, cargs),) = recording_library
+    assert name == ("nic_decode_attention_int8_generic" if int8
+                    else "nic_decode_attention_generic")
+    assert cargs[sizes] == (B, Q, S, E, H, plan.splits, plan.per,
+                            plan.smem_bytes)
+    assert all((p is None) == (plan.splits == 1) for p in cargs[ptrs])
+    assert (plan.splits == 1) == (S <= 64)
+
+
+def test_generic_attention_splits_cover_the_keys():
+    """The generic attention's splits (`generic_attention_plan`, the
+    mirror of csrc/decode_generic.cu::att_plan) cover S' = 1 to 4096 in
+    ascending order with no gap and none empty, at most 64 keys each and
+    at most one key apart; the scratch is B H Q S' scores, two stats and
+    a p v part of every split, none for one split; every head size 1 to
+    256 at Q = 1 to 16 fits shared memory; the flagship's article call
+    (S' = 514) is 9 splits, 2304 blocks at B = 16, its image call (S' =
+    51) one split, 256 blocks."""
+    for S in range(1, 4097):
+        plan = decode_attention.generic_attention_plan(3, 2, S, 5, 7)
+        starts = [z_ * plan.per for z_ in range(plan.splits)]
+        ends = [min(S, s0 + plan.per) for s0 in starts]
+        assert starts[0] == 0 and ends[-1] == S
+        assert all(e > s0 for s0, e in zip(starts, ends))
+        assert all(a == b for a, b in zip(ends, starts[1:]))
+        assert plan.splits == -(-S // 64) and plan.per <= 64
+        assert all(plan.per - 1 <= e - s0 <= plan.per
+                   for s0, e in zip(starts[:-1], ends[:-1]))
+        one = plan.splits == 1
+        assert plan.blocks == 5 * 3 * plan.splits
+        assert (plan.scores_floats, plan.stats_floats, plan.parts_floats) == (
+            (0, 0, 0) if one else (3 * 5 * 2 * S, 2 * 3 * 5 * 2 * plan.splits,
+                                   3 * 5 * plan.splits * 2 * 7))
+    for dh in range(1, 257):
+        for Q in range(1, 17):
+            plan = decode_attention.generic_attention_plan(16, Q, 4096, 16,
+                                                           dh)
+            dhp = -(-dh // 16) * 16
+            assert plan.smem_bytes == 4 * (Q * dhp + Q * plan.per + 8 * min(
+                Q, 4) * dhp) <= _build.MAX_SMEM_BYTES
+    article = decode_attention.generic_attention_plan(16, 1, 514, 16, 64)
+    image = decode_attention.generic_attention_plan(16, 1, 51, 16, 64)
+    assert (article.splits, article.per, article.blocks) == (9, 58, 2304)
+    assert article.scores_floats == 16 * 16 * 514          # 0.5 MB
+    assert (image.splits, image.per, image.blocks) == (1, 51, 256)
+    beam = decode_attention.generic_attention_plan(16, 5, 514, 16, 64)
+    assert beam.scores_floats * 4 == 2631680                 # 2.6 MB
+    with pytest.raises(ValueError, match="1 <= Q <= 16"):
+        decode_attention.generic_attention_plan(16, 17, 514, 16, 64)
 
 
 def test_tiny_model_decodes_and_trains_on_the_cpu():
