@@ -389,8 +389,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      each against its plain version on the card at the toy's shapes in
      fp32 and tiny_test's in bf16, pointwise layers and other odd widths
      (head sizes 1 to 256), the split attention's edges (S' of one
-     and two splits of 64 keys and one either side, 11 splits), and the
-     fp32 flagship's greedy (16 rows) and
+     and two splits of 64 keys and one either side, 11 splits), the conv
+     block's and FFN's product plans' edges (rows 1 to 640 about the
+     row tiles of 16, 32 and 80, K = 1 to 32, widths off every tile),
+     and the fp32 flagship's greedy (16 rows) and
      beam-5 (80 rows) steps at B=16, which are timed (fp32 1e-5 +
      1e-5 |ref|; bf16 phase 3's tolerances; second calls bit-equal); the
      fp32 flagship decoding greedy and beam-5 at B=16 over 32 steps,
@@ -428,8 +430,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      to the plain path's (the `generic27` JSON line; the four new
      `*_generic` entries of the kernels line). Phases 26 and 27 print
      the redesigned kernels' step times (the generic flash forward, the
-     generic attention and its int8 instantiation) beside their plain
-     versions, library calls, bounds and times before the redesign.
+     generic attention and its int8 instantiation, the generic conv
+     block and FFN) beside their plain versions, library calls, bounds
+     and times before the redesign.
 The line before the last is a JSON summary of the kernels (`launches`
 over the main paths, `launches_by_path` split by path, the serve
 command's counted in its worker); the last is
@@ -7271,12 +7274,19 @@ FP32_TOL = (1e-5, 1e-5)
 # The redesigned generic kernels' times before their redesign (PERF.md
 # §6, from this script's calls on an H100 80GB HBM3 at 700.00 W): ms a
 # fp32 flagship train step (the flash forward) or greedy and beam-5 step
-# at B=16 (the attentions).
+# at B=16 (the attentions, the conv block and the FFN).
 WAS_MS = {"flash_attention_fwd_generic": {"train step": 1.0425},
           "decode_cross_attention_generic": {"greedy": 0.6618,
                                              "beam-5": 0.7260},
           "decode_cross_attention_int8_generic": {"greedy": 0.6790,
-                                                  "beam-5": 0.7389}}
+                                                  "beam-5": 0.7389},
+          "decode_conv_block_generic": {"greedy": 0.3747,
+                                        "beam-5": 0.5467},
+          "decode_ffn_block_generic": {"greedy": 0.1964,
+                                       "beam-5": 0.5162}}
+# Phase 26's redesigned kernels.
+REDESIGNED26 = ("decode_cross_attention_generic", "decode_conv_block_generic",
+                "decode_ffn_block_generic")
 
 
 def print_redesigned(name: str, results: dict) -> dict:
@@ -7573,6 +7583,22 @@ def generic_kernel_phase(torch, ops):
     ffn_case(f32, 5 * N, D, F, beam["decode_ffn_block_generic"], calls=4)
     ffn_case(f32, N, D, F, partial=True)
     ffn_case(f32, 640, D, F)
+    # The products' plan edges (`generic_product_plan`): rows at the row
+    # tiles' edges (16, 32, 80) and past them, K = 1 and 32 (the tap
+    # logits' strips of whole heads), widths off every tile and chunk,
+    # the partial mode past one row tile.
+    for dtype in (f32, bf16):
+        for rows in (1, 17, 32, 33, 81):
+            ffn_case(dtype, rows, D, F)
+        ffn_case(dtype, 81, 48, 200, partial=True)
+        ffn_case(dtype, 33, 200, 48)
+        conv_case(dtype, 1, D, H, 3, (0, 5))
+        conv_case(dtype, 17, D, H, 32, (40,))
+        conv_case(dtype, 33, D, H, 15, None, rows_pos=True)
+        conv_case(dtype, 81, D, H, 31, (70,))
+        conv_case(dtype, 640, D, H, 3, (2,))
+        conv_case(dtype, 81, 200, 8, 1, (0,))
+        conv_case(dtype, 5, 100, 4, 31, None, rows_pos=True)
     return ({n: t.result() for n, t in greedy.items()},
             {n: t.result() for n, t in beam.items()}, worst)
 
@@ -7894,10 +7920,10 @@ def generic_phase(torch, ops, counted):
     counted = dict(counted, **gcounted)
     t = time.perf_counter()
     greedy, beam, worst = generic_kernel_phase(torch, ops)
-    name = "decode_cross_attention_generic"
-    summary = {"kernels_s": time.perf_counter() - t,
-               "redesigned": print_redesigned(name, {
-                   "greedy": greedy[name], "beam-5": beam[name]})}
+    summary = {"kernels_s": time.perf_counter() - t, "redesigned": {
+        name: print_redesigned(name, {"greedy": greedy[name],
+                                      "beam-5": beam[name]})
+        for name in REDESIGNED26}}
     launches, summary["fp32_flagship"] = generic_decode_phase(torch,
                                                               counted)
     launches["serve_toy"], summary["serve_toy"] = toy_serve_phase(torch)

@@ -374,6 +374,48 @@ __device__ __forceinline__ void phase_stamp(int i) {
 #define NIC_DEFINE_PHASE_READER(name)
 #endif
 
+// Phase sums, for kernels whose phases repeat inside a block (a ring of
+// chunks): NIC_PHASE_CLOCK() reads the multiprocessor's cycle counter
+// (NIC_PHASE_NS() the card's nanosecond timer), NIC_PHASE_ADD(kind,
+// slot, v) adds v to sum [kind][slot] of this source's kernels
+// (NIC_PHASE_MAX keeps the largest v there), and
+// NIC_DEFINE_PHASE_SUMS_READER(name) defines the C function that copies
+// the sums to the host, or zeroes them when called with a null pointer.
+// Without -DNIC_PHASE_TIMERS the clocks read 0 and the adds vanish.
+#ifdef NIC_PHASE_TIMERS
+namespace nic {
+constexpr int PHASE_KINDS = 8, PHASE_SUMS = 12;
+static __device__ unsigned long long phase_sums[PHASE_KINDS][PHASE_SUMS];
+__device__ __forceinline__ long long phase_ns() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return (long long)ns;
+}
+}  // namespace nic
+#define NIC_PHASE_CLOCK() clock64()
+#define NIC_PHASE_NS() nic::phase_ns()
+#define NIC_PHASE_ADD(kind, slot, v) \
+  atomicAdd(&nic::phase_sums[kind][slot], (unsigned long long)(v))
+#define NIC_PHASE_MAX(kind, slot, v) \
+  atomicMax(&nic::phase_sums[kind][slot], (unsigned long long)(v))
+#define NIC_DEFINE_PHASE_SUMS_READER(name)                              \
+  extern "C" int name(void* host) {                                     \
+    if (host != nullptr)                                                \
+      return (int)cudaMemcpyFromSymbol(host, nic::phase_sums,           \
+                                       sizeof(nic::phase_sums));        \
+    void* sums;                                                         \
+    cudaError_t err = cudaGetSymbolAddress(&sums, nic::phase_sums);     \
+    if (err != cudaSuccess) return (int)err;                            \
+    return (int)cudaMemset(sums, 0, sizeof(nic::phase_sums));           \
+  }
+#else
+#define NIC_PHASE_CLOCK() 0LL
+#define NIC_PHASE_NS() 0LL
+#define NIC_PHASE_ADD(kind, slot, v)
+#define NIC_PHASE_MAX(kind, slot, v)
+#define NIC_DEFINE_PHASE_SUMS_READER(name)
+#endif
+
 // Return the launch error, if any, from a C entry point.
 #define NIC_RETURN_IF_LAUNCH_FAILED()          \
   do {                                         \

@@ -37,24 +37,37 @@
 // bound by bytes at N = 1 and by fp32 operations (67 TFLOP/s) from N of
 // a few tens: the fp32 flagship's greedy step at B = 16 reads 33.5 MB of
 // FFN weights and 124 MB of the largest band's table a layer or step.
-// The design aims at a simple kernel that is right:
-//   - The products are one tile routine, `tile_gemm`: a block of 256
-//     threads computes a [16 or 32 rows] x [64 columns] tile over a
-//     range of the depth, 32 deep at a time through shared memory (the
-//     next chunk's loads in registers while the current one is
-//     multiplied), each thread 1 or 2 rows x 4 columns in fp32.
-//   - The TPU kernels carry an fp32 accumulator over a sequential grid;
-//     blocks of the card run side by side, so the FFN's and the conv
-//     block's products split their depth over blocks where a call has
-//     few tiles (the decode's N <= 16 rows make one row tile), each
-//     split writing fp32 partial sums that a second kernel adds in split
-//     order before the epilogue. Every sum has a fixed order: two calls
-//     on the same inputs give the same bits.
-//   - The FFN is two such products (fc1 with its epilogue writes h to
-//     device memory in the working dtype, exactly as rounded; fc2 with
-//     the residual); the conv block is linear1 with the GLU in its
-//     epilogue, one kernel for the taps, their softmax and the ring
-//     combine a head and 8 rows, then linear2 with the residual.
+// The design:
+//   - The FFN's and the conv block's products are one routine,
+//     `product_kernel`: a block owns a strip of 64 output columns over
+//     all the rows of the call (16, 32 or 80 a tile; row tiles only past
+//     80, and 16-row tiles for a product of few strips, the tap logits),
+//     so each weight element is read from device memory once a call. Its 8 warps split the tile's rows into one or two groups and
+//     each chunk's depth into 8 or 4 slices, so each thread sums 4, 8 or
+//     10 rows x 8 columns in fp32 registers and does 8 multiplies a row
+//     for every 1 + 8 / rows floats it reads from shared memory: shared
+//     memory delivers 32 floats a clock to a multiprocessor, a quarter of
+//     its multiplies, so tiles of 1 or 2 rows x 4 columns a thread (a
+//     float4 of A and of B for 4 multiplies a row) are bound by shared
+//     loads. The slices' sums are added in slice order.
+//     A ring of 8 or 6 chunks of 32 of the depth that cp.async keeps
+//     in flight feeds it. Where the strips leave the card's multiprocessors
+//     unevenly loaded, the depth is split over blocks: each split writes
+//     its fp32 tile and the last of a strip's splits to arrive (a
+//     counter a strip, which it zeroes again) adds the tiles in split
+//     order before the epilogue, so a product is one kernel and every
+//     sum has a fixed order: two calls on the same inputs give the same
+//     bits. The host's ops/decode_blocks.py::generic_product_plan
+//     chooses the tile and the split. The band's walk keeps `tile_gemm`.
+//   - The FFN is fc1 (its epilogue writes h in the working dtype,
+//     rounded as the reference rounds) and fc2 (the residual, or the
+//     fp32 sums of the partial mode); the conv block is linear1 with the
+//     GLU in its epilogue (a strip's tile holds its 32 a and 32 g
+//     columns), the tap logits h wl (rounded, to an fp32 scratch [N, H
+//     K]), the softmax and ring combine (a block a row and 128 channels:
+//     its heads' probabilities by one warp a head, then a thread a
+//     channel with its K - 1 cache rows requested at once and the ring's
+//     slots stepped once), and linear2 with the residual.
 //   - The band walks 64-id tiles of the table, a block a chunk of tiles
 //     in ascending order and a tile of x's rows, and carries each row's
 //     max, sum of exponentials and top-k list (in the lanes of the warp
@@ -82,7 +95,7 @@
 // attention with an int8 table or int8 K and V (`if constexpr` on the
 // operand's type), so the bf16 and fp32 instantiations keep their code.
 // A call is one launch on its wrapper's count (the band, FFN, conv block
-// and attention run one to five kernels in it, as band_topk.cu's two).
+// and attention run one to four kernels in it, as band_topk.cu's two).
 
 #include <type_traits>
 
@@ -102,11 +115,7 @@ constexpr int ATT_MAX_Q = 16;
 constexpr int ATT_MAX_HEAD = 256;
 constexpr int ATT_U = 4;             // key rows a lane loads at once
 constexpr int ATT_QG = 4;            // queries' p v sums a lane holds, at most
-constexpr int MIX_ROWS = 8;     // rows a conv mix block
-constexpr int MIX_CC = 64;      // channels a chunk of the tap product
 constexpr int MAX_TAPS = 32;
-
-enum Epi { EPI_RELU = 0, EPI_RESID = 1, EPI_SUM = 2, EPI_GLU = 3 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
@@ -220,167 +229,436 @@ __device__ void tile_gemm(const T* __restrict__ A, int lda, int M, int m0,
 }
 
 // ---------------------------------------------------------------------------
-// Products with an epilogue: FFN fc1 and fc2, conv block linear1 and linear2.
+// The blocks' products: FFN fc1 and fc2, conv block linear1, the tap
+// logits and linear2, one routine.
+//
+// A block owns the output tile [MT rows][64 columns] (a row tile of the
+// call, a strip of columns) over a range of the depth. Its 8 warps are
+// WR row groups x WK depth slices: warp (wr, wk) sums rows wr 4 TR +
+// ly + 4 i (i < TR) and columns 4 lx + 32 jj + (0..3) (jj < 2), ly =
+// lane / 8, lx = lane % 8, over depths wk KW .. (wk + 1) KW - 1 of every
+// chunk, so each thread holds TR x 8 fp32 sums and does 8 TR multiplies
+// for every TR + 8 floats it reads from shared memory (4 TR = 16, 32 or
+// 40 rows a warp: the card's shared memory delivers 32 floats a clock
+// to a multiprocessor, its FFMA units 128 multiplies). The depth slices'
+// sums are then added in slice order through shared memory. The operands
+// come through a ring of the tile's S slots, a chunk of PROD_KC of the
+// depth a slot (A [MT][KC + 4], B [KC][64], fp32 whatever the dtype):
+// fp32 by 16-byte cp.async where every row and strip is 16-byte
+// aligned, else through registers.
 
-template <class T>
-struct GemmArgs {
-  const T* A;       // [M, lda]
-  const T* B;       // [K, ldb]
-  const T* bias;    // [NB * Ncols]
-  const T* resid;   // [M, Ncols] (EPI_RESID)
-  T* out;           // [M, Ncols]
-  float* out32;     // [M, Ncols] (EPI_SUM)
-  float* part;      // [splits, M, NB * Ncols] fp32, where splits > 1
-  int M, K, lda, ldb, Ncols, ksplit, splits;
+constexpr int PROD_KC = 32;
+constexpr int PROD_AP = PROD_KC + 4;    // floats a row of the A chunk
+constexpr int PROD_BN = 64;             // columns a tile
+constexpr int PROD_TP = PROD_BN + 4;    // floats a row of the sums' tiles
+// Counters of the depth splits' arrivals a device: one a (row tile,
+// strip) of a product whose depth is split (ops/decode_blocks.py::
+// GENERIC_COUNTERS).
+constexpr int PROD_MAX_COUNTERS = 256;
+constexpr int MIX_THREADS = 128;        // channels a block of the combine
+
+// The products' epilogues; also the kinds of their phase sums.
+enum Epi { EPI_RELU = 0, EPI_RESID = 1, EPI_SUM = 2, EPI_GLU = 3, EPI_LOGIT = 4 };
+constexpr int KIND_MIX = 5;
+
+// The tiles, codes as ops/decode_blocks.py::GENERIC_TILES: rows MT = 4
+// TR WR (16, 32, 80) in WR row groups of 8 / WR depth slices, a ring of
+// S slots (enough chunks in flight to keep one block a multiprocessor
+// fed at the card's memory rate), at least MINB blocks a
+// multiprocessor's registers.
+template <int TR_, int WR_, int S_, int MINB_>
+struct ProdTile {
+  static constexpr int TR = TR_, WR = WR_, S = S_, MINB = MINB_;
+  static constexpr int WK = 8 / WR, KW = PROD_KC / WK, MT = 4 * TR * WR;
+  static constexpr int STAGE = MT * PROD_AP + PROD_KC * PROD_BN;   // floats a slot
+  static constexpr int SMEM = 4 * S * STAGE;
+  // Elements a thread of the tile, and float4s.
+  static constexpr int PER = MT * PROD_BN / THREADS, PER4 = PER / 4;
+  static_assert(WR * WK == THREADS / 32 && KW * WK == PROD_KC, "8 warps");
+  static_assert(WK * MT * PROD_TP <= S * STAGE, "the slices' tiles fit the ring");
+  static_assert(PER4 * 4 * THREADS == MT * PROD_BN, "whole float4s a thread");
+};
+using Tile16 = ProdTile<4, 1, 8, 2>;
+using Tile32 = ProdTile<8, 1, 6, 1>;
+using Tile80 = ProdTile<10, 2, 6, 1>;
+
+struct ProdArgs {
+  const void* A;          // [M, lda] of T
+  const void* B;          // [K, ldb] of T
+  const void* bias;       // of T: [width] (GLU: [2 width])
+  const void* resid;      // [M, width] of T (EPI_RESID)
+  void* out;              // [M, width]: T, or fp32 (EPI_SUM, EPI_LOGIT)
+  float* part;            // [splits][row tiles][strips][MT 64] fp32 (splits > 1)
+  unsigned* counters;     // [row tiles][strips] (splits > 1), zero between launches
+  int M, K, lda, ldb, width, ksplit, splits, epi;
+  int strip_cols;         // output columns a strip: 64 (GLU 32)
+  int vec;                // 16-byte cp.async of A and B
 };
 
-template <class T, int EPI>
-__device__ __forceinline__ void epilogue(const GemmArgs<T>& a, int m, int n,
-                                         float s0, float s1) {
-  const size_t at = (size_t)m * a.Ncols + n;
-  if (EPI == EPI_RELU) {
-    a.out[at] = store_as<T>(fmaxf(round_to<T>(round_to<T>(s0) + ld(a.bias + n)), 0.f));
-  } else if (EPI == EPI_RESID) {
-    a.out[at] = store_as<T>(round_to<T>(
-        round_to<T>(round_to<T>(s0) + ld(a.bias + n)) + ld(a.resid + at)));
-  } else if (EPI == EPI_SUM) {
-    a.out32[at] = s0;
-  } else {   // EPI_GLU: a = columns [0, C), g = [C, 2C) of linear1
-    const float av = round_to<T>(round_to<T>(s0) + ld(a.bias + n));
-    const float gv = round_to<T>(round_to<T>(s1) + ld(a.bias + a.Ncols + n));
-    const float sig = round_to<T>(1.f / (1.f + expf(-gv)));
-    a.out[at] = store_as<T>(round_to<T>(av * sig));
-  }
+// B's column of local column j (< 64) of the strip starting at output
+// column n0, and whether it exists: the GLU's tile holds the strip's a
+// columns in [0, 32) and its g columns (B's column width + n) in [32, 64).
+__device__ __forceinline__ int prod_col(const ProdArgs& a, int n0, int j, bool& ok) {
+  const bool g = j >= a.strip_cols;
+  const int i = g ? j - a.strip_cols : j;
+  ok = n0 + i < a.width;
+  return (g ? a.width : 0) + n0 + i;
 }
 
-// Grid (row tiles, column tiles, splits). With one split the block
-// applies the epilogue; otherwise it writes its fp32 partial sums.
-template <class T, int EPI, int RPT>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T> a) {
-  constexpr int NB = EPI == EPI_GLU ? 2 : 1;
-  __shared__ __align__(16) float smem[tile_smem_floats<RPT, NB>()];
-  const int m0 = blockIdx.x * 16 * RPT, n0 = blockIdx.y * TN;
-  const int k0 = blockIdx.z * a.ksplit, k1 = min(a.K, k0 + a.ksplit);
-  float acc[NB][RPT][4] = {};
-  tile_gemm<T, false, RPT, NB>(a.A, a.lda, a.M, m0, a.B, a.ldb, a.Ncols, n0,
-                               a.Ncols, k0, k1, acc, smem);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= a.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n >= a.Ncols) continue;
-      if (a.splits == 1) {
-        epilogue<T, EPI>(a, m, n, acc[0][i][j], acc[NB - 1][i][j]);
-      } else {
-#pragma unroll
-        for (int g = 0; g < NB; ++g)
-          a.part[((size_t)blockIdx.z * a.M + m) * (NB * a.Ncols) +
-                 g * a.Ncols + n] = acc[g][i][j];
+// Thread 0's phase sums of a product block (kind a.epi): slots 0 blocks,
+// 1 waiting for chunks, 2 multiplying, 3 adding the depth slices and
+// writing the partial tile, 4 the last split's sum, 5 the epilogue (in
+// cycles); 6, 7 the block's life in ns and cycles; 8, 9, 10 the first
+// start (as its complement), the last start and the last end, in ns; 11
+// issuing the ring's first chunks (cycles).
+#define PROD_PHASES(kind, wait, mul, part, sum, epi)                         \
+  do {                                                                       \
+    if (threadIdx.x == 0) {                                                  \
+      NIC_PHASE_ADD(kind, 0, 1);                                             \
+      NIC_PHASE_ADD(kind, 1, wait);                                          \
+      NIC_PHASE_ADD(kind, 2, mul);                                           \
+      NIC_PHASE_ADD(kind, 3, part);                                          \
+      NIC_PHASE_ADD(kind, 4, sum);                                           \
+      NIC_PHASE_ADD(kind, 5, epi);                                           \
+      NIC_PHASE_ADD(kind, 6, NIC_PHASE_NS() - life0);                        \
+      NIC_PHASE_ADD(kind, 7, NIC_PHASE_CLOCK() - c_start);                   \
+      NIC_PHASE_MAX(kind, 8, ~(unsigned long long)life0);                    \
+      NIC_PHASE_MAX(kind, 9, life0);                                         \
+      NIC_PHASE_MAX(kind, 10, NIC_PHASE_NS());                               \
+      NIC_PHASE_ADD(kind, 11, c_pro);                                        \
+    }                                                                        \
+  } while (0)
+
+// Grid (strips, row tiles, splits), THREADS threads, PT::SMEM bytes of
+// dynamic shared memory. With one split the block applies the epilogue;
+// otherwise it writes its fp32 partial tile and the last of the strip's
+// splits to arrive adds the splits' tiles in split order, then applies it.
+template <class T, class PT>
+__global__ void __launch_bounds__(THREADS, PT::MINB) product_kernel(ProdArgs a) {
+  constexpr int TR = PT::TR, WK = PT::WK, KW = PT::KW, MT = PT::MT, S = PT::S;
+  constexpr int KC = PROD_KC, AP = PROD_AP, BN = PROD_BN, TP = PROD_TP;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int is_last;
+  const long long life0 = NIC_PHASE_NS(), c_start = NIC_PHASE_CLOCK();
+  long long c_wait = 0, c_mul = 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp / WK, wk = warp % WK;
+  const int strip = blockIdx.x, rt = blockIdx.y, z = blockIdx.z;
+  const int m0 = rt * MT, n0 = strip * a.strip_cols;
+  const int k0 = z * a.ksplit, k1 = min(a.K, k0 + a.ksplit), nk = cdiv(k1 - k0, KC);
+  const int r0 = wr * 4 * TR + (lane >> 3), c0 = 4 * (lane & 7);
+  const T* A = (const T*)a.A;
+  const T* B = (const T*)a.B;
+
+  auto load = [&](int c) {   // chunk c of the block's depth into slot c % S
+    float* As = sm + (c % S) * PT::STAGE;
+    float* Bs = As + MT * AP;
+    const int kc = k0 + c * KC;
+    if constexpr (std::is_same<T, float>::value) {
+      if (a.vec) {
+        for (int e = tid; e < MT * (KC / 4); e += THREADS) {
+          const int row = e / (KC / 4), q = 4 * (e % (KC / 4));
+          float* d = As + row * AP + q;
+          if (m0 + row < a.M && kc + q < k1)
+            cp_async16(d, A + (size_t)(m0 + row) * a.lda + kc + q);
+          else
+            zero16(d);
+        }
+        for (int e = tid; e < KC * (BN / 4); e += THREADS) {
+          const int kk = e / (BN / 4), j = 4 * (e % (BN / 4));
+          bool ok;
+          const int col = prod_col(a, n0, j, ok);
+          float* d = Bs + kk * BN + j;
+          if (ok && kc + kk < k1) cp_async16(d, B + (size_t)(kc + kk) * a.ldb + col);
+          else zero16(d);
+        }
+        return;
       }
     }
-  }
-}
+    for (int e = tid; e < MT * KC; e += THREADS) {
+      const int row = e / KC, k = kc + e % KC;
+      As[row * AP + e % KC] =
+          m0 + row < a.M && k < k1 ? ld(A + (size_t)(m0 + row) * a.lda + k) : 0.f;
+    }
+    for (int e = tid; e < KC * BN; e += THREADS) {
+      const int kk = e / BN, j = e % BN;
+      bool ok;
+      const int col = prod_col(a, n0, j, ok);
+      Bs[kk * BN + j] = ok && kc + kk < k1 ? ld(B + (size_t)(kc + kk) * a.ldb + col) : 0.f;
+    }
+  };
 
-// The splits' partial sums added in split order, then the epilogue.
-template <class T, int EPI>
-__global__ void __launch_bounds__(THREADS) split_epilogue_kernel(GemmArgs<T> a) {
-  constexpr int NB = EPI == EPI_GLU ? 2 : 1;
-  const size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= (size_t)a.M * a.Ncols) return;
-  const int m = (int)(e / a.Ncols), n = (int)(e % a.Ncols);
-  float s[NB] = {};
-  for (int z = 0; z < a.splits; ++z)
+  float acc[TR][2][4] = {};
 #pragma unroll
-    for (int g = 0; g < NB; ++g)
-      s[g] += a.part[((size_t)z * a.M + m) * (NB * a.Ncols) + g * a.Ncols + n];
-  epilogue<T, EPI>(a, m, n, s[0], s[NB - 1]);
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nk) load(c);
+    cp_async_commit();
+  }
+  const long long c_pro = NIC_PHASE_CLOCK() - c_start;
+  for (int c = 0; c < nk; ++c) {
+    const long long t0 = NIC_PHASE_CLOCK();
+    cp_async_wait<S - 2>();   // chunk c has landed (this thread's copies)
+    __syncthreads();          // every thread's, and slot (c - 1) % S is free
+    if (c + S - 1 < nk) load(c + S - 1);
+    cp_async_commit();
+    const long long t1 = NIC_PHASE_CLOCK();
+    const float* As = sm + (c % S) * PT::STAGE + r0 * AP + wk * KW;
+    const float* Bs = sm + (c % S) * PT::STAGE + MT * AP + wk * KW * BN + c0;
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) {
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * BN);
+      const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * BN + 32);
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const float x = As[4 * i * AP + kk];
+        acc[i][0][0] = fmaf(x, b0.x, acc[i][0][0]);
+        acc[i][0][1] = fmaf(x, b0.y, acc[i][0][1]);
+        acc[i][0][2] = fmaf(x, b0.z, acc[i][0][2]);
+        acc[i][0][3] = fmaf(x, b0.w, acc[i][0][3]);
+        acc[i][1][0] = fmaf(x, b1.x, acc[i][1][0]);
+        acc[i][1][1] = fmaf(x, b1.y, acc[i][1][1]);
+        acc[i][1][2] = fmaf(x, b1.z, acc[i][1][2]);
+        acc[i][1][3] = fmaf(x, b1.w, acc[i][1][3]);
+      }
+    }
+    const long long t2 = NIC_PHASE_CLOCK();
+    c_wait += t1 - t0;
+    c_mul += t2 - t1;
+  }
+  cp_async_wait<0>();
+  const long long c_loop = NIC_PHASE_CLOCK();
+  // Each depth slice's sums into its own tile over the ring, then thread
+  // t adds the slices of float4s t, t + THREADS, .. in slice order into
+  // slice 0's tile, which the epilogue reads.
+  __syncthreads();            // the ring is free
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      *reinterpret_cast<float4*>(sm + (wk * MT + r0 + 4 * i) * TP + c0 + 32 * jj) =
+          make_float4(acc[i][jj][0], acc[i][jj][1], acc[i][jj][2], acc[i][jj][3]);
+  __syncthreads();
+  float4 sum[PT::PER4];
+#pragma unroll
+  for (int q = 0; q < PT::PER4; ++q) {
+    const int e = tid + q * THREADS, at = (4 * e / BN) * TP + 4 * e % BN;
+    sum[q] = *reinterpret_cast<const float4*>(sm + at);
+#pragma unroll
+    for (int s = 1; s < WK; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(sm + s * MT * TP + at);
+      sum[q] = make_float4(sum[q].x + v.x, sum[q].y + v.y, sum[q].z + v.z, sum[q].w + v.w);
+    }
+  }
+  long long c_part = 0, c_sum = 0;
+  if (a.splits > 1) {
+    // This split's tile to device memory; the last of the strip's splits
+    // to arrive adds the splits' tiles in split order.
+    const size_t tile4 = (size_t)MT * BN / 4;
+    const size_t me = (size_t)rt * gridDim.x + strip;
+    const size_t zstride = (size_t)gridDim.y * gridDim.x * tile4;
+    float4* p0 = reinterpret_cast<float4*>(a.part) + me * tile4;
+#pragma unroll
+    for (int q = 0; q < PT::PER4; ++q) p0[z * zstride + tid + q * THREADS] = sum[q];
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();        // the block's tile is visible before its arrival
+      is_last = atomicAdd(a.counters + me, 1u) == (unsigned)(a.splits - 1);
+    }
+    __syncthreads();
+    c_part = NIC_PHASE_CLOCK() - c_loop;
+    if (!is_last) {
+      PROD_PHASES(a.epi, c_wait, c_mul, c_part, 0, 0);
+      return;
+    }
+    __threadfence();
+    if (tid == 0) a.counters[me] = 0u;   // for the next launch
+    // The splits' tiles added in split order, four splits of every
+    // float4 of the thread requested at once.
+    float4 own[PT::PER4], t[PT::PER4];
+#pragma unroll
+    for (int q = 0; q < PT::PER4; ++q) {
+      own[q] = sum[q];
+      t[q] = z == 0 ? own[q] : __ldcg(p0 + tid + q * THREADS);
+    }
+    for (int zz = 1; zz < a.splits; zz += 4) {
+      float4 v[4][PT::PER4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int q = 0; q < PT::PER4; ++q)
+          if (zz + u < a.splits)
+            v[u][q] = zz + u == z ? own[q] : __ldcg(p0 + (zz + u) * zstride + tid + q * THREADS);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int q = 0; q < PT::PER4; ++q)
+          if (zz + u < a.splits)
+            t[q] = make_float4(t[q].x + v[u][q].x, t[q].y + v[u][q].y, t[q].z + v[u][q].z,
+                               t[q].w + v[u][q].w);
+    }
+#pragma unroll
+    for (int q = 0; q < PT::PER4; ++q) sum[q] = t[q];
+    c_sum = NIC_PHASE_CLOCK() - c_loop - c_part;
+  } else {
+    c_part = NIC_PHASE_CLOCK() - c_loop;
+  }
+  const long long c_epi0 = NIC_PHASE_CLOCK();
+#pragma unroll
+  for (int q = 0; q < PT::PER4; ++q) {
+    const int e = tid + q * THREADS;
+    *reinterpret_cast<float4*>(sm + (4 * e / BN) * TP + 4 * e % BN) = sum[q];
+  }
+  __syncthreads();
+  // The epilogue from the tile at the reference's rounding points,
+  // consecutive threads on consecutive output columns, each thread's
+  // operands requested before any use.
+  if (a.epi == EPI_GLU) {
+    constexpr int H2 = BN / 2, PG = MT * H2 / THREADS;
+    float ba[PG], bg[PG];
+#pragma unroll
+    for (int q = 0; q < PG; ++q) {
+      const int e = tid + q * THREADS, n = n0 + e % H2;
+      const bool ok = m0 + e / H2 < a.M && n < a.width;
+      ba[q] = ok ? ld((const T*)a.bias + n) : 0.f;
+      bg[q] = ok ? ld((const T*)a.bias + a.width + n) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < PG; ++q) {
+      const int e = tid + q * THREADS, ml = e / H2, j = e % H2, m = m0 + ml, n = n0 + j;
+      if (m >= a.M || n >= a.width) continue;
+      const float av = round_to<T>(round_to<T>(sm[ml * TP + j]) + ba[q]);
+      const float gv = round_to<T>(round_to<T>(sm[ml * TP + H2 + j]) + bg[q]);
+      const float sig = round_to<T>(1.f / (1.f + expf(-gv)));
+      ((T*)a.out)[(size_t)m * a.width + n] = store_as<T>(round_to<T>(av * sig));
+    }
+  } else {
+    constexpr int PE = PT::PER;
+    float bv[PE], rv[PE];
+#pragma unroll
+    for (int q = 0; q < PE; ++q) {
+      const int e = tid + q * THREADS, m = m0 + e / BN, n = n0 + e % BN;
+      const bool ok = m < a.M && n < a.width;
+      const size_t at = (size_t)m * a.width + n;
+      bv[q] = ok && (a.epi == EPI_RELU || a.epi == EPI_RESID) ? ld((const T*)a.bias + n) : 0.f;
+      rv[q] = ok && a.epi == EPI_RESID ? ld((const T*)a.resid + at) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < PE; ++q) {
+      const int e = tid + q * THREADS, ml = e / BN, j = e % BN, m = m0 + ml, n = n0 + j;
+      if (m >= a.M || n >= a.width) continue;
+      const float s0 = sm[ml * TP + j];
+      const size_t at = (size_t)m * a.width + n;
+      if (a.epi == EPI_RELU)
+        ((T*)a.out)[at] = store_as<T>(fmaxf(round_to<T>(round_to<T>(s0) + bv[q]), 0.f));
+      else if (a.epi == EPI_RESID)
+        ((T*)a.out)[at] = store_as<T>(round_to<T>(round_to<T>(round_to<T>(s0) + bv[q]) + rv[q]));
+      else if (a.epi == EPI_SUM)
+        ((float*)a.out)[at] = s0;
+      else   // EPI_LOGIT: the tap logit, rounded, kept in fp32
+        ((float*)a.out)[at] = round_to<T>(s0);
+    }
+  }
+  PROD_PHASES(a.epi, c_wait, c_mul, c_part, c_sum, NIC_PHASE_CLOCK() - c_epi0);
 }
 
-template <class T, int EPI, int RPT>
-cudaError_t run_gemm_rpt(const GemmArgs<T>& a, cudaStream_t stream) {
-  const dim3 grid(cdiv(a.M, 16 * RPT), cdiv(a.Ncols, TN), a.splits);
-  gemm_kernel<T, EPI, RPT><<<grid, THREADS, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return err;
-  const size_t n = (size_t)a.M * a.Ncols;
-  split_epilogue_kernel<T, EPI><<<(unsigned)((n + THREADS - 1) / THREADS),
-                                  THREADS, 0, stream>>>(a);
+template <class T, class PT>
+cudaError_t launch_product(const ProdArgs& a, cudaStream_t stream) {
+  const long long strips = cdiv(a.width, a.strip_cols), row_tiles = cdiv(a.M, PT::MT);
+  if (strips > 0x7fffffff || row_tiles > 65535 ||
+      (a.splits > 1 && (a.part == nullptr || a.counters == nullptr ||
+                        strips * row_tiles > PROD_MAX_COUNTERS)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(product_kernel<T, PT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         PT::SMEM);
+  if (err != cudaSuccess) return err;
+  product_kernel<T, PT><<<dim3((unsigned)strips, (unsigned)row_tiles, a.splits), THREADS,
+                          PT::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <class T, int EPI>
-cudaError_t run_gemm(GemmArgs<T> a, cudaStream_t stream) {
-  if (a.M < 1 || a.K < 1 || a.Ncols < 1 || a.ksplit < KC || a.ksplit % KC != 0)
+// One product: `tile` a code of GENERIC_TILES, ksplit the depth a block
+// (a multiple of PROD_KC); the caller sets a.epi and a.width, the rest
+// follows from them here.
+template <class T>
+cudaError_t run_product(ProdArgs a, int tile, int ksplit, cudaStream_t stream) {
+  if (tile < 0 || tile > 2 || a.M < 1 || a.K < 1 || a.width < 1 || ksplit < PROD_KC ||
+      ksplit % PROD_KC != 0)
     return cudaErrorInvalidValue;
-  a.splits = cdiv(a.K, a.ksplit);
-  if (a.splits > 65535 || (a.splits > 1 && a.part == nullptr))
-    return cudaErrorInvalidValue;
-  return a.M <= 16 ? run_gemm_rpt<T, EPI, 1>(a, stream)
-                   : run_gemm_rpt<T, EPI, 2>(a, stream);
+  a.ksplit = ksplit;
+  a.splits = cdiv(a.K, ksplit);
+  if (a.splits > 65535) return cudaErrorInvalidValue;
+  a.strip_cols = a.epi == EPI_GLU ? PROD_BN / 2 : PROD_BN;
+  a.vec = std::is_same<T, float>::value &&
+          ((uintptr_t)a.A | (uintptr_t)a.B) % 16 == 0 && a.lda % 4 == 0 &&
+          a.K % 4 == 0 && a.ldb % 4 == 0 && a.width % 4 == 0;
+  if (tile == 0) return launch_product<T, Tile16>(a, stream);
+  if (tile == 1) return launch_product<T, Tile32>(a, stream);
+  return launch_product<T, Tile80>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
-// The conv block's taps, softmax and ring combine, for MIX_ROWS rows of
-// one head a block: grid (row tiles, heads).
-//   logits[r][k] = r(h[n] . taps[hd][k]), p = r(softmax_k(logits)),
-//   acc = sum_{k < K-1} p[k] * cache[(pos_n + k) mod (K-1)][n][c] (fp32),
-//   hconv[n][c] = r(r(acc) + r(p[K-1] * h[n][c])) for the head's channels.
+// The conv block's softmax and ring combine, grid (channel blocks x N),
+// MIX_THREADS threads, a channel c of row n a thread. The warps first
+// turn the rounded tap logits of each head the block's channels touch
+// into probabilities (lane k tap k; the max and the sum of exponentials
+// by the warp's tree), rounded to the dtype; then, with hd = c / R (R =
+// C / H),
+//   acc = sum_{k < K-1} p[hd][k] * cache[(pos_n + k) mod (K-1)][n][c]
+//   (fp32, k in order), hconv[n][c] = r(r(acc) + r(p[hd][K-1] h[n][c])),
+// the thread's K - 1 cache rows requested at once, its ring slots
+// stepped once from its row's position.
 template <class T>
-__global__ void __launch_bounds__(THREADS)
-    conv_mix_kernel(const T* __restrict__ h, const T* __restrict__ taps,
-                    const T* __restrict__ cache, const int* __restrict__ pos,
-                    int t, T* __restrict__ hconv, int N, int C, int H, int K,
-                    int kp) {
-  __shared__ float hs[MIX_ROWS][MIX_CC + 1];
-  __shared__ float ts[MAX_TAPS][MIX_CC + 1];
-  __shared__ float ps[MIX_ROWS][MAX_TAPS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * MIX_ROWS, hd = blockIdx.y, R = C / H;
-  const T* th = taps + (size_t)hd * kp * C;
-  // Thread (row warp, tap lane) sums its logit over the channels.
-  float logit = 0.f;
-  for (int c0 = 0; c0 < C; c0 += MIX_CC) {
-    __syncthreads();
-    for (int e = tid; e < MIX_ROWS * MIX_CC; e += THREADS) {
-      const int r = e / MIX_CC, c = c0 + e % MIX_CC;
-      hs[r][e % MIX_CC] = (n0 + r < N && c < C) ? ld(h + (size_t)(n0 + r) * C + c) : 0.f;
-    }
-    for (int e = tid; e < K * MIX_CC; e += THREADS) {
-      const int k = e / MIX_CC, c = c0 + e % MIX_CC;
-      ts[k][e % MIX_CC] = c < C ? ld(th + (size_t)k * C + c) : 0.f;
-    }
-    __syncthreads();
-    if (lane < K) {
-#pragma unroll 8
-      for (int c = 0; c < MIX_CC; ++c) logit = fmaf(hs[warp][c], ts[lane][c], logit);
-    }
+__global__ void __launch_bounds__(MIX_THREADS)
+    conv_mix_kernel(const T* __restrict__ h, const float* __restrict__ logits,
+                    const T* __restrict__ cache, const int* __restrict__ pos, int t,
+                    T* __restrict__ hconv, int N, int C, int H, int K) {
+  __shared__ float ps[MIX_THREADS + 1][MAX_TAPS];
+  const long long life0 = NIC_PHASE_NS(), c_start = NIC_PHASE_CLOCK();
+  const int cblocks = cdiv(C, MIX_THREADS);
+  const int n = blockIdx.x / cblocks, cb = (blockIdx.x % cblocks) * MIX_THREADS;
+  const int R = C / H, Km1 = K - 1;
+  const int hd0 = cb / R, nh = min(C - 1, cb + MIX_THREADS - 1) / R - hd0 + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = warp; j < nh; j += MIX_THREADS / 32) {
+    const float v = lane < K ? logits[((size_t)n * H + hd0 + j) * K + lane] : -INFINITY;
+    const float mx = warp_max(v);
+    const float ex = lane < K ? expf(v - mx) : 0.f;
+    const float sum = warp_sum(ex);
+    if (lane < K) ps[j][lane] = round_to<T>(ex / sum);
   }
-  // Softmax over the K taps of row `warp`, at the reference's rounding
-  // points: the logit rounded, the probability rounded.
-  const float v = lane < K ? round_to<T>(logit) : -INFINITY;
-  const float mx = warp_max(v);
-  const float ex = lane < K ? expf(v - mx) : 0.f;
-  const float sum = warp_sum(ex);
-  ps[warp][lane] = lane < K ? round_to<T>(ex / sum) : 0.f;
   __syncthreads();
-  const int Km1 = K - 1;
-  for (int e = tid; e < MIX_ROWS * R; e += THREADS) {
-    const int r = e / R, n = n0 + r;
-    if (n >= N) continue;
-    const int c = hd * R + e % R;
+  const int c = cb + threadIdx.x;
+  if (c < C) {
+    const float* p = ps[c / R - hd0];
     float acc = 0.f;
     if (Km1 > 0) {
-      const int p = pos != nullptr ? pos[n] : t;
-#pragma unroll 8
-      for (int k = 0; k < Km1; ++k)
-        acc = fmaf(ps[r][k], ld(cache + ((size_t)((p + k) % Km1) * N + n) * C + c), acc);
+      const int p0 = pos != nullptr ? pos[n] : t;
+      int s = (p0 % Km1 + Km1) % Km1;
+      float x[MAX_TAPS - 1];
+#pragma unroll
+      for (int k = 0; k < MAX_TAPS - 1; ++k) {
+        if (k < Km1) {
+          x[k] = ld(cache + ((size_t)s * N + n) * C + c);
+          s = s + 1 == Km1 ? 0 : s + 1;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < MAX_TAPS - 1; ++k)
+        if (k < Km1) acc = fmaf(p[k], x[k], acc);
     }
-    const float cur = round_to<T>(ps[r][Km1] * ld(h + (size_t)n * C + c));
-    hconv[(size_t)n * C + c] = store_as<T>(round_to<T>(round_to<T>(acc) + cur));
+    const size_t at = (size_t)n * C + c;
+    const float cur = round_to<T>(p[Km1] * ld(h + at));
+    hconv[at] = store_as<T>(round_to<T>(round_to<T>(acc) + cur));
+  }
+  if (threadIdx.x == 0) {
+    NIC_PHASE_ADD(KIND_MIX, 0, 1);
+    NIC_PHASE_ADD(KIND_MIX, 5, NIC_PHASE_CLOCK() - c_start);
+    NIC_PHASE_ADD(KIND_MIX, 6, NIC_PHASE_NS() - life0);
+    NIC_PHASE_ADD(KIND_MIX, 7, NIC_PHASE_CLOCK() - c_start);
+    NIC_PHASE_MAX(KIND_MIX, 8, ~(unsigned long long)life0);
+    NIC_PHASE_MAX(KIND_MIX, 9, life0);
+    NIC_PHASE_MAX(KIND_MIX, 10, NIC_PHASE_NS());
   }
 }
 
@@ -1001,42 +1279,46 @@ int attention_generic(AttnArgs a, int smem, cudaStream_t stream) {
 
 template <class T>
 int ffn_generic(const void* x, const void* w1, const void* b1, const void* w2,
-                const void* b2, void* h, void* part, void* y, void* sums, int N,
-                int C, int F, int ksplit1, int ksplit2, cudaStream_t stream) {
+                const void* b2, void* h, void* part, void* counters, void* y,
+                void* sums, int N, int C, int F, int tile1, int ksplit1, int tile2,
+                int ksplit2, cudaStream_t stream) {
   if (N < 1 || C < 1 || F < 1 || (b2 == nullptr) != (sums != nullptr))
     return (int)cudaErrorInvalidValue;
-  GemmArgs<T> fc1 = {(const T*)x, (const T*)w1, (const T*)b1, nullptr,
-                     (T*)h, nullptr, (float*)part, N, C, C, F, F, ksplit1, 1};
-  cudaError_t err = run_gemm<T, EPI_RELU>(fc1, stream);
+  ProdArgs fc1{x, w1, b1, nullptr, h, (float*)part, (unsigned*)counters,
+               N, C, C, F, F, 0, 0, EPI_RELU};
+  cudaError_t err = run_product<T>(fc1, tile1, ksplit1, stream);
   if (err != cudaSuccess) return (int)err;
-  GemmArgs<T> fc2 = {(const T*)h, (const T*)w2, (const T*)b2, (const T*)x,
-                     (T*)y, (float*)sums, (float*)part, N, F, F, C, C, ksplit2, 1};
-  err = b2 == nullptr ? run_gemm<T, EPI_SUM>(fc2, stream)
-                      : run_gemm<T, EPI_RESID>(fc2, stream);
-  return (int)err;
+  ProdArgs fc2{h, w2, b2, x, b2 == nullptr ? sums : y, (float*)part, (unsigned*)counters,
+               N, F, F, C, C, 0, 0, b2 == nullptr ? EPI_SUM : EPI_RESID};
+  return (int)run_product<T>(fc2, tile2, ksplit2, stream);
 }
 
 template <class T>
-int conv_generic(const void* x, const void* cache, const void* pos,
-                 const void* w1, const void* b1, const void* taps,
-                 const void* w2, const void* b2, void* h, void* hconv,
-                 void* part, void* y, int N, int C, int H, int K, int kp, int t,
-                 int ksplit1, int ksplit2, cudaStream_t stream) {
+int conv_generic(const void* x, const void* cache, const void* pos, const void* w1,
+                 const void* b1, const void* wl, const void* w2, const void* b2,
+                 void* h, void* logits, void* hconv, void* part, void* counters,
+                 void* y, int N, int C, int H, int K, int t, int tile1, int ksplit1,
+                 int tile_t, int ksplit_t, int tile2, int ksplit2, cudaStream_t stream) {
   if (N < 1 || C < 1 || H < 1 || C % H != 0 || K < 1 || K > MAX_TAPS ||
-      kp < K || (pos == nullptr && t < 0) || N > 65535 * MIX_ROWS || H > 65535 ||
-      (K > 1 && cache == nullptr))
+      (pos == nullptr && t < 0) || (K > 1 && cache == nullptr))
     return (int)cudaErrorInvalidValue;
-  GemmArgs<T> lin1 = {(const T*)x, (const T*)w1, (const T*)b1, nullptr,
-                      (T*)h, nullptr, (float*)part, N, C, C, 2 * C, C, ksplit1, 1};
-  cudaError_t err = run_gemm<T, EPI_GLU>(lin1, stream);
+  ProdArgs lin1{x, w1, b1, nullptr, h, (float*)part, (unsigned*)counters,
+                N, C, C, 2 * C, C, 0, 0, EPI_GLU};
+  cudaError_t err = run_product<T>(lin1, tile1, ksplit1, stream);
   if (err != cudaSuccess) return (int)err;
-  conv_mix_kernel<T><<<dim3(cdiv(N, MIX_ROWS), H), THREADS, 0, stream>>>(
-      (const T*)h, (const T*)taps, (const T*)cache, (const int*)pos, t,
-      (T*)hconv, N, C, H, K, kp);
+  ProdArgs taps{h, wl, nullptr, nullptr, logits, (float*)part, (unsigned*)counters,
+                N, C, C, H * K, H * K, 0, 0, EPI_LOGIT};
+  err = run_product<T>(taps, tile_t, ksplit_t, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)cdiv(C, MIX_THREADS) * N;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  conv_mix_kernel<T><<<(unsigned)blocks, MIX_THREADS, 0, stream>>>(
+      (const T*)h, (const float*)logits, (const T*)cache, (const int*)pos, t,
+      (T*)hconv, N, C, H, K);
   NIC_RETURN_IF_LAUNCH_FAILED();
-  GemmArgs<T> lin2 = {(const T*)hconv, (const T*)w2, (const T*)b2, (const T*)x,
-                      (T*)y, nullptr, (float*)part, N, C, C, C, C, ksplit2, 1};
-  return (int)run_gemm<T, EPI_RESID>(lin2, stream);
+  ProdArgs lin2{hconv, w2, b2, x, y, (float*)part, (unsigned*)counters,
+                N, C, C, C, C, 0, 0, EPI_RESID};
+  return (int)run_product<T>(lin2, tile2, ksplit2, stream);
 }
 
 }  // namespace gen
@@ -1098,40 +1380,43 @@ extern "C" int nic_decode_attention_generic(int dtype, const void* q,
 
 // y [N, C] = r(r(r(h w2) + b2) + x), h = relu(r(r(x w1) + b1)) written
 // to h [N, F]; with b2 null, the fp32 sums h w2 to sums [N, C] instead
-// (y not written). w1 [C, F], b1 [F], w2 [F, C], b2 [C]. ksplit1 and
-// ksplit2: the depth a block of fc1 and fc2 (multiples of 32); where one
-// is below C or F, part holds the splits' fp32 sums
-// (cdiv(depth, ksplit) * N * width floats). Returns a cudaError_t.
+// (y not written). w1 [C, F], b1 [F], w2 [F, C], b2 [C]. fc1 and fc2 run
+// as products of tile codes tile1, tile2 (ops/decode_blocks.py::
+// GENERIC_TILES) with ksplit1, ksplit2 of the depth a block (multiples of
+// 32); where one splits its depth, part holds the splits' fp32 tiles and
+// counters (PROD_MAX_COUNTERS, zero) their arrivals
+// (ops/decode_blocks.py::generic_product_plan). Returns a cudaError_t.
 extern "C" int nic_decode_ffn_block_generic(int dtype, const void* x,
                                             const void* w1, const void* b1,
                                             const void* w2, const void* b2,
-                                            void* h, void* part, void* y,
-                                            void* sums, int N, int C, int F,
-                                            int ksplit1, int ksplit2,
-                                            void* stream) {
-  NIC_GENERIC_DISPATCH(ffn_generic, x, w1, b1, w2, b2, h, part, y, sums, N, C,
-                                   F, ksplit1, ksplit2, (cudaStream_t)stream);
+                                            void* h, void* part, void* counters,
+                                            void* y, void* sums, int N, int C,
+                                            int F, int tile1, int ksplit1,
+                                            int tile2, int ksplit2, void* stream) {
+  NIC_GENERIC_DISPATCH(ffn_generic, x, w1, b1, w2, b2, h, part, counters, y, sums,
+                       N, C, F, tile1, ksplit1, tile2, ksplit2, (cudaStream_t)stream);
 }
 
 // y, h = the conv block step for N rows: x [N, C]; cache [K - 1, N, C]
 // ring-major (not read at K = 1, may be null then); pos null (every row
 // at step t >= 0) or int32 [N], each row's position; w1 [C, 2C], b1
-// [2C], taps [H, kp, C] (ops/decode_blocks.py::pack_taps), w2 [C, C],
-// b2 [C]; 1 <= K <= 32. Scratch: hconv [N, C]; part as the FFN's for
-// linear1 (width 2C) and linear2 (width C). Returns a cudaError_t.
-extern "C" int nic_decode_conv_block_generic(int dtype, const void* x,
-                                             const void* cache,
-                                             const void* pos, const void* w1,
-                                             const void* b1, const void* taps,
-                                             const void* w2, const void* b2,
-                                             void* h, void* hconv, void* part,
-                                             void* y, int N, int C, int H,
-                                             int K, int kp, int t, int ksplit1,
-                                             int ksplit2, void* stream) {
-  NIC_GENERIC_DISPATCH(conv_generic, x, cache, pos, w1, b1, taps, w2, b2, h,
-                                    hconv, part, y, N, C, H, K, kp, t, ksplit1,
-                                    ksplit2, (cudaStream_t)stream);
+// [2C], wl [C, H K] the tap predictor (head-major), w2 [C, C], b2 [C];
+// 1 <= K <= 32. Scratch: logits [N, H K] fp32 (the tap logits, rounded
+// to the dtype), hconv [N, C]; part and counters as the FFN's, for
+// linear1 (tile1, ksplit1), the tap logits (tile_t, ksplit_t) and
+// linear2 (tile2, ksplit2). Returns a cudaError_t.
+extern "C" int nic_decode_conv_block_generic(
+    int dtype, const void* x, const void* cache, const void* pos, const void* w1,
+    const void* b1, const void* wl, const void* w2, const void* b2, void* h,
+    void* logits, void* hconv, void* part, void* counters, void* y, int N, int C,
+    int H, int K, int t, int tile1, int ksplit1, int tile_t, int ksplit_t,
+    int tile2, int ksplit2, void* stream) {
+  NIC_GENERIC_DISPATCH(conv_generic, x, cache, pos, w1, b1, wl, w2, b2, h, logits,
+                       hconv, part, counters, y, N, C, H, K, t, tile1, ksplit1,
+                       tile_t, ksplit_t, tile2, ksplit2, (cudaStream_t)stream);
 }
+
+NIC_DEFINE_PHASE_SUMS_READER(nic_decode_generic_sums)
 
 // band_topk_lse's generic variant over an int8 table [V, D] with one
 // scale a row [V] of x's dtype: a logit is the fp32 sum x . table[v]

@@ -30,11 +30,15 @@ bit for bit.
 
 The generic variants (`csrc/decode_generic.cu`, `decode_conv_block_generic`
 and `decode_ffn_block_generic`) take bf16 or fp32 at any C and F, K from
-1 to 32 and any head size, with FFMA and fp32 sums: the products split
-their depth over blocks, the splits' fp32 sums added in order by a
-second kernel before the epilogue (`generic_ksplit`); the conv block's
-taps, softmax and ring combine run a head and 8 rows a block, and at
-K = 1 the ring is never read. `route_conv` and `route_ffn` are the one
+1 to 32 and any head size, with FFMA and fp32 sums. Their products are
+one kernel each (`generic_product_plan`): a block owns a strip of output
+columns over all the call's rows (row tiles only past 80), the weights
+read once; where the strips leave the card short of blocks the depth is
+split, and the last split of a strip to arrive adds the splits in order
+(one counter a strip, `GENERIC_COUNTERS` a device, zeroed once and kept
+by the kernel). The conv block is linear1 with the GLU, the tap logits
+h wl, their softmax with the ring combine (at K = 1 the ring is never
+read) and linear2. `route_conv` and `route_ffn` are the one
 predicate each wrapper chooses by: "fast" where `admits_conv` /
 `admits_ffn` hold, else "generic" where `admits_conv_generic` /
 `admits_ffn_generic` hold, else ValueError with both reasons. The
@@ -49,6 +53,7 @@ In fp32 the roundings are no-ops.
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -58,15 +63,22 @@ from news_image_caption_tpu_torch.ops import _build
 MAX_TAPS = 32
 _CONV_ARGTYPES = [_build.P] * 12 + [_build.I] * 9 + [_build.P]
 _FFN_ARGTYPES = [_build.P] * 9 + [_build.I] * 6 + [_build.P, _build.P]
-_CONV_GENERIC_ARGTYPES = [_build.I] + [_build.P] * 12 + [_build.I] * 8 \
+_CONV_GENERIC_ARGTYPES = [_build.I] + [_build.P] * 14 + [_build.I] * 11 \
     + [_build.P]
-_FFN_GENERIC_ARGTYPES = [_build.I] + [_build.P] * 9 + [_build.I] * 5 \
+_FFN_GENERIC_ARGTYPES = [_build.I] + [_build.P] * 10 + [_build.I] * 7 \
     + [_build.P]
-# The generic kernels' products: output columns a tile and depth a chunk,
-# the blocks a product aims at before it splits its depth, and the least
-# depth a split.
-GENERIC_COLS, GENERIC_DEPTH = 64, 32
-GENERIC_BLOCKS, GENERIC_MIN_SPLIT = 2 * _build.H100_SMS, 128
+# The generic kernels' products (csrc/decode_generic.cu::product_kernel):
+# the columns of a tile, the tiles (rows, columns, slots of the ring) by
+# code, the depth a chunk, the blocks the card runs at once, the least
+# depth a split, the strips below which a product takes 16-row tiles,
+# and the counters of the splits' arrivals a device.
+GENERIC_COLS = 64
+GENERIC_TILES = ((16, GENERIC_COLS, 8), (32, GENERIC_COLS, 6),
+                 (80, GENERIC_COLS, 6))
+GENERIC_DEPTH = 32
+GENERIC_BLOCKS, GENERIC_MIN_SPLIT = _build.H100_SMS, 128
+GENERIC_NARROW, GENERIC_COUNTERS = 16, 256
+_generic_counters: dict = {}
 # The conv block kernel: channels a block, rows of x a tile (the tensor
 # cores' 16-row operand), rows a launch.
 CONV_STRIP, CONV_ROWS, CONV_MAX_ROWS = 16, 16, 128
@@ -396,55 +408,125 @@ def route_ffn(dtype, N: int, C: int, F: int,
     return "generic"
 
 
-def generic_ksplit(M: int, K: int, width: int, groups: int = 1) -> int:
-    """The depth a block of a generic product of M rows, depth K and
-    `width` output columns (`groups` column sets a block, the GLU's 2):
-    all of K where the row and column tiles give GENERIC_BLOCKS blocks,
-    else K split into whole chunks of at least GENERIC_MIN_SPLIT until
-    they do."""
-    tiles = -(-M // (16 if M <= 16 else 32)) * -(-width // GENERIC_COLS)
-    splits = max(1, min(-(-GENERIC_BLOCKS // (tiles * groups)),
-                        -(-K // GENERIC_MIN_SPLIT)))
-    return -(-(-(-K // splits)) // GENERIC_DEPTH) * GENERIC_DEPTH
+class ProductPlan(NamedTuple):
+    """How a generic product cuts its work: block (s, r, z) of the grid
+    (strips, row_tiles, splits) owns output columns [s * strip_cols, (s +
+    1) * strip_cols) of rows [r * rows, (r + 1) * rows) over the depth
+    [z * ksplit, (z + 1) * ksplit), in a tile of `tile` (a code of
+    GENERIC_TILES: `rows` x `cols`; the GLU's tile holds a strip's a and
+    g columns, `cols` / 2 each). Where the depth is split, `part_floats`
+    of fp32 scratch hold the splits' tiles and `counters` counters their
+    arrivals."""
+
+    tile: int
+    rows: int
+    cols: int
+    strip_cols: int
+    strips: int
+    row_tiles: int
+    ksplit: int
+    splits: int
+    part_floats: int
+    counters: int
+    smem_bytes: int
 
 
-def _generic_scratch(x, products):
-    """fp32 scratch for the splits' partial sums of the products, each
-    (M, K, width, groups): the largest that any of them needs."""
-    floats = 0
-    for M, K, width, groups in products:
-        ksplit = generic_ksplit(M, K, width, groups)
-        if ksplit < K:
-            floats = max(floats, -(-K // ksplit) * M * width * groups)
-    return torch.empty(max(floats, 1), device=x.device, dtype=torch.float32)
+def generic_tile_smem_bytes(rows: int, cols: int, stages: int) -> int:
+    """Dynamic shared memory of a product block (csrc/decode_generic.cu::
+    ProdTile::SMEM): the ring's `stages` slots of an A chunk [rows][32 +
+    4] and a B chunk [32][cols], fp32."""
+    return 4 * stages * (rows * (GENERIC_DEPTH + 4) + GENERIC_DEPTH * cols)
+
+
+def generic_product_plan(M: int, depth: int, width: int,
+                         glu: bool = False) -> ProductPlan:
+    """The plan of a generic product of M rows, `depth` and `width`
+    output columns (fc1, fc2, the tap logits, linear2; with `glu`
+    linear1, whose tile holds a strip's a and g columns). Rows a tile:
+    16, 32 or 80 (row tiles past 80; 16 where the product has fewer
+    than GENERIC_NARROW strips), 64 columns; where the tiles are fewer
+    than GENERIC_BLOCKS (the blocks the card runs at once), the depth
+    split into whole chunks of at least GENERIC_MIN_SPLIT where that
+    spreads the work over the multiprocessors more evenly."""
+    _build.require(M >= 1 and depth >= 1 and width >= 1,
+                   f"generic product: need M, depth, width >= 1, got M={M},"
+                   f" depth={depth}, width={width}")
+    strip_cols = GENERIC_COLS // 2 if glu else GENERIC_COLS
+    strips = -(-width // strip_cols)
+    # A narrow product (the tap logits) takes 16-row tiles, for blocks.
+    tile = 0 if M <= 16 or strips < GENERIC_NARROW else 1 if M <= 32 else 2
+    rows, cols, stages = GENERIC_TILES[tile]
+    row_tiles = -(-M // rows)
+    base = strips * row_tiles
+    # Where the tiles leave the card short of blocks, the fewest splits
+    # that give the busiest multiprocessor the least work: waves of
+    # GENERIC_BLOCKS blocks, ceil(base s / GENERIC_BLOCKS) blocks of 1 / s
+    # of a strip's depth on it.
+    most = max(1, -(-depth // GENERIC_MIN_SPLIT)) if base < GENERIC_BLOCKS \
+        else 1
+    splits = min(range(1, most + 1),
+                 key=lambda s: (Fraction(-(-base * s // GENERIC_BLOCKS), s),
+                                s))
+    ksplit = -(-(-(-depth // splits)) // GENERIC_DEPTH) * GENERIC_DEPTH
+    splits = -(-depth // ksplit)
+    split = splits > 1
+    return ProductPlan(tile, rows, cols, strip_cols, strips, row_tiles,
+                       ksplit, splits,
+                       splits * row_tiles * strips * rows * cols if split
+                       else 0, row_tiles * strips if split else 0,
+                       generic_tile_smem_bytes(rows, cols, stages))
+
+
+def _generic_scratch(x, plans):
+    """fp32 scratch for the splits' tiles of the plans (the largest any
+    of them needs) and the device's arrival counters (None where no plan
+    splits its depth)."""
+    floats = max(p.part_floats for p in plans)
+    if not floats:
+        return None, None
+    _build.require(max(p.counters for p in plans) <= GENERIC_COUNTERS,
+                   f"generic product: more than {GENERIC_COUNTERS} split"
+                   " strips")
+    counters = _generic_counters.get(x.device)
+    if counters is None:
+        counters = _generic_counters[x.device] = torch.zeros(
+            GENERIC_COUNTERS, device=x.device, dtype=torch.int32)
+    return torch.empty(floats, device=x.device,
+                       dtype=torch.float32), counters
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_conv_generic(x, cache, t, w1, b1, wl, w2, b2, num_heads, taps):
+    """The generic kernel over x's rows. It reads the tap predictor wl
+    itself; `taps` (the fast kernel's packing) is not used."""
     N, C = x.shape
     H = num_heads
     K = wl.shape[1] // H
     ok, why = admits_conv_generic(x.dtype, N, C, H, K)
     _build.require(ok, why)
     pos, t = _step_or_positions(t, x)
-    if taps is None:
-        taps = pack_taps(wl, H)
-    kp = _padded_taps(K)
-    _check_inputs("decode_conv_block", (x, cache, w1, b1, wl, w2, b2, taps),
+    _check_inputs("decode_conv_block", (x, cache, w1, b1, wl, w2, b2),
                   [(N, C), (K - 1, N, C), (C, 2 * C), (2 * C,), (C, H * K),
-                   (C, C), (C,), (H, kp, C)])
+                   (C, C), (C,)])
     fn = _build.function("nic_decode_conv_block_generic",
                          _CONV_GENERIC_ARGTYPES)
+    plans = (generic_product_plan(N, C, C, glu=True),
+             generic_product_plan(N, C, H * K), generic_product_plan(N, C, C))
     h = torch.empty_like(x)
     y = torch.empty_like(x)
     hconv = torch.empty_like(x)
-    part = _generic_scratch(x, [(N, C, C, 2), (N, C, C, 1)])
+    logits = torch.empty(N, H * K, device=x.device, dtype=torch.float32)
+    part, counters = _generic_scratch(x, plans)
     _build.check(fn(_build.GENERIC_DTYPES[x.dtype], x.data_ptr(),
-                    cache.data_ptr() if K > 1 else None,
-                    None if pos is None else pos.data_ptr(), w1.data_ptr(),
-                    b1.data_ptr(), taps.data_ptr(), w2.data_ptr(),
-                    b2.data_ptr(), h.data_ptr(), hconv.data_ptr(),
-                    part.data_ptr(), y.data_ptr(), N, C, H, K, kp, t,
-                    generic_ksplit(N, C, C, 2), generic_ksplit(N, C, C),
+                    cache.data_ptr() if K > 1 else None, _ptr(pos),
+                    w1.data_ptr(), b1.data_ptr(), wl.data_ptr(),
+                    w2.data_ptr(), b2.data_ptr(), h.data_ptr(),
+                    logits.data_ptr(), hconv.data_ptr(), _ptr(part),
+                    _ptr(counters), y.data_ptr(), N, C, H, K, t,
+                    *(v for p in plans for v in (p.tile, p.ksplit)),
                     _build.stream_of(x)), "decode_conv_block generic")
     decode_conv_block_generic.launches += 1
     return y, h
@@ -463,16 +545,17 @@ def _launch_ffn_generic(x, w1, b1, w2, b2):
                   [(N, C), (C, F), (F,), (F, C), (C,)])
     fn = _build.function("nic_decode_ffn_block_generic",
                          _FFN_GENERIC_ARGTYPES)
+    plans = (generic_product_plan(N, C, F), generic_product_plan(N, F, C))
     h = torch.empty(N, F, device=x.device, dtype=x.dtype)
     y = torch.empty(N, C, device=x.device,
                     dtype=torch.float32 if partial else x.dtype)
-    part = _generic_scratch(x, [(N, C, F, 1), (N, F, C, 1)])
+    part, counters = _generic_scratch(x, plans)
     _build.check(fn(_build.GENERIC_DTYPES[x.dtype], x.data_ptr(),
                     w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    None if partial else b2.data_ptr(), h.data_ptr(),
-                    part.data_ptr(), None if partial else y.data_ptr(),
+                    _ptr(b2), h.data_ptr(), _ptr(part), _ptr(counters),
+                    None if partial else y.data_ptr(),
                     y.data_ptr() if partial else None, N, C, F,
-                    generic_ksplit(N, C, F), generic_ksplit(N, F, C),
+                    *(v for p in plans for v in (p.tile, p.ksplit)),
                     _build.stream_of(x)), "decode_ffn_block generic")
     decode_ffn_block_generic.launches += 1
     return y

@@ -1125,6 +1125,86 @@ def test_attention_generic_splits_on_card(cuda_device, dtype, B, Q, S, E, H):
     assert torch.equal(got, again)
 
 
+def _block_inputs(device, dtype, seed, *shapes_scales):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn(*shape, generator=g) * scale).to(dtype).to(device)
+            for shape, scale in shapes_scales]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("N,C,F", [
+    (1, 1024, 4096), (16, 1024, 4096), (17, 1024, 4096), (32, 1024, 4096),
+    (33, 1024, 4096), (80, 1024, 4096), (81, 1024, 4096), (640, 1024, 4096),
+    (5, 100, 200), (81, 48, 200), (33, 200, 48), (3, 1, 5)])
+def test_ffn_generic_plan_edges_on_card(cuda_device, dtype, partial, N, C, F):
+    """The generic FFN where its plan changes (`generic_product_plan`):
+    rows 1 to 640 at the row tiles' edges (16, 32, 80), the flagship's
+    widths and widths off every tile and chunk (C, F of 1 to 200), the
+    whole block and the partial mode's fp32 sums: against the plain
+    version (fp32 within 1e-5 + 1e-5 |ref|; bf16 within 0.02 + 0.02
+    |ref|, its fp32 sums 2e-3 + 1e-3 |ref|), a second call bit-equal,
+    one launch a call."""
+    x, w1, b1, w2, b2 = _block_inputs(
+        cuda_device, dtype, N + C + F, ((N, C), 1.0), ((C, F), C ** -0.5),
+        ((F,), 0.05), ((F, C), F ** -0.5), ((C,), 0.05))
+    args = (x, w1, b1, w2, None if partial else b2)
+    before = decode_ffn_block_generic.launches
+    got, again = decode_ffn_block_generic(*args), decode_ffn_block_generic(*args)
+    torch.cuda.synchronize()
+    assert decode_ffn_block_generic.launches == before + 2
+    if partial:
+        want = decode_ffn_block_partial_plain(x, w1, b1, w2)
+        tol = FP32_TOL if dtype == torch.float32 else dict(atol=2e-3,
+                                                           rtol=1e-3)
+    else:
+        want = decode_ffn_block_plain(*args)
+        tol = FP32_TOL if dtype == torch.float32 else dict(atol=0.02,
+                                                           rtol=0.02)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_pos", [False, True])
+@pytest.mark.parametrize("N,C,H,K", [
+    (1, 1024, 16, 3), (16, 1024, 16, 31), (17, 1024, 16, 32),
+    (32, 1024, 16, 1), (33, 1024, 16, 15), (80, 1024, 16, 31),
+    (81, 1024, 16, 7), (640, 1024, 16, 3), (5, 100, 4, 31), (40, 48, 3, 32),
+    (81, 200, 8, 1), (3, 24, 3, 5)])
+def test_conv_generic_plan_edges_on_card(cuda_device, dtype, rows_pos, N, C,
+                                         H, K):
+    """The generic conv block where its plan changes: rows 1 to 640 at
+    the row tiles' edges, K = 1, 3, 7, 15, 31 and 32 (the tap logits'
+    strips of whole heads), widths off every tile (C of 24 to 200, heads
+    of 8 to 64), one step index or a position a row: h and y against the
+    plain version (fp32 within 1e-5 + 1e-5 |ref|; bf16 h within 0.02 +
+    0.02 |ref|, y 0.05 + 0.05 |ref|), a second call bit-equal, one launch
+    a call."""
+    x, cache, w1, b1, wl, w2, b2 = _block_inputs(
+        cuda_device, dtype, N + C + K, ((N, C), 1.0), ((K - 1, N, C), 0.5),
+        ((C, 2 * C), C ** -0.5), ((2 * C,), 0.05),
+        ((C, H * K), 0.05 if dtype == torch.bfloat16 else 0.3),
+        ((C, C), C ** -0.5), ((C,), 0.05))
+    t = (torch.arange(N, dtype=torch.int32, device=cuda_device) * 7 % (
+        3 * K + 3)) if rows_pos else 2 * K + 3
+    args = (x, cache, t, w1, b1, wl, w2, b2, H)
+    before = decode_conv_block_generic.launches
+    y, h = decode_conv_block_generic(*args)
+    y2, h2 = decode_conv_block_generic(*args)
+    torch.cuda.synchronize()
+    assert decode_conv_block_generic.launches == before + 2
+    py, ph = decode_conv_block_plain(*args)
+    fp32 = dtype == torch.float32
+    torch.testing.assert_close(h.float(), ph.float(), **(
+        FP32_TOL if fp32 else dict(atol=0.02, rtol=0.02)))
+    torch.testing.assert_close(y.float(), py.float(), **(
+        FP32_TOL if fp32 else dict(atol=0.05, rtol=0.05)))
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,V,k", [(16, 1024, 5000, 1),

@@ -20,6 +20,8 @@ through `params_from_jax`, fp32: greedy tokens equal, log-probs within
 2e-4).
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 
@@ -766,6 +768,175 @@ def test_generic_attention_splits_cover_the_keys():
     assert beam.scores_floats * 4 == 2631680                 # 2.6 MB
     with pytest.raises(ValueError, match="1 <= Q <= 16"):
         decode_attention.generic_attention_plan(16, 17, 514, 16, 64)
+
+
+# -- the generic blocks' products (csrc/decode_generic.cu::product_kernel) --
+
+GENERIC_ROWS = [1, 5, 16, 17, 33, 80, 81, 640]
+GENERIC_PRODUCTS = [
+    (1024, 4096, False), (4096, 1024, False),       # fc1, fc2
+    (1024, 1024, True), (1024, 1024, False),        # linear1, linear2
+    (1024, 16 * 31, False), (1024, 16 * 3, False),  # the tap logits
+    (48, 100, False), (100, 200, False), (200, 48, False), (100, 7, False),
+    (48, 48, True), (100, 100, True), (200, 200, True), (32, 1, True)]
+
+
+def _product_checks(M, depth, width, glu):
+    """The plan's blocks cover every output element once, its splits the
+    depth in order; its tile, strips, scratch and shared memory."""
+    plan = decode_blocks.generic_product_plan(M, depth, width, glu)
+    rows, cols, stages = decode_blocks.GENERIC_TILES[plan.tile]
+    narrow = -(-width // (32 if glu else 64)) < decode_blocks.GENERIC_NARROW
+    assert (plan.rows, plan.cols) == (rows, cols) == (
+        16 if M <= 16 or narrow else 32 if M <= 32 else 80, 64)
+    seen = np.zeros((M, width), np.int32)
+    for s in range(plan.strips):
+        for r in range(plan.row_tiles):
+            seen[r * plan.rows:(r + 1) * plan.rows,
+                 s * plan.strip_cols:(s + 1) * plan.strip_cols] += 1
+    assert (seen == 1).all()
+    assert plan.strips == -(-width // plan.strip_cols)
+    assert plan.row_tiles == -(-M // plan.rows)
+    # The GLU's tile holds a strip's a and g columns, half a tile each.
+    assert plan.strip_cols == (plan.cols // 2 if glu else plan.cols)
+    # The depth: splits of whole 32-deep chunks, in order, none empty.
+    assert plan.ksplit % 32 == 0 and plan.ksplit >= 32
+    ends = [min(depth, (z + 1) * plan.ksplit) for z in range(plan.splits)]
+    assert ends[-1] == depth and all(
+        e > z * plan.ksplit for z, e in enumerate(ends))
+    # The depth splits into at most depth / GENERIC_MIN_SPLIT pieces, only
+    # where the tiles are fewer than a wave of GENERIC_BLOCKS blocks, and
+    # only where that leaves the busiest multiprocessor less work.
+    base = plan.strips * plan.row_tiles
+    waves = decode_blocks.GENERIC_BLOCKS
+
+    def busiest(s):
+        return Fraction(-(-base * s // waves), s)
+    assert plan.splits <= max(1, -(-depth // decode_blocks.GENERIC_MIN_SPLIT))
+    assert plan.splits == 1 or busiest(plan.splits) < busiest(1)
+    assert plan.splits == 1 or base < waves
+    # Scratch: each split's fp32 tile, one arrival counter a strip and
+    # row tile, none without a split.
+    split = plan.splits > 1
+    assert plan.part_floats == (plan.splits * plan.row_tiles * plan.strips
+                                * plan.rows * plan.cols if split else 0)
+    assert plan.counters == (base if split else 0)
+    assert plan.counters <= decode_blocks.GENERIC_COUNTERS
+    # Shared memory: the ring's slots of an A chunk [rows][36] and a B
+    # chunk [32][64] fit a block, and hold the depth slices' tiles [rows]
+    # [68] (8 slices of the 16- and 32-row tiles, 4 of the 80-row one);
+    # two 16-row blocks a multiprocessor (228 KB, 1 KB a block reserved).
+    assert plan.smem_bytes == 4 * stages * (rows * 36 + 32 * cols)
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+    assert (4 if rows == 80 else 8) * rows * 68 * 4 <= plan.smem_bytes
+    assert rows != 16 or 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    return plan
+
+
+@pytest.mark.parametrize("M", GENERIC_ROWS)
+@pytest.mark.parametrize("depth,width,glu", GENERIC_PRODUCTS)
+def test_generic_product_plan_covers_every_output_once(M, depth, width, glu):
+    """`generic_product_plan` at the plan's row edges (1 to 640 rows),
+    the flagship's products and widths off every tile: every output
+    element in exactly one tile, the depth split in order into whole
+    chunks only where that evens the card's load, the scratch and
+    counters of its splits, shared memory for the ring and the depth
+    slices' sums."""
+    _product_checks(M, depth, width, glu)
+
+
+@pytest.mark.parametrize("M", GENERIC_ROWS)
+def test_generic_tap_logits_plan_at_every_kernel_size(M):
+    """The tap logits' product at K = 1 to 32 taps, 16 and 3 heads
+    (width H K): every logit once."""
+    for K in range(1, 33):
+        for H, depth in ((16, 1024), (3, 48)):
+            _product_checks(M, depth, H * K, False)
+
+
+def test_generic_product_plans_of_the_flagship():
+    """The fp32 flagship's products: greedy (16 rows) and beam-5 B=16 (80
+    rows) in one row tile each, so every weight is read once a call;
+    fc1's 64 strips split in 2, fc2's 16 in 8, linear1's 32 in 4,
+    linear2's 16 in 8 (128 blocks each, one wave); the tap logits' 8
+    strips (K = 31) in 16-row tiles, split in 8 at greedy and in 3 over
+    beam-5's 5 row tiles; 640 rows in 8 row tiles, no split."""
+    plan = decode_blocks.generic_product_plan
+    for M in (16, 80):
+        got = [plan(M, 1024, 4096), plan(M, 4096, 1024),
+               plan(M, 1024, 1024, True), plan(M, 1024, 1024),
+               plan(M, 1024, 16 * 31)]
+        assert [(p.row_tiles, p.strips, p.splits) for p in got] == [
+            (1, 64, 2), (1, 16, 8), (1, 32, 4), (1, 16, 8),
+            (1, 8, 8) if M == 16 else (5, 8, 3)]
+        assert got[0].rows == (16 if M == 16 else 80)
+    big = [plan(640, 1024, 4096), plan(640, 4096, 1024),
+           plan(640, 1024, 1024, True), plan(640, 1024, 1024)]
+    assert [(p.row_tiles, p.splits) for p in big] == [
+        (8, 1), (8, 1), (8, 1), (8, 1)]
+    with pytest.raises(ValueError, match="generic product"):
+        plan(16, 0, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("N,C,F", [(16, 1024, 4096), (80, 1024, 4096),
+                                   (640, 1024, 4096), (1, 32, 64),
+                                   (33, 100, 200)])
+def test_generic_ffn_launch_passes_the_plan(recording_library, dtype, partial,
+                                            N, C, F):
+    """The generic FFN's launch passes fc1's and fc2's tiles and depth a
+    block from `generic_product_plan`, and fp32 scratch and the device's
+    arrival counters exactly where a product splits its depth; one launch
+    counted."""
+    before = decode_blocks.decode_ffn_block_generic.launches
+    decode_blocks._launch_ffn_generic(z(dtype, N, C), z(dtype, C, F),
+                                      z(dtype, F), z(dtype, F, C),
+                                      None if partial else z(dtype, C))
+    ((name, args),) = recording_library
+    plans = (decode_blocks.generic_product_plan(N, C, F),
+             decode_blocks.generic_product_plan(N, F, C))
+    assert name == "nic_decode_ffn_block_generic"
+    assert args[0] == _build.GENERIC_DTYPES[dtype]
+    assert args[11:18] == (N, C, F, plans[0].tile, plans[0].ksplit,
+                           plans[1].tile, plans[1].ksplit)
+    split = any(p.splits > 1 for p in plans)
+    assert (args[7] is not None, args[8] is not None) == (split, split)
+    assert (args[9] is None, args[10] is None) == (partial, not partial)
+    assert decode_blocks.decode_ffn_block_generic.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,C,H,K", [(16, 1024, 16, 31), (80, 1024, 16, 3),
+                                     (640, 1024, 16, 7), (5, 32, 4, 1),
+                                     (40, 48, 3, 32), (81, 100, 4, 5)])
+def test_generic_conv_launch_passes_the_plan(recording_library, dtype, N, C,
+                                             H, K):
+    """The generic conv block's launch passes linear1's, the tap logits'
+    and linear2's tiles and depth a block from `generic_product_plan`,
+    scratch and counters where any splits, no cache at K = 1, and the
+    step or the positions; one launch counted."""
+    before = decode_blocks.decode_conv_block_generic.launches
+    args = (z(dtype, N, C), z(dtype, max(K - 1, 0), N, C), 3,
+            z(dtype, C, 2 * C), z(dtype, 2 * C), z(dtype, C, H * K),
+            z(dtype, C, C), z(dtype, C), H, None)
+    decode_blocks._launch_conv_generic(*args)
+    pos = torch.arange(N, dtype=torch.int32)
+    decode_blocks._launch_conv_generic(*args[:2], pos, *args[3:])
+    plans = (decode_blocks.generic_product_plan(N, C, C, True),
+             decode_blocks.generic_product_plan(N, C, H * K),
+             decode_blocks.generic_product_plan(N, C, C))
+    split = any(p.splits > 1 for p in plans)
+    for (name, cargs), step in zip(recording_library, (True, False)):
+        assert name == "nic_decode_conv_block_generic"
+        assert cargs[15:26] == (N, C, H, K, 3 if step else 0,
+                                *(v for p in plans
+                                  for v in (p.tile, p.ksplit)))
+        assert (cargs[2] is None) == (K == 1)
+        assert (cargs[3] is None) == step
+        assert (cargs[12] is not None, cargs[13] is not None) == (split,
+                                                                  split)
+    assert decode_blocks.decode_conv_block_generic.launches == before + 2
 
 
 def test_tiny_model_decodes_and_trains_on_the_cpu():
